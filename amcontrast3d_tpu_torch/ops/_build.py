@@ -1,0 +1,129 @@
+"""Build the CUDA kernels of ``csrc/`` with nvcc and load them with ctypes.
+
+All ``csrc/*.cu`` files compile into one shared library with a plain C
+interface (no PyTorch headers, so a build takes seconds, not minutes).  The
+library is written to ``amcontrast3d_tpu_torch/_build/``, named by a hash
+of the sources and flags, so an edit to any kernel rebuilds it and an
+unchanged tree reuses it.  Without ``nvcc``, or when the build fails, this
+raises :class:`KernelBuildError`; nothing falls back to another path.
+
+Every C entry point takes its pointers and the CUDA stream as ``void*``
+and returns ``cudaGetLastError()`` after the launch.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC_DIR = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+# where the CUDA toolkit lives when neither CUDA_HOME nor PATH names it
+DEFAULT_CUDA_HOME = Path("/usr/local/cuda")
+
+# -fmad=false: no FMA contraction, so d² = (dx·dx + dy·dy) + dz·dz rounds
+# exactly as the plain PyTorch twins (separate mul/add ops) round it
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-fmad=false", "-Xptxas=-v", "-shared",
+              "-Xcompiler", "-fPIC")
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C signatures: (argtypes), all returning the cudaError_t as an int
+_SIGNATURES = {
+    # xyz (B,N,3) f32, out (B,npoint) i32, B, N, npoint, stream
+    "amc3d_fps": (_P, _P, _I, _I, _I, _P),
+    # support (B,N,3), query (B,M,3), out (B,M,k) i32, B, N, M, k, r², stream
+    "amc3d_ball_query": (_P, _P, _P, _I, _I, _I, _I, _F, _P),
+    # p1 (B,N1,3), p2 (B,N2,3), f2 (B,N2,C), out (B,N1,C), B, N1, N2, C, stream
+    "amc3d_three_interpolate": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+}
+
+
+class KernelBuildError(RuntimeError):
+    """The CUDA kernels could not be built or loaded."""
+
+
+def find_nvcc() -> str:
+    """Path of nvcc: ``$CUDA_HOME/bin``, then ``PATH``, then the default
+    toolkit directory.  Raises :class:`KernelBuildError` if none has it."""
+    cuda_home = os.environ.get("CUDA_HOME")
+    candidates = [Path(cuda_home) / "bin" / "nvcc"] if cuda_home else []
+    on_path = shutil.which("nvcc")
+    if on_path:
+        candidates.append(Path(on_path))
+    candidates.append(DEFAULT_CUDA_HOME / "bin" / "nvcc")
+    for nvcc in candidates:
+        if nvcc.is_file() and os.access(nvcc, os.X_OK):
+            return str(nvcc)
+    raise KernelBuildError(
+        "nvcc not found (looked in $CUDA_HOME/bin, PATH and "
+        f"{DEFAULT_CUDA_HOME}/bin): the CUDA kernels of "
+        f"{CSRC_DIR} cannot be built.  CUDA tensors need them; CPU tensors "
+        "run the plain PyTorch ops and need no build.")
+
+
+def _sources():
+    return sorted(CSRC_DIR.glob("*.cu")), sorted(CSRC_DIR.glob("*.cuh"))
+
+
+def library_path() -> Path:
+    """Where the library for the current sources and flags lives."""
+    cu, cuh = _sources()
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in cu + cuh:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libamc3d_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the kernels unless the library for these sources exists.
+
+    Returns the library path; the compiler's output (``-Xptxas=-v``:
+    registers, shared memory and spills per kernel) is kept beside it as
+    ``.log``."""
+    so = library_path()
+    if so.exists():
+        return so
+    nvcc = find_nvcc()
+    so.parent.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+    cu, _ = _sources()
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, cu)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise KernelBuildError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+            f"{proc.stdout}{proc.stderr}")
+    so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    os.replace(tmp, so)     # atomic: a concurrent loader never sees half a file
+    return so
+
+
+@functools.cache
+def load_library() -> ctypes.CDLL:
+    """Build (first use) and load the kernel library, with every entry
+    point's ``argtypes``/``restype`` declared."""
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    lib.amc3d_error_string.argtypes = [ctypes.c_int]
+    lib.amc3d_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def launch(name: str, *args) -> None:
+    """Call C entry point ``name`` and raise if its launch failed."""
+    lib = load_library()
+    err = getattr(lib, name)(*args)
+    if err != 0:
+        msg = lib.amc3d_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA launch failed ({err}: {msg})")

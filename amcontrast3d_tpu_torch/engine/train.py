@@ -1,0 +1,79 @@
+"""The train step.
+
+↔ ``amcontrast3d_tpu/engine/train.py::make_train_step`` for the kinds
+``base`` (BaseSeg, ``criterion(logits, y)``) and ``aa``
+(BaseSeg_AMContrast3D with ``CrossEntropyAce``).  One call is one step:
+the forward in training mode, the loss, the backward, the global-norm
+clip, the step's learning rate, AdamW, and the confusion matrix of the
+train logits.  The model and the optimizer hold the state that JAX
+carries in ``TrainState``; the step counter lives in ``step.state``.
+Not ported yet: ``mm``, adahessian, the plateau scale, frozen-parameter
+labels and the sharded steps.
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional, Union
+
+import torch
+from torch import nn
+
+from ..optim import clip_by_global_norm_
+from ..utils.metrics import confusion_matrix_update
+
+
+def make_train_step(model: nn.Module, criterion: Callable,
+                    optimizer: torch.optim.Optimizer,
+                    lr_schedule: Union[Callable[[int], float], float],
+                    kind: str, num_classes: int,
+                    ignore_index: Optional[int] = None,
+                    ambiguity_args: Optional[Dict] = None,
+                    grad_norm_clip: Optional[float] = None,
+                    generator: Optional[torch.Generator] = None
+                    ) -> Callable[[Dict], Dict[str, torch.Tensor]]:
+    """Returns ``step(batch) → {"loss", "cm"}`` for a batch of device
+    tensors ``pos`` (B, N, 3), ``x`` (B, N, C_in), ``y`` (B, N).
+
+    ``generator`` (on the model's device) draws the dropout masks; step s
+    reseeds it with its initial seed + s, so a step's masks depend only
+    on the seed and the step (as JAX folds the step into its key).
+    Nothing is read back to the host."""
+    if kind not in ("base", "aa"):
+        raise NotImplementedError(f"train step kind {kind} is not ported")
+    ambiguity_args = dict(ambiguity_args or {})
+    params = [p for g in optimizer.param_groups for p in g["params"]]
+    seed = generator.initial_seed() if generator is not None else None
+    state = {"step": 0}
+
+    def step(batch: Dict) -> Dict[str, torch.Tensor]:
+        s = state["step"]
+        model.train()
+        if generator is not None:
+            generator.manual_seed(seed + s)
+        target = batch["y"]
+        out = model(batch["pos"], batch["x"], generator=generator)
+        if kind == "base":
+            logits = out
+            loss = criterion(logits, target)
+        else:
+            logits, stages = out
+            key = "f_up" if ambiguity_args.get("stages", "up") == "up" \
+                else "f_down"
+            up = list(zip(stages["p"], stages[key]))
+            loss = criterion(logits, target, up, num_classes, ignore_index,
+                             ambiguity_args)
+        optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        if grad_norm_clip is not None and grad_norm_clip > 0:
+            clip_by_global_norm_(params, grad_norm_clip)
+        lr = lr_schedule(s) if callable(lr_schedule) else lr_schedule
+        for group in optimizer.param_groups:
+            group["lr"] = lr
+        optimizer.step()
+        with torch.no_grad():
+            cm = confusion_matrix_update(logits.argmax(-1), target,
+                                         num_classes, ignore_index)
+        state["step"] = s + 1
+        return {"loss": loss.detach(), "cm": cm}
+
+    step.state = state
+    return step

@@ -10,6 +10,8 @@
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 from torch import nn
 
@@ -57,10 +59,11 @@ class BaseSeg(nn.Module):
         self.head = (_build_head(cls_args, self.decoder, self.encoder)
                      if cls_args is not None else None)
 
-    def forward(self, pos: torch.Tensor, features: torch.Tensor) -> torch.Tensor:
+    def forward(self, pos: torch.Tensor, features: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         p, f = self.encoder(pos, features)
         f = self.decoder(p, f)[0] if self.decoder is not None else f[-1]
-        return self.head(f) if self.head is not None else f
+        return self.head(f, generator) if self.head is not None else f
 
 
 @MODELS.register_module()
@@ -74,10 +77,11 @@ class BaseSeg_AMContrast3D(nn.Module):
                                       self.encoder)
         self.head = _build_head(cls_args, self.decoder, self.encoder)
 
-    def forward(self, pos: torch.Tensor, features: torch.Tensor):
+    def forward(self, pos: torch.Tensor, features: torch.Tensor,
+                generator: Optional[torch.Generator] = None):
         p, f = self.encoder(pos, features)
         f_out, up_features = self.decoder(p, f)
-        logits = self.head(f_out)
+        logits = self.head(f_out, generator)
         n = len(up_features)
         stages = {"p": tuple(p[1:1 + n]), "f_down": tuple(f[1:1 + n]),
                   "f_up": tuple(up_features)}

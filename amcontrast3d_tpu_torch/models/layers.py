@@ -60,14 +60,50 @@ def create_act(act_args) -> Optional[Callable]:
 
 
 class ChannelsLastBatchNorm(nn.BatchNorm1d):
-    """BatchNorm over every axis but the last of a ``(..., C)`` tensor."""
+    """BatchNorm over every axis but the last of a ``(..., C)`` tensor.
+
+    Training mode normalises with the batch statistics (torch's two-pass
+    variance; flax computes ``E[x²] − E[x]²``) and moves the running
+    statistics toward the batch mean and the *biased* batch variance, as
+    flax's ``nn.BatchNorm`` does; torch's own update uses the unbiased one."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return super().forward(x.reshape(-1, x.shape[-1])).view(x.shape)
+        x2 = x.reshape(-1, x.shape[-1])
+        if not self.training:
+            return super().forward(x2).view(x.shape)
+        y = F.batch_norm(x2, None, None, self.weight, self.bias, True, 0.0,
+                         self.eps)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x2, dim=0, correction=0)
+            m = self.momentum
+            self.running_mean.mul_(1 - m).add_(mean, alpha=m)
+            self.running_var.mul_(1 - m).add_(var, alpha=m)
+            self.num_batches_tracked.add_(1)
+        return y.view(x.shape)
 
 
 def batch_norm(channels: int) -> ChannelsLastBatchNorm:
     return ChannelsLastBatchNorm(channels, eps=1e-5, momentum=0.1)
+
+
+class Dropout(nn.Module):
+    """Inverted dropout whose mask comes from an explicit generator (↔
+    flax ``nn.Dropout``: keep with probability 1−rate, scale by
+    1/(1−rate)).  The identity in eval mode; in training mode a
+    ``generator`` on the tensor's device is required."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if not self.training or self.rate == 0:
+            return x
+        if generator is None:
+            raise ValueError("dropout in training mode needs a generator")
+        keep = torch.empty_like(x).bernoulli_(1 - self.rate, generator=generator)
+        return x * keep / (1 - self.rate)
 
 
 class ConvBlock(nn.Module):

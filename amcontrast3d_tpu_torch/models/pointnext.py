@@ -25,7 +25,7 @@ from ..ops.group import (CHANNEL_MAP, create_grouper, gather_points,
                          get_aggregation_features, group_points)
 from ..ops.interpolate import three_interpolation
 from ..ops.knn import ball_query, knn
-from .layers import ConvBlock, _norm_name, batch_norm, create_act
+from .layers import ConvBlock, Dropout, _norm_name, batch_norm, create_act
 
 
 def to_full_list(param, blocks: Sequence[int], strides: Sequence[int],
@@ -454,7 +454,7 @@ class SegHead(nn.Module):
             layers.append(ConvBlock(cin, cout, norm_args=norm_args,
                                     act_args=act_args))
             if dropout:
-                layers.append(nn.Dropout(dropout))
+                layers.append(Dropout(dropout))
         layers.append(ConvBlock(mlps[-2], mlps[-1]))
         n = 0   # flax names only the ConvBlocks: ConvBlock_0, ConvBlock_1, …
         for layer in layers:
@@ -464,7 +464,8 @@ class SegHead(nn.Module):
             else:
                 self.add_module(f"Dropout_{n - 1}", layer)
 
-    def forward(self, f):
+    def forward(self, f, generator: Optional[torch.Generator] = None):
+        """``generator`` draws the dropout masks in training mode."""
         if self.global_feat is not None:
             feats = [f]
             for ft in self.global_feat.split(","):
@@ -477,5 +478,5 @@ class SegHead(nn.Module):
                 feats.append(g.expand_as(f))
             f = torch.cat(feats, -1)
         for layer in self.children():
-            f = layer(f)
+            f = layer(f, generator) if isinstance(layer, Dropout) else layer(f)
         return f

@@ -1,7 +1,8 @@
 """Build the CUDA kernels of ``csrc/`` with nvcc and load them with ctypes.
 
 All ``csrc/*.cu`` files compile into one shared library with a plain C
-interface (no PyTorch headers, so a build takes seconds, not minutes).  The
+interface (no PyTorch headers, so a build takes seconds, not minutes):
+one nvcc per source, all started together, then one link.  The
 library is written to ``amcontrast3d_tpu_torch/_build/``, named by a hash
 of the sources and flags, so an edit to any kernel rebuilds it and an
 unchanged tree reuses it.  Without ``nvcc``, or when the build fails, this
@@ -29,8 +30,7 @@ DEFAULT_CUDA_HOME = Path("/usr/local/cuda")
 # -fmad=false: no FMA contraction, so d² = (dx·dx + dy·dy) + dz·dz rounds
 # exactly as the plain PyTorch twins (separate mul/add ops) round it
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-Xptxas=-v", "-shared",
-              "-Xcompiler", "-fPIC")
+              "-O3", "-fmad=false", "-Xptxas=-v", "-Xcompiler", "-fPIC")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures: (argtypes), all returning the cudaError_t as an int
@@ -39,8 +39,22 @@ _SIGNATURES = {
     "amc3d_fps": (_P, _P, _I, _I, _I, _P),
     # support (B,N,3), query (B,M,3), out (B,M,k) i32, B, N, M, k, r², stream
     "amc3d_ball_query": (_P, _P, _P, _I, _I, _I, _I, _F, _P),
-    # p1 (B,N1,3), p2 (B,N2,3), f2 (B,N2,C), out (B,N1,C), B, N1, N2, C, stream
-    "amc3d_three_interpolate": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # p1 (B,N1,3), p2 (B,N2,3), f2 (B,N2,C), out (B,N1,C), idx_out (B,N1,3)
+    # i32 or null, w_out (B,N1,3) or null, B, N1, N2, C, stream
+    "amc3d_three_interpolate": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # g (B,N1,C), idx (B,N1,3) i32, w (B,N1,3), df2 (B,N2,C) zeroed, B, N1,
+    # N2, C, stream
+    "amc3d_three_interpolate_backward": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # p (B,N,3), f (B,N,C), lab (B,N), kth (B,N), out (B,N,9), B, N, C,
+    # tinv, cctype_root, need_s, need_d, stream
+    "amc3d_contrast_forward": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I,
+                               _I, _P),
+    # p, f, lab, kth, g4 (B,N,4) (gradients of P, Q, Spos, Sneg),
+    # df (B,N,C), B, N, C, tinv, need_s, stream
+    "amc3d_contrast_grad_rows": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I,
+                                 _P),
+    "amc3d_contrast_grad_support": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F,
+                                    _I, _P),
 }
 
 
@@ -92,17 +106,37 @@ def build() -> Path:
         return so
     nvcc = find_nvcc()
     so.parent.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cu, _ = _sources()
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, cu)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise KernelBuildError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}")
-    so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, so)     # atomic: a concurrent loader never sees half a file
+    work = so.with_name(f"{so.stem}.{os.getpid()}.tmp")
+    work.mkdir()
+    try:
+        cu, _ = _sources()
+        objs = [work / f"{src.stem}.o" for src in cu]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+                for src, obj in zip(cu, objs)]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for cmd in cmds]
+        log = []
+        for cmd, proc in zip(cmds, procs):
+            out, _ = proc.communicate()
+            log.append(out)
+            if proc.returncode != 0:
+                for other in procs:
+                    other.kill()
+                    other.wait()
+                raise KernelBuildError(
+                    f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}")
+        lib = work / so.name
+        cmd = [nvcc, "-shared", "-o", str(lib), *map(str, objs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise KernelBuildError(
+                f"nvcc link failed ({proc.returncode}): {' '.join(cmd)}\n"
+                f"{proc.stdout}{proc.stderr}")
+        so.with_suffix(".log").write_text("".join(log))
+        os.replace(lib, so)   # atomic: a concurrent loader never sees half a file
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     return so
 
 

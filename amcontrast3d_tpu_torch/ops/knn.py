@@ -44,15 +44,24 @@ def knn(support: torch.Tensor, query: torch.Tensor,
     index (as ``lax.top_k``), and their d² (B, M, k) f32.  For k > N the
     extra slots hold index 0 at d² = 1e10, as in the JAX package."""
     B, N, _ = support.shape
+    kk = min(k, N)
+    arange = torch.arange(N, device=support.device)
     idx_tiles, d2_tiles = [], []
     for s in range(0, query.shape[1], _KNN_TILE):
         d2 = pairwise_d2(query[:, s:s + _KNN_TILE], support)
+        # one int64 key per pair orders by (d², index): d² ≥ +0, whose
+        # float bits order as integers, and the index breaks ties
+        key = d2.view(torch.int32).to(torch.int64).bitwise_left_shift_(32)
+        key.bitwise_or_(arange)
+        idx = torch.topk(key, kk, dim=-1, largest=False, sorted=True).indices
+        del key
+        vals = torch.gather(d2, -1, idx)
         if k > N:
-            d2 = torch.cat([d2, d2.new_full((*d2.shape[:2], k - N), _INF)], -1)
-        vals, idx = torch.sort(d2, dim=-1, stable=True)
-        idx = idx[..., :k]
-        idx_tiles.append(torch.where(idx < N, idx, 0).to(torch.int32))
-        d2_tiles.append(vals[..., :k])
+            idx = torch.cat([idx, idx.new_zeros((*idx.shape[:2], k - N))], -1)
+            vals = torch.cat([vals, vals.new_full((*vals.shape[:2], k - N),
+                                                  _INF)], -1)
+        idx_tiles.append(idx.to(torch.int32))
+        d2_tiles.append(vals)
     return torch.cat(idx_tiles, 1), torch.cat(d2_tiles, 1)
 
 

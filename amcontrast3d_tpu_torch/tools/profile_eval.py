@@ -11,7 +11,7 @@ It prints, each block tagged with the card's name and power limit:
    median and quartiles of 20 steps after 3 warm-up steps, and the peak
    device memory;
 2. the same for 3 steps with the plain PyTorch twins in place of the
-   three kernels (FPS, ball query, interpolation);
+   kernels (FPS, ball query, interpolation);
 3. device ms per forward of every CUDA kernel from ``torch.profiler``
    over 3 steps, their sum, and the card's idle share of the wall time
    (1 − kernel time / wall time).
@@ -45,14 +45,18 @@ def card() -> str:
 
 @contextmanager
 def plain_ops():
-    """Route the model's three kernel ops to their plain PyTorch twins."""
+    """Route every kernel op of the model and the loss to its plain
+    PyTorch twin (the twins' backward included)."""
     from .. import ops
+    from ..loss import contrast
     from ..models import pointnext
     with ExitStack() as stack:
         for name, plain in (("furthest_point_sample", ops.furthest_point_sample_plain),
                             ("ball_query", ops.ball_query_plain),
                             ("three_interpolation", ops.three_interpolation_plain)):
             stack.enter_context(mock.patch.object(pointnext, name, plain))
+        stack.enter_context(mock.patch.object(contrast, "contrast_reductions",
+                                              ops.contrast_reductions_plain))
         yield
 
 

@@ -29,8 +29,9 @@ from amcontrast3d_tpu_torch.engine import make_eval_step, make_predict_step
 from amcontrast3d_tpu_torch.models import pointnext as port_pointnext
 from amcontrast3d_tpu_torch.models import (BaseSeg_AMContrast3D, ConvBlock,
                                            FeaturePropagation, LocalAggregation,
-                                           SetAbstraction, build_model_from_cfg,
-                                           init_weights_)
+                                           SegHead, SetAbstraction,
+                                           build_model_from_cfg, init_weights_)
+from amcontrast3d_tpu_torch.models.layers import Dropout
 from amcontrast3d_tpu_torch.utils.config import EasyConfig
 from amcontrast3d_tpu_torch.utils.convert import from_jax_variables
 from amcontrast3d_tpu_torch.utils.metrics import (ConfusionMatrix,
@@ -255,3 +256,50 @@ def test_feature_propagation_matches_jax():
     got = _load(FeaturePropagation([24, 8, 8], **kw), variables)(
         [_t(p1), _t(f1)], [_t(p2), _t(f2)])
     _close(got.detach(), want, 1e-5)
+
+
+@pytest.mark.parametrize("shape", [(2, 50, 7, 12), (3, 40, 12)])
+def test_convblock_train_mode_matches_jax(shape):
+    """Training-mode BatchNorm: the output normalised with the batch
+    statistics, and the running statistics moved toward the batch mean and
+    the biased batch variance (momentum 0.1), as flax with
+    ``mutable=["batch_stats"]``; to 1e-5."""
+    rng = np.random.RandomState(8)
+    x = (2 * rng.randn(*shape) + 0.5).astype(np.float32)
+    kw = dict(norm_args={"norm": "bn"}, act_args={"act": "relu"})
+    module = JaxConvBlock(24, **kw)
+    variables = _randomize_stats(module.init({"params": jax.random.PRNGKey(3)},
+                                             jnp.asarray(x), training=False), rng)
+    want, mut = module.apply(variables, jnp.asarray(x), training=True,
+                             mutable=["batch_stats"])
+    port = _load(ConvBlock(12, 24, **kw), variables).train()
+    got = port(_t(x))
+    _close(got.detach(), want, 1e-5)
+    stats = mut["batch_stats"]["BatchNorm_0"]
+    bn = port.BatchNorm_0
+    np.testing.assert_allclose(bn.running_mean.numpy(), np.asarray(stats["mean"]),
+                               rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(bn.running_var.numpy(), np.asarray(stats["var"]),
+                               rtol=1e-5, atol=1e-6)
+
+
+def test_seghead_dropout_is_reproducible_from_its_generator():
+    """Training-mode dropout draws from the generator it is given: the
+    same seed gives the same output, another seed another; without a
+    generator it raises; eval mode is the identity."""
+    head = SegHead(NCLS, 16, dropout=0.5)
+    init_weights_(head, torch.Generator().manual_seed(0))
+    f = torch.randn(2, 100, 16, generator=torch.Generator().manual_seed(1))
+    head.train()
+    a = head(f, torch.Generator().manual_seed(5))
+    b = head(f, torch.Generator().manual_seed(5))
+    c = head(f, torch.Generator().manual_seed(6))
+    assert torch.equal(a, b) and not torch.equal(a, c)
+    with pytest.raises(ValueError, match="generator"):
+        head(f)
+    head.eval()
+    assert torch.equal(head(f), head(f, torch.Generator().manual_seed(5)))
+    drop = Dropout(0.5).train()
+    y = drop(torch.ones(20000), torch.Generator().manual_seed(7))
+    assert set(y.unique().tolist()) == {0.0, 2.0}
+    assert abs(y.mean().item() - 1.0) < 0.05

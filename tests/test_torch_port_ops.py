@@ -5,19 +5,24 @@ port's ops take their plain PyTorch path here (CPU tensors);
 ``test_torch_port_cuda.py`` holds each CUDA kernel against that plain
 path on the card.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from amcontrast3d_tpu.ops import ambiguity as jamb
 from amcontrast3d_tpu.ops import group as jgroup
 from amcontrast3d_tpu.ops import interpolate as jinterp
+from amcontrast3d_tpu.ops.contrast_pallas import \
+    contrast_reductions as jax_contrast_reductions
 from amcontrast3d_tpu.ops.fps import _furthest_point_sample_lax
 from amcontrast3d_tpu.ops.fps_pallas import furthest_point_sample_pallas
 from amcontrast3d_tpu.ops.interpolate_pallas import three_interpolation_fused
 from amcontrast3d_tpu.ops.knn import _ball_query_jnp, _knn_jnp
 from amcontrast3d_tpu.ops.knn_pallas import BIN, _perm, ball_query_pallas
 from amcontrast3d_tpu_torch import ops
+from amcontrast3d_tpu_torch.ops import interpolate as port_interp
 
 
 def _t(a):
@@ -215,6 +220,173 @@ def test_three_nn_and_interpolate_match_jax():
         rtol=1e-6, atol=1e-6)
 
 
+def _grid_pair(rng, n1, n2):
+    """Fine and coarse positions on a 1/256 grid in [0, 1)³ (exact d² in
+    both forms), the coarse points among the fine ones."""
+    p2 = (rng.randint(0, 256, (2, n2, 3)) / 256).astype(np.float32)
+    p1 = np.concatenate(
+        [p2, (rng.randint(0, 256, (2, n1 - n2, 3)) / 256).astype(np.float32)], 1)
+    return p1, p2
+
+
+def _interp_grad(p1, p2, f2, g):
+    f2t = _t(f2).requires_grad_()
+    out = ops.three_interpolation(_t(p1), _t(p2), f2t)
+    out.backward(_t(g))
+    return out, f2t.grad.numpy()
+
+
+@pytest.mark.parametrize("n1,n2,c", [(500, 120, 16), (1024, 256, 32)])
+def test_interpolation_gradient_matches_jax_plain(n1, n2, c):
+    """The VJP into the coarse features (``index_add_`` of w·g) against
+    ``jax.vjp`` of the JAX plain path, to 1e-5."""
+    rng = np.random.RandomState(n1 + 2)
+    p1, p2 = _grid_pair(rng, n1, n2)
+    f2 = rng.randn(2, n2, c).astype(np.float32)
+    g = rng.randn(2, n1, c).astype(np.float32)
+    out, got = _interp_grad(p1, p2, f2, g)
+    assert type(out.grad_fn).__name__ == "_ThreeInterpolationBackward"
+    _, vjp = jax.vjp(lambda f: jinterp.three_interpolation(
+        jnp.asarray(p1), jnp.asarray(p2), f), jnp.asarray(f2))
+    np.testing.assert_allclose(got, np.asarray(vjp(jnp.asarray(g))[0]),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_interpolation_gradient_matches_pallas_vjp():
+    """Against the TPU kernels' VJP (``_interp_bwd_kernel``, interpret
+    mode) where the 3rd-nearest d² is unique, to 1e-5."""
+    rng = np.random.RandomState(1025)
+    p2 = rng.rand(2, 256, 3).astype(np.float32)
+    p1 = np.concatenate([p2, rng.rand(2, 768, 3).astype(np.float32)], 1)
+    d2 = np.sort(((p1[:, :, None].astype(np.float64) - p2[:, None]) ** 2).sum(-1), -1)
+    assert (d2[..., 3] - d2[..., 2] > 1e-5 * d2[..., 2]).all()
+    f2 = rng.randn(2, 256, 32).astype(np.float32)
+    g = rng.randn(2, 1024, 32).astype(np.float32)
+    _, got = _interp_grad(p1, p2, f2, g)
+    _, vjp = jax.vjp(lambda f: three_interpolation_fused(
+        jnp.asarray(p1), jnp.asarray(p2), f, True), jnp.asarray(f2))
+    np.testing.assert_allclose(got, np.asarray(vjp(jnp.asarray(g))[0]),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_interpolation_kernel_branch_carries_the_gradient(monkeypatch):
+    """The branch that CUDA tensors take returns an output with a
+    ``grad_fn`` whose backward runs the backward wrapper.  Emulated on the
+    CPU: the dispatch is told the tensors are not on the CPU, the forward
+    kernel is replaced by the plain forward and the backward kernel by its
+    twin."""
+    calls = []
+
+    def fake_forward(p1, p2, f2, keep):
+        assert keep
+        calls.append("forward")
+        return port_interp._forward_plain(p1, p2, f2)
+
+    def fake_backward(grad, idx, w, n2):
+        calls.append("backward")
+        return port_interp.three_interpolation_backward_plain(grad, idx, w, n2)
+
+    monkeypatch.setattr(port_interp, "_on_cpu", lambda *t: False)
+    monkeypatch.setattr(port_interp, "_forward_kernel", fake_forward)
+    monkeypatch.setattr(port_interp, "three_interpolation_backward", fake_backward)
+    rng = np.random.RandomState(22)
+    p1, p2 = _grid_pair(rng, 300, 80)
+    f2 = rng.randn(2, 80, 8).astype(np.float32)
+    g = rng.randn(2, 300, 8).astype(np.float32)
+    _, got = _interp_grad(p1, p2, f2, g)
+    assert calls == ["forward", "backward"]
+    _, vjp = jax.vjp(lambda f: jinterp.three_interpolation(
+        jnp.asarray(p1), jnp.asarray(p2), f), jnp.asarray(f2))
+    np.testing.assert_allclose(got, np.asarray(vjp(jnp.asarray(g))[0]),
+                               rtol=1e-5, atol=1e-5)
+
+
+# ---- contrast reductions and ambiguity ----------------------------------------
+
+@pytest.mark.parametrize("n,root,need_s", [(300, False, True), (1024, True, False)])
+def test_contrast_reductions_match_pallas_kernel(n, root, need_s):
+    """Forward and VJP against the TPU kernels (interpret mode) with the
+    threshold from the exact kNN (24 with self, +1e-5 cushion).  Counts
+    and column 8 identical; sums within 1e-5·(1+max|ref|); df within
+    1e-4·(1+max|df|).  No pair lies within 1e-6 relative of a threshold,
+    where the two d² roundings could disagree."""
+    rng = np.random.RandomState(n + 20)
+    p = _cloud(rng, 2, n)
+    f = rng.randn(2, n, 32).astype(np.float32)
+    f /= np.linalg.norm(f, axis=-1, keepdims=True)
+    lab = rng.randint(0, 4, (2, n)).astype(np.float32)
+    kth = (ops.knn(_t(p), _t(p), 24)[1][..., -1] * (1.0 + 1e-5)).numpy()
+    d2 = ((p[:, :, None].astype(np.float64) - p[:, None]) ** 2).sum(-1)
+    assert (np.abs(d2 - kth[..., None]) < 1e-6 * kth[..., None]).sum() == 0
+    g = rng.randn(2, n, 9).astype(np.float32)
+    tinv = 1 / 0.3
+
+    ft = _t(f).requires_grad_()
+    out = ops.contrast_reductions(_t(p), ft, _t(lab), _t(kth), tinv, root,
+                                  need_s, True)
+    out.backward(_t(g))
+    jout, vjp = jax.vjp(lambda ff: jax_contrast_reductions(
+        jnp.asarray(p), ff, jnp.asarray(lab), jnp.asarray(kth), tinv, root,
+        True, None, need_s, True), jnp.asarray(f))
+    jout = np.asarray(jout)
+    got = out.detach().numpy()
+    assert (jout[..., 4] + jout[..., 5] == 23).all()   # the kNN's 23 others
+    np.testing.assert_array_equal(got[..., 4:6], jout[..., 4:6])
+    np.testing.assert_array_equal(got[..., 8], jout[..., 8])
+    for col in (0, 1, 2, 3, 6, 7):
+        err = np.abs(got[..., col] - jout[..., col]).max()
+        assert err <= 1e-5 * (1 + np.abs(jout[..., col]).max()), (col, err)
+    jdf = np.asarray(vjp(jnp.asarray(g))[0])
+    err = np.abs(ft.grad.numpy() - jdf).max()
+    assert err <= 1e-4 * (1 + np.abs(jdf).max()), err
+
+
+def test_contrast_twin_parts_sum_to_the_vjp():
+    """The rows and support twins each hold one half of the VJP."""
+    rng = np.random.RandomState(23)
+    p = _cloud(rng, 2, 200)
+    f = rng.randn(2, 200, 8).astype(np.float32)
+    lab = rng.randint(0, 3, (2, 200)).astype(np.float32)
+    kth = (ops.knn(_t(p), _t(p), 8)[1][..., -1] * (1.0 + 1e-5)).numpy()
+    g = rng.randn(2, 200, 9).astype(np.float32)
+    args = (_t(p), _t(f), _t(lab), _t(kth))
+    ft = _t(f).requires_grad_()
+    ops.contrast_reductions(args[0], ft, *args[2:], 2.0).backward(_t(g))
+    g4 = _t(np.ascontiguousarray(g[..., :4]))
+    rows = ops.contrast_grad_rows(*args, g4, 2.0)
+    sup = ops.contrast_grad_support(*args, g4, 2.0)
+    np.testing.assert_allclose((rows + sup).numpy(), ft.grad.numpy(),
+                               rtol=1e-6, atol=1e-6)
+    np.testing.assert_array_equal(
+        ops.contrast_forward(*args, 2.0).numpy(),
+        ops.contrast_reductions_plain(*args, 2.0).detach().numpy())
+
+
+@pytest.mark.parametrize("method1,k_cap", [(False, None), (False, 23.0), (True, 23.0)])
+def test_ambiguity_from_stats_matches_jax(method1, k_cap):
+    rng = np.random.RandomState(24)
+    n_pos = rng.randint(0, 26, (2, 500)).astype(np.float32)
+    n_neg = (23 - np.minimum(n_pos, 23)).astype(np.float32)
+    d_pos = (rng.rand(2, 500) * n_pos).astype(np.float32)
+    d_neg = (rng.rand(2, 500) * n_neg).astype(np.float32)
+    got = ops.ambiguity_from_stats(*map(_t, (n_pos, n_neg, d_pos, d_neg)), 0.04,
+                                   method1=method1, k_cap=k_cap)
+    want = jamb.ambiguity_from_stats(*map(jnp.asarray, (n_pos, n_neg, d_pos, d_neg)),
+                                     0.04, method1=method1, k_cap=k_cap)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("cctype", ["Method1", "Method2", "Method3"])
+def test_ambiguity_function_matches_jax(cctype):
+    rng = np.random.RandomState(25)
+    posmask = rng.rand(2, 300, 23) < 0.7
+    posmask[0, :50] = True                    # interior points
+    dd = rng.rand(2, 300, 23).astype(np.float32)
+    got = ops.ambiguity_function(_t(posmask), _t(dd), cctype, 0.04)
+    want = jamb.ambiguity_function(jnp.asarray(posmask), jnp.asarray(dd), cctype, 0.04)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6, atol=1e-7)
+
+
 def test_wrappers_raise_on_non_cpu_non_cuda_tensors():
     """Only a CPU tensor takes the plain path; any other device launches a
     kernel or raises (never falls back)."""
@@ -225,3 +397,13 @@ def test_wrappers_raise_on_non_cpu_non_cuda_tensors():
         ops.ball_query(meta, meta, 0.1, 4)
     with pytest.raises(ValueError):
         ops.three_interpolation(meta, meta, torch.empty(1, 64, 8, device="meta"))
+    meta_f = torch.empty(1, 64, 8, device="meta")
+    meta_1 = torch.empty(1, 64, device="meta")
+    with pytest.raises(ValueError):
+        ops.contrast_forward(meta, meta_f, meta_1, meta_1)
+    with pytest.raises(ValueError):
+        ops.contrast_grad_rows(meta, meta_f, meta_1, meta_1,
+                               torch.empty(1, 64, 4, device="meta"))
+    with pytest.raises(ValueError):
+        ops.three_interpolation_backward(meta_f, torch.empty(
+            1, 64, 3, dtype=torch.int32, device="meta"), meta, 16)

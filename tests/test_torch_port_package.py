@@ -16,7 +16,9 @@ def test_port_imports_no_jax():
     code = ("import sys, amcontrast3d_tpu_torch, amcontrast3d_tpu_torch.models, "
             "amcontrast3d_tpu_torch.ops, amcontrast3d_tpu_torch.engine, "
             "amcontrast3d_tpu_torch.utils.convert, amcontrast3d_tpu_torch.utils.metrics, "
-            "amcontrast3d_tpu_torch.tools.profile_eval; "
+            "amcontrast3d_tpu_torch.tools.profile_eval, "
+            "amcontrast3d_tpu_torch.tools.profile_train, amcontrast3d_tpu_torch.loss, "
+            "amcontrast3d_tpu_torch.optim, amcontrast3d_tpu_torch.scheduler; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'amcontrast3d_tpu')]; "
             "assert not bad, bad")
@@ -25,11 +27,31 @@ def test_port_imports_no_jax():
     assert proc.returncode == 0, proc.stderr
 
 
-def test_profile_eval_needs_a_cuda_device():
-    proc = subprocess.run(
-        [sys.executable, "-m", "amcontrast3d_tpu_torch.tools.profile_eval"],
+def _run_tool(name):
+    return subprocess.run(
+        [sys.executable, "-m", f"amcontrast3d_tpu_torch.tools.{name}"],
         cwd=REPO, capture_output=True, text=True, timeout=120,
         env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+
+
+def test_profile_eval_needs_a_cuda_device():
+    proc = _run_tool("profile_eval")
+    assert proc.returncode != 0
+    assert "no CUDA device" in proc.stderr
+    assert not proc.stdout
+
+
+def test_profile_train_needs_a_cuda_device():
+    proc = _run_tool("profile_train")
+    assert proc.returncode != 0
+    assert "no CUDA device" in proc.stderr
+    assert not proc.stdout
+
+
+def test_chip_smoke_needs_a_cuda_device():
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=REPO,
+                          capture_output=True, text=True, timeout=120,
+                          env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
     assert proc.returncode != 0
     assert "no CUDA device" in proc.stderr
     assert not proc.stdout
@@ -59,7 +81,7 @@ def test_build_reports_compiler_failure(monkeypatch, tmp_path):
 
 
 def test_library_name_follows_the_sources(monkeypatch, tmp_path):
-    for name in ("fps.cu", "ball_query.cu", "interpolate.cu"):
+    for name in ("fps.cu", "ball_query.cu", "interpolate.cu", "contrast.cu"):
         assert (_build.CSRC_DIR / name).is_file()
     csrc = tmp_path / "csrc"
     csrc.mkdir()

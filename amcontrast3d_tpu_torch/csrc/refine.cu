@@ -1,0 +1,198 @@
+// The CrossMask feature of the masked refinement (AMContrast3D++), fused,
+// and its VJP: two kernels.
+//
+// Forward.  Replaces amcontrast3d_tpu/ops/contrast_pallas.py::
+// _refine_fwd_kernel (entry dual_masks_cross).  For every point i of a
+// cloud: its k nearest points of the same cloud in (d^2, index) order, the
+// first slot dropped (the point itself, unless a duplicate position with a
+// lower index precedes it), and over the k - 1 slots left
+//   MIN       the feature row of the slot with the least ambiguity a, ties
+//             to the first slot in ascending-distance order (an argmin
+//             over the slots);
+//   MIN_ALL0  the sum of the rows whose a <= 0, divided by k - 1.
+// Slots past the n points of a small cloud index point 0, as the exact kNN
+// pads them.  The TPU kernel selects by a d^2 threshold (a superset at d^2
+// ties), averages argmin ties and multiplies a 0/1 weight tile into the
+// features on the MXU; this kernel is exact and equals it wherever the
+// minimum is unique.  Neither writes the (B, N, k) index tensor nor a
+// (B, N, K, C) gather.  When a gradient is needed the kernel also writes
+// the selection the backward reads: the chosen index per point (MIN) or the
+// k - 1 member indices, -1 where a > 0 (MIN_ALL0).
+//
+// What bounds it on the card: the scan, N^2 distance tests of about 9 float
+// instructions per cloud (2.3 G for 4 clouds of 24000 points), is
+// instruction throughput; the feature traffic is one row read and one
+// written per point (MIN), 25 MB each at 4 x 24000 x 64.
+// Design: the warp-per-point top-k scan of knn_topk.cuh; then the warp
+// reads its slots' ambiguities (one per lane and register), reduces the
+// (a, slot) minimum with xor shuffles, and copies the chosen row
+// coalesced.  MIN_ALL0 parks the member list in shared memory and sums the
+// rows slot by slot, so each point's sum has a fixed order.
+//
+// Backward.  Replaces ::_refine_bwd_kernel, a support-side matmul of the
+// re-derived 0/1 weights with g.  Here the saved selection makes it a
+// scatter: df[sel[i, t]] += scale * g[i] over the slots t with
+// sel >= 0 (scale 1 for MIN, 1 / (k - 1) for MIN_ALL0).  Bound: reading g
+// and writing df once (bytes); float atomics (RED.ADD.F32) over
+// C-contiguous rows, so the summation order varies between runs and df
+// agrees with the twin's index_add_ to rounding, not bit for bit.  No
+// gradient reaches the positions or the ambiguity.
+#include "knn_topk.cuh"
+
+#include <climits>
+
+namespace {
+
+using namespace amc3d;
+
+constexpr int kMaxSlots = 32 * kMaxSlotsPerLane;
+
+template <int KPL>
+__global__ void __launch_bounds__(kScanThreads)
+refine_cross_kernel(const float* __restrict__ p, const float* __restrict__ f,
+                    const float* __restrict__ a, int n, int c, int k,
+                    int fusion_min, float* __restrict__ out,
+                    int* __restrict__ sel_out) {
+  __shared__ float sx[kScanTile], sy[kScanTile], sz[kScanTile];
+  __shared__ int members[kScanWarps][KPL * 32];
+  const int b = blockIdx.y;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int qi = blockIdx.x * kScanWarps + warp;
+  const bool active = qi < n;
+  const size_t base = static_cast<size_t>(b) * n;
+  float qx = 0.f, qy = 0.f, qz = 0.f;
+  if (active) {
+    const float* q = p + (base + qi) * 3;
+    qx = q[0];
+    qy = q[1];
+    qz = q[2];
+  }
+  WarpTopK<KPL> top;
+  scan_topk<KPL>(p + base * 3, n, k, qx, qy, qz, active, sx, sy, sz, top);
+  if (!active) return;
+  const float* fb = f + base * c;
+  const float* ab = a + base;
+  float* o = out + (base + qi) * c;
+
+  if (fusion_min) {
+    // (a, slot) minimum over the slots 1 .. k-1
+    float best_a = CUDART_INF_F;
+    int best_slot = INT_MAX;
+#pragma unroll
+    for (int r = 0; r < KPL; ++r) {
+      const int slot = lane + 32 * r;
+      if (slot >= 1 && slot < k) {
+        const float av = ab[top.i[r]];
+        if (av < best_a || best_slot == INT_MAX) {
+          best_a = av;
+          best_slot = slot;
+        }
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      const float oa = __shfl_xor_sync(kFullMask, best_a, off);
+      const int os = __shfl_xor_sync(kFullMask, best_slot, off);
+      const bool take = os != INT_MAX &&
+                        (best_slot == INT_MAX || oa < best_a ||
+                         (oa == best_a && os < best_slot));
+      if (take) {
+        best_a = oa;
+        best_slot = os;
+      }
+    }
+    const int chosen = top.index_at(best_slot);
+    const float* src = fb + static_cast<size_t>(chosen) * c;
+    for (int ch = lane; ch < c; ch += 32) o[ch] = src[ch];
+    if (sel_out != nullptr && lane == 0) sel_out[base + qi] = chosen;
+    return;
+  }
+
+  // MIN_ALL0: the members with a <= 0, in slot order
+#pragma unroll
+  for (int r = 0; r < KPL; ++r) {
+    const int slot = lane + 32 * r;
+    int j = -1;
+    if (slot >= 1 && slot < k && ab[top.i[r]] <= 0.f) j = top.i[r];
+    members[warp][slot] = j;
+  }
+  __syncwarp();
+  const float denom = static_cast<float>(k - 1);
+  for (int ch = lane; ch < c; ch += 32) {
+    float sum = 0.f;
+    for (int s = 1; s < k; ++s) {
+      const int j = members[warp][s];
+      if (j >= 0) sum = __fadd_rn(sum, fb[static_cast<size_t>(j) * c + ch]);
+    }
+    o[ch] = __fdiv_rn(sum, denom);
+  }
+  if (sel_out != nullptr) {
+    int* so = sel_out + (base + qi) * (k - 1);
+    for (int s = 1 + lane; s < k; s += 32) so[s - 1] = members[warp][s];
+  }
+}
+
+constexpr int kBwdThreads = 128;
+constexpr int kBwdPoints = 32;  // points per backward block
+
+__global__ void __launch_bounds__(kBwdThreads)
+refine_cross_bwd_kernel(const float* __restrict__ g,
+                        const int* __restrict__ sel, int n, int c, int slots,
+                        float scale, float* __restrict__ df) {
+  const int b = blockIdx.y;
+  const int q0 = blockIdx.x * kBwdPoints;
+  const int npts = min(kBwdPoints, n - q0);
+  const size_t row0 = static_cast<size_t>(b) * n + q0;
+  const float* gb = g + row0 * c;
+  const int* sb = sel + row0 * slots;
+  float* d = df + static_cast<size_t>(b) * n * c;
+  const int total = npts * c;
+  for (int e = threadIdx.x; e < total; e += kBwdThreads) {
+    const int q = e / c, ch = e - q * c;
+    const float v = __fmul_rn(gb[e], scale);
+    for (int t = 0; t < slots; ++t) {
+      const int j = sb[q * slots + t];
+      if (j >= 0) atomicAdd(d + static_cast<size_t>(j) * c + ch, v);
+    }
+  }
+}
+
+}  // namespace
+
+// p (b, n, 3), f (b, n, c), a (b, n) float32, 2 <= k <= 128 (k counts the
+// point itself) -> out (b, n, c) float32; sel_out, unless null, is
+// (b, n) int32 for fusion_min and (b, n, k - 1) int32 otherwise.
+extern "C" int amc3d_refine_cross(const void* p, const void* f, const void* a,
+                                  void* out, void* sel_out, int b, int n,
+                                  int c, int k, int fusion_min, void* stream) {
+  if (k < 2 || k > kMaxSlots) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((n + kScanWarps - 1) / kScanWarps, b);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto* pp = static_cast<const float*>(p);
+  const auto* ff = static_cast<const float*>(f);
+  const auto* aa = static_cast<const float*>(a);
+  auto* o = static_cast<float*>(out);
+  auto* so = static_cast<int*>(sel_out);
+  switch (slots_per_lane(k)) {
+    case 1: refine_cross_kernel<1><<<grid, kScanThreads, 0, st>>>(pp, ff, aa, n, c, k, fusion_min, o, so); break;
+    case 2: refine_cross_kernel<2><<<grid, kScanThreads, 0, st>>>(pp, ff, aa, n, c, k, fusion_min, o, so); break;
+    case 4: refine_cross_kernel<4><<<grid, kScanThreads, 0, st>>>(pp, ff, aa, n, c, k, fusion_min, o, so); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// g (b, n, c) float32, sel (b, n, slots) int32 (entries < 0 are skipped)
+// -> adds scale * g rows into df (b, n, c) float32, which the caller zeroes.
+extern "C" int amc3d_refine_cross_backward(const void* g, const void* sel,
+                                           void* df, int b, int n, int c,
+                                           int slots, float scale,
+                                           void* stream) {
+  const dim3 grid((n + kBwdPoints - 1) / kBwdPoints, b);
+  refine_cross_bwd_kernel<<<grid, kBwdThreads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(g), static_cast<const int*>(sel), n, c, slots,
+      scale, static_cast<float*>(df));
+  return static_cast<int>(cudaGetLastError());
+}

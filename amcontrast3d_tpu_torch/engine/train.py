@@ -1,13 +1,16 @@
 """The train step.
 
 ↔ ``amcontrast3d_tpu/engine/train.py::make_train_step`` for the kinds
-``base`` (BaseSeg, ``criterion(logits, y)``) and ``aa``
-(BaseSeg_AMContrast3D with ``CrossEntropyAce``).  One call is one step:
+``base`` (BaseSeg, ``criterion(logits, y)``), ``aa``
+(BaseSeg_AMContrast3D with ``CrossEntropyAce``) and ``mm``
+(BaseSeg_M_AMContrast3D with ``CrossEntropyAcePre``: loss = seg + reg, and
+the metrics ``loss_seg``, ``loss_ce``, ``loss_contrast``, ``loss_reg`` and
+``refine_rate``).  One call is one step:
 the forward in training mode, the loss, the backward, the global-norm
 clip, the step's learning rate, AdamW, and the confusion matrix of the
 train logits.  The model and the optimizer hold the state that JAX
 carries in ``TrainState``; the step counter lives in ``step.state``.
-Not ported yet: ``mm``, adahessian, the plateau scale, frozen-parameter
+Not ported yet: adahessian, the plateau scale, frozen-parameter
 labels and the sharded steps.
 """
 from __future__ import annotations
@@ -30,14 +33,14 @@ def make_train_step(model: nn.Module, criterion: Callable,
                     grad_norm_clip: Optional[float] = None,
                     generator: Optional[torch.Generator] = None
                     ) -> Callable[[Dict], Dict[str, torch.Tensor]]:
-    """Returns ``step(batch) → {"loss", "cm"}`` for a batch of device
+    """Returns ``step(batch) → {"loss", "cm", …}`` for a batch of device
     tensors ``pos`` (B, N, 3), ``x`` (B, N, C_in), ``y`` (B, N).
 
     ``generator`` (on the model's device) draws the dropout masks; step s
     reseeds it with its initial seed + s, so a step's masks depend only
     on the seed and the step (as JAX folds the step into its key).
     Nothing is read back to the host."""
-    if kind not in ("base", "aa"):
+    if kind not in ("base", "aa", "mm"):
         raise NotImplementedError(f"train step kind {kind} is not ported")
     ambiguity_args = dict(ambiguity_args or {})
     params = [p for g in optimizer.param_groups for p in g["params"]]
@@ -50,17 +53,32 @@ def make_train_step(model: nn.Module, criterion: Callable,
         if generator is not None:
             generator.manual_seed(seed + s)
         target = batch["y"]
-        out = model(batch["pos"], batch["x"], generator=generator)
+        key = "f_up" if ambiguity_args.get("stages", "up") == "up" \
+            else "f_down"
+        aux = {}
         if kind == "base":
-            logits = out
+            logits = model(batch["pos"], batch["x"], generator=generator)
             loss = criterion(logits, target)
-        else:
-            logits, stages = out
-            key = "f_up" if ambiguity_args.get("stages", "up") == "up" \
-                else "f_down"
+        elif kind == "aa":
+            logits, stages = model(batch["pos"], batch["x"],
+                                   generator=generator)
             up = list(zip(stages["p"], stages[key]))
             loss = criterion(logits, target, up, num_classes, ignore_index,
                              ambiguity_args)
+        else:
+            # ground-truth-driven refinement needs the labels in the forward
+            kwargs = ({"target": target}
+                      if ambiguity_args.get("source") == "AEF" else {})
+            logits, stages, rate = model(batch["pos"], batch["x"],
+                                         generator=generator, **kwargs)
+            up = list(zip(stages["p"], stages[key]))
+            seg, ce, con, reg = criterion(
+                logits, target, up, stages["ambiguity"], num_classes,
+                ignore_index, ambiguity_args)
+            loss = seg + reg
+            aux = {"loss_seg": seg.detach(), "loss_ce": ce.detach(),
+                   "loss_contrast": con.detach(), "loss_reg": reg.detach(),
+                   "refine_rate": rate.detach()}
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
         if grad_norm_clip is not None and grad_norm_clip > 0:
@@ -73,7 +91,7 @@ def make_train_step(model: nn.Module, criterion: Callable,
             cm = confusion_matrix_update(logits.argmax(-1), target,
                                          num_classes, ignore_index)
         state["step"] = s + 1
-        return {"loss": loss.detach(), "cm": cm}
+        return {"loss": loss.detach(), "cm": cm, **aux}
 
     step.state = state
     return step

@@ -12,7 +12,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..ops import knn
+from ..ops import ambiguity_function, knn
 
 NSTRIDE = (4, 4, 4, 4)  # MarginContrast.py:59
 
@@ -59,3 +59,12 @@ def stage_neighborhood(p: torch.Tensor, labels: torch.Tensor, nsample: int
     lab = labels.argmax(-1)
     posmask = lab[..., None] == gather_int(lab, idx)
     return idx, posmask, dd
+
+
+def stage_ambiguity(p: torch.Tensor, labels: torch.Tensor, nsample: int,
+                    cctype: str, ccbeta: float
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Ground-truth ambiguity of one stage from its K-slot neighbourhood
+    → (a (B, N) without gradient, posmask, idx)."""
+    idx, posmask, dd = stage_neighborhood(p, labels, nsample)
+    return ambiguity_function(posmask, dd, cctype, ccbeta).detach(), posmask, idx

@@ -1,11 +1,12 @@
-"""LOSS registry and the criteria of the AA train step.
+"""LOSS registry and the criteria of the AA and MM train steps.
 
 ↔ ``amcontrast3d_tpu/loss/build.py`` (``cross_entropy``,
-``CrossEntropy``, ``CrossEntropyAce``, ``build_criterion_from_cfg``).
-Criteria take channels-last logits (B, N, ncls).  As there,
-``CrossEntropyAce`` ignores the configured ``label_smoothing`` (the
-reference builds a plain ``CrossEntropyLoss()``, ignore index −100).  The
-rest of the registry is not ported yet.
+``CrossEntropy``, ``CrossEntropyAce``, ``CrossEntropyAcePre``,
+``build_criterion_from_cfg``).  Criteria take channels-last logits
+(B, N, ncls).  As there, ``CrossEntropyAce`` and ``CrossEntropyAcePre``
+ignore the configured ``label_smoothing`` (the reference builds a plain
+``CrossEntropyLoss()``, ignore index −100).  The rest of the registry is
+not ported yet.
 """
 from __future__ import annotations
 
@@ -72,6 +73,30 @@ class CrossEntropyAce:
         contrast, _ = contrast_head(up_stages, target, num_classes,
                                     ignore_index, ambiguity_args)
         return ambiguity_args["w1"] * ce + ambiguity_args["w2"] * contrast
+
+
+@LOSS.register_module()
+class CrossEntropyAcePre:
+    """AMContrast3D++ objective: Seg = w1·CE + w2·Contrast and
+    Reg = w3·MAE(predicted ambiguity, target ambiguity), the target without
+    gradient.  Returns ``(seg, ce, contrast, reg)``, each weighted."""
+
+    def __init__(self, **kwargs):
+        self.ce = CrossEntropy()
+
+    def __call__(self, logits, target, up_stages, pred_ai_list,
+                 num_classes: int, ignore_index: Optional[int],
+                 ambiguity_args: Dict):
+        ce = self.ce(logits, target)
+        contrast, target_ai_list = contrast_head(
+            up_stages, target, num_classes, ignore_index, ambiguity_args)
+        pred = torch.cat([a.reshape(-1) for a in pred_ai_list])
+        tgt = torch.cat([a.reshape(-1) for a in target_ai_list])
+        reg = (pred - tgt.detach()).abs().mean()
+        ce = ambiguity_args["w1"] * ce
+        contrast = ambiguity_args["w2"] * contrast
+        reg = ambiguity_args["w3"] * reg
+        return ce + contrast, ce, contrast, reg
 
 
 def build_criterion_from_cfg(cfg, **kwargs):

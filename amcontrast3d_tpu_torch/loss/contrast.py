@@ -20,7 +20,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 
 from ..ops import ambiguity_from_stats, contrast_reductions, knn
-from .aef import one_hot_labels, subscene_labels
+from .aef import one_hot_labels, stage_ambiguity, subscene_labels
 
 _EPS = 1e-12
 
@@ -125,3 +125,23 @@ def contrast_head(up_stages: Sequence[Tuple[torch.Tensor, torch.Tensor]],
         loss_sum = loss_sum + loss
         target_ai_list.append(a)
     return loss_sum, target_ai_list
+
+
+def ambiguity_head(up_stages: Sequence[Tuple[torch.Tensor, torch.Tensor]],
+                   target: torch.Tensor, num_classes: int,
+                   ignore_index: Optional[int], args: Dict
+                   ) -> List[torch.Tensor]:
+    """Ground-truth ambiguity (B, N_s) per stage, no loss: the propagated
+    stage labels and the K-slot neighbourhood statistics of the exact kNN
+    (the JAX package's exact branch, ``contrast.py:423-427``)."""
+    labels0 = one_hot_labels(target, num_classes, ignore_index)
+    p0 = up_stages[0][0]
+    out = []
+    with torch.no_grad():
+        for i in range(int(args.get("stages_num", 4))):
+            p = up_stages[i][0]
+            labels = subscene_labels(labels0, p0, p, i)
+            out.append(stage_ambiguity(p, labels, args["nsample"],
+                                       args.get("cctype", "Method2"),
+                                       args.get("ccbeta", 0.04))[0])
+    return out

@@ -9,7 +9,7 @@ counts are ``N_i = N_{i-1} // stride``.  Submodules keep the flax names
 Ported: the separable ``dp_fj`` LocalAggregation, SetAbstraction (head,
 separable and generic paths), FeaturePropagation with upsampling,
 InvResMLP, the encoder with its per-stage shared ball query, the decoder
-without refinement, and SegHead.  Not yet: the generic grouped-MLP
+with the masked refinement, and SegHead.  Not yet: the generic grouped-MLP
 LocalAggregation, the masked ``n_valid`` path, the fused GroupStatsBN
 aggregation, remat, ResBlock and random sampling.
 """
@@ -25,7 +25,9 @@ from ..ops.group import (CHANNEL_MAP, create_grouper, gather_points,
                          get_aggregation_features, group_points)
 from ..ops.interpolate import three_interpolation
 from ..ops.knn import ball_query, knn
+from .apm import Attention
 from .layers import ConvBlock, Dropout, _norm_name, batch_norm, create_act
+from .refine import dual_masks, map_sum
 
 
 def to_full_list(param, blocks: Sequence[int], strides: Sequence[int],
@@ -393,17 +395,34 @@ class PointNextEncoder(nn.Module):
 
 
 class PointNextDecoder(nn.Module):
-    """PointNeXt decoder without refinement.  ``forward`` returns the
-    full-resolution features and the per-stage decoder features (index s
-    ↔ encoder stage s+1)."""
+    """PointNeXt decoder.  ``forward`` returns the full-resolution
+    features, the per-stage decoder features (index s ↔ encoder stage s+1)
+    and the mean refine rate (0 without refinement).
+
+    With ``refine`` and an ``a_list`` the AMContrast3D++ masked refinement
+    runs after each FeaturePropagation stage: the 'up' feature is recorded
+    before it (it feeds the contrastive objective) and the refined feature
+    goes on to the next stage.  ``a_list`` holds the per-stage ambiguity
+    (B, N_s), ``a_map_list`` the APM's lifted maps for ``refine_mapping``
+    (added to the feature, or the query of a trained cross-attention with
+    ``refine_attention``)."""
 
     def __init__(self, encoder_channel_list: Sequence[int],
                  decoder_layers: int = 2, decoder_stages: int = 4,
-                 in_channels_input: int = 3, norm_args=None, act_args=None):
+                 in_channels_input: int = 3, norm_args=None, act_args=None,
+                 refine: bool = False, refine_mapping: bool = False,
+                 refine_attention: bool = False, nsample_k: int = 12,
+                 fusion: str = "MIN", threshold: float = 0.7,
+                 threshold_max: float = 1.0, gamma: float = 0.5):
         super().__init__()
         ecl = list(encoder_channel_list)
         self.decoder_stages = decoder_stages
         self._out_channels = ecl[:decoder_stages][0]
+        self.refine, self.refine_mapping = refine, refine_mapping
+        self.refine_attention = refine_attention
+        self.nsample_k, self.fusion = nsample_k, fusion
+        self.threshold, self.threshold_max = threshold, threshold_max
+        self.gamma = gamma
         skip_channels = ecl[:-1]
         if len(skip_channels) < decoder_stages:
             skip_channels.insert(0, in_channels_input)
@@ -416,20 +435,40 @@ class PointNextDecoder(nn.Module):
             self.add_module(f"fp{n + i}", FeaturePropagation(
                 mlp, norm_args=norm_args, act_args=act_args))
             in_ch = fp_channels[i]
+            if refine and refine_mapping and refine_attention:
+                self.add_module(f"refine_att{n + i}",
+                                Attention(in_ch, in_ch, in_ch))
 
     @property
     def out_channels(self) -> int:
         return self._out_channels
 
-    def forward(self, p: List[torch.Tensor], f: List[torch.Tensor]):
+    def forward(self, p: List[torch.Tensor], f: List[torch.Tensor],
+                a_list: Optional[List[torch.Tensor]] = None,
+                a_map_list: Optional[List[torch.Tensor]] = None):
         n = self.decoder_stages
         f = list(f)
         up_features: List[Optional[torch.Tensor]] = [None] * n
+        refine_rates = []
         for i in range(-1, -n - 1, -1):
             f[i - 1] = getattr(self, f"fp{n + i}")(
                 [p[i - 1], f[i - 1]], [p[i], f[i]])
             up_features[i] = f[i - 1]
-        return f[-n - 1], up_features
+            if not self.refine or a_list is None:
+                continue
+            if not self.refine_mapping:
+                f[i - 1], rate = dual_masks(
+                    p[i - 1], f[i - 1], a_list[i], self.nsample_k, self.fusion,
+                    self.threshold, self.threshold_max, self.gamma)
+                refine_rates.append(rate)
+            elif self.refine_attention:
+                f[i - 1] = getattr(self, f"refine_att{n + i}")(
+                    a_map_list[i], f[i - 1])
+            else:
+                f[i - 1] = map_sum(f[i - 1], a_map_list[i])
+        rate = (torch.stack(refine_rates).mean() if refine_rates
+                else p[0].new_zeros(()))
+        return f[-n - 1], up_features, rate
 
 
 class SegHead(nn.Module):

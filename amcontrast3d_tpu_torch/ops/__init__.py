@@ -11,7 +11,10 @@ from .interpolate import (three_interpolate, three_interpolation,
                           three_interpolation_backward_plain,
                           three_interpolation_plain,
                           three_interpolation_weights, three_nn)
-from .knn import ball_query, ball_query_plain, knn
+from .knn import ball_query, ball_query_plain, knn, knn_plain
+from .refine import (dual_masks_cross, dual_masks_cross_plain, refine_cross,
+                     refine_cross_backward, refine_cross_backward_plain,
+                     refine_cross_plain)
 
 __all__ = [
     "ambiguity_from_stats", "ambiguity_function",
@@ -25,5 +28,8 @@ __all__ = [
     "three_interpolate", "three_interpolation", "three_interpolation_backward",
     "three_interpolation_backward_plain", "three_interpolation_plain",
     "three_interpolation_weights",
-    "three_nn", "ball_query", "ball_query_plain", "knn",
+    "three_nn", "ball_query", "ball_query_plain", "knn", "knn_plain",
+    "dual_masks_cross", "dual_masks_cross_plain", "refine_cross",
+    "refine_cross_backward", "refine_cross_backward_plain",
+    "refine_cross_plain",
 ]

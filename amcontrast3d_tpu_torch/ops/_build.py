@@ -55,6 +55,15 @@ _SIGNATURES = {
                                  _P),
     "amc3d_contrast_grad_support": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F,
                                     _I, _P),
+    # support (B,N,3), query (B,M,3), idx (B,M,k) i32, d2 (B,M,k), B, N, M,
+    # k, stream
+    "amc3d_knn": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # p (B,N,3), f (B,N,C), a (B,N), out (B,N,C), sel (B,N) or (B,N,k-1) i32
+    # or null, B, N, C, k, fusion_min, stream
+    "amc3d_refine_cross": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # g (B,N,C), sel (B,N,slots) i32, df (B,N,C) zeroed, B, N, C, slots,
+    # scale, stream
+    "amc3d_refine_cross_backward": (_P, _P, _P, _I, _I, _I, _I, _F, _P),
 }
 
 

@@ -22,13 +22,14 @@ import torch
 
 from ._build import launch
 from .group import group_points
-from .knn import knn
+from .knn import knn, knn_plain
 
 
-def three_nn(unknown: torch.Tensor, known: torch.Tensor
+def three_nn(unknown: torch.Tensor, known: torch.Tensor, plain: bool = False
              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """unknown (B, N, 3), known (B, M, 3) → (dist (B, N, 3), idx (B, N, 3))."""
-    idx, d2 = knn(known, unknown, 3)
+    """unknown (B, N, 3), known (B, M, 3) → (dist (B, N, 3), idx (B, N, 3)),
+    by :func:`knn` or, with ``plain``, by ``knn_plain`` on any device."""
+    idx, d2 = (knn_plain if plain else knn)(known, unknown, 3)
     return torch.sqrt(torch.clamp_min(d2, 0.0)), idx
 
 
@@ -52,7 +53,7 @@ def three_interpolation_weights(unknown_xyz: torch.Tensor,
                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(idx (B, N1, 3) int32, weight (B, N1, 3)) of the plain path: the
     indices and weights the forward kernel keeps for the backward."""
-    dist, idx = three_nn(unknown_xyz, known_xyz)
+    dist, idx = three_nn(unknown_xyz, known_xyz, plain=True)
     recip = torch.reciprocal(dist + 1e-8)
     norm = (recip[..., 0:1] + recip[..., 1:2]) + recip[..., 2:3]
     return idx, recip / norm

@@ -1,8 +1,9 @@
 """Exact k-nearest neighbours and ball query over batched point clouds.
 
-↔ ``amcontrast3d_tpu/ops/knn.py``: ``knn`` is the exact ``_knn_jnp`` (the
-twin that ``three_nn`` needs; no kernel in this slice) and ``ball_query``
-the reference-exact ``_ball_query_jnp``.  The ball-query kernel
+↔ ``amcontrast3d_tpu/ops/knn.py``: ``knn`` is the exact ``_knn_jnp`` and
+``ball_query`` the reference-exact ``_ball_query_jnp``.  The kNN kernel
+(``csrc/knn.cu``) replaces ``ops/knn_pallas.py::_knn_kernel`` and is exact,
+where the TPU kernel is approximate by design; the ball-query kernel
 (``csrc/ball_query.cu``) replaces ``ops/knn_pallas.py::_ball_kernel_value``.
 
 Distances are in the direct form ``(dx·dx + dy·dy) + dz·dz`` (the form of
@@ -36,9 +37,9 @@ def pairwise_d2(query: torch.Tensor, support: torch.Tensor) -> torch.Tensor:
     return (dx * dx + dy * dy) + dz * dz
 
 
-def knn(support: torch.Tensor, query: torch.Tensor,
-        k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Exact kNN of ``query`` among ``support``.
+def knn_plain(support: torch.Tensor, query: torch.Tensor,
+              k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch exact kNN of ``query`` among ``support``.
 
     Returns idx (B, M, k) int32 in ascending distance, ties to the lowest
     index (as ``lax.top_k``), and their d² (B, M, k) f32.  For k > N the
@@ -63,6 +64,40 @@ def knn(support: torch.Tensor, query: torch.Tensor,
         idx_tiles.append(idx.to(torch.int32))
         d2_tiles.append(vals)
     return torch.cat(idx_tiles, 1), torch.cat(d2_tiles, 1)
+
+
+# the most neighbours the kernel keeps per query (4 registers a lane)
+KNN_MAX_K = 128
+
+
+def knn(support: torch.Tensor, query: torch.Tensor,
+        k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """support (B, N, 3), query (B, M, 3) f32 → idx (B, M, k) int32 and d²
+    (B, M, k) f32, exactly as :func:`knn_plain` returns them.  No gradient.
+
+    A CUDA tensor goes through the ``csrc/knn.cu`` kernel (k ≤ 128); a CPU
+    tensor through :func:`knn_plain`."""
+    if support.device.type == "cpu" and query.device.type == "cpu":
+        return knn_plain(support, query, k)
+    _check(support, query, k)
+    if (support.device.type != "cuda" or not support.is_contiguous()
+            or not query.is_contiguous()):
+        raise ValueError("kNN kernel needs contiguous CUDA tensors, got "
+                         f"{support.device}")
+    if k > KNN_MAX_K:
+        raise ValueError(f"kNN kernel takes k ≤ {KNN_MAX_K}, got {k}")
+    B, N, _ = support.shape
+    M = query.shape[1]
+    idx = torch.empty(B, M, k, dtype=torch.int32, device=query.device)
+    d2 = torch.empty(B, M, k, dtype=torch.float32, device=query.device)
+    launch("amc3d_knn", support.data_ptr(), query.data_ptr(), idx.data_ptr(),
+           d2.data_ptr(), B, N, M, k,
+           torch.cuda.current_stream(query.device).cuda_stream)
+    knn.launches += 1
+    return idx, d2
+
+
+knn.launches = 0
 
 
 def _radius2(radius: float) -> float:

@@ -1,0 +1,31 @@
+#!/bin/sh
+# Two commits against each other on one card, inside one run.
+#
+# Medians of the same code move by 1-3 % between runs on different
+# machines or power limits, so a parent and a change are compared only
+# side by side.  From the root of the change's checkout:
+#
+#   mkdir -p _parent && git archive <parent commit> | tar -x -C _parent
+#   sh amcontrast3d_tpu_torch/tools/profile_ab.sh [profiler arguments]
+#
+# runs the eval profiler and then the train profiler, each in the order
+# parent, change, change, parent (so a drift of the card shows as a
+# difference between the two readings of one commit), and prints each
+# profiler's whole output under a "=== parent|change: <tool>" heading.
+# The arguments (say --kind mm) go to both profilers of both checkouts,
+# so pass only what the parent understands.  _parent/ is git-ignored;
+# each checkout builds its own kernels.
+set -eu
+root=$(pwd)
+[ -d "$root/_parent/amcontrast3d_tpu_torch" ] || {
+    echo "profile_ab: unpack the parent commit into _parent/ first" >&2
+    exit 2
+}
+nvidia-smi --query-gpu=name,power.limit --format=csv,noheader
+for tool in profile_eval profile_train; do
+    for side in parent change change parent; do
+        [ "$side" = parent ] && dir="$root/_parent" || dir="$root"
+        echo "=== $side: $tool $*"
+        (cd "$dir" && python3 -m "amcontrast3d_tpu_torch.tools.$tool" "$@")
+    done
+done

@@ -1,18 +1,22 @@
-"""Where the time of the AA eval forward goes, on one CUDA device.
+"""Where the time of the eval forward goes, on one CUDA device.
 
-    python3 -m amcontrast3d_tpu_torch.tools.profile_eval
+    python3 -m amcontrast3d_tpu_torch.tools.profile_eval [--kind aa|mm]
 
 Builds ``BaseSeg_AMContrast3D`` from ``cfgs/s3dis/AMContrast3D-AA.yaml``
-(PointNeXt-XL, random weights from a seeded generator), fp32 with TF32
-off, and runs the eval step at B=4×24000 on uniform positions in [0, 4]³.
-It prints, each block tagged with the card's name and power limit:
+or, with ``--kind mm``, ``BaseSeg_M_AMContrast3D`` from
+``cfgs/s3dis/AMContrast3D-MM.yaml`` (PointNeXt-XL, random weights from a
+seeded generator), fp32 with TF32 off, and runs the eval step at
+B=4×24000 on uniform positions in [0, 4]³.  It prints, each block tagged
+with the card's name and power limit:
 
 1. wall ms per eval step (``torch.cuda.synchronize()`` on both sides):
    median and quartiles of 20 steps after 3 warm-up steps, and the peak
    device memory;
 2. the same for 3 steps with the plain PyTorch twins in place of the
-   kernels (FPS, ball query, interpolation);
-3. device ms per forward of every CUDA kernel from ``torch.profiler``
+   kernels (FPS, ball query, interpolation, the CrossMask feature);
+3. for ``mm``, device ms per forward of the CrossMask kernel (CUDA events
+   around its calls) and the refine rate;
+4. device ms per forward of every CUDA kernel from ``torch.profiler``
    over 3 steps, their sum, and the card's idle share of the wall time
    (1 − kernel time / wall time).
 
@@ -20,9 +24,12 @@ Without a CUDA device it exits non-zero before measuring anything.
 """
 from __future__ import annotations
 
+import argparse
+import functools
 import statistics
 import subprocess
 import time
+from collections import defaultdict
 from contextlib import ExitStack, contextmanager
 from pathlib import Path
 from unittest import mock
@@ -32,7 +39,10 @@ import torch
 
 B, N, IN_CH, NUM_CLASSES = 4, 24000, 4, 13
 SEED = 0
-CFG = Path(__file__).resolve().parents[2] / "cfgs" / "s3dis" / "AMContrast3D-AA.yaml"
+_S3DIS = Path(__file__).resolve().parents[2] / "cfgs" / "s3dis"
+CFGS = {"aa": _S3DIS / "AMContrast3D-AA.yaml",
+        "mm": _S3DIS / "AMContrast3D-MM.yaml"}
+CFG = CFGS["aa"]
 WARMUP, TIMED, PLAIN, PROFILED = 3, 20, 3, 3
 
 
@@ -43,13 +53,39 @@ def card() -> str:
     ).stdout.strip().splitlines()[0]
 
 
+class Phases:
+    """CUDA events around the phases of a step; ``ms()`` sums each
+    phase's device time over the recorded calls."""
+
+    def __init__(self):
+        self.spans = defaultdict(list)
+
+    def span(self, name, fn):
+        @functools.wraps(fn)
+        def wrapped(*args, **kwargs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            self.spans[name].append((start, end))
+            return out
+        return wrapped
+
+    def ms(self) -> dict:
+        torch.cuda.synchronize()
+        return {k: sum(s.elapsed_time(e) for s, e in v)
+                for k, v in self.spans.items()}
+
+
 @contextmanager
 def plain_ops():
     """Route every kernel op of the model and the loss to its plain
     PyTorch twin (the twins' backward included)."""
     from .. import ops
-    from ..loss import contrast
-    from ..models import pointnext
+    from ..loss import aef, contrast
+    from ..models import apm, pointnext, refine
+    from ..ops import group, interpolate
     with ExitStack() as stack:
         for name, plain in (("furthest_point_sample", ops.furthest_point_sample_plain),
                             ("ball_query", ops.ball_query_plain),
@@ -57,6 +93,10 @@ def plain_ops():
             stack.enter_context(mock.patch.object(pointnext, name, plain))
         stack.enter_context(mock.patch.object(contrast, "contrast_reductions",
                                               ops.contrast_reductions_plain))
+        stack.enter_context(mock.patch.object(refine, "dual_masks_cross",
+                                              ops.dual_masks_cross_plain))
+        for module in (aef, contrast, apm, pointnext, group, interpolate):
+            stack.enter_context(mock.patch.object(module, "knn", ops.knn_plain))
         yield
 
 
@@ -91,17 +131,24 @@ def kernel_table(step, batch, n: int):
             step(batch)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t) * 1e3 / n
+    # kernels only: a ``record_function`` range (the optimizer's) also has
+    # a device span, which covers kernels that are counted already
     rows = [(_device_us(e) / 1e3 / n, e.count / n, e.key)
             for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and _device_us(e) > 0]
+            if e.device_type == DeviceType.CUDA and _device_us(e) > 0
+            and not getattr(e, "is_user_annotation", False)
+            and not e.key.startswith("Optimizer.")]
     return wall, sorted(rows, reverse=True)
 
 
 def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--kind", choices=sorted(CFGS), default="aa")
+    kind = parser.parse_args().kind
     if not torch.cuda.is_available():
         raise SystemExit("profile_eval: no CUDA device")
     from ..engine import make_eval_step
-    from ..models import build_model_from_cfg, init_weights_
+    from ..models import build_model_from_cfg, init_weights_, refine
     from ..utils.config import EasyConfig
 
     tag = card()
@@ -110,7 +157,7 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     cfg = EasyConfig()
-    cfg.load(str(CFG), recursive=True)
+    cfg.load(str(CFGS[kind]), recursive=True)
     model = build_model_from_cfg(cfg.model)
     init_weights_(model, torch.Generator().manual_seed(SEED))
     model = model.to(dev).eval()
@@ -120,7 +167,7 @@ def main() -> None:
              "y": torch.from_numpy(rng.randint(0, NUM_CLASSES, (B, N)))}
     batch = {k: v.to(dev) for k, v in batch.items()}
     step = make_eval_step(model, cfg.num_classes)
-    print(f"AA eval step at B={B}x{N}, "
+    print(f"{kind.upper()} eval step at B={B}x{N}, "
           f"{sum(p.numel() for p in model.parameters())} parameters")
 
     step_ms(step, batch, WARMUP)
@@ -136,6 +183,18 @@ def main() -> None:
         ts = step_ms(step, batch, PLAIN)
     print(f"plain ops: median {statistics.median(ts):.3f} ms {ts}; peak "
           f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB  [{tag}]")
+
+    if kind == "mm":
+        phases = Phases()
+        with mock.patch.object(refine, "dual_masks_cross", phases.span(
+                "CrossMask kernel", refine.dual_masks_cross)):
+            wall = statistics.median(step_ms(step, batch, PROFILED))
+        with torch.inference_mode():
+            rate = model(batch["pos"], batch["x"])[2].item()
+        print(f"phases, device ms per forward over {PROFILED} steps (wall "
+              f"median {wall:.3f} ms); refine rate {rate:.3f} %  [{tag}]")
+        for name, ms in phases.ms().items():
+            print(f"  {ms / PROFILED:9.3f} ms  {ms / PROFILED / wall:6.1%}  {name}")
 
     wall, rows = kernel_table(step, batch, PROFILED)
     busy = sum(ms for ms, _, _ in rows)

@@ -153,3 +153,128 @@ def test_train_kernels_small_and_ragged(cuda_device, n, c, root, need_s):
     q = xyz[:, : max(n // 4, 3)].contiguous()
     f = torch.from_numpy(rng.randn(3, q.shape[1], c).astype(np.float32)).to(cuda_device)
     _check_interp_backward(xyz, q, f)
+
+
+def _knn_equal(sup, q, k):
+    got_i, got_d = ops.knn(sup, q, k)
+    want_i, want_d = ops.knn_plain(sup, q, k)
+    torch.cuda.synchronize()
+    assert got_i.dtype == torch.int32 and got_i.shape == want_i.shape
+    bad = int((got_i != want_i).sum())
+    assert bad == 0, f"{bad} of {got_i.numel()} indices differ"
+    assert torch.equal(got_d, want_d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("clustered", [False, True])
+def test_knn_kernel_matches_plain(cuda_device, clustered):
+    """Kernel #6 against ``knn_plain``: indices and d² identical, at every k
+    the paths use, with M ≠ N, and on a grid cloud full of d² ties and
+    duplicate points (ties go to the lowest index)."""
+    rng = np.random.RandomState(15)
+    sup = torch.from_numpy(_cloud(rng, 3, 6000, clustered)).to(cuda_device)
+    q = sup[:, ::4].contiguous()
+    for k in (1, 3, 4, 12, 16, 24, 33, 64, 100):
+        _knn_equal(sup, q, k)
+    _knn_equal(sup, sup, 24)
+    grid = torch.from_numpy((rng.randint(0, 12, (2, 3000, 3)) / 4)
+                            .astype(np.float32)).to(cuda_device)
+    for k in (3, 24, 64):
+        _knn_equal(grid, grid, k)
+
+
+@pytest.mark.cuda
+def test_knn_kernel_small_and_ragged(cuda_device):
+    """N not a multiple of the tile, M = 1, k = 1, k = 64, k > N; k above
+    the kernel's maximum and a non-contiguous tensor raise."""
+    rng = np.random.RandomState(16)
+    sup = torch.from_numpy(_cloud(rng, 2, 1030, False)).to(cuda_device)
+    for m, k in ((1, 1), (1, 64), (5, 24), (1030, 3)):
+        _knn_equal(sup, sup[:, :m].contiguous(), k)
+    tiny = torch.from_numpy(_cloud(rng, 2, 7, False)).to(cuda_device)
+    for k in (1, 7, 8, 24, 64, 128):
+        _knn_equal(tiny, tiny, k)
+    with pytest.raises(ValueError):
+        ops.knn(sup, sup, 129)
+    with pytest.raises(ValueError):
+        ops.knn(sup, sup.transpose(0, 1)[:, :2].transpose(0, 1)[:, ::2], 3)
+
+
+def _ambiguity(rng, b, n, ties):
+    """Continuous in (0, 1), or with many exact zeros and repeated values."""
+    a = rng.rand(b, n).astype(np.float32)
+    if ties:
+        a = np.where(rng.rand(b, n) < 0.4, 0.0, np.round(a * 4) / 4)
+    return a.astype(np.float32)
+
+
+def _check_refine(dev, rng, b, n, c, k, clustered=False):
+    """Kernels #18 and #19 against their twins: MIN a row copy (identical),
+    MIN_ALL0 within 1e-5·(1+max); the VJP (float atomics) within
+    1e-5·(1+max|df|) of the twin's ``index_add_`` and of autograd through
+    the gather form."""
+    p = torch.from_numpy(_cloud(rng, b, n, clustered)).to(dev)
+    f = torch.from_numpy(rng.randn(b, n, c).astype(np.float32)).to(dev)
+    g = torch.from_numpy(rng.randn(b, n, c).astype(np.float32)).to(dev)
+    for ties in (False, True):
+        a = torch.from_numpy(_ambiguity(rng, b, n, ties)).to(dev)
+        for fusion in ("MIN", "MIN_ALL0"):
+            got, sel = ops.refine_cross(p, f, a, k, fusion, keep=True)
+            want, sel_p = ops.refine_cross_plain(p, f, a, k, fusion)
+            torch.cuda.synchronize()
+            assert torch.equal(sel, sel_p), (fusion, ties)
+            if fusion == "MIN":
+                assert torch.equal(got, want)
+            else:
+                _close(got, want, 1e-5)
+            assert torch.equal(ops.refine_cross(p, f, a, k, fusion)[0], got)
+            fk = f.clone().requires_grad_()
+            fp = f.clone().requires_grad_()
+            fa = f.clone().requires_grad_()
+            ops.dual_masks_cross(p, fk, a, k, fusion).backward(g)
+            ops.dual_masks_cross_plain(p, fp, a, k, fusion).backward(g)
+            # autograd through the gather form of the JAX plain path
+            idx = ops.knn_plain(p, p, k)[0][..., 1:]
+            na = ops.group_points(a[..., None], idx)[..., 0]
+            if fusion == "MIN":
+                gi = torch.gather(idx, -1, na.argmin(-1, keepdim=True))[..., 0]
+                ref = ops.gather_points(fa, gi)
+            else:
+                ref = (ops.group_points(fa, idx)
+                       * (na <= 0)[..., None].float()).mean(2)
+            ref.backward(g)
+            _close(fk.grad, fp.grad, 1e-5)
+            _close(fk.grad, fa.grad, 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("clustered", [False, True])
+def test_refine_kernels_match_plain(cuda_device, clustered):
+    """At decoder widths of the MM path (N 1500 / C 256, N 375 / C 512),
+    k = 12."""
+    rng = np.random.RandomState(17)
+    for n, c in ((1500, 256), (375, 512)):
+        _check_refine(cuda_device, rng, 4, n, c, 12, clustered)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,c,k", [
+    (5, 3, 12),        # N < k: the padded slots index point 0
+    (1030, 33, 2),     # one slot; N not a multiple of the tile
+    (2049, 200, 40),   # two registers a lane; C not a multiple of 32
+    (300, 7, 100),     # four registers a lane
+])
+def test_refine_kernels_small_and_ragged(cuda_device, n, c, k):
+    _check_refine(cuda_device, np.random.RandomState(n), 2, n, c, k)
+    p = torch.zeros(1, 8, 3, device=cuda_device)
+    f = torch.zeros(1, 8, 4, device=cuda_device)
+    a = torch.zeros(1, 8, device=cuda_device)
+    with pytest.raises(ValueError):
+        ops.dual_masks_cross(p, f, a, 1, "MIN")
+    with pytest.raises(ValueError):
+        ops.dual_masks_cross(p, f, a, 129, "MIN")
+    with pytest.raises(ValueError):
+        ops.dual_masks_cross(p, f, a, 4, "MAX")
+    with pytest.raises(ValueError):
+        ops.dual_masks_cross(p, f.transpose(1, 2).contiguous().transpose(1, 2),
+                             a, 4, "MIN")

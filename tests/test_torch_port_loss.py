@@ -231,3 +231,68 @@ def test_remat_is_not_ported():
         port_loss.contrast_head([(p, torch.randn(1, 64, 8))],
                                 torch.zeros(1, 64, dtype=torch.long), NCLS,
                                 None, {**AMB, "remat": True})
+
+
+def test_cross_entropy_ace_pre_matches_jax():
+    """``CrossEntropyAcePre`` over 3 stages (N 1024/256/64): its four terms
+    (seg, ce, contrast, reg) to 1e-5 relative, and the gradients of
+    seg + reg in the logits, the stage features and the predicted
+    ambiguity (the MAE's target carries none) to 1e-4·(1+max|g|)."""
+    rng = np.random.RandomState(5)
+    amb = {**AMB, "stages_num": 3, "w3": 0.01}
+    stages = _clean_stages(rng, 2, 1024, 3)
+    y = _voronoi_labels(rng, stages[0], NCLS)
+    feats = [rng.randn(2, ps.shape[1], 16 * 2 ** s).astype(np.float32)
+             for s, ps in enumerate(stages)]
+    preds = [rng.rand(2, ps.shape[1]).astype(np.float32) for ps in stages]
+    logits = rng.randn(2, 1024, NCLS).astype(np.float32)
+
+    lt = _t(logits).requires_grad_()
+    ft = [_t(f).requires_grad_() for f in feats]
+    pt = [_t(a).requires_grad_() for a in preds]
+    terms = port_loss.build_criterion_from_cfg({"NAME": "CrossEntropyAcePre"})(
+        lt, _t(y), list(zip(map(_t, stages), ft)), pt, NCLS, None, amb)
+    (terms[0] + terms[3]).backward()
+
+    def jloss(lg, fs, pa, ps, yy):   # positions and labels as arguments:
+        jup = list(zip(ps, fs))      # XLA would fold the kNN of constants
+        out = jbuild.CrossEntropyAcePre()(lg, yy, jup, pa, NCLS, None,
+                                          {**amb, "fused": False})
+        return out[0] + out[3], out
+    (_, jterms), jgrads = jax.jit(jax.value_and_grad(
+        jloss, argnums=(0, 1, 2), has_aux=True))(
+        jnp.asarray(logits), [jnp.asarray(f) for f in feats],
+        [jnp.asarray(a) for a in preds], [jnp.asarray(ps) for ps in stages],
+        jnp.asarray(y))
+    for got, want in zip(terms, jterms):
+        np.testing.assert_allclose(got.item(), float(want), rtol=1e-5)
+    assert terms[3].item() > 0
+    _close(lt.grad.numpy(), jgrads[0], 1e-4)
+    for got, want in zip(ft + pt, list(jgrads[1]) + list(jgrads[2])):
+        _close(got.grad.numpy(), want, 1e-4)
+
+
+@pytest.mark.parametrize("cctype,ignore", [("Method2", None), ("Method3", 7)])
+def test_ambiguity_head_matches_jax(cctype, ignore):
+    """``ambiguity_head`` and ``stage_ambiguity`` on a 1/64 grid (exact d²
+    in both kNN forms): the ground-truth ambiguity of 3 stages to 1e-6,
+    without gradient."""
+    rng = np.random.RandomState(6)
+    p0 = (rng.randint(0, 256, (2, 1024, 3)) / 64).astype(np.float32)
+    stages = [p0, p0[:, :256].copy(), p0[:, :64].copy()]
+    y = _voronoi_labels(rng, p0, NCLS)
+    args = {**AMB, "stages_num": 3, "cctype": cctype}
+    up = [(_t(ps), torch.zeros(2, ps.shape[1], 1)) for ps in stages]
+    got = port_loss.ambiguity_head(up, _t(y), NCLS, ignore, args)
+    jup = [(jnp.asarray(ps), jnp.zeros((2, ps.shape[1], 1))) for ps in stages]
+    want = jcontrast.ambiguity_head(jup, jnp.asarray(y), NCLS, ignore, args)
+    assert len(got) == 3
+    for g, w in zip(got, want):
+        assert not g.requires_grad and g.shape == w.shape
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-6, atol=1e-6)
+    assert 0.05 < ((got[0] > 0) & (got[0] < 1)).float().mean() < 0.95
+    labels1 = port_loss.subscene_labels(
+        port_loss.one_hot_labels(_t(y), NCLS, ignore), _t(p0), _t(stages[1]), 1)
+    a, posmask, idx = port_loss.stage_ambiguity(_t(stages[1]), labels1, NSAMPLE,
+                                                cctype, 0.04)
+    assert torch.equal(a, got[1]) and posmask.shape == idx.shape == (2, 256, 23)

@@ -16,11 +16,14 @@ from amcontrast3d_tpu.ops import group as jgroup
 from amcontrast3d_tpu.ops import interpolate as jinterp
 from amcontrast3d_tpu.ops.contrast_pallas import \
     contrast_reductions as jax_contrast_reductions
+from amcontrast3d_tpu.ops.contrast_pallas import \
+    dual_masks_cross as jax_dual_masks_cross
 from amcontrast3d_tpu.ops.fps import _furthest_point_sample_lax
 from amcontrast3d_tpu.ops.fps_pallas import furthest_point_sample_pallas
 from amcontrast3d_tpu.ops.interpolate_pallas import three_interpolation_fused
 from amcontrast3d_tpu.ops.knn import _ball_query_jnp, _knn_jnp
-from amcontrast3d_tpu.ops.knn_pallas import BIN, _perm, ball_query_pallas
+from amcontrast3d_tpu.ops.knn_pallas import (BIN, _perm, ball_query_pallas,
+                                             knn_pallas)
 from amcontrast3d_tpu_torch import ops
 from amcontrast3d_tpu_torch.ops import interpolate as port_interp
 
@@ -128,6 +131,108 @@ def test_knn_matches_jax_exact():
     assert (idx.numpy() == np.asarray(jidx)).mean() > 0.99
     idx4, d24 = ops.knn(_t(sup[:, :4]), _t(q), 6)      # k > N: idx 0 at 1e10
     assert (idx4.numpy()[..., 4:] == 0).all() and (d24.numpy()[..., 4:] == 1e10).all()
+
+
+def _dyadic_cloud(rng, b, n):
+    """Positions on a 1/64 grid in [0, 4)³: every d² is exact in float32 in
+    the direct and in the matmul form, and d² ties are common."""
+    return (rng.randint(0, 256, (b, n, 3)) / 64).astype(np.float32)
+
+
+@pytest.mark.parametrize("n,m,k", [(500, 500, 24), (500, 100, 8), (300, 77, 64),
+                                   (5, 40, 12)])
+def test_knn_plain_matches_jax_on_dyadic_grid(n, m, k):
+    """``knn_plain`` (the kernel's twin) against the JAX exact kNN on a
+    dyadic grid, M ≠ N and k > N included: indices equal (d² ties go to
+    the lowest index in both) and d² equal, no tolerance."""
+    rng = np.random.RandomState(n + k)
+    sup = _dyadic_cloud(rng, 2, n)
+    q = sup if m == n else _dyadic_cloud(rng, 2, m)
+    idx, d2 = ops.knn_plain(_t(sup), _t(q), k)
+    jidx, jd2 = _knn_jnp(jnp.asarray(sup), jnp.asarray(q), k)
+    assert idx.dtype == torch.int32 and idx.shape == (2, m, k)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(jidx))
+    np.testing.assert_array_equal(d2.numpy(), np.asarray(jd2))
+    disp_idx, disp_d2 = ops.knn(_t(sup), _t(q), k)    # CPU: the twin
+    assert torch.equal(disp_idx, idx) and torch.equal(disp_d2, d2)
+
+
+def test_knn_plain_against_pallas_kernel():
+    """The TPU kernel is approximate by design (best two per 128-wide bin);
+    held as the JAX package's own test holds it: ascending order, the point
+    itself first, and recall > 0.97 of the exact neighbours."""
+    rng = np.random.RandomState(5)
+    sup = rng.rand(2, 3000, 3).astype(np.float32)
+    q = np.concatenate([sup[:, :150], rng.rand(2, 150, 3).astype(np.float32)], 1)
+    idx, d2 = ops.knn_plain(_t(sup), _t(q), 8)
+    pidx, pd2 = knn_pallas(jnp.asarray(sup), jnp.asarray(q), 8, interpret=True)
+    pidx, pd2 = np.asarray(pidx), np.asarray(pd2)
+    assert np.all(np.diff(d2.numpy(), axis=-1) >= 0)
+    assert np.all(np.diff(pd2, axis=-1) >= -1e-6)
+    np.testing.assert_array_equal(idx.numpy()[:, :150, 0],
+                                  np.broadcast_to(np.arange(150), (2, 150)))
+    np.testing.assert_array_equal(pidx[:, :150, 0], idx.numpy()[:, :150, 0])
+    recall = np.mean([len(set(a) & set(o)) / 8
+                      for A, O in zip(pidx, idx.numpy()) for a, o in zip(A, O)])
+    assert recall > 0.97
+    hit = pidx == idx.numpy()
+    np.testing.assert_allclose(pd2[hit], d2.numpy()[hit], rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("fusion", ["MIN", "MIN_ALL0"])
+def test_dual_masks_cross_matches_pallas_kernel(fusion):
+    """``dual_masks_cross_plain`` and its gradient against the TPU kernel in
+    interpret mode.  The TPU kernel averages argmin ties and admits d² ties,
+    so MIN takes a continuous ambiguity (unique minima) on float positions
+    (no d² ties); MIN_ALL0 an ambiguity with exact zeros.  1e-5 on the
+    feature and on the gradient (the kernel's 0/1-weight matmul)."""
+    rng = np.random.RandomState(6)
+    b, n, c, k = 2, 300, 16, 8
+    p = rng.rand(b, n, 3).astype(np.float32)
+    f = rng.randn(b, n, c).astype(np.float32)
+    g = rng.randn(b, n, c).astype(np.float32)
+    a = rng.rand(b, n).astype(np.float32)
+    if fusion == "MIN_ALL0":
+        a = np.where(rng.rand(b, n) < 0.4, 0.0, a).astype(np.float32)
+    ft = _t(f).requires_grad_()
+    got = ops.dual_masks_cross(_t(p), ft, _t(a), k, fusion)
+    got.backward(_t(g))
+    cross = lambda f_: jax_dual_masks_cross(jnp.asarray(p), f_, jnp.asarray(a),
+                                            k, fusion, interpret=True)
+    want, vjp = jax.vjp(cross, jnp.asarray(f))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(ft.grad.numpy(), np.asarray(vjp(jnp.asarray(g))[0]),
+                               rtol=1e-5, atol=1e-5)
+    # without a gradient the same feature comes back
+    plain = ops.dual_masks_cross_plain(_t(p), _t(f), _t(a), k, fusion)
+    assert torch.equal(plain, got.detach())
+
+
+def test_refine_cross_pads_and_selection():
+    """N < k: the slots past the cloud index point 0, as the exact kNN pads
+    them; the saved selection reproduces the feature and the VJP."""
+    rng = np.random.RandomState(8)
+    p = _t(_dyadic_cloud(rng, 2, 5))
+    f = _t(rng.randn(2, 5, 3).astype(np.float32))
+    a = _t(np.array([[0.0, 0.3, 0.2, 0.9, 0.1], [0.5, 0.4, 0.3, 0.2, 0.1]],
+                    np.float32))
+    cross, sel = ops.refine_cross(p, f, a, 8, "MIN")
+    # cloud 0: point 0 (a = 0, the minimum) fills the 3 padded slots of
+    # every point, itself included; cloud 1: the minimum is point 4
+    assert sel[0, :, 0].tolist() == [0] * 5
+    assert sel[1, :4, 0].tolist() == [4] * 4
+    assert torch.equal(cross, ops.gather_points(f, sel[..., 0]))
+    g = _t(rng.randn(2, 5, 3).astype(np.float32))
+    df = ops.refine_cross_backward(g, sel, 1.0)
+    np.testing.assert_allclose(df[0, 0].numpy(), g[0].sum(0).numpy(), rtol=1e-6)
+    cross0, sel0 = ops.refine_cross(p, f, a, 8, "MIN_ALL0")
+    assert sel0.shape == (2, 5, 7) and (sel0[1] == -1).all()
+    assert torch.equal(cross0[1], torch.zeros(5, 3))
+    with pytest.raises(ValueError):
+        ops.refine_cross(p, f, a, 1, "MIN")
+    with pytest.raises(ValueError):
+        ops.refine_cross(p, f, a, 8, "MAX")
 
 
 def test_gather_group_clamp_match_jax():
@@ -407,3 +512,29 @@ def test_wrappers_raise_on_non_cpu_non_cuda_tensors():
     with pytest.raises(ValueError):
         ops.three_interpolation_backward(meta_f, torch.empty(
             1, 64, 3, dtype=torch.int32, device="meta"), meta, 16)
+
+
+def test_knn_and_refine_wrappers_raise_rather_than_fall_back():
+    """``knn`` and ``dual_masks_cross`` take the plain path for CPU tensors
+    only: a tensor on another device, contiguous or not, raises."""
+    meta = torch.empty(1, 64, 3, device="meta")
+    strided = torch.empty(1, 3, 64, device="meta").transpose(1, 2)
+    meta_f = torch.empty(1, 64, 8, device="meta")
+    meta_a = torch.empty(1, 64, device="meta")
+    assert not strided.is_contiguous()
+    for sup in (meta, strided):
+        with pytest.raises(ValueError):
+            ops.knn(sup, meta, 4)
+        with pytest.raises(ValueError):
+            ops.knn(meta, sup, 4)
+        with pytest.raises(ValueError):
+            ops.dual_masks_cross(sup, meta_f, meta_a, 4, "MIN")
+        with pytest.raises(ValueError):
+            ops.dual_masks_cross(sup, meta_f.requires_grad_(), meta_a, 4,
+                                 "MIN_ALL0")
+    with pytest.raises(ValueError):
+        ops.refine_cross_backward(meta_f, torch.empty(
+            1, 64, 1, dtype=torch.int32, device="meta"), 1.0)
+    with pytest.raises(ValueError):       # a CPU query against a meta support
+        ops.knn(meta, torch.zeros(1, 4, 3), 4)
+    assert ops.knn.launches == 0 and ops.refine_cross.launches == 0

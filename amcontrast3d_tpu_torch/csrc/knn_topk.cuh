@@ -66,6 +66,24 @@ struct WarpTopK {
 #pragma unroll
     for (int r = 0; r < KPL; ++r)
       pos += __popc(__ballot_sync(kFullMask, d[r] <= nd));
+    place(nd, ni, pos, lane);
+  }
+
+  // The same for candidates that arrive in any index order: (nd, ni) goes
+  // behind every kept pair that is smaller as a (d^2, index) pair, so the
+  // slots stay in (d^2, index) order whatever the order of arrival.  A
+  // pair must be offered once only.
+  __device__ __forceinline__ void insert_pair(float nd, int ni, int lane) {
+    int pos = 0;
+#pragma unroll
+    for (int r = 0; r < KPL; ++r)
+      pos += __popc(__ballot_sync(
+          kFullMask, d[r] < nd || (d[r] == nd && i[r] < ni)));
+    place(nd, ni, pos, lane);
+  }
+
+  // Put (nd, ni) into slot pos and move the slots from pos on one up.
+  __device__ __forceinline__ void place(float nd, int ni, int pos, int lane) {
 #pragma unroll
     for (int r = KPL - 1; r >= 0; --r) {
       float ud = __shfl_up_sync(kFullMask, d[r], 1);

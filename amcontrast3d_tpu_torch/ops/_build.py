@@ -37,6 +37,13 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # xyz (B,N,3) f32, out (B,npoint) i32, B, N, npoint, stream
     "amc3d_fps": (_P, _P, _I, _I, _I, _P),
+    # xyz (1,N,3) f32, out (npoint) i32, best (npoint) u64 zeroed, arrived
+    # (npoint) u32 zeroed, N, npoint, stream
+    "amc3d_fps_b1": (_P, _P, _P, _P, _I, _I, _P),
+    # the same through one thread-block cluster: xyz, out, N, npoint, stream
+    "amc3d_fps_b1_cluster": (_P, _P, _I, _I, _P),
+    # → how many such clusters the device holds at once (negative: an error)
+    "amc3d_fps_b1_clusters": (),
     # support (B,N,3), query (B,M,3), out (B,M,k) i32, B, N, M, k, r², stream
     "amc3d_ball_query": (_P, _P, _P, _I, _I, _I, _I, _F, _P),
     # p1 (B,N1,3), p2 (B,N2,3), f2 (B,N2,C), out (B,N1,C), idx_out (B,N1,3)
@@ -58,6 +65,13 @@ _SIGNATURES = {
     # support (B,N,3), query (B,M,3), idx (B,M,k) i32, d2 (B,M,k), B, N, M,
     # k, stream
     "amc3d_knn": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # sorted support (B,N,4) f32 with the index bits in w, boxes
+    # (B,ceil(N/64),6), query (B,M,3), order (B,M) i32, home (B,M) i32,
+    # idx (B,M,k) i32, d2 (B,M,k), B, N, M, k, stream
+    "amc3d_knn_big": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # sorted support, boxes, query, order, out (B,M,k) i32, B, N, M, k, r²,
+    # stream
+    "amc3d_ball_query_big": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
     # p (B,N,3), f (B,N,C), a (B,N), out (B,N,C), sel (B,N) or (B,N,k-1) i32
     # or null, B, N, C, k, fusion_min, stream
     "amc3d_refine_cross": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),

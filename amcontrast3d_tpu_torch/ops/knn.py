@@ -6,6 +6,14 @@
 where the TPU kernel is approximate by design; the ball-query kernel
 (``csrc/ball_query.cu``) replaces ``ops/knn_pallas.py::_ball_kernel_value``.
 
+Above ``_BIG_N`` support points (the JAX package's gate of the same name,
+``knn_pallas.py:179``) both go to a kernel that scans only the chunks of a
+spatially sorted support that can matter: ``csrc/knn_big.cu`` replaces
+``_knn_kernel_big`` and ``csrc/ball_query_big.cu`` replaces
+``_ball_kernel_value_big``.  They return exactly what the small-cloud
+kernels and the plain twins return; the sort ahead of them is
+``ops/spatial.py``.
+
 Distances are in the direct form ``(dx·dx + dy·dy) + dz·dz`` (the form of
 the Pallas kernels), not the JAX plain path's ``|q|² + |s|² − 2q·s`` matmul
 form: the kernel and its twin round alike, so their results agree bit for
@@ -19,12 +27,21 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from . import spatial
 from ._build import launch
 
 _INF = 1e10
-# query rows per (B, tile, N) distance block of the plain paths
+# query rows per (B, tile, N) distance block of the plain paths, cut down
+# where B·tile·N would pass _TILE_ELEMENTS (a whole room as one cloud)
 _KNN_TILE = 2048
 _BALL_TILE = 1024
+_TILE_ELEMENTS = 2 ** 28
+# more support points than this go to the chunk-skipping kernels
+_BIG_N = 32768
+
+
+def _tile_rows(rows: int, B: int, N: int) -> int:
+    return max(1, min(rows, _TILE_ELEMENTS // max(B * N, 1)))
 
 
 def pairwise_d2(query: torch.Tensor, support: torch.Tensor) -> torch.Tensor:
@@ -48,8 +65,9 @@ def knn_plain(support: torch.Tensor, query: torch.Tensor,
     kk = min(k, N)
     arange = torch.arange(N, device=support.device)
     idx_tiles, d2_tiles = [], []
-    for s in range(0, query.shape[1], _KNN_TILE):
-        d2 = pairwise_d2(query[:, s:s + _KNN_TILE], support)
+    tile = _tile_rows(_KNN_TILE, B, N)
+    for s in range(0, query.shape[1], tile):
+        d2 = pairwise_d2(query[:, s:s + tile], support)
         # one int64 key per pair orders by (d², index): d² ≥ +0, whose
         # float bits order as integers, and the index breaks ties
         key = d2.view(torch.int32).to(torch.int64).bitwise_left_shift_(32)
@@ -75,17 +93,32 @@ def knn(support: torch.Tensor, query: torch.Tensor,
     """support (B, N, 3), query (B, M, 3) f32 → idx (B, M, k) int32 and d²
     (B, M, k) f32, exactly as :func:`knn_plain` returns them.  No gradient.
 
-    A CUDA tensor goes through the ``csrc/knn.cu`` kernel (k ≤ 128); a CPU
-    tensor through :func:`knn_plain`."""
+    A CUDA tensor goes through the ``csrc/knn.cu`` kernel for
+    N ≤ ``_BIG_N`` = 32768 support points and through :func:`knn_big`
+    above that (k ≤ 128 both); a CPU tensor through :func:`knn_plain`."""
     if support.device.type == "cpu" and query.device.type == "cpu":
         return knn_plain(support, query, k)
+    if support.shape[1] > _BIG_N:
+        return knn_big(support, query, k)
+    return knn_small(support, query, k)
+
+
+def _check_cuda(name: str, support: torch.Tensor, query: torch.Tensor,
+                k: int) -> None:
     _check(support, query, k)
     if (support.device.type != "cuda" or not support.is_contiguous()
             or not query.is_contiguous()):
-        raise ValueError("kNN kernel needs contiguous CUDA tensors, got "
+        raise ValueError(f"{name} kernel needs contiguous CUDA tensors, got "
                          f"{support.device}")
     if k > KNN_MAX_K:
-        raise ValueError(f"kNN kernel takes k ≤ {KNN_MAX_K}, got {k}")
+        raise ValueError(f"{name} kernel takes k ≤ {KNN_MAX_K}, got {k}")
+
+
+def knn_small(support: torch.Tensor, query: torch.Tensor,
+              k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`knn` through the ``csrc/knn.cu`` kernel, which scans the whole
+    support for every query (any N; CUDA tensors only)."""
+    _check_cuda("kNN", support, query, k)
     B, N, _ = support.shape
     M = query.shape[1]
     idx = torch.empty(B, M, k, dtype=torch.int32, device=query.device)
@@ -98,6 +131,32 @@ def knn(support: torch.Tensor, query: torch.Tensor,
 
 
 knn.launches = 0
+
+
+def knn_big(support: torch.Tensor, query: torch.Tensor,
+            k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`knn` through the ``csrc/knn_big.cu`` kernel: the support is
+    sorted along a Morton curve (``ops/spatial.py``) and a query scans only
+    the 64-point chunks whose box can hold one of its k nearest.  Any N;
+    a CPU tensor goes through :func:`knn_plain`."""
+    if support.device.type == "cpu" and query.device.type == "cpu":
+        return knn_plain(support, query, k)
+    _check_cuda("large-cloud kNN", support, query, k)
+    B, N, _ = support.shape
+    M = query.shape[1]
+    cloud = spatial.sort_support(support)
+    order, home = spatial.query_order(query, cloud)
+    idx = torch.empty(B, M, k, dtype=torch.int32, device=query.device)
+    d2 = torch.empty(B, M, k, dtype=torch.float32, device=query.device)
+    launch("amc3d_knn_big", cloud.packed.data_ptr(), cloud.boxes.data_ptr(),
+           query.data_ptr(), order.data_ptr(), home.data_ptr(), idx.data_ptr(),
+           d2.data_ptr(), B, N, M, k,
+           torch.cuda.current_stream(query.device).cuda_stream)
+    knn_big.launches += 1
+    return idx, d2
+
+
+knn_big.launches = 0
 
 
 def _radius2(radius: float) -> float:
@@ -129,8 +188,9 @@ def ball_query_plain(support: torch.Tensor, query: torch.Tensor, radius: float,
     r2 = _radius2(radius)
     arange = torch.arange(N, device=support.device)
     out = []
-    for s in range(0, query.shape[1], _BALL_TILE):
-        inside = pairwise_d2(query[:, s:s + _BALL_TILE], support) < r2
+    tile = _tile_rows(_BALL_TILE, B, N)
+    for s in range(0, query.shape[1], tile):
+        inside = pairwise_d2(query[:, s:s + tile], support) < r2
         # priority = index inside the ball, N + index outside: the k
         # smallest priorities are the first k hits, then sentinels ≥ N
         prio = torch.where(inside, arange, arange + N)
@@ -148,10 +208,22 @@ def ball_query(support: torch.Tensor, query: torch.Tensor, radius: float,
                k: int) -> torch.Tensor:
     """support (B, N, 3), query (B, M, 3) f32 → idx (B, M, k) int32.
 
-    A CUDA tensor goes through the ``csrc/ball_query.cu`` kernel; a CPU
-    tensor through :func:`ball_query_plain`."""
+    A CUDA tensor goes through the ``csrc/ball_query.cu`` kernel for
+    N ≤ ``_BIG_N`` = 32768 support points (or k > 128) and through
+    :func:`ball_query_big` above that; a CPU tensor through
+    :func:`ball_query_plain`."""
     if support.device.type == "cpu" and query.device.type == "cpu":
         return ball_query_plain(support, query, radius, k)
+    if support.shape[1] > _BIG_N and k <= KNN_MAX_K:
+        return ball_query_big(support, query, radius, k)
+    return ball_query_small(support, query, radius, k)
+
+
+def ball_query_small(support: torch.Tensor, query: torch.Tensor, radius: float,
+                     k: int) -> torch.Tensor:
+    """:func:`ball_query` through the ``csrc/ball_query.cu`` kernel, which
+    scans the support in index order for every query (any N and k; CUDA
+    tensors only)."""
     _check(support, query, k)
     if (support.device.type != "cuda" or not support.is_contiguous()
             or not query.is_contiguous()):
@@ -168,3 +240,29 @@ def ball_query(support: torch.Tensor, query: torch.Tensor, radius: float,
 
 
 ball_query.launches = 0
+
+
+def ball_query_big(support: torch.Tensor, query: torch.Tensor, radius: float,
+                   k: int) -> torch.Tensor:
+    """:func:`ball_query` through the ``csrc/ball_query_big.cu`` kernel:
+    the support is sorted along a Morton curve (``ops/spatial.py``), a
+    query scans only the 64-point chunks whose box reaches into its ball
+    and keeps the k smallest original indices among the hits.  Any N,
+    k ≤ 128; a CPU tensor goes through :func:`ball_query_plain`."""
+    if support.device.type == "cpu" and query.device.type == "cpu":
+        return ball_query_plain(support, query, radius, k)
+    _check_cuda("large-cloud ball-query", support, query, k)
+    B, N, _ = support.shape
+    M = query.shape[1]
+    cloud = spatial.sort_support(support)
+    order, _ = spatial.query_order(query, cloud)
+    out = torch.empty(B, M, k, dtype=torch.int32, device=query.device)
+    launch("amc3d_ball_query_big", cloud.packed.data_ptr(),
+           cloud.boxes.data_ptr(), query.data_ptr(), order.data_ptr(),
+           out.data_ptr(), B, N, M, k, _radius2(radius),
+           torch.cuda.current_stream(query.device).cuda_stream)
+    ball_query_big.launches += 1
+    return out
+
+
+ball_query_big.launches = 0

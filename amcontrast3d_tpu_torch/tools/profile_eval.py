@@ -83,6 +83,7 @@ def plain_ops():
     """Route every kernel op of the model and the loss to its plain
     PyTorch twin (the twins' backward included)."""
     from .. import ops
+    from ..engine import evaluate
     from ..loss import aef, contrast
     from ..models import apm, pointnext, refine
     from ..ops import group, interpolate
@@ -95,7 +96,8 @@ def plain_ops():
                                               ops.contrast_reductions_plain))
         stack.enter_context(mock.patch.object(refine, "dual_masks_cross",
                                               ops.dual_masks_cross_plain))
-        for module in (aef, contrast, apm, pointnext, group, interpolate):
+        for module in (aef, contrast, apm, pointnext, group, interpolate,
+                       evaluate):
             stack.enter_context(mock.patch.object(module, "knn", ops.knn_plain))
         yield
 

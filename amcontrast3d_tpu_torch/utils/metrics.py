@@ -30,12 +30,26 @@ def confusion_matrix_update(pred: torch.Tensor, true: torch.Tensor,
 
 
 class ConfusionMatrix:
-    """Host-side accumulator of per-batch matrices."""
+    """Host-side accumulator: of per-batch matrices (``update_matrix``) and
+    of predictions and labels as numpy arrays (``update``)."""
 
     def __init__(self, num_classes: int, ignore_index: Optional[int] = None):
         self.num_classes = num_classes
         self.ignore_index = ignore_index
+        self.virtual_num_classes = (num_classes + 1 if ignore_index is not None
+                                    else num_classes)
         self.value = np.zeros((num_classes, num_classes), dtype=np.int64)
+
+    def update(self, pred, true) -> None:
+        pred = np.asarray(pred).reshape(-1).astype(np.int64)
+        true = np.asarray(true).reshape(-1).astype(np.int64)
+        v = self.virtual_num_classes
+        if self.ignore_index is not None:
+            ignore = true == self.ignore_index
+            pred = np.where(ignore, v - 1, pred)
+            true = np.where(ignore, v - 1, true)
+        bins = np.bincount(true * v + pred, minlength=v * v)
+        self.value += bins.reshape(v, v)[:self.num_classes, :self.num_classes]
 
     def update_matrix(self, matrix) -> None:
         if isinstance(matrix, torch.Tensor):
@@ -97,3 +111,20 @@ def IoU_from_confusions(confusions: np.ndarray) -> np.ndarray:
     present = np.sum(~absent, axis=-1, keepdims=True)
     miou = iou.sum(axis=-1, keepdims=True) / (present + 1e-6)
     return iou + absent * miou
+
+
+class AverageMeter:
+    def __init__(self):
+        self.reset()
+
+    def reset(self):
+        self.val = 0.0
+        self.avg = 0.0
+        self.sum = 0.0
+        self.count = 0
+
+    def update(self, val, n: int = 1):
+        self.val = float(val)
+        self.sum += float(val) * n
+        self.count += n
+        self.avg = self.sum / max(self.count, 1)

@@ -5,8 +5,8 @@
 1. prints the card (nvidia-smi name and power limit) and the PyTorch and
    CUDA versions, and turns TF32 off;
 2. builds the CUDA kernels of ``amcontrast3d_tpu_torch/csrc`` (set-up time);
-3. runs each of the ten kernels at the shapes of the AA and MM train steps
-   at B=4×24000 (stage positions from FPS, on a uniform and a clustered
+3. runs each of the ten kernels of the step functions at the shapes of the
+   AA and MM train steps at B=4×24000 (stage positions from FPS, on a uniform and a clustered
    cloud) and holds it against its plain PyTorch twin on the card, timing
    both (median of 11 kernel runs and 3 plain runs after a warm-up, CUDA
    events) and, where one PyTorch call computes the same function, that
@@ -28,13 +28,13 @@
 4. drives the AA eval path: ``BaseSeg_AMContrast3D`` built from
    ``cfgs/s3dis/AMContrast3D-AA.yaml`` (PointNeXt-XL, width 64, blocks
    [1,4,7,4,4], random weights from a seeded generator) through
-   ``make_eval_step`` on 5 batches of 4×24000 points (an untimed warm-up
+   ``make_eval_step`` on 3 batches of 4×24000 points (an untimed warm-up
    batch first); checks finite logits, confusion-matrix totals and the
    kernels' launch counts per forward, then repeats one forward with the
    plain ops and compares;
 5. drives the AA train path: the same model with ``CrossEntropyAce``,
    AdamW, the cosine schedule and clip 10 from the cfg, dropout from a
-   seeded generator, through ``make_train_step`` for 1 untimed and 5 timed
+   seeded generator, through ``make_train_step`` for 1 untimed and 3 timed
    steps on 4×24000 points labelled by a Voronoi partition into 13
    regions; checks finite losses, changed parameters, confusion-matrix
    totals and each kernel's launches per step, then runs one step from one
@@ -51,7 +51,37 @@
    BatchNorm ahead of the last sigmoid centres it), and assert a refine
    rate strictly between 0 and 100 and a non-zero gradient out of the
    CrossMask VJP;
-7. prints one JSON line of per-kernel results and, last, the device line.
+7. runs the three whole-room kernels at the shapes of a 155648-point
+   subcloud (B = 1), on a room-like cloud (the faces of a room and solid
+   boxes on a 0.04 m grid, with repeated points) and a uniform one: the
+   whole-room FPS at the four stages (its cluster kernel, and its grid
+   kernel beside it) and at 1.2 M points (the grid kernel; 4096 picks, on a
+   uniform and a clustered cloud), picks identical to the twin; the
+   chunk-skipping ball query at the three (M, N, r) pairs whose support
+   exceeds 32768 points, indices identical to the twin and to the
+   scan-everything kernel, with the share of chunk visits it skips; the
+   chunk-skipping kNN (self-kNN, k = 24), indices and d² identical to the
+   twin and to the scan-everything kernel.  Each with its time, the twin's
+   (one run), the bound and, for the kNN, ``topk`` of ``cdist``² in tiles.
+   The two chunk-skipping kernels' bounds count what this run's data needs
+   of a box-pruned scan: 18 float instructions per (query, chunk) box test
+   and 9 per point of the chunks whose bound admits them;
+8. drives the whole-scene test path through ``engine.cli.main_cli``
+   (``mode=test``, ``miou_B_I=True``) at full width: AA on two Synthetic
+   rooms of 250000 raw points whose voxel-rank subclouds (91478 and 130575
+   points) pad to the buckets 106496 and 155648, MM on the first room; the
+   weights are seeded random ones written with ``save_checkpoint`` and read
+   back through ``pretrained_path=``.  Checks finite logits, the
+   confusion-matrix total against the rooms' points, boundary + inner
+   totals against the sum of subcloud sizes, the launches per subcloud
+   forward, the results CSV and the checkpoint round trip (identical
+   logits); then scores one subcloud again with every kernel's plain twin
+   (stage positions identical, logits within 1e-4·(1+max|logit|), boundary
+   mask identical; MM at the cfg's threshold and at the median predicted
+   ambiguity).  Prints per room the wall time, the voted points per
+   second, the split host prep / forward / voting / boundary kNN and the
+   peak device memory;
+9. prints one JSON line of per-kernel results and, last, the device line.
 
 Any failure raises, so the exit code is non-zero; without a CUDA device it
 stops before printing any result.
@@ -65,6 +95,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from contextlib import ExitStack
 from unittest import mock
@@ -72,13 +103,13 @@ from unittest import mock
 import numpy as np
 import torch
 
-B, N, IN_CH, NUM_CLASSES, N_BATCHES, N_TRAIN = 4, 24000, 4, 13, 5, 5
+B, N, IN_CH, NUM_CLASSES, N_BATCHES, N_TRAIN = 4, 24000, 4, 13, 3, 3
 SEED = 0
 REPO = os.path.dirname(os.path.abspath(__file__))
 CFGS = {kind: os.path.join(REPO, "cfgs", "s3dis", f"AMContrast3D-{kind.upper()}.yaml")
         for kind in ("aa", "mm")}
 TIMING_RUNS, PLAIN_RUNS = 11, 3
-# the schedule's epoch length; the 6 steps here stay in epoch 1
+# the schedule's epoch length; the 4 steps here stay in epoch 1
 STEPS_PER_EPOCH = 1000
 # kernel vs plain train step, relative L2 of the gradients (see PERF.md)
 GRAD_TOL = 1e-4
@@ -108,7 +139,23 @@ KERNELS = (  # name, source, the TPU kernel it replaces
      "amcontrast3d_tpu/ops/contrast_pallas.py:951"),
     ("refine_cross_backward", "amcontrast3d_tpu_torch/csrc/refine.cu",
      "amcontrast3d_tpu/ops/contrast_pallas.py:1091"),
+    ("fps_b1", "amcontrast3d_tpu_torch/csrc/fps_b1.cu",
+     "amcontrast3d_tpu/ops/fps_pallas.py:87"),
+    ("knn_big", "amcontrast3d_tpu_torch/csrc/knn_big.cu",
+     "amcontrast3d_tpu/ops/knn_pallas.py:117"),
+    ("ball_query_big", "amcontrast3d_tpu_torch/csrc/ball_query_big.cu",
+     "amcontrast3d_tpu/ops/knn_pallas.py:224"),
 )
+STEP_KERNELS = KERNELS[:10]      # the kernels of the four step paths
+# the whole-scene paths: Synthetic rooms of SCENE_POINTS raw points from the
+# dataset's seed 0; the first two voxelise (0.04 m) to 91478 and 130575
+# points, which pad to the buckets 106496 and 155648
+SCENE_POINTS, SCENE_ROOMS, SCENE_BUCKETS = 250000, {"aa": 2, "mm": 1}, (106496, 155648)
+BIG_N = 32768                    # ops/knn.py::_BIG_N
+ROOM_N, HUGE_N, HUGE_PICKS = 155648, 1200000, 4096
+FPS_OPS = PAIR_OPS + 1           # a distance, a running minimum, a compare
+BOX_OPS = 18                     # 6 sub, 6 max, 3 mul, 2 add, 1 compare
+CHUNK = 64                       # ops/spatial.py::CHUNK
 EVAL_LAUNCHES = {"fps": 4, "ball_query": 8, "three_interpolation": 4}
 TRAIN_LAUNCHES = {**EVAL_LAUNCHES, "three_interpolation_backward": 4,
                   "contrast_forward": 4, "contrast_grad_rows": 4,
@@ -188,7 +235,7 @@ def kernel_phases(ops, dev, rng, tag: str) -> dict:
     up_channels = [64, 128, 256, 512]          # decoder stage widths
     results = {name: {"err": None, "ms": 0.0, "plain_ms": 0.0,
                       "library_ms": None, "bytes": 0.0, "ops": 0.0}
-               for name, _, _ in KERNELS}
+               for name, _, _ in STEP_KERNELS}
 
     def timed(name, cloud, kernel, plain, nbytes, nops, library=None):
         if cloud != "uniform":
@@ -355,6 +402,12 @@ def kernel_phases(ops, dev, rng, tag: str) -> dict:
                   B * n * (8 * c + 4), B * n * c,
                   lambda: torch.zeros(B * n, c, device=dev).index_add_(
                       0, rows, g.view(-1, c)))
+    return finish_kernels(results, "uniform and clustered", tag)
+
+
+def finish_kernels(results: dict, clouds_note: str, tag: str) -> dict:
+    """Work out each kernel's bound from its bytes and operations, print
+    its line and return ``results``."""
     for k, r in results.items():
         if r["err"] is None:
             raise AssertionError(f"kernel {k}: no compared pair was measured")
@@ -362,12 +415,177 @@ def kernel_phases(ops, dev, rng, tag: str) -> dict:
         r["bound_by"] = ("bytes" if r["bytes"] / PEAK_BYTES > r["ops"] / PEAK_OPS
                          else "operations")
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
-        print(f"kernel {k}: matches plain on uniform and clustered clouds "
+        print(f"kernel {k}: matches plain on {clouds_note} clouds "
               f"(max abs err {r['err']}); summed over stages {r['ms']:.4f} ms "
               f"vs plain {r['plain_ms']:.4f} ms, library call {lib}, bound "
               f"{r['bound_ms']:.4f} ms by {r['bound_by']} ({r['bytes']:.4g} "
               f"bytes, {r['ops']:.4g} float instructions)  [{tag}]")
     return results
+
+
+def timed_once(fn):
+    """``fn()`` and its device time in ms (one run, no warm-up: for the
+    plain twins at whole-room sizes, which take seconds)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def room_cloud(rng, n: int) -> np.ndarray:
+    """(1, n, 3) f32 room-like cloud: the six faces of a 7 x 6 x 3 m room
+    (1 cm of noise) and four solid boxes, one point per 0.04 m voxel, 2 % of
+    the points repeated (as bucket padding repeats real points)."""
+    pts = rng.rand(4 * n, 3) * [7, 6, 3]
+    axis = rng.randint(0, 3, len(pts))
+    side = rng.randint(0, 2, len(pts)) * np.array([7, 6, 3])[axis]
+    pts[np.arange(len(pts)), axis] = side + 0.01 * rng.randn(len(pts))
+    solid = rng.rand(n, 3) * [1.2, 1.0, 0.8] + \
+        rng.randint(1, 5, (n, 1)) * [1.2, 1.0, 0.0]
+    pts = np.concatenate([pts, solid])
+    _, first = np.unique(np.floor(pts / 0.04).astype(np.int64), axis=0,
+                         return_index=True)
+    if len(first) < n:
+        raise AssertionError(f"room holds {len(first)} voxels, fewer than {n}")
+    pts = pts[rng.permutation(first)[:n]]
+    pts[rng.randint(0, n, n // 50)] = pts[rng.randint(0, n, n // 50)]
+    return pts[None].astype(np.float32)
+
+
+def chunk_visits(spatial, support, query, limit, strict: bool):
+    """(visits, pairs): the (query, chunk) pairs whose box lower bound lies
+    below ``limit`` (``<`` if strict, else ``<=``; a number or one per
+    query), the chunks any box-pruned scan has to read, and all pairs."""
+    cloud = spatial.sort_support(support)
+    visits = 0
+    for s in range(0, query.shape[1], 4096):
+        lb = spatial.bbox_lb(query[:, s:s + 4096, None, :], cloud.boxes[:, None])
+        lim = limit[:, s:s + 4096, None] if torch.is_tensor(limit) else limit
+        visits += int((lb < lim if strict else lb <= lim).sum())
+    return visits, query.shape[1] * cloud.boxes.shape[1]
+
+
+def scene_kernel_phases(ops, dev, rng, tag: str) -> dict:
+    """The three whole-room kernels against their twins (and against the
+    scan-everything kernels they take over from) at the shapes of a
+    155648-point subcloud; returns the same records as ``kernel_phases``,
+    with the times of the room-like cloud."""
+    from amcontrast3d_tpu_torch.ops import spatial
+
+    results = {name: {"err": None, "ms": 0.0, "plain_ms": 0.0,
+                      "library_ms": None, "bytes": 0.0, "ops": 0.0}
+               for name in ("fps_b1", "knn_big", "ball_query_big")}
+
+    def note(name, err):
+        results[name]["err"] = max(results[name]["err"] or 0.0, err)
+
+    def add(name, timed, ms, plain_ms, nbytes, nops):
+        if timed:
+            r = results[name]
+            r["ms"] += ms
+            r["plain_ms"] += plain_ms
+            r["bytes"] += float(nbytes)
+            r["ops"] += float(nops)
+
+    clouds = {"room": room_cloud(rng, ROOM_N),
+              "uniform": (rng.rand(1, ROOM_N, 3) * [7, 6, 3]).astype(np.float32)}
+    for cloud, pts in clouds.items():
+        timed = cloud == "room"
+        stages = [torch.from_numpy(pts).to(dev)]
+        for s in range(1, 5):              # 155648 → 38912 → 9728 → 2432 → 608
+            prev = stages[-1]
+            n, npoint = prev.shape[1], prev.shape[1] // 4
+            got = ops.furthest_point_sample_b1(prev, npoint)
+            want, plain_ms = timed_once(
+                lambda: ops.furthest_point_sample_plain(prev, npoint))
+            note("fps_b1", check_equal(f"fps_b1 {cloud} stage {s}", got, want))
+            # these sizes take the cluster kernel; the grid kernel beside it
+            check_equal(f"fps_b1 {cloud} stage {s}, the grid kernel",
+                        ops.fps._fps_b1_grid(prev, npoint), want)
+            ms = cuda_ms(lambda: ops.furthest_point_sample_b1(prev, npoint), 5)
+            grid_ms = cuda_ms(lambda: ops.fps._fps_b1_grid(prev, npoint), 3)
+            print(f"fps_b1 {cloud} {n} -> {npoint}: {ms:.3f} ms = "
+                  f"{ms / npoint * 1e3:.3f} us a pick (one cluster), the grid "
+                  f"kernel {grid_ms:.3f} ms = {grid_ms / npoint * 1e3:.3f} us a "
+                  f"pick, plain {plain_ms:.1f} ms  [{tag}]")
+            add("fps_b1", timed, ms, plain_ms, n * 12 + npoint * 4,
+                npoint * n * FPS_OPS)
+            stages.append(ops.gather_points(prev, got).contiguous())
+        for sup, q, r in ((stages[0], stages[1], 0.1), (stages[1], stages[1], 0.2),
+                          (stages[1], stages[2], 0.2)):
+            ns, nq = sup.shape[1], q.shape[1]
+            name = f"ball_query_big {cloud} {nq} x {ns} r={r}"
+            got = ops.ball_query_big(sup, q, r, 32)
+            want, plain_ms = timed_once(lambda: ops.ball_query_plain(sup, q, r, 32))
+            note("ball_query_big", check_equal(f"{name} vs plain", got, want))
+            check_equal(f"{name} vs the scan-everything kernel", got,
+                        ops.ball_query_small(sup, q, r, 32))
+            ms = cuda_ms(lambda: ops.ball_query_big(sup, q, r, 32))
+            small_ms = cuda_ms(lambda: ops.ball_query_small(sup, q, r, 32))
+            # what this data needs: a box test per (query, chunk) and a
+            # distance test per point of the chunks that reach into the ball;
+            # beside it the dense scan in index order of the small-cloud
+            # kernel: to the 32nd hit, or the whole support
+            visits, pairs = chunk_visits(spatial, sup, q,
+                                         float(np.float32(r * r)), True)
+            scanned = torch.where(got[..., -1] == got[..., 0], ns,
+                                  got[..., -1] + 1).sum().item()
+            print(f"{name}: {ms:.3f} ms, scan-everything kernel {small_ms:.3f} "
+                  f"ms (its bound {scanned * PAIR_OPS / PEAK_OPS * 1e3:.3f} ms), "
+                  f"plain {plain_ms:.1f} ms, chunk visits skipped "
+                  f"{100 * (1 - visits / pairs):.3f} %  [{tag}]")
+            add("ball_query_big", timed, ms, plain_ms,
+                (ns + nq) * 12 + nq * 32 * 4,
+                pairs * BOX_OPS + visits * CHUNK * PAIR_OPS)
+        p = stages[0]
+        name = f"knn_big {cloud} self-kNN {ROOM_N} k={KNN_K}"
+        got_i, got_d = ops.knn_big(p, p, KNN_K)
+        (want_i, want_d), plain_ms = timed_once(lambda: ops.knn_plain(p, p, KNN_K))
+        note("knn_big", check_equal(f"{name} indices", got_i, want_i))
+        note("knn_big", check_equal(f"{name} d2", got_d, want_d))
+        small_i, small_d = ops.knn_small(p, p, KNN_K)
+        check_equal(f"{name} indices vs the scan-everything kernel", got_i, small_i)
+        check_equal(f"{name} d2 vs the scan-everything kernel", got_d, small_d)
+        ms = cuda_ms(lambda: ops.knn_big(p, p, KNN_K))
+        small_ms = cuda_ms(lambda: ops.knn_small(p, p, KNN_K), 3)
+
+        def library():
+            for s in range(0, ROOM_N, 2048):
+                torch.topk(torch.cdist(p[:, s:s + 2048], p).square_(), KNN_K,
+                           largest=False)
+        library_ms = cuda_ms(library, 1)
+        # what this data needs: a box test per (query, chunk) and a distance
+        # test per point of the chunks whose bound is not above the query's
+        # final k-th d²; beside it the dense scan of the small-cloud kernel
+        visits, pairs = chunk_visits(spatial, p, p, got_d[..., -1], False)
+        print(f"{name}: {ms:.3f} ms, scan-everything kernel {small_ms:.3f} ms "
+              f"(its bound {ROOM_N * ROOM_N * PAIR_OPS / PEAK_OPS * 1e3:.3f} ms), "
+              f"plain {plain_ms:.1f} ms, topk(cdist^2) in tiles "
+              f"{library_ms:.1f} ms, chunk visits needed "
+              f"{visits / ROOM_N:.2f} a query of {pairs // ROOM_N}  [{tag}]")
+        add("knn_big", timed, ms, plain_ms, 2 * ROOM_N * 12 + ROOM_N * KNN_K * 8,
+            pairs * BOX_OPS + visits * CHUNK * PAIR_OPS)
+        if timed:
+            results["knn_big"]["library_ms"] = library_ms
+    # above 2^20 points, a few thousand picks (the twin the same ones)
+    blobs = rng.rand(64, 3) * [7, 6, 3]
+    huge = {"uniform": rng.rand(1, HUGE_N, 3) * [7, 6, 3],
+            "clustered": blobs[rng.randint(0, 64, HUGE_N)][None]
+            + 0.05 * rng.randn(1, HUGE_N, 3)}
+    for cloud, pts in huge.items():
+        p = torch.from_numpy(pts.astype(np.float32)).to(dev)
+        got = ops.furthest_point_sample_b1(p, HUGE_PICKS)
+        want, plain_ms = timed_once(
+            lambda: ops.furthest_point_sample_plain(p, HUGE_PICKS))
+        note("fps_b1", check_equal(f"fps_b1 {cloud} {HUGE_N}", got, want))
+        ms = cuda_ms(lambda: ops.furthest_point_sample_b1(p, HUGE_PICKS), 3)
+        print(f"fps_b1 {cloud} {HUGE_N} -> {HUGE_PICKS}: {ms:.3f} ms = "
+              f"{ms / HUGE_PICKS * 1e3:.3f} us a pick (the grid kernel), plain "
+              f"{plain_ms:.1f} ms  [{tag}]")
+    return finish_kernels(results, "room-like and uniform", tag)
 
 
 def wrappers(ops) -> dict:
@@ -378,7 +596,9 @@ def wrappers(ops) -> dict:
             "contrast_grad_rows": ops.contrast_grad_rows,
             "contrast_grad_support": ops.contrast_grad_support,
             "knn": ops.knn, "refine_cross": ops.refine_cross,
-            "refine_cross_backward": ops.refine_cross_backward}
+            "refine_cross_backward": ops.refine_cross_backward,
+            "fps_b1": ops.furthest_point_sample_b1, "knn_big": ops.knn_big,
+            "ball_query_big": ops.ball_query_big}
 
 
 def reset_counts(ops) -> dict:
@@ -406,38 +626,12 @@ def with_threshold(model, threshold: float):
     return m
 
 
-def eval_path(ops, cfg, model, dev, rng, tag, kind: str) -> dict:
-    """The eval main path of ``kind``; returns the kernels' launches in it."""
-    from amcontrast3d_tpu_torch.engine import make_eval_step
+def forward_vs_plain(model, pos, x, kind: str, path: str) -> None:
+    """One forward with the kernels and one with every kernel's plain twin:
+    stage positions identical, logits within 1e-4·(1+max|logit|); for MM at
+    the median predicted ambiguity, where CrossMask rows matter."""
     from amcontrast3d_tpu_torch.tools.profile_eval import plain_ops
 
-    path = f"{kind} eval"
-    model.eval()
-    step = make_eval_step(model, cfg.num_classes)
-    batches = [{"pos": torch.from_numpy(rng.rand(B, N, 3).astype(np.float32) * 4),
-                "x": torch.from_numpy(rng.rand(B, N, IN_CH).astype(np.float32)),
-                "y": torch.from_numpy(rng.randint(0, NUM_CLASSES, (B, N)))}
-               for _ in range(N_BATCHES + 1)]
-    batches = [{k: v.to(dev) for k, v in b.items()} for b in batches]
-    counted = reset_counts(ops)
-    forward_ms = []
-    for i, batch in enumerate(batches):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        out = step(batch)
-        torch.cuda.synchronize()
-        if i:   # batch 0 warms cuBLAS and the allocator up, untimed
-            forward_ms.append((time.perf_counter() - t) * 1e3)
-        logits, cm = out["logits"], out["cm"]
-        if logits.shape != (B, N, NUM_CLASSES) or not torch.isfinite(logits).all():
-            raise AssertionError(f"bad logits {tuple(logits.shape)}")
-        if int(cm.sum()) != B * N:
-            raise AssertionError(f"confusion matrix counts {int(cm.sum())}")
-    launches = check_launches(path, counted, len(batches))
-    print(f"{path} main path: {len(batches)} eval steps at B={B}x{N}, launches "
-          f"per forward {LAUNCHES[path]}")
-
-    pos, x = batches[0]["pos"], batches[0]["x"]
     note = ""
     with torch.inference_mode():
         if kind == "mm":
@@ -467,6 +661,39 @@ def eval_path(ops, cfg, model, dev, rng, tag, kind: str) -> dict:
         raise AssertionError(f"logits vs plain ops: max abs err {err} > {tol}")
     print(f"{path} main path vs plain ops on the card: {note}stage positions "
           f"identical, logits max abs err {err} (tol {tol})")
+
+
+def eval_path(ops, cfg, model, dev, rng, tag, kind: str) -> dict:
+    """The eval main path of ``kind``; returns the kernels' launches in it."""
+    from amcontrast3d_tpu_torch.engine import make_eval_step
+
+    path = f"{kind} eval"
+    model.eval()
+    step = make_eval_step(model, cfg.num_classes)
+    batches = [{"pos": torch.from_numpy(rng.rand(B, N, 3).astype(np.float32) * 4),
+                "x": torch.from_numpy(rng.rand(B, N, IN_CH).astype(np.float32)),
+                "y": torch.from_numpy(rng.randint(0, NUM_CLASSES, (B, N)))}
+               for _ in range(N_BATCHES + 1)]
+    batches = [{k: v.to(dev) for k, v in b.items()} for b in batches]
+    counted = reset_counts(ops)
+    forward_ms = []
+    for i, batch in enumerate(batches):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = step(batch)
+        torch.cuda.synchronize()
+        if i:   # batch 0 warms cuBLAS and the allocator up, untimed
+            forward_ms.append((time.perf_counter() - t) * 1e3)
+        logits, cm = out["logits"], out["cm"]
+        if logits.shape != (B, N, NUM_CLASSES) or not torch.isfinite(logits).all():
+            raise AssertionError(f"bad logits {tuple(logits.shape)}")
+        if int(cm.sum()) != B * N:
+            raise AssertionError(f"confusion matrix counts {int(cm.sum())}")
+    launches = check_launches(path, counted, len(batches))
+    print(f"{path} main path: {len(batches)} eval steps at B={B}x{N}, launches "
+          f"per forward {LAUNCHES[path]}")
+
+    forward_vs_plain(model, batches[0]["pos"], batches[0]["x"], kind, path)
     med = statistics.median(forward_ms)
     print(f"{path} forward B={B}x{N}: per-batch ms {forward_ms}; median "
           f"{med:.3f} ms = {B * N / med * 1e3:.1f} points/s  [{tag}]")
@@ -641,6 +868,135 @@ def train_vs_plain(cfg, model, optimizer, dev, batch, tag, kind: str):
           f"{p['ms']:.1f} ms  [{tag}]")
 
 
+def scene_launches(clouds: list, kind: str) -> dict:
+    """The launches the whole-scene test must have made: per subcloud
+    forward 4 FPS calls, 8 ball queries (two per stage; those whose support
+    exceeds BIG_N go to the chunk-skipping kernel), 4 interpolations, for MM
+    4 CrossMask calls, and one boundary kNN over the subcloud's points."""
+    want = {"fps_b1": 0, "ball_query_big": 0, "ball_query": 0,
+            "three_interpolation": 0, "knn_big": 0, "knn": 0}
+    if kind == "mm":
+        want["refine_cross"] = 0
+    for cloud in clouds:
+        for n, nb in zip(cloud["subclouds"], cloud["buckets"]):
+            sizes = [nb // 4 ** s for s in range(5)]
+            supports = [sizes[s - 1] for s in range(1, 5)] + sizes[1:]
+            big = sum(ns > BIG_N for ns in supports)
+            want["fps_b1"] += 4
+            want["ball_query_big"] += big
+            want["ball_query"] += 8 - big
+            want["three_interpolation"] += 4
+            want["knn_big" if n > BIG_N else "knn"] += 1
+            if kind == "mm":
+                want["refine_cross"] += 4
+    return {k: v for k, v in want.items() if v}
+
+
+def scene_path(ops, kind: str, dev, tag: str, workdir: str) -> dict:
+    """The whole-scene test of ``kind`` through ``main_cli``; returns the
+    kernels' launches in it."""
+    from amcontrast3d_tpu_torch.engine import Runner, evaluate
+    from amcontrast3d_tpu_torch.engine.cli import load_cfg, main_cli, parse_args
+    from amcontrast3d_tpu_torch.models import init_weights_
+    from amcontrast3d_tpu_torch.tools.profile_eval import plain_ops
+    from amcontrast3d_tpu_torch.transforms import build_transforms_from_cfg
+    from amcontrast3d_tpu_torch.utils import EasyConfig, save_checkpoint
+
+    path = f"{kind} scene"
+    argv = ["--kind", kind, "--cfg", CFGS[kind], "mode=test",
+            "dataset.common.NAME=Synthetic",
+            f"dataset.common.num_rooms={SCENE_ROOMS[kind]}",
+            f"dataset.common.n_points={SCENE_POINTS}",
+            "ambiguity_args.miou_B_I=True", f"root_dir={workdir}", f"seed={SEED}"]
+    cfg = load_cfg(*parse_args(argv))
+    # seeded random weights, handed to the CLI as a checkpoint
+    runner = Runner(cfg, kind=kind, device=dev)
+    init_weights_(runner.model, torch.Generator().manual_seed(SEED))
+    ck = EasyConfig()
+    ck.update({"run_name": f"smoke_{kind}", "ckpt_dir": workdir})
+    ckpt = save_checkpoint(ck, {"model": runner.model.state_dict()}, 0)
+
+    counted = reset_counts(ops)
+    torch.cuda.reset_peak_memory_stats()
+    results = main_cli(None, argv + [f"pretrained_path={ckpt}"])
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counted.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    clouds = results["clouds"]
+    buckets = sorted({nb for c in clouds for nb in c["buckets"]})
+    sizes = [n for c in clouds for n in c["subclouds"]]
+    if len(clouds) != SCENE_ROOMS[kind] or not set(buckets) <= set(SCENE_BUCKETS) \
+            or (kind == "aa" and buckets != list(SCENE_BUCKETS)):
+        raise AssertionError(f"{path}: {len(clouds)} rooms, buckets {buckets}")
+    if not all(73729 <= n <= 155648 for n in sizes):
+        raise AssertionError(f"{path}: subcloud sizes {sorted(set(sizes))}")
+    if not all(c["finite"] for c in clouds):
+        raise AssertionError(f"{path}: logits are not finite")
+    points = sum(c["points"] for c in clouds)
+    if results["cm"].total != points:
+        raise AssertionError(f"{path}: confusion matrix counts "
+                             f"{results['cm'].total} of {points} points")
+    split = results["cm_boundary"].total + results["cm_inner"].total
+    if split != sum(sizes):
+        raise AssertionError(f"{path}: boundary + inner counts {split}, "
+                             f"subclouds hold {sum(sizes)}")
+    want = scene_launches(clouds, kind)
+    if {k: v for k, v in launches.items() if v} != want:
+        raise AssertionError(f"{path}: launches {launches}, expected {want}")
+    rows = open(results["csv_path"]).read().splitlines()
+    if len(rows) != 2 or not rows[0].startswith("method,Area,OA,mACC,mIoU"):
+        raise AssertionError(f"{path}: results CSV {rows}")
+    print(f"{path} main path: main_cli mode=test on {len(clouds)} Synthetic "
+          f"rooms, {len(sizes)} subcloud forwards, launches {want}; mIoU "
+          f"{results['miou']:.3f} boundary {results['boundary'][0]:.3f} inner "
+          f"{results['inner'][0]:.3f} (random weights); results in "
+          f"{os.path.basename(results['csv_path'])}")
+    for i, c in enumerate(clouds):
+        wall = c["prep_s"] + c["forward_s"] + c["vote_s"] + c["boundary_s"]
+        print(f"{path} room {i}: {c['points']} raw points, {c['voxels']} voxels, "
+              f"{len(c['subclouds'])} subclouds of {c['subclouds'][0]} points in "
+              f"bucket {c['buckets'][0]}; wall {wall:.3f} s = "
+              f"{c['points'] / wall:.1f} voted points/s "
+              f"({sum(c['subclouds']) / wall:.1f} scored points/s); host prep "
+              f"{c['prep_s']:.3f} s, forward {c['forward_s']:.3f} s "
+              f"({c['forward_s'] / len(c['subclouds']) * 1e3:.1f} ms a subcloud), "
+              f"voting {c['vote_s']:.3f} s, boundary kNN and metrics "
+              f"{c['boundary_s']:.3f} s; peak {peak:.3f} GiB  [{tag}]")
+
+    # one subcloud of the last room again: the checkpoint round trip, the
+    # plain twins, the boundary mask
+    np.random.seed(0)
+    for item in evaluate.generate_data_list(cfg):
+        coord, feat, label, idx_points, *_ = evaluate.load_data(item, cfg)
+    part = evaluate.prepare_parts(
+        coord, feat, idx_points[:1], cfg,
+        build_transforms_from_cfg("val", cfg.datatransforms))[0]
+    idx_part, n, nb, pos, x = part
+    batch = runner.put_batch({"pos": pos[None], "x": x[None]})
+    loaded = Runner(cfg, kind=kind, device=dev)
+    if loaded.load_pretrained(ckpt) != 0:
+        raise AssertionError(f"{path}: checkpoint epoch")
+    check_equal(f"{path} logits after the checkpoint round trip",
+                loaded.predict_fn()(batch), runner.predict_fn()(batch))
+    forward_vs_plain(runner.model, batch["pos"], batch["x"], kind,
+                     f"{path} subcloud of {n} points in bucket {nb}")
+    nsample = cfg.ambiguity_args["nsample"]
+    args = (pos[:n], label[idx_part].astype(np.int64), nsample, cfg.num_classes,
+            cfg.get("ignore_index"), dev)
+    mask_k, idx_k = evaluate.posmask_searching(*args)
+    with plain_ops():
+        mask_p, idx_p = evaluate.posmask_searching(*args)
+    if not (np.array_equal(mask_k, mask_p) and np.array_equal(idx_k, idx_p)):
+        raise AssertionError(f"{path}: boundary neighbourhoods differ from plain")
+    s = mask_k.sum(-1)
+    print(f"{path}: checkpoint round trip gives identical logits; boundary "
+          f"neighbourhoods (k={nsample}) identical to the plain kNN, "
+          f"{int(np.logical_and(0 < s, s < nsample).sum())} of {n} points on "
+          f"a boundary")
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -666,6 +1022,7 @@ def main() -> None:
 
     rng = np.random.RandomState(SEED)
     kernels = kernel_phases(ops, dev, rng, tag)
+    kernels.update(scene_kernel_phases(ops, dev, rng, tag))
 
     by_path = {}
     for kind in ("aa", "mm"):
@@ -678,6 +1035,10 @@ def main() -> None:
         by_path[f"{kind} train"] = train_path(ops, cfg, model, dev, rng, tag, kind)
         del model
         torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as workdir:
+        for kind in ("aa", "mm"):
+            by_path[f"{kind} scene"] = scene_path(ops, kind, dev, tag, workdir)
+            torch.cuda.empty_cache()
 
     rows = [{"name": k, "route": "cuda", "source": src, "replaces": tpu,
              "launches": sum(counts[k] for counts in by_path.values()),

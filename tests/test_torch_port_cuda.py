@@ -278,3 +278,126 @@ def test_refine_kernels_small_and_ragged(cuda_device, n, c, k):
     with pytest.raises(ValueError):
         ops.dual_masks_cross(p, f.transpose(1, 2).contiguous().transpose(1, 2),
                              a, 4, "MIN")
+
+
+def _room(rng, n, dup=0.05):
+    """A room-like cloud: points on the six faces of a 6 x 5 x 3 m box and
+    in two solid boxes, snapped to a 0.04 m grid, a share of them repeated
+    (as bucket padding repeats real points)."""
+    face = rng.rand(n, 3) * [6, 5, 3]
+    axis = rng.randint(0, 3, n)
+    side = rng.randint(0, 2, n) * np.array([6, 5, 3])[axis]
+    face[np.arange(n), axis] = side + 0.01 * rng.randn(n)
+    solid = rng.rand(n // 5, 3) * [1.0, 0.8, 0.7] + [2, 2, 0]
+    pts = np.concatenate([face[: n - len(solid)], solid])
+    pts = np.floor(pts / 0.04) * 0.04 + 0.02
+    rep = rng.randint(0, n, int(n * dup))
+    pts[rng.randint(0, n, len(rep))] = pts[rep]
+    return pts[rng.permutation(n)][None].astype(np.float32)
+
+
+_FPS_B1_KERNELS = (ops.fps._fps_b1_grid, ops.fps._fps_b1_cluster)
+
+
+def _equal(got, want):
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), int((got != want).sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,npoint", [(1, 1), (7, 7), (1030, 257), (5000, 5000),
+                                      (40001, 3000), (150001, 1200)])
+def test_fps_b1_matches_plain(cuda_device, n, npoint):
+    """The whole-room FPS at odd sizes: one point, npoint = N, N not a
+    multiple of anything, one block and many: picks identical."""
+    rng = np.random.RandomState(n)
+    xyz = torch.from_numpy(_cloud(rng, 1, n, n % 2 == 0)).to(cuda_device)
+    before = ops.furthest_point_sample_b1.launches
+    got = ops.furthest_point_sample(xyz, npoint)      # B == 1 dispatches
+    assert ops.furthest_point_sample_b1.launches == before + 1
+    want = ops.furthest_point_sample_plain(xyz, npoint)
+    _equal(got, want)
+    for kernel in _FPS_B1_KERNELS:       # both kernels take these sizes
+        _equal(kernel(xyz, npoint), want)
+
+
+@pytest.mark.cuda
+def test_fps_b1_ties_and_duplicates(cuda_device):
+    """All points equal (every pick is a tie that index 0 wins), and a
+    gridded room with duplicates."""
+    same = torch.ones(1, 3000, 3, device=cuda_device)
+    room = torch.from_numpy(_room(np.random.RandomState(3), 20000)).to(cuda_device)
+    for kernel in _FPS_B1_KERNELS:
+        _equal(kernel(same, 50), ops.furthest_point_sample_plain(same, 50))
+        _equal(kernel(room, 5000), ops.furthest_point_sample_plain(room, 5000))
+    with pytest.raises(ValueError):
+        ops.furthest_point_sample_b1(room.expand(2, -1, -1).contiguous(), 10)
+
+
+@pytest.mark.cuda
+def test_fps_b1_above_the_cluster_takes_the_grid(cuda_device):
+    """More points than one cluster keeps go to the grid kernel; asking for
+    the cluster there raises."""
+    rng = np.random.RandomState(9)
+    xyz = torch.from_numpy(_cloud(rng, 1, 16 * 512 * 20 + 1, False)).to(cuda_device)
+    _equal(ops.furthest_point_sample_b1(xyz, 300),
+           ops.furthest_point_sample_plain(xyz, 300))
+    with pytest.raises(ValueError):
+        ops.fps._fps_b1_cluster(xyz, 300)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,m", [(1, 1), (5, 3), (63, 63), (65, 200),
+                                 (4099, 1031), (32769, 4000), (32767, 4000)])
+def test_big_knn_and_ball_query_match_plain(cuda_device, n, m):
+    """The chunk-skipping kernels at odd sizes, with k below and above N,
+    just above and below the 32768 gate: identical to the twins and to the
+    small-cloud kernels."""
+    rng = np.random.RandomState(n + m)
+    sup = torch.from_numpy(_cloud(rng, 2, n, n % 2 == 1)).to(cuda_device)
+    q = torch.from_numpy(_cloud(rng, 2, m, False)).to(cuda_device)
+    q[:, : min(m, n) // 2] = sup[:, : min(m, n) // 2]   # queries on the support
+    for k in (1, 24, 33, 128):
+        want_i, want_d = ops.knn_plain(sup, q, k)
+        for fn in (ops.knn_big, ops.knn_small):
+            got_i, got_d = fn(sup, q, k)
+            _equal(got_i, want_i)
+            _equal(got_d, want_d)
+    for r, k in ((0.05, 32), (0.3, 32), (0.3, 70), (9.0, 16)):
+        want = ops.ball_query_plain(sup, q, r, k)
+        _equal(ops.ball_query_big(sup, q, r, k), want)
+        _equal(ops.ball_query_small(sup, q, r, k), want)
+    # the dispatch follows the gate
+    counts = (ops.knn_big.launches, ops.ball_query_big.launches)
+    ops.knn(sup, q, 3)
+    ops.ball_query(sup, q, 0.2, 8)
+    big = int(n > 32768)
+    assert (ops.knn_big.launches, ops.ball_query_big.launches) == \
+        (counts[0] + big, counts[1] + big)
+
+
+@pytest.mark.cuda
+def test_big_kernels_room_duplicates_and_empty_balls(cuda_device):
+    """A gridded room with repeated points (ties in d² at every distance),
+    all points equal, and queries far from the support (empty balls)."""
+    rng = np.random.RandomState(5)
+    room = torch.from_numpy(_room(rng, 40000)).to(cuda_device)
+    q = room[:, ::4].contiguous()
+    for k in (12, 24):
+        want_i, want_d = ops.knn_plain(room, q, k)
+        got_i, got_d = ops.knn_big(room, q, k)
+        _equal(got_i, want_i)
+        _equal(got_d, want_d)
+    for r in (0.1, 0.2):
+        _equal(ops.ball_query_big(room, q, r, 32),
+               ops.ball_query_plain(room, q, r, 32))
+    far = q + 50.0
+    got = ops.ball_query_big(room, far, 0.1, 32)
+    _equal(got, torch.zeros_like(got))
+    same = torch.ones(1, 700, 3, device=cuda_device)
+    _equal(ops.ball_query_big(same, same, 0.1, 32),
+           ops.ball_query_plain(same, same, 0.1, 32))
+    want_i, want_d = ops.knn_plain(same, same, 24)
+    got_i, got_d = ops.knn_big(same, same, 24)
+    _equal(got_i, want_i)
+    _equal(got_d, want_d)

@@ -538,3 +538,188 @@ def test_knn_and_refine_wrappers_raise_rather_than_fall_back():
     with pytest.raises(ValueError):       # a CPU query against a meta support
         ops.knn(meta, torch.zeros(1, 4, 3), 4)
     assert ops.knn.launches == 0 and ops.refine_cross.launches == 0
+
+
+# ---- the whole-room kernels: dispatch, twins, spatial order -----------------
+
+import importlib                                                 # noqa: E402
+
+import amcontrast3d_tpu.ops.knn_pallas as KP                     # noqa: E402
+from hypothesis import given, settings                           # noqa: E402
+from hypothesis import strategies as st                          # noqa: E402
+
+from amcontrast3d_tpu_torch.ops import spatial                   # noqa: E402
+
+# the modules, not the functions of the same names that ``ops`` exports
+port_fps = importlib.import_module("amcontrast3d_tpu_torch.ops.fps")
+port_knn = importlib.import_module("amcontrast3d_tpu_torch.ops.knn")
+
+
+@pytest.mark.parametrize("n,npoint", [(203, 60), (1000, 1000), (1, 1)])
+def test_fps_b1_twin_matches_pallas_b1_kernel(n, npoint):
+    """One cloud: the port's B == 1 wrapper (its twin on the CPU) picks
+    exactly what the TPU's B == 1 kernel picks in interpret mode."""
+    xyz = _cloud(np.random.RandomState(n), 1, n)
+    got = ops.furthest_point_sample_b1(_t(xyz), npoint).numpy()
+    want = np.asarray(furthest_point_sample_pallas(jnp.asarray(xyz), npoint,
+                                                   interpret=True))
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(
+        got, ops.furthest_point_sample_plain(_t(xyz), npoint).numpy())
+
+
+def test_ball_query_twin_against_big_pallas_kernel(monkeypatch):
+    """The large-cloud TPU ball query returns a k-subset of an overfull
+    ball; held against the port's twin as the JAX package's own test holds
+    it against its oracle: every returned point in the ball, the same set
+    where the ball holds at most k points, empty balls all 0."""
+    monkeypatch.setattr(KP, "_BIG_N", 4096)   # force the large-cloud kernel
+    rng = np.random.RandomState(0)
+    sup = (rng.rand(1, 9000, 3) * 4).astype(np.float32)
+    q = (rng.rand(1, 700, 3) * 4).astype(np.float32)
+    q[0, :5] += 50.0                          # empty balls
+    r, k = 0.25, 16
+    pidx = np.asarray(KP.ball_query_pallas(jnp.asarray(sup), jnp.asarray(q), r,
+                                           k, interpret=True))[0]
+    got = ops.ball_query_big(_t(sup), _t(q), r, k).numpy()[0]
+    inside = (port_knn.pairwise_d2(_t(q), _t(sup))[0]
+              < port_knn._radius2(r)).numpy()
+    hits = want = 0
+    for i in range(700):
+        members = set(np.where(inside[i])[0].tolist())
+        assert set(got[i].tolist()) <= (members or {0})
+        assert got[i].tolist() == (sorted(members) + [min(members or {0})] * k)[:k]
+        if not members:
+            assert pidx[i].tolist() == [0] * k
+            continue
+        assert set(pidx[i].tolist()) <= members
+        hits += len(set(pidx[i].tolist()))
+        want += min(len(members), k)
+    assert hits / want >= 0.99
+
+
+def test_knn_twin_against_big_pallas_kernel(monkeypatch):
+    """The large-cloud TPU kNN (support streamed in chunks, best two per
+    bin) against the port's exact twin: ascending, self first, recall."""
+    monkeypatch.setattr(KP, "_BIG_N", 4096)
+    rng = np.random.RandomState(1)
+    sup = rng.rand(1, 9000, 3).astype(np.float32)
+    q = np.concatenate([sup[:, :100], rng.rand(1, 100, 3).astype(np.float32)], 1)
+    idx, d2 = ops.knn_big(_t(sup), _t(q), 8)
+    pidx, pd2 = KP.knn_pallas(jnp.asarray(sup), jnp.asarray(q), 8, interpret=True)
+    pidx, pd2 = np.asarray(pidx), np.asarray(pd2)
+    assert np.all(np.diff(pd2, axis=-1) >= -1e-6)
+    np.testing.assert_array_equal(pidx[0, :100, 0], np.arange(100))
+    np.testing.assert_array_equal(idx.numpy()[0, :100, 0], np.arange(100))
+    recall = np.mean([len(set(a) & set(o)) / 8
+                      for a, o in zip(pidx[0], idx.numpy()[0])])
+    assert recall > 0.95
+
+
+def test_b1_and_large_n_route_to_the_new_wrappers(monkeypatch):
+    """B == 1 goes to the whole-room FPS and N above the gate to the
+    chunk-skipping kNN and ball query; off the CPU each launches its kernel
+    or raises, and never runs a twin."""
+    calls = []
+    monkeypatch.setattr(port_knn, "_BIG_N", 100)
+    for mod, name in ((port_fps, "furthest_point_sample_b1"),
+                      (port_knn, "knn_big"), (port_knn, "ball_query_big"),
+                      (port_knn, "knn_small"), (port_knn, "ball_query_small")):
+        monkeypatch.setattr(mod, name,
+                            lambda *a, _n=name, **k: calls.append(_n))
+    one = torch.empty(1, 101, 3, device="meta")
+    small = torch.empty(1, 100, 3, device="meta")
+    port_fps.furthest_point_sample(one, 8)
+    port_knn.knn(one, small, 4)
+    port_knn.ball_query(one, small, 0.1, 4)
+    port_knn.knn(small, one, 4)
+    port_knn.ball_query(small, one, 0.1, 4)
+    port_knn.ball_query(one, small, 0.1, 129)      # k beyond the warp's slots
+    assert calls == ["furthest_point_sample_b1", "knn_big", "ball_query_big",
+                     "knn_small", "ball_query_small", "ball_query_small"]
+    monkeypatch.undo()
+    monkeypatch.setattr(port_knn, "_BIG_N", 100)
+    before = (ops.furthest_point_sample_b1.launches, ops.knn_big.launches,
+              ops.ball_query_big.launches)
+    with pytest.raises(ValueError):
+        ops.furthest_point_sample(one, 8)
+    with pytest.raises(ValueError):
+        ops.knn(one, small, 4)
+    with pytest.raises(ValueError):
+        ops.ball_query(one, small, 0.1, 4)
+    two = torch.empty(2, 60000, 3, device="meta")   # B > 1 keeps its limit
+    with pytest.raises(ValueError, match="B == 1"):
+        ops.furthest_point_sample(two, 8)
+    assert before == (ops.furthest_point_sample_b1.launches,
+                      ops.knn_big.launches, ops.ball_query_big.launches)
+    # on the CPU the large-cloud wrappers are their twins
+    rng = np.random.RandomState(2)
+    sup, q = _t(_cloud(rng, 1, 300)), _t(_cloud(rng, 1, 50))
+    assert torch.equal(ops.ball_query(sup, q, 0.5, 8),
+                       ops.ball_query_plain(sup, q, 0.5, 8))
+    assert torch.equal(ops.knn(sup, q, 5)[0], ops.knn_plain(sup, q, 5)[0])
+
+
+def test_plain_twins_tile_whole_rooms():
+    """The twins cut their query tiles so that a (tile x N) block stays
+    within 2^28 elements: unchanged at the training crop, smaller for a
+    whole room, and the result does not depend on the tile."""
+    assert port_knn._tile_rows(2048, 4, 24000) == 2048
+    assert port_knn._tile_rows(1024, 4, 24000) == 1024
+    assert port_knn._tile_rows(2048, 1, 155648) == 1724
+    assert port_knn._tile_rows(2048, 1, 2 ** 29) == 1
+    rng = np.random.RandomState(3)
+    sup, q = _t(_cloud(rng, 2, 400, True)), _t(_cloud(rng, 2, 90))
+    want_i, want_d = ops.knn_plain(sup, q, 7)
+    want_b = ops.ball_query_plain(sup, q, 0.3, 9)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(port_knn, "_TILE_ELEMENTS", 2 * 400 * 13)
+        got_i, got_d = ops.knn_plain(sup, q, 7)
+        assert torch.equal(got_i, want_i) and torch.equal(got_d, want_d)
+        assert torch.equal(ops.ball_query_plain(sup, q, 0.3, 9), want_b)
+
+
+@pytest.mark.parametrize("n,clustered", [(1, False), (64, False), (65, True),
+                                         (1000, True), (4099, False)])
+def test_spatial_sort_is_a_permutation_with_containing_boxes(n, clustered):
+    p = _t(_cloud(np.random.RandomState(n), 2, n, clustered))
+    cloud = spatial.sort_support(p)
+    perm = cloud.packed.view(torch.int32)[..., 3].long()
+    assert torch.equal(perm.sort(1).values, torch.arange(n).expand(2, n))
+    assert torch.equal(cloud.packed[..., :3],
+                       torch.gather(p, 1, perm[..., None].expand(2, n, 3)))
+    assert torch.equal(cloud.codes, spatial.morton_key(
+        cloud.packed[..., :3], cloud.lo, cloud.scale))
+    assert (cloud.codes.diff(dim=1) >= 0).all()
+    # stable: points of one cell keep their index order
+    assert (perm.diff(dim=1)[cloud.codes.diff(dim=1) == 0] > 0).all()
+    nc = -(-n // spatial.CHUNK)
+    assert cloud.boxes.shape == (2, nc, 6)
+    for c in range(nc):
+        pts = cloud.packed[:, c * spatial.CHUNK:(c + 1) * spatial.CHUNK, :3]
+        assert torch.equal(cloud.boxes[:, c, :3], pts.amin(1))
+        assert torch.equal(cloud.boxes[:, c, 3:], pts.amax(1))
+    q = _t(_cloud(np.random.RandomState(n + 1), 2, 37)) * 1.5 - 1.0
+    order, home = spatial.query_order(q, cloud)
+    assert order.dtype == home.dtype == torch.int32
+    assert torch.equal(order.long().sort(1).values, torch.arange(37).expand(2, 37))
+    assert home.min() >= 0 and home.max() < nc
+
+
+_coord = st.floats(-64, 64, width=32, allow_nan=False)
+
+
+@settings(max_examples=200, deadline=None)
+@given(st.lists(st.tuples(_coord, _coord, _coord), min_size=1, max_size=40),
+       st.tuples(_coord, _coord, _coord))
+def test_box_lower_bound_never_exceeds_a_true_distance(points, query):
+    """In float32, as computed: the bound of a chunk's box is at or below
+    the d² of every point of the chunk, so a kernel that skips a chunk
+    whose bound fails ``< r²`` (or ``<= k-th d²``) loses no point."""
+    pts = torch.tensor(points, dtype=torch.float32)[None]
+    q = torch.tensor(query, dtype=torch.float32)[None, None]
+    boxes = spatial.chunk_boxes(pts, chunk=8)
+    lb = spatial.bbox_lb(q[:, :, None, :], boxes[:, None])[0, 0]    # (nc,)
+    d2 = port_knn.pairwise_d2(q, pts)[0, 0]
+    for c in range(boxes.shape[1]):
+        assert lb[c] <= d2[c * 8:(c + 1) * 8].min()

@@ -18,13 +18,40 @@ def test_port_imports_no_jax():
             "amcontrast3d_tpu_torch.utils.convert, amcontrast3d_tpu_torch.utils.metrics, "
             "amcontrast3d_tpu_torch.tools.profile_eval, "
             "amcontrast3d_tpu_torch.tools.profile_train, amcontrast3d_tpu_torch.loss, "
-            "amcontrast3d_tpu_torch.optim, amcontrast3d_tpu_torch.scheduler; "
+            "amcontrast3d_tpu_torch.tools.profile_big_kernels, "
+            "amcontrast3d_tpu_torch.optim, amcontrast3d_tpu_torch.scheduler, "
+            "amcontrast3d_tpu_torch.data, amcontrast3d_tpu_torch.data.semantickitti, "
+            "amcontrast3d_tpu_torch.transforms, amcontrast3d_tpu_torch.engine.cli, "
+            "amcontrast3d_tpu_torch.engine.evaluate, amcontrast3d_tpu_torch.engine.runner, "
+            "amcontrast3d_tpu_torch.utils.ckpt, amcontrast3d_tpu_torch.utils.logger, "
+            "amcontrast3d_tpu_torch.utils.random, amcontrast3d_tpu_torch.utils.vis, "
+            "amcontrast3d_tpu_torch.ops.spatial; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'amcontrast3d_tpu')]; "
             "assert not bad, bad")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_port_sources_name_no_jax_import():
+    """No import statement of the port, of ``chip_smoke.py`` or of the
+    port's example mains names jax, flax, optax or the JAX package (their
+    comments may point at the JAX files they mirror)."""
+    import ast
+    files = [*REPO.glob("amcontrast3d_tpu_torch/**/*.py"), REPO / "chip_smoke.py",
+             *REPO.glob("examples/segmentation/*_torch.py")]
+    assert len(files) > 40
+    banned = {"jax", "jaxlib", "flax", "optax", "amcontrast3d_tpu"}
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text())):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            bad = [n for n in names if n.split(".")[0] in banned]
+            assert not bad, f"{path}: imports {bad}"
 
 
 def _run_tool(name):
@@ -46,6 +73,37 @@ def test_profile_train_needs_a_cuda_device():
     assert proc.returncode != 0
     assert "no CUDA device" in proc.stderr
     assert not proc.stdout
+
+
+def test_profile_big_kernels_needs_a_cuda_device():
+    proc = _run_tool("profile_big_kernels")
+    assert proc.returncode != 0
+    assert "no CUDA device" in proc.stderr
+    assert not proc.stdout
+
+
+@pytest.mark.parametrize("main", ["main_AA_torch.py", "main_MM_torch.py"])
+def test_example_mains_need_a_cuda_device_unless_cpu_is_named(main, tmp_path):
+    """Without a card the port's mains stop before they write anything."""
+    proc = subprocess.run(
+        [sys.executable, str(REPO / "examples" / "segmentation" / main),
+         "--cfg", str(REPO / "cfgs" / "synthetic" / "AMContrast3D-AA.yaml"),
+         "mode=test", f"root_dir={tmp_path}"],
+        cwd=tmp_path, capture_output=True, text=True, timeout=120,
+        env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+    assert proc.returncode != 0
+    assert "no CUDA device" in proc.stderr
+    assert not list(tmp_path.iterdir())
+
+
+def test_chip_smoke_alone_fails(tmp_path):
+    """In a directory that holds nothing else of the repository the smoke
+    script exits non-zero and prints no result."""
+    (tmp_path / "chip_smoke.py").write_text((REPO / "chip_smoke.py").read_text())
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
 
 
 def test_chip_smoke_needs_a_cuda_device():
@@ -81,7 +139,8 @@ def test_build_reports_compiler_failure(monkeypatch, tmp_path):
 
 
 def test_library_name_follows_the_sources(monkeypatch, tmp_path):
-    for name in ("fps.cu", "ball_query.cu", "interpolate.cu", "contrast.cu"):
+    for name in ("fps.cu", "ball_query.cu", "interpolate.cu", "contrast.cu",
+                 "fps_b1.cu", "knn_big.cu", "ball_query_big.cu", "chunks.cuh"):
         assert (_build.CSRC_DIR / name).is_file()
     csrc = tmp_path / "csrc"
     csrc.mkdir()

@@ -53,6 +53,11 @@
 // block's pick j + 1, which each block sends after its reads of pick j.
 // ops/fps.py asks amc3d_fps_b1_clusters whether the card can hold such a
 // cluster and sends the cloud to the grid kernel where it cannot.
+// The cluster kernel also takes a batch, one cluster a cloud (the clouds
+// share nothing, so clusters beyond those the card holds at once simply run
+// later): that is where a batch goes whose clouds are too large for the
+// shared-memory min-distance buffer of fps.cu (B > 1, N > 57344: the first
+// stage of the ScanNet recipe, 2 x 64000 -> 16000).
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -217,6 +222,10 @@ __global__ void __launch_bounds__(kClusterThreads, 1)
 fps_b1_cluster_kernel(const float* __restrict__ xyz, int n, int npoint,
                       int per_block, int* __restrict__ out) {
   extern __shared__ float spos[];  // x, y, z of the block's points
+  // one cluster a cloud: cluster c of the grid samples cloud c
+  const size_t cloud = blockIdx.x / kClusterBlocks;
+  xyz += cloud * n * 3;
+  out += cloud * npoint;
   __shared__ Key warp_key[kClusterWarps];
   // per parity of the pick, the 16 blocks' winners: key, and x, y, z
   __shared__ __align__(16) Key win_key[2][kClusterBlocks];
@@ -323,7 +332,7 @@ ClusterKernel cluster_kernel(int per_block) {
   }
 }
 
-cudaError_t cluster_config(ClusterKernel kernel, int per_block,
+cudaError_t cluster_config(ClusterKernel kernel, int per_block, int clouds,
                            cudaStream_t stream, cudaLaunchConfig_t* config,
                            cudaLaunchAttribute* attribute) {
   const int smem = per_block * 3 * static_cast<int>(sizeof(float));
@@ -338,7 +347,7 @@ cudaError_t cluster_config(ClusterKernel kernel, int per_block,
   attribute->val.clusterDim.y = 1;
   attribute->val.clusterDim.z = 1;
   *config = cudaLaunchConfig_t{};
-  config->gridDim = dim3(kClusterBlocks);
+  config->gridDim = dim3(kClusterBlocks * clouds);
   config->blockDim = dim3(kClusterThreads);
   config->dynamicSmemBytes = smem;
   config->stream = stream;
@@ -382,16 +391,17 @@ extern "C" int amc3d_fps_b1(const void* xyz, void* out, void* best,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The same through the cluster kernel; n <= 16 x 512 x 20, else
-// cudaErrorInvalidValue.
-extern "C" int amc3d_fps_b1_cluster(const void* xyz, void* out, int n,
+// xyz (b, n, 3) float32 -> out (b, npoint) int32 through the cluster kernel,
+// one cluster a cloud; n <= 16 x 512 x 20, else cudaErrorInvalidValue.
+extern "C" int amc3d_fps_b1_cluster(const void* xyz, void* out, int b, int n,
                                     int npoint, void* stream) {
+  if (b < 1) return static_cast<int>(cudaErrorInvalidValue);
   const int per_block = (n + kClusterBlocks - 1) / kClusterBlocks;
   const ClusterKernel kernel = cluster_kernel(per_block);
   if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   cudaLaunchConfig_t config;
   cudaLaunchAttribute attribute;
-  cudaError_t err = cluster_config(kernel, per_block,
+  cudaError_t err = cluster_config(kernel, per_block, b,
                                    static_cast<cudaStream_t>(stream), &config,
                                    &attribute);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -409,7 +419,7 @@ extern "C" int amc3d_fps_b1_clusters() {
   const ClusterKernel kernel = cluster_kernel(per_block);
   cudaLaunchConfig_t config;
   cudaLaunchAttribute attribute;
-  cudaError_t err = cluster_config(kernel, per_block, nullptr, &config,
+  cudaError_t err = cluster_config(kernel, per_block, 1, nullptr, &config,
                                    &attribute);
   if (err != cudaSuccess) return -static_cast<int>(err);
   int clusters = 0;

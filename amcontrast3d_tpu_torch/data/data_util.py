@@ -150,3 +150,53 @@ def get_class_weights(num_per_class, normalize: bool = False) -> np.ndarray:
     if normalize:
         ce_label_weight = (ce_label_weight * len(ce_label_weight)) / ce_label_weight.sum()
     return ce_label_weight.astype(np.float32)
+
+
+def grid_subsampling(points: np.ndarray, features: np.ndarray = None,
+                     labels: np.ndarray = None, sampleDl: float = 0.1):
+    """Barycenter voxel-grid subsample (↔ the JAX package's host extension
+    ``native.grid_subsampling``, itself ↔ cpp/subsampling), in numpy.
+
+    points (n, 3) float32; features (n, f) float32; labels (n,) or (n, l)
+    integers.  Per occupied voxel of edge ``sampleDl`` the mean of points
+    and features (summed in float64 in point order) and per label column the
+    most frequent value (ties to the lowest); voxels come in the order of
+    their first point.  Returns the subsampled arrays in the same shapes."""
+    points = np.ascontiguousarray(points, np.float32)
+    n = len(points)
+    if n == 0 or sampleDl <= 0:
+        raise ValueError("grid_subsampling needs points and sampleDl > 0")
+    inv = 1.0 / np.float32(sampleDl).astype(np.float64)
+    dl = np.float32(sampleDl).astype(np.float64)
+    p64 = points.astype(np.float64)
+    origin = np.floor(p64.min(0) * inv) * dl
+    cell = np.floor((p64 - origin) * inv).astype(np.int64)
+    nx = int(np.floor((p64[:, 0].max() - origin[0]) * inv)) + 1
+    ny = int(np.floor((p64[:, 1].max() - origin[1]) * inv)) + 1
+    key = cell[:, 0] + nx * cell[:, 1] + nx * ny * cell[:, 2]
+    _, first, inverse = np.unique(key, return_index=True, return_inverse=True)
+    rank = np.empty(len(first), np.int64)
+    rank[np.argsort(first, kind="stable")] = np.arange(len(first))
+    voxel = rank[inverse]                      # first-seen order
+    m = len(first)
+    count = np.bincount(voxel, minlength=m).astype(np.float64)
+
+    def mean(a):
+        return np.stack([np.bincount(voxel, weights=a[:, d], minlength=m)
+                         / count for d in range(a.shape[1])], 1
+                        ).astype(np.float32)
+    result = [mean(p64)]
+    if features is not None:
+        result.append(mean(np.asarray(features, np.float32).astype(np.float64)))
+    if labels is not None:
+        lab = np.asarray(labels)
+        squeeze = lab.ndim == 1
+        lab = lab.reshape(n, -1).astype(np.int64)
+        out = np.empty((m, lab.shape[1]), np.int32)
+        for col in range(lab.shape[1]):
+            values, codes = np.unique(lab[:, col], return_inverse=True)
+            votes = np.zeros((m, len(values)), np.int64)
+            np.add.at(votes, (voxel, codes), 1)
+            out[:, col] = values[votes.argmax(1)]   # first maximum: lowest
+        result.append(out[:, 0] if squeeze else out)
+    return result[0] if len(result) == 1 else tuple(result)

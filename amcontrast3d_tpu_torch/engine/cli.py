@@ -5,14 +5,19 @@
 
     python -m amcontrast3d_tpu_torch.engine.cli --kind aa \\
         --cfg cfgs/s3dis/AMContrast3D-AA.yaml [--device cpu] \\
-        mode=test|val|val_train [pretrained_path=…] [any.cfg.key=value ...]
+        [mode=train|resume|finetune…|test|val|val_train] \
+        [pretrained_path=…] [any.cfg.key=value ...]
 
 ``examples/segmentation/main_AA_torch.py`` and ``main_MM_torch.py`` call
 ``main_cli("aa")`` / ``main_cli("mm")`` as the JAX mains do.  The run is on
 the card unless ``--device cpu`` is given; without a CUDA device it stops.
-``mode=test`` is the whole-scene voting test, ``mode=val`` / ``val_train``
-run ``Runner.validate`` over the split's dataset, one cloud at a time.
-The training modes are not ported yet (ROADMAP.md §1).
+Every mode but the three eval modes trains (``train``, ``resume`` from a
+``latest`` checkpoint in its own run directory, and the finetune family:
+``finetune``, ``finetune_encoder``, ``…freeze_blocks…``, main_AA.py:229-241);
+``--profile`` wraps the training in a ``torch.profiler`` trace written to
+``<run_dir>/profile/trace.json``.  ``mode=test`` is the whole-scene voting
+test, ``mode=val`` / ``val_train`` run ``Runner.validate`` over the split's
+loader.
 """
 from __future__ import annotations
 
@@ -22,8 +27,8 @@ import os
 
 import torch
 
-from ..utils import (EasyConfig, generate_exp_directory, setup_logger_dist,
-                     write_to_csv)
+from ..utils import (EasyConfig, generate_exp_directory, resume_exp_directory,
+                     setup_logger_dist, write_to_csv)
 from .runner import Runner, resolve_device
 
 
@@ -53,11 +58,19 @@ def load_cfg(args, opts) -> EasyConfig:
     return cfg
 
 
-def _single_batches(dataset):
-    """The dataset's clouds as batches of one."""
-    for i in range(len(dataset)):
-        yield {k: v[None] for k, v in dataset[i].items()
-               if hasattr(v, "shape")}
+def _train_profiled(runner):
+    """``runner.train()`` under a ``torch.profiler`` trace of the host and,
+    on the card, the device; the trace goes to ``<run_dir>/profile``."""
+    from torch.profiler import ProfilerActivity, profile
+    activities = [ProfilerActivity.CPU]
+    if runner.device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    out = os.path.join(runner.cfg.run_dir, "profile")
+    os.makedirs(out, exist_ok=True)
+    with profile(activities=activities) as prof:
+        results = runner.train()
+    prof.export_chrome_trace(os.path.join(out, "trace.json"))
+    return results
 
 
 def main_cli(kind: str = None, argv=None):
@@ -67,14 +80,12 @@ def main_cli(kind: str = None, argv=None):
     device = resolve_device(args.device)
 
     mode = cfg.get("mode", "train")
-    if mode not in ("val", "val_train", "test"):
-        # 'train', 'resume' and the finetune family (main_AA.py:229-241)
-        raise NotImplementedError(
-            f"mode={mode}: the training modes of the CLI are not ported yet "
-            "(Runner.train, loaders, train transforms): ROADMAP.md §1")
-    tags = [cfg.cfg_basename, f"ngpus{torch.cuda.device_count()}",
-            f"seed{cfg.seed}"]
-    generate_exp_directory(cfg, exp_name=tags)
+    if mode == "resume" and cfg.get("pretrained_path"):
+        resume_exp_directory(cfg, cfg.pretrained_path)
+    else:
+        tags = [cfg.cfg_basename, f"ngpus{torch.cuda.device_count()}",
+                f"seed{cfg.seed}"]
+        generate_exp_directory(cfg, exp_name=tags)
     setup_logger_dist(cfg.run_dir, 0, name=cfg.cfg_basename)
 
     # snapshot the resolved config into the run dir (main_AA.py:847-851)
@@ -83,6 +94,13 @@ def main_cli(kind: str = None, argv=None):
         yaml.safe_dump(cfg.dict(), f)
 
     runner = Runner(cfg, kind=kind, device=device)
+    # any non-eval mode trains: 'train', 'resume', and the finetune family
+    if mode not in ("val", "val_train", "test"):
+        results = _train_profiled(runner) if args.profile else runner.train()
+        logging.info("Training done: %s",
+                     {k: v for k, v in results.items() if k != "timing"})
+        results["run_dir"] = cfg.run_dir
+        return results
     best_epoch = "-"
     if cfg.get("pretrained_path"):
         epoch = runner.load_pretrained(cfg.pretrained_path)
@@ -106,16 +124,15 @@ def main_cli(kind: str = None, argv=None):
         logging.info("save results in %s", cfg.csv_path)
         results["csv_path"], results["run_dir"] = cfg.csv_path, cfg.run_dir
         return results
-    from ..data import build_dataset_from_cfg
-    from ..transforms import build_transforms_from_cfg
+    from ..data import build_dataloader_from_cfg
     split = "train" if mode == "val_train" else "val"
-    dataset_cfg = dict(cfg.dataset)
-    transform = (build_transforms_from_cfg("val", cfg.get("datatransforms"))
-                 if cfg.get("datatransforms") is not None else None)
-    dataset = build_dataset_from_cfg(dataset_cfg.get("common", {}),
-                                     dataset_cfg.get(split, {}),
-                                     transform=transform)
-    miou, macc, oa, ious, accs = runner.validate(_single_batches(dataset))
+    loader = build_dataloader_from_cfg(
+        cfg.get("val_batch_size", 1), cfg.dataset, cfg.get("dataloader"),
+        cfg.get("datatransforms"), split=split, seed=cfg.seed)
+    try:
+        miou, macc, oa, ious, accs = runner.validate(loader)
+    finally:
+        loader.close()
     logging.info("%s: mIoU %.2f mACC %.2f OA %.2f", mode, miou, macc, oa)
     return {"miou": miou, "macc": macc, "oa": oa}
 

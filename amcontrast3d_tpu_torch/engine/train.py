@@ -9,9 +9,12 @@ the metrics ``loss_seg``, ``loss_ce``, ``loss_contrast``, ``loss_reg`` and
 the forward in training mode, the loss, the backward, the global-norm
 clip, the step's learning rate, AdamW, and the confusion matrix of the
 train logits.  The model and the optimizer hold the state that JAX
-carries in ``TrainState``; the step counter lives in ``step.state``.
-Not ported yet: adahessian, the plateau scale, frozen-parameter
-labels and the sharded steps.
+carries in ``TrainState``; ``step.state`` holds the step counter (the
+schedule and the dropout seeds follow it, and a resumed run restores it)
+and ``lr_scale``, the plateau scheduler's factor on every group's rate.
+Frozen parameters are those with ``requires_grad`` off when the optimizer
+was built (``optim.freeze_parameters_``).  Not ported yet: adahessian and
+the sharded steps.
 """
 from __future__ import annotations
 
@@ -45,7 +48,7 @@ def make_train_step(model: nn.Module, criterion: Callable,
     ambiguity_args = dict(ambiguity_args or {})
     params = [p for g in optimizer.param_groups for p in g["params"]]
     seed = generator.initial_seed() if generator is not None else None
-    state = {"step": 0}
+    state = {"step": 0, "lr_scale": 1.0}
 
     def step(batch: Dict) -> Dict[str, torch.Tensor]:
         s = state["step"]
@@ -84,6 +87,7 @@ def make_train_step(model: nn.Module, criterion: Callable,
         if grad_norm_clip is not None and grad_norm_clip > 0:
             clip_by_global_norm_(params, grad_norm_clip)
         lr = lr_schedule(s) if callable(lr_schedule) else lr_schedule
+        lr *= state["lr_scale"]
         for group in optimizer.param_groups:
             group["lr"] = lr
         optimizer.step()

@@ -1,5 +1,5 @@
-from .build import (MODELS, build_model_from_cfg, filter_kwargs, init_weights_,
-                    make_module)
+from .build import (MODELS, build_model_from_cfg, filter_kwargs,
+                    init_train_weights_, init_weights_, make_module)
 from .layers import ConvBlock, create_act
 from .pointnext import (FeaturePropagation, InvResMLP, LocalAggregation,
                         PointNextDecoder, PointNextEncoder, SegHead,
@@ -10,8 +10,8 @@ from .base_seg import (BaseSeg, BaseSeg_AMContrast3D,
                        BaseSeg_M_AMContrast3D)
 
 __all__ = [
-    "MODELS", "build_model_from_cfg", "filter_kwargs", "init_weights_",
-    "make_module", "ConvBlock", "create_act",
+    "MODELS", "build_model_from_cfg", "filter_kwargs", "init_train_weights_",
+    "init_weights_", "make_module", "ConvBlock", "create_act",
     "FeaturePropagation", "InvResMLP", "LocalAggregation",
     "PointNextDecoder", "PointNextEncoder", "SegHead", "SetAbstraction",
     "APM_p", "APM_p_Graph", "APM_p_Group", "APM_pf_ConCate",

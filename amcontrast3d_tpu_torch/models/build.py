@@ -57,3 +57,25 @@ def init_weights_(model: nn.Module, generator: torch.Generator) -> nn.Module:
             module.running_var.copy_(
                 0.5 + torch.rand(shape, generator=generator))
     return model
+
+
+@torch.no_grad()
+def init_train_weights_(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """The initial weights of a training run, as flax's defaults give them
+    in the JAX package: Linear weights from a normal distribution of
+    variance 1/fan_in truncated at two standard deviations (lecun_normal),
+    biases 0, BatchNorm scale 1, shift 0, running mean 0 and variance 1.
+    Drawn from ``generator`` (a CPU generator) in ``model.modules()`` order,
+    so a seed gives the same weights on every device."""
+    for module in model.modules():
+        if isinstance(module, nn.Linear):
+            # the standard deviation of a unit normal cut at +-2
+            std = math.sqrt(1.0 / module.in_features) / 0.87962566103423978
+            nn.init.trunc_normal_(module.weight, 0.0, std, -2 * std, 2 * std,
+                                  generator=generator)
+            if module.bias is not None:
+                module.bias.zero_()
+        elif isinstance(module, nn.modules.batchnorm._BatchNorm):
+            module.reset_parameters()
+            module.reset_running_stats()
+    return model

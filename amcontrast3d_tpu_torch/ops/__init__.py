@@ -9,7 +9,9 @@ from .group import (CHANNEL_MAP, Grouper, clamp_members_valid, create_grouper,
                     gather_points, get_aggregation_features, group_points)
 from .interpolate import (three_interpolate, three_interpolation,
                           three_interpolation_backward,
+                          three_interpolation_backward_big,
                           three_interpolation_backward_plain,
+                          three_interpolation_backward_small,
                           three_interpolation_plain,
                           three_interpolation_weights, three_nn)
 from .knn import (ball_query, ball_query_big, ball_query_plain,
@@ -29,7 +31,8 @@ __all__ = [
     "CHANNEL_MAP", "Grouper", "clamp_members_valid", "create_grouper",
     "gather_points", "get_aggregation_features", "group_points",
     "three_interpolate", "three_interpolation", "three_interpolation_backward",
-    "three_interpolation_backward_plain", "three_interpolation_plain",
+    "three_interpolation_backward_big", "three_interpolation_backward_plain",
+    "three_interpolation_backward_small", "three_interpolation_plain",
     "three_interpolation_weights",
     "three_nn", "ball_query", "ball_query_big", "ball_query_plain",
     "ball_query_small", "knn", "knn_big", "knn_plain", "knn_small",

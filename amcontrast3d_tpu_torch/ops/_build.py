@@ -40,8 +40,9 @@ _SIGNATURES = {
     # xyz (1,N,3) f32, out (npoint) i32, best (npoint) u64 zeroed, arrived
     # (npoint) u32 zeroed, N, npoint, stream
     "amc3d_fps_b1": (_P, _P, _P, _P, _I, _I, _P),
-    # the same through one thread-block cluster: xyz, out, N, npoint, stream
-    "amc3d_fps_b1_cluster": (_P, _P, _I, _I, _P),
+    # through one thread-block cluster a cloud: xyz (B,N,3), out (B,npoint),
+    # B, N, npoint, stream
+    "amc3d_fps_b1_cluster": (_P, _P, _I, _I, _I, _P),
     # → how many such clusters the device holds at once (negative: an error)
     "amc3d_fps_b1_clusters": (),
     # support (B,N,3), query (B,M,3), out (B,M,k) i32, B, N, M, k, r², stream
@@ -52,6 +53,9 @@ _SIGNATURES = {
     # g (B,N1,C), idx (B,N1,3) i32, w (B,N1,3), df2 (B,N2,C) zeroed, B, N1,
     # N2, C, stream
     "amc3d_three_interpolate_backward": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # the same, support-owned and deterministic; df2 need not be zeroed
+    "amc3d_three_interpolate_backward_big": (_P, _P, _P, _P, _I, _I, _I, _I,
+                                             _P),
     # p (B,N,3), f (B,N,C), lab (B,N), kth (B,N), out (B,N,9), B, N, C,
     # tinv, cctype_root, need_s, need_d, stream
     "amc3d_contrast_forward": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I,

@@ -5,7 +5,10 @@ and ``ops/fps_pallas.py``: ``_fps_kernel`` (the batched TPU kernel), ported
 as ``csrc/fps.cu``, and ``_fps_kernel_r8`` (the kernel every B == 1 call
 reaches: one whole room), ported as ``csrc/fps_b1.cu``.  The dispatch is
 that of ``fps_pallas.py::furthest_point_sample_pallas``: B == 1 goes to the
-whole-room kernel, B > 1 to the batched one.  Semantics of all: the first
+whole-room kernel, B > 1 to the batched one; a batch whose clouds exceed
+the batched kernel's shared memory (N > 57344: the ScanNet recipe's 2 ×
+64000) goes to the cluster kernel of ``csrc/fps_b1.cu``, one cluster a
+cloud.  Semantics of all: the first
 pick is index 0, a running min-distance buffer starts at 1e10, each step
 takes the argmax with ties to the lowest index, and d² is
 ``(dx·dx + dy·dy) + dz·dz``.
@@ -73,17 +76,18 @@ def _cluster_fits(device_index: int) -> bool:
 
 
 def _fps_b1_cluster(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
-    """The cluster kernel of ``csrc/fps_b1.cu``: one thread-block cluster
-    of 16 blocks that exchange their winners through distributed shared
-    memory.  N ≤ 16 × 512 × 20 = 163840, on a card that holds the cluster."""
-    N = xyz.shape[1]
+    """The cluster kernel of ``csrc/fps_b1.cu``: per cloud one thread-block
+    cluster of 16 blocks that exchange their winners through distributed
+    shared memory, all clouds of the batch in one launch.  N ≤ 16 × 512 × 20
+    = 163840, on a card that holds the cluster."""
+    B, N, _ = xyz.shape
     if N > B1_CLUSTER_POINTS or not _cluster_fits(xyz.device.index):
         raise ValueError(f"the cluster fps kernel takes N ≤ "
                          f"{B1_CLUSTER_POINTS} on a card that holds such "
                          f"a cluster, got N={N}")
-    out = torch.empty(1, npoint, dtype=torch.int32, device=xyz.device)
-    launch("amc3d_fps_b1_cluster", xyz.data_ptr(), out.data_ptr(), N, npoint,
-           torch.cuda.current_stream(xyz.device).cuda_stream)
+    out = torch.empty(B, npoint, dtype=torch.int32, device=xyz.device)
+    launch("amc3d_fps_b1_cluster", xyz.data_ptr(), out.data_ptr(), B, N,
+           npoint, torch.cuda.current_stream(xyz.device).cuda_stream)
     furthest_point_sample_b1.launches += 1
     return out
 
@@ -139,19 +143,24 @@ def furthest_point_sample(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
 
     A CUDA tensor with B == 1 goes through
     :func:`furthest_point_sample_b1`, one with B > 1 through the
-    ``csrc/fps.cu`` kernel (one block per cloud, N ≤ 57344); a CPU tensor
-    through :func:`furthest_point_sample_plain`."""
+    ``csrc/fps.cu`` kernel (one block per cloud, N ≤ 57344).  Larger clouds
+    in a batch go through the cluster kernel of ``csrc/fps_b1.cu`` in one
+    launch (N ≤ 163840), and beyond that, or on a card without such
+    clusters, one cloud after the other through its grid kernel; both count
+    on ``furthest_point_sample_b1.launches``.  A CPU tensor goes through
+    :func:`furthest_point_sample_plain`."""
     if xyz.device.type == "cpu":
         return furthest_point_sample_plain(xyz, npoint)
     _check(xyz, npoint)
     B, N, _ = xyz.shape
     if B == 1:
         return furthest_point_sample_b1(xyz, npoint)
-    if N > MAX_KERNEL_N:
-        raise ValueError(f"the batched fps kernel (B > 1) keeps N floats in "
-                         f"shared memory: N={N} > {MAX_KERNEL_N}; a single "
-                         f"cloud (B == 1) goes to furthest_point_sample_b1")
     _check_cuda(xyz)
+    if N > MAX_KERNEL_N:
+        if N <= B1_CLUSTER_POINTS and _cluster_fits(xyz.device.index):
+            return _fps_b1_cluster(xyz, npoint)
+        return torch.cat([_fps_b1_grid(xyz[b:b + 1], npoint)
+                          for b in range(B)])
     out = torch.empty(B, npoint, dtype=torch.int32, device=xyz.device)
     launch("amc3d_fps", xyz.data_ptr(), out.data_ptr(), B, N, npoint,
            torch.cuda.current_stream(xyz.device).cuda_stream)

@@ -3,7 +3,9 @@
 ↔ ``amcontrast3d_tpu/ops/interpolate.py`` (``three_nn``,
 ``three_interpolate``, ``three_interpolation``) and the fused TPU kernels
 ``ops/interpolate_pallas.py::_interp_kernel`` and its VJP
-``::_interp_bwd_kernel``, ported as ``csrc/interpolate.cu``.  Weights are
+``::_interp_bwd_kernel``, ported as ``csrc/interpolate.cu``, and the VJP for
+large query sets ``::_interp_bwd_big_kernel``, ported as
+``csrc/interpolate_bwd_big.cu``.  Weights are
 ``1/(√d² + 1e-8)``, normalised over the 3 nearest coarse points.
 
 Semantics follow the JAX plain path (``interpolate.py:42-57``): exactly
@@ -12,7 +14,7 @@ averages every neighbour whose d² ties the 3rd (a 4th point may enter);
 the two agree wherever the 3rd-nearest d² is unique.
 
 The result is differentiable in the coarse features only (as the TPU
-kernel's VJP): the backward scatters ``w·g`` into the 3 neighbours' rows.
+kernel's VJP): the backward adds ``w·g`` into the 3 neighbours' rows.
 """
 from __future__ import annotations
 
@@ -105,14 +107,27 @@ def three_interpolation_backward_plain(grad: torch.Tensor, idx: torch.Tensor,
     return df2.view(B, n2, C)
 
 
-def three_interpolation_backward(grad: torch.Tensor, idx: torch.Tensor,
-                                 weight: torch.Tensor, n2: int) -> torch.Tensor:
-    """grad (B, N1, C) f32, idx (B, N1, 3) i32, weight (B, N1, 3) f32
-    → df2 (B, N2, C).  A CUDA tensor goes through the backward kernel of
-    ``csrc/interpolate.cu``; a CPU tensor through the plain twin."""
+# The JAX package keeps the backward's query buffer [g | x y z thr wsum]
+# resident while it fits this budget, and sends larger ones to its
+# query-chunked kernel (``interpolate_pallas.py::_interp_bwd``); the port
+# keeps the same rule.  The budget is that package's: where the two kernels
+# of this card cross over is measured by ``chip_smoke.py`` and not acted on.
+_QBUF_BUDGET = 32 * 1024 * 1024
+_TQ = 256
+
+
+def backward_is_big(n1: int, c: int) -> bool:
+    """Whether a backward over ``n1`` fine points and ``c`` channels goes to
+    the support-owned kernel: the query buffer, padded to 128-float rows and
+    a multiple of the query tile, exceeds 32 MiB.  (64000, 128) does; the
+    S3DIS recipe's largest, (24000, 128), does not."""
+    tq = min(_TQ, -(-n1 // 8) * 8)
+    lanes = -(-(c + 5) // 128) * 128
+    return -(-n1 // tq) * tq * lanes * 4 > _QBUF_BUDGET
+
+
+def _check_backward(grad, idx, weight):
     tensors = (grad, idx, weight)
-    if _on_cpu(*tensors):
-        return three_interpolation_backward_plain(grad, idx, weight, n2)
     B, N1, C = grad.shape
     if idx.shape != (B, N1, 3) or weight.shape != (B, N1, 3):
         raise ValueError("shapes must be (B,N1,C), (B,N1,3), (B,N1,3); got "
@@ -122,11 +137,54 @@ def three_interpolation_backward(grad: torch.Tensor, idx: torch.Tensor,
                 or t.device != grad.device or not t.is_contiguous()):
             raise ValueError("interpolation backward kernel needs contiguous "
                              f"CUDA tensors, got {t.dtype} on {t.device}")
+
+
+def three_interpolation_backward(grad: torch.Tensor, idx: torch.Tensor,
+                                 weight: torch.Tensor, n2: int) -> torch.Tensor:
+    """grad (B, N1, C) f32, idx (B, N1, 3) i32, weight (B, N1, 3) f32
+    → df2 (B, N2, C).  A CUDA tensor goes through
+    :func:`three_interpolation_backward_big` where :func:`backward_is_big`
+    says so and through :func:`three_interpolation_backward_small`
+    otherwise; a CPU tensor through the plain twin."""
+    if _on_cpu(grad, idx, weight):
+        return three_interpolation_backward_plain(grad, idx, weight, n2)
+    if backward_is_big(grad.shape[1], grad.shape[2]):
+        return three_interpolation_backward_big(grad, idx, weight, n2)
+    return three_interpolation_backward_small(grad, idx, weight, n2)
+
+
+def three_interpolation_backward_small(grad: torch.Tensor, idx: torch.Tensor,
+                                       weight: torch.Tensor,
+                                       n2: int) -> torch.Tensor:
+    """:func:`three_interpolation_backward` through the scatter kernel of
+    ``csrc/interpolate.cu`` (float atomics; any shape, CUDA tensors only)."""
+    _check_backward(grad, idx, weight)
+    B, N1, C = grad.shape
     df2 = torch.zeros(B, n2, C, dtype=torch.float32, device=grad.device)
     launch("amc3d_three_interpolate_backward", grad.data_ptr(),
            idx.data_ptr(), weight.data_ptr(), df2.data_ptr(), B, N1, n2, C,
            torch.cuda.current_stream(grad.device).cuda_stream)
     three_interpolation_backward.launches += 1
+    return df2
+
+
+def three_interpolation_backward_big(grad: torch.Tensor, idx: torch.Tensor,
+                                     weight: torch.Tensor,
+                                     n2: int) -> torch.Tensor:
+    """:func:`three_interpolation_backward` through the support-owned kernel
+    of ``csrc/interpolate_bwd_big.cu``: a block owns a chunk of coarse rows,
+    walks the (idx, weight) triples in query order and sums its hits in that
+    order, so the result is the same bits every run.  Any shape with
+    C ≤ 11264; a CPU tensor goes through the plain twin."""
+    if _on_cpu(grad, idx, weight):
+        return three_interpolation_backward_plain(grad, idx, weight, n2)
+    _check_backward(grad, idx, weight)
+    B, N1, C = grad.shape
+    df2 = torch.empty(B, n2, C, dtype=torch.float32, device=grad.device)
+    launch("amc3d_three_interpolate_backward_big", grad.data_ptr(),
+           idx.data_ptr(), weight.data_ptr(), df2.data_ptr(), B, N1, n2, C,
+           torch.cuda.current_stream(grad.device).cuda_stream)
+    three_interpolation_backward_big.launches += 1
     return df2
 
 
@@ -187,3 +245,4 @@ def three_interpolation(unknown_xyz: torch.Tensor, known_xyz: torch.Tensor,
 
 three_interpolation.launches = 0
 three_interpolation_backward.launches = 0
+three_interpolation_backward_big.launches = 0

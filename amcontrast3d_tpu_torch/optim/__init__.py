@@ -6,10 +6,17 @@ weight-decay filtering (decay only on parameters with ndim > 1, two
 parameter groups), betas (0.9, 0.999), eps 1e-8.  That is optax's
 ``adamw`` in exact arithmetic: both apply ``lr·(m̂/(√v̂ + eps) + wd·θ)``.
 The other optimizers of the JAX factory are not ported yet.
+
+Frozen parameters (↔ ``Runner._freeze_labels`` with optax's
+``multi_transform`` and ``set_to_zero``): :func:`freeze_parameters_` turns
+``requires_grad`` off for the parameters a regular expression names, before
+the optimizer is built, so they get no gradient, count nothing towards the
+clip's global norm, and get no update and no weight decay.
 """
 from __future__ import annotations
 
-from typing import Iterable
+import re
+from typing import Iterable, List, Optional
 
 import torch
 from torch import nn
@@ -36,6 +43,31 @@ def build_optimizer_from_cfg(cfg, model: nn.Module,
     groups = [{"params": decay, "weight_decay": weight_decay},
               {"params": no_decay, "weight_decay": 0.0}]
     return torch.optim.AdamW(groups, lr=lr, betas=tuple(betas), eps=eps)
+
+
+def freeze_pattern(cfg) -> Optional[str]:
+    """The regular expression of the parameters to freeze: ``cfg.freeze_re``,
+    or ``encoder/.*block`` when the mode names ``freeze_blocks``
+    (↔ main_AA.py:239-241), else None."""
+    pattern = cfg.get("freeze_re")
+    if pattern is None and "freeze_blocks" in str(cfg.get("mode", "")):
+        pattern = r"encoder/.*block"
+    return pattern or None
+
+
+def freeze_parameters_(model: nn.Module, pattern: Optional[str]) -> List[str]:
+    """Turn ``requires_grad`` off for every parameter whose path, written
+    with ``/`` as in the JAX package (``encoder/enc1_block1/...``), the
+    pattern finds.  Returns the frozen names."""
+    if not pattern:
+        return []
+    rx = re.compile(pattern)
+    frozen = []
+    for name, p in model.named_parameters():
+        if rx.search(name.replace(".", "/")):
+            p.requires_grad_(False)
+            frozen.append(name)
+    return frozen
 
 
 @torch.no_grad()

@@ -2,8 +2,10 @@
 
 ↔ ``amcontrast3d_tpu/utils/ckpt.py`` (the contract of
 ``openpoints/utils/ckpt_util.py:61-183``): every epoch a
-``<run>_ckpt_latest`` checkpoint (model, optimizer, epoch, best_val),
-copied to ``<run>_ckpt_best`` on a new best validation mIoU, optional
+``<run>_ckpt_latest`` checkpoint (model, optimizer, epoch, and as extras
+``best_val``, ``best_epoch``, the train step's counter ``step`` and the
+plateau scheduler's state ``plateau``, all of which a resumed run
+restores), copied to ``<run>_ckpt_best`` on a new best validation mIoU, optional
 per-``save_freq`` milestone copies.
 
 A checkpoint is one ``torch.save`` file ``{"state": {name: state_dict},

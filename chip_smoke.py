@@ -81,7 +81,38 @@
    ambiguity).  Prints per room the wall time, the voted points per
    second, the split host prep / forward / voting / boundary kNN and the
    peak device memory;
-9. prints one JSON line of per-kernel results and, last, the device line.
+9. runs the kernels of the ScanNet recipe's train step at its shapes
+   (B = 2 clouds of 64000 points on a 0.02 m grid, 16000 coarse points):
+   the support-owned interpolation VJP at (2, 64000 → 16000, C = 128)
+   against its twin within 1e-5·(1+max|df2|) and against itself (two runs,
+   identical bits), and at a shape that is a multiple of no tile with a
+   support row no query selects (exactly 0), with its time, its bound, the
+   twin's and ``index_add_``'s time and the scatter kernel's on the same
+   input, and both kernels again at the S3DIS recipe's largest shape
+   (4, 24000 → 6000, C = 128); the batched FPS 2 × 64000 → 16000 (one
+   cluster a cloud), picks identical to the twin, and the grid kernel cloud
+   by cloud beside it; the three contrast kernels at (2, 64000, 64), the
+   large-cloud kNN (64000², k = 24) and ball query (16000 × 64000,
+   r = 0.05) at B = 2 against their twins;
+10. drives the train CLI at full width through ``engine.cli.main_cli`` on
+   Synthetic rooms, with the recipes' loaders (6 workers), train transforms,
+   schedules and checkpoints: the ScanNet recipe
+   (``cfgs/scannet/AMContrast3D-AA.yaml``: B = 2 × 64000, 7 input channels,
+   20 classes, multistep with the milestones pulled in to epochs 2 and 3)
+   for two epochs of 4 steps with validation each epoch, then
+   ``mode=resume`` from ``latest`` for a third; and the S3DIS recipe, AA and
+   MM, for two epochs of 3 steps at B = 4 × 24000.  Checks finite losses, the
+   confusion-matrix totals, the learning rate of every epoch (the resumed
+   one included), ``scalars.jsonl``, the launches per train step (ScanNet:
+   the support-owned VJP once, the scatter kernel 3 times, the batched
+   cluster FPS once; S3DIS: the scatter kernel 4 times and the support-owned
+   one never) and per validation forward, parameters that moved, identical
+   logits from the ``latest`` checkpoint read back, and one ScanNet train
+   step with the kernels against one with every plain twin from the same
+   state (some labels ignored).  Prints per recipe the step time and the
+   train points/s through the loader, the bare step's beside it, the
+   seconds the loop waited on the loader and the peak device memory;
+11. prints one JSON line of per-kernel results and, last, the device line.
 
 Any failure raises, so the exit code is non-zero; without a CUDA device it
 stops before printing any result.
@@ -145,6 +176,9 @@ KERNELS = (  # name, source, the TPU kernel it replaces
      "amcontrast3d_tpu/ops/knn_pallas.py:117"),
     ("ball_query_big", "amcontrast3d_tpu_torch/csrc/ball_query_big.cu",
      "amcontrast3d_tpu/ops/knn_pallas.py:224"),
+    ("three_interpolation_backward_big",
+     "amcontrast3d_tpu_torch/csrc/interpolate_bwd_big.cu",
+     "amcontrast3d_tpu/ops/interpolate_pallas.py:220"),
 )
 STEP_KERNELS = KERNELS[:10]      # the kernels of the four step paths
 # the whole-scene paths: Synthetic rooms of SCENE_POINTS raw points from the
@@ -160,6 +194,18 @@ EVAL_LAUNCHES = {"fps": 4, "ball_query": 8, "three_interpolation": 4}
 TRAIN_LAUNCHES = {**EVAL_LAUNCHES, "three_interpolation_backward": 4,
                   "contrast_forward": 4, "contrast_grad_rows": 4,
                   "contrast_grad_support": 4, "knn": 7}
+# the ScanNet recipe: 2 x 64000 -> 16000 -> 4000 -> 1000 -> 250; only the
+# 64000-point support exceeds BIG_N (one ball query, one self-kNN and the
+# three label propagations), fp0's backward exceeds the query-buffer gate,
+# and the first FPS exceeds the batched kernel's shared memory
+SCANNET_CFG = os.path.join(REPO, "cfgs", "scannet", "AMContrast3D-AA.yaml")
+SCANNET_B, SCANNET_N, SCANNET_CLASSES = 2, 64000, 20
+SCANNET_LAUNCHES = {
+    "fps_b1": 1, "fps": 3, "ball_query_big": 1, "ball_query": 7,
+    "three_interpolation": 4, "three_interpolation_backward_big": 1,
+    "three_interpolation_backward": 3, "contrast_forward": 4,
+    "contrast_grad_rows": 4, "contrast_grad_support": 4, "knn_big": 4, "knn": 3}
+CLI_LIMIT_S = 420     # a train CLI phase that hangs (a worker pool) is cut
 LAUNCHES = {
     "aa eval": EVAL_LAUNCHES,
     "aa train": TRAIN_LAUNCHES,
@@ -588,6 +634,145 @@ def scene_kernel_phases(ops, dev, rng, tag: str) -> dict:
     return finish_kernels(results, "room-like and uniform", tag)
 
 
+def scannet_kernel_phases(ops, dev, rng, tag: str) -> dict:
+    """The kernels of the ScanNet recipe's train step at its shapes, B = 2
+    clouds of 64000 points that differ; returns the record of the
+    support-owned interpolation VJP (the other kernels' records come from the
+    phases at their own main shapes)."""
+    results = {"three_interpolation_backward_big": {
+        "err": None, "ms": 0.0, "plain_ms": 0.0, "library_ms": None,
+        "bytes": 0.0, "ops": 0.0}}
+    r10 = results["three_interpolation_backward_big"]
+    nb, n1 = SCANNET_B, SCANNET_N
+    # two rooms on a 0.02 m grid, the second one smaller and shifted
+    pts = np.concatenate([room_cloud(rng, n1) * 0.5,
+                          room_cloud(rng, n1) * 0.4 + 0.3])
+    p = torch.from_numpy(pts.astype(np.float32)).to(dev)
+
+    # the batched FPS above the shared-memory limit of fps.cu
+    npoint = n1 // 4
+    got = ops.furthest_point_sample(p, npoint)
+    want, plain_ms = timed_once(lambda: ops.furthest_point_sample_plain(p, npoint))
+    check_equal(f"fps {nb}x{n1} -> {npoint}", got, want)
+    one_by_one = torch.cat([ops.fps._fps_b1_grid(p[b:b + 1], npoint)
+                            for b in range(nb)])
+    check_equal(f"fps {nb}x{n1} -> {npoint}, the grid kernel cloud by cloud",
+                one_by_one, want)
+    ms = cuda_ms(lambda: ops.furthest_point_sample(p, npoint), 5)
+    grid_ms = cuda_ms(lambda: [ops.fps._fps_b1_grid(p[b:b + 1], npoint)
+                               for b in range(nb)], 3)
+    print(f"fps {nb}x{n1} -> {npoint}: picks identical to the twin; one cluster "
+          f"a cloud in one launch {ms:.3f} ms = {ms / npoint * 1e3:.3f} us a "
+          f"pick, the grid kernel cloud by cloud ({nb} launches) {grid_ms:.3f} "
+          f"ms, plain {plain_ms:.1f} ms, bound "
+          f"{nb * npoint * n1 * FPS_OPS / PEAK_OPS * 1e3:.3f} ms by operations  "
+          f"[{tag}]")
+    q = ops.gather_points(p, got).contiguous()
+
+    # the interpolation VJP: ScanNet's fp0, then S3DIS's fp0
+    def vjp_case(p1, p2, c, timed: bool):
+        b, m1, m2 = p1.shape[0], p1.shape[1], p2.shape[1]
+        idx, w = ops.three_interpolation_weights(p1, p2)
+        g = torch.from_numpy(rng.randn(b, m1, c).astype(np.float32)).to(dev)
+        name = f"interpolation backward ({b}, {m1} -> {m2}, C={c})"
+        got = ops.three_interpolation_backward_big(g, idx, w, m2)
+        again = ops.three_interpolation_backward_big(g, idx, w, m2)
+        want = ops.three_interpolation_backward_plain(g, idx, w, m2)
+        err = check_close(f"{name} support-owned vs plain", got, want, 1e-5)
+        check_equal(f"{name} support-owned, two runs", got, again)
+        check_close(f"{name} scatter vs plain",
+                    ops.three_interpolation_backward_small(g, idx, w, m2),
+                    want, 1e-5)
+        r10["err"] = max(r10["err"] or 0.0, err)
+        rows = (idx.long() + m2 * torch.arange(b, device=dev)[:, None, None]
+                ).reshape(-1)
+        contrib = (w[..., None] * g[:, :, None, :]).reshape(-1, c)
+        big_ms = cuda_ms(lambda: ops.three_interpolation_backward_big(g, idx, w, m2))
+        small_ms = cuda_ms(
+            lambda: ops.three_interpolation_backward_small(g, idx, w, m2))
+        plain_ms = cuda_ms(
+            lambda: ops.three_interpolation_backward_plain(g, idx, w, m2), PLAIN_RUNS)
+        lib_ms = cuda_ms(lambda: torch.zeros(b * m2, c, device=dev).index_add_(
+            0, rows, contrib), PLAIN_RUNS)
+        nbytes = b * (m1 * (c * 4 + 24) + m2 * c * 4)
+        nops = b * m1 * c * 6
+        bound = max(nbytes / PEAK_BYTES, nops / PEAK_OPS) * 1e3
+        gate = "support-owned" if ops.interpolate.backward_is_big(m1, c) \
+            else "scatter"
+        print(f"{name}: the support-owned kernel {big_ms:.4f} ms, the scatter "
+              f"kernel {small_ms:.4f} ms (the dispatch takes the {gate} one), "
+              f"plain {plain_ms:.4f} ms, index_add_ {lib_ms:.4f} ms, bound "
+              f"{bound:.4f} ms; max abs err {err}, two runs identical  [{tag}]")
+        if timed:
+            r10.update(ms=big_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                       bytes=float(nbytes), ops=float(nops))
+
+    vjp_case(p, q, 128, timed=True)
+    uni = torch.from_numpy(rng.rand(B, N, 3).astype(np.float32) * 4).to(dev)
+    uni_q = ops.gather_points(uni, ops.furthest_point_sample(uni, N // 4)).contiguous()
+    vjp_case(uni, uni_q, 128, timed=False)
+    # a multiple of no tile; coarse row 7 lies far away, so no query selects it
+    odd, odd_q = p[:, :4099].contiguous(), q[:, :1031].clone()
+    odd_q[:, 7] += 100.0
+    idx, w = ops.three_interpolation_weights(odd, odd_q)
+    g = torch.from_numpy(rng.randn(nb, 4099, 200).astype(np.float32)).to(dev)
+    got = ops.three_interpolation_backward_big(g, idx, w, 1031)
+    r10["err"] = max(r10["err"], check_close(
+        "interpolation backward (2, 4099 -> 1031, C=200)", got,
+        ops.three_interpolation_backward_plain(g, idx, w, 1031), 1e-5))
+    if (idx == 7).any() or got[:, 7].any():
+        raise AssertionError("an unselected support row is not zero")
+
+    # the large-cloud kernels with two clouds a call
+    for name, sup, query, k in (("self-kNN", p, p, KNN_K),
+                                ("label propagation", p, q, 4)):
+        got_i, got_d = ops.knn(sup, query, k)
+        (want_i, want_d), plain_ms = timed_once(lambda: ops.knn_plain(sup, query, k))
+        check_equal(f"knn_big B={nb} {name} indices", got_i, want_i)
+        check_equal(f"knn_big B={nb} {name} d2", got_d, want_d)
+        ms = cuda_ms(lambda: ops.knn(sup, query, k), 5)
+        print(f"knn_big B={nb} {name} {query.shape[1]} x {n1} k={k}: identical "
+              f"to the twin, {ms:.3f} ms vs plain {plain_ms:.1f} ms  [{tag}]")
+    got = ops.ball_query(p, q, 0.05, 32)
+    want, plain_ms = timed_once(lambda: ops.ball_query_plain(p, q, 0.05, 32))
+    check_equal(f"ball_query_big B={nb} {npoint} x {n1} r=0.05", got, want)
+    ms = cuda_ms(lambda: ops.ball_query(p, q, 0.05, 32), 5)
+    print(f"ball_query_big B={nb} {npoint} x {n1} r=0.05: identical to the "
+          f"twin, {ms:.3f} ms vs plain {plain_ms:.1f} ms  [{tag}]")
+
+    # the contrast kernels: n * n is past 2^31
+    c = 64
+    f = torch.nn.functional.normalize(torch.from_numpy(
+        rng.randn(nb, n1, c).astype(np.float32)).to(dev), dim=-1)
+    lab = torch.from_numpy(rng.randint(0, SCANNET_CLASSES, (nb, n1))
+                           .astype(np.float32)).to(dev)
+    lab[:, ::9] = -100.0
+    kth = (ops.knn(p, p, KNN_K)[1][..., -1] * (1.0 + 1e-5)).contiguous()
+    args = (p, f, lab, kth, 1 / 0.5, False, False, True)
+    got = ops.contrast_forward(*args)
+    want, plain_ms = timed_once(lambda: ops.contrast_forward_plain(*args))
+    check_equal("contrast counts at 64000", got[..., 4:6], want[..., 4:6])
+    check_equal("contrast threshold at 64000", got[..., 8], want[..., 8])
+    err = max(check_close(f"contrast column {col} at 64000", got[..., col],
+                          want[..., col], 1e-5) for col in (0, 1, 6, 7))
+    line = [f"forward {cuda_ms(lambda: ops.contrast_forward(*args), 3):.3f} ms "
+            f"vs plain {plain_ms:.1f} ms (max abs err {err})"]
+    g4 = torch.from_numpy(rng.randn(nb, n1, 4).astype(np.float32)).to(dev)
+    gargs = (p, f, lab, kth, g4, 1 / 0.5, False)
+    for name, kern, plain in (("rows", ops.contrast_grad_rows,
+                               ops.contrast_grad_rows_plain),
+                              ("support", ops.contrast_grad_support,
+                               ops.contrast_grad_support_plain)):
+        want, plain_ms = timed_once(lambda: plain(*gargs))
+        err = check_close(f"contrast_grad_{name} at 64000", kern(*gargs), want, 1e-4)
+        line.append(f"{name} {cuda_ms(lambda: kern(*gargs), 3):.3f} ms vs plain "
+                    f"{plain_ms:.1f} ms (max abs err {err})")
+    print(f"contrast kernels at ({nb}, {n1}, {c}), "
+          f"bound {nb * n1 * n1 * PAIR_OPS / PEAK_OPS * 1e3:.3f} ms each by "
+          f"operations: {'; '.join(line)}  [{tag}]")
+    return finish_kernels(results, "two room-like", tag)
+
+
 def wrappers(ops) -> dict:
     return {"fps": ops.furthest_point_sample, "ball_query": ops.ball_query,
             "three_interpolation": ops.three_interpolation,
@@ -598,7 +783,9 @@ def wrappers(ops) -> dict:
             "knn": ops.knn, "refine_cross": ops.refine_cross,
             "refine_cross_backward": ops.refine_cross_backward,
             "fps_b1": ops.furthest_point_sample_b1, "knn_big": ops.knn_big,
-            "ball_query_big": ops.ball_query_big}
+            "ball_query_big": ops.ball_query_big,
+            "three_interpolation_backward_big":
+                ops.three_interpolation_backward_big}
 
 
 def reset_counts(ops) -> dict:
@@ -997,6 +1184,264 @@ def scene_path(ops, kind: str, dev, tag: str, workdir: str) -> dict:
     return launches
 
 
+def val_forward_launches(n: int, kind: str) -> dict:
+    """The launches of one validation forward of a whole cloud padded to
+    ``n`` points (B = 1)."""
+    sizes = [n // 4 ** s for s in range(5)]
+    big = sum(ns > BIG_N for ns in sizes[:4] + sizes[1:])
+    want = {"fps_b1": 4, "ball_query_big": big, "ball_query": 8 - big,
+            "three_interpolation": 4}
+    if kind == "mm":
+        want["refine_cross"] = 4
+    return {k: v for k, v in want.items() if v}
+
+
+def run_train_cli(ops, argv: list, kind: str):
+    """``main_cli`` in a training mode with the counts set to 0 just before
+    and read just after; returns (results, the runner ``main_cli`` made, the
+    launches of the training steps alone, those of the validations, the
+    padded sizes of the validated clouds, all launches of the run)."""
+    from amcontrast3d_tpu_torch.engine import cli, runner as runner_mod
+
+    made, val_counts, val_sizes = [], {}, []
+
+    class CountingRunner(runner_mod.Runner):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            made.append(self)
+
+        def _padded_logits(self, batch):
+            before = {k: fn.launches for k, fn in counted.items()}
+            out = super()._padded_logits(batch)
+            for k, fn in counted.items():
+                val_counts[k] = val_counts.get(k, 0) + fn.launches - before[k]
+            val_sizes.append(out[1]["y"].shape[1])
+            return out
+
+    import faulthandler
+    counted = reset_counts(ops)
+    faulthandler.dump_traceback_later(CLI_LIMIT_S, exit=True)
+    try:
+        with mock.patch.object(cli, "Runner", CountingRunner):
+            results = cli.main_cli(kind, argv)
+    finally:
+        faulthandler.cancel_dump_traceback_later()
+    torch.cuda.synchronize()
+    total = {k: fn.launches for k, fn in counted.items()}
+    train = {k: v - val_counts.get(k, 0) for k, v in total.items()}
+    return results, made[0], train, val_counts, val_sizes, total
+
+
+def check_train_cli(path, results, train, val_counts, val_sizes, per_step,
+                    epochs, steps, batch_points, lrs, kind):
+    """The checks every train CLI run shares; returns the timing records."""
+    timing = results["timing"]
+    if [t["epoch"] for t in timing] != list(epochs) or \
+            any(t["steps"] != steps for t in timing):
+        raise AssertionError(f"{path}: epochs {timing}")
+    for t, lr in zip(timing, lrs):
+        if not np.isfinite(t["loss"]):
+            raise AssertionError(f"{path}: epoch {t['epoch']} loss {t['loss']}")
+        if t["cm_total"] != steps * batch_points:
+            raise AssertionError(f"{path}: confusion matrix counts "
+                                 f"{t['cm_total']} in epoch {t['epoch']}")
+        if not abs(t["lr"] - lr) <= 1e-9 * lr:
+            raise AssertionError(f"{path}: epoch {t['epoch']} ran at lr "
+                                 f"{t['lr']}, the schedule gives {lr}")
+    n_steps = steps * len(timing)
+    got = {k: v / n_steps for k, v in train.items() if v}
+    if got != per_step:
+        raise AssertionError(f"{path}: launches per train step {got}, "
+                             f"expected {per_step}")
+    want_val = {}
+    for n in val_sizes:
+        for k, v in val_forward_launches(n, kind).items():
+            want_val[k] = want_val.get(k, 0) + v
+    if {k: v for k, v in val_counts.items() if v} != want_val:
+        raise AssertionError(f"{path}: validation launches {val_counts}, "
+                             f"expected {want_val}")
+    if not (np.isfinite(results["val_miou"]) and np.isfinite(results["best_val"])):
+        raise AssertionError(f"{path}: results {results}")
+    return timing
+
+
+def scalar_rows(run_dir: str) -> dict:
+    rows = {}
+    with open(os.path.join(run_dir, "scalars.jsonl")) as f:
+        for line in f:
+            row = json.loads(line)
+            rows.setdefault(row["tag"], {})[row["step"]] = row["value"]
+    return rows
+
+
+def bare_step_ms(runner, batch, n: int = 3) -> float:
+    """Median wall ms of the runner's train step on one device batch."""
+    step = runner.train_step_fn()
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        step(batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(times)
+
+
+def report_train_cli(path, timing, runner, batch, peak, workers, tag):
+    last = timing[-1]
+    b, n = batch["y"].shape
+    through = last["steps"] * b * n / last["train_seconds"]
+    bare = bare_step_ms(runner, batch)
+    epochs = [(t["epoch"], round(t["train_seconds"], 3),
+               round(t["loader_wait_seconds"], 3)) for t in timing]
+    print(f"{path}: last epoch {last['steps']} steps of B={b}x{n} in "
+          f"{last['train_seconds']:.3f} s = "
+          f"{last['train_seconds'] / last['steps'] * 1e3:.1f} ms a step = "
+          f"{through:.1f} train points/s through the loader ({workers} "
+          f"workers), the loop waited {last['loader_wait_seconds']:.3f} s on "
+          f"the loader; the bare step {bare:.3f} ms = "
+          f"{b * n / bare * 1e3:.1f} train points/s; epochs "
+          f"{epochs} (epoch, s, s waited); peak {peak:.3f} GiB  [{tag}]")
+
+
+def loader_batch(runner, seed: int) -> dict:
+    """One device batch of the runner's recipe through its train loader."""
+    from amcontrast3d_tpu_torch.data import build_dataloader_from_cfg
+    from amcontrast3d_tpu_torch.engine.runner import _prep_batch
+
+    cfg = runner.cfg
+    loader = build_dataloader_from_cfg(
+        cfg.batch_size, cfg.dataset, None, cfg.get("datatransforms"),
+        split="train", seed=seed)
+    loader.prefetch = False      # one batch, made here, no thread left behind
+    np.random.seed(seed)
+    return runner.put_batch(_prep_batch(next(iter(loader)), cfg))
+
+
+def scannet_cli_path(ops, dev, tag: str, workdir: str) -> dict:
+    """The ScanNet recipe through the train CLI: two epochs, a resumed third;
+    returns the kernels' launches in it."""
+    from amcontrast3d_tpu_torch.engine import Runner
+    from amcontrast3d_tpu_torch.optim import build_optimizer_from_cfg
+
+    path, kind, steps = "scannet aa train cli", "aa", 4
+    argv = ["--cfg", SCANNET_CFG, "dataset.common.NAME=Synthetic",
+            "dataset.common.num_rooms=4", "dataset.common.n_points=250000",
+            f"dataset.common.num_classes={SCANNET_CLASSES}",
+            "dataset.train.loop=2", "dataset.val.num_rooms=2",
+            "dataset.val.n_points=100000", "dataset.val.presample=False",
+            "decay_epochs=[2,3]", f"root_dir={workdir}", f"seed={SEED}"]
+    torch.cuda.reset_peak_memory_stats()
+    results, runner, train, val, sizes, total = run_train_cli(
+        ops, argv + ["epochs=2"], kind)
+    cfg = runner.cfg
+    if (cfg.batch_size, cfg.dataset.train.voxel_max, cfg.num_classes,
+            cfg.ignore_index, cfg.model.encoder_args.in_channels) != \
+            (SCANNET_B, SCANNET_N, SCANNET_CLASSES, -100, 7):
+        raise AssertionError(f"{path}: not the ScanNet recipe")
+    timing = check_train_cli(path, results, train, val, sizes, SCANNET_LAUNCHES,
+                             (1, 2), steps, SCANNET_B * SCANNET_N,
+                             (1e-3, 1e-4), kind)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"{path} main path: main_cli mode=train, 2 epochs of {steps} steps at "
+          f"B={SCANNET_B}x{SCANNET_N}, {cfg.dataloader.num_workers} loader "
+          f"workers as the cfg, launches per train step {SCANNET_LAUNCHES}; "
+          f"validation of {len(sizes)} whole clouds padded to {sorted(set(sizes))} "
+          f"points, launches {({k: v for k, v in val.items() if v})}; losses "
+          f"{[t['loss'] for t in timing]}, lr {[t['lr'] for t in timing]}, val "
+          f"mIoU {results['val_miou']:.3f} (best {results['best_val']:.3f} at "
+          f"epoch {results['best_epoch']})")
+
+    # the weights moved, and the latest checkpoint gives them back
+    fresh = Runner(cfg, kind=kind, device=dev)
+    trained = dict(runner.model.named_parameters())
+    still = [n for n, p_ in fresh.model.named_parameters()
+             if torch.equal(p_, trained[n])]
+    if set(still) - zero_gradient_biases(runner.model):
+        raise AssertionError(f"{path}: parameters did not change: {still}")
+    ckpts = {k: os.path.join(cfg.ckpt_dir, f"{cfg.run_name}_ckpt_{k}.ckpt")
+             for k in ("latest", "best")}
+    # best is written with the first epoch that scores above 0 (random
+    # weights a few steps old may score 0 on every class)
+    if not os.path.exists(ckpts["latest"]) or \
+            os.path.exists(ckpts["best"]) != (results["best_epoch"] >= 1):
+        raise AssertionError(f"{path}: checkpoints {os.listdir(cfg.ckpt_dir)}, "
+                             f"best epoch {results['best_epoch']}")
+    if fresh.load_pretrained(ckpts["latest"]) != 2:
+        raise AssertionError(f"{path}: checkpoint epoch")
+    batch = loader_batch(runner, SEED + 5)
+    check_equal(f"{path} logits after the checkpoint round trip",
+                fresh.predict_fn()({"pos": batch["pos"], "x": batch["x"]}),
+                runner.predict_fn()({"pos": batch["pos"], "x": batch["x"]}))
+    scalars = scalar_rows(cfg.run_dir)
+    if sorted(scalars["lr"]) != [1, 2] or \
+            not {"train_loss", "train_miou", "val_miou", "best_val"} <= set(scalars):
+        raise AssertionError(f"{path}: scalars {scalars}")
+    report_train_cli(path, timing, runner, batch, peak,
+                     cfg.dataloader.num_workers, tag)
+
+    # one step with the kernels against one with every plain twin, from the
+    # trained state, some labels ignored
+    ignored = dict(batch)
+    ignored["y"] = batch["y"].clone()
+    ignored["y"][:, ::11] = cfg.ignore_index
+    train_vs_plain(cfg, runner.model, runner.optimizer, dev, ignored, tag, kind)
+    del fresh
+    torch.cuda.empty_cache()
+
+    # resume from latest for a third epoch: the schedule carries on
+    results3, runner3, train3, val3, sizes3, total3 = run_train_cli(
+        ops, argv + ["epochs=3", "mode=resume",
+                     f"pretrained_path={ckpts['latest']}"], kind)
+    check_train_cli(f"{path} resumed", results3, train3, val3, sizes3,
+                    SCANNET_LAUNCHES, (3,), steps, SCANNET_B * SCANNET_N,
+                    (1e-5,), kind)
+    if runner3.cfg.run_dir != cfg.run_dir or \
+            runner3.train_step_fn().state["step"] != 3 * steps or \
+            sorted(scalar_rows(cfg.run_dir)["lr"]) != [1, 2, 3]:
+        raise AssertionError(f"{path}: the resumed run did not carry on in "
+                             f"{cfg.run_dir}")
+    print(f"{path}: parameters moved, latest written (best at epoch "
+          f"{results['best_epoch']}), the latest "
+          f"checkpoint gives identical logits; mode=resume ran epoch 3 in the "
+          f"same run directory from step {2 * steps} at lr "
+          f"{results3['timing'][0]['lr']} (loss {results3['timing'][0]['loss']})")
+    return {k: total[k] + total3[k] for k in total}
+
+
+def s3dis_cli_path(ops, kind: str, dev, tag: str, workdir: str) -> dict:
+    """The S3DIS recipe through the train CLI for two short epochs (the
+    first starts the workers and warms the card up, the second is the one
+    reported) with its full train transform list; returns the kernels'
+    launches in it."""
+    path, steps = f"s3dis {kind} train cli", 3
+    argv = ["--cfg", CFGS[kind], "dataset.common.NAME=Synthetic",
+            "dataset.common.num_rooms=4", "dataset.common.n_points=100000",
+            "dataset.train.loop=3", "dataset.val.num_rooms=1",
+            "dataset.val.presample=False", f"batch_size={B}", "epochs=2",
+            f"root_dir={workdir}", f"seed={SEED}"]
+    torch.cuda.reset_peak_memory_stats()
+    results, runner, train, val, sizes, total = run_train_cli(ops, argv, kind)
+    cfg = runner.cfg
+    names = list(cfg.datatransforms.train)
+    if len(names) != 8 or "PointCloudRotation" not in names:
+        raise AssertionError(f"{path}: train transforms {names}")
+    per_step = dict(LAUNCHES[f"{kind} train"])
+    timing = check_train_cli(path, results, train, val, sizes, per_step,
+                             (1, 2), steps, B * N,
+                             (runner.lr_fn(1), runner.lr_fn(2)), kind)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    note = f", refine rate {results['refine_rate']} %" if kind == "mm" else ""
+    print(f"{path} main path: main_cli mode=train, 2 epochs of {steps} steps at "
+          f"B={B}x{N} with the train transforms {names}, launches per train "
+          f"step {per_step} (the support-owned interpolation VJP: "
+          f"{train['three_interpolation_backward_big']}); losses "
+          f"{[t['loss'] for t in timing]}, val mIoU {results['val_miou']:.3f}{note}")
+    report_train_cli(path, timing, runner, loader_batch(runner, SEED + 6), peak,
+                     cfg.dataloader.num_workers, tag)
+    return total
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -1023,6 +1468,7 @@ def main() -> None:
     rng = np.random.RandomState(SEED)
     kernels = kernel_phases(ops, dev, rng, tag)
     kernels.update(scene_kernel_phases(ops, dev, rng, tag))
+    kernels.update(scannet_kernel_phases(ops, dev, rng, tag))
 
     by_path = {}
     for kind in ("aa", "mm"):
@@ -1038,6 +1484,12 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as workdir:
         for kind in ("aa", "mm"):
             by_path[f"{kind} scene"] = scene_path(ops, kind, dev, tag, workdir)
+            torch.cuda.empty_cache()
+        by_path["scannet aa train cli"] = scannet_cli_path(ops, dev, tag, workdir)
+        torch.cuda.empty_cache()
+        for kind in ("aa", "mm"):
+            by_path[f"s3dis {kind} train cli"] = s3dis_cli_path(
+                ops, kind, dev, tag, workdir)
             torch.cuda.empty_cache()
 
     rows = [{"name": k, "route": "cuda", "source": src, "replaces": tpu,

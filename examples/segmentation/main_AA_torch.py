@@ -2,7 +2,14 @@
 ``main_AA.py``:
 
     python examples/segmentation/main_AA_torch.py \
-        --cfg cfgs/s3dis/AMContrast3D-AA.yaml mode=test [--device cpu] ...
+        --cfg cfgs/s3dis/AMContrast3D-AA.yaml [--device cpu] \
+        [mode=train|resume|finetune|test|val] [pretrained_path=...] ...
+
+Without ``mode`` it trains: loaders, the recipe's train transforms,
+validation every ``val_freq`` epochs, ``latest`` and ``best`` checkpoints in
+the run directory under ``root_dir``; ``mode=resume pretrained_path=<latest>``
+carries on, ``mode=test pretrained_path=<best>`` is the whole-scene test.
+The run is on the card unless ``--device cpu`` is given.
 """
 import os
 import sys

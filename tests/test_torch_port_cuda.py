@@ -401,3 +401,129 @@ def test_big_kernels_room_duplicates_and_empty_balls(cuda_device):
     got_i, got_d = ops.knn_big(same, same, 24)
     _equal(got_i, want_i)
     _equal(got_d, want_d)
+
+
+# ---------------------------------------------------------------------------
+# the interpolation VJP for large query sets, and the ScanNet recipe's shapes
+# ---------------------------------------------------------------------------
+
+def _triples(rng, dev, b, n1, n2, c):
+    """Saved (idx, weight) of a forward and an incoming gradient."""
+    idx = torch.from_numpy(rng.randint(0, n2, (b, n1, 3)).astype(np.int32)).to(dev)
+    w = torch.from_numpy(rng.rand(b, n1, 3).astype(np.float32)).to(dev)
+    w = (w / w.sum(-1, keepdim=True)).contiguous()
+    g = torch.from_numpy(rng.randn(b, n1, c).astype(np.float32)).to(dev)
+    return g, idx, w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n1,n2,c", [
+    (1, 1, 1, 1), (2, 1031, 257, 12), (3, 5000, 70, 200), (1, 300, 900, 128),
+    (2, 4099, 1000, 300), (1, 2000, 50, 11264)])
+def test_interp_backward_big_matches_plain_and_itself(cuda_device, b, n1, n2, c):
+    """The support-owned backward at sizes that are a multiple of no tile,
+    with C below and above the block width and at its limit: within
+    1e-5·(1+max) of the twin (same order of summation, other rounding of
+    nothing: the bound is the twin's own atomics on the card), bit-identical
+    over two runs, and a support row no query selects is exactly 0."""
+    rng = np.random.RandomState(n1 + c)
+    g, idx, w = _triples(rng, cuda_device, b, n1, n2, c)
+    idx[idx == n2 // 2] = 0                      # row n2 // 2 is never selected
+    before = ops.three_interpolation_backward_big.launches
+    got = ops.three_interpolation_backward_big(g, idx, w, n2)
+    again = ops.three_interpolation_backward_big(g, idx, w, n2)
+    assert ops.three_interpolation_backward_big.launches == before + 2
+    want = ops.three_interpolation_backward_plain(g, idx, w, n2)
+    _close(got, want, 1e-5)
+    assert torch.equal(got, again)
+    if n2 > 1:
+        assert not got[:, n2 // 2].any()
+    _close(ops.three_interpolation_backward_small(g, idx, w, n2), want, 1e-5)
+
+
+@pytest.mark.cuda
+def test_interp_backward_dispatch_follows_the_gate(cuda_device):
+    """(N1, C) = (64000, 128) goes to the support-owned kernel, (24000, 128)
+    to the scatter kernel, through the autograd function as well."""
+    rng = np.random.RandomState(4)
+    big, small = (ops.three_interpolation_backward_big,
+                  ops.three_interpolation_backward)
+    for n1, is_big in ((64000, True), (24000, False)):
+        p1 = torch.from_numpy(_cloud(rng, 1, n1, False)).to(cuda_device)
+        p2 = p1[:, ::4].contiguous()
+        f = torch.from_numpy(rng.randn(1, p2.shape[1], 128).astype(np.float32)
+                             ).to(cuda_device).requires_grad_()
+        counts = (big.launches, small.launches)
+        out = ops.three_interpolation(p1, p2, f)
+        out.backward(torch.ones_like(out))
+        assert (big.launches, small.launches) == \
+            (counts[0] + is_big, counts[1] + (not is_big))
+        fp = f.detach().clone().requires_grad_()
+        outp = ops.three_interpolation_plain(p1, p2, fp)
+        outp.backward(torch.ones_like(outp))
+        _close(f.grad, fp.grad, 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,npoint", [(2, 64000, 16000), (3, 57345, 700),
+                                        (2, 163841, 300)])
+def test_batched_fps_above_the_shared_memory_limit(cuda_device, b, n, npoint):
+    """B > 1 with more points a cloud than the batched kernel's shared
+    memory holds: one cluster a cloud in one launch (or, above the cluster's
+    163840 points, the grid kernel cloud by cloud), picks identical to the
+    twin; the clouds differ, so a kernel that sampled one cloud B times
+    would fail."""
+    rng = np.random.RandomState(n)
+    xyz = torch.from_numpy(_cloud(rng, b, n, True)).to(cuda_device)
+    counts = (ops.furthest_point_sample.launches,
+              ops.furthest_point_sample_b1.launches)
+    got = ops.furthest_point_sample(xyz, npoint)
+    want = ops.furthest_point_sample_plain(xyz, npoint)
+    _equal(got, want)
+    assert ops.furthest_point_sample.launches == counts[0]
+    assert ops.furthest_point_sample_b1.launches == \
+        counts[1] + (1 if n <= 163840 else b)
+
+
+@pytest.mark.cuda
+def test_batched_fps_below_the_limit_keeps_its_kernel(cuda_device):
+    rng = np.random.RandomState(8)
+    xyz = torch.from_numpy(_cloud(rng, 2, 57344, False)).to(cuda_device)
+    counts = (ops.furthest_point_sample.launches,
+              ops.furthest_point_sample_b1.launches)
+    _equal(ops.furthest_point_sample(xyz, 200),
+           ops.furthest_point_sample_plain(xyz, 200))
+    assert (ops.furthest_point_sample.launches,
+            ops.furthest_point_sample_b1.launches) == (counts[0] + 1, counts[1])
+
+
+@pytest.mark.cuda
+def test_large_cloud_kernels_at_batch_two(cuda_device):
+    """The ScanNet recipe's shapes, B = 2 clouds that differ: the loss's
+    self-kNN (64000², k = 24), the stage-0 ball query (16000 queries,
+    r = 0.05, k = 32) and a label propagation (k = 4): identical to the
+    twins, so the sort and the boxes are per cloud."""
+    rng = np.random.RandomState(21)
+    sup = torch.from_numpy(np.concatenate(
+        [_room(rng, 64000), _room(rng, 64000) * 0.5 + 1.0])).to(cuda_device)
+    q = sup[:, ::4].contiguous()
+    for query, k in ((sup, 24), (q, 4)):
+        want_i, want_d = ops.knn_plain(sup, query, k)
+        got_i, got_d = ops.knn(sup, query, k)
+        _equal(got_i, want_i)
+        _equal(got_d, want_d)
+    before = ops.ball_query_big.launches
+    _equal(ops.ball_query(sup, q, 0.05, 32),
+           ops.ball_query_plain(sup, q, 0.05, 32))
+    assert ops.ball_query_big.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_contrast_kernels_at_64000_points(cuda_device):
+    """N² = 4.1e9 is past 2³¹: forward, rows and support against their
+    twins at (2, 64000, 64), with an ignored label (-100) among the
+    classes."""
+    rng = np.random.RandomState(22)
+    p, f, lab, kth = _stage(rng, cuda_device, 2, 64000, 64, True)
+    lab[:, ::7] = -100.0
+    _check_contrast(p, f, lab, kth, 0, True)

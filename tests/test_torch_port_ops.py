@@ -647,8 +647,9 @@ def test_b1_and_large_n_route_to_the_new_wrappers(monkeypatch):
         ops.knn(one, small, 4)
     with pytest.raises(ValueError):
         ops.ball_query(one, small, 0.1, 4)
-    two = torch.empty(2, 60000, 3, device="meta")   # B > 1 keeps its limit
-    with pytest.raises(ValueError, match="B == 1"):
+    # B > 1 above the batched kernel's shared memory: a kernel or an error
+    two = torch.empty(2, 60000, 3, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
         ops.furthest_point_sample(two, 8)
     assert before == (ops.furthest_point_sample_b1.launches,
                       ops.knn_big.launches, ops.ball_query_big.launches)
@@ -658,6 +659,57 @@ def test_b1_and_large_n_route_to_the_new_wrappers(monkeypatch):
     assert torch.equal(ops.ball_query(sup, q, 0.5, 8),
                        ops.ball_query_plain(sup, q, 0.5, 8))
     assert torch.equal(ops.knn(sup, q, 5)[0], ops.knn_plain(sup, q, 5)[0])
+
+
+@pytest.mark.parametrize("n,fits,want", [
+    (57344, True, ["batched"]), (57345, True, ["cluster"]),
+    (163840, True, ["cluster"]), (163841, True, ["grid", "grid", "grid"]),
+    (64000, False, ["grid", "grid", "grid"])])
+def test_batched_fps_above_the_limit_routes_to_the_cluster_kernel(
+        monkeypatch, n, fits, want):
+    """B > 1: up to 57344 points a cloud the batched kernel as before;
+    above, one cluster a cloud in one launch where the cloud and the card
+    allow it, else the grid kernel cloud by cloud."""
+    calls = []
+    monkeypatch.setattr(port_fps, "_check_cuda", lambda xyz: None)
+    monkeypatch.setattr(port_fps, "_cluster_fits", lambda index: fits)
+    monkeypatch.setattr(port_fps, "launch",
+                        lambda name, *a: calls.append("batched"))
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device: type("S", (), {"cuda_stream": 0}))
+    monkeypatch.setattr(
+        port_fps, "_fps_b1_cluster",
+        lambda xyz, npoint: calls.append("cluster") or torch.zeros(
+            xyz.shape[0], npoint, dtype=torch.int32, device="meta"))
+    monkeypatch.setattr(
+        port_fps, "_fps_b1_grid",
+        lambda xyz, npoint: calls.append("grid") or torch.zeros(
+            1, npoint, dtype=torch.int32, device="meta"))
+    out = port_fps.furthest_point_sample(
+        torch.empty(3, n, 3, device="meta"), 16)
+    assert calls == want and out.shape == (3, 16)
+
+
+def test_interp_backward_twin_sums_in_query_order():
+    """The twin of both backward kernels against a loop over the triples
+    in ascending (query, slot) order in float64; a coarse row no query
+    selects stays 0."""
+    rng = np.random.RandomState(31)
+    b, n1, n2, c = 2, 211, 37, 5
+    idx = rng.randint(0, n2 - 1, (b, n1, 3)).astype(np.int32)   # never n2 - 1
+    w = rng.rand(b, n1, 3).astype(np.float32)
+    g = rng.randn(b, n1, c).astype(np.float32)
+    want = np.zeros((b, n2, c))
+    for bi in range(b):
+        for q in range(n1):
+            for k in range(3):
+                want[bi, idx[bi, q, k]] += np.float64(w[bi, q, k]) * g[bi, q]
+    for fn in (ops.three_interpolation_backward_plain,
+               ops.three_interpolation_backward_big,
+               ops.three_interpolation_backward):
+        got = fn(_t(g), _t(idx), _t(w), n2).numpy()
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+        assert not got[:, n2 - 1].any()
 
 
 def test_plain_twins_tile_whole_rooms():

@@ -25,7 +25,11 @@ def test_port_imports_no_jax():
             "amcontrast3d_tpu_torch.engine.evaluate, amcontrast3d_tpu_torch.engine.runner, "
             "amcontrast3d_tpu_torch.utils.ckpt, amcontrast3d_tpu_torch.utils.logger, "
             "amcontrast3d_tpu_torch.utils.random, amcontrast3d_tpu_torch.utils.vis, "
-            "amcontrast3d_tpu_torch.ops.spatial; "
+            "amcontrast3d_tpu_torch.ops.spatial, "
+            "amcontrast3d_tpu_torch.data.s3dis, amcontrast3d_tpu_torch.data.scannet, "
+            "amcontrast3d_tpu_torch.data.s3dis_sphere, amcontrast3d_tpu_torch.data.build, "
+            "amcontrast3d_tpu_torch.scheduler.plateau_lr, "
+            "amcontrast3d_tpu_torch.utils.summary; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'amcontrast3d_tpu')]; "
             "assert not bad, bad")
@@ -54,9 +58,9 @@ def test_port_sources_name_no_jax_import():
             assert not bad, f"{path}: imports {bad}"
 
 
-def _run_tool(name):
+def _run_tool(name, *args):
     return subprocess.run(
-        [sys.executable, "-m", f"amcontrast3d_tpu_torch.tools.{name}"],
+        [sys.executable, "-m", f"amcontrast3d_tpu_torch.tools.{name}", *args],
         cwd=REPO, capture_output=True, text=True, timeout=120,
         env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
 
@@ -73,6 +77,42 @@ def test_profile_train_needs_a_cuda_device():
     assert proc.returncode != 0
     assert "no CUDA device" in proc.stderr
     assert not proc.stdout
+
+
+def test_profile_train_recipe_and_loader_modes_need_a_cuda_device():
+    proc = _run_tool("profile_train", "--cfg",
+                     str(REPO / "cfgs" / "scannet" / "AMContrast3D-AA.yaml"),
+                     "--loader")
+    assert proc.returncode != 0
+    assert "no CUDA device" in proc.stderr
+    assert not proc.stdout
+
+
+def test_every_c_entry_point_is_declared_once_with_its_arguments():
+    """No compiler runs here, so hold the ctypes signatures against the
+    sources: every ``extern "C"`` entry point of ``csrc/*.cu`` has a
+    signature in ``_build._SIGNATURES`` with as many arguments as the C
+    function takes (pointers as ``void*``, then ints and floats), and no
+    signature names a function the sources lack."""
+    import ctypes
+    import re
+    found = {}
+    for src in sorted(_build.CSRC_DIR.glob("*.cu")):
+        text = re.sub(r"//[^\n]*", "", src.read_text())
+        for m in re.finditer(r'extern "C" (?:const )?([\w ]+?\*?)\s*(amc3d_\w+)\(([^)]*)\)',
+                             text):
+            args = [a.strip() for a in m.group(3).split(",") if a.strip()]
+            assert m.group(2) not in found, m.group(2)
+            found[m.group(2)] = args
+    assert set(found) - {"amc3d_error_string"} == set(_build._SIGNATURES)
+    assert "amc3d_three_interpolate_backward_big" in found
+    kinds = {ctypes.c_void_p: ("*",), ctypes.c_int: ("int ",),
+             ctypes.c_float: ("float ",)}
+    for name, argtypes in _build._SIGNATURES.items():
+        assert len(argtypes) == len(found[name]), name
+        for ctype, arg in zip(argtypes, found[name]):
+            assert any(k in arg for k in kinds[ctype]) and \
+                (ctype is ctypes.c_void_p) == ("*" in arg), (name, arg)
 
 
 def test_profile_big_kernels_needs_a_cuda_device():

@@ -477,8 +477,11 @@ def test_schedule_matches_jax():
                                        atol=1e-9)
     sched = as_step_schedule(lambda e: float(e), 4)
     assert [sched(s) for s in (0, 3, 4, 9)] == [1.0, 1.0, 2.0, 3.0]
-    with pytest.raises(NotImplementedError):
-        build_scheduler_from_cfg({**cfg, "sched": "multistep"})
+    # the other schedules are ported (tests/test_torch_port_traincli.py);
+    # a name neither package knows raises in both
+    for build in (build_scheduler_from_cfg, jax_scheduler):
+        with pytest.raises(ValueError, match="not supported"):
+            build({**cfg, "sched": "sawtooth"})
     with pytest.raises(NotImplementedError):
         build_optimizer_from_cfg({"NAME": "sgd"}, torch.nn.Linear(2, 2))
 

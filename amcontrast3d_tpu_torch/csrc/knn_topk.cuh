@@ -109,14 +109,17 @@ struct WarpTopK {
 };
 
 // The k nearest of the n support points `sup` (n x 3) to (qx, qy, qz) into
-// `top`.  Every thread of the block calls it (it holds the barriers); a
-// warp with active == false keeps nothing.  sx, sy, sz: kScanTile floats of
-// shared memory each.
-template <int KPL>
+// `top`; with LOWER, the k nearest after the pair (lo_d, lo_i) in
+// (d^2, index) order (a pass of a k larger than the registers hold).  Every
+// thread of the block calls it (it holds the barriers); a warp with
+// active == false keeps nothing.  sx, sy, sz: kScanTile floats of shared
+// memory each.
+template <int KPL, bool LOWER = false>
 __device__ __forceinline__ void scan_topk(const float* __restrict__ sup, int n,
                                           int k, float qx, float qy, float qz,
                                           bool active, float* sx, float* sy,
-                                          float* sz, WarpTopK<KPL>& top) {
+                                          float* sz, WarpTopK<KPL>& top,
+                                          float lo_d = 0.f, int lo_i = 0) {
   const int lane = threadIdx.x & 31;
   top.init();
   float thr = CUDART_INF_F;  // d^2 of slot k - 1
@@ -141,7 +144,9 @@ __device__ __forceinline__ void scan_topk(const float* __restrict__ sup, int n,
         dd = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
                        __fmul_rn(dz, dz));
       }
-      unsigned mask = __ballot_sync(kFullMask, u < len && dd < thr);
+      const bool after =
+          !LOWER || dd > lo_d || (dd == lo_d && t0 + u > lo_i);
+      unsigned mask = __ballot_sync(kFullMask, u < len && dd < thr && after);
       while (mask) {
         const int src = __ffs(mask) - 1;
         mask &= mask - 1;

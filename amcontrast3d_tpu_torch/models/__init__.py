@@ -8,6 +8,7 @@ from .apm import (APM_p, APM_p_Graph, APM_p_Group, APM_pf_ConCate,
                   APM_pf_CrossAtt, APM_pp_SelfAtt, Attention)
 from .base_seg import (BaseSeg, BaseSeg_AMContrast3D,
                        BaseSeg_M_AMContrast3D)
+from .pointnetv2 import PointNet2Decoder, PointNet2Encoder, PointNet2SA
 
 __all__ = [
     "MODELS", "build_model_from_cfg", "filter_kwargs", "init_train_weights_",
@@ -17,4 +18,5 @@ __all__ = [
     "APM_p", "APM_p_Graph", "APM_p_Group", "APM_pf_ConCate",
     "APM_pf_CrossAtt", "APM_pp_SelfAtt", "Attention",
     "BaseSeg", "BaseSeg_AMContrast3D", "BaseSeg_M_AMContrast3D",
+    "PointNet2Decoder", "PointNet2Encoder", "PointNet2SA",
 ]

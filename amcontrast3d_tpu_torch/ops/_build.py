@@ -45,11 +45,21 @@ _SIGNATURES = {
     "amc3d_fps_b1_cluster": (_P, _P, _I, _I, _I, _P),
     # → how many such clusters the device holds at once (negative: an error)
     "amc3d_fps_b1_clusters": (),
+    # chunk-pruned, one cluster: sorted points (N,4) f32 with the index
+    # bits in w, boxes (ceil(N/64),6), xyz of point 0, mind (N) scratch, out
+    # (npoint) i32, visits (1) u64 zeroed or null, N, npoint, stream
+    "amc3d_fps_pruned": (_P, _P, _P, _P, _P, _P, _I, _I, _P),
     # support (B,N,3), query (B,M,3), out (B,M,k) i32, B, N, M, k, r², stream
     "amc3d_ball_query": (_P, _P, _P, _I, _I, _I, _I, _F, _P),
     # p1 (B,N1,3), p2 (B,N2,3), f2 (B,N2,C), out (B,N1,C), idx_out (B,N1,3)
     # i32 or null, w_out (B,N1,3) or null, B, N1, N2, C, stream
     "amc3d_three_interpolate": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # chunk-pruned: sorted coarse points (B,N2,4) f32 with the index bits in
+    # w, boxes (B,ceil(N2/64),6), p1 (B,N1,3), order (B,N1) i32, home
+    # (B,N1) i32, f2 (B,N2,C), out (B,N1,C), idx_out, w_out or null, visits
+    # (1) u64 zeroed or null, B, N1, N2, C, stream
+    "amc3d_three_interpolate_big": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                    _I, _I, _I, _I, _P),
     # g (B,N1,C), idx (B,N1,3) i32, w (B,N1,3), df2 (B,N2,C) zeroed, B, N1,
     # N2, C, stream
     "amc3d_three_interpolate_backward": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
@@ -66,13 +76,15 @@ _SIGNATURES = {
                                  _P),
     "amc3d_contrast_grad_support": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F,
                                     _I, _P),
-    # support (B,N,3), query (B,M,3), idx (B,M,k) i32, d2 (B,M,k), B, N, M,
-    # k, stream
-    "amc3d_knn": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # support (B,N,3), query (B,M,3), idx and d2 at the pass's first slot
+    # of (B,M,ld) i32 / f32, B, N, M, k of the pass (≤ 128), ld, first
+    # slot, stream
+    "amc3d_knn": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # sorted support (B,N,4) f32 with the index bits in w, boxes
     # (B,ceil(N/64),6), query (B,M,3), order (B,M) i32, home (B,M) i32,
-    # idx (B,M,k) i32, d2 (B,M,k), B, N, M, k, stream
-    "amc3d_knn_big": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # idx, d2 as for amc3d_knn, B, N, M, k, ld, first slot, stream
+    "amc3d_knn_big": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                      _P),
     # sorted support, boxes, query, order, out (B,M,k) i32, B, N, M, k, r²,
     # stream
     "amc3d_ball_query_big": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),

@@ -3,10 +3,13 @@
 ↔ ``amcontrast3d_tpu/ops/interpolate.py`` (``three_nn``,
 ``three_interpolate``, ``three_interpolation``) and the fused TPU kernels
 ``ops/interpolate_pallas.py::_interp_kernel`` and its VJP
-``::_interp_bwd_kernel``, ported as ``csrc/interpolate.cu``, and the VJP for
+``::_interp_bwd_kernel``, ported as ``csrc/interpolate.cu``, the VJP for
 large query sets ``::_interp_bwd_big_kernel``, ported as
-``csrc/interpolate_bwd_big.cu``.  Weights are
-``1/(√d² + 1e-8)``, normalised over the 3 nearest coarse points.
+``csrc/interpolate_bwd_big.cu``, and the three kernels of the forward for
+large supports (``::_interp_thr_seed_kernel``, ``::_interp_thr_kernel``,
+``::_interp_acc_big_kernel``), ported as one kernel,
+``csrc/interpolate_big.cu``.  Weights are ``1/(√d² + 1e-8)``, normalised
+over the 3 nearest coarse points.
 
 Semantics follow the JAX plain path (``interpolate.py:42-57``): exactly
 three neighbours, ties to the lowest index.  The TPU kernel instead
@@ -18,10 +21,11 @@ kernel's VJP): the backward adds ``w·g`` into the 3 neighbours' rows.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
+from . import spatial
 from ._build import launch
 from .group import group_points
 from .knn import knn, knn_plain
@@ -66,9 +70,27 @@ def _forward_plain(p1, p2, f2):
     return three_interpolate(f2, idx, w), idx, w
 
 
-def _forward_kernel(p1, p2, f2, keep: bool):
-    """Launch the forward kernel; with ``keep`` it also returns the
-    (B, N1, 3) neighbour indices and weights for the backward."""
+# The JAX package keeps the forward's coarse buffer [f | 1 | x y z] resident
+# while it fits this budget, and sends larger ones to its three kernels for
+# large supports (``interpolate_pallas.py::_interp_fwd_impl``); the port
+# keeps the same rule.  Its chunk of coarse rows (``CS``) pads the buffer.
+_SUP_BUDGET = 48 * 1024 * 1024
+_SUP_CHUNK = 512
+
+
+def forward_is_big(n2: int, c: int) -> bool:
+    """Whether a forward from ``n2`` coarse points of ``c`` channels goes to
+    the chunk-pruned kernel: the coarse buffer, padded to 128-float rows and
+    to a multiple of the chunk, exceeds 48 MiB.  The decoder's fp0 does from
+    the 221184 bucket up ((55296, 128) does, (49152, 128) not), fp1 from
+    the 622592 bucket ((38912, 256) does)."""
+    n_pad = (-(-n2 // _SUP_CHUNK) * _SUP_CHUNK if n2 > _SUP_CHUNK
+             else -(-n2 // 256) * 256)
+    lanes = -(-(c + 4) // 128) * 128
+    return n_pad * lanes * 4 > _SUP_BUDGET
+
+
+def _check_forward(p1, p2, f2) -> None:
     tensors = (p1, p2, f2)
     B, N1, _ = p1.shape
     _, N2, C = f2.shape
@@ -81,6 +103,27 @@ def _forward_kernel(p1, p2, f2, keep: bool):
             raise ValueError("interpolation kernel needs contiguous float32 "
                              f"tensors on one CUDA device, got {t.dtype} on "
                              f"{t.device} contiguous={t.is_contiguous()}")
+
+
+def _forward_kernel(p1, p2, f2, keep: bool):
+    """Launch the forward kernel (:func:`three_interpolation_big` where
+    :func:`forward_is_big` says so, else :func:`three_interpolation_small`);
+    with ``keep`` it also returns the (B, N1, 3) neighbour indices and
+    weights for the backward."""
+    _check_forward(p1, p2, f2)
+    if forward_is_big(f2.shape[1], f2.shape[2]):
+        return three_interpolation_big(p1, p2, f2, keep)
+    return three_interpolation_small(p1, p2, f2, keep)
+
+
+def three_interpolation_small(p1: torch.Tensor, p2: torch.Tensor,
+                              f2: torch.Tensor, keep: bool = False):
+    """(out, idx, w) as :func:`three_interpolation_big` returns them, through
+    the ``csrc/interpolate.cu`` kernel, which tests every coarse point for
+    every fine point (any shape; CUDA tensors only)."""
+    _check_forward(p1, p2, f2)
+    B, N1, _ = p1.shape
+    _, N2, C = f2.shape
     out = torch.empty(B, N1, C, dtype=torch.float32, device=p1.device)
     idx = w = None
     if keep:
@@ -92,6 +135,43 @@ def _forward_kernel(p1, p2, f2, keep: bool):
            torch.cuda.current_stream(p1.device).cuda_stream)
     three_interpolation.launches += 1
     return out, idx, w
+
+
+def three_interpolation_big(p1: torch.Tensor, p2: torch.Tensor,
+                            f2: torch.Tensor, keep: bool = False,
+                            visits: Optional[torch.Tensor] = None):
+    """p1 (B, N1, 3), p2 (B, N2, 3), f2 (B, N2, C) f32 → (out (B, N1, C),
+    idx, w): the interpolation through the ``csrc/interpolate_big.cu``
+    kernel, the same bits as ``csrc/interpolate.cu``.  The coarse points are
+    sorted along a Morton curve into 64-point chunks (``ops/spatial.py``)
+    and a fine point scans only the chunks whose box can hold one of its 3
+    nearest.  With ``keep`` also the (B, N1, 3) indices and weights, else
+    None.  ``visits``, a zeroed (1,) int64 CUDA tensor, gains the chunks
+    scanned.  A CPU tensor goes through the plain path."""
+    if _on_cpu(p1, p2, f2):
+        out, idx, w = _forward_plain(p1, p2, f2)
+        return (out, idx, w) if keep else (out, None, None)
+    _check_forward(p1, p2, f2)
+    B, N1, _ = p1.shape
+    _, N2, C = f2.shape
+    cloud = spatial.sort_support(p2)
+    order, home = spatial.query_order(p1, cloud)
+    out = torch.empty(B, N1, C, dtype=torch.float32, device=p1.device)
+    idx = w = None
+    if keep:
+        idx = torch.empty(B, N1, 3, dtype=torch.int32, device=p1.device)
+        w = torch.empty(B, N1, 3, dtype=torch.float32, device=p1.device)
+    launch("amc3d_three_interpolate_big", cloud.packed.data_ptr(),
+           cloud.boxes.data_ptr(), p1.data_ptr(), order.data_ptr(),
+           home.data_ptr(), f2.data_ptr(), out.data_ptr(),
+           idx.data_ptr() if keep else None, w.data_ptr() if keep else None,
+           None if visits is None else visits.data_ptr(), B, N1, N2, C,
+           torch.cuda.current_stream(p1.device).cuda_stream)
+    three_interpolation_big.launches += 1
+    return out, idx, w
+
+
+three_interpolation_big.launches = 0
 
 
 def three_interpolation_backward_plain(grad: torch.Tensor, idx: torch.Tensor,
@@ -230,10 +310,11 @@ def three_interpolation(unknown_xyz: torch.Tensor, known_xyz: torch.Tensor,
     → (B, N1, C).
 
     A CUDA tensor goes through the fused ``csrc/interpolate.cu`` kernel
-    (selection and weighted sum in one pass, nothing materialised; when the
-    features need a gradient it also keeps the indices and weights, and the
-    backward kernel scatters into the features); a CPU tensor through
-    :func:`three_interpolation_plain`."""
+    (selection and weighted sum in one pass, nothing materialised), or
+    through :func:`three_interpolation_big` where :func:`forward_is_big`
+    says so; when the features need a gradient the kernel also keeps the
+    indices and weights, and the backward kernel scatters into the
+    features.  A CPU tensor goes through :func:`three_interpolation_plain`."""
     tensors = (unknown_xyz, known_xyz, known_feat)
     if _on_cpu(*tensors):
         return three_interpolation_plain(*tensors)

@@ -84,7 +84,9 @@ def knn_plain(support: torch.Tensor, query: torch.Tensor,
     return torch.cat(idx_tiles, 1), torch.cat(d2_tiles, 1)
 
 
-# the most neighbours the kernel keeps per query (4 registers a lane)
+# the most neighbours one launch of a kNN kernel keeps per query (4
+# registers a lane); a larger k takes ceil(k / 128) launches, each keeping
+# the next slots after the previous launch's last (d², index) pair
 KNN_MAX_K = 128
 
 
@@ -95,7 +97,8 @@ def knn(support: torch.Tensor, query: torch.Tensor,
 
     A CUDA tensor goes through the ``csrc/knn.cu`` kernel for
     N ≤ ``_BIG_N`` = 32768 support points and through :func:`knn_big`
-    above that (k ≤ 128 both); a CPU tensor through :func:`knn_plain`."""
+    above that, in ⌈k / 128⌉ launches; a CPU tensor through
+    :func:`knn_plain`."""
     if support.device.type == "cpu" and query.device.type == "cpu":
         return knn_plain(support, query, k)
     if support.shape[1] > _BIG_N:
@@ -110,23 +113,33 @@ def _check_cuda(name: str, support: torch.Tensor, query: torch.Tensor,
             or not query.is_contiguous()):
         raise ValueError(f"{name} kernel needs contiguous CUDA tensors, got "
                          f"{support.device}")
-    if k > KNN_MAX_K:
-        raise ValueError(f"{name} kernel takes k ≤ {KNN_MAX_K}, got {k}")
+
+
+def _passes(name: str, counted, inputs: tuple, sizes: tuple,
+            idx: torch.Tensor, d2: torch.Tensor) -> None:
+    """Launch ``name`` once for every 128 slots of the (B, M, k) outputs:
+    the slots first … first + 127 of each row, after the pair in slot
+    first − 1; ``inputs`` are the input pointers, ``sizes`` (B, N, M)."""
+    k = idx.shape[-1]
+    stream = torch.cuda.current_stream(idx.device).cuda_stream
+    for first in range(0, k, KNN_MAX_K):
+        launch(name, *inputs, idx.data_ptr() + 4 * first,
+               d2.data_ptr() + 4 * first, *sizes, min(KNN_MAX_K, k - first),
+               k, first, stream)
+        counted.launches += 1
 
 
 def knn_small(support: torch.Tensor, query: torch.Tensor,
               k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`knn` through the ``csrc/knn.cu`` kernel, which scans the whole
-    support for every query (any N; CUDA tensors only)."""
+    support for every query (any N and k; CUDA tensors only)."""
     _check_cuda("kNN", support, query, k)
     B, N, _ = support.shape
     M = query.shape[1]
     idx = torch.empty(B, M, k, dtype=torch.int32, device=query.device)
     d2 = torch.empty(B, M, k, dtype=torch.float32, device=query.device)
-    launch("amc3d_knn", support.data_ptr(), query.data_ptr(), idx.data_ptr(),
-           d2.data_ptr(), B, N, M, k,
-           torch.cuda.current_stream(query.device).cuda_stream)
-    knn.launches += 1
+    _passes("amc3d_knn", knn, (support.data_ptr(), query.data_ptr()),
+            (B, N, M), idx, d2)
     return idx, d2
 
 
@@ -137,8 +150,8 @@ def knn_big(support: torch.Tensor, query: torch.Tensor,
             k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`knn` through the ``csrc/knn_big.cu`` kernel: the support is
     sorted along a Morton curve (``ops/spatial.py``) and a query scans only
-    the 64-point chunks whose box can hold one of its k nearest.  Any N;
-    a CPU tensor goes through :func:`knn_plain`."""
+    the 64-point chunks whose box can hold one of its k nearest.  Any N and
+    k; a CPU tensor goes through :func:`knn_plain`."""
     if support.device.type == "cpu" and query.device.type == "cpu":
         return knn_plain(support, query, k)
     _check_cuda("large-cloud kNN", support, query, k)
@@ -148,11 +161,9 @@ def knn_big(support: torch.Tensor, query: torch.Tensor,
     order, home = spatial.query_order(query, cloud)
     idx = torch.empty(B, M, k, dtype=torch.int32, device=query.device)
     d2 = torch.empty(B, M, k, dtype=torch.float32, device=query.device)
-    launch("amc3d_knn_big", cloud.packed.data_ptr(), cloud.boxes.data_ptr(),
-           query.data_ptr(), order.data_ptr(), home.data_ptr(), idx.data_ptr(),
-           d2.data_ptr(), B, N, M, k,
-           torch.cuda.current_stream(query.device).cuda_stream)
-    knn_big.launches += 1
+    _passes("amc3d_knn_big", knn_big,
+            (cloud.packed.data_ptr(), cloud.boxes.data_ptr(), query.data_ptr(),
+             order.data_ptr(), home.data_ptr()), (B, N, M), idx, d2)
     return idx, d2
 
 

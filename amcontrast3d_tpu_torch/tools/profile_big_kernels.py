@@ -1,7 +1,18 @@
-"""Time the three whole-room kernels on one NVIDIA GPU at the shapes of a
-155648-point subcloud, each beside the kernel it takes over from.
+"""Time the whole-room kernels on one NVIDIA GPU, each beside the kernel
+it takes over from.
 
     python3 -m amcontrast3d_tpu_torch.tools.profile_big_kernels [--points N]
+    python3 -m amcontrast3d_tpu_torch.tools.profile_big_kernels --rungs
+
+Without ``--rungs``: the three kernels of a 155648-point subcloud (below).
+With ``--rungs``: the kernels of the buckets from 221184 up, on room-like
+and uniform clouds: the chunk-pruned FPS (``csrc/fps_pruned.cu``) at
+311296 -> 77824 and 1.2 M -> 4096 points beside the grid kernel of
+``csrc/fps_b1.cu`` (time and chunk visits a pick), and the chunk-pruned
+interpolation (``csrc/interpolate_big.cu``) at fp0 of the 221184 and 311296
+buckets (C = 128) and at fp1 of the 622592 bucket (155648 -> 38912,
+C = 256) beside the dense ``csrc/interpolate.cu`` (time and the share of
+chunk visits skipped); picks and outputs are compared for equality.
 
 Prints the card, then per kernel the median device time (CUDA events):
 the whole-room FPS per stage with its time per pick through the cluster
@@ -45,9 +56,9 @@ def cuda_ms(fn, runs: int = 5) -> float:
     return statistics.median(times)
 
 
-def room_cloud(rng, n: int) -> np.ndarray:
+def room_cloud(rng, n: int, voxel: float = 0.04) -> np.ndarray:
     """(1, n, 3) f32: the faces of a 7 x 6 x 3 m room and four solid boxes,
-    one point per 0.04 m voxel at most."""
+    one point per ``voxel`` at most."""
     pts = rng.rand(4 * n, 3) * [7, 6, 3]
     axis = rng.randint(0, 3, len(pts))
     side = rng.randint(0, 2, len(pts)) * np.array([7, 6, 3])[axis]
@@ -55,7 +66,7 @@ def room_cloud(rng, n: int) -> np.ndarray:
     solid = rng.rand(n, 3) * [1.2, 1.0, 0.8] + \
         rng.randint(1, 5, (n, 1)) * [1.2, 1.0, 0.0]
     pts = np.concatenate([pts, solid])
-    cell = np.floor(pts / 0.04).astype(np.int64)
+    cell = np.floor(pts / voxel).astype(np.int64)
     _, first = np.unique(cell, axis=0, return_index=True)
     pts = pts[rng.permutation(first)]
     if len(pts) < n:
@@ -63,9 +74,57 @@ def room_cloud(rng, n: int) -> np.ndarray:
     return pts[None, :n].astype(np.float32)
 
 
+def _equal(what: str, got, want) -> None:
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"{what}: {int((got != want).sum())} differ")
+
+
+def rungs(dev, rng, tag: str) -> None:
+    """The pruned FPS and the pruned interpolation beside the kernels they
+    take over from."""
+    # the rungs' subclouds come from ScanNet's 0.02 m voxels
+    for name, pts in (("room", room_cloud(rng, 311296, 0.02)),
+                      ("uniform", rng.rand(1, 311296, 3) * [7, 6, 3]),
+                      ("uniform", rng.rand(1, 1200000, 3) * [7, 6, 3])):
+        p = torch.from_numpy(pts.astype(np.float32)).to(dev)
+        n = p.shape[1]
+        npoint = n // 4 if n < 10 ** 6 else 4096
+        visits = torch.zeros(1, dtype=torch.int64, device=dev)
+        got = ops.furthest_point_sample_pruned(p, npoint, visits)
+        _equal(f"fps {name} {n}", got, ops.fps._fps_b1_grid(p, npoint))
+        ms = cuda_ms(lambda: ops.furthest_point_sample_pruned(p, npoint), 3)
+        grid = cuda_ms(lambda: ops.fps._fps_b1_grid(p, npoint), 1)
+        print(f"{name} fps {n} -> {npoint}: pruned {ms:.3f} ms = "
+              f"{ms / npoint * 1e3:.3f} us a pick, {visits.item() / npoint:.2f} "
+              f"chunk visits a pick of {-(-n // 64)}; grid {grid:.3f} ms = "
+              f"{grid / npoint * 1e3:.3f} us a pick  [{tag}]")
+    for n1, c in ((221184, 128), (311296, 128), (155648, 256)):
+        for name, pts in (("room", room_cloud(rng, n1, 0.02)),
+                          ("uniform", rng.rand(1, n1, 3) * [7, 6, 3])):
+            p1 = torch.from_numpy(pts.astype(np.float32)).to(dev)
+            n2 = n1 // 4
+            p2 = ops.gather_points(p1, ops.furthest_point_sample(p1, n2)).contiguous()
+            f2 = torch.from_numpy(rng.randn(1, n2, c).astype(np.float32)).to(dev)
+            visits = torch.zeros(1, dtype=torch.int64, device=dev)
+            out, idx, w = ops.three_interpolation_big(p1, p2, f2, True, visits)
+            d_out, d_idx, d_w = ops.three_interpolation_small(p1, p2, f2, True)
+            for what, a, b in (("out", out, d_out), ("idx", idx, d_idx),
+                               ("w", w, d_w)):
+                _equal(f"interpolation {name} {n1} {what}", a, b)
+            ms = cuda_ms(lambda: ops.three_interpolation_big(p1, p2, f2))
+            dense = cuda_ms(lambda: ops.three_interpolation_small(p1, p2, f2), 3)
+            pairs = n1 * -(-n2 // 64)
+            print(f"{name} interpolation {n1} -> {n2}, C={c}: pruned {ms:.3f} "
+                  f"ms, dense {dense:.3f} ms, chunk visits skipped "
+                  f"{100 * (1 - visits.item() / pairs):.3f} %, "
+                  f"{visits.item() / n1:.2f} a fine point  [{tag}]")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--points", type=int, default=155648)
+    ap.add_argument("--rungs", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_big_kernels: no CUDA device")
@@ -73,6 +132,9 @@ def main() -> None:
     print(tag)
     dev = torch.device("cuda", 0)
     rng = np.random.RandomState(0)
+    if args.rungs:
+        rungs(dev, rng, tag)
+        return
     n = args.points
     clouds = {"room": room_cloud(rng, n),
               "uniform": (rng.rand(1, n, 3) * [7, 6, 3]).astype(np.float32)}

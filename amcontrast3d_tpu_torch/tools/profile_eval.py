@@ -85,13 +85,18 @@ def plain_ops():
     from .. import ops
     from ..engine import evaluate
     from ..loss import aef, contrast
-    from ..models import apm, pointnext, refine
+    from ..models import apm, pointnetv2, pointnext, refine
     from ..ops import group, interpolate
     with ExitStack() as stack:
         for name, plain in (("furthest_point_sample", ops.furthest_point_sample_plain),
                             ("ball_query", ops.ball_query_plain),
                             ("three_interpolation", ops.three_interpolation_plain)):
             stack.enter_context(mock.patch.object(pointnext, name, plain))
+        # PointNet++ samples in its own module and groups through ops.group
+        stack.enter_context(mock.patch.object(
+            pointnetv2, "furthest_point_sample", ops.furthest_point_sample_plain))
+        stack.enter_context(mock.patch.object(group, "ball_query",
+                                              ops.ball_query_plain))
         stack.enter_context(mock.patch.object(contrast, "contrast_reductions",
                                               ops.contrast_reductions_plain))
         stack.enter_context(mock.patch.object(refine, "dual_masks_cross",

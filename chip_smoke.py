@@ -80,7 +80,9 @@
    mask identical; MM at the cfg's threshold and at the median predicted
    ambiguity).  Prints per room the wall time, the voted points per
    second, the split host prep / forward / voting / boundary kNN and the
-   peak device memory;
+   peak device memory (the checks are written once for every room of 8
+   and 13: the buckets and the sizes within them, finite logits, the
+   totals, the launches, the plain rescoring);
 9. runs the kernels of the ScanNet recipe's train step at its shapes
    (B = 2 clouds of 64000 points on a 0.02 m grid, 16000 coarse points):
    the support-owned interpolation VJP at (2, 64000 → 16000, C = 128)
@@ -112,7 +114,31 @@
    state (some labels ignored).  Prints per recipe the step time and the
    train points/s through the loader, the bare step's beside it, the
    seconds the loop waited on the loader and the peak device memory;
-11. prints one JSON line of per-kernel results and, last, the device line.
+11. runs the kernels of the rungs from the 221184 bucket up against their
+   twins and against the kernels they take over from: the chunk-pruned FPS
+   at 311296 -> 77824 (a room-like cloud on a 0.02 m grid with repeated
+   points, and a uniform one) and at 1.2 M -> 4096 (uniform and clustered),
+   picks identical to the twin and to the grid kernel, with the chunk
+   visits a pick, the bound (18 float instructions a box test, 10 a point
+   of a visited chunk) and the floor of picks x one cluster-wide reduction;
+   the chunk-pruned interpolation at fp0 of the 221184 and 311296 buckets
+   (C = 128) and at (155648 -> 38912, C = 256), coarse points from FPS:
+   output, indices and weights identical to ``interpolate.cu``'s, output
+   within 1e-5·(1+max|out|) of the twin, the share of chunk visits
+   skipped, and the gradient through its saved triples within
+   1e-5·(1+max|df2|) of the twin's; kNN at k = 256 through both kNN kernels
+   (two passes of 128 slots), identical to the twin;
+12. drives ``--kind base``: ``BaseSeg`` over PointNet++ from
+   ``cfgs/s3dis/pointnet++.yaml`` at B = 2 x 24000, one eval forward timed,
+   its launches, and one forward against the plain twins;
+13. drives the whole-scene test of the ScanNet recipe through ``main_cli``
+   as in 8, on one Synthetic room a bucket: AA on a room of 250000 raw
+   points (every subcloud in bucket 221184) and of 400000 (bucket 311296),
+   MM (``cfgs/scannet/AMContrast3D-MM.yaml``) on the 250000-point room;
+   the launches per subcloud forward include the chunk-pruned FPS at the
+   first stage from 262144 points and the chunk-pruned interpolation at
+   fp0;
+14. prints one JSON line of per-kernel results and, last, the device line.
 
 Any failure raises, so the exit code is non-zero; without a CUDA device it
 stops before printing any result.
@@ -179,6 +205,11 @@ KERNELS = (  # name, source, the TPU kernel it replaces
     ("three_interpolation_backward_big",
      "amcontrast3d_tpu_torch/csrc/interpolate_bwd_big.cu",
      "amcontrast3d_tpu/ops/interpolate_pallas.py:220"),
+    ("fps_pruned", "amcontrast3d_tpu_torch/csrc/fps_pruned.cu",
+     "amcontrast3d_tpu/ops/fps_pallas.py:257"),
+    # one kernel for the seed, the threshold and the accumulation kernels
+    ("three_interpolation_big", "amcontrast3d_tpu_torch/csrc/interpolate_big.cu",
+     "amcontrast3d_tpu/ops/interpolate_pallas.py:332, :350, :267"),
 )
 STEP_KERNELS = KERNELS[:10]      # the kernels of the four step paths
 # the whole-scene paths: Synthetic rooms of SCENE_POINTS raw points from the
@@ -206,12 +237,25 @@ SCANNET_LAUNCHES = {
     "three_interpolation_backward": 3, "contrast_forward": 4,
     "contrast_grad_rows": 4, "contrast_grad_support": 4, "knn_big": 4, "knn": 3}
 CLI_LIMIT_S = 420     # a train CLI phase that hangs (a worker pool) is cut
+# the rungs from the 221184 bucket up (ScanNet recipe, 0.02 m voxels): a
+# Synthetic room of RUNG_ROOMS[bucket] raw points voxelises to subclouds in
+# that bucket; the chunk-pruned FPS at its first stage from 262144 points,
+# the chunk-pruned interpolation at fp0 (coarse C = 128)
+SCANNET_MM_CFG = os.path.join(REPO, "cfgs", "scannet", "AMContrast3D-MM.yaml")
+RUNG_ROOMS = {221184: 250000, 311296: 400000}
+RUNG_FPS = ((311296, 77824), (HUGE_N, HUGE_PICKS))
+RUNG_INTERP = ((221184, 128), (311296, 128), (155648, 256))   # (N1, C), N2 = N1/4
+KNN_WIDE = 256                   # beyond one kNN launch's 128 slots
+# cfgs/s3dis/pointnet++.yaml (BaseSeg over PointNet++) at B = 2 x 24000
+POINTNET2_CFG = os.path.join(REPO, "cfgs", "s3dis", "pointnet++.yaml")
+BASE_B = 2
 LAUNCHES = {
     "aa eval": EVAL_LAUNCHES,
     "aa train": TRAIN_LAUNCHES,
     "mm eval": {**EVAL_LAUNCHES, "refine_cross": 4},
     "mm train": {**TRAIN_LAUNCHES, "refine_cross": 4,
                  "refine_cross_backward": 4},
+    "base eval": {"fps": 4, "ball_query": 4, "three_interpolation": 4},
 }
 
 
@@ -481,9 +525,9 @@ def timed_once(fn):
     return out, start.elapsed_time(end)
 
 
-def room_cloud(rng, n: int) -> np.ndarray:
+def room_cloud(rng, n: int, voxel: float = 0.04) -> np.ndarray:
     """(1, n, 3) f32 room-like cloud: the six faces of a 7 x 6 x 3 m room
-    (1 cm of noise) and four solid boxes, one point per 0.04 m voxel, 2 % of
+    (1 cm of noise) and four solid boxes, one point per ``voxel``, 2 % of
     the points repeated (as bucket padding repeats real points)."""
     pts = rng.rand(4 * n, 3) * [7, 6, 3]
     axis = rng.randint(0, 3, len(pts))
@@ -492,7 +536,7 @@ def room_cloud(rng, n: int) -> np.ndarray:
     solid = rng.rand(n, 3) * [1.2, 1.0, 0.8] + \
         rng.randint(1, 5, (n, 1)) * [1.2, 1.0, 0.0]
     pts = np.concatenate([pts, solid])
-    _, first = np.unique(np.floor(pts / 0.04).astype(np.int64), axis=0,
+    _, first = np.unique(np.floor(pts / voxel).astype(np.int64), axis=0,
                          return_index=True)
     if len(first) < n:
         raise AssertionError(f"room holds {len(first)} voxels, fewer than {n}")
@@ -616,22 +660,29 @@ def scene_kernel_phases(ops, dev, rng, tag: str) -> dict:
             pairs * BOX_OPS + visits * CHUNK * PAIR_OPS)
         if timed:
             results["knn_big"]["library_ms"] = library_ms
-    # above 2^20 points, a few thousand picks (the twin the same ones)
-    blobs = rng.rand(64, 3) * [7, 6, 3]
-    huge = {"uniform": rng.rand(1, HUGE_N, 3) * [7, 6, 3],
-            "clustered": blobs[rng.randint(0, 64, HUGE_N)][None]
-            + 0.05 * rng.randn(1, HUGE_N, 3)}
-    for cloud, pts in huge.items():
-        p = torch.from_numpy(pts.astype(np.float32)).to(dev)
-        got = ops.furthest_point_sample_b1(p, HUGE_PICKS)
+    # above 2^20 points, a few thousand picks (the twin the same ones):
+    # the grid kernel, which the dispatch no longer sends such clouds to
+    # (the chunk-pruned kernel takes them, rung_kernel_phases)
+    for cloud, pts in huge_clouds(rng).items():
+        p = torch.from_numpy(pts).to(dev)
+        got = ops.fps._fps_b1_grid(p, HUGE_PICKS)
         want, plain_ms = timed_once(
             lambda: ops.furthest_point_sample_plain(p, HUGE_PICKS))
         note("fps_b1", check_equal(f"fps_b1 {cloud} {HUGE_N}", got, want))
-        ms = cuda_ms(lambda: ops.furthest_point_sample_b1(p, HUGE_PICKS), 3)
+        ms = cuda_ms(lambda: ops.fps._fps_b1_grid(p, HUGE_PICKS), 3)
         print(f"fps_b1 {cloud} {HUGE_N} -> {HUGE_PICKS}: {ms:.3f} ms = "
               f"{ms / HUGE_PICKS * 1e3:.3f} us a pick (the grid kernel), plain "
               f"{plain_ms:.1f} ms  [{tag}]")
     return finish_kernels(results, "room-like and uniform", tag)
+
+
+def huge_clouds(rng) -> dict:
+    """Two clouds of HUGE_N points in a 7 x 6 x 3 m room: uniform, and 64
+    Gaussian blobs of σ 0.05 m."""
+    blobs = rng.rand(64, 3) * [7, 6, 3]
+    return {"uniform": (rng.rand(1, HUGE_N, 3) * [7, 6, 3]).astype(np.float32),
+            "clustered": (blobs[rng.randint(0, 64, HUGE_N)][None]
+                          + 0.05 * rng.randn(1, HUGE_N, 3)).astype(np.float32)}
 
 
 def scannet_kernel_phases(ops, dev, rng, tag: str) -> dict:
@@ -773,6 +824,125 @@ def scannet_kernel_phases(ops, dev, rng, tag: str) -> dict:
     return finish_kernels(results, "two room-like", tag)
 
 
+def rung_kernel_phases(ops, dev, rng, tag: str) -> dict:
+    """The kernels of the rungs from the 221184 bucket up against their
+    twins and against the kernels they take over from; returns the records
+    of the chunk-pruned FPS (the room-like 311296-point cloud) and of the
+    chunk-pruned interpolation (summed over fp0 of the 221184 and 311296
+    buckets, room-like clouds), and holds kNN beyond 128 neighbours."""
+    results = {name: {"err": None, "ms": 0.0, "plain_ms": 0.0,
+                      "library_ms": None, "bytes": 0.0, "ops": 0.0}
+               for name in ("fps_pruned", "three_interpolation_big")}
+
+    def note(name, err):
+        results[name]["err"] = max(results[name]["err"] or 0.0, err)
+
+    # the floor of a pick: one cluster-wide reduction, read off the cluster
+    # kernel of fps_b1.cu with 4 points a thread (16 x 512 x 4 points)
+    tiny = torch.from_numpy(rng.rand(1, 16 * 512 * 4, 3).astype(np.float32)).to(dev)
+    floor_us = cuda_ms(lambda: ops.fps._fps_b1_cluster(tiny, tiny.shape[1]), 3) \
+        / tiny.shape[1] * 1e3
+    print(f"one cluster-wide reduction a pick (fps_b1.cu's cluster kernel, "
+          f"{tiny.shape[1]} points, as many picks): {floor_us:.3f} us  [{tag}]")
+
+    clouds = {("room", 311296): room_cloud(rng, 311296, 0.02),
+              ("uniform", 311296): (rng.rand(1, 311296, 3) * [7, 6, 3]
+                                    ).astype(np.float32)}
+    clouds.update({(name, HUGE_N): pts for name, pts in huge_clouds(rng).items()})
+    for (cloud, n), pts in clouds.items():
+        npoint = dict(RUNG_FPS)[n]
+        p = torch.from_numpy(pts).to(dev)
+        visits = torch.zeros(1, dtype=torch.int64, device=dev)
+        got = ops.furthest_point_sample_pruned(p, npoint, visits)
+        want, plain_ms = timed_once(lambda: ops.furthest_point_sample_plain(p, npoint))
+        note("fps_pruned", check_equal(f"fps_pruned {cloud} {n}", got, want))
+        check_equal(f"fps_pruned {cloud} {n} vs the grid kernel", got,
+                    ops.fps._fps_b1_grid(p, npoint))
+        ms = cuda_ms(lambda: ops.furthest_point_sample_pruned(p, npoint), 3)
+        grid_ms = cuda_ms(lambda: ops.fps._fps_b1_grid(p, npoint), 1)
+        nc = -(-n // CHUNK)
+        nops = npoint * nc * BOX_OPS + visits.item() * CHUNK * FPS_OPS
+        bound = max((n * 12 + npoint * 4) / PEAK_BYTES, nops / PEAK_OPS) * 1e3
+        print(f"fps_pruned {cloud} {n} -> {npoint}: picks identical to the twin "
+              f"and to the grid kernel; {ms:.3f} ms = {ms / npoint * 1e3:.3f} us "
+              f"a pick, {visits.item() / npoint:.2f} chunk visits a pick of "
+              f"{nc}; the grid kernel {grid_ms:.3f} ms = "
+              f"{grid_ms / npoint * 1e3:.3f} us a pick; plain {plain_ms:.1f} "
+              f"ms; bound {bound:.3f} ms by operations, floor of picks x one "
+              f"reduction {npoint * floor_us / 1e3:.3f} ms  [{tag}]")
+        if cloud == "room":
+            results["fps_pruned"].update(
+                ms=ms, plain_ms=plain_ms, bytes=float(n * 12 + npoint * 4),
+                ops=float(nops))
+
+    for n1, c in RUNG_INTERP:
+        for cloud in ("room", "uniform"):
+            pts = room_cloud(rng, n1, 0.02) if cloud == "room" else \
+                (rng.rand(1, n1, 3) * [7, 6, 3]).astype(np.float32)
+            p1 = torch.from_numpy(pts).to(dev)
+            n2 = n1 // 4
+            p2 = ops.gather_points(p1, ops.furthest_point_sample(p1, n2)).contiguous()
+            f2 = torch.from_numpy(rng.randn(1, n2, c).astype(np.float32)).to(dev)
+            name = f"interpolation_big {cloud} {n1} -> {n2}, C={c}"
+            if not ops.forward_is_big(n2, c):
+                raise AssertionError(f"{name}: the dispatch rule says dense")
+            visits = torch.zeros(1, dtype=torch.int64, device=dev)
+            out, idx, w = ops.three_interpolation_big(p1, p2, f2, True, visits)
+            d_out, d_idx, d_w = ops.three_interpolation_small(p1, p2, f2, True)
+            err = check_equal(f"{name} vs interpolate.cu", out, d_out)
+            check_equal(f"{name} indices vs interpolate.cu", idx, d_idx)
+            check_equal(f"{name} weights vs interpolate.cu", w, d_w)
+            check_equal(f"{name} without keep", ops.three_interpolation_big(
+                p1, p2, f2)[0], out)
+            want, plain_ms = timed_once(
+                lambda: ops.three_interpolation_plain(p1, p2, f2))
+            note("three_interpolation_big",
+                 max(err, check_close(f"{name} vs plain", out, want, 1e-5)))
+            ms = cuda_ms(lambda: ops.three_interpolation_big(p1, p2, f2))
+            dense_ms = cuda_ms(lambda: ops.three_interpolation_small(p1, p2, f2), 3)
+            pairs = n1 * -(-n2 // CHUNK)
+            nbytes = (n1 + n2) * 12 + n1 * 4 * c * 4
+            nops = pairs * BOX_OPS + visits.item() * CHUNK * PAIR_OPS + 5 * n1 * c
+            bound = max(nbytes / PEAK_BYTES, nops / PEAK_OPS) * 1e3
+            print(f"{name}: output, indices and weights identical to "
+                  f"interpolate.cu, max abs err vs plain {err}; {ms:.3f} ms, "
+                  f"interpolate.cu {dense_ms:.3f} ms, plain {plain_ms:.1f} ms, "
+                  f"bound {bound:.3f} ms, chunk visits skipped "
+                  f"{100 * (1 - visits.item() / pairs):.3f} %  [{tag}]")
+            if cloud == "room" and c == 128:
+                r = results["three_interpolation_big"]
+                r["ms"] += ms
+                r["plain_ms"] += plain_ms
+                r["bytes"] += float(nbytes)
+                r["ops"] += float(nops)
+            if cloud == "room" and n1 == 221184:
+                # the gradient through the big forward's saved triples
+                g = torch.from_numpy(rng.randn(1, n1, c).astype(np.float32)).to(dev)
+                fk = f2.clone().requires_grad_()
+                fp = f2.clone().requires_grad_()
+                before = ops.three_interpolation_big.launches
+                ops.three_interpolation(p1, p2, fk).backward(g)
+                if ops.three_interpolation_big.launches != before + 1:
+                    raise AssertionError(f"{name}: the autograd path missed it")
+                ops.three_interpolation_plain(p1, p2, fp).backward(g)
+                gerr = check_close(f"{name} gradient vs plain", fk.grad,
+                                   fp.grad, 1e-5)
+                print(f"{name}: gradient through the saved triples, max abs "
+                      f"err vs plain {gerr}  [{tag}]")
+
+    # kNN beyond one launch's 128 slots: passes, both kernels
+    room = torch.from_numpy(room_cloud(rng, 40000)).to(dev)
+    for fn, sup in ((ops.knn_big, room), (ops.knn_small, room[:, :6000].contiguous())):
+        q = sup[:, ::7].contiguous()
+        got_i, got_d = fn(sup, q, KNN_WIDE)
+        want_i, want_d = ops.knn_plain(sup, q, KNN_WIDE)
+        check_equal(f"{fn.__name__} k={KNN_WIDE} indices", got_i, want_i)
+        check_equal(f"{fn.__name__} k={KNN_WIDE} d2", got_d, want_d)
+        print(f"{fn.__name__} {q.shape[1]} x {sup.shape[1]} k={KNN_WIDE}: "
+              f"indices and d2 identical to the twin (2 passes of 128)  [{tag}]")
+    return finish_kernels(results, "room-like and uniform", tag)
+
+
 def wrappers(ops) -> dict:
     return {"fps": ops.furthest_point_sample, "ball_query": ops.ball_query,
             "three_interpolation": ops.three_interpolation,
@@ -785,7 +955,9 @@ def wrappers(ops) -> dict:
             "fps_b1": ops.furthest_point_sample_b1, "knn_big": ops.knn_big,
             "ball_query_big": ops.ball_query_big,
             "three_interpolation_backward_big":
-                ops.three_interpolation_backward_big}
+                ops.three_interpolation_backward_big,
+            "fps_pruned": ops.furthest_point_sample_pruned,
+            "three_interpolation_big": ops.three_interpolation_big}
 
 
 def reset_counts(ops) -> dict:
@@ -815,39 +987,43 @@ def with_threshold(model, threshold: float):
 
 def forward_vs_plain(model, pos, x, kind: str, path: str) -> None:
     """One forward with the kernels and one with every kernel's plain twin:
-    stage positions identical, logits within 1e-4·(1+max|logit|); for MM at
-    the median predicted ambiguity, where CrossMask rows matter."""
+    stage positions identical, logits within 1e-4·(1+max|logit|); for MM
+    at the cfg's threshold and again at the median predicted ambiguity,
+    where CrossMask rows matter."""
     from amcontrast3d_tpu_torch.tools.profile_eval import plain_ops
 
-    note = ""
-    with torch.inference_mode():
-        if kind == "mm":
-            _, stages, rate = model(pos, x)
-            if not 0 <= rate.item() <= 100:
-                raise AssertionError(f"refine rate {rate.item()}")
-            threshold = torch.cat([a.reshape(-1) for a in stages["ambiguity"]]
-                                  ).median().item()
-            note = (f"refine rate {rate.item():.3f} % at the cfg's threshold "
-                    f"{model.decoder.threshold}; compared at threshold "
-                    f"{threshold:.6f}, ")
-            model = with_threshold(model, threshold)
-        out_k = model(pos, x)
-        with plain_ops():
-            out_p = model(pos, x)
+    models, notes = [model], [""]
     if kind == "mm":
-        rate = out_k[2].item()
-        if not (0 < rate < 100 and rate == out_p[2].item()):
-            raise AssertionError(f"refine rate {rate} vs plain {out_p[2].item()}")
-        note += f"refine rate {rate:.3f} %, "
-    for s, (pk, pp) in enumerate(zip(out_k[1]["p"], out_p[1]["p"])):
-        if not torch.equal(pk, pp):
-            raise AssertionError(f"stage {s} positions differ from the plain ops")
-    err = (out_k[0] - out_p[0]).abs().max().item()
-    tol = 1e-4 * (1 + out_p[0].abs().max().item())
-    if not err <= tol:
-        raise AssertionError(f"logits vs plain ops: max abs err {err} > {tol}")
-    print(f"{path} main path vs plain ops on the card: {note}stage positions "
-          f"identical, logits max abs err {err} (tol {tol})")
+        with torch.inference_mode():
+            _, stages, rate = model(pos, x)
+        if not 0 <= rate.item() <= 100:
+            raise AssertionError(f"refine rate {rate.item()}")
+        threshold = torch.cat([a.reshape(-1) for a in stages["ambiguity"]]
+                              ).median().item()
+        models.append(with_threshold(model, threshold))
+        notes = [f"at the cfg's threshold {model.decoder.threshold}: ",
+                 f"at the median predicted ambiguity {threshold:.6f}: "]
+    for m, note in zip(models, notes):
+        with torch.inference_mode():
+            out_k = m(pos, x)
+            with plain_ops():
+                out_p = m(pos, x)
+        if kind == "mm":
+            rate = out_k[2].item()
+            if not (rate == out_p[2].item() and 0 <= rate <= 100
+                    and (m is model or 0 < rate < 100)):
+                raise AssertionError(f"refine rate {rate} vs plain "
+                                     f"{out_p[2].item()}")
+            note += f"refine rate {rate:.3f} %, "
+        for s, (pk, pp) in enumerate(zip(out_k[1]["p"], out_p[1]["p"])):
+            if not torch.equal(pk, pp):
+                raise AssertionError(f"stage {s} positions differ from the plain ops")
+        err = (out_k[0] - out_p[0]).abs().max().item()
+        tol = 1e-4 * (1 + out_p[0].abs().max().item())
+        if not err <= tol:
+            raise AssertionError(f"logits vs plain ops: max abs err {err} > {tol}")
+        print(f"{path} main path vs plain ops on the card: {note}stage "
+              f"positions identical, logits max abs err {err} (tol {tol})")
 
 
 def eval_path(ops, cfg, model, dev, rng, tag, kind: str) -> dict:
@@ -884,6 +1060,67 @@ def eval_path(ops, cfg, model, dev, rng, tag, kind: str) -> dict:
     med = statistics.median(forward_ms)
     print(f"{path} forward B={B}x{N}: per-batch ms {forward_ms}; median "
           f"{med:.3f} ms = {B * N / med * 1e3:.1f} points/s  [{tag}]")
+    return launches
+
+
+def base_path(ops, dev, rng, tag: str) -> dict:
+    """``--kind base``: ``BaseSeg`` over PointNet++ from
+    ``cfgs/s3dis/pointnet++.yaml`` at full width (seeded random weights),
+    one warm-up and one timed eval forward at B = 2 x 24000 through
+    ``make_eval_step``; launches per forward, then one forward against the
+    plain twins (stage positions identical, logits within
+    1e-4·(1+max|logit|)).  Returns the kernels' launches."""
+    from amcontrast3d_tpu_torch.engine import make_eval_step
+    from amcontrast3d_tpu_torch.models import build_model_from_cfg, init_weights_
+    from amcontrast3d_tpu_torch.tools.profile_eval import plain_ops
+    from amcontrast3d_tpu_torch.utils.config import EasyConfig
+
+    path = "base eval"
+    cfg = EasyConfig()
+    cfg.load(POINTNET2_CFG, recursive=True)
+    model = build_model_from_cfg(cfg.model)
+    init_weights_(model, torch.Generator().manual_seed(SEED))
+    model = model.to(dev).eval()
+    step = make_eval_step(model, cfg.num_classes)
+    batch = {"pos": rng.rand(BASE_B, N, 3).astype(np.float32) * 4,
+             "x": rng.rand(BASE_B, N, IN_CH).astype(np.float32),
+             "y": rng.randint(0, cfg.num_classes, (BASE_B, N))}
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    counted = reset_counts(ops)
+    for i in range(2):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = step(batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        if out["logits"].shape != (BASE_B, N, cfg.num_classes) or \
+                not torch.isfinite(out["logits"]).all():
+            raise AssertionError(f"{path}: bad logits")
+        if int(out["cm"].sum()) != BASE_B * N:
+            raise AssertionError(f"{path}: confusion matrix counts")
+    launches = check_launches(path, counted, 2)
+    stages = []
+    hook = model.encoder.register_forward_hook(
+        lambda mod, inp, out_: stages.append(out_[0]))
+    with torch.inference_mode():
+        logits_k = model(batch["pos"], batch["x"])
+        with plain_ops():
+            logits_p = model(batch["pos"], batch["x"])
+    hook.remove()
+    for s, (pk, pp) in enumerate(zip(*stages)):
+        if not torch.equal(pk, pp):
+            raise AssertionError(f"{path}: stage {s} positions differ from plain")
+    err = (logits_k - logits_p).abs().max().item()
+    tol = 1e-4 * (1 + logits_p.abs().max().item())
+    if not err <= tol:
+        raise AssertionError(f"{path}: logits vs plain ops {err} > {tol}")
+    print(f"{path} main path: BaseSeg over PointNet++ "
+          f"({os.path.relpath(POINTNET2_CFG, REPO)}, "
+          f"{sum(p.numel() for p in model.parameters())} parameters) at "
+          f"B={BASE_B}x{N}, launches per forward {LAUNCHES[path]}; forward "
+          f"{ms:.3f} ms = {BASE_B * N / ms * 1e3:.1f} points/s; vs plain ops: "
+          f"stage positions identical, logits max abs err {err} (tol {tol})  "
+          f"[{tag}]")
     return launches
 
 
@@ -1055,13 +1292,17 @@ def train_vs_plain(cfg, model, optimizer, dev, batch, tag, kind: str):
           f"{p['ms']:.1f} ms  [{tag}]")
 
 
-def scene_launches(clouds: list, kind: str) -> dict:
+def scene_launches(ops, clouds: list, kind: str) -> dict:
     """The launches the whole-scene test must have made: per subcloud
-    forward 4 FPS calls, 8 ball queries (two per stage; those whose support
-    exceeds BIG_N go to the chunk-skipping kernel), 4 interpolations, for MM
-    4 CrossMask calls, and one boundary kNN over the subcloud's points."""
-    want = {"fps_b1": 0, "ball_query_big": 0, "ball_query": 0,
-            "three_interpolation": 0, "knn_big": 0, "knn": 0}
+    forward 4 FPS calls (the first through the chunk-pruned kernel where
+    ``fps_is_pruned`` says so), 8 ball queries (two per stage; those whose
+    support exceeds BIG_N go to the chunk-skipping kernel), 4 interpolations
+    (those ``forward_is_big`` names through the chunk-pruned kernel; the
+    coarse widths are 128, 256, 512, 1024), for MM 4 CrossMask calls, and
+    one boundary kNN over the subcloud's points."""
+    want = {"fps_b1": 0, "fps_pruned": 0, "ball_query_big": 0, "ball_query": 0,
+            "three_interpolation": 0, "three_interpolation_big": 0,
+            "knn_big": 0, "knn": 0}
     if kind == "mm":
         want["refine_cross"] = 0
     for cloud in clouds:
@@ -1069,19 +1310,29 @@ def scene_launches(clouds: list, kind: str) -> dict:
             sizes = [nb // 4 ** s for s in range(5)]
             supports = [sizes[s - 1] for s in range(1, 5)] + sizes[1:]
             big = sum(ns > BIG_N for ns in supports)
-            want["fps_b1"] += 4
+            pruned = sum(ops.fps_is_pruned(1, ns) for ns in sizes[:4])
+            want["fps_pruned"] += pruned
+            want["fps_b1"] += 4 - pruned
             want["ball_query_big"] += big
             want["ball_query"] += 8 - big
-            want["three_interpolation"] += 4
+            wide = sum(ops.forward_is_big(sizes[s + 1], 128 * 2 ** s)
+                       for s in range(4))
+            want["three_interpolation_big"] += wide
+            want["three_interpolation"] += 4 - wide
             want["knn_big" if n > BIG_N else "knn"] += 1
             if kind == "mm":
                 want["refine_cross"] += 4
     return {k: v for k, v in want.items() if v}
 
 
-def scene_path(ops, kind: str, dev, tag: str, workdir: str) -> dict:
-    """The whole-scene test of ``kind`` through ``main_cli``; returns the
-    kernels' launches in it."""
+def scene_path(ops, kind: str, dev, tag: str, workdir: str, cfg_path: str,
+               n_points: int, rooms: int, buckets: tuple,
+               extra: tuple = ()) -> dict:
+    """The whole-scene test of ``kind`` through ``main_cli`` on ``rooms``
+    Synthetic rooms of ``n_points`` raw points whose subclouds all lie in
+    ``buckets`` (each bucket met by some room); returns the kernels'
+    launches in it."""
+    from amcontrast3d_tpu_torch.data.data_util import bucket_size
     from amcontrast3d_tpu_torch.engine import Runner, evaluate
     from amcontrast3d_tpu_torch.engine.cli import load_cfg, main_cli, parse_args
     from amcontrast3d_tpu_torch.models import init_weights_
@@ -1089,18 +1340,22 @@ def scene_path(ops, kind: str, dev, tag: str, workdir: str) -> dict:
     from amcontrast3d_tpu_torch.transforms import build_transforms_from_cfg
     from amcontrast3d_tpu_torch.utils import EasyConfig, save_checkpoint
 
-    path = f"{kind} scene"
-    argv = ["--kind", kind, "--cfg", CFGS[kind], "mode=test",
+    recipe = os.path.basename(os.path.dirname(cfg_path))
+    path = f"{kind} scene" if recipe == "s3dis" else \
+        f"{recipe} {kind} scene {'/'.join(map(str, buckets))}"
+    argv = ["--kind", kind, "--cfg", cfg_path, "mode=test",
             "dataset.common.NAME=Synthetic",
-            f"dataset.common.num_rooms={SCENE_ROOMS[kind]}",
-            f"dataset.common.n_points={SCENE_POINTS}",
-            "ambiguity_args.miou_B_I=True", f"root_dir={workdir}", f"seed={SEED}"]
+            f"dataset.common.num_rooms={rooms}",
+            f"dataset.common.n_points={n_points}",
+            "ambiguity_args.miou_B_I=True", f"root_dir={workdir}",
+            f"seed={SEED}", *extra]
     cfg = load_cfg(*parse_args(argv))
     # seeded random weights, handed to the CLI as a checkpoint
     runner = Runner(cfg, kind=kind, device=dev)
     init_weights_(runner.model, torch.Generator().manual_seed(SEED))
     ck = EasyConfig()
-    ck.update({"run_name": f"smoke_{kind}", "ckpt_dir": workdir})
+    ck.update({"run_name": f"smoke_{path.replace(' ', '_').replace('/', '_')}",
+               "ckpt_dir": workdir})
     ckpt = save_checkpoint(ck, {"model": runner.model.state_dict()}, 0)
 
     counted = reset_counts(ops)
@@ -1111,12 +1366,12 @@ def scene_path(ops, kind: str, dev, tag: str, workdir: str) -> dict:
     peak = torch.cuda.max_memory_allocated() / 2**30
 
     clouds = results["clouds"]
-    buckets = sorted({nb for c in clouds for nb in c["buckets"]})
+    seen = sorted({nb for c in clouds for nb in c["buckets"]})
     sizes = [n for c in clouds for n in c["subclouds"]]
-    if len(clouds) != SCENE_ROOMS[kind] or not set(buckets) <= set(SCENE_BUCKETS) \
-            or (kind == "aa" and buckets != list(SCENE_BUCKETS)):
-        raise AssertionError(f"{path}: {len(clouds)} rooms, buckets {buckets}")
-    if not all(73729 <= n <= 155648 for n in sizes):
+    if len(clouds) != rooms or seen != sorted(buckets):
+        raise AssertionError(f"{path}: {len(clouds)} rooms, buckets {seen}")
+    if not all(bucket_size(n, cfg.get("eval_bucket", 8192)) == nb
+               for c in clouds for n, nb in zip(c["subclouds"], c["buckets"])):
         raise AssertionError(f"{path}: subcloud sizes {sorted(set(sizes))}")
     if not all(c["finite"] for c in clouds):
         raise AssertionError(f"{path}: logits are not finite")
@@ -1128,14 +1383,16 @@ def scene_path(ops, kind: str, dev, tag: str, workdir: str) -> dict:
     if split != sum(sizes):
         raise AssertionError(f"{path}: boundary + inner counts {split}, "
                              f"subclouds hold {sum(sizes)}")
-    want = scene_launches(clouds, kind)
+    want = scene_launches(ops, clouds, kind)
     if {k: v for k, v in launches.items() if v} != want:
         raise AssertionError(f"{path}: launches {launches}, expected {want}")
     rows = open(results["csv_path"]).read().splitlines()
     if len(rows) != 2 or not rows[0].startswith("method,Area,OA,mACC,mIoU"):
         raise AssertionError(f"{path}: results CSV {rows}")
-    print(f"{path} main path: main_cli mode=test on {len(clouds)} Synthetic "
-          f"rooms, {len(sizes)} subcloud forwards, launches {want}; mIoU "
+    per_forward = {k: v / len(sizes) for k, v in want.items()}
+    print(f"{path} main path: main_cli mode=test with {os.path.relpath(cfg_path, REPO)} "
+          f"on {len(clouds)} Synthetic rooms, {len(sizes)} subcloud forwards, "
+          f"launches {want} ({per_forward} a subcloud); mIoU "
           f"{results['miou']:.3f} boundary {results['boundary'][0]:.3f} inner "
           f"{results['inner'][0]:.3f} (random weights); results in "
           f"{os.path.basename(results['csv_path'])}")
@@ -1156,9 +1413,10 @@ def scene_path(ops, kind: str, dev, tag: str, workdir: str) -> dict:
     np.random.seed(0)
     for item in evaluate.generate_data_list(cfg):
         coord, feat, label, idx_points, *_ = evaluate.load_data(item, cfg)
+    split = "test" if cfg.datatransforms.get("test") else "val"
     part = evaluate.prepare_parts(
         coord, feat, idx_points[:1], cfg,
-        build_transforms_from_cfg("val", cfg.datatransforms))[0]
+        build_transforms_from_cfg(split, cfg.datatransforms))[0]
     idx_part, n, nb, pos, x = part
     batch = runner.put_batch({"pos": pos[None], "x": x[None]})
     loaded = Runner(cfg, kind=kind, device=dev)
@@ -1469,6 +1727,7 @@ def main() -> None:
     kernels = kernel_phases(ops, dev, rng, tag)
     kernels.update(scene_kernel_phases(ops, dev, rng, tag))
     kernels.update(scannet_kernel_phases(ops, dev, rng, tag))
+    kernels.update(rung_kernel_phases(ops, dev, rng, tag))
 
     by_path = {}
     for kind in ("aa", "mm"):
@@ -1481,9 +1740,21 @@ def main() -> None:
         by_path[f"{kind} train"] = train_path(ops, cfg, model, dev, rng, tag, kind)
         del model
         torch.cuda.empty_cache()
+    by_path["base eval"] = base_path(ops, dev, rng, tag)
+    torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as workdir:
         for kind in ("aa", "mm"):
-            by_path[f"{kind} scene"] = scene_path(ops, kind, dev, tag, workdir)
+            by_path[f"{kind} scene"] = scene_path(
+                ops, kind, dev, tag, workdir, CFGS[kind], SCENE_POINTS,
+                SCENE_ROOMS[kind], SCENE_BUCKETS[:SCENE_ROOMS[kind]])
+            torch.cuda.empty_cache()
+        # the rungs from 221184 up: the ScanNet recipe, one room a bucket
+        for kind, cfg_path, bucket in (("aa", SCANNET_CFG, 221184),
+                                       ("aa", SCANNET_CFG, 311296),
+                                       ("mm", SCANNET_MM_CFG, 221184)):
+            by_path[f"scannet {kind} scene {bucket}"] = scene_path(
+                ops, kind, dev, tag, workdir, cfg_path, RUNG_ROOMS[bucket], 1,
+                (bucket,), (f"dataset.common.num_classes={SCANNET_CLASSES}",))
             torch.cuda.empty_cache()
         by_path["scannet aa train cli"] = scannet_cli_path(ops, dev, tag, workdir)
         torch.cuda.empty_cache()

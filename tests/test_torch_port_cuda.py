@@ -186,16 +186,17 @@ def test_knn_kernel_matches_plain(cuda_device, clustered):
 @pytest.mark.cuda
 def test_knn_kernel_small_and_ragged(cuda_device):
     """N not a multiple of the tile, M = 1, k = 1, k = 64, k > N; k above
-    the kernel's maximum and a non-contiguous tensor raise."""
+    one launch's 128 slots takes passes; a non-contiguous tensor raises."""
     rng = np.random.RandomState(16)
     sup = torch.from_numpy(_cloud(rng, 2, 1030, False)).to(cuda_device)
     for m, k in ((1, 1), (1, 64), (5, 24), (1030, 3)):
         _knn_equal(sup, sup[:, :m].contiguous(), k)
     tiny = torch.from_numpy(_cloud(rng, 2, 7, False)).to(cuda_device)
-    for k in (1, 7, 8, 24, 64, 128):
+    for k in (1, 7, 8, 24, 64, 128, 129, 300):
         _knn_equal(tiny, tiny, k)
-    with pytest.raises(ValueError):
-        ops.knn(sup, sup, 129)
+    before = ops.knn.launches
+    _knn_equal(sup, sup, 129)
+    assert ops.knn.launches == before + 2
     with pytest.raises(ValueError):
         ops.knn(sup, sup.transpose(0, 1)[:, :2].transpose(0, 1)[:, ::2], 3)
 
@@ -527,3 +528,127 @@ def test_contrast_kernels_at_64000_points(cuda_device):
     p, f, lab, kth = _stage(rng, cuda_device, 2, 64000, 64, True)
     lab[:, ::7] = -100.0
     _check_contrast(p, f, lab, kth, 0, True)
+
+
+# ---------------------------------------------------------------------------
+# the rungs from the 221184 bucket up: the chunk-pruned FPS, the large-support
+# interpolation, and kNN beyond 128 neighbours
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,npoint", [(1, 1), (7, 7), (1030, 257), (5000, 5000),
+                                      (262143, 700), (263145, 2000)])
+def test_fps_pruned_matches_plain_and_the_grid_kernel(cuda_device, n, npoint):
+    """The chunk-pruned FPS at odd sizes, below and above the 262144 gate, on
+    a gridded room with repeated points: picks identical to the twin and to
+    the grid kernel; the dispatch sends only N >= 262144 to it."""
+    rng = np.random.RandomState(n)
+    xyz = torch.from_numpy(_room(rng, n) if n > 5000 else
+                           _cloud(rng, 1, n, n % 2 == 0)).to(cuda_device)
+    want = ops.furthest_point_sample_plain(xyz, npoint)
+    visits = torch.zeros(1, dtype=torch.int64, device=cuda_device)
+    before = ops.furthest_point_sample_pruned.launches
+    _equal(ops.furthest_point_sample_pruned(xyz, npoint, visits), want)
+    assert ops.furthest_point_sample_pruned.launches == before + 1
+    assert 0 < visits.item() or npoint == 1
+    _equal(ops.fps._fps_b1_grid(xyz, npoint), want)
+    counts = (ops.furthest_point_sample_pruned.launches,
+              ops.furthest_point_sample_b1.launches)
+    _equal(ops.furthest_point_sample(xyz, npoint), want)
+    pruned = int(n >= 262144)
+    assert (ops.furthest_point_sample_pruned.launches,
+            ops.furthest_point_sample_b1.launches) == \
+        (counts[0] + pruned, counts[1] + 1 - pruned)
+
+
+@pytest.mark.cuda
+def test_fps_pruned_ties(cuda_device):
+    """All points equal (every pick is a tie that the lowest index wins),
+    and point 0 far from where the sort puts the first chunk."""
+    same = torch.ones(1, 300000, 3, device=cuda_device)
+    _equal(ops.furthest_point_sample_pruned(same, 40),
+           ops.furthest_point_sample_plain(same, 40))
+    rng = np.random.RandomState(6)
+    xyz = torch.from_numpy(_cloud(rng, 1, 270001, True)).to(cuda_device)
+    xyz[0, 0] = torch.tensor([3.9, 3.9, 3.9])
+    _equal(ops.furthest_point_sample_pruned(xyz, 1500),
+           ops.furthest_point_sample_plain(xyz, 1500))
+    with pytest.raises(ValueError):
+        ops.furthest_point_sample_pruned(xyz.expand(2, -1, -1).contiguous(), 5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n1,n2,c", [(1, 1, 1, 1), (2, 1031, 2, 5),
+                                       (2, 4099, 1030, 3), (2, 20001, 5003, 200),
+                                       (1, 60000, 15000, 128)])
+def test_interp_big_matches_the_dense_kernel_and_plain(cuda_device, b, n1, n2, c):
+    """The chunk-pruned interpolation at B = 2 with ragged sizes, n2 < 3
+    among them: output, indices and weights the same bits as the dense
+    kernel's; output within 1e-5·(1+max|out|) of the twin."""
+    rng = np.random.RandomState(n1 + n2)
+    p1 = torch.from_numpy(_cloud(rng, b, n1, True)).to(cuda_device)
+    p2 = torch.from_numpy(_cloud(rng, b, n2, False)).to(cuda_device)
+    p2[:, : min(n1, n2) // 2] = p1[:, : min(n1, n2) // 2]   # coincident points
+    f2 = torch.from_numpy(rng.randn(b, n2, c).astype(np.float32)).to(cuda_device)
+    before = ops.three_interpolation_big.launches
+    out, idx, w = ops.three_interpolation_big(p1, p2, f2, keep=True)
+    assert ops.three_interpolation_big.launches == before + 1
+    d_out, d_idx, d_w = ops.three_interpolation_small(p1, p2, f2, keep=True)
+    _equal(out, d_out)
+    _equal(idx, d_idx)
+    _equal(w, d_w)
+    _equal(ops.three_interpolation_big(p1, p2, f2)[0], d_out)
+    _close(out, ops.three_interpolation_plain(p1, p2, f2), 1e-5)
+
+
+@pytest.mark.cuda
+def test_interp_big_dispatch_and_gradient(cuda_device):
+    """(N2, C) = (55296, 128) goes to the chunk-pruned kernel, (49152, 128)
+    to the dense one; the gradient through the pruned forward's saved
+    triples within 1e-5·(1+max|df2|) of the twin's."""
+    rng = np.random.RandomState(7)
+    for n2, is_big in ((55296, True), (49152, False)):
+        p1 = torch.from_numpy(_room(rng, 4 * n2)).to(cuda_device)
+        p2 = p1[:, ::4].contiguous()
+        f = torch.from_numpy(rng.randn(1, n2, 128).astype(np.float32)
+                             ).to(cuda_device).requires_grad_()
+        g = torch.from_numpy(rng.randn(1, 4 * n2, 128).astype(np.float32)
+                             ).to(cuda_device)
+        counts = (ops.three_interpolation_big.launches,
+                  ops.three_interpolation.launches)
+        out = ops.three_interpolation(p1, p2, f)
+        out.backward(g)
+        assert (ops.three_interpolation_big.launches,
+                ops.three_interpolation.launches) == \
+            (counts[0] + is_big, counts[1] + (not is_big))
+        fp = f.detach().clone().requires_grad_()
+        outp = ops.three_interpolation_plain(p1, p2, fp)
+        outp.backward(g)
+        _close(out, outp, 1e-5)
+        _close(f.grad, fp.grad, 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [6000, 40000])
+def test_knn_beyond_128_neighbours(cuda_device, n):
+    """k = 129 and 256 through both kNN kernels (passes of 128 slots), on a
+    gridded room with repeated points (ties at the seams of the passes):
+    indices and d² identical to the twin; k > N pads as the twin does."""
+    rng = np.random.RandomState(n)
+    sup = torch.from_numpy(_room(rng, n)).to(cuda_device)
+    q = sup[:, ::7].contiguous()
+    for k in (129, 256):
+        want_i, want_d = ops.knn_plain(sup, q, k)
+        for fn in (ops.knn_big, ops.knn_small):
+            before = fn.launches if fn is ops.knn_big else ops.knn.launches
+            got_i, got_d = fn(sup, q, k)
+            after = fn.launches if fn is ops.knn_big else ops.knn.launches
+            assert after == before + -(-k // 128)
+            _equal(got_i, want_i)
+            _equal(got_d, want_d)
+    tiny = sup[:, :200].contiguous()
+    for fn in (ops.knn_big, ops.knn_small):
+        got_i, got_d = fn(tiny, tiny, 300)
+        want_i, want_d = ops.knn_plain(tiny, tiny, 300)
+        _equal(got_i, want_i)
+        _equal(got_d, want_d)

@@ -1,0 +1,306 @@
+"""The whole-scene rungs from the 221184 bucket up, against the JAX package
+on the CPU: the chunk-pruned FPS (TPU kernel 5), the large-support 3-NN
+interpolation (TPU kernels 11-13), their dispatch rules, kNN beyond 128
+neighbours, and the PointNet++ cfg.
+
+The Pallas originals run in interpret mode with their chunk sizes forced
+small, as the JAX package's own tests force them
+(``tests/test_fps_pallas.py``, ``tests/test_interpolate_pallas.py``); the
+port's wrappers take their plain twins here (CPU tensors), and
+``test_torch_port_cuda.py`` holds the CUDA kernels against those twins on
+the card.  Routing is checked on the meta device with the launchers
+replaced: off the CPU a wrapper launches its kernel or raises.
+"""
+import importlib
+from collections.abc import Mapping
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import amcontrast3d_tpu.ops.fps_pallas as FP
+import amcontrast3d_tpu.ops.interpolate_pallas as IP
+from amcontrast3d_tpu.ops.knn import _knn_jnp
+from amcontrast3d_tpu_torch import ops
+
+port_fps = importlib.import_module("amcontrast3d_tpu_torch.ops.fps")
+port_interp = importlib.import_module("amcontrast3d_tpu_torch.ops.interpolate")
+port_knn = importlib.import_module("amcontrast3d_tpu_torch.ops.knn")
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _cloud(rng, b, n, duplicated=False):
+    """Uniform in [0, 5]³; ``duplicated``: a tenth of the points repeat
+    others (as the bucket padding repeats real points)."""
+    pts = (rng.rand(b, n, 3) * 5).astype(np.float32)
+    if duplicated:
+        rep = rng.randint(0, n, (b, n // 10))
+        for i in range(b):
+            pts[i, rng.randint(0, n, n // 10)] = pts[i, rep[i]]
+    return pts
+
+
+# ---- kernel 5: the chunk-pruned FPS ----------------------------------------
+
+@pytest.mark.parametrize("n,npoint,ragged,duplicated", [
+    (3000, 600, False, False), (3000, 600, False, True),
+    (2791, 300, True, False), (2791, 300, True, True)])
+def test_pruned_fps_twin_matches_the_pallas_pruned_sampler(
+        monkeypatch, n, npoint, ragged, duplicated):
+    """``_fps_b1_pruned`` with 512-point chunks (several skip per pick), and
+    ragged N split over calls of 64 picks: picks identical to the port's
+    pruned wrapper (its twin here) and to the plain FPS."""
+    monkeypatch.setattr(FP, "_PRUNE_CS", 512)
+    if ragged:
+        monkeypatch.setattr(FP, "_B1_OPS_BUDGET", 1.0)
+        monkeypatch.setattr(FP, "_TO", 64)
+    xyz = _cloud(np.random.RandomState(n + duplicated), 1, n, duplicated)
+    planes = jnp.asarray(xyz).transpose(2, 0, 1)
+    want = np.asarray(FP._fps_b1_pruned(planes[0], planes[1], planes[2], n,
+                                        npoint, True))
+    got = ops.furthest_point_sample_pruned(_t(xyz), npoint).numpy()
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(
+        ops.furthest_point_sample_plain(_t(xyz), npoint).numpy(), want)
+
+
+# ---- kernels 11-13: the large-support interpolation -------------------------
+
+def _explained_by_ties(d2: np.ndarray) -> np.ndarray:
+    """Per row of the 4 nearest d² (ascending): whether the TPU kernels may
+    take a 4th neighbour there.  Two of the 4 are equal (``_top3_rows``
+    drops tied copies in one extraction round, so the 3rd value it finds
+    lies beyond the true 3rd), or the 4th lies within the cushion of the
+    threshold ``thr·(1+1e-6)`` (``_interp_fwd_big``), with float32 rounding
+    of the product."""
+    tied = (np.diff(d2, axis=-1) == 0).any(-1)
+    cushion = d2[:, 3] <= d2[:, 2] * (1 + 2e-6)
+    return tied | cushion
+
+
+@pytest.mark.parametrize("b,n1,tq", [(1, 1200, None), (2, 3300, 1024)])
+def test_big_interp_twin_against_the_pallas_big_path(monkeypatch, b, n1, tq):
+    """The JAX package's large-support path (seed, threshold and
+    accumulation kernels; forced with a 1-byte budget) against the port's
+    large-support wrapper (its twin here): rows within 1e-5·(1+max|out|) for
+    ≥ 99.5 % of rows, and every other row explained by the TPU's tie rule
+    (the port takes exactly 3 neighbours, the TPU every point within the
+    cushioned 3rd d²).  Then, with several query tiles, the VJP:
+    ``jax.grad`` of the big path against the port's backward on the big
+    forward's saved triples, ≥ 99 % of rows within 1e-3 as the JAX
+    package's own test holds it."""
+    monkeypatch.setattr(IP, "_SUP_VMEM_BUDGET", 1)
+    if tq is not None:
+        monkeypatch.setattr(IP, "_BIG_TQ", tq)
+    rng = np.random.RandomState(n1)
+    p1 = (rng.rand(b, n1, 3) * 3).astype(np.float32)
+    p2 = (rng.rand(b, 4100, 3) * 3).astype(np.float32)
+    f2 = rng.randn(b, 4100, 12).astype(np.float32)
+    tgt = rng.randn(b, n1, 12).astype(np.float32)
+    want = np.asarray(IP.three_interpolation_fused(
+        jnp.asarray(p1), jnp.asarray(p2), jnp.asarray(f2), True))
+    out, idx, w = ops.three_interpolation_big(_t(p1), _t(p2), _t(f2), keep=True)
+    got = out.numpy()
+    tol = 1e-5 * (1 + np.abs(got).max())
+    close = (np.abs(got - want) <= tol).all(-1)
+    assert close.mean() >= 0.995, f"{1 - close.mean():.4f} rows differ"
+    d2 = ops.knn_plain(_t(p2), _t(p1), 4)[1].numpy()
+    assert _explained_by_ties(d2[~close]).all()
+    np.testing.assert_array_equal(
+        ops.three_interpolation_plain(_t(p1), _t(p2), _t(f2)).numpy(), got)
+    if tq is None:
+        return
+    g_jax = np.asarray(jax.grad(lambda f: jnp.sum((IP.three_interpolation_fused(
+        jnp.asarray(p1), jnp.asarray(p2), f, True) - tgt) ** 2))(
+            jnp.asarray(f2)))
+    g_port = ops.three_interpolation_backward(
+        _t(2 * (got - tgt)), idx, w, 4100).numpy()
+    rows = np.isclose(g_port, g_jax, rtol=1e-3, atol=1e-3).all(-1)
+    assert rows.mean() >= 0.99, f"{1 - rows.mean():.4f} gradient rows differ"
+
+
+# ---- the dispatch rules -----------------------------------------------------
+
+def test_dispatch_rules_equal_the_jax_expressions():
+    """``fps_is_pruned`` and ``forward_is_big`` against the JAX package's
+    own expressions (``fps_pallas.py:529-533`` at its default,
+    ``interpolate_pallas.py:567-568``) over a grid around each crossing."""
+    assert FP._PRUNED == "auto"
+    for B in (1, 2, 3):
+        for N in (1, 65535, 65536, 200000, 262143, 262144, 262145, 311296,
+                  1228800):
+            want = (B == 1 and N >= FP._PRUNED_MIN_N
+                    and N >= 2 * FP._PRUNE_CS)
+            assert ops.fps_is_pruned(B, N) == want, (B, N)
+    for n2 in (1, 255, 256, 257, 512, 513, 38911, 38912, 49151, 49152, 49153,
+               49664, 55296, 77824, 155648, 307200):
+        for c in (1, 124, 125, 128, 252, 253, 256, 512, 1024):
+            want = IP._buf_vmem_bytes(IP._shapes_sup(n2)[0], c) \
+                > IP._SUP_VMEM_BUDGET
+            assert ops.forward_is_big(n2, c) == want, (n2, c)
+    assert ops.forward_is_big(55296, 128) and not ops.forward_is_big(49152, 128)
+    assert ops.forward_is_big(38912, 256)
+    assert ops.fps_is_pruned(1, 262144) and not ops.fps_is_pruned(1, 262143)
+    assert not ops.fps_is_pruned(2, 10 ** 6)
+
+
+def _no_stream(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device: type("S", (), {"cuda_stream": 0}))
+
+
+@pytest.mark.parametrize("n,want", [(262144, "pruned"), (262143, "grid"),
+                                    (163840, "cluster")])
+def test_whole_room_fps_routes_by_the_rule(monkeypatch, n, want):
+    """B == 1 from 262144 points goes to the pruned kernel, below it to the
+    kernels of ``csrc/fps_b1.cu``."""
+    calls = []
+    monkeypatch.setattr(port_fps, "_check_cuda", lambda xyz: None)
+    monkeypatch.setattr(port_fps, "_cluster_fits", lambda index: True)
+    for name in ("pruned", "grid", "cluster"):
+        target = "furthest_point_sample_pruned" if name == "pruned" \
+            else f"_fps_b1_{name}"
+        monkeypatch.setattr(port_fps, target,
+                            lambda xyz, npoint, _n=name: calls.append(_n))
+    port_fps.furthest_point_sample(torch.empty(1, n, 3, device="meta"), 16)
+    assert calls == [want]
+
+
+@pytest.mark.parametrize("n2,c,want", [(55296, 128, "big"),
+                                       (49152, 128, "small"),
+                                       (38912, 256, "big")])
+def test_interpolation_routes_by_the_rule(monkeypatch, n2, c, want):
+    calls = []
+    monkeypatch.setattr(port_interp, "_check_forward", lambda *a: None)
+    for name in ("big", "small"):
+        monkeypatch.setattr(
+            port_interp, f"three_interpolation_{name}",
+            lambda *a, _n=name: calls.append(_n) or (None, None, None))
+    port_interp.three_interpolation(
+        torch.empty(1, 4 * n2, 3, device="meta"),
+        torch.empty(1, n2, 3, device="meta"),
+        torch.empty(1, n2, c, device="meta"))
+    assert calls == [want]
+
+
+@pytest.mark.parametrize("k,want", [(24, [(24, 24, 0)]),
+                                    (128, [(128, 128, 0)]),
+                                    (129, [(128, 129, 0), (1, 129, 128)]),
+                                    (300, [(128, 300, 0), (128, 300, 128),
+                                           (44, 300, 256)])])
+@pytest.mark.parametrize("big", [False, True])
+def test_knn_takes_k_in_passes_of_128(monkeypatch, k, want, big):
+    """⌈k/128⌉ launches, each writing its slots of the (B, M, k) rows at
+    their offset, after the previous pass's last slot; the launch count
+    follows them."""
+    calls = []
+    monkeypatch.setattr(port_knn, "_BIG_N", 100)
+    monkeypatch.setattr(port_knn, "_check_cuda", lambda *a: None)
+    monkeypatch.setattr(port_knn, "launch",
+                        lambda name, *a: calls.append((name, a)))
+    _no_stream(monkeypatch)
+    sup = torch.empty(1, 101 if big else 100, 3, device="meta")
+    q = torch.empty(1, 7, 3, device="meta")
+    if big:
+        monkeypatch.setattr(port_knn.spatial, "sort_support", lambda s: type(
+            "C", (), {"packed": s, "boxes": s})())
+        monkeypatch.setattr(port_knn.spatial, "query_order",
+                            lambda query, cloud: (query, query))
+    counted = ops.knn_big if big else ops.knn
+    before = counted.launches
+    idx, d2 = ops.knn(sup, q, k)
+    assert idx.shape == d2.shape == (1, 7, k)
+    assert counted.launches == before + len(want)
+    name = "amc3d_knn_big" if big else "amc3d_knn"
+    assert [c[0] for c in calls] == [name] * len(want)
+    # (k of the pass, row length, first slot), and the outputs' offsets
+    assert [c[1][-4:-1] for c in calls] == want
+    n_in = 5 if big else 2
+    offsets = [c[1][n_in] - idx.data_ptr() for c in calls]
+    assert offsets == [4 * first for *_, first in want]
+
+
+def test_off_the_cpu_the_new_wrappers_raise_rather_than_fall_back():
+    meta = torch.empty(1, 300000, 3, device="meta")
+    with pytest.raises(ValueError):
+        ops.furthest_point_sample_pruned(meta, 8)
+    with pytest.raises(ValueError):
+        ops.three_interpolation_big(meta, meta[:, :1000],
+                                    torch.empty(1, 1000, 8, device="meta"))
+    with pytest.raises(ValueError):
+        ops.knn(meta[:, :50], meta[:, :50], 300)
+    assert ops.furthest_point_sample_pruned.launches == 0
+    assert ops.three_interpolation_big.launches == 0
+
+
+@pytest.mark.parametrize("n,k", [(600, 256), (200, 300)])
+def test_knn_beyond_128_matches_jax(n, k):
+    """k above one launch's slots, and k > N (index 0 at 1e10 past N), on a
+    1/128 grid where d² is exact in both forms: the JAX exact kNN's indices
+    and d²."""
+    rng = np.random.RandomState(n)
+    sup = (np.round(rng.rand(2, n, 3) * 256) / 128).astype(np.float32)
+    q = sup[:, ::3].copy()
+    got_i, got_d = ops.knn(_t(sup), _t(q), k)
+    want_i, want_d = _knn_jnp(jnp.asarray(sup), jnp.asarray(q), k)
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
+    np.testing.assert_array_equal(got_d.numpy(), np.asarray(want_d))
+
+
+# ---- the PointNet++ cfg -----------------------------------------------------
+
+def test_pointnet2_cfg_builds_and_matches_jax():
+    """``cfgs/s3dis/pointnet++.yaml`` (BaseSeg over PointNet2Encoder /
+    PointNet2Decoder), narrowed, with the JAX weights and random batch
+    statistics carried over: logits within 1e-4·(1+max)."""
+    from amcontrast3d_tpu.models import build_model_from_cfg as jax_build
+    from amcontrast3d_tpu.utils import EasyConfig as JaxConfig
+    from amcontrast3d_tpu_torch.models import (PointNet2Decoder,
+                                               PointNet2Encoder,
+                                               build_model_from_cfg)
+    from amcontrast3d_tpu_torch.utils import EasyConfig
+    from amcontrast3d_tpu_torch.utils.convert import from_jax_variables
+
+    path, narrow = "cfgs/s3dis/pointnet++.yaml", ["model.encoder_args.width=8",
+                                                   "model.encoder_args.layers=2"]
+    cj, cp = JaxConfig(), EasyConfig()
+    for cfg in (cj, cp):
+        cfg.load(path, recursive=True)
+        cfg.update(narrow)
+    rng = np.random.RandomState(5)
+    pos = (np.round(rng.rand(1, 512, 3) * 256) / 128).astype(np.float32)
+    x = rng.rand(1, 512, 4).astype(np.float32)
+    jm = jax_build(cj.model)
+    # jitted: eagerly, flax's init and apply take seconds an op
+    variables = jax.tree_util.tree_map(np.array, dict(jax.jit(jm.init)(
+        jax.random.PRNGKey(0), jnp.asarray(pos), jnp.asarray(x))))
+    for leaf, draw in (("mean", lambda s: 0.1 * rng.randn(*s)),
+                       ("var", lambda s: 0.5 + rng.rand(*s))):
+        for path_, arr in _leaves(variables["batch_stats"]):
+            if path_[-1] == leaf:
+                arr[...] = draw(arr.shape)
+    want = np.asarray(jax.jit(jm.apply)(variables, jnp.asarray(pos),
+                                        jnp.asarray(x)))
+    model = build_model_from_cfg(cp.model)
+    assert isinstance(model.encoder, PointNet2Encoder)
+    assert isinstance(model.decoder, PointNet2Decoder)
+    model.load_state_dict(from_jax_variables(variables), strict=True)
+    model.eval()
+    with torch.no_grad():
+        got = model(_t(pos), _t(x)).numpy()
+    assert got.shape == want.shape == (1, 512, 13)
+    err = np.abs(got - want).max()
+    assert err <= 1e-4 * (1 + np.abs(want).max()), err
+
+
+def _leaves(tree, prefix=()):
+    for key, value in tree.items():
+        if isinstance(value, Mapping):
+            yield from _leaves(value, prefix + (key,))
+        else:
+            yield prefix + (key,), value

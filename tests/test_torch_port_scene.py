@@ -20,12 +20,14 @@ interpolation weight from 1 to 0.98 and the logits by 1e-2.
 """
 import os
 
+import jax
 import numpy as np
 import pytest
 import torch
 
 import amcontrast3d_tpu.data.synthetic as jsyn
 import amcontrast3d_tpu.engine.evaluate as jev
+import amcontrast3d_tpu.engine.runner as jax_runner
 import amcontrast3d_tpu_torch.data.synthetic as psyn
 import amcontrast3d_tpu_torch.engine.evaluate as pev
 from amcontrast3d_tpu.data import data_util as jdu
@@ -50,6 +52,18 @@ from amcontrast3d_tpu_torch.utils.vis import labels_to_colors, read_obj, write_o
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CFG = {kind: os.path.join(REPO, "cfgs", "synthetic", f"AMContrast3D-{kind.upper()}.yaml")
        for kind in ("aa", "mm")}
+# the ScanNet recipe's model and data settings (7 input channels: positions,
+# colours and heights; 20 classes; SegHead with a global max feature; the
+# ScanNet test transforms) on a Synthetic room, narrowed and made shallow,
+# with the recipe's radius-to-voxel ratio of 2.5 at the test's 0.1 m voxels
+CFG["scannet_aa"] = os.path.join(REPO, "cfgs", "scannet", "AMContrast3D-AA.yaml")
+EXTRA = {"aa": [], "mm": [],
+         "scannet_aa": ["dataset.common.NAME=Synthetic",
+                        "dataset.common.num_classes=20",
+                        "model.encoder_args.width=16",
+                        "model.encoder_args.blocks=[1,1,1,1,1]",
+                        "model.encoder_args.radius=0.25",
+                        "model.encoder_args.nsample=16"]}
 OVERRIDES = ["mode=test", "dataset.common.num_rooms=1",
              "dataset.common.n_points=2500", "dataset.common.voxel_size=0.1",
              "dataset.test.voxel_max=None", "eval_bucket=256",
@@ -328,7 +342,7 @@ def test_vis_writers_round_trip(tmp_path):
 def _load_cfg(cls, kind, run_dir, extra=()):
     cfg = cls()
     cfg.load(CFG[kind], recursive=True)
-    cfg.update(list(OVERRIDES) + list(extra))
+    cfg.update(EXTRA.get(kind, []) + list(OVERRIDES) + list(extra))
     cfg.run_dir = str(run_dir)
     return cfg
 
@@ -350,6 +364,18 @@ def _grid_transforms(module, monkeypatch):
     monkeypatch.setattr(module, "build_transforms_from_cfg", snapped)
 
 
+def _jitted_state(module, monkeypatch):
+    """``module``'s ``create_train_state`` under ``jax.jit``: flax's eager
+    ``init`` takes seconds an op on the CPU; the batch and the key are
+    arguments, so nothing large is folded as a constant."""
+    create = module.create_train_state
+
+    def jitted(model, tx, batch, rng):
+        return jax.jit(lambda b, r: create(model, tx, b, r))(batch, rng)
+
+    monkeypatch.setattr(module, "create_train_state", jitted)
+
+
 def _recording(predict, logits, to_numpy):
     def wrapped(*args):
         out = predict(*args)
@@ -358,17 +384,21 @@ def _recording(predict, logits, to_numpy):
     return wrapped
 
 
-@pytest.fixture(scope="module", params=["aa", "mm"])
+@pytest.fixture(scope="module", params=["aa", "mm", "scannet_aa"])
 def scene(request, tmp_path_factory):
     """Both packages' ``test_whole_scenes`` on one synthetic room with the
     same weights: (kind, JAX result, port result, per-subcloud logits of
-    both, the port runner, the port cfg)."""
-    kind = request.param
+    both, the port runner, the port cfg).  ``scannet_aa``: the ScanNet
+    recipe's settings (``EXTRA``)."""
+    setting = request.param
+    kind = setting.split("_")[-1]
     mp = pytest.MonkeyPatch()
     _grid_transforms(jev, mp)
     _grid_transforms(pev, mp)
+    _jitted_state(jax_runner, mp)
     try:
-        cj = _load_cfg(JaxConfig, kind, tmp_path_factory.mktemp(f"jax_{kind}"))
+        cj = _load_cfg(JaxConfig, setting,
+                       tmp_path_factory.mktemp(f"jax_{setting}"))
         jrunner = JaxRunner(cj, kind=kind)
         ds = jsyn.Synthetic(**{**dict(cj.dataset.common), "split": "val",
                                "voxel_max": 256, "transform":
@@ -381,9 +411,9 @@ def scene(request, tmp_path_factory):
             jrunner.predict_fn(), jlogits, lambda o: np.asarray(o)[0])
         rj = jev.test_whole_scenes(jrunner, state, jev.generate_data_list(cj), cj)
 
-        cp = _load_cfg(EasyConfig, kind, tmp_path_factory.mktemp(f"port_{kind}"))
+        cp = _load_cfg(EasyConfig, setting,
+                       tmp_path_factory.mktemp(f"port_{setting}"))
         runner = Runner(cp, kind=kind, device="cpu")
-        import jax
         variables = jax.tree_util.tree_map(
             np.asarray, {"params": state.params, "batch_stats": state.batch_stats})
         runner.model.load_state_dict(from_jax_variables(variables), strict=True)

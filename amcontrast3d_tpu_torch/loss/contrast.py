@@ -12,15 +12,25 @@ Method1, ``dist_cos`` or ``dist_dot``, margin constant / adaptive /
 learned, ``db`` −m / +m / none, cctype Method1-3.  The others (the
 gather-based forms of ``contrast.py:276-318``) and ``remat`` raise
 ``NotImplementedError``.
+
+In the approx configuration (``ops.knn.set_knn_backend('approx')``, unless
+``ambiguity_args.fused`` is False, as the JAX package's fused branches
+read it) no kNN runs for the loss: each point's threshold is the TPU's own
+selection (``contrast_reductions_selfk``) and the stage labels come from
+the majority vote (``label_vote``) instead of ``subscene_labels``
+(``contrast.py:212-218, 345-370, 389-422``).
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from ..ops import ambiguity_from_stats, contrast_reductions, knn
-from .aef import one_hot_labels, stage_ambiguity, subscene_labels
+from ..ops import (ambiguity_from_stats, contrast_reductions,
+                   contrast_reductions_selfk, knn, label_vote)
+from ..ops.knn import use_approx
+from .aef import NSTRIDE, one_hot_labels, stage_ambiguity, subscene_labels
 
 _EPS = 1e-12
 
@@ -38,6 +48,17 @@ def _check_ported(args: Dict, dist_func: str, contrast_func: str) -> None:
             f"supervisedCL={args.get('supervisedCL', 'Method1')}, "
             f"margin={args.get('margin', 'adaptive')}, db={args.get('db', '-m')} "
             "is not ported")
+
+
+def _selection(args: Dict) -> bool:
+    """Whether the approx configuration's threshold selection and label
+    vote replace the exact kNN (↔ ``_use_fused(...) and _use_approx()``)."""
+    return use_approx() and args.get("fused", True)
+
+
+def _vote_k(stage_i: int) -> int:
+    """kr = Π NSTRIDE[:i], the stage-0 points a stage point stands for."""
+    return math.prod(NSTRIDE[:stage_i])
 
 
 def point_contrast_margin(p: torch.Tensor, f: torch.Tensor,
@@ -68,14 +89,19 @@ def point_contrast_margin(p: torch.Tensor, f: torch.Tensor,
     else:  # dist_dot: the reference's +1e-12 shift cancels in the ratio
         fsim = f
 
-    with torch.no_grad():
-        # the k-th-nearest d² (direct form, as the kernels compute it) with
-        # the JAX package's relative cushion
-        _, d2 = knn(p, p, nsample)
-        kth = d2[..., -1] * (1.0 + 1e-5)
-    red = contrast_reductions(p.contiguous(), fsim.contiguous(), lab, kth,
-                              tinv, cctype == "Method3",
-                              margin_mode == "learned", cctype != "Method1")
+    flags = (tinv, cctype == "Method3", margin_mode == "learned",
+             cctype != "Method1")
+    if _selection(args):
+        red = contrast_reductions_selfk(p.contiguous(), fsim.contiguous(),
+                                        lab, nsample, *flags)
+    else:
+        with torch.no_grad():
+            # the k-th-nearest d² (direct form, as the kernels compute it)
+            # with the JAX package's relative cushion
+            _, d2 = knn(p, p, nsample)
+            kth = d2[..., -1] * (1.0 + 1e-5)
+        red = contrast_reductions(p.contiguous(), fsim.contiguous(), lab, kth,
+                                  *flags)
     P, Q, s_pos, s_neg = red[..., 0], red[..., 1], red[..., 2], red[..., 3]
     stats = red.detach()
     a = ambiguity_from_stats(stats[..., 4], stats[..., 5], stats[..., 6],
@@ -116,11 +142,20 @@ def contrast_head(up_stages: Sequence[Tuple[torch.Tensor, torch.Tensor]],
         raise NotImplementedError("ambiguity_args.remat is not ported")
     labels0 = one_hot_labels(target, num_classes, ignore_index)
     p0 = up_stages[0][0]
+    vote = _selection(args)
+    if vote:
+        lab0 = labels0.argmax(-1).to(torch.int32)
     loss_sum = 0.0
     target_ai_list: List[torch.Tensor] = []
     for i in range(int(args.get("stages_num", 4))):
         p, f = up_stages[i]
-        labels = labels0 if i == 0 else subscene_labels(labels0, p0, p, i)
+        if i == 0:
+            labels = labels0
+        elif vote:
+            labels = label_vote(p0.contiguous(), lab0, p.contiguous(),
+                                _vote_k(i), labels0.shape[-1])
+        else:
+            labels = subscene_labels(labels0, p0, p, i)
         loss, a = point_contrast_margin(p, f, labels, args)
         loss_sum = loss_sum + loss
         target_ai_list.append(a)
@@ -133,15 +168,34 @@ def ambiguity_head(up_stages: Sequence[Tuple[torch.Tensor, torch.Tensor]],
                    ) -> List[torch.Tensor]:
     """Ground-truth ambiguity (B, N_s) per stage, no loss: the propagated
     stage labels and the K-slot neighbourhood statistics of the exact kNN
-    (the JAX package's exact branch, ``contrast.py:423-427``)."""
+    (the JAX package's exact branch, ``contrast.py:423-427``), or in the
+    approx configuration the voted labels and the counts and distances of
+    the selection's reductions over a zero 1-wide feature
+    (``contrast.py:400-422``)."""
     labels0 = one_hot_labels(target, num_classes, ignore_index)
     p0 = up_stages[0][0]
+    cctype = args.get("cctype", "Method2")
+    fused = _selection(args)
+    if fused:
+        lab0 = labels0.argmax(-1).to(torch.int32)
     out = []
     with torch.no_grad():
         for i in range(int(args.get("stages_num", 4))):
             p = up_stages[i][0]
-            labels = subscene_labels(labels0, p0, p, i)
-            out.append(stage_ambiguity(p, labels, args["nsample"],
-                                       args.get("cctype", "Method2"),
-                                       args.get("ccbeta", 0.04))[0])
+            if not fused:
+                labels = subscene_labels(labels0, p0, p, i)
+                out.append(stage_ambiguity(p, labels, args["nsample"], cctype,
+                                           args.get("ccbeta", 0.04))[0])
+                continue
+            lab = lab0 if i == 0 else label_vote(
+                p0.contiguous(), lab0, p.contiguous(), _vote_k(i),
+                labels0.shape[-1])
+            red = contrast_reductions_selfk(
+                p.contiguous(), p.new_zeros(*p.shape[:2], 1), lab.float(),
+                args["nsample"], 1.0, cctype == "Method3", False,
+                cctype != "Method1")
+            out.append(ambiguity_from_stats(
+                red[..., 4], red[..., 5], red[..., 6], red[..., 7],
+                args.get("ccbeta", 0.04), method1=cctype == "Method1",
+                k_cap=float(args["nsample"] - 1)))
     return out

@@ -7,11 +7,12 @@ counts are ``N_i = N_{i-1} // stride``.  Submodules keep the flax names
 ``w_dp``, ``ConvBlock_{n}``, ``BatchNorm_0``, ``fp{k}``).
 
 Ported: the separable ``dp_fj`` LocalAggregation, SetAbstraction (head,
-separable and generic paths), FeaturePropagation with upsampling,
-InvResMLP, the encoder with its per-stage shared ball query, the decoder
-with the masked refinement, and SegHead.  Not yet: the generic grouped-MLP
-LocalAggregation, the masked ``n_valid`` path, the fused GroupStatsBN
-aggregation, remat, ResBlock and random sampling.
+separable and generic paths), the fused GroupStatsBN tail of both (on with
+``ops.aggregate.set_agg_fused('on')``), FeaturePropagation with
+upsampling, InvResMLP, the encoder with its per-stage shared ball query,
+the decoder with the masked refinement, and SegHead.  Not yet: the generic
+grouped-MLP LocalAggregation, the masked ``n_valid`` path, remat, ResBlock
+and random sampling.
 """
 from __future__ import annotations
 
@@ -20,13 +21,15 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
+from ..ops.aggregate import agg_fused_enabled, agg_fused_fits, grouped_slot_reduce
 from ..ops.fps import furthest_point_sample
 from ..ops.group import (CHANNEL_MAP, create_grouper, gather_points,
                          get_aggregation_features, group_points)
 from ..ops.interpolate import three_interpolation
 from ..ops.knn import ball_query, knn
 from .apm import Attention
-from .layers import ConvBlock, Dropout, _norm_name, batch_norm, create_act
+from .layers import (ChannelsLastBatchNorm, ConvBlock, Dropout, _act_name,
+                     _norm_name, create_act)
 from .refine import dual_masks, map_sum
 
 
@@ -94,6 +97,61 @@ def _pool(reduction: str):
     raise ValueError(reduction)
 
 
+# activations that commute with a per-channel max through a monotone
+# (sign-adjusted) affine: nondecreasing everywhere
+_MONOTONE_ACTS = {None, "relu", "relu6", "leakyrelu", "elu", "sigmoid",
+                  "tanh"}
+
+
+class GroupStatsBN(ChannelsLastBatchNorm):
+    """The BatchNorm of a separable aggregation (↔ the JAX package's
+    ``GroupStatsBN``, ``models/pointnext.py:108``, which takes the flax
+    name ``BatchNorm_0`` of the ``nn.BatchNorm`` it replaces; the
+    parameters and buffers are those of :class:`ChannelsLastBatchNorm`).
+
+    Called on a tensor it is that BatchNorm (the gather tail).
+    :meth:`pool` is the fused tail: BatchNorm + activation + max-pool over
+    the virtual grouped tensor ``h[b, i, k] = u[idx[b, i, k]] − qp[b, i]``,
+    from :func:`ops.aggregate.grouped_slot_reduce`'s signed extremum and
+    slot moments.  The pooled output ``act(affine(ext − qp))`` is exact
+    because the affine is monotone per channel in the direction of
+    ``sign(scale)``.  Train mode takes flax's one-pass variance
+    ``max(E[h²] − E[h]², 0)`` of the grouped tensor and moves the running
+    statistics as flax does (momentum 0.9, biased variance)."""
+
+    def pool(self, u, qp, idx, act=None):
+        """u (B, N, C) per-support values, qp (B, M, C) per-query offsets,
+        idx (B, M, K) int32 → (B, M, C)."""
+        sgn = torch.where(self.weight.detach() >= 0, 1.0, -1.0)
+        if self.training:
+            ext, su, sq = grouped_slot_reduce(u, idx, sgn, qp=qp)
+            n = idx.numel()
+            mean = su.sum((0, 1)) / n
+            var = torch.clamp_min(sq.sum((0, 1)) / n - mean * mean, 0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.mul_(1 - m).add_(mean, alpha=m)
+                self.running_var.mul_(1 - m).add_(var, alpha=m)
+                self.num_batches_tracked.add_(1)
+        else:
+            ext = grouped_slot_reduce(u, idx, sgn, need_stats=False)[0]
+            mean, var = self.running_mean, self.running_var
+        y = (ext - qp - mean) * (torch.rsqrt(var + self.eps) * self.weight) \
+            + self.bias
+        return act(y) if act is not None else y
+
+
+def group_stats_bn(channels: int) -> GroupStatsBN:
+    return GroupStatsBN(channels, eps=1e-5, momentum=0.1)
+
+
+def _fused(act_name, n: int, c: int, k: int) -> bool:
+    """The JAX package's conditions for the fused tail (the reduction is a
+    max, checked by the caller)."""
+    return (agg_fused_enabled() and act_name in _MONOTONE_ACTS
+            and agg_fused_fits(n, c, k))
+
+
 def _group_idx(grouper, support, query):
     if grouper.method == "ballquery":
         return ball_query(support, query, grouper.radius, grouper.nsample)
@@ -130,8 +188,10 @@ class LocalAggregation(nn.Module):
         out_ch = channels[1]
         self.w_f = nn.Linear(channels[0], out_ch, bias=False)
         self.w_dp = nn.Linear(3, out_ch, bias=False)
-        self.BatchNorm_0 = batch_norm(out_ch)
+        self.BatchNorm_0 = group_stats_bn(out_ch)
         self.act = create_act(act_args) if last_act else None
+        self.act_name = _act_name(act_args) if last_act else None
+        self.max_pool = reduction.lower() == "max"
 
     def forward(self, p, f, cached_idx=None):
         """``cached_idx``: the stage's shared grouping, an ``(idx, dp)``
@@ -142,10 +202,18 @@ class LocalAggregation(nn.Module):
             cached_idx, cached_dp = cached_idx
         idx = cached_idx if cached_idx is not None else \
             _group_idx(self.grouper, p, p)
+        dp_scale = _dp_scale(self.grouper)
+        if self.max_pool and _fused(self.act_name, p.shape[1],
+                                    self.w_f.out_features, idx.shape[-1]):
+            # no grouped tensor: u_j − qp_i = W_f·f_j + W_dp·(p_j − p_i)/r
+            proj = self.w_dp(p)
+            if dp_scale is not None:
+                proj = proj * (1.0 / dp_scale)
+            return self.BatchNorm_0.pool(self.w_f(f) + proj, proj, idx,
+                                         self.act)
         return _grouped_tail(
             idx, self.w_f(f), p, p, self.w_dp, self.BatchNorm_0, self.act,
-            _dp_scale(self.grouper), self.pool, chunkable=not self.training,
-            dp_pre=cached_dp)
+            dp_scale, self.pool, chunkable=not self.training, dp_pre=cached_dp)
 
 
 class SetAbstraction(nn.Module):
@@ -189,6 +257,7 @@ class SetAbstraction(nn.Module):
             ga["radius"] = None
         self.grouper = create_grouper(ga)
         self.act = create_act(act_args)
+        self.act_name = _act_name(act_args)
         self.use_separable = (not self.all_aggr and feature_type == "dp_fj"
                               and len(channels) == 2
                               and order == "conv-norm-act"
@@ -197,7 +266,7 @@ class SetAbstraction(nn.Module):
         if self.use_separable:
             self.w_f = nn.Linear(in_channels, out_channels, bias=False)
             self.w_dp = nn.Linear(3, out_channels, bias=False)
-            self.BatchNorm_0 = batch_norm(out_channels)
+            self.BatchNorm_0 = group_stats_bn(out_channels)
             return
         cin = CHANNEL_MAP[feature_type](in_channels)
         for i, ch in enumerate(channels[1:]):
@@ -227,10 +296,20 @@ class SetAbstraction(nn.Module):
                         if self.identity_name else fi)
         if self.use_separable:
             gidx = _group_idx(self.grouper, p, new_p)
-            f = _grouped_tail(
-                gidx, self.w_f(f), p, new_p, self.w_dp, self.BatchNorm_0,
-                None if self.use_res else self.act, _dp_scale(self.grouper),
-                lambda t: torch.amax(t, dim=-2), chunkable=not self.training)
+            act = None if self.use_res else self.act
+            dp_scale = _dp_scale(self.grouper)
+            if _fused(None if self.use_res else self.act_name, p.shape[1],
+                      self.w_f.out_features, gidx.shape[-1]):
+                proj, qproj = self.w_dp(p), self.w_dp(new_p)
+                if dp_scale is not None:
+                    proj = proj * (1.0 / dp_scale)
+                    qproj = qproj * (1.0 / dp_scale)
+                f = self.BatchNorm_0.pool(self.w_f(f) + proj, qproj, gidx, act)
+            else:
+                f = _grouped_tail(
+                    gidx, self.w_f(f), p, new_p, self.w_dp, self.BatchNorm_0,
+                    act, dp_scale, lambda t: torch.amax(t, dim=-2),
+                    chunkable=not self.training)
         else:
             dp, fj = self.grouper(new_p, p, f)
             fj = get_aggregation_features(new_p, dp, fi, fj, self.feature_type)
@@ -386,7 +465,9 @@ class PointNextEncoder(nn.Module):
                     idx = ball_query(p, p, r, k)
                 else:
                     idx = knn(p, p, k)[0]
-                shared = (idx, group_points(p, idx) - p[:, :, None, :])
+                # the fused tail never forms dp: the blocks share idx alone
+                shared = idx if agg_fused_enabled() else \
+                    (idx, group_points(p, idx) - p[:, :, None, :])
             for j in range(1, self.blocks[i]):
                 p, f = getattr(self, f"enc{i}_block{j}")(p, f, cached_idx=shared)
             p_list.append(p)

@@ -94,6 +94,19 @@ _SIGNATURES = {
     # g (B,N,C), sel (B,N,slots) i32, df (B,N,C) zeroed, B, N, C, slots,
     # scale, stream
     "amc3d_refine_cross_backward": (_P, _P, _P, _I, _I, _I, _I, _F, _P),
+    # p (B,N,3), out (B,N) f32 thresholds, B, N, k, stream
+    "amc3d_contrast_select": (_P, _P, _I, _I, _I, _P),
+    # support (B,N,3), labels (B,N) i32, query (B,M,3), out (B,M) i32, B, N,
+    # M, k, number of classes, stream
+    "amc3d_label_vote": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # u (B,N,C), idx (B,M,K) i32, sgn (C), qp (B,M,C) or null, ext, su, sq
+    # (B,M,C) (su, sq null without stats), B, N, M, K, C, need_stats, stream
+    "amc3d_aggregate_forward": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                _I, _I, _P),
+    # u, idx, sgn, qp or null, ext, g_ext, g_sum, g_sq (null without
+    # stats), du (B,N,C) zeroed, B, N, M, K, C, has_stats, stream
+    "amc3d_aggregate_backward": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                 _I, _I, _I, _I, _P),
 }
 
 

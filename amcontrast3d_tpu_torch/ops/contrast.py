@@ -24,10 +24,26 @@ are a TPU choice).  Differentiable in ``f`` only; with
 
 Gradients into columns 4-8 are ignored, as in the TPU VJP.  The Morton /
 kd sort of the TPU path only serves its chunk pruning and is not ported.
+
+The approx configuration (``ops.knn.set_knn_backend('approx')``) takes the
+TPU's own threshold instead of the exact kNN's: ↔
+``contrast_pallas.py::contrast_reductions_selfk`` (``_fwd_kernel`` with
+``has_kth=False``) and ``::label_vote`` (``_vote_kernel``).  That threshold
+is each point's k-th smallest *distinct* d² (the TPU's extraction rounds
+remove every copy of each minimum) times float32(1 + 1e-6), or 3e38 times
+the same with fewer than k distinct values: ``contrast_select`` (kernel
+``csrc/contrast_select.cu``) finds it over a point's own cloud, self
+included, and ``label_vote`` (``csrc/vote.cu``) over the stage-0 support,
+then takes the majority class of the points within it, ties to the lowest
+class.  Both are exact where the TPU tournament may overflow above 4096
+points.  The port always uses the reduction form of the contrast, so it
+needs no counterpart of the JAX package's ``set_fused_contrast``.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ._build import launch
 from .knn import pairwise_d2
@@ -35,6 +51,15 @@ from .knn import pairwise_d2
 _NOUT = 9
 # query rows per (B, tile, N) block of the plain twins
 _TILE = 512
+# the selection's slack, float32(1 + 1e-6), and its value for fewer than k
+# distinct distances (the TPU kernels' fill value)
+_SLACK = float(np.float32(1.0 + 1e-6))
+_NONE = float(np.float32(3e38))
+# (B, tile, N) elements a sorted block of the plain selection may hold
+_SELECT_ELEMENTS = 2 ** 24
+# the vote kernel's per-warp histograms must fit the 227 KB of shared memory
+# a block may use beside its 16 KB of staged support
+VOTE_MAX_CLASSES = (232448 - 16384) // 32
 
 
 def _check(p, f, lab, kth, cuda: bool) -> None:
@@ -243,6 +268,138 @@ def contrast_reductions_plain(p, f, lab, kth, tinv: float = 1.0,
                                      bool(need_d), True)
 
 
+def kth_distinct_plain(support: torch.Tensor, query: torch.Tensor,
+                       k: int) -> torch.Tensor:
+    """support (B, N, 3), query (B, M, 3) f32 → (B, M) f32: the k-th
+    smallest distinct d² from each query to the support (3e38 with fewer
+    than k distinct values) times float32(1 + 1e-6), by sorting blocks of
+    query rows."""
+    B, N, _ = support.shape
+    out = []
+    tile = max(1, _SELECT_ELEMENTS // max(B * N, 1))
+    for s in range(0, query.shape[1], tile):
+        d2 = pairwise_d2(query[:, s:s + tile], support).sort(-1).values
+        new = torch.ones_like(d2, dtype=torch.bool)
+        new[..., 1:] = d2[..., 1:] != d2[..., :-1]
+        hit = new & (new.cumsum(-1) == k)
+        del new
+        kth = d2.gather(-1, hit.int().argmax(-1, keepdim=True))[..., 0]
+        out.append(torch.where(hit.any(-1), kth, _NONE) * _SLACK)
+    return torch.cat(out, 1)
+
+
+def _check_points(name: str, t: torch.Tensor, B: int, n: int) -> None:
+    if tuple(t.shape) != (B, n, 3) or t.dtype != torch.float32:
+        raise ValueError(f"{name} must be ({B}, {n}, 3) float32, got "
+                         f"{tuple(t.shape)} {t.dtype}")
+
+
+def _check_select_cuda(name: str, tensors, device, k: int) -> None:
+    for t in tensors:
+        if t.device.type != "cuda" or t.device != device or not t.is_contiguous():
+            raise ValueError(f"{name} kernel needs contiguous tensors on one "
+                             f"CUDA device, got {t.device} "
+                             f"contiguous={t.is_contiguous()}")
+    if k < 1:
+        raise ValueError(f"k must be positive, got {k}")
+
+
+def contrast_select_plain(p: torch.Tensor, k: int) -> torch.Tensor:
+    """Plain PyTorch :func:`contrast_select`."""
+    return kth_distinct_plain(p, p, k)
+
+
+def contrast_select(p: torch.Tensor, k: int) -> torch.Tensor:
+    """p (B, N, 3) f32 → (B, N) f32: each point's contrast threshold, its
+    k-th smallest distinct d² over its own cloud (self included, so k
+    counts it) times float32(1 + 1e-6).  A CUDA tensor goes through
+    ``csrc/contrast_select.cu``, a CPU tensor through
+    :func:`contrast_select_plain`."""
+    if p.device.type == "cpu":
+        return contrast_select_plain(p, k)
+    B, N = p.shape[:2]
+    _check_points("p", p, B, N)
+    _check_select_cuda("contrast selection", (p,), p.device, k)
+    out = torch.empty(B, N, dtype=torch.float32, device=p.device)
+    launch("amc3d_contrast_select", p.data_ptr(), out.data_ptr(), B, N, int(k),
+           _stream(p))
+    contrast_select.launches += 1
+    return out
+
+
+def contrast_reductions_selfk(p, f, lab, k: int, tinv: float = 1.0,
+                              cctype_root: bool = False, need_s: bool = True,
+                              need_d: bool = True) -> torch.Tensor:
+    """:func:`contrast_reductions` over each point's own threshold (↔
+    ``contrast_pallas.py::contrast_reductions_selfk``): no kNN runs.  The
+    VJP is the same two kernels with that threshold, which column 8 holds.
+    ``k`` counts the self point."""
+    with torch.no_grad():
+        thr = contrast_select(p, k)
+    return contrast_reductions(p, f, lab, thr, tinv, cctype_root, need_s,
+                               need_d)
+
+
+def contrast_reductions_selfk_plain(p, f, lab, k: int, tinv: float = 1.0,
+                                    cctype_root: bool = False,
+                                    need_s: bool = True,
+                                    need_d: bool = True) -> torch.Tensor:
+    """:func:`contrast_reductions_selfk` by the plain twins on any device."""
+    with torch.no_grad():
+        thr = contrast_select_plain(p, k)
+    return contrast_reductions_plain(p, f, lab, thr, tinv, cctype_root,
+                                     need_s, need_d)
+
+
+def label_vote_plain(p_sup: torch.Tensor, lab_sup: torch.Tensor,
+                     p_q: torch.Tensor, k: int,
+                     num_classes: int) -> torch.Tensor:
+    """Plain PyTorch :func:`label_vote`: class counts of the members by a
+    matmul against the support's one-hot labels, then ``argmax``."""
+    thr = kth_distinct_plain(p_sup, p_q, k)
+    onehot = F.one_hot(lab_sup.long(), num_classes).float()
+    B, N, _ = p_sup.shape
+    votes = []
+    tile = max(1, _SELECT_ELEMENTS // max(B * N, 1))
+    for s in range(0, p_q.shape[1], tile):
+        member = pairwise_d2(p_q[:, s:s + tile], p_sup) <= thr[:, s:s + tile, None]
+        votes.append(torch.matmul(member.float(), onehot).argmax(-1))
+    return torch.cat(votes, 1).to(torch.int32)
+
+
+def label_vote(p_sup: torch.Tensor, lab_sup: torch.Tensor, p_q: torch.Tensor,
+               k: int, num_classes: int) -> torch.Tensor:
+    """Majority-vote class of each query among the support points within its
+    k-th smallest distinct d² (times float32(1 + 1e-6)), ties to the lowest
+    class (↔ ``contrast_pallas.py::label_vote``).
+
+    p_sup (B, N, 3) f32, lab_sup (B, N) class ids (int32 on the card),
+    p_q (B, M, 3) f32 → (B, M) int32.  A CUDA tensor goes through
+    ``csrc/vote.cu`` (1 ≤ num_classes ≤ ``VOTE_MAX_CLASSES``), a CPU tensor
+    through :func:`label_vote_plain`."""
+    if all(t.device.type == "cpu" for t in (p_sup, lab_sup, p_q)):
+        return label_vote_plain(p_sup, lab_sup, p_q, k, num_classes)
+    B, N = p_sup.shape[:2]
+    M = p_q.shape[1]
+    _check_points("p_sup", p_sup, B, N)
+    _check_points("p_q", p_q, B, M)
+    if tuple(lab_sup.shape) != (B, N) or lab_sup.dtype != torch.int32:
+        raise ValueError(f"lab_sup must be ({B}, {N}) int32, got "
+                         f"{tuple(lab_sup.shape)} {lab_sup.dtype}")
+    _check_select_cuda("label vote", (p_sup, lab_sup, p_q), p_sup.device, k)
+    if not 1 <= num_classes <= VOTE_MAX_CLASSES:
+        raise ValueError(f"the vote kernel takes 1 ≤ num_classes ≤ "
+                         f"{VOTE_MAX_CLASSES}, got {num_classes}")
+    out = torch.empty(B, M, dtype=torch.int32, device=p_q.device)
+    launch("amc3d_label_vote", p_sup.data_ptr(), lab_sup.data_ptr(),
+           p_q.data_ptr(), out.data_ptr(), B, N, M, int(k), int(num_classes),
+           _stream(p_q))
+    label_vote.launches += 1
+    return out
+
+
 contrast_forward.launches = 0
 contrast_grad_rows.launches = 0
 contrast_grad_support.launches = 0
+contrast_select.launches = 0
+label_vote.launches = 0

@@ -19,9 +19,17 @@ the Pallas kernels), not the JAX plain path's ``|q|² + |s|² − 2q·s`` matmul
 form: the kernel and its twin round alike, so their results agree bit for
 bit on the card.  Against the JAX matmul form a support point may flip
 membership only where its d² lies within float32 rounding of r².
+
+The neighbour-selection backend (``set_knn_backend``, default from
+``AMC3D_KNN_BACKEND``) is process-wide, as in the JAX package.  ``approx``
+routes the contrast loss and the stage labels to the TPU's own
+threshold selection (``ops/contrast.py``: ``contrast_reductions_selfk``,
+``label_vote``); ``knn`` itself stays exact in every mode.  ``auto`` means
+``exact`` here: the JAX package's ``auto`` means approx on a TPU only.
 """
 from __future__ import annotations
 
+import os
 from typing import Tuple
 
 import numpy as np
@@ -38,6 +46,26 @@ _BALL_TILE = 1024
 _TILE_ELEMENTS = 2 ** 28
 # more support points than this go to the chunk-skipping kernels
 _BIG_N = 32768
+
+
+_BACKENDS = ("auto", "exact", "approx")
+_KNN_BACKEND = "auto"
+
+
+def set_knn_backend(backend: str) -> None:
+    """'auto' | 'exact' | 'approx' (↔ ``amcontrast3d_tpu/ops/knn.py:51``)."""
+    global _KNN_BACKEND
+    if backend not in _BACKENDS:
+        raise ValueError(f"kNN backend must be one of {_BACKENDS}, got {backend!r}")
+    _KNN_BACKEND = backend
+
+
+def use_approx() -> bool:
+    """Whether the loss takes the TPU's threshold selection (``approx``)."""
+    return _KNN_BACKEND == "approx"
+
+
+set_knn_backend(os.environ.get("AMC3D_KNN_BACKEND", "auto"))
 
 
 def _tile_rows(rows: int, B: int, N: int) -> int:

@@ -99,6 +99,14 @@ def plain_ops():
                                               ops.ball_query_plain))
         stack.enter_context(mock.patch.object(contrast, "contrast_reductions",
                                               ops.contrast_reductions_plain))
+        # the approx configuration's selection and vote, the fused tail
+        stack.enter_context(mock.patch.object(
+            contrast, "contrast_reductions_selfk",
+            ops.contrast_reductions_selfk_plain))
+        stack.enter_context(mock.patch.object(contrast, "label_vote",
+                                              ops.label_vote_plain))
+        stack.enter_context(mock.patch.object(
+            pointnext, "grouped_slot_reduce", ops.grouped_slot_reduce_plain))
         stack.enter_context(mock.patch.object(refine, "dual_masks_cross",
                                               ops.dual_masks_cross_plain))
         for module in (aef, contrast, apm, pointnext, group, interpolate,

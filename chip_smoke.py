@@ -138,13 +138,28 @@
    the launches per subcloud forward include the chunk-pruned FPS at the
    first stage from 262144 points and the chunk-pruned interpolation at
    fp0;
-14. prints one JSON line of per-kernel results and, last, the device line.
+14. runs the four kernels of the approx configuration and the fused
+   aggregation at the S3DIS step's shapes against their twins
+   (``approx_kernel_phases``): the threshold selection at the four decoder
+   stages (k = 24) and the contrast forward on its thresholds, also at C = 1
+   as ``ambiguity_head`` calls it; the label vote at stages 1-3; the
+   aggregation forward and backward at each of PointNeXt-XL's 19 separable
+   aggregations;
+15. after each kind's exact paths (4-6), drives them again in the approx
+   configuration (``set_knn_backend('approx')``: the selection and the vote
+   instead of the kNN) and, for AA, the train step and the eval forward with
+   the fused aggregation on (``set_agg_fused('on')``), each with its
+   launches per step, against the plain ops as in 5 and 6, timed with its
+   peak memory, then prints every step of the kind side by side; the
+   switches go back to their defaults after each phase;
+16. prints one JSON line of per-kernel results and, last, the device line.
 
 Any failure raises, so the exit code is non-zero; without a CUDA device it
 stops before printing any result.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import functools
 import json
@@ -210,8 +225,19 @@ KERNELS = (  # name, source, the TPU kernel it replaces
     # one kernel for the seed, the threshold and the accumulation kernels
     ("three_interpolation_big", "amcontrast3d_tpu_torch/csrc/interpolate_big.cu",
      "amcontrast3d_tpu/ops/interpolate_pallas.py:332, :350, :267"),
+    # the selection pass of _fwd_kernel (has_kth=False); the reductions
+    # then run in contrast_forward
+    ("contrast_select", "amcontrast3d_tpu_torch/csrc/contrast_select.cu",
+     "amcontrast3d_tpu/ops/contrast_pallas.py:159"),
+    ("label_vote", "amcontrast3d_tpu_torch/csrc/vote.cu",
+     "amcontrast3d_tpu/ops/contrast_pallas.py:767"),
+    ("aggregate_forward", "amcontrast3d_tpu_torch/csrc/aggregate.cu",
+     "amcontrast3d_tpu/ops/aggregate_pallas.py:172"),
+    ("aggregate_backward", "amcontrast3d_tpu_torch/csrc/aggregate.cu",
+     "amcontrast3d_tpu/ops/aggregate_pallas.py:222"),
 )
 STEP_KERNELS = KERNELS[:10]      # the kernels of the four step paths
+APPROX_KERNELS = KERNELS[16:]    # the approx configuration, the fused tail
 # the whole-scene paths: Synthetic rooms of SCENE_POINTS raw points from the
 # dataset's seed 0; the first two voxelise (0.04 m) to 91478 and 130575
 # points, which pad to the buckets 106496 and 155648
@@ -249,6 +275,16 @@ KNN_WIDE = 256                   # beyond one kNN launch's 128 slots
 # cfgs/s3dis/pointnet++.yaml (BaseSeg over PointNet++) at B = 2 x 24000
 POINTNET2_CFG = os.path.join(REPO, "cfgs", "s3dis", "pointnet++.yaml")
 BASE_B = 2
+# PointNeXt-XL's separable aggregations: a set abstraction and then its
+# stage's InvResMLP blocks, at the widths of encoder stages 1-4
+XL_WIDTHS, XL_BLOCKS, AGG_K = (128, 256, 512, 1024), (3, 6, 3, 3), 32
+UP_CHANNELS = (64, 128, 256, 512)          # decoder stage widths
+AGG_LAUNCHES = sum(XL_BLOCKS) + len(XL_BLOCKS)
+# the approx configuration: no kNN, the selection a contrast stage, the vote
+# at stages 1-3; the fused tail: every separable aggregation
+APPROX_LAUNCHES = {k: v for k, v in TRAIN_LAUNCHES.items() if k != "knn"}
+APPROX_LAUNCHES.update(contrast_select=4, label_vote=3)
+STEP_TIMES = {}   # path: (median ms, peak GiB), for the side-by-side line
 LAUNCHES = {
     "aa eval": EVAL_LAUNCHES,
     "aa train": TRAIN_LAUNCHES,
@@ -256,6 +292,12 @@ LAUNCHES = {
     "mm train": {**TRAIN_LAUNCHES, "refine_cross": 4,
                  "refine_cross_backward": 4},
     "base eval": {"fps": 4, "ball_query": 4, "three_interpolation": 4},
+    "aa train approx": APPROX_LAUNCHES,
+    "aa train approx fused": {**APPROX_LAUNCHES, "aggregate_forward": AGG_LAUNCHES,
+                              "aggregate_backward": AGG_LAUNCHES},
+    "aa eval fused": {**EVAL_LAUNCHES, "aggregate_forward": AGG_LAUNCHES},
+    "mm train approx": {**APPROX_LAUNCHES, "refine_cross": 4,
+                        "refine_cross_backward": 4},
 }
 
 
@@ -311,21 +353,14 @@ def check_equal(name: str, got, want) -> float:
     return (got.to(torch.float64) - want.to(torch.float64)).abs().max().item()
 
 
-def kernel_phases(ops, dev, rng, tag: str) -> dict:
-    """Each kernel at the slice's shapes against its plain twin; returns
-    {name: {err, ms, plain_ms, library_ms, bytes, ops}}: the largest error
-    over both clouds, and on the uniform cloud the times, bytes and float
-    instructions summed over the stages (per forward for the first three,
-    per train step for the rest)."""
-    from amcontrast3d_tpu_torch.models.pointnext import to_full_list
-    from amcontrast3d_tpu_torch.tools.profile_train import voronoi_labels
-
-    radii = to_full_list(0.1, [1, 4, 7, 4, 4], [1, 4, 4, 4, 4], 2)
-    channels = [128, 256, 512, 1024]           # coarse C of fp0 … fp3
-    up_channels = [64, 128, 256, 512]          # decoder stage widths
+def tally(kernels):
+    """(results, timed, note) for a phase of ``kernels``: ``timed`` adds a
+    kernel's time, its twin's, a library call's, bytes and float
+    instructions on the uniform cloud; ``note`` keeps the largest error of a
+    compared pair (None until one is measured)."""
     results = {name: {"err": None, "ms": 0.0, "plain_ms": 0.0,
                       "library_ms": None, "bytes": 0.0, "ops": 0.0}
-               for name, _, _ in STEP_KERNELS}
+               for name, _, _ in kernels}
 
     def timed(name, cloud, kernel, plain, nbytes, nops, library=None):
         if cloud != "uniform":
@@ -339,8 +374,24 @@ def kernel_phases(ops, dev, rng, tag: str) -> dict:
             r["library_ms"] = (r["library_ms"] or 0.0) + cuda_ms(library, PLAIN_RUNS)
 
     def note(name, err):
-        # None until a compared pair's difference has been measured
         results[name]["err"] = max(results[name]["err"] or 0.0, err)
+
+    return results, timed, note
+
+
+def kernel_phases(ops, dev, rng, tag: str) -> dict:
+    """Each kernel at the slice's shapes against its plain twin; returns
+    {name: {err, ms, plain_ms, library_ms, bytes, ops}}: the largest error
+    over both clouds, and on the uniform cloud the times, bytes and float
+    instructions summed over the stages (per forward for the first three,
+    per train step for the rest)."""
+    from amcontrast3d_tpu_torch.models.pointnext import to_full_list
+    from amcontrast3d_tpu_torch.tools.profile_train import voronoi_labels
+
+    radii = to_full_list(0.1, [1, 4, 7, 4, 4], [1, 4, 4, 4, 4], 2)
+    channels = [128, 256, 512, 1024]           # coarse C of fp0 … fp3
+    up_channels = UP_CHANNELS
+    results, timed, note = tally(STEP_KERNELS)
 
     def randn(*shape):
         return torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(dev)
@@ -943,6 +994,110 @@ def rung_kernel_phases(ops, dev, rng, tag: str) -> dict:
     return finish_kernels(results, "room-like and uniform", tag)
 
 
+def approx_kernel_phases(ops, dev, rng, tag: str) -> dict:
+    """The four kernels of the approx configuration and the fused tail at
+    the S3DIS step's shapes (B=4x24000, stages from FPS, a uniform and a
+    clustered cloud) against their twins: the selection at the four
+    decoder stages (k = 24), and the contrast forward on its thresholds at
+    the decoder widths and at C = 1 (as ``ambiguity_head`` calls it): the
+    thresholds and counts identical, the sums within 1e-5·(1+max|ref|);
+    the vote at stages 1-3 (k = 4, 16, 64, 13 classes), labels identical;
+    the aggregation forward and backward at each of PointNeXt-XL's 19
+    separable aggregations (a set abstraction and its stage's InvResMLP
+    blocks, ball query r from the cfg, K = 32, mixed ``sgn``): ext
+    identical, su and sq within 1e-5·(1+max), du (float atomics) within
+    1e-5·(1+max|du|).  Times and bounds summed per train step; the
+    backward's library yardstick is ``index_add_`` of its (B·M·K, C) rows."""
+    from amcontrast3d_tpu_torch.models.pointnext import to_full_list
+    from amcontrast3d_tpu_torch.tools.profile_train import voronoi_labels
+
+    radii = to_full_list(0.1, [1, 4, 7, 4, 4], [1, 4, 4, 4, 4], 2)
+    results, timed, note = tally(APPROX_KERNELS)
+
+    def randn(*shape):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(dev)
+
+    for cloud, pts in clouds(rng).items():
+        stages = [torch.from_numpy(pts).to(dev)]
+        for _ in range(4):
+            prev = stages[-1]
+            idx = ops.furthest_point_sample(prev, prev.shape[1] // 4)
+            stages.append(ops.gather_points(prev, idx).contiguous())
+        lab0 = torch.from_numpy(voronoi_labels(rng, pts).astype(np.int32)).to(dev)
+        p0 = stages[0]
+        for s in range(1, 4):                  # the vote at stages 1-3
+            q, k = stages[s], 4 ** s
+            m = q.shape[1]
+            note("label_vote", check_equal(
+                f"vote {cloud} stage {s}", ops.label_vote(p0, lab0, q, k, NUM_CLASSES),
+                ops.label_vote_plain(p0, lab0, q, k, NUM_CLASSES)))
+            timed("label_vote", cloud,
+                  lambda: ops.label_vote(p0, lab0, q, k, NUM_CLASSES),
+                  lambda: ops.label_vote_plain(p0, lab0, q, k, NUM_CLASSES),
+                  B * (N * 16 + m * 16), B * m * N * PAIR_OPS)
+        for s in range(4):                     # the contrast stages
+            ps = stages[s]
+            n = ps.shape[1]
+            thr = ops.contrast_select(ps, KNN_K)
+            note("contrast_select", check_equal(
+                f"selection {cloud} stage {s}", thr,
+                ops.contrast_select_plain(ps, KNN_K)))
+            timed("contrast_select", cloud, lambda: ops.contrast_select(ps, KNN_K),
+                  lambda: ops.contrast_select_plain(ps, KNN_K),
+                  B * n * 16, B * n * n * PAIR_OPS)
+            lab = (lab0 if s == 0 else
+                   ops.label_vote(p0, lab0, ps, 4 ** s, NUM_CLASSES)).float()
+            f = torch.nn.functional.normalize(randn(B, n, UP_CHANNELS[s]), dim=-1)
+            for feats, tinv in ((f, 1 / 0.3), (torch.zeros(B, n, 1, device=dev), 1.0)):
+                args = (ps, feats, lab, thr, tinv, False, False, True)
+                got = ops.contrast_forward(*args)
+                want = ops.contrast_forward_plain(*args)
+                name = f"contrast on the selection {cloud} stage {s} C={feats.shape[-1]}"
+                check_equal(f"{name} counts", got[..., 4:6], want[..., 4:6])
+                check_equal(f"{name} threshold", got[..., 8], want[..., 8])
+                for col in (0, 1, 6, 7):
+                    check_close(f"{name} column {col}", got[..., col],
+                                want[..., col], 1e-5)
+        for s in range(1, 5):                  # the 19 separable aggregations
+            sup, q, c = stages[s - 1], stages[s], XL_WIDTHS[s - 1]
+            m = q.shape[1]
+            groups = [(sup, ops.ball_query(sup, q, radii[s][0], AGG_K))]
+            groups += [(q, ops.ball_query(q, q, radii[s][1], AGG_K))] * XL_BLOCKS[s - 1]
+            gamma = randn(B * m * AGG_K, c)
+            for j, (support, idx) in enumerate(groups):
+                ns = support.shape[1]
+                u, qp = randn(B, ns, c), randn(B, m, c)
+                sgn = torch.where(randn(c) < 0, -1.0, 1.0)
+                g3 = [randn(B, m, c) for _ in range(3)]
+                name = f"aggregation {cloud} stage {s} #{j} ({m}, {ns}, {AGG_K}, {c})"
+                ext, su, sq = ops.aggregate_forward(u, idx, sgn, qp)
+                want = ops.aggregate_forward_plain(u, idx, sgn, qp)
+                err = check_equal(f"{name} ext", ext, want[0])
+                err = max(err, check_close(f"{name} su", su, want[1], 1e-5),
+                          check_close(f"{name} sq", sq, want[2], 1e-5))
+                note("aggregate_forward", err)
+                du = ops.aggregate_backward(u, idx, sgn, qp, ext, *g3)
+                note("aggregate_backward", check_close(
+                    f"{name} du", du,
+                    ops.aggregate_backward_plain(u, idx, sgn, qp, ext, *g3), 1e-5))
+                io = B * (ns * c * 4 + m * AGG_K * 4 + c * 4)
+                slots = B * m * AGG_K * c
+                timed("aggregate_forward", cloud,
+                      lambda: ops.aggregate_forward(u, idx, sgn, qp),
+                      lambda: ops.aggregate_forward_plain(u, idx, sgn, qp),
+                      io + B * m * c * 16, slots * 6)
+                rows = (idx.long() + ns * torch.arange(B, device=dev)[:, None, None]
+                        ).reshape(-1)
+                timed("aggregate_backward", cloud,
+                      lambda: ops.aggregate_backward(u, idx, sgn, qp, ext, *g3),
+                      lambda: ops.aggregate_backward_plain(u, idx, sgn, qp, ext, *g3),
+                      io + B * m * c * 20 + B * ns * c * 4, slots * 12,
+                      lambda: torch.zeros(B * ns, c, device=dev).index_add_(
+                          0, rows, gamma))
+            del gamma
+    return finish_kernels(results, "uniform and clustered", tag)
+
+
 def wrappers(ops) -> dict:
     return {"fps": ops.furthest_point_sample, "ball_query": ops.ball_query,
             "three_interpolation": ops.three_interpolation,
@@ -957,7 +1112,26 @@ def wrappers(ops) -> dict:
             "three_interpolation_backward_big":
                 ops.three_interpolation_backward_big,
             "fps_pruned": ops.furthest_point_sample_pruned,
-            "three_interpolation_big": ops.three_interpolation_big}
+            "three_interpolation_big": ops.three_interpolation_big,
+            "contrast_select": ops.contrast_select, "label_vote": ops.label_vote,
+            "aggregate_forward": ops.aggregate_forward,
+            "aggregate_backward": ops.aggregate_backward}
+
+
+@contextlib.contextmanager
+def configuration(knn_backend: str = "auto", agg_fused: str = "off"):
+    """The process-wide switches of the approx configuration and the fused
+    aggregation, set for a phase and back at their defaults after it."""
+    from amcontrast3d_tpu_torch.ops.aggregate import set_agg_fused
+    from amcontrast3d_tpu_torch.ops.knn import set_knn_backend
+
+    set_knn_backend(knn_backend)
+    set_agg_fused(agg_fused)
+    try:
+        yield
+    finally:
+        set_knn_backend("auto")
+        set_agg_fused("off")
 
 
 def reset_counts(ops) -> dict:
@@ -1026,11 +1200,12 @@ def forward_vs_plain(model, pos, x, kind: str, path: str) -> None:
               f"positions identical, logits max abs err {err} (tol {tol})")
 
 
-def eval_path(ops, cfg, model, dev, rng, tag, kind: str) -> dict:
-    """The eval main path of ``kind``; returns the kernels' launches in it."""
+def eval_path(ops, cfg, model, dev, rng, tag, kind: str, path: str = None) -> dict:
+    """The eval main path of ``kind`` (``path`` names its launch table);
+    returns the kernels' launches in it."""
     from amcontrast3d_tpu_torch.engine import make_eval_step
 
-    path = f"{kind} eval"
+    path = path or f"{kind} eval"
     model.eval()
     step = make_eval_step(model, cfg.num_classes)
     batches = [{"pos": torch.from_numpy(rng.rand(B, N, 3).astype(np.float32) * 4),
@@ -1058,6 +1233,7 @@ def eval_path(ops, cfg, model, dev, rng, tag, kind: str) -> dict:
 
     forward_vs_plain(model, batches[0]["pos"], batches[0]["x"], kind, path)
     med = statistics.median(forward_ms)
+    STEP_TIMES[path] = (med, None)
     print(f"{path} forward B={B}x{N}: per-batch ms {forward_ms}; median "
           f"{med:.3f} ms = {B * N / med * 1e3:.1f} points/s  [{tag}]")
     return launches
@@ -1163,11 +1339,12 @@ def make_step(cfg, model, optimizer, dev, seed, kind: str):
         torch.Generator(dev).manual_seed(seed))
 
 
-def train_path(ops, cfg, model, dev, rng, tag, kind: str) -> dict:
-    """The train main path of ``kind``; returns the kernels' launches in it."""
+def train_path(ops, cfg, model, dev, rng, tag, kind: str, path: str = None) -> dict:
+    """The train main path of ``kind`` (``path`` names its launch table);
+    returns the kernels' launches in it."""
     from amcontrast3d_tpu_torch.optim import build_optimizer_from_cfg
 
-    path = f"{kind} train"
+    path = path or f"{kind} train"
     terms = ("loss",) if kind == "aa" else (
         "loss", "loss_seg", "loss_ce", "loss_contrast", "loss_reg")
     optimizer = build_optimizer_from_cfg(cfg.optimizer, model, lr=cfg.lr)
@@ -1207,6 +1384,7 @@ def train_path(ops, cfg, model, dev, rng, tag, kind: str) -> dict:
                              f"{sorted(set(still) - exempt)}")
     peak = torch.cuda.max_memory_allocated() / 2**30
     med = statistics.median(step_ms)
+    STEP_TIMES[path] = (med, peak)
     print(f"{path} main path: {len(batches)} steps at B={B}x{N}, losses "
           f"{losses}, {len(start) - len(still)} of {len(start)} parameter "
           f"tensors changed (unchanged, each a bias ahead of a BatchNorm: "
@@ -1216,11 +1394,12 @@ def train_path(ops, cfg, model, dev, rng, tag, kind: str) -> dict:
     print(f"{path} step B={B}x{N}: per-step ms {step_ms}; median {med:.3f} ms "
           f"= {B * N / med * 1e3:.1f} train points/s; peak "
           f"{peak:.3f} GiB  [{tag}]")
-    train_vs_plain(cfg, model, optimizer, dev, batches[0], tag, kind)
+    train_vs_plain(cfg, model, optimizer, dev, batches[0], tag, kind, path)
     return launches
 
 
-def train_vs_plain(cfg, model, optimizer, dev, batch, tag, kind: str):
+def train_vs_plain(cfg, model, optimizer, dev, batch, tag, kind: str,
+                   path: str = None):
     """One step from one state with the kernels and one with the twins."""
     from amcontrast3d_tpu_torch.ops import refine as ops_refine
     from amcontrast3d_tpu_torch.optim import build_optimizer_from_cfg
@@ -1285,7 +1464,7 @@ def train_vs_plain(cfg, model, optimizer, dev, batch, tag, kind: str):
     if not rel_grad <= GRAD_TOL:
         raise AssertionError(f"train gradients vs plain: relative L2 "
                              f"{rel_grad} > {GRAD_TOL}")
-    print(f"{kind} train step vs plain ops on the card: {note}stage positions "
+    print(f"{path or kind + ' train'} step vs plain ops on the card: {note}stage positions "
           f"identical, loss {k['loss']} vs {p['loss']} (rel {rel_loss:.3e}), "
           f"gradients relative L2 {rel_grad:.3e} over all parameters (worst "
           f"tensor {worst:.3e}); step {k['ms']:.1f} ms vs plain "
@@ -1728,6 +1907,7 @@ def main() -> None:
     kernels.update(scene_kernel_phases(ops, dev, rng, tag))
     kernels.update(scannet_kernel_phases(ops, dev, rng, tag))
     kernels.update(rung_kernel_phases(ops, dev, rng, tag))
+    kernels.update(approx_kernel_phases(ops, dev, rng, tag))
 
     by_path = {}
     for kind in ("aa", "mm"):
@@ -1738,6 +1918,21 @@ def main() -> None:
         model = model.to(dev)
         by_path[f"{kind} eval"] = eval_path(ops, cfg, model, dev, rng, tag, kind)
         by_path[f"{kind} train"] = train_path(ops, cfg, model, dev, rng, tag, kind)
+        # the approx configuration, then (AA) with the fused aggregation
+        with configuration(knn_backend="approx"):
+            path = f"{kind} train approx"
+            by_path[path] = train_path(ops, cfg, model, dev, rng, tag, kind, path)
+        if kind == "aa":
+            with configuration(knn_backend="approx", agg_fused="on"):
+                path = "aa train approx fused"
+                by_path[path] = train_path(ops, cfg, model, dev, rng, tag, kind, path)
+            with configuration(agg_fused="on"):
+                by_path["aa eval fused"] = eval_path(ops, cfg, model, dev, rng,
+                                                     tag, kind, "aa eval fused")
+        print(f"{kind} steps in this call, median ms (peak GiB): " + ", ".join(
+            f"{p} {ms:.3f}" + (f" ({peak:.3f})" if peak is not None else "")
+            for p, (ms, peak) in STEP_TIMES.items() if p.startswith(kind))
+            + f"  [{tag}]")
         del model
         torch.cuda.empty_cache()
     by_path["base eval"] = base_path(ops, dev, rng, tag)

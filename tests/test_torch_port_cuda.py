@@ -652,3 +652,191 @@ def test_knn_beyond_128_neighbours(cuda_device, n):
         want_i, want_d = ops.knn_plain(tiny, tiny, 300)
         _equal(got_i, want_i)
         _equal(got_d, want_d)
+
+
+# ---- the approx configuration and the fused aggregation ----------------------------
+
+def _grid_cloud(rng, b, n, cells=32):
+    """Points on a 1/cells grid in [0, 1)³: ties in distance everywhere."""
+    return (rng.randint(0, cells, (b, n, 3)) / cells).astype(np.float32)
+
+
+def _clouds_for_selection(rng, n):
+    return {"uniform": _cloud(rng, 2, n, False), "clustered": _cloud(rng, 2, n, True),
+            "grid": _grid_cloud(rng, 2, n)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [4, 64, 128, 129, 256])
+def test_contrast_select_matches_plain(cuda_device, k):
+    """The k-th distinct d² on a uniform, a clustered and a gridded cloud
+    (ties), k below, at and above one pass of 128: identical to the twin;
+    the launch count moves by one."""
+    rng = np.random.RandomState(k)
+    for name, pts in _clouds_for_selection(rng, 3000).items():
+        p = torch.from_numpy(pts).to(cuda_device)
+        before = ops.contrast_select.launches
+        got = ops.contrast_select(p, k)
+        assert ops.contrast_select.launches == before + 1
+        _equal(got, ops.contrast_select_plain(p, k))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,k", [(1, 1), (5, 12), (40, 300), (33, 24)])
+def test_contrast_select_few_points(cuda_device, n, k):
+    """N < k distinct values (3e38·(1+1e-6)) and ragged blocks."""
+    rng = np.random.RandomState(n)
+    p = torch.from_numpy(_grid_cloud(rng, 3, n, 4)).to(cuda_device)
+    _equal(ops.contrast_select(p, k), ops.contrast_select_plain(p, k))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,root,need_s", [(1, False, False), (64, True, True),
+                                           (200, False, True)])
+def test_selfk_reductions_match_plain(cuda_device, c, root, need_s):
+    """``contrast_reductions_selfk`` through the selection and the three
+    contrast kernels against the plain twins, C = 1 as ``ambiguity_head``
+    calls it: threshold and counts identical, sums within 1e-5·(1+max),
+    df within 1e-4·(1+max)."""
+    rng = np.random.RandomState(c)
+    p = torch.from_numpy(_cloud(rng, 2, 2000, True)).to(cuda_device)
+    f = torch.nn.functional.normalize(
+        torch.from_numpy(rng.randn(2, 2000, c).astype(np.float32)), dim=-1
+    ).to(cuda_device)
+    lab = torch.from_numpy(rng.randint(0, 5, (2, 2000)).astype(np.float32)).to(cuda_device)
+    g = torch.from_numpy(rng.randn(2, 2000, 9).astype(np.float32)).to(cuda_device)
+    outs, grads = [], []
+    for fn in (ops.contrast_reductions_selfk, ops.contrast_reductions_selfk_plain):
+        ft = f.clone().requires_grad_()
+        out = fn(p, ft, lab, 24, 1 / 0.3, root, need_s, True)
+        out.backward(g)
+        outs.append(out.detach())
+        grads.append(ft.grad)
+    _equal(outs[0][..., 4:6], outs[1][..., 4:6])
+    _equal(outs[0][..., 8], outs[1][..., 8])
+    for col in (0, 1, 2, 3, 6, 7):
+        _close(outs[0][..., col], outs[1][..., col], 1e-5)
+    _close(grads[0], grads[1], 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [4, 64, 128, 129, 256])
+def test_label_vote_matches_plain(cuda_device, k):
+    """The vote at stage shapes (queries a quarter of the support) on the
+    three clouds, 13 and 50 classes: labels identical to the twin."""
+    rng = np.random.RandomState(k + 1)
+    for name, pts in _clouds_for_selection(rng, 4000).items():
+        sup = torch.from_numpy(pts).to(cuda_device)
+        q = sup[:, ::4].contiguous()
+        for ncls in (13, 50):
+            lab = torch.from_numpy(rng.randint(0, ncls, (2, 4000)).astype(np.int32)
+                                   ).to(cuda_device)
+            before = ops.label_vote.launches
+            got = ops.label_vote(sup, lab, q, k, ncls)
+            assert ops.label_vote.launches == before + 1
+            _equal(got, ops.label_vote_plain(sup, lab, q, k, ncls))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,m,k,ncls", [(5, 3, 12, 4), (1030, 9, 16, 2000),
+                                        (300, 300, 64, 1)])
+def test_label_vote_small_ragged_and_wide(cuda_device, n, m, k, ncls):
+    """Fewer distinct values than k, a ragged block, 2000 classes (the
+    histograms need more than 48 KB of shared memory) and one class."""
+    rng = np.random.RandomState(n)
+    sup = torch.from_numpy(_grid_cloud(rng, 2, n, 8)).to(cuda_device)
+    q = torch.from_numpy(_grid_cloud(rng, 2, m, 8) + np.float32(1 / 16)).to(cuda_device)
+    lab = torch.from_numpy(rng.randint(0, ncls, (2, n)).astype(np.int32)).to(cuda_device)
+    _equal(ops.label_vote(sup, lab, q, k, ncls),
+           ops.label_vote_plain(sup, lab, q, k, ncls))
+
+
+def _aggregate_case(rng, dev, n, m, c, r, sign):
+    sup = torch.from_numpy(_cloud(rng, 2, n, True)).to(dev)
+    q = sup[:, ::max(1, n // m)][:, :m].contiguous()
+    idx = ops.ball_query(sup, q, r, 32)
+    u = torch.from_numpy(rng.randn(2, n, c).astype(np.float32)).to(dev)
+    sgn = {"pos": np.ones(c), "neg": -np.ones(c),
+           "mixed": np.where(rng.rand(c) < 0.5, -1.0, 1.0)}[sign]
+    qp = torch.from_numpy(rng.randn(2, m, c).astype(np.float32)).to(dev)
+    return u, idx, torch.from_numpy(sgn.astype(np.float32)).to(dev), qp
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,sign,r", [(1, "neg", 0.05), (13, "mixed", 0.02),
+                                      (64, "pos", 0.1), (1024, "mixed", 0.05)])
+def test_aggregate_kernels_match_plain(cuda_device, c, sign, r):
+    """The fused aggregation's forward (ext identical, su and sq within
+    1e-5·(1+max)) and backward (float atomics: du within 1e-5·(1+max|du|))
+    against the twins, with the repeat padding of the ball query (a small
+    radius leaves balls short of 32), C = 1, 13 (no multiple of 32), 64
+    and 1024, positive, negative and mixed ``sgn``; and the eval mode."""
+    rng = np.random.RandomState(c)
+    u, idx, sgn, qp = _aggregate_case(rng, cuda_device, 3000, 750, c, r, sign)
+    assert (idx[..., -1] == idx[..., 0]).any()
+    got = ops.aggregate_forward(u, idx, sgn, qp)
+    want = ops.aggregate_forward_plain(u, idx, sgn, qp)
+    _equal(got[0], want[0])
+    _close(got[1], want[1], 1e-5)
+    _close(got[2], want[2], 1e-5)
+    ext_eval, su, sq = ops.aggregate_forward(u, idx, sgn, need_stats=False)
+    assert su is None and sq is None
+    _equal(ext_eval, want[0])
+    gs = [torch.from_numpy(rng.randn(2, 750, c).astype(np.float32)).to(cuda_device)
+          for _ in range(3)]
+    before = ops.aggregate_backward.launches
+    du = ops.aggregate_backward(u, idx, sgn, qp, got[0], *gs)
+    assert ops.aggregate_backward.launches == before + 1
+    _close(du, ops.aggregate_backward_plain(u, idx, sgn, qp, got[0], *gs), 1e-5)
+    _close(ops.aggregate_backward(u, idx, sgn, None, got[0], gs[0]),
+           ops.aggregate_backward_plain(u, idx, sgn, None, got[0], gs[0]), 1e-5)
+
+
+@pytest.mark.cuda
+def test_grouped_slot_reduce_autograd_on_the_card(cuda_device):
+    """``grouped_slot_reduce`` through both kernels against the plain
+    entry: outputs and the gradients in u and qp within 1e-5·(1+max)."""
+    rng = np.random.RandomState(5)
+    u, idx, sgn, qp = _aggregate_case(rng, cuda_device, 2000, 500, 96, 0.05, "mixed")
+    gs = [torch.from_numpy(rng.randn(2, 500, 96).astype(np.float32)).to(cuda_device)
+          for _ in range(3)]
+    res = []
+    for fn in (ops.grouped_slot_reduce, ops.grouped_slot_reduce_plain):
+        ut, qt = u.clone().requires_grad_(), qp.clone().requires_grad_()
+        outs = fn(ut, idx, sgn, qp=qt)
+        sum((o * g).sum() for o, g in zip(outs, gs)).backward()
+        res.append([o.detach() for o in outs] + [ut.grad, qt.grad])
+    for a, b in zip(*res):
+        _close(a, b, 1e-5)
+
+
+@pytest.mark.cuda
+def test_new_wrappers_raise_on_tensors_they_cannot_take(cuda_device):
+    """A CUDA tensor of the wrong dtype or layout raises; nothing falls back
+    to the twin."""
+    rng = np.random.RandomState(6)
+    p = torch.from_numpy(_cloud(rng, 2, 100, False)).to(cuda_device)
+    wide = torch.zeros(2, 100, 4, device=cuda_device)
+    with pytest.raises(ValueError):
+        ops.contrast_select(p.double(), 4)
+    with pytest.raises(ValueError):
+        ops.contrast_select(wide[..., :3], 4)                 # not contiguous
+    lab = torch.zeros(2, 100, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError):
+        ops.label_vote(p, lab.long(), p, 4, 3)
+    with pytest.raises(ValueError):
+        ops.label_vote(wide[..., :3], lab, p, 4, 3)
+    with pytest.raises(ValueError):
+        ops.label_vote(p, lab, p, 4, ops.contrast.VOTE_MAX_CLASSES + 1)
+    u, idx, sgn, qp = _aggregate_case(rng, cuda_device, 100, 50, 8, 0.5, "pos")
+    with pytest.raises(ValueError):
+        ops.aggregate_forward(u, idx.long(), sgn, qp)
+    with pytest.raises(ValueError):
+        ops.aggregate_forward(u.double(), idx, sgn, qp)
+    with pytest.raises(ValueError):
+        ops.aggregate_forward(u.transpose(0, 1).contiguous().transpose(0, 1),
+                              idx, sgn, qp)
+    ext = ops.aggregate_forward(u, idx, sgn, qp)[0]
+    strided = ext.transpose(0, 1).contiguous().transpose(0, 1)
+    with pytest.raises(ValueError):
+        ops.aggregate_backward(u, idx, sgn, qp, ext, strided)

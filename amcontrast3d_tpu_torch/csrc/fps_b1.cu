@@ -35,50 +35,31 @@
 // every block polls tagged records of all the others takes twice as long
 // at 132 blocks (PERF.md).
 //
-// The cluster kernel (a cloud of at most 16 x 512 x 20 = 163840 points:
-// every voxel-rank subcloud of a room up to the 155648 bucket) leaves
-// device memory out of the loop: one thread-block cluster of 16 blocks (the
-// non-portable size; 8 is the portable one) of 512 threads.  A thread
-// keeps its points (up to 20: x, y, z, min-distance) in registers, since
-// on 16 multiprocessors a sweep through shared memory is bound by its
-// bandwidth (16 bytes a point and pick); shared memory holds a copy of the
-// positions for looking up the winner's.  16 lanes of a block's first warp
-// send the block's key and its winner's position into a slot of every
-// block's shared memory with st.async, which counts the bytes in on the
-// receiving block's mbarrier; a block waits on its own mbarrier only (one
-// trip through the cluster's network a pick, where cluster.sync() takes
-// three times as long, PERF.md), and every warp then takes the largest of
-// the 16 keys its block holds.  Slots and mbarriers are double-buffered by
-// the pick's parity: a block can send pick j + 2 only after it has every
-// block's pick j + 1, which each block sends after its reads of pick j.
-// ops/fps.py asks amc3d_fps_b1_clusters whether the card can hold such a
-// cluster and sends the cloud to the grid kernel where it cannot.
-// The cluster kernel also takes a batch, one cluster a cloud (the clouds
-// share nothing, so clusters beyond those the card holds at once simply run
-// later): that is where a batch goes whose clouds are too large for the
-// shared-memory min-distance buffer of fps.cu (B > 1, N > 57344: the first
-// stage of the ScanNet recipe, 2 x 64000 -> 16000).
-#include <cooperative_groups.h>
+// The cluster path (a cloud of at most 16 x 512 x 20 = 163840 points: every
+// voxel-rank subcloud of a room up to the 155648 bucket) leaves device
+// memory out of the loop: the register-resident kernel of fps_cluster.cuh,
+// shared with the batched kernel of fps.cu, with one cluster of 16 blocks
+// (the non-portable size).  On 16 multiprocessors a sweep through shared
+// memory would be bound by its bandwidth (16 bytes a point and pick), so a
+// thread keeps its points in registers; the blocks exchange their winners
+// with st.async and mbarriers, one trip through the cluster's network a pick
+// (cluster.sync() takes three times as long, PERF.md).  ops/fps.py asks
+// amc3d_fps_clusters whether the card can hold such a cluster and sends the
+// cloud to the grid kernel where it cannot.
 #include <cuda_runtime.h>
 
 #include "cluster.cuh"
+#include "fps_cluster.cuh"
 
 namespace {
 
-namespace cg = cooperative_groups;
 using namespace amc3d;
 
 constexpr int kThreads = 512;  // the grid kernel's block
 constexpr int kWarps = kThreads / 32;
-constexpr int kClusterBlocks = 16;
-constexpr int kClusterThreads = 512;
-constexpr int kClusterWarps = kClusterThreads / 32;
-constexpr int kMaxThreadPoints = 20;  // of the cluster kernel, in registers
-// what a block sends to each block a pick: a key and a float4
-constexpr unsigned kWinnerBytes = sizeof(unsigned long long) + sizeof(float4);
+constexpr int kClusterBlocks = 16;  // the cluster path's
 constexpr int kMaxBlockPoints = 14336;  // 16 B each: 224 KB of shared memory
 constexpr int kMinBlockPoints = 1024;
-constexpr unsigned kFull = 0xffffffffu;
 
 __global__ void __launch_bounds__(kThreads)
 fps_b1_kernel(const float* __restrict__ xyz, int n, int npoint, int per_block,
@@ -143,148 +124,6 @@ fps_b1_kernel(const float* __restrict__ xyz, int n, int npoint, int per_block,
   }
 }
 
-// PPT: points a thread keeps; thread t of a block holds the points
-// lo + t + 512 r of the cloud, r < PPT, so within a thread r runs in index
-// order and the first maximum met is the one with the lowest index.
-template <int PPT>
-__global__ void __launch_bounds__(kClusterThreads, 1)
-fps_b1_cluster_kernel(const float* __restrict__ xyz, int n, int npoint,
-                      int per_block, int* __restrict__ out) {
-  extern __shared__ float spos[];  // x, y, z of the block's points
-  // one cluster a cloud: cluster c of the grid samples cloud c
-  const size_t cloud = blockIdx.x / kClusterBlocks;
-  xyz += cloud * n * 3;
-  out += cloud * npoint;
-  __shared__ Key warp_key[kClusterWarps];
-  // per parity of the pick, the 16 blocks' winners: key, and x, y, z
-  __shared__ __align__(16) Key win_key[2][kClusterBlocks];
-  __shared__ __align__(16) float4 win_pos[2][kClusterBlocks];
-  __shared__ __align__(8) unsigned long long arrived[2];  // mbarriers
-
-  cg::cluster_group cluster = cg::this_cluster();
-  const int rank = static_cast<int>(cluster.block_rank());
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int lo = min(n, rank * per_block);
-  const int cnt = min(n, lo + per_block) - lo;
-  float px[PPT], py[PPT], pz[PPT], mind[PPT];
-#pragma unroll
-  for (int r = 0; r < PPT; ++r) {
-    const int i = tid + kClusterThreads * r;
-    px[r] = py[r] = pz[r] = 0.f;
-    mind[r] = -1.f;  // no point: below every min-distance, never a maximum
-    if (i < cnt) {
-      const float* p = xyz + static_cast<size_t>(lo + i) * 3;
-      px[r] = spos[3 * i] = p[0];
-      py[r] = spos[3 * i + 1] = p[1];
-      pz[r] = spos[3 * i + 2] = p[2];
-      mind[r] = 1e10f;
-    }
-  }
-  float lx = xyz[0], ly = xyz[1], lz = xyz[2];
-  if (rank == 0 && tid == 0) out[0] = 0;
-  if (tid == 0) {
-    mbarrier_init(shared_address(&arrived[0]));
-    mbarrier_init(shared_address(&arrived[1]));
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  }
-  // every block runs, with its mbarriers set up, before any block sends
-  cluster.sync();
-
-  for (int j = 1; j < npoint; ++j) {
-    const int slot = j & 1;
-    const unsigned mbarrier = shared_address(&arrived[slot]);
-    if (tid == 0) mbarrier_expect(mbarrier, kClusterBlocks * kWinnerBytes);
-    float best = -1.f;
-    int best_r = 0;
-#pragma unroll
-    for (int r = 0; r < PPT; ++r) {
-      const float dx = __fsub_rn(px[r], lx);
-      const float dy = __fsub_rn(py[r], ly);
-      const float dz = __fsub_rn(pz[r], lz);
-      const float d = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
-                                __fmul_rn(dz, dz));
-      mind[r] = fminf(mind[r], d);
-      if (mind[r] > best) {
-        best = mind[r];
-        best_r = r;
-      }
-    }
-    Key key = best >= 0.f
-                  ? make_key(best, lo + tid + kClusterThreads * best_r) : 0;
-    key = warp_max(key);
-    if (lane == 0) warp_key[warp] = key;
-    __syncthreads();
-    if (warp == 0) {
-      key = warp_max(lane < kClusterWarps ? warp_key[lane] : 0);
-      if (lane < kClusterBlocks) {  // lane r sends the winner to block r
-        float4 pos = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (key != 0) {
-          const float* p = spos + 3 * (key_index(key) - lo);
-          pos = make_float4(p[0], p[1], p[2], 0.f);
-        }
-        const unsigned there = address_in_block(mbarrier, lane);
-        store_async(address_in_block(shared_address(&win_key[slot][rank]), lane),
-                    key, there);
-        store_async(address_in_block(shared_address(&win_pos[slot][rank]), lane),
-                    pos, there);
-      }
-    }
-    // the slot's mbarrier is in its ((j - 1) / 2)-th phase
-    mbarrier_wait(mbarrier, ((j - 1) >> 1) & 1);
-    // every warp for itself: no block-wide barrier before the next sweep
-    const Key mine = lane < kClusterBlocks ? win_key[slot][lane] : 0;
-    const Key top = warp_max(mine);
-    // keys of points differ in their index bits: one lane holds the winner
-    const int src = __ffs(__ballot_sync(kFull, mine == top)) - 1;
-    const float4 pos = win_pos[slot][src];
-    lx = pos.x;
-    ly = pos.y;
-    lz = pos.z;
-    if (rank == 0 && tid == 0) out[j] = key_index(top);
-  }
-  cluster.sync();  // no block leaves while stores to it may be on their way
-}
-
-// The cluster kernel for `per_block` points a block (a thread's points in
-// steps of 4), or null beyond 512 x 20.
-using ClusterKernel = void (*)(const float*, int, int, int, int*);
-
-ClusterKernel cluster_kernel(int per_block) {
-  switch ((per_block + kClusterThreads * 4 - 1) / (kClusterThreads * 4)) {
-    case 0:
-    case 1: return fps_b1_cluster_kernel<4>;
-    case 2: return fps_b1_cluster_kernel<8>;
-    case 3: return fps_b1_cluster_kernel<12>;
-    case 4: return fps_b1_cluster_kernel<16>;
-    case 5: return fps_b1_cluster_kernel<kMaxThreadPoints>;
-    default: return nullptr;
-  }
-}
-
-cudaError_t cluster_config(ClusterKernel kernel, int per_block, int clouds,
-                           cudaStream_t stream, cudaLaunchConfig_t* config,
-                           cudaLaunchAttribute* attribute) {
-  const int smem = per_block * 3 * static_cast<int>(sizeof(float));
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  if (err != cudaSuccess) return err;
-  attribute->id = cudaLaunchAttributeClusterDimension;
-  attribute->val.clusterDim.x = kClusterBlocks;
-  attribute->val.clusterDim.y = 1;
-  attribute->val.clusterDim.z = 1;
-  *config = cudaLaunchConfig_t{};
-  config->gridDim = dim3(kClusterBlocks * clouds);
-  config->blockDim = dim3(kClusterThreads);
-  config->dynamicSmemBytes = smem;
-  config->stream = stream;
-  config->attrs = attribute;
-  config->numAttrs = 1;
-  return cudaSuccess;
-}
-
 }  // namespace
 
 // xyz (n, 3) float32, one cloud -> out (npoint) int32, through the grid
@@ -320,42 +159,12 @@ extern "C" int amc3d_fps_b1(const void* xyz, void* out, void* best,
   return static_cast<int>(cudaGetLastError());
 }
 
-// xyz (b, n, 3) float32 -> out (b, npoint) int32 through the cluster kernel,
-// one cluster a cloud; n <= 16 x 512 x 20, else cudaErrorInvalidValue.
-extern "C" int amc3d_fps_b1_cluster(const void* xyz, void* out, int b, int n,
+// xyz (n, 3) float32, one cloud -> out (npoint) int32 through the cluster
+// kernel of fps_cluster.cuh with 16 blocks; n <= 16 x 512 x 20, else
+// cudaErrorInvalidValue.
+extern "C" int amc3d_fps_b1_cluster(const void* xyz, void* out, int n,
                                     int npoint, void* stream) {
-  if (b < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const int per_block = (n + kClusterBlocks - 1) / kClusterBlocks;
-  const ClusterKernel kernel = cluster_kernel(per_block);
-  if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  cudaLaunchConfig_t config;
-  cudaLaunchAttribute attribute;
-  cudaError_t err = cluster_config(kernel, per_block, b,
-                                   static_cast<cudaStream_t>(stream), &config,
-                                   &attribute);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaLaunchKernelEx(&config, kernel, static_cast<const float*>(xyz), n,
-                           npoint, per_block, static_cast<int*>(out));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// How many of the cluster kernel's clusters the current device can hold at
-// once with the most points a block takes (0: none, every cloud goes to the
-// grid kernel); a negative number is minus a CUDA error code.
-extern "C" int amc3d_fps_b1_clusters() {
-  const int per_block = kClusterThreads * kMaxThreadPoints;
-  const ClusterKernel kernel = cluster_kernel(per_block);
-  cudaLaunchConfig_t config;
-  cudaLaunchAttribute attribute;
-  cudaError_t err = cluster_config(kernel, per_block, 1, nullptr, &config,
-                                   &attribute);
-  if (err != cudaSuccess) return -static_cast<int>(err);
-  int clusters = 0;
-  err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &config);
-  if (err != cudaSuccess) {
-    cudaGetLastError();  // an unsupported cluster size is an answer: none
-    return 0;
-  }
-  return clusters;
+  return static_cast<int>(fps_cluster::launch<kClusterBlocks>(
+      static_cast<const float*>(xyz), static_cast<int*>(out), 1, n, npoint,
+      static_cast<cudaStream_t>(stream)));
 }

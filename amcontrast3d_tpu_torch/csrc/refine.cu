@@ -33,13 +33,19 @@
 // re-derived 0/1 weights with g.  Here the saved selection makes it a
 // scatter: df[sel[i, t]] += scale * g[i] over the slots t with
 // sel >= 0 (scale 1 for MIN, 1 / (k - 1) for MIN_ALL0).  Bound: reading g
-// and writing df once (bytes); float atomics (RED.ADD.F32) over
-// C-contiguous rows, so the summation order varies between runs and df
-// agrees with the twin's index_add_ to rounding, not bit for bit.  No
+// and sel and writing df once (bytes).  Design: a group of lanes sized to C
+// takes a point's row, reads its sel entries once and broadcasts them by
+// shuffles (MIN_ALL0's 11 slots loop in registers), loads g as float4 and
+// adds into df with red.global.add.v4.f32 (sm_90: one 16-byte reduction
+// where four scalar atomics went before); rows with C % 4 != 0 take the
+// scalar form.  The summation order of the atomics varies between runs, so
+// df agrees with the twin's index_add_ to rounding, not bit for bit.  No
 // gradient reaches the positions or the ambiguity.
 #include "knn_topk.cuh"
 
 #include <climits>
+#include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -133,28 +139,89 @@ refine_cross_kernel(const float* __restrict__ p, const float* __restrict__ f,
   }
 }
 
-constexpr int kBwdThreads = 128;
-constexpr int kBwdPoints = 32;  // points per backward block
+constexpr int kBwdThreads = 256;
 
+// df[0..3] += v with one vector reduction (PTX for sm_90: a 16-byte
+// red.global, a quarter of the atomic operations of four scalar ones)
+__device__ __forceinline__ void red_add(float* address, float4 v) {
+  asm volatile("red.global.add.v4.f32 [%0], {%1, %2, %3, %4};"
+               ::"l"(address), "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w)
+               : "memory");
+}
+
+__device__ __forceinline__ void red_add(float* address, float v) {
+  atomicAdd(address, v);
+}
+
+__device__ __forceinline__ float4 load_scaled(const float* p, float s, float4) {
+  const float4 v = __ldg(reinterpret_cast<const float4*>(p));
+  return make_float4(__fmul_rn(v.x, s), __fmul_rn(v.y, s), __fmul_rn(v.z, s),
+                     __fmul_rn(v.w, s));
+}
+
+__device__ __forceinline__ float load_scaled(const float* p, float s, float) {
+  return __fmul_rn(__ldg(p), s);
+}
+
+// A group of LANES lanes (a power of two, sized to the row) takes one
+// point's row: its lanes read the row's sel entries once, LANES at a time,
+// and broadcast them by shuffles; each lane scales V floats of g at a time
+// (V = 4: float4 loads and vector reductions, rows of C % 4 == 0 on 16-byte
+// boundaries; V = 1: scalar) and adds them into every selected row of df.
+// The loops run the same number of times on every lane of a warp (C and
+// the slot count are the kernel's), so the shuffles stay converged; lanes
+// past the row or the rows are predicated off.
+template <int LANES, int V>
 __global__ void __launch_bounds__(kBwdThreads)
 refine_cross_bwd_kernel(const float* __restrict__ g,
-                        const int* __restrict__ sel, int n, int c, int slots,
-                        float scale, float* __restrict__ df) {
-  const int b = blockIdx.y;
-  const int q0 = blockIdx.x * kBwdPoints;
-  const int npts = min(kBwdPoints, n - q0);
-  const size_t row0 = static_cast<size_t>(b) * n + q0;
-  const float* gb = g + row0 * c;
-  const int* sb = sel + row0 * slots;
-  float* d = df + static_cast<size_t>(b) * n * c;
-  const int total = npts * c;
-  for (int e = threadIdx.x; e < total; e += kBwdThreads) {
-    const int q = e / c, ch = e - q * c;
-    const float v = __fmul_rn(gb[e], scale);
-    for (int t = 0; t < slots; ++t) {
-      const int j = sb[q * slots + t];
-      if (j >= 0) atomicAdd(d + static_cast<size_t>(j) * c + ch, v);
+                        const int* __restrict__ sel, long long rows, int n,
+                        int c, int slots, float scale, float* __restrict__ df) {
+  using Vec = typename std::conditional<V == 4, float4, float>::type;
+  const int t = threadIdx.x & (LANES - 1);
+  const long long row =
+      (static_cast<long long>(blockIdx.x) * kBwdThreads + threadIdx.x) / LANES;
+  const bool active = row < rows;
+  const size_t r = active ? static_cast<size_t>(row) : 0;
+  const float* gr = g + r * c;
+  const int* sr = sel + r * slots;
+  float* db = df + (r / n) * n * c;  // the row's cloud
+  const int cv = c / V;              // vectors a row
+  for (int s0 = 0; s0 < slots; s0 += LANES) {
+    const int ns = min(LANES, slots - s0);
+    const int mine = active && t < ns ? __ldg(sr + s0 + t) : -1;
+    for (int i0 = 0; i0 < cv; i0 += LANES) {
+      const int i = i0 + t;
+      const bool on = active && i < cv;
+      Vec v{};
+      if (on) v = load_scaled(gr + i * V, scale, Vec{});
+      for (int s = 0; s < ns; ++s) {
+        const int j = __shfl_sync(0xffffffffu, mine, s, LANES);
+        if (on && j >= 0) red_add(db + static_cast<size_t>(j) * c + i * V, v);
+      }
     }
+  }
+}
+
+using BwdKernel = void (*)(const float*, const int*, long long, int, int, int,
+                           float, float*);
+
+// lanes a row: the least power of two that covers `vectors` vectors, at
+// most a warp
+int group_lanes(int vectors) {
+  int lanes = 1;
+  while (lanes < vectors && lanes < 32) lanes *= 2;
+  return lanes;
+}
+
+template <int V>
+BwdKernel bwd_kernel(int lanes) {
+  switch (lanes) {
+    case 1: return refine_cross_bwd_kernel<1, V>;
+    case 2: return refine_cross_bwd_kernel<2, V>;
+    case 4: return refine_cross_bwd_kernel<4, V>;
+    case 8: return refine_cross_bwd_kernel<8, V>;
+    case 16: return refine_cross_bwd_kernel<16, V>;
+    default: return refine_cross_bwd_kernel<32, V>;
   }
 }
 
@@ -184,15 +251,29 @@ extern "C" int amc3d_refine_cross(const void* p, const void* f, const void* a,
 }
 
 // g (b, n, c) float32, sel (b, n, slots) int32 (entries < 0 are skipped)
-// -> adds scale * g rows into df (b, n, c) float32, which the caller zeroes.
+// -> df (b, n, c) float32: zeroed here on the stream, then scale * g rows
+// added in; b * n >= 1, c >= 1 and slots >= 1, else cudaErrorInvalidValue.
+// Vector loads and reductions where C % 4 == 0 and g and df start on 16
+// bytes.
 extern "C" int amc3d_refine_cross_backward(const void* g, const void* sel,
                                            void* df, int b, int n, int c,
                                            int slots, float scale,
                                            void* stream) {
-  const dim3 grid((n + kBwdPoints - 1) / kBwdPoints, b);
-  refine_cross_bwd_kernel<<<grid, kBwdThreads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(g), static_cast<const int*>(sel), n, c, slots,
-      scale, static_cast<float*>(df));
+  if (b < 1 || n < 1 || c < 1 || slots < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec = c % 4 == 0 && reinterpret_cast<uintptr_t>(g) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(df) % 16 == 0;
+  const int lanes = group_lanes(vec ? c / 4 : c);
+  const BwdKernel kernel = vec ? bwd_kernel<4>(lanes) : bwd_kernel<1>(lanes);
+  const long long rows = static_cast<long long>(b) * n;
+  const long long blocks = (rows * lanes + kBwdThreads - 1) / kBwdThreads;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // the zeros the atomics add into, without a second call from the host
+  const cudaError_t err =
+      cudaMemsetAsync(df, 0, static_cast<size_t>(rows) * c * sizeof(float), st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<static_cast<unsigned>(blocks), kBwdThreads, 0, st>>>(
+      static_cast<const float*>(g), static_cast<const int*>(sel), rows, n, c,
+      slots, scale, static_cast<float*>(df));
   return static_cast<int>(cudaGetLastError());
 }

@@ -35,16 +35,18 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures: (argtypes), all returning the cudaError_t as an int
 _SIGNATURES = {
-    # xyz (B,N,3) f32, out (B,npoint) i32, B, N, npoint, stream
-    "amc3d_fps": (_P, _P, _I, _I, _I, _P),
+    # xyz (B,N,3) f32, out (B,npoint) i32, B, N, npoint, cluster size S,
+    # stream
+    "amc3d_fps": (_P, _P, _I, _I, _I, _I, _P),
+    # S → how many clusters of S blocks the device holds at once (negative:
+    # an error)
+    "amc3d_fps_clusters": (_I,),
     # xyz (1,N,3) f32, out (npoint) i32, best (npoint) u64 zeroed, arrived
     # (npoint) u32 zeroed, N, npoint, stream
     "amc3d_fps_b1": (_P, _P, _P, _P, _I, _I, _P),
-    # through one thread-block cluster a cloud: xyz (B,N,3), out (B,npoint),
-    # B, N, npoint, stream
-    "amc3d_fps_b1_cluster": (_P, _P, _I, _I, _I, _P),
-    # → how many such clusters the device holds at once (negative: an error)
-    "amc3d_fps_b1_clusters": (),
+    # through one cluster of 16 blocks: xyz (1,N,3), out (npoint), N,
+    # npoint, stream
+    "amc3d_fps_b1_cluster": (_P, _P, _I, _I, _P),
     # chunk-pruned, one cluster: sorted points (N,4) f32 with the index
     # bits in w, boxes (ceil(N/64),6), xyz of point 0, mind (N) scratch, out
     # (npoint) i32, visits (1) u64 zeroed or null, N, npoint, stream
@@ -91,8 +93,8 @@ _SIGNATURES = {
     # p (B,N,3), f (B,N,C), a (B,N), out (B,N,C), sel (B,N) or (B,N,k-1) i32
     # or null, B, N, C, k, fusion_min, stream
     "amc3d_refine_cross": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    # g (B,N,C), sel (B,N,slots) i32, df (B,N,C) zeroed, B, N, C, slots,
-    # scale, stream
+    # g (B,N,C), sel (B,N,slots) i32, df (B,N,C) (zeroed by the entry
+    # point), B, N, C, slots, scale, stream
     "amc3d_refine_cross_backward": (_P, _P, _P, _I, _I, _I, _I, _F, _P),
     # p (B,N,3), out (B,N) f32 thresholds, B, N, k, stream
     "amc3d_contrast_select": (_P, _P, _I, _I, _I, _P),

@@ -8,34 +8,41 @@ one whole room), ported as ``csrc/fps_b1.cu``, and ``_fps_kernel_pruned``
 ported as ``csrc/fps_pruned.cu``.  The dispatch is that of
 ``fps_pallas.py::furthest_point_sample_pallas``: B == 1 goes to the
 whole-room kernels (the pruned one where :func:`fps_is_pruned` says so),
-B > 1 to the batched one; a batch whose clouds exceed the batched kernel's
-shared memory (N > 57344: the ScanNet recipe's 2 × 64000) goes to the
-cluster kernel of ``csrc/fps_b1.cu``, one cluster a cloud (the JAX
-package's batched pruned path is off by default, a measured loser on the
-TPU).  Semantics of all: the first
-pick is index 0, a running min-distance buffer starts at 1e10, each step
-takes the argmax with ties to the lowest index, and d² is
+B > 1 to the batched one (the JAX package's batched pruned path is off by
+default, a measured loser on the TPU).  The batched kernel and the
+whole-room kernel's cluster path are one kernel, ``csrc/fps_cluster.cuh``:
+a thread-block cluster of S blocks a cloud, the points in registers, every
+cloud of the batch in one launch.  The batched kernel takes S from the batch
+and the cloud (:func:`fps_cluster_size`), the whole-room one S = 16.  Semantics
+of all: the first pick is index 0, a running min-distance buffer starts at
+1e10, each step takes the argmax with ties to the lowest index, and d² is
 ``(dx·dx + dy·dy) + dz·dz``.
 """
 from __future__ import annotations
 
 import functools
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
 from . import spatial
 from ._build import launch, load_library
 
-# the batched kernel's min-distance buffer is N floats of a block's 227 KB
-# of shared memory
-MAX_KERNEL_N = 56 * 1024
-# the whole-room kernels keep 16 bytes a point in shared memory, this many
-# points on each multiprocessor (csrc/fps_b1.cu::kMaxBlockPoints)
+# the whole-room grid kernel keeps 16 bytes a point in shared memory, this
+# many points on each multiprocessor (csrc/fps_b1.cu::kMaxBlockPoints)
 B1_POINTS_PER_SM = 14336
-# the most points its cluster kernel takes: 16 blocks of 512 threads that
-# keep 20 points each in registers (csrc/fps_b1.cu)
-B1_CLUSTER_POINTS = 16 * 512 * 20
+# csrc/fps_cluster.cuh: blocks of 512 threads that keep up to 20 points each
+# in registers, clusters of 1 to 16 blocks; a cloud above 16 × 512 × 20
+# points goes to the grid kernel
+CLUSTER_THREADS, THREAD_POINTS = 512, 20
+CLUSTER_SIZES = (1, 2, 4, 8, 16)
+CLUSTER_POINTS = CLUSTER_SIZES[-1] * CLUSTER_THREADS * THREAD_POINTS
+# (S, the least N from which the batched kernel takes clusters of S blocks),
+# read off the card at B = 4 (tools/profile_fps.py, PERF.md §6): one block
+# is fastest to 4096 points, 4 blocks at 6000, 8 from 8192 to 16384, 16 from
+# 20480; each gate lies between two measured sizes.  Two blocks are never
+# the fastest; they serve batches too large for more.
+CLUSTER_GATES = ((16, 18432), (8, 7168), (4, 5120), (1, 1))
 # the pruned kernel's cluster keeps 4 chunk records a lane: 16 blocks of 512
 # threads, chunks of 64 points (csrc/fps_pruned.cu)
 PRUNED_MAX_POINTS = 16 * 512 * 4 * spatial.CHUNK
@@ -85,29 +92,57 @@ def _check_cuda(xyz: torch.Tensor) -> None:
                          f"{xyz.device} contiguous={xyz.is_contiguous()}")
 
 
+def fps_cluster_size(B: int, N: int, clusters: Dict[int, int]
+                     ) -> Optional[int]:
+    """The cluster size S of the batched kernel for B clouds of N points on
+    a card that holds ``clusters[S]`` clusters of S blocks at once, or None:
+    the grid kernel, cloud by cloud (N above 16 × 512 × 20, or a card that
+    holds no cluster large enough).
+
+    S starts at the gate of N (:data:`CLUSTER_GATES`) and halves while the
+    card cannot hold B such clusters at once (a batch in two waves takes
+    twice as long), but never below the least S whose blocks hold N
+    points."""
+    need = next((s for s in CLUSTER_SIZES
+                 if N <= s * CLUSTER_THREADS * THREAD_POINTS), None)
+    if need is None or clusters.get(need, 0) < 1:
+        return None
+    s = max(need, next(s for s, least in CLUSTER_GATES if N >= least))
+    while s > need and clusters.get(s, 0) < B:
+        s //= 2
+    return s
+
+
 @functools.lru_cache(maxsize=None)
-def _cluster_fits(device_index: int) -> bool:
-    """Whether the card can hold the cluster kernel's 16 blocks at once."""
+def _cluster_capacity(device_index: int) -> Dict[int, int]:
+    """{S: how many clusters of S blocks of ``csrc/fps_cluster.cuh`` the
+    card holds at once}, read with ``cudaOccupancyMaxActiveClusters``."""
     with torch.cuda.device(device_index):
-        clusters = load_library().amc3d_fps_b1_clusters()
-    if clusters < 0:
-        raise RuntimeError(f"amc3d_fps_b1_clusters: CUDA error {-clusters}")
-    return clusters >= 1
+        lib = load_library()
+        counts = {s: lib.amc3d_fps_clusters(s) for s in CLUSTER_SIZES}
+    for s, count in counts.items():
+        if count < 0:
+            raise RuntimeError(f"amc3d_fps_clusters({s}): CUDA error {-count}")
+    return counts
+
+
+def _cluster_fits(device_index: int) -> bool:
+    """Whether the card can hold one cluster of 16 blocks."""
+    return _cluster_capacity(device_index)[16] >= 1
 
 
 def _fps_b1_cluster(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
-    """The cluster kernel of ``csrc/fps_b1.cu``: per cloud one thread-block
+    """The cluster path of ``csrc/fps_b1.cu``: one cloud, one thread-block
     cluster of 16 blocks that exchange their winners through distributed
-    shared memory, all clouds of the batch in one launch.  N ≤ 16 × 512 × 20
-    = 163840, on a card that holds the cluster."""
-    B, N, _ = xyz.shape
-    if N > B1_CLUSTER_POINTS or not _cluster_fits(xyz.device.index):
-        raise ValueError(f"the cluster fps kernel takes N ≤ "
-                         f"{B1_CLUSTER_POINTS} on a card that holds such "
-                         f"a cluster, got N={N}")
-    out = torch.empty(B, npoint, dtype=torch.int32, device=xyz.device)
-    launch("amc3d_fps_b1_cluster", xyz.data_ptr(), out.data_ptr(), B, N,
-           npoint, torch.cuda.current_stream(xyz.device).cuda_stream)
+    shared memory.  N ≤ 16 × 512 × 20 = 163840, on a card that holds the
+    cluster."""
+    N = xyz.shape[1]
+    if N > CLUSTER_POINTS or not _cluster_fits(xyz.device.index):
+        raise ValueError(f"the cluster fps kernel takes N ≤ {CLUSTER_POINTS} "
+                         f"on a card that holds such a cluster, got N={N}")
+    out = torch.empty(1, npoint, dtype=torch.int32, device=xyz.device)
+    launch("amc3d_fps_b1_cluster", xyz.data_ptr(), out.data_ptr(), N, npoint,
+           torch.cuda.current_stream(xyz.device).cuda_stream)
     furthest_point_sample_b1.launches += 1
     return out
 
@@ -186,12 +221,27 @@ def furthest_point_sample_b1(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
     _check_b1(xyz, npoint)
     if fps_is_pruned(1, xyz.shape[1]):
         return furthest_point_sample_pruned(xyz, npoint)
-    if xyz.shape[1] <= B1_CLUSTER_POINTS and _cluster_fits(xyz.device.index):
+    if xyz.shape[1] <= CLUSTER_POINTS and _cluster_fits(xyz.device.index):
         return _fps_b1_cluster(xyz, npoint)
     return _fps_b1_grid(xyz, npoint)
 
 
 furthest_point_sample_b1.launches = 0
+
+
+def _fps_cluster(xyz: torch.Tensor, npoint: int, s: int) -> torch.Tensor:
+    """The batched kernel of ``csrc/fps.cu``: one cluster of ``s`` blocks a
+    cloud, all clouds in one launch; N ≤ s × 512 × 20."""
+    B, N, _ = xyz.shape
+    if s not in CLUSTER_SIZES or N > s * CLUSTER_THREADS * THREAD_POINTS:
+        raise ValueError(f"the batched fps kernel takes clusters of "
+                         f"{CLUSTER_SIZES} blocks of {CLUSTER_THREADS} x "
+                         f"{THREAD_POINTS} points, got S={s}, N={N}")
+    out = torch.empty(B, npoint, dtype=torch.int32, device=xyz.device)
+    launch("amc3d_fps", xyz.data_ptr(), out.data_ptr(), B, N, npoint, s,
+           torch.cuda.current_stream(xyz.device).cuda_stream)
+    furthest_point_sample.launches += 1
+    return out
 
 
 def furthest_point_sample(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
@@ -200,11 +250,11 @@ def furthest_point_sample(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
     A CUDA tensor with B == 1 goes through
     :func:`furthest_point_sample_b1` (and from 262144 points through
     :func:`furthest_point_sample_pruned`), one with B > 1 through the
-    ``csrc/fps.cu`` kernel (one block per cloud, N ≤ 57344).  Larger clouds
-    in a batch go through the cluster kernel of ``csrc/fps_b1.cu`` in one
-    launch (N ≤ 163840), and beyond that, or on a card without such
-    clusters, one cloud after the other through its grid kernel; both count
-    on ``furthest_point_sample_b1.launches``.  A CPU tensor goes through
+    ``csrc/fps.cu`` kernel in one launch, one cluster of
+    :func:`fps_cluster_size` blocks a cloud (N ≤ 163840).  Beyond that, or
+    on a card without such clusters, one cloud after the other goes through
+    the grid kernel of ``csrc/fps_b1.cu``, counted on
+    ``furthest_point_sample_b1.launches``.  A CPU tensor goes through
     :func:`furthest_point_sample_plain`."""
     if xyz.device.type == "cpu":
         return furthest_point_sample_plain(xyz, npoint)
@@ -213,16 +263,11 @@ def furthest_point_sample(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
     if B == 1:
         return furthest_point_sample_b1(xyz, npoint)
     _check_cuda(xyz)
-    if N > MAX_KERNEL_N:
-        if N <= B1_CLUSTER_POINTS and _cluster_fits(xyz.device.index):
-            return _fps_b1_cluster(xyz, npoint)
+    s = fps_cluster_size(B, N, _cluster_capacity(xyz.device.index))
+    if s is None:
         return torch.cat([_fps_b1_grid(xyz[b:b + 1], npoint)
                           for b in range(B)])
-    out = torch.empty(B, npoint, dtype=torch.int32, device=xyz.device)
-    launch("amc3d_fps", xyz.data_ptr(), out.data_ptr(), B, N, npoint,
-           torch.cuda.current_stream(xyz.device).cuda_stream)
-    furthest_point_sample.launches += 1
-    return out
+    return _fps_cluster(xyz, npoint, s)
 
 
 furthest_point_sample.launches = 0

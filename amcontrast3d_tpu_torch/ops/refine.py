@@ -115,23 +115,43 @@ def refine_cross_backward_plain(grad: torch.Tensor, sel: torch.Tensor,
     return df.view(B, N, C)
 
 
+def _check_backward(grad: torch.Tensor, sel: torch.Tensor) -> None:
+    """Raises unless the backward kernel takes (grad, sel): (B, N, C) and
+    (B, N, S) with B·N ≥ 1, C ≥ 1 and 1 ≤ S ≤ 127 (the forward's selection:
+    1 for MIN, k − 1 ≤ 127 for MIN_ALL0)."""
+    if grad.dim() != 3 or sel.dim() != 3 or sel.shape[:2] != grad.shape[:2]:
+        raise ValueError("shapes must be (B,N,C), (B,N,S); got "
+                         f"{tuple(grad.shape)}, {tuple(sel.shape)}")
+    B, N, C = grad.shape
+    if B * N < 1 or C < 1 or not 1 <= sel.shape[-1] <= KNN_MAX_K - 1:
+        raise ValueError(f"refine backward kernel takes B·N ≥ 1, C ≥ 1 and "
+                         f"1 ≤ S ≤ {KNN_MAX_K - 1} slots, got "
+                         f"{tuple(grad.shape)}, {tuple(sel.shape)}")
+
+
+def _check_cuda_tensors(grad: torch.Tensor, sel: torch.Tensor) -> None:
+    dev = grad.device
+    if (dev.type != "cuda" or sel.device != dev or grad.dtype != torch.float32
+            or sel.dtype != torch.int32 or not grad.is_contiguous()
+            or not sel.is_contiguous()):
+        raise ValueError("refine backward kernel needs contiguous CUDA "
+                         f"tensors, float32 grad and int32 sel, got "
+                         f"{grad.dtype} on {dev}, {sel.dtype} on {sel.device}")
+
+
 def refine_cross_backward(grad: torch.Tensor, sel: torch.Tensor,
                           scale: float) -> torch.Tensor:
     """grad (B, N, C) f32, sel (B, N, S) int32 → df (B, N, C).  A CUDA
-    tensor goes through the backward kernel of ``csrc/refine.cu`` (float
-    atomics); a CPU tensor through the plain twin."""
+    tensor goes through the backward kernel of ``csrc/refine.cu`` (a row a
+    group of lanes, vector reductions where C % 4 == 0; its C entry point
+    zeroes df on the stream ahead of it); a CPU tensor through the plain
+    twin."""
     if _on_cpu(grad, sel):
         return refine_cross_backward_plain(grad, sel, scale)
+    _check_backward(grad, sel)
+    _check_cuda_tensors(grad, sel)
     B, N, C = grad.shape
-    if sel.dim() != 3 or sel.shape[:2] != (B, N):
-        raise ValueError("shapes must be (B,N,C), (B,N,S); got "
-                         f"{tuple(grad.shape)}, {tuple(sel.shape)}")
-    for t, dtype in ((grad, torch.float32), (sel, torch.int32)):
-        if (t.dtype != dtype or t.device.type != "cuda"
-                or t.device != grad.device or not t.is_contiguous()):
-            raise ValueError("refine backward kernel needs contiguous CUDA "
-                             f"tensors, got {t.dtype} on {t.device}")
-    df = torch.zeros(B, N, C, dtype=torch.float32, device=grad.device)
+    df = torch.empty_like(grad)
     launch("amc3d_refine_cross_backward", grad.data_ptr(), sel.data_ptr(),
            df.data_ptr(), B, N, C, sel.shape[-1], float(scale),
            torch.cuda.current_stream(grad.device).cuda_stream)

@@ -11,7 +11,12 @@
    both (median of 11 kernel runs and 3 plain runs after a warm-up, CUDA
    events) and, where one PyTorch call computes the same function, that
    call as a yardstick (``library_ms``; the port never calls it):
-   FPS picks and ball-query indices identical; interpolation forward
+   FPS picks and ball-query indices identical (FPS printed per stage with
+   its time a pick, the cluster size the dispatch takes and the floor of
+   picks × one reduction over that cluster, read at every cluster size
+   with one point a thread; then the batched FPS kernel's time a pick
+   against N at every cluster size, B = 4 and B = 8, the table its gates
+   are read from); interpolation forward
    within 1e-5·(1+max|out|) and its backward within 1e-5·(1+max|df|);
    contrast forward counts and threshold identical and its sums within
    1e-5·(1+max|ref|); both halves of the contrast VJP within
@@ -92,8 +97,8 @@
    twin's and ``index_add_``'s time and the scatter kernel's on the same
    input, and both kernels again at the S3DIS recipe's largest shape
    (4, 24000 → 6000, C = 128); the batched FPS 2 × 64000 → 16000 (one
-   cluster a cloud), picks identical to the twin, and the grid kernel cloud
-   by cloud beside it; the three contrast kernels at (2, 64000, 64), the
+   cluster a cloud, ``csrc/fps.cu``), picks identical to the twin, and the
+   grid kernel cloud by cloud beside it; the three contrast kernels at (2, 64000, 64), the
    large-cloud kNN (64000², k = 24) and ball query (16000 × 64000,
    r = 0.05) at B = 2 against their twins;
 10. drives the train CLI at full width through ``engine.cli.main_cli`` on
@@ -107,7 +112,7 @@
    confusion-matrix totals, the learning rate of every epoch (the resumed
    one included), ``scalars.jsonl``, the launches per train step (ScanNet:
    the support-owned VJP once, the scatter kernel 3 times, the batched
-   cluster FPS once; S3DIS: the scatter kernel 4 times and the support-owned
+   FPS 4 times; S3DIS: the scatter kernel 4 times and the support-owned
    one never) and per validation forward, parameters that moved, identical
    logits from the ``latest`` checkpoint read back, and one ScanNet train
    step with the kernels against one with every plain twin from the same
@@ -253,12 +258,12 @@ TRAIN_LAUNCHES = {**EVAL_LAUNCHES, "three_interpolation_backward": 4,
                   "contrast_grad_support": 4, "knn": 7}
 # the ScanNet recipe: 2 x 64000 -> 16000 -> 4000 -> 1000 -> 250; only the
 # 64000-point support exceeds BIG_N (one ball query, one self-kNN and the
-# three label propagations), fp0's backward exceeds the query-buffer gate,
-# and the first FPS exceeds the batched kernel's shared memory
+# three label propagations) and fp0's backward exceeds the query-buffer
+# gate; the batched FPS takes all four stages
 SCANNET_CFG = os.path.join(REPO, "cfgs", "scannet", "AMContrast3D-AA.yaml")
 SCANNET_B, SCANNET_N, SCANNET_CLASSES = 2, 64000, 20
 SCANNET_LAUNCHES = {
-    "fps_b1": 1, "fps": 3, "ball_query_big": 1, "ball_query": 7,
+    "fps": 4, "ball_query_big": 1, "ball_query": 7,
     "three_interpolation": 4, "three_interpolation_backward_big": 1,
     "three_interpolation_backward": 3, "contrast_forward": 4,
     "contrast_grad_rows": 4, "contrast_grad_support": 4, "knn_big": 4, "knn": 3}
@@ -356,7 +361,8 @@ def check_equal(name: str, got, want) -> float:
 def tally(kernels):
     """(results, timed, note) for a phase of ``kernels``: ``timed`` adds a
     kernel's time, its twin's, a library call's, bytes and float
-    instructions on the uniform cloud; ``note`` keeps the largest error of a
+    instructions on the uniform cloud and returns the kernel's time (None
+    on another cloud); ``note`` keeps the largest error of a
     compared pair (None until one is measured)."""
     results = {name: {"err": None, "ms": 0.0, "plain_ms": 0.0,
                       "library_ms": None, "bytes": 0.0, "ops": 0.0}
@@ -364,14 +370,16 @@ def tally(kernels):
 
     def timed(name, cloud, kernel, plain, nbytes, nops, library=None):
         if cloud != "uniform":
-            return
+            return None
         r = results[name]
-        r["ms"] += cuda_ms(kernel)
+        ms = cuda_ms(kernel)
+        r["ms"] += ms
         r["plain_ms"] += cuda_ms(plain, PLAIN_RUNS)
         r["bytes"] += float(nbytes)
         r["ops"] += float(nops)
         if library is not None:
             r["library_ms"] = (r["library_ms"] or 0.0) + cuda_ms(library, PLAIN_RUNS)
+        return ms
 
     def note(name, err):
         results[name]["err"] = max(results[name]["err"] or 0.0, err)
@@ -386,6 +394,7 @@ def kernel_phases(ops, dev, rng, tag: str) -> dict:
     instructions summed over the stages (per forward for the first three,
     per train step for the rest)."""
     from amcontrast3d_tpu_torch.models.pointnext import to_full_list
+    from amcontrast3d_tpu_torch.tools import profile_fps
     from amcontrast3d_tpu_torch.tools.profile_train import voronoi_labels
 
     radii = to_full_list(0.1, [1, 4, 7, 4, 4], [1, 4, 4, 4, 4], 2)
@@ -396,6 +405,18 @@ def kernel_phases(ops, dev, rng, tag: str) -> dict:
     def randn(*shape):
         return torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(dev)
 
+    # the batched FPS: the clusters the card holds, the floor of a pick at
+    # each cluster size (one point a thread: one reduction over the
+    # cluster), and the time a pick against N that its gates come from
+    capacity = profile_fps.capacity(dev)
+    floors = {s: profile_fps.floor_us(dev, B, s, 5)
+              for s in ops.fps.CLUSTER_SIZES}
+    print(f"fps: clusters the card holds at once by size {capacity}; floor "
+          f"of a pick at B={B} by size (us) "
+          f"{ {s: round(us, 3) for s, us in floors.items()} }  [{tag}]")
+    for b, ns in ((B, profile_fps.SWEEP_N), (8, (1500, 6000, 24000))):
+        profile_fps.print_sweep(dev, b, profile_fps.sweep(dev, b, ns, 3), tag)
+    fps_ms = fps_floor = 0.0
     for cloud, pts in clouds(rng).items():
         p = torch.from_numpy(pts).to(dev)
         stages = [p]
@@ -407,9 +428,17 @@ def kernel_phases(ops, dev, rng, tag: str) -> dict:
                 f"fps {cloud} stage {s}", got,
                 ops.furthest_point_sample_plain(prev, npoint)))
             # per pick: a distance, a running minimum and an argmax compare
-            timed("fps", cloud, lambda: ops.furthest_point_sample(prev, npoint),
-                  lambda: ops.furthest_point_sample_plain(prev, npoint),
-                  B * (n * 12 + npoint * 4), B * npoint * n * (PAIR_OPS + 1))
+            ms = timed("fps", cloud, lambda: ops.furthest_point_sample(prev, npoint),
+                       lambda: ops.furthest_point_sample_plain(prev, npoint),
+                       B * (n * 12 + npoint * 4), B * npoint * n * (PAIR_OPS + 1))
+            if ms is not None:
+                size = ops.fps.fps_cluster_size(B, n, capacity)
+                floor = npoint * floors[size] / 1e3
+                fps_ms, fps_floor = fps_ms + ms, fps_floor + floor
+                print(f"fps stage {s} B={B} {n} -> {npoint}: clusters of "
+                      f"{size} blocks, {ms:.3f} ms = {ms / npoint * 1e3:.3f} us "
+                      f"a pick, floor of picks x one reduction {floor:.3f} ms  "
+                      f"[{tag}]")
             stages.append(ops.gather_points(prev, got).contiguous())
         for s in range(1, 5):
             sup, q = stages[s - 1], stages[s]
@@ -543,6 +572,8 @@ def kernel_phases(ops, dev, rng, tag: str) -> dict:
                   B * n * (8 * c + 4), B * n * c,
                   lambda: torch.zeros(B * n, c, device=dev).index_add_(
                       0, rows, g.view(-1, c)))
+    print(f"fps the four stages at B={B}: {fps_ms:.3f} ms, floor of picks x "
+          f"one reduction {fps_floor:.3f} ms  [{tag}]")
     return finish_kernels(results, "uniform and clustered", tag)
 
 
@@ -751,7 +782,7 @@ def scannet_kernel_phases(ops, dev, rng, tag: str) -> dict:
                           room_cloud(rng, n1) * 0.4 + 0.3])
     p = torch.from_numpy(pts.astype(np.float32)).to(dev)
 
-    # the batched FPS above the shared-memory limit of fps.cu
+    # the batched FPS at the recipe's first stage
     npoint = n1 // 4
     got = ops.furthest_point_sample(p, npoint)
     want, plain_ms = timed_once(lambda: ops.furthest_point_sample_plain(p, npoint))
@@ -763,8 +794,10 @@ def scannet_kernel_phases(ops, dev, rng, tag: str) -> dict:
     ms = cuda_ms(lambda: ops.furthest_point_sample(p, npoint), 5)
     grid_ms = cuda_ms(lambda: [ops.fps._fps_b1_grid(p[b:b + 1], npoint)
                                for b in range(nb)], 3)
+    size = ops.fps.fps_cluster_size(nb, n1, ops.fps._cluster_capacity(dev.index))
     print(f"fps {nb}x{n1} -> {npoint}: picks identical to the twin; one cluster "
-          f"a cloud in one launch {ms:.3f} ms = {ms / npoint * 1e3:.3f} us a "
+          f"of {size} blocks a cloud in one launch {ms:.3f} ms = "
+          f"{ms / npoint * 1e3:.3f} us a "
           f"pick, the grid kernel cloud by cloud ({nb} launches) {grid_ms:.3f} "
           f"ms, plain {plain_ms:.1f} ms, bound "
           f"{nb * npoint * n1 * FPS_OPS / PEAK_OPS * 1e3:.3f} ms by operations  "

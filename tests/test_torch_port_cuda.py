@@ -469,11 +469,11 @@ def test_interp_backward_dispatch_follows_the_gate(cuda_device):
 @pytest.mark.parametrize("b,n,npoint", [(2, 64000, 16000), (3, 57345, 700),
                                         (2, 163841, 300)])
 def test_batched_fps_above_the_shared_memory_limit(cuda_device, b, n, npoint):
-    """B > 1 with more points a cloud than the batched kernel's shared
-    memory holds: one cluster a cloud in one launch (or, above the cluster's
-    163840 points, the grid kernel cloud by cloud), picks identical to the
-    twin; the clouds differ, so a kernel that sampled one cloud B times
-    would fail."""
+    """B > 1 with more points a cloud than the old kernel's shared memory
+    held: one cluster a cloud of ``csrc/fps.cu`` in one launch (or, above
+    the cluster's 163840 points, the grid kernel cloud by cloud), picks
+    identical to the twin; the clouds differ, so a kernel that sampled one
+    cloud B times would fail."""
     rng = np.random.RandomState(n)
     xyz = torch.from_numpy(_cloud(rng, b, n, True)).to(cuda_device)
     counts = (ops.furthest_point_sample.launches,
@@ -481,21 +481,142 @@ def test_batched_fps_above_the_shared_memory_limit(cuda_device, b, n, npoint):
     got = ops.furthest_point_sample(xyz, npoint)
     want = ops.furthest_point_sample_plain(xyz, npoint)
     _equal(got, want)
-    assert ops.furthest_point_sample.launches == counts[0]
-    assert ops.furthest_point_sample_b1.launches == \
-        counts[1] + (1 if n <= 163840 else b)
+    cluster = n <= ops.fps.CLUSTER_POINTS
+    assert (ops.furthest_point_sample.launches,
+            ops.furthest_point_sample_b1.launches) == \
+        (counts[0] + cluster, counts[1] + (0 if cluster else b))
 
 
 @pytest.mark.cuda
 def test_batched_fps_below_the_limit_keeps_its_kernel(cuda_device):
+    """On both sides of the old 57344-point gate a batch takes the cluster
+    kernel of ``csrc/fps.cu``, one launch, nothing of ``fps_b1.cu``."""
     rng = np.random.RandomState(8)
-    xyz = torch.from_numpy(_cloud(rng, 2, 57344, False)).to(cuda_device)
-    counts = (ops.furthest_point_sample.launches,
-              ops.furthest_point_sample_b1.launches)
-    _equal(ops.furthest_point_sample(xyz, 200),
-           ops.furthest_point_sample_plain(xyz, 200))
-    assert (ops.furthest_point_sample.launches,
-            ops.furthest_point_sample_b1.launches) == (counts[0] + 1, counts[1])
+    for n in (57344, 57345):
+        xyz = torch.from_numpy(_cloud(rng, 2, n, False)).to(cuda_device)
+        counts = (ops.furthest_point_sample.launches,
+                  ops.furthest_point_sample_b1.launches)
+        _equal(ops.furthest_point_sample(xyz, 200),
+               ops.furthest_point_sample_plain(xyz, 200))
+        assert (ops.furthest_point_sample.launches,
+                ops.furthest_point_sample_b1.launches) == \
+            (counts[0] + 1, counts[1])
+
+
+def _capacity(device):
+    return ops.fps._cluster_capacity(device.index)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("clustered", [False, True])
+@pytest.mark.parametrize("n", [24000, 6000, 1500, 375])
+def test_batched_fps_at_the_stage_shapes(cuda_device, n, clustered):
+    """The four stages of the S3DIS step at B = 4: picks identical to the
+    twin, in one launch, on more multiprocessors than clouds where the
+    cloud is large enough to want them."""
+    rng = np.random.RandomState(n + clustered)
+    xyz = torch.from_numpy(_cloud(rng, 4, n, clustered)).to(cuda_device)
+    before = ops.furthest_point_sample.launches
+    _equal(ops.furthest_point_sample(xyz, n // 4),
+           ops.furthest_point_sample_plain(xyz, n // 4))
+    assert ops.furthest_point_sample.launches == before + 1
+    s = ops.fps.fps_cluster_size(4, n, _capacity(cuda_device))
+    assert s is not None and (n < 16384 or s > 1)
+
+
+def _boundaries():
+    """N on both sides of every gate and of what each cluster size holds."""
+    ns = {least + d for _, least in ops.fps.CLUSTER_GATES for d in (-1, 0)}
+    ns |= {s * 512 * 20 + d for s in ops.fps.CLUSTER_SIZES for d in (0, 1)}
+    return sorted(n for n in ns if n >= 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [2, 4, 8])
+def test_batched_fps_on_both_sides_of_every_boundary(cuda_device, b):
+    """At B = 2, 4 and 8 (the remat recipe's batch) and N on each side of
+    every gate and cluster capacity: the dispatch's cluster size and every
+    cluster size that holds the cloud pick what the twin picks."""
+    rng = np.random.RandomState(b)
+    capacity = _capacity(cuda_device)
+    for n in _boundaries():
+        xyz = torch.from_numpy(_cloud(rng, b, n, n % 2 == 1)).to(cuda_device)
+        npoint = min(n, 257)
+        want = ops.furthest_point_sample_plain(xyz, npoint)
+        _equal(ops.furthest_point_sample(xyz, npoint), want)
+        for s in ops.fps.CLUSTER_SIZES:
+            if n <= s * 512 * 20 and capacity[s] >= 1:
+                _equal(ops.fps._fps_cluster(xyz, npoint, s), want)
+            else:
+                with pytest.raises((ValueError, RuntimeError)):
+                    ops.fps._fps_cluster(xyz, npoint, s)
+
+
+@pytest.mark.cuda
+def test_batched_fps_ties_duplicates_and_tiny_clouds(cuda_device):
+    """All points equal (index 0 wins every tie), gridded rooms with
+    repeated points, fewer points than a block has threads, npoint 1 and
+    npoint = N, at every cluster size."""
+    rng = np.random.RandomState(4)
+    rooms = np.concatenate([_room(rng, 20000) for _ in range(3)])
+    cases = [(torch.ones(4, 3000, 3, device=cuda_device), 50),
+             (torch.from_numpy(rooms).to(cuda_device), 5000)]
+    for n in (1, 2, 7, 600):
+        xyz = torch.from_numpy(_cloud(rng, 3, n, False)).to(cuda_device)
+        cases += [(xyz, 1), (xyz, n)]
+    for xyz, npoint in cases:
+        want = ops.furthest_point_sample_plain(xyz, npoint)
+        _equal(ops.furthest_point_sample(xyz, npoint), want)
+        for s in ops.fps.CLUSTER_SIZES:
+            if xyz.shape[1] <= s * 512 * 20:
+                _equal(ops.fps._fps_cluster(xyz, npoint, s), want)
+
+
+def _refine_backward_case(rng, device, b, n, c, slots):
+    g = torch.from_numpy(rng.randn(b, n, c).astype(np.float32)).to(device)
+    sel = rng.randint(0, n, (b, n, slots)).astype(np.int32)
+    if slots > 1:                       # MIN_ALL0: the rows with a > 0 are -1
+        sel[rng.rand(b, n, slots) < 0.4] = -1
+    return g, torch.from_numpy(sel).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [1, 3, 13, 64, 131, 512])
+@pytest.mark.parametrize("slots,scale", [(1, 1.0), (11, 1.0 / 11)])
+def test_refine_backward_matches_plain_at_every_width(cuda_device, c, slots,
+                                                      scale):
+    """The CrossMask VJP (vector reductions where C % 4 == 0, scalar ones
+    otherwise) within 1e-5·(1+max|df|) of its twin, for MIN's one slot and
+    MIN_ALL0's eleven with −1 entries; then with every point selecting one
+    row (its first slot; a point's slots never repeat a row), the hottest
+    contention; then on a g that starts off a 16-byte boundary (the scalar
+    form)."""
+    rng = np.random.RandomState(c + slots)
+    g, sel = _refine_backward_case(rng, cuda_device, 2, 1500, c, slots)
+    before = ops.refine_cross_backward.launches
+    _close(ops.refine_cross_backward(g, sel, scale),
+           ops.refine_cross_backward_plain(g, sel, scale), 1e-5)
+    one = sel.clone()
+    one[..., 0] = 7
+    _close(ops.refine_cross_backward(g, one, scale),
+           ops.refine_cross_backward_plain(g, one, scale), 1e-5)
+    shifted = torch.empty(g.numel() + 1, device=cuda_device)[1:].view(g.shape)
+    shifted.copy_(g)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 != 0
+    _close(ops.refine_cross_backward(shifted, sel, scale),
+           ops.refine_cross_backward_plain(g, sel, scale), 1e-5)
+    assert ops.refine_cross_backward.launches == before + 3
+
+
+@pytest.mark.cuda
+def test_refine_backward_refuses_what_it_cannot_take(cuda_device):
+    g, sel = _refine_backward_case(np.random.RandomState(5), cuda_device,
+                                   2, 100, 8, 1)
+    for bad_g, bad_sel in ((g.double(), sel), (g, sel.long()),
+                           (g.transpose(0, 1).contiguous().transpose(0, 1), sel),
+                           (g, sel[..., :0]), (g, sel.expand(2, 100, 128))):
+        with pytest.raises(ValueError):
+            ops.refine_cross_backward(bad_g, bad_sel, 1.0)
 
 
 @pytest.mark.cuda

@@ -553,6 +553,7 @@ from amcontrast3d_tpu_torch.ops import spatial                   # noqa: E402
 # the modules, not the functions of the same names that ``ops`` exports
 port_fps = importlib.import_module("amcontrast3d_tpu_torch.ops.fps")
 port_knn = importlib.import_module("amcontrast3d_tpu_torch.ops.knn")
+port_refine = importlib.import_module("amcontrast3d_tpu_torch.ops.refine")
 
 
 @pytest.mark.parametrize("n,npoint", [(203, 60), (1000, 1000), (1, 1)])
@@ -661,33 +662,98 @@ def test_b1_and_large_n_route_to_the_new_wrappers(monkeypatch):
     assert torch.equal(ops.knn(sup, q, 5)[0], ops.knn_plain(sup, q, 5)[0])
 
 
-@pytest.mark.parametrize("n,fits,want", [
-    (57344, True, ["batched"]), (57345, True, ["cluster"]),
-    (163840, True, ["cluster"]), (163841, True, ["grid", "grid", "grid"]),
-    (64000, False, ["grid", "grid", "grid"])])
+# clusters of S blocks an H100 holds at once (read on the card,
+# tools/profile_fps.py), and a card without 16-block clusters
+_H100 = {1: 132, 2: 66, 4: 30, 8: 15, 16: 7}
+_NO_16 = {**_H100, 16: 0}
+
+
+@pytest.mark.parametrize("n,capacity,want", [
+    (57344, _H100, [("fps", 16)]), (57345, _H100, [("fps", 16)]),
+    (163840, _H100, [("fps", 16)]), (163841, _H100, ["grid"] * 3),
+    (64000, _NO_16, [("fps", 8)]), (81921, _NO_16, ["grid"] * 3),
+    (24000, _H100, [("fps", 16)]), (375, _H100, [("fps", 1)])])
 def test_batched_fps_above_the_limit_routes_to_the_cluster_kernel(
-        monkeypatch, n, fits, want):
-    """B > 1: up to 57344 points a cloud the batched kernel as before;
-    above, one cluster a cloud in one launch where the cloud and the card
-    allow it, else the grid kernel cloud by cloud."""
+        monkeypatch, n, capacity, want):
+    """B > 1: every cloud up to 16 × 512 × 20 points goes to the cluster
+    kernel of ``csrc/fps.cu`` in one launch, above 57344 points too (where
+    it went to ``fps_b1.cu``'s cluster kernel before), at the cluster size
+    of ``fps_cluster_size``; above, or where the card holds no cluster
+    large enough, the grid kernel cloud by cloud."""
     calls = []
     monkeypatch.setattr(port_fps, "_check_cuda", lambda xyz: None)
-    monkeypatch.setattr(port_fps, "_cluster_fits", lambda index: fits)
-    monkeypatch.setattr(port_fps, "launch",
-                        lambda name, *a: calls.append("batched"))
+    monkeypatch.setattr(port_fps, "_cluster_capacity", lambda index: capacity)
+    monkeypatch.setattr(
+        port_fps, "launch",
+        lambda name, *a: calls.append((name.replace("amc3d_", ""), a[-2])))
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda device: type("S", (), {"cuda_stream": 0}))
-    monkeypatch.setattr(
-        port_fps, "_fps_b1_cluster",
-        lambda xyz, npoint: calls.append("cluster") or torch.zeros(
-            xyz.shape[0], npoint, dtype=torch.int32, device="meta"))
     monkeypatch.setattr(
         port_fps, "_fps_b1_grid",
         lambda xyz, npoint: calls.append("grid") or torch.zeros(
             1, npoint, dtype=torch.int32, device="meta"))
+    before = port_fps.furthest_point_sample.launches
     out = port_fps.furthest_point_sample(
         torch.empty(3, n, 3, device="meta"), 16)
     assert calls == want and out.shape == (3, 16)
+    assert port_fps.furthest_point_sample.launches == \
+        before + (want[0] != "grid")
+
+
+@pytest.mark.parametrize("b,n,capacity,want", [
+    # the gates between cluster sizes, each ±1, on a card that holds them
+    (4, 1, _H100, 1), (4, 5119, _H100, 1), (4, 5120, _H100, 4),
+    (4, 7167, _H100, 4), (4, 7168, _H100, 8), (4, 18431, _H100, 8),
+    (4, 18432, _H100, 16),
+    # the most points S blocks keep (S × 512 × 20), ±1, where the batch
+    # pushes S down to what the cloud needs
+    (132, 10240, _H100, 1), (132, 10241, _H100, 2), (66, 20480, _H100, 2),
+    (66, 20481, _H100, 4), (30, 40960, _H100, 4), (30, 40961, _H100, 8),
+    (15, 81920, _H100, 8), (15, 81921, _H100, 16), (4, 163840, _H100, 16),
+    (4, 163841, _H100, None),
+    # B clusters that do not fit at once: S halves, down to what N needs
+    (7, 24000, _H100, 16), (8, 24000, _H100, 8), (15, 24000, _H100, 8),
+    (16, 24000, _H100, 4), (8, 81921, _H100, 16), (2, 100000, _NO_16, None),
+    (2, 64000, _NO_16, 8), (4, 6000, {1: 132, 2: 66, 4: 0, 8: 0, 16: 0}, 2),
+    (2, 30000, {1: 132, 2: 66, 4: 0, 8: 0, 16: 0}, None)])
+def test_fps_cluster_size_at_every_boundary(b, n, capacity, want):
+    assert port_fps.fps_cluster_size(b, n, capacity) == want
+
+
+def test_refine_backward_wrapper_refuses_what_the_kernel_cannot_take(
+        monkeypatch):
+    """Off the CPU the CrossMask VJP launches its kernel for (B, N, C) and
+    (B, N, S) with B·N ≥ 1, C ≥ 1, 1 ≤ S ≤ 127, and raises for anything
+    else before it launches."""
+    calls = []
+    monkeypatch.setattr(port_refine, "_check_cuda_tensors",
+                        lambda grad, sel: None)
+    monkeypatch.setattr(port_refine, "launch",
+                        lambda name, *a: calls.append((name, a[3:7])))
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device: type("S", (), {"cuda_stream": 0}))
+
+    def meta(*shape, dtype=torch.float32):
+        return torch.empty(*shape, dtype=dtype, device="meta")
+
+    for c, s in ((64, 1), (13, 11), (1, 127)):
+        df = port_refine.refine_cross_backward(
+            meta(2, 5, c), meta(2, 5, s, dtype=torch.int32), 0.5)
+        assert df.shape == (2, 5, c)
+    assert calls == [("amc3d_refine_cross_backward", (2, 5, c, s))
+                     for c, s in ((64, 1), (13, 11), (1, 127))]
+    for g, sel in (((2, 5, 64), (2, 5, 0)), ((2, 5, 64), (2, 5, 128)),
+                   ((2, 5, 0), (2, 5, 1)), ((0, 5, 8), (0, 5, 1)),
+                   ((2, 5, 8), (2, 4, 1)), ((2, 5, 8), (2, 5)),
+                   ((10, 8), (10, 1))):
+        with pytest.raises(ValueError):
+            port_refine.refine_cross_backward(
+                meta(*g), meta(*sel, dtype=torch.int32), 1.0)
+    assert len(calls) == 3
+    monkeypatch.undo()
+    with pytest.raises(ValueError, match="CUDA"):  # a device it cannot launch on
+        port_refine.refine_cross_backward(
+            meta(2, 5, 8), meta(2, 5, 1, dtype=torch.int32), 1.0)
 
 
 def test_interp_backward_twin_sums_in_query_order():

@@ -616,9 +616,11 @@ def test_interp_backward_refuses_what_is_neither_cpu_nor_cuda():
 
 
 def test_batched_fps_above_the_shared_memory_limit_needs_no_gpu_on_cpu():
-    """On the CPU the wrapper takes the twin whatever the size; the gate of
-    the batched kernel stays where it was."""
-    assert ops.fps.MAX_KERNEL_N == 57344 and ops.fps.B1_CLUSTER_POINTS == 163840
+    """On the CPU the wrapper takes the twin whatever the size; the batched
+    kernel has no shared-memory gate any more: its clusters take up to
+    16 × 512 × 20 points a cloud."""
+    assert not hasattr(ops.fps, "MAX_KERNEL_N")
+    assert ops.fps.CLUSTER_POINTS == 163840
     xyz = torch.from_numpy(np.random.RandomState(0).rand(2, 300, 3)
                            .astype(np.float32))
     assert torch.equal(ops.furthest_point_sample(xyz, 20),

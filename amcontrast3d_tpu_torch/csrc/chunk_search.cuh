@@ -1,25 +1,33 @@
 // Exact nearest-neighbour search of one query by one warp over a support
-// sorted into chunks with boxes: the device code shared by knn_big.cu and
+// sorted into chunks with boxes: the device code shared by knn.cu and
 // interpolate_big.cu.
 //
 // The warp keeps the query's k best (d^2, index) pairs in registers
 // (knn_topk.cuh, WarpTopK::insert_pair: the slots stay in (d^2, index)
 // order whatever order the candidates arrive in, since the chunks come in
-// Morton order, not in index order).  A candidate is taken when its pair is
-// below the pair in slot k - 1 and, with LOWER, above a lower bound pair: a
-// k larger than the registers hold is taken in passes, each keeping the
-// next slots after the previous pass's last pair.
+// Morton order, not in index order; with one slot a lane, a step with many
+// candidates merges them at once, WarpTopK::merge_lanes).  A candidate is
+// taken when its pair is below the pair in slot k - 1 and, with LOWER,
+// above a lower bound pair: a k larger than the registers hold is taken in
+// passes, each keeping the next slots after the previous pass's last pair.
 //
 // Phase 1 scans the chunks around the query's own place in the sorted order
-// (`home`, from ops/spatial.py::query_order), which leaves a k-th d^2 close
+// (`home`, from ops/spatial.py::query_order, or the query's own sorted place
+// over 64 when the queries are the support), which leaves a k-th d^2 close
 // to the final one.  Phase 2 tests the boxes of all other chunks, one per
 // lane, and scans a chunk only when its lower bound is not above the
 // running k-th d^2: at equal d^2 a chunk may still hold a lower index.
+// interpolate_big.cu runs both (search); knn.cu runs them over a block's
+// list of chunks (chunk_list.cuh) with scan alone.
 #pragma once
 #include "chunks.cuh"
 #include "knn_topk.cuh"
 
 namespace amc3d {
+
+// candidates in one step above which a warp keeping one slot a lane merges
+// them at once (WarpTopK::merge_lanes) instead of inserting each
+constexpr int kMergeAbove = 4;
 
 template <int KPL, bool LOWER = false>
 struct ChunkSearch {
@@ -64,7 +72,16 @@ struct ChunkSearch {
         dd = point_d2(qx, qy, qz, p.x, p.y, p.z);
         oi = __float_as_int(p.w);
       }
-      unsigned mask = __ballot_sync(kFullMask, u < len && better(dd, oi));
+      const bool take = u < len && better(dd, oi);
+      unsigned mask = __ballot_sync(kFullMask, take);
+      if constexpr (KPL == 1) {
+        if (__popc(mask) > kMergeAbove) {  // many at once: merge them
+          top.merge_lanes(dd, oi, take, lane);
+          thr_d = top.dist_at(k - 1);
+          thr_i = top.index_at(k - 1);
+          continue;
+        }
+      }
       while (mask) {
         const int src = __ffs(mask) - 1;
         mask &= mask - 1;

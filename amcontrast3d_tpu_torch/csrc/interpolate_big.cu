@@ -28,7 +28,7 @@
 // point needs only the few chunks around it.  What remains is the box tests
 // (N1 * N2 / 64), the points of the visited chunks and the weighted sum:
 // 3 rows of C floats read and one written a fine point.  Design
-// (chunk_search.cuh, as knn_big.cu with k = 3): ops/spatial.py sorts the
+// (chunk_search.cuh::search with k = 3): ops/spatial.py sorts the
 // coarse points along a Morton curve into chunks of 64 with exact boxes and
 // orders the fine points along the same curve, so the 8 warps of a block
 // read the same chunks.  A warp scans the chunks around its fine point's

@@ -1,17 +1,18 @@
 // Exact k-nearest-neighbour selection by one warp per query: the device
-// code shared by knn.cu (kernel: exact kNN) and refine.cu (kernel: fused
-// CrossMask feature).
+// code shared by refine.cu (kernel: fused CrossMask feature; scan_topk) and,
+// through chunk_search.cuh, the chunk-pruned kNN kernels (WarpTopK).
 //
-// A warp scans its cloud's support positions, staged by the block through
-// shared memory in tiles of 1024, one candidate per lane and step.  The k
-// best (d^2, index) pairs so far live in registers, spread over the warp in
-// ascending order: slot s sits in lane s % 32, register s / 32.  A ballot
-// against the running k-th d^2 yields the step's candidates in index order;
-// each is placed by one more ballot (its rank = the number of kept d^2 that
-// are <= its own) and a shuffle-up of the slots behind it.  Candidates
-// arrive in ascending index order, so a candidate whose d^2 ties a kept one
-// ranks behind it and one that ties the k-th is refused: the order is
-// (d^2, index) ascending, ties to the lowest index, as a stable top-k.
+// scan_topk: a warp scans its cloud's support positions, staged by the
+// block through shared memory in tiles of 1024, one candidate per lane and
+// step.  The k best (d^2, index) pairs so far live in registers, spread
+// over the warp in ascending order: slot s sits in lane s % 32, register
+// s / 32.  A ballot against the running k-th d^2 yields the step's
+// candidates in index order; each is placed by one more ballot (its rank =
+// the number of kept d^2 that are <= its own) and a shuffle-up of the slots
+// behind it.  Candidates arrive in ascending index order, so a candidate
+// whose d^2 ties a kept one ranks behind it and one that ties the k-th is
+// refused: the order is (d^2, index) ascending, ties to the lowest index,
+// as a stable top-k.
 // d^2 = (dx*dx + dy*dy) + dz*dz, rounded op by op (no FMA), exactly as the
 // plain PyTorch twin rounds it.  Unfilled slots hold index 0 at +inf.
 #pragma once
@@ -80,6 +81,41 @@ struct WarpTopK {
       pos += __popc(__ballot_sync(
           kFullMask, d[r] < nd || (d[r] == nd && i[r] < ni)));
     place(nd, ni, pos, lane);
+  }
+
+  // One candidate a lane (take false: none), merged into the slots at once
+  // (KPL == 1): a bitonic sort of the candidates across the warp, then a
+  // bitonic merge with the kept slots, which keeps the 32 smallest pairs in
+  // (d^2, index) order.  The first k slots are then what insert_pair would
+  // leave after offering each candidate, at about the cost of five inserts.
+  __device__ __forceinline__ void merge_lanes(float nd, int ni, bool take,
+                                              int lane) {
+    static_assert(KPL == 1, "merge_lanes keeps one slot a lane");
+    using Key = unsigned long long;
+    // d^2 >= +0 orders as its bits; indices are >= 0
+    Key c = take ? (static_cast<Key>(__float_as_uint(nd)) << 32) |
+                       static_cast<unsigned>(ni)
+                 : ~0ull;
+#pragma unroll
+    for (int size = 2; size <= 32; size <<= 1) {
+#pragma unroll
+      for (int stride = size >> 1; stride > 0; stride >>= 1) {
+        const Key o = __shfl_xor_sync(kFullMask, c, stride);
+        const bool keep_min = ((lane & stride) == 0) == ((lane & size) == 0);
+        c = keep_min ? (o < c ? o : c) : (o > c ? o : c);
+      }
+    }
+    const Key r = __shfl_sync(kFullMask, c, 31 - lane);  // descending
+    const Key mine = (static_cast<Key>(__float_as_uint(d[0])) << 32) |
+                     static_cast<unsigned>(i[0]);
+    Key m = r < mine ? r : mine;  // bitonic, the 32 smallest of both
+#pragma unroll
+    for (int stride = 16; stride > 0; stride >>= 1) {
+      const Key o = __shfl_xor_sync(kFullMask, m, stride);
+      m = (lane & stride) ? (o > m ? o : m) : (o < m ? o : m);
+    }
+    d[0] = __uint_as_float(static_cast<unsigned>(m >> 32));
+    i[0] = static_cast<int>(static_cast<unsigned>(m));
   }
 
   // Put (nd, ni) into slot pos and move the slots from pos on one up.

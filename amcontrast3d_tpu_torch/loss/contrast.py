@@ -13,6 +13,11 @@ learned, ``db`` −m / +m / none, cctype Method1-3.  The others (the
 gather-based forms of ``contrast.py:276-318``) and ``remat`` raise
 ``NotImplementedError``.
 
+The stage clouds are sorted once a step, all in one sort
+(``ops.spatial.sort_stages``), and each layout handed to the kernels that
+read it: the stage's self-kNN, the support half of its contrast VJP, and,
+for stage 0, the label propagation to the coarser stages.
+
 In the approx configuration (``ops.knn.set_knn_backend('approx')``, unless
 ``ambiguity_args.fused`` is False, as the JAX package's fused branches
 read it) no kNN runs for the loss: each point's threshold is the TPU's own
@@ -30,6 +35,7 @@ import torch
 from ..ops import (ambiguity_from_stats, contrast_reductions,
                    contrast_reductions_selfk, knn, label_vote)
 from ..ops.knn import use_approx
+from ..ops.spatial import SortedCloud, sort_stages, sort_support
 from .aef import NSTRIDE, one_hot_labels, stage_ambiguity, subscene_labels
 
 _EPS = 1e-12
@@ -64,11 +70,14 @@ def _vote_k(stage_i: int) -> int:
 def point_contrast_margin(p: torch.Tensor, f: torch.Tensor,
                           labels_stage: torch.Tensor, args: Dict,
                           dist_func: str = "dist_cos",
-                          contrast_func: str = "contrast_softnn_margin"
+                          contrast_func: str = "contrast_softnn_margin",
+                          cloud: Optional[SortedCloud] = None
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One-stage adaptive-margin contrast.  p (B, N, 3), f (B, N, C),
     labels_stage (B, N, ncls) soft one-hot or (B, N) class ids → (scalar
-    loss, ambiguity a (B, N), no gradient)."""
+    loss, ambiguity a (B, N), no gradient).  ``cloud``: p's sorted layout,
+    sorted here when not given and the exact kNN runs (in the approx
+    configuration the contrast VJP sorts when it is not given)."""
     _check_ported(args, dist_func, contrast_func)
     nsample = args["nsample"]
     if labels_stage.dim() == 2:
@@ -93,15 +102,18 @@ def point_contrast_margin(p: torch.Tensor, f: torch.Tensor,
              cctype != "Method1")
     if _selection(args):
         red = contrast_reductions_selfk(p.contiguous(), fsim.contiguous(),
-                                        lab, nsample, *flags)
+                                        lab, nsample, *flags, cloud=cloud)
     else:
+        p = p.contiguous()
         with torch.no_grad():
+            if cloud is None:
+                cloud = sort_support(p)
             # the k-th-nearest d² (direct form, as the kernels compute it)
             # with the JAX package's relative cushion
-            _, d2 = knn(p, p, nsample)
+            _, d2 = knn(p, p, nsample, cloud)
             kth = d2[..., -1] * (1.0 + 1e-5)
-        red = contrast_reductions(p.contiguous(), fsim.contiguous(), lab, kth,
-                                  *flags)
+        red = contrast_reductions(p, fsim.contiguous(), lab, kth, *flags,
+                                  cloud=cloud)
     P, Q, s_pos, s_neg = red[..., 0], red[..., 1], red[..., 2], red[..., 3]
     stats = red.detach()
     a = ambiguity_from_stats(stats[..., 4], stats[..., 5], stats[..., 6],
@@ -141,22 +153,26 @@ def contrast_head(up_stages: Sequence[Tuple[torch.Tensor, torch.Tensor]],
     if args.get("remat", False):
         raise NotImplementedError("ambiguity_args.remat is not ported")
     labels0 = one_hot_labels(target, num_classes, ignore_index)
-    p0 = up_stages[0][0]
     vote = _selection(args)
     if vote:
         lab0 = labels0.argmax(-1).to(torch.int32)
+    stages = int(args.get("stages_num", 4))
+    # the positions every kernel of a stage reads, and their layouts
+    ps = [p.contiguous() for p, _ in up_stages[:stages]]
+    p0 = ps[0]
+    with torch.no_grad():
+        clouds = sort_stages(ps)
     loss_sum = 0.0
     target_ai_list: List[torch.Tensor] = []
-    for i in range(int(args.get("stages_num", 4))):
-        p, f = up_stages[i]
+    for i in range(stages):
+        p, f = ps[i], up_stages[i][1]
         if i == 0:
             labels = labels0
         elif vote:
-            labels = label_vote(p0.contiguous(), lab0, p.contiguous(),
-                                _vote_k(i), labels0.shape[-1])
+            labels = label_vote(p0, lab0, p, _vote_k(i), labels0.shape[-1])
         else:
-            labels = subscene_labels(labels0, p0, p, i)
-        loss, a = point_contrast_margin(p, f, labels, args)
+            labels = subscene_labels(labels0, p0, p, i, clouds[0])
+        loss, a = point_contrast_margin(p, f, labels, args, cloud=clouds[i])
         loss_sum = loss_sum + loss
         target_ai_list.append(a)
     return loss_sum, target_ai_list
@@ -173,23 +189,27 @@ def ambiguity_head(up_stages: Sequence[Tuple[torch.Tensor, torch.Tensor]],
     the selection's reductions over a zero 1-wide feature
     (``contrast.py:400-422``)."""
     labels0 = one_hot_labels(target, num_classes, ignore_index)
-    p0 = up_stages[0][0]
     cctype = args.get("cctype", "Method2")
     fused = _selection(args)
-    if fused:
-        lab0 = labels0.argmax(-1).to(torch.int32)
     out = []
     with torch.no_grad():
-        for i in range(int(args.get("stages_num", 4))):
-            p = up_stages[i][0]
+        stages = int(args.get("stages_num", 4))
+        ps = [s[0].contiguous() for s in up_stages[:stages]]
+        p0 = ps[0]
+        if fused:
+            lab0 = labels0.argmax(-1).to(torch.int32)
+        else:   # every stage's layout by one sort: its kNN, labels from 0
+            clouds = sort_stages(ps)
+        for i in range(stages):
+            p = ps[i]
             if not fused:
-                labels = subscene_labels(labels0, p0, p, i)
+                labels = subscene_labels(labels0, p0, p, i, clouds[0])
                 out.append(stage_ambiguity(p, labels, args["nsample"], cctype,
-                                           args.get("ccbeta", 0.04))[0])
+                                           args.get("ccbeta", 0.04),
+                                           clouds[i])[0])
                 continue
             lab = lab0 if i == 0 else label_vote(
-                p0.contiguous(), lab0, p.contiguous(), _vote_k(i),
-                labels0.shape[-1])
+                p0, lab0, p, _vote_k(i), labels0.shape[-1])
             red = contrast_reductions_selfk(
                 p.contiguous(), p.new_zeros(*p.shape[:2], 1), lab.float(),
                 args["nsample"], 1.0, cctype == "Method3", False,

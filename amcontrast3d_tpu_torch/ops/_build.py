@@ -76,17 +76,28 @@ _SIGNATURES = {
     # df (B,N,C), B, N, C, tinv, need_s, stream
     "amc3d_contrast_grad_rows": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I,
                                  _P),
-    "amc3d_contrast_grad_support": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F,
-                                    _I, _P),
-    # support (B,N,3), query (B,M,3), idx and d2 at the pass's first slot
-    # of (B,M,ld) i32 / f32, B, N, M, k of the pass (≤ 128), ld, first
-    # slot, stream
-    "amc3d_knn": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # sorted cloud (B,N,4) f32 with the index bits in w, (label, threshold)
+    # of each sorted point (B,N,2), boxes (B,ceil(N/64),6), the
+    # largest threshold a chunk (B,ceil(N/64)), f (B,N,C), g4 (B,N,4),
+    # df (B,N,C), B, N, C, tinv, need_s, stream
+    "amc3d_contrast_grad_support": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                    _F, _I, _P),
     # sorted support (B,N,4) f32 with the index bits in w, boxes
     # (B,ceil(N/64),6), query (B,M,3), order (B,M) i32, home (B,M) i32,
-    # idx, d2 as for amc3d_knn, B, N, M, k, ld, first slot, stream
-    "amc3d_knn_big": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                      _P),
+    # idx and d2 at the pass's first slot of (B,M,ld) i32 / f32, B, N, M,
+    # k of the pass (≤ 128), ld, first slot, stream
+    "amc3d_knn": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # the stage clouds (T,3) f32 one after another, the first row of each
+    # (stage, cloud) segment (nseg+1) i64, keys (T) i64, frame (nseg,4) f32,
+    # nseg, stream
+    "amc3d_layout_keys": (_P, _P, _P, _P, _I, _P),
+    # points (T,3), perm and sorted keys (T) i64, segment rows (nseg+1) i64,
+    # segment chunks (nseg+1) i32, packed (T,4) f32, codes (T) i64, index
+    # (T) i64, boxes (chunks,6) f32, nseg, chunks, stream
+    "amc3d_layout_pack": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
+    # a layout's perm (B,n) i64, lab (B,n), kth (B,n), aux (B,n,2) f32, cmax
+    # (B,ceil(n/64)) f32, B, n, stream
+    "amc3d_support_aux": (_P, _P, _P, _P, _P, _I, _I, _P),
     # sorted support, boxes, query, order, out (B,M,k) i32, B, N, M, k, r²,
     # stream
     "amc3d_ball_query_big": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),

@@ -22,8 +22,14 @@ are a TPU choice).  Differentiable in ``f`` only; with
 
     df_i = Σ_j w_ij f_j   (rows)      df_j += Σ_i w_ij f_i   (support)
 
-Gradients into columns 4-8 are ignored, as in the TPU VJP.  The Morton /
-kd sort of the TPU path only serves its chunk pruning and is not ported.
+Gradients into columns 4-8 are ignored, as in the TPU VJP.  The support
+half of the VJP reads the cloud's Morton-sorted layout
+(``spatial.SortedCloud``, ↔ the Morton / kd sort of ``contrast_reductions``,
+``contrast_pallas.py:644-695``) and skips the query chunks whose box lies
+beyond their largest threshold from a block's points (↔
+``_bwd_sup_kernel``'s ``thr_bound``); :func:`contrast_reductions` takes the
+layout the stage's self-kNN read (``cloud=``) and keeps it for the VJP, or
+sorts in the VJP itself.  The forward and the rows half scan the cloud.
 
 The approx configuration (``ops.knn.set_knn_backend('approx')``) takes the
 TPU's own threshold instead of the exact kNN's: ↔
@@ -41,10 +47,13 @@ needs no counterpart of the JAX package's ``set_fused_contrast``.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from . import spatial
 from ._build import launch
 from .knn import pairwise_d2
 
@@ -180,9 +189,8 @@ def contrast_grad_support_plain(p, f, lab, kth, g4, tinv: float = 1.0,
     return _grad_plain(p, f, lab, kth, g4, tinv, need_s, False, True)[1]
 
 
-def _grad_kernel(name: str, p, f, lab, kth, g4, tinv, need_s):
-    _check(p, f, lab, kth, cuda=True)
-    B, N, C = f.shape
+def _check_g4(f, g4) -> None:
+    B, N, _ = f.shape
     if (g4.shape != (B, N, 4) or g4.dtype != torch.float32
             or g4.device != f.device or not g4.is_contiguous()
             or g4.data_ptr() % 16):
@@ -190,11 +198,46 @@ def _grad_kernel(name: str, p, f, lab, kth, g4, tinv, need_s):
                          "(B, N, 4) float32 tensor "
                          f"on {f.device}, got {tuple(g4.shape)} {g4.dtype} "
                          f"on {g4.device}")
-    df = torch.empty(B, N, C, dtype=torch.float32, device=f.device)
-    launch(name, p.data_ptr(), f.data_ptr(), lab.data_ptr(), kth.data_ptr(),
-           g4.data_ptr(), df.data_ptr(), B, N, C, float(tinv), int(need_s),
-           _stream(f))
-    return df
+
+
+def support_layout_plain(cloud: spatial.SortedCloud, lab: torch.Tensor,
+                         kth: torch.Tensor):
+    """What the support kernel reads beside ``cloud``: (aux (B, N, 2) f32,
+    each sorted point's label and threshold; cmax (B, ceil(N/64)) f32, the
+    largest threshold of each chunk)."""
+    B, N = lab.shape
+    aux = torch.gather(torch.stack([lab, kth], -1), 1,
+                       cloud.perm[..., None].expand(B, N, 2))
+    return aux, spatial.chunk_max(aux[..., 1])
+
+
+def support_layout(cloud: spatial.SortedCloud, lab: torch.Tensor,
+                   kth: torch.Tensor):
+    """:func:`support_layout_plain` by the ``csrc/layout.cu`` kernel (one
+    launch, a block a chunk) for CUDA tensors, by the plain twin for CPU
+    tensors."""
+    if lab.device.type == "cpu" and kth.device.type == "cpu":
+        return support_layout_plain(cloud, lab, kth)
+    B, N = lab.shape
+    for name, t, dtype in (("the layout's perm", cloud.perm, torch.int64),
+                           ("lab", lab, torch.float32),
+                           ("kth", kth, torch.float32)):
+        if (t.shape != (B, N) or t.dtype != dtype or not t.is_contiguous()
+                or t.device.type != "cuda" or t.device != lab.device):
+            raise ValueError(f"{name} must be a contiguous ({B}, {N}) {dtype} "
+                             f"CUDA tensor, got {tuple(t.shape)} {t.dtype} on "
+                             f"{t.device}")
+    perm = cloud.perm
+    aux = torch.empty(B, N, 2, dtype=torch.float32, device=lab.device)
+    cmax = torch.empty(B, -(-N // spatial.CHUNK), dtype=torch.float32,
+                       device=lab.device)
+    launch("amc3d_support_aux", perm.data_ptr(), lab.data_ptr(),
+           kth.data_ptr(), aux.data_ptr(), cmax.data_ptr(), B, N, _stream(lab))
+    support_layout.launches += 1
+    return aux, cmax
+
+
+support_layout.launches = 0
 
 
 def contrast_grad_rows(p, f, lab, kth, g4, tinv: float = 1.0,
@@ -203,34 +246,55 @@ def contrast_grad_rows(p, f, lab, kth, g4, tinv: float = 1.0,
     a CUDA tensor, :func:`contrast_grad_rows_plain` for a CPU tensor."""
     if all(t.device.type == "cpu" for t in (p, f, lab, kth, g4)):
         return contrast_grad_rows_plain(p, f, lab, kth, g4, tinv, need_s)
-    df = _grad_kernel("amc3d_contrast_grad_rows", p, f, lab, kth, g4, tinv,
-                      need_s)
+    _check(p, f, lab, kth, cuda=True)
+    _check_g4(f, g4)
+    B, N, C = f.shape
+    df = torch.empty(B, N, C, dtype=torch.float32, device=f.device)
+    launch("amc3d_contrast_grad_rows", p.data_ptr(), f.data_ptr(),
+           lab.data_ptr(), kth.data_ptr(), g4.data_ptr(), df.data_ptr(), B, N,
+           C, float(tinv), int(need_s), _stream(f))
     contrast_grad_rows.launches += 1
     return df
 
 
 def contrast_grad_support(p, f, lab, kth, g4, tinv: float = 1.0,
-                          need_s: bool = True) -> torch.Tensor:
+                          need_s: bool = True,
+                          cloud: Optional[spatial.SortedCloud] = None
+                          ) -> torch.Tensor:
     """Support-side VJP (B, N, C): each point j sums over the queries i
-    whose threshold admits it (``d²_ij ≤ kth_i``).  The support kernel of
-    ``csrc/contrast.cu`` for a CUDA tensor, the plain twin for a CPU one."""
+    whose threshold admits it (``d²_ij ≤ kth_i``).  The chunk-pruned support
+    kernel of ``csrc/contrast.cu`` for a CUDA tensor, over ``cloud`` (the
+    layout of ``p``; sorted here when not given); the plain twin for a CPU
+    tensor."""
+    if cloud is not None:
+        spatial.check_layout(cloud, p)
     if all(t.device.type == "cpu" for t in (p, f, lab, kth, g4)):
         return contrast_grad_support_plain(p, f, lab, kth, g4, tinv, need_s)
-    df = _grad_kernel("amc3d_contrast_grad_support", p, f, lab, kth, g4,
-                      tinv, need_s)
+    _check(p, f, lab, kth, cuda=True)
+    _check_g4(f, g4)
+    if cloud is None:
+        cloud = spatial.sort_support(p)
+    aux, cmax = support_layout(cloud, lab, kth)
+    B, N, C = f.shape
+    df = torch.empty(B, N, C, dtype=torch.float32, device=f.device)
+    launch("amc3d_contrast_grad_support", cloud.packed.data_ptr(),
+           aux.data_ptr(), cloud.boxes.data_ptr(), cmax.data_ptr(),
+           f.data_ptr(), g4.data_ptr(), df.data_ptr(), B, N, C, float(tinv),
+           int(need_s), _stream(f))
     contrast_grad_support.launches += 1
     return df
 
 
 class _ContrastReductions(torch.autograd.Function):
-    """Forward and VJP by the kernels, or by the plain twins (``plain``)."""
+    """Forward and VJP by the kernels, or by the plain twins (``plain``);
+    the VJP's support kernel reads ``cloud``, the layout of ``p``."""
 
     @staticmethod
     def forward(ctx, p, f, lab, kth, tinv, cctype_root, need_s, need_d,
-                plain):
+                plain, cloud):
         fwd = contrast_forward_plain if plain else contrast_forward
         ctx.save_for_backward(p, f, lab, kth)
-        ctx.tinv, ctx.need_s, ctx.plain = tinv, need_s, plain
+        ctx.tinv, ctx.need_s, ctx.plain, ctx.cloud = tinv, need_s, plain, cloud
         return fwd(p, f, lab, kth, tinv, cctype_root, need_s, need_d)
 
     @staticmethod
@@ -242,30 +306,38 @@ class _ContrastReductions(torch.autograd.Function):
             df_rows, df_sup = _grad_plain(*args, rows=True, support=True)
         else:
             df_rows = contrast_grad_rows(*args)
-            df_sup = contrast_grad_support(*args)
-        return (None, df_rows + df_sup) + (None,) * 7
+            df_sup = contrast_grad_support(*args, cloud=ctx.cloud)
+        return (None, df_rows + df_sup) + (None,) * 8
 
 
 def contrast_reductions(p, f, lab, kth, tinv: float = 1.0,
                         cctype_root: bool = False, need_s: bool = True,
-                        need_d: bool = True) -> torch.Tensor:
+                        need_d: bool = True,
+                        cloud: Optional[spatial.SortedCloud] = None
+                        ) -> torch.Tensor:
     """p (B,N,3), f (B,N,C), lab (B,N) argmax labels, kth (B,N) d²
     threshold, all f32 → (B, N, 9) [P,Q,Spos,Sneg,npos,nneg,dpos,dneg,thr],
-    differentiable in ``f``.  CUDA tensors run the three kernels, CPU
+    differentiable in ``f``.  CUDA tensors run the three kernels (the VJP's
+    support kernel over ``cloud``, the layout of ``p``, when given), CPU
     tensors the plain twins."""
+    if cloud is not None:
+        spatial.check_layout(cloud, p)
     plain = all(t.device.type == "cpu" for t in (p, f, lab, kth))
     return _ContrastReductions.apply(p, f, lab, kth, float(tinv),
                                      bool(cctype_root), bool(need_s),
-                                     bool(need_d), plain)
+                                     bool(need_d), plain, cloud)
 
 
 def contrast_reductions_plain(p, f, lab, kth, tinv: float = 1.0,
                               cctype_root: bool = False, need_s: bool = True,
-                              need_d: bool = True) -> torch.Tensor:
-    """:func:`contrast_reductions` by the plain twins on any device."""
+                              need_d: bool = True,
+                              cloud: Optional[spatial.SortedCloud] = None
+                              ) -> torch.Tensor:
+    """:func:`contrast_reductions` by the plain twins on any device (a
+    layout, ``cloud``, changes nothing here)."""
     return _ContrastReductions.apply(p, f, lab, kth, float(tinv),
                                      bool(cctype_root), bool(need_s),
-                                     bool(need_d), True)
+                                     bool(need_d), True, None)
 
 
 def kth_distinct_plain(support: torch.Tensor, query: torch.Tensor,
@@ -329,22 +401,28 @@ def contrast_select(p: torch.Tensor, k: int) -> torch.Tensor:
 
 def contrast_reductions_selfk(p, f, lab, k: int, tinv: float = 1.0,
                               cctype_root: bool = False, need_s: bool = True,
-                              need_d: bool = True) -> torch.Tensor:
+                              need_d: bool = True,
+                              cloud: Optional[spatial.SortedCloud] = None
+                              ) -> torch.Tensor:
     """:func:`contrast_reductions` over each point's own threshold (↔
     ``contrast_pallas.py::contrast_reductions_selfk``): no kNN runs.  The
-    VJP is the same two kernels with that threshold, which column 8 holds.
-    ``k`` counts the self point."""
+    VJP is the same two kernels with that threshold, which column 8 holds,
+    the support one over ``cloud`` when given.  ``k`` counts the self
+    point."""
     with torch.no_grad():
         thr = contrast_select(p, k)
     return contrast_reductions(p, f, lab, thr, tinv, cctype_root, need_s,
-                               need_d)
+                               need_d, cloud)
 
 
 def contrast_reductions_selfk_plain(p, f, lab, k: int, tinv: float = 1.0,
                                     cctype_root: bool = False,
                                     need_s: bool = True,
-                                    need_d: bool = True) -> torch.Tensor:
-    """:func:`contrast_reductions_selfk` by the plain twins on any device."""
+                                    need_d: bool = True,
+                                    cloud: Optional[spatial.SortedCloud] = None
+                                    ) -> torch.Tensor:
+    """:func:`contrast_reductions_selfk` by the plain twins on any device (a
+    layout, ``cloud``, changes nothing here)."""
     with torch.no_grad():
         thr = contrast_select_plain(p, k)
     return contrast_reductions_plain(p, f, lab, thr, tinv, cctype_root,

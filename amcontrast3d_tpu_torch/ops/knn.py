@@ -6,13 +6,19 @@
 where the TPU kernel is approximate by design; the ball-query kernel
 (``csrc/ball_query.cu``) replaces ``ops/knn_pallas.py::_ball_kernel_value``.
 
-Above ``_BIG_N`` support points (the JAX package's gate of the same name,
-``knn_pallas.py:179``) both go to a kernel that scans only the chunks of a
-spatially sorted support that can matter: ``csrc/knn_big.cu`` replaces
-``_knn_kernel_big`` and ``csrc/ball_query_big.cu`` replaces
-``_ball_kernel_value_big``.  They return exactly what the small-cloud
-kernels and the plain twins return; the sort ahead of them is
-``ops/spatial.py``.
+The kNN kernel reads the support sorted along a Morton curve in 64-point
+chunks with boxes (``ops/spatial.py``) and scans only the chunks that can
+hold a neighbour (a block of 8 queries lists the chunks once, each warp
+tests the list 32 boxes at a time), at any N: it also replaces
+``_knn_kernel_big``, which the JAX package takes above its gate
+``_BIG_N`` (``knn_pallas.py:179``), since on the H100 it is as fast below
+that size and faster above it (PERF.md).  A caller that already holds the
+support's :class:`spatial.SortedCloud` hands it in (``cloud=``), so a
+stage cloud is sorted once a step; without it the wrapper sorts.  When the
+queries are the support itself, the kernel reads their order and home
+chunks from the layout itself.  Above ``_BIG_N`` the ball query goes to
+``csrc/ball_query_big.cu`` (↔ ``_ball_kernel_value_big``).  All return
+exactly what the plain twins return.
 
 Distances are in the direct form ``(dx·dx + dy·dy) + dz·dz`` (the form of
 the Pallas kernels), not the JAX plain path's ``|q|² + |s|² − 2q·s`` matmul
@@ -30,7 +36,7 @@ threshold selection (``ops/contrast.py``: ``contrast_reductions_selfk``,
 from __future__ import annotations
 
 import os
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -44,7 +50,7 @@ _INF = 1e10
 _KNN_TILE = 2048
 _BALL_TILE = 1024
 _TILE_ELEMENTS = 2 ** 28
-# more support points than this go to the chunk-skipping kernels
+# more support points than this go to the chunk-skipping ball query
 _BIG_N = 32768
 
 
@@ -82,13 +88,15 @@ def pairwise_d2(query: torch.Tensor, support: torch.Tensor) -> torch.Tensor:
     return (dx * dx + dy * dy) + dz * dz
 
 
-def knn_plain(support: torch.Tensor, query: torch.Tensor,
-              k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+def knn_plain(support: torch.Tensor, query: torch.Tensor, k: int,
+              cloud: Optional[spatial.SortedCloud] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch exact kNN of ``query`` among ``support``.
 
     Returns idx (B, M, k) int32 in ascending distance, ties to the lowest
     index (as ``lax.top_k``), and their d² (B, M, k) f32.  For k > N the
-    extra slots hold index 0 at d² = 1e10, as in the JAX package."""
+    extra slots hold index 0 at d² = 1e10, as in the JAX package.  It takes
+    :func:`knn`'s arguments; a layout (``cloud``) changes nothing here."""
     B, N, _ = support.shape
     kk = min(k, N)
     arange = torch.arange(N, device=support.device)
@@ -118,20 +126,39 @@ def knn_plain(support: torch.Tensor, query: torch.Tensor,
 KNN_MAX_K = 128
 
 
-def knn(support: torch.Tensor, query: torch.Tensor,
-        k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+def knn(support: torch.Tensor, query: torch.Tensor, k: int,
+        cloud: Optional[spatial.SortedCloud] = None
+        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """support (B, N, 3), query (B, M, 3) f32 → idx (B, M, k) int32 and d²
     (B, M, k) f32, exactly as :func:`knn_plain` returns them.  No gradient.
 
-    A CUDA tensor goes through the ``csrc/knn.cu`` kernel for
-    N ≤ ``_BIG_N`` = 32768 support points and through :func:`knn_big`
-    above that, in ⌈k / 128⌉ launches; a CPU tensor through
-    :func:`knn_plain`."""
+    A CUDA tensor goes through the ``csrc/knn.cu`` kernel in ⌈k / 128⌉
+    launches, over ``cloud`` (the support's :func:`spatial.sort_support`
+    or :func:`spatial.sort_stages`, refused for another tensor; sorted here
+    when not given); a CPU tensor through :func:`knn_plain`."""
+    if cloud is not None:
+        spatial.check_layout(cloud, support)
     if support.device.type == "cpu" and query.device.type == "cpu":
         return knn_plain(support, query, k)
-    if support.shape[1] > _BIG_N:
-        return knn_big(support, query, k)
-    return knn_small(support, query, k)
+    _check_cuda("kNN", support, query, k)
+    B, N, _ = support.shape
+    M = query.shape[1]
+    if cloud is None:
+        cloud = spatial.sort_support(support)
+    # the kernel reads the support's own order when the queries are the
+    # support; else the tensors must live until the launches are queued
+    ordered = () if spatial.is_self(support, query) else \
+        spatial.query_order(query, cloud)
+    order, home = (t.data_ptr() for t in ordered) if ordered else (0, 0)
+    idx = torch.empty(B, M, k, dtype=torch.int32, device=query.device)
+    d2 = torch.empty(B, M, k, dtype=torch.float32, device=query.device)
+    _passes("amc3d_knn", knn,
+            (cloud.packed.data_ptr(), cloud.boxes.data_ptr(), query.data_ptr(),
+             order, home), (B, N, M), idx, d2)
+    return idx, d2
+
+
+knn.launches = 0
 
 
 def _check_cuda(name: str, support: torch.Tensor, query: torch.Tensor,
@@ -155,47 +182,6 @@ def _passes(name: str, counted, inputs: tuple, sizes: tuple,
                d2.data_ptr() + 4 * first, *sizes, min(KNN_MAX_K, k - first),
                k, first, stream)
         counted.launches += 1
-
-
-def knn_small(support: torch.Tensor, query: torch.Tensor,
-              k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """:func:`knn` through the ``csrc/knn.cu`` kernel, which scans the whole
-    support for every query (any N and k; CUDA tensors only)."""
-    _check_cuda("kNN", support, query, k)
-    B, N, _ = support.shape
-    M = query.shape[1]
-    idx = torch.empty(B, M, k, dtype=torch.int32, device=query.device)
-    d2 = torch.empty(B, M, k, dtype=torch.float32, device=query.device)
-    _passes("amc3d_knn", knn, (support.data_ptr(), query.data_ptr()),
-            (B, N, M), idx, d2)
-    return idx, d2
-
-
-knn.launches = 0
-
-
-def knn_big(support: torch.Tensor, query: torch.Tensor,
-            k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """:func:`knn` through the ``csrc/knn_big.cu`` kernel: the support is
-    sorted along a Morton curve (``ops/spatial.py``) and a query scans only
-    the 64-point chunks whose box can hold one of its k nearest.  Any N and
-    k; a CPU tensor goes through :func:`knn_plain`."""
-    if support.device.type == "cpu" and query.device.type == "cpu":
-        return knn_plain(support, query, k)
-    _check_cuda("large-cloud kNN", support, query, k)
-    B, N, _ = support.shape
-    M = query.shape[1]
-    cloud = spatial.sort_support(support)
-    order, home = spatial.query_order(query, cloud)
-    idx = torch.empty(B, M, k, dtype=torch.int32, device=query.device)
-    d2 = torch.empty(B, M, k, dtype=torch.float32, device=query.device)
-    _passes("amc3d_knn_big", knn_big,
-            (cloud.packed.data_ptr(), cloud.boxes.data_ptr(), query.data_ptr(),
-             order.data_ptr(), home.data_ptr()), (B, N, M), idx, d2)
-    return idx, d2
-
-
-knn_big.launches = 0
 
 
 def _radius2(radius: float) -> float:

@@ -13,8 +13,10 @@
 # difference between the two readings of one commit), and prints each
 # profiler's whole output under a "=== parent|change: <tool>" heading.
 # The arguments (say --kind mm) go to both profilers of both checkouts,
-# so pass only what the parent understands.  _parent/ is git-ignored;
-# each checkout builds its own kernels.
+# so pass only what the parent understands.  AB_TOOLS names other tools
+# (say AB_TOOLS="profile_scans profile_train"); a tool the parent does not
+# have runs from the change's tree over the parent's package.  _parent/ is
+# git-ignored; each checkout builds its own kernels.
 set -eu
 root=$(pwd)
 [ -d "$root/_parent/amcontrast3d_tpu_torch" ] || {
@@ -22,10 +24,15 @@ root=$(pwd)
     exit 2
 }
 nvidia-smi --query-gpu=name,power.limit --format=csv,noheader
-for tool in profile_eval profile_train; do
+for tool in ${AB_TOOLS:-profile_eval profile_train}; do
     for side in parent change change parent; do
         [ "$side" = parent ] && dir="$root/_parent" || dir="$root"
         echo "=== $side: $tool $*"
-        (cd "$dir" && python3 -m "amcontrast3d_tpu_torch.tools.$tool" "$@")
+        if [ -f "$dir/amcontrast3d_tpu_torch/tools/$tool.py" ]; then
+            (cd "$dir" && python3 -m "amcontrast3d_tpu_torch.tools.$tool" "$@")
+        else
+            (cd "$dir" && PYTHONPATH="$dir" python3 \
+                "$root/amcontrast3d_tpu_torch/tools/$tool.py" "$@")
+        fi
     done
 done

@@ -18,8 +18,7 @@ Prints the card, then per kernel the median device time (CUDA events):
 the whole-room FPS per stage with its time per pick through the cluster
 kernel and the grid kernel (cluster, grid, grid, cluster), the chunk-skipping
 ball query against the scan-everything kernel at the first two stages, and
-the chunk-skipping kNN (self-kNN, k = 24) against the scan-everything
-kernel, on a room-like cloud (points on the faces of a box and in solid
+the chunk-pruned kNN (self-kNN, k = 24), on a room-like cloud (points on the faces of a box and in solid
 boxes, on a 0.04 m grid) and on a uniform one.  Results are compared for
 equality as they are timed.
 """
@@ -167,13 +166,8 @@ def main() -> None:
                   f"{cuda_ms(lambda: ops.ball_query_big(sup, q, r, 32)):.3f} ms, "
                   f"small {cuda_ms(lambda: ops.ball_query_small(sup, q, r, 32)):.3f}"
                   f" ms  [{tag}]")
-        big, small = ops.knn_big(p, p, 24), ops.knn_small(p, p, 24)
-        torch.cuda.synchronize()
-        if not (torch.equal(big[0], small[0]) and torch.equal(big[1], small[1])):
-            raise AssertionError("kNN kernels disagree")
-        print(f"{name} self-kNN {n} k=24: big "
-              f"{cuda_ms(lambda: ops.knn_big(p, p, 24)):.3f} ms, small "
-              f"{cuda_ms(lambda: ops.knn_small(p, p, 24), 3):.3f} ms  [{tag}]")
+        print(f"{name} self-kNN {n} k=24: "
+              f"{cuda_ms(lambda: ops.knn(p, p, 24)):.3f} ms  [{tag}]")
 
 
 if __name__ == "__main__":

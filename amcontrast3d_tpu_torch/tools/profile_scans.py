@@ -1,0 +1,233 @@
+"""Time the exact kNN (kernel 6) and the contrast support VJP (kernel 16) on
+one NVIDIA GPU at the train steps' shapes.
+
+    python3 -m amcontrast3d_tpu_torch.tools.profile_scans [--crossing] [--runs R]
+
+For the S3DIS step (B = 4 clouds of 24000 points, uniform in [0, 4]³,
+stages from FPS) it times the seven kNN calls of a step (the self-kNN of
+stages 0-3 at k = 24, the label propagation from stage 0 at k = 4, 16, 64)
+and the support VJP at the four stages (C = 64, 128, 256, 512); for the
+ScanNet step (B = 2 × 64000 on a denser cube) the self-kNN of stages 1-3
+and the support VJP at the four stages.  Each call prints two times: the
+wrapper's, the median of R runs after a warm-up (CUDA events around the
+call, so the host's launches count where the card waits on them), and the
+kernel's own device time from ``torch.profiler`` over R runs.  Where the
+package takes a stage's sorted layout (``cloud=``), the four layouts are
+made ahead by one sort, as the loss makes them once a step, and the sort is
+timed on its own; a package that still has the large-cloud kNN (kernel 7,
+``knn_big``) times it beside kernel 6 on the same inputs.
+``--crossing`` times the kNN on the shapes where the JAX package's gate
+``_BIG_N`` = 32768 would choose between the two kernels: the self-kNN
+(k = 24, B = 2) at N = 16000, 24000, 32768 and 64000, the ScanNet step's
+three label propagations from its 64000-point stage 0 (B = 2, queries the
+FPS stages of 16000, 4000 and 1000 points, k = 4, 16, 64), and the
+whole-scene boundary kNN (self, k = 24, B = 1) on room-like clouds of
+155648, 221184 and 311296 points; the package's own dispatch, and each of
+kernels 6 and 7 where the package has both.
+
+The script reads only what every version of the package has (``ops.knn``,
+``ops.contrast_grad_support``), so ``tools/profile_ab.sh`` runs it from the
+change's tree over the parent's package too: put that package first on
+``PYTHONPATH``.
+"""
+from __future__ import annotations
+
+import argparse
+import inspect
+import statistics
+import subprocess
+
+import numpy as np
+import torch
+
+from amcontrast3d_tpu_torch import ops
+from amcontrast3d_tpu_torch.ops import spatial
+
+KNN_K = 24
+KNN_KERNELS = ("knn_kernel", "knn_big_kernel")   # the kNN kernels' names
+UP_CHANNELS = (64, 128, 256, 512)
+CROSSING_N = (16000, 24000, 32768, 64000)
+ROOM_N = (155648, 221184, 311296)
+
+
+def card() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, runs: int) -> float:
+    fn()
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def kernel_ms(fn, runs: int, names) -> float:
+    """Device ms a run of the kernels whose names hold one of ``names``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:   # the attribute's name before PyTorch 2.4
+            us = e.self_cuda_time_total
+        if e.device_type == DeviceType.CUDA and any(x in e.key for x in names):
+            total += us
+    return total / 1e3 / runs
+
+
+def takes_layout() -> bool:
+    """Whether this package's kernels read a layout the caller made."""
+    return "cloud" in inspect.signature(ops.knn).parameters
+
+
+def stages_of(rng, dev, b: int, n: int, side: float) -> list:
+    p = torch.from_numpy((rng.rand(b, n, 3) * side).astype(np.float32)).to(dev)
+    stages = [p]
+    for _ in range(3):
+        prev = stages[-1]
+        idx = ops.furthest_point_sample(prev, prev.shape[1] // 4)
+        stages.append(ops.gather_points(prev, idx).contiguous())
+    return stages
+
+
+def room_cloud(rng, n: int, voxel: float = 0.02) -> torch.Tensor:
+    """(1, n, 3) room-like cloud: the six faces of a 7 x 6 x 3 m room (1 cm
+    of noise) and four solid boxes, one point per ``voxel``."""
+    pts = rng.rand(4 * n, 3) * [7, 6, 3]
+    axis = rng.randint(0, 3, len(pts))
+    side = rng.randint(0, 2, len(pts)) * np.array([7, 6, 3])[axis]
+    pts[np.arange(len(pts)), axis] = side + 0.01 * rng.randn(len(pts))
+    solid = rng.rand(n, 3) * [1.2, 1.0, 0.8] + \
+        rng.randint(1, 5, (n, 1)) * [1.2, 1.0, 0.0]
+    pts = np.concatenate([pts, solid])
+    _, first = np.unique(np.floor(pts / voxel).astype(np.int64), axis=0,
+                         return_index=True)
+    return torch.from_numpy(pts[rng.permutation(first)[:n]][None]
+                            .astype(np.float32))
+
+
+def crossing_line(name: str, sup, q, k: int, runs: int, layouts_on: bool) -> None:
+    """The kNN on one call's inputs (over one layout of ``sup`` where the
+    package takes one): kernel device time of its dispatch, and of kernels
+    6 and 7 each where the package has both."""
+    args = (sup, q, k) + ((spatial.sort_support(sup),) if layouts_on else ())
+    times = [f"kNN {kernel_ms(lambda: ops.knn(*args), runs, KNN_KERNELS):.4f} ms"]
+    for label, fn, names in (("kernel 6", "knn_small", ("knn_kernel",)),
+                             ("kernel 7", "knn_big", ("knn_big_kernel",))):
+        if hasattr(ops, fn):
+            ms = kernel_ms(lambda: getattr(ops, fn)(*args), runs, names)
+            times.append(f"{label} {ms:.4f} ms")
+    print(f"{name} B={sup.shape[0]} M={q.shape[1]} N={sup.shape[1]} k={k}, "
+          f"kernel device time: {', '.join(times)}")
+
+
+def knn_line(sup, q, k, runs: int, layout) -> float:
+    """Prints one kNN call's times; returns its kernel time."""
+    args = (sup, q, k) + (() if layout is None else (layout,))
+
+    def call():
+        return ops.knn(*args)
+    extra = ""
+    if hasattr(ops, "knn_big"):
+        def big():
+            return ops.knn_big(*args)
+        extra = (f"; kernel 7 (knn_big) {cuda_ms(big, runs):.4f} ms, kernel "
+                 f"{kernel_ms(big, runs, ('knn_big_kernel',)):.4f}")
+    ms = kernel_ms(call, runs, KNN_KERNELS)
+    print(f"  knn B={sup.shape[0]} M={q.shape[1]} N={sup.shape[1]} k={k}: "
+          f"wrapper {cuda_ms(call, runs):.4f} ms, kernel {ms:.4f}{extra}")
+    return ms
+
+
+def support_line(rng, ps, c: int, runs: int, layout) -> float:
+    b, n, _ = ps.shape
+    dev = ps.device
+    f = torch.nn.functional.normalize(torch.from_numpy(
+        rng.randn(b, n, c).astype(np.float32)).to(dev), dim=-1)
+    lab = torch.from_numpy(rng.randint(0, 13, (b, n)).astype(np.float32)).to(dev)
+    kth = (ops.knn(ps, ps, KNN_K)[1][..., -1] * (1.0 + 1e-5)).contiguous()
+    g4 = torch.from_numpy(rng.randn(b, n, 4).astype(np.float32)).to(dev)
+    args = (ps, f, lab, kth, g4, 1 / 0.3, False)
+    if layout is None:
+        def call():
+            return ops.contrast_grad_support(*args)
+    else:
+        def call():
+            return ops.contrast_grad_support(*args, cloud=layout)
+    ms = kernel_ms(call, runs, ("contrast_grad",))
+    print(f"  support VJP B={b} N={n} C={c}: wrapper {cuda_ms(call, runs):.4f} "
+          f"ms, kernel {ms:.4f}")
+    return ms
+
+
+def step(rng, dev, name: str, b: int, n: int, side: float, runs: int,
+         knn_calls, layouts_on: bool) -> None:
+    stages = stages_of(rng, dev, b, n, side)
+    layouts = spatial.sort_stages(stages) if layouts_on else [None] * 4
+    print(f"{name} (B={b}, N={n}):")
+    if layouts_on:
+        sort_ms = cuda_ms(lambda: spatial.sort_stages(stages), runs)
+        print(f"  the four stage layouts by one sort: {sort_ms:.4f} ms")
+    total = 0.0
+    for si, qi, k in knn_calls:
+        total += knn_line(stages[si], stages[qi], k, runs, layouts[si])
+    print(f"  kNN calls summed (kernel device time): {total:.4f} ms")
+    total = 0.0
+    for s, p in enumerate(stages):
+        total += support_line(rng, p, UP_CHANNELS[s], runs, layouts[s])
+    print(f"  support VJP summed over the four stages (kernel device time): "
+          f"{total:.4f} ms")
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--crossing", action="store_true",
+                    help="self-kNN through kernels 6 and 7 at N = 16000-64000")
+    ap.add_argument("--runs", type=int, default=11)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_scans needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    layouts_on = takes_layout()
+    print(f"{card()}; torch {torch.__version__}, CUDA {torch.version.cuda}; "
+          f"stage layouts made ahead: {layouts_on}")
+    rng = np.random.RandomState(0)
+    if args.crossing:
+        for n in CROSSING_N:
+            p = torch.from_numpy((rng.rand(2, n, 3) * 4).astype(np.float32)).to(dev)
+            crossing_line("self-kNN", p, p, KNN_K, args.runs, layouts_on)
+        stages = stages_of(rng, dev, 2, 64000, 4.0)
+        for s in range(1, 4):
+            crossing_line(f"ScanNet label call {s}", stages[0], stages[s],
+                          4 ** s, args.runs, layouts_on)
+        for n in ROOM_N:
+            p = room_cloud(rng, n).to(dev)
+            crossing_line("room self-kNN", p, p, KNN_K, args.runs, layouts_on)
+        return
+    s3dis = [(s, s, KNN_K) for s in range(4)] + [(0, s, 4 ** s) for s in range(1, 4)]
+    step(rng, dev, "S3DIS step", 4, 24000, 4.0, args.runs, s3dis, layouts_on)
+    # ScanNet: the self-kNN of stages 1-3 (stage 0's is not in the loss)
+    step(rng, dev, "ScanNet step", 2, 64000, 4.0, args.runs,
+         [(s, s, KNN_K) for s in range(1, 4)], layouts_on)
+
+
+if __name__ == "__main__":
+    main()

@@ -20,8 +20,12 @@
    within 1e-5·(1+max|out|) and its backward within 1e-5·(1+max|df|);
    contrast forward counts and threshold identical and its sums within
    1e-5·(1+max|ref|); both halves of the contrast VJP within
-   1e-4·(1+max|df|); the exact kNN's indices and d² identical at the seven
-   (M, N, k) of a train step; the CrossMask feature at the four decoder
+   1e-4·(1+max|df|), the chunk-pruned support half over the stage's sorted
+   layout and the same bits over two runs; the exact kNN's indices and d²
+   identical at the seven (M, N, k) of a train step, each over its
+   support's layout (the four stages by one sort, as the loss sorts them);
+   both chunk-pruned kernels again on a 1/128 m grid at the stage
+   sizes (d² ties at every k-th); the CrossMask feature at the four decoder
    shapes, for both fusions, with a continuous ambiguity and with one full
    of exact zeros and ties: its selection and the MIN rows identical,
    MIN_ALL0 within 1e-5·(1+max); its VJP (float atomics) within
@@ -29,7 +33,14 @@
    larger of its bytes (inputs read once, outputs written once) over
    3.35 TB/s and its float32 instructions over 33.5 T/s (132 SMs × 128
    lanes × 1.98 GHz; the kernels run without FMA), counted from this run's
-   data where the work depends on it;
+   data where the work depends on it: the two listed chunk-pruned scans
+   (kNN, support VJP) a box test per (block of 8 points, chunk), one per
+   chunk a point reads (its bound admits it) and a distance test per point
+   of those chunks, with the dense bound (every pair) printed beside it and
+   kept as ``dense_bound_ms``; the three layout kernels (``csrc/layout.cu``:
+   the keys and the packing of the four stage layouts around one sort, the
+   support VJP's sorted columns at each stage) identical to their twins and
+   every layout identical to ``sort_support`` of its stage, timed per step;
 4. drives the AA eval path: ``BaseSeg_AMContrast3D`` built from
    ``cfgs/s3dis/AMContrast3D-AA.yaml`` (PointNeXt-XL, width 64, blocks
    [1,4,7,4,4], random weights from a seeded generator) through
@@ -65,12 +76,13 @@
    chunk-skipping ball query at the three (M, N, r) pairs whose support
    exceeds 32768 points, indices identical to the twin and to the
    scan-everything kernel, with the share of chunk visits it skips; the
-   chunk-skipping kNN (self-kNN, k = 24), indices and d² identical to the
-   twin and to the scan-everything kernel.  Each with its time, the twin's
-   (one run), the bound and, for the kNN, ``topk`` of ``cdist``² in tiles.
-   The two chunk-skipping kernels' bounds count what this run's data needs
-   of a box-pruned scan: 18 float instructions per (query, chunk) box test
-   and 9 per point of the chunks whose bound admits them;
+   room's boundary kNN (self-kNN, k = 24) through kernel 6, indices and d²
+   identical to the twin.  Each with its time, the twin's (one run), the
+   bound and, for the kNN, ``topk`` of ``cdist``² in tiles.  The
+   chunk-skipping kernels' bounds count what this run's data needs of a
+   box-pruned scan: 18 float instructions per (query, chunk) box test (the
+   kNN: per block of 8 queries and chunk, and per chunk a query reads) and
+   9 per point of the chunks whose bound admits them;
 8. drives the whole-scene test path through ``engine.cli.main_cli``
    (``mode=test``, ``miou_B_I=True``) at full width: AA on two Synthetic
    rooms of 250000 raw points whose voxel-rank subclouds (91478 and 130575
@@ -98,9 +110,13 @@
    input, and both kernels again at the S3DIS recipe's largest shape
    (4, 24000 → 6000, C = 128); the batched FPS 2 × 64000 → 16000 (one
    cluster a cloud, ``csrc/fps.cu``), picks identical to the twin, and the
-   grid kernel cloud by cloud beside it; the three contrast kernels at (2, 64000, 64), the
-   large-cloud kNN (64000², k = 24) and ball query (16000 × 64000,
-   r = 0.05) at B = 2 against their twins;
+   grid kernel cloud by cloud beside it; the three contrast kernels at
+   (2, 64000, 64) (the support half over the cloud's layout, the same bits
+   twice, with its pruned bound), the kNN at the 64000-point stage 0
+   (64000², k = 24, and 16000 × 64000, k = 4) and the large-cloud ball
+   query (16000 × 64000, r = 0.05) at B = 2 against their twins; the kNN at
+   the self-kNN of stages 1-3 (16000, 4000, 1000) beside ``topk`` of
+   ``cdist``²;
 10. drives the train CLI at full width through ``engine.cli.main_cli`` on
    Synthetic rooms, with the recipes' loaders (6 workers), train transforms,
    schedules and checkpoints: the ScanNet recipe
@@ -210,16 +226,15 @@ KERNELS = (  # name, source, the TPU kernel it replaces
      "amcontrast3d_tpu/ops/contrast_pallas.py:306"),
     ("contrast_grad_support", "amcontrast3d_tpu_torch/csrc/contrast.cu",
      "amcontrast3d_tpu/ops/contrast_pallas.py:360"),
+    # at every N: it also takes the JAX package's large-cloud kernel's place
     ("knn", "amcontrast3d_tpu_torch/csrc/knn.cu",
-     "amcontrast3d_tpu/ops/knn_pallas.py:58"),
+     "amcontrast3d_tpu/ops/knn_pallas.py:58, :117"),
     ("refine_cross", "amcontrast3d_tpu_torch/csrc/refine.cu",
      "amcontrast3d_tpu/ops/contrast_pallas.py:951"),
     ("refine_cross_backward", "amcontrast3d_tpu_torch/csrc/refine.cu",
      "amcontrast3d_tpu/ops/contrast_pallas.py:1091"),
     ("fps_b1", "amcontrast3d_tpu_torch/csrc/fps_b1.cu",
      "amcontrast3d_tpu/ops/fps_pallas.py:87"),
-    ("knn_big", "amcontrast3d_tpu_torch/csrc/knn_big.cu",
-     "amcontrast3d_tpu/ops/knn_pallas.py:117"),
     ("ball_query_big", "amcontrast3d_tpu_torch/csrc/ball_query_big.cu",
      "amcontrast3d_tpu/ops/knn_pallas.py:224"),
     ("three_interpolation_backward_big",
@@ -240,9 +255,18 @@ KERNELS = (  # name, source, the TPU kernel it replaces
      "amcontrast3d_tpu/ops/aggregate_pallas.py:172"),
     ("aggregate_backward", "amcontrast3d_tpu_torch/csrc/aggregate.cu",
      "amcontrast3d_tpu/ops/aggregate_pallas.py:222"),
+    # the train step's stage layouts and the support VJP's columns: no TPU
+    # kernel, the JAX package's XLA code ahead of the Pallas kernels
+    ("layout_keys", "amcontrast3d_tpu_torch/csrc/layout.cu",
+     "amcontrast3d_tpu/ops/contrast_pallas.py:558 (XLA, not a kernel)"),
+    ("layout_pack", "amcontrast3d_tpu_torch/csrc/layout.cu",
+     "amcontrast3d_tpu/ops/contrast_pallas.py:578 (XLA, not a kernel)"),
+    ("support_layout", "amcontrast3d_tpu_torch/csrc/layout.cu",
+     "amcontrast3d_tpu/ops/contrast_pallas.py:686 (XLA, not a kernel)"),
 )
 STEP_KERNELS = KERNELS[:10]      # the kernels of the four step paths
-APPROX_KERNELS = KERNELS[16:]    # the approx configuration, the fused tail
+APPROX_KERNELS = KERNELS[15:19]  # the approx configuration, the fused tail
+LAYOUT_KERNELS = KERNELS[19:]    # the layouts every train step makes
 # the whole-scene paths: Synthetic rooms of SCENE_POINTS raw points from the
 # dataset's seed 0; the first two voxelise (0.04 m) to 91478 and 130575
 # points, which pad to the buckets 106496 and 155648
@@ -252,21 +276,25 @@ ROOM_N, HUGE_N, HUGE_PICKS = 155648, 1200000, 4096
 FPS_OPS = PAIR_OPS + 1           # a distance, a running minimum, a compare
 BOX_OPS = 18                     # 6 sub, 6 max, 3 mul, 2 add, 1 compare
 CHUNK = 64                       # ops/spatial.py::CHUNK
+LIST_POINTS = 8                  # points a block lists: chunk_list.cuh::kListWarps
 EVAL_LAUNCHES = {"fps": 4, "ball_query": 8, "three_interpolation": 4}
+# a train step sorts its four stage clouds once (two layout kernels around
+# a sort) and gathers the support VJP's columns at each stage
+LAYOUT_LAUNCHES = {"layout_keys": 1, "layout_pack": 1, "support_layout": 4}
 TRAIN_LAUNCHES = {**EVAL_LAUNCHES, "three_interpolation_backward": 4,
                   "contrast_forward": 4, "contrast_grad_rows": 4,
-                  "contrast_grad_support": 4, "knn": 7}
+                  "contrast_grad_support": 4, "knn": 7, **LAYOUT_LAUNCHES}
 # the ScanNet recipe: 2 x 64000 -> 16000 -> 4000 -> 1000 -> 250; only the
-# 64000-point support exceeds BIG_N (one ball query, one self-kNN and the
-# three label propagations) and fp0's backward exceeds the query-buffer
-# gate; the batched FPS takes all four stages
+# 64000-point support exceeds BIG_N (one ball query) and fp0's backward
+# exceeds the query-buffer gate; the batched FPS takes all four stages
 SCANNET_CFG = os.path.join(REPO, "cfgs", "scannet", "AMContrast3D-AA.yaml")
 SCANNET_B, SCANNET_N, SCANNET_CLASSES = 2, 64000, 20
 SCANNET_LAUNCHES = {
     "fps": 4, "ball_query_big": 1, "ball_query": 7,
     "three_interpolation": 4, "three_interpolation_backward_big": 1,
     "three_interpolation_backward": 3, "contrast_forward": 4,
-    "contrast_grad_rows": 4, "contrast_grad_support": 4, "knn_big": 4, "knn": 3}
+    "contrast_grad_rows": 4, "contrast_grad_support": 4, "knn": 7,
+    **LAYOUT_LAUNCHES}
 CLI_LIMIT_S = 420     # a train CLI phase that hangs (a worker pool) is cut
 # the rungs from the 221184 bucket up (ScanNet recipe, 0.02 m voxels): a
 # Synthetic room of RUNG_ROOMS[bucket] raw points voxelises to subclouds in
@@ -394,6 +422,7 @@ def kernel_phases(ops, dev, rng, tag: str) -> dict:
     instructions summed over the stages (per forward for the first three,
     per train step for the rest)."""
     from amcontrast3d_tpu_torch.models.pointnext import to_full_list
+    from amcontrast3d_tpu_torch.ops import spatial
     from amcontrast3d_tpu_torch.tools import profile_fps
     from amcontrast3d_tpu_torch.tools.profile_train import voronoi_labels
 
@@ -487,22 +516,9 @@ def kernel_phases(ops, dev, rng, tag: str) -> dict:
                       0, rows, contrib))
         labels = voronoi_labels(rng, pts)
         lab0 = torch.from_numpy(labels.astype(np.float32)).to(dev)
-        # the seven kNN calls of a train step: 4 self-kNN for the contrast
-        # thresholds and 3 label propagations from stage 0
-        knn_calls = [(stages[s], stages[s], KNN_K) for s in range(4)] + \
-            [(stages[0], stages[s], 4 ** s) for s in range(1, 4)]
-        for sup, q, k in knn_calls:
-            got_i, got_d = ops.knn(sup, q, k)
-            want_i, want_d = ops.knn_plain(sup, q, k)
-            name = f"knn {cloud} M={q.shape[1]} N={sup.shape[1]} k={k}"
-            note("knn", check_equal(f"{name} indices", got_i, want_i))
-            note("knn", check_equal(f"{name} d2", got_d, want_d))
-            ns, nq = sup.shape[1], q.shape[1]
-            timed("knn", cloud, lambda: ops.knn(sup, q, k),
-                  lambda: ops.knn_plain(sup, q, k),
-                  B * ((ns + nq) * 12 + nq * k * 8), B * nq * ns * PAIR_OPS,
-                  lambda: torch.topk(torch.cdist(q, sup).square_(), min(k, ns),
-                                     largest=False))
+        # the four stage clouds sorted by one sort, as the loss sorts them
+        layouts = spatial.sort_stages(stages[:4])
+        knn_scans(ops, spatial, stages, layouts, cloud, note, timed, results, tag)
         for s in range(4):                     # the contrast stages
             ps = stages[s]
             n, c = ps.shape[1], up_channels[s]
@@ -528,15 +544,16 @@ def kernel_phases(ops, dev, rng, tag: str) -> dict:
                   io + B * n * 36, scan + members * (2 * c + 12))
             g4 = randn(B, n, 4)
             gargs = (ps, f, lab, kth, g4, 1 / 0.3, False)
-            for name, kern, plain in (
-                    ("contrast_grad_rows", ops.contrast_grad_rows,
-                     ops.contrast_grad_rows_plain),
-                    ("contrast_grad_support", ops.contrast_grad_support,
-                     ops.contrast_grad_support_plain)):
-                note(name, check_close(f"{name} {cloud} stage {s}",
-                                       kern(*gargs), plain(*gargs), 1e-4))
-                timed(name, cloud, lambda: kern(*gargs), lambda: plain(*gargs),
-                      io + B * n * (16 + 4 * c), scan + members * (4 * c + 12))
+            note("contrast_grad_rows", check_close(
+                f"contrast_grad_rows {cloud} stage {s}",
+                ops.contrast_grad_rows(*gargs),
+                ops.contrast_grad_rows_plain(*gargs), 1e-4))
+            timed("contrast_grad_rows", cloud,
+                  lambda: ops.contrast_grad_rows(*gargs),
+                  lambda: ops.contrast_grad_rows_plain(*gargs),
+                  io + B * n * (16 + 4 * c), scan + members * (4 * c + 12))
+            support_scan(ops, spatial, gargs, layouts[s], members, cloud,
+                         f"{cloud} stage {s}", note, timed, results, tag)
         for s in range(3, -1, -1):             # the decoder's refinements
             ps = stages[s]
             n, c = ps.shape[1], up_channels[s]
@@ -574,7 +591,184 @@ def kernel_phases(ops, dev, rng, tag: str) -> dict:
                       0, rows, g.view(-1, c)))
     print(f"fps the four stages at B={B}: {fps_ms:.3f} ms, floor of picks x "
           f"one reduction {fps_floor:.3f} ms  [{tag}]")
-    return finish_kernels(results, "uniform and clustered", tag)
+    grid_scans(ops, spatial, dev, rng, note, tag)
+    return finish_kernels(results, "uniform, clustered and 1/128 m grid", tag)
+
+
+def layout_kernel_phases(ops, dev, tag: str) -> dict:
+    """The three layout kernels of a train step (``csrc/layout.cu``) at the
+    S3DIS step's four stage clouds (B=4x24000, stages from FPS, a uniform
+    and a clustered cloud) and at the ScanNet step's (2 x 64000, a 1/128 m
+    grid): keys and frames, then the packed points, codes, indices and
+    boxes, identical to their twins on the same inputs, every layout
+    identical to ``sort_support`` of its stage alone; the support VJP's
+    sorted (label, threshold) and chunk maxima at the four stages identical
+    to the twin's.  Timed per S3DIS step (one sort of the four stages, the
+    columns at each), bound by bytes."""
+    from amcontrast3d_tpu_torch.ops import spatial
+
+    results, timed, note = tally(LAYOUT_KERNELS)
+    rng = np.random.RandomState(SEED + 9)   # leaves the other phases' data as it was
+    step = clouds(rng)
+    step["grid"] = (rng.randint(0, 40, (SCANNET_B, SCANNET_N, 3)) / 128
+                    ).astype(np.float32)
+    for cloud, pts in step.items():
+        stages = [torch.from_numpy(pts).to(dev)]
+        for _ in range(3):
+            prev = stages[-1]
+            stages.append(ops.gather_points(prev, ops.furthest_point_sample(
+                prev, prev.shape[1] // 4)).contiguous())
+        b, sizes = stages[0].shape[0], tuple(p.shape[1] for p in stages)
+        points = torch.cat([p.reshape(-1, 3) for p in stages])
+        rows, nc = points.shape[0], sum(b * -(-n // CHUNK) for n in sizes)
+        keys, frame = spatial.layout_keys(points, b, sizes)
+        want = spatial.layout_keys_plain(points, b, sizes)
+        note("layout_keys", max(check_equal(f"layout keys {cloud}", keys, want[0]),
+                                check_equal(f"layout frame {cloud}", frame, want[1])))
+        timed("layout_keys", cloud, lambda: spatial.layout_keys(points, b, sizes),
+              lambda: spatial.layout_keys_plain(points, b, sizes),
+              rows * (12 + 8) + frame.numel() * 4, rows * 12)
+        skeys, perm = torch.sort(keys, stable=True)
+        got = spatial.layout_pack(points, perm, skeys, b, sizes)
+        want = spatial.layout_pack_plain(points, perm, skeys, b, sizes)
+        note("layout_pack", max(check_equal(f"layout {field} {cloud}", g, w)
+                                for field, g, w in zip(
+                                    ("packed", "codes", "index", "boxes"), got, want)))
+        timed("layout_pack", cloud,
+              lambda: spatial.layout_pack(points, perm, skeys, b, sizes),
+              lambda: spatial.layout_pack_plain(points, perm, skeys, b, sizes),
+              rows * (8 + 12 + 8 + 16 + 8 + 8) + nc * 24, rows * 6)
+        layouts = spatial.sort_stages(stages)
+        for s, (p, layout) in enumerate(zip(stages, layouts)):
+            ref = spatial.sort_support(p)
+            for field in ("packed", "boxes", "codes", "lo", "scale", "perm"):
+                check_equal(f"sort_stages {cloud} stage {s} {field}",
+                            getattr(layout, field), getattr(ref, field))
+            n = p.shape[1]
+            lab = torch.from_numpy(rng.randint(0, NUM_CLASSES, (b, n))
+                                   .astype(np.float32)).to(dev)
+            kth = (ops.knn(p, p, KNN_K, layout)[1][..., -1]
+                   * (1.0 + 1e-5)).contiguous()
+            got = ops.contrast.support_layout(layout, lab, kth)
+            want = ops.contrast.support_layout_plain(layout, lab, kth)
+            note("support_layout", max(
+                check_equal(f"support columns {cloud} stage {s}", got[0], want[0]),
+                check_equal(f"support chunk maxima {cloud} stage {s}", got[1],
+                            want[1])))
+            timed("support_layout", cloud,
+                  lambda: ops.contrast.support_layout(layout, lab, kth),
+                  lambda: ops.contrast.support_layout_plain(layout, lab, kth),
+                  b * n * (8 + 4 + 4 + 8) + b * -(-n // CHUNK) * 4, b * n)
+        if cloud == "uniform":
+            sort_ms = cuda_ms(lambda: spatial.sort_stages(stages))
+            one_ms = cuda_ms(lambda: [spatial.sort_support(p) for p in stages])
+            print(f"the four stage layouts at B={b} {sizes}: by sort_stages "
+                  f"(two kernels and a sort) {sort_ms:.4f} ms, by sort_support "
+                  f"a stage {one_ms:.4f} ms  [{tag}]")
+    print(f"layouts: every stage layout of sort_stages identical to "
+          f"sort_support of its stage (uniform and clustered at B={B}x{N}, a "
+          f"1/128 m grid at {SCANNET_B}x{SCANNET_N})  [{tag}]")
+    return finish_kernels(results, "uniform, clustered and 1/128 m grid", tag)
+
+
+def knn_scans(ops, spatial, stages, layouts, cloud, note, timed, results, tag):
+    """Kernel 6 at the seven kNN calls of a train step (4 self-kNN for the
+    contrast thresholds, 3 label propagations from stage 0), each over its
+    support's layout as the loss hands it on: indices and d² identical to
+    the twin; on the uniform cloud timed beside the twin and ``topk`` of
+    ``cdist``² on the same inputs, with the dense bound (every pair) and the pruned one (:func:`listed_ops`: the
+    chunks whose bound is not above the query's final k-th)."""
+    calls = [(s, s, KNN_K) for s in range(4)] + \
+        [(0, s, 4 ** s) for s in range(1, 4)]
+    for si, qi, k in calls:
+        sup, q, layout = stages[si], stages[qi], layouts[si]
+        got_i, got_d = ops.knn(sup, q, k, layout)
+        want_i, want_d = ops.knn_plain(sup, q, k)
+        name = f"knn {cloud} M={q.shape[1]} N={sup.shape[1]} k={k}"
+        note("knn", check_equal(f"{name} indices", got_i, want_i))
+        note("knn", check_equal(f"{name} d2", got_d, want_d))
+        nb, ns, nq = sup.shape[0], sup.shape[1], q.shape[1]
+        visits, pairs = chunk_visits(spatial, sup, q, got_d[..., -1], False,
+                                     layout)
+        dense_ops = nb * nq * ns * PAIR_OPS
+        pruned_ops = listed_ops(visits, pairs, nb, nq)
+        ms = timed("knn", cloud, lambda: ops.knn(sup, q, k, layout),
+                   lambda: ops.knn_plain(sup, q, k),
+                   nb * ((ns + nq) * 12 + nq * k * 8), pruned_ops,
+                   lambda: torch.topk(torch.cdist(q, sup).square_(), min(k, ns),
+                                      largest=False))
+        if ms is None:
+            continue
+        results["knn"]["dense_ops"] = results["knn"].get("dense_ops", 0.0) + dense_ops
+        print(f"{name}: {ms:.4f} ms, bound dense {dense_ops / PEAK_OPS * 1e3:.4f} / "
+              f"pruned {pruned_ops / PEAK_OPS * 1e3:.4f}"
+              f" ms, chunk visits needed {visits / (nb * nq):.2f} a query of "
+              f"{pairs // (nb * nq)}  [{tag}]")
+
+
+def support_scan(ops, spatial, gargs, layout, members, cloud, where, note,
+                 timed, results, tag):
+    """Kernel 16 over the stage's layout against its twin (1e-4·(1+max|df|))
+    and against itself (two runs, the same bits); timed with the dense
+    bound (every pair) and the pruned one (:func:`listed_ops`: the chunks
+    whose bound is not above the chunk's largest threshold, then the
+    members' feature work)."""
+    p, f, lab, kth = gargs[:4]
+    nb, n, c = f.shape
+    name = "contrast_grad_support"
+    got = ops.contrast_grad_support(*gargs, cloud=layout)
+    note(name, check_close(f"{name} {where}", got,
+                           ops.contrast_grad_support_plain(*gargs), 1e-4))
+    check_equal(f"{name} {where}, two runs",
+                ops.contrast_grad_support(*gargs, cloud=layout), got)
+    cmax = ops.contrast.support_layout(layout, lab, kth)[1]
+    visits, pairs = chunk_visits(spatial, p, p, cmax[:, None, :], False, layout)
+    dense_ops = nb * n * n * PAIR_OPS + members * (4 * c + 12)
+    pruned_ops = listed_ops(visits, pairs, nb, n) + members * (4 * c + 12)
+    if timed is None:
+        return
+    ms = timed(name, cloud, lambda: ops.contrast_grad_support(*gargs, cloud=layout),
+               lambda: ops.contrast_grad_support_plain(*gargs),
+               nb * n * (12 + 4 * c + 8) + nb * n * (16 + 4 * c), pruned_ops)
+    if ms is not None:
+        results[name]["dense_ops"] = results[name].get("dense_ops", 0.0) + dense_ops
+        print(f"{name} {where} (B={nb}, N={n}, C={c}): {ms:.4f} ms, bound dense "
+              f"{dense_ops / PEAK_OPS * 1e3:.4f} / pruned "
+              f"{pruned_ops / PEAK_OPS * 1e3:.4f} ms, chunk visits needed "
+              f"{visits / (nb * n):.2f} a point of {pairs // (nb * n)}  [{tag}]")
+
+
+def grid_scans(ops, spatial, dev, rng, note, tag):
+    """Kernels 6 and 16 at the step's stage sizes on a 1/128 m grid (d²
+    ties at every k-th, repeated points, equal Morton codes across chunk
+    edges): the seven kNN calls identical to the twin, the support VJP
+    within 1e-4·(1+max|df|) of it and the same bits twice."""
+    stages = [torch.from_numpy((rng.randint(0, 40, (B, N >> (2 * s), 3)) / 128)
+                               .astype(np.float32)).to(dev) for s in range(4)]
+    layouts = spatial.sort_stages(stages)
+    for si, qi, k in [(s, s, KNN_K) for s in range(4)] + \
+            [(0, s, 4 ** s) for s in range(1, 4)]:
+        sup, q = stages[si], stages[qi]
+        got_i, got_d = ops.knn(sup, q, k, layouts[si])
+        want_i, want_d = ops.knn_plain(sup, q, k)
+        name = f"knn grid M={q.shape[1]} N={sup.shape[1]} k={k}"
+        note("knn", check_equal(f"{name} indices", got_i, want_i))
+        note("knn", check_equal(f"{name} d2", got_d, want_d))
+    for s, p in enumerate(stages):
+        n, c = p.shape[1], UP_CHANNELS[s]
+        f = torch.nn.functional.normalize(torch.from_numpy(
+            rng.randn(B, n, c).astype(np.float32)).to(dev), dim=-1)
+        lab = torch.from_numpy(rng.randint(0, NUM_CLASSES, (B, n))
+                               .astype(np.float32)).to(dev)
+        kth = (ops.knn(p, p, KNN_K, layouts[s])[1][..., -1]
+               * (1.0 + 1e-5)).contiguous()
+        g4 = torch.from_numpy(rng.randn(B, n, 4).astype(np.float32)).to(dev)
+        gargs = (p, f, lab, kth, g4, 1 / 0.3, False)
+        support_scan(ops, spatial, gargs, layouts[s], 0, "grid",
+                     f"grid stage {s}", note, None, None, tag)
+    print(f"kernels 6 and 16 on a 1/128 m grid at the stage sizes: kNN "
+          f"identical to the twin at the seven calls, the support VJP within "
+          f"1e-4 and repeatable at the four stages  [{tag}]")
 
 
 def finish_kernels(results: dict, clouds_note: str, tag: str) -> dict:
@@ -586,12 +780,17 @@ def finish_kernels(results: dict, clouds_note: str, tag: str) -> dict:
         r["bound_ms"] = max(r["bytes"] / PEAK_BYTES, r["ops"] / PEAK_OPS) * 1e3
         r["bound_by"] = ("bytes" if r["bytes"] / PEAK_BYTES > r["ops"] / PEAK_OPS
                          else "operations")
+        dense = ""
+        if "dense_ops" in r:   # a chunk-pruned kernel: the bound of every pair too
+            r["dense_bound_ms"] = max(r["bytes"] / PEAK_BYTES,
+                                      r["dense_ops"] / PEAK_OPS) * 1e3
+            dense = f", dense bound {r['dense_bound_ms']:.4f} ms"
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
         print(f"kernel {k}: matches plain on {clouds_note} clouds "
               f"(max abs err {r['err']}); summed over stages {r['ms']:.4f} ms "
               f"vs plain {r['plain_ms']:.4f} ms, library call {lib}, bound "
               f"{r['bound_ms']:.4f} ms by {r['bound_by']} ({r['bytes']:.4g} "
-              f"bytes, {r['ops']:.4g} float instructions)  [{tag}]")
+              f"bytes, {r['ops']:.4g} float instructions){dense}  [{tag}]")
     return results
 
 
@@ -627,29 +826,45 @@ def room_cloud(rng, n: int, voxel: float = 0.04) -> np.ndarray:
     return pts[None].astype(np.float32)
 
 
-def chunk_visits(spatial, support, query, limit, strict: bool):
+def listed_ops(visits: int, pairs: int, nb: int, nq: int) -> int:
+    """Float instructions of a scan in the listed design of kernels 6 and
+    16 (``csrc/chunk_list.cuh``): each block of LIST_POINTS points tests
+    every chunk's box once against theirs, each point then tests the box
+    of every chunk it reads (``visits``, of ``pairs`` = nb·nq·nc from
+    :func:`chunk_visits`) and every point of those chunks."""
+    nc = pairs // (nb * nq)
+    return ((nb * -(-nq // LIST_POINTS) * nc + visits) * BOX_OPS
+            + visits * CHUNK * PAIR_OPS)
+
+
+def chunk_visits(spatial, support, query, limit, strict: bool, cloud=None):
     """(visits, pairs): the (query, chunk) pairs whose box lower bound lies
-    below ``limit`` (``<`` if strict, else ``<=``; a number or one per
-    query), the chunks any box-pruned scan has to read, and all pairs."""
-    cloud = spatial.sort_support(support)
+    below ``limit`` (``<`` if strict, else ``<=``; a number, one per query
+    (B, M), or one per chunk (B, 1, nc)), the chunks any box-pruned scan has
+    to read, and all pairs; over ``cloud``, the support's layout, when
+    given."""
+    if cloud is None:
+        cloud = spatial.sort_support(support)
     visits = 0
     for s in range(0, query.shape[1], 4096):
         lb = spatial.bbox_lb(query[:, s:s + 4096, None, :], cloud.boxes[:, None])
-        lim = limit[:, s:s + 4096, None] if torch.is_tensor(limit) else limit
+        lim = limit
+        if torch.is_tensor(limit) and limit.dim() == 2:
+            lim = limit[:, s:s + 4096, None]
         visits += int((lb < lim if strict else lb <= lim).sum())
-    return visits, query.shape[1] * cloud.boxes.shape[1]
+    return visits, query.shape[0] * query.shape[1] * cloud.boxes.shape[1]
 
 
 def scene_kernel_phases(ops, dev, rng, tag: str) -> dict:
     """The three whole-room kernels against their twins (and against the
-    scan-everything kernels they take over from) at the shapes of a
+    kernels they take over from) at the shapes of a
     155648-point subcloud; returns the same records as ``kernel_phases``,
     with the times of the room-like cloud."""
     from amcontrast3d_tpu_torch.ops import spatial
 
     results = {name: {"err": None, "ms": 0.0, "plain_ms": 0.0,
                       "library_ms": None, "bytes": 0.0, "ops": 0.0}
-               for name in ("fps_b1", "knn_big", "ball_query_big")}
+               for name in ("fps_b1", "ball_query_big")}
 
     def note(name, err):
         results[name]["err"] = max(results[name]["err"] or 0.0, err)
@@ -712,36 +927,28 @@ def scene_kernel_phases(ops, dev, rng, tag: str) -> dict:
             add("ball_query_big", timed, ms, plain_ms,
                 (ns + nq) * 12 + nq * 32 * 4,
                 pairs * BOX_OPS + visits * CHUNK * PAIR_OPS)
+        # the boundary kNN of a whole room: kernel 6 at a room's size (its
+        # JSON row is the train step's seven calls)
         p = stages[0]
-        name = f"knn_big {cloud} self-kNN {ROOM_N} k={KNN_K}"
-        got_i, got_d = ops.knn_big(p, p, KNN_K)
+        name = f"knn {cloud} self-kNN {ROOM_N} k={KNN_K}"
+        got_i, got_d = ops.knn(p, p, KNN_K)
         (want_i, want_d), plain_ms = timed_once(lambda: ops.knn_plain(p, p, KNN_K))
-        note("knn_big", check_equal(f"{name} indices", got_i, want_i))
-        note("knn_big", check_equal(f"{name} d2", got_d, want_d))
-        small_i, small_d = ops.knn_small(p, p, KNN_K)
-        check_equal(f"{name} indices vs the scan-everything kernel", got_i, small_i)
-        check_equal(f"{name} d2 vs the scan-everything kernel", got_d, small_d)
-        ms = cuda_ms(lambda: ops.knn_big(p, p, KNN_K))
-        small_ms = cuda_ms(lambda: ops.knn_small(p, p, KNN_K), 3)
+        check_equal(f"{name} indices", got_i, want_i)
+        check_equal(f"{name} d2", got_d, want_d)
+        ms = cuda_ms(lambda: ops.knn(p, p, KNN_K))
 
         def library():
             for s in range(0, ROOM_N, 2048):
                 torch.topk(torch.cdist(p[:, s:s + 2048], p).square_(), KNN_K,
                            largest=False)
         library_ms = cuda_ms(library, 1)
-        # what this data needs: a box test per (query, chunk) and a distance
-        # test per point of the chunks whose bound is not above the query's
-        # final k-th d²; beside it the dense scan of the small-cloud kernel
         visits, pairs = chunk_visits(spatial, p, p, got_d[..., -1], False)
-        print(f"{name}: {ms:.3f} ms, scan-everything kernel {small_ms:.3f} ms "
-              f"(its bound {ROOM_N * ROOM_N * PAIR_OPS / PEAK_OPS * 1e3:.3f} ms), "
+        print(f"{name}: identical to the twin, {ms:.3f} ms, bound dense "
+              f"{ROOM_N * ROOM_N * PAIR_OPS / PEAK_OPS * 1e3:.3f} / pruned "
+              f"{listed_ops(visits, pairs, 1, ROOM_N) / PEAK_OPS * 1e3:.3f} ms, "
               f"plain {plain_ms:.1f} ms, topk(cdist^2) in tiles "
               f"{library_ms:.1f} ms, chunk visits needed "
               f"{visits / ROOM_N:.2f} a query of {pairs // ROOM_N}  [{tag}]")
-        add("knn_big", timed, ms, plain_ms, 2 * ROOM_N * 12 + ROOM_N * KNN_K * 8,
-            pairs * BOX_OPS + visits * CHUNK * PAIR_OPS)
-        if timed:
-            results["knn_big"]["library_ms"] = library_ms
     # above 2^20 points, a few thousand picks (the twin the same ones):
     # the grid kernel, which the dispatch no longer sends such clouds to
     # (the chunk-pruned kernel takes them, rung_kernel_phases)
@@ -772,6 +979,8 @@ def scannet_kernel_phases(ops, dev, rng, tag: str) -> dict:
     clouds of 64000 points that differ; returns the record of the
     support-owned interpolation VJP (the other kernels' records come from the
     phases at their own main shapes)."""
+    from amcontrast3d_tpu_torch.ops import spatial
+
     results = {"three_interpolation_backward_big": {
         "err": None, "ms": 0.0, "plain_ms": 0.0, "library_ms": None,
         "bytes": 0.0, "ops": 0.0}}
@@ -858,16 +1067,41 @@ def scannet_kernel_phases(ops, dev, rng, tag: str) -> dict:
     if (idx == 7).any() or got[:, 7].any():
         raise AssertionError("an unselected support row is not zero")
 
-    # the large-cloud kernels with two clouds a call
+    # the kNN kernel at the 64000-point stage 0, two clouds a call
     for name, sup, query, k in (("self-kNN", p, p, KNN_K),
                                 ("label propagation", p, q, 4)):
         got_i, got_d = ops.knn(sup, query, k)
         (want_i, want_d), plain_ms = timed_once(lambda: ops.knn_plain(sup, query, k))
-        check_equal(f"knn_big B={nb} {name} indices", got_i, want_i)
-        check_equal(f"knn_big B={nb} {name} d2", got_d, want_d)
+        check_equal(f"knn B={nb} {name} indices", got_i, want_i)
+        check_equal(f"knn B={nb} {name} d2", got_d, want_d)
         ms = cuda_ms(lambda: ops.knn(sup, query, k), 5)
-        print(f"knn_big B={nb} {name} {query.shape[1]} x {n1} k={k}: identical "
+        print(f"knn B={nb} {name} {query.shape[1]} x {n1} k={k}: identical "
               f"to the twin, {ms:.3f} ms vs plain {plain_ms:.1f} ms  [{tag}]")
+    # kernel 6 at the recipe's stages 1-3 (self-kNN, k = 24, over the stage's
+    # layout), beside topk of cdist² on the same inputs
+    sp = q
+    for s in range(1, 4):
+        if s > 1:
+            sp = ops.gather_points(sp, ops.furthest_point_sample(
+                sp, sp.shape[1] // 4)).contiguous()
+        ns = sp.shape[1]
+        layout = spatial.sort_support(sp)
+        got_i, got_d = ops.knn(sp, sp, KNN_K, layout)
+        (want_i, want_d), plain_ms = timed_once(
+            lambda: ops.knn_plain(sp, sp, KNN_K))
+        check_equal(f"knn B={nb} stage {s} self-kNN {ns} indices", got_i, want_i)
+        check_equal(f"knn B={nb} stage {s} self-kNN {ns} d2", got_d, want_d)
+        ms = cuda_ms(lambda: ops.knn(sp, sp, KNN_K, layout), 5)
+        lib_ms = cuda_ms(lambda: torch.topk(torch.cdist(sp, sp).square_(),
+                                            KNN_K, largest=False), 1)
+        visits, pairs = chunk_visits(spatial, sp, sp, got_d[..., -1], False,
+                                     layout)
+        print(f"knn B={nb} stage {s} self-kNN {ns} k={KNN_K}: identical to the "
+              f"twin, {ms:.4f} ms, "
+              f"topk(cdist^2) {lib_ms:.3f} ms, plain {plain_ms:.1f} ms, bound "
+              f"dense {nb * ns * ns * PAIR_OPS / PEAK_OPS * 1e3:.4f} / pruned "
+              f"{listed_ops(visits, pairs, nb, ns) / PEAK_OPS * 1e3:.4f}"
+              f" ms  [{tag}]")
     got = ops.ball_query(p, q, 0.05, 32)
     want, plain_ms = timed_once(lambda: ops.ball_query_plain(p, q, 0.05, 32))
     check_equal(f"ball_query_big B={nb} {npoint} x {n1} r=0.05", got, want)
@@ -882,7 +1116,8 @@ def scannet_kernel_phases(ops, dev, rng, tag: str) -> dict:
     lab = torch.from_numpy(rng.randint(0, SCANNET_CLASSES, (nb, n1))
                            .astype(np.float32)).to(dev)
     lab[:, ::9] = -100.0
-    kth = (ops.knn(p, p, KNN_K)[1][..., -1] * (1.0 + 1e-5)).contiguous()
+    layout = spatial.sort_support(p)
+    kth = (ops.knn(p, p, KNN_K, layout)[1][..., -1] * (1.0 + 1e-5)).contiguous()
     args = (p, f, lab, kth, 1 / 0.5, False, False, True)
     got = ops.contrast_forward(*args)
     want, plain_ms = timed_once(lambda: ops.contrast_forward_plain(*args))
@@ -894,15 +1129,26 @@ def scannet_kernel_phases(ops, dev, rng, tag: str) -> dict:
             f"vs plain {plain_ms:.1f} ms (max abs err {err})"]
     g4 = torch.from_numpy(rng.randn(nb, n1, 4).astype(np.float32)).to(dev)
     gargs = (p, f, lab, kth, g4, 1 / 0.5, False)
-    for name, kern, plain in (("rows", ops.contrast_grad_rows,
-                               ops.contrast_grad_rows_plain),
-                              ("support", ops.contrast_grad_support,
-                               ops.contrast_grad_support_plain)):
-        want, plain_ms = timed_once(lambda: plain(*gargs))
-        err = check_close(f"contrast_grad_{name} at 64000", kern(*gargs), want, 1e-4)
-        line.append(f"{name} {cuda_ms(lambda: kern(*gargs), 3):.3f} ms vs plain "
-                    f"{plain_ms:.1f} ms (max abs err {err})")
-    print(f"contrast kernels at ({nb}, {n1}, {c}), "
+    want, plain_ms = timed_once(lambda: ops.contrast_grad_rows_plain(*gargs))
+    err = check_close("contrast_grad_rows at 64000",
+                      ops.contrast_grad_rows(*gargs), want, 1e-4)
+    line.append(f"rows {cuda_ms(lambda: ops.contrast_grad_rows(*gargs), 3):.3f} "
+                f"ms vs plain {plain_ms:.1f} ms (max abs err {err})")
+    want, plain_ms = timed_once(lambda: ops.contrast_grad_support_plain(*gargs))
+    got = ops.contrast_grad_support(*gargs, cloud=layout)
+    err = check_close("contrast_grad_support at 64000", got, want, 1e-4)
+    check_equal("contrast_grad_support at 64000, two runs", got,
+                ops.contrast_grad_support(*gargs, cloud=layout))
+    cmax = ops.contrast.support_layout(layout, lab, kth)[1]
+    visits, pairs = chunk_visits(spatial, p, p, cmax[:, None, :], False, layout)
+    members = int(ops.contrast_forward(*args)[..., 4:6].sum().item())
+    pruned = listed_ops(visits, pairs, nb, n1) + members * (4 * c + 12)
+    ms = cuda_ms(lambda: ops.contrast_grad_support(*gargs, cloud=layout), 3)
+    line.append(f"support {ms:.3f} ms over the layout, the same bits twice, vs "
+                f"plain {plain_ms:.1f} ms (max abs err {err}), its pruned bound "
+                f"{pruned / PEAK_OPS * 1e3:.3f} ms ({visits / (nb * n1):.2f} "
+                f"chunk visits a point of {pairs // (nb * n1)})")
+    print(f"contrast kernels at ({nb}, {n1}, {c}), dense "
           f"bound {nb * n1 * n1 * PAIR_OPS / PEAK_OPS * 1e3:.3f} ms each by "
           f"operations: {'; '.join(line)}  [{tag}]")
     return finish_kernels(results, "two room-like", tag)
@@ -1014,15 +1260,15 @@ def rung_kernel_phases(ops, dev, rng, tag: str) -> dict:
                 print(f"{name}: gradient through the saved triples, max abs "
                       f"err vs plain {gerr}  [{tag}]")
 
-    # kNN beyond one launch's 128 slots: passes, both kernels
+    # kNN beyond one launch's 128 slots: passes
     room = torch.from_numpy(room_cloud(rng, 40000)).to(dev)
-    for fn, sup in ((ops.knn_big, room), (ops.knn_small, room[:, :6000].contiguous())):
+    for sup in (room, room[:, :6000].contiguous()):
         q = sup[:, ::7].contiguous()
-        got_i, got_d = fn(sup, q, KNN_WIDE)
+        got_i, got_d = ops.knn(sup, q, KNN_WIDE)
         want_i, want_d = ops.knn_plain(sup, q, KNN_WIDE)
-        check_equal(f"{fn.__name__} k={KNN_WIDE} indices", got_i, want_i)
-        check_equal(f"{fn.__name__} k={KNN_WIDE} d2", got_d, want_d)
-        print(f"{fn.__name__} {q.shape[1]} x {sup.shape[1]} k={KNN_WIDE}: "
+        check_equal(f"knn {sup.shape[1]} k={KNN_WIDE} indices", got_i, want_i)
+        check_equal(f"knn {sup.shape[1]} k={KNN_WIDE} d2", got_d, want_d)
+        print(f"knn {q.shape[1]} x {sup.shape[1]} k={KNN_WIDE}: "
               f"indices and d2 identical to the twin (2 passes of 128)  [{tag}]")
     return finish_kernels(results, "room-like and uniform", tag)
 
@@ -1140,7 +1386,7 @@ def wrappers(ops) -> dict:
             "contrast_grad_support": ops.contrast_grad_support,
             "knn": ops.knn, "refine_cross": ops.refine_cross,
             "refine_cross_backward": ops.refine_cross_backward,
-            "fps_b1": ops.furthest_point_sample_b1, "knn_big": ops.knn_big,
+            "fps_b1": ops.furthest_point_sample_b1,
             "ball_query_big": ops.ball_query_big,
             "three_interpolation_backward_big":
                 ops.three_interpolation_backward_big,
@@ -1148,7 +1394,10 @@ def wrappers(ops) -> dict:
             "three_interpolation_big": ops.three_interpolation_big,
             "contrast_select": ops.contrast_select, "label_vote": ops.label_vote,
             "aggregate_forward": ops.aggregate_forward,
-            "aggregate_backward": ops.aggregate_backward}
+            "aggregate_backward": ops.aggregate_backward,
+            "layout_keys": ops.spatial.layout_keys,
+            "layout_pack": ops.spatial.layout_pack,
+            "support_layout": ops.contrast.support_layout}
 
 
 @contextlib.contextmanager
@@ -1514,7 +1763,7 @@ def scene_launches(ops, clouds: list, kind: str) -> dict:
     one boundary kNN over the subcloud's points."""
     want = {"fps_b1": 0, "fps_pruned": 0, "ball_query_big": 0, "ball_query": 0,
             "three_interpolation": 0, "three_interpolation_big": 0,
-            "knn_big": 0, "knn": 0}
+            "knn": 0}
     if kind == "mm":
         want["refine_cross"] = 0
     for cloud in clouds:
@@ -1531,7 +1780,7 @@ def scene_launches(ops, clouds: list, kind: str) -> dict:
                        for s in range(4))
             want["three_interpolation_big"] += wide
             want["three_interpolation"] += 4 - wide
-            want["knn_big" if n > BIG_N else "knn"] += 1
+            want["knn"] += 1
             if kind == "mm":
                 want["refine_cross"] += 4
     return {k: v for k, v in want.items() if v}
@@ -1941,6 +2190,7 @@ def main() -> None:
     kernels.update(scannet_kernel_phases(ops, dev, rng, tag))
     kernels.update(rung_kernel_phases(ops, dev, rng, tag))
     kernels.update(approx_kernel_phases(ops, dev, rng, tag))
+    kernels.update(layout_kernel_phases(ops, dev, tag))
 
     by_path = {}
     for kind in ("aa", "mm"):
@@ -1999,7 +2249,9 @@ def main() -> None:
              "plain_ms": kernels[k]["plain_ms"],
              "bound_ms": kernels[k]["bound_ms"],
              "bound_by": kernels[k]["bound_by"],
-             "library_ms": kernels[k]["library_ms"]}
+             "library_ms": kernels[k]["library_ms"],
+             **({"dense_bound_ms": kernels[k]["dense_bound_ms"]}
+                if "dense_bound_ms" in kernels[k] else {})}
             for k, src, tpu in KERNELS]
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

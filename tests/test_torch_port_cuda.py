@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from amcontrast3d_tpu_torch import ops
+from amcontrast3d_tpu_torch.ops import spatial
 
 
 @pytest.fixture
@@ -114,12 +115,19 @@ def _check_contrast(p, f, lab, kth, root, need_s):
                      generator=torch.Generator(f.device).manual_seed(1))
     _close(ops.contrast_grad_rows(p, f, lab, kth, g4, tinv, need_s),
            ops.contrast_grad_rows_plain(p, f, lab, kth, g4, tinv, need_s), 1e-4)
-    _close(ops.contrast_grad_support(p, f, lab, kth, g4, tinv, need_s),
-           ops.contrast_grad_support_plain(p, f, lab, kth, g4, tinv, need_s), 1e-4)
+    # the chunk-pruned support kernel: over a given layout and over its own
+    # sort, within 1e-4·(1+max) of the twin and the same bits both times
+    sup = ops.contrast_grad_support(p, f, lab, kth, g4, tinv, need_s,
+                                    spatial.sort_support(p))
+    _close(sup, ops.contrast_grad_support_plain(p, f, lab, kth, g4, tinv, need_s),
+           1e-4)
+    assert torch.equal(sup, ops.contrast_grad_support(p, f, lab, kth, g4, tinv,
+                                                      need_s))
     fk, fp = f.clone().requires_grad_(), f.clone().requires_grad_()
     gout = torch.randn(*f.shape[:2], 9, device=f.device,
                        generator=torch.Generator(f.device).manual_seed(2))
-    ops.contrast_reductions(p, fk, lab, kth, tinv, root, need_s).backward(gout)
+    ops.contrast_reductions(p, fk, lab, kth, tinv, root, need_s,
+                            cloud=spatial.sort_support(p)).backward(gout)
     ops.contrast_reductions_plain(p, fp, lab, kth, tinv, root, need_s).backward(gout)
     _close(fk.grad, fp.grad, 1e-4)
 
@@ -156,13 +164,16 @@ def test_train_kernels_small_and_ragged(cuda_device, n, c, root, need_s):
 
 
 def _knn_equal(sup, q, k):
-    got_i, got_d = ops.knn(sup, q, k)
+    """``ops.knn`` sorting for itself and over the support's given layout
+    (the self form when ``q`` is ``sup``): identical to ``knn_plain``."""
     want_i, want_d = ops.knn_plain(sup, q, k)
-    torch.cuda.synchronize()
-    assert got_i.dtype == torch.int32 and got_i.shape == want_i.shape
-    bad = int((got_i != want_i).sum())
-    assert bad == 0, f"{bad} of {got_i.numel()} indices differ"
-    assert torch.equal(got_d, want_d)
+    for cloud in (None, spatial.sort_support(sup)):
+        got_i, got_d = ops.knn(sup, q, k, cloud)
+        torch.cuda.synchronize()
+        assert got_i.dtype == torch.int32 and got_i.shape == want_i.shape
+        bad = int((got_i != want_i).sum())
+        assert bad == 0, f"{bad} of {got_i.numel()} indices differ"
+        assert torch.equal(got_d, want_d)
 
 
 @pytest.mark.cuda
@@ -176,11 +187,25 @@ def test_knn_kernel_matches_plain(cuda_device, clustered):
     q = sup[:, ::4].contiguous()
     for k in (1, 3, 4, 12, 16, 24, 33, 64, 100):
         _knn_equal(sup, q, k)
-    _knn_equal(sup, sup, 24)
+    _knn_equal(sup, sup, 24)              # the self form
+    _knn_equal(sup, sup.clone(), 24)      # the same points, sorted again
     grid = torch.from_numpy((rng.randint(0, 12, (2, 3000, 3)) / 4)
                             .astype(np.float32)).to(cuda_device)
     for k in (3, 24, 64):
         _knn_equal(grid, grid, k)
+    # a 1/128 m grid: d² ties at every k-th, equal Morton codes across
+    # chunk edges; the label propagation's shape, M ≠ N over p0's layout
+    fine = torch.from_numpy((rng.randint(0, 24, (2, 24000, 3)) / 128)
+                            .astype(np.float32)).to(cuda_device)
+    for k in (24, 129):
+        _knn_equal(fine, fine, k)
+    cloud0 = spatial.sort_support(fine)
+    for s, k in ((1, 4), (2, 16), (3, 64)):
+        q = fine[:, ::4 ** s].contiguous()
+        want_i, want_d = ops.knn_plain(fine, q, k)
+        got_i, got_d = ops.knn(fine, q, k, cloud0)
+        _equal(got_i, want_i)
+        _equal(got_d, want_d)
 
 
 @pytest.mark.cuda
@@ -194,11 +219,125 @@ def test_knn_kernel_small_and_ragged(cuda_device):
     tiny = torch.from_numpy(_cloud(rng, 2, 7, False)).to(cuda_device)
     for k in (1, 7, 8, 24, 64, 128, 129, 300):
         _knn_equal(tiny, tiny, k)
+    # N below a chunk, one past it, not a multiple of it; every point the same
+    for n in (37, 65, 1000):
+        few = torch.from_numpy(_cloud(rng, 2, n, True)).to(cuda_device)
+        for k in (1, 24, 64, 129, n + 3):
+            _knn_equal(few, few, k)
+        _knn_equal(few, few[:, ::3].contiguous(), 16)
+    same = torch.full((2, 300, 3), 0.25, device=cuda_device)
+    for k in (1, 24, 129, 301):
+        _knn_equal(same, same, k)
     before = ops.knn.launches
     _knn_equal(sup, sup, 129)
-    assert ops.knn.launches == before + 2
+    assert ops.knn.launches == before + 4      # two passes, with and without a layout
     with pytest.raises(ValueError):
         ops.knn(sup, sup.transpose(0, 1)[:, :2].transpose(0, 1)[:, ::2], 3)
+    with pytest.raises(ValueError):     # the layout of another cloud
+        ops.knn(sup, sup, 3, spatial.sort_support(sup[:, :1000].contiguous()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["grid", "coincident", "clustered"])
+@pytest.mark.parametrize("n", [1, 37, 64, 65, 1000, 6000])
+def test_contrast_support_kernel_ties_tiny_and_repeatable(cuda_device, kind, n):
+    """Kernel #16 on clouds full of d² ties (a 1/128 m grid, every point the
+    same) and at N below, at and above one chunk: within 1e-4·(1+max|df|)
+    of its twin, the same bits over two runs, and over a given layout."""
+    rng = np.random.RandomState(n)
+    if kind == "grid":
+        pts = rng.randint(0, 16, (2, n, 3)) / 128
+    elif kind == "coincident":
+        pts = np.full((2, n, 3), 0.5)
+    else:
+        pts = _cloud(rng, 2, n, True)
+    p = torch.from_numpy(pts.astype(np.float32)).to(cuda_device)
+    f = torch.nn.functional.normalize(torch.from_numpy(
+        rng.randn(2, n, 64).astype(np.float32)).to(cuda_device), dim=-1)
+    lab = torch.from_numpy(rng.randint(0, 4, (2, n)).astype(np.float32)).to(cuda_device)
+    kth = (ops.knn(p, p, 24)[1][..., -1] * (1.0 + 1e-5)).contiguous()
+    g4 = torch.from_numpy(rng.randn(2, n, 4).astype(np.float32)).to(cuda_device)
+    want = ops.contrast_grad_support_plain(p, f, lab, kth, g4, 1 / 0.3, True)
+    before = ops.contrast_grad_support.launches
+    first = ops.contrast_grad_support(p, f, lab, kth, g4, 1 / 0.3, True)
+    _close(first, want, 1e-4)
+    _equal(ops.contrast_grad_support(p, f, lab, kth, g4, 1 / 0.3, True), first)
+    _equal(ops.contrast_grad_support(p, f, lab, kth, g4, 1 / 0.3, True,
+                                     spatial.sort_support(p)), first)
+    assert ops.contrast_grad_support.launches == before + 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sizes,kind", [
+    (4, (24000, 6000, 1500, 375), "uniform"), (2, (64000, 16000, 4000, 1000), "grid"),
+    (3, (130, 65, 7, 1), "clustered"), (1, (37,), "coincident")])
+def test_layout_kernels_match_their_twins(cuda_device, b, sizes, kind):
+    """The stage layouts by ``csrc/layout.cu`` (keys, one sort, packing):
+    each kernel's outputs identical to its twin's on the same inputs, and
+    every layout identical to ``sort_support`` of its stage alone; then the
+    support kernel's sorted (label, threshold) and chunk maxima."""
+    rng = np.random.RandomState(len(sizes) + b)
+    stages = []
+    for n in sizes:
+        if kind == "grid":
+            pts = rng.randint(0, 40, (b, n, 3)) / 128
+        elif kind == "coincident":
+            pts = np.full((b, n, 3), 0.5)
+        else:
+            pts = _cloud(rng, b, n, kind == "clustered")
+        stages.append(torch.from_numpy(pts.astype(np.float32)).to(cuda_device))
+    points = torch.cat([p.reshape(-1, 3) for p in stages])
+    before = (spatial.layout_keys.launches, spatial.layout_pack.launches)
+    keys, frame = spatial.layout_keys(points, b, sizes)
+    want = spatial.layout_keys_plain(points, b, sizes)
+    _equal(keys, want[0])
+    _equal(frame, want[1])
+    skeys, perm = torch.sort(keys, stable=True)
+    got = spatial.layout_pack(points, perm, skeys, b, sizes)
+    for g, w in zip(got, spatial.layout_pack_plain(points, perm, skeys, b, sizes)):
+        _equal(g, w)
+    assert (spatial.layout_keys.launches, spatial.layout_pack.launches) == \
+        (before[0] + 1, before[1] + 1)
+    for p, cloud in zip(stages, spatial.sort_stages(stages)):
+        spatial.check_layout(cloud, p)
+        ref = spatial.sort_support(p)
+        for field in ("packed", "boxes", "codes", "lo", "scale", "perm"):
+            _equal(getattr(cloud, field), getattr(ref, field))
+        n = p.shape[1]
+        lab = torch.from_numpy(rng.randint(0, 13, (b, n)).astype(np.float32)).to(cuda_device)
+        kth = torch.from_numpy(rng.rand(b, n).astype(np.float32)).to(cuda_device)
+        before = ops.contrast.support_layout.launches
+        aux, cmax = ops.contrast.support_layout(cloud, lab, kth)
+        want_aux, want_cmax = ops.contrast.support_layout_plain(cloud, lab, kth)
+        _equal(aux, want_aux)
+        _equal(cmax, want_cmax)
+        assert ops.contrast.support_layout.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_a_layout_of_another_cloud_is_refused_on_the_card(cuda_device):
+    """A layout made from another cloud of the same shape, or from this one
+    before an in-place change, raises in every wrapper that reads one."""
+    rng = np.random.RandomState(21)
+    p, other = (torch.from_numpy(_cloud(rng, 2, 3000, False)).to(cuda_device)
+                for _ in range(2))
+    cloud = spatial.sort_stages([p])[0]
+    f = torch.nn.functional.normalize(torch.from_numpy(
+        rng.randn(2, 3000, 32).astype(np.float32)).to(cuda_device), dim=-1)
+    lab = torch.zeros(2, 3000, device=cuda_device)
+    kth = (ops.knn(other, other, 24)[1][..., -1] * (1.0 + 1e-5)).contiguous()
+    g4 = torch.from_numpy(rng.randn(2, 3000, 4).astype(np.float32)).to(cuda_device)
+    for call in (lambda: ops.knn(other, other, 24, cloud),
+                 lambda: ops.knn(other, other[:, :99].contiguous(), 24, cloud),
+                 lambda: ops.contrast_grad_support(other, f, lab, kth, g4,
+                                                   cloud=cloud),
+                 lambda: ops.contrast_reductions(other, f, lab, kth, cloud=cloud)):
+        with pytest.raises(ValueError):
+            call()
+    ops.knn(p, p, 24, cloud)
+    p.mul_(1.0)
+    with pytest.raises(ValueError):
+        ops.knn(p, p, 24, cloud)
 
 
 def _ambiguity(rng, b, n, ties):
@@ -349,32 +488,33 @@ def test_fps_b1_above_the_cluster_takes_the_grid(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,m", [(1, 1), (5, 3), (63, 63), (65, 200),
-                                 (4099, 1031), (32769, 4000), (32767, 4000)])
+                                 (4099, 1031), (32769, 4000), (32767, 4000),
+                                 (70001, 3000)])
 def test_big_knn_and_ball_query_match_plain(cuda_device, n, m):
     """The chunk-skipping kernels at odd sizes, with k below and above N,
-    just above and below the 32768 gate: identical to the twins and to the
-    small-cloud kernels."""
+    just above and below the ball query's 32768 gate, and past the 65536
+    points one list window of the kNN holds: identical to the twins, the
+    ball query also to its small-cloud kernel."""
     rng = np.random.RandomState(n + m)
     sup = torch.from_numpy(_cloud(rng, 2, n, n % 2 == 1)).to(cuda_device)
     q = torch.from_numpy(_cloud(rng, 2, m, False)).to(cuda_device)
     q[:, : min(m, n) // 2] = sup[:, : min(m, n) // 2]   # queries on the support
     for k in (1, 24, 33, 128):
         want_i, want_d = ops.knn_plain(sup, q, k)
-        for fn in (ops.knn_big, ops.knn_small):
-            got_i, got_d = fn(sup, q, k)
-            _equal(got_i, want_i)
-            _equal(got_d, want_d)
+        got_i, got_d = ops.knn(sup, q, k)
+        _equal(got_i, want_i)
+        _equal(got_d, want_d)
     for r, k in ((0.05, 32), (0.3, 32), (0.3, 70), (9.0, 16)):
         want = ops.ball_query_plain(sup, q, r, k)
         _equal(ops.ball_query_big(sup, q, r, k), want)
         _equal(ops.ball_query_small(sup, q, r, k), want)
-    # the dispatch follows the gate
-    counts = (ops.knn_big.launches, ops.ball_query_big.launches)
+    # the ball query's dispatch follows the gate; the kNN has one kernel
+    counts = (ops.knn.launches, ops.ball_query_big.launches)
     ops.knn(sup, q, 3)
     ops.ball_query(sup, q, 0.2, 8)
     big = int(n > 32768)
-    assert (ops.knn_big.launches, ops.ball_query_big.launches) == \
-        (counts[0] + big, counts[1] + big)
+    assert (ops.knn.launches, ops.ball_query_big.launches) == \
+        (counts[0] + 1, counts[1] + big)
 
 
 @pytest.mark.cuda
@@ -386,7 +526,7 @@ def test_big_kernels_room_duplicates_and_empty_balls(cuda_device):
     q = room[:, ::4].contiguous()
     for k in (12, 24):
         want_i, want_d = ops.knn_plain(room, q, k)
-        got_i, got_d = ops.knn_big(room, q, k)
+        got_i, got_d = ops.knn(room, q, k)
         _equal(got_i, want_i)
         _equal(got_d, want_d)
     for r in (0.1, 0.2):
@@ -399,7 +539,7 @@ def test_big_kernels_room_duplicates_and_empty_balls(cuda_device):
     _equal(ops.ball_query_big(same, same, 0.1, 32),
            ops.ball_query_plain(same, same, 0.1, 32))
     want_i, want_d = ops.knn_plain(same, same, 24)
-    got_i, got_d = ops.knn_big(same, same, 24)
+    got_i, got_d = ops.knn(same, same, 24)
     _equal(got_i, want_i)
     _equal(got_d, want_d)
 
@@ -752,7 +892,7 @@ def test_interp_big_dispatch_and_gradient(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [6000, 40000])
 def test_knn_beyond_128_neighbours(cuda_device, n):
-    """k = 129 and 256 through both kNN kernels (passes of 128 slots), on a
+    """k = 129 and 256 through the kNN kernel (passes of 128 slots), on a
     gridded room with repeated points (ties at the seams of the passes):
     indices and d² identical to the twin; k > N pads as the twin does."""
     rng = np.random.RandomState(n)
@@ -760,19 +900,16 @@ def test_knn_beyond_128_neighbours(cuda_device, n):
     q = sup[:, ::7].contiguous()
     for k in (129, 256):
         want_i, want_d = ops.knn_plain(sup, q, k)
-        for fn in (ops.knn_big, ops.knn_small):
-            before = fn.launches if fn is ops.knn_big else ops.knn.launches
-            got_i, got_d = fn(sup, q, k)
-            after = fn.launches if fn is ops.knn_big else ops.knn.launches
-            assert after == before + -(-k // 128)
-            _equal(got_i, want_i)
-            _equal(got_d, want_d)
-    tiny = sup[:, :200].contiguous()
-    for fn in (ops.knn_big, ops.knn_small):
-        got_i, got_d = fn(tiny, tiny, 300)
-        want_i, want_d = ops.knn_plain(tiny, tiny, 300)
+        before = ops.knn.launches
+        got_i, got_d = ops.knn(sup, q, k)
+        assert ops.knn.launches == before + -(-k // 128)
         _equal(got_i, want_i)
         _equal(got_d, want_d)
+    tiny = sup[:, :200].contiguous()
+    got_i, got_d = ops.knn(tiny, tiny, 300)
+    want_i, want_d = ops.knn_plain(tiny, tiny, 300)
+    _equal(got_i, want_i)
+    _equal(got_d, want_d)
 
 
 # ---- the approx configuration and the fused aggregation ----------------------------

@@ -606,7 +606,7 @@ def test_knn_twin_against_big_pallas_kernel(monkeypatch):
     rng = np.random.RandomState(1)
     sup = rng.rand(1, 9000, 3).astype(np.float32)
     q = np.concatenate([sup[:, :100], rng.rand(1, 100, 3).astype(np.float32)], 1)
-    idx, d2 = ops.knn_big(_t(sup), _t(q), 8)
+    idx, d2 = ops.knn(_t(sup), _t(q), 8)
     pidx, pd2 = KP.knn_pallas(jnp.asarray(sup), jnp.asarray(q), 8, interpret=True)
     pidx, pd2 = np.asarray(pidx), np.asarray(pd2)
     assert np.all(np.diff(pd2, axis=-1) >= -1e-6)
@@ -619,28 +619,32 @@ def test_knn_twin_against_big_pallas_kernel(monkeypatch):
 
 def test_b1_and_large_n_route_to_the_new_wrappers(monkeypatch):
     """B == 1 goes to the whole-room FPS and N above the gate to the
-    chunk-skipping kNN and ball query; off the CPU each launches its kernel
-    or raises, and never runs a twin."""
+    chunk-skipping ball query, and the kNN takes its one chunk-pruned kernel
+    at every N; off the CPU each launches its kernel or raises, and never
+    runs a twin."""
     calls = []
     monkeypatch.setattr(port_knn, "_BIG_N", 100)
     for mod, name in ((port_fps, "furthest_point_sample_b1"),
-                      (port_knn, "knn_big"), (port_knn, "ball_query_big"),
-                      (port_knn, "knn_small"), (port_knn, "ball_query_small")):
+                      (port_knn, "ball_query_big"),
+                      (port_knn, "ball_query_small")):
         monkeypatch.setattr(mod, name,
                             lambda *a, _n=name, **k: calls.append(_n))
+    monkeypatch.setattr(port_knn, "knn_plain",
+                        lambda *a, **k: calls.append("knn_plain"))
     one = torch.empty(1, 101, 3, device="meta")
     small = torch.empty(1, 100, 3, device="meta")
     port_fps.furthest_point_sample(one, 8)
-    port_knn.knn(one, small, 4)
     port_knn.ball_query(one, small, 0.1, 4)
-    port_knn.knn(small, one, 4)
     port_knn.ball_query(small, one, 0.1, 4)
     port_knn.ball_query(one, small, 0.1, 129)      # k beyond the warp's slots
-    assert calls == ["furthest_point_sample_b1", "knn_big", "ball_query_big",
-                     "knn_small", "ball_query_small", "ball_query_small"]
+    for sup, q in ((one, small), (small, one)):
+        with pytest.raises(ValueError, match="CUDA"):
+            port_knn.knn(sup, q, 4)
+    assert calls == ["furthest_point_sample_b1", "ball_query_big",
+                     "ball_query_small", "ball_query_small"]
     monkeypatch.undo()
     monkeypatch.setattr(port_knn, "_BIG_N", 100)
-    before = (ops.furthest_point_sample_b1.launches, ops.knn_big.launches,
+    before = (ops.furthest_point_sample_b1.launches, ops.knn.launches,
               ops.ball_query_big.launches)
     with pytest.raises(ValueError):
         ops.furthest_point_sample(one, 8)
@@ -653,7 +657,7 @@ def test_b1_and_large_n_route_to_the_new_wrappers(monkeypatch):
     with pytest.raises(ValueError, match="CUDA"):
         ops.furthest_point_sample(two, 8)
     assert before == (ops.furthest_point_sample_b1.launches,
-                      ops.knn_big.launches, ops.ball_query_big.launches)
+                      ops.knn.launches, ops.ball_query_big.launches)
     # on the CPU the large-cloud wrappers are their twins
     rng = np.random.RandomState(2)
     sup, q = _t(_cloud(rng, 1, 300)), _t(_cloud(rng, 1, 50))

@@ -1,0 +1,570 @@
+"""The chunk-pruned exact kNN (kernel 6, ``csrc/knn.cu``) and contrast
+support VJP (kernel 16, ``csrc/contrast.cu``) on the CPU.
+
+Both kernels read one Morton-sorted layout of a stage cloud
+(``ops/spatial.py``).  Here: the self-query order and home chunk, the
+per-chunk maximum of a threshold, the soundness in float32 of both prune
+rules (a block's union box against a chunk's box, then a point against the
+chunk's box), and a small torch emulation of each kernel's visit schedule
+that must return exactly what the dense twin returns.  The kernels
+themselves run on the card (``test_torch_port_cuda.py``).
+"""
+import numpy as np
+import pytest
+import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
+
+from amcontrast3d_tpu_torch import ops
+from amcontrast3d_tpu_torch.ops import contrast as port_contrast
+from amcontrast3d_tpu_torch.ops.knn import pairwise_d2
+from amcontrast3d_tpu_torch.ops import spatial
+
+CHUNK = spatial.CHUNK
+WARPS = 8            # points a block: csrc/chunk_list.cuh::kListWarps
+WINDOW = 256         # chunks a list window tests (a test-sized kListChunks)
+
+
+def _cloud(rng, b, n, kind):
+    """Uniform in [0, 4]³, tight Gaussian clusters, or a 1/128 m grid in a
+    small cube: duplicate points and d² ties everywhere."""
+    if kind == "uniform":
+        return torch.from_numpy((rng.rand(b, n, 3) * 4).astype(np.float32))
+    if kind == "clustered":
+        centres = rng.rand(b, 8, 3) * 4
+        pts = np.take_along_axis(centres, rng.randint(0, 8, (b, n))[..., None], 1)
+        return torch.from_numpy((pts + 0.05 * rng.randn(b, n, 3)).astype(np.float32))
+    return torch.from_numpy((rng.randint(0, 16, (b, n, 3)) / 128).astype(np.float32))
+
+
+KINDS = ("uniform", "clustered", "grid")
+
+
+def self_order(cloud):
+    """:func:`spatial.query_order` for queries that are the support itself,
+    as the kernels read it from the layout: the support's own permutation,
+    and each query's home chunk its sorted position // ``CHUNK``."""
+    B, n, _ = cloud.packed.shape
+    home = torch.arange(n, dtype=torch.int32) // CHUNK
+    return cloud.perm.to(torch.int32), home.expand(B, n).contiguous()
+
+
+def box_box_lb(a, boxes):
+    """``csrc/chunks.cuh::box_box_lower_bound``: per axis the gap
+    ``max(lo_b − hi_a, lo_a − hi_b, 0)``, squared and summed as
+    :func:`spatial.bbox_lb` sums them, between box(es) ``a`` (..., 6) and
+    ``boxes`` (..., 6)."""
+    gap = torch.maximum(boxes[..., :3] - a[..., 3:],
+                        a[..., :3] - boxes[..., 3:]).clamp_min(0)
+    gx, gy, gz = gap.unbind(-1)
+    return (gx * gx + gy * gy) + gz * gz
+
+
+def bbox_ub(q, boxes):
+    """``csrc/chunks.cuh::box_upper_bound``: per axis the larger of
+    |q − lo| and |q − hi|, squared and summed, for point(s) ``q`` (..., 3)."""
+    gap = torch.maximum((q - boxes[..., :3]).abs(), (q - boxes[..., 3:]).abs())
+    gx, gy, gz = gap.unbind(-1)
+    return (gx * gx + gy * gy) + gz * gz
+
+
+def _order(sup, query, cloud):
+    """The queries' order and home chunks, as the kNN kernels take them."""
+    if spatial.is_self(sup, query):
+        return self_order(cloud)
+    return spatial.query_order(query, cloud)
+
+
+# ---- the layout ---------------------------------------------------------------
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 1000])
+def test_self_order_is_query_order_without_a_second_sort(kind, n):
+    p = _cloud(np.random.RandomState(n), 2, n, kind)
+    cloud = spatial.sort_support(p)
+    order, home = self_order(cloud)
+    q_order, q_home = spatial.query_order(p, cloud)
+    assert order.dtype == home.dtype == torch.int32
+    assert order.is_contiguous() and home.is_contiguous()
+    # the support's own permutation: the stable sort of the same codes
+    assert torch.equal(order, q_order)
+    assert torch.equal(home, (torch.arange(n, dtype=torch.int32) // CHUNK)
+                       .expand(2, n))
+    # query_order takes the first chunk that holds the code: the same chunk
+    # unless equal codes straddle a chunk edge, and never a later one
+    first = torch.searchsorted(cloud.codes, cloud.codes)
+    straddle = (first // CHUNK) != (torch.arange(n) // CHUNK)
+    assert torch.equal(q_home[~straddle], home[~straddle])
+    assert (q_home <= home).all()
+    # the wrappers' dispatch: the same tensor is the self form, a copy is not
+    assert spatial.is_self(p, p) and not spatial.is_self(p, p.clone())
+    assert not spatial.is_self(p, p[:, :max(n - 1, 0)])
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_sort_stages_gives_each_stage_its_layout(kind):
+    """One sort for the stage clouds of a step: each layout is exactly what
+    :func:`sort_support` gives its stage alone (its own frame, codes, order,
+    boxes and index bits), contiguous, and tied to that stage's tensor."""
+    rng = np.random.RandomState(11)
+    p0 = _cloud(rng, 2, 1100, kind)
+    stages = [p0, p0[:, ::4].contiguous(), p0[:, ::16], p0[:, :1]]
+    clouds = spatial.sort_stages(stages)
+    for p, cloud in zip(stages, clouds):
+        spatial.check_layout(cloud, p)
+        assert cloud.packed.is_contiguous() and cloud.boxes.is_contiguous()
+        assert cloud.perm.is_contiguous() and cloud.codes.is_contiguous()
+        want = spatial.sort_support(p)
+        for field in ("packed", "boxes", "codes", "lo", "scale", "perm"):
+            got, ref = getattr(cloud, field), getattr(want, field)
+            assert got.shape == ref.shape and got.dtype == ref.dtype, field
+            assert torch.equal(got, ref), field
+        assert torch.equal(cloud.packed.view(torch.int32)[..., 3].long(),
+                           cloud.perm)
+    # the label propagation orders its queries in stage 0's frame
+    order, home = spatial.query_order(stages[1], clouds[0])
+    assert home.max() < clouds[0].boxes.shape[1]
+
+
+@pytest.mark.parametrize("b,sizes", [(1, (1,)), (2, (64, 1)), (3, (130, 65, 7)),
+                                     (2, (1000, 250, 62, 15))])
+def test_layout_twins_segment_by_segment(b, sizes):
+    """The twins of the two layout kernels (``csrc/layout.cu``): a segment
+    is one cloud of one stage, its keys carry the segment's number above
+    the Morton code in the segment's own frame, and the packing cuts every
+    segment into its own chunks."""
+    rng = np.random.RandomState(len(sizes))
+    stages = [_cloud(rng, b, n, "clustered") for n in sizes]
+    points = torch.cat([p.reshape(-1, 3) for p in stages])
+    keys, frame = spatial.layout_keys(points, b, sizes)
+    assert keys.shape == (points.shape[0],) and frame.shape == (b * len(sizes), 4)
+    row = 0
+    for s, p in enumerate(stages):
+        for c in range(b):
+            seg, n = s * b + c, p.shape[1]
+            lo, scale = spatial.cloud_frame(p[c:c + 1])
+            assert torch.equal(frame[seg], torch.cat([lo[0, 0], scale[0, 0]]))
+            assert torch.equal(keys[row:row + n] >> 48, torch.full((n,), seg))
+            assert torch.equal(keys[row:row + n] & ((1 << 48) - 1),
+                               spatial.morton_key(p[c:c + 1], lo, scale)[0])
+            row += n
+    skeys, perm = torch.sort(keys, stable=True)
+    packed, codes, index, boxes = spatial.layout_pack(points, perm, skeys, b, sizes)
+    assert boxes.shape == (b * sum(-(-n // CHUNK) for n in sizes), 6)
+    assert torch.equal(codes, skeys & ((1 << 48) - 1))
+    assert torch.equal(packed[:, :3], points[perm])
+
+
+def test_a_layout_is_refused_for_another_tensor():
+    """A layout holds the tensor it was made from: another cloud of the
+    same shape, or this one after an in-place change, is refused by
+    :func:`spatial.check_layout` and by every wrapper that takes a layout,
+    on the CPU as on the card."""
+    rng = np.random.RandomState(3)
+    p, other = _cloud(rng, 2, 200, "uniform"), _cloud(rng, 2, 200, "uniform")
+    cloud = spatial.sort_support(p)
+    spatial.check_layout(cloud, p)
+    with pytest.raises(ValueError):
+        spatial.check_layout(cloud, other)
+    f = torch.nn.functional.normalize(torch.randn(2, 200, 8), dim=-1)
+    lab = torch.from_numpy(rng.randint(0, 3, (2, 200)).astype(np.float32))
+    kth = ops.knn_plain(other, other, 6)[1][..., -1]
+    g4 = torch.randn(2, 200, 4)
+    with pytest.raises(ValueError):
+        ops.knn(other, other, 6, cloud)
+    with pytest.raises(ValueError):
+        ops.contrast_reductions(other, f, lab, kth, cloud=cloud)
+    with pytest.raises(ValueError):
+        ops.contrast_grad_support(other, f, lab, kth, g4, cloud=cloud)
+    ops.knn(p, p, 6, cloud)
+    p.add_(0.0)   # an in-place change, even one that moves no point
+    with pytest.raises(ValueError):
+        ops.knn(p, p, 6, cloud)
+
+
+@pytest.mark.parametrize("n", [1, 5, 63, 64, 65, 130, 1000])
+def test_chunk_max_matches_brute_force(n):
+    v = torch.from_numpy(np.random.RandomState(n).randn(3, n).astype(np.float32))
+    got = spatial.chunk_max(v)
+    nc = -(-n // CHUNK)
+    assert got.shape == (3, nc)
+    for b in range(3):
+        for c in range(nc):
+            assert got[b, c] == max(v[b, c * CHUNK:(c + 1) * CHUNK].tolist())
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_morton_key_by_table_is_the_bitwise_interleave(seed):
+    """The table-driven key equals the bit-by-bit interleave of the three
+    16-bit cell coordinates, on the frame's corners and in between."""
+    rng = np.random.RandomState(seed)
+    p = torch.from_numpy((rng.rand(2, 500, 3) * 7 - 2).astype(np.float32))
+    p[:, :2] = torch.tensor([[-2.0, -2.0, -2.0], [5.0, 5.0, 5.0]])
+    lo, scale = spatial.cloud_frame(p)
+    cell = ((p - lo) * scale).long().clamp_(0, 2 ** 16 - 1)
+    want = torch.zeros(2, 500, dtype=torch.int64)
+    for bit in range(16):
+        for axis in range(3):
+            want |= ((cell[..., axis] >> bit) & 1) << (3 * bit + 2 - axis)
+    assert torch.equal(spatial.morton_key(p, lo, scale), want)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("n", [7, 64, 200])
+def test_support_layout_holds_sorted_labels_and_thresholds(kind, n):
+    rng = np.random.RandomState(n)
+    p = _cloud(rng, 2, n, kind)
+    lab = torch.from_numpy(rng.randint(0, 5, (2, n)).astype(np.float32))
+    kth = ops.knn_plain(p, p, min(n, 6))[1][..., -1] * (1.0 + 1e-5)
+    cloud = spatial.sort_support(p)
+    aux, cmax = port_contrast.support_layout(cloud, lab, kth)
+    assert aux.shape == (2, n, 2) and aux.dtype == torch.float32
+    perm = cloud.perm
+    assert torch.equal(aux[..., 0], lab.gather(1, perm))
+    assert torch.equal(aux[..., 1], kth.gather(1, perm))
+    assert torch.equal(cmax, spatial.chunk_max(kth.gather(1, perm)))
+
+
+def test_check_layout_refuses_another_clouds_layout():
+    p = _cloud(np.random.RandomState(0), 2, 100, "uniform")
+    cloud = spatial.sort_support(p)
+    spatial.check_layout(cloud, p)
+    for other in (p[:, :99], p[:1], p.new_zeros(2, 130, 3)):
+        with pytest.raises(ValueError):
+            spatial.check_layout(cloud, other)
+
+
+# ---- soundness of the prune rules in float32 -------------------------------------
+
+_coord = st.floats(-64, 64, width=32, allow_nan=False)
+_points = st.lists(st.tuples(_coord, _coord, _coord), min_size=1, max_size=12)
+
+
+@settings(max_examples=200, deadline=None)
+@given(_points, st.tuples(_coord, _coord, _coord))
+def test_box_upper_bound_is_never_below_a_true_distance(points, query):
+    """In float32, as computed: the upper bound of a box is at or above the
+    d² of every point of it, so the k-th nearest lies within the largest
+    upper bound of chunks that hold k points (the kNN block's limit)."""
+    pts = torch.tensor(points, dtype=torch.float32)[None]
+    q = torch.tensor(query, dtype=torch.float32)[None, None]
+    box = torch.cat([pts.amin(1), pts.amax(1)], -1)
+    assert bbox_ub(q[0, 0], box[0]) >= pairwise_d2(q, pts).max()
+
+
+@settings(max_examples=200, deadline=None)
+@given(_points, _points)
+def test_box_box_bound_never_exceeds_a_true_distance(a_pts, b_pts):
+    """In float32, as computed: the bound between two boxes is at or below
+    the d² of every pair of their points, so a block that skips a chunk
+    whose bound is above the largest limit of its queries loses nothing."""
+    a = torch.tensor(a_pts, dtype=torch.float32)[None]
+    b = torch.tensor(b_pts, dtype=torch.float32)[None]
+    box_a = torch.cat([a.amin(1), a.amax(1)], -1)
+    box_b = torch.cat([b.amin(1), b.amax(1)], -1)
+    lb = box_box_lb(box_a, box_b)[0]
+    assert lb <= pairwise_d2(a, b).min()
+    # a point is a box of no extent: the point bound is the same number
+    assert torch.equal(box_box_lb(torch.cat([a[0, :1], a[0, :1]], -1),
+                                          box_b),
+                       spatial.bbox_lb(a[0, :1], box_b))
+
+
+def _block_boxes(pts_sorted):
+    """(B, ceil(n / 8), 6): the union box of each 8 consecutive points."""
+    B, n, _ = pts_sorted.shape
+    return spatial.chunk_boxes(pts_sorted, chunk=WARPS)
+
+
+def _rank_of(cloud):
+    """(B, n) int64: each point's place in the sorted order."""
+    perm = cloud.perm
+    rank = torch.empty_like(perm)
+    rank.scatter_(1, perm, torch.arange(perm.shape[1]).expand_as(perm))
+    return rank
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("m_step,k", [(1, 24), (1, 129), (3, 16)])
+def test_knn_prune_rules_keep_every_true_neighbour(kind, m_step, k):
+    """A query's limit, the largest upper bound to the chunks around its
+    home when they hold k points, is never below its final k-th; and for
+    every pair (query, one of its k nearest) the chunk that holds the
+    neighbour passes the block's test (the union box of the 8 queries
+    against the chunk's box, at most the largest limit of the 8) and the
+    warp's own (the query against the box, at most its k-th; the running
+    k-th a kernel tests against is never below the final one)."""
+    rng = np.random.RandomState(7)
+    sup = _cloud(rng, 2, 1500, kind)
+    query = sup if m_step == 1 else sup[:, ::m_step].contiguous()
+    cloud = spatial.sort_support(sup)
+    order, home = _order(sup, query, cloud)
+    idx, d2 = ops.knn_plain(sup, query, k)
+    kth = d2[..., -1]
+    B, M = order.shape
+    nc = cloud.boxes.shape[1]
+    q_sorted = torch.gather(query, 1, order.long()[..., None].expand(B, M, 3))
+    # each query's limit from the boxes of its home chunk and the two beside
+    lim = torch.full((B, M), float("inf"))
+    for b in range(B):
+        for r in range(M):
+            lo, hi = max(0, int(home[b, r]) - 1), min(nc, int(home[b, r]) + 2)
+            if min(1500, hi * CHUNK) - lo * CHUNK >= k:
+                lim[b, r] = bbox_ub(q_sorted[b, r], cloud.boxes[b, lo:hi]).max()
+    assert (lim >= torch.gather(kth, 1, order.long())).all()
+    ub = _block_boxes(q_sorted)                              # (B, M/8, 6)
+    limit = spatial.chunk_max(lim, chunk=WARPS)
+    rank_q = torch.empty_like(order, dtype=torch.int64)
+    rank_q.scatter_(1, order.long(), torch.arange(M).expand(B, M))
+    chunk_of = _rank_of(cloud) // CHUNK                      # support → chunk
+    nb_chunk = torch.gather(chunk_of, 1, idx.long().reshape(B, -1)).view(B, M, k)
+    block = (rank_q // WARPS)[..., None].expand(B, M, k)
+    boxes = torch.gather(cloud.boxes, 1,
+                         nb_chunk.reshape(B, -1, 1).expand(B, M * k, 6))
+    ubox = torch.gather(ub, 1, block.reshape(B, -1, 1).expand(B, M * k, 6))
+    blim = torch.gather(limit, 1, block.reshape(B, -1)).view(B, M, k)
+    assert (box_box_lb(ubox, boxes).view(B, M, k) <= blim).all()
+    own = spatial.bbox_lb(query[:, :, None, :], boxes.view(B, M, k, 6))
+    assert (own <= kth[..., None]).all()
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_support_prune_rules_keep_every_member(kind):
+    """For every member pair of the contrast (``d²_ij ≤ kth_i``, kth the
+    k-th nearest d² of ``knn_plain`` with its 1e-5 cushion): the chunk that
+    holds query i passes the block's test (the union box of the 8 support
+    points j against the chunk's box, at most the chunk's largest
+    threshold) and the warp's own (j against the box)."""
+    rng = np.random.RandomState(8)
+    p = _cloud(rng, 2, 1200, kind)
+    kth = ops.knn_plain(p, p, 24)[1][..., -1] * (1.0 + 1e-5)
+    cloud = spatial.sort_support(p)
+    perm = cloud.perm
+    cmax = spatial.chunk_max(kth.gather(1, perm))
+    ub = _block_boxes(cloud.packed[..., :3])
+    rank = _rank_of(cloud)
+    d2 = pairwise_d2(p, p)                          # [b, i, j]
+    n = p.shape[1]
+    member = (d2 <= kth[..., None]) & ~torch.eye(n, dtype=torch.bool)
+    b_i, i, j = member.nonzero(as_tuple=True)
+    qchunk = rank[b_i, i] // CHUNK
+    box = cloud.boxes[b_i, qchunk]
+    assert (box_box_lb(ub[b_i, rank[b_i, j] // WARPS], box)
+            <= cmax[b_i, qchunk]).all()
+    assert (spatial.bbox_lb(p[b_i, j], box) <= cmax[b_i, qchunk]).all()
+
+
+# ---- each kernel's visit schedule, emulated ----------------------------------------
+
+def _keys(d2_row, idx):
+    """(d², index) pairs as one int64 each, ordered as the kernels order."""
+    return (d2_row.view(torch.int32).to(torch.int64) << 32) | idx
+
+
+def _emulate_knn(sup, query, k, window):
+    """``csrc/knn.cu``'s visits, one batch at a time: blocks of 8 queries in
+    the support's Morton order.  The block lists the chunks whose box is
+    within the largest upper bound of any query to the chunks around its
+    home (when they hold k points) from the union box of the 8, a window of
+    chunks at a time; each query then scans its home chunk and the ones
+    beside it, and the listed chunks whose box is within its own running
+    k-th, testing 32 at a time.  Returns (idx, d2) and the chunks scanned."""
+    cloud = spatial.sort_support(sup)
+    order, home = _order(sup, query, cloud)
+    B, N, _ = sup.shape
+    M = query.shape[1]
+    nc = cloud.boxes.shape[1]
+    kk = min(k, N)
+    perm = cloud.perm
+    out_i = torch.zeros(B, M, k, dtype=torch.int32)
+    out_d = torch.full((B, M, k), 1e10)
+    scanned = 0
+    for b in range(B):
+        d2 = pairwise_d2(query[b:b + 1], cloud.packed[b:b + 1, :, :3])[0]
+        boxes = cloud.boxes[b]
+        for r0 in range(0, M, WARPS):
+            ranks = range(r0, min(r0 + WARPS, M))
+            qs = [int(order[b, r]) for r in ranks]
+            best = {qi: torch.empty(0, dtype=torch.int64) for qi in qs}
+            near, limit = {}, []
+            for r, qi in zip(ranks, qs):
+                h = int(home[b, r])
+                near[qi] = (h, range(max(0, h - 1), min(nc, h + 2)))
+                held = min(N, near[qi][1].stop * CHUNK) - near[qi][1].start * CHUNK
+                limit.append(float(bbox_ub(
+                    query[b, qi], boxes[near[qi][1].start:near[qi][1].stop]).max())
+                    if held >= k else float("inf"))
+
+            def scan(qi, c):
+                pos = torch.arange(c * CHUNK, min((c + 1) * CHUNK, N))
+                keys = _keys(d2[qi, pos], perm[b, pos])
+                best[qi] = torch.cat([best[qi], keys]).sort().values[:kk]
+
+            def kth(qi):
+                if len(best[qi]) < kk:
+                    return float("inf")
+                return float((best[qi][-1] >> 32).to(torch.int32).view(torch.float32))
+
+            pts = query[b, qs]
+            ub = torch.cat([pts.amin(0), pts.amax(0)])
+            done = set.intersection(*(set(near[qi][1]) for qi in qs))
+            for w0 in range(0, nc, window):
+                cand = [c for c in range(w0, min(w0 + window, nc)) if c not in done]
+                listed = [c for c in cand if box_box_lb(ub, boxes[c]) <= max(limit)]
+                for qi in qs:
+                    h, around = near[qi]
+                    if w0 == 0:
+                        for c in [h] + [x for d in range(1, len(around))
+                                        for x in (h - d, h + d) if x in around]:
+                            scan(qi, c)
+                            scanned += 1
+                    for g0 in range(0, len(listed), 32):
+                        group = [c for c in listed[g0:g0 + 32] if c not in around]
+                        lb = {c: float(spatial.bbox_lb(query[b, qi], boxes[c])) for c in group}
+                        thr = kth(qi)
+                        for c in [c for c in group if lb[c] <= thr]:
+                            if lb[c] <= kth(qi):
+                                scan(qi, c)
+                                scanned += 1
+            for qi in qs:
+                keys = best[qi]
+                out_i[b, qi, :kk] = (keys & 0xFFFFFFFF).to(torch.int32)
+                out_d[b, qi, :kk] = (keys >> 32).to(torch.int32).view(torch.float32)
+    return out_i, out_d, scanned
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("n,m_step,k,window", [
+    (700, 1, 24, WINDOW), (700, 1, 24, 2), (700, 3, 16, 3), (40, 1, 64, WINDOW),
+    (129, 2, 4, 1)])
+def test_knn_visit_schedule_returns_the_dense_answer(kind, n, m_step, k, window):
+    """The emulated schedule gives ``knn_plain``'s indices and d² exactly
+    (k > N pads as the twin does) and, on a cloud of 11 chunks, scans fewer
+    chunks than a dense scan would."""
+    rng = np.random.RandomState(n + k)
+    sup = _cloud(rng, 2, n, kind)
+    query = sup if m_step == 1 else sup[:, ::m_step].contiguous()
+    got_i, got_d, scanned = _emulate_knn(sup, query, k, window)
+    want_i, want_d = ops.knn_plain(sup, query, k)
+    assert torch.equal(got_i, want_i)
+    assert torch.equal(got_d, want_d)
+    dense = 2 * query.shape[1] * -(-n // CHUNK)
+    if n >= 700 and kind != "grid":
+        assert scanned < dense, (scanned, dense)
+
+
+def _emulate_support(p, f, lab, kth, g4, tinv, need_s, window):
+    """``csrc/contrast.cu``'s support kernel, one batch at a time: blocks of
+    8 support points j in the sorted order; windows of query chunks, each
+    tested once against the block's union box and the chunk's largest
+    threshold, then the listed ones against each j; the exact member test
+    per pair, summed in chunk order.  Returns df (B, N, C) and the member
+    pairs (b, i, j)."""
+    cloud = spatial.sort_support(p)
+    perm = cloud.perm
+    B, N, C = f.shape
+    nc = cloud.boxes.shape[1]
+    cmax = spatial.chunk_max(kth.gather(1, perm))
+    df = torch.zeros(B, N, C)
+    pairs = set()
+    for b in range(B):
+        d2 = pairwise_d2(p[b:b + 1], p[b:b + 1])[0]     # [i, j]
+        for r0 in range(0, N, WARPS):
+            js = [int(perm[b, r]) for r in range(r0, min(r0 + WARPS, N))]
+            pts = p[b, js]
+            ub = torch.cat([pts.amin(0), pts.amax(0)])
+            for w0 in range(0, nc, window):
+                cand = list(range(w0, min(w0 + window, nc)))
+                lb = box_box_lb(ub, cloud.boxes[b, cand])
+                listed = [c for c, bound in zip(cand, lb) if bound <= cmax[b, c]]
+                for j in js:          # a warp a point, its chunks in list order
+                    for c in listed:
+                        if spatial.bbox_lb(p[b, j], cloud.boxes[b, c]) > cmax[b, c]:
+                            continue
+                        i = perm[b, c * CHUNK:(c + 1) * CHUNK]
+                        mem = i[(d2[i, j] <= kth[b, i]) & (i != j)]
+                        if len(mem) == 0:
+                            continue
+                        pairs.update((b, int(x), j) for x in mem)
+                        s = f[b, mem] @ f[b, j]
+                        e = torch.exp(s * tinv)
+                        pos = lab[b, mem] == lab[b, j]
+                        g = g4[b, mem]
+                        w = torch.where(pos, g[:, 0], g[:, 1]) * e * tinv
+                        if need_s:
+                            w = w + torch.where(pos, g[:, 2], g[:, 3])
+                        for t in range(len(mem)):    # chunk order, lane order
+                            df[b, j] += w[t] * f[b, mem[t]]
+    return df, pairs
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("n,window,need_s", [(600, WINDOW, True), (600, 3, False),
+                                             (70, WINDOW, True), (9, 1, True)])
+def test_support_visit_schedule_returns_the_dense_answer(kind, n, window, need_s):
+    """The emulated schedule visits exactly the dense member pairs and sums
+    to ``contrast_grad_support_plain`` within 1e-5·(1+max|df|) (the order of
+    the sums differs)."""
+    rng = np.random.RandomState(n)
+    p = _cloud(rng, 2, n, kind)
+    c = 8
+    f = torch.nn.functional.normalize(
+        torch.from_numpy(rng.randn(2, n, c).astype(np.float32)), dim=-1)
+    lab = torch.from_numpy(rng.randint(0, 4, (2, n)).astype(np.float32))
+    kth = ops.knn_plain(p, p, min(n, 24))[1][..., -1] * (1.0 + 1e-5)
+    g4 = torch.from_numpy(rng.randn(2, n, 4).astype(np.float32))
+    got, pairs = _emulate_support(p, f, lab, kth, g4, 1 / 0.3, need_s, window)
+    d2 = pairwise_d2(p, p)
+    member = (d2 <= kth[..., None]) & ~torch.eye(n, dtype=torch.bool)
+    want_pairs = {tuple(int(v) for v in t) for t in member.nonzero()}
+    assert pairs == want_pairs
+    want = ops.contrast_grad_support_plain(p, f, lab, kth, g4, 1 / 0.3, need_s)
+    err = (got - want).abs().max().item()
+    assert err <= 1e-5 * (1 + want.abs().max().item()), err
+
+
+# ---- the layout through the wrappers on the CPU --------------------------------
+
+def test_wrappers_take_a_layout_and_return_the_plain_answer_on_the_cpu():
+    """A given layout changes no result: the CPU path is the dense twin."""
+    rng = np.random.RandomState(3)
+    p = _cloud(rng, 2, 300, "grid")
+    cloud = spatial.sort_support(p)
+    q = p[:, ::5].contiguous()
+    for query in (p, q):
+        want = ops.knn_plain(p, query, 24)
+        got = ops.knn(p, query, 24, cloud)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    f = torch.from_numpy(rng.randn(2, 300, 5).astype(np.float32)).requires_grad_()
+    lab = torch.from_numpy(rng.randint(0, 3, (2, 300)).astype(np.float32))
+    kth = ops.knn_plain(p, p, 24)[1][..., -1] * (1.0 + 1e-5)
+    g4 = torch.from_numpy(rng.randn(2, 300, 4).astype(np.float32))
+    assert torch.equal(
+        ops.contrast_grad_support(p, f.detach(), lab, kth, g4, 2.0, True, cloud),
+        ops.contrast_grad_support_plain(p, f.detach(), lab, kth, g4, 2.0, True))
+    gout = torch.from_numpy(rng.randn(2, 300, 9).astype(np.float32))
+    out = ops.contrast_reductions(p, f, lab, kth, 2.0, False, True, True,
+                                  cloud=cloud)
+    (gf,) = torch.autograd.grad(out, f, gout)
+    f2 = f.detach().clone().requires_grad_()
+    out2 = ops.contrast_reductions_plain(p, f2, lab, kth, 2.0, False, True, True)
+    (gf2,) = torch.autograd.grad(out2, f2, gout)
+    assert torch.equal(out, out2) and torch.equal(gf, gf2)
+
+
+def test_the_loss_runs_under_the_plain_ops_with_its_layouts():
+    """The plain twins take the wrappers' arguments, layouts included, so
+    the plain-ops step (``tools/profile_eval.plain_ops``, the card's
+    reference) runs the loss as the kernels' step calls it: same loss."""
+    from amcontrast3d_tpu_torch.loss.contrast import contrast_head
+    from amcontrast3d_tpu_torch.tools.profile_eval import plain_ops
+
+    rng = np.random.RandomState(5)
+    ups = [(_cloud(rng, 2, n, "grid"), torch.from_numpy(
+        rng.randn(2, n, 8).astype(np.float32))) for n in (512, 128, 32)]
+    target = torch.from_numpy(rng.randint(0, 4, (2, 512)))
+    args = dict(nsample=8, temperature=0.3, mu=1.0, nu=0.1, stages_num=3)
+    want, _ = contrast_head(ups, target, 4, None, args)
+    with plain_ops():
+        got, _ = contrast_head(ups, target, 4, None, args)
+    assert torch.equal(got, want)

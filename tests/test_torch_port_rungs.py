@@ -197,7 +197,8 @@ def test_interpolation_routes_by_the_rule(monkeypatch, n2, c, want):
 def test_knn_takes_k_in_passes_of_128(monkeypatch, k, want, big):
     """⌈k/128⌉ launches, each writing its slots of the (B, M, k) rows at
     their offset, after the previous pass's last slot; the launch count
-    follows them."""
+    follows them.  A support above the ball query's gate (``big``) takes
+    the same kernel."""
     calls = []
     monkeypatch.setattr(port_knn, "_BIG_N", 100)
     monkeypatch.setattr(port_knn, "_check_cuda", lambda *a: None)
@@ -206,21 +207,19 @@ def test_knn_takes_k_in_passes_of_128(monkeypatch, k, want, big):
     _no_stream(monkeypatch)
     sup = torch.empty(1, 101 if big else 100, 3, device="meta")
     q = torch.empty(1, 7, 3, device="meta")
-    if big:
-        monkeypatch.setattr(port_knn.spatial, "sort_support", lambda s: type(
-            "C", (), {"packed": s, "boxes": s})())
-        monkeypatch.setattr(port_knn.spatial, "query_order",
-                            lambda query, cloud: (query, query))
-    counted = ops.knn_big if big else ops.knn
-    before = counted.launches
+    # the kernel reads a sorted support and the queries' order
+    monkeypatch.setattr(port_knn.spatial, "sort_support", lambda s: type(
+        "C", (), {"packed": s, "boxes": s})())
+    monkeypatch.setattr(port_knn.spatial, "query_order",
+                        lambda query, cloud: (query, query))
+    before = ops.knn.launches
     idx, d2 = ops.knn(sup, q, k)
     assert idx.shape == d2.shape == (1, 7, k)
-    assert counted.launches == before + len(want)
-    name = "amc3d_knn_big" if big else "amc3d_knn"
-    assert [c[0] for c in calls] == [name] * len(want)
+    assert ops.knn.launches == before + len(want)
+    assert [c[0] for c in calls] == ["amc3d_knn"] * len(want)
     # (k of the pass, row length, first slot), and the outputs' offsets
     assert [c[1][-4:-1] for c in calls] == want
-    n_in = 5 if big else 2
+    n_in = 5      # support, boxes, query, order, home
     offsets = [c[1][n_in] - idx.data_ptr() for c in calls]
     assert offsets == [4 * first for *_, first in want]
 

@@ -3,9 +3,7 @@
 //
 // Replaces amcontrast3d_tpu/ops/contrast_pallas.py::_fwd_kernel (in its
 // external-threshold mode, has_kth=True), ::_bwd_rows_kernel and
-// ::_bwd_sup_kernel.  The TPU kernels are dense: per (query tile, support
-// chunk) they form every d^2 on the VPU and every similarity as one MXU
-// matmul, then mask.  For point i of a cloud, its neighbours are
+// ::_bwd_sup_kernel.  For point i of a cloud, its neighbours are
 // {j != i : d2_ij <= kth_i}, d2 in the direct form (dx*dx + dy*dy) + dz*dz
 // (-fmad=false: bit-identical to the plain twin, so membership is exact),
 // s_ij = f_i . f_j, e_ij = exp(s_ij * tinv), pm_ij = same label:
@@ -16,45 +14,48 @@
 // with w_ij = (pm ? gP_i : gQ_i) * e_ij * tinv (+ (pm ? gSpos_i : gSneg_i)
 // when need_s).  Similarities are full float32 (no tensor cores, no TF32).
 //
-// What bounds them on the card: the membership scan, N^2 position tests
-// per cloud (2.3 G at the 4 x 24000 stage), is instruction throughput; the
-// feature work touches only the ~nsample members of each point (2.2 M
-// C-wide dot products at that stage), a few hundred MB of L2 reads.  The
-// dense C-wide similarity work of the TPU form (N^2 * C) is never done.
-// Design of the forward and rows kernels: one warp per point, 8 points per
-// block.  The block stages the cloud's positions and labels through shared
-// memory in tiles of 1024; each lane tests one candidate per step and a
-// ballot yields the warp's members in index order.  For each member the
-// warp reads the feature row coalesced (lane l holds channels l, l+32,
-// ...), reduces the dot product with xor shuffles (every lane ends with the
-// same sum) and accumulates in registers, so each point's sums are taken
-// in a fixed order and the results are deterministic.  Nothing but the
-// outputs is written.
-// The support kernel does not scan the whole cloud: it reads the cloud's
-// Morton-sorted layout (ops/spatial.py, the one the stage's self-kNN
-// read), 8 support points j consecutive along the curve a block, and tests
-// each 64-point chunk of queries i once against the union box of the 8:
-// a chunk whose box-to-box lower bound is above the largest threshold of
-// its queries holds no i that admits any j of the block (the TPU kernel's
-// thr_bound rule, contrast_pallas.py:405-411; exact in float32 without a
-// cushion, chunks.cuh).  The chunks that pass form a list in shared memory
-// (chunk_list.cuh); each warp tests the listed boxes against its own point,
-// one a lane, then each pair of the chunks that pass exactly, reading
-// positions, original indices, labels and thresholds of the sorted cloud
-// through L1; for a member it reads f_i and g4_i by original index from L2.
-// Its sums follow the fixed chunk order, so two runs give the same bits;
-// each row of df is written once, at j's original index.  Staging the
+// None of the three scans the whole cloud.  Like the TPU kernels, which
+// skip a chunk whose box lies beyond the tile's threshold bound
+// (contrast_pallas.py:237, :279-283 forward, :326-329 rows, :405-411
+// support) over a cloud sorted on the way in (:674-695), they read the
+// cloud's Morton-sorted layout (ops/spatial.py, the one the stage's
+// self-kNN read) and its sorted (label, threshold) columns
+// (ops/contrast.py::support_layout).  A block takes 8 points consecutive
+// along the curve, a warp each (chunk_list.cuh), and tests each 64-point
+// chunk once against the union box of the 8 and a limit: the forward and
+// the rows half, where the threshold is the warp's own point's, the largest
+// threshold of the 8; the support half, where it is the other point's, the
+// chunk's largest threshold.  The chunks that pass form a list in shared
+// memory; each warp tests the listed boxes against its own point, one a
+// lane, and scans each chunk that passes, one point a lane, reading the
+// sorted points and columns through L1.  Every bound is exact in float32
+// without a cushion (chunks.cuh), so the members, and the forward's counts,
+// are the plain twin's.  A point never counts itself: the test is on its
+// place in the sorted order, not its position, since clouds repeat points.
+// For each member the warp reads the other point's feature row by its
+// original index, coalesced (lane l holds channels l, l+32, ...), reduces
+// the dot product with xor shuffles (every lane ends with the same sum) and
+// accumulates in registers.  The sums follow the fixed chunk order and lane
+// order within a chunk, so two runs give the same bits; each result is
+// written once, at the point's original index.  What bounds them on the
+// card is the feature work of the ~nsample members a point (2.2 M C-wide
+// dot products at the 4 x 24000 stage) and the listed chunks' position
+// tests; the dense kernels they replace tested all N^2 pairs.  Staging the
 // listed chunks in shared memory by bulk asynchronous copies measured
 // slower (PERF.md): each warp then waits on every listed chunk in turn.
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "chunk_list.cuh"
 
 namespace {
 
+using amc3d::kChunk;
+using amc3d::kListChunks;
+
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
-constexpr int kTile = 1024;
 constexpr unsigned kFull = 0xffffffffu;
 static_assert(kWarps == amc3d::kListWarps, "a warp a point");
 
@@ -78,6 +79,16 @@ __device__ __forceinline__ void load_row(const float* __restrict__ row, int c,
 }
 
 template <int CPL>
+__device__ __forceinline__ void store_row(float* __restrict__ row, int c,
+                                          int lane, const float (&v)[CPL]) {
+#pragma unroll
+  for (int t = 0; t < CPL; ++t) {
+    const int ch = lane + 32 * t;
+    if (ch < c) row[ch] = v[t];
+  }
+}
+
+template <int CPL>
 __device__ __forceinline__ float warp_dot(const float (&a)[CPL],
                                           const float (&b)[CPL]) {
   float s = 0.f;
@@ -88,87 +99,176 @@ __device__ __forceinline__ float warp_dot(const float (&a)[CPL],
   return s;
 }
 
-// Stage positions and labels of points [t0, t0 + len) of cloud `base`.
-__device__ __forceinline__ void stage(const float* __restrict__ p,
-                                      const float* __restrict__ lab,
-                                      size_t base, int t0, int len,
-                                      float4* sp) {
-  for (int t = threadIdx.x; t < len; t += kThreads) {
-    const float* s = p + (base + t0 + t) * 3;
-    sp[t] = make_float4(s[0], s[1], s[2], lab[base + t0 + t]);
-  }
+// The weight of pair (i, j) from query i's incoming gradients g4_i.
+__device__ __forceinline__ float pair_weight(float s, bool pos, float4 g,
+                                             float tinv, int need_s) {
+  const float e = expf(__fmul_rn(s, tinv));
+  float w = __fmul_rn(__fmul_rn(pos ? g.x : g.y, e), tinv);
+  if (need_s) w = __fadd_rn(w, pos ? g.z : g.w);
+  return w;
 }
 
-template <int CPL>
-__global__ void __launch_bounds__(kThreads)
-contrast_fwd_kernel(const float* __restrict__ p, const float* __restrict__ f,
-                    const float* __restrict__ lab,
-                    const float* __restrict__ kth, int n, int c, float tinv,
-                    int root, int need_s, int need_d,
-                    float* __restrict__ out) {
-  __shared__ float4 sp[kTile];
-  const int b = blockIdx.y;
-  const int lane = threadIdx.x & 31;
-  const int i = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  const bool active = i < n;
-  const size_t base = static_cast<size_t>(b) * n;
-  float qx = 0.f, qy = 0.f, qz = 0.f, ql = 0.f;
-  float thr = -1.f;  // an idle warp admits nothing: every d^2 >= 0
-  float fi[CPL];
-  if (active) {
-    qx = p[(base + i) * 3];
-    qy = p[(base + i) * 3 + 1];
-    qz = p[(base + i) * 3 + 2];
-    ql = lab[base + i];
-    thr = kth[base + i];
-    load_row<CPL>(f + (base + i) * c, c, lane, fi);
-  } else {
-#pragma unroll
-    for (int t = 0; t < CPL; ++t) fi[t] = 0.f;
-  }
-  float acc_p = 0.f, acc_q = 0.f, acc_sp = 0.f, acc_sn = 0.f;
-  float acc_np = 0.f, acc_nn = 0.f, acc_dp = 0.f, acc_dn = 0.f;
+// One batch's cloud in the sorted layout and the warp's own point in it.
+struct Scan {
+  const float4* pts;  // sorted x, y, z; w the bits of the original index
+  const float2* ax;   // (label, threshold) of each sorted point
+  const float* bx;    // a box a chunk: lo x, y, z, hi x, y, z
+  int n, nc;
+  int r;              // the warp's point's place in the sorted order
+  bool active;        // r < n: the last block may hold fewer than 8
+  float x, y, z;
+  int io;             // its index in the caller's order
+  float2 la;          // its label and threshold
+};
 
-  for (int t0 = 0; t0 < n; t0 += kTile) {
-    const int len = min(kTile, n - t0);
-    __syncthreads();  // the previous tile is no longer read
-    stage(p, lab, base, t0, len, sp);
-    __syncthreads();
-    for (int u0 = 0; u0 < len; u0 += 32) {
-      const int u = u0 + lane;
-      float d = 0.f;
-      bool member = false;
-      if (u < len) {
-        d = d2_of(sp[u], qx, qy, qz);
-        member = d <= thr && t0 + u != i;
+// Every thread of the block: reads the warp's point, and the union box of
+// the block's points into ub and their largest threshold into limit.
+// spts, slim: kWarps x 3 and kWarps floats of shared memory.
+__device__ __forceinline__ Scan block_points(const float4* sorted,
+                                             const float2* aux,
+                                             const float* boxes, int n,
+                                             float (*spts)[3], float* slim,
+                                             float* ub, float& limit) {
+  const int b = blockIdx.y, warp = threadIdx.x >> 5;
+  const int nc = (n + kChunk - 1) / kChunk;
+  const size_t base = static_cast<size_t>(b) * n;
+  Scan s{sorted + base, aux + base, boxes + static_cast<size_t>(b) * nc * 6,
+         n, nc, static_cast<int>(blockIdx.x) * kWarps + warp, false,
+         0.f, 0.f, 0.f, 0, make_float2(0.f, -1.f)};
+  s.active = s.r < n;
+  if (s.active) {
+    const float4 p = s.pts[s.r];
+    s.x = p.x;
+    s.y = p.y;
+    s.z = p.z;
+    s.io = __float_as_int(p.w);
+    s.la = s.ax[s.r];
+  }
+  if ((threadIdx.x & 31) == 0) {
+    spts[warp][0] = s.x;
+    spts[warp][1] = s.y;
+    spts[warp][2] = s.z;
+    slim[warp] = s.la.y;
+  }
+  __syncthreads();
+  const int count = min(kWarps, n - static_cast<int>(blockIdx.x) * kWarps);
+  amc3d::union_box(spts, count, ub);
+  limit = -1.f;
+  for (int w = 0; w < count; ++w) limit = fmaxf(limit, slim[w]);
+  return s;
+}
+
+// The one scan of the three kernels: visit(io, label, d2) for every member
+// of the warp's point among the points of the listed chunks, in chunk order
+// and lane order within a chunk.  A chunk is listed when the box-to-box
+// bound from the block's union box ub is not above block_limit(chunk), and
+// scanned when the bound from the warp's point is not above
+// warp_limit(chunk); a point o of it (io its original index) is a member
+// when admits(d2, (label_o, threshold_o)) and it is not the warp's point.
+// Every thread of the block calls it (block_list's barriers); list and
+// counts: kListChunks and kWarps ints of shared memory.
+template <class BlockLimit, class WarpLimit, class Admits, class Visit>
+__device__ __forceinline__ void for_each_member(
+    const Scan& s, const float* ub, int* list, int* counts,
+    const BlockLimit& block_limit, const WarpLimit& warp_limit,
+    const Admits& admits, const Visit& visit) {
+  using namespace amc3d;
+  const int lane = threadIdx.x & 31;
+  auto box = [&](int c) { return s.bx + static_cast<size_t>(c) * 6; };
+  auto listed = [&](int c) {
+    return !(box_box_lower_bound(ub, box(c)) > block_limit(c));
+  };
+  for (int w0 = 0; w0 < s.nc; w0 += kListChunks) {
+    const int total = block_list(w0, s.nc, listed, list, counts);
+    if (!s.active) continue;
+    for (int t0 = 0; t0 < total; t0 += 32) {
+      const int t = t0 + lane;
+      int c = 0;
+      bool want = false;
+      if (t < total) {
+        c = list[t];
+        want = !(box_lower_bound(s.x, s.y, s.z, box(c)) > warp_limit(c));
       }
-      unsigned mask = __ballot_sync(kFull, member);
-      while (mask) {
-        const int src = __ffs(mask) - 1;
-        mask &= mask - 1;
-        const int j = t0 + u0 + src;
-        const float dj = __shfl_sync(kFull, d, src);
-        float fj[CPL];
-        load_row<CPL>(f + (base + j) * c, c, lane, fj);
-        const float s = warp_dot<CPL>(fi, fj);
-        const float e = expf(__fmul_rn(s, tinv));
-        const float dt = root ? __fsqrt_rn(__fadd_rn(fabsf(dj), 1e-12f)) : dj;
-        if (sp[u0 + src].w == ql) {
-          acc_p += e;
-          acc_np += 1.f;
-          if (need_s) acc_sp += s;
-          if (need_d) acc_dp += dt;
-        } else {
-          acc_q += e;
-          acc_nn += 1.f;
-          if (need_s) acc_sn += s;
-          if (need_d) acc_dn += dt;
+      unsigned chunks = __ballot_sync(kFull, want);
+      while (chunks) {
+        const int src = __ffs(chunks) - 1;
+        chunks &= chunks - 1;
+        const int cc = __shfl_sync(kFull, c, src);
+        const int len = min(kChunk, s.n - cc * kChunk);
+        const float4* cp = s.pts + static_cast<size_t>(cc) * kChunk;
+        const float2* ca = s.ax + static_cast<size_t>(cc) * kChunk;
+        for (int u0 = 0; u0 < len; u0 += 32) {
+          const int u = u0 + lane;
+          bool member = false;
+          float4 po = make_float4(0.f, 0.f, 0.f, 0.f);
+          float2 la = make_float2(0.f, 0.f);
+          float d = 0.f;
+          if (u < len) {
+            po = cp[u];
+            la = ca[u];
+            d = d2_of(po, s.x, s.y, s.z);
+            member = admits(d, la) && cc * kChunk + u != s.r;
+          }
+          unsigned mask = __ballot_sync(kFull, member);
+          while (mask) {
+            const int m = __ffs(mask) - 1;
+            mask &= mask - 1;
+            visit(__float_as_int(__shfl_sync(kFull, po.w, m)),
+                  __shfl_sync(kFull, la.x, m), __shfl_sync(kFull, d, m));
+          }
         }
       }
     }
   }
-  if (active && lane == 0) {
-    float* o = out + (base + i) * 9;
+}
+
+// forward: the warp's point is query i; its own threshold admits j
+template <int CPL>
+__global__ void __launch_bounds__(kThreads)
+contrast_fwd_kernel(const float4* __restrict__ sorted,
+                    const float2* __restrict__ aux,
+                    const float* __restrict__ boxes,
+                    const float* __restrict__ f, int n, int c, float tinv,
+                    int root, int need_s, int need_d,
+                    float* __restrict__ out) {
+  __shared__ int list[kListChunks];
+  __shared__ float spts[kWarps][3];
+  __shared__ float slim[kWarps];
+  __shared__ int counts[kWarps];
+  const int lane = threadIdx.x & 31;
+  float ub[6], limit;
+  const Scan s = block_points(sorted, aux, boxes, n, spts, slim, ub, limit);
+  const size_t base = static_cast<size_t>(blockIdx.y) * n;
+  const float thr = s.la.y, ql = s.la.x;
+  float fi[CPL];
+#pragma unroll
+  for (int t = 0; t < CPL; ++t) fi[t] = 0.f;
+  if (s.active) load_row<CPL>(f + (base + s.io) * c, c, lane, fi);
+  float acc_p = 0.f, acc_q = 0.f, acc_sp = 0.f, acc_sn = 0.f;
+  float acc_np = 0.f, acc_nn = 0.f, acc_dp = 0.f, acc_dn = 0.f;
+  for_each_member(
+      s, ub, list, counts, [&](int) { return limit; },
+      [&](int) { return thr; }, [&](float d, float2) { return d <= thr; },
+      [&](int jo, float lj, float dj) {
+        float fj[CPL];
+        load_row<CPL>(f + (base + jo) * c, c, lane, fj);
+        const float sim = warp_dot<CPL>(fi, fj);
+        const float e = expf(__fmul_rn(sim, tinv));
+        const float dt = root ? __fsqrt_rn(__fadd_rn(fabsf(dj), 1e-12f)) : dj;
+        if (lj == ql) {
+          acc_p += e;
+          acc_np += 1.f;
+          if (need_s) acc_sp += sim;
+          if (need_d) acc_dp += dt;
+        } else {
+          acc_q += e;
+          acc_nn += 1.f;
+          if (need_s) acc_sn += sim;
+          if (need_d) acc_dn += dt;
+        }
+      });
+  if (s.active && lane == 0) {
+    float* o = out + (base + s.io) * 9;
     o[0] = acc_p;
     o[1] = acc_q;
     o[2] = acc_sp;
@@ -181,88 +281,49 @@ contrast_fwd_kernel(const float* __restrict__ p, const float* __restrict__ f,
   }
 }
 
-// The weight of pair (i, j) from query i's incoming gradients g4_i.
-__device__ __forceinline__ float pair_weight(float s, bool pos, float4 g,
-                                             float tinv, int need_s) {
-  const float e = expf(__fmul_rn(s, tinv));
-  float w = __fmul_rn(__fmul_rn(pos ? g.x : g.y, e), tinv);
-  if (need_s) w = __fadd_rn(w, pos ? g.z : g.w);
-  return w;
-}
-
-// rows: warp per query i, scanning the support j in index order
+// rows: the warp's point is query i; df_i sums w_ij f_j over its members j
 template <int CPL>
 __global__ void __launch_bounds__(kThreads)
-contrast_grad_rows_kernel(const float* __restrict__ p,
+contrast_grad_rows_kernel(const float4* __restrict__ sorted,
+                          const float2* __restrict__ aux,
+                          const float* __restrict__ boxes,
                           const float* __restrict__ f,
-                          const float* __restrict__ lab,
-                          const float* __restrict__ kth,
                           const float4* __restrict__ g4, int n, int c,
                           float tinv, int need_s, float* __restrict__ df) {
-  __shared__ float4 sp[kTile];
-  const int b = blockIdx.y;
+  __shared__ int list[kListChunks];
+  __shared__ float spts[kWarps][3];
+  __shared__ float slim[kWarps];
+  __shared__ int counts[kWarps];
   const int lane = threadIdx.x & 31;
-  const int me = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  const bool active = me < n;
-  const size_t base = static_cast<size_t>(b) * n;
-  float mx = 0.f, my = 0.f, mz = 0.f, ml = 0.f;
-  float thr = -1.f;  // an idle warp admits nothing
+  float ub[6], limit;
+  const Scan s = block_points(sorted, aux, boxes, n, spts, slim, ub, limit);
+  const size_t base = static_cast<size_t>(blockIdx.y) * n;
+  const float thr = s.la.y, ml = s.la.x;
   float4 gme = make_float4(0.f, 0.f, 0.f, 0.f);
   float fme[CPL], acc[CPL];
 #pragma unroll
-  for (int t = 0; t < CPL; ++t) acc[t] = 0.f;
-  if (active) {
-    mx = p[(base + me) * 3];
-    my = p[(base + me) * 3 + 1];
-    mz = p[(base + me) * 3 + 2];
-    ml = lab[base + me];
-    thr = kth[base + me];
-    gme = g4[base + me];
-    load_row<CPL>(f + (base + me) * c, c, lane, fme);
-  } else {
-#pragma unroll
-    for (int t = 0; t < CPL; ++t) fme[t] = 0.f;
+  for (int t = 0; t < CPL; ++t) acc[t] = fme[t] = 0.f;
+  if (s.active) {
+    gme = g4[base + s.io];
+    load_row<CPL>(f + (base + s.io) * c, c, lane, fme);
   }
-
-  for (int t0 = 0; t0 < n; t0 += kTile) {
-    const int len = min(kTile, n - t0);
-    __syncthreads();
-    stage(p, lab, base, t0, len, sp);
-    __syncthreads();
-    for (int u0 = 0; u0 < len; u0 += 32) {
-      const int u = u0 + lane;
-      bool member = false;
-      if (u < len && active) {
-        const float d = d2_of(sp[u], mx, my, mz);
-        member = d <= thr && t0 + u != me;
-      }
-      unsigned mask = __ballot_sync(kFull, member);
-      while (mask) {
-        const int src = __ffs(mask) - 1;
-        mask &= mask - 1;
-        const int other = t0 + u0 + src;
+  for_each_member(
+      s, ub, list, counts, [&](int) { return limit; },
+      [&](int) { return thr; }, [&](float d, float2) { return d <= thr; },
+      [&](int jo, float lj, float) {
         float fo[CPL];
-        load_row<CPL>(f + (base + other) * c, c, lane, fo);
-        const float s = warp_dot<CPL>(fme, fo);
-        const float w = pair_weight(s, sp[u0 + src].w == ml, gme, tinv, need_s);
+        load_row<CPL>(f + (base + jo) * c, c, lane, fo);
+        const float w = pair_weight(warp_dot<CPL>(fme, fo), lj == ml, gme,
+                                    tinv, need_s);
 #pragma unroll
         for (int t = 0; t < CPL; ++t) acc[t] = fmaf(w, fo[t], acc[t]);
-      }
-    }
-  }
-  if (active) {
-    float* o = df + (base + me) * c;
-#pragma unroll
-    for (int t = 0; t < CPL; ++t) {
-      const int ch = lane + 32 * t;
-      if (ch < c) o[ch] = acc[t];
-    }
-  }
+      });
+  if (s.active) store_row<CPL>(df + (base + s.io) * c, c, lane, acc);
 }
 
-// support: warp per support point j, the block's 8 points consecutive in
-// the sorted order (chunk_list.cuh); a warp sums over the members i of the
-// listed query chunks in chunk order, lane order within a chunk.
+// support: the warp's point is support point j; df_j sums w_ij f_i over the
+// queries i whose own threshold admits it, so a chunk's limit is the
+// largest threshold of its points (cmax)
 template <int CPL>
 __global__ void __launch_bounds__(kThreads)
 contrast_grad_support_kernel(const float4* __restrict__ sorted,
@@ -271,221 +332,113 @@ contrast_grad_support_kernel(const float4* __restrict__ sorted,
                              const float* __restrict__ cmax,
                              const float* __restrict__ f,
                              const float4* __restrict__ g4, int n, int c,
-                             int nc, float tinv, int need_s,
+                             float tinv, int need_s,
                              float* __restrict__ df) {
-  using namespace amc3d;
   __shared__ int list[kListChunks];
   __shared__ float spts[kWarps][3];
+  __shared__ float slim[kWarps];
   __shared__ int counts[kWarps];
-  const int b = blockIdx.y;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int r = blockIdx.x * kWarps + warp;  // j's place in the sorted order
-  const bool active = r < n;
-  const size_t base = static_cast<size_t>(b) * n;
-  const float4* pts = sorted + base;
-  const float2* ax = aux + base;
-  const float* bx = boxes + static_cast<size_t>(b) * nc * 6;
-  const float* cm = cmax + static_cast<size_t>(b) * nc;
-  float mx = 0.f, my = 0.f, mz = 0.f, ml = 0.f;
-  int jo = 0;  // j's index in the caller's order
+  const int lane = threadIdx.x & 31;
+  float ub[6], unused;
+  const Scan s = block_points(sorted, aux, boxes, n, spts, slim, ub, unused);
+  const size_t base = static_cast<size_t>(blockIdx.y) * n;
+  const float* cm = cmax + static_cast<size_t>(blockIdx.y) * s.nc;
+  const float ml = s.la.x;
   float fme[CPL], acc[CPL];
 #pragma unroll
   for (int t = 0; t < CPL; ++t) acc[t] = fme[t] = 0.f;
-  if (active) {
-    const float4 pj = pts[r];
-    mx = pj.x;
-    my = pj.y;
-    mz = pj.z;
-    jo = __float_as_int(pj.w);
-    ml = ax[r].x;
-    load_row<CPL>(f + (base + jo) * c, c, lane, fme);
-  }
-  if (lane == 0) {
-    spts[warp][0] = mx;
-    spts[warp][1] = my;
-    spts[warp][2] = mz;
-  }
-  __syncthreads();
-  float ub[6];
-  union_box(spts, min(kWarps, n - static_cast<int>(blockIdx.x) * kWarps), ub);
-  // a query chunk whose box lies beyond its largest threshold from every
-  // point of the block holds no query that admits one of them
-  auto needed = [&](int cq) {
-    return !(box_box_lower_bound(ub, bx + static_cast<size_t>(cq) * 6) > cm[cq]);
-  };
-
-  for (int w0 = 0; w0 < nc; w0 += kListChunks) {
-    const int total = block_list(w0, nc, needed, list, counts);
-    if (!active) continue;
-    for (int t0 = 0; t0 < total; t0 += 32) {
-      const int t = t0 + lane;
-      int cq = 0;
-      bool want = false;
-      if (t < total) {
-        cq = list[t];
-        want = !(box_lower_bound(mx, my, mz, bx + static_cast<size_t>(cq) * 6) >
-                 cm[cq]);
-      }
-      unsigned chunks = __ballot_sync(kFull, want);
-      while (chunks) {
-        const int src = __ffs(chunks) - 1;
-        chunks &= chunks - 1;
-        const int cc = __shfl_sync(kFull, cq, src);
-        const int len = min(kChunk, n - cc * kChunk);
-        const float4* qp = pts + static_cast<size_t>(cc) * kChunk;
-        const float2* qa = ax + static_cast<size_t>(cc) * kChunk;
-        for (int u0 = 0; u0 < len; u0 += 32) {
-          const int u = u0 + lane;
-          bool member = false;
-          float4 pi = make_float4(0.f, 0.f, 0.f, 0.f);
-          float2 la = make_float2(0.f, 0.f);
-          if (u < len) {
-            pi = qp[u];
-            la = qa[u];
-            member = d2_of(pi, mx, my, mz) <= la.y && cc * kChunk + u != r;
-          }
-          unsigned mask = __ballot_sync(kFull, member);
-          while (mask) {
-            const int src2 = __ffs(mask) - 1;
-            mask &= mask - 1;
-            const int io = __float_as_int(__shfl_sync(kFull, pi.w, src2));
-            const float li = __shfl_sync(kFull, la.x, src2);
-            float fo[CPL];
-            load_row<CPL>(f + (base + io) * c, c, lane, fo);
-            const float s = warp_dot<CPL>(fme, fo);
-            const float w = pair_weight(s, li == ml, g4[base + io], tinv, need_s);
+  if (s.active) load_row<CPL>(f + (base + s.io) * c, c, lane, fme);
+  auto chunk_limit = [&](int cq) { return cm[cq]; };
+  for_each_member(
+      s, ub, list, counts, chunk_limit, chunk_limit,
+      [&](float d, float2 la) { return d <= la.y; },
+      [&](int io, float li, float) {
+        float fo[CPL];
+        load_row<CPL>(f + (base + io) * c, c, lane, fo);
+        const float w = pair_weight(warp_dot<CPL>(fme, fo), li == ml,
+                                    g4[base + io], tinv, need_s);
 #pragma unroll
-            for (int q = 0; q < CPL; ++q) acc[q] = fmaf(w, fo[q], acc[q]);
-          }
-        }
-      }
-    }
+        for (int t = 0; t < CPL; ++t) acc[t] = fmaf(w, fo[t], acc[t]);
+      });
+  if (s.active) store_row<CPL>(df + (base + s.io) * c, c, lane, acc);
+}
+
+// Launches launch(std::integral_constant<int, CPL>()) with CPL the channels
+// a lane holds, the smallest of 1, 2, 4, 8, 16 covering c; the layout's
+// pointers must be aligned for their vector loads.
+template <class Launch>
+int by_lanes(int c, const void* sorted, const void* aux, const Launch& launch) {
+  if (reinterpret_cast<size_t>(sorted) % 16 || reinterpret_cast<size_t>(aux) % 8)
+    return static_cast<int>(cudaErrorInvalidValue);
+  switch (c <= 32 ? 1 : c <= 64 ? 2 : c <= 128 ? 4 : c <= 256 ? 8 : c <= 512 ? 16 : 0) {
+    case 1: launch(std::integral_constant<int, 1>()); break;
+    case 2: launch(std::integral_constant<int, 2>()); break;
+    case 4: launch(std::integral_constant<int, 4>()); break;
+    case 8: launch(std::integral_constant<int, 8>()); break;
+    case 16: launch(std::integral_constant<int, 16>()); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (active) {
-    float* o = df + (base + jo) * c;
-#pragma unroll
-    for (int t = 0; t < CPL; ++t) {
-      const int ch = lane + 32 * t;
-      if (ch < c) o[ch] = acc[t];
-    }
-  }
-}
-
-// channels per lane: the smallest of 1, 2, 4, 8, 16 covering c
-int lanes_cpl(int c) {
-  int cpl = 1;
-  while (cpl * 32 < c) cpl *= 2;
-  return cpl;
-}
-
-template <int CPL>
-void launch_fwd(dim3 grid, cudaStream_t st, const float* p, const float* f,
-                const float* lab, const float* kth, int n, int c, float tinv,
-                int root, int need_s, int need_d, float* out) {
-  contrast_fwd_kernel<CPL><<<grid, kThreads, 0, st>>>(
-      p, f, lab, kth, n, c, tinv, root, need_s, need_d, out);
-}
-
-template <int CPL>
-void launch_rows(dim3 grid, cudaStream_t st, const float* p, const float* f,
-                 const float* lab, const float* kth, const float4* g4, int n,
-                 int c, float tinv, int need_s, float* df) {
-  contrast_grad_rows_kernel<CPL><<<grid, kThreads, 0, st>>>(
-      p, f, lab, kth, g4, n, c, tinv, need_s, df);
-}
-
-template <int CPL>
-void launch_support(dim3 grid, cudaStream_t st, const float4* sorted,
-                    const float2* aux, const float* boxes, const float* cmax,
-                    const float* f, const float4* g4, int n, int c, int nc,
-                    float tinv, int need_s, float* df) {
-  contrast_grad_support_kernel<CPL><<<grid, kThreads, 0, st>>>(
-      sorted, aux, boxes, cmax, f, g4, n, c, nc, tinv, need_s, df);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// p (b, n, 3), f (b, n, c), lab (b, n), kth (b, n) float32, 1 <= c <= 512
+// Every entry point reads the cloud's sorted layout: sorted (b, n, 4)
+// float32, the cloud along its Morton curve with the bits of each point's
+// index in w; aux (b, n, 2) float32, (label, threshold) of each sorted
+// point; boxes (b, ceil(n / 64), 6).  f (b, n, c), 1 <= c <= 512, and
+// g4 (b, n, 4), the incoming gradients of P, Q, Spos, Sneg, are in the
+// caller's order, as are the outputs.
+
 // -> out (b, n, 9) float32.
-extern "C" int amc3d_contrast_forward(const void* p, const void* f,
-                                      const void* lab, const void* kth,
+extern "C" int amc3d_contrast_forward(const void* sorted, const void* aux,
+                                      const void* boxes, const void* f,
                                       void* out, int b, int n, int c,
                                       float tinv, int root, int need_s,
                                       int need_d, void* stream) {
   const dim3 grid((n + kWarps - 1) / kWarps, b);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const auto* pp = static_cast<const float*>(p);
-  const auto* ff = static_cast<const float*>(f);
-  const auto* ll = static_cast<const float*>(lab);
-  const auto* kk = static_cast<const float*>(kth);
-  auto* o = static_cast<float*>(out);
-  switch (lanes_cpl(c)) {
-    case 1: launch_fwd<1>(grid, st, pp, ff, ll, kk, n, c, tinv, root, need_s, need_d, o); break;
-    case 2: launch_fwd<2>(grid, st, pp, ff, ll, kk, n, c, tinv, root, need_s, need_d, o); break;
-    case 4: launch_fwd<4>(grid, st, pp, ff, ll, kk, n, c, tinv, root, need_s, need_d, o); break;
-    case 8: launch_fwd<8>(grid, st, pp, ff, ll, kk, n, c, tinv, root, need_s, need_d, o); break;
-    case 16: launch_fwd<16>(grid, st, pp, ff, ll, kk, n, c, tinv, root, need_s, need_d, o); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const auto st = static_cast<cudaStream_t>(stream);
+  return by_lanes(c, sorted, aux, [&](auto cpl) {
+    contrast_fwd_kernel<decltype(cpl)::value><<<grid, kThreads, 0, st>>>(
+        static_cast<const float4*>(sorted), static_cast<const float2*>(aux),
+        static_cast<const float*>(boxes), static_cast<const float*>(f), n, c,
+        tinv, root, need_s, need_d, static_cast<float*>(out));
+  });
 }
 
-// g4 (b, n, 4) float32: incoming gradients of P, Q, Spos, Sneg.
 // -> df (b, n, c) float32, the query-side part of the VJP.
-extern "C" int amc3d_contrast_grad_rows(const void* p, const void* f,
-                                        const void* lab, const void* kth,
+extern "C" int amc3d_contrast_grad_rows(const void* sorted, const void* aux,
+                                        const void* boxes, const void* f,
                                         const void* g4, void* df, int b,
                                         int n, int c, float tinv, int need_s,
                                         void* stream) {
   const dim3 grid((n + kWarps - 1) / kWarps, b);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const auto* pp = static_cast<const float*>(p);
-  const auto* ff = static_cast<const float*>(f);
-  const auto* ll = static_cast<const float*>(lab);
-  const auto* kk = static_cast<const float*>(kth);
-  const auto* gg = static_cast<const float4*>(g4);
-  auto* out = static_cast<float*>(df);
-  switch (lanes_cpl(c)) {
-    case 1: launch_rows<1>(grid, st, pp, ff, ll, kk, gg, n, c, tinv, need_s, out); break;
-    case 2: launch_rows<2>(grid, st, pp, ff, ll, kk, gg, n, c, tinv, need_s, out); break;
-    case 4: launch_rows<4>(grid, st, pp, ff, ll, kk, gg, n, c, tinv, need_s, out); break;
-    case 8: launch_rows<8>(grid, st, pp, ff, ll, kk, gg, n, c, tinv, need_s, out); break;
-    case 16: launch_rows<16>(grid, st, pp, ff, ll, kk, gg, n, c, tinv, need_s, out); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const auto st = static_cast<cudaStream_t>(stream);
+  return by_lanes(c, sorted, aux, [&](auto cpl) {
+    contrast_grad_rows_kernel<decltype(cpl)::value><<<grid, kThreads, 0, st>>>(
+        static_cast<const float4*>(sorted), static_cast<const float2*>(aux),
+        static_cast<const float*>(boxes), static_cast<const float*>(f),
+        static_cast<const float4*>(g4), n, c, tinv, need_s,
+        static_cast<float*>(df));
+  });
 }
 
-// sorted (b, n, 4) float32: the cloud along its Morton curve, the bits of
-// each point's index in w; aux (b, n, 2) float32: (label, threshold) of
-// each sorted point; boxes (b, nc, 6); cmax (b, nc):
-// the largest threshold of each chunk; f (b, n, c), g4 (b, n, 4) in the
-// caller's order -> df (b, n, c) float32, the support-side part of the VJP.
+// cmax (b, ceil(n / 64)): the largest threshold of each chunk.
+// -> df (b, n, c) float32, the support-side part of the VJP.
 extern "C" int amc3d_contrast_grad_support(const void* sorted, const void* aux,
                                            const void* boxes, const void* cmax,
                                            const void* f, const void* g4,
                                            void* df, int b, int n, int c,
                                            float tinv, int need_s,
                                            void* stream) {
-  const int nc = (n + amc3d::kChunk - 1) / amc3d::kChunk;
   const dim3 grid((n + kWarps - 1) / kWarps, b);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const auto* ss = static_cast<const float4*>(sorted);
-  const auto* aa = static_cast<const float2*>(aux);
-  const auto* bx = static_cast<const float*>(boxes);
-  const auto* cm = static_cast<const float*>(cmax);
-  const auto* ff = static_cast<const float*>(f);
-  const auto* gg = static_cast<const float4*>(g4);
-  auto* out = static_cast<float*>(df);
-  if (reinterpret_cast<size_t>(sorted) % 16 || reinterpret_cast<size_t>(aux) % 8)
-    return static_cast<int>(cudaErrorInvalidValue);
-  switch (lanes_cpl(c)) {
-    case 1: launch_support<1>(grid, st, ss, aa, bx, cm, ff, gg, n, c, nc, tinv, need_s, out); break;
-    case 2: launch_support<2>(grid, st, ss, aa, bx, cm, ff, gg, n, c, nc, tinv, need_s, out); break;
-    case 4: launch_support<4>(grid, st, ss, aa, bx, cm, ff, gg, n, c, nc, tinv, need_s, out); break;
-    case 8: launch_support<8>(grid, st, ss, aa, bx, cm, ff, gg, n, c, nc, tinv, need_s, out); break;
-    case 16: launch_support<16>(grid, st, ss, aa, bx, cm, ff, gg, n, c, nc, tinv, need_s, out); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const auto st = static_cast<cudaStream_t>(stream);
+  return by_lanes(c, sorted, aux, [&](auto cpl) {
+    contrast_grad_support_kernel<decltype(cpl)::value>
+        <<<grid, kThreads, 0, st>>>(
+            static_cast<const float4*>(sorted), static_cast<const float2*>(aux),
+            static_cast<const float*>(boxes), static_cast<const float*>(cmax),
+            static_cast<const float*>(f), static_cast<const float4*>(g4), n, c,
+            tinv, need_s, static_cast<float*>(df));
+  });
 }

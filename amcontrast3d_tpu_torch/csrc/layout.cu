@@ -1,6 +1,6 @@
 // The sorted layout of a train step's stage clouds, built on the card in
 // three launches around one library sort (ops/spatial.py::sort_stages), and
-// the (label, threshold) columns the contrast support kernel reads beside it
+// the (label, threshold) columns the contrast kernels read beside it
 // (ops/contrast.py::support_layout).
 //
 // These replace no TPU kernel: in the JAX package the Morton key, the sort

@@ -15,8 +15,9 @@ gather-based forms of ``contrast.py:276-318``) and ``remat`` raise
 
 The stage clouds are sorted once a step, all in one sort
 (``ops.spatial.sort_stages``), and each layout handed to the kernels that
-read it: the stage's self-kNN, the support half of its contrast VJP, and,
-for stage 0, the label propagation to the coarser stages.
+read it: the stage's self-kNN, its contrast forward and both halves of the
+VJP, and, for stage 0, the label propagation to the coarser stages.  The
+ground-truth ambiguity (``ambiguity_head``) sorts its stages the same way.
 
 In the approx configuration (``ops.knn.set_knn_backend('approx')``, unless
 ``ambiguity_args.fused`` is False, as the JAX package's fused branches
@@ -77,7 +78,7 @@ def point_contrast_margin(p: torch.Tensor, f: torch.Tensor,
     labels_stage (B, N, ncls) soft one-hot or (B, N) class ids → (scalar
     loss, ambiguity a (B, N), no gradient).  ``cloud``: p's sorted layout,
     sorted here when not given and the exact kNN runs (in the approx
-    configuration the contrast VJP sorts when it is not given)."""
+    configuration the contrast kernels sort when it is not given)."""
     _check_ported(args, dist_func, contrast_func)
     nsample = args["nsample"]
     if labels_stage.dim() == 2:
@@ -196,10 +197,11 @@ def ambiguity_head(up_stages: Sequence[Tuple[torch.Tensor, torch.Tensor]],
         stages = int(args.get("stages_num", 4))
         ps = [s[0].contiguous() for s in up_stages[:stages]]
         p0 = ps[0]
+        # every stage's layout by one sort: its kNN or its contrast kernels,
+        # the labels from stage 0
+        clouds = sort_stages(ps)
         if fused:
             lab0 = labels0.argmax(-1).to(torch.int32)
-        else:   # every stage's layout by one sort: its kNN, labels from 0
-            clouds = sort_stages(ps)
         for i in range(stages):
             p = ps[i]
             if not fused:
@@ -211,9 +213,9 @@ def ambiguity_head(up_stages: Sequence[Tuple[torch.Tensor, torch.Tensor]],
             lab = lab0 if i == 0 else label_vote(
                 p0, lab0, p, _vote_k(i), labels0.shape[-1])
             red = contrast_reductions_selfk(
-                p.contiguous(), p.new_zeros(*p.shape[:2], 1), lab.float(),
-                args["nsample"], 1.0, cctype == "Method3", False,
-                cctype != "Method1")
+                p, p.new_zeros(*p.shape[:2], 1), lab.float(), args["nsample"],
+                1.0, cctype == "Method3", False, cctype != "Method1",
+                cloud=clouds[i])
             out.append(ambiguity_from_stats(
                 red[..., 4], red[..., 5], red[..., 6], red[..., 7],
                 args.get("ccbeta", 0.04), method1=cctype == "Method1",

@@ -68,18 +68,18 @@ _SIGNATURES = {
     # the same, support-owned and deterministic; df2 need not be zeroed
     "amc3d_three_interpolate_backward_big": (_P, _P, _P, _P, _I, _I, _I, _I,
                                              _P),
-    # p (B,N,3), f (B,N,C), lab (B,N), kth (B,N), out (B,N,9), B, N, C,
-    # tinv, cctype_root, need_s, need_d, stream
+    # every contrast kernel reads the sorted cloud (B,N,4) f32 with the
+    # index bits in w, (label, threshold) of each sorted point (B,N,2) and
+    # boxes (B,ceil(N/64),6).  Forward: those, f (B,N,C), out (B,N,9), B, N,
+    # C, tinv, cctype_root, need_s, need_d, stream
     "amc3d_contrast_forward": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I,
                                _I, _P),
-    # p, f, lab, kth, g4 (B,N,4) (gradients of P, Q, Spos, Sneg),
+    # rows: the layout, f, g4 (B,N,4) (gradients of P, Q, Spos, Sneg),
     # df (B,N,C), B, N, C, tinv, need_s, stream
     "amc3d_contrast_grad_rows": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I,
                                  _P),
-    # sorted cloud (B,N,4) f32 with the index bits in w, (label, threshold)
-    # of each sorted point (B,N,2), boxes (B,ceil(N/64),6), the
-    # largest threshold a chunk (B,ceil(N/64)), f (B,N,C), g4 (B,N,4),
-    # df (B,N,C), B, N, C, tinv, need_s, stream
+    # support: the layout, the largest threshold a chunk (B,ceil(N/64)),
+    # f, g4, df (B,N,C), B, N, C, tinv, need_s, stream
     "amc3d_contrast_grad_support": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                     _F, _I, _P),
     # sorted support (B,N,4) f32 with the index bits in w, boxes

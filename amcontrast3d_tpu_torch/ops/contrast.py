@@ -22,14 +22,16 @@ are a TPU choice).  Differentiable in ``f`` only; with
 
     df_i = Σ_j w_ij f_j   (rows)      df_j += Σ_i w_ij f_i   (support)
 
-Gradients into columns 4-8 are ignored, as in the TPU VJP.  The support
-half of the VJP reads the cloud's Morton-sorted layout
-(``spatial.SortedCloud``, ↔ the Morton / kd sort of ``contrast_reductions``,
-``contrast_pallas.py:644-695``) and skips the query chunks whose box lies
-beyond their largest threshold from a block's points (↔
-``_bwd_sup_kernel``'s ``thr_bound``); :func:`contrast_reductions` takes the
-layout the stage's self-kNN read (``cloud=``) and keeps it for the VJP, or
-sorts in the VJP itself.  The forward and the rows half scan the cloud.
+Gradients into columns 4-8 are ignored, as in the TPU VJP.  All three
+kernels read the cloud's Morton-sorted layout (``spatial.SortedCloud``, ↔
+the Morton / kd sort of ``contrast_reductions``,
+``contrast_pallas.py:644-695``) and its sorted (label, threshold) columns
+(:func:`support_layout`), and skip the chunks whose box lies beyond the
+threshold from a block's points (↔ the TPU kernels' threshold bounds,
+``:237``, ``:326-329``, ``:405-411``).  Each wrapper takes the layout of
+``p`` (``cloud=``) or sorts for itself; :func:`contrast_reductions` gathers
+the columns once, in the forward, and keeps layout and columns for both
+halves of the VJP.  The plain twins accept a layout and ignore it.
 
 The approx configuration (``ops.knn.set_knn_backend('approx')``) takes the
 TPU's own threshold instead of the exact kNN's: ↔
@@ -109,8 +111,11 @@ def _tile_terms(p, f, lab, kth, s: int, e: int, tinv: float):
 
 def contrast_forward_plain(p, f, lab, kth, tinv: float = 1.0,
                            cctype_root: bool = False, need_s: bool = True,
-                           need_d: bool = True) -> torch.Tensor:
-    """Plain PyTorch reductions (B, N, 9), in (B, tile, N) blocks."""
+                           need_d: bool = True,
+                           cloud: Optional[spatial.SortedCloud] = None
+                           ) -> torch.Tensor:
+    """Plain PyTorch reductions (B, N, 9), in (B, tile, N) blocks (a
+    layout, ``cloud``, changes nothing here)."""
     _check(p, f, lab, kth, cuda=False)
     B, N, _ = f.shape
     out = f.new_zeros(B, N, _NOUT)
@@ -134,25 +139,43 @@ def contrast_forward_plain(p, f, lab, kth, tinv: float = 1.0,
     return out
 
 
+def _layout(p, lab, kth, cloud):
+    """(cloud, aux, cmax) the kernels read: the layout of ``p`` (sorted
+    here when not given) and :func:`support_layout`'s columns."""
+    if cloud is None:
+        cloud = spatial.sort_support(p)
+    return (cloud,) + support_layout(cloud, lab, kth)
+
+
+def _forward_kernel(cloud, aux, f, tinv, cctype_root, need_s, need_d):
+    B, N, C = f.shape
+    out = torch.empty(B, N, _NOUT, dtype=torch.float32, device=f.device)
+    launch("amc3d_contrast_forward", cloud.packed.data_ptr(), aux.data_ptr(),
+           cloud.boxes.data_ptr(), f.data_ptr(), out.data_ptr(), B, N, C,
+           float(tinv), int(cctype_root), int(need_s), int(need_d), _stream(f))
+    contrast_forward.launches += 1
+    return out
+
+
 def contrast_forward(p, f, lab, kth, tinv: float = 1.0,
                      cctype_root: bool = False, need_s: bool = True,
-                     need_d: bool = True) -> torch.Tensor:
+                     need_d: bool = True,
+                     cloud: Optional[spatial.SortedCloud] = None
+                     ) -> torch.Tensor:
     """p (B,N,3), f (B,N,C), lab (B,N), kth (B,N), all f32 → (B, N, 9).
 
-    A CUDA tensor goes through the forward kernel of ``csrc/contrast.cu``;
-    a CPU tensor through :func:`contrast_forward_plain`.  No gradient:
-    :func:`contrast_reductions` is the differentiable entry."""
+    A CUDA tensor goes through the chunk-pruned forward kernel of
+    ``csrc/contrast.cu`` over ``cloud`` (the layout of ``p``; sorted here
+    when not given); a CPU tensor through :func:`contrast_forward_plain`.
+    No gradient: :func:`contrast_reductions` is the differentiable entry."""
+    if cloud is not None:
+        spatial.check_layout(cloud, p)
     if all(t.device.type == "cpu" for t in (p, f, lab, kth)):
         return contrast_forward_plain(p, f, lab, kth, tinv, cctype_root,
                                       need_s, need_d)
     _check(p, f, lab, kth, cuda=True)
-    B, N, C = f.shape
-    out = torch.empty(B, N, _NOUT, dtype=torch.float32, device=f.device)
-    launch("amc3d_contrast_forward", p.data_ptr(), f.data_ptr(),
-           lab.data_ptr(), kth.data_ptr(), out.data_ptr(), B, N, C,
-           float(tinv), int(cctype_root), int(need_s), int(need_d), _stream(f))
-    contrast_forward.launches += 1
-    return out
+    cloud, aux, _ = _layout(p, lab, kth, cloud)
+    return _forward_kernel(cloud, aux, f, tinv, cctype_root, need_s, need_d)
 
 
 def _grad_plain(p, f, lab, kth, g4, tinv, need_s, rows: bool, support: bool):
@@ -178,14 +201,20 @@ def _grad_plain(p, f, lab, kth, g4, tinv, need_s, rows: bool, support: bool):
 
 
 def contrast_grad_rows_plain(p, f, lab, kth, g4, tinv: float = 1.0,
-                             need_s: bool = True) -> torch.Tensor:
-    """Plain query-side VJP: df_i = Σ_j w_ij f_j, (B, N, C)."""
+                             need_s: bool = True,
+                             cloud: Optional[spatial.SortedCloud] = None
+                             ) -> torch.Tensor:
+    """Plain query-side VJP: df_i = Σ_j w_ij f_j, (B, N, C) (a layout,
+    ``cloud``, changes nothing here)."""
     return _grad_plain(p, f, lab, kth, g4, tinv, need_s, True, False)[0]
 
 
 def contrast_grad_support_plain(p, f, lab, kth, g4, tinv: float = 1.0,
-                                need_s: bool = True) -> torch.Tensor:
-    """Plain support-side VJP: df_j = Σ_i w_ij f_i, (B, N, C)."""
+                                need_s: bool = True,
+                                cloud: Optional[spatial.SortedCloud] = None
+                                ) -> torch.Tensor:
+    """Plain support-side VJP: df_j = Σ_i w_ij f_i, (B, N, C) (a layout,
+    ``cloud``, changes nothing here)."""
     return _grad_plain(p, f, lab, kth, g4, tinv, need_s, False, True)[1]
 
 
@@ -202,9 +231,9 @@ def _check_g4(f, g4) -> None:
 
 def support_layout_plain(cloud: spatial.SortedCloud, lab: torch.Tensor,
                          kth: torch.Tensor):
-    """What the support kernel reads beside ``cloud``: (aux (B, N, 2) f32,
+    """What the contrast kernels read beside ``cloud``: (aux (B, N, 2) f32,
     each sorted point's label and threshold; cmax (B, ceil(N/64)) f32, the
-    largest threshold of each chunk)."""
+    largest threshold of each chunk, the support kernel's chunk limit)."""
     B, N = lab.shape
     aux = torch.gather(torch.stack([lab, kth], -1), 1,
                        cloud.perm[..., None].expand(B, N, 2))
@@ -240,21 +269,44 @@ def support_layout(cloud: spatial.SortedCloud, lab: torch.Tensor,
 support_layout.launches = 0
 
 
+def _rows_kernel(cloud, aux, f, g4, tinv, need_s):
+    B, N, C = f.shape
+    df = torch.empty(B, N, C, dtype=torch.float32, device=f.device)
+    launch("amc3d_contrast_grad_rows", cloud.packed.data_ptr(), aux.data_ptr(),
+           cloud.boxes.data_ptr(), f.data_ptr(), g4.data_ptr(), df.data_ptr(),
+           B, N, C, float(tinv), int(need_s), _stream(f))
+    contrast_grad_rows.launches += 1
+    return df
+
+
+def _support_kernel(cloud, aux, cmax, f, g4, tinv, need_s):
+    B, N, C = f.shape
+    df = torch.empty(B, N, C, dtype=torch.float32, device=f.device)
+    launch("amc3d_contrast_grad_support", cloud.packed.data_ptr(),
+           aux.data_ptr(), cloud.boxes.data_ptr(), cmax.data_ptr(),
+           f.data_ptr(), g4.data_ptr(), df.data_ptr(), B, N, C, float(tinv),
+           int(need_s), _stream(f))
+    contrast_grad_support.launches += 1
+    return df
+
+
 def contrast_grad_rows(p, f, lab, kth, g4, tinv: float = 1.0,
-                       need_s: bool = True) -> torch.Tensor:
-    """Query-side VJP (B, N, C): the rows kernel of ``csrc/contrast.cu`` for
-    a CUDA tensor, :func:`contrast_grad_rows_plain` for a CPU tensor."""
+                       need_s: bool = True,
+                       cloud: Optional[spatial.SortedCloud] = None
+                       ) -> torch.Tensor:
+    """Query-side VJP (B, N, C): each point i sums over its members j
+    (``d²_ij ≤ kth_i``).  The chunk-pruned rows kernel of
+    ``csrc/contrast.cu`` for a CUDA tensor, over ``cloud`` (the layout of
+    ``p``; sorted here when not given); :func:`contrast_grad_rows_plain`
+    for a CPU tensor."""
+    if cloud is not None:
+        spatial.check_layout(cloud, p)
     if all(t.device.type == "cpu" for t in (p, f, lab, kth, g4)):
         return contrast_grad_rows_plain(p, f, lab, kth, g4, tinv, need_s)
     _check(p, f, lab, kth, cuda=True)
     _check_g4(f, g4)
-    B, N, C = f.shape
-    df = torch.empty(B, N, C, dtype=torch.float32, device=f.device)
-    launch("amc3d_contrast_grad_rows", p.data_ptr(), f.data_ptr(),
-           lab.data_ptr(), kth.data_ptr(), g4.data_ptr(), df.data_ptr(), B, N,
-           C, float(tinv), int(need_s), _stream(f))
-    contrast_grad_rows.launches += 1
-    return df
+    cloud, aux, _ = _layout(p, lab, kth, cloud)
+    return _rows_kernel(cloud, aux, f, g4, tinv, need_s)
 
 
 def contrast_grad_support(p, f, lab, kth, g4, tinv: float = 1.0,
@@ -272,41 +324,41 @@ def contrast_grad_support(p, f, lab, kth, g4, tinv: float = 1.0,
         return contrast_grad_support_plain(p, f, lab, kth, g4, tinv, need_s)
     _check(p, f, lab, kth, cuda=True)
     _check_g4(f, g4)
-    if cloud is None:
-        cloud = spatial.sort_support(p)
-    aux, cmax = support_layout(cloud, lab, kth)
-    B, N, C = f.shape
-    df = torch.empty(B, N, C, dtype=torch.float32, device=f.device)
-    launch("amc3d_contrast_grad_support", cloud.packed.data_ptr(),
-           aux.data_ptr(), cloud.boxes.data_ptr(), cmax.data_ptr(),
-           f.data_ptr(), g4.data_ptr(), df.data_ptr(), B, N, C, float(tinv),
-           int(need_s), _stream(f))
-    contrast_grad_support.launches += 1
-    return df
+    return _support_kernel(*_layout(p, lab, kth, cloud), f, g4, tinv, need_s)
 
 
 class _ContrastReductions(torch.autograd.Function):
-    """Forward and VJP by the kernels, or by the plain twins (``plain``);
-    the VJP's support kernel reads ``cloud``, the layout of ``p``."""
+    """Forward and VJP by the kernels, or by the plain twins (``plain``).
+    The kernels' forward gathers the sorted columns of ``cloud``, the
+    layout of ``p`` (sorted here when not given), once, and keeps layout
+    and columns for both halves of the VJP."""
 
     @staticmethod
     def forward(ctx, p, f, lab, kth, tinv, cctype_root, need_s, need_d,
                 plain, cloud):
-        fwd = contrast_forward_plain if plain else contrast_forward
-        ctx.save_for_backward(p, f, lab, kth)
-        ctx.tinv, ctx.need_s, ctx.plain, ctx.cloud = tinv, need_s, plain, cloud
-        return fwd(p, f, lab, kth, tinv, cctype_root, need_s, need_d)
+        ctx.tinv, ctx.need_s, ctx.plain = tinv, need_s, plain
+        if plain:
+            ctx.save_for_backward(p, f, lab, kth)
+            return contrast_forward_plain(p, f, lab, kth, tinv, cctype_root,
+                                          need_s, need_d)
+        _check(p, f, lab, kth, cuda=True)
+        ctx.cloud, aux, cmax = _layout(p, lab, kth, cloud)
+        ctx.save_for_backward(f, aux, cmax)
+        return _forward_kernel(ctx.cloud, aux, f, tinv, cctype_root, need_s,
+                               need_d)
 
     @staticmethod
     def backward(ctx, gout):
-        p, f, lab, kth = ctx.saved_tensors
         g4 = gout[..., :4].contiguous()
-        args = (p, f, lab, kth, g4, ctx.tinv, ctx.need_s)
         if ctx.plain:
-            df_rows, df_sup = _grad_plain(*args, rows=True, support=True)
+            df_rows, df_sup = _grad_plain(*ctx.saved_tensors, g4, ctx.tinv,
+                                          ctx.need_s, rows=True, support=True)
         else:
-            df_rows = contrast_grad_rows(*args)
-            df_sup = contrast_grad_support(*args, cloud=ctx.cloud)
+            f, aux, cmax = ctx.saved_tensors
+            _check_g4(f, g4)
+            df_rows = _rows_kernel(ctx.cloud, aux, f, g4, ctx.tinv, ctx.need_s)
+            df_sup = _support_kernel(ctx.cloud, aux, cmax, f, g4, ctx.tinv,
+                                     ctx.need_s)
         return (None, df_rows + df_sup) + (None,) * 8
 
 
@@ -317,9 +369,9 @@ def contrast_reductions(p, f, lab, kth, tinv: float = 1.0,
                         ) -> torch.Tensor:
     """p (B,N,3), f (B,N,C), lab (B,N) argmax labels, kth (B,N) d²
     threshold, all f32 → (B, N, 9) [P,Q,Spos,Sneg,npos,nneg,dpos,dneg,thr],
-    differentiable in ``f``.  CUDA tensors run the three kernels (the VJP's
-    support kernel over ``cloud``, the layout of ``p``, when given), CPU
-    tensors the plain twins."""
+    differentiable in ``f``.  CUDA tensors run the three kernels over
+    ``cloud``, the layout of ``p`` (sorted in the forward when not given),
+    CPU tensors the plain twins."""
     if cloud is not None:
         spatial.check_layout(cloud, p)
     plain = all(t.device.type == "cpu" for t in (p, f, lab, kth))
@@ -406,8 +458,8 @@ def contrast_reductions_selfk(p, f, lab, k: int, tinv: float = 1.0,
                               ) -> torch.Tensor:
     """:func:`contrast_reductions` over each point's own threshold (↔
     ``contrast_pallas.py::contrast_reductions_selfk``): no kNN runs.  The
-    VJP is the same two kernels with that threshold, which column 8 holds,
-    the support one over ``cloud`` when given.  ``k`` counts the self
+    forward and the VJP are the same kernels with that threshold, which
+    column 8 holds, over ``cloud`` when given.  ``k`` counts the self
     point."""
     with torch.no_grad():
         thr = contrast_select(p, k)

@@ -6,13 +6,13 @@ box lower bounds.
 are XLA code ahead of the Pallas kernels.  Here a cloud's support points
 are sorted along a Morton curve and cut into chunks of ``CHUNK`` points,
 each with its exact bounding box; the kernels (``csrc/knn.cu``,
-``csrc/ball_query_big.cu``, the support half of ``csrc/contrast.cu``, ...) skip a chunk whose box is too far from the
+``csrc/ball_query_big.cu``, ``csrc/contrast.cu``, ...) skip a chunk whose box is too far from the
 query, or from the box of a block's queries.  :func:`sort_support` sorts
 one cloud in plain PyTorch.  A train step's stage clouds are sorted once,
 together, by :func:`sort_stages` (``csrc/layout.cu``: three launches and a
 sort), and each :class:`SortedCloud` is handed to every kernel that reads
-it (the loss's self-kNN, the contrast VJP, the label propagation from stage
-0).  A layout remembers the tensor it was made from, and the wrappers
+it (the loss's self-kNN, the contrast kernels, the label propagation from
+stage 0).  A layout remembers the tensor it was made from, and the wrappers
 refuse it for another.  (The JAX package's ``_kd_sort`` exists because its
 chunks are thousands of points wide; 64-point Morton chunks prune a room
 well enough, see PERF.md.)

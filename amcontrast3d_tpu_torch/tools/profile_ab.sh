@@ -15,7 +15,9 @@
 # The arguments (say --kind mm) go to both profilers of both checkouts,
 # so pass only what the parent understands.  AB_TOOLS names other tools
 # (say AB_TOOLS="profile_scans profile_train"); a tool the parent does not
-# have runs from the change's tree over the parent's package.  _parent/ is
+# have, or whose file in the change's tree holds the line
+# "AB_BOTH_PACKAGES = True" (it reads only what both packages have), runs
+# from the change's tree over the parent's package.  _parent/ is
 # git-ignored; each checkout builds its own kernels.
 set -eu
 root=$(pwd)
@@ -28,11 +30,12 @@ for tool in ${AB_TOOLS:-profile_eval profile_train}; do
     for side in parent change change parent; do
         [ "$side" = parent ] && dir="$root/_parent" || dir="$root"
         echo "=== $side: $tool $*"
-        if [ -f "$dir/amcontrast3d_tpu_torch/tools/$tool.py" ]; then
+        mine="$root/amcontrast3d_tpu_torch/tools/$tool.py"
+        if [ -f "$dir/amcontrast3d_tpu_torch/tools/$tool.py" ] &&
+            ! grep -q '^AB_BOTH_PACKAGES = True' "$mine" 2>/dev/null; then
             (cd "$dir" && python3 -m "amcontrast3d_tpu_torch.tools.$tool" "$@")
         else
-            (cd "$dir" && PYTHONPATH="$dir" python3 \
-                "$root/amcontrast3d_tpu_torch/tools/$tool.py" "$@")
+            (cd "$dir" && PYTHONPATH="$dir" python3 "$mine" "$@")
         fi
     done
 done

@@ -1,21 +1,24 @@
-"""Time the exact kNN (kernel 6) and the contrast support VJP (kernel 16) on
-one NVIDIA GPU at the train steps' shapes.
+"""Time the exact kNN (kernel 6) and the three contrast kernels (the
+forward 14, the rows VJP 15, the support VJP 16) on one NVIDIA GPU at the
+train steps' shapes.
 
     python3 -m amcontrast3d_tpu_torch.tools.profile_scans [--crossing] [--runs R]
 
 For the S3DIS step (B = 4 clouds of 24000 points, uniform in [0, 4]³,
 stages from FPS) it times the seven kNN calls of a step (the self-kNN of
 stages 0-3 at k = 24, the label propagation from stage 0 at k = 4, 16, 64)
-and the support VJP at the four stages (C = 64, 128, 256, 512); for the
-ScanNet step (B = 2 × 64000 on a denser cube) the self-kNN of stages 1-3
-and the support VJP at the four stages.  Each call prints two times: the
-wrapper's, the median of R runs after a warm-up (CUDA events around the
-call, so the host's launches count where the card waits on them), and the
+and the three contrast kernels at the four stages (C = 64, 128, 256, 512;
+the forward also at C = 1, as the ground-truth ambiguity calls it); for
+the ScanNet step (B = 2 × 64000 on a denser cube) the self-kNN of
+stages 1-3 and the contrast kernels at the four stages.  Each call prints
+two times: the wrapper's, the median of R runs after a warm-up (CUDA events
+around the call, so the host's launches and the wrapper's own work, a sort
+or the sorted columns, count where the card waits on them), and the
 kernel's own device time from ``torch.profiler`` over R runs.  Where the
-package takes a stage's sorted layout (``cloud=``), the four layouts are
-made ahead by one sort, as the loss makes them once a step, and the sort is
-timed on its own; a package that still has the large-cloud kNN (kernel 7,
-``knn_big``) times it beside kernel 6 on the same inputs.
+package's wrapper takes a stage's sorted layout (``cloud=``), the four
+layouts are made ahead by one sort, as the loss makes them once a step, and
+the sort is timed on its own; a package that still has the large-cloud kNN
+(kernel 7, ``knn_big``) times it beside kernel 6 on the same inputs.
 ``--crossing`` times the kNN on the shapes where the JAX package's gate
 ``_BIG_N`` = 32768 would choose between the two kernels: the self-kNN
 (k = 24, B = 2) at N = 16000, 24000, 32768 and 64000, the ScanNet step's
@@ -26,9 +29,10 @@ whole-scene boundary kNN (self, k = 24, B = 1) on room-like clouds of
 kernels 6 and 7 where the package has both.
 
 The script reads only what every version of the package has (``ops.knn``,
-``ops.contrast_grad_support``), so ``tools/profile_ab.sh`` runs it from the
-change's tree over the parent's package too: put that package first on
-``PYTHONPATH``.
+``ops.contrast_forward``, ``ops.contrast_grad_rows``,
+``ops.contrast_grad_support``, and passes ``cloud=`` only to a wrapper
+whose signature takes it), so ``tools/profile_ab.sh`` runs it from the
+change's tree over the parent's package too.
 """
 from __future__ import annotations
 
@@ -46,6 +50,13 @@ from amcontrast3d_tpu_torch.ops import spatial
 KNN_K = 24
 KNN_KERNELS = ("knn_kernel", "knn_big_kernel")   # the kNN kernels' names
 UP_CHANNELS = (64, 128, 256, 512)
+# profile_ab.sh runs this file from the change's tree over both packages
+AB_BOTH_PACKAGES = True
+# the contrast kernels: (label, wrapper, its kernel's name, takes g4)
+CONTRAST = (("forward (14)", "contrast_forward", "contrast_fwd_kernel", False),
+            ("rows VJP (15)", "contrast_grad_rows", "contrast_grad_rows_kernel", True),
+            ("support VJP (16)", "contrast_grad_support",
+             "contrast_grad_support_kernel", True))
 CROSSING_N = (16000, 24000, 32768, 64000)
 ROOM_N = (155648, 221184, 311296)
 
@@ -71,24 +82,30 @@ def cuda_ms(fn, runs: int) -> float:
     return statistics.median(times)
 
 
-def kernel_ms(fn, runs: int, names) -> float:
-    """Device ms a run of the kernels whose names hold one of ``names``."""
+def kernel_ms(fn, runs: int, names, tries: int = 3) -> float:
+    """Device ms a run of the kernels whose names hold one of ``names``.  A
+    trace that holds none of them (the profiler drops a window's events
+    now and then) is taken again, ``tries`` times in all; NaN if every
+    trace missed them."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(runs):
-            fn()
-        torch.cuda.synchronize()
-    total = 0.0
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:   # the attribute's name before PyTorch 2.4
-            us = e.self_cuda_time_total
-        if e.device_type == DeviceType.CUDA and any(x in e.key for x in names):
-            total += us
-    return total / 1e3 / runs
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                fn()
+            torch.cuda.synchronize()
+        total, seen = 0.0, False
+        for e in prof.key_averages():
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:   # the attribute's name before PyTorch 2.4
+                us = e.self_cuda_time_total
+            if e.device_type == DeviceType.CUDA and any(x in e.key for x in names):
+                total, seen = total + us, seen or e.count > 0
+        if seen and total > 0:
+            return total / 1e3 / runs
+    return float("nan")
 
 
 def takes_layout() -> bool:
@@ -155,7 +172,9 @@ def knn_line(sup, q, k, runs: int, layout) -> float:
     return ms
 
 
-def support_line(rng, ps, c: int, runs: int, layout) -> float:
+def contrast_lines(rng, ps, c: int, runs: int, layout, kernels=CONTRAST) -> list:
+    """Prints the contrast kernels' times on one stage; returns their kernel
+    times in the order of ``kernels``."""
     b, n, _ = ps.shape
     dev = ps.device
     f = torch.nn.functional.normalize(torch.from_numpy(
@@ -163,17 +182,23 @@ def support_line(rng, ps, c: int, runs: int, layout) -> float:
     lab = torch.from_numpy(rng.randint(0, 13, (b, n)).astype(np.float32)).to(dev)
     kth = (ops.knn(ps, ps, KNN_K)[1][..., -1] * (1.0 + 1e-5)).contiguous()
     g4 = torch.from_numpy(rng.randn(b, n, 4).astype(np.float32)).to(dev)
-    args = (ps, f, lab, kth, g4, 1 / 0.3, False)
-    if layout is None:
+    times = []
+    for label, name, kernel, grad in kernels:
+        wrapper = getattr(ops, name)
+        args = (ps, f, lab, kth) + ((g4, 1 / 0.3, False) if grad
+                                    else (1 / 0.3, False, False, True))
+        kwargs = {}
+        if layout is not None and "cloud" in inspect.signature(wrapper).parameters:
+            kwargs["cloud"] = layout
+
         def call():
-            return ops.contrast_grad_support(*args)
-    else:
-        def call():
-            return ops.contrast_grad_support(*args, cloud=layout)
-    ms = kernel_ms(call, runs, ("contrast_grad",))
-    print(f"  support VJP B={b} N={n} C={c}: wrapper {cuda_ms(call, runs):.4f} "
-          f"ms, kernel {ms:.4f}")
-    return ms
+            return wrapper(*args, **kwargs)
+        ms = kernel_ms(call, runs, (kernel,))
+        times.append(ms)
+        print(f"  contrast {label} B={b} N={n} C={c}"
+              f"{' over the layout' if kwargs else ''}: wrapper "
+              f"{cuda_ms(call, runs):.4f} ms, kernel {ms:.4f}")
+    return times
 
 
 def step(rng, dev, name: str, b: int, n: int, side: float, runs: int,
@@ -188,11 +213,17 @@ def step(rng, dev, name: str, b: int, n: int, side: float, runs: int,
     for si, qi, k in knn_calls:
         total += knn_line(stages[si], stages[qi], k, runs, layouts[si])
     print(f"  kNN calls summed (kernel device time): {total:.4f} ms")
-    total = 0.0
+    totals = np.zeros(len(CONTRAST))
     for s, p in enumerate(stages):
-        total += support_line(rng, p, UP_CHANNELS[s], runs, layouts[s])
-    print(f"  support VJP summed over the four stages (kernel device time): "
-          f"{total:.4f} ms")
+        totals += contrast_lines(rng, p, UP_CHANNELS[s], runs, layouts[s])
+    for (label, *_), total in zip(CONTRAST, totals):
+        print(f"  contrast {label} summed over the four stages (kernel device "
+              f"time): {total:.4f} ms")
+    # one channel, as the ground-truth ambiguity calls the forward
+    total = sum(contrast_lines(rng, p, 1, runs, layout, CONTRAST[:1])[0]
+                for p, layout in zip(stages, layouts))
+    print(f"  contrast forward (14) at C=1 summed over the four stages (kernel "
+          f"device time): {total:.4f} ms")
 
 
 def main() -> None:

@@ -100,34 +100,36 @@ def _stage(rng, dev, b, n, c, clustered, nsample=24):
     return p, f, lab, kth.contiguous()
 
 
-def _check_contrast(p, f, lab, kth, root, need_s):
+def _check_contrast(p, f, lab, kth, root, need_s, cloud=None):
     """Kernels #14-16 against their twins: counts and column 8 identical,
-    sums within 1e-5·(1+max), each VJP half within 1e-4·(1+max)."""
+    sums within 1e-5·(1+max), each VJP half within 1e-4·(1+max); each
+    chunk-pruned kernel over ``cloud`` (the layout of ``p``, made here when
+    not given) and over its own sort gives the same bits."""
     tinv = 1 / 0.3
-    got = ops.contrast_forward(p, f, lab, kth, tinv, root, need_s, True)
-    want = ops.contrast_forward_plain(p, f, lab, kth, tinv, root, need_s, True)
+    if cloud is None:
+        cloud = spatial.sort_support(p)
+    fwd = (p, f, lab, kth, tinv, root, need_s, True)
+    got = ops.contrast_forward(*fwd, cloud=cloud)
+    want = ops.contrast_forward_plain(*fwd)
     torch.cuda.synchronize()
     assert torch.equal(got[..., 4:6], want[..., 4:6])
     assert torch.equal(got[..., 8], want[..., 8])
     for col in (0, 1, 2, 3, 6, 7):
         _close(got[..., col], want[..., col], 1e-5)
+    _equal(ops.contrast_forward(*fwd), got)
     g4 = torch.randn(*f.shape[:2], 4, device=f.device,
                      generator=torch.Generator(f.device).manual_seed(1))
-    _close(ops.contrast_grad_rows(p, f, lab, kth, g4, tinv, need_s),
-           ops.contrast_grad_rows_plain(p, f, lab, kth, g4, tinv, need_s), 1e-4)
-    # the chunk-pruned support kernel: over a given layout and over its own
-    # sort, within 1e-4·(1+max) of the twin and the same bits both times
-    sup = ops.contrast_grad_support(p, f, lab, kth, g4, tinv, need_s,
-                                    spatial.sort_support(p))
-    _close(sup, ops.contrast_grad_support_plain(p, f, lab, kth, g4, tinv, need_s),
-           1e-4)
-    assert torch.equal(sup, ops.contrast_grad_support(p, f, lab, kth, g4, tinv,
-                                                      need_s))
+    grad = (p, f, lab, kth, g4, tinv, need_s)
+    for kernel, plain in ((ops.contrast_grad_rows, ops.contrast_grad_rows_plain),
+                          (ops.contrast_grad_support, ops.contrast_grad_support_plain)):
+        df = kernel(*grad, cloud)
+        _close(df, plain(*grad), 1e-4)
+        _equal(kernel(*grad), df)
     fk, fp = f.clone().requires_grad_(), f.clone().requires_grad_()
     gout = torch.randn(*f.shape[:2], 9, device=f.device,
                        generator=torch.Generator(f.device).manual_seed(2))
     ops.contrast_reductions(p, fk, lab, kth, tinv, root, need_s,
-                            cloud=spatial.sort_support(p)).backward(gout)
+                            cloud=cloud).backward(gout)
     ops.contrast_reductions_plain(p, fp, lab, kth, tinv, root, need_s).backward(gout)
     _close(fk.grad, fp.grad, 1e-4)
 
@@ -315,6 +317,58 @@ def test_layout_kernels_match_their_twins(cuda_device, b, sizes, kind):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["uniform", "clustered", "grid"])
+def test_contrast_kernels_over_the_stage_layouts(cuda_device, kind):
+    """Kernels #14-16 at a S3DIS step's four stages (B = 4, 24000 → 375
+    points, C = 64 … 512), each over its layout from the one sort of the
+    four (``sort_stages``) as the loss hands it, and the launches: one a
+    call, the sorted columns once a forward."""
+    rng = np.random.RandomState(31)
+    ns = (24000, 6000, 1500, 375)
+    if kind == "grid":
+        stages = [torch.from_numpy((rng.randint(0, 40, (4, n, 3)) / 128)
+                                   .astype(np.float32)).to(cuda_device) for n in ns]
+    else:
+        stages = [torch.from_numpy(_cloud(rng, 4, n, kind == "clustered"))
+                  .to(cuda_device) for n in ns]
+    for p, cloud, c in zip(stages, spatial.sort_stages(stages), (64, 128, 256, 512)):
+        f = torch.nn.functional.normalize(torch.from_numpy(
+            rng.randn(4, p.shape[1], c).astype(np.float32)).to(cuda_device), dim=-1)
+        lab = torch.from_numpy(rng.randint(0, 13, (4, p.shape[1]))
+                               .astype(np.float32)).to(cuda_device)
+        kth = (ops.knn(p, p, 24, cloud)[1][..., -1] * (1.0 + 1e-5)).contiguous()
+        _check_contrast(p, f, lab, kth, False, False, cloud)
+        counts = lambda: (ops.contrast_forward.launches, ops.contrast_grad_rows.launches,
+                          ops.contrast_grad_support.launches,
+                          ops.contrast.support_layout.launches)
+        before = counts()
+        ops.contrast_reductions(p, f.clone().requires_grad_(), lab, kth,
+                                cloud=cloud).sum().backward()
+        assert counts() == tuple(x + d for x, d in zip(before, (1, 1, 1, 1)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("distinct", ["enough", "too few"])
+def test_contrast_kernels_on_the_selection_at_one_channel(cuda_device, distinct):
+    """Kernels #14 and #15 at C = 1 on the selection's thresholds, as
+    ``ambiguity_head`` calls them; with fewer than k distinct d² a point's
+    threshold is 3e38·(1+1e-6), every other point is a member and its block
+    lists every chunk (600 points: a float32 sum over 599 members in another
+    order stays within the forward's 1e-5)."""
+    rng = np.random.RandomState(32)
+    # a 1/4 grid: 19 distinct d², exact in float32
+    n, cells, k = (5000, 32, 24) if distinct == "enough" else (600, 4, 40)
+    p = torch.from_numpy(_grid_cloud(rng, 2, n, cells)).to(cuda_device)
+    thr = ops.contrast_select(p, k)
+    assert (thr > 1e38).all() == (distinct == "too few")
+    lab = torch.from_numpy(rng.randint(0, 5, (2, n)).astype(np.float32)).to(cuda_device)
+    for f in (torch.zeros(2, n, 1, device=cuda_device),     # as the head
+              torch.from_numpy(np.sign(rng.randn(2, n, 1)).astype(np.float32))
+              .to(cuda_device)):
+        _check_contrast(p, f, lab, thr, False, True)
+
+
+@pytest.mark.cuda
 def test_a_layout_of_another_cloud_is_refused_on_the_card(cuda_device):
     """A layout made from another cloud of the same shape, or from this one
     before an in-place change, raises in every wrapper that reads one."""
@@ -331,6 +385,9 @@ def test_a_layout_of_another_cloud_is_refused_on_the_card(cuda_device):
                  lambda: ops.knn(other, other[:, :99].contiguous(), 24, cloud),
                  lambda: ops.contrast_grad_support(other, f, lab, kth, g4,
                                                    cloud=cloud),
+                 lambda: ops.contrast_grad_rows(other, f, lab, kth, g4,
+                                                cloud=cloud),
+                 lambda: ops.contrast_forward(other, f, lab, kth, cloud=cloud),
                  lambda: ops.contrast_reductions(other, f, lab, kth, cloud=cloud)):
         with pytest.raises(ValueError):
             call()

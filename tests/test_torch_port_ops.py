@@ -26,6 +26,7 @@ from amcontrast3d_tpu.ops.knn_pallas import (BIN, _perm, ball_query_pallas,
                                              knn_pallas)
 from amcontrast3d_tpu_torch import ops
 from amcontrast3d_tpu_torch.ops import interpolate as port_interp
+from amcontrast3d_tpu_torch.ops import spatial
 
 
 def _t(a):
@@ -415,6 +416,16 @@ def test_contrast_reductions_match_pallas_kernel(n, root, need_s):
     and column 8 identical; sums within 1e-5·(1+max|ref|); df within
     1e-4·(1+max|df|).  No pair lies within 1e-6 relative of a threshold,
     where the two d² roundings could disagree."""
+    _contrast_vs_pallas(n, root, need_s, layout=False)
+
+
+def test_contrast_reductions_over_a_layout_match_pallas_kernel():
+    """The same, with the cloud's sorted layout handed in (``cloud=``), as
+    the loss hands it to the kernels: the same tolerances."""
+    _contrast_vs_pallas(300, True, True, layout=True)
+
+
+def _contrast_vs_pallas(n, root, need_s, layout):
     rng = np.random.RandomState(n + 20)
     p = _cloud(rng, 2, n)
     f = rng.randn(2, n, 32).astype(np.float32)
@@ -427,8 +438,10 @@ def test_contrast_reductions_match_pallas_kernel(n, root, need_s):
     tinv = 1 / 0.3
 
     ft = _t(f).requires_grad_()
-    out = ops.contrast_reductions(_t(p), ft, _t(lab), _t(kth), tinv, root,
-                                  need_s, True)
+    pt = _t(p)
+    out = ops.contrast_reductions(pt, ft, _t(lab), _t(kth), tinv, root,
+                                  need_s, True,
+                                  cloud=spatial.sort_support(pt) if layout else None)
     out.backward(_t(g))
     jout, vjp = jax.vjp(lambda ff: jax_contrast_reductions(
         jnp.asarray(p), ff, jnp.asarray(lab), jnp.asarray(kth), tinv, root,
@@ -548,7 +561,6 @@ import amcontrast3d_tpu.ops.knn_pallas as KP                     # noqa: E402
 from hypothesis import given, settings                           # noqa: E402
 from hypothesis import strategies as st                          # noqa: E402
 
-from amcontrast3d_tpu_torch.ops import spatial                   # noqa: E402
 
 # the modules, not the functions of the same names that ``ops`` exports
 port_fps = importlib.import_module("amcontrast3d_tpu_torch.ops.fps")

@@ -1,14 +1,17 @@
 """The chunk-pruned exact kNN (kernel 6, ``csrc/knn.cu``) and contrast
-support VJP (kernel 16, ``csrc/contrast.cu``) on the CPU.
+kernels (the forward, 14, and both halves of the VJP, 15 and 16,
+``csrc/contrast.cu``) on the CPU.
 
-Both kernels read one Morton-sorted layout of a stage cloud
+All of them read one Morton-sorted layout of a stage cloud
 (``ops/spatial.py``).  Here: the self-query order and home chunk, the
-per-chunk maximum of a threshold, the soundness in float32 of both prune
-rules (a block's union box against a chunk's box, then a point against the
+per-chunk maximum of a threshold, the soundness in float32 of every prune
+rule (a block's union box against a chunk's box, then a point against the
 chunk's box), and a small torch emulation of each kernel's visit schedule
 that must return exactly what the dense twin returns.  The kernels
 themselves run on the card (``test_torch_port_cuda.py``).
 """
+from unittest import mock
+
 import numpy as np
 import pytest
 import torch
@@ -354,6 +357,48 @@ def test_support_prune_rules_keep_every_member(kind):
     assert (spatial.bbox_lb(p[b_i, j], box) <= cmax[b_i, qchunk]).all()
 
 
+def _forward_rows_prune_holds(p, kth):
+    """For every member pair (``d²_ij ≤ kth_i``, i ≠ j) of cloud p: the
+    chunk that holds j passes the block's test (the union box of the 8
+    queries around i in the sorted order against the chunk's box, at most
+    the largest threshold of the 8) and the warp's own (i against the box,
+    at most kth_i)."""
+    cloud = spatial.sort_support(p)
+    B, n, _ = p.shape
+    ub = _block_boxes(cloud.packed[..., :3])
+    limit = spatial.chunk_max(kth.gather(1, cloud.perm), chunk=WARPS)
+    rank = _rank_of(cloud)
+    member = (pairwise_d2(p, p) <= kth[..., None]) & ~torch.eye(n, dtype=torch.bool)
+    b_i, i, j = member.nonzero(as_tuple=True)
+    block = rank[b_i, i] // WARPS
+    box = cloud.boxes[b_i, rank[b_i, j] // CHUNK]
+    assert (box_box_lb(ub[b_i, block], box) <= limit[b_i, block]).all()
+    assert (spatial.bbox_lb(p[b_i, i], box) <= kth[b_i, i]).all()
+    return len(i)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_forward_rows_prune_rules_keep_every_member(kind):
+    """The forward's and the rows half's rules keep every member of the
+    contrast, kth the k-th nearest d² of ``knn_plain`` with its 1e-5
+    cushion, on uniform, clustered and 1/128 m grid clouds."""
+    rng = np.random.RandomState(9)
+    p = _cloud(rng, 2, 1200, kind)
+    kth = ops.knn_plain(p, p, 24)[1][..., -1] * (1.0 + 1e-5)
+    assert _forward_rows_prune_holds(p, kth) >= 2 * 1200 * 23
+
+
+@settings(max_examples=100, deadline=None)
+@given(st.lists(st.tuples(_coord, _coord, _coord), min_size=1, max_size=150),
+       st.lists(st.floats(0, 4096, width=32), min_size=150, max_size=150))
+def test_forward_rows_prune_rules_hold_for_any_points_and_thresholds(points, thr):
+    """In float32, as computed, for any points and any thresholds: no
+    member pair is lost to either test."""
+    p = torch.tensor(points, dtype=torch.float32)[None]
+    kth = torch.tensor(thr[:p.shape[1]], dtype=torch.float32)[None]
+    _forward_rows_prune_holds(p, kth)
+
+
 # ---- each kernel's visit schedule, emulated ----------------------------------------
 
 def _keys(d2_row, idx):
@@ -453,49 +498,88 @@ def test_knn_visit_schedule_returns_the_dense_answer(kind, n, m_step, k, window)
         assert scanned < dense, (scanned, dense)
 
 
-def _emulate_support(p, f, lab, kth, g4, tinv, need_s, window):
-    """``csrc/contrast.cu``'s support kernel, one batch at a time: blocks of
-    8 support points j in the sorted order; windows of query chunks, each
-    tested once against the block's union box and the chunk's largest
-    threshold, then the listed ones against each j; the exact member test
-    per pair, summed in chunk order.  Returns df (B, N, C) and the member
-    pairs (b, i, j)."""
+def _visits(p, kth, window, own):
+    """``csrc/contrast.cu::for_each_member``, one batch at a time: blocks of
+    8 points in the sorted order; windows of chunks, each tested once
+    against the block's union box and a limit, then the listed ones against
+    each point of the block; in each chunk that passes, the exact member
+    test per point.  ``own`` (the forward, the rows half): the limits and
+    the member test take the point's own threshold (the block: the largest
+    of its 8); else (the support half) the other point's (a chunk: its
+    largest).  Returns {(b, point): its members in visit order (chunk
+    order, then the sorted order within a chunk)}."""
     cloud = spatial.sort_support(p)
     perm = cloud.perm
-    B, N, C = f.shape
+    B, N, _ = p.shape
     nc = cloud.boxes.shape[1]
     cmax = spatial.chunk_max(kth.gather(1, perm))
-    df = torch.zeros(B, N, C)
-    pairs = set()
+    chunk_of = torch.arange(N) // CHUNK
+    visits = {}
     for b in range(B):
-        d2 = pairwise_d2(p[b:b + 1], p[b:b + 1])[0]     # [i, j]
+        sorted_d2 = pairwise_d2(p[b:b + 1], cloud.packed[b:b + 1, :, :3])[0]
+        sorted_kth = kth[b, perm[b]]
         for r0 in range(0, N, WARPS):
-            js = [int(perm[b, r]) for r in range(r0, min(r0 + WARPS, N))]
-            pts = p[b, js]
+            ranks = torch.arange(r0, min(r0 + WARPS, N))
+            ms = perm[b, ranks]
+            pts = p[b, ms]
             ub = torch.cat([pts.amin(0), pts.amax(0)])
+            keep = torch.zeros(len(ms), nc, dtype=torch.bool)
             for w0 in range(0, nc, window):
-                cand = list(range(w0, min(w0 + window, nc)))
-                lb = box_box_lb(ub, cloud.boxes[b, cand])
-                listed = [c for c, bound in zip(cand, lb) if bound <= cmax[b, c]]
-                for j in js:          # a warp a point, its chunks in list order
-                    for c in listed:
-                        if spatial.bbox_lb(p[b, j], cloud.boxes[b, c]) > cmax[b, c]:
-                            continue
-                        i = perm[b, c * CHUNK:(c + 1) * CHUNK]
-                        mem = i[(d2[i, j] <= kth[b, i]) & (i != j)]
-                        if len(mem) == 0:
-                            continue
-                        pairs.update((b, int(x), j) for x in mem)
-                        s = f[b, mem] @ f[b, j]
-                        e = torch.exp(s * tinv)
-                        pos = lab[b, mem] == lab[b, j]
-                        g = g4[b, mem]
-                        w = torch.where(pos, g[:, 0], g[:, 1]) * e * tinv
-                        if need_s:
-                            w = w + torch.where(pos, g[:, 2], g[:, 3])
-                        for t in range(len(mem)):    # chunk order, lane order
-                            df[b, j] += w[t] * f[b, mem[t]]
-    return df, pairs
+                cand = torch.arange(w0, min(w0 + window, nc))
+                lim = kth[b, ms].max() if own else cmax[b, cand]
+                listed = cand[~(box_box_lb(ub, cloud.boxes[b, cand]) > lim)]
+                lim = kth[b, ms, None] if own else cmax[b, listed][None]
+                lb = spatial.bbox_lb(pts[:, None], cloud.boxes[b, listed][None])
+                keep[:, listed] = ~(lb > lim)
+            thr = kth[b, ms, None] if own else sorted_kth[None]
+            member = (keep[:, chunk_of] & (sorted_d2[ms] <= thr)
+                      & (torch.arange(N)[None] != ranks[:, None]))
+            for m, row in zip(ms.tolist(), member):
+                visits[b, m] = perm[b, row.nonzero()[:, 0]]
+    return visits
+
+
+def _pairs(visits, own):
+    """The (b, i, j) member pairs of a schedule, i the query."""
+    return {(b, m, int(o)) if own else (b, int(o), m)
+            for (b, m), mem in visits.items() for o in mem}
+
+
+def _dense_pairs(p, kth):
+    n = p.shape[1]
+    member = (pairwise_d2(p, p) <= kth[..., None]) & ~torch.eye(n, dtype=torch.bool)
+    return {tuple(int(v) for v in t) for t in member.nonzero()}
+
+
+def _weights(s, pos, g, tinv, need_s):
+    w = torch.where(pos, g[..., 0], g[..., 1]) * torch.exp(s * tinv) * tinv
+    return w + torch.where(pos, g[..., 2], g[..., 3]) if need_s else w
+
+
+def _emulate_support(p, f, lab, kth, g4, tinv, need_s, window):
+    """The support kernel's sums over its schedule: df (B, N, C) and the
+    member pairs (b, i, j)."""
+    visits = _visits(p, kth, window, own=False)
+    df = torch.zeros(f.shape)
+    for (b, j), mem in visits.items():
+        w = _weights(f[b, mem] @ f[b, j], lab[b, mem] == lab[b, j], g4[b, mem],
+                     tinv, need_s)
+        for t in range(len(mem)):    # chunk order, lane order
+            df[b, j] += w[t] * f[b, mem[t]]
+    return df, _pairs(visits, own=False)
+
+
+def _stage_case(kind, n):
+    """A cloud of ``kind``, unit features (C = 8), 4 labels, the kNN
+    threshold (24 with self, 1e-5 cushion) and incoming gradients."""
+    rng = np.random.RandomState(n)
+    p = _cloud(rng, 2, n, kind)
+    f = torch.nn.functional.normalize(
+        torch.from_numpy(rng.randn(2, n, 8).astype(np.float32)), dim=-1)
+    lab = torch.from_numpy(rng.randint(0, 4, (2, n)).astype(np.float32))
+    kth = ops.knn_plain(p, p, min(n, 24))[1][..., -1] * (1.0 + 1e-5)
+    g4 = torch.from_numpy(rng.randn(2, n, 4).astype(np.float32))
+    return p, f, lab, kth, g4
 
 
 @pytest.mark.parametrize("kind", KINDS)
@@ -505,20 +589,66 @@ def test_support_visit_schedule_returns_the_dense_answer(kind, n, window, need_s
     """The emulated schedule visits exactly the dense member pairs and sums
     to ``contrast_grad_support_plain`` within 1e-5·(1+max|df|) (the order of
     the sums differs)."""
-    rng = np.random.RandomState(n)
-    p = _cloud(rng, 2, n, kind)
-    c = 8
-    f = torch.nn.functional.normalize(
-        torch.from_numpy(rng.randn(2, n, c).astype(np.float32)), dim=-1)
-    lab = torch.from_numpy(rng.randint(0, 4, (2, n)).astype(np.float32))
-    kth = ops.knn_plain(p, p, min(n, 24))[1][..., -1] * (1.0 + 1e-5)
-    g4 = torch.from_numpy(rng.randn(2, n, 4).astype(np.float32))
+    p, f, lab, kth, g4 = _stage_case(kind, n)
     got, pairs = _emulate_support(p, f, lab, kth, g4, 1 / 0.3, need_s, window)
-    d2 = pairwise_d2(p, p)
-    member = (d2 <= kth[..., None]) & ~torch.eye(n, dtype=torch.bool)
-    want_pairs = {tuple(int(v) for v in t) for t in member.nonzero()}
-    assert pairs == want_pairs
+    assert pairs == _dense_pairs(p, kth)
     want = ops.contrast_grad_support_plain(p, f, lab, kth, g4, 1 / 0.3, need_s)
+    err = (got - want).abs().max().item()
+    assert err <= 1e-5 * (1 + want.abs().max().item()), err
+
+
+_QUERY_CASES = [(600, WINDOW, True, False), (600, 3, False, True),
+                (70, WINDOW, True, True), (9, 1, False, False)]
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("n,window,need_s,root", _QUERY_CASES)
+def test_forward_visit_schedule_returns_the_dense_answer(kind, n, window, need_s,
+                                                         root):
+    """The forward's emulated schedule visits exactly the dense member pairs;
+    its counts and column 8 are ``contrast_forward_plain``'s exactly, its
+    sums within 1e-5·(1+max) (the order of the sums differs)."""
+    p, f, lab, kth, _ = _stage_case(kind, n)
+    tinv = 1 / 0.3
+    visits = _visits(p, kth, window, own=True)
+    assert _pairs(visits, own=True) == _dense_pairs(p, kth)
+    got = torch.zeros(2, n, 9)
+    for (b, i), mem in visits.items():
+        s = f[b, mem] @ f[b, i]
+        e = torch.exp(s * tinv)
+        d2 = pairwise_d2(p[b, i][None, None], p[b, mem][None])[0, 0]
+        dt = torch.sqrt(d2.abs() + 1e-12) if root else d2
+        pos = lab[b, mem] == lab[b, i]
+        for col, v in ((0, e), (2, s if need_s else 0 * s),
+                       (4, torch.ones_like(s)), (6, dt)):
+            got[b, i, col] = torch.where(pos, v, 0.0).sum()
+            got[b, i, col + 1] = torch.where(pos, 0.0, v).sum()
+        got[b, i, 8] = kth[b, i]
+    want = ops.contrast_forward_plain(p, f, lab, kth, tinv, root, need_s, True)
+    assert torch.equal(got[..., 4:6], want[..., 4:6])
+    assert torch.equal(got[..., 8], want[..., 8])
+    for col in (0, 1, 2, 3, 6, 7):
+        err = (got[..., col] - want[..., col]).abs().max().item()
+        assert err <= 1e-5 * (1 + want[..., col].abs().max().item()), (col, err)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("n,window,need_s,root", _QUERY_CASES)
+def test_rows_visit_schedule_returns_the_dense_answer(kind, n, window, need_s,
+                                                      root):
+    """The rows half's emulated schedule (the forward's) visits exactly the
+    dense member pairs and sums to ``contrast_grad_rows_plain`` within
+    1e-5·(1+max|df|)."""
+    p, f, lab, kth, g4 = _stage_case(kind, n)
+    visits = _visits(p, kth, window, own=True)
+    assert _pairs(visits, own=True) == _dense_pairs(p, kth)
+    got = torch.zeros(f.shape)
+    for (b, i), mem in visits.items():
+        w = _weights(f[b, mem] @ f[b, i], lab[b, mem] == lab[b, i], g4[b, i],
+                     1 / 0.3, need_s)
+        for t in range(len(mem)):    # chunk order, lane order
+            got[b, i] += w[t] * f[b, mem[t]]
+    want = ops.contrast_grad_rows_plain(p, f, lab, kth, g4, 1 / 0.3, need_s)
     err = (got - want).abs().max().item()
     assert err <= 1e-5 * (1 + want.abs().max().item()), err
 
@@ -539,9 +669,17 @@ def test_wrappers_take_a_layout_and_return_the_plain_answer_on_the_cpu():
     lab = torch.from_numpy(rng.randint(0, 3, (2, 300)).astype(np.float32))
     kth = ops.knn_plain(p, p, 24)[1][..., -1] * (1.0 + 1e-5)
     g4 = torch.from_numpy(rng.randn(2, 300, 4).astype(np.float32))
-    assert torch.equal(
-        ops.contrast_grad_support(p, f.detach(), lab, kth, g4, 2.0, True, cloud),
-        ops.contrast_grad_support_plain(p, f.detach(), lab, kth, g4, 2.0, True))
+    fd = f.detach()
+    for wrapper, plain in ((ops.contrast_grad_support, ops.contrast_grad_support_plain),
+                           (ops.contrast_grad_rows, ops.contrast_grad_rows_plain)):
+        want = plain(p, fd, lab, kth, g4, 2.0, True)
+        assert torch.equal(wrapper(p, fd, lab, kth, g4, 2.0, True, cloud), want)
+        assert torch.equal(plain(p, fd, lab, kth, g4, 2.0, True, cloud=cloud), want)
+    want = ops.contrast_forward_plain(p, fd, lab, kth, 2.0, True, False, True)
+    assert torch.equal(ops.contrast_forward(p, fd, lab, kth, 2.0, True, False,
+                                            True, cloud), want)
+    assert torch.equal(ops.contrast_forward_plain(p, fd, lab, kth, 2.0, True,
+                                                  False, True, cloud=cloud), want)
     gout = torch.from_numpy(rng.randn(2, 300, 9).astype(np.float32))
     out = ops.contrast_reductions(p, f, lab, kth, 2.0, False, True, True,
                                   cloud=cloud)
@@ -568,3 +706,45 @@ def test_the_loss_runs_under_the_plain_ops_with_its_layouts():
     with plain_ops():
         got, _ = contrast_head(ups, target, 4, None, args)
     assert torch.equal(got, want)
+
+
+def test_ambiguity_head_approx_hands_each_stage_its_layout():
+    """In the approx configuration ``ambiguity_head`` sorts its stage clouds
+    once (``sort_stages``) and hands each layout to the selection's
+    reductions, as its exact branch hands them to the kNN; the ambiguity is
+    the one of the reductions given no layout, bit for bit."""
+    from amcontrast3d_tpu_torch.loss import contrast as pcontrast
+    from amcontrast3d_tpu_torch.ops.knn import set_knn_backend
+
+    rng = np.random.RandomState(11)
+    ups = [(_cloud(rng, 2, n, "grid"), None) for n in (512, 128, 32)]
+    target = torch.from_numpy(rng.randint(0, 4, (2, 512)))
+    args = dict(nsample=8, ccbeta=0.04, cctype="Method2", stages_num=3)
+    selfk, sorts, given = pcontrast.contrast_reductions_selfk, [], []
+
+    def recording_sort(ps):
+        sorts.append(len(ps))
+        return spatial.sort_stages(ps)
+
+    def recording_selfk(p, *a, cloud=None):
+        spatial.check_layout(cloud, p)
+        given.append(cloud)
+        return selfk(p, *a, cloud=cloud)
+
+    set_knn_backend("approx")
+    try:
+        want = pcontrast.ambiguity_head(ups, target, 4, None, args)
+        with mock.patch.object(pcontrast, "sort_stages", recording_sort), \
+                mock.patch.object(pcontrast, "contrast_reductions_selfk",
+                                  recording_selfk), \
+                mock.patch.object(pcontrast, "sort_support",
+                                  side_effect=AssertionError("a stage sorted alone")):
+            got = pcontrast.ambiguity_head(ups, target, 4, None, args)
+        with mock.patch.object(pcontrast, "contrast_reductions_selfk",
+                               lambda *a, cloud=None: selfk(*a)):
+            unsorted = pcontrast.ambiguity_head(ups, target, 4, None, args)
+    finally:
+        set_knn_backend("auto")
+    assert sorts == [3] and len(given) == 3
+    for a, b, c in zip(got, want, unsorted):
+        assert torch.equal(a, b) and torch.equal(a, c)

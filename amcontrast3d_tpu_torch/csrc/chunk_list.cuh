@@ -1,5 +1,6 @@
 // A block's list of candidate chunks: the device code shared by knn.cu and
-// contrast.cu's three kernels.
+// refine.cu (through listed_knn.cuh), ball_query.cu and contrast.cu's three
+// kernels.
 //
 // A block of kListWarps warps works on one point a warp, 8 points that are
 // consecutive along the Morton curve of ops/spatial.py, so the union box of

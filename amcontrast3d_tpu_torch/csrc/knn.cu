@@ -6,9 +6,10 @@
 // knn_pallas) and ::_knn_kernel_big, which the JAX package takes above
 // _BIG_N support points; on the H100 this kernel is within a few per cent of
 // a warp-per-query search over every box (the large-cloud kernel's design)
-// below that size and ahead above it, by a third at a room (PERF.md).  The TPU kernel keeps the best two points of every 128-wide
-// bin of a permuted support and extracts k from that pool, a shape its
-// vector lanes force and approximate by design.  This kernel is exact: the
+// below that size and ahead above it, by a third at a room (PERF.md).  The
+// TPU kernel keeps the best two points of every 128-wide bin of a
+// permuted support and extracts k from that pool, a shape its vector lanes
+// force and approximate by design.  This kernel is exact: the
 // k nearest in (d^2, index) order, ties to the lowest index, d^2 in the
 // direct form (dx*dx + dy*dy) + dz*dz without FMA, bit for bit what the
 // plain PyTorch twin (ops/knn.py::knn_plain, a stable top-k over the same
@@ -21,7 +22,8 @@
 // chunks of 64 points with exact boxes (ops/spatial.py: one layout a stage
 // cloud, shared with the loss's other kernels), the queries in Morton order
 // (for the self-kNN the support's own order, read from the layout itself:
-// no second sort, no order array).  A block takes 8 queries that are
+// no second sort, no order array).  The scan is listed_knn.cuh's, which
+// refine.cu's CrossMask forward shares.  A block takes 8 queries that are
 // consecutive along the curve, one warp each (chunk_list.cuh).  Before any
 // scan the block tests every chunk's box once against the union box of its
 // queries and a limit no query's k-th can exceed: the largest upper bound
@@ -41,14 +43,11 @@
 // larger k is taken in passes (ops/knn.py), each keeping the next slots
 // strictly after the previous pass's last pair, which the kernel reads from
 // the output row just before its first slot.  Any n, m >= 1.
-#include "chunk_list.cuh"
-#include "chunk_search.cuh"
+#include "listed_knn.cuh"
 
 namespace {
 
 using namespace amc3d;
-
-static_assert(kScanWarps == kListWarps, "a warp a query");
 
 // LOWER: a later pass (first > 0), after the pair in slot first - 1.
 // order == nullptr: the queries are the support, in its sorted order.
@@ -59,116 +58,21 @@ knn_kernel(const float4* __restrict__ support, const float* __restrict__ boxes,
            const int* __restrict__ home, int n, int m, int k, int ld,
            int first, int nc, int* __restrict__ idx_out,
            float* __restrict__ d2_out) {
-  __shared__ int list[kListChunks];
-  __shared__ float spts[kListWarps][3];
-  __shared__ float slimit[kListWarps];
-  __shared__ int snear[kListWarps][2];
-  __shared__ int counts[kListWarps];
+  __shared__ ListedShared sh;
   const int b = blockIdx.y;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int rank = blockIdx.x * kListWarps + warp;
-  const bool active = rank < m;
-  const size_t qrow = static_cast<size_t>(b) * m;
+  const int lane = threadIdx.x & 31;
   const float4* sup = support + static_cast<size_t>(b) * n;
-  const float* bx = boxes + static_cast<size_t>(b) * nc * 6;
-
-  float qx = 0.f, qy = 0.f, qz = 0.f;
-  size_t row = 0;
-  int h = 0, near_lo = 0, near_hi = nc;  // an idle warp excludes nothing
-  float limit = -1.f;                   // and admits nothing
-  if (active) {
-    int qi;
-    if (order == nullptr) {
-      const float4 p = sup[rank];
-      qx = p.x;
-      qy = p.y;
-      qz = p.z;
-      qi = __float_as_int(p.w);
-      h = rank / kChunk;
-    } else {
-      qi = order[qrow + rank];
-      const float* q = query + (qrow + qi) * 3;
-      qx = q[0];
-      qy = q[1];
-      qz = q[2];
-      h = home[qrow + rank];
-    }
-    row = (qrow + qi) * ld;
-    const int near = 1 + first / kChunk;
-    near_lo = max(0, h - near);
-    near_hi = min(nc, h + near + 1);
-    // the pass's last slot is the (first + k)-th nearest: within the upper
-    // bound of chunks that hold that many points
-    limit = CUDART_INF_F;
-    if (min(n, near_hi * kChunk) - near_lo * kChunk >= first + k) {
-      limit = 0.f;
-      for (int c = near_lo; c < near_hi; ++c)
-        limit = fmaxf(limit, box_upper_bound(qx, qy, qz,
-                                             bx + static_cast<size_t>(c) * 6));
-    }
-  }
-  if (lane == 0) {
-    spts[warp][0] = qx;
-    spts[warp][1] = qy;
-    spts[warp][2] = qz;
-    slimit[warp] = limit;
-    snear[warp][0] = near_lo;
-    snear[warp][1] = near_hi;
-  }
-  __syncthreads();
-  // the union box of the block's queries, the largest limit among them, and
-  // the chunks every warp scans first
-  const int warps = min(kListWarps, m - static_cast<int>(blockIdx.x) * kListWarps);
-  float ub[6];
-  union_box(spts, warps, ub);
-  float block_limit = -1.f;
-  int done_lo = 0, done_hi = nc;
-  for (int w = 0; w < warps; ++w) {
-    block_limit = fmaxf(block_limit, slimit[w]);
-    done_lo = max(done_lo, snear[w][0]);
-    done_hi = min(done_hi, snear[w][1]);
-  }
-  auto needed = [&](int c) {
-    return (c < done_lo || c >= done_hi) &&
-           !(box_box_lower_bound(ub, bx + static_cast<size_t>(c) * 6) > block_limit);
-  };
-
+  const ListedQuery q = listed_query(sup, query, order, home, b, m);
+  const size_t row = (static_cast<size_t>(b) * m + q.qi) * ld;
   ChunkSearch<KPL, LOWER> s;
   s.init(k, lane, CUDART_INF_F);
-  if (LOWER && active)  // after the previous pass's last pair
+  if (LOWER && q.active)  // after the previous pass's last pair
     s.init(k, lane, CUDART_INF_F, d2_out[row - 1], idx_out[row - 1]);
-  for (int w0 = 0; w0 < nc; w0 += kListChunks) {
-    const int total = block_list(w0, nc, needed, list, counts);
-    if (!active) continue;
-    if (w0 == 0) {  // phase 1: the home chunk, then the ones beside it
-      s.scan(sup, n, h, qx, qy, qz);
-      for (int d = 1; d <= h - near_lo || h + d < near_hi; ++d) {
-        if (h - d >= near_lo) s.scan(sup, n, h - d, qx, qy, qz);
-        if (h + d < near_hi) s.scan(sup, n, h + d, qx, qy, qz);
-      }
-    }
-    // phase 2: the listed chunks within this warp's own k-th
-    for (int t0 = 0; t0 < total; t0 += 32) {
-      const int t = t0 + lane;
-      int c = 0;
-      float lb = CUDART_INF_F;  // +inf marks no chunk
-      if (t < total) {
-        c = list[t];
-        if (c < near_lo || c >= near_hi)
-          lb = box_lower_bound(qx, qy, qz, bx + static_cast<size_t>(c) * 6);
-      }
-      unsigned mask = __ballot_sync(kFullMask, lb < CUDART_INF_F && !(lb > s.thr_d));
-      while (mask) {
-        const int src = __ffs(mask) - 1;
-        mask &= mask - 1;
-        const float clb = __shfl_sync(kFullMask, lb, src);
-        const int cc = __shfl_sync(kFullMask, c, src);
-        if (!(clb > s.thr_d)) s.scan(sup, n, cc, qx, qy, qz);
-      }
-    }
-  }
+  listed_knn(sup, boxes + static_cast<size_t>(b) * nc * 6, n, nc, k, first,
+             min(kListWarps, m - static_cast<int>(blockIdx.x) * kListWarps),
+             q, sh, s);
 
-  if (!active) return;
+  if (!q.active) return;
 #pragma unroll
   for (int r = 0; r < KPL; ++r) {
     const int slot = lane + 32 * r;

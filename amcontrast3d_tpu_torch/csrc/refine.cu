@@ -19,15 +19,21 @@
 // the selection the backward reads: the chosen index per point (MIN) or the
 // k - 1 member indices, -1 where a > 0 (MIN_ALL0).
 //
-// What bounds it on the card: the scan, N^2 distance tests of about 9 float
-// instructions per cloud (2.3 G for 4 clouds of 24000 points), is
-// instruction throughput; the feature traffic is one row read and one
-// written per point (MIN), 25 MB each at 4 x 24000 x 64.
-// Design: the warp-per-point top-k scan of knn_topk.cuh; then the warp
-// reads its slots' ambiguities (one per lane and register), reduces the
-// (a, slot) minimum with xor shuffles, and copies the chosen row
-// coalesced.  MIN_ALL0 parks the member list in shared memory and sums the
-// rows slot by slot, so each point's sum has a fixed order.
+// What bounds it on the card: a dense scan, N^2 distance tests of about 9
+// float instructions per cloud (2.3 G for 4 clouds of 24000 points), is
+// instruction throughput, though only the k nearest of each point matter;
+// the feature traffic is one row read and one written per point (MIN),
+// 25 MB each at 4 x 24000 x 64.  Design: the self-kNN is knn.cu's listed
+// scan (listed_knn.cuh) over the decoder stage's Morton-sorted layout
+// (ops/spatial.py, sorted once a forward with the model's other stage
+// clouds): a block of 8 points consecutive along the curve lists the
+// chunks within their k-th once, each warp scans its home chunk and the
+// listed chunks within its own running k-th, and the slots end in the same
+// (d^2, index) order as a dense scan's.  Then the warp reads its slots'
+// ambiguities (one per lane and register), reduces the (a, slot) minimum
+// with xor shuffles, and copies the chosen row coalesced.  MIN_ALL0 parks
+// the member list in shared memory and sums the rows slot by slot, so each
+// point's sum has a fixed order, the same as before the layout.
 //
 // Backward.  Replaces ::_refine_bwd_kernel, a support-side matmul of the
 // re-derived 0/1 weights with g.  Here the saved selection makes it a
@@ -41,7 +47,7 @@
 // scalar form.  The summation order of the atomics varies between runs, so
 // df agrees with the twin's index_add_ to rounding, not bit for bit.  No
 // gradient reaches the positions or the ambiguity.
-#include "knn_topk.cuh"
+#include "listed_knn.cuh"
 
 #include <climits>
 #include <cstdint>
@@ -54,29 +60,31 @@ using namespace amc3d;
 constexpr int kMaxSlots = 32 * kMaxSlotsPerLane;
 
 template <int KPL>
-__global__ void __launch_bounds__(kScanThreads)
-refine_cross_kernel(const float* __restrict__ p, const float* __restrict__ f,
-                    const float* __restrict__ a, int n, int c, int k,
-                    int fusion_min, float* __restrict__ out,
-                    int* __restrict__ sel_out) {
-  __shared__ float sx[kScanTile], sy[kScanTile], sz[kScanTile];
-  __shared__ int members[kScanWarps][KPL * 32];
+__global__ void __launch_bounds__(kListThreads)
+refine_cross_kernel(const float4* __restrict__ sorted,
+                    const float* __restrict__ boxes,
+                    const float* __restrict__ f, const float* __restrict__ a,
+                    int n, int c, int k, int fusion_min,
+                    float* __restrict__ out, int* __restrict__ sel_out) {
+  __shared__ ListedShared sh;
+  __shared__ int members[kListWarps][KPL * 32];
   const int b = blockIdx.y;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int qi = blockIdx.x * kScanWarps + warp;
-  const bool active = qi < n;
+  const int nc = (n + kChunk - 1) / kChunk;
   const size_t base = static_cast<size_t>(b) * n;
-  float qx = 0.f, qy = 0.f, qz = 0.f;
-  if (active) {
-    const float* q = p + (base + qi) * 3;
-    qx = q[0];
-    qy = q[1];
-    qz = q[2];
-  }
-  WarpTopK<KPL> top;
-  scan_topk<KPL>(p + base * 3, n, k, qx, qy, qz, active, sx, sy, sz, top);
-  if (!active) return;
+  const float4* sup = sorted + base;
+  // the points are the support itself, taken in its sorted order
+  const ListedQuery q = listed_query(sup, nullptr, nullptr, nullptr, b, n);
+  ChunkSearch<KPL, false> search;
+  search.init(k, lane, CUDART_INF_F);
+  listed_knn(sup, boxes + static_cast<size_t>(b) * nc * 6, n, nc, k, 0,
+             min(kListWarps, n - static_cast<int>(blockIdx.x) * kListWarps),
+             q, sh, search);
+  if (!q.active) return;
+  // slots past the n points keep index 0, as the exact kNN pads them
+  const WarpTopK<KPL>& top = search.top;
+  const int qi = q.qi;
   const float* fb = f + base * c;
   const float* ab = a + base;
   float* o = out + (base + qi) * c;
@@ -227,24 +235,30 @@ BwdKernel bwd_kernel(int lanes) {
 
 }  // namespace
 
-// p (b, n, 3), f (b, n, c), a (b, n) float32, 2 <= k <= 128 (k counts the
-// point itself) -> out (b, n, c) float32; sel_out, unless null, is
-// (b, n) int32 for fusion_min and (b, n, k - 1) int32 otherwise.
-extern "C" int amc3d_refine_cross(const void* p, const void* f, const void* a,
-                                  void* out, void* sel_out, int b, int n,
-                                  int c, int k, int fusion_min, void* stream) {
-  if (k < 2 || k > kMaxSlots) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((n + kScanWarps - 1) / kScanWarps, b);
+// The stage cloud's layout: sorted (b, n) float4, its points along the
+// Morton curve with the bits of each point's index in w, and boxes
+// (b, ceil(n / 64), 6); f (b, n, c), a (b, n) float32 in the caller's order;
+// 2 <= k <= 128 (k counts the point itself) -> out (b, n, c) float32;
+// sel_out, unless null, is (b, n) int32 for fusion_min and (b, n, k - 1)
+// int32 otherwise.
+extern "C" int amc3d_refine_cross(const void* sorted, const void* boxes,
+                                  const void* f, const void* a, void* out,
+                                  void* sel_out, int b, int n, int c, int k,
+                                  int fusion_min, void* stream) {
+  if (k < 2 || k > kMaxSlots || reinterpret_cast<size_t>(sorted) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((n + kListWarps - 1) / kListWarps, b);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const auto* pp = static_cast<const float*>(p);
+  const auto* sp = static_cast<const float4*>(sorted);
+  const auto* bx = static_cast<const float*>(boxes);
   const auto* ff = static_cast<const float*>(f);
   const auto* aa = static_cast<const float*>(a);
   auto* o = static_cast<float*>(out);
   auto* so = static_cast<int*>(sel_out);
   switch (slots_per_lane(k)) {
-    case 1: refine_cross_kernel<1><<<grid, kScanThreads, 0, st>>>(pp, ff, aa, n, c, k, fusion_min, o, so); break;
-    case 2: refine_cross_kernel<2><<<grid, kScanThreads, 0, st>>>(pp, ff, aa, n, c, k, fusion_min, o, so); break;
-    case 4: refine_cross_kernel<4><<<grid, kScanThreads, 0, st>>>(pp, ff, aa, n, c, k, fusion_min, o, so); break;
+    case 1: refine_cross_kernel<1><<<grid, kListThreads, 0, st>>>(sp, bx, ff, aa, n, c, k, fusion_min, o, so); break;
+    case 2: refine_cross_kernel<2><<<grid, kListThreads, 0, st>>>(sp, bx, ff, aa, n, c, k, fusion_min, o, so); break;
+    case 4: refine_cross_kernel<4><<<grid, kListThreads, 0, st>>>(sp, bx, ff, aa, n, c, k, fusion_min, o, so); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());

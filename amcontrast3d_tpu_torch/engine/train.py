@@ -67,7 +67,7 @@ def make_train_step(model: nn.Module, criterion: Callable,
                                    generator=generator)
             up = list(zip(stages["p"], stages[key]))
             loss = criterion(logits, target, up, num_classes, ignore_index,
-                             ambiguity_args)
+                             ambiguity_args, clouds=stages["clouds"])
         else:
             # ground-truth-driven refinement needs the labels in the forward
             kwargs = ({"target": target}
@@ -77,7 +77,7 @@ def make_train_step(model: nn.Module, criterion: Callable,
             up = list(zip(stages["p"], stages[key]))
             seg, ce, con, reg = criterion(
                 logits, target, up, stages["ambiguity"], num_classes,
-                ignore_index, ambiguity_args)
+                ignore_index, ambiguity_args, clouds=stages["clouds"])
             loss = seg + reg
             aux = {"loss_seg": seg.detach(), "loss_ce": ce.detach(),
                    "loss_contrast": con.detach(), "loss_reg": reg.detach(),

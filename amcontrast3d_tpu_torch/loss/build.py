@@ -68,10 +68,13 @@ class CrossEntropyAce:
         self.ce = CrossEntropy()  # plain CE, smoothing deliberately ignored
 
     def __call__(self, logits, target, up_stages, num_classes: int,
-                 ignore_index: Optional[int], ambiguity_args: Dict):
+                 ignore_index: Optional[int], ambiguity_args: Dict,
+                 clouds=None):
+        """``clouds``: the layouts of the stages' positions, as the model's
+        forward sorted them (``stages["clouds"]``)."""
         ce = self.ce(logits, target)
         contrast, _ = contrast_head(up_stages, target, num_classes,
-                                    ignore_index, ambiguity_args)
+                                    ignore_index, ambiguity_args, clouds)
         return ambiguity_args["w1"] * ce + ambiguity_args["w2"] * contrast
 
 
@@ -86,10 +89,11 @@ class CrossEntropyAcePre:
 
     def __call__(self, logits, target, up_stages, pred_ai_list,
                  num_classes: int, ignore_index: Optional[int],
-                 ambiguity_args: Dict):
+                 ambiguity_args: Dict, clouds=None):
         ce = self.ce(logits, target)
         contrast, target_ai_list = contrast_head(
-            up_stages, target, num_classes, ignore_index, ambiguity_args)
+            up_stages, target, num_classes, ignore_index, ambiguity_args,
+            clouds)
         pred = torch.cat([a.reshape(-1) for a in pred_ai_list])
         tgt = torch.cat([a.reshape(-1) for a in target_ai_list])
         reg = (pred - tgt.detach()).abs().mean()

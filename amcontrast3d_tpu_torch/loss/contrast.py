@@ -13,11 +13,15 @@ learned, ``db`` −m / +m / none, cctype Method1-3.  The others (the
 gather-based forms of ``contrast.py:276-318``) and ``remat`` raise
 ``NotImplementedError``.
 
-The stage clouds are sorted once a step, all in one sort
-(``ops.spatial.sort_stages``), and each layout handed to the kernels that
-read it: the stage's self-kNN, its contrast forward and both halves of the
-VJP, and, for stage 0, the label propagation to the coarser stages.  The
-ground-truth ambiguity (``ambiguity_head``) sorts its stages the same way.
+The stage clouds are sorted once a forward, all in one sort
+(``ops.spatial.sort_stages``), by the model's encoder, which hands the
+layouts on (``clouds=``); each goes to the kernels that read it: the
+stage's self-kNN, its contrast forward and both halves of the VJP, and,
+for stage 0, the label propagation to the coarser stages.  Given no
+layouts, the heads sort the stages themselves, the same way; a layout made
+for another tensor than the stage's positions is refused.  The
+ground-truth ambiguity (``ambiguity_head``) takes its stages' layouts the
+same way.
 
 In the approx configuration (``ops.knn.set_knn_backend('approx')``, unless
 ``ambiguity_args.fused`` is False, as the JAX package's fused branches
@@ -36,7 +40,7 @@ import torch
 from ..ops import (ambiguity_from_stats, contrast_reductions,
                    contrast_reductions_selfk, knn, label_vote)
 from ..ops.knn import use_approx
-from ..ops.spatial import SortedCloud, sort_stages, sort_support
+from ..ops.spatial import SortedCloud, check_layout, sort_stages, sort_support
 from .aef import NSTRIDE, one_hot_labels, stage_ambiguity, subscene_labels
 
 _EPS = 1e-12
@@ -143,14 +147,31 @@ def point_contrast_margin(p: torch.Tensor, f: torch.Tensor,
     return loss, a
 
 
+def _stage_clouds(ps: List[torch.Tensor],
+                  clouds: Optional[Sequence[SortedCloud]]) -> List[SortedCloud]:
+    """The layout of each stage's positions: ``clouds`` as the forward
+    handed them on (each checked against its stage), or one sort of all."""
+    if clouds is None:
+        return sort_stages(ps)
+    clouds = list(clouds[:len(ps)])
+    if len(clouds) != len(ps):
+        raise ValueError(f"{len(clouds)} layouts for {len(ps)} stages")
+    for cloud, p in zip(clouds, ps):
+        check_layout(cloud, p)
+    return clouds
+
+
 def contrast_head(up_stages: Sequence[Tuple[torch.Tensor, torch.Tensor]],
                   target: torch.Tensor, num_classes: int,
-                  ignore_index: Optional[int], args: Dict
+                  ignore_index: Optional[int], args: Dict,
+                  clouds: Optional[Sequence[SortedCloud]] = None
                   ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
     """Sum of the per-stage losses over ``stages_num`` decoder stages.
 
     up_stages: [(p_s (B, N_s, 3), f_s (B, N_s, C))], stage 0 at full
-    resolution first; its positions are the label-propagation source."""
+    resolution first; its positions are the label-propagation source.
+    ``clouds``: the layouts of the p_s, as the model's forward sorted them
+    (sorted here when not given)."""
     if args.get("remat", False):
         raise NotImplementedError("ambiguity_args.remat is not ported")
     labels0 = one_hot_labels(target, num_classes, ignore_index)
@@ -162,7 +183,7 @@ def contrast_head(up_stages: Sequence[Tuple[torch.Tensor, torch.Tensor]],
     ps = [p.contiguous() for p, _ in up_stages[:stages]]
     p0 = ps[0]
     with torch.no_grad():
-        clouds = sort_stages(ps)
+        clouds = _stage_clouds(ps, clouds)
     loss_sum = 0.0
     target_ai_list: List[torch.Tensor] = []
     for i in range(stages):
@@ -181,14 +202,16 @@ def contrast_head(up_stages: Sequence[Tuple[torch.Tensor, torch.Tensor]],
 
 def ambiguity_head(up_stages: Sequence[Tuple[torch.Tensor, torch.Tensor]],
                    target: torch.Tensor, num_classes: int,
-                   ignore_index: Optional[int], args: Dict
+                   ignore_index: Optional[int], args: Dict,
+                   clouds: Optional[Sequence[SortedCloud]] = None
                    ) -> List[torch.Tensor]:
     """Ground-truth ambiguity (B, N_s) per stage, no loss: the propagated
     stage labels and the K-slot neighbourhood statistics of the exact kNN
     (the JAX package's exact branch, ``contrast.py:423-427``), or in the
     approx configuration the voted labels and the counts and distances of
     the selection's reductions over a zero 1-wide feature
-    (``contrast.py:400-422``)."""
+    (``contrast.py:400-422``).  ``clouds``: as :func:`contrast_head`
+    takes them."""
     labels0 = one_hot_labels(target, num_classes, ignore_index)
     cctype = args.get("cctype", "Method2")
     fused = _selection(args)
@@ -197,9 +220,9 @@ def ambiguity_head(up_stages: Sequence[Tuple[torch.Tensor, torch.Tensor]],
         stages = int(args.get("stages_num", 4))
         ps = [s[0].contiguous() for s in up_stages[:stages]]
         p0 = ps[0]
-        # every stage's layout by one sort: its kNN or its contrast kernels,
-        # the labels from stage 0
-        clouds = sort_stages(ps)
+        # every stage's layout, from the forward or by one sort: its kNN or
+        # its contrast kernels, the labels from stage 0
+        clouds = _stage_clouds(ps, clouds)
         if fused:
             lab0 = labels0.argmax(-1).to(torch.int32)
         for i in range(stages):

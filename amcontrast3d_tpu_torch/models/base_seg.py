@@ -6,7 +6,9 @@
 * ``BaseSeg_AMContrast3D`` — also returns the per-stage embeddings the
   adaptive-margin contrastive loss consumes, as a dict of dense per-stage
   tensors: ``p`` (stage positions (B, N_s, 3), s = 1…4), ``f_down``
-  (encoder features) and ``f_up`` (decoder features).
+  (encoder features) and ``f_up`` (decoder features), and ``clouds``, the
+  layouts of ``p`` that the encoder sorted once for the forward's kernels
+  (``ops.spatial.sort_stages``), which the loss reads instead of sorting.
 * ``BaseSeg_M_AMContrast3D`` — AMContrast3D++: an APM predicts each
   stage's ambiguity from the encoder's positions and features, the decoder
   refines its high-ambiguity features with it (at inference too), and the
@@ -84,12 +86,14 @@ class BaseSeg_AMContrast3D(nn.Module):
 
     def forward(self, pos: torch.Tensor, features: torch.Tensor,
                 generator: Optional[torch.Generator] = None):
-        p, f = self.encoder(pos, features)
-        f_out, up_features, _ = self.decoder(p, f)
+        sampled = self.encoder.sample(pos)
+        p, f = self.encoder(pos, features, sampled)
+        f_out, up_features, _ = self.decoder(p, f, clouds=sampled.clouds)
         logits = self.head(f_out, generator)
         n = len(up_features)
         stages = {"p": tuple(p[1:1 + n]), "f_down": tuple(f[1:1 + n]),
-                  "f_up": tuple(up_features)}
+                  "f_up": tuple(up_features),
+                  "clouds": tuple(sampled.clouds[1:1 + n])}
         return logits, stages
 
 
@@ -130,7 +134,9 @@ class BaseSeg_M_AMContrast3D(nn.Module):
     def forward(self, pos: torch.Tensor, features: torch.Tensor,
                 generator: Optional[torch.Generator] = None,
                 target: Optional[torch.Tensor] = None, aef_ambiguity=None):
-        p, f = self.encoder(pos, features)
+        sampled = self.encoder.sample(pos)
+        p, f = self.encoder(pos, features, sampled)
+        clouds = sampled.clouds
         n = self.decoder.decoder_stages
         a_list, a_map_list = [], []
         for i in range(1, 1 + n):
@@ -144,13 +150,16 @@ class BaseSeg_M_AMContrast3D(nn.Module):
             from ..loss.contrast import ambiguity_head
             aef_ambiguity = ambiguity_head(
                 [(p[i], f[i]) for i in range(1, 1 + n)], target,
-                self.num_classes, self.ignore_index, self.aef_args)
+                self.num_classes, self.ignore_index, self.aef_args,
+                clouds=clouds[1:1 + n])
         f_out, up_features, refine_rate = self.decoder(
             p, f, a_list=a_list if aef_ambiguity is None else aef_ambiguity,
-            a_map_list=a_map_list if self.linear_mapping else None)
+            a_map_list=a_map_list if self.linear_mapping else None,
+            clouds=clouds)
         logits = self.head(f_out, generator)
         stages = {"p": tuple(p[1:1 + n]), "f_down": tuple(f[1:1 + n]),
-                  "f_up": tuple(up_features), "ambiguity": tuple(a_list)}
+                  "f_up": tuple(up_features), "ambiguity": tuple(a_list),
+                  "clouds": tuple(clouds[1:1 + n])}
         return logits, stages, refine_rate
 
 

@@ -3,7 +3,11 @@
 ↔ ``amcontrast3d_tpu/models/build.py``.  The flax modules there are
 dataclasses filtered by field; an ``nn.Module`` here is filtered by the
 parameters of its ``__init__`` (unknown config keys are ignored, with the
-tolerance of the reference's ``**kwargs`` constructors).
+tolerance of the reference's ``**kwargs`` constructors).  A key that the
+JAX module reads and the port's constructor lacks is not ignored: set to
+anything but the JAX default it raises ``NotImplementedError`` by name
+(:data:`UNPORTED_KEYS`), so an option that is not ported never trains
+without a word.
 """
 from __future__ import annotations
 
@@ -19,8 +23,41 @@ from ..utils.registry import Registry
 MODELS = Registry("models")
 
 
+# the fields that every flax module of the JAX package reads and no module
+# of the port takes, with their JAX defaults: BatchNorm's axis across
+# devices (the runner's ``distributed``) and the compute type (its
+# ``use_amp``)
+_JAX_FIELDS = {"bn_axis_name": None, "dtype": "float32"}
+# per port class, the other fields its JAX module reads and the port's
+# constructor lacks, with their JAX defaults (``models/pointnext.py:605``,
+# ``models/pointnetv2.py:82`` of the JAX package).  The JAX modules' other
+# extra fields are read by no JAX module (the APMs' ``feat_concate``), or by
+# the model around them, which the port's reads too (the APMs'
+# ``nsample_k``, ``threshold``, ``fusion`` … from ``APM_args``).
+UNPORTED_KEYS = {
+    "PointNextEncoder": {"remat": False},
+    "PointNet2Encoder": {"sampler": "fps"},
+}
+
+
+def _is_default(key: str, value: Any, default: Any) -> bool:
+    if key == "dtype":   # float32 by any name: "float32", torch.float32, …
+        return str(value).rsplit(".", 1)[-1].strip("'>") == default
+    return value == default
+
+
 def filter_kwargs(cls, kwargs: Dict[str, Any]) -> Dict[str, Any]:
+    """The keys of ``kwargs`` that ``cls.__init__`` takes.  Raises
+    ``NotImplementedError`` naming a key that the JAX module reads and the
+    port's lacks, when it differs from the JAX default."""
     params = inspect.signature(cls.__init__).parameters
+    unported = {**_JAX_FIELDS, **UNPORTED_KEYS.get(cls.__name__, {})}
+    for key, value in kwargs.items():
+        if key not in params and key in unported and \
+                not _is_default(key, value, unported[key]):
+            raise NotImplementedError(
+                f"{cls.__name__}: {key}={value!r} is not ported (the JAX "
+                f"package's default is {unported[key]!r})")
     return {k: v for k, v in kwargs.items() if k in params and k != "self"}
 
 

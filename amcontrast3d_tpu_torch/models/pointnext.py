@@ -13,14 +13,22 @@ upsampling, InvResMLP, the encoder with its per-stage shared ball query,
 the decoder with the masked refinement, and SegHead.  Not yet: the generic
 grouped-MLP LocalAggregation, the masked ``n_valid`` path, remat, ResBlock
 and random sampling.
+
+The encoder takes its positions first (:meth:`PointNextEncoder.sample`):
+FPS reads positions only, so the whole chain p_0 → … → p_S runs before any
+feature, and one :func:`ops.spatial.sort_stages` then sorts every stage
+cloud.  Each layout goes to the kernels that read that cloud: the encoder's
+ball queries, the decoder's CrossMask and, through the models of
+``base_seg.py``, the loss.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
+from ..ops import spatial
 from ..ops.aggregate import agg_fused_enabled, agg_fused_fits, grouped_slot_reduce
 from ..ops.fps import furthest_point_sample
 from ..ops.group import (CHANNEL_MAP, create_grouper, gather_points,
@@ -152,10 +160,13 @@ def _fused(act_name, n: int, c: int, k: int) -> bool:
             and agg_fused_fits(n, c, k))
 
 
-def _group_idx(grouper, support, query):
+def _group_idx(grouper, support, query, cloud=None, query_cloud=None):
+    """The grouping indices; ``cloud`` and ``query_cloud``: the layouts of
+    ``support`` and ``query``, where the caller holds them."""
     if grouper.method == "ballquery":
-        return ball_query(support, query, grouper.radius, grouper.nsample)
-    return knn(support, query, grouper.nsample)[0]
+        return ball_query(support, query, grouper.radius, grouper.nsample,
+                          cloud, query_cloud)
+    return knn(support, query, grouper.nsample, cloud)[0]
 
 
 def _dp_scale(grouper):
@@ -193,15 +204,16 @@ class LocalAggregation(nn.Module):
         self.act_name = _act_name(act_args) if last_act else None
         self.max_pool = reduction.lower() == "max"
 
-    def forward(self, p, f, cached_idx=None):
+    def forward(self, p, f, cached_idx=None, cloud=None):
         """``cached_idx``: the stage's shared grouping, an ``(idx, dp)``
         pair or a bare idx (consecutive blocks of a stage share points,
-        radius and nsample, and the ball query is deterministic)."""
+        radius and nsample, and the ball query is deterministic); ``cloud``:
+        the layout of ``p`` for a grouping of its own."""
         cached_dp = None
         if isinstance(cached_idx, tuple):
             cached_idx, cached_dp = cached_idx
         idx = cached_idx if cached_idx is not None else \
-            _group_idx(self.grouper, p, p)
+            _group_idx(self.grouper, p, p, cloud)
         dp_scale = _dp_scale(self.grouper)
         if self.max_pool and _fused(self.act_name, p.shape[1],
                                     self.w_f.out_features, idx.shape[-1]):
@@ -277,17 +289,24 @@ class SetAbstraction(nn.Module):
                 order=order))
             cin = ch
 
-    def forward(self, p, f):
+    def sample(self, p):
+        """(FPS indices or None, the query positions) of this set
+        abstraction: they read positions only."""
+        if self.is_head or self.all_aggr:
+            return None, p
+        idx = furthest_point_sample(p, p.shape[1] // self.stride)
+        return idx, gather_points(p, idx)
+
+    def forward(self, p, f, sampled=None, cloud=None, query_cloud=None):
+        """``sampled``: :meth:`sample`'s (indices, query positions), taken
+        here when not given; ``cloud`` and ``query_cloud``: the layouts of
+        ``p`` and of the query positions, where the caller holds them."""
         mlp = [getattr(self, name) for name in self.mlp_names]
         if self.is_head:
             for block in mlp:
                 f = block(f)
             return p, f
-        if not self.all_aggr:
-            idx = furthest_point_sample(p, p.shape[1] // self.stride)
-            new_p = gather_points(p, idx)
-        else:
-            idx, new_p = None, p
+        idx, new_p = self.sample(p) if sampled is None else sampled
         fi = None
         if self.use_res or "df" in self.feature_type:
             fi = gather_points(f, idx) if idx is not None else f
@@ -295,7 +314,7 @@ class SetAbstraction(nn.Module):
             identity = (getattr(self, self.identity_name)(fi)
                         if self.identity_name else fi)
         if self.use_separable:
-            gidx = _group_idx(self.grouper, p, new_p)
+            gidx = _group_idx(self.grouper, p, new_p, cloud, query_cloud)
             act = None if self.use_res else self.act
             dp_scale = _dp_scale(self.grouper)
             if _fused(None if self.use_res else self.act_name, p.shape[1],
@@ -373,9 +392,9 @@ class InvResMLP(nn.Module):
                 order=order))
             cin = ch
 
-    def forward(self, p, f, cached_idx=None):
+    def forward(self, p, f, cached_idx=None, cloud=None):
         identity = f
-        f = self.LocalAggregation_0(p, f, cached_idx=cached_idx)
+        f = self.LocalAggregation_0(p, f, cached_idx=cached_idx, cloud=cloud)
         for name, block in self.named_children():
             if name.startswith("ConvBlock_"):
                 f = block(f)
@@ -453,26 +472,59 @@ class PointNextEncoder(nn.Module):
     def out_channels(self) -> int:
         return self.channel_list[-1]
 
-    def forward(self, p0, f0) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
-        p_list, f_list = [p0], [f0]
-        p, f = p0, f0
+    def sample(self, p0) -> "Stages":
+        """The positions of every stage, before any feature: each set
+        abstraction's FPS in turn (one batched launch a stage), then one
+        :func:`ops.spatial.sort_stages` over the distinct stage clouds."""
+        p = p0.contiguous()
+        positions, sampled = [p], []
         for i in range(len(self.blocks)):
-            p, f = getattr(self, f"enc{i}_sa")(p, f)
+            sampled.append(getattr(self, f"enc{i}_sa").sample(p))
+            p = sampled[-1][1]
+            positions.append(p)
+        distinct = list({id(t): t for t in positions}.values())
+        with torch.no_grad():
+            layouts = dict(zip(map(id, distinct), spatial.sort_stages(distinct)))
+        return Stages(positions, sampled, [layouts[id(t)] for t in positions])
+
+    def forward(self, p0, f0, stages: Optional["Stages"] = None
+                ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+        """``stages``: :meth:`sample` of ``p0``, taken here when not given;
+        returns the positions (its tensors, which its layouts were made
+        from) and the features of every stage, index 0 the input."""
+        if stages is None:
+            stages = self.sample(p0)
+        p_list, f_list = [stages.p[0]], [f0]
+        p, f = stages.p[0], f0
+        for i in range(len(self.blocks)):
+            cloud, query_cloud = stages.clouds[i], stages.clouds[i + 1]
+            p, f = getattr(self, f"enc{i}_sa")(p, f, stages.sampled[i], cloud,
+                                               query_cloud)
             shared = None
             if self.shared[i]:
                 r, k = self.radii[i][1], self.nsamples[i][1]
                 if self.group_name == "ballquery":
-                    idx = ball_query(p, p, r, k)
+                    idx = ball_query(p, p, r, k, query_cloud)
                 else:
-                    idx = knn(p, p, k)[0]
+                    idx = knn(p, p, k, query_cloud)[0]
                 # the fused tail never forms dp: the blocks share idx alone
                 shared = idx if agg_fused_enabled() else \
                     (idx, group_points(p, idx) - p[:, :, None, :])
             for j in range(1, self.blocks[i]):
-                p, f = getattr(self, f"enc{i}_block{j}")(p, f, cached_idx=shared)
+                p, f = getattr(self, f"enc{i}_block{j}")(
+                    p, f, cached_idx=shared, cloud=query_cloud)
             p_list.append(p)
             f_list.append(f)
         return p_list, f_list
+
+
+class Stages(NamedTuple):
+    """:meth:`PointNextEncoder.sample` of a batch: per stage (index 0 the
+    input) its positions and their layout, and per set abstraction its
+    (FPS indices or None, query positions)."""
+    p: List[torch.Tensor]
+    sampled: List[Tuple[Optional[torch.Tensor], torch.Tensor]]
+    clouds: List[spatial.SortedCloud]
 
 
 class PointNextDecoder(nn.Module):
@@ -526,7 +578,10 @@ class PointNextDecoder(nn.Module):
 
     def forward(self, p: List[torch.Tensor], f: List[torch.Tensor],
                 a_list: Optional[List[torch.Tensor]] = None,
-                a_map_list: Optional[List[torch.Tensor]] = None):
+                a_map_list: Optional[List[torch.Tensor]] = None,
+                clouds: Optional[List[spatial.SortedCloud]] = None):
+        """``clouds``: the layouts of ``p`` (the encoder's), which the
+        refinement's CrossMask reads; sorted by it when not given."""
         n = self.decoder_stages
         f = list(f)
         up_features: List[Optional[torch.Tensor]] = [None] * n
@@ -540,7 +595,8 @@ class PointNextDecoder(nn.Module):
             if not self.refine_mapping:
                 f[i - 1], rate = dual_masks(
                     p[i - 1], f[i - 1], a_list[i], self.nsample_k, self.fusion,
-                    self.threshold, self.threshold_max, self.gamma)
+                    self.threshold, self.threshold_max, self.gamma,
+                    None if clouds is None else clouds[i - 1])
                 refine_rates.append(rate)
             elif self.refine_attention:
                 f[i - 1] = getattr(self, f"refine_att{n + i}")(

@@ -14,21 +14,25 @@ dense (B, N, C) tensors, clouds kept separate:
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from ..ops.refine import dual_masks_cross
+from ..ops.spatial import SortedCloud
 
 
 def dual_masks(p: torch.Tensor, f: torch.Tensor, a: torch.Tensor,
                nsample_k: int, fusion: str, threshold: float,
-               threshold_max: float, gamma: float
+               threshold_max: float, gamma: float,
+               cloud: Optional[SortedCloud] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """p (B, N, 3), f (B, N, C), a (B, N) → (refined f, refine rate %).
-    Gradients reach ``f`` only: the masks are discrete in ``a``."""
+    Gradients reach ``f`` only: the masks are discrete in ``a``.
+    ``cloud``: the layout of ``p``, where the caller holds it."""
     cross = dual_masks_cross(p.contiguous(), f.contiguous(),
-                             a.detach().contiguous(), nsample_k, fusion)
+                             a.detach().contiguous(), nsample_k, fusion,
+                             cloud)
     self_mask = (a >= threshold) & (a <= threshold_max)
     rate = self_mask.float().mean() * 100.0
     s = self_mask[..., None].to(f.dtype)

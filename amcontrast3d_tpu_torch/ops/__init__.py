@@ -23,8 +23,7 @@ from .interpolate import (forward_is_big, three_interpolate,
                           three_interpolation_big, three_interpolation_plain,
                           three_interpolation_small,
                           three_interpolation_weights, three_nn)
-from .knn import (ball_query, ball_query_big, ball_query_plain,
-                  ball_query_small, knn, knn_plain,
+from .knn import (ball_query, ball_query_plain, knn, knn_plain,
                   set_knn_backend, use_approx)
 from .refine import (dual_masks_cross, dual_masks_cross_plain, refine_cross,
                      refine_cross_backward, refine_cross_backward_plain,
@@ -52,8 +51,7 @@ __all__ = [
     "three_interpolation_backward_small", "three_interpolation_big",
     "three_interpolation_plain", "three_interpolation_small",
     "three_interpolation_weights",
-    "three_nn", "ball_query", "ball_query_big", "ball_query_plain",
-    "ball_query_small", "knn", "knn_plain",
+    "three_nn", "ball_query", "ball_query_plain", "knn", "knn_plain",
     "set_knn_backend", "use_approx",
     "dual_masks_cross", "dual_masks_cross_plain", "refine_cross",
     "refine_cross_backward", "refine_cross_backward_plain",

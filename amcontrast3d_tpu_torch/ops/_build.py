@@ -51,8 +51,13 @@ _SIGNATURES = {
     # bits in w, boxes (ceil(N/64),6), xyz of point 0, mind (N) scratch, out
     # (npoint) i32, visits (1) u64 zeroed or null, N, npoint, stream
     "amc3d_fps_pruned": (_P, _P, _P, _P, _P, _P, _I, _I, _P),
-    # support (B,N,3), query (B,M,3), out (B,M,k) i32, B, N, M, k, r², stream
-    "amc3d_ball_query": (_P, _P, _P, _I, _I, _I, _I, _F, _P),
+    # sorted support (B,N,4) f32 with the index bits in w, boxes
+    # (B,ceil(N/64),6), the queries as sorted (B,M,4) with their index bits
+    # or as query (B,M,3) with order (B,M) i32 (the other null), out
+    # (B,M,ld) i32, B, N, M, k of the pass (≤ 128), ld, first slot, r²,
+    # stream
+    "amc3d_ball_query": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
+                         _P),
     # p1 (B,N1,3), p2 (B,N2,3), f2 (B,N2,C), out (B,N1,C), idx_out (B,N1,3)
     # i32 or null, w_out (B,N1,3) or null, B, N1, N2, C, stream
     "amc3d_three_interpolate": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
@@ -98,12 +103,10 @@ _SIGNATURES = {
     # a layout's perm (B,n) i64, lab (B,n), kth (B,n), aux (B,n,2) f32, cmax
     # (B,ceil(n/64)) f32, B, n, stream
     "amc3d_support_aux": (_P, _P, _P, _P, _P, _I, _I, _P),
-    # sorted support, boxes, query, order, out (B,M,k) i32, B, N, M, k, r²,
-    # stream
-    "amc3d_ball_query_big": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
-    # p (B,N,3), f (B,N,C), a (B,N), out (B,N,C), sel (B,N) or (B,N,k-1) i32
-    # or null, B, N, C, k, fusion_min, stream
-    "amc3d_refine_cross": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # the stage's sorted points (B,N,4) f32 with the index bits in w, boxes
+    # (B,ceil(N/64),6), f (B,N,C), a (B,N), out (B,N,C), sel (B,N) or
+    # (B,N,k-1) i32 or null, B, N, C, k, fusion_min, stream
+    "amc3d_refine_cross": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # g (B,N,C), sel (B,N,slots) i32, df (B,N,C) (zeroed by the entry
     # point), B, N, C, slots, scale, stream
     "amc3d_refine_cross_backward": (_P, _P, _P, _I, _I, _I, _I, _F, _P),

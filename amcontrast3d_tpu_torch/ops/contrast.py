@@ -115,26 +115,56 @@ def contrast_forward_plain(p, f, lab, kth, tinv: float = 1.0,
                            cloud: Optional[spatial.SortedCloud] = None
                            ) -> torch.Tensor:
     """Plain PyTorch reductions (B, N, 9), in (B, tile, N) blocks (a
-    layout, ``cloud``, changes nothing here)."""
+    layout, ``cloud``, changes nothing here).
+
+    Each point's sums run over its members one at a time, in float32, in
+    the order the forward kernel visits them: along the cloud's own Morton
+    curve (:func:`spatial.sort_support`, the layout every stage cloud has).
+    A float32 sum over thousands of members (a point with fewer than k
+    distinct d² takes every other point) then rounds as the kernel's does,
+    where a sum in index order would differ from it by some 1e-5."""
     _check(p, f, lab, kth, cuda=False)
-    B, N, _ = f.shape
+    B, N, C = f.shape
+    perm = spatial.sort_support(p).perm                     # (B, N)
+    # the support columns in the kernel's visit order
+    ps = torch.gather(p, 1, perm[..., None].expand(B, N, 3))
+    fs = torch.gather(f, 1, perm[..., None].expand(B, N, C))
+    ls = torch.gather(lab, 1, perm)
     out = f.new_zeros(B, N, _NOUT)
     for s in range(0, N, _TILE):
         e = min(s + _TILE, N)
-        d2, nb, pm, sim, ex = _tile_terms(p, f, lab, kth, s, e, tinv)
+        d2 = pairwise_d2(p[:, s:e], ps)
+        row = torch.arange(s, e, device=p.device)
+        nb = (d2 <= kth[:, s:e, None]) & (perm[:, None, :] != row[:, None])
+        pm = ls[:, None, :] == lab[:, s:e, None]
+        sim = torch.matmul(f[:, s:e], fs.transpose(1, 2))
+        ex = torch.exp(torch.where(nb, sim, 0.0) * tinv)
         pos, neg = nb & pm, nb & ~pm
         o = out[:, s:e]
-        o[..., 0] = torch.where(pos, ex, 0.0).sum(-1)
-        o[..., 1] = torch.where(neg, ex, 0.0).sum(-1)
-        if need_s:
-            o[..., 2] = torch.where(pos, sim, 0.0).sum(-1)
-            o[..., 3] = torch.where(neg, sim, 0.0).sum(-1)
         o[..., 4] = pos.sum(-1)
         o[..., 5] = neg.sum(-1)
-        if need_d:
-            dt = torch.sqrt(d2.abs() + 1e-12) if cctype_root else d2
-            o[..., 6] = torch.where(pos, dt, 0.0).sum(-1)
-            o[..., 7] = torch.where(neg, dt, 0.0).sum(-1)
+        dt = torch.sqrt(d2.abs() + 1e-12) if cctype_root else d2
+        terms = [(0, ex, True), (2, sim, need_s), (6, dt, need_d)]
+        # each row's members first, in visit order (a stable sort of the
+        # non-members behind them), then the sums one member at a time
+        front = torch.sort((~nb).to(torch.uint8), dim=-1, stable=True).indices
+        width = int(nb.sum(-1).max()) if nb.numel() else 0
+        front = front[..., :width]
+        is_pos = pos.gather(-1, front)
+        is_neg = neg.gather(-1, front)
+        for col, value, needed in terms:
+            if not needed:
+                continue
+            v = value.gather(-1, front)
+            vp = torch.where(is_pos, v, 0.0)
+            vn = torch.where(is_neg, v, 0.0)
+            acc_p = torch.zeros_like(vp[..., 0])
+            acc_n = torch.zeros_like(vn[..., 0])
+            for t in range(width):
+                acc_p = acc_p + vp[..., t]
+                acc_n = acc_n + vn[..., t]
+            o[..., col] = acc_p
+            o[..., col + 1] = acc_n
     out[..., 8] = kth
     return out
 

@@ -6,19 +6,20 @@
 where the TPU kernel is approximate by design; the ball-query kernel
 (``csrc/ball_query.cu``) replaces ``ops/knn_pallas.py::_ball_kernel_value``.
 
-The kNN kernel reads the support sorted along a Morton curve in 64-point
-chunks with boxes (``ops/spatial.py``) and scans only the chunks that can
-hold a neighbour (a block of 8 queries lists the chunks once, each warp
-tests the list 32 boxes at a time), at any N: it also replaces
-``_knn_kernel_big``, which the JAX package takes above its gate
-``_BIG_N`` (``knn_pallas.py:179``), since on the H100 it is as fast below
-that size and faster above it (PERF.md).  A caller that already holds the
-support's :class:`spatial.SortedCloud` hands it in (``cloud=``), so a
-stage cloud is sorted once a step; without it the wrapper sorts.  When the
-queries are the support itself, the kernel reads their order and home
-chunks from the layout itself.  Above ``_BIG_N`` the ball query goes to
-``csrc/ball_query_big.cu`` (↔ ``_ball_kernel_value_big``).  All return
-exactly what the plain twins return.
+Both kernels read the support sorted along a Morton curve in 64-point
+chunks with boxes (``ops/spatial.py``) and scan only the chunks that can
+hold a neighbour or reach into a ball (a block of 8 queries lists the
+chunks once, each warp tests the list 32 boxes at a time), at any N: they
+also replace ``_knn_kernel_big`` and ``_ball_kernel_value_big``, which the
+JAX package takes above its gate ``_BIG_N`` (``knn_pallas.py:179``,
+``:360``), since on the H100 each is as fast below that size and faster
+above it (PERF.md).  A caller that already holds the support's
+:class:`spatial.SortedCloud` hands it in (``cloud=``), so a stage cloud is
+sorted once a forward; without it the wrapper sorts.  When the queries are
+the support itself, the kernels read their order (and the kNN its home
+chunks) from the layout itself; the ball query also takes the queries'
+own layout (``query_cloud=``) as their order.  All return exactly what the
+plain twins return.
 
 Distances are in the direct form ``(dx·dx + dy·dy) + dz·dz`` (the form of
 the Pallas kernels), not the JAX plain path's ``|q|² + |s|² − 2q·s`` matmul
@@ -50,8 +51,6 @@ _INF = 1e10
 _KNN_TILE = 2048
 _BALL_TILE = 1024
 _TILE_ELEMENTS = 2 ** 28
-# more support points than this go to the chunk-skipping ball query
-_BIG_N = 32768
 
 
 _BACKENDS = ("auto", "exact", "approx")
@@ -202,12 +201,15 @@ def _check(support: torch.Tensor, query: torch.Tensor, k: int) -> None:
 
 
 def ball_query_plain(support: torch.Tensor, query: torch.Tensor, radius: float,
-                     k: int) -> torch.Tensor:
+                     k: int, cloud: Optional[spatial.SortedCloud] = None,
+                     query_cloud: Optional[spatial.SortedCloud] = None
+                     ) -> torch.Tensor:
     """Plain PyTorch ball query (``ball_query_gpu.cu:15-51`` semantics).
 
     The first ``k`` support indices in index order with d² < r²; missing
     slots are padded with the first hit, or 0 when the ball is empty.
-    Returns (B, M, k) int32."""
+    Returns (B, M, k) int32.  It takes :func:`ball_query`'s arguments; the
+    layouts (``cloud``, ``query_cloud``) change nothing here."""
     _check(support, query, k)
     B, N, _ = support.shape
     r2 = _radius2(radius)
@@ -230,64 +232,50 @@ def ball_query_plain(support: torch.Tensor, query: torch.Tensor, radius: float,
 
 
 def ball_query(support: torch.Tensor, query: torch.Tensor, radius: float,
-               k: int) -> torch.Tensor:
-    """support (B, N, 3), query (B, M, 3) f32 → idx (B, M, k) int32.
+               k: int, cloud: Optional[spatial.SortedCloud] = None,
+               query_cloud: Optional[spatial.SortedCloud] = None
+               ) -> torch.Tensor:
+    """support (B, N, 3), query (B, M, 3) f32 → idx (B, M, k) int32,
+    exactly as :func:`ball_query_plain` returns it.  No gradient.
 
-    A CUDA tensor goes through the ``csrc/ball_query.cu`` kernel for
-    N ≤ ``_BIG_N`` = 32768 support points (or k > 128) and through
-    :func:`ball_query_big` above that; a CPU tensor through
-    :func:`ball_query_plain`."""
+    A CUDA tensor goes through the ``csrc/ball_query.cu`` kernel in
+    ⌈k / 128⌉ launches, at any N, over ``cloud`` (the support's
+    :func:`spatial.sort_support` or :func:`spatial.sort_stages`, refused
+    for another tensor; sorted here when not given).  The queries are
+    worked on in the support's own order when they are the support, else in
+    the order of ``query_cloud`` (the queries' own layout, refused for
+    another tensor) or, without it, of :func:`spatial.query_order`.  A CPU
+    tensor goes through :func:`ball_query_plain`."""
+    if cloud is not None:
+        spatial.check_layout(cloud, support)
+    if query_cloud is not None:
+        spatial.check_layout(query_cloud, query)
     if support.device.type == "cpu" and query.device.type == "cpu":
         return ball_query_plain(support, query, radius, k)
-    if support.shape[1] > _BIG_N and k <= KNN_MAX_K:
-        return ball_query_big(support, query, radius, k)
-    return ball_query_small(support, query, radius, k)
-
-
-def ball_query_small(support: torch.Tensor, query: torch.Tensor, radius: float,
-                     k: int) -> torch.Tensor:
-    """:func:`ball_query` through the ``csrc/ball_query.cu`` kernel, which
-    scans the support in index order for every query (any N and k; CUDA
-    tensors only)."""
-    _check(support, query, k)
-    if (support.device.type != "cuda" or not support.is_contiguous()
-            or not query.is_contiguous()):
-        raise ValueError("ball-query kernel needs contiguous CUDA tensors, "
-                         f"got {support.device}")
+    _check_cuda("ball-query", support, query, k)
     B, N, _ = support.shape
     M = query.shape[1]
+    if cloud is None:
+        cloud = spatial.sort_support(support)
+    # the tensors must live until the launches are queued
+    order = None
+    if spatial.is_self(support, query):
+        ordered = cloud.packed
+    elif query_cloud is not None:
+        ordered = query_cloud.packed
+    else:
+        ordered, order = None, spatial.query_order(query, cloud)[0]
     out = torch.empty(B, M, k, dtype=torch.int32, device=query.device)
-    launch("amc3d_ball_query", support.data_ptr(), query.data_ptr(),
-           out.data_ptr(), B, N, M, k, _radius2(radius),
-           torch.cuda.current_stream(query.device).cuda_stream)
-    ball_query.launches += 1
+    stream = torch.cuda.current_stream(query.device).cuda_stream
+    for first in range(0, k, KNN_MAX_K):
+        launch("amc3d_ball_query", cloud.packed.data_ptr(),
+               cloud.boxes.data_ptr(),
+               0 if ordered is None else ordered.data_ptr(), query.data_ptr(),
+               0 if order is None else order.data_ptr(), out.data_ptr(), B, N,
+               M, min(KNN_MAX_K, k - first), k, first, _radius2(radius),
+               stream)
+        ball_query.launches += 1
     return out
 
 
 ball_query.launches = 0
-
-
-def ball_query_big(support: torch.Tensor, query: torch.Tensor, radius: float,
-                   k: int) -> torch.Tensor:
-    """:func:`ball_query` through the ``csrc/ball_query_big.cu`` kernel:
-    the support is sorted along a Morton curve (``ops/spatial.py``), a
-    query scans only the 64-point chunks whose box reaches into its ball
-    and keeps the k smallest original indices among the hits.  Any N,
-    k ≤ 128; a CPU tensor goes through :func:`ball_query_plain`."""
-    if support.device.type == "cpu" and query.device.type == "cpu":
-        return ball_query_plain(support, query, radius, k)
-    _check_cuda("large-cloud ball-query", support, query, k)
-    B, N, _ = support.shape
-    M = query.shape[1]
-    cloud = spatial.sort_support(support)
-    order, _ = spatial.query_order(query, cloud)
-    out = torch.empty(B, M, k, dtype=torch.int32, device=query.device)
-    launch("amc3d_ball_query_big", cloud.packed.data_ptr(),
-           cloud.boxes.data_ptr(), query.data_ptr(), order.data_ptr(),
-           out.data_ptr(), B, N, M, k, _radius2(radius),
-           torch.cuda.current_stream(query.device).cuda_stream)
-    ball_query_big.launches += 1
-    return out
-
-
-ball_query_big.launches = 0

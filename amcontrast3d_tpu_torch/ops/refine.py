@@ -15,6 +15,11 @@ port is exact and equals it wherever the minimum is unique.  The result is
 differentiable in the features only: the backward scatters ``scale·g`` into
 the selected rows (``sel``: the chosen index (B, N, 1) for MIN, the member
 indices (B, N, k − 1) with −1 where a > 0 for MIN_ALL0).
+
+The forward kernel's kNN is ``csrc/knn.cu``'s listed scan over the stage
+cloud's Morton-sorted layout (``spatial.SortedCloud``): a caller that holds
+it hands it in (``cloud=``, the decoder the layouts the encoder sorted),
+else the wrapper sorts.  The plain twins accept a layout and ignore it.
 """
 from __future__ import annotations
 
@@ -22,6 +27,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from . import spatial
 from ._build import launch
 from .group import gather_points, group_points
 from .interpolate import _needs_grad, _on_cpu
@@ -46,10 +52,12 @@ def _check(p, f, a, k: int) -> None:
 
 
 def refine_cross_plain(p: torch.Tensor, f: torch.Tensor, a: torch.Tensor,
-                       k: int, fusion: str
+                       k: int, fusion: str,
+                       cloud: Optional[spatial.SortedCloud] = None
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch CrossMask feature: (cross (B, N, C), sel) by the exact
-    kNN, an ambiguity gather and a feature gather."""
+    kNN, an ambiguity gather and a feature gather (a layout, ``cloud``,
+    changes nothing here)."""
     _check(p, f, a, k)
     fusion_min = _fusion_min(fusion)
     idx = knn_plain(p, p, k)[0][..., 1:]                        # (B, N, K)
@@ -65,15 +73,19 @@ def refine_cross_plain(p: torch.Tensor, f: torch.Tensor, a: torch.Tensor,
 
 
 def refine_cross(p: torch.Tensor, f: torch.Tensor, a: torch.Tensor, k: int,
-                 fusion: str, keep: bool = False
+                 fusion: str, keep: bool = False,
+                 cloud: Optional[spatial.SortedCloud] = None
                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """p (B, N, 3), f (B, N, C), a (B, N), all f32; k counts the point
     itself → (cross (B, N, C), sel int32 or None).  No gradient:
     :func:`dual_masks_cross` is the differentiable entry.
 
     A CUDA tensor goes through the forward kernel of ``csrc/refine.cu``
-    (2 ≤ k ≤ 128), which writes ``sel`` only with ``keep``; a CPU tensor
-    through :func:`refine_cross_plain`."""
+    (2 ≤ k ≤ 128) over ``cloud``, the layout of ``p`` (refused for another
+    tensor; sorted here when not given), and writes ``sel`` only with
+    ``keep``; a CPU tensor goes through :func:`refine_cross_plain`."""
+    if cloud is not None:
+        spatial.check_layout(cloud, p)
     tensors = (p, f, a)
     if _on_cpu(*tensors):
         return refine_cross_plain(p, f, a, k, fusion)
@@ -88,14 +100,17 @@ def refine_cross(p: torch.Tensor, f: torch.Tensor, a: torch.Tensor, k: int,
     if k > KNN_MAX_K:
         raise ValueError(f"refine kernel takes k ≤ {KNN_MAX_K}, got {k}")
     B, N, C = f.shape
+    if cloud is None:
+        cloud = spatial.sort_support(p)
     out = torch.empty(B, N, C, dtype=torch.float32, device=f.device)
     sel = None
     if keep:
         sel = torch.empty(B, N, 1 if fusion_min else k - 1, dtype=torch.int32,
                           device=f.device)
-    launch("amc3d_refine_cross", p.data_ptr(), f.data_ptr(), a.data_ptr(),
-           out.data_ptr(), sel.data_ptr() if keep else None, B, N, C, k,
-           int(fusion_min), torch.cuda.current_stream(f.device).cuda_stream)
+    launch("amc3d_refine_cross", cloud.packed.data_ptr(),
+           cloud.boxes.data_ptr(), f.data_ptr(), a.data_ptr(), out.data_ptr(),
+           sel.data_ptr() if keep else None, B, N, C, k, int(fusion_min),
+           torch.cuda.current_stream(f.device).cuda_stream)
     refine_cross.launches += 1
     return out, sel
 
@@ -164,11 +179,12 @@ class _DualMasksCross(torch.autograd.Function):
     gradients reach the features only."""
 
     @staticmethod
-    def forward(ctx, p, f, a, k, fusion, plain):
+    def forward(ctx, p, f, a, k, fusion, plain, cloud):
         if plain:
             cross, sel = refine_cross_plain(p, f, a, k, fusion)
         else:
-            cross, sel = refine_cross(p, f, a, k, fusion, keep=True)
+            cross, sel = refine_cross(p, f, a, k, fusion, keep=True,
+                                      cloud=cloud)
         ctx.save_for_backward(sel)
         ctx.scale = 1.0 if _fusion_min(fusion) else 1.0 / (k - 1)
         ctx.plain = plain
@@ -179,31 +195,38 @@ class _DualMasksCross(torch.autograd.Function):
         sel, = ctx.saved_tensors
         bwd = (refine_cross_backward_plain if ctx.plain
                else refine_cross_backward)
-        return None, bwd(grad.contiguous(), sel, ctx.scale), None, None, None, None
+        return (None, bwd(grad.contiguous(), sel, ctx.scale)) + (None,) * 5
 
 
 def dual_masks_cross_plain(p: torch.Tensor, f: torch.Tensor, a: torch.Tensor,
-                           k: int, fusion: str) -> torch.Tensor:
-    """:func:`dual_masks_cross` by the plain twins on any device."""
+                           k: int, fusion: str,
+                           cloud: Optional[spatial.SortedCloud] = None
+                           ) -> torch.Tensor:
+    """:func:`dual_masks_cross` by the plain twins on any device (a layout,
+    ``cloud``, changes nothing here)."""
     if _needs_grad(f):
-        return _DualMasksCross.apply(p, f, a, k, fusion, True)
+        return _DualMasksCross.apply(p, f, a, k, fusion, True, None)
     return refine_cross_plain(p, f, a, k, fusion)[0]
 
 
 def dual_masks_cross(p: torch.Tensor, f: torch.Tensor, a: torch.Tensor, k: int,
-                     fusion: str) -> torch.Tensor:
+                     fusion: str, cloud: Optional[spatial.SortedCloud] = None
+                     ) -> torch.Tensor:
     """p (B, N, 3), f (B, N, C), a (B, N) ambiguity, all f32; ``k`` counts
     the point itself (the kNN(p, p, k) layout, first slot dropped)
     → CrossMask feature (B, N, C), differentiable in ``f`` only.
 
-    CUDA tensors run the kernels of ``csrc/refine.cu`` (nothing but the
-    output and, when a gradient is needed, the selection is written); CPU
-    tensors the plain twins."""
+    CUDA tensors run the kernels of ``csrc/refine.cu`` over ``cloud``, the
+    layout of ``p`` (refused for another tensor; sorted in the forward when
+    not given; nothing but the output and, when a gradient is needed, the
+    selection is written); CPU tensors the plain twins."""
+    if cloud is not None:
+        spatial.check_layout(cloud, p)
     if _on_cpu(p, f, a):
         return dual_masks_cross_plain(p, f, a, k, fusion)
     if _needs_grad(f):
-        return _DualMasksCross.apply(p, f, a, k, fusion, False)
-    return refine_cross(p, f, a, k, fusion)[0]
+        return _DualMasksCross.apply(p, f, a, k, fusion, False, cloud)
+    return refine_cross(p, f, a, k, fusion, cloud=cloud)[0]
 
 
 refine_cross.launches = 0

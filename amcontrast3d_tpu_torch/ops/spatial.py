@@ -6,14 +6,16 @@ box lower bounds.
 are XLA code ahead of the Pallas kernels.  Here a cloud's support points
 are sorted along a Morton curve and cut into chunks of ``CHUNK`` points,
 each with its exact bounding box; the kernels (``csrc/knn.cu``,
-``csrc/ball_query_big.cu``, ``csrc/contrast.cu``, ...) skip a chunk whose box is too far from the
-query, or from the box of a block's queries.  :func:`sort_support` sorts
-one cloud in plain PyTorch.  A train step's stage clouds are sorted once,
-together, by :func:`sort_stages` (``csrc/layout.cu``: three launches and a
-sort), and each :class:`SortedCloud` is handed to every kernel that reads
-it (the loss's self-kNN, the contrast kernels, the label propagation from
-stage 0).  A layout remembers the tensor it was made from, and the wrappers
-refuse it for another.  (The JAX package's ``_kd_sort`` exists because its
+``csrc/ball_query.cu``, ``csrc/refine.cu``, ``csrc/contrast.cu``, ...)
+skip a chunk whose box is too far from the query, or from the box of a
+block's queries.  :func:`sort_support` sorts one cloud in plain PyTorch.
+A forward's stage clouds are sorted once, together, by :func:`sort_stages`
+(``csrc/layout.cu``: three launches and a sort) as soon as the encoder has
+sampled them, and each :class:`SortedCloud` is handed to every kernel that
+reads it (the encoder's ball queries, the decoder's CrossMask, the loss's
+self-kNN, contrast kernels and label propagation from stage 0).  A layout
+remembers the tensor it was made from, and the wrappers refuse it for
+another.  (The JAX package's ``_kd_sort`` exists because its
 chunks are thousands of points wide; 64-point Morton chunks prune a room
 well enough, see PERF.md.)
 """

@@ -16,11 +16,12 @@ chunk visits skipped); picks and outputs are compared for equality.
 
 Prints the card, then per kernel the median device time (CUDA events):
 the whole-room FPS per stage with its time per pick through the cluster
-kernel and the grid kernel (cluster, grid, grid, cluster), the chunk-skipping
-ball query against the scan-everything kernel at the first two stages, and
-the chunk-pruned kNN (self-kNN, k = 24), on a room-like cloud (points on the faces of a box and in solid
-boxes, on a 0.04 m grid) and on a uniform one.  Results are compared for
-equality as they are timed.
+kernel and the grid kernel (cluster, grid, grid, cluster), the listed
+ball query at the first two stages over the stages' layouts (one sort, as
+the encoder makes them) beside the same kernel sorting its support itself,
+and the chunk-pruned kNN (self-kNN, k = 24), on a room-like cloud (points
+on the faces of a box and in solid boxes, on a 0.04 m grid) and on a
+uniform one.  Results are compared for equality as they are timed.
 """
 from __future__ import annotations
 
@@ -32,6 +33,7 @@ import numpy as np
 import torch
 
 from .. import ops
+from ..ops import spatial
 
 
 def card() -> str:
@@ -155,17 +157,17 @@ def main() -> None:
                 line += f" {path} {ms:.3f} ms, {ms / npoint * 1e3:.3f} us a pick;"
             print(f"{line}  [{tag}]")
             stages.append(ops.gather_points(prev, idx).contiguous())
-        for sup, q, r in ((stages[0], stages[1], 0.1), (stages[1], stages[1], 0.2),
-                          (stages[1], stages[2], 0.2)):
-            big = ops.ball_query_big(sup, q, r, 32)
-            small = ops.ball_query_small(sup, q, r, 32)
+        layouts = spatial.sort_stages(stages[:3])
+        for si, qi, r in ((0, 1, 0.1), (1, 1, 0.2), (1, 2, 0.2)):
+            sup, q, lay = stages[si], stages[qi], (layouts[si], layouts[qi])
+            got = ops.ball_query(sup, q, r, 32, *lay)
             torch.cuda.synchronize()
-            if not torch.equal(big, small):
-                raise AssertionError("ball query kernels disagree")
-            print(f"{name} ball query {q.shape[1]} x {sup.shape[1]} r={r}: big "
-                  f"{cuda_ms(lambda: ops.ball_query_big(sup, q, r, 32)):.3f} ms, "
-                  f"small {cuda_ms(lambda: ops.ball_query_small(sup, q, r, 32)):.3f}"
-                  f" ms  [{tag}]")
+            if not torch.equal(got, ops.ball_query(sup, q, r, 32)):
+                raise AssertionError("the ball query differs with its layouts")
+            print(f"{name} ball query {q.shape[1]} x {sup.shape[1]} r={r}: over "
+                  f"the layouts {cuda_ms(lambda: ops.ball_query(sup, q, r, 32, *lay)):.3f}"
+                  f" ms, sorting its support "
+                  f"{cuda_ms(lambda: ops.ball_query(sup, q, r, 32)):.3f} ms  [{tag}]")
         print(f"{name} self-kNN {n} k=24: "
               f"{cuda_ms(lambda: ops.knn(p, p, 24)):.3f} ms  [{tag}]")
 

@@ -1,6 +1,7 @@
-"""Time the exact kNN (kernel 6) and the three contrast kernels (the
-forward 14, the rows VJP 15, the support VJP 16) on one NVIDIA GPU at the
-train steps' shapes.
+"""Time the exact kNN (kernel 6), the three contrast kernels (the forward
+14, the rows VJP 15, the support VJP 16), the ball query (kernel 2) and the
+CrossMask forward (kernel 18) on one NVIDIA GPU at the train steps'
+shapes.
 
     python3 -m amcontrast3d_tpu_torch.tools.profile_scans [--crossing] [--runs R]
 
@@ -8,17 +9,22 @@ For the S3DIS step (B = 4 clouds of 24000 points, uniform in [0, 4]³,
 stages from FPS) it times the seven kNN calls of a step (the self-kNN of
 stages 0-3 at k = 24, the label propagation from stage 0 at k = 4, 16, 64)
 and the three contrast kernels at the four stages (C = 64, 128, 256, 512;
-the forward also at C = 1, as the ground-truth ambiguity calls it); for
-the ScanNet step (B = 2 × 64000 on a denser cube) the self-kNN of
-stages 1-3 and the contrast kernels at the four stages.  Each call prints
+the forward also at C = 1, as the ground-truth ambiguity calls it), the
+eight ball queries of a forward (per stage the set abstraction's, support
+s − 1 and queries s at r = 0.1·2^(s−1), and the blocks' shared one on s at
+twice that; k = 32) and the CrossMask forward at the four decoder stages
+(k = 12, MIN); for the ScanNet step (B = 2 × 64000 on a denser cube, r from
+0.05) the self-kNN of stages 1-3, the contrast kernels at the four stages
+and the eight ball queries.  Each call prints
 two times: the wrapper's, the median of R runs after a warm-up (CUDA events
 around the call, so the host's launches and the wrapper's own work, a sort
 or the sorted columns, count where the card waits on them), and the
 kernel's own device time from ``torch.profiler`` over R runs.  Where the
-package's wrapper takes a stage's sorted layout (``cloud=``), the four
-layouts are made ahead by one sort, as the loss makes them once a step, and
-the sort is timed on its own; a package that still has the large-cloud kNN
-(kernel 7, ``knn_big``) times it beside kernel 6 on the same inputs.
+package's wrapper takes a stage's sorted layout (``cloud=``), the five
+stage layouts are made ahead by one sort, as the encoder makes them once a
+forward, and the sort is timed on its own; a package that still has the
+large-cloud kNN (kernel 7, ``knn_big``) times it beside kernel 6 on the
+same inputs.
 ``--crossing`` times the kNN on the shapes where the JAX package's gate
 ``_BIG_N`` = 32768 would choose between the two kernels: the self-kNN
 (k = 24, B = 2) at N = 16000, 24000, 32768 and 64000, the ScanNet step's
@@ -26,13 +32,19 @@ three label propagations from its 64000-point stage 0 (B = 2, queries the
 FPS stages of 16000, 4000 and 1000 points, k = 4, 16, 64), and the
 whole-scene boundary kNN (self, k = 24, B = 1) on room-like clouds of
 155648, 221184 and 311296 points; the package's own dispatch, and each of
-kernels 6 and 7 where the package has both.
+kernels 6 and 7 where the package has both.  It also times the ball query
+(kernel device time) at the eight (M, N, r) of each step and at the three
+pairs of a 155648-point room whose support passes that gate (38912 ×
+155648 at r = 0.1, 38912 × 38912 and 9728 × 38912 at r = 0.2): the
+package's dispatch, and its scan-everything kernel (``ball_query_small``)
+and chunk-skipping one (``ball_query_big``) each where it has them.
 
 The script reads only what every version of the package has (``ops.knn``,
 ``ops.contrast_forward``, ``ops.contrast_grad_rows``,
-``ops.contrast_grad_support``, and passes ``cloud=`` only to a wrapper
-whose signature takes it), so ``tools/profile_ab.sh`` runs it from the
-change's tree over the parent's package too.
+``ops.contrast_grad_support``, ``ops.ball_query``, ``ops.refine_cross``,
+and passes a layout only to a wrapper whose signature takes it), so
+``tools/profile_ab.sh`` runs it from the change's tree over the parent's
+package too.
 """
 from __future__ import annotations
 
@@ -59,6 +71,9 @@ CONTRAST = (("forward (14)", "contrast_forward", "contrast_fwd_kernel", False),
              "contrast_grad_support_kernel", True))
 CROSSING_N = (16000, 24000, 32768, 64000)
 ROOM_N = (155648, 221184, 311296)
+BALL_K, REFINE_K = 32, 12
+# the ball-query kernels' names: the listed one, and the parent's two
+BALL_KERNELS = ("ball_query_kernel", "ball_query_big_kernel")
 
 
 def card() -> str:
@@ -108,15 +123,21 @@ def kernel_ms(fn, runs: int, names, tries: int = 3) -> float:
     return float("nan")
 
 
-def takes_layout() -> bool:
-    """Whether this package's kernels read a layout the caller made."""
-    return "cloud" in inspect.signature(ops.knn).parameters
+def takes(wrapper, name: str) -> bool:
+    """Whether ``wrapper`` takes the keyword ``name`` in this package."""
+    return name in inspect.signature(wrapper).parameters
 
 
-def stages_of(rng, dev, b: int, n: int, side: float) -> list:
+def stages_of(rng, dev, b: int, n: int, side: float, count: int = 4) -> list:
     p = torch.from_numpy((rng.rand(b, n, 3) * side).astype(np.float32)).to(dev)
+    return fps_stages(p, count)
+
+
+def fps_stages(p, count: int) -> list:
+    """``p`` and the ``count`` − 1 clouds after it, each a quarter of the
+    one before by FPS."""
     stages = [p]
-    for _ in range(3):
+    for _ in range(count - 1):
         prev = stages[-1]
         idx = ops.furthest_point_sample(prev, prev.shape[1] // 4)
         stages.append(ops.gather_points(prev, idx).contiguous())
@@ -154,6 +175,78 @@ def crossing_line(name: str, sup, q, k: int, runs: int, layouts_on: bool) -> Non
           f"kernel device time: {', '.join(times)}")
 
 
+def ball_args(sup, q, r, layouts):
+    """The ball query's arguments: the support's and the queries' layouts
+    where this package takes them (``layouts``: the pair, or None)."""
+    kwargs = {}
+    if layouts is not None and takes(ops.ball_query, "cloud"):
+        kwargs["cloud"] = layouts[0]
+        if takes(ops.ball_query, "query_cloud"):
+            kwargs["query_cloud"] = layouts[1]
+    return (sup, q, r, BALL_K), kwargs
+
+
+def ball_line(sup, q, r, runs: int, layouts, crossing: bool = False) -> float:
+    """Prints one ball query's times (with ``crossing``, the kernel device
+    time of each ball-query kernel the package has, on the same inputs);
+    returns the dispatch's kernel time."""
+    args, kwargs = ball_args(sup, q, r, layouts)
+
+    def call():
+        return ops.ball_query(*args, **kwargs)
+    ms = kernel_ms(call, runs, BALL_KERNELS)
+    line = f"wrapper {cuda_ms(call, runs):.4f} ms, kernel {ms:.4f}"
+    if crossing:
+        line = f"kernel device time: ball query {ms:.4f} ms"
+        for label, fn, names in (
+                ("scan-everything kernel", "ball_query_small", ("ball_query_kernel",)),
+                ("chunk-skipping kernel", "ball_query_big", ("ball_query_big_kernel",))):
+            if hasattr(ops, fn):
+                t = kernel_ms(lambda: getattr(ops, fn)(*args), runs, names)
+                line += f", {label} {t:.4f} ms"
+    print(f"  ball query B={sup.shape[0]} M={q.shape[1]} N={sup.shape[1]} "
+          f"r={r} k={BALL_K}: {line}")
+    return ms
+
+
+def ball_calls(radius: float):
+    """(support stage, query stage, r) of the eight ball queries of a
+    forward over five stage clouds."""
+    calls = []
+    for s in range(1, 5):
+        r = radius * 2 ** (s - 1)
+        calls.append((s - 1, s, r))
+        calls.append((s, s, 2 * r))
+    return calls
+
+
+def balls(stages, layouts, radius: float, runs: int, crossing: bool) -> float:
+    total = 0.0
+    for si, qi, r in ball_calls(radius):
+        pair = None if layouts[si] is None else (layouts[si], layouts[qi])
+        total += ball_line(stages[si], stages[qi], r, runs, pair, crossing)
+    return total
+
+
+def refine_line(rng, ps, c: int, runs: int, layout) -> float:
+    """Prints the CrossMask forward's times on one decoder stage (MIN, a
+    continuous ambiguity, the selection kept as a train step keeps it);
+    returns its kernel time."""
+    b, n, _ = ps.shape
+    f = torch.from_numpy(rng.randn(b, n, c).astype(np.float32)).to(ps.device)
+    a = torch.from_numpy(rng.rand(b, n).astype(np.float32)).to(ps.device)
+    kwargs = {"cloud": layout} if layout is not None and \
+        takes(ops.refine_cross, "cloud") else {}
+
+    def call():
+        return ops.refine_cross(ps, f, a, REFINE_K, "MIN", keep=True, **kwargs)
+    ms = kernel_ms(call, runs, ("refine_cross_kernel",))
+    print(f"  CrossMask forward B={b} N={n} C={c} k={REFINE_K}"
+          f"{' over the layout' if kwargs else ''}: wrapper "
+          f"{cuda_ms(call, runs):.4f} ms, kernel {ms:.4f}")
+    return ms
+
+
 def knn_line(sup, q, k, runs: int, layout) -> float:
     """Prints one kNN call's times; returns its kernel time."""
     args = (sup, q, k) + (() if layout is None else (layout,))
@@ -188,7 +281,7 @@ def contrast_lines(rng, ps, c: int, runs: int, layout, kernels=CONTRAST) -> list
         args = (ps, f, lab, kth) + ((g4, 1 / 0.3, False) if grad
                                     else (1 / 0.3, False, False, True))
         kwargs = {}
-        if layout is not None and "cloud" in inspect.signature(wrapper).parameters:
+        if layout is not None and takes(wrapper, "cloud"):
             kwargs["cloud"] = layout
 
         def call():
@@ -202,13 +295,21 @@ def contrast_lines(rng, ps, c: int, runs: int, layout, kernels=CONTRAST) -> list
 
 
 def step(rng, dev, name: str, b: int, n: int, side: float, runs: int,
-         knn_calls, layouts_on: bool) -> None:
-    stages = stages_of(rng, dev, b, n, side)
-    layouts = spatial.sort_stages(stages) if layouts_on else [None] * 4
+         knn_calls, layouts_on: bool, radius: float, refine: bool) -> None:
+    forward = stages_of(rng, dev, b, n, side, 5)
+    stages = forward[:4]
+    layouts = spatial.sort_stages(forward) if layouts_on else [None] * 5
     print(f"{name} (B={b}, N={n}):")
     if layouts_on:
-        sort_ms = cuda_ms(lambda: spatial.sort_stages(stages), runs)
-        print(f"  the four stage layouts by one sort: {sort_ms:.4f} ms")
+        sort_ms = cuda_ms(lambda: spatial.sort_stages(forward), runs)
+        print(f"  the five stage layouts by one sort: {sort_ms:.4f} ms")
+    total = balls(forward, layouts, radius, runs, False)
+    print(f"  ball queries summed (kernel device time): {total:.4f} ms")
+    if refine:
+        total = sum(refine_line(rng, p, UP_CHANNELS[s], runs, layouts[s])
+                    for s, p in enumerate(stages))
+        print(f"  CrossMask forward summed over the four stages (kernel "
+              f"device time): {total:.4f} ms")
     total = 0.0
     for si, qi, k in knn_calls:
         total += knn_line(stages[si], stages[qi], k, runs, layouts[si])
@@ -229,7 +330,8 @@ def step(rng, dev, name: str, b: int, n: int, side: float, runs: int,
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--crossing", action="store_true",
-                    help="self-kNN through kernels 6 and 7 at N = 16000-64000")
+                    help="the kNN and the ball query on both sides of the "
+                         "JAX package's 32768-point gate")
     ap.add_argument("--runs", type=int, default=11)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -237,7 +339,7 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    layouts_on = takes_layout()
+    layouts_on = takes(ops.knn, "cloud")   # this package's kernels read layouts
     print(f"{card()}; torch {torch.__version__}, CUDA {torch.version.cuda}; "
           f"stage layouts made ahead: {layouts_on}")
     rng = np.random.RandomState(0)
@@ -252,12 +354,26 @@ def main() -> None:
         for n in ROOM_N:
             p = room_cloud(rng, n).to(dev)
             crossing_line("room self-kNN", p, p, KNN_K, args.runs, layouts_on)
+        for name, b, n, radius in (("S3DIS", 4, 24000, 0.1),
+                                   ("ScanNet", 2, 64000, 0.05)):
+            forward = stages_of(rng, dev, b, n, 4.0, 5)
+            layouts = spatial.sort_stages(forward) if layouts_on else [None] * 5
+            print(f"{name} step's ball queries:")
+            total = balls(forward, layouts, radius, args.runs, True)
+            print(f"  summed (the dispatch's kernel device time): {total:.4f} ms")
+        room = fps_stages(room_cloud(rng, ROOM_N[0], 0.04).to(dev), 3)
+        layouts = spatial.sort_stages(room) if layouts_on else [None] * 3
+        print(f"a room's ball queries above the gate ({ROOM_N[0]} points):")
+        for si, qi, r in ((0, 1, 0.1), (1, 1, 0.2), (1, 2, 0.2)):
+            pair = None if layouts[si] is None else (layouts[si], layouts[qi])
+            ball_line(room[si], room[qi], r, args.runs, pair, True)
         return
     s3dis = [(s, s, KNN_K) for s in range(4)] + [(0, s, 4 ** s) for s in range(1, 4)]
-    step(rng, dev, "S3DIS step", 4, 24000, 4.0, args.runs, s3dis, layouts_on)
+    step(rng, dev, "S3DIS step", 4, 24000, 4.0, args.runs, s3dis, layouts_on,
+         0.1, True)
     # ScanNet: the self-kNN of stages 1-3 (stage 0's is not in the loss)
     step(rng, dev, "ScanNet step", 2, 64000, 4.0, args.runs,
-         [(s, s, KNN_K) for s in range(1, 4)], layouts_on)
+         [(s, s, KNN_K) for s in range(1, 4)], layouts_on, 0.05, False)
 
 
 if __name__ == "__main__":

@@ -16,7 +16,12 @@
    picks × one reduction over that cluster, read at every cluster size
    with one point a thread; then the batched FPS kernel's time a pick
    against N at every cluster size, B = 4 and B = 8, the table its gates
-   are read from); interpolation forward
+   are read from); the listed ball query at the eight (M, N, r) of a
+   forward over the stages' layouts (one sort of the five stage clouds, as
+   the encoder sorts them), indices identical to the twin, the same bits
+   twice, with its pruned bound (the chunks whose box reaches into a ball)
+   and the dense one (a scan in index order to each query's 32nd hit);
+   interpolation forward
    within 1e-5·(1+max|out|) and its backward within 1e-5·(1+max|df|);
    the three chunk-pruned contrast kernels over the stage's sorted layout:
    the forward's counts and threshold identical and its sums within
@@ -26,10 +31,11 @@
    support's layout (the four stages by one sort, as the loss sorts them);
    the chunk-pruned kernels again on a 1/128 m grid at the stage
    sizes (d² ties at every k-th); the CrossMask feature at the four decoder
-   shapes, for both fusions, with a continuous ambiguity and with one full
+   shapes over each stage's layout (its self-kNN is the kNN's listed
+   scan), for both fusions, with a continuous ambiguity and with one full
    of exact zeros and ties: its selection and the MIN rows identical,
-   MIN_ALL0 within 1e-5·(1+max); its VJP (float atomics) within
-   1e-5·(1+max|df|).  Each kernel's bound is worked out beside it: the
+   MIN_ALL0 within 1e-5·(1+max), the same bits twice, with its pruned and
+   dense bounds; its VJP (float atomics) within 1e-5·(1+max|df|).  Each kernel's bound is worked out beside it: the
    larger of its bytes (inputs read once, outputs written once) over
    3.35 TB/s and its float32 instructions over 33.5 T/s (132 SMs × 128
    lanes × 1.98 GHz; the kernels run without FMA), counted from this run's
@@ -74,16 +80,16 @@
    whole-room FPS at the four stages (its cluster kernel, and its grid
    kernel beside it) and at 1.2 M points (the grid kernel; 4096 picks, on a
    uniform and a clustered cloud), picks identical to the twin; the
-   chunk-skipping ball query at the three (M, N, r) pairs whose support
-   exceeds 32768 points, indices identical to the twin and to the
-   scan-everything kernel, with the share of chunk visits it skips; the
+   listed ball query at the three (M, N, r) pairs whose support exceeds
+   the JAX package's 32768-point gate, indices identical to the twin, with
+   the share of chunk visits it skips; the
    room's boundary kNN (self-kNN, k = 24) through kernel 6, indices and d²
    identical to the twin.  Each with its time, the twin's (one run), the
    bound and, for the kNN, ``topk`` of ``cdist``² in tiles.  The
    chunk-skipping kernels' bounds count what this run's data needs of a
    box-pruned scan: 18 float instructions per (query, chunk) box test (the
-   kNN: per block of 8 queries and chunk, and per chunk a query reads) and
-   9 per point of the chunks whose bound admits them;
+   kNN and the ball query: per block of 8 queries and chunk, and per chunk
+   a query reads) and 9 per point of the chunks whose bound admits them;
 8. drives the whole-scene test path through ``engine.cli.main_cli``
    (``mode=test``, ``miou_B_I=True``) at full width: AA on two Synthetic
    rooms of 250000 raw points whose voxel-rank subclouds (91478 and 130575
@@ -115,8 +121,8 @@
    (2, 64000, 64) (each over the cloud's layout, the forward's counts
    identical, the same bits twice, with its pruned bound), the kNN at the
    64000-point stage 0
-   (64000², k = 24, and 16000 × 64000, k = 4) and the large-cloud ball
-   query (16000 × 64000, r = 0.05) at B = 2 against their twins; the kNN at
+   (64000², k = 24, and 16000 × 64000, k = 4) and the ball query
+   (16000 × 64000, r = 0.05) at B = 2 against their twins; the kNN at
    the self-kNN of stages 1-3 (16000, 4000, 1000) beside ``topk`` of
    ``cdist``²;
 10. drives the train CLI at full width through ``engine.cli.main_cli`` on
@@ -217,8 +223,9 @@ KNN_K, REFINE_K = 24, 12
 KERNELS = (  # name, source, the TPU kernel it replaces
     ("fps", "amcontrast3d_tpu_torch/csrc/fps.cu",
      "amcontrast3d_tpu/ops/fps_pallas.py:61"),
+    # at every N: it also takes the JAX package's large-cloud kernel's place
     ("ball_query", "amcontrast3d_tpu_torch/csrc/ball_query.cu",
-     "amcontrast3d_tpu/ops/knn_pallas.py:184"),
+     "amcontrast3d_tpu/ops/knn_pallas.py:184, :224"),
     ("three_interpolation", "amcontrast3d_tpu_torch/csrc/interpolate.cu",
      "amcontrast3d_tpu/ops/interpolate_pallas.py:65"),
     ("three_interpolation_backward", "amcontrast3d_tpu_torch/csrc/interpolate.cu",
@@ -238,8 +245,6 @@ KERNELS = (  # name, source, the TPU kernel it replaces
      "amcontrast3d_tpu/ops/contrast_pallas.py:1091"),
     ("fps_b1", "amcontrast3d_tpu_torch/csrc/fps_b1.cu",
      "amcontrast3d_tpu/ops/fps_pallas.py:87"),
-    ("ball_query_big", "amcontrast3d_tpu_torch/csrc/ball_query_big.cu",
-     "amcontrast3d_tpu/ops/knn_pallas.py:224"),
     ("three_interpolation_backward_big",
      "amcontrast3d_tpu_torch/csrc/interpolate_bwd_big.cu",
      "amcontrast3d_tpu/ops/interpolate_pallas.py:220"),
@@ -268,36 +273,35 @@ KERNELS = (  # name, source, the TPU kernel it replaces
      "amcontrast3d_tpu/ops/contrast_pallas.py:686 (XLA, not a kernel)"),
 )
 STEP_KERNELS = KERNELS[:10]      # the kernels of the four step paths
-APPROX_KERNELS = KERNELS[15:19]  # the approx configuration, the fused tail
-LAYOUT_KERNELS = KERNELS[19:]    # the layouts every train step makes
+APPROX_KERNELS = KERNELS[14:18]  # the approx configuration, the fused tail
+LAYOUT_KERNELS = KERNELS[18:]    # the layouts every forward and step make
 # the whole-scene paths: Synthetic rooms of SCENE_POINTS raw points from the
 # dataset's seed 0; the first two voxelise (0.04 m) to 91478 and 130575
 # points, which pad to the buckets 106496 and 155648
 SCENE_POINTS, SCENE_ROOMS, SCENE_BUCKETS = 250000, {"aa": 2, "mm": 1}, (106496, 155648)
-BIG_N = 32768                    # ops/knn.py::_BIG_N
 ROOM_N, HUGE_N, HUGE_PICKS = 155648, 1200000, 4096
 FPS_OPS = PAIR_OPS + 1           # a distance, a running minimum, a compare
 BOX_OPS = 18                     # 6 sub, 6 max, 3 mul, 2 add, 1 compare
 CHUNK = 64                       # ops/spatial.py::CHUNK
 LIST_POINTS = 8                  # points a block lists: chunk_list.cuh::kListWarps
-EVAL_LAUNCHES = {"fps": 4, "ball_query": 8, "three_interpolation": 4}
-# a train step sorts its four stage clouds once (two layout kernels around
-# a sort) and gathers the support VJP's columns at each stage
-LAYOUT_LAUNCHES = {"layout_keys": 1, "layout_pack": 1, "support_layout": 4}
+# a forward samples its five stage clouds first and sorts them once (two
+# layout kernels around a sort) for the ball queries, the CrossMask and the
+# loss
+SORT_LAUNCHES = {"layout_keys": 1, "layout_pack": 1}
+EVAL_LAUNCHES = {"fps": 4, "ball_query": 8, "three_interpolation": 4,
+                 **SORT_LAUNCHES}
+# a train step also gathers the support VJP's columns at each stage
 TRAIN_LAUNCHES = {**EVAL_LAUNCHES, "three_interpolation_backward": 4,
                   "contrast_forward": 4, "contrast_grad_rows": 4,
-                  "contrast_grad_support": 4, "knn": 7, **LAYOUT_LAUNCHES}
-# the ScanNet recipe: 2 x 64000 -> 16000 -> 4000 -> 1000 -> 250; only the
-# 64000-point support exceeds BIG_N (one ball query) and fp0's backward
-# exceeds the query-buffer gate; the batched FPS takes all four stages
+                  "contrast_grad_support": 4, "knn": 7, "support_layout": 4}
+# the ScanNet recipe: 2 x 64000 -> 16000 -> 4000 -> 1000 -> 250; fp0's
+# backward exceeds the query-buffer gate; the batched FPS takes all four
+# stages, the listed ball query all eight
 SCANNET_CFG = os.path.join(REPO, "cfgs", "scannet", "AMContrast3D-AA.yaml")
 SCANNET_B, SCANNET_N, SCANNET_CLASSES = 2, 64000, 20
 SCANNET_LAUNCHES = {
-    "fps": 4, "ball_query_big": 1, "ball_query": 7,
-    "three_interpolation": 4, "three_interpolation_backward_big": 1,
-    "three_interpolation_backward": 3, "contrast_forward": 4,
-    "contrast_grad_rows": 4, "contrast_grad_support": 4, "knn": 7,
-    **LAYOUT_LAUNCHES}
+    **TRAIN_LAUNCHES, "three_interpolation_backward_big": 1,
+    "three_interpolation_backward": 3}
 CLI_LIMIT_S = 420     # a train CLI phase that hangs (a worker pool) is cut
 # the rungs from the 221184 bucket up (ScanNet recipe, 0.02 m voxels): a
 # Synthetic room of RUNG_ROOMS[bucket] raw points voxelises to subclouds in
@@ -472,22 +476,13 @@ def kernel_phases(ops, dev, rng, tag: str) -> dict:
                       f"a pick, floor of picks x one reduction {floor:.3f} ms  "
                       f"[{tag}]")
             stages.append(ops.gather_points(prev, got).contiguous())
+        # the five stage clouds sorted by one sort, as the encoder sorts them
+        forward_layouts = spatial.sort_stages(stages)
         for s in range(1, 5):
-            sup, q = stages[s - 1], stages[s]
-            for support, query, r in ((sup, q, radii[s][0]), (q, q, radii[s][1])):
-                got = ops.ball_query(support, query, r, 32)
-                note("ball_query", check_equal(
-                    f"ball query {cloud} stage {s} r={r}", got,
-                    ops.ball_query_plain(support, query, r, 32)))
-                # a query stops at its 32nd hit; a ball with fewer (its last
-                # slot repeats the first) scans the whole support
-                ns, nq = support.shape[1], query.shape[1]
-                scanned = torch.where(got[..., -1] == got[..., 0], ns,
-                                      got[..., -1] + 1).sum().item()
-                timed("ball_query", cloud,
-                      lambda: ops.ball_query(support, query, r, 32),
-                      lambda: ops.ball_query_plain(support, query, r, 32),
-                      B * ((ns + nq) * 12 + nq * 32 * 4), scanned * PAIR_OPS)
+            for si, qi, r in ((s - 1, s, radii[s][0]), (s, s, radii[s][1])):
+                ball_scan(ops, spatial, stages[si], stages[qi],
+                          forward_layouts[si], forward_layouts[qi], r, cloud,
+                          f"{cloud} stage {s}", note, timed, results, tag)
         for s in range(1, 5):
             p1, p2 = stages[s - 1], stages[s]
             n1, n2, c = p1.shape[1], p2.shape[1], channels[s - 1]
@@ -519,8 +514,8 @@ def kernel_phases(ops, dev, rng, tag: str) -> dict:
                       0, rows, contrib))
         labels = voronoi_labels(rng, pts)
         lab0 = torch.from_numpy(labels.astype(np.float32)).to(dev)
-        # the four stage clouds sorted by one sort, as the loss sorts them
-        layouts = spatial.sort_stages(stages[:4])
+        # the loss reads the forward's layouts of the four decoder stages
+        layouts = forward_layouts[:4]
         knn_scans(ops, spatial, stages, layouts, cloud, note, timed, results, tag)
         for s in range(4):                     # the contrast stages
             ps = stages[s]
@@ -537,7 +532,7 @@ def kernel_phases(ops, dev, rng, tag: str) -> dict:
                          layouts[s], members, cloud, f"{cloud} stage {s}", note,
                          timed, results, tag)
         for s in range(3, -1, -1):             # the decoder's refinements
-            ps = stages[s]
+            ps, layout = stages[s], forward_layouts[s]
             n, c = ps.shape[1], up_channels[s]
             f, g = randn(B, n, c), randn(B, n, c)
             a_cont = torch.from_numpy(rng.rand(B, n).astype(np.float32)).to(dev)
@@ -545,24 +540,46 @@ def kernel_phases(ops, dev, rng, tag: str) -> dict:
             for a in (a_cont, a_ties):
                 for fusion in ("MIN", "MIN_ALL0"):
                     name = f"refine {fusion} {cloud} stage {s}"
-                    got, sel = ops.refine_cross(ps, f, a, REFINE_K, fusion, keep=True)
+                    got, sel = ops.refine_cross(ps, f, a, REFINE_K, fusion,
+                                                keep=True, cloud=layout)
                     want, sel_p = ops.refine_cross_plain(ps, f, a, REFINE_K, fusion)
                     check_equal(f"{name} selection", sel, sel_p)
                     note("refine_cross",
                          check_equal(f"{name} rows", got, want)
                          if fusion == "MIN"
                          else check_close(name, got, want, 1e-5))
+                    again, sel2 = ops.refine_cross(ps, f, a, REFINE_K, fusion,
+                                                   keep=True, cloud=layout)
+                    check_equal(f"{name}, two runs", again, got)
+                    check_equal(f"{name} selection, two runs", sel2, sel)
                     scale = 1.0 if fusion == "MIN" else 1.0 / (REFINE_K - 1)
                     note("refine_cross_backward", check_close(
                         f"{name} backward",
                         ops.refine_cross_backward(g, sel, scale),
                         ops.refine_cross_backward_plain(g, sel, scale), 1e-5))
-            # timed as the cfg runs it: MIN on the continuous ambiguity
-            timed("refine_cross", cloud,
-                  lambda: ops.refine_cross(ps, f, a_cont, REFINE_K, "MIN", keep=True),
-                  lambda: ops.refine_cross_plain(ps, f, a_cont, REFINE_K, "MIN"),
-                  B * n * (12 + 4 + 8 * c + 4), B * n * n * PAIR_OPS)
-            sel = ops.refine_cross(ps, f, a_cont, REFINE_K, "MIN", keep=True)[1]
+            # timed as the cfg runs it: MIN on the continuous ambiguity,
+            # over the stage's layout; the bound of the listed self-kNN
+            # (k = 12) beside the dense one (every pair)
+            kth12 = ops.knn(ps, ps, REFINE_K, layout)[1][..., -1]
+            visits, pairs = chunk_visits(spatial, ps, ps, kth12, False, layout)
+            dense_ops = B * n * n * PAIR_OPS
+            pruned_ops = listed_ops(visits, pairs, B, n)
+            ms = timed("refine_cross", cloud,
+                       lambda: ops.refine_cross(ps, f, a_cont, REFINE_K, "MIN",
+                                                keep=True, cloud=layout),
+                       lambda: ops.refine_cross_plain(ps, f, a_cont, REFINE_K, "MIN"),
+                       B * n * (12 + 4 + 8 * c + 4), pruned_ops)
+            if ms is not None:
+                results["refine_cross"]["dense_ops"] = \
+                    results["refine_cross"].get("dense_ops", 0.0) + dense_ops
+                print(f"refine_cross MIN {cloud} stage {s} (B={B}, N={n}, "
+                      f"C={c}): {ms:.4f} ms, bound dense "
+                      f"{dense_ops / PEAK_OPS * 1e3:.4f} / pruned "
+                      f"{pruned_ops / PEAK_OPS * 1e3:.4f} ms, chunk visits "
+                      f"needed {visits / (B * n):.2f} a point of "
+                      f"{pairs // (B * n)}  [{tag}]")
+            sel = ops.refine_cross(ps, f, a_cont, REFINE_K, "MIN", keep=True,
+                                   cloud=layout)[1]
             rows = (sel.long() + n * torch.arange(B, device=dev)[:, None, None]
                     ).reshape(-1)
             timed("refine_cross_backward", cloud,
@@ -577,16 +594,52 @@ def kernel_phases(ops, dev, rng, tag: str) -> dict:
     return finish_kernels(results, "uniform, clustered and 1/128 m grid", tag)
 
 
+def ball_scan(ops, spatial, support, query, layout, query_layout, r, cloud,
+              where, note, timed, results, tag, k: int = 32):
+    """Kernel 2 (the listed ball query, ``csrc/ball_query.cu``) over the
+    support's and the queries' layouts against its twin: indices identical,
+    the same bits twice.  With ``timed``, timed with the dense bound (a scan
+    in index order stops at a query's k-th hit, or reads the whole support)
+    and the pruned one (:func:`listed_ops`: the chunks whose box reaches
+    into the ball)."""
+    nb, ns, nq = support.shape[0], support.shape[1], query.shape[1]
+    name = f"ball query {where} {nq} x {ns} r={r}"
+    got = ops.ball_query(support, query, r, k, layout, query_layout)
+    note("ball_query", check_equal(
+        name, got, ops.ball_query_plain(support, query, r, k)))
+    check_equal(f"{name}, two runs",
+                ops.ball_query(support, query, r, k, layout, query_layout), got)
+    scanned = torch.where(got[..., -1] == got[..., 0], ns,
+                          got[..., -1] + 1).sum().item()
+    visits, pairs = chunk_visits(spatial, support, query,
+                                 float(np.float32(r * r)), True, layout)
+    dense_ops = scanned * PAIR_OPS
+    pruned_ops = listed_ops(visits, pairs, nb, nq)
+    if timed is None:
+        return
+    ms = timed("ball_query", cloud,
+               lambda: ops.ball_query(support, query, r, k, layout, query_layout),
+               lambda: ops.ball_query_plain(support, query, r, k),
+               nb * ((ns + nq) * 12 + nq * k * 4), pruned_ops)
+    if ms is not None:
+        results["ball_query"]["dense_ops"] = \
+            results["ball_query"].get("dense_ops", 0.0) + dense_ops
+        print(f"{name} (B={nb}): {ms:.4f} ms, bound dense "
+              f"{dense_ops / PEAK_OPS * 1e3:.4f} / pruned "
+              f"{pruned_ops / PEAK_OPS * 1e3:.4f} ms, chunk visits needed "
+              f"{visits / (nb * nq):.2f} a query of {pairs // (nb * nq)}  [{tag}]")
+
+
 def layout_kernel_phases(ops, dev, tag: str) -> dict:
     """The three layout kernels of a train step (``csrc/layout.cu``) at the
-    S3DIS step's four stage clouds (B=4x24000, stages from FPS, a uniform
-    and a clustered cloud) and at the ScanNet step's (2 x 64000, a 1/128 m
-    grid): keys and frames, then the packed points, codes, indices and
-    boxes, identical to their twins on the same inputs, every layout
-    identical to ``sort_support`` of its stage alone; the support VJP's
-    sorted (label, threshold) and chunk maxima at the four stages identical
-    to the twin's.  Timed per S3DIS step (one sort of the four stages, the
-    columns at each), bound by bytes."""
+    S3DIS step's five stage clouds (B=4x24000, stages from FPS, a uniform
+    and a clustered cloud), as the encoder sorts them, and at the ScanNet
+    step's (2 x 64000, a 1/128 m grid): keys and frames, then the packed
+    points, codes, indices and boxes, identical to their twins on the same
+    inputs, every layout identical to ``sort_support`` of its stage alone;
+    the support VJP's sorted (label, threshold) and chunk maxima at the
+    four decoder stages identical to the twin's.  Timed per S3DIS step (one
+    sort of the five stages, the columns at four), bound by bytes."""
     from amcontrast3d_tpu_torch.ops import spatial
 
     results, timed, note = tally(LAYOUT_KERNELS)
@@ -596,7 +649,7 @@ def layout_kernel_phases(ops, dev, tag: str) -> dict:
                     ).astype(np.float32)
     for cloud, pts in step.items():
         stages = [torch.from_numpy(pts).to(dev)]
-        for _ in range(3):
+        for _ in range(4):
             prev = stages[-1]
             stages.append(ops.gather_points(prev, ops.furthest_point_sample(
                 prev, prev.shape[1] // 4)).contiguous())
@@ -626,6 +679,8 @@ def layout_kernel_phases(ops, dev, tag: str) -> dict:
             for field in ("packed", "boxes", "codes", "lo", "scale", "perm"):
                 check_equal(f"sort_stages {cloud} stage {s} {field}",
                             getattr(layout, field), getattr(ref, field))
+            if s == 4:   # the contrast's stages are the first four
+                continue
             n = p.shape[1]
             lab = torch.from_numpy(rng.randint(0, NUM_CLASSES, (b, n))
                                    .astype(np.float32)).to(dev)
@@ -644,7 +699,7 @@ def layout_kernel_phases(ops, dev, tag: str) -> dict:
         if cloud == "uniform":
             sort_ms = cuda_ms(lambda: spatial.sort_stages(stages))
             one_ms = cuda_ms(lambda: [spatial.sort_support(p) for p in stages])
-            print(f"the four stage layouts at B={b} {sizes}: by sort_stages "
+            print(f"the five stage layouts at B={b} {sizes}: by sort_stages "
                   f"(two kernels and a sort) {sort_ms:.4f} ms, by sort_support "
                   f"a stage {one_ms:.4f} ms  [{tag}]")
     print(f"layouts: every stage layout of sort_stages identical to "
@@ -901,7 +956,7 @@ def scene_kernel_phases(ops, dev, rng, tag: str) -> dict:
 
     results = {name: {"err": None, "ms": 0.0, "plain_ms": 0.0,
                       "library_ms": None, "bytes": 0.0, "ops": 0.0}
-               for name in ("fps_b1", "ball_query_big")}
+               for name in ("fps_b1",)}
 
     def note(name, err):
         results[name]["err"] = max(results[name]["err"] or 0.0, err)
@@ -938,32 +993,31 @@ def scene_kernel_phases(ops, dev, rng, tag: str) -> dict:
             add("fps_b1", timed, ms, plain_ms, n * 12 + npoint * 4,
                 npoint * n * FPS_OPS)
             stages.append(ops.gather_points(prev, got).contiguous())
-        for sup, q, r in ((stages[0], stages[1], 0.1), (stages[1], stages[1], 0.2),
-                          (stages[1], stages[2], 0.2)):
+        # the ball queries whose support passes the JAX package's large-cloud
+        # gate, over the stages' layouts (kernel 2's JSON row is the step's
+        # eight calls)
+        layouts = spatial.sort_stages(stages[:3])
+        for si, qi, r in ((0, 1, 0.1), (1, 1, 0.2), (1, 2, 0.2)):
+            sup, q = stages[si], stages[qi]
             ns, nq = sup.shape[1], q.shape[1]
-            name = f"ball_query_big {cloud} {nq} x {ns} r={r}"
-            got = ops.ball_query_big(sup, q, r, 32)
+            name = f"ball_query {cloud} {nq} x {ns} r={r}"
+            got = ops.ball_query(sup, q, r, 32, layouts[si], layouts[qi])
             want, plain_ms = timed_once(lambda: ops.ball_query_plain(sup, q, r, 32))
-            note("ball_query_big", check_equal(f"{name} vs plain", got, want))
-            check_equal(f"{name} vs the scan-everything kernel", got,
-                        ops.ball_query_small(sup, q, r, 32))
-            ms = cuda_ms(lambda: ops.ball_query_big(sup, q, r, 32))
-            small_ms = cuda_ms(lambda: ops.ball_query_small(sup, q, r, 32))
-            # what this data needs: a box test per (query, chunk) and a
-            # distance test per point of the chunks that reach into the ball;
-            # beside it the dense scan in index order of the small-cloud
-            # kernel: to the 32nd hit, or the whole support
+            check_equal(f"{name} vs plain", got, want)
+            ms = cuda_ms(lambda: ops.ball_query(sup, q, r, 32, layouts[si],
+                                                layouts[qi]))
+            # what this data needs of the listed scan, and beside it a dense
+            # scan in index order: to the 32nd hit, or the whole support
             visits, pairs = chunk_visits(spatial, sup, q,
-                                         float(np.float32(r * r)), True)
+                                         float(np.float32(r * r)), True,
+                                         layouts[si])
             scanned = torch.where(got[..., -1] == got[..., 0], ns,
                                   got[..., -1] + 1).sum().item()
-            print(f"{name}: {ms:.3f} ms, scan-everything kernel {small_ms:.3f} "
-                  f"ms (its bound {scanned * PAIR_OPS / PEAK_OPS * 1e3:.3f} ms), "
+            print(f"{name}: identical to the twin, {ms:.3f} ms, bound dense "
+                  f"{scanned * PAIR_OPS / PEAK_OPS * 1e3:.3f} / pruned "
+                  f"{listed_ops(visits, pairs, 1, nq) / PEAK_OPS * 1e3:.3f} ms, "
                   f"plain {plain_ms:.1f} ms, chunk visits skipped "
                   f"{100 * (1 - visits / pairs):.3f} %  [{tag}]")
-            add("ball_query_big", timed, ms, plain_ms,
-                (ns + nq) * 12 + nq * 32 * 4,
-                pairs * BOX_OPS + visits * CHUNK * PAIR_OPS)
         # the boundary kNN of a whole room: kernel 6 at a room's size (its
         # JSON row is the train step's seven calls)
         p = stages[0]
@@ -1141,10 +1195,11 @@ def scannet_kernel_phases(ops, dev, rng, tag: str) -> dict:
               f" ms  [{tag}]")
     got = ops.ball_query(p, q, 0.05, 32)
     want, plain_ms = timed_once(lambda: ops.ball_query_plain(p, q, 0.05, 32))
-    check_equal(f"ball_query_big B={nb} {npoint} x {n1} r=0.05", got, want)
+    check_equal(f"ball_query B={nb} {npoint} x {n1} r=0.05", got, want)
     ms = cuda_ms(lambda: ops.ball_query(p, q, 0.05, 32), 5)
-    print(f"ball_query_big B={nb} {npoint} x {n1} r=0.05: identical to the "
-          f"twin, {ms:.3f} ms vs plain {plain_ms:.1f} ms  [{tag}]")
+    print(f"ball_query B={nb} {npoint} x {n1} r=0.05: identical to the "
+          f"twin, {ms:.3f} ms (sorting its support) vs plain {plain_ms:.1f} ms  "
+          f"[{tag}]")
 
     # the contrast kernels: n * n is past 2^31
     c = 64
@@ -1427,7 +1482,6 @@ def wrappers(ops) -> dict:
             "knn": ops.knn, "refine_cross": ops.refine_cross,
             "refine_cross_backward": ops.refine_cross_backward,
             "fps_b1": ops.furthest_point_sample_b1,
-            "ball_query_big": ops.ball_query_big,
             "three_interpolation_backward_big":
                 ops.three_interpolation_backward_big,
             "fps_pruned": ops.furthest_point_sample_pruned,
@@ -1796,26 +1850,25 @@ def train_vs_plain(cfg, model, optimizer, dev, batch, tag, kind: str,
 def scene_launches(ops, clouds: list, kind: str) -> dict:
     """The launches the whole-scene test must have made: per subcloud
     forward 4 FPS calls (the first through the chunk-pruned kernel where
-    ``fps_is_pruned`` says so), 8 ball queries (two per stage; those whose
-    support exceeds BIG_N go to the chunk-skipping kernel), 4 interpolations
-    (those ``forward_is_big`` names through the chunk-pruned kernel; the
-    coarse widths are 128, 256, 512, 1024), for MM 4 CrossMask calls, and
-    one boundary kNN over the subcloud's points."""
-    want = {"fps_b1": 0, "fps_pruned": 0, "ball_query_big": 0, "ball_query": 0,
+    ``fps_is_pruned`` says so), one sort of the stage clouds (two layout
+    kernels), 8 ball queries (two per stage), 4 interpolations (those
+    ``forward_is_big`` names through the chunk-pruned kernel; the coarse
+    widths are 128, 256, 512, 1024), for MM 4 CrossMask calls, and one
+    boundary kNN over the subcloud's points."""
+    want = {"fps_b1": 0, "fps_pruned": 0, "ball_query": 0,
             "three_interpolation": 0, "three_interpolation_big": 0,
-            "knn": 0}
+            "knn": 0, **{k: 0 for k in SORT_LAUNCHES}}
     if kind == "mm":
         want["refine_cross"] = 0
     for cloud in clouds:
         for n, nb in zip(cloud["subclouds"], cloud["buckets"]):
             sizes = [nb // 4 ** s for s in range(5)]
-            supports = [sizes[s - 1] for s in range(1, 5)] + sizes[1:]
-            big = sum(ns > BIG_N for ns in supports)
             pruned = sum(ops.fps_is_pruned(1, ns) for ns in sizes[:4])
             want["fps_pruned"] += pruned
             want["fps_b1"] += 4 - pruned
-            want["ball_query_big"] += big
-            want["ball_query"] += 8 - big
+            want["ball_query"] += 8
+            for k, v in SORT_LAUNCHES.items():
+                want[k] += v
             wide = sum(ops.forward_is_big(sizes[s + 1], 128 * 2 ** s)
                        for s in range(4))
             want["three_interpolation_big"] += wide
@@ -1943,13 +1996,11 @@ def scene_path(ops, kind: str, dev, tag: str, workdir: str, cfg_path: str,
     return launches
 
 
-def val_forward_launches(n: int, kind: str) -> dict:
-    """The launches of one validation forward of a whole cloud padded to
-    ``n`` points (B = 1)."""
-    sizes = [n // 4 ** s for s in range(5)]
-    big = sum(ns > BIG_N for ns in sizes[:4] + sizes[1:])
-    want = {"fps_b1": 4, "ball_query_big": big, "ball_query": 8 - big,
-            "three_interpolation": 4}
+def val_forward_launches(kind: str) -> dict:
+    """The launches of one validation forward of a whole cloud (B = 1), at
+    any of the validation sizes."""
+    want = {"fps_b1": 4, "ball_query": 8, "three_interpolation": 4,
+            **SORT_LAUNCHES}
     if kind == "mm":
         want["refine_cross"] = 4
     return {k: v for k, v in want.items() if v}
@@ -2012,10 +2063,8 @@ def check_train_cli(path, results, train, val_counts, val_sizes, per_step,
     if got != per_step:
         raise AssertionError(f"{path}: launches per train step {got}, "
                              f"expected {per_step}")
-    want_val = {}
-    for n in val_sizes:
-        for k, v in val_forward_launches(n, kind).items():
-            want_val[k] = want_val.get(k, 0) + v
+    want_val = {k: v * len(val_sizes)
+                for k, v in val_forward_launches(kind).items()}
     if {k: v for k, v in val_counts.items() if v} != want_val:
         raise AssertionError(f"{path}: validation launches {val_counts}, "
                              f"expected {want_val}")

@@ -353,11 +353,11 @@ def test_contrast_kernels_on_the_selection_at_one_channel(cuda_device, distinct)
     """Kernels #14 and #15 at C = 1 on the selection's thresholds, as
     ``ambiguity_head`` calls them; with fewer than k distinct d² a point's
     threshold is 3e38·(1+1e-6), every other point is a member and its block
-    lists every chunk (600 points: a float32 sum over 599 members in another
-    order stays within the forward's 1e-5)."""
+    lists every chunk (5000 points: float32 sums over 4999 members, which
+    the forward's twin takes in the kernel's order, within its 1e-5)."""
     rng = np.random.RandomState(32)
     # a 1/4 grid: 19 distinct d², exact in float32
-    n, cells, k = (5000, 32, 24) if distinct == "enough" else (600, 4, 40)
+    n, cells, k = (5000, 32, 24) if distinct == "enough" else (5000, 4, 40)
     p = torch.from_numpy(_grid_cloud(rng, 2, n, cells)).to(cuda_device)
     thr = ops.contrast_select(p, k)
     assert (thr > 1e38).all() == (distinct == "too few")
@@ -381,8 +381,14 @@ def test_a_layout_of_another_cloud_is_refused_on_the_card(cuda_device):
     lab = torch.zeros(2, 3000, device=cuda_device)
     kth = (ops.knn(other, other, 24)[1][..., -1] * (1.0 + 1e-5)).contiguous()
     g4 = torch.from_numpy(rng.randn(2, 3000, 4).astype(np.float32)).to(cuda_device)
+    a = torch.zeros(2, 3000, device=cuda_device)
     for call in (lambda: ops.knn(other, other, 24, cloud),
                  lambda: ops.knn(other, other[:, :99].contiguous(), 24, cloud),
+                 lambda: ops.ball_query(other, other, 0.2, 32, cloud),
+                 lambda: ops.ball_query(p, other, 0.2, 32, cloud, cloud),
+                 lambda: ops.refine_cross(other, f, a, 12, "MIN", cloud=cloud),
+                 lambda: ops.dual_masks_cross(other, f, a, 12, "MIN_ALL0",
+                                              cloud),
                  lambda: ops.contrast_grad_support(other, f, lab, kth, g4,
                                                    cloud=cloud),
                  lambda: ops.contrast_grad_rows(other, f, lab, kth, g4,
@@ -392,9 +398,14 @@ def test_a_layout_of_another_cloud_is_refused_on_the_card(cuda_device):
         with pytest.raises(ValueError):
             call()
     ops.knn(p, p, 24, cloud)
+    ops.ball_query(p, p, 0.2, 32, cloud)
+    ops.refine_cross(p, f, a, 12, "MIN", cloud=cloud)
     p.mul_(1.0)
-    with pytest.raises(ValueError):
-        ops.knn(p, p, 24, cloud)
+    for call in (lambda: ops.knn(p, p, 24, cloud),
+                 lambda: ops.ball_query(p, p, 0.2, 32, cloud),
+                 lambda: ops.refine_cross(p, f, a, 12, "MIN", cloud=cloud)):
+        with pytest.raises(ValueError):
+            call()
 
 
 def _ambiguity(rng, b, n, ties):
@@ -413,10 +424,12 @@ def _check_refine(dev, rng, b, n, c, k, clustered=False):
     p = torch.from_numpy(_cloud(rng, b, n, clustered)).to(dev)
     f = torch.from_numpy(rng.randn(b, n, c).astype(np.float32)).to(dev)
     g = torch.from_numpy(rng.randn(b, n, c).astype(np.float32)).to(dev)
+    cloud = spatial.sort_stages([p])[0]
     for ties in (False, True):
         a = torch.from_numpy(_ambiguity(rng, b, n, ties)).to(dev)
         for fusion in ("MIN", "MIN_ALL0"):
-            got, sel = ops.refine_cross(p, f, a, k, fusion, keep=True)
+            got, sel = ops.refine_cross(p, f, a, k, fusion, keep=True,
+                                        cloud=cloud)
             want, sel_p = ops.refine_cross_plain(p, f, a, k, fusion)
             torch.cuda.synchronize()
             assert torch.equal(sel, sel_p), (fusion, ties)
@@ -424,11 +437,13 @@ def _check_refine(dev, rng, b, n, c, k, clustered=False):
                 assert torch.equal(got, want)
             else:
                 _close(got, want, 1e-5)
+            # sorting for itself, and again: the same bits
             assert torch.equal(ops.refine_cross(p, f, a, k, fusion)[0], got)
+            _equal(ops.refine_cross(p, f, a, k, fusion, cloud=cloud)[0], got)
             fk = f.clone().requires_grad_()
             fp = f.clone().requires_grad_()
             fa = f.clone().requires_grad_()
-            ops.dual_masks_cross(p, fk, a, k, fusion).backward(g)
+            ops.dual_masks_cross(p, fk, a, k, fusion, cloud).backward(g)
             ops.dual_masks_cross_plain(p, fp, a, k, fusion).backward(g)
             # autograd through the gather form of the JAX plain path
             idx = ops.knn_plain(p, p, k)[0][..., 1:]
@@ -452,6 +467,44 @@ def test_refine_kernels_match_plain(cuda_device, clustered):
     rng = np.random.RandomState(17)
     for n, c in ((1500, 256), (375, 512)):
         _check_refine(cuda_device, rng, 4, n, c, 12, clustered)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["uniform", "clustered", "grid"])
+def test_refine_forward_over_the_stage_layouts(cuda_device, kind):
+    """Kernel #18 at the four decoder shapes of a S3DIS step (B = 4,
+    24000 / C 64 → 375 / C 512), each stage over its layout from one
+    ``sort_stages``, as the decoder runs it: the selection and the MIN rows
+    identical to the twin, MIN_ALL0 within 1e-5·(1+max), the same bits
+    twice; one launch a call."""
+    rng = np.random.RandomState(18)
+    ns = (24000, 6000, 1500, 375)
+    if kind == "grid":
+        stages = [torch.from_numpy((rng.randint(0, 40, (4, n, 3)) / 128)
+                                   .astype(np.float32)).to(cuda_device) for n in ns]
+    else:
+        stages = [torch.from_numpy(_cloud(rng, 4, n, kind == "clustered"))
+                  .to(cuda_device) for n in ns]
+    for p, cloud, c in zip(stages, spatial.sort_stages(stages), (64, 128, 256, 512)):
+        n = p.shape[1]
+        f = torch.from_numpy(rng.randn(4, n, c).astype(np.float32)).to(cuda_device)
+        for ties in (False, True):
+            a = torch.from_numpy(_ambiguity(rng, 4, n, ties)).to(cuda_device)
+            for fusion in ("MIN", "MIN_ALL0"):
+                before = ops.refine_cross.launches
+                got, sel = ops.refine_cross(p, f, a, 12, fusion, keep=True,
+                                            cloud=cloud)
+                assert ops.refine_cross.launches == before + 1
+                want, sel_p = ops.refine_cross_plain(p, f, a, 12, fusion)
+                _equal(sel, sel_p)
+                if fusion == "MIN":
+                    _equal(got, want)
+                else:
+                    _close(got, want, 1e-5)
+                again, sel2 = ops.refine_cross(p, f, a, 12, fusion, keep=True,
+                                               cloud=cloud)
+                _equal(again, got)
+                _equal(sel2, sel)
 
 
 @pytest.mark.cuda
@@ -548,10 +601,11 @@ def test_fps_b1_above_the_cluster_takes_the_grid(cuda_device):
                                  (4099, 1031), (32769, 4000), (32767, 4000),
                                  (70001, 3000)])
 def test_big_knn_and_ball_query_match_plain(cuda_device, n, m):
-    """The chunk-skipping kernels at odd sizes, with k below and above N,
-    just above and below the ball query's 32768 gate, and past the 65536
-    points one list window of the kNN holds: identical to the twins, the
-    ball query also to its small-cloud kernel."""
+    """The chunk-skipping kernels at odd sizes, with k below and above N and
+    above one launch's 128 slots, on both sides of the JAX package's 32768
+    gate, and past the 65536 points one list window holds: identical to
+    the twins, the ball query sorting for itself and over the support's
+    given layout, with the queries' own layout and without."""
     rng = np.random.RandomState(n + m)
     sup = torch.from_numpy(_cloud(rng, 2, n, n % 2 == 1)).to(cuda_device)
     q = torch.from_numpy(_cloud(rng, 2, m, False)).to(cuda_device)
@@ -561,17 +615,20 @@ def test_big_knn_and_ball_query_match_plain(cuda_device, n, m):
         got_i, got_d = ops.knn(sup, q, k)
         _equal(got_i, want_i)
         _equal(got_d, want_d)
-    for r, k in ((0.05, 32), (0.3, 32), (0.3, 70), (9.0, 16)):
+    sup_cloud, q_cloud = spatial.sort_stages([sup, q])
+    for r, k in ((0.05, 32), (0.3, 32), (0.3, 70), (9.0, 16), (9.0, 200)):
         want = ops.ball_query_plain(sup, q, r, k)
-        _equal(ops.ball_query_big(sup, q, r, k), want)
-        _equal(ops.ball_query_small(sup, q, r, k), want)
-    # the ball query's dispatch follows the gate; the kNN has one kernel
-    counts = (ops.knn.launches, ops.ball_query_big.launches)
+        _equal(ops.ball_query(sup, q, r, k), want)
+        _equal(ops.ball_query(sup, q, r, k, sup_cloud), want)
+        _equal(ops.ball_query(sup, q, r, k, sup_cloud, q_cloud), want)
+    # one kernel each at every N: a launch a call (the ball query a launch
+    # for every 128 slots)
+    counts = (ops.knn.launches, ops.ball_query.launches)
     ops.knn(sup, q, 3)
     ops.ball_query(sup, q, 0.2, 8)
-    big = int(n > 32768)
-    assert (ops.knn.launches, ops.ball_query_big.launches) == \
-        (counts[0] + 1, counts[1] + big)
+    ops.ball_query(sup, q, 0.2, 129)
+    assert (ops.knn.launches, ops.ball_query.launches) == \
+        (counts[0] + 1, counts[1] + 3)
 
 
 @pytest.mark.cuda
@@ -587,18 +644,121 @@ def test_big_kernels_room_duplicates_and_empty_balls(cuda_device):
         _equal(got_i, want_i)
         _equal(got_d, want_d)
     for r in (0.1, 0.2):
-        _equal(ops.ball_query_big(room, q, r, 32),
+        _equal(ops.ball_query(room, q, r, 32),
                ops.ball_query_plain(room, q, r, 32))
     far = q + 50.0
-    got = ops.ball_query_big(room, far, 0.1, 32)
+    got = ops.ball_query(room, far, 0.1, 32)
     _equal(got, torch.zeros_like(got))
     same = torch.ones(1, 700, 3, device=cuda_device)
-    _equal(ops.ball_query_big(same, same, 0.1, 32),
+    _equal(ops.ball_query(same, same, 0.1, 32),
            ops.ball_query_plain(same, same, 0.1, 32))
     want_i, want_d = ops.knn_plain(same, same, 24)
     got_i, got_d = ops.knn(same, same, 24)
     _equal(got_i, want_i)
     _equal(got_d, want_d)
+
+
+def _ball_query_stages(rng, dev, b, n, radius, kind):
+    """The eight ball queries of a PointNeXt encoder over a cloud of
+    (b, n): stage s samples a quarter of s − 1 by FPS; per stage the set
+    abstraction's (support s − 1, queries s, its radius) and the blocks'
+    shared one (s, s, the radius doubled), with every stage's layout from
+    one ``sort_stages``, as the encoder hands them on."""
+    if kind == "grid":
+        pts = (rng.randint(0, 40, (b, n, 3)) / 128).astype(np.float32)
+    else:
+        pts = _cloud(rng, b, n, kind == "clustered")
+    stages = [torch.from_numpy(pts).to(dev)]
+    for _ in range(4):
+        prev = stages[-1]
+        stages.append(ops.gather_points(prev, ops.furthest_point_sample(
+            prev, prev.shape[1] // 4)).contiguous())
+    layouts = spatial.sort_stages(stages)
+    calls = []
+    for s in range(1, 5):
+        r = radius * 2 ** (s - 1)
+        calls.append((stages[s - 1], stages[s], r, layouts[s - 1], layouts[s]))
+        calls.append((stages[s], stages[s], 2 * r, layouts[s], layouts[s]))
+    return calls
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("recipe,b,n,radius", [("s3dis", 4, 24000, 0.1),
+                                               ("scannet", 2, 64000, 0.05)])
+@pytest.mark.parametrize("kind", ["uniform", "clustered", "grid"])
+def test_ball_query_at_the_stage_shapes(cuda_device, recipe, b, n, radius, kind):
+    """Kernels #2 and #8 as one listed kernel at the eight (M, N, r) of a
+    S3DIS and a ScanNet step, over the stages' layouts: indices identical
+    to the twin at k = 1, 16, 32 and 128, the same bits twice and without
+    the layouts; one launch a call."""
+    rng = np.random.RandomState(n + len(kind))
+    for sup, q, r, cloud, q_cloud in _ball_query_stages(
+            rng, cuda_device, b, n, radius, kind):
+        for k in (1, 16, 32, 128):
+            want = ops.ball_query_plain(sup, q, r, k)
+            before = ops.ball_query.launches
+            got = ops.ball_query(sup, q, r, k, cloud, q_cloud)
+            assert ops.ball_query.launches == before + 1
+            _equal(got, want)
+            _equal(ops.ball_query(sup, q, r, k, cloud, q_cloud), got)
+            if k == 32:
+                _equal(ops.ball_query(sup, q, r, k), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,pairs", [
+    (155648, ((0, 1, 0.1), (1, 1, 0.2), (1, 2, 0.2))),
+    (221184, ((0, 1, 0.05),)), (311296, ((0, 1, 0.05),))])
+def test_ball_query_at_the_room_pairs(cuda_device, n, pairs):
+    """The whole-scene test's ball queries whose support passes 32768 points
+    (the JAX package's large-cloud kernel #8): a room-like cloud with
+    repeated points at the buckets 155648 (S3DIS, 0.04 m) and 221184 /
+    311296 (ScanNet, 0.02 m), stages by FPS, identical to the twin."""
+    rng = np.random.RandomState(n % 1000)
+    room = _room(rng, n)
+    if n > 155648:
+        room = room * 0.5
+    stages = [torch.from_numpy(room).to(cuda_device)]
+    for _ in range(2):
+        prev = stages[-1]
+        stages.append(ops.gather_points(prev, ops.furthest_point_sample(
+            prev, prev.shape[1] // 4)).contiguous())
+    layouts = spatial.sort_stages(stages)
+    for si, qi, r in pairs:
+        sup, q = stages[si], stages[qi]
+        want = ops.ball_query_plain(sup, q, r, 32)
+        _equal(ops.ball_query(sup, q, r, 32, layouts[si], layouts[qi]), want)
+        _equal(ops.ball_query(sup, q, r, 32), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 16, 32, 128, 129, 200, 256, 300])
+def test_ball_query_room_duplicates_empty_balls_and_passes(cuda_device, k):
+    """A gridded room with repeated points, queries far from it (empty
+    balls: 0 in every slot), all points equal, and balls that hold more
+    than 128 points, fewer, exactly 128 and none: k beyond one launch's
+    128 slots takes passes, each after the previous pass's last hit."""
+    rng = np.random.RandomState(k)
+    room = torch.from_numpy(_room(rng, 20000)).to(cuda_device)
+    q = room[:, ::5].contiguous()
+    cloud = spatial.sort_support(room)
+    for r in (0.1, 0.3, 1.0):
+        _equal(ops.ball_query(room, q, r, k, cloud),
+               ops.ball_query_plain(room, q, r, k))
+    _equal(ops.ball_query(room, room, 0.2, k, cloud),
+           ops.ball_query_plain(room, room, 0.2, k))
+    far = q + 50.0
+    got = ops.ball_query(room, far, 0.1, k, cloud)
+    _equal(got, torch.zeros_like(got))
+    same = torch.ones(2, 300, 3, device=cuda_device)
+    _equal(ops.ball_query(same, same, 0.1, k), ops.ball_query_plain(same, same, 0.1, k))
+    # 128 points in the ball and 72 outside it, in a shuffled index order
+    line = torch.zeros(1, 200, 3, device=cuda_device)
+    line[0, :, 0] = torch.from_numpy(rng.permutation(200).astype(np.float32)) / 100
+    centre = torch.zeros(1, 1, 3, device=cuda_device)
+    for r in (1.275, 1.285):     # the ball holds 128 points, then 129
+        _equal(ops.ball_query(line, centre, r, k),
+               ops.ball_query_plain(line, centre, r, k))
 
 
 # ---------------------------------------------------------------------------
@@ -831,10 +991,10 @@ def test_large_cloud_kernels_at_batch_two(cuda_device):
         got_i, got_d = ops.knn(sup, query, k)
         _equal(got_i, want_i)
         _equal(got_d, want_d)
-    before = ops.ball_query_big.launches
+    before = ops.ball_query.launches
     _equal(ops.ball_query(sup, q, 0.05, 32),
            ops.ball_query_plain(sup, q, 0.05, 32))
-    assert ops.ball_query_big.launches == before + 1
+    assert ops.ball_query.launches == before + 1
 
 
 @pytest.mark.cuda

@@ -168,6 +168,49 @@ def test_build_from_config_runs():
     assert int(out["cm"].sum()) == 2 * 512
 
 
+# the JAX modules' fields that the port's constructors lack and its table
+# of unported keys leaves out: the APMs' refinement settings, which the model
+# around them reads from APM_args in both packages, and fields that no JAX
+# APM reads (feat_concate; att_dim, feature_dim, channel and dropout of the
+# classes that take them without using them)
+_READ_AROUND_THE_APM = {"linear_mapping", "cross_attention", "nsample_k",
+                        "threshold", "threshold_max", "gamma", "fusion",
+                        "feat_concate", "att_dim", "feature_dim", "channel",
+                        "dropout"}
+
+
+def test_every_jax_model_field_is_taken_or_raises_by_name():
+    """For every model both registries hold: a field of the JAX module that
+    the port's constructor lacks is in the port's own table of unported keys
+    (``models/build.py``), with the JAX default as its value, so a cfg that
+    sets it off the default raises instead of training without it."""
+    import dataclasses
+    import inspect
+
+    from amcontrast3d_tpu.models.build import MODELS as JAX_MODELS
+    from amcontrast3d_tpu_torch.models import build as port_build
+
+    port = port_build.MODELS._module_dict
+    jax_models = JAX_MODELS._module_dict
+    assert {"PointNextEncoder", "APM_pf_ConCate", "PointNet2Encoder"} <= set(port)
+    for name, cls in port.items():
+        fields = {f.name: f.default for f in dataclasses.fields(jax_models[name])
+                  if f.name not in ("parent", "name")}
+        params = inspect.signature(cls.__init__).parameters
+        table = {**port_build._JAX_FIELDS,
+                 **port_build.UNPORTED_KEYS.get(cls.__name__, {})}
+        for key, default in fields.items():
+            if key in params:
+                continue
+            if name.startswith("APM_") and key in _READ_AROUND_THE_APM:
+                continue
+            assert key in table, (name, key)
+            if key == "dtype":
+                assert default == jnp.float32 and table[key] == "float32"
+            else:
+                assert table[key] == default, (name, key, default)
+
+
 # ---- single modules --------------------------------------------------------
 
 def _jax_module(module, *args):

@@ -85,17 +85,21 @@ def test_ball_query_matches_jax_plain(n, m, r, k, clustered):
     np.testing.assert_array_equal(got, want)
 
 
-def test_ball_query_against_pallas_kernel():
-    """The TPU kernel returns a k-subset of the ball through a fixed
-    permutation; the port returns the first k in index order.  Where the
-    ball holds ≤ k points both return the whole ball, unless more than two
-    of them share one 128-point bin of the permuted support: the TPU kernel
-    keeps the best two per bin, and then returns a subset."""
+def _ball_vs_pallas(layouts: bool):
+    """The checks of :func:`test_ball_query_against_pallas_kernel`; with
+    ``layouts`` the port's wrapper is handed the support's and the queries'
+    layouts (one ``sort_stages``, as the encoder makes them)."""
     rng = np.random.RandomState(7)
     sup = _cloud(rng, 2, 1024)
     q = np.concatenate([sup[:, :128], _cloud(rng, 2, 128)], 1)
     r, k = 0.5, 8
-    got = ops.ball_query(_t(sup), _t(q), r, k).numpy()
+    sup_t, q_t = _t(sup), _t(q)
+    given = tuple(spatial.sort_stages([sup_t, q_t])) if layouts else ()
+    got = ops.ball_query(sup_t, q_t, r, k, *given).numpy()
+    if layouts:
+        np.testing.assert_array_equal(got, ops.ball_query(sup_t, q_t, r, k).numpy())
+        with pytest.raises(ValueError):      # the layouts of other tensors
+            ops.ball_query(q_t, sup_t, r, k, *given)
     tpu = np.asarray(ball_query_pallas(jnp.asarray(sup), jnp.asarray(q), r, k,
                                        interpret=True))
     d2 = ((q[:, :, None] - sup[:, None]) ** 2).sum(-1)
@@ -119,6 +123,22 @@ def test_ball_query_against_pallas_kernel():
                 assert len(mine) == k
                 n_full += 1
     assert n_small > 50 and n_full > 100
+
+
+def test_ball_query_against_pallas_kernel():
+    """The TPU kernel returns a k-subset of the ball through a fixed
+    permutation; the port returns the first k in index order.  Where the
+    ball holds ≤ k points both return the whole ball, unless more than two
+    of them share one 128-point bin of the permuted support: the TPU kernel
+    keeps the best two per bin, and then returns a subset."""
+    _ball_vs_pallas(layouts=False)
+
+
+def test_ball_query_over_layouts_against_pallas_kernel():
+    """The same with the layouts of the support and of the queries handed
+    in: the same indices as without them, the same agreement with the TPU
+    kernel in interpret mode; a layout of another tensor is refused."""
+    _ball_vs_pallas(layouts=True)
 
 
 # ---- kNN, grouping ----------------------------------------------------------
@@ -180,13 +200,9 @@ def test_knn_plain_against_pallas_kernel():
     np.testing.assert_allclose(pd2[hit], d2.numpy()[hit], rtol=1e-5, atol=1e-6)
 
 
-@pytest.mark.parametrize("fusion", ["MIN", "MIN_ALL0"])
-def test_dual_masks_cross_matches_pallas_kernel(fusion):
-    """``dual_masks_cross_plain`` and its gradient against the TPU kernel in
-    interpret mode.  The TPU kernel averages argmin ties and admits d² ties,
-    so MIN takes a continuous ambiguity (unique minima) on float positions
-    (no d² ties); MIN_ALL0 an ambiguity with exact zeros.  1e-5 on the
-    feature and on the gradient (the kernel's 0/1-weight matmul)."""
+def _dual_masks_vs_pallas(fusion: str, layout: bool):
+    """The checks of :func:`test_dual_masks_cross_matches_pallas_kernel`;
+    with ``layout`` the wrapper is handed the cloud's layout."""
     rng = np.random.RandomState(6)
     b, n, c, k = 2, 300, 16, 8
     p = rng.rand(b, n, 3).astype(np.float32)
@@ -196,8 +212,13 @@ def test_dual_masks_cross_matches_pallas_kernel(fusion):
     if fusion == "MIN_ALL0":
         a = np.where(rng.rand(b, n) < 0.4, 0.0, a).astype(np.float32)
     ft = _t(f).requires_grad_()
-    got = ops.dual_masks_cross(_t(p), ft, _t(a), k, fusion)
+    p_t = _t(p)
+    cloud = spatial.sort_stages([p_t])[0] if layout else None
+    got = ops.dual_masks_cross(p_t, ft, _t(a), k, fusion, cloud)
     got.backward(_t(g))
+    if layout:
+        with pytest.raises(ValueError):      # the layout of another cloud
+            ops.dual_masks_cross(p_t.clone(), _t(f), _t(a), k, fusion, cloud)
     cross = lambda f_: jax_dual_masks_cross(jnp.asarray(p), f_, jnp.asarray(a),
                                             k, fusion, interpret=True)
     want, vjp = jax.vjp(cross, jnp.asarray(f))
@@ -208,6 +229,24 @@ def test_dual_masks_cross_matches_pallas_kernel(fusion):
     # without a gradient the same feature comes back
     plain = ops.dual_masks_cross_plain(_t(p), _t(f), _t(a), k, fusion)
     assert torch.equal(plain, got.detach())
+
+
+@pytest.mark.parametrize("fusion", ["MIN", "MIN_ALL0"])
+def test_dual_masks_cross_matches_pallas_kernel(fusion):
+    """``dual_masks_cross_plain`` and its gradient against the TPU kernel in
+    interpret mode.  The TPU kernel averages argmin ties and admits d² ties,
+    so MIN takes a continuous ambiguity (unique minima) on float positions
+    (no d² ties); MIN_ALL0 an ambiguity with exact zeros.  1e-5 on the
+    feature and on the gradient (the kernel's 0/1-weight matmul)."""
+    _dual_masks_vs_pallas(fusion, layout=False)
+
+
+@pytest.mark.parametrize("fusion", ["MIN", "MIN_ALL0"])
+def test_dual_masks_cross_over_a_layout_matches_pallas_kernel(fusion):
+    """The same with the cloud's layout handed in, as the decoder hands the
+    encoder's: the same feature and gradient, within the same 1e-5 of the
+    TPU kernel; a layout of another tensor is refused."""
+    _dual_masks_vs_pallas(fusion, layout=True)
 
 
 def test_refine_cross_pads_and_selection():
@@ -594,7 +633,7 @@ def test_ball_query_twin_against_big_pallas_kernel(monkeypatch):
     r, k = 0.25, 16
     pidx = np.asarray(KP.ball_query_pallas(jnp.asarray(sup), jnp.asarray(q), r,
                                            k, interpret=True))[0]
-    got = ops.ball_query_big(_t(sup), _t(q), r, k).numpy()[0]
+    got = ops.ball_query(_t(sup), _t(q), r, k).numpy()[0]
     inside = (port_knn.pairwise_d2(_t(q), _t(sup))[0]
               < port_knn._radius2(r)).numpy()
     hits = want = 0
@@ -630,47 +669,48 @@ def test_knn_twin_against_big_pallas_kernel(monkeypatch):
 
 
 def test_b1_and_large_n_route_to_the_new_wrappers(monkeypatch):
-    """B == 1 goes to the whole-room FPS and N above the gate to the
-    chunk-skipping ball query, and the kNN takes its one chunk-pruned kernel
-    at every N; off the CPU each launches its kernel or raises, and never
-    runs a twin."""
+    """B == 1 goes to the whole-room FPS, and the ball query and the kNN
+    take their one chunk-pruned kernel at every N and k (the JAX package's
+    large-cloud kernels' place too); off the CPU each launches its kernel
+    or raises, and never runs a twin."""
     calls = []
-    monkeypatch.setattr(port_knn, "_BIG_N", 100)
-    for mod, name in ((port_fps, "furthest_point_sample_b1"),
-                      (port_knn, "ball_query_big"),
-                      (port_knn, "ball_query_small")):
-        monkeypatch.setattr(mod, name,
+    monkeypatch.setattr(port_fps, "furthest_point_sample_b1",
+                        lambda *a, **k: calls.append("furthest_point_sample_b1"))
+    monkeypatch.setattr(port_knn, "_check_cuda", lambda *a: None)
+    monkeypatch.setattr(port_knn.spatial, "sort_support", lambda s: type(
+        "C", (), {"packed": s, "boxes": s})())
+    monkeypatch.setattr(port_knn.spatial, "query_order",
+                        lambda query, cloud: (query, query))
+    monkeypatch.setattr(port_knn, "launch", lambda name, *a: calls.append(name))
+    monkeypatch.setattr(port_knn.torch.cuda, "current_stream",
+                        lambda device=None: type("S", (), {"cuda_stream": 0})())
+    for name in ("ball_query_plain", "knn_plain"):
+        monkeypatch.setattr(port_knn, name,
                             lambda *a, _n=name, **k: calls.append(_n))
-    monkeypatch.setattr(port_knn, "knn_plain",
-                        lambda *a, **k: calls.append("knn_plain"))
-    one = torch.empty(1, 101, 3, device="meta")
+    one = torch.empty(1, 40001, 3, device="meta")
     small = torch.empty(1, 100, 3, device="meta")
     port_fps.furthest_point_sample(one, 8)
     port_knn.ball_query(one, small, 0.1, 4)
     port_knn.ball_query(small, one, 0.1, 4)
     port_knn.ball_query(one, small, 0.1, 129)      # k beyond the warp's slots
-    for sup, q in ((one, small), (small, one)):
-        with pytest.raises(ValueError, match="CUDA"):
-            port_knn.knn(sup, q, 4)
-    assert calls == ["furthest_point_sample_b1", "ball_query_big",
-                     "ball_query_small", "ball_query_small"]
+    assert calls == ["furthest_point_sample_b1"] + ["amc3d_ball_query"] * 4
     monkeypatch.undo()
-    monkeypatch.setattr(port_knn, "_BIG_N", 100)
     before = (ops.furthest_point_sample_b1.launches, ops.knn.launches,
-              ops.ball_query_big.launches)
+              ops.ball_query.launches)
     with pytest.raises(ValueError):
         ops.furthest_point_sample(one, 8)
-    with pytest.raises(ValueError):
-        ops.knn(one, small, 4)
-    with pytest.raises(ValueError):
-        ops.ball_query(one, small, 0.1, 4)
+    for sup, q in ((one, small), (small, one)):
+        with pytest.raises(ValueError, match="CUDA"):
+            ops.knn(sup, q, 4)
+        with pytest.raises(ValueError, match="CUDA"):
+            ops.ball_query(sup, q, 0.1, 4)
     # B > 1 above the batched kernel's shared memory: a kernel or an error
     two = torch.empty(2, 60000, 3, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         ops.furthest_point_sample(two, 8)
     assert before == (ops.furthest_point_sample_b1.launches,
-                      ops.knn.launches, ops.ball_query_big.launches)
-    # on the CPU the large-cloud wrappers are their twins
+                      ops.knn.launches, ops.ball_query.launches)
+    # on the CPU the wrappers are their twins
     rng = np.random.RandomState(2)
     sup, q = _t(_cloud(rng, 1, 300)), _t(_cloud(rng, 1, 50))
     assert torch.equal(ops.ball_query(sup, q, 0.5, 8),

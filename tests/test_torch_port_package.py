@@ -180,7 +180,7 @@ def test_build_reports_compiler_failure(monkeypatch, tmp_path):
 
 def test_library_name_follows_the_sources(monkeypatch, tmp_path):
     for name in ("fps.cu", "ball_query.cu", "interpolate.cu", "contrast.cu",
-                 "fps_b1.cu", "knn.cu", "layout.cu", "ball_query_big.cu",
+                 "fps_b1.cu", "knn.cu", "layout.cu", "listed_knn.cuh",
                  "chunks.cuh"):
         assert (_build.CSRC_DIR / name).is_file()
     csrc = tmp_path / "csrc"

@@ -1,6 +1,8 @@
-"""The chunk-pruned exact kNN (kernel 6, ``csrc/knn.cu``) and contrast
-kernels (the forward, 14, and both halves of the VJP, 15 and 16,
-``csrc/contrast.cu``) on the CPU.
+"""The chunk-pruned exact kNN (kernel 6, ``csrc/knn.cu``), ball query
+(kernels 2 and 8, ``csrc/ball_query.cu``), CrossMask forward (kernel 18,
+``csrc/refine.cu``, the kNN's listed scan) and contrast kernels (the
+forward, 14, and both halves of the VJP, 15 and 16, ``csrc/contrast.cu``)
+on the CPU.
 
 All of them read one Morton-sorted layout of a stage cloud
 (``ops/spatial.py``).  Here: the self-query order and home chunk, the
@@ -179,10 +181,22 @@ def test_a_layout_is_refused_for_another_tensor():
         ops.contrast_reductions(other, f, lab, kth, cloud=cloud)
     with pytest.raises(ValueError):
         ops.contrast_grad_support(other, f, lab, kth, g4, cloud=cloud)
+    a = torch.rand(2, 200)
+    for call in (lambda: ops.ball_query(other, other, 0.2, 8, cloud),
+                 lambda: ops.ball_query(p, other, 0.2, 8, cloud, cloud),
+                 lambda: ops.dual_masks_cross(other, f, a, 6, "MIN", cloud),
+                 lambda: ops.refine_cross(other, f, a, 6, "MIN", cloud=cloud)):
+        with pytest.raises(ValueError):
+            call()
     ops.knn(p, p, 6, cloud)
+    ops.ball_query(p, p, 0.2, 8, cloud, cloud)
+    ops.dual_masks_cross(p, f, a, 6, "MIN", cloud)
     p.add_(0.0)   # an in-place change, even one that moves no point
-    with pytest.raises(ValueError):
-        ops.knn(p, p, 6, cloud)
+    for call in (lambda: ops.knn(p, p, 6, cloud),
+                 lambda: ops.ball_query(p, p, 0.2, 8, cloud),
+                 lambda: ops.dual_masks_cross(p, f, a, 6, "MIN", cloud)):
+        with pytest.raises(ValueError):
+            call()
 
 
 @pytest.mark.parametrize("n", [1, 5, 63, 64, 65, 130, 1000])
@@ -653,6 +667,208 @@ def test_rows_visit_schedule_returns_the_dense_answer(kind, n, window, need_s,
     assert err <= 1e-5 * (1 + want.abs().max().item()), err
 
 
+def test_forward_twin_sums_members_in_the_kernels_visit_order():
+    """``contrast_forward_plain`` sums each point's members one at a time in
+    float32, in the forward kernel's visit order (the cloud's Morton curve),
+    so a point with thousands of members (fewer than k distinct d²: every
+    other point, at a threshold of 3e38) rounds as the kernel does: the
+    twin equals the emulated schedule's sequential sums bit for bit, where
+    the members' terms are exact (a 1/4 grid, features ±1 at C = 1)."""
+    rng = np.random.RandomState(31)
+    p = torch.from_numpy((rng.randint(0, 4, (2, 600, 3)) / 4).astype(np.float32))
+    f = torch.from_numpy(np.sign(rng.randn(2, 600, 1)).astype(np.float32))
+    lab = torch.from_numpy(rng.randint(0, 5, (2, 600)).astype(np.float32))
+    for k in (40, 8):            # too few distinct d², then enough
+        kth = ops.contrast_select_plain(p, k)
+        assert bool((kth > 1e38).all()) == (k == 40)
+        tinv = 1 / 0.3
+        want = ops.contrast_forward_plain(p, f, lab, kth, tinv, False, True, True)
+        visits = _visits(p, kth, WINDOW, own=True)
+        for (b, i), mem in visits.items():
+            s = (f[b, mem] * f[b, i]).sum(-1)
+            terms = (torch.exp(s * tinv), s,
+                     pairwise_d2(p[b, i][None, None], p[b, mem][None])[0, 0])
+            pos = lab[b, mem] == lab[b, i]
+            for col, v in zip((0, 2, 6), terms):
+                acc = [torch.zeros(()), torch.zeros(())]
+                for t in range(len(mem)):      # chunk order, lane order
+                    side = 0 if pos[t] else 1
+                    acc[side] = acc[side] + v[t]
+                assert torch.equal(want[b, i, col], acc[0]), (k, b, i, col)
+                assert torch.equal(want[b, i, col + 1], acc[1]), (k, b, i, col)
+
+
+# ---- the ball query: prune rules and visit schedule ------------------------------
+
+def _ball_orders(sup, query, form):
+    """The order the ball query works the queries in: the support's own
+    sorted order (the self form), the queries' own layout (a set
+    abstraction, the encoder's), or ``spatial.query_order``."""
+    if form == "self":
+        return spatial.sort_support(sup).perm
+    if form == "query layout":
+        return spatial.sort_support(query).perm
+    return spatial.query_order(query, spatial.sort_support(sup))[0].long()
+
+
+def _ball_prune_holds(sup, query, r2, form):
+    """For every hit (query i, support j, d² < r², r² a float32): the chunk
+    that holds j passes the block's test (the union box of the 8 queries
+    around i in the work order against the chunk's box, below r²) and the
+    warp's own (i against the box, below r²).  Returns the hits."""
+    cloud = spatial.sort_support(sup)
+    order = _ball_orders(sup, query, form)
+    B, M, _ = query.shape
+    q_sorted = torch.gather(query, 1, order[..., None].expand(B, M, 3))
+    ub = _block_boxes(q_sorted)
+    rank_q = torch.empty_like(order)
+    rank_q.scatter_(1, order, torch.arange(M).expand(B, M))
+    hit = pairwise_d2(query, sup) < r2
+    b_i, i, j = hit.nonzero(as_tuple=True)
+    box = cloud.boxes[b_i, _rank_of(cloud)[b_i, j] // CHUNK]
+    assert (box_box_lb(ub[b_i, rank_q[b_i, i] // WARPS], box) < r2).all()
+    assert (spatial.bbox_lb(query[b_i, i], box) < r2).all()
+    return len(i)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("form", ["self", "query layout", "query order"])
+def test_ball_query_prune_rules_keep_every_hit(kind, form):
+    """The listed ball query's two tests keep every hit, on uniform,
+    clustered and 1/128 m grid clouds, with r² at exact tie values (the
+    grid's d² themselves, where a point at r² is no hit and one a grid step
+    closer is) and between them."""
+    rng = np.random.RandomState(12)
+    sup = _cloud(rng, 2, 1500, kind)
+    query = sup if form == "self" else sup[:, ::3].contiguous()
+    d2 = pairwise_d2(query[:, :50], sup).unique()
+    ties = [float(d2[len(d2) // 8]), float(d2[len(d2) // 3])]
+    hits = 0
+    for r2 in ties + [float(np.float32(0.1 * 0.1)), float(np.float32(0.3 * 0.3)),
+                      float(np.nextafter(np.float32(ties[0]), np.float32(0)))]:
+        hits += _ball_prune_holds(sup, query, r2, form)
+    assert hits > 0
+
+
+@settings(max_examples=100, deadline=None)
+@given(st.lists(st.tuples(_coord, _coord, _coord), min_size=1, max_size=120),
+       st.floats(0, 8192, width=32))
+def test_ball_query_prune_rules_hold_for_any_points_and_radius(points, r2):
+    """In float32, as computed, for any points and any r²: no hit is lost
+    to either test, in every order of the queries."""
+    p = torch.tensor(points, dtype=torch.float32)[None]
+    for form in ("self", "query layout", "query order"):
+        _ball_prune_holds(p, p if form == "self" else p.flip(1).contiguous(),
+                          r2, form)
+
+
+def _emulate_ball(sup, query, r2, k, window, form):
+    """``csrc/ball_query.cu``'s visits, one batch at a time, in passes of
+    128 slots: blocks of 8 queries in the work order; a window of chunks at
+    a time, each tested once against the block's union box and r², then
+    the listed ones against each query; each query keeps the k smallest
+    original indices among the hits of the chunks it scans (in a later
+    pass only those after the previous pass's last slot, unless that slot
+    was padding), pads with the row's first hit, or 0.  Returns the (B, M,
+    k) indices and the chunks scanned."""
+    cloud = spatial.sort_support(sup)
+    order = _ball_orders(sup, query, form)
+    B, N, _ = sup.shape
+    M = query.shape[1]
+    nc = cloud.boxes.shape[1]
+    perm = cloud.perm
+    out = torch.zeros(B, M, k, dtype=torch.int32)
+    scanned = 0
+    for first in range(0, k, 128):
+        kk = min(128, k - first)
+        for b in range(B):
+            d2 = pairwise_d2(query[b:b + 1], cloud.packed[b:b + 1, :, :3])[0]
+            boxes = cloud.boxes[b]
+            for r0 in range(0, M, WARPS):
+                qs = order[b, r0:r0 + WARPS].tolist()
+                pts = query[b, qs]
+                ub = torch.cat([pts.amin(0), pts.amax(0)])
+                for qi in qs:
+                    row = out[b, qi]
+                    pad = int(row[0]) if first else 0
+                    more = not first or int(row[first - 1]) != pad
+                    kept = []
+                    for w0 in range(0, nc, window):
+                        listed = [c for c in range(w0, min(w0 + window, nc))
+                                  if box_box_lb(ub, boxes[c]) < r2]
+                        if not more:
+                            continue
+                        for c in listed:
+                            if spatial.bbox_lb(query[b, qi], boxes[c]) < r2:
+                                scanned += 1
+                                pos = torch.arange(c * CHUNK, min((c + 1) * CHUNK, N))
+                                hit = pos[d2[qi, pos] < r2]
+                                kept += [int(perm[b, h]) for h in hit
+                                         if not first or int(perm[b, h]) > int(row[first - 1])]
+                    kept = sorted(kept)[:kk]
+                    if not first:
+                        pad = kept[0] if kept else 0
+                    row[first:first + kk] = torch.tensor(
+                        kept + [pad] * (kk - len(kept)), dtype=torch.int32)
+    return out, scanned
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("n,m_step,r,k,window,form", [
+    (700, 1, 0.3, 32, WINDOW, "self"),            # uniform: underfull balls
+    (700, 3, 0.5, 16, 2, "query layout"),         # overfull, small windows
+    (700, 2, 0.4, 24, WINDOW, "query order"),
+    (200, 1, 9.0, 300, WINDOW, "self"),           # k > N: passes, padding
+    (300, 1, 9.0, 129, 3, "query layout"),        # a second pass of 1 slot
+    (40, 1, 0.2, 64, 1, "self"),                  # N < 64: one chunk
+    (129, 2, 1e-4, 8, WINDOW, "query order")])    # near-empty balls
+def test_ball_query_visit_schedule_returns_the_dense_answer(kind, n, m_step, r,
+                                                            k, window, form):
+    """The emulated schedule gives ``ball_query_plain``'s indices exactly:
+    the first k hits in index order, the row padded with its first hit, an
+    empty ball all 0, k > hits and k > N, duplicate points (the grid), a
+    last chunk that is not full; and on a cloud of 11 chunks at a small
+    radius it scans fewer chunks than a dense scan would."""
+    rng = np.random.RandomState(n + k)
+    sup = _cloud(rng, 2, n, kind)
+    query = sup if m_step == 1 else sup[:, ::m_step].contiguous()
+    query = query.clone() if form != "self" else query
+    if form != "self":
+        query[:, 0] += 50.0                       # an empty ball
+    r2 = float(np.float32(r * r))
+    got, scanned = _emulate_ball(sup, query, r2, k, window, form)
+    want = ops.ball_query_plain(sup, query, r, k)
+    assert torch.equal(got, want)
+    if n >= 700 and kind == "uniform" and r < 0.5:
+        assert scanned < 2 * query.shape[1] * -(-n // CHUNK), scanned
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("n,k", [(300, 12), (40, 12), (9, 12), (200, 40)])
+def test_crossmask_slots_from_the_listed_scan_are_the_knn(kind, n, k):
+    """Kernel 18's self-kNN is kernel 6's listed scan: its slots (the
+    emulated schedule, k counting the point itself, k > N padded with index
+    0) are ``knn_plain``'s, so the selection that ``refine_cross_plain``
+    makes from them (MIN: the slot of least ambiguity, ties to the first;
+    MIN_ALL0: the members with a ≤ 0) is the kernel's."""
+    rng = np.random.RandomState(n + k)
+    p = _cloud(rng, 2, n, kind)
+    idx, d2, _ = _emulate_knn(p, p, k, WINDOW)
+    want_i, want_d = ops.knn_plain(p, p, k)
+    assert torch.equal(idx, want_i) and torch.equal(d2, want_d)
+    f = torch.from_numpy(rng.randn(2, n, 5).astype(np.float32))
+    a = torch.from_numpy(np.where(rng.rand(2, n) < 0.4, 0.0,
+                                  np.round(rng.rand(2, n) * 4) / 4)
+                         .astype(np.float32))
+    slots = idx[..., 1:].long()
+    na = torch.gather(a, 1, slots.reshape(2, -1)).view(slots.shape)
+    _, sel_min = ops.refine_cross_plain(p, f, a, k, "MIN")
+    assert torch.equal(sel_min[..., 0].long(),
+                       torch.gather(slots, -1, na.argmin(-1, keepdim=True))[..., 0])
+    _, sel_all0 = ops.refine_cross_plain(p, f, a, k, "MIN_ALL0")
+    assert torch.equal(sel_all0.long(), torch.where(na <= 0, slots, -1))
+
+
 # ---- the layout through the wrappers on the CPU --------------------------------
 
 def test_wrappers_take_a_layout_and_return_the_plain_answer_on_the_cpu():
@@ -680,6 +896,21 @@ def test_wrappers_take_a_layout_and_return_the_plain_answer_on_the_cpu():
                                             True, cloud), want)
     assert torch.equal(ops.contrast_forward_plain(p, fd, lab, kth, 2.0, True,
                                                   False, True, cloud=cloud), want)
+    for query in (p, q):
+        want = ops.ball_query_plain(p, query, 0.1, 16)
+        q_cloud = cloud if query is p else spatial.sort_support(query)
+        assert torch.equal(ops.ball_query(p, query, 0.1, 16, cloud, q_cloud), want)
+        assert torch.equal(ops.ball_query_plain(p, query, 0.1, 16, cloud=cloud,
+                                                query_cloud=q_cloud), want)
+    a = torch.from_numpy(rng.rand(2, 300).astype(np.float32))
+    for fusion in ("MIN", "MIN_ALL0"):
+        want = ops.dual_masks_cross_plain(p, fd, a, 12, fusion)
+        assert torch.equal(ops.dual_masks_cross(p, fd, a, 12, fusion, cloud), want)
+        assert torch.equal(ops.dual_masks_cross_plain(p, fd, a, 12, fusion,
+                                                      cloud=cloud), want)
+        got, sel = ops.refine_cross(p, fd, a, 12, fusion, cloud=cloud)
+        want, sel_p = ops.refine_cross_plain(p, fd, a, 12, fusion, cloud=cloud)
+        assert torch.equal(got, want) and torch.equal(sel, sel_p)
     gout = torch.from_numpy(rng.randn(2, 300, 9).astype(np.float32))
     out = ops.contrast_reductions(p, f, lab, kth, 2.0, False, True, True,
                                   cloud=cloud)

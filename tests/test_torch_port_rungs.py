@@ -197,10 +197,9 @@ def test_interpolation_routes_by_the_rule(monkeypatch, n2, c, want):
 def test_knn_takes_k_in_passes_of_128(monkeypatch, k, want, big):
     """⌈k/128⌉ launches, each writing its slots of the (B, M, k) rows at
     their offset, after the previous pass's last slot; the launch count
-    follows them.  A support above the ball query's gate (``big``) takes
+    follows them.  A support of any size (``big``: one point more) takes
     the same kernel."""
     calls = []
-    monkeypatch.setattr(port_knn, "_BIG_N", 100)
     monkeypatch.setattr(port_knn, "_check_cuda", lambda *a: None)
     monkeypatch.setattr(port_knn, "launch",
                         lambda name, *a: calls.append((name, a)))
@@ -222,6 +221,55 @@ def test_knn_takes_k_in_passes_of_128(monkeypatch, k, want, big):
     n_in = 5      # support, boxes, query, order, home
     offsets = [c[1][n_in] - idx.data_ptr() for c in calls]
     assert offsets == [4 * first for *_, first in want]
+
+
+@pytest.mark.parametrize("k,want", [(1, [(1, 1, 0)]), (32, [(32, 32, 0)]),
+                                    (129, [(128, 129, 0), (1, 129, 128)]),
+                                    (300, [(128, 300, 0), (128, 300, 128),
+                                           (44, 300, 256)])])
+@pytest.mark.parametrize("form", ["self", "query layout", "query order"])
+def test_ball_query_takes_k_in_passes_of_128(monkeypatch, k, want, form):
+    """The ball query launches ``csrc/ball_query.cu`` ⌈k/128⌉ times at any
+    N, each pass writing its slots of the (B, M, k) rows after the previous
+    pass's; the queries in the support's own order (the self form), in
+    their own layout's, or by ``query_order``; the launch count follows."""
+    calls = []
+    monkeypatch.setattr(port_knn, "_check_cuda", lambda *a: None)
+    monkeypatch.setattr(port_knn, "launch",
+                        lambda name, *a: calls.append((name, a)))
+    _no_stream(monkeypatch)
+    sup = torch.empty(1, 40000, 3, device="meta")
+    q = sup if form == "self" else torch.empty(1, 7, 3, device="meta")
+    # layouts whose tensors the launches must name (host tensors: the
+    # launch is recorded, not made)
+    layouts = {name: type("C", (), {"packed": torch.empty(4), "boxes": torch.empty(4)})()
+               for name in ("support", "query")}
+    monkeypatch.setattr(port_knn.spatial, "sort_support",
+                        lambda s: layouts["support"])
+    monkeypatch.setattr(port_knn.spatial, "check_layout", lambda c, t: None)
+    order = torch.empty(1, 7, dtype=torch.int32)
+    monkeypatch.setattr(port_knn.spatial, "query_order",
+                        lambda query, cloud: (order, order))
+    q_cloud = layouts["query"] if form == "query layout" else None
+    before = ops.ball_query.launches
+    out = ops.ball_query(sup, q, 0.1, k, None, q_cloud)
+    assert out.shape == (1, q.shape[1], k)
+    assert ops.ball_query.launches == before + len(want)
+    assert [c[0] for c in calls] == ["amc3d_ball_query"] * len(want)
+    # (k of the pass, row length, first slot) and r² rounded to float32
+    assert [c[1][-5:-2] for c in calls] == want
+    assert all(c[1][-2] == port_knn._radius2(0.1) for c in calls)
+    # the queries: sorted points (self: the support's layout; else their
+    # own) with no order, or the query tensor and its order
+    packed, boxes, qsorted, _, qorder = calls[0][1][:5]
+    assert (packed, boxes) == (layouts["support"].packed.data_ptr(),
+                               layouts["support"].boxes.data_ptr())
+    if form == "query order":
+        assert (qsorted, qorder) == (0, order.data_ptr())
+    else:
+        ordered = layouts["support" if form == "self" else "query"]
+        assert (qsorted, qorder) == (ordered.packed.data_ptr(), 0)
+    assert all(c[1][5] == out.data_ptr() for c in calls)
 
 
 def test_off_the_cpu_the_new_wrappers_raise_rather_than_fall_back():

@@ -383,6 +383,66 @@ def test_mm_train_steps_match_jax(reference_mm):
     assert step.state["step"] == MM_STEPS
 
 
+@pytest.mark.parametrize("kind", ["aa", "mm"])
+def test_a_step_sorts_its_stage_clouds_once(kind, reference, reference_mm):
+    """One ``make_train_step`` step from JAX's state, as the replay takes it
+    (the loss, its terms and the state after it within the replay's bounds
+    of JAX), with every sort of stage clouds counted: the forward sorts its
+    five stage clouds once (``ops.spatial.sort_stages``, ahead of the
+    encoder's ball queries and the decoder's CrossMask), and the loss sorts
+    none: each stage's contrast takes one of the forward's layouts, made for
+    that stage's positions.  An eval forward sorts once too."""
+    from unittest import mock
+
+    from amcontrast3d_tpu_torch.loss import contrast as pcontrast
+    from amcontrast3d_tpu_torch.ops import spatial
+
+    ref = reference if kind == "aa" else reference_mm
+    cfg, amb = (CFG, AMB) if kind == "aa" else (MM_CFG, MM_AMB)
+    if kind == "aa":
+        model = _port_model(ref["variables"])
+        criterion = build_criterion_from_cfg(CFG.criterion_args_Ace)
+    else:
+        model = BaseSeg_M_AMContrast3D(**MM_ARGS)
+        model.load_state_dict(from_jax_variables(ref["variables"]), strict=True)
+        criterion = build_criterion_from_cfg(MM_CFG.criterion_args_AcePre)
+    optimizer = build_optimizer_from_cfg(cfg.optimizer, model, lr=cfg.lr)
+    lr_fn, _ = build_scheduler_from_cfg(dict(cfg))
+    step = make_train_step(model, criterion, optimizer,
+                           as_step_schedule(lr_fn, STEPS_PER_EPOCH), kind, NCLS,
+                           None, amb, cfg.grad_norm_clip)
+    sorted_by_forward, loss_sorts, given = [], [], []
+    sort_stages, margin = spatial.sort_stages, pcontrast.point_contrast_margin
+
+    def forward_sort(stages):
+        sorted_by_forward.append(sort_stages(stages))
+        return sorted_by_forward[-1]
+
+    def recording_margin(p, *args, cloud=None, **kwargs):
+        given.append((p, cloud))
+        return margin(p, *args, cloud=cloud, **kwargs)
+
+    with mock.patch.object(spatial, "sort_stages", forward_sort), \
+            mock.patch.object(pcontrast, "sort_stages",
+                              lambda *a: loss_sorts.append(a)), \
+            mock.patch.object(pcontrast, "point_contrast_margin",
+                              recording_margin):
+        _replay(step, model, optimizer, ref, 1,
+                ("loss",) if kind == "aa" else MM_TERMS)
+        assert len(sorted_by_forward) == 1 and not loss_sorts
+        assert [len(c) for c in sorted_by_forward] == [5]
+        layouts = {id(c) for c in sorted_by_forward[0]}
+        assert len(given) == 4
+        for p, cloud in given:
+            assert id(cloud) in layouts
+            spatial.check_layout(cloud, p)
+        model.eval()
+        with torch.no_grad():
+            batch = {k: _t(v) for k, v in ref["batch"].items()}
+            model(batch["pos"], batch["x"])
+        assert len(sorted_by_forward) == 2 and not loss_sorts
+
+
 def test_mm_train_step_with_ground_truth_ambiguity():
     """``source: AEF``: the step hands the labels to the model, whose
     refinement then follows the ground-truth ambiguity; the rate differs

@@ -1,5 +1,6 @@
 // A block's list of candidate chunks: the device code shared by knn.cu and
-// refine.cu (through listed_knn.cuh), ball_query.cu and contrast.cu's three
+// refine.cu (through listed_knn.cuh), contrast_select.cu and vote.cu
+// (through listed_select.cuh), ball_query.cu and contrast.cu's three
 // kernels.
 //
 // A block of kListWarps warps works on one point a warp, 8 points that are

@@ -1,6 +1,7 @@
 // Spatially sorted support chunks with bounding boxes: the device code
 // shared by the chunk-pruned kernels (knn.cu, ball_query.cu, refine.cu,
-// fps_pruned.cu, interpolate_big.cu, contrast.cu) and chunk_list.cuh.
+// fps_pruned.cu, interpolate_big.cu, contrast.cu, contrast_select.cu,
+// vote.cu) and chunk_list.cuh.
 //
 // ops/spatial.py sorts a cloud's support points along a Morton curve ahead
 // of the kernel and cuts the sorted order into chunks of kChunk points.

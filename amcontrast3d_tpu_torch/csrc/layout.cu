@@ -33,29 +33,16 @@
 #include <cstdint>
 
 #include "chunks.cuh"
+#include "morton.cuh"
 
 namespace {
 
 using amc3d::kChunk;
+using amc3d::kMortonCells;
+using amc3d::morton_code;
 
 constexpr int kKeyThreads = 512;
-constexpr int kCells = 65535;  // 2^16 - 1: ops/spatial.py::_BITS
 constexpr int kCodeBits = 48;
-
-// the low 16 bits of v at every third bit (spatial._spread3)
-__device__ __forceinline__ uint64_t spread3(uint64_t v) {
-  v = (v | (v << 32)) & 0x1F00000000FFFFull;
-  v = (v | (v << 16)) & 0x1F0000FF0000FFull;
-  v = (v | (v << 8)) & 0x100F00F00F00F00Full;
-  v = (v | (v << 4)) & 0x10C30C30C30C30C3ull;
-  v = (v | (v << 2)) & 0x1249249249249249ull;
-  return v;
-}
-
-__device__ __forceinline__ uint64_t cell(float x, float lo, float scale) {
-  const long long c = static_cast<long long>(__fmul_rn(__fsub_rn(x, lo), scale));
-  return static_cast<uint64_t>(c < 0 ? 0 : (c > kCells ? kCells : c));
-}
 
 // the block's minimum (MAX = false) or maximum of v; every thread gets it
 template <bool MAX>
@@ -100,13 +87,12 @@ layout_keys_kernel(const float* __restrict__ points,
   const float extent = fmaxf(fmaxf(__fsub_rn(hi[0], lo[0]), __fsub_rn(hi[1], lo[1])),
                              __fsub_rn(hi[2], lo[2]));
   const float scale = __fmul_rn(__frcp_rn(fmaxf(extent, 1e-12f)),
-                                static_cast<float>(kCells));
+                                static_cast<float>(kMortonCells));
   if (threadIdx.x == 0) frame[s] = make_float4(lo[0], lo[1], lo[2], scale);
   const uint64_t tag = static_cast<uint64_t>(s) << kCodeBits;
   for (long long i = a + threadIdx.x; i < e; i += blockDim.x) {
-    const uint64_t code = (spread3(cell(points[3 * i], lo[0], scale)) << 2) |
-                          (spread3(cell(points[3 * i + 1], lo[1], scale)) << 1) |
-                          spread3(cell(points[3 * i + 2], lo[2], scale));
+    const uint64_t code =
+        morton_code(points[3 * i], points[3 * i + 1], points[3 * i + 2], lo, scale);
     keys[i] = static_cast<long long>(tag | code);
   }
 }

@@ -16,8 +16,10 @@ gather-based forms of ``contrast.py:276-318``) and ``remat`` raise
 The stage clouds are sorted once a forward, all in one sort
 (``ops.spatial.sort_stages``), by the model's encoder, which hands the
 layouts on (``clouds=``); each goes to the kernels that read it: the
-stage's self-kNN, its contrast forward and both halves of the VJP, and,
-for stage 0, the label propagation to the coarser stages.  Given no
+stage's self-kNN (or, in the approx configuration, its threshold
+selection), its contrast forward and both halves of the VJP, and, for stage
+0, the label propagation (or the vote) to the coarser stages, whose own
+layouts order the vote's queries.  Given no
 layouts, the heads sort the stages themselves, the same way; a layout made
 for another tensor than the stage's positions is refused.  The
 ground-truth ambiguity (``ambiguity_head``) takes its stages' layouts the
@@ -191,7 +193,8 @@ def contrast_head(up_stages: Sequence[Tuple[torch.Tensor, torch.Tensor]],
         if i == 0:
             labels = labels0
         elif vote:
-            labels = label_vote(p0, lab0, p, _vote_k(i), labels0.shape[-1])
+            labels = label_vote(p0, lab0, p, _vote_k(i), labels0.shape[-1],
+                                clouds[0], clouds[i])
         else:
             labels = subscene_labels(labels0, p0, p, i, clouds[0])
         loss, a = point_contrast_margin(p, f, labels, args, cloud=clouds[i])
@@ -234,7 +237,8 @@ def ambiguity_head(up_stages: Sequence[Tuple[torch.Tensor, torch.Tensor]],
                                            clouds[i])[0])
                 continue
             lab = lab0 if i == 0 else label_vote(
-                p0, lab0, p, _vote_k(i), labels0.shape[-1])
+                p0, lab0, p, _vote_k(i), labels0.shape[-1], clouds[0],
+                clouds[i])
             red = contrast_reductions_selfk(
                 p, p.new_zeros(*p.shape[:2], 1), lab.float(), args["nsample"],
                 1.0, cctype == "Method3", False, cctype != "Method1",

@@ -110,11 +110,16 @@ _SIGNATURES = {
     # g (B,N,C), sel (B,N,slots) i32, df (B,N,C) (zeroed by the entry
     # point), B, N, C, slots, scale, stream
     "amc3d_refine_cross_backward": (_P, _P, _P, _I, _I, _I, _I, _F, _P),
-    # p (B,N,3), out (B,N) f32 thresholds, B, N, k, stream
-    "amc3d_contrast_select": (_P, _P, _I, _I, _I, _P),
-    # support (B,N,3), labels (B,N) i32, query (B,M,3), out (B,M) i32, B, N,
-    # M, k, number of classes, stream
-    "amc3d_label_vote": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # the cloud's sorted points (B,N,4) f32 with the index bits in w, boxes
+    # (B,ceil(N/64),6), out (B,N) f32 thresholds, B, N, k, stream
+    "amc3d_contrast_select": (_P, _P, _P, _I, _I, _I, _P),
+    # sorted support (B,N,4) with the index bits in w, boxes, its sorted
+    # Morton codes (B,N) i64, the frame's lo (B rows of 3 f32) and row
+    # stride, scale (B f32) and stride, labels (B,N) i32, the queries
+    # sorted (B,M,4) with their index bits, out (B,M) i32, B, N, M, k,
+    # number of classes, stream
+    "amc3d_label_vote": (_P, _P, _P, _P, _I, _P, _I, _P, _P, _P, _I, _I, _I,
+                         _I, _I, _P),
     # u (B,N,C), idx (B,M,K) i32, sgn (C), qp (B,M,C) or null, ext, su, sq
     # (B,M,C) (su, sq null without stats), B, N, M, K, C, need_stats, stream
     "amc3d_aggregate_forward": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,

@@ -43,9 +43,14 @@ the same with fewer than k distinct values: ``contrast_select`` (kernel
 ``csrc/contrast_select.cu``) finds it over a point's own cloud, self
 included, and ``label_vote`` (``csrc/vote.cu``) over the stage-0 support,
 then takes the majority class of the points within it, ties to the lowest
-class.  Both are exact where the TPU tournament may overflow above 4096
-points.  The port always uses the reduction form of the contrast, so it
-needs no counterpart of the JAX package's ``set_fused_contrast``.
+class.  Both kernels are listed scans (``csrc/listed_select.cuh``) over the
+Morton-sorted layouts the forward made: the selection over its cloud's
+(``cloud=``), the vote over the support's (``cloud=``) with the queries in
+the order of their own (``query_cloud=``); each wrapper sorts what it is
+not given, and the plain twins accept the layouts and ignore them.  Both
+are exact where the TPU tournament may overflow above 4096 points.  The
+port always uses the reduction form of the contrast, so it needs no
+counterpart of the JAX package's ``set_fused_contrast``.
 """
 from __future__ import annotations
 
@@ -68,8 +73,9 @@ _SLACK = float(np.float32(1.0 + 1e-6))
 _NONE = float(np.float32(3e38))
 # (B, tile, N) elements a sorted block of the plain selection may hold
 _SELECT_ELEMENTS = 2 ** 24
-# the vote kernel's per-warp histograms must fit the 227 KB of shared memory
-# a block may use beside its 16 KB of staged support
+# the vote kernel's per-warp histograms (8 warps) must fit the 227 KB of
+# shared memory a block may use beside 16 KB kept for the rest (its list of
+# chunks: 4 KB)
 VOTE_MAX_CLASSES = (232448 - 16384) // 32
 
 
@@ -458,25 +464,35 @@ def _check_select_cuda(name: str, tensors, device, k: int) -> None:
         raise ValueError(f"k must be positive, got {k}")
 
 
-def contrast_select_plain(p: torch.Tensor, k: int) -> torch.Tensor:
-    """Plain PyTorch :func:`contrast_select`."""
+def contrast_select_plain(p: torch.Tensor, k: int,
+                          cloud: Optional[spatial.SortedCloud] = None
+                          ) -> torch.Tensor:
+    """Plain PyTorch :func:`contrast_select` (a layout, ``cloud``, changes
+    nothing here)."""
     return kth_distinct_plain(p, p, k)
 
 
-def contrast_select(p: torch.Tensor, k: int) -> torch.Tensor:
+def contrast_select(p: torch.Tensor, k: int,
+                    cloud: Optional[spatial.SortedCloud] = None
+                    ) -> torch.Tensor:
     """p (B, N, 3) f32 → (B, N) f32: each point's contrast threshold, its
     k-th smallest distinct d² over its own cloud (self included, so k
-    counts it) times float32(1 + 1e-6).  A CUDA tensor goes through
-    ``csrc/contrast_select.cu``, a CPU tensor through
-    :func:`contrast_select_plain`."""
+    counts it) times float32(1 + 1e-6).  A CUDA tensor goes through the
+    listed scan of ``csrc/contrast_select.cu`` over ``cloud`` (the layout
+    of ``p``, refused for another tensor; sorted here when not given), a
+    CPU tensor through :func:`contrast_select_plain`."""
+    if cloud is not None:
+        spatial.check_layout(cloud, p)
     if p.device.type == "cpu":
         return contrast_select_plain(p, k)
     B, N = p.shape[:2]
     _check_points("p", p, B, N)
     _check_select_cuda("contrast selection", (p,), p.device, k)
+    if cloud is None:
+        cloud = spatial.sort_support(p)
     out = torch.empty(B, N, dtype=torch.float32, device=p.device)
-    launch("amc3d_contrast_select", p.data_ptr(), out.data_ptr(), B, N, int(k),
-           _stream(p))
+    launch("amc3d_contrast_select", cloud.packed.data_ptr(),
+           cloud.boxes.data_ptr(), out.data_ptr(), B, N, int(k), _stream(p))
     contrast_select.launches += 1
     return out
 
@@ -489,10 +505,10 @@ def contrast_reductions_selfk(p, f, lab, k: int, tinv: float = 1.0,
     """:func:`contrast_reductions` over each point's own threshold (↔
     ``contrast_pallas.py::contrast_reductions_selfk``): no kNN runs.  The
     forward and the VJP are the same kernels with that threshold, which
-    column 8 holds, over ``cloud`` when given.  ``k`` counts the self
-    point."""
+    column 8 holds; the selection and the contrast kernels read ``cloud``
+    when given.  ``k`` counts the self point."""
     with torch.no_grad():
-        thr = contrast_select(p, k)
+        thr = contrast_select(p, k, cloud)
     return contrast_reductions(p, f, lab, thr, tinv, cctype_root, need_s,
                                need_d, cloud)
 
@@ -512,10 +528,13 @@ def contrast_reductions_selfk_plain(p, f, lab, k: int, tinv: float = 1.0,
 
 
 def label_vote_plain(p_sup: torch.Tensor, lab_sup: torch.Tensor,
-                     p_q: torch.Tensor, k: int,
-                     num_classes: int) -> torch.Tensor:
+                     p_q: torch.Tensor, k: int, num_classes: int,
+                     cloud: Optional[spatial.SortedCloud] = None,
+                     query_cloud: Optional[spatial.SortedCloud] = None
+                     ) -> torch.Tensor:
     """Plain PyTorch :func:`label_vote`: class counts of the members by a
-    matmul against the support's one-hot labels, then ``argmax``."""
+    matmul against the support's one-hot labels, then ``argmax`` (the
+    layouts, ``cloud`` and ``query_cloud``, change nothing here)."""
     thr = kth_distinct_plain(p_sup, p_q, k)
     onehot = F.one_hot(lab_sup.long(), num_classes).float()
     B, N, _ = p_sup.shape
@@ -528,15 +547,25 @@ def label_vote_plain(p_sup: torch.Tensor, lab_sup: torch.Tensor,
 
 
 def label_vote(p_sup: torch.Tensor, lab_sup: torch.Tensor, p_q: torch.Tensor,
-               k: int, num_classes: int) -> torch.Tensor:
+               k: int, num_classes: int,
+               cloud: Optional[spatial.SortedCloud] = None,
+               query_cloud: Optional[spatial.SortedCloud] = None
+               ) -> torch.Tensor:
     """Majority-vote class of each query among the support points within its
     k-th smallest distinct d² (times float32(1 + 1e-6)), ties to the lowest
     class (↔ ``contrast_pallas.py::label_vote``).
 
     p_sup (B, N, 3) f32, lab_sup (B, N) class ids (int32 on the card),
-    p_q (B, M, 3) f32 → (B, M) int32.  A CUDA tensor goes through
-    ``csrc/vote.cu`` (1 ≤ num_classes ≤ ``VOTE_MAX_CLASSES``), a CPU tensor
-    through :func:`label_vote_plain`."""
+    p_q (B, M, 3) f32 → (B, M) int32.  A CUDA tensor goes through the
+    listed scans of ``csrc/vote.cu`` (1 ≤ num_classes ≤
+    ``VOTE_MAX_CLASSES``) over ``cloud`` (the layout of ``p_sup``), the
+    queries in the order of ``query_cloud`` (the layout of ``p_q``); each
+    is refused for another tensor and sorted here when not given.  A CPU
+    tensor goes through :func:`label_vote_plain`."""
+    if cloud is not None:
+        spatial.check_layout(cloud, p_sup)
+    if query_cloud is not None:
+        spatial.check_layout(query_cloud, p_q)
     if all(t.device.type == "cpu" for t in (p_sup, lab_sup, p_q)):
         return label_vote_plain(p_sup, lab_sup, p_q, k, num_classes)
     B, N = p_sup.shape[:2]
@@ -550,10 +579,20 @@ def label_vote(p_sup: torch.Tensor, lab_sup: torch.Tensor, p_q: torch.Tensor,
     if not 1 <= num_classes <= VOTE_MAX_CLASSES:
         raise ValueError(f"the vote kernel takes 1 ≤ num_classes ≤ "
                          f"{VOTE_MAX_CLASSES}, got {num_classes}")
+    if cloud is None:
+        cloud = spatial.sort_support(p_sup)
+    if query_cloud is None:
+        query_cloud = cloud if spatial.is_self(p_sup, p_q) else \
+            spatial.sort_support(p_q)
+    # the frame's rows are views (a sort_stages frame holds lo and scale in
+    # one row of 4), so the kernel takes their strides
+    lo, scale = cloud.lo, cloud.scale
     out = torch.empty(B, M, dtype=torch.int32, device=p_q.device)
-    launch("amc3d_label_vote", p_sup.data_ptr(), lab_sup.data_ptr(),
-           p_q.data_ptr(), out.data_ptr(), B, N, M, int(k), int(num_classes),
-           _stream(p_q))
+    launch("amc3d_label_vote", cloud.packed.data_ptr(), cloud.boxes.data_ptr(),
+           cloud.codes.data_ptr(), lo.data_ptr(), lo.stride(0),
+           scale.data_ptr(), scale.stride(0), lab_sup.data_ptr(),
+           query_cloud.packed.data_ptr(), out.data_ptr(), B, N, M, int(k),
+           int(num_classes), _stream(p_q))
     label_vote.launches += 1
     return out
 

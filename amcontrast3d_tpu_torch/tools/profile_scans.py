@@ -1,9 +1,10 @@
 """Time the exact kNN (kernel 6), the three contrast kernels (the forward
-14, the rows VJP 15, the support VJP 16), the ball query (kernel 2) and the
-CrossMask forward (kernel 18) on one NVIDIA GPU at the train steps'
-shapes.
+14, the rows VJP 15, the support VJP 16), the ball query (kernel 2), the
+CrossMask forward (kernel 18) and the approx configuration's threshold
+selection (14's selection mode) and label vote (17) on one NVIDIA GPU at
+the train steps' shapes.
 
-    python3 -m amcontrast3d_tpu_torch.tools.profile_scans [--crossing] [--runs R]
+    python3 -m amcontrast3d_tpu_torch.tools.profile_scans [--crossing | --select] [--runs R]
 
 For the S3DIS step (B = 4 clouds of 24000 points, uniform in [0, 4]³,
 stages from FPS) it times the seven kNN calls of a step (the self-kNN of
@@ -13,9 +14,11 @@ the forward also at C = 1, as the ground-truth ambiguity calls it), the
 eight ball queries of a forward (per stage the set abstraction's, support
 s − 1 and queries s at r = 0.1·2^(s−1), and the blocks' shared one on s at
 twice that; k = 32) and the CrossMask forward at the four decoder stages
-(k = 12, MIN); for the ScanNet step (B = 2 × 64000 on a denser cube, r from
-0.05) the self-kNN of stages 1-3, the contrast kernels at the four stages
-and the eight ball queries.  Each call prints
+(k = 12, MIN), the selection at the four decoder stages (k = 24) and the
+vote from stage 0 at stages 1-3 (k = 4, 16, 64, 13 classes); for the
+ScanNet step (B = 2 × 64000 on a denser cube, r from 0.05) the self-kNN of
+stages 1-3, the contrast kernels at the four stages, the eight ball
+queries, the selection and the vote.  Each call prints
 two times: the wrapper's, the median of R runs after a warm-up (CUDA events
 around the call, so the host's launches and the wrapper's own work, a sort
 or the sorted columns, count where the card waits on them), and the
@@ -37,12 +40,19 @@ kernels 6 and 7 where the package has both.  It also times the ball query
 pairs of a 155648-point room whose support passes that gate (38912 ×
 155648 at r = 0.1, 38912 × 38912 and 9728 × 38912 at r = 0.2): the
 package's dispatch, and its scan-everything kernel (``ball_query_small``)
-and chunk-skipping one (``ball_query_big``) each where it has them.
+and chunk-skipping one (``ball_query_big``) each where it has them; and
+the selection and the vote (kernel device time) at the S3DIS step's stages
+(24000, 6000, 1500, 375 points a cloud) and the ScanNet step's (2 × 64000
+and its stages), over the stage layouts where the package's wrappers take
+them: run over a parent's package by ``profile_ab.sh``, its dense kernels.
+``--select`` times only those lines of the selection and the vote (the
+wrapper and the kernel), at the same two steps' shapes.
 
 The script reads only what every version of the package has (``ops.knn``,
 ``ops.contrast_forward``, ``ops.contrast_grad_rows``,
 ``ops.contrast_grad_support``, ``ops.ball_query``, ``ops.refine_cross``,
-and passes a layout only to a wrapper whose signature takes it), so
+``ops.contrast_select``, ``ops.label_vote``, and passes a layout only to a
+wrapper whose signature takes it), so
 ``tools/profile_ab.sh`` runs it from the change's tree over the parent's
 package too.
 """
@@ -74,6 +84,8 @@ ROOM_N = (155648, 221184, 311296)
 BALL_K, REFINE_K = 32, 12
 # the ball-query kernels' names: the listed one, and the parent's two
 BALL_KERNELS = ("ball_query_kernel", "ball_query_big_kernel")
+# the selection's and the vote's kernels (listed or, in a parent, dense)
+SELECT_KERNEL, VOTE_KERNEL, VOTE_CLASSES = "contrast_select_kernel", "label_vote_kernel", 13
 
 
 def card() -> str:
@@ -294,6 +306,51 @@ def contrast_lines(rng, ps, c: int, runs: int, layout, kernels=CONTRAST) -> list
     return times
 
 
+def selection_lines(rng, stages, layouts, runs: int, wrapper_too: bool = True):
+    """Prints the selection's times at the four decoder stages (k = 24)
+    and the vote's from stage 0 at stages 1-3 (k = 4^s), over the stage
+    layouts where this package's wrappers take them; returns their summed
+    kernel times."""
+    dev = stages[0].device
+    b, n = stages[0].shape[:2]
+    lab = torch.from_numpy(rng.randint(0, VOTE_CLASSES, (b, n)).astype(np.int32)).to(dev)
+    sel_kw = takes(ops.contrast_select, "cloud")
+    vote_kw = takes(ops.label_vote, "query_cloud")
+    totals = [0.0, 0.0]
+    for s, p in enumerate(stages[:4]):
+        calls = [("selection (14)", SELECT_KERNEL, 0, f"N={p.shape[1]} k={KNN_K}",
+                  lambda: ops.contrast_select(
+                      p, KNN_K, **({"cloud": layouts[s]} if sel_kw and layouts[s] is not None
+                                   else {})))]
+        if s > 0:
+            kw = ({"cloud": layouts[0], "query_cloud": layouts[s]}
+                  if vote_kw and layouts[s] is not None else {})
+            calls.append(("vote (17)", VOTE_KERNEL, 1,
+                          f"M={p.shape[1]} N={n} k={4 ** s}",
+                          lambda: ops.label_vote(stages[0], lab, p, 4 ** s,
+                                                 VOTE_CLASSES, **kw)))
+        for label, kernel, slot, shape, call in calls:
+            ms = kernel_ms(call, runs, (kernel,))
+            totals[slot] += ms
+            line = f"wrapper {cuda_ms(call, runs):.4f} ms, kernel {ms:.4f}" \
+                if wrapper_too else f"kernel device time {ms:.4f} ms"
+            print(f"  {label} B={b} {shape}: {line}")
+    print(f"  selection (14) summed over the four stages (kernel device time): "
+          f"{totals[0]:.4f} ms; vote (17) summed over stages 1-3: {totals[1]:.4f} ms")
+    return totals
+
+
+def selection_steps(rng, dev, runs: int, layouts_on: bool,
+                    wrapper_too: bool = True) -> None:
+    """The selection and the vote at the S3DIS and the ScanNet step's
+    stages (:func:`selection_lines`)."""
+    for name, b, n in (("S3DIS", 4, 24000), ("ScanNet", 2, 64000)):
+        forward = stages_of(rng, dev, b, n, 4.0, 5)
+        layouts = spatial.sort_stages(forward) if layouts_on else [None] * 5
+        print(f"{name} step's selection and vote:")
+        selection_lines(rng, forward, layouts, runs, wrapper_too)
+
+
 def step(rng, dev, name: str, b: int, n: int, side: float, runs: int,
          knn_calls, layouts_on: bool, radius: float, refine: bool) -> None:
     forward = stages_of(rng, dev, b, n, side, 5)
@@ -325,6 +382,7 @@ def step(rng, dev, name: str, b: int, n: int, side: float, runs: int,
                 for p, layout in zip(stages, layouts))
     print(f"  contrast forward (14) at C=1 summed over the four stages (kernel "
           f"device time): {total:.4f} ms")
+    selection_lines(rng, forward, layouts, runs)
 
 
 def main() -> None:
@@ -332,6 +390,8 @@ def main() -> None:
     ap.add_argument("--crossing", action="store_true",
                     help="the kNN and the ball query on both sides of the "
                          "JAX package's 32768-point gate")
+    ap.add_argument("--select", action="store_true",
+                    help="only the selection (14) and the vote (17)")
     ap.add_argument("--runs", type=int, default=11)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -367,6 +427,10 @@ def main() -> None:
         for si, qi, r in ((0, 1, 0.1), (1, 1, 0.2), (1, 2, 0.2)):
             pair = None if layouts[si] is None else (layouts[si], layouts[qi])
             ball_line(room[si], room[qi], r, args.runs, pair, True)
+        selection_steps(rng, dev, args.runs, layouts_on, wrapper_too=False)
+        return
+    if args.select:
+        selection_steps(rng, dev, args.runs, layouts_on)
         return
     s3dis = [(s, s, KNN_K) for s in range(4)] + [(0, s, 4 ** s) for s in range(1, 4)]
     step(rng, dev, "S3DIS step", 4, 24000, 4.0, args.runs, s3dis, layouts_on,

@@ -172,7 +172,12 @@
    (``approx_kernel_phases``): the threshold selection at the four decoder
    stages (k = 24) and the contrast forward and rows VJP on its thresholds,
    also at C = 1 as ``ambiguity_head`` calls them; the label vote at stages
-   1-3; the
+   1-3; both listed scans over the stage layouts of one sort, as the loss
+   hands them on (the vote: stage 0's and the query stage's), thresholds
+   and labels identical to the twins, with the listed bound (the chunks
+   within each query's threshold, once: the vote's design lists them
+   twice, which its line prints apart) beside the dense one,
+   and again at the ScanNet step's shapes (2 x 64000 and its stages); the
    aggregation forward and backward at each of PointNeXt-XL's 19 separable
    aggregations;
 15. after each kind's exact paths (4-6), drives them again in the approx
@@ -1371,12 +1376,14 @@ def approx_kernel_phases(ops, dev, rng, tag: str) -> dict:
     """The four kernels of the approx configuration and the fused tail at
     the S3DIS step's shapes (B=4x24000, stages from FPS, a uniform and a
     clustered cloud) against their twins: the selection at the four
-    decoder stages (k = 24), and the contrast forward and rows VJP on its
-    thresholds over the stage layouts, at the decoder widths and at C = 1
-    (as ``ambiguity_head`` calls them): the thresholds and counts
-    identical, the sums within 1e-5·(1+max|ref|), the rows within
-    1e-4·(1+max|df|), each the same bits twice;
-    the vote at stages 1-3 (k = 4, 16, 64, 13 classes), labels identical;
+    decoder stages (k = 24, over the stage's layout), and the contrast
+    forward and rows VJP on its thresholds over the stage layouts, at the
+    decoder widths and at C = 1 (as ``ambiguity_head`` calls them): the
+    thresholds and counts identical, the sums within 1e-5·(1+max|ref|), the
+    rows within 1e-4·(1+max|df|), each the same bits twice;
+    the vote at stages 1-3 (k = 4, 16, 64, 13 classes, over stage 0's
+    layout and the query stage's), labels identical; both again at the
+    ScanNet step's shapes (:func:`scannet_selections`);
     the aggregation forward and backward at each of PointNeXt-XL's 19
     separable aggregations (a set abstraction and its stage's InvResMLP
     blocks, ball query r from the cfg, K = 32, mixed ``sgn``): ext
@@ -1401,29 +1408,22 @@ def approx_kernel_phases(ops, dev, rng, tag: str) -> dict:
             stages.append(ops.gather_points(prev, idx).contiguous())
         lab0 = torch.from_numpy(voronoi_labels(rng, pts).astype(np.int32)).to(dev)
         p0 = stages[0]
-        layouts = spatial.sort_stages(stages[:4])   # as the loss sorts them
+        # the five stage layouts of one sort, as the forward makes them and
+        # the loss hands them to the selection and the vote
+        layouts = spatial.sort_stages(stages)
         for s in range(1, 4):                  # the vote at stages 1-3
-            q, k = stages[s], 4 ** s
-            m = q.shape[1]
-            note("label_vote", check_equal(
-                f"vote {cloud} stage {s}", ops.label_vote(p0, lab0, q, k, NUM_CLASSES),
-                ops.label_vote_plain(p0, lab0, q, k, NUM_CLASSES)))
-            timed("label_vote", cloud,
-                  lambda: ops.label_vote(p0, lab0, q, k, NUM_CLASSES),
-                  lambda: ops.label_vote_plain(p0, lab0, q, k, NUM_CLASSES),
-                  B * (N * 16 + m * 16), B * m * N * PAIR_OPS)
+            selection_scan(ops, spatial, p0, stages[s], 4 ** s, layouts[0],
+                           layouts[s], lab0, cloud, f"{cloud} stage {s}", note,
+                           timed, results, tag)
         for s in range(4):                     # the contrast stages
             ps = stages[s]
             n = ps.shape[1]
-            thr = ops.contrast_select(ps, KNN_K)
-            note("contrast_select", check_equal(
-                f"selection {cloud} stage {s}", thr,
-                ops.contrast_select_plain(ps, KNN_K)))
-            timed("contrast_select", cloud, lambda: ops.contrast_select(ps, KNN_K),
-                  lambda: ops.contrast_select_plain(ps, KNN_K),
-                  B * n * 16, B * n * n * PAIR_OPS)
+            thr = selection_scan(ops, spatial, ps, ps, KNN_K, layouts[s], None,
+                                 None, cloud, f"{cloud} stage {s}", note, timed,
+                                 results, tag)
             lab = (lab0 if s == 0 else
-                   ops.label_vote(p0, lab0, ps, 4 ** s, NUM_CLASSES)).float()
+                   ops.label_vote(p0, lab0, ps, 4 ** s, NUM_CLASSES, layouts[0],
+                                  layouts[s])).float()
             f = torch.nn.functional.normalize(randn(B, n, UP_CHANNELS[s]), dim=-1)
             g4 = torch.randn(B, n, 4, device=dev,
                              generator=torch.Generator(dev).manual_seed(s))
@@ -1469,7 +1469,86 @@ def approx_kernel_phases(ops, dev, rng, tag: str) -> dict:
                       lambda: torch.zeros(B * ns, c, device=dev).index_add_(
                           0, rows, gamma))
             del gamma
-    return finish_kernels(results, "uniform and clustered", tag)
+    scannet_selections(ops, spatial, dev, rng, note, tag)
+    return finish_kernels(results, "uniform and clustered (and ScanNet's)", tag)
+
+
+def selection_scan(ops, spatial, support, query, k, layout, query_layout,
+                   labels, cloud, where, note, timed, results, tag):
+    """Kernel 14's selection (``labels`` None: the queries are the support)
+    or kernel 17 over the stage layouts, as the loss calls them, against
+    the twin: thresholds or labels identical; ``timed`` (on the uniform
+    cloud) with the dense bound (the selection every pair, the vote every (query,
+    support) pair once) and the listed one (:func:`listed_ops`: the chunks
+    whose bound lies within the query's threshold, once: the function needs
+    one distance test a point of them, though the vote's design lists and
+    scans them twice, the selection and the count, which its line prints
+    apart as the design's cost).  Returns the thresholds."""
+    nb, ns, nq = support.shape[0], support.shape[1], query.shape[1]
+    thr = ops.contrast.kth_distinct_plain(support, query, k)
+    if labels is None:
+        name, run = "contrast_select", lambda: ops.contrast_select(query, k, layout)
+        plain = lambda: ops.contrast_select_plain(query, k)
+        nbytes = nb * nq * 16
+    else:
+        name = "label_vote"
+        run = lambda: ops.label_vote(support, labels, query, k, NUM_CLASSES,
+                                     layout, query_layout)
+        plain = lambda: ops.label_vote_plain(support, labels, query, k, NUM_CLASSES)
+        nbytes = nb * (ns * 16 + nq * 16)
+    got = run()
+    note(name, check_equal(f"{name} {where} {nq} x {ns} k={k}", got,
+                           thr if labels is None else plain()))
+    visits, pairs = chunk_visits(spatial, support, query, thr, False, layout)
+    dense_ops = nb * nq * ns * PAIR_OPS
+    pruned_ops = listed_ops(visits, pairs, nb, nq)
+    ms = timed(name, cloud, run, plain, nbytes, pruned_ops)
+    if ms is not None:
+        results[name]["dense_ops"] = results[name].get("dense_ops", 0.0) + dense_ops
+        design = "" if labels is None else (
+            f" (the design's two lists, selection and count: "
+            f"{2 * pruned_ops / PEAK_OPS * 1e3:.4f} ms)")
+        print(f"{name} {where} {nq} x {ns} k={k} (B={nb}): {ms:.4f} ms, bound "
+              f"dense {dense_ops / PEAK_OPS * 1e3:.4f} / listed "
+              f"{pruned_ops / PEAK_OPS * 1e3:.4f} ms{design}, chunk visits needed "
+              f"{visits / (nb * nq):.2f} a query of {pairs // (nb * nq)}  [{tag}]")
+    return thr
+
+
+def scannet_selections(ops, spatial, dev, rng, note, tag):
+    """Kernels 14's selection and 17 at the ScanNet step's shapes (B = 2 x
+    64000 on a 0.02 m grid, stages from FPS) over one sort's stage
+    layouts: the selection at the four stages, the vote at stages 1-3,
+    identical to the twins, each timed (kernel and twin, one run each)."""
+    nb, n = SCANNET_B, SCANNET_N
+    pts = (rng.randint(0, 200, (nb, n, 3)) * 0.02).astype(np.float32)
+    stages = [torch.from_numpy(pts).to(dev)]
+    for _ in range(3):
+        prev = stages[-1]
+        stages.append(ops.gather_points(prev, ops.furthest_point_sample(
+            prev, prev.shape[1] // 4)).contiguous())
+    layouts = spatial.sort_stages(stages)
+    lab = torch.from_numpy(rng.randint(0, SCANNET_CLASSES, (nb, n))
+                           .astype(np.int32)).to(dev)
+    line = []
+    for s, (p, layout) in enumerate(zip(stages, layouts)):
+        got, ms = timed_once(lambda: ops.contrast_select(p, KNN_K, layout))
+        want, plain_ms = timed_once(lambda: ops.contrast_select_plain(p, KNN_K))
+        note("contrast_select", check_equal(
+            f"contrast_select ScanNet stage {s} {p.shape[1]}", got, want))
+        line.append(f"selection {p.shape[1]} {ms:.3f} ms (plain {plain_ms:.1f})")
+        if s == 0:
+            continue
+        got, ms = timed_once(lambda: ops.label_vote(
+            stages[0], lab, p, 4 ** s, SCANNET_CLASSES, layouts[0], layout))
+        want, plain_ms = timed_once(lambda: ops.label_vote_plain(
+            stages[0], lab, p, 4 ** s, SCANNET_CLASSES))
+        note("label_vote", check_equal(
+            f"label_vote ScanNet stage {s} {p.shape[1]} x {n}", got, want))
+        line.append(f"vote {p.shape[1]} x {n} k={4 ** s} {ms:.3f} ms "
+                    f"(plain {plain_ms:.1f})")
+    print(f"selection and vote at ScanNet's shapes (B={nb}, a 0.02 m grid), "
+          f"identical to the twins, one run each: {'; '.join(line)}  [{tag}]")
 
 
 def wrappers(ops) -> dict:

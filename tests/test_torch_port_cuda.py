@@ -382,6 +382,7 @@ def test_a_layout_of_another_cloud_is_refused_on_the_card(cuda_device):
     kth = (ops.knn(other, other, 24)[1][..., -1] * (1.0 + 1e-5)).contiguous()
     g4 = torch.from_numpy(rng.randn(2, 3000, 4).astype(np.float32)).to(cuda_device)
     a = torch.zeros(2, 3000, device=cuda_device)
+    ilab = lab.int()
     for call in (lambda: ops.knn(other, other, 24, cloud),
                  lambda: ops.knn(other, other[:, :99].contiguous(), 24, cloud),
                  lambda: ops.ball_query(other, other, 0.2, 32, cloud),
@@ -394,16 +395,25 @@ def test_a_layout_of_another_cloud_is_refused_on_the_card(cuda_device):
                  lambda: ops.contrast_grad_rows(other, f, lab, kth, g4,
                                                 cloud=cloud),
                  lambda: ops.contrast_forward(other, f, lab, kth, cloud=cloud),
-                 lambda: ops.contrast_reductions(other, f, lab, kth, cloud=cloud)):
+                 lambda: ops.contrast_reductions(other, f, lab, kth, cloud=cloud),
+                 lambda: ops.contrast_select(other, 24, cloud),
+                 lambda: ops.contrast_reductions_selfk(other, f, lab, 24,
+                                                       cloud=cloud),
+                 lambda: ops.label_vote(other, ilab, p, 16, 3, cloud),
+                 lambda: ops.label_vote(p, ilab, other, 16, 3, cloud, cloud)):
         with pytest.raises(ValueError):
             call()
     ops.knn(p, p, 24, cloud)
     ops.ball_query(p, p, 0.2, 32, cloud)
     ops.refine_cross(p, f, a, 12, "MIN", cloud=cloud)
+    ops.contrast_select(p, 24, cloud)
+    ops.label_vote(p, ilab, p, 16, 3, cloud, cloud)
     p.mul_(1.0)
     for call in (lambda: ops.knn(p, p, 24, cloud),
                  lambda: ops.ball_query(p, p, 0.2, 32, cloud),
-                 lambda: ops.refine_cross(p, f, a, 12, "MIN", cloud=cloud)):
+                 lambda: ops.refine_cross(p, f, a, 12, "MIN", cloud=cloud),
+                 lambda: ops.contrast_select(p, 24, cloud),
+                 lambda: ops.label_vote(p, ilab, p, 16, 3, cloud)):
         with pytest.raises(ValueError):
             call()
 
@@ -1137,32 +1147,47 @@ def _grid_cloud(rng, b, n, cells=32):
 
 
 def _clouds_for_selection(rng, n):
+    """Uniform, clustered, a 1/32 grid in a unit cube and a 1/128 m grid
+    in a 0.3 m cube (duplicate points and d² ties everywhere)."""
     return {"uniform": _cloud(rng, 2, n, False), "clustered": _cloud(rng, 2, n, True),
-            "grid": _grid_cloud(rng, 2, n)}
+            "grid": _grid_cloud(rng, 2, n),
+            "grid 1/128": (rng.randint(0, 40, (2, n, 3)) / 128).astype(np.float32)}
+
+
+SELECT_KS = [1, 4, 16, 24, 64, 128, 129, 256]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k", [4, 64, 128, 129, 256])
+@pytest.mark.parametrize("k", SELECT_KS)
 def test_contrast_select_matches_plain(cuda_device, k):
-    """The k-th distinct d² on a uniform, a clustered and a gridded cloud
-    (ties), k below, at and above one pass of 128: identical to the twin;
-    the launch count moves by one."""
+    """The listed k-th distinct d² on uniform, clustered and gridded clouds
+    (ties, duplicates) of 3000 points (no multiple of 64), k below, at and
+    above one pass of 128: identical to the twin, over the cloud's layout
+    from ``sort_stages`` and sorting for itself; one launch a call."""
     rng = np.random.RandomState(k)
     for name, pts in _clouds_for_selection(rng, 3000).items():
         p = torch.from_numpy(pts).to(cuda_device)
-        before = ops.contrast_select.launches
-        got = ops.contrast_select(p, k)
-        assert ops.contrast_select.launches == before + 1
-        _equal(got, ops.contrast_select_plain(p, k))
+        want = ops.contrast_select_plain(p, k)
+        for cloud in (None, spatial.sort_stages([p])[0]):
+            before = ops.contrast_select.launches
+            got = ops.contrast_select(p, k, cloud)
+            assert ops.contrast_select.launches == before + 1
+            _equal(got, want)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,k", [(1, 1), (5, 12), (40, 300), (33, 24)])
+@pytest.mark.parametrize("n,k", [(1, 1), (5, 12), (40, 300), (33, 24), (130, 129),
+                                 (5000, 20), (5000, 300)])
 def test_contrast_select_few_points(cuda_device, n, k):
-    """N < k distinct values (3e38·(1+1e-6)) and ragged blocks."""
+    """N < k (3e38·(1+1e-6)), ragged blocks, and fewer than k distinct
+    values in a large cloud (a 1/4 grid holds 19 distinct d²), where every
+    chunk is listed: identical to the twin."""
     rng = np.random.RandomState(n)
     p = torch.from_numpy(_grid_cloud(rng, 3, n, 4)).to(cuda_device)
-    _equal(ops.contrast_select(p, k), ops.contrast_select_plain(p, k))
+    want = ops.contrast_select_plain(p, k)
+    _equal(ops.contrast_select(p, k), want)
+    if k > 19:
+        assert (want > 1e38).all()
 
 
 @pytest.mark.cuda
@@ -1195,21 +1220,26 @@ def test_selfk_reductions_match_plain(cuda_device, c, root, need_s):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k", [4, 64, 128, 129, 256])
+@pytest.mark.parametrize("k", SELECT_KS)
 def test_label_vote_matches_plain(cuda_device, k):
-    """The vote at stage shapes (queries a quarter of the support) on the
-    three clouds, 13 and 50 classes: labels identical to the twin."""
+    """The listed vote at stage shapes (queries a quarter of the support,
+    picked by FPS as the stages are) on the four clouds, 13 and 50 classes:
+    labels identical to the twin, over the layouts of ``sort_stages`` (as
+    the loss hands them) and sorting for itself; one launch a call."""
     rng = np.random.RandomState(k + 1)
     for name, pts in _clouds_for_selection(rng, 4000).items():
         sup = torch.from_numpy(pts).to(cuda_device)
-        q = sup[:, ::4].contiguous()
+        q = ops.gather_points(sup, ops.furthest_point_sample(sup, 1000)).contiguous()
+        layouts = spatial.sort_stages([sup, q])
         for ncls in (13, 50):
             lab = torch.from_numpy(rng.randint(0, ncls, (2, 4000)).astype(np.int32)
                                    ).to(cuda_device)
-            before = ops.label_vote.launches
-            got = ops.label_vote(sup, lab, q, k, ncls)
-            assert ops.label_vote.launches == before + 1
-            _equal(got, ops.label_vote_plain(sup, lab, q, k, ncls))
+            want = ops.label_vote_plain(sup, lab, q, k, ncls)
+            for clouds in ((None, None), layouts):
+                before = ops.label_vote.launches
+                got = ops.label_vote(sup, lab, q, k, ncls, *clouds)
+                assert ops.label_vote.launches == before + 1
+                _equal(got, want)
 
 
 @pytest.mark.cuda
@@ -1217,13 +1247,48 @@ def test_label_vote_matches_plain(cuda_device, k):
                                         (300, 300, 64, 1)])
 def test_label_vote_small_ragged_and_wide(cuda_device, n, m, k, ncls):
     """Fewer distinct values than k, a ragged block, 2000 classes (the
-    histograms need more than 48 KB of shared memory) and one class."""
+    histograms need more than 48 KB of shared memory), one class, and
+    queries off the support's points."""
     rng = np.random.RandomState(n)
     sup = torch.from_numpy(_grid_cloud(rng, 2, n, 8)).to(cuda_device)
     q = torch.from_numpy(_grid_cloud(rng, 2, m, 8) + np.float32(1 / 16)).to(cuda_device)
     lab = torch.from_numpy(rng.randint(0, ncls, (2, n)).astype(np.int32)).to(cuda_device)
     _equal(ops.label_vote(sup, lab, q, k, ncls),
            ops.label_vote_plain(sup, lab, q, k, ncls))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("recipe,b,n", [("s3dis", 4, 24000), ("scannet", 2, 64000)])
+@pytest.mark.parametrize("kind", ["uniform", "clustered", "grid 1/128"])
+def test_selection_and_vote_at_the_stage_shapes(cuda_device, recipe, b, n, kind):
+    """The listed selection at the four decoder stages (k = 24) and the
+    vote at stages 1-3 (k = 4, 16, 64), at the S3DIS and ScanNet steps'
+    shapes (stages from FPS), over the stage layouts of one ``sort_stages``
+    as the loss hands them on: thresholds and labels identical to the
+    twins, one launch a call."""
+    rng = np.random.RandomState(n)
+    if kind == "grid 1/128":
+        pts = (rng.randint(0, 400, (b, n, 3)) / 128).astype(np.float32)
+    else:
+        pts = _cloud(rng, b, n, kind == "clustered")
+    stages = [torch.from_numpy(pts).to(cuda_device)]
+    for _ in range(3):
+        prev = stages[-1]
+        stages.append(ops.gather_points(prev, ops.furthest_point_sample(
+            prev, prev.shape[1] // 4)).contiguous())
+    layouts = spatial.sort_stages(stages)
+    lab = torch.from_numpy(rng.randint(0, 13, (b, n)).astype(np.int32)).to(cuda_device)
+    for s, (p, layout) in enumerate(zip(stages, layouts)):
+        before = ops.contrast_select.launches
+        got = ops.contrast_select(p, 24, layout)
+        assert ops.contrast_select.launches == before + 1
+        _equal(got, ops.contrast_select_plain(p, 24))
+        if s == 0:
+            continue
+        before = ops.label_vote.launches
+        got = ops.label_vote(stages[0], lab, p, 4 ** s, 13, layouts[0], layout)
+        assert ops.label_vote.launches == before + 1
+        _equal(got, ops.label_vote_plain(stages[0], lab, p, 4 ** s, 13))
 
 
 def _aggregate_case(rng, dev, n, m, c, r, sign):

@@ -88,6 +88,43 @@ def test_profile_train_recipe_and_loader_modes_need_a_cuda_device():
     assert not proc.stdout
 
 
+def test_idle_gaps_go_to_the_launch_after_them():
+    """``profile_train.gap_table`` on a hand-made trace: a gap whose next
+    kernel was launched after the card fell idle is the host's, put down to
+    the phase and the innermost operator around that launch; a gap before a
+    kernel launched earlier is idle but not host-paced."""
+    from amcontrast3d_tpu_torch.tools.profile_train import NO_PHASE, gap_table
+
+    def ev(cat, name, ts, dur, tid=1, corr=None):
+        e = {"ph": "X", "cat": cat, "name": name, "ts": ts, "dur": dur, "tid": tid}
+        if corr is not None:
+            e["args"] = {"correlation": corr}
+        return e
+
+    events = [
+        ev("user_annotation", "forward", 0, 100),
+        ev("cpu_op", "aten::mm", 10, 20),
+        ev("cpu_op", "aten::addmm", 50, 30),
+        ev("cpu_op", "aten::inner", 55, 5),
+        ev("cuda_runtime", "cudaLaunchKernel", 12, 3, corr=1),
+        ev("cuda_runtime", "cudaLaunchKernel", 56, 3, corr=2),
+        ev("cuda_runtime", "cudaLaunchKernel", 57, 1, corr=3),
+        ev("cpu_op", "aten::sum", 200, 10, tid=2),
+        ev("cuda_runtime", "cudaLaunchKernel", 205, 1, tid=2, corr=4),
+        ev("kernel", "k1", 20, 10, tid=7, corr=1),
+        ev("kernel", "k2", 62, 10, tid=7, corr=2),
+        ev("kernel", "k3", 75, 10, tid=7, corr=3),
+        ev("kernel", "k4", 210, 5, tid=7, corr=4),
+    ]
+    g = gap_table(events, ("forward", "loss"))
+    assert g["idle"] == 32 + 3 + 125 and g["paced"] == 32 + 125
+    assert g["span"] == 215 - 20
+    assert g["phase"] == {"forward": (32, 1), NO_PHASE: (125, 1)}
+    assert g["op"] == {"aten::inner": (32, 1), "aten::sum": (125, 1)}
+    assert sorted(g["gaps"])[-1] == (125, NO_PHASE, "aten::sum", "k4")
+    assert gap_table([], ("forward",))["idle"] == 0
+
+
 def test_every_c_entry_point_is_declared_once_with_its_arguments():
     """No compiler runs here, so hold the ctypes signatures against the
     sources: every ``extern "C"`` entry point of ``csrc/*.cu`` has a

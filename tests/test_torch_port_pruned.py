@@ -12,6 +12,7 @@ chunk's box), and a small torch emulation of each kernel's visit schedule
 that must return exactly what the dense twin returns.  The kernels
 themselves run on the card (``test_torch_port_cuda.py``).
 """
+from contextlib import ExitStack
 from unittest import mock
 
 import numpy as np
@@ -182,19 +183,29 @@ def test_a_layout_is_refused_for_another_tensor():
     with pytest.raises(ValueError):
         ops.contrast_grad_support(other, f, lab, kth, g4, cloud=cloud)
     a = torch.rand(2, 200)
+    ilab = lab.int()
     for call in (lambda: ops.ball_query(other, other, 0.2, 8, cloud),
                  lambda: ops.ball_query(p, other, 0.2, 8, cloud, cloud),
                  lambda: ops.dual_masks_cross(other, f, a, 6, "MIN", cloud),
-                 lambda: ops.refine_cross(other, f, a, 6, "MIN", cloud=cloud)):
+                 lambda: ops.refine_cross(other, f, a, 6, "MIN", cloud=cloud),
+                 lambda: ops.contrast_select(other, 6, cloud),
+                 lambda: ops.contrast_reductions_selfk(other, f, lab, 6,
+                                                       cloud=cloud),
+                 lambda: ops.label_vote(other, ilab, p, 6, 3, cloud),
+                 lambda: ops.label_vote(p, ilab, other, 6, 3, cloud, cloud)):
         with pytest.raises(ValueError):
             call()
     ops.knn(p, p, 6, cloud)
     ops.ball_query(p, p, 0.2, 8, cloud, cloud)
     ops.dual_masks_cross(p, f, a, 6, "MIN", cloud)
+    ops.contrast_select(p, 6, cloud)
+    ops.label_vote(p, ilab, p, 6, 3, cloud, cloud)
     p.add_(0.0)   # an in-place change, even one that moves no point
     for call in (lambda: ops.knn(p, p, 6, cloud),
                  lambda: ops.ball_query(p, p, 0.2, 8, cloud),
-                 lambda: ops.dual_masks_cross(p, f, a, 6, "MIN", cloud)):
+                 lambda: ops.dual_masks_cross(p, f, a, 6, "MIN", cloud),
+                 lambda: ops.contrast_select(p, 6, cloud),
+                 lambda: ops.label_vote(p, ilab, p, 6, 3, cloud)):
         with pytest.raises(ValueError):
             call()
 
@@ -869,6 +880,221 @@ def test_crossmask_slots_from_the_listed_scan_are_the_knn(kind, n, k):
     assert torch.equal(sel_all0.long(), torch.where(na <= 0, slots, -1))
 
 
+# ---- the selection and the vote: seed, list, passes -----------------------------
+
+_SLACK = np.float32(1.0 + 1e-6)
+
+
+@settings(max_examples=200, deadline=None)
+@given(st.lists(st.tuples(_coord, _coord, _coord), min_size=1, max_size=80),
+       st.tuples(_coord, _coord, _coord), st.integers(1, 40),
+       st.lists(st.booleans(), min_size=80, max_size=80))
+def test_seed_limit_is_never_below_the_true_kth_distinct(points, query, k, keep):
+    """The selection's seed limit: the k-th distinct d² over any subset of
+    the support that holds k distinct values (the chunks a warp scans
+    first) is never below the k-th distinct d² over the whole support, in
+    float32 as computed."""
+    p = torch.tensor(points, dtype=torch.float32)[None]
+    q = torch.tensor(query, dtype=torch.float32)[None, None]
+    d2 = pairwise_d2(q, p)[0, 0]
+    sub = d2[torch.tensor(keep[:len(points)])].unique()
+    if len(sub) >= k:
+        want = port_contrast.kth_distinct_plain(p, q, k)[0, 0]
+        assert float(np.float32(sub[k - 1]) * _SLACK) >= float(want)
+
+
+def _home_of(query, cloud):
+    """``csrc/vote.cu::home_chunk``: the chunk of the support where each
+    query's Morton code in the support's frame would sit (B, M)."""
+    key = spatial.morton_key(query, cloud.lo, cloud.scale)
+    n = cloud.codes.shape[1]
+    place = torch.searchsorted(cloud.codes, key).clamp_(max=n - 1)
+    return place // CHUNK
+
+
+def _seed(d2row, home, kp, done, lo, nc, scans):
+    """The seed of one warp in one pass: the home chunk and ``near`` on
+    each side, then further out, up to ``reach``, while fewer than kp
+    distinct values above lo are kept.  Returns its state (the kept values,
+    the last slot: inf until kp are kept), its scan and the chunks it
+    scanned, [slo, shi)."""
+    state = {"kept": torch.empty(0), "last": float("inf")}
+
+    def scan(c):
+        scans[0] += 1
+        vals = d2row[c * CHUNK:(c + 1) * CHUNK]
+        cand = vals[(vals > lo) & (vals < state["last"])]
+        kept = torch.cat([state["kept"], cand]).unique()[:kp]
+        state["kept"] = kept
+        state["last"] = float(kept[kp - 1]) if len(kept) == kp else float("inf")
+
+    near = 1 + done // CHUNK
+    reach = near + 1 + kp // CHUNK
+    reach_lo, reach_hi = max(0, home - reach), min(nc, home + reach + 1)
+
+    def more(d):
+        return d <= near or state["last"] == float("inf")
+
+    scan(home)
+    slo, shi, d = home, home + 1, 1
+    while more(d) and (home - d >= reach_lo or home + d < reach_hi):
+        if home - d >= reach_lo:
+            scan(home - d)
+            slo = home - d
+        if more(d) and home + d < reach_hi:
+            scan(home + d)
+            shi = home + d + 1
+        d += 1
+    return state, scan, (slo, shi)
+
+
+def _emulate_select(sup, query, k, window, form):
+    """``csrc/listed_select.cuh``'s visits, one batch at a time: blocks of
+    8 queries in the work order (the support's own sorted order, home its
+    place over 64; or the queries' own layout, home from ``_home_of``); in
+    each pass of up to 128 values above the previous pass's last, each
+    query scans its home chunk and the ones beside it (:func:`_seed`; with
+    fewer than kp distinct values its limit is +inf), the block lists a window of
+    chunks at a time within the largest limit of its 8 from their union box,
+    and each query scans the listed chunks within its own running last
+    value, testing 32 at a time.  Returns the thresholds (B, M) in the
+    caller's order (× float32(1 + 1e-6), 3e38 for fewer than k distinct),
+    the work order and the chunks scanned."""
+    cloud = spatial.sort_support(sup)
+    B, N, _ = sup.shape
+    M = query.shape[1]
+    nc = cloud.boxes.shape[1]
+    if form == "self":
+        order = cloud.perm
+        home = (torch.arange(N) // CHUNK).expand(B, N)
+    else:
+        order = spatial.sort_support(query).perm
+        home = torch.gather(_home_of(query, cloud), 1, order)
+    out = torch.zeros(B, M)
+    scans = [0]
+    inf = float("inf")
+    for b in range(B):
+        d2 = pairwise_d2(query[b:b + 1], cloud.packed[b:b + 1, :, :3])[0]
+        boxes = cloud.boxes[b]
+        for r0 in range(0, M, WARPS):
+            qs = order[b, r0:r0 + WARPS].tolist()
+            homes = home[b, r0:r0 + WARPS].tolist()
+            pts = query[b, qs]
+            ub = torch.cat([pts.amin(0), pts.amax(0)])
+            v = {qi: -1.0 for qi in qs}
+            for done in range(0, k, 128):
+                kp = min(128, k - done)
+                seeds = {qi: _seed(d2[qi], h, kp, done, v[qi], nc, scans)
+                         for qi, h in zip(qs, homes) if v[qi] != inf}
+                limit = max([st_["last"] for st_, _, _ in seeds.values()], default=-1.0)
+                done_lo = max([r[0] for _, _, r in seeds.values()], default=0)
+                done_hi = min([r[1] for _, _, r in seeds.values()], default=nc)
+                for w0 in range(0, nc, window):
+                    listed = [c for c in range(w0, min(w0 + window, nc))
+                              if not done_lo <= c < done_hi
+                              and float(box_box_lb(ub, boxes[c])) < limit]
+                    for qi, (state, scan, (slo, shi)) in seeds.items():
+                        for g0 in range(0, len(listed), 32):
+                            group = [c for c in listed[g0:g0 + 32] if not slo <= c < shi]
+                            lb = {c: float(spatial.bbox_lb(query[b, qi], boxes[c]))
+                                  for c in group}
+                            ballot = [c for c in group if lb[c] < state["last"]]
+                            for c in ballot:
+                                if lb[c] < state["last"]:
+                                    scan(c)
+                for qi, (state, _, _) in seeds.items():
+                    v[qi] = state["last"]
+            for qi in qs:
+                val = np.float32(3e38) if v[qi] == inf else np.float32(v[qi])
+                out[b, qi] = float(val * _SLACK)
+    return out, order, scans[0]
+
+
+def _emulate_vote(sup, lab, query, k, ncls, window):
+    """``csrc/vote.cu``: the selection of :func:`_emulate_select` over the
+    support from the queries' own layout, then the count: the block lists a
+    window of chunks at a time within the largest threshold of its 8 (not
+    above it), each query scans the listed chunks whose bound is not above
+    its own threshold and counts the classes of the points at or within it;
+    the largest count wins, ties to the lowest class."""
+    thr, order, _ = _emulate_select(sup, query, k, window, "query layout")
+    cloud = spatial.sort_support(sup)
+    B, N, _ = sup.shape
+    M = query.shape[1]
+    nc = cloud.boxes.shape[1]
+    out = torch.zeros(B, M, dtype=torch.int32)
+    for b in range(B):
+        d2 = pairwise_d2(query[b:b + 1], cloud.packed[b:b + 1, :, :3])[0]
+        boxes = cloud.boxes[b]
+        labs = lab[b, cloud.perm[b]]
+        for r0 in range(0, M, WARPS):
+            qs = order[b, r0:r0 + WARPS].tolist()
+            pts = query[b, qs]
+            ub = torch.cat([pts.amin(0), pts.amax(0)])
+            limit = max(float(thr[b, qi]) for qi in qs)
+            counts = {qi: torch.zeros(ncls, dtype=torch.int64) for qi in qs}
+            for w0 in range(0, nc, window):
+                listed = [c for c in range(w0, min(w0 + window, nc))
+                          if not float(box_box_lb(ub, boxes[c])) > limit]
+                for qi in qs:
+                    t = float(thr[b, qi])
+                    for c in listed:
+                        if float(spatial.bbox_lb(query[b, qi], boxes[c])) > t:
+                            continue
+                        pos = torch.arange(c * CHUNK, min((c + 1) * CHUNK, N))
+                        members = labs[pos[d2[qi, pos] <= thr[b, qi]]].long()
+                        counts[qi] += torch.bincount(members, minlength=ncls)
+            for qi in qs:
+                out[b, qi] = int((counts[qi] == counts[qi].max()).nonzero()[0, 0])
+    return out
+
+
+_SELECT_CASES = [(700, 24, WINDOW), (700, 24, 2), (700, 1, 3), (300, 129, WINDOW),
+                 (200, 256, 3), (40, 64, WINDOW), (129, 4, 1)]
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("n,k,window", _SELECT_CASES)
+def test_selection_schedule_returns_the_plain_threshold(kind, n, k, window):
+    """The emulated listed selection (the seed, the block list with a
+    test-sized window, the passes of 128 for k > 128) gives
+    ``kth_distinct_plain``'s thresholds bit for bit: duplicate points and d²
+    ties (the grid), fewer than k distinct values (n < k, the grid's few
+    distinct d² at k = 129 and 256), a last chunk that is not full; on a
+    cloud of 11 chunks at k = 24 it scans fewer chunks than a dense scan."""
+    rng = np.random.RandomState(n + k)
+    p = _cloud(rng, 2, n, kind)
+    got, _, scans = _emulate_select(p, p, k, window, "self")
+    want = ops.contrast_select_plain(p, k)
+    assert torch.equal(got, want)
+    if n < k:
+        assert (want > 1e38).all()
+    if n >= 700 and kind != "grid" and k == 24:
+        assert scans < 2 * n * -(-n // CHUNK), scans
+
+
+_VOTE_CASES = [(700, 4, 4, 13, WINDOW), (700, 16, 16, 13, 2), (600, 3, 64, 5, 3),
+               (300, 2, 129, 4, WINDOW), (50, 5, 64, 3, 1)]
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("n,m_step,k,ncls,window", _VOTE_CASES)
+def test_vote_schedule_returns_the_plain_labels(kind, n, m_step, k, ncls, window):
+    """The emulated listed vote (its selection from the queries' own layout
+    and a home found by Morton code, then the count over a second list
+    within the block's largest slacked threshold) gives
+    ``label_vote_plain``'s labels exactly, and its thresholds are
+    ``kth_distinct_plain``'s bit for bit."""
+    rng = np.random.RandomState(n + k + m_step)
+    sup = _cloud(rng, 2, n, kind)
+    query = sup[:, ::m_step].contiguous()
+    lab = torch.from_numpy(rng.randint(0, ncls, (2, n)).astype(np.int32))
+    thr, _, _ = _emulate_select(sup, query, k, window, "query layout")
+    assert torch.equal(thr, port_contrast.kth_distinct_plain(sup, query, k))
+    got = _emulate_vote(sup, lab, query, k, ncls, window)
+    assert torch.equal(got, ops.label_vote_plain(sup, lab, query, k, ncls))
+
+
 # ---- the layout through the wrappers on the CPU --------------------------------
 
 def test_wrappers_take_a_layout_and_return_the_plain_answer_on_the_cpu():
@@ -911,6 +1137,21 @@ def test_wrappers_take_a_layout_and_return_the_plain_answer_on_the_cpu():
         got, sel = ops.refine_cross(p, fd, a, 12, fusion, cloud=cloud)
         want, sel_p = ops.refine_cross_plain(p, fd, a, 12, fusion, cloud=cloud)
         assert torch.equal(got, want) and torch.equal(sel, sel_p)
+    for k in (1, 24, 129):
+        want = ops.contrast_select_plain(p, k)
+        assert torch.equal(ops.contrast_select(p, k, cloud), want)
+        assert torch.equal(ops.contrast_select_plain(p, k, cloud=cloud), want)
+    ilab = lab.int()
+    q_cloud = spatial.sort_support(q)
+    for query, layout in ((q, q_cloud), (p, cloud)):
+        want = ops.label_vote_plain(p, ilab, query, 16, 3)
+        assert torch.equal(ops.label_vote(p, ilab, query, 16, 3, cloud, layout),
+                           want)
+        assert torch.equal(ops.label_vote_plain(p, ilab, query, 16, 3, cloud=cloud,
+                                                query_cloud=layout), want)
+    want = ops.contrast_reductions_selfk_plain(p, fd, lab, 24, 2.0)
+    assert torch.equal(ops.contrast_reductions_selfk(p, fd, lab, 24, 2.0,
+                                                     cloud=cloud), want)
     gout = torch.from_numpy(rng.randn(2, 300, 9).astype(np.float32))
     out = ops.contrast_reductions(p, f, lab, kth, 2.0, False, True, True,
                                   cloud=cloud)
@@ -942,8 +1183,10 @@ def test_the_loss_runs_under_the_plain_ops_with_its_layouts():
 def test_ambiguity_head_approx_hands_each_stage_its_layout():
     """In the approx configuration ``ambiguity_head`` sorts its stage clouds
     once (``sort_stages``) and hands each layout to the selection's
-    reductions, as its exact branch hands them to the kNN; the ambiguity is
-    the one of the reductions given no layout, bit for bit."""
+    reductions, as its exact branch hands them to the kNN, and the vote of
+    stage i stage 0's layout (``cloud``) and stage i's (``query_cloud``);
+    ``contrast_head`` hands the vote the same.  The ambiguity and the loss
+    are the ones given no layout, bit for bit."""
     from amcontrast3d_tpu_torch.loss import contrast as pcontrast
     from amcontrast3d_tpu_torch.ops.knn import set_knn_backend
 
@@ -951,31 +1194,63 @@ def test_ambiguity_head_approx_hands_each_stage_its_layout():
     ups = [(_cloud(rng, 2, n, "grid"), None) for n in (512, 128, 32)]
     target = torch.from_numpy(rng.randint(0, 4, (2, 512)))
     args = dict(nsample=8, ccbeta=0.04, cctype="Method2", stages_num=3)
-    selfk, sorts, given = pcontrast.contrast_reductions_selfk, [], []
+    selfk, vote = pcontrast.contrast_reductions_selfk, pcontrast.label_vote
+    sorts, given, voted = [], [], []
 
     def recording_sort(ps):
         sorts.append(len(ps))
-        return spatial.sort_stages(ps)
+        clouds = spatial.sort_stages(ps)
+        sorted_.append(clouds)
+        return clouds
 
     def recording_selfk(p, *a, cloud=None):
         spatial.check_layout(cloud, p)
         given.append(cloud)
         return selfk(p, *a, cloud=cloud)
 
+    def recording_vote(p0, lab0, p, k, ncls, cloud=None, query_cloud=None):
+        spatial.check_layout(cloud, p0)
+        spatial.check_layout(query_cloud, p)
+        voted.append((cloud, query_cloud))
+        return vote(p0, lab0, p, k, ncls, cloud, query_cloud)
+
+    recording = (mock.patch.object(pcontrast, "sort_stages", recording_sort),
+                 mock.patch.object(pcontrast, "contrast_reductions_selfk",
+                                   recording_selfk),
+                 mock.patch.object(pcontrast, "label_vote", recording_vote),
+                 mock.patch.object(pcontrast, "sort_support",
+                                   side_effect=AssertionError("a stage sorted alone")))
+    bare = (mock.patch.object(pcontrast, "contrast_reductions_selfk",
+                              lambda *a, cloud=None: selfk(*a)),
+            mock.patch.object(pcontrast, "label_vote",
+                              lambda *a, cloud=None, query_cloud=None: vote(*a)))
+    feats = [(p, torch.from_numpy(rng.randn(2, p.shape[1], 6).astype(np.float32)))
+             for p, _ in ups]
+    largs = dict(args, temperature=0.3, mu=1.0, nu=0.1)
     set_knn_backend("approx")
     try:
         want = pcontrast.ambiguity_head(ups, target, 4, None, args)
-        with mock.patch.object(pcontrast, "sort_stages", recording_sort), \
-                mock.patch.object(pcontrast, "contrast_reductions_selfk",
-                                  recording_selfk), \
-                mock.patch.object(pcontrast, "sort_support",
-                                  side_effect=AssertionError("a stage sorted alone")):
+        want_loss, _ = pcontrast.contrast_head(feats, target, 4, None, largs)
+        with ExitStack() as stack:
+            for patch in recording:
+                stack.enter_context(patch)
+            sorted_ = []
             got = pcontrast.ambiguity_head(ups, target, 4, None, args)
-        with mock.patch.object(pcontrast, "contrast_reductions_selfk",
-                               lambda *a, cloud=None: selfk(*a)):
+            head_clouds = sorted_[0]
+            got_loss, _ = pcontrast.contrast_head(feats, target, 4, None, largs)
+            loss_clouds = sorted_[1]
+        with ExitStack() as stack:
+            for patch in bare:
+                stack.enter_context(patch)
             unsorted = pcontrast.ambiguity_head(ups, target, 4, None, args)
+            unsorted_loss, _ = pcontrast.contrast_head(feats, target, 4, None, largs)
     finally:
         set_knn_backend("auto")
-    assert sorts == [3] and len(given) == 3
+    assert sorts == [3, 3] and len(given) == 6
+    assert [(c is head_clouds[0], q is head_clouds[i]) for i, (c, q)
+            in enumerate(voted[:2], 1)] == [(True, True)] * 2
+    assert [(c is loss_clouds[0], q is loss_clouds[i]) for i, (c, q)
+            in enumerate(voted[2:], 1)] == [(True, True)] * 2
     for a, b, c in zip(got, want, unsorted):
         assert torch.equal(a, b) and torch.equal(a, c)
+    assert torch.equal(got_loss, want_loss) and torch.equal(got_loss, unsorted_loss)

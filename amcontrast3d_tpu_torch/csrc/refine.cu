@@ -48,6 +48,7 @@
 // df agrees with the twin's index_add_ to rounding, not bit for bit.  No
 // gradient reaches the positions or the ambiguity.
 #include "listed_knn.cuh"
+#include "vector_red.cuh"
 
 #include <climits>
 #include <cstdint>
@@ -148,28 +149,6 @@ refine_cross_kernel(const float4* __restrict__ sorted,
 }
 
 constexpr int kBwdThreads = 256;
-
-// df[0..3] += v with one vector reduction (PTX for sm_90: a 16-byte
-// red.global, a quarter of the atomic operations of four scalar ones)
-__device__ __forceinline__ void red_add(float* address, float4 v) {
-  asm volatile("red.global.add.v4.f32 [%0], {%1, %2, %3, %4};"
-               ::"l"(address), "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w)
-               : "memory");
-}
-
-__device__ __forceinline__ void red_add(float* address, float v) {
-  atomicAdd(address, v);
-}
-
-__device__ __forceinline__ float4 load_scaled(const float* p, float s, float4) {
-  const float4 v = __ldg(reinterpret_cast<const float4*>(p));
-  return make_float4(__fmul_rn(v.x, s), __fmul_rn(v.y, s), __fmul_rn(v.z, s),
-                     __fmul_rn(v.w, s));
-}
-
-__device__ __forceinline__ float load_scaled(const float* p, float s, float) {
-  return __fmul_rn(__ldg(p), s);
-}
 
 // A group of LANES lanes (a power of two, sized to the row) takes one
 // point's row: its lanes read the row's sel entries once, LANES at a time,

@@ -19,9 +19,8 @@
 // in the order of their own layout (the stage's, points along its own
 // curve): a block takes 8 consecutive queries, a warp each.  A warp finds
 // its home chunk in the support by its Morton code in the support's frame,
-// by a search of the sorted codes with all 32 lanes (three rounds of loads
-// at 24000 points); any chunk would be right, a near one makes the seed
-// tight.  The selection is listed_select.cuh's.  The count lists again,
+// by a search of the sorted codes with all 32 lanes (morton.cuh::
+// home_chunk); any chunk would be right, a near one makes the seed tight.  The selection is listed_select.cuh's.  The count lists again,
 // with the block's largest slacked threshold as its limit (a member lies
 // at d^2 <= the k-th times 1 + 1e-6, so the bare k-th would drop some), and
 // each warp scans the listed chunks within its own threshold and adds each
@@ -37,26 +36,6 @@
 namespace {
 
 using namespace amc3d;
-
-// The chunk of the support where the query's Morton code (ops/spatial.py::
-// morton_key in the support's frame) would sit: the first of the n sorted
-// codes not below it, found by the whole warp, 32 probes a round.
-__device__ __forceinline__ int home_chunk(const long long* __restrict__ codes,
-                                          int n, const float* lo, float scale,
-                                          float x, float y, float z, int lane) {
-  const long long key = static_cast<long long>(morton_code(x, y, z, lo, scale));
-  int first = 0, last = n;  // the answer lies in [first, last]
-  while (first < last) {
-    const int step = (last - first + 31) / 32;
-    const int i = first + lane * step;
-    const bool below = i < last && codes[i] < key;
-    const int cnt = __popc(__ballot_sync(0xffffffffu, below));
-    const int nfirst = cnt > 0 ? first + (cnt - 1) * step + 1 : first;
-    last = min(last, first + cnt * step);
-    first = nfirst;
-  }
-  return min(first, n - 1) / kChunk;
-}
 
 template <int KPL>
 __global__ void __launch_bounds__(kListThreads)

@@ -16,6 +16,7 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
+from ..ops import spatial
 from ..ops.fps import furthest_point_sample
 from ..ops.group import (CHANNEL_MAP, create_grouper, gather_points,
                          get_aggregation_features)
@@ -143,10 +144,13 @@ class PointNet2Decoder(nn.Module):
             in_ch = mlp[-1]
 
     def forward(self, p: List[torch.Tensor], f: List[torch.Tensor]):
+        """Each stage's interpolation reads the layouts of its fine and its
+        coarse stage, sorted here once for all stages."""
         n, f = self.n, list(f)
         up_features = [None] * n
+        clouds = spatial.sort_each(p)
         for i in range(-1, -n - 1, -1):
-            f[i - 1] = getattr(self, f"fp{n + i}")([p[i - 1], f[i - 1]],
-                                                   [p[i], f[i]])
+            f[i - 1] = getattr(self, f"fp{n + i}")(
+                [p[i - 1], f[i - 1]], [p[i], f[i]], clouds[i - 1], clouds[i])
             up_features[i] = f[i - 1]
         return f[-n - 1], up_features, torch.zeros((), device=f[0].device)

@@ -352,9 +352,12 @@ class FeaturePropagation(nn.Module):
             self.add_module(f"ConvBlock_{i}", ConvBlock(
                 cin, cout, norm_args=norm_args, act_args=act_args))
 
-    def forward(self, pf1, pf2):
+    def forward(self, pf1, pf2, query_cloud=None, cloud=None):
+        """``query_cloud`` and ``cloud``: the layouts of ``p1`` (the fine
+        stage) and ``p2`` (the coarse one), which the interpolation reads;
+        it sorts for itself without them."""
         (p1, f1), (p2, f2) = pf1, pf2
-        f = three_interpolation(p1, p2, f2)
+        f = three_interpolation(p1, p2, f2, cloud, query_cloud)
         if f1 is not None:
             f = torch.cat([f1, f], -1)
         for block in self.children():
@@ -475,17 +478,15 @@ class PointNextEncoder(nn.Module):
     def sample(self, p0) -> "Stages":
         """The positions of every stage, before any feature: each set
         abstraction's FPS in turn (one batched launch a stage), then one
-        :func:`ops.spatial.sort_stages` over the distinct stage clouds."""
+        :func:`ops.spatial.sort_stages` over the distinct stage clouds
+        (:func:`ops.spatial.sort_each`)."""
         p = p0.contiguous()
         positions, sampled = [p], []
         for i in range(len(self.blocks)):
             sampled.append(getattr(self, f"enc{i}_sa").sample(p))
             p = sampled[-1][1]
             positions.append(p)
-        distinct = list({id(t): t for t in positions}.values())
-        with torch.no_grad():
-            layouts = dict(zip(map(id, distinct), spatial.sort_stages(distinct)))
-        return Stages(positions, sampled, [layouts[id(t)] for t in positions])
+        return Stages(positions, sampled, spatial.sort_each(positions))
 
     def forward(self, p0, f0, stages: Optional["Stages"] = None
                 ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
@@ -580,15 +581,19 @@ class PointNextDecoder(nn.Module):
                 a_list: Optional[List[torch.Tensor]] = None,
                 a_map_list: Optional[List[torch.Tensor]] = None,
                 clouds: Optional[List[spatial.SortedCloud]] = None):
-        """``clouds``: the layouts of ``p`` (the encoder's), which the
-        refinement's CrossMask reads; sorted by it when not given."""
+        """``clouds``: the layouts of ``p`` (the encoder's), which each
+        stage's interpolation (the fine stage's and the coarse one's) and
+        the refinement's CrossMask read; sorted here, once, when not
+        given."""
         n = self.decoder_stages
         f = list(f)
+        if clouds is None:
+            clouds = spatial.sort_each(p)
         up_features: List[Optional[torch.Tensor]] = [None] * n
         refine_rates = []
         for i in range(-1, -n - 1, -1):
             f[i - 1] = getattr(self, f"fp{n + i}")(
-                [p[i - 1], f[i - 1]], [p[i], f[i]])
+                [p[i - 1], f[i - 1]], [p[i], f[i]], clouds[i - 1], clouds[i])
             up_features[i] = f[i - 1]
             if not self.refine or a_list is None:
                 continue
@@ -596,7 +601,7 @@ class PointNextDecoder(nn.Module):
                 f[i - 1], rate = dual_masks(
                     p[i - 1], f[i - 1], a_list[i], self.nsample_k, self.fusion,
                     self.threshold, self.threshold_max, self.gamma,
-                    None if clouds is None else clouds[i - 1])
+                    clouds[i - 1])
                 refine_rates.append(rate)
             elif self.refine_attention:
                 f[i - 1] = getattr(self, f"refine_att{n + i}")(

@@ -58,19 +58,27 @@ _SIGNATURES = {
     # stream
     "amc3d_ball_query": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
                          _P),
-    # p1 (B,N1,3), p2 (B,N2,3), f2 (B,N2,C), out (B,N1,C), idx_out (B,N1,3)
+    # the coarse cloud's layout: sorted (B,N2,4) f32 with the index bits in
+    # w, boxes (B,ceil(N2/64),6), sorted Morton codes (B,N2) i64, the frame's
+    # lo (B rows of 3 f32) and row stride, scale (B f32) and stride; p1
+    # (B,N1,3), the fine points' order (B,N1) i32 and its element stride,
+    # home (B,N1) i32 or null, f2 (B,N2,C), out (B,N1,C), idx_out (B,N1,3)
     # i32 or null, w_out (B,N1,3) or null, B, N1, N2, C, stream
-    "amc3d_three_interpolate": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "amc3d_three_interpolate": (_P, _P, _P, _P, _I, _P, _I, _P, _P, _I, _P,
+                                _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # chunk-pruned: sorted coarse points (B,N2,4) f32 with the index bits in
     # w, boxes (B,ceil(N2/64),6), p1 (B,N1,3), order (B,N1) i32, home
     # (B,N1) i32, f2 (B,N2,C), out (B,N1,C), idx_out, w_out or null, visits
     # (1) u64 zeroed or null, B, N1, N2, C, stream
     "amc3d_three_interpolate_big": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                     _I, _I, _I, _I, _P),
-    # g (B,N1,C), idx (B,N1,3) i32, w (B,N1,3), df2 (B,N2,C) zeroed, B, N1,
-    # N2, C, stream
-    "amc3d_three_interpolate_backward": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
-    # the same, support-owned and deterministic; df2 need not be zeroed
+    # g (B,N1,C), idx (B,N1,3) i32, w (B,N1,3), the fine points' order
+    # (B,N1) i32 or null and its element stride, df2 (B,N2,C) (zeroed by the
+    # entry point), B, N1, N2, C, stream
+    "amc3d_three_interpolate_backward": (_P, _P, _P, _P, _I, _P, _I, _I, _I,
+                                         _I, _P),
+    # g, idx, w, df2 (support-owned and deterministic; df2 need not be
+    # zeroed), B, N1, N2, C, stream
     "amc3d_three_interpolate_backward_big": (_P, _P, _P, _P, _I, _I, _I, _I,
                                              _P),
     # every contrast kernel reads the sorted cloud (B,N,4) f32 with the

@@ -11,6 +11,14 @@ large supports (``::_interp_thr_seed_kernel``, ``::_interp_thr_kernel``,
 ``csrc/interpolate_big.cu``.  Weights are ``1/(√d² + 1e-8)``, normalised
 over the 3 nearest coarse points.
 
+The forward kernel is a listed scan over the coarse cloud's Morton-sorted
+layout (``ops/spatial.py``), the fine points taken along their own curve;
+a caller that holds both stage clouds' layouts (the decoder: the forward
+sorts its stage clouds once) hands them in (``cloud=`` the coarse one,
+``query_cloud=`` the fine one), else the wrapper sorts.  The backward
+walks the fine points in the order the forward took them, so the
+neighbours of a block's points share coarse rows.
+
 Semantics follow the JAX plain path (``interpolate.py:42-57``): exactly
 three neighbours, ties to the lowest index.  The TPU kernel instead
 averages every neighbour whose d² ties the 3rd (a 4th point may enter);
@@ -70,6 +78,15 @@ def _forward_plain(p1, p2, f2):
     return three_interpolate(f2, idx, w), idx, w
 
 
+def _check_layouts(p1, p2, cloud, query_cloud) -> None:
+    """Raises unless ``cloud`` (when given) is the layout of the coarse
+    points ``p2`` and ``query_cloud`` that of the fine points ``p1``."""
+    if cloud is not None:
+        spatial.check_layout(cloud, p2)
+    if query_cloud is not None:
+        spatial.check_layout(query_cloud, p1)
+
+
 # The JAX package keeps the forward's coarse buffer [f | 1 | x y z] resident
 # while it fits this budget, and sends larger ones to its three kernels for
 # large supports (``interpolate_pallas.py::_interp_fwd_impl``); the port
@@ -105,36 +122,67 @@ def _check_forward(p1, p2, f2) -> None:
                              f"{t.device} contiguous={t.is_contiguous()}")
 
 
-def _forward_kernel(p1, p2, f2, keep: bool):
+def _forward_kernel(p1, p2, f2, keep: bool, cloud=None, query_cloud=None):
     """Launch the forward kernel (:func:`three_interpolation_big` where
-    :func:`forward_is_big` says so, else :func:`three_interpolation_small`);
-    with ``keep`` it also returns the (B, N1, 3) neighbour indices and
-    weights for the backward."""
+    :func:`forward_is_big` says so, else the listed scan of
+    ``csrc/interpolate.cu``); with ``keep`` it also returns the (B, N1, 3)
+    neighbour indices and weights for the backward.  Returns (out, idx, w,
+    order): ``order`` the fine points in the order the listed scan took
+    them (None after the big kernel)."""
     _check_forward(p1, p2, f2)
     if forward_is_big(f2.shape[1], f2.shape[2]):
-        return three_interpolation_big(p1, p2, f2, keep)
-    return three_interpolation_small(p1, p2, f2, keep)
+        return (*three_interpolation_big(p1, p2, f2, keep), None)
+    return _listed(p1, p2, f2, keep, cloud, query_cloud)
 
 
-def three_interpolation_small(p1: torch.Tensor, p2: torch.Tensor,
-                              f2: torch.Tensor, keep: bool = False):
-    """(out, idx, w) as :func:`three_interpolation_big` returns them, through
-    the ``csrc/interpolate.cu`` kernel, which tests every coarse point for
-    every fine point (any shape; CUDA tensors only)."""
-    _check_forward(p1, p2, f2)
+def _fine_order(p1, cloud, query_cloud):
+    """(order (B, N1) int32, home (B, N1) int32 or None): the fine points in
+    the order the kernels take them.  From the fine layout, the index bits
+    of its sorted points (a view, 4 elements apart), each point's home
+    chunk then found in the kernel; without it, from
+    :func:`spatial.query_order` in the coarse layout's frame."""
+    if query_cloud is not None:
+        return query_cloud.packed.view(torch.int32)[..., 3], None
+    return spatial.query_order(p1, cloud)
+
+
+def _listed(p1, p2, f2, keep, cloud, query_cloud):
     B, N1, _ = p1.shape
     _, N2, C = f2.shape
+    if cloud is None:
+        cloud = spatial.sort_support(p2)
+    order, home = _fine_order(p1, cloud, query_cloud)
     out = torch.empty(B, N1, C, dtype=torch.float32, device=p1.device)
     idx = w = None
     if keep:
         idx = torch.empty(B, N1, 3, dtype=torch.int32, device=p1.device)
         w = torch.empty(B, N1, 3, dtype=torch.float32, device=p1.device)
-    launch("amc3d_three_interpolate", p1.data_ptr(), p2.data_ptr(),
+    # the frame's rows are views (a sort_stages frame holds lo and scale in
+    # one row of 4), so the kernel takes their strides
+    launch("amc3d_three_interpolate", cloud.packed.data_ptr(),
+           cloud.boxes.data_ptr(), cloud.codes.data_ptr(),
+           cloud.lo.data_ptr(), cloud.lo.stride(0), cloud.scale.data_ptr(),
+           cloud.scale.stride(0), p1.data_ptr(), order.data_ptr(),
+           order.stride(1), None if home is None else home.data_ptr(),
            f2.data_ptr(), out.data_ptr(), idx.data_ptr() if keep else None,
            w.data_ptr() if keep else None, B, N1, N2, C,
            torch.cuda.current_stream(p1.device).cuda_stream)
     three_interpolation.launches += 1
-    return out, idx, w
+    return out, idx, w, order
+
+
+def three_interpolation_small(p1: torch.Tensor, p2: torch.Tensor,
+                              f2: torch.Tensor, keep: bool = False,
+                              cloud: Optional[spatial.SortedCloud] = None,
+                              query_cloud: Optional[spatial.SortedCloud] = None):
+    """(out, idx, w) as :func:`three_interpolation_big` returns them, through
+    the listed scan of ``csrc/interpolate.cu`` over ``cloud`` (the layout of
+    ``p2``), the fine points in the order of ``query_cloud`` (the layout of
+    ``p1``); each is refused for another tensor and sorted here when not
+    given.  Any shape; CUDA tensors only."""
+    _check_layouts(p1, p2, cloud, query_cloud)
+    _check_forward(p1, p2, f2)
+    return _listed(p1, p2, f2, keep, cloud, query_cloud)[:3]
 
 
 def three_interpolation_big(p1: torch.Tensor, p2: torch.Tensor,
@@ -175,10 +223,13 @@ three_interpolation_big.launches = 0
 
 
 def three_interpolation_backward_plain(grad: torch.Tensor, idx: torch.Tensor,
-                                       weight: torch.Tensor,
-                                       n2: int) -> torch.Tensor:
+                                       weight: torch.Tensor, n2: int,
+                                       order: Optional[torch.Tensor] = None
+                                       ) -> torch.Tensor:
     """Plain VJP: grad (B, N1, C), idx/weight (B, N1, 3) → df2 (B, N2, C),
-    ``df2[idx[i, k]] += weight[i, k]·grad[i]`` by ``index_add_``."""
+    ``df2[idx[i, k]] += weight[i, k]·grad[i]`` by ``index_add_``.  It takes
+    :func:`three_interpolation_backward`'s arguments; ``order`` changes
+    nothing here."""
     B, N1, C = grad.shape
     rows = (idx.long() + n2 * torch.arange(B, device=idx.device)[:, None, None])
     contrib = weight[..., None] * grad[:, :, None, :]          # (B, N1, 3, C)
@@ -206,7 +257,7 @@ def backward_is_big(n1: int, c: int) -> bool:
     return -(-n1 // tq) * tq * lanes * 4 > _QBUF_BUDGET
 
 
-def _check_backward(grad, idx, weight):
+def _check_backward(grad, idx, weight, order=None):
     tensors = (grad, idx, weight)
     B, N1, C = grad.shape
     if idx.shape != (B, N1, 3) or weight.shape != (B, N1, 3):
@@ -217,33 +268,52 @@ def _check_backward(grad, idx, weight):
                 or t.device != grad.device or not t.is_contiguous()):
             raise ValueError("interpolation backward kernel needs contiguous "
                              f"CUDA tensors, got {t.dtype} on {t.device}")
+    if order is not None and (
+            order.shape != (B, N1) or order.dtype != torch.int32
+            or order.device != grad.device or order.stride(1) < 1
+            or (B > 1 and order.stride(0) != N1 * order.stride(1))):
+        raise ValueError(f"order must be a ({B}, {N1}) int32 tensor on "
+                         f"{grad.device} with rows N1 elements apart, got "
+                         f"{tuple(order.shape)} {order.dtype} on {order.device} "
+                         f"strides {order.stride()}")
 
 
 def three_interpolation_backward(grad: torch.Tensor, idx: torch.Tensor,
-                                 weight: torch.Tensor, n2: int) -> torch.Tensor:
+                                 weight: torch.Tensor, n2: int,
+                                 order: Optional[torch.Tensor] = None
+                                 ) -> torch.Tensor:
     """grad (B, N1, C) f32, idx (B, N1, 3) i32, weight (B, N1, 3) f32
     → df2 (B, N2, C).  A CUDA tensor goes through
     :func:`three_interpolation_backward_big` where :func:`backward_is_big`
     says so and through :func:`three_interpolation_backward_small`
-    otherwise; a CPU tensor through the plain twin."""
+    otherwise (``order``: the fine points in the order the forward took
+    them); a CPU tensor through the plain twin."""
     if _on_cpu(grad, idx, weight):
         return three_interpolation_backward_plain(grad, idx, weight, n2)
     if backward_is_big(grad.shape[1], grad.shape[2]):
         return three_interpolation_backward_big(grad, idx, weight, n2)
-    return three_interpolation_backward_small(grad, idx, weight, n2)
+    return three_interpolation_backward_small(grad, idx, weight, n2, order)
 
 
 def three_interpolation_backward_small(grad: torch.Tensor, idx: torch.Tensor,
-                                       weight: torch.Tensor,
-                                       n2: int) -> torch.Tensor:
+                                       weight: torch.Tensor, n2: int,
+                                       order: Optional[torch.Tensor] = None
+                                       ) -> torch.Tensor:
     """:func:`three_interpolation_backward` through the scatter kernel of
-    ``csrc/interpolate.cu`` (float atomics; any shape, CUDA tensors only)."""
-    _check_backward(grad, idx, weight)
+    ``csrc/interpolate.cu``: blocks of 64 fine points taken in ``order``
+    ((B, N1) int32, each row a permutation of its fine points, as
+    :func:`three_interpolation_small` took them; rows N1 elements apart, a
+    stride within a row allowed) or, without it, in the caller's order, each
+    block's coarse rows summed in shared memory and added into df2 once
+    (float atomics across blocks; any shape, CUDA tensors only)."""
+    _check_backward(grad, idx, weight, order)
     B, N1, C = grad.shape
-    df2 = torch.zeros(B, n2, C, dtype=torch.float32, device=grad.device)
+    df2 = torch.empty(B, n2, C, dtype=torch.float32, device=grad.device)
     launch("amc3d_three_interpolate_backward", grad.data_ptr(),
-           idx.data_ptr(), weight.data_ptr(), df2.data_ptr(), B, N1, n2, C,
-           torch.cuda.current_stream(grad.device).cuda_stream)
+           idx.data_ptr(), weight.data_ptr(),
+           None if order is None else order.data_ptr(),
+           1 if order is None else order.stride(1), df2.data_ptr(), B, N1,
+           n2, C, torch.cuda.current_stream(grad.device).cuda_stream)
     three_interpolation_backward.launches += 1
     return df2
 
@@ -270,24 +340,28 @@ def three_interpolation_backward_big(grad: torch.Tensor, idx: torch.Tensor,
 
 class _ThreeInterpolation(torch.autograd.Function):
     """Forward by the kernel (or the plain twin), backward by the backward
-    kernel (or its plain twin); gradients reach the features only."""
+    kernel (or its plain twin) in the order the forward took the fine
+    points; gradients reach the features only."""
 
     @staticmethod
-    def forward(ctx, p1, p2, f2, plain: bool):
+    def forward(ctx, p1, p2, f2, plain: bool, cloud, query_cloud):
+        order = None
         if plain:
             out, idx, w = _forward_plain(p1, p2, f2)
         else:
-            out, idx, w = _forward_kernel(p1, p2, f2, keep=True)
-        ctx.save_for_backward(idx, w)
+            out, idx, w, order = _forward_kernel(p1, p2, f2, True, cloud,
+                                                 query_cloud)
+        ctx.save_for_backward(idx, w, order)
         ctx.n2, ctx.plain = f2.shape[1], plain
         return out
 
     @staticmethod
     def backward(ctx, grad):
-        idx, w = ctx.saved_tensors
+        idx, w, order = ctx.saved_tensors
         bwd = (three_interpolation_backward_plain if ctx.plain
                else three_interpolation_backward)
-        return None, None, bwd(grad.contiguous(), idx, w, ctx.n2), None
+        return (None, None, bwd(grad.contiguous(), idx, w, ctx.n2, order),
+                None, None, None)
 
 
 def _needs_grad(t: torch.Tensor) -> bool:
@@ -295,33 +369,46 @@ def _needs_grad(t: torch.Tensor) -> bool:
 
 
 def three_interpolation_plain(unknown_xyz: torch.Tensor, known_xyz: torch.Tensor,
-                              known_feat: torch.Tensor) -> torch.Tensor:
+                              known_feat: torch.Tensor,
+                              cloud: Optional[spatial.SortedCloud] = None,
+                              query_cloud: Optional[spatial.SortedCloud] = None
+                              ) -> torch.Tensor:
     """Plain PyTorch interpolation of coarse features onto fine points,
-    with the plain VJP when the features need a gradient."""
+    with the plain VJP when the features need a gradient.  It takes
+    :func:`three_interpolation`'s arguments; the layouts change nothing
+    here."""
     if _needs_grad(known_feat):
         return _ThreeInterpolation.apply(unknown_xyz, known_xyz, known_feat,
-                                         True)
+                                         True, None, None)
     return _forward_plain(unknown_xyz, known_xyz, known_feat)[0]
 
 
 def three_interpolation(unknown_xyz: torch.Tensor, known_xyz: torch.Tensor,
-                        known_feat: torch.Tensor) -> torch.Tensor:
+                        known_feat: torch.Tensor,
+                        cloud: Optional[spatial.SortedCloud] = None,
+                        query_cloud: Optional[spatial.SortedCloud] = None
+                        ) -> torch.Tensor:
     """unknown (B, N1, 3), known (B, N2, 3), features (B, N2, C), all f32
     → (B, N1, C).
 
-    A CUDA tensor goes through the fused ``csrc/interpolate.cu`` kernel
-    (selection and weighted sum in one pass, nothing materialised), or
+    A CUDA tensor goes through the listed scan of ``csrc/interpolate.cu``
+    (selection and weighted sum in one pass, nothing materialised) over
+    ``cloud`` (the layout of ``known_xyz``), the fine points in the order of
+    ``query_cloud`` (the layout of ``unknown_xyz``), each refused for
+    another tensor, on the CPU too, and sorted here when not given; or
     through :func:`three_interpolation_big` where :func:`forward_is_big`
-    says so; when the features need a gradient the kernel also keeps the
+    says so.  When the features need a gradient the kernel also keeps the
     indices and weights, and the backward kernel scatters into the
     features.  A CPU tensor goes through :func:`three_interpolation_plain`."""
+    _check_layouts(unknown_xyz, known_xyz, cloud, query_cloud)
     tensors = (unknown_xyz, known_xyz, known_feat)
     if _on_cpu(*tensors):
         return three_interpolation_plain(*tensors)
     if _needs_grad(known_feat):
         return _ThreeInterpolation.apply(unknown_xyz, known_xyz, known_feat,
-                                         False)
-    return _forward_kernel(unknown_xyz, known_xyz, known_feat, keep=False)[0]
+                                         False, cloud, query_cloud)
+    return _forward_kernel(unknown_xyz, known_xyz, known_feat, False, cloud,
+                           query_cloud)[0]
 
 
 three_interpolation.launches = 0

@@ -296,6 +296,17 @@ def sort_stages(stages) -> list:
     return clouds
 
 
+def sort_each(clouds) -> list:
+    """The :class:`SortedCloud` of each cloud of ``clouds`` (a forward's
+    stage clouds) by one :func:`sort_stages` over the distinct tensors
+    among them: a stage that repeats the one before shares its layout.
+    Made without gradient."""
+    distinct = list({id(t): t for t in clouds}.values())
+    with torch.no_grad():
+        layouts = dict(zip(map(id, distinct), sort_stages(distinct)))
+    return [layouts[id(t)] for t in clouds]
+
+
 def query_order(query: torch.Tensor,
                 cloud: SortedCloud) -> Tuple[torch.Tensor, torch.Tensor]:
     """query (B, m, 3) → (order (B, m) int32, home (B, m) int32): the

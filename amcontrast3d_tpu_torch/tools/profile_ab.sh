@@ -17,18 +17,21 @@
 # (say AB_TOOLS="profile_scans profile_train"); a tool the parent does not
 # have, or whose file in the change's tree holds the line
 # "AB_BOTH_PACKAGES = True" (it reads only what both packages have), runs
-# from the change's tree over the parent's package.  _parent/ is
-# git-ignored; each checkout builds its own kernels.
+# from the change's tree over the parent's package.  AB_PARENT names
+# another tree to take the parent's place (say a variant of the change
+# under _parent/variant).  _parent/ is git-ignored; each checkout builds its
+# own kernels.
 set -eu
 root=$(pwd)
-[ -d "$root/_parent/amcontrast3d_tpu_torch" ] || {
-    echo "profile_ab: unpack the parent commit into _parent/ first" >&2
+parent=$root/${AB_PARENT:-_parent}
+[ -d "$parent/amcontrast3d_tpu_torch" ] || {
+    echo "profile_ab: unpack the parent commit into $parent first" >&2
     exit 2
 }
 nvidia-smi --query-gpu=name,power.limit --format=csv,noheader
 for tool in ${AB_TOOLS:-profile_eval profile_train}; do
     for side in parent change change parent; do
-        [ "$side" = parent ] && dir="$root/_parent" || dir="$root"
+        [ "$side" = parent ] && dir="$parent" || dir="$root"
         echo "=== $side: $tool $*"
         mine="$root/amcontrast3d_tpu_torch/tools/$tool.py"
         if [ -f "$dir/amcontrast3d_tpu_torch/tools/$tool.py" ] &&

@@ -11,8 +11,10 @@ and uniform clouds: the chunk-pruned FPS (``csrc/fps_pruned.cu``) at
 ``csrc/fps_b1.cu`` (time and chunk visits a pick), and the chunk-pruned
 interpolation (``csrc/interpolate_big.cu``) at fp0 of the 221184 and 311296
 buckets (C = 128) and at fp1 of the 622592 bucket (155648 -> 38912,
-C = 256) beside the dense ``csrc/interpolate.cu`` (time and the share of
-chunk visits skipped); picks and outputs are compared for equality.
+C = 256) beside the listed scan of ``csrc/interpolate.cu`` over the two
+clouds' layouts (one ``sort_stages``, as a forward makes them; time and
+the share of chunk visits the pruned kernel skips), the crossing of the
+two kernels at the rungs; picks and outputs are compared for equality.
 
 Prints the card, then per kernel the median device time (CUDA events):
 the whole-room FPS per stage with its time per pick through the cluster
@@ -109,15 +111,19 @@ def rungs(dev, rng, tag: str) -> None:
             f2 = torch.from_numpy(rng.randn(1, n2, c).astype(np.float32)).to(dev)
             visits = torch.zeros(1, dtype=torch.int64, device=dev)
             out, idx, w = ops.three_interpolation_big(p1, p2, f2, True, visits)
-            d_out, d_idx, d_w = ops.three_interpolation_small(p1, p2, f2, True)
-            for what, a, b in (("out", out, d_out), ("idx", idx, d_idx),
-                               ("w", w, d_w)):
+            fine, coarse = spatial.sort_stages([p1, p2])
+            l_out, l_idx, l_w = ops.three_interpolation_small(p1, p2, f2, True,
+                                                              coarse, fine)
+            for what, a, b in (("out", out, l_out), ("idx", idx, l_idx),
+                               ("w", w, l_w)):
                 _equal(f"interpolation {name} {n1} {what}", a, b)
             ms = cuda_ms(lambda: ops.three_interpolation_big(p1, p2, f2))
-            dense = cuda_ms(lambda: ops.three_interpolation_small(p1, p2, f2), 3)
+            listed = cuda_ms(lambda: ops.three_interpolation_small(
+                p1, p2, f2, False, coarse, fine))
             pairs = n1 * -(-n2 // 64)
             print(f"{name} interpolation {n1} -> {n2}, C={c}: pruned {ms:.3f} "
-                  f"ms, dense {dense:.3f} ms, chunk visits skipped "
+                  f"ms (its own sort included), listed over the layouts "
+                  f"{listed:.3f} ms, chunk visits the pruned kernel skips "
                   f"{100 * (1 - visits.item() / pairs):.3f} %, "
                   f"{visits.item() / n1:.2f} a fine point  [{tag}]")
 

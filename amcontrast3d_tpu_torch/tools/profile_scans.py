@@ -1,10 +1,11 @@
 """Time the exact kNN (kernel 6), the three contrast kernels (the forward
 14, the rows VJP 15, the support VJP 16), the ball query (kernel 2), the
-CrossMask forward (kernel 18) and the approx configuration's threshold
-selection (14's selection mode) and label vote (17) on one NVIDIA GPU at
-the train steps' shapes.
+CrossMask forward (kernel 18), the approx configuration's threshold
+selection (14's selection mode) and label vote (17), and the interpolation
+(kernel 3) and its VJP (kernel 9) on one NVIDIA GPU at the train steps'
+shapes.
 
-    python3 -m amcontrast3d_tpu_torch.tools.profile_scans [--crossing | --select] [--runs R]
+    python3 -m amcontrast3d_tpu_torch.tools.profile_scans [--crossing | --select | --interp] [--runs R]
 
 For the S3DIS step (B = 4 clouds of 24000 points, uniform in [0, 4]³,
 stages from FPS) it times the seven kNN calls of a step (the self-kNN of
@@ -46,7 +47,13 @@ the selection and the vote (kernel device time) at the S3DIS step's stages
 and its stages), over the stage layouts where the package's wrappers take
 them: run over a parent's package by ``profile_ab.sh``, its dense kernels.
 ``--select`` times only those lines of the selection and the vote (the
-wrapper and the kernel), at the same two steps' shapes.
+wrapper and the kernel), at the same two steps' shapes.  ``--interp``
+times only the interpolation and its VJP at the four decoder stages of
+both steps (coarse C = 128, 256, 512, 1024): the forward over the two stage
+layouts where the package's wrapper takes them, the VJP (the dispatch's
+kernel: ScanNet's fp0 goes to the support-owned kernel 10) in the fine
+layout's order where the wrapper takes one, and kernel 9 itself at every
+stage in the caller's order and, where it takes one, in the layout's.
 
 The script reads only what every version of the package has (``ops.knn``,
 ``ops.contrast_forward``, ``ops.contrast_grad_rows``,
@@ -86,6 +93,11 @@ BALL_K, REFINE_K = 32, 12
 BALL_KERNELS = ("ball_query_kernel", "ball_query_big_kernel")
 # the selection's and the vote's kernels (listed or, in a parent, dense)
 SELECT_KERNEL, VOTE_KERNEL, VOTE_CLASSES = "contrast_select_kernel", "label_vote_kernel", 13
+# the interpolation's kernels: the forward (3), its VJP (9), the
+# support-owned VJP (10); the coarse widths of fp0 ... fp3
+INTERP_KERNEL, INTERP_BWD_KERNEL, INTERP_BWD_BIG_KERNEL = \
+    "interp_kernel", "interp_bwd_kernel", "interp_bwd_big_kernel"
+INTERP_CHANNELS = (128, 256, 512, 1024)
 
 
 def card() -> str:
@@ -340,6 +352,69 @@ def selection_lines(rng, stages, layouts, runs: int, wrapper_too: bool = True):
     return totals
 
 
+def interp_lines(rng, stages, layouts, runs: int) -> None:
+    """Prints the interpolation's times at the four decoder stages (stage s
+    onto s − 1) over the two stage layouts where this package's wrapper
+    takes them, and its VJP's: the dispatch in the fine layout's order
+    where the wrapper takes one, and kernel 9 in the caller's order (and in
+    the layout's); then the kernel times summed over the stages."""
+    dev = stages[0].device
+    b = stages[0].shape[0]
+    fwd_kw = takes(ops.three_interpolation, "cloud")
+    bwd_kw = takes(ops.three_interpolation_backward, "order")
+    totals = [0.0, 0.0, 0.0]
+    for s, c in zip(range(1, 5), INTERP_CHANNELS):
+        p1, p2 = stages[s - 1], stages[s]
+        n1, n2 = p1.shape[1], p2.shape[1]
+        f2 = torch.from_numpy(rng.randn(b, n2, c).astype(np.float32)).to(dev)
+        g = torch.from_numpy(rng.randn(b, n1, c).astype(np.float32)).to(dev)
+        kw = ({"cloud": layouts[s], "query_cloud": layouts[s - 1]}
+              if fwd_kw and layouts[s] is not None else {})
+        _, idx, w = ops.three_interpolation_small(p1, p2, f2, True, **kw)
+        order = ({"order": layouts[s - 1].packed.view(torch.int32)[..., 3]}
+                 if bwd_kw and layouts[s - 1] is not None else {})
+
+        def fwd():
+            return ops.three_interpolation(p1, p2, f2, **kw)
+
+        def bwd():
+            return ops.three_interpolation_backward(g, idx, w, n2, **order)
+
+        ms = kernel_ms(fwd, runs, (INTERP_KERNEL,))
+        ms_b = kernel_ms(bwd, runs, (INTERP_BWD_KERNEL, INTERP_BWD_BIG_KERNEL))
+        scatter = {"caller's order": kernel_ms(
+            lambda: ops.three_interpolation_backward_small(g, idx, w, n2),
+            runs, (INTERP_BWD_KERNEL,))}
+        if order:
+            scatter["layout order"] = kernel_ms(
+                lambda: ops.three_interpolation_backward_small(g, idx, w, n2,
+                                                               **order),
+                runs, (INTERP_BWD_KERNEL,))
+        totals[0] += ms
+        totals[1] += ms_b
+        totals[2] += list(scatter.values())[-1]
+        print(f"  interpolation (3) B={b} {n2} -> {n1} C={c}"
+              f"{' over the layouts' if kw else ''}: wrapper "
+              f"{cuda_ms(fwd, runs):.4f} ms, kernel {ms:.4f}; VJP "
+              f"{'(10) ' if ops.interpolate.backward_is_big(n1, c) else '(9) '}"
+              f"{'in the layout order ' if order else ''}wrapper "
+              f"{cuda_ms(bwd, runs):.4f} ms, kernel {ms_b:.4f}; kernel 9 "
+              + ", ".join(f"in the {k} {v:.4f}" for k, v in scatter.items()))
+    print(f"  interpolation (3) summed over the four stages (kernel device "
+          f"time): {totals[0]:.4f} ms; its VJP as dispatched {totals[1]:.4f} ms; "
+          f"kernel 9 at every stage in the step's order {totals[2]:.4f} ms")
+
+
+def interp_steps(rng, dev, runs: int, layouts_on: bool) -> None:
+    """The interpolation and its VJP at the S3DIS and the ScanNet step's
+    stages (:func:`interp_lines`)."""
+    for name, b, n in (("S3DIS", 4, 24000), ("ScanNet", 2, 64000)):
+        forward = stages_of(rng, dev, b, n, 4.0, 5)
+        layouts = spatial.sort_stages(forward) if layouts_on else [None] * 5
+        print(f"{name} step's interpolation and its VJP:")
+        interp_lines(rng, forward, layouts, runs)
+
+
 def selection_steps(rng, dev, runs: int, layouts_on: bool,
                     wrapper_too: bool = True) -> None:
     """The selection and the vote at the S3DIS and the ScanNet step's
@@ -383,6 +458,7 @@ def step(rng, dev, name: str, b: int, n: int, side: float, runs: int,
     print(f"  contrast forward (14) at C=1 summed over the four stages (kernel "
           f"device time): {total:.4f} ms")
     selection_lines(rng, forward, layouts, runs)
+    interp_lines(rng, forward, layouts, runs)
 
 
 def main() -> None:
@@ -392,6 +468,8 @@ def main() -> None:
                          "JAX package's 32768-point gate")
     ap.add_argument("--select", action="store_true",
                     help="only the selection (14) and the vote (17)")
+    ap.add_argument("--interp", action="store_true",
+                    help="only the interpolation (3) and its VJP (9, 10)")
     ap.add_argument("--runs", type=int, default=11)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -431,6 +509,9 @@ def main() -> None:
         return
     if args.select:
         selection_steps(rng, dev, args.runs, layouts_on)
+        return
+    if args.interp:
+        interp_steps(rng, dev, args.runs, layouts_on)
         return
     s3dis = [(s, s, KNN_K) for s in range(4)] + [(0, s, 4 ** s) for s in range(1, 4)]
     step(rng, dev, "S3DIS step", 4, 24000, 4.0, args.runs, s3dis, layouts_on,

@@ -20,9 +20,13 @@
    forward over the stages' layouts (one sort of the five stage clouds, as
    the encoder sorts them), indices identical to the twin, the same bits
    twice, with its pruned bound (the chunks whose box reaches into a ball)
-   and the dense one (a scan in index order to each query's 32nd hit);
-   interpolation forward
-   within 1e-5·(1+max|out|) and its backward within 1e-5·(1+max|df|);
+   and the dense one (a scan in index order to each query's 32nd hit); the
+   listed interpolation forward at the four decoder stages over both
+   stages' layouts (stage s onto s - 1), indices identical to the twin's,
+   weights and output within 1e-5·(1+max|out|), with its listed bound (the
+   chunks whose bound is not above each fine point's 3rd d², then the
+   weighted sum) beside the dense one; its backward in the fine layout's
+   order within 1e-5·(1+max|df|);
    the three chunk-pruned contrast kernels over the stage's sorted layout:
    the forward's counts and threshold identical and its sums within
    1e-5·(1+max|ref|), both halves of the VJP within 1e-4·(1+max|df|), each
@@ -79,7 +83,9 @@
    boxes on a 0.04 m grid, with repeated points) and a uniform one: the
    whole-room FPS at the four stages (its cluster kernel, and its grid
    kernel beside it) and at 1.2 M points (the grid kernel; 4096 picks, on a
-   uniform and a clustered cloud), picks identical to the twin; the
+   uniform and a clustered cloud), picks identical to the twin; the listed
+   interpolation at the subcloud's four decoder stages over their layouts,
+   indices identical to the twin's, output within 1e-5·(1+max|out|); the
    listed ball query at the three (M, N, r) pairs whose support exceeds
    the JAX package's 32768-point gate, indices identical to the twin, with
    the share of chunk visits it skips; the
@@ -109,12 +115,14 @@
    totals, the launches, the plain rescoring);
 9. runs the kernels of the ScanNet recipe's train step at its shapes
    (B = 2 clouds of 64000 points on a 0.02 m grid, 16000 coarse points):
-   the support-owned interpolation VJP at (2, 64000 → 16000, C = 128)
+   the listed interpolation at its four decoder stages (indices identical
+   to the twin's, output within 1e-5·(1+max|out|)); the support-owned
+   interpolation VJP at (2, 64000 → 16000, C = 128)
    against its twin within 1e-5·(1+max|df2|) and against itself (two runs,
    identical bits), and at a shape that is a multiple of no tile with a
    support row no query selects (exactly 0), with its time, its bound, the
    twin's and ``index_add_``'s time and the scatter kernel's on the same
-   input, and both kernels again at the S3DIS recipe's largest shape
+   input (in the fine layout's order), and both kernels again at the S3DIS recipe's largest shape
    (4, 24000 → 6000, C = 128); the batched FPS 2 × 64000 → 16000 (one
    cluster a cloud, ``csrc/fps.cu``), picks identical to the twin, and the
    grid kernel cloud by cloud beside it; the three contrast kernels at
@@ -152,7 +160,8 @@
    of a visited chunk) and the floor of picks x one cluster-wide reduction;
    the chunk-pruned interpolation at fp0 of the 221184 and 311296 buckets
    (C = 128) and at (155648 -> 38912, C = 256), coarse points from FPS:
-   output, indices and weights identical to ``interpolate.cu``'s, output
+   output, indices and weights identical to the listed ``interpolate.cu``'s
+   over the two clouds' layouts, output
    within 1e-5·(1+max|out|) of the twin, the share of chunk visits
    skipped, and the gradient through its saved triples within
    1e-5·(1+max|df2|) of the twin's; kNN at k = 256 through both kNN kernels
@@ -336,7 +345,8 @@ LAUNCHES = {
     "mm eval": {**EVAL_LAUNCHES, "refine_cross": 4},
     "mm train": {**TRAIN_LAUNCHES, "refine_cross": 4,
                  "refine_cross_backward": 4},
-    "base eval": {"fps": 4, "ball_query": 4, "three_interpolation": 4},
+    "base eval": {"fps": 4, "ball_query": 4, "three_interpolation": 4,
+                  **SORT_LAUNCHES},
     "aa train approx": APPROX_LAUNCHES,
     "aa train approx fused": {**APPROX_LAUNCHES, "aggregate_forward": AGG_LAUNCHES,
                               "aggregate_backward": AGG_LAUNCHES},
@@ -489,22 +499,31 @@ def kernel_phases(ops, dev, rng, tag: str) -> dict:
                           forward_layouts[si], forward_layouts[qi], r, cloud,
                           f"{cloud} stage {s}", note, timed, results, tag)
         for s in range(1, 5):
+            # stage s onto s - 1 over both stages' layouts, as the decoder
+            # hands them on
             p1, p2 = stages[s - 1], stages[s]
+            fine, coarse = forward_layouts[s - 1], forward_layouts[s]
             n1, n2, c = p1.shape[1], p2.shape[1], channels[s - 1]
             f2 = randn(B, n2, c)
-            got = ops.three_interpolation(p1, p2, f2)
-            want = ops.three_interpolation_plain(p1, p2, f2)
-            note("three_interpolation", check_close(
-                f"interpolation {cloud} stage {s}", got, want, 1e-5))
-            timed("three_interpolation", cloud,
-                  lambda: ops.three_interpolation(p1, p2, f2),
-                  lambda: ops.three_interpolation_plain(p1, p2, f2),
-                  B * ((n1 + n2) * 12 + (n1 + n2) * c * 4),
-                  B * n1 * (n2 * PAIR_OPS + c * 5))
-            # the backward on the indices and weights the forward keeps
-            idx, w = ops.three_interpolation_weights(p1, p2)
+            err, idx, w, listed, dense = interp_scan(
+                ops, spatial, p1, p2, f2, coarse, fine, f"{cloud} stage {s}")
+            note("three_interpolation", err)
+            ms = timed("three_interpolation", cloud,
+                       lambda: ops.three_interpolation(p1, p2, f2, coarse, fine),
+                       lambda: ops.three_interpolation_plain(p1, p2, f2),
+                       B * ((n1 + n2) * 12 + (n1 + n2) * c * 4), listed)
+            if ms is not None:
+                r = results["three_interpolation"]
+                r["dense_ops"] = r.get("dense_ops", 0.0) + dense
+                print(f"interpolation {cloud} stage {s} (B={B}, {n2} -> {n1}, "
+                      f"C={c}): {ms:.4f} ms, bound dense "
+                      f"{dense / PEAK_OPS * 1e3:.4f} / listed "
+                      f"{listed / PEAK_OPS * 1e3:.4f} ms by operations  [{tag}]")
+            # the backward on the indices and weights the forward kept, in
+            # the order it took the fine points (their layout's)
+            order = fine.packed.view(torch.int32)[..., 3]
             g = randn(B, n1, c)
-            got = ops.three_interpolation_backward(g, idx, w, n2)
+            got = ops.three_interpolation_backward(g, idx, w, n2, order)
             want = ops.three_interpolation_backward_plain(g, idx, w, n2)
             note("three_interpolation_backward", check_close(
                 f"interpolation backward {cloud} stage {s}", got, want, 1e-5))
@@ -512,7 +531,7 @@ def kernel_phases(ops, dev, rng, tag: str) -> dict:
                     ).reshape(-1)
             contrib = (w[..., None] * g[:, :, None, :]).reshape(-1, c)
             timed("three_interpolation_backward", cloud,
-                  lambda: ops.three_interpolation_backward(g, idx, w, n2),
+                  lambda: ops.three_interpolation_backward(g, idx, w, n2, order),
                   lambda: ops.three_interpolation_backward_plain(g, idx, w, n2),
                   B * (n1 * (c * 4 + 24) + n2 * c * 4), B * n1 * c * 6,
                   lambda: torch.zeros(B * n2, c, device=dev).index_add_(
@@ -633,6 +652,53 @@ def ball_scan(ops, spatial, support, query, layout, query_layout, r, cloud,
               f"{dense_ops / PEAK_OPS * 1e3:.4f} / pruned "
               f"{pruned_ops / PEAK_OPS * 1e3:.4f} ms, chunk visits needed "
               f"{visits / (nb * nq):.2f} a query of {pairs // (nb * nq)}  [{tag}]")
+
+
+def interp_scan(ops, spatial, p1, p2, f2, coarse, fine, where):
+    """Kernel 3 (the listed scan of ``csrc/interpolate.cu``) over the coarse
+    stage's layout, the fine points in their own layout's order, against
+    its twin: indices identical, weights and output within 1e-5·(1+max),
+    the same bits sorting for itself.  Returns (the output's max abs err,
+    the kept indices and weights, the float instructions of the listed
+    scan (:func:`listed_ops`: the chunks whose bound is not above each fine
+    point's 3rd d², then 5 a channel for the weighted sum) and of a dense
+    one (every pair))."""
+    nb, n1, n2, c = p1.shape[0], p1.shape[1], p2.shape[1], f2.shape[-1]
+    name = f"interpolation {where} {n2} -> {n1} C={c}"
+    out, idx, w = ops.three_interpolation_small(p1, p2, f2, True, coarse, fine)
+    want_i, want_w = ops.three_interpolation_weights(p1, p2)
+    check_equal(f"{name} indices", idx, want_i)
+    check_close(f"{name} weights", w, want_w, 1e-5)
+    err = check_close(name, out, ops.three_interpolation_plain(p1, p2, f2), 1e-5)
+    check_equal(f"{name}, sorting for itself",
+                ops.three_interpolation_small(p1, p2, f2)[0], out)
+    d3 = ops.knn(p2, p1, 3, coarse)[1][..., 2]
+    visits, pairs = chunk_visits(spatial, p2, p1, d3, False, coarse)
+    work = nb * n1 * c * 5
+    return (err, idx, w, listed_ops(visits, pairs, nb, n1) + work,
+            nb * n1 * n2 * PAIR_OPS + work)
+
+
+def interp_stages(ops, spatial, stages, where, tag, rng) -> None:
+    """Kernel 3 at the four decoder stages of ``stages`` (five clouds) over
+    one sort of them, against its twin (:func:`interp_scan`), each with its
+    time and its listed and dense bounds."""
+    dev, nb = stages[0].device, stages[0].shape[0]
+    layouts = spatial.sort_stages(stages)
+    for s, c in zip(range(1, 5), (128, 256, 512, 1024)):
+        p1, p2 = stages[s - 1], stages[s]
+        f2 = torch.from_numpy(rng.randn(nb, p2.shape[1], c).astype(np.float32)
+                              ).to(dev)
+        err, _, _, listed, dense = interp_scan(
+            ops, spatial, p1, p2, f2, layouts[s], layouts[s - 1],
+            f"{where} stage {s}")
+        ms = cuda_ms(lambda: ops.three_interpolation(p1, p2, f2, layouts[s],
+                                                     layouts[s - 1]), 5)
+        print(f"interpolation {where} stage {s} (B={nb}, {p2.shape[1]} -> "
+              f"{p1.shape[1]}, C={c}): indices identical to the twin, max abs "
+              f"err {err}; {ms:.4f} ms over the layouts, bound dense "
+              f"{dense / PEAK_OPS * 1e3:.4f} / listed "
+              f"{listed / PEAK_OPS * 1e3:.4f} ms  [{tag}]")
 
 
 def layout_kernel_phases(ops, dev, tag: str) -> dict:
@@ -998,6 +1064,9 @@ def scene_kernel_phases(ops, dev, rng, tag: str) -> dict:
             add("fps_b1", timed, ms, plain_ms, n * 12 + npoint * 4,
                 npoint * n * FPS_OPS)
             stages.append(ops.gather_points(prev, got).contiguous())
+        # the subcloud forward's interpolation at its four stages (kernel
+        # 3's JSON row is the S3DIS step's)
+        interp_stages(ops, spatial, stages, f"{cloud} room", tag, rng)
         # the ball queries whose support passes the JAX package's large-cloud
         # gate, over the stages' layouts (kernel 2's JSON row is the step's
         # eight calls)
@@ -1108,6 +1177,13 @@ def scannet_kernel_phases(ops, dev, rng, tag: str) -> dict:
           f"{nb * npoint * n1 * FPS_OPS / PEAK_OPS * 1e3:.3f} ms by operations  "
           f"[{tag}]")
     q = ops.gather_points(p, got).contiguous()
+    # the forward's interpolation at the recipe's four decoder stages
+    stages = [p, q]
+    for _ in range(3):
+        prev = stages[-1]
+        stages.append(ops.gather_points(prev, ops.furthest_point_sample(
+            prev, prev.shape[1] // 4)).contiguous())
+    interp_stages(ops, spatial, stages, f"ScanNet B={nb}", tag, rng)
 
     # the interpolation VJP: ScanNet's fp0, then S3DIS's fp0
     def vjp_case(p1, p2, c, timed: bool):
@@ -1120,8 +1196,10 @@ def scannet_kernel_phases(ops, dev, rng, tag: str) -> dict:
         want = ops.three_interpolation_backward_plain(g, idx, w, m2)
         err = check_close(f"{name} support-owned vs plain", got, want, 1e-5)
         check_equal(f"{name} support-owned, two runs", got, again)
+        # the scatter kernel in the fine layout's order, as a step takes it
+        order = spatial.sort_support(p1).packed.view(torch.int32)[..., 3]
         check_close(f"{name} scatter vs plain",
-                    ops.three_interpolation_backward_small(g, idx, w, m2),
+                    ops.three_interpolation_backward_small(g, idx, w, m2, order),
                     want, 1e-5)
         r10["err"] = max(r10["err"] or 0.0, err)
         rows = (idx.long() + m2 * torch.arange(b, device=dev)[:, None, None]
@@ -1129,7 +1207,7 @@ def scannet_kernel_phases(ops, dev, rng, tag: str) -> dict:
         contrib = (w[..., None] * g[:, :, None, :]).reshape(-1, c)
         big_ms = cuda_ms(lambda: ops.three_interpolation_backward_big(g, idx, w, m2))
         small_ms = cuda_ms(
-            lambda: ops.three_interpolation_backward_small(g, idx, w, m2))
+            lambda: ops.three_interpolation_backward_small(g, idx, w, m2, order))
         plain_ms = cuda_ms(
             lambda: ops.three_interpolation_backward_plain(g, idx, w, m2), PLAIN_RUNS)
         lib_ms = cuda_ms(lambda: torch.zeros(b * m2, c, device=dev).index_add_(
@@ -1140,7 +1218,8 @@ def scannet_kernel_phases(ops, dev, rng, tag: str) -> dict:
         gate = "support-owned" if ops.interpolate.backward_is_big(m1, c) \
             else "scatter"
         print(f"{name}: the support-owned kernel {big_ms:.4f} ms, the scatter "
-              f"kernel {small_ms:.4f} ms (the dispatch takes the {gate} one), "
+              f"kernel {small_ms:.4f} ms in the fine layout's order (the "
+              f"dispatch takes the {gate} one), "
               f"plain {plain_ms:.4f} ms, index_add_ {lib_ms:.4f} ms, bound "
               f"{bound:.4f} ms; max abs err {err}, two runs identical  [{tag}]")
         if timed:
@@ -1259,6 +1338,8 @@ def rung_kernel_phases(ops, dev, rng, tag: str) -> dict:
     of the chunk-pruned FPS (the room-like 311296-point cloud) and of the
     chunk-pruned interpolation (summed over fp0 of the 221184 and 311296
     buckets, room-like clouds), and holds kNN beyond 128 neighbours."""
+    from amcontrast3d_tpu_torch.ops import spatial
+
     results = {name: {"err": None, "ms": 0.0, "plain_ms": 0.0,
                       "library_ms": None, "bytes": 0.0, "ops": 0.0}
                for name in ("fps_pruned", "three_interpolation_big")}
@@ -1317,10 +1398,12 @@ def rung_kernel_phases(ops, dev, rng, tag: str) -> dict:
                 raise AssertionError(f"{name}: the dispatch rule says dense")
             visits = torch.zeros(1, dtype=torch.int64, device=dev)
             out, idx, w = ops.three_interpolation_big(p1, p2, f2, True, visits)
-            d_out, d_idx, d_w = ops.three_interpolation_small(p1, p2, f2, True)
-            err = check_equal(f"{name} vs interpolate.cu", out, d_out)
-            check_equal(f"{name} indices vs interpolate.cu", idx, d_idx)
-            check_equal(f"{name} weights vs interpolate.cu", w, d_w)
+            fine, coarse = spatial.sort_stages([p1, p2])
+            l_out, l_idx, l_w = ops.three_interpolation_small(p1, p2, f2, True,
+                                                              coarse, fine)
+            err = check_equal(f"{name} vs interpolate.cu", out, l_out)
+            check_equal(f"{name} indices vs interpolate.cu", idx, l_idx)
+            check_equal(f"{name} weights vs interpolate.cu", w, l_w)
             check_equal(f"{name} without keep", ops.three_interpolation_big(
                 p1, p2, f2)[0], out)
             want, plain_ms = timed_once(
@@ -1328,14 +1411,16 @@ def rung_kernel_phases(ops, dev, rng, tag: str) -> dict:
             note("three_interpolation_big",
                  max(err, check_close(f"{name} vs plain", out, want, 1e-5)))
             ms = cuda_ms(lambda: ops.three_interpolation_big(p1, p2, f2))
-            dense_ms = cuda_ms(lambda: ops.three_interpolation_small(p1, p2, f2), 3)
+            listed_ms = cuda_ms(lambda: ops.three_interpolation_small(
+                p1, p2, f2, False, coarse, fine), 3)
             pairs = n1 * -(-n2 // CHUNK)
             nbytes = (n1 + n2) * 12 + n1 * 4 * c * 4
             nops = pairs * BOX_OPS + visits.item() * CHUNK * PAIR_OPS + 5 * n1 * c
             bound = max(nbytes / PEAK_BYTES, nops / PEAK_OPS) * 1e3
             print(f"{name}: output, indices and weights identical to "
                   f"interpolate.cu, max abs err vs plain {err}; {ms:.3f} ms, "
-                  f"interpolate.cu {dense_ms:.3f} ms, plain {plain_ms:.1f} ms, "
+                  f"interpolate.cu over the layouts {listed_ms:.3f} ms, plain "
+                  f"{plain_ms:.1f} ms, "
                   f"bound {bound:.3f} ms, chunk visits skipped "
                   f"{100 * (1 - visits.item() / pairs):.3f} %  [{tag}]")
             if cloud == "room" and c == 128:

@@ -400,9 +400,14 @@ def test_a_layout_of_another_cloud_is_refused_on_the_card(cuda_device):
                  lambda: ops.contrast_reductions_selfk(other, f, lab, 24,
                                                        cloud=cloud),
                  lambda: ops.label_vote(other, ilab, p, 16, 3, cloud),
-                 lambda: ops.label_vote(p, ilab, other, 16, 3, cloud, cloud)):
+                 lambda: ops.label_vote(p, ilab, other, 16, 3, cloud, cloud),
+                 lambda: ops.three_interpolation(p, other, f, cloud),
+                 lambda: ops.three_interpolation(other, p, f, cloud, cloud),
+                 lambda: ops.three_interpolation_small(p, other, f, False,
+                                                       cloud)):
         with pytest.raises(ValueError):
             call()
+    ops.three_interpolation(p, p, f, cloud, cloud)
     ops.knn(p, p, 24, cloud)
     ops.ball_query(p, p, 0.2, 32, cloud)
     ops.refine_cross(p, f, a, 12, "MIN", cloud=cloud)
@@ -413,7 +418,8 @@ def test_a_layout_of_another_cloud_is_refused_on_the_card(cuda_device):
                  lambda: ops.ball_query(p, p, 0.2, 32, cloud),
                  lambda: ops.refine_cross(p, f, a, 12, "MIN", cloud=cloud),
                  lambda: ops.contrast_select(p, 24, cloud),
-                 lambda: ops.label_vote(p, ilab, p, 16, 3, cloud)):
+                 lambda: ops.label_vote(p, ilab, p, 16, 3, cloud),
+                 lambda: ops.three_interpolation(p, p, f, cloud, cloud)):
         with pytest.raises(ValueError):
             call()
 
@@ -832,6 +838,162 @@ def test_interp_backward_dispatch_follows_the_gate(cuda_device):
         _close(f.grad, fp.grad, 1e-5)
 
 
+def _interp_stages(rng, dev, b, n, kind):
+    """The S3DIS step's stage clouds (n, n / 4, ... by FPS): uniform in
+    [0, 4]³, clustered, or on a 1/128 m grid (d² ties at every 3rd)."""
+    if kind == "grid":
+        p = (rng.randint(0, 256, (b, n, 3)) / 128).astype(np.float32)
+    else:
+        p = _cloud(rng, b, n, kind == "clustered")
+    stages = [torch.from_numpy(p).to(dev)]
+    for _ in range(4):
+        prev = stages[-1]
+        idx = ops.furthest_point_sample(prev, prev.shape[1] // 4)
+        stages.append(ops.gather_points(prev, idx).contiguous())
+    return stages
+
+
+def _check_listed_interp(p1, p2, f2, cloud=None, query_cloud=None):
+    """Kernel 3 against the twin: indices identical, weights and output
+    within 1e-5·(1+max); one launch; the same bits with and without the
+    layouts and over two runs; the gradient through the kernel pair within
+    1e-5·(1+max|df2|) of the twin's."""
+    before = ops.three_interpolation.launches
+    out, idx, w = ops.three_interpolation_small(p1, p2, f2, True, cloud,
+                                                query_cloud)
+    assert ops.three_interpolation.launches == before + 1
+    want_i, want_w = ops.three_interpolation_weights(p1, p2)
+    _equal(idx, want_i)
+    _close(w, want_w, 1e-5)
+    _close(out, ops.three_interpolation_plain(p1, p2, f2), 1e-5)
+    again = ops.three_interpolation_small(p1, p2, f2, True)
+    for got, ref in zip(again, (out, idx, w)):
+        _equal(got, ref)
+    _equal(ops.three_interpolation(p1, p2, f2, cloud, query_cloud), out)
+    g = torch.randn(p1.shape[0], p1.shape[1], f2.shape[-1], device=f2.device,
+                    generator=torch.Generator(f2.device).manual_seed(1))
+    fk = f2.clone().requires_grad_()
+    fp = f2.clone().requires_grad_()
+    ops.three_interpolation(p1, p2, fk, cloud, query_cloud).backward(g)
+    ops.three_interpolation_plain(p1, p2, fp).backward(g)
+    _close(fk.grad, fp.grad, 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["uniform", "clustered", "grid"])
+@pytest.mark.parametrize("layouts", [True, False])
+def test_listed_interpolation_at_the_stage_shapes(cuda_device, kind, layouts):
+    """The four decoder stages of a S3DIS step at B = 4 (24000 → 6000 →
+    1500 → 375 → 93, coarse C 128 … 1024), over the layouts of one
+    ``sort_stages`` as the decoder hands them on, or sorting for itself."""
+    rng = np.random.RandomState(31)
+    stages = _interp_stages(rng, cuda_device, 4, 24000, kind)
+    clouds = spatial.sort_stages(stages) if layouts else [None] * 5
+    for s, c in zip(range(1, 5), (128, 256, 512, 1024)):
+        p1, p2 = stages[s - 1], stages[s]
+        f2 = torch.from_numpy(rng.randn(4, p2.shape[1], c).astype(np.float32)
+                              ).to(cuda_device)
+        _check_listed_interp(p1, p2, f2, clouds[s], clouds[s - 1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n2", [1, 2, 3, 64, 65, 700])
+@pytest.mark.parametrize("form", ["duplicates", "outside"])
+def test_listed_interpolation_few_points_duplicates_and_outside(cuda_device, n2,
+                                                                form):
+    """n2 < 3 (fillers: index 0 at 1e10), a chunk and one point more;
+    coarse points repeated (d² ties between indices), or fine points far
+    outside the coarse cloud's box (their home chunk at its border); C not
+    a multiple of 4 (scalar rows) and one that is."""
+    rng = np.random.RandomState(n2)
+    p2 = torch.from_numpy(_cloud(rng, 2, n2, False)).to(cuda_device)
+    if form == "duplicates":
+        p2[:, n2 // 2:] = p2[:, : n2 - n2 // 2].clone()
+        p1 = torch.from_numpy(_cloud(rng, 2, 4 * n2 + 3, False)).to(cuda_device)
+    else:
+        p1 = torch.from_numpy(_cloud(rng, 2, 4 * n2 + 3, False) * 3 - 4
+                              ).to(cuda_device)
+    p1 = p1.contiguous()
+    p2 = p2.contiguous()
+    clouds = spatial.sort_stages([p1, p2])
+    for c in (3, 64):
+        f2 = torch.from_numpy(rng.randn(2, n2, c).astype(np.float32)).to(cuda_device)
+        _check_listed_interp(p1, p2, f2)
+        _check_listed_interp(p1, p2, f2, clouds[1], clouds[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n1,n2,c", [
+    (1, 1, 1, 1), (2, 1031, 257, 12), (3, 5000, 70, 200), (1, 300, 900, 128),
+    (4, 24000, 6000, 128), (2, 4099, 1000, 131), (4, 375, 93, 1024)])
+def test_listed_interpolation_backward_matches_index_add_and_itself(cuda_device,
+                                                                   b, n1, n2, c):
+    """Kernel 9 in the fine layout's order (a stride-4 view of its index
+    bits), in ``query_order``'s and in the caller's: within 1e-5·(1+max) of
+    ``index_add_`` and of a second run of itself; a coarse row no fine point
+    selects is exactly 0; one launch a call."""
+    rng = np.random.RandomState(n1 + c)
+    p1 = torch.from_numpy(_cloud(rng, b, n1, False)).to(cuda_device)
+    p2 = p1[:, ::max(1, n1 // n2)][:, :n2].contiguous()
+    n2 = p2.shape[1]
+    idx, w = ops.three_interpolation_weights(p1, p2)
+    idx[idx == n2 // 2] = 0                      # row n2 // 2 is never selected
+    g = torch.from_numpy(rng.randn(b, n1, c).astype(np.float32)).to(cuda_device)
+    rows = (idx.long() + n2 * torch.arange(b, device=cuda_device)[:, None, None])
+    want = torch.zeros(b * n2, c, device=cuda_device).index_add_(
+        0, rows.reshape(-1), (w[..., None] * g[:, :, None, :]).reshape(-1, c)
+    ).view(b, n2, c)
+    layout = spatial.sort_stages([p1])[0]
+    for order in (layout.packed.view(torch.int32)[..., 3],
+                  spatial.query_order(p1, spatial.sort_support(p2))[0], None):
+        before = ops.three_interpolation_backward.launches
+        got = ops.three_interpolation_backward_small(g, idx, w, n2, order)
+        again = ops.three_interpolation_backward_small(g, idx, w, n2, order)
+        assert ops.three_interpolation_backward.launches == before + 2
+        _close(got, want, 1e-5)
+        _close(again, got, 1e-5)
+        if n2 > 1:
+            assert not got[:, n2 // 2].any()
+    with pytest.raises(ValueError):
+        ops.three_interpolation_backward_small(g, idx, w, n2, layout.perm)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["AA", "MM"])
+def test_interpolation_launches_a_forward_and_a_step(cuda_device, kind):
+    """A forward of the AA or MM model launches the interpolation 4 times
+    and the layout kernels once each (the decoder reads the encoder's
+    layouts: no sort of its own), a backward the VJP 4 times, as
+    ``chip_smoke.py``'s EVAL_LAUNCHES and TRAIN_LAUNCHES count them."""
+    from pathlib import Path
+
+    from amcontrast3d_tpu_torch.models.build import (build_model_from_cfg,
+                                                     init_weights_)
+    from amcontrast3d_tpu_torch.utils.config import EasyConfig
+
+    cfg = EasyConfig()
+    cfg.load(str(Path(__file__).resolve().parent.parent / "cfgs" / "s3dis"
+                 / f"AMContrast3D-{kind}.yaml"), recursive=True)
+    cfg.update(["model.encoder_args.width=16"]
+               + (["model.APM_args.feature_dim=[16,32,64,128]"]
+                  if kind == "MM" else []))
+    model = build_model_from_cfg(cfg.model)
+    init_weights_(model, torch.Generator().manual_seed(0))
+    model.to(cuda_device)
+    rng = np.random.RandomState(3)
+    pos = torch.from_numpy(_cloud(rng, 2, 8000, False)).to(cuda_device)
+    x = torch.from_numpy(rng.rand(2, 8000, 4).astype(np.float32)).to(cuda_device)
+    counted = (ops.three_interpolation, ops.three_interpolation_backward,
+               spatial.layout_keys, spatial.layout_pack)
+    before = [fn.launches for fn in counted]
+    logits = model(pos, x, torch.Generator(cuda_device).manual_seed(0))[0]
+    after_forward = [fn.launches - b for fn, b in zip(counted, before)]
+    logits.square().mean().backward()
+    after_step = [fn.launches - b for fn, b in zip(counted, before)]
+    assert after_forward == [4, 0, 1, 1]
+    assert after_step == [4, 4, 1, 1]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,n,npoint", [(2, 64000, 16000), (3, 57345, 700),
                                         (2, 163841, 300)])
@@ -1071,8 +1233,9 @@ def test_fps_pruned_ties(cuda_device):
                                        (1, 60000, 15000, 128)])
 def test_interp_big_matches_the_dense_kernel_and_plain(cuda_device, b, n1, n2, c):
     """The chunk-pruned interpolation at B = 2 with ragged sizes, n2 < 3
-    among them: output, indices and weights the same bits as the dense
-    kernel's; output within 1e-5·(1+max|out|) of the twin."""
+    among them: output, indices and weights the same bits as the listed
+    kernel's (``csrc/interpolate.cu``, dense before its redesign); output
+    within 1e-5·(1+max|out|) of the twin."""
     rng = np.random.RandomState(n1 + n2)
     p1 = torch.from_numpy(_cloud(rng, b, n1, True)).to(cuda_device)
     p2 = torch.from_numpy(_cloud(rng, b, n2, False)).to(cuda_device)
@@ -1092,7 +1255,7 @@ def test_interp_big_matches_the_dense_kernel_and_plain(cuda_device, b, n1, n2, c
 @pytest.mark.cuda
 def test_interp_big_dispatch_and_gradient(cuda_device):
     """(N2, C) = (55296, 128) goes to the chunk-pruned kernel, (49152, 128)
-    to the dense one; the gradient through the pruned forward's saved
+    to the listed one; the gradient through the pruned forward's saved
     triples within 1e-5·(1+max|df2|) of the twin's."""
     rng = np.random.RandomState(7)
     for n2, is_big in ((55296, True), (49152, False)):

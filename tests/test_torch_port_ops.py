@@ -416,19 +416,23 @@ def test_interpolation_gradient_matches_pallas_vjp():
 
 def test_interpolation_kernel_branch_carries_the_gradient(monkeypatch):
     """The branch that CUDA tensors take returns an output with a
-    ``grad_fn`` whose backward runs the backward wrapper.  Emulated on the
-    CPU: the dispatch is told the tensors are not on the CPU, the forward
-    kernel is replaced by the plain forward and the backward kernel by its
-    twin."""
+    ``grad_fn`` whose backward runs the backward wrapper, handing it the
+    order in which the forward took the fine points (their layout's).
+    Emulated on the CPU: the dispatch is told the tensors are not on the
+    CPU, the forward kernel is replaced by the plain forward and the
+    backward kernel by its twin."""
     calls = []
 
-    def fake_forward(p1, p2, f2, keep):
+    def fake_forward(p1, p2, f2, keep, cloud, query_cloud):
         assert keep
         calls.append("forward")
-        return port_interp._forward_plain(p1, p2, f2)
+        # the listed kernel's order: the fine points along their own curve
+        order = query_cloud.packed.view(torch.int32)[..., 3]
+        return (*port_interp._forward_plain(p1, p2, f2), order)
 
-    def fake_backward(grad, idx, w, n2):
+    def fake_backward(grad, idx, w, n2, order):
         calls.append("backward")
+        assert torch.equal(order.long(), query_cloud.perm)
         return port_interp.three_interpolation_backward_plain(grad, idx, w, n2)
 
     monkeypatch.setattr(port_interp, "_on_cpu", lambda *t: False)
@@ -436,9 +440,13 @@ def test_interpolation_kernel_branch_carries_the_gradient(monkeypatch):
     monkeypatch.setattr(port_interp, "three_interpolation_backward", fake_backward)
     rng = np.random.RandomState(22)
     p1, p2 = _grid_pair(rng, 300, 80)
+    p1t, p2t = _t(p1), _t(p2)
+    cloud, query_cloud = spatial.sort_stages([p1t, p2t])[::-1]
     f2 = rng.randn(2, 80, 8).astype(np.float32)
     g = rng.randn(2, 300, 8).astype(np.float32)
-    _, got = _interp_grad(p1, p2, f2, g)
+    f2t = _t(f2).requires_grad_()
+    ops.three_interpolation(p1t, p2t, f2t, cloud, query_cloud).backward(_t(g))
+    got = f2t.grad.numpy()
     assert calls == ["forward", "backward"]
     _, vjp = jax.vjp(lambda f: jinterp.three_interpolation(
         jnp.asarray(p1), jnp.asarray(p2), f), jnp.asarray(f2))

@@ -431,16 +431,23 @@ def _keys(d2_row, idx):
     return (d2_row.view(torch.int32).to(torch.int64) << 32) | idx
 
 
-def _emulate_knn(sup, query, k, window):
+def _emulate_knn(sup, query, k, window, query_layout=False):
     """``csrc/knn.cu``'s visits, one batch at a time: blocks of 8 queries in
-    the support's Morton order.  The block lists the chunks whose box is
+    the support's Morton order (with ``query_layout``, as
+    ``csrc/interpolate.cu`` takes them: in the order of the queries' own
+    layout, each query's home chunk from its Morton code in the support's
+    frame).  The block lists the chunks whose box is
     within the largest upper bound of any query to the chunks around its
     home (when they hold k points) from the union box of the 8, a window of
     chunks at a time; each query then scans its home chunk and the ones
     beside it, and the listed chunks whose box is within its own running
     k-th, testing 32 at a time.  Returns (idx, d2) and the chunks scanned."""
     cloud = spatial.sort_support(sup)
-    order, home = _order(sup, query, cloud)
+    if query_layout:
+        order = spatial.sort_support(query).perm
+        home = torch.gather(_home_of(query, cloud), 1, order)
+    else:
+        order, home = _order(sup, query, cloud)
     B, N, _ = sup.shape
     M = query.shape[1]
     nc = cloud.boxes.shape[1]
@@ -878,6 +885,82 @@ def test_crossmask_slots_from_the_listed_scan_are_the_knn(kind, n, k):
                        torch.gather(slots, -1, na.argmin(-1, keepdim=True))[..., 0])
     _, sel_all0 = ops.refine_cross_plain(p, f, a, k, "MIN_ALL0")
     assert torch.equal(sel_all0.long(), torch.where(na <= 0, slots, -1))
+
+
+# ---- the interpolation: the listed 3-NN scan and the layout-ordered scatter ------
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("n1,n2,outside", [(700, 175, False), (700, 175, True),
+                                           (300, 65, False), (200, 64, False),
+                                           (50, 3, False), (50, 2, False),
+                                           (9, 1, True)])
+def test_interpolation_schedule_returns_the_plain_neighbours(kind, n1, n2, outside):
+    """Kernel 3's scan is kernel 6's listed scan at k = 3, the fine points
+    taken along their own layout's curve, each one's home chunk found from
+    its Morton code in the coarse cloud's frame: the emulated schedule
+    gives ``knn_plain``'s three neighbours and d² exactly (n2 < 3 padded
+    with index 0 at 1e10, as the kernel's fillers), with fine points
+    outside the coarse cloud's box too, so the weights are the twin's."""
+    rng = np.random.RandomState(n1 + n2)
+    p1 = _cloud(rng, 2, n1, kind)
+    p2 = p1[:, ::max(1, n1 // n2)][:, :n2].contiguous()
+    if outside:   # stretch the fine cloud beyond the coarse box
+        p1 = torch.cat([p1, p1 * 1.5 - 0.5], 1)[:, ::2].contiguous()
+    idx, d2, _ = _emulate_knn(p2, p1, 3, WINDOW, query_layout=True)
+    want_i, want_d = ops.knn_plain(p2, p1, 3)
+    assert torch.equal(idx, want_i) and torch.equal(d2, want_d)
+    got_i, _ = ops.three_interpolation_weights(p1, p2)
+    assert torch.equal(got_i, want_i)
+
+
+def _emulate_scatter(grad, idx, w, n2, order, points=64):
+    """``csrc/interpolate.cu``'s backward: blocks of ``points`` fine points
+    taken in ``order``; a block sorts its pairs by (coarse row, rank), sums
+    each row's w·g in that order and adds the sum into df2 once.  Returns
+    df2 and the rows added (the vector reductions over C / 4)."""
+    B, N1, C = grad.shape
+    df2 = torch.zeros(B, n2, C)
+    added = 0
+    for b in range(B):
+        for r0 in range(0, N1, points):
+            fine = order[b, r0:r0 + points].long()
+            rows = idx[b, fine].reshape(-1).long()          # pair t: (t // 3, t % 3)
+            rank = torch.arange(len(rows))
+            key = rows * len(rows) + rank
+            sorted_t = rank[torch.argsort(key)]
+            for row in rows[sorted_t].unique_consecutive():
+                ts = sorted_t[rows[sorted_t] == row]
+                acc = torch.zeros(C)
+                for t in ts.tolist():
+                    acc = acc + w[b, fine[t // 3], t % 3] * grad[b, fine[t // 3]]
+                df2[b, row] += acc
+                added += 1
+    return df2, added
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("n1,c", [(700, 8), (130, 3)])
+def test_interpolation_backward_schedule_sums_each_row_once_a_block(kind, n1, c):
+    """Kernel 9's scatter: blocks of 64 fine points along the fine layout's
+    curve, each coarse row's pairs summed in the block and added once, give
+    the twin's ``index_add_`` within 1e-5·(1+max); in the layout's order a
+    block's 192 pairs fall on fewer rows than in the caller's order, so the
+    reductions fall."""
+    rng = np.random.RandomState(n1 + c)
+    p1 = _cloud(rng, 2, n1, kind)
+    p2 = p1[:, ::4].contiguous()
+    idx, w = ops.three_interpolation_weights(p1, p2)
+    g = torch.from_numpy(rng.randn(2, n1, c).astype(np.float32))
+    want = ops.three_interpolation_backward_plain(g, idx, w, p2.shape[1])
+    along = spatial.sort_support(p1).perm
+    got, added = _emulate_scatter(g, idx, w, p2.shape[1], along)
+    err = (got - want).abs().max()
+    assert err <= 1e-5 * (1 + want.abs().max()), err
+    caller = torch.arange(n1).expand(2, n1)
+    _, added_caller = _emulate_scatter(g, idx, w, p2.shape[1], caller)
+    assert added < 3 * 2 * n1
+    if n1 >= 700 and kind == "uniform":
+        assert added < added_caller, (added, added_caller)
 
 
 # ---- the selection and the vote: seed, list, passes -----------------------------

@@ -177,10 +177,13 @@ def test_whole_room_fps_routes_by_the_rule(monkeypatch, n, want):
 def test_interpolation_routes_by_the_rule(monkeypatch, n2, c, want):
     calls = []
     monkeypatch.setattr(port_interp, "_check_forward", lambda *a: None)
-    for name in ("big", "small"):
+    # the listed kernel's launch (``three_interpolation_small`` without the
+    # dispatch) also returns the order it took the fine points in
+    for name, patched, result in (("big", "three_interpolation_big", (None,) * 3),
+                                  ("small", "_listed", (None,) * 4)):
         monkeypatch.setattr(
-            port_interp, f"three_interpolation_{name}",
-            lambda *a, _n=name: calls.append(_n) or (None, None, None))
+            port_interp, patched,
+            lambda *a, _n=name, _r=result: calls.append(_n) or _r)
     port_interp.three_interpolation(
         torch.empty(1, 4 * n2, 3, device="meta"),
         torch.empty(1, n2, 3, device="meta"),

@@ -1,5 +1,5 @@
 // Keys, warp reductions and the thread-block-cluster primitives shared by
-// fps_b1.cu and fps_pruned.cu.
+// fps.cu and fps_pruned.cu.
 //
 // A candidate of furthest point sampling travels as one 64-bit key:
 // value bits << 32 | ~index.  The value is a min-distance d^2 >= +0, whose

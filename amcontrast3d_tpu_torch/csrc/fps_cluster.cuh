@@ -1,8 +1,8 @@
 // Furthest point sampling with a cloud's points in registers: one
 // thread-block cluster of S blocks a cloud, every cloud of a batch in one
-// launch.  Shared by fps.cu (the batched kernel, B > 1, S chosen from the
-// batch and the cloud) and fps_b1.cu (the whole-room kernel's cluster path,
-// B = 1, S = 16).
+// launch.  fps.cu's kernel, for a batch (B > 1) and for one whole-room
+// cloud to 163840 points (B = 1), S chosen from the batch and the cloud
+// (ops/fps.py::fps_cluster_size).
 //
 // Semantics of every FPS kernel of the port and of the plain PyTorch twin in
 // ops/fps.py: the first pick is index 0, the min-distance buffer starts at
@@ -49,9 +49,8 @@
 
 #include "cluster.cuh"
 
-// internal linkage: fps.cu and fps_b1.cu each instantiate their own kernels
-// (an unnamed namespace at file scope: nvcc's host stubs cannot name one
-// nested in another namespace)
+// internal linkage (an unnamed namespace at file scope: nvcc's host stubs
+// cannot name one nested in another namespace)
 namespace {
 
 namespace fps_cluster {

@@ -2,20 +2,25 @@
 // pick can change.
 //
 // Replaces amcontrast3d_tpu/ops/fps_pallas.py::_fps_kernel_pruned (entry
-// _fps_b1_pruned), the TPU kernel a B == 1 cloud of 262144 points or more
-// reaches: the whole-scene test's subclouds from the 311296 bucket up.
-// Semantics are those of fps_b1.cu and of the plain PyTorch twin in
-// ops/fps.py, and the picks are the same: the first pick is index 0, the
-// min-distance buffer starts at 1e10, each step takes the argmax with ties
-// to the lowest index, d^2 = (dx*dx + dy*dy) + dz*dz rounded op by op.
+// _fps_b1_pruned) and, where ops/fps.py::fps_is_pruned sends a whole-room
+// stage here, _fps_kernel_r8 (entry _fps_b1): the TPU kernels a B == 1
+// cloud reaches; here every whole-room stage above what one cluster of
+// fps_cluster.cuh holds (163840 points), and any cloud above what fps.cu's
+// grid kernel holds (1.89 M points on 132 multiprocessors).  Semantics are those of fps.cu
+// and of the plain PyTorch twin in ops/fps.py, and the picks are the same:
+// the first pick is index 0, the min-distance buffer starts at 1e10, each
+// step takes the argmax with ties to the lowest index, d^2 = (dx*dx +
+// dy*dy) + dz*dz rounded op by op.
 //
 // What bounds it on the card: the npoint - 1 picks depend on each other,
 // and each needs the argmax over the whole cloud, so the time is picks x
 // (one pass over what the pick can change + one reduction across the
 // cluster).  Once a few hundred points are picked, a new pick lowers the
-// min-distance of only the points around it; a dense sweep (fps_b1.cu's
+// min-distance of only the points around it; a dense sweep (fps.cu's
 // grid kernel) still reads all N points and meets across all blocks of the
-// card, 2-3 us a pick.
+// card, 2-3 us a pick.  One block alone would spare the cluster's exchange
+// (~0.6 us a pick), but every one-block design tried costs more a pick
+// than it spares (PERF.md §6; tools/fps_handover.cu).
 //
 // Design.  ops/spatial.py sorts the cloud along a Morton curve into chunks
 // of 64 points with exact boxes (chunks.cuh); each point keeps its original
@@ -29,17 +34,18 @@
 // not below its largest min-distance is skipped: every d^2 in it is then at
 // least that value, so no min-distance in it can fall (chunks.cuh: the
 // bound as computed is never above a point's d^2 as computed, no slack).
-// The warp visits the other chunks one after the other, a lane two points
-// each: the min-distances in device memory (L2-resident) are lowered, and
-// the chunk's key is taken again.  Keys then meet as in fps_b1.cu's cluster
-// kernel: the block's largest through its warps, and the 16 blocks'
-// through st.async onto each block's mbarrier, one wait a pick.  The
-// positions of the cloud never pass through a register more than the
-// visits need, so the cloud's size is bounded by the chunks a lane keeps
-// (4): 16 x 512 x 4 chunks of 64 points, 2 M points.  Ties (a padded
-// subcloud repeats real points) go to the lowest original index because
-// whole keys are compared everywhere, and the first pick is original
-// index 0 wherever the sort put it.
+// The warp visits the other chunks four at a time, lane l taking points l
+// and l + 32 of each, every load of the four in flight before the first is
+// used (the first picks visit most chunks): the min-distances in device
+// memory (L2-resident) are lowered, and each chunk's key is taken again.
+// Keys then meet as in fps_cluster.cuh (S > 1): the block's largest
+// through its warps, and the 16 blocks' through st.async onto each block's
+// mbarrier, one wait a pick.  The positions of the cloud never pass through
+// a register more than the visits need, so the cloud's size is bounded by
+// the chunks a lane keeps (4): 16 x 512 x 4 chunks of 64 points, 2 M
+// points.  Ties (a padded subcloud repeats real points) go to the lowest
+// original index because whole keys are compared everywhere, and the first
+// pick is original index 0 wherever the sort put it.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -51,47 +57,112 @@ namespace {
 namespace cg = cooperative_groups;
 using namespace amc3d;
 
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kBatch = 4;          // chunks a warp visits at once
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
 constexpr int kBlocks = 16;        // the cluster (the non-portable size)
 constexpr int kMaxLaneChunks = 4;  // chunks a lane owns
-constexpr unsigned kFull = 0xffffffffu;
 constexpr unsigned kWinnerBytes = sizeof(Key) + sizeof(float4);
 
-// Lower the min-distances of chunk c against the pick (lx, ly, lz), or with
-// `init` set them to 1e10, and return the chunk's largest key; its point's
-// position goes to `pos`.  Called by the whole warp for one chunk.
-__device__ __forceinline__ Key visit(const float4* __restrict__ pts,
-                                     float* __restrict__ mind, int n, int c,
-                                     float lx, float ly, float lz, bool init,
-                                     int lane, float3& pos) {
-  const int base = c * kChunk;
-  const int len = min(kChunk, n - base);
-  Key key = 0;
-  float px = 0.f, py = 0.f, pz = 0.f;
+// Lower the min-distances of the chunks cs[0, cnt) (cnt <= K, the same on
+// every lane) against the pick (lx, ly, lz), or with `init` set them to
+// 1e10; key[a] and pos[a] become chunk cs[a]'s largest key and its point's
+// position, on every lane.  Called by the whole warp: lane l takes points l
+// and l + 32 of each chunk, every load of the K chunks in flight before the
+// first is used.
+template <int K>
+__device__ __forceinline__ void visit(const float4* __restrict__ pts,
+                                      float* __restrict__ mind, int n,
+                                      const int (&cs)[kBatch], int cnt,
+                                      float lx, float ly, float lz, bool init,
+                                      int lane, Key (&key)[kBatch],
+                                      float3 (&pos)[kBatch]) {
+  float4 p[K][2];
+  float m[K][2];
 #pragma unroll
-  for (int h = 0; h < kChunk / 32; ++h) {
-    const int u = lane + 32 * h;  // a lane always handles the same points
-    if (u < len) {
-      const float4 p = pts[base + u];
-      const float m = init ? 1e10f
-                           : fminf(mind[base + u],
-                                   point_d2(p.x, p.y, p.z, lx, ly, lz));
-      mind[base + u] = m;
-      const Key k = make_key(m, __float_as_int(p.w));
-      if (k > key) {
-        key = k;
-        px = p.x;
-        py = p.y;
-        pz = p.z;
+  for (int a = 0; a < K; ++a) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = cs[a] * kChunk + lane + 32 * h;
+      const bool ok = a < cnt && i < n;
+      p[a][h] = ok ? __ldg(pts + i) : make_float4(0.f, 0.f, 0.f, 0.f);
+      m[a][h] = ok && !init ? mind[i] : 1e10f;
+    }
+  }
+#pragma unroll
+  for (int a = 0; a < K; ++a) {
+    if (a >= cnt) break;
+    Key best = 0;
+    float px = 0.f, py = 0.f, pz = 0.f;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = cs[a] * kChunk + lane + 32 * h;
+      if (i < n) {
+        const float4 q = p[a][h];
+        const float v =
+            init ? 1e10f : fminf(m[a][h], point_d2(q.x, q.y, q.z, lx, ly, lz));
+        mind[i] = v;
+        const Key k = make_key(v, __float_as_int(q.w));
+        if (k > best) {
+          best = k;
+          px = q.x;
+          py = q.y;
+          pz = q.z;
+        }
+      }
+    }
+    const Key top = warp_max(best);
+    const int src = __ffs(__ballot_sync(kFull, best == top)) - 1;
+    key[a] = top;
+    pos[a] = make_float3(__shfl_sync(kFull, px, src),
+                         __shfl_sync(kFull, py, src),
+                         __shfl_sync(kFull, pz, src));
+  }
+}
+
+// Visit the chunks whose owner lanes are set in `mask` (chunk(lane) maps a
+// lane to its chunk), up to kBatch at a time (one alone where one is left:
+// a late pick's warp has one chunk or none to visit, and the batch's code
+// would only slow it); each owner lane gets its chunk's key and position.
+// Returns the number of chunks visited.
+template <typename ChunkOf>
+__device__ __forceinline__ int visit_owned(const float4* __restrict__ pts,
+                                           float* __restrict__ mind, int n,
+                                           unsigned mask, ChunkOf chunk,
+                                           float lx, float ly, float lz,
+                                           bool init, int lane, Key& key,
+                                           float3& pos) {
+  const int count = __popc(mask);
+  while (mask) {
+    int cs[kBatch], owner[kBatch];
+    int cnt = 0;
+#pragma unroll
+    for (int a = 0; a < kBatch; ++a) {
+      owner[a] = -1;
+      cs[a] = 0;
+      if (mask) {
+        owner[a] = __ffs(mask) - 1;
+        mask &= mask - 1;
+        cs[a] = chunk(owner[a]);
+        cnt = a + 1;
+      }
+    }
+    Key k[kBatch];
+    float3 q[kBatch];
+    if (cnt == 1)
+      visit<1>(pts, mind, n, cs, cnt, lx, ly, lz, init, lane, k, q);
+    else
+      visit<kBatch>(pts, mind, n, cs, cnt, lx, ly, lz, init, lane, k, q);
+#pragma unroll
+    for (int a = 0; a < kBatch; ++a) {
+      if (lane == owner[a]) {
+        key = k[a];
+        pos = q[a];
       }
     }
   }
-  const Key top = warp_max(key);
-  const int src = __ffs(__ballot_sync(kFull, key == top)) - 1;
-  pos = make_float3(__shfl_sync(kFull, px, src), __shfl_sync(kFull, py, src),
-                    __shfl_sync(kFull, pz, src));
-  return top;
+  return count;
 }
 
 // R: chunks a lane owns.  Local chunk l of a block sits in warp l % 16,
@@ -134,18 +205,9 @@ fps_pruned_kernel(const float4* __restrict__ pts, const float* __restrict__ boxe
   // every chunk's key at min-distance 1e10: its lowest original index
 #pragma unroll
   for (int r = 0; r < R; ++r) {
-    unsigned mask = __ballot_sync(kFull, valid[r]);
-    while (mask) {
-      const int src = __ffs(mask) - 1;
-      mask &= mask - 1;
-      float3 pos;
-      const Key k = visit(pts, mind, n, c0 + warp + kWarps * src + kThreads * r,
-                          0.f, 0.f, 0.f, true, lane, pos);
-      if (lane == src) {
-        ckey[r] = k;
-        cpos[r] = pos;
-      }
-    }
+    visit_owned(pts, mind, n, __ballot_sync(kFull, valid[r]),
+                [&](int src) { return c0 + warp + kWarps * src + kThreads * r; },
+                0.f, 0.f, 0.f, true, lane, ckey[r], cpos[r]);
   }
   float lx = first[0], ly = first[1], lz = first[2];
   if (rank == 0 && tid == 0) out[0] = 0;
@@ -167,20 +229,10 @@ fps_pruned_kernel(const float4* __restrict__ pts, const float* __restrict__ boxe
       // min-distance (a chunk that holds no point has key 0: never visited)
       const bool need = valid[r] &&
                         box_lower_bound(lx, ly, lz, box[r]) < key_value(ckey[r]);
-      unsigned mask = __ballot_sync(kFull, need);
-      while (mask) {
-        const int src = __ffs(mask) - 1;
-        mask &= mask - 1;
-        float3 pos;
-        const Key k = visit(pts, mind, n,
-                            c0 + warp + kWarps * src + kThreads * r, lx, ly,
-                            lz, false, lane, pos);
-        ++visited;
-        if (lane == src) {
-          ckey[r] = k;
-          cpos[r] = pos;
-        }
-      }
+      visited += visit_owned(
+          pts, mind, n, __ballot_sync(kFull, need),
+          [&](int src) { return c0 + warp + kWarps * src + kThreads * r; },
+          lx, ly, lz, false, lane, ckey[r], cpos[r]);
     }
     Key best = 0;
     float3 bpos = make_float3(0.f, 0.f, 0.f);
@@ -257,7 +309,8 @@ extern "C" int amc3d_fps_pruned(const void* pts, const void* boxes,
   const int nc = (n + kChunk - 1) / kChunk;
   const int per_block = (nc + kBlocks - 1) / kBlocks;
   const Kernel kernel = kernel_for(per_block);
-  if (n < 1 || kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if (n < 1 || npoint < 1 || npoint > n || kernel == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (err != cudaSuccess) return static_cast<int>(err);

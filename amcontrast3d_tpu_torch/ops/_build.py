@@ -41,12 +41,9 @@ _SIGNATURES = {
     # S → how many clusters of S blocks the device holds at once (negative:
     # an error)
     "amc3d_fps_clusters": (_I,),
-    # xyz (1,N,3) f32, out (npoint) i32, best (npoint) u64 zeroed, arrived
-    # (npoint) u32 zeroed, N, npoint, stream
-    "amc3d_fps_b1": (_P, _P, _P, _P, _I, _I, _P),
-    # through one cluster of 16 blocks: xyz (1,N,3), out (npoint), N,
-    # npoint, stream
-    "amc3d_fps_b1_cluster": (_P, _P, _I, _I, _P),
+    # the grid kernel, one cloud: xyz (1,N,3) f32, out (npoint) i32, best
+    # (npoint) u64 zeroed, arrived (npoint) u32 zeroed, N, npoint, stream
+    "amc3d_fps_grid": (_P, _P, _P, _P, _I, _I, _P),
     # chunk-pruned, one cluster: sorted points (N,4) f32 with the index
     # bits in w, boxes (ceil(N/64),6), xyz of point 0, mind (N) scratch, out
     # (npoint) i32, visits (1) u64 zeroed or null, N, npoint, stream

@@ -2,20 +2,20 @@
 
 ↔ ``amcontrast3d_tpu/ops/fps.py`` (plain path ``_furthest_point_sample_lax``)
 and ``ops/fps_pallas.py``: ``_fps_kernel`` (the batched TPU kernel), ported
-as ``csrc/fps.cu``, ``_fps_kernel_r8`` (the kernel a B == 1 call reaches:
-one whole room), ported as ``csrc/fps_b1.cu``, and ``_fps_kernel_pruned``
-(the chunk-pruned one a B == 1 cloud of 262144 points or more reaches),
-ported as ``csrc/fps_pruned.cu``.  The dispatch is that of
-``fps_pallas.py::furthest_point_sample_pallas``: B == 1 goes to the
-whole-room kernels (the pruned one where :func:`fps_is_pruned` says so),
-B > 1 to the batched one (the JAX package's batched pruned path is off by
-default, a measured loser on the TPU).  The batched kernel and the
-whole-room kernel's cluster path are one kernel, ``csrc/fps_cluster.cuh``:
-a thread-block cluster of S blocks a cloud, the points in registers, every
-cloud of the batch in one launch.  The batched kernel takes S from the batch
-and the cloud (:func:`fps_cluster_size`), the whole-room one S = 16.  Semantics
-of all: the first pick is index 0, a running min-distance buffer starts at
-1e10, each step takes the argmax with ties to the lowest index, and d² is
+as ``csrc/fps.cu``, and the two kernels a B == 1 call (one whole room)
+reaches, ``_fps_kernel_r8`` and ``_fps_kernel_pruned`` (the chunk-pruned
+one).  The port serves a B == 1 cloud with one cluster of ``csrc/fps.cu``'s
+kernel where the cloud fits one (to 163840 points), above that with the
+chunk-pruned kernel of ``csrc/fps_pruned.cu`` where :func:`fps_is_pruned`
+says so or the cloud exceeds the grid kernel, else with the grid kernel of
+``csrc/fps.cu``; its gate is its own, read off the card.  B > 1 goes to the batched kernel (the JAX
+package's batched pruned path is off by default, a measured loser on the
+TPU).  The batched kernel and the whole-room cluster path are one kernel,
+``csrc/fps_cluster.cuh``: a thread-block cluster of S blocks a cloud, the
+points in registers, every cloud of the batch in one launch, S from the
+batch and the cloud (:func:`fps_cluster_size`).  Semantics of all: the
+first pick is index 0, a running min-distance buffer starts at 1e10, each
+step takes the argmax with ties to the lowest index, and d² is
 ``(dx·dx + dy·dy) + dz·dz``.
 """
 from __future__ import annotations
@@ -29,7 +29,7 @@ from . import spatial
 from ._build import launch, load_library
 
 # the whole-room grid kernel keeps 16 bytes a point in shared memory, this
-# many points on each multiprocessor (csrc/fps_b1.cu::kMaxBlockPoints)
+# many points on each multiprocessor (csrc/fps.cu::fps_grid::kMaxBlockPoints)
 B1_POINTS_PER_SM = 14336
 # csrc/fps_cluster.cuh: blocks of 512 threads that keep up to 20 points each
 # in registers, clusters of 1 to 16 blocks; a cloud above 16 × 512 × 20
@@ -46,17 +46,21 @@ CLUSTER_GATES = ((16, 18432), (8, 7168), (4, 5120), (1, 1))
 # the pruned kernel's cluster keeps 4 chunk records a lane: 16 blocks of 512
 # threads, chunks of 64 points (csrc/fps_pruned.cu)
 PRUNED_MAX_POINTS = 16 * 512 * 4 * spatial.CHUNK
-# ↔ fps_pallas.py:242-243, 529-533: from this many points a B == 1 cloud
-# goes to the JAX package's chunk-pruned kernel, if it holds two or more of
-# that kernel's chunks
-PRUNED_MIN_N = 262144
-PRUNE_CS = 32768
+# a B == 1 cloud goes to the chunk-pruned kernel above what one cluster of
+# csrc/fps.cu's kernel holds, where the picks are at least this share of the
+# cloud; below it the grid kernel's sweep is faster, the chunk-pruned
+# kernel's first picks visiting most chunks (read off the card between 1/64,
+# where the pruned kernel is faster at 221184 to 1.2 M points, and 1/146,
+# where it is slower; PERF.md §6)
+PRUNED_MIN_SHARE = 0.01
 
 
-def fps_is_pruned(B: int, N: int) -> bool:
-    """Whether a (B, N) cloud goes to the chunk-pruned kernel: one cloud of
-    at least 262144 points, the rule of the JAX package's default."""
-    return B == 1 and N >= PRUNED_MIN_N and N >= 2 * PRUNE_CS
+def fps_is_pruned(B: int, N: int, npoint: int) -> bool:
+    """Whether a (B, N) cloud sampled to ``npoint`` goes to the chunk-pruned
+    kernel: one cloud of more than one cluster's points (163840), of which
+    at least :data:`PRUNED_MIN_SHARE` are picked.  The port's own gate,
+    read off the card; the JAX package's is N ≥ 262144."""
+    return B == 1 and N > CLUSTER_POINTS and npoint >= PRUNED_MIN_SHARE * N
 
 
 def _check(xyz: torch.Tensor, npoint: int) -> None:
@@ -126,41 +130,44 @@ def _cluster_capacity(device_index: int) -> Dict[int, int]:
     return counts
 
 
-def _cluster_fits(device_index: int) -> bool:
-    """Whether the card can hold one cluster of 16 blocks."""
-    return _cluster_capacity(device_index)[16] >= 1
+@functools.lru_cache(maxsize=None)
+def _grid_points(device_index: int) -> int:
+    """The most points the grid kernel takes on the card:
+    :data:`B1_POINTS_PER_SM` on each multiprocessor."""
+    props = torch.cuda.get_device_properties(device_index)
+    return props.multi_processor_count * B1_POINTS_PER_SM
 
 
-def _fps_b1_cluster(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
-    """The cluster path of ``csrc/fps_b1.cu``: one cloud, one thread-block
-    cluster of 16 blocks that exchange their winners through distributed
-    shared memory.  N ≤ 16 × 512 × 20 = 163840, on a card that holds the
+def _fps_b1_cluster(xyz: torch.Tensor, npoint: int, s: int) -> torch.Tensor:
+    """One cloud through the register-resident kernel of ``csrc/fps.cu``
+    (``csrc/fps_cluster.cuh``), one cluster of ``s`` blocks; counted as a
+    whole-room launch.  N ≤ s × 512 × 20, on a card that holds such a
     cluster."""
     N = xyz.shape[1]
-    if N > CLUSTER_POINTS or not _cluster_fits(xyz.device.index):
+    if s not in CLUSTER_SIZES or N > s * CLUSTER_THREADS * THREAD_POINTS:
         raise ValueError(f"the cluster fps kernel takes N ≤ {CLUSTER_POINTS} "
-                         f"on a card that holds such a cluster, got N={N}")
+                         f"on a card that holds such a cluster, got N={N}, "
+                         f"S={s}")
     out = torch.empty(1, npoint, dtype=torch.int32, device=xyz.device)
-    launch("amc3d_fps_b1_cluster", xyz.data_ptr(), out.data_ptr(), N, npoint,
+    launch("amc3d_fps", xyz.data_ptr(), out.data_ptr(), 1, N, npoint, s,
            torch.cuda.current_stream(xyz.device).cuda_stream)
     furthest_point_sample_b1.launches += 1
     return out
 
 
 def _fps_b1_grid(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
-    """The grid kernel of ``csrc/fps_b1.cu``: a cooperative launch over all
-    multiprocessors that meets in device memory.  N up to 14336 points on
-    each, 1.89 M on 132."""
+    """One cloud through the grid kernel of ``csrc/fps.cu``: a cooperative
+    launch over all multiprocessors that meets in device memory; counted as
+    a whole-room launch.  N up to 14336 points on each, 1.89 M on 132."""
     N = xyz.shape[1]
-    sms = torch.cuda.get_device_properties(xyz.device).multi_processor_count
-    if N > sms * B1_POINTS_PER_SM:
-        raise ValueError(f"the whole-room fps kernel keeps the cloud in "
-                         f"shared memory: N={N} > {sms} x {B1_POINTS_PER_SM}")
+    if N > _grid_points(xyz.device.index):
+        raise ValueError(f"the grid fps kernel keeps the cloud in shared "
+                         f"memory: N={N} > {_grid_points(xyz.device.index)}")
     out = torch.empty(1, npoint, dtype=torch.int32, device=xyz.device)
     # per pick a slot for the winner and a count of the blocks that are in
     best = torch.zeros(npoint, dtype=torch.int64, device=xyz.device)
     arrived = torch.zeros(npoint, dtype=torch.int32, device=xyz.device)
-    launch("amc3d_fps_b1", xyz.data_ptr(), out.data_ptr(), best.data_ptr(),
+    launch("amc3d_fps_grid", xyz.data_ptr(), out.data_ptr(), best.data_ptr(),
            arrived.data_ptr(), N, npoint,
            torch.cuda.current_stream(xyz.device).cuda_stream)
     furthest_point_sample_b1.launches += 1
@@ -181,11 +188,11 @@ def furthest_point_sample_pruned(xyz: torch.Tensor, npoint: int,
     """One cloud, xyz (1, N, 3) f32 → idx (1, npoint) int32, picks
     identical to :func:`furthest_point_sample_plain`, through the kernel of
     ``csrc/fps_pruned.cu``: the cloud sorted into 64-point chunks with boxes
-    (``ops/spatial.py``), one thread-block cluster that visits per pick only
-    the chunks whose box may hold a point closer to the pick than its
-    min-distance.  Any N up to 2 M.  ``visits``, a zeroed (1,) int64 CUDA
-    tensor, gains the chunk visits of the run.  A CPU tensor goes through
-    the plain path."""
+    (one :func:`spatial.sort_stages`: two kernels and a sort), one
+    thread-block cluster that visits per pick only the chunks whose box may
+    hold a point closer to the pick than its min-distance.  Any N up to
+    2 M.  ``visits``, a zeroed (1,) int64 CUDA tensor, gains the chunk
+    visits of the run.  A CPU tensor goes through the plain path."""
     if xyz.device.type == "cpu":
         return furthest_point_sample_plain(xyz, npoint)
     _check_b1(xyz, npoint)
@@ -193,7 +200,7 @@ def furthest_point_sample_pruned(xyz: torch.Tensor, npoint: int,
     if N > PRUNED_MAX_POINTS:
         raise ValueError(f"the pruned fps kernel takes N ≤ {PRUNED_MAX_POINTS}"
                          f", got N={N}")
-    cloud = spatial.sort_support(xyz)
+    cloud = spatial.sort_stages([xyz])[0]
     mind = torch.empty(N, dtype=torch.float32, device=xyz.device)
     out = torch.empty(1, npoint, dtype=torch.int32, device=xyz.device)
     launch("amc3d_fps_pruned", cloud.packed.data_ptr(), cloud.boxes.data_ptr(),
@@ -212,17 +219,22 @@ def furthest_point_sample_b1(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
     identical to :func:`furthest_point_sample_plain`.
 
     A CUDA tensor goes through :func:`furthest_point_sample_pruned` where
-    :func:`fps_is_pruned` says so, else through one of the two kernels of
-    ``csrc/fps_b1.cu``: the cluster kernel where the cloud and the card
-    allow it, else the grid kernel.  A CPU tensor goes through the plain
-    path."""
+    :func:`fps_is_pruned` says so or the cloud is larger than the grid
+    kernel takes, else through one cluster of ``csrc/fps.cu``'s kernel at
+    :func:`fps_cluster_size`'s S for B = 1 where the card holds it, else
+    through the grid kernel of ``csrc/fps.cu``.  ``launches`` counts the
+    last two (``csrc/fps.cu``'s launches for one cloud).  A CPU tensor goes
+    through the plain path."""
     if xyz.device.type == "cpu":
         return furthest_point_sample_plain(xyz, npoint)
     _check_b1(xyz, npoint)
-    if fps_is_pruned(1, xyz.shape[1]):
+    N = xyz.shape[1]
+    if fps_is_pruned(1, N, npoint) or (
+            N > CLUSTER_POINTS and N > _grid_points(xyz.device.index)):
         return furthest_point_sample_pruned(xyz, npoint)
-    if xyz.shape[1] <= CLUSTER_POINTS and _cluster_fits(xyz.device.index):
-        return _fps_b1_cluster(xyz, npoint)
+    s = fps_cluster_size(1, N, _cluster_capacity(xyz.device.index))
+    if s is not None:
+        return _fps_b1_cluster(xyz, npoint, s)
     return _fps_b1_grid(xyz, npoint)
 
 
@@ -248,12 +260,12 @@ def furthest_point_sample(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
     """xyz (B, N, 3) f32 → idx (B, npoint) int32, first index always 0.
 
     A CUDA tensor with B == 1 goes through
-    :func:`furthest_point_sample_b1` (and from 262144 points through
-    :func:`furthest_point_sample_pruned`), one with B > 1 through the
-    ``csrc/fps.cu`` kernel in one launch, one cluster of
+    :func:`furthest_point_sample_b1` (and where :func:`fps_is_pruned` says
+    so through :func:`furthest_point_sample_pruned`), one with B > 1
+    through the ``csrc/fps.cu`` kernel in one launch, one cluster of
     :func:`fps_cluster_size` blocks a cloud (N ≤ 163840).  Beyond that, or
     on a card without such clusters, one cloud after the other goes through
-    the grid kernel of ``csrc/fps_b1.cu``, counted on
+    the grid kernel of ``csrc/fps.cu``, counted on
     ``furthest_point_sample_b1.launches``.  A CPU tensor goes through
     :func:`furthest_point_sample_plain`."""
     if xyz.device.type == "cpu":

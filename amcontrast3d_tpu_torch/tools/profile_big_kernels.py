@@ -8,7 +8,7 @@ Without ``--rungs``: the three kernels of a 155648-point subcloud (below).
 With ``--rungs``: the kernels of the buckets from 221184 up, on room-like
 and uniform clouds: the chunk-pruned FPS (``csrc/fps_pruned.cu``) at
 311296 -> 77824 and 1.2 M -> 4096 points beside the grid kernel of
-``csrc/fps_b1.cu`` (time and chunk visits a pick), and the chunk-pruned
+``csrc/fps.cu`` (time and chunk visits a pick), and the chunk-pruned
 interpolation (``csrc/interpolate_big.cu``) at fp0 of the 221184 and 311296
 buckets (C = 128) and at fp1 of the 622592 bucket (155648 -> 38912,
 C = 256) beside the listed scan of ``csrc/interpolate.cu`` over the two
@@ -18,7 +18,8 @@ two kernels at the rungs; picks and outputs are compared for equality.
 
 Prints the card, then per kernel the median device time (CUDA events):
 the whole-room FPS per stage with its time per pick through the cluster
-kernel and the grid kernel (cluster, grid, grid, cluster), the listed
+kernel (at the dispatch's cluster size) and the grid kernel (cluster,
+grid, grid, cluster), the listed
 ball query at the first two stages over the stages' layouts (one sort, as
 the encoder makes them) beside the same kernel sorting its support itself,
 and the chunk-pruned kNN (self-kNN, k = 24), on a room-like cloud (points
@@ -153,13 +154,17 @@ def main() -> None:
             npoint = prev.shape[1] // 4
             idx = ops.fps._fps_b1_grid(prev, npoint)
             line = f"{name} fps_b1 {prev.shape[1]} -> {npoint}:"
+            size = ops.fps.fps_cluster_size(
+                1, prev.shape[1], ops.fps._cluster_capacity(dev.index))
+            kernels = {
+                "cluster": lambda: ops.fps._fps_b1_cluster(prev, npoint, size),
+                "grid": lambda: ops.fps._fps_b1_grid(prev, npoint)}
             for path in ("cluster", "grid", "grid", "cluster"):
-                kernel = getattr(ops.fps, f"_fps_b1_{path}")
-                got = kernel(prev, npoint)
+                got = kernels[path]()
                 torch.cuda.synchronize()
                 if not torch.equal(got, idx):
                     raise AssertionError("fps kernels disagree")
-                ms = cuda_ms(lambda: kernel(prev, npoint), 3)
+                ms = cuda_ms(kernels[path], 3)
                 line += f" {path} {ms:.3f} ms, {ms / npoint * 1e3:.3f} us a pick;"
             print(f"{line}  [{tag}]")
             stages.append(ops.gather_points(prev, idx).contiguous())

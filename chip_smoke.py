@@ -78,12 +78,22 @@
    BatchNorm ahead of the last sigmoid centres it), and assert a refine
    rate strictly between 0 and 100 and a non-zero gradient out of the
    CrossMask VJP;
-7. runs the three whole-room kernels at the shapes of a 155648-point
-   subcloud (B = 1), on a room-like cloud (the faces of a room and solid
-   boxes on a 0.04 m grid, with repeated points) and a uniform one: the
-   whole-room FPS at the four stages (its cluster kernel, and its grid
-   kernel beside it) and at 1.2 M points (the grid kernel; 4096 picks, on a
-   uniform and a clustered cloud), picks identical to the twin; the listed
+7. runs the whole-room FPS at every stage (N → N / 4, four times) of the
+   buckets 106496, 155648, 221184 and 311296 (B = 1), on a room-like cloud
+   (the faces of a room and solid boxes, one point a voxel: 0.04 m to
+   155648 points, 0.02 m from 221184, with repeated points) and a uniform
+   one, through the dispatch (a cluster of ``csrc/fps.cu``'s kernel at its
+   cluster size to 163840 points, the chunk-pruned kernel above), picks
+   identical to the twin and to the grid kernel, each stage with its time,
+   us a pick, chunk visits a pick and bound, and beside it every other
+   kernel that takes the size (the grid kernel, the chunk-pruned kernel)
+   and the one-block handover kernel of ``tools/fps_handover.cu`` (a
+   measurement tool, not a path of the package) with the pick at which its
+   one block took over, each holding the twin's picks; and at 1.2 M points
+   (4096 picks, uniform and clustered), which the dispatch sends to
+   ``csrc/fps.cu``'s grid kernel; then the three whole-room kernels at the
+   shapes of a 155648-point subcloud, on its room-like and uniform stage
+   clouds: the listed
    interpolation at the subcloud's four decoder stages over their layouts,
    indices identical to the twin's, output within 1e-5·(1+max|out|); the
    listed ball query at the three (M, N, r) pairs whose support exceeds
@@ -174,8 +184,9 @@
    points (every subcloud in bucket 221184) and of 400000 (bucket 311296),
    MM (``cfgs/scannet/AMContrast3D-MM.yaml``) on the 250000-point room;
    the launches per subcloud forward include the chunk-pruned FPS at the
-   first stage from 262144 points and the chunk-pruned interpolation at
-   fp0;
+   first stage (both buckets are above 163840 points; each call sorts its
+   cloud with the two layout kernels) and the chunk-pruned interpolation
+   at fp0;
 14. runs the four kernels of the approx configuration and the fused
    aggregation at the S3DIS step's shapes against their twins
    (``approx_kernel_phases``): the threshold selection at the four decoder
@@ -203,6 +214,7 @@ stops before printing any result.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import copy
 import functools
@@ -257,13 +269,17 @@ KERNELS = (  # name, source, the TPU kernel it replaces
      "amcontrast3d_tpu/ops/contrast_pallas.py:951"),
     ("refine_cross_backward", "amcontrast3d_tpu_torch/csrc/refine.cu",
      "amcontrast3d_tpu/ops/contrast_pallas.py:1091"),
-    ("fps_b1", "amcontrast3d_tpu_torch/csrc/fps_b1.cu",
+    # one cloud, both of fps.cu's forms: a cluster of its register-resident
+    # kernel to 163840 points, else its grid kernel (where fps_pruned.cu does
+    # not take it)
+    ("fps_b1", "amcontrast3d_tpu_torch/csrc/fps.cu",
      "amcontrast3d_tpu/ops/fps_pallas.py:87"),
     ("three_interpolation_backward_big",
      "amcontrast3d_tpu_torch/csrc/interpolate_bwd_big.cu",
      "amcontrast3d_tpu/ops/interpolate_pallas.py:220"),
+    # also every room stage above one cluster's 163840 points
     ("fps_pruned", "amcontrast3d_tpu_torch/csrc/fps_pruned.cu",
-     "amcontrast3d_tpu/ops/fps_pallas.py:257"),
+     "amcontrast3d_tpu/ops/fps_pallas.py:257, :87"),
     # one kernel for the seed, the threshold and the accumulation kernels
     ("three_interpolation_big", "amcontrast3d_tpu_torch/csrc/interpolate_big.cu",
      "amcontrast3d_tpu/ops/interpolate_pallas.py:332, :350, :267"),
@@ -294,6 +310,7 @@ LAYOUT_KERNELS = KERNELS[18:]    # the layouts every forward and step make
 # points, which pad to the buckets 106496 and 155648
 SCENE_POINTS, SCENE_ROOMS, SCENE_BUCKETS = 250000, {"aa": 2, "mm": 1}, (106496, 155648)
 ROOM_N, HUGE_N, HUGE_PICKS = 155648, 1200000, 4096
+ROOM_BUCKETS = (106496, 155648, 221184, 311296)   # every room stage's FPS
 FPS_OPS = PAIR_OPS + 1           # a distance, a running minimum, a compare
 BOX_OPS = 18                     # 6 sub, 6 max, 3 mul, 2 add, 1 compare
 CHUNK = 64                       # ops/spatial.py::CHUNK
@@ -1018,6 +1035,85 @@ def chunk_visits(spatial, support, query, limit, strict: bool, cloud=None):
     return visits, query.shape[0] * query.shape[1] * cloud.boxes.shape[1]
 
 
+def room_fps_stages(ops, dev, rng, bucket: int, cloud: str, note, add,
+                    tag: str) -> list:
+    """The whole-room FPS at the four stages of a subcloud in ``bucket``
+    (N → N / 4; a room-like cloud on the bucket's voxel, 0.04 m as S3DIS to
+    155648 points and 0.02 m as ScanNet from 221184, or a uniform one):
+    the dispatch's picks identical to the twin and to the grid kernel, its
+    time, us a pick, chunk visits a pick (the chunk-pruned kernel), bound
+    and route; beside it every other kernel that takes the size, under its
+    own name, and the one-block handover kernel of ``tools/fps_handover.cu``
+    (not a path of the package) with the pick at which its one block took
+    over, each holding the twin's picks; returns the five stage clouds."""
+    from amcontrast3d_tpu_torch.tools import fps_handover
+
+    voxel = 0.04 if bucket <= ROOM_N else 0.02
+    pts = room_cloud(rng, bucket, voxel) if cloud == "room" else \
+        (rng.rand(1, bucket, 3) * [7, 6, 3]).astype(np.float32)
+    stages = [torch.from_numpy(pts).to(dev)]
+    fps = ops.fps
+    for s in range(4):
+        prev = stages[-1]
+        n, npoint = prev.shape[1], prev.shape[1] // 4
+        pruned = ops.fps_is_pruned(1, n, npoint)
+        name = "fps_pruned" if pruned else "fps_b1"
+        got = ops.furthest_point_sample_b1(prev, npoint)
+        want, plain_ms = timed_once(
+            lambda: ops.furthest_point_sample_plain(prev, npoint))
+        err = check_equal(f"{name} {cloud} {bucket} stage {s}", got, want)
+        if not pruned:
+            note("fps_b1", err)
+        ms = cuda_ms(lambda: ops.furthest_point_sample_b1(prev, npoint), 3)
+        visits = torch.zeros(1, dtype=torch.int64, device=dev)
+        fps.furthest_point_sample_pruned(prev, npoint, visits)
+        v = visits.item()
+        size = fps.fps_cluster_size(1, n, fps._cluster_capacity(dev.index))
+        if pruned:
+            nops = npoint * -(-n // CHUNK) * BOX_OPS + v * CHUNK * FPS_OPS
+            route = (f"chunk-pruned, {v / npoint:.2f} chunk visits a pick of "
+                     f"{-(-n // CHUNK)}")
+        else:
+            nops = npoint * n * FPS_OPS
+            route = f"one cluster of {size} blocks"
+        bound = max((n * 12 + npoint * 4) / PEAK_BYTES, nops / PEAK_OPS) * 1e3
+        # every kernel that takes this size, each under its own name
+        others = {"grid kernel": lambda: fps._fps_b1_grid(prev, npoint)}
+        if not pruned:
+            others["chunk-pruned kernel"] = \
+                lambda: fps.furthest_point_sample_pruned(prev, npoint)
+        elif size is not None:
+            others[f"cluster of {size} blocks"] = \
+                lambda: fps._fps_b1_cluster(prev, npoint, size)
+        line = []
+        for other, fn in others.items():
+            check_equal(f"{name} {cloud} {bucket} stage {s}, the {other}",
+                        fn(), want)
+            o_ms = cuda_ms(fn, 1 if other == "grid kernel" and n > ROOM_N
+                           else 3)
+            line.append(f"the {other} {o_ms:.3f} ms = "
+                        f"{o_ms / npoint * 1e3:.3f} us a pick")
+        handover, first = fps_handover.furthest_point_sample_handover(
+            prev, npoint)
+        check_equal(f"handover {cloud} {bucket} stage {s}", handover, want)
+        h_ms = cuda_ms(lambda: fps_handover.furthest_point_sample_handover(
+            prev, npoint), 3)
+        line.append(f"the one-block handover kernel (T = "
+                    f"{fps_handover.HANDOVER}) {h_ms:.3f} ms = "
+                    f"{h_ms / npoint * 1e3:.3f} us a pick, one block from pick "
+                    f"{int(first.item())}")
+        print(f"{name} {cloud} {bucket} stage {s} {n} -> {npoint}: picks "
+              f"identical to the twin and to the grid kernel; {route}: "
+              f"{ms:.3f} ms = {ms / npoint * 1e3:.3f} us a pick, bound "
+              f"{bound:.4f} ms; {'; '.join(line)}; plain {plain_ms:.1f} ms  "
+              f"[{tag}]")
+        if bucket == ROOM_N:
+            add("fps_b1", cloud == "room", ms, plain_ms, n * 12 + npoint * 4,
+                nops)
+        stages.append(ops.gather_points(prev, got).contiguous())
+    return stages
+
+
 def scene_kernel_phases(ops, dev, rng, tag: str) -> dict:
     """The three whole-room kernels against their twins (and against the
     kernels they take over from) at the shapes of a
@@ -1040,30 +1136,17 @@ def scene_kernel_phases(ops, dev, rng, tag: str) -> dict:
             r["bytes"] += float(nbytes)
             r["ops"] += float(nops)
 
-    clouds = {"room": room_cloud(rng, ROOM_N),
-              "uniform": (rng.rand(1, ROOM_N, 3) * [7, 6, 3]).astype(np.float32)}
-    for cloud, pts in clouds.items():
+    # the whole-room FPS at every stage of the four buckets: its JSON row is
+    # the 155648-point subcloud's four stages (room-like)
+    room_stages = {}
+    for bucket in ROOM_BUCKETS:
+        for cloud in ("room", "uniform"):
+            stages = room_fps_stages(ops, dev, rng, bucket, cloud, note, add,
+                                     tag)
+            if bucket == ROOM_N:
+                room_stages[cloud] = stages
+    for cloud, stages in room_stages.items():
         timed = cloud == "room"
-        stages = [torch.from_numpy(pts).to(dev)]
-        for s in range(1, 5):              # 155648 → 38912 → 9728 → 2432 → 608
-            prev = stages[-1]
-            n, npoint = prev.shape[1], prev.shape[1] // 4
-            got = ops.furthest_point_sample_b1(prev, npoint)
-            want, plain_ms = timed_once(
-                lambda: ops.furthest_point_sample_plain(prev, npoint))
-            note("fps_b1", check_equal(f"fps_b1 {cloud} stage {s}", got, want))
-            # these sizes take the cluster kernel; the grid kernel beside it
-            check_equal(f"fps_b1 {cloud} stage {s}, the grid kernel",
-                        ops.fps._fps_b1_grid(prev, npoint), want)
-            ms = cuda_ms(lambda: ops.furthest_point_sample_b1(prev, npoint), 5)
-            grid_ms = cuda_ms(lambda: ops.fps._fps_b1_grid(prev, npoint), 3)
-            print(f"fps_b1 {cloud} {n} -> {npoint}: {ms:.3f} ms = "
-                  f"{ms / npoint * 1e3:.3f} us a pick (one cluster), the grid "
-                  f"kernel {grid_ms:.3f} ms = {grid_ms / npoint * 1e3:.3f} us a "
-                  f"pick, plain {plain_ms:.1f} ms  [{tag}]")
-            add("fps_b1", timed, ms, plain_ms, n * 12 + npoint * 4,
-                npoint * n * FPS_OPS)
-            stages.append(ops.gather_points(prev, got).contiguous())
         # the subcloud forward's interpolation at its four stages (kernel
         # 3's JSON row is the S3DIS step's)
         interp_stages(ops, spatial, stages, f"{cloud} room", tag, rng)
@@ -1114,18 +1197,22 @@ def scene_kernel_phases(ops, dev, rng, tag: str) -> dict:
               f"plain {plain_ms:.1f} ms, topk(cdist^2) in tiles "
               f"{library_ms:.1f} ms, chunk visits needed "
               f"{visits / ROOM_N:.2f} a query of {pairs // ROOM_N}  [{tag}]")
-    # above 2^20 points, a few thousand picks (the twin the same ones):
-    # the grid kernel, which the dispatch no longer sends such clouds to
-    # (the chunk-pruned kernel takes them, rung_kernel_phases)
+    # above 2^20 points, a few thousand picks (the twin the same ones): the
+    # dispatch sends them to the grid kernel, whose sweep beats the
+    # chunk-pruned kernel's first picks there (rung_kernel_phases holds
+    # both)
     for cloud, pts in huge_clouds(rng).items():
         p = torch.from_numpy(pts).to(dev)
-        got = ops.fps._fps_b1_grid(p, HUGE_PICKS)
+        if ops.fps_is_pruned(1, HUGE_N, HUGE_PICKS):
+            raise AssertionError("the rule sends 1.2 M -> 4096 to the pruned "
+                                 "kernel")
+        got = ops.furthest_point_sample_b1(p, HUGE_PICKS)
         want, plain_ms = timed_once(
             lambda: ops.furthest_point_sample_plain(p, HUGE_PICKS))
         note("fps_b1", check_equal(f"fps_b1 {cloud} {HUGE_N}", got, want))
-        ms = cuda_ms(lambda: ops.fps._fps_b1_grid(p, HUGE_PICKS), 3)
+        ms = cuda_ms(lambda: ops.furthest_point_sample_b1(p, HUGE_PICKS), 3)
         print(f"fps_b1 {cloud} {HUGE_N} -> {HUGE_PICKS}: {ms:.3f} ms = "
-              f"{ms / HUGE_PICKS * 1e3:.3f} us a pick (the grid kernel), plain "
+              f"{ms / HUGE_PICKS * 1e3:.3f} us a pick (csrc/fps.cu's grid kernel), plain "
               f"{plain_ms:.1f} ms  [{tag}]")
     return finish_kernels(results, "room-like and uniform", tag)
 
@@ -1348,11 +1435,11 @@ def rung_kernel_phases(ops, dev, rng, tag: str) -> dict:
         results[name]["err"] = max(results[name]["err"] or 0.0, err)
 
     # the floor of a pick: one cluster-wide reduction, read off the cluster
-    # kernel of fps_b1.cu with 4 points a thread (16 x 512 x 4 points)
+    # kernel of fps.cu with 16 blocks and 4 points a thread (16 x 512 x 4)
     tiny = torch.from_numpy(rng.rand(1, 16 * 512 * 4, 3).astype(np.float32)).to(dev)
-    floor_us = cuda_ms(lambda: ops.fps._fps_b1_cluster(tiny, tiny.shape[1]), 3) \
-        / tiny.shape[1] * 1e3
-    print(f"one cluster-wide reduction a pick (fps_b1.cu's cluster kernel, "
+    floor_us = cuda_ms(lambda: ops.fps._fps_b1_cluster(
+        tiny, tiny.shape[1], 16), 3) / tiny.shape[1] * 1e3
+    print(f"one cluster-wide reduction a pick (fps.cu's 16-block cluster, "
           f"{tiny.shape[1]} points, as many picks): {floor_us:.3f} us  [{tag}]")
 
     clouds = {("room", 311296): room_cloud(rng, 311296, 0.02),
@@ -2013,9 +2100,10 @@ def train_vs_plain(cfg, model, optimizer, dev, batch, tag, kind: str,
 
 def scene_launches(ops, clouds: list, kind: str) -> dict:
     """The launches the whole-scene test must have made: per subcloud
-    forward 4 FPS calls (the first through the chunk-pruned kernel where
-    ``fps_is_pruned`` says so), one sort of the stage clouds (two layout
-    kernels), 8 ball queries (two per stage), 4 interpolations (those
+    forward 4 FPS calls (those ``fps_is_pruned`` names through the
+    chunk-pruned kernel, each sorting its cloud with the two layout
+    kernels), one sort of the stage clouds (two layout kernels), 8 ball
+    queries (two per stage), 4 interpolations (those
     ``forward_is_big`` names through the chunk-pruned kernel; the coarse
     widths are 128, 256, 512, 1024), for MM 4 CrossMask calls, and one
     boundary kNN over the subcloud's points."""
@@ -2027,12 +2115,13 @@ def scene_launches(ops, clouds: list, kind: str) -> dict:
     for cloud in clouds:
         for n, nb in zip(cloud["subclouds"], cloud["buckets"]):
             sizes = [nb // 4 ** s for s in range(5)]
-            pruned = sum(ops.fps_is_pruned(1, ns) for ns in sizes[:4])
+            pruned = sum(ops.fps_is_pruned(1, ns, ns // 4)
+                         for ns in sizes[:4])
             want["fps_pruned"] += pruned
             want["fps_b1"] += 4 - pruned
             want["ball_query"] += 8
             for k, v in SORT_LAUNCHES.items():
-                want[k] += v
+                want[k] += v * (1 + pruned)
             wide = sum(ops.forward_is_big(sizes[s + 1], 128 * 2 ** s)
                        for s in range(4))
             want["three_interpolation_big"] += wide
@@ -2432,7 +2521,13 @@ def main() -> None:
     dev = torch.device("cuda", 0)
 
     t0 = time.perf_counter()
-    _build.load_library()
+    # the one-block handover kernel (a measurement tool the room FPS phase
+    # holds beside the path's kernels) builds beside the library
+    from amcontrast3d_tpu_torch.tools import fps_handover
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        tool = pool.submit(fps_handover.library, "handover")
+        _build.load_library()
+        tool.result()
     print(f"kernels built and loaded in {time.perf_counter() - t0:.2f} s: "
           f"{_build.library_path()}")
     print(_build.library_path().with_suffix(".log").read_text().strip())

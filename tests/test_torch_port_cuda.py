@@ -562,7 +562,15 @@ def _room(rng, n, dup=0.05):
     return pts[rng.permutation(n)][None].astype(np.float32)
 
 
-_FPS_B1_KERNELS = (ops.fps._fps_b1_grid, ops.fps._fps_b1_cluster)
+def _fps_b1_cluster(xyz, npoint):
+    """One cloud through a cluster of ``csrc/fps.cu``'s kernel at the
+    dispatch's cluster size."""
+    s = ops.fps.fps_cluster_size(
+        1, xyz.shape[1], ops.fps._cluster_capacity(xyz.device.index))
+    return ops.fps._fps_b1_cluster(xyz, npoint, s)
+
+
+_FPS_B1_KERNELS = (ops.fps._fps_b1_grid, _fps_b1_cluster)
 
 
 def _equal(got, want):
@@ -609,7 +617,7 @@ def test_fps_b1_above_the_cluster_takes_the_grid(cuda_device):
     _equal(ops.furthest_point_sample_b1(xyz, 300),
            ops.furthest_point_sample_plain(xyz, 300))
     with pytest.raises(ValueError):
-        ops.fps._fps_b1_cluster(xyz, 300)
+        ops.fps._fps_b1_cluster(xyz, 300, 16)
 
 
 @pytest.mark.cuda
@@ -1189,9 +1197,9 @@ def test_contrast_kernels_at_64000_points(cuda_device):
 @pytest.mark.parametrize("n,npoint", [(1, 1), (7, 7), (1030, 257), (5000, 5000),
                                       (262143, 700), (263145, 2000)])
 def test_fps_pruned_matches_plain_and_the_grid_kernel(cuda_device, n, npoint):
-    """The chunk-pruned FPS at odd sizes, below and above the 262144 gate, on
-    a gridded room with repeated points: picks identical to the twin and to
-    the grid kernel; the dispatch sends only N >= 262144 to it."""
+    """The chunk-pruned FPS at odd sizes, on a gridded room with repeated
+    points: picks identical to the twin and to the grid kernel; the
+    dispatch sends it what ``fps_is_pruned`` names."""
     rng = np.random.RandomState(n)
     xyz = torch.from_numpy(_room(rng, n) if n > 5000 else
                            _cloud(rng, 1, n, n % 2 == 0)).to(cuda_device)
@@ -1205,7 +1213,7 @@ def test_fps_pruned_matches_plain_and_the_grid_kernel(cuda_device, n, npoint):
     counts = (ops.furthest_point_sample_pruned.launches,
               ops.furthest_point_sample_b1.launches)
     _equal(ops.furthest_point_sample(xyz, npoint), want)
-    pruned = int(n >= 262144)
+    pruned = int(ops.fps_is_pruned(1, n, npoint))
     assert (ops.furthest_point_sample_pruned.launches,
             ops.furthest_point_sample_b1.launches) == \
         (counts[0] + pruned, counts[1] + 1 - pruned)
@@ -1225,6 +1233,234 @@ def test_fps_pruned_ties(cuda_device):
            ops.furthest_point_sample_plain(xyz, 1500))
     with pytest.raises(ValueError):
         ops.furthest_point_sample_pruned(xyz.expand(2, -1, -1).contiguous(), 5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bucket", [106496, 155648, 221184, 311296])
+def test_whole_room_fps_at_every_stage_of_the_buckets(cuda_device, bucket):
+    """A room's subcloud forward samples N → N / 4 four times from its
+    bucket: at every stage of the four buckets, on a room-like cloud with
+    repeated points, the dispatch's picks are identical to the twin's, one
+    whole-room launch each (the chunk-pruned kernel where ``fps_is_pruned``
+    says so, with its sort's two layout kernels)."""
+    rng = np.random.RandomState(bucket)
+    p = torch.from_numpy(_room(rng, bucket)).to(cuda_device)
+    for _ in range(4):
+        n, npoint = p.shape[1], p.shape[1] // 4
+        counts = (ops.furthest_point_sample_pruned.launches,
+                  ops.furthest_point_sample_b1.launches,
+                  ops.spatial.layout_keys.launches)
+        got = ops.furthest_point_sample(p, npoint)
+        pruned = int(ops.fps_is_pruned(1, n, npoint))
+        assert (ops.furthest_point_sample_pruned.launches,
+                ops.furthest_point_sample_b1.launches,
+                ops.spatial.layout_keys.launches) == \
+            (counts[0] + pruned, counts[1] + 1 - pruned, counts[2] + pruned)
+        _equal(got, ops.furthest_point_sample_plain(p, npoint))
+        p = ops.gather_points(p, got).contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,npoint", [(163840, 40960), (163841, 40961),
+                                      (200000, 2000), (200000, 1999)])
+def test_whole_room_fps_on_both_sides_of_the_gate(cuda_device, n, npoint):
+    """Both sides of one cluster's 163840 points and of the least share of
+    picks the chunk-pruned kernel takes: picks identical to the twin, from
+    the kernel the rule names, and from every kernel that takes the size."""
+    rng = np.random.RandomState(n + npoint)
+    xyz = torch.from_numpy(_cloud(rng, 1, n, True)).to(cuda_device)
+    want = ops.furthest_point_sample_plain(xyz, npoint)
+    before = ops.furthest_point_sample_pruned.launches
+    _equal(ops.furthest_point_sample_b1(xyz, npoint), want)
+    assert ops.furthest_point_sample_pruned.launches == \
+        before + int(ops.fps_is_pruned(1, n, npoint))
+    _equal(ops.furthest_point_sample_pruned(xyz, npoint), want)
+    _equal(ops.fps._fps_b1_grid(xyz, npoint), want)
+    if n <= ops.fps.CLUSTER_POINTS:
+        _equal(_fps_b1_cluster(xyz, npoint), want)
+
+
+@pytest.mark.cuda
+def test_whole_room_fps_ties_duplicates_and_a_huge_cloud(cuda_device):
+    """Above one cluster: every point equal (each pick a tie the lowest
+    index wins), a gridded room with repeated points, npoint 1; and
+    1.2 M → 4096, which the rule sends to the grid kernel: picks identical
+    to the twin from the dispatch and from the chunk-pruned kernel."""
+    same = torch.ones(1, 170000, 3, device=cuda_device)
+    room = torch.from_numpy(_room(np.random.RandomState(11), 170001)).to(cuda_device)
+    for xyz, npoint in ((same, 50), (room, 42500), (room, 1)):
+        want = ops.furthest_point_sample_plain(xyz, npoint)
+        _equal(ops.furthest_point_sample(xyz, npoint), want)
+        _equal(ops.furthest_point_sample_pruned(xyz, npoint), want)
+    rng = np.random.RandomState(12)
+    huge = torch.from_numpy(_cloud(rng, 1, 1200000, False)).to(cuda_device)
+    want = ops.furthest_point_sample_plain(huge, 4096)
+    before = ops.furthest_point_sample_b1.launches
+    _equal(ops.furthest_point_sample(huge, 4096), want)
+    assert ops.furthest_point_sample_b1.launches == before + 1
+    _equal(ops.furthest_point_sample_pruned(huge, 4096), want)
+
+
+@pytest.mark.cuda
+def test_whole_room_fps_refused_launches_raise(cuda_device):
+    """A launch the kernel refuses raises, with no fallback: the cluster
+    kernel at a cluster size it has no instance for, the pruned kernel
+    with more picks than points or beyond its 2 M points."""
+    from amcontrast3d_tpu_torch.ops._build import launch
+    xyz = torch.rand(1, 1000, 3, device=cuda_device)
+    out = torch.empty(1, 10, dtype=torch.int32, device=cuda_device)
+    stream = torch.cuda.current_stream(cuda_device).cuda_stream
+    with pytest.raises(RuntimeError):
+        launch("amc3d_fps", xyz.data_ptr(), out.data_ptr(), 1, 1000, 10, 3,
+               stream)
+    cloud = ops.spatial.sort_stages([xyz])[0]
+    mind = torch.empty(1000, device=cuda_device)
+    with pytest.raises(RuntimeError):
+        launch("amc3d_fps_pruned", cloud.packed.data_ptr(),
+               cloud.boxes.data_ptr(), xyz.data_ptr(), mind.data_ptr(),
+               out.data_ptr(), None, 1000, 1001, stream)
+    with pytest.raises(ValueError):
+        ops.furthest_point_sample_pruned(
+            torch.zeros(1, ops.fps.PRUNED_MAX_POINTS + 1, 3, device=cuda_device), 4)
+    # the grid kernel beyond 14336 points a multiprocessor
+    best = torch.zeros(10, dtype=torch.int64, device=cuda_device)
+    arrived = torch.zeros(10, dtype=torch.int32, device=cuda_device)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    with pytest.raises(RuntimeError):
+        launch("amc3d_fps_grid", xyz.data_ptr(), out.data_ptr(),
+               best.data_ptr(), arrived.data_ptr(),
+               sms * ops.fps.B1_POINTS_PER_SM + 1, 10, stream)
+
+
+@pytest.mark.cuda
+def test_whole_room_fps_above_the_grid_kernel_takes_the_pruned_kernel(
+        cuda_device):
+    """A cloud larger than the grid kernel holds (14336 points a
+    multiprocessor) goes to the chunk-pruned kernel whatever share of it is
+    picked: picks identical to the twin, one pruned launch."""
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    n = sms * ops.fps.B1_POINTS_PER_SM + 1
+    rng = np.random.RandomState(13)
+    xyz = torch.from_numpy(_cloud(rng, 1, n, True)).to(cuda_device)
+    assert not ops.fps_is_pruned(1, n, 4096)
+    counts = (ops.furthest_point_sample_pruned.launches,
+              ops.furthest_point_sample_b1.launches)
+    _equal(ops.furthest_point_sample(xyz, 4096),
+           ops.furthest_point_sample_plain(xyz, 4096))
+    assert (ops.furthest_point_sample_pruned.launches,
+            ops.furthest_point_sample_b1.launches) == (counts[0] + 1, counts[1])
+    with pytest.raises(ValueError):
+        ops.fps._fps_b1_grid(xyz, 4096)
+
+
+# ---------------------------------------------------------------------------
+# tools/fps_handover.cu: the chunk-pruned FPS whose late picks run in one
+# block (a measurement tool, not a path of the package)
+# ---------------------------------------------------------------------------
+
+def _handover(xyz, npoint, handover=None):
+    """The handover kernel's picks, and the first pick of its one-block
+    phase, held against the twin."""
+    from amcontrast3d_tpu_torch.tools import fps_handover
+    got, first = fps_handover.furthest_point_sample_handover(
+        xyz, npoint, fps_handover.HANDOVER if handover is None else handover)
+    _equal(got, ops.furthest_point_sample_plain(xyz, npoint))
+    first = int(first.item())
+    assert 1 <= first <= npoint or npoint == 1
+    return first
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bucket", [106496, 155648, 221184, 311296])
+def test_handover_fps_at_every_stage_of_the_buckets(cuda_device, bucket):
+    """At every stage of the four buckets (N → N / 4), on a room-like
+    cloud with repeated points: picks identical to the twin; the first
+    stage hands over to the one block before its last pick."""
+    rng = np.random.RandomState(bucket + 1)
+    p = torch.from_numpy(_room(rng, bucket)).to(cuda_device)
+    for s in range(4):
+        npoint = p.shape[1] // 4
+        first = _handover(p, npoint)
+        assert s > 0 or 2 <= first < npoint
+        p = ops.gather_points(p, ops.furthest_point_sample(p, npoint)
+                              ).contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("handover", [0, 1, 32, 10 ** 6])
+def test_handover_fps_on_both_sides_of_the_handover(cuda_device, handover):
+    """Handover 0 (the wide kernel alone), 1 (no pick visits no chunk), 32
+    and 10⁶ (right after the first pick): the same picks, the one block
+    starting where the rule says."""
+    rng = np.random.RandomState(14)
+    xyz = torch.from_numpy(_room(rng, 60000)).to(cuda_device)
+    first = _handover(xyz, 15000, handover)
+    if handover in (0, 1):
+        assert first == 15000
+    elif handover == 10 ** 6:
+        assert first == 2
+    else:
+        assert 2 < first < 15000
+
+
+@pytest.mark.cuda
+def test_handover_fps_ties_duplicates_npoint_1_and_n(cuda_device):
+    """Every point equal (each pick a tie the lowest index wins), a gridded
+    room with repeated points, npoint 1 and npoint N, point 0 far from the
+    first chunk of the sort."""
+    same = torch.ones(1, 170000, 3, device=cuda_device)
+    _handover(same, 50, 10 ** 6)
+    room = torch.from_numpy(_room(np.random.RandomState(15), 170001)).to(cuda_device)
+    _handover(room, 42500)
+    _handover(room, 1)
+    small = torch.from_numpy(_room(np.random.RandomState(16), 5000)).to(cuda_device)
+    _handover(small, 5000, 10 ** 6)
+    rng = np.random.RandomState(17)
+    far = torch.from_numpy(_cloud(rng, 1, 70001, True)).to(cuda_device)
+    far[0, 0] = torch.tensor([3.9, 3.9, 3.9])
+    _handover(far, 7000)
+
+
+@pytest.mark.cuda
+def test_handover_fps_just_above_one_block_and_a_huge_cloud(cuda_device):
+    """The most chunks one block holds (5120: 327680 points) hands over;
+    one point more runs the wide kernel alone, as does 1.2 M → 4096: picks
+    identical to the twin at all three."""
+    from amcontrast3d_tpu_torch.tools import fps_handover
+    rng = np.random.RandomState(18)
+    n = fps_handover.MAX_POINTS
+    xyz = torch.from_numpy(_cloud(rng, 1, n + 1, False)).to(cuda_device)
+    assert _handover(xyz[:, :n].contiguous(), 20000, 10 ** 6) == 2
+    assert _handover(xyz, 20000, 10 ** 6) == 20000
+    huge = torch.from_numpy(_cloud(rng, 1, 1200000, True)).to(cuda_device)
+    assert _handover(huge, 4096) == 4096
+
+
+@pytest.mark.cuda
+def test_handover_fps_refused_launches_raise(cuda_device):
+    """A launch the kernel refuses raises, with no fallback: more picks
+    than points, a handover beyond one block's chunks, a cloud beyond the
+    wide kernel's 2 M points; a CPU cloud is refused."""
+    from amcontrast3d_tpu_torch.tools import fps_handover
+    lib = fps_handover.library("handover")
+    xyz = torch.rand(1, 1000, 3, device=cuda_device)
+    with pytest.raises(ValueError):
+        fps_handover.furthest_point_sample_handover(xyz, 1001)
+    with pytest.raises(ValueError):
+        fps_handover.furthest_point_sample_handover(xyz.cpu(), 10)
+    cloud = ops.spatial.sort_stages([xyz])[0]
+    scratch = torch.zeros(fps_handover.MAX_CHUNKS + 1, 4, device=cuda_device)
+    out = torch.empty(1, 10, dtype=torch.int32, device=cuda_device)
+    stream = torch.cuda.current_stream(cuda_device).cuda_stream
+    for n, handover in ((1000, -1), (fps_handover.MAX_POINTS + 1, 32),
+                        (fps_handover.WIDE_MAX_POINTS + 1, 0)):
+        err = lib.amc3d_fps_handover(
+            cloud.packed.data_ptr(), cloud.boxes.data_ptr(), xyz.data_ptr(),
+            scratch.data_ptr(), scratch.data_ptr(), scratch.data_ptr(),
+            scratch.data_ptr(), out.data_ptr(), None, n, 10, handover, stream)
+        assert err != 0, (n, handover)
+    with pytest.raises(RuntimeError):
+        fps_handover._raise(lib, "amc3d_fps_handover", 1)
 
 
 @pytest.mark.cuda

@@ -741,7 +741,7 @@ def test_batched_fps_above_the_limit_routes_to_the_cluster_kernel(
         monkeypatch, n, capacity, want):
     """B > 1: every cloud up to 16 × 512 × 20 points goes to the cluster
     kernel of ``csrc/fps.cu`` in one launch, above 57344 points too (where
-    it went to ``fps_b1.cu``'s cluster kernel before), at the cluster size
+    it went to a whole-room cluster kernel before), at the cluster size
     of ``fps_cluster_size``; above, or where the card holds no cluster
     large enough, the grid kernel cloud by cloud."""
     calls = []
@@ -779,7 +779,13 @@ def test_batched_fps_above_the_limit_routes_to_the_cluster_kernel(
     (7, 24000, _H100, 16), (8, 24000, _H100, 8), (15, 24000, _H100, 8),
     (16, 24000, _H100, 4), (8, 81921, _H100, 16), (2, 100000, _NO_16, None),
     (2, 64000, _NO_16, 8), (4, 6000, {1: 132, 2: 66, 4: 0, 8: 0, 16: 0}, 2),
-    (2, 30000, {1: 132, 2: 66, 4: 0, 8: 0, 16: 0}, None)])
+    (2, 30000, {1: 132, 2: 66, 4: 0, 8: 0, 16: 0}, None),
+    # one whole-room cloud (B = 1): the gates alone, and the stages of a
+    # room's subcloud forward
+    (1, 608, _H100, 1), (1, 2432, _H100, 1), (1, 5120, _H100, 4),
+    (1, 9728, _H100, 8), (1, 18432, _H100, 16), (1, 38912, _H100, 16),
+    (1, 163840, _H100, 16), (1, 163841, _H100, None),
+    (1, 40000, _NO_16, 8), (1, 90000, _NO_16, None)])
 def test_fps_cluster_size_at_every_boundary(b, n, capacity, want):
     assert port_fps.fps_cluster_size(b, n, capacity) == want
 

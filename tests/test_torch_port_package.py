@@ -19,6 +19,8 @@ def test_port_imports_no_jax():
             "amcontrast3d_tpu_torch.tools.profile_eval, "
             "amcontrast3d_tpu_torch.tools.profile_train, amcontrast3d_tpu_torch.loss, "
             "amcontrast3d_tpu_torch.tools.profile_big_kernels, "
+            "amcontrast3d_tpu_torch.tools.profile_room_fps, "
+            "amcontrast3d_tpu_torch.tools.fps_handover, "
             "amcontrast3d_tpu_torch.optim, amcontrast3d_tpu_torch.scheduler, "
             "amcontrast3d_tpu_torch.data, amcontrast3d_tpu_torch.data.semantickitti, "
             "amcontrast3d_tpu_torch.transforms, amcontrast3d_tpu_torch.engine.cli, "
@@ -152,6 +154,50 @@ def test_every_c_entry_point_is_declared_once_with_its_arguments():
                 (ctype is ctypes.c_void_p) == ("*" in arg), (name, arg)
 
 
+def test_tool_entry_points_are_declared_with_their_arguments():
+    """The measurement kernels of ``tools/*.cu`` against the ctypes
+    signatures of ``tools/fps_handover.py``, as the package's are held
+    against ``_build._SIGNATURES``: every entry point declared once, with
+    as many arguments of the right kinds, and each source its own set."""
+    import ctypes
+    import re
+    from amcontrast3d_tpu_torch.tools import fps_handover
+    kinds = {ctypes.c_void_p: ("*",), ctypes.c_int: ("int ",)}
+    for name, source in fps_handover.SOURCES.items():
+        text = re.sub(r"//[^\n]*", "", (REPO / "amcontrast3d_tpu_torch" /
+                                         "tools" / source).read_text())
+        found = {m.group(1): [a.strip() for a in m.group(2).split(",")
+                              if a.strip()]
+                 for m in re.finditer(
+                     r'extern "C" (?:const )?[\w ]+?\*?\s*(amc3d_\w+)'
+                     r'\(([^)]*)\)', text)}
+        assert set(found) - {"amc3d_tool_error"} == \
+            set(fps_handover._SIGNATURES[name]), name
+        for entry, argtypes in fps_handover._SIGNATURES[name].items():
+            assert len(argtypes) == len(found[entry]), entry
+            for ctype, arg in zip(argtypes, found[entry]):
+                assert any(k in arg for k in kinds[ctype]) and \
+                    (ctype is ctypes.c_void_p) == ("*" in arg), (entry, arg)
+
+
+def test_handover_tool_refuses_a_cpu_cloud_and_builds_nothing_at_import():
+    """The one-block handover kernel is a tool of the card: a CPU cloud is
+    refused before anything is built, and importing it builds nothing."""
+    import torch
+    from amcontrast3d_tpu_torch.tools import fps_handover
+    with pytest.raises(ValueError, match="CUDA cloud"):
+        fps_handover.furthest_point_sample_handover(torch.zeros(1, 10, 3), 4)
+    assert fps_handover.library.cache_info().currsize == 0
+    assert fps_handover.MAX_POINTS == 327680
+
+
+def test_profile_room_fps_needs_a_cuda_device():
+    proc = _run_tool("profile_room_fps", "--handover", "32", "--micro")
+    assert proc.returncode != 0
+    assert "no CUDA device" in proc.stderr
+    assert not proc.stdout
+
+
 def test_profile_big_kernels_needs_a_cuda_device():
     proc = _run_tool("profile_big_kernels")
     assert proc.returncode != 0
@@ -217,7 +263,7 @@ def test_build_reports_compiler_failure(monkeypatch, tmp_path):
 
 def test_library_name_follows_the_sources(monkeypatch, tmp_path):
     for name in ("fps.cu", "ball_query.cu", "interpolate.cu", "contrast.cu",
-                 "fps_b1.cu", "knn.cu", "layout.cu", "listed_knn.cuh",
+                 "fps_pruned.cu", "knn.cu", "layout.cu", "listed_knn.cuh",
                  "chunks.cuh"):
         assert (_build.CSRC_DIR / name).is_file()
     csrc = tmp_path / "csrc"

@@ -24,6 +24,7 @@ import amcontrast3d_tpu.ops.fps_pallas as FP
 import amcontrast3d_tpu.ops.interpolate_pallas as IP
 from amcontrast3d_tpu.ops.knn import _knn_jnp
 from amcontrast3d_tpu_torch import ops
+from amcontrast3d_tpu_torch.ops import spatial
 
 port_fps = importlib.import_module("amcontrast3d_tpu_torch.ops.fps")
 port_interp = importlib.import_module("amcontrast3d_tpu_torch.ops.interpolate")
@@ -67,6 +68,154 @@ def test_pruned_fps_twin_matches_the_pallas_pruned_sampler(
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(
         ops.furthest_point_sample_plain(_t(xyz), npoint).numpy(), want)
+
+
+def _keys(v: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """Whole keys as the kernels form them: the float bits of a
+    min-distance ≥ 0 above ~index (``csrc/cluster.cuh::make_key``)."""
+    return (v.view(torch.int32).to(torch.int64) << 32) | (0xFFFFFFFF - index)
+
+
+_GROUP = 32   # chunks a group of the one-block phase (tools/fps_handover.cu)
+
+
+def _emulate_pruned(xyz: np.ndarray, npoint: int, handover: int = 0):
+    """The schedule of ``csrc/fps_pruned.cu`` in plain PyTorch, one pick at
+    a time: the cloud sorted into 64-point chunks with boxes (the layout
+    ``sort_stages`` makes), each chunk's whole key; per pick every chunk's
+    box is tested against the pick and its key's min-distance, the chunks
+    that pass are visited (their min-distances lowered, their keys taken
+    again), and the pick is the largest whole key.  With ``handover`` > 0,
+    the schedule of ``tools/fps_handover.cu``: after the first pick that
+    visits fewer than ``handover`` chunks (pick J - 1), the picks from J on
+    test groups of 32 consecutive chunks first (the union of their boxes
+    against the largest key among them) and only the chunks of the groups
+    that pass.  Returns the picks, the chunk visits and J (npoint where the
+    wide phase took every pick)."""
+    p = _t(xyz)
+    cloud = spatial.sort_stages([p])[0]
+    pts = cloud.packed[0, :, :3]
+    index = cloud.packed[0, :, 3].contiguous().view(torch.int32).to(torch.int64)
+    boxes = cloud.boxes[0]
+    n, nc = pts.shape[0], boxes.shape[0]
+    chunk = torch.arange(n) // spatial.CHUNK
+    group = torch.arange(nc) // _GROUP
+    ng = int(group[-1]) + 1
+    gbox = torch.cat([
+        torch.full((ng, 3), float("inf")).scatter_reduce(
+            0, group[:, None].expand(nc, 3), boxes[:, :3], "amin"),
+        torch.full((ng, 3), -float("inf")).scatter_reduce(
+            0, group[:, None].expand(nc, 3), boxes[:, 3:], "amax")], 1)
+    mind = torch.full((n,), 1e10, dtype=torch.float32)
+
+    def chunk_keys():
+        return torch.full((nc,), -1, dtype=torch.int64).scatter_reduce(
+            0, chunk, _keys(mind, index), "amax")
+
+    def value_of(key):
+        return (key >> 32).to(torch.int32).view(torch.float32)
+
+    ckey = chunk_keys()
+    out, visits, first_narrow = [0], 0, npoint
+    last = p[0, 0]
+    for j in range(1, npoint):
+        need = spatial.bbox_lb(last, boxes) < value_of(ckey)
+        if j >= first_narrow:
+            gkey = torch.full((ng,), -1, dtype=torch.int64).scatter_reduce(
+                0, group, ckey, "amax")
+            passed = spatial.bbox_lb(last, gbox) < value_of(gkey)
+            # a group that fails holds no chunk that passes: nothing lost
+            assert not bool((need & ~passed[group]).any())
+            need = need & passed[group]
+        visits += int(need.sum())
+        if handover > 0 and first_narrow == npoint and need.sum() < handover:
+            first_narrow = j + 1
+        at = need[chunk]
+        d = pts[at] - last
+        mind[at] = torch.minimum(mind[at],
+                                 (d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1])
+                                 + d[:, 2] * d[:, 2])
+        ckey = chunk_keys()
+        pick = int(0xFFFFFFFF - (int(ckey.max()) & 0xFFFFFFFF))
+        out.append(pick)
+        last = p[0, pick]
+    return np.array(out, dtype=np.int32), visits, first_narrow
+
+
+def _room_grid(rng, n):
+    """A room-like cloud on a 1/128 m grid: the faces of a 2 x 1.5 x 1 m
+    box and a solid block, a tenth of the points repeating others (as the
+    bucket padding repeats real points), and many d² ties."""
+    face = rng.rand(n, 3) * [2, 1.5, 1]
+    axis = rng.randint(0, 3, n)
+    face[np.arange(n), axis] = rng.randint(0, 2, n) * np.array([2, 1.5, 1])[axis]
+    solid = rng.rand(n // 4, 3) * [0.5, 0.4, 0.3] + [0.7, 0.5, 0]
+    pts = np.round(np.concatenate([face[: n - len(solid)], solid]) * 128) / 128
+    pts[rng.randint(0, n, n // 10)] = pts[rng.randint(0, n, n // 10)]
+    return pts[rng.permutation(n)][None].astype(np.float32)
+
+
+_CLOUDS = {"grid": lambda: _room_grid(np.random.RandomState(5), 2600),
+           "uniform": lambda: _cloud(np.random.RandomState(6), 1, 2600)}
+_PALLAS_PICKS = {}
+
+
+def _pallas_picks(name: str, npoint: int) -> np.ndarray:
+    """``_fps_b1_pruned`` in interpret mode with 512-point chunks (several
+    skip per pick), once per cloud."""
+    if name not in _PALLAS_PICKS:
+        saved = FP._PRUNE_CS
+        FP._PRUNE_CS = 512
+        try:
+            planes = jnp.asarray(_CLOUDS[name]()).transpose(2, 0, 1)
+            _PALLAS_PICKS[name] = np.asarray(FP._fps_b1_pruned(
+                planes[0], planes[1], planes[2], planes.shape[-1], npoint,
+                True))[0]
+        finally:
+            FP._PRUNE_CS = saved
+    return _PALLAS_PICKS[name]
+
+
+@pytest.mark.parametrize("cloud", sorted(_CLOUDS))
+@pytest.mark.parametrize("npoint", [1, 2, 97, 650])
+def test_pruned_schedule_matches_pallas_and_plain(cloud, npoint):
+    """The chunk-pruned FPS's schedule (chunk tests against the pick and
+    each chunk's largest min-distance, whole-key argmax) gives picks
+    identical to the Pallas pruned sampler and to the plain FPS, on a
+    1/128 m grid with repeated points and on a uniform cloud, at npoint 1,
+    2 and beyond; once the first picks (which visit every chunk) are past,
+    most chunks are skipped."""
+    xyz = _CLOUDS[cloud]()
+    got, visits, _ = _emulate_pruned(xyz, npoint)
+    np.testing.assert_array_equal(got, _pallas_picks(cloud, 650)[:npoint])
+    np.testing.assert_array_equal(
+        got, ops.furthest_point_sample_plain(_t(xyz), npoint)[0].numpy())
+    nc = -(-xyz.shape[1] // spatial.CHUNK)
+    assert visits == nc * (npoint - 1) or npoint > 2
+    assert npoint < 97 or visits <= 0.5 * nc * (npoint - 1)
+
+
+@pytest.mark.parametrize("cloud", sorted(_CLOUDS))
+@pytest.mark.parametrize("handover", [1, 8, 32, 10 ** 6])
+def test_handover_schedule_matches_pallas_and_plain(cloud, handover):
+    """The two-phase schedule of ``tools/fps_handover.cu`` (the wide phase
+    to pick J - 1, then groups of 32 chunks tested before their chunks)
+    gives picks identical to the Pallas pruned sampler and to the plain FPS
+    at every handover pick J: never (1: every pick visits a chunk), late
+    (8, 32) and right after the first pick (10⁶), on a 1/128 m grid with
+    repeated points and on a uniform cloud."""
+    xyz = _CLOUDS[cloud]()
+    npoint = 650
+    got, _, first_narrow = _emulate_pruned(xyz, npoint, handover)
+    np.testing.assert_array_equal(got, _pallas_picks(cloud, npoint))
+    np.testing.assert_array_equal(
+        got, ops.furthest_point_sample_plain(_t(xyz), npoint)[0].numpy())
+    if handover == 1:
+        assert first_narrow == npoint
+    elif handover == 10 ** 6:
+        assert first_narrow == 2
+    else:
+        assert 2 < first_narrow < npoint
 
 
 # ---- kernels 11-13: the large-support interpolation -------------------------
@@ -127,16 +276,9 @@ def test_big_interp_twin_against_the_pallas_big_path(monkeypatch, b, n1, tq):
 # ---- the dispatch rules -----------------------------------------------------
 
 def test_dispatch_rules_equal_the_jax_expressions():
-    """``fps_is_pruned`` and ``forward_is_big`` against the JAX package's
-    own expressions (``fps_pallas.py:529-533`` at its default,
-    ``interpolate_pallas.py:567-568``) over a grid around each crossing."""
-    assert FP._PRUNED == "auto"
-    for B in (1, 2, 3):
-        for N in (1, 65535, 65536, 200000, 262143, 262144, 262145, 311296,
-                  1228800):
-            want = (B == 1 and N >= FP._PRUNED_MIN_N
-                    and N >= 2 * FP._PRUNE_CS)
-            assert ops.fps_is_pruned(B, N) == want, (B, N)
+    """``forward_is_big`` against the JAX package's own expression
+    (``interpolate_pallas.py:567-568``) over a grid around each crossing.
+    (The FPS gate is the port's own: the next test.)"""
     for n2 in (1, 255, 256, 257, 512, 513, 38911, 38912, 49151, 49152, 49153,
                49664, 55296, 77824, 155648, 307200):
         for c in (1, 124, 125, 128, 252, 253, 256, 512, 1024):
@@ -145,8 +287,31 @@ def test_dispatch_rules_equal_the_jax_expressions():
             assert ops.forward_is_big(n2, c) == want, (n2, c)
     assert ops.forward_is_big(55296, 128) and not ops.forward_is_big(49152, 128)
     assert ops.forward_is_big(38912, 256)
-    assert ops.fps_is_pruned(1, 262144) and not ops.fps_is_pruned(1, 262143)
-    assert not ops.fps_is_pruned(2, 10 ** 6)
+
+
+def test_port_fps_gate_prunes_every_room_stage_the_jax_rule_prunes():
+    """``fps_is_pruned`` is the port's own gate, read off the card (the JAX
+    package's, ``fps_pallas.py:529-533`` at its default, is N ≥ 262144): B
+    == 1 above one cluster's 163840 points where at least
+    ``PRUNED_MIN_SHARE`` of them are picked, over a grid around each
+    crossing; every room stage (N → N / 4) the JAX rule prunes, the port
+    prunes too, and both send B > 1 to the batched kernel."""
+    assert FP._PRUNED == "auto"
+    share = port_fps.PRUNED_MIN_SHARE
+    for B in (1, 2, 3):
+        for N in (1, 65535, 65536, 163840, 163841, 200000, 262143, 262144,
+                  262145, 311296, 1228800):
+            for npoint in (1, 4096, N // 64, N // 4, N):
+                npoint = max(npoint, 1)
+                want = B == 1 and N > 163840 and npoint >= share * N
+                assert ops.fps_is_pruned(B, N, npoint) == want, (B, N, npoint)
+            jax_b1 = B == 1 and N >= FP._PRUNED_MIN_N and N >= 2 * FP._PRUNE_CS
+            assert not jax_b1 or ops.fps_is_pruned(B, N, N // 4), (B, N)
+    assert ops.fps_is_pruned(1, 163841, 40961)
+    assert not ops.fps_is_pruned(1, 163840, 40960)
+    assert ops.fps_is_pruned(1, 1200000, 12000)
+    assert not ops.fps_is_pruned(1, 1200000, 11999)
+    assert not ops.fps_is_pruned(2, 10 ** 6, 10 ** 5)
 
 
 def _no_stream(monkeypatch):
@@ -154,21 +319,64 @@ def _no_stream(monkeypatch):
                         lambda device: type("S", (), {"cuda_stream": 0}))
 
 
-@pytest.mark.parametrize("n,want", [(262144, "pruned"), (262143, "grid"),
-                                    (163840, "cluster")])
-def test_whole_room_fps_routes_by_the_rule(monkeypatch, n, want):
-    """B == 1 from 262144 points goes to the pruned kernel, below it to the
-    kernels of ``csrc/fps_b1.cu``."""
+_H100 = {1: 132, 2: 66, 4: 30, 8: 15, 16: 7}
+_NONE = {1: 0, 2: 0, 4: 0, 8: 0, 16: 0}
+
+
+@pytest.mark.parametrize("n,npoint,capacity,want", [
+    # every stage of the rooms' buckets, N → N / 4
+    (106496, 26624, _H100, "cluster"), (155648, 38912, _H100, "cluster"),
+    (221184, 55296, _H100, "pruned"), (311296, 77824, _H100, "pruned"),
+    (77824, 19456, _H100, "cluster"), (608, 152, _H100, "cluster"),
+    # both sides of one cluster's 163840 points, and of the share of picks
+    (163840, 40960, _H100, "cluster"), (163841, 40961, _H100, "pruned"),
+    (1200000, 12000, _H100, "pruned"), (1200000, 11999, _H100, "grid"),
+    (1200000, 4096, _H100, "grid"), (2097152, 524288, _H100, "pruned"),
+    # both sides of what the grid kernel holds (132 x 14336 points): above
+    # it the pruned kernel takes any share of picks
+    (1892352, 4096, _H100, "grid"), (1892353, 4096, _H100, "pruned"),
+    (2000000, 4096, _H100, "pruned"), (2097152, 1, _H100, "pruned"),
+    # a card without clusters large enough
+    (163840, 40960, _NONE, "grid"), (2432, 608, _NONE, "grid")])
+def test_whole_room_fps_routes_by_the_rule(monkeypatch, n, npoint, capacity,
+                                           want):
+    """B == 1 goes to a cluster of ``csrc/fps.cu``'s kernel where the card
+    holds one large enough for the cloud (to 163840 points); above, to the
+    chunk-pruned kernel where at least ``PRUNED_MIN_SHARE`` of the points
+    are picked or the cloud exceeds the grid kernel, else to
+    ``csrc/fps.cu``'s grid kernel."""
     calls = []
     monkeypatch.setattr(port_fps, "_check_cuda", lambda xyz: None)
-    monkeypatch.setattr(port_fps, "_cluster_fits", lambda index: True)
+    monkeypatch.setattr(port_fps, "_grid_points", lambda index: 132 * 14336)
+    monkeypatch.setattr(port_fps, "_cluster_capacity", lambda index: capacity)
     for name in ("pruned", "grid", "cluster"):
         target = "furthest_point_sample_pruned" if name == "pruned" \
             else f"_fps_b1_{name}"
         monkeypatch.setattr(port_fps, target,
-                            lambda xyz, npoint, _n=name: calls.append(_n))
-    port_fps.furthest_point_sample(torch.empty(1, n, 3, device="meta"), 16)
+                            lambda xyz, npoint, *s, _n=name: calls.append(_n))
+    port_fps.furthest_point_sample(torch.empty(1, n, 3, device="meta"), npoint)
     assert calls == [want]
+
+
+@pytest.mark.parametrize("n,s", [(608, 1), (2432, 1), (9728, 8), (38912, 16),
+                                 (163840, 16)])
+def test_whole_room_cluster_launch_takes_the_dispatch_cluster_size(
+        monkeypatch, n, s):
+    """A whole-room stage below 163840 points launches ``csrc/fps.cu``'s
+    kernel for one cloud at ``fps_cluster_size``'s S for B = 1 (one block
+    to 5119 points), counted as a whole-room launch; the pruned kernel's
+    wrapper sorts the cloud with the layout kernels and launches once."""
+    calls = []
+    monkeypatch.setattr(port_fps, "_check_cuda", lambda xyz: None)
+    monkeypatch.setattr(port_fps, "_cluster_capacity", lambda index: _H100)
+    monkeypatch.setattr(port_fps, "launch",
+                        lambda name, *a: calls.append((name, a)))
+    _no_stream(monkeypatch)
+    before = ops.furthest_point_sample_b1.launches
+    out = ops.furthest_point_sample_b1(torch.empty(1, n, 3, device="meta"), 16)
+    assert out.shape == (1, 16)
+    assert ops.furthest_point_sample_b1.launches == before + 1
+    assert [(name, a[2:6]) for name, a in calls] == [("amc3d_fps", (1, n, 16, s))]
 
 
 @pytest.mark.parametrize("n2,c,want", [(55296, 128, "big"),

@@ -1,6 +1,6 @@
 // Exact nearest-neighbour search of one query by one warp over a support
-// sorted into chunks with boxes: the device code shared by knn.cu and
-// interpolate_big.cu.
+// sorted into chunks with boxes: the chunk scan of the listed kNN
+// (listed_knn.cuh: knn.cu, refine.cu, interpolate.cu).
 //
 // The warp keeps the query's k best (d^2, index) pairs in registers
 // (knn_topk.cuh, WarpTopK::insert_pair: the slots stay in (d^2, index)
@@ -11,14 +11,11 @@
 // above a lower bound pair: a k larger than the registers hold is taken in
 // passes, each keeping the next slots after the previous pass's last pair.
 //
-// Phase 1 scans the chunks around the query's own place in the sorted order
-// (`home`, from ops/spatial.py::query_order, or the query's own sorted place
-// over 64 when the queries are the support), which leaves a k-th d^2 close
-// to the final one.  Phase 2 tests the boxes of all other chunks, one per
-// lane, and scans a chunk only when its lower bound is not above the
-// running k-th d^2: at equal d^2 a chunk may still hold a lower index.
-// interpolate_big.cu runs both (search); knn.cu runs them over a block's
-// list of chunks (chunk_list.cuh) with scan alone.
+// The callers scan the chunks around the query's own place in the sorted
+// order first (its home chunk), which leaves a k-th d^2 close to the final
+// one, then the chunks of a block's list (chunk_list.cuh) whose box lower
+// bound is not above the running k-th d^2: at equal d^2 a chunk may still
+// hold a lower index.
 #pragma once
 #include "chunks.cuh"
 #include "knn_topk.cuh"
@@ -94,36 +91,6 @@ struct ChunkSearch {
         }
       }
     }
-  }
-
-  // both phases; `near` chunks on each side of `home` go first.  Returns
-  // the chunks scanned.
-  __device__ __forceinline__ int search(const float4* __restrict__ sup,
-                                        const float* __restrict__ boxes,
-                                        int n, int nc, int home, int near,
-                                        float qx, float qy, float qz) {
-    const int near_lo = max(0, home - near), near_hi = min(nc, home + near + 1);
-    for (int c = near_lo; c < near_hi; ++c) scan(sup, n, c, qx, qy, qz);
-    int scanned = near_hi - near_lo;
-    for (int c0 = 0; c0 < nc; c0 += 32) {
-      const int c = c0 + lane;
-      float lb = CUDART_INF_F;
-      if (c < nc && (c < near_lo || c >= near_hi))
-        lb = box_lower_bound(qx, qy, qz, boxes + static_cast<size_t>(c) * 6);
-      // lb == +inf marks no chunk; thr_d == +inf (fewer than k kept) takes all
-      unsigned mask = __ballot_sync(kFullMask,
-                                    lb < CUDART_INF_F && !(lb > thr_d));
-      while (mask) {
-        const int src = __ffs(mask) - 1;
-        mask &= mask - 1;
-        const float clb = __shfl_sync(kFullMask, lb, src);
-        if (!(clb > thr_d)) {
-          scan(sup, n, c0 + src, qx, qy, qz);
-          ++scanned;
-        }
-      }
-    }
-    return scanned;
   }
 };
 

@@ -1,5 +1,6 @@
-// The VJP of the 3-NN interpolation for large query sets: support-owned
-// and deterministic.
+// The VJP of the 3-NN interpolation, deterministic: the forward's (index,
+// weight) triples inverted into per-row lists, then each coarse row summed
+// once over its own list.
 //
 // Replaces amcontrast3d_tpu/ops/interpolate_pallas.py::_interp_bwd_big_kernel,
 // the TPU kernel the JAX package reaches when the padded query buffer
@@ -10,145 +11,222 @@
 // df2[b, j] = sum_q w_qj * g[b, q] over the queries q that hold j among
 // their three nearest coarse points.
 //
-// This kernel takes the forward's saved (idx, weight) triples, as the
-// scatter kernel of interpolate.cu does, but keeps the TPU kernel's
-// ownership: a block owns `rows` consecutive support rows of one cloud and
-// their (rows, C) accumulator in shared memory.  It sweeps all 3 * n1
-// indices of its cloud in tiles of 2048: each of its 8 warps takes 256
-// consecutive entries (8 loads a lane, in flight together), picks those that
-// point into the block's rows with a ballot and appends them to its own
-// list in shared memory, so a warp's list is in ascending (query, slot)
-// order and the lists in warp order are the tile's hits in that order.
-// After one barrier the block adds w * g[q] for them in that order: a
-// group of threads owns the rows of one residue (row % groups) and a thread
-// its channels of them, so no two threads touch one accumulator cell and a
-// cell's sum is formed in one fixed order.  The lists are double-buffered
-// by the tile's parity, so a tile costs one barrier.  No float atomic
-// touches df2, every row is written exactly once (a row no query selects
-// is written as 0, so the caller need not zero df2), and two runs give
-// identical bits.  The order is that of the plain twin's index_add_ over
-// the flattened triples, and each product and sum rounds as there
-// (-fmad=false, __f*_rn).
+// Here every coarse row is written once, by one warp, as the sum of
+// w * g[q] over the (query, slot) pairs that select it, in ascending
+// (query, slot) order: the order of the plain twin's index_add_ over the
+// flattened triples, each product and sum rounded as there (-fmad=false,
+// __f*_rn).  No float atomic touches df2, a row no query selects is
+// written as 0 (the caller need not zero df2), and two runs give identical
+// bits.
 //
 // What bounds it on the card: bytes.  g is read once (65.5 MB at
-// (2, 64000, 128)), df2 written once (16.4 MB), which is 0.025 ms at
-// 3.35 TB/s; the index array (0.77 MB a cloud) is read again by each of
-// the n2 / rows blocks of a cloud, 250 times at n2 = 16000 and 64 rows,
-// out of L2, 384 MB in all: that sweep, which every block makes over the
-// same lines at the same time, and the hits' dependent loads (w, then a
-// row of g) are what the kernel spends its time on (PERF.md); 94 tiles a
-// block at n1 = 64000 with some 8 hits each; four blocks share a
-// multiprocessor (48 KB of shared memory each).  More rows a block cut the
-// sweeps but lengthen each block's chain of hits, and lost on the card;
-// reading each triple once needs the triples inverted into per-row lists
-// first (ROADMAP.md).
+// (2, 64000, 128)), df2 written once (16.4 MB): 0.025 ms at 3.35 TB/s.  The
+// TPU kernel's shape, a block owning a run of rows and sweeping every
+// triple of its cloud for hits, reads the index array once a block (250
+// sweeps at n2 = 16000, 384 MB out of L2).  Design: the triples are read
+// once and inverted into per-row bins, in two launches and no scan:
+//   1. bin_rows: each entry (its flat index 3q + slot, with its weight)
+//      claims a place in its row's bin of kBin by an integer atomic; an
+//      entry past a full bin goes to a spill list with its row (the order
+//      within a bin varies between runs, the set does not);
+//   2. sum_rows: a warp a row, the rows taken in the coarse layout's order
+//      where the caller has one (neighbouring rows read neighbouring fine
+//      points, whose rows of g then stay in L2).  The warp ranks its row's
+//      entries by flat index (up to kBin in registers and shuffles; a
+//      spilled row's bin and spilled entries through global scratch, any
+//      length), which restores the one ascending order, then sums w * g
+//      over them with float4 channel vectors a lane and writes the row.
+// Lists are about 12 long at fp0 (3 * n1 / n2), 34 at most in the steps'
+// and subclouds' stages; a coarse point in a sparse region can be chosen by
+// hundreds of fine points, and the spill takes any length.
+#include <climits>
+#include <cstdint>
+#include <type_traits>
+
 #include <cuda_runtime.h>
+
+#include "vector_red.cuh"
 
 namespace {
 
+using namespace amc3d;
+
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kLoads = 8;                      // index loads a lane and tile
-constexpr int kWarpEntries = 32 * kLoads;      // entries a warp and tile
-constexpr int kTile = kWarps * kWarpEntries;   // 2048
-constexpr int kMaxRows = 64;
-// the accumulator's limit: 44 KB (11264 floats)
-constexpr int kSharedFloats = 11264;
+constexpr int kBin = 64;            // entries a row holds before it spills
 constexpr unsigned kFull = 0xffffffffu;
 
+// An entry: its flat index 3q + slot within its cloud, its weight's bits.
+using Entry = int2;
+
+// counts[row] gains each of the m = 3 * n1 entries of cloud b, which goes
+// into its row's bin or, past kBin, onto the spill list (rows and entries,
+// *spilled of them).
 __global__ void __launch_bounds__(kThreads)
-interp_bwd_big_kernel(const float* __restrict__ g, const int* __restrict__ idx,
-                      const float* __restrict__ w, int n1, int n2, int c,
-                      int rows, float* __restrict__ df2) {
-  extern __shared__ float acc[];  // rows * c, then the hit lists
-  // per parity of the tile and warp: row << 16 | entry within the tile
-  int (*hits)[kWarps][kWarpEntries] =
-      reinterpret_cast<int (*)[kWarps][kWarpEntries]>(acc + rows * c);
-  __shared__ int warp_hits[2][kWarps];
-
-  const int b = blockIdx.y;
-  const int lo = blockIdx.x * rows;
-  const int cnt = min(rows, n2 - lo);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int total = 3 * n1;
-  const int* ib = idx + static_cast<size_t>(b) * total;
-  const float* wb = w + static_cast<size_t>(b) * total;
-  const float* gb = g + static_cast<size_t>(b) * n1 * c;
-  // threads that share the channels of a row: 32, 64, 128 or all 256; the
-  // other threads take the rows of another residue
-  const int width = c <= 32 ? 32 : c <= 64 ? 64 : c <= 128 ? 128 : kThreads;
-  const int groups = kThreads / width;
-  const int group = tid / width, ch0 = tid % width;
-
-  for (int e = tid; e < cnt * c; e += kThreads) acc[e] = 0.f;
-
-  for (int base = 0, tile = 0; base < total; base += kTile, ++tile) {
-    const int par = tile & 1;
-    int row[kLoads];
-#pragma unroll
-    for (int u = 0; u < kLoads; ++u) {
-      const int p = base + warp * kWarpEntries + u * 32 + lane;
-      row[u] = p < total ? ib[p] - lo : -1;
-    }
-    int mine = 0;  // the warp's hits so far in this tile
-#pragma unroll
-    for (int u = 0; u < kLoads; ++u) {
-      const bool hit = static_cast<unsigned>(row[u]) < static_cast<unsigned>(cnt);
-      const unsigned ballot = __ballot_sync(kFull, hit);
-      if (hit) {
-        hits[par][warp][mine + __popc(ballot & ((1u << lane) - 1u))] =
-            (row[u] << 16) | (warp * kWarpEntries + u * 32 + lane);
-      }
-      mine += __popc(ballot);
-    }
-    if (lane == 0) warp_hits[par][warp] = mine;
-    // the lists of this tile are complete (and acc is zeroed); the lists of
-    // the tile before the last, which this parity held, have been added
-    __syncthreads();
-    for (int wi = 0; wi < kWarps; ++wi) {
-      const int n = warp_hits[par][wi];
-      for (int h = 0; h < n; ++h) {
-        const int packed = hits[par][wi][h];
-        const int r = packed >> 16;
-        if (r % groups != group) continue;
-        const int p = base + (packed & 0xffff);
-        const float wt = wb[p];
-        const float* gq = gb + static_cast<size_t>(p / 3) * c;
-        float* a = acc + r * c;
-        for (int ch = ch0; ch < c; ch += width) {
-          a[ch] = __fadd_rn(a[ch], __fmul_rn(wt, gq[ch]));
-        }
-      }
+bin_rows(const int* __restrict__ idx, const float* __restrict__ w, int m,
+         int n2, int* __restrict__ counts, Entry* __restrict__ bins,
+         int* __restrict__ spill_rows, Entry* __restrict__ spill,
+         int* __restrict__ spilled) {
+  const int* ib = idx + static_cast<size_t>(blockIdx.y) * m;
+  const float* wb = w + static_cast<size_t>(blockIdx.y) * m;
+  const int rb = blockIdx.y * n2;
+  for (int e = blockIdx.x * kThreads + threadIdx.x; e < m;
+       e += gridDim.x * kThreads) {
+    const int row = rb + ib[e];
+    const Entry item = make_int2(e, __float_as_int(wb[e]));
+    const int at = atomicAdd(counts + row, 1);
+    if (at < kBin) {
+      bins[static_cast<size_t>(row) * kBin + at] = item;
+    } else {
+      const int s = atomicAdd(spilled, 1);
+      spill_rows[s] = row;
+      spill[s] = item;
     }
   }
-  __syncthreads();
-  float* d = df2 + (static_cast<size_t>(b) * n2 + lo) * c;
-  for (int e = tid; e < cnt * c; e += kThreads) d[e] = acc[e];
 }
+
+__device__ __forceinline__ void store(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+
+// The len entries at `from` (global memory) ranked by flat index into `to`.
+__device__ __forceinline__ void rank_long(const Entry* from, Entry* to,
+                                         int len, int lane) {
+  for (int t0 = 0; t0 < len; t0 += 32) {
+    const Entry item = t0 + lane < len ? from[t0 + lane] : make_int2(INT_MAX, 0);
+    int at = 0;
+    for (int u0 = 0; u0 < len; u0 += 32) {
+      const int o = u0 + lane < len ? from[u0 + lane].x : INT_MAX;
+      const int cnt = min(32, len - u0);
+      for (int j = 0; j < cnt; ++j) at += __shfl_sync(kFull, o, j) < item.x;
+    }
+    if (t0 + lane < len) to[at] = item;
+  }
+}
+
+// V = 4: float4 channel vectors (C % 4 == 0, g and df2 on 16 bytes); V = 1:
+// scalar.  rows (b, n2) ints rstride apart: the coarse rows in the order
+// they are taken (nullptr: index order).  gather and sorted: scratch of
+// b * 3 * n1 entries each, for the spilled rows, claimed through *claimed.
+template <int V>
+__global__ void __launch_bounds__(kThreads)
+sum_rows(const float* __restrict__ g, const int* __restrict__ counts,
+         const Entry* __restrict__ bins, const int* __restrict__ spill_rows,
+         const Entry* __restrict__ spill, const int* __restrict__ spilled,
+         Entry* gather, Entry* sorted, int* __restrict__ claimed,
+         const int* __restrict__ rows, int rstride, int n1, int n2, int c,
+         float* __restrict__ df2) {
+  using Vec = typename std::conditional<V == 4, float4, float>::type;
+  __shared__ Entry entries[kWarps][kBin];
+  const int b = blockIdx.y;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int rank = blockIdx.x * kWarps + warp;
+  if (rank >= n2) return;
+  const size_t rb = static_cast<size_t>(b) * n2;
+  const int r = rows != nullptr ? rows[(rb + rank) * rstride] : rank;
+  const size_t row = rb + r;
+  const int len = counts[row];
+  const Entry* bin = bins + row * kBin;
+  const Entry* src;  // the row's entries in ascending order
+  if (len <= kBin) {
+    const Entry lo = lane < len ? bin[lane] : make_int2(INT_MAX, 0);
+    const Entry hi = lane + 32 < len ? bin[lane + 32] : make_int2(INT_MAX, 0);
+    int at_lo = 0, at_hi = 0;
+    for (int j = 0; j < len; ++j) {
+      const int o = __shfl_sync(kFull, j < 32 ? lo.x : hi.x, j & 31);
+      at_lo += o < lo.x;
+      at_hi += o < hi.x;
+    }
+    if (lane < len) entries[warp][at_lo] = lo;
+    if (lane + 32 < len) entries[warp][at_hi] = hi;
+    __syncwarp();
+    src = entries[warp];
+  } else {
+    // the bin and the spilled entries of this row into gather, then ranked
+    // into sorted
+    int base = 0;
+    if (lane == 0) base = atomicAdd(claimed, len);
+    base = __shfl_sync(kFull, base, 0);
+    for (int k = lane; k < kBin; k += 32) gather[base + k] = bin[k];
+    int at = kBin;
+    const int total = *spilled;
+    for (int s0 = 0; s0 < total; s0 += 32) {
+      const bool mine = s0 + lane < total && spill_rows[s0 + lane] == static_cast<int>(row);
+      const unsigned ballot = __ballot_sync(kFull, mine);
+      if (mine) gather[base + at + __popc(ballot & ((1u << lane) - 1u))] = spill[s0 + lane];
+      at += __popc(ballot);
+    }
+    __syncwarp();  // orders the lanes' stores before every lane's loads
+    rank_long(gather + base, sorted + base, len, lane);
+    __syncwarp();
+    src = sorted + base;
+  }
+  const float* gb = g + static_cast<size_t>(b) * n1 * c;
+  float* d = df2 + row * c;
+  for (int v = lane * V; v < c; v += 32 * V) {
+    Vec acc{};
+    int k = 0;
+    for (; k + 4 <= len; k += 4) {  // four rows of g in flight
+      const Entry e0 = src[k], e1 = src[k + 1], e2 = src[k + 2], e3 = src[k + 3];
+      const Vec a0 = load_scaled(gb + static_cast<size_t>(e0.x / 3) * c + v, __int_as_float(e0.y), Vec{});
+      const Vec a1 = load_scaled(gb + static_cast<size_t>(e1.x / 3) * c + v, __int_as_float(e1.y), Vec{});
+      const Vec a2 = load_scaled(gb + static_cast<size_t>(e2.x / 3) * c + v, __int_as_float(e2.y), Vec{});
+      const Vec a3 = load_scaled(gb + static_cast<size_t>(e3.x / 3) * c + v, __int_as_float(e3.y), Vec{});
+      acc = add_rn(add_rn(add_rn(add_rn(acc, a0), a1), a2), a3);
+    }
+    for (; k < len; ++k) {
+      const Entry e = src[k];
+      acc = add_rn(acc, load_scaled(gb + static_cast<size_t>(e.x / 3) * c + v,
+                                    __int_as_float(e.y), Vec{}));
+    }
+    store(d + v, acc);
+  }
+}
+
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 }  // namespace
 
 // g (b, n1, c) float32, idx (b, n1, 3) int32 with values in [0, n2),
-// w (b, n1, 3) float32 -> df2 (b, n2, c) float32, every element written.
-// c may be at most 11264 (one row's accumulator in 44 KB of shared memory).
+// w (b, n1, 3) float32; rows (b, n2) int32 rstride apart, each row a
+// permutation of the coarse rows (the order a warp takes them), or null;
+// work: 16-byte aligned int32 scratch of 4 * ceil((b * n2 + 2) / 4) +
+// b * n2 * 2 * kBin + 7 * b * 3 * n1 (ops/interpolate.py holds the same
+// sum) -> df2 (b, n2, c) float32, every element written.
 extern "C" int amc3d_three_interpolate_backward_big(
-    const void* g, const void* idx, const void* w, void* df2, int b, int n1,
-    int n2, int c, void* stream) {
-  if (c < 1 || c > kSharedFloats || n1 > (0x7fffffff - kTile) / 3) {
+    const void* g, const void* idx, const void* w, const void* rows,
+    int rstride, void* work, void* df2, int b, int n1, int n2, int c,
+    void* stream) {
+  if (n2 < 1 || c < 1 || rstride < 1 || n1 < 0 || n1 > INT_MAX / 3 ||
+      3LL * b * n1 > INT_MAX || static_cast<long long>(b) * n2 * kBin >= INT_MAX ||
+      !aligned16(work))
     return static_cast<int>(cudaErrorInvalidValue);
-  }
-  int rows = kSharedFloats / c;
-  rows = rows > kMaxRows ? kMaxRows : rows;
-  const int smem = rows * c * static_cast<int>(sizeof(float)) +
-                   2 * kTile * static_cast<int>(sizeof(int));
-  cudaError_t err = cudaFuncSetAttribute(
-      interp_bwd_big_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (b < 1) return static_cast<int>(cudaSuccess);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int m = 3 * n1, total = b * n2;
+  const size_t entries = static_cast<size_t>(b) * m;
+  // the counts and two cursors, then (on 16 bytes) the bins, the spilled
+  // entries, gather and sorted, then the spilled entries' rows
+  int* counts = static_cast<int*>(work);
+  int* spilled = counts + total;
+  int* claimed = spilled + 1;
+  Entry* bins = reinterpret_cast<Entry*>(counts + (total + 2 + 3) / 4 * 4);
+  Entry* spill = bins + static_cast<size_t>(total) * kBin;
+  Entry* gather = spill + entries;
+  Entry* sorted = gather + entries;
+  int* spill_rows = reinterpret_cast<int*>(sorted + entries);
+  cudaError_t err = cudaMemsetAsync(counts, 0, (total + 2) * sizeof(int), st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((n2 + rows - 1) / rows, b);
-  interp_bwd_big_kernel<<<grid, kThreads, smem,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(g), static_cast<const int*>(idx),
-      static_cast<const float*>(w), n1, n2, c, rows,
-      static_cast<float*>(df2));
+  if (m > 0)
+    bin_rows<<<dim3((m + kThreads - 1) / kThreads, b), kThreads, 0, st>>>(
+        static_cast<const int*>(idx), static_cast<const float*>(w), m, n2,
+        counts, bins, spill_rows, spill, spilled);
+  const bool vec = c % 4 == 0 && aligned16(g) && aligned16(df2);
+  auto* kernel = vec ? &sum_rows<4> : &sum_rows<1>;
+  kernel<<<dim3((n2 + kWarps - 1) / kWarps, b), kThreads, 0, st>>>(
+      static_cast<const float*>(g), counts, bins, spill_rows, spill, spilled,
+      gather, sorted, claimed, static_cast<const int*>(rows), rstride, n1, n2,
+      c, static_cast<float*>(df2));
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,6 +1,6 @@
 // Exact k-nearest-neighbour slots of one query kept by one warp: the
 // device code shared, through chunk_search.cuh, by the chunk-pruned scans
-// (knn.cu and refine.cu's listed scan, interpolate_big.cu) and by
+// (the listed scan of knn.cu, refine.cu and interpolate.cu) and by
 // ball_query.cu (a hit is the pair (0, index)).
 //
 // The k best (d^2, index) pairs so far live in registers, spread over the

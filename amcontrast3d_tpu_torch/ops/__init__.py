@@ -15,7 +15,7 @@ from .fps import (fps_is_pruned, furthest_point_sample,
                   furthest_point_sample_pruned)
 from .group import (CHANNEL_MAP, Grouper, clamp_members_valid, create_grouper,
                     gather_points, get_aggregation_features, group_points)
-from .interpolate import (forward_is_big, three_interpolate,
+from .interpolate import (backward_is_big, forward_is_big, three_interpolate,
                           three_interpolation, three_interpolation_backward,
                           three_interpolation_backward_big,
                           three_interpolation_backward_plain,
@@ -45,8 +45,8 @@ __all__ = [
     "furthest_point_sample_plain", "furthest_point_sample_pruned",
     "CHANNEL_MAP", "Grouper", "clamp_members_valid", "create_grouper",
     "gather_points", "get_aggregation_features", "group_points",
-    "forward_is_big", "three_interpolate", "three_interpolation",
-    "three_interpolation_backward",
+    "backward_is_big", "forward_is_big", "three_interpolate",
+    "three_interpolation", "three_interpolation_backward",
     "three_interpolation_backward_big", "three_interpolation_backward_plain",
     "three_interpolation_backward_small", "three_interpolation_big",
     "three_interpolation_plain", "three_interpolation_small",

@@ -63,21 +63,22 @@ _SIGNATURES = {
     # i32 or null, w_out (B,N1,3) or null, B, N1, N2, C, stream
     "amc3d_three_interpolate": (_P, _P, _P, _P, _I, _P, _I, _P, _P, _I, _P,
                                 _P, _P, _P, _P, _I, _I, _I, _I, _P),
-    # chunk-pruned: sorted coarse points (B,N2,4) f32 with the index bits in
-    # w, boxes (B,ceil(N2/64),6), p1 (B,N1,3), order (B,N1) i32, home
-    # (B,N1) i32, f2 (B,N2,C), out (B,N1,C), idx_out, w_out or null, visits
-    # (1) u64 zeroed or null, B, N1, N2, C, stream
-    "amc3d_three_interpolate_big": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                    _I, _I, _I, _I, _P),
+    # a lane a fine point: amc3d_three_interpolate's arguments to w_out,
+    # then visits (1) u64 zeroed or null, B, N1, N2, C, stream
+    "amc3d_three_interpolate_big": (_P, _P, _P, _P, _I, _P, _I, _P, _P, _I,
+                                    _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                    _P),
     # g (B,N1,C), idx (B,N1,3) i32, w (B,N1,3), the fine points' order
     # (B,N1) i32 or null and its element stride, df2 (B,N2,C) (zeroed by the
     # entry point), B, N1, N2, C, stream
     "amc3d_three_interpolate_backward": (_P, _P, _P, _P, _I, _P, _I, _I, _I,
                                          _I, _P),
-    # g, idx, w, df2 (support-owned and deterministic; df2 need not be
-    # zeroed), B, N1, N2, C, stream
-    "amc3d_three_interpolate_backward_big": (_P, _P, _P, _P, _I, _I, _I, _I,
-                                             _P),
+    # deterministic, over per-row lists: g, idx, w, the coarse rows' order
+    # (B,N2) i32 or null and its element stride, work (i32 scratch on 16
+    # bytes, its size in ops/interpolate.py), df2 (B,N2,C) (every element
+    # written), B, N1, N2, C, stream
+    "amc3d_three_interpolate_backward_big": (_P, _P, _P, _P, _I, _P, _P, _I,
+                                             _I, _I, _I, _P),
     # every contrast kernel reads the sorted cloud (B,N,4) f32 with the
     # index bits in w, (label, threshold) of each sorted point (B,N,2) and
     # boxes (B,ceil(N/64),6).  Forward: those, f (B,N,C), out (B,N,9), B, N,

@@ -11,13 +11,17 @@ large supports (``::_interp_thr_seed_kernel``, ``::_interp_thr_kernel``,
 ``csrc/interpolate_big.cu``.  Weights are ``1/(√d² + 1e-8)``, normalised
 over the 3 nearest coarse points.
 
-The forward kernel is a listed scan over the coarse cloud's Morton-sorted
-layout (``ops/spatial.py``), the fine points taken along their own curve;
-a caller that holds both stage clouds' layouts (the decoder: the forward
+Both forward kernels read the coarse cloud's Morton-sorted layout
+(``ops/spatial.py``), the fine points taken along their own curve; a
+caller that holds both stage clouds' layouts (the decoder: the forward
 sorts its stage clouds once) hands them in (``cloud=`` the coarse one,
-``query_cloud=`` the fine one), else the wrapper sorts.  The backward
-walks the fine points in the order the forward took them, so the
-neighbours of a block's points share coarse rows.
+``query_cloud=`` the fine one), else the wrapper sorts.  The listed scan
+gives a fine point a warp, the large-shape kernel a lane; which one takes
+a call is the port's own rule, read on the card (:func:`forward_is_big`).
+The scatter VJP walks the fine points in the order the forward took them,
+so the neighbours of a block's points share coarse rows; the deterministic
+VJP walks the coarse rows in their layout's order (:func:`backward_is_big`
+picks between them).
 
 Semantics follow the JAX plain path (``interpolate.py:42-57``): exactly
 three neighbours, ties to the lowest index.  The TPU kernel instead
@@ -87,24 +91,38 @@ def _check_layouts(p1, p2, cloud, query_cloud) -> None:
         spatial.check_layout(query_cloud, p1)
 
 
-# The JAX package keeps the forward's coarse buffer [f | 1 | x y z] resident
-# while it fits this budget, and sends larger ones to its three kernels for
-# large supports (``interpolate_pallas.py::_interp_fwd_impl``); the port
-# keeps the same rule.  Its chunk of coarse rows (``CS``) pads the buffer.
-_SUP_BUDGET = 48 * 1024 * 1024
-_SUP_CHUNK = 512
+# Which forward kernel takes a call: the port's own rule, read on the card
+# (PERF.md §6, the interpolation gate table of
+# ``tools/profile_big_kernels.py --gates``: both kernels at every decoder
+# stage of the S3DIS and ScanNet steps, of PointNet++'s
+# eval forward, of two clouds of 22000 points and of room subclouds from
+# 106496 to 311296 points).  The lane-a-point kernel of
+# ``csrc/interpolate_big.cu`` took the stages of coarse width 64 to 256
+# with at least 22000 fine points a call (kernel device time 0.129 against
+# 0.313 ms at the S3DIS step's fp0, 0.224 against 0.765 at a 221184-point
+# subcloud's, 0.104 against 0.157 at PointNet++'s fp0 (C 64), 0.070
+# against 0.077 at the S3DIS step's fp1 of 4 x 6000 fine points, 0.065
+# against 0.071 at 4 x 5500, 0.062 against 0.069 at one cloud's 22000; it
+# lost at a uniform 311296-point cloud's fp1, 0.182 against 0.158, where
+# the room-like one reads 0.110 against 0.255, and at PointNet++'s fp1 of
+# 2 x 6000 points, 0.058 against 0.041), the listed scan of
+# ``csrc/interpolate.cu`` every stage of 512 or 1024 (0.022 against 0.047
+# ms at the S3DIS step's fp2): a warp writes its 32 rows, which wide rows
+# and few points leave to too few warps.  Between 12000 and 22000 fine
+# points a call nothing was read, and the listed scan keeps it.
+BIG_FORWARD_CHANNELS = 256
+BIG_FORWARD_POINTS = 22000
 
 
-def forward_is_big(n2: int, c: int) -> bool:
-    """Whether a forward from ``n2`` coarse points of ``c`` channels goes to
-    the chunk-pruned kernel: the coarse buffer, padded to 128-float rows and
-    to a multiple of the chunk, exceeds 48 MiB.  The decoder's fp0 does from
-    the 221184 bucket up ((55296, 128) does, (49152, 128) not), fp1 from
-    the 622592 bucket ((38912, 256) does)."""
-    n_pad = (-(-n2 // _SUP_CHUNK) * _SUP_CHUNK if n2 > _SUP_CHUNK
-             else -(-n2 // 256) * 256)
-    lanes = -(-(c + 4) // 128) * 128
-    return n_pad * lanes * 4 > _SUP_BUDGET
+def forward_is_big(b: int, n1: int, n2: int, c: int) -> bool:
+    """Whether a forward of ``b`` clouds of ``n1`` fine points from ``n2``
+    coarse points of ``c`` channels goes to :func:`three_interpolation_big`
+    (``c`` ≤ BIG_FORWARD_CHANNELS and ``b·n1`` ≥ BIG_FORWARD_POINTS; the
+    card's table in PERF.md §6); else the listed scan takes it.  A
+    PointNeXt decoder's fp0 and fp1 go there at every recipe's crop and
+    room bucket, fp2 and fp3 (C = 512, 1024) never; ``n2`` does not
+    enter."""
+    return c <= BIG_FORWARD_CHANNELS and b * n1 >= BIG_FORWARD_POINTS
 
 
 def _check_forward(p1, p2, f2) -> None:
@@ -123,16 +141,14 @@ def _check_forward(p1, p2, f2) -> None:
 
 
 def _forward_kernel(p1, p2, f2, keep: bool, cloud=None, query_cloud=None):
-    """Launch the forward kernel (:func:`three_interpolation_big` where
-    :func:`forward_is_big` says so, else the listed scan of
-    ``csrc/interpolate.cu``); with ``keep`` it also returns the (B, N1, 3)
-    neighbour indices and weights for the backward.  Returns (out, idx, w,
-    order): ``order`` the fine points in the order the listed scan took
-    them (None after the big kernel)."""
+    """Launch the forward kernel :func:`forward_is_big` names; with ``keep``
+    it also returns the (B, N1, 3) neighbour indices and weights for the
+    backward.  Returns (out, idx, w, order, rows): ``order`` the fine points
+    in the order the kernel took them, ``rows`` the coarse points in their
+    layout's order (the backward kernels walk them so)."""
     _check_forward(p1, p2, f2)
-    if forward_is_big(f2.shape[1], f2.shape[2]):
-        return (*three_interpolation_big(p1, p2, f2, keep), None)
-    return _listed(p1, p2, f2, keep, cloud, query_cloud)
+    big = forward_is_big(p1.shape[0], p1.shape[1], f2.shape[1], f2.shape[2])
+    return _launch_forward(big, p1, p2, f2, keep, cloud, query_cloud)
 
 
 def _fine_order(p1, cloud, query_cloud):
@@ -142,11 +158,22 @@ def _fine_order(p1, cloud, query_cloud):
     chunk then found in the kernel; without it, from
     :func:`spatial.query_order` in the coarse layout's frame."""
     if query_cloud is not None:
-        return query_cloud.packed.view(torch.int32)[..., 3], None
+        return _index_bits(query_cloud), None
     return spatial.query_order(p1, cloud)
 
 
-def _listed(p1, p2, f2, keep, cloud, query_cloud):
+def _index_bits(cloud: spatial.SortedCloud) -> torch.Tensor:
+    """The (B, n) int32 indices of a layout's points in its sorted order (a
+    view, 4 elements apart)."""
+    return cloud.packed.view(torch.int32)[..., 3]
+
+
+def _launch_forward(big: bool, p1, p2, f2, keep, cloud, query_cloud,
+                    visits=None):
+    """One launch of the forward kernel (``big``: ``csrc/interpolate_big.cu``,
+    else ``csrc/interpolate.cu``; both read the same arguments) over
+    ``cloud`` and the fine points in ``query_cloud``'s order, each sorted
+    here when not given."""
     B, N1, _ = p1.shape
     _, N2, C = f2.shape
     if cloud is None:
@@ -159,16 +186,23 @@ def _listed(p1, p2, f2, keep, cloud, query_cloud):
         w = torch.empty(B, N1, 3, dtype=torch.float32, device=p1.device)
     # the frame's rows are views (a sort_stages frame holds lo and scale in
     # one row of 4), so the kernel takes their strides
-    launch("amc3d_three_interpolate", cloud.packed.data_ptr(),
-           cloud.boxes.data_ptr(), cloud.codes.data_ptr(),
-           cloud.lo.data_ptr(), cloud.lo.stride(0), cloud.scale.data_ptr(),
-           cloud.scale.stride(0), p1.data_ptr(), order.data_ptr(),
-           order.stride(1), None if home is None else home.data_ptr(),
-           f2.data_ptr(), out.data_ptr(), idx.data_ptr() if keep else None,
-           w.data_ptr() if keep else None, B, N1, N2, C,
-           torch.cuda.current_stream(p1.device).cuda_stream)
-    three_interpolation.launches += 1
-    return out, idx, w, order
+    args = (cloud.packed.data_ptr(), cloud.boxes.data_ptr(),
+            cloud.codes.data_ptr(), cloud.lo.data_ptr(), cloud.lo.stride(0),
+            cloud.scale.data_ptr(), cloud.scale.stride(0), p1.data_ptr(),
+            order.data_ptr(), order.stride(1),
+            None if home is None else home.data_ptr(), f2.data_ptr(),
+            out.data_ptr(), idx.data_ptr() if keep else None,
+            w.data_ptr() if keep else None)
+    stream = torch.cuda.current_stream(p1.device).cuda_stream
+    if big:
+        launch("amc3d_three_interpolate_big", *args,
+               None if visits is None else visits.data_ptr(), B, N1, N2, C,
+               stream)
+        three_interpolation_big.launches += 1
+    else:
+        launch("amc3d_three_interpolate", *args, B, N1, N2, C, stream)
+        three_interpolation.launches += 1
+    return out, idx, w, order, _index_bits(cloud)
 
 
 def three_interpolation_small(p1: torch.Tensor, p2: torch.Tensor,
@@ -182,41 +216,31 @@ def three_interpolation_small(p1: torch.Tensor, p2: torch.Tensor,
     given.  Any shape; CUDA tensors only."""
     _check_layouts(p1, p2, cloud, query_cloud)
     _check_forward(p1, p2, f2)
-    return _listed(p1, p2, f2, keep, cloud, query_cloud)[:3]
+    return _launch_forward(False, p1, p2, f2, keep, cloud, query_cloud)[:3]
 
 
 def three_interpolation_big(p1: torch.Tensor, p2: torch.Tensor,
                             f2: torch.Tensor, keep: bool = False,
-                            visits: Optional[torch.Tensor] = None):
+                            visits: Optional[torch.Tensor] = None,
+                            cloud: Optional[spatial.SortedCloud] = None,
+                            query_cloud: Optional[spatial.SortedCloud] = None):
     """p1 (B, N1, 3), p2 (B, N2, 3), f2 (B, N2, C) f32 → (out (B, N1, C),
     idx, w): the interpolation through the ``csrc/interpolate_big.cu``
-    kernel, the same bits as ``csrc/interpolate.cu``.  The coarse points are
-    sorted along a Morton curve into 64-point chunks (``ops/spatial.py``)
-    and a fine point scans only the chunks whose box can hold one of its 3
-    nearest.  With ``keep`` also the (B, N1, 3) indices and weights, else
-    None.  ``visits``, a zeroed (1,) int64 CUDA tensor, gains the chunks
-    scanned.  A CPU tensor goes through the plain path."""
+    kernel, the same bits as ``csrc/interpolate.cu``: a lane a fine point,
+    a block 256 of them along the fine layout's curve, the coarse chunks
+    near them scanned from shared memory.  ``cloud`` (the layout of ``p2``)
+    and ``query_cloud`` (that of ``p1``) are refused for another tensor and
+    sorted here when not given.  With ``keep`` also the (B, N1, 3) indices
+    and weights, else None.  ``visits``, a zeroed (1,) int64 CUDA tensor,
+    gains the chunks the warps scanned.  A CPU tensor goes through the
+    plain path."""
+    _check_layouts(p1, p2, cloud, query_cloud)
     if _on_cpu(p1, p2, f2):
         out, idx, w = _forward_plain(p1, p2, f2)
         return (out, idx, w) if keep else (out, None, None)
     _check_forward(p1, p2, f2)
-    B, N1, _ = p1.shape
-    _, N2, C = f2.shape
-    cloud = spatial.sort_support(p2)
-    order, home = spatial.query_order(p1, cloud)
-    out = torch.empty(B, N1, C, dtype=torch.float32, device=p1.device)
-    idx = w = None
-    if keep:
-        idx = torch.empty(B, N1, 3, dtype=torch.int32, device=p1.device)
-        w = torch.empty(B, N1, 3, dtype=torch.float32, device=p1.device)
-    launch("amc3d_three_interpolate_big", cloud.packed.data_ptr(),
-           cloud.boxes.data_ptr(), p1.data_ptr(), order.data_ptr(),
-           home.data_ptr(), f2.data_ptr(), out.data_ptr(),
-           idx.data_ptr() if keep else None, w.data_ptr() if keep else None,
-           None if visits is None else visits.data_ptr(), B, N1, N2, C,
-           torch.cuda.current_stream(p1.device).cuda_stream)
-    three_interpolation_big.launches += 1
-    return out, idx, w
+    return _launch_forward(True, p1, p2, f2, keep, cloud, query_cloud,
+                           visits)[:3]
 
 
 three_interpolation_big.launches = 0
@@ -224,12 +248,13 @@ three_interpolation_big.launches = 0
 
 def three_interpolation_backward_plain(grad: torch.Tensor, idx: torch.Tensor,
                                        weight: torch.Tensor, n2: int,
-                                       order: Optional[torch.Tensor] = None
+                                       order: Optional[torch.Tensor] = None,
+                                       rows: Optional[torch.Tensor] = None
                                        ) -> torch.Tensor:
     """Plain VJP: grad (B, N1, C), idx/weight (B, N1, 3) → df2 (B, N2, C),
     ``df2[idx[i, k]] += weight[i, k]·grad[i]`` by ``index_add_``.  It takes
-    :func:`three_interpolation_backward`'s arguments; ``order`` changes
-    nothing here."""
+    :func:`three_interpolation_backward`'s arguments; ``order`` and ``rows``
+    change nothing here."""
     B, N1, C = grad.shape
     rows = (idx.long() + n2 * torch.arange(B, device=idx.device)[:, None, None])
     contrib = weight[..., None] * grad[:, :, None, :]          # (B, N1, 3, C)
@@ -238,26 +263,55 @@ def three_interpolation_backward_plain(grad: torch.Tensor, idx: torch.Tensor,
     return df2.view(B, n2, C)
 
 
-# The JAX package keeps the backward's query buffer [g | x y z thr wsum]
-# resident while it fits this budget, and sends larger ones to its
-# query-chunked kernel (``interpolate_pallas.py::_interp_bwd``); the port
-# keeps the same rule.  The budget is that package's: where the two kernels
-# of this card cross over is measured by ``chip_smoke.py`` and not acted on.
-_QBUF_BUDGET = 32 * 1024 * 1024
-_TQ = 256
+# Which VJP kernel takes a call: the port's own rule, read on the card
+# (PERF.md §6, the interpolation gate table of
+# ``tools/profile_big_kernels.py --gates``, kernel device time with the
+# memsets).  The deterministic kernel of
+# ``csrc/interpolate_bwd_big.cu`` won or tied at every stage of coarse width
+# 128 or 256 with at least 22000 fine points a call (0.044 against 0.046 ms
+# at the S3DIS step's fp0, 0.058 against 0.059 at the ScanNet step's, 0.098
+# against 0.105 at a 221184-point subcloud's, 0.017 against 0.022 at the
+# S3DIS step's fp1, 0.016 against 0.022 at 4 x 5500, 0.013 against 0.014 at
+# one cloud's 22000), and the scatter of ``csrc/interpolate.cu`` (float
+# atomics, so not the same bits run to run) won at 1024 everywhere, at 512
+# at the steps (0.013 against 0.016 ms at the S3DIS step's fp2) and at 64
+# (0.017 against 0.020 at PointNet++'s fp0 of 2 x 24000 points: a warp a
+# row leaves half its lanes idle).  Below 22000 fine points a call the two
+# lie within 2 us of each other either way (0.0099 against 0.0113 ms at
+# PointNet++'s fp1 of 2 x 6000, 0.0117 against 0.0110 at one cloud's fp1
+# of 5500), and the scatter keeps it.
+BIG_BACKWARD_MIN_CHANNELS = 128
+BIG_BACKWARD_CHANNELS = 256
+BIG_BACKWARD_POINTS = 22000
+_BWD_BIN = 64   # csrc/interpolate_bwd_big.cu::kBin: entries a row's bin holds
 
 
-def backward_is_big(n1: int, c: int) -> bool:
-    """Whether a backward over ``n1`` fine points and ``c`` channels goes to
-    the support-owned kernel: the query buffer, padded to 128-float rows and
-    a multiple of the query tile, exceeds 32 MiB.  (64000, 128) does; the
-    S3DIS recipe's largest, (24000, 128), does not."""
-    tq = min(_TQ, -(-n1 // 8) * 8)
-    lanes = -(-(c + 5) // 128) * 128
-    return -(-n1 // tq) * tq * lanes * 4 > _QBUF_BUDGET
+def backward_is_big(b: int, n1: int, n2: int, c: int) -> bool:
+    """Whether a VJP of ``b`` clouds of ``n1`` fine points onto ``n2``
+    coarse points of ``c`` channels goes to
+    :func:`three_interpolation_backward_big` (BIG_BACKWARD_MIN_CHANNELS ≤
+    ``c`` ≤ BIG_BACKWARD_CHANNELS and ``b·n1`` ≥ BIG_BACKWARD_POINTS; the
+    card's table in PERF.md §6), so a PointNeXt train step's fp0 and
+    fp1 give the same bits every run; else the scatter takes it.  ``n2``
+    does not enter."""
+    return (BIG_BACKWARD_MIN_CHANNELS <= c <= BIG_BACKWARD_CHANNELS
+            and b * n1 >= BIG_BACKWARD_POINTS)
 
 
-def _check_backward(grad, idx, weight, order=None):
+def _check_order(order, b: int, n: int, device, name: str) -> None:
+    """Raises unless ``order`` is a (b, n) int32 tensor on ``device`` whose
+    rows lie n elements apart (a stride within a row allowed)."""
+    if order is not None and (
+            order.shape != (b, n) or order.dtype != torch.int32
+            or order.device != device or order.stride(1) < 1
+            or (b > 1 and order.stride(0) != n * order.stride(1))):
+        raise ValueError(f"{name} must be a ({b}, {n}) int32 tensor on "
+                         f"{device} with rows {n} elements apart, got "
+                         f"{tuple(order.shape)} {order.dtype} on {order.device} "
+                         f"strides {order.stride()}")
+
+
+def _check_backward(grad, idx, weight):
     tensors = (grad, idx, weight)
     B, N1, C = grad.shape
     if idx.shape != (B, N1, 3) or weight.shape != (B, N1, 3):
@@ -268,30 +322,25 @@ def _check_backward(grad, idx, weight, order=None):
                 or t.device != grad.device or not t.is_contiguous()):
             raise ValueError("interpolation backward kernel needs contiguous "
                              f"CUDA tensors, got {t.dtype} on {t.device}")
-    if order is not None and (
-            order.shape != (B, N1) or order.dtype != torch.int32
-            or order.device != grad.device or order.stride(1) < 1
-            or (B > 1 and order.stride(0) != N1 * order.stride(1))):
-        raise ValueError(f"order must be a ({B}, {N1}) int32 tensor on "
-                         f"{grad.device} with rows N1 elements apart, got "
-                         f"{tuple(order.shape)} {order.dtype} on {order.device} "
-                         f"strides {order.stride()}")
 
 
 def three_interpolation_backward(grad: torch.Tensor, idx: torch.Tensor,
                                  weight: torch.Tensor, n2: int,
-                                 order: Optional[torch.Tensor] = None
+                                 order: Optional[torch.Tensor] = None,
+                                 rows: Optional[torch.Tensor] = None
                                  ) -> torch.Tensor:
     """grad (B, N1, C) f32, idx (B, N1, 3) i32, weight (B, N1, 3) f32
     → df2 (B, N2, C).  A CUDA tensor goes through
     :func:`three_interpolation_backward_big` where :func:`backward_is_big`
-    says so and through :func:`three_interpolation_backward_small`
-    otherwise (``order``: the fine points in the order the forward took
-    them); a CPU tensor through the plain twin."""
+    says so (``rows``: the coarse points in the order its warps take them)
+    and through :func:`three_interpolation_backward_small` otherwise
+    (``order``: the fine points in the order the forward took them); a CPU
+    tensor through the plain twin."""
     if _on_cpu(grad, idx, weight):
         return three_interpolation_backward_plain(grad, idx, weight, n2)
-    if backward_is_big(grad.shape[1], grad.shape[2]):
-        return three_interpolation_backward_big(grad, idx, weight, n2)
+    B, N1, C = grad.shape
+    if backward_is_big(B, N1, n2, C):
+        return three_interpolation_backward_big(grad, idx, weight, n2, rows)
     return three_interpolation_backward_small(grad, idx, weight, n2, order)
 
 
@@ -306,8 +355,9 @@ def three_interpolation_backward_small(grad: torch.Tensor, idx: torch.Tensor,
     stride within a row allowed) or, without it, in the caller's order, each
     block's coarse rows summed in shared memory and added into df2 once
     (float atomics across blocks; any shape, CUDA tensors only)."""
-    _check_backward(grad, idx, weight, order)
+    _check_backward(grad, idx, weight)
     B, N1, C = grad.shape
+    _check_order(order, B, N1, grad.device, "order")
     df2 = torch.empty(B, n2, C, dtype=torch.float32, device=grad.device)
     launch("amc3d_three_interpolate_backward", grad.data_ptr(),
            idx.data_ptr(), weight.data_ptr(),
@@ -319,20 +369,35 @@ def three_interpolation_backward_small(grad: torch.Tensor, idx: torch.Tensor,
 
 
 def three_interpolation_backward_big(grad: torch.Tensor, idx: torch.Tensor,
-                                     weight: torch.Tensor,
-                                     n2: int) -> torch.Tensor:
-    """:func:`three_interpolation_backward` through the support-owned kernel
-    of ``csrc/interpolate_bwd_big.cu``: a block owns a chunk of coarse rows,
-    walks the (idx, weight) triples in query order and sums its hits in that
-    order, so the result is the same bits every run.  Any shape with
-    C ≤ 11264; a CPU tensor goes through the plain twin."""
+                                     weight: torch.Tensor, n2: int,
+                                     rows: Optional[torch.Tensor] = None
+                                     ) -> torch.Tensor:
+    """:func:`three_interpolation_backward` through the deterministic kernel
+    of ``csrc/interpolate_bwd_big.cu``: the triples inverted into per-row
+    lists, then a warp a coarse row sums ``w·g`` over its list in ascending
+    (query, slot) order and writes the row once, so the result is the same
+    bits every run and a row no query selects is 0.  ``rows``: (B, N2)
+    int32, each row a permutation of the coarse points (their layout's
+    order: neighbouring rows share fine points), rows N2 elements apart, a
+    stride within a row allowed; or None (index order).  Any shape; a CPU
+    tensor goes through the plain twin, whose ``index_add_`` sums each row
+    in the same order on the CPU."""
     if _on_cpu(grad, idx, weight):
         return three_interpolation_backward_plain(grad, idx, weight, n2)
     _check_backward(grad, idx, weight)
     B, N1, C = grad.shape
+    _check_order(rows, B, n2, grad.device, "rows")
     df2 = torch.empty(B, n2, C, dtype=torch.float32, device=grad.device)
+    # the counts and two cursors (to 16 bytes), the bins, and per entry its
+    # place in the spill, the gather and the sorted lists (two ints each)
+    # and its spilled row
+    work = torch.empty(-(-(B * n2 + 2) // 4) * 4 + B * n2 * 2 * _BWD_BIN
+                       + 7 * B * 3 * N1, dtype=torch.int32, device=grad.device)
     launch("amc3d_three_interpolate_backward_big", grad.data_ptr(),
-           idx.data_ptr(), weight.data_ptr(), df2.data_ptr(), B, N1, n2, C,
+           idx.data_ptr(), weight.data_ptr(),
+           None if rows is None else rows.data_ptr(),
+           1 if rows is None else rows.stride(1), work.data_ptr(),
+           df2.data_ptr(), B, N1, n2, C,
            torch.cuda.current_stream(grad.device).cuda_stream)
     three_interpolation_backward_big.launches += 1
     return df2
@@ -340,27 +405,28 @@ def three_interpolation_backward_big(grad: torch.Tensor, idx: torch.Tensor,
 
 class _ThreeInterpolation(torch.autograd.Function):
     """Forward by the kernel (or the plain twin), backward by the backward
-    kernel (or its plain twin) in the order the forward took the fine
-    points; gradients reach the features only."""
+    kernel (or its plain twin) in the orders the forward took the fine
+    points and the coarse layout holds its points; gradients reach the
+    features only."""
 
     @staticmethod
     def forward(ctx, p1, p2, f2, plain: bool, cloud, query_cloud):
-        order = None
+        order = rows = None
         if plain:
             out, idx, w = _forward_plain(p1, p2, f2)
         else:
-            out, idx, w, order = _forward_kernel(p1, p2, f2, True, cloud,
-                                                 query_cloud)
-        ctx.save_for_backward(idx, w, order)
+            out, idx, w, order, rows = _forward_kernel(p1, p2, f2, True, cloud,
+                                                       query_cloud)
+        ctx.save_for_backward(idx, w, order, rows)
         ctx.n2, ctx.plain = f2.shape[1], plain
         return out
 
     @staticmethod
     def backward(ctx, grad):
-        idx, w, order = ctx.saved_tensors
+        idx, w, order, rows = ctx.saved_tensors
         bwd = (three_interpolation_backward_plain if ctx.plain
                else three_interpolation_backward)
-        return (None, None, bwd(grad.contiguous(), idx, w, ctx.n2, order),
+        return (None, None, bwd(grad.contiguous(), idx, w, ctx.n2, order, rows),
                 None, None, None)
 
 
@@ -391,15 +457,17 @@ def three_interpolation(unknown_xyz: torch.Tensor, known_xyz: torch.Tensor,
     """unknown (B, N1, 3), known (B, N2, 3), features (B, N2, C), all f32
     → (B, N1, C).
 
-    A CUDA tensor goes through the listed scan of ``csrc/interpolate.cu``
-    (selection and weighted sum in one pass, nothing materialised) over
+    A CUDA tensor goes through one forward kernel (selection and weighted
+    sum in one pass, nothing materialised): the lane-a-point kernel of
+    :func:`three_interpolation_big` where :func:`forward_is_big` says so,
+    else the listed scan of :func:`three_interpolation_small`, both over
     ``cloud`` (the layout of ``known_xyz``), the fine points in the order of
     ``query_cloud`` (the layout of ``unknown_xyz``), each refused for
-    another tensor, on the CPU too, and sorted here when not given; or
-    through :func:`three_interpolation_big` where :func:`forward_is_big`
-    says so.  When the features need a gradient the kernel also keeps the
-    indices and weights, and the backward kernel scatters into the
-    features.  A CPU tensor goes through :func:`three_interpolation_plain`."""
+    another tensor, on the CPU too, and sorted here when not given.  When
+    the features need a gradient the kernel also keeps the indices and
+    weights, and :func:`three_interpolation_backward` carries the gradient
+    to the features.  A CPU tensor goes through
+    :func:`three_interpolation_plain`."""
     _check_layouts(unknown_xyz, known_xyz, cloud, query_cloud)
     tensors = (unknown_xyz, known_xyz, known_feat)
     if _on_cpu(*tensors):

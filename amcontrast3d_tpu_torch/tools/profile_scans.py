@@ -51,8 +51,10 @@ wrapper and the kernel), at the same two steps' shapes.  ``--interp``
 times only the interpolation and its VJP at the four decoder stages of
 both steps (coarse C = 128, 256, 512, 1024): the forward over the two stage
 layouts where the package's wrapper takes them, the VJP (the dispatch's
-kernel: ScanNet's fp0 goes to the support-owned kernel 10) in the fine
-layout's order where the wrapper takes one, and kernel 9 itself at every
+kernel: the per-row lists of kernel 10 at fp0 and fp1 in this package, a
+parent's support-owned kernel 10 at ScanNet's fp0) in the fine layout's
+order (and the coarse rows in theirs) where the wrapper takes them, and
+kernel 9 itself at every
 stage in the caller's order and, where it takes one, in the layout's.
 
 The script reads only what every version of the package has (``ops.knn``,
@@ -93,10 +95,12 @@ BALL_K, REFINE_K = 32, 12
 BALL_KERNELS = ("ball_query_kernel", "ball_query_big_kernel")
 # the selection's and the vote's kernels (listed or, in a parent, dense)
 SELECT_KERNEL, VOTE_KERNEL, VOTE_CLASSES = "contrast_select_kernel", "label_vote_kernel", 13
-# the interpolation's kernels: the forward (3), its VJP (9), the
-# support-owned VJP (10); the coarse widths of fp0 ... fp3
-INTERP_KERNEL, INTERP_BWD_KERNEL, INTERP_BWD_BIG_KERNEL = \
-    "interp_kernel", "interp_bwd_kernel", "interp_bwd_big_kernel"
+# the interpolation's kernels: the forward (3; 11-13, lane-a-point), its
+# VJP (9; 10: a parent's support-owned kernel, or the per-row lists' two
+# kernels); the coarse widths of fp0 ... fp3
+INTERP_KERNELS = ("interp_kernel", "interp_big_kernel")
+INTERP_BWD_KERNEL = "interp_bwd_kernel"
+INTERP_BWD_BIG_KERNELS = ("interp_bwd_big_kernel", "bin_rows", "sum_rows")
 INTERP_CHANNELS = (128, 256, 512, 1024)
 
 
@@ -352,6 +356,13 @@ def selection_lines(rng, stages, layouts, runs: int, wrapper_too: bool = True):
     return totals
 
 
+def vjp_is_big(b: int, n1: int, n2: int, c: int) -> bool:
+    """``backward_is_big`` of the package this runs over (a parent's gate,
+    the JAX package's rule, took (n1, c))."""
+    gate = ops.interpolate.backward_is_big
+    return gate(b, n1, n2, c) if takes(gate, "n2") else gate(n1, c)
+
+
 def interp_lines(rng, stages, layouts, runs: int) -> None:
     """Prints the interpolation's times at the four decoder stages (stage s
     onto s − 1) over the two stage layouts where this package's wrapper
@@ -362,6 +373,7 @@ def interp_lines(rng, stages, layouts, runs: int) -> None:
     b = stages[0].shape[0]
     fwd_kw = takes(ops.three_interpolation, "cloud")
     bwd_kw = takes(ops.three_interpolation_backward, "order")
+    rows_kw = takes(ops.three_interpolation_backward, "rows")
     totals = [0.0, 0.0, 0.0]
     for s, c in zip(range(1, 5), INTERP_CHANNELS):
         p1, p2 = stages[s - 1], stages[s]
@@ -373,15 +385,19 @@ def interp_lines(rng, stages, layouts, runs: int) -> None:
         _, idx, w = ops.three_interpolation_small(p1, p2, f2, True, **kw)
         order = ({"order": layouts[s - 1].packed.view(torch.int32)[..., 3]}
                  if bwd_kw and layouts[s - 1] is not None else {})
+        # the coarse rows in their layout's order, as a step hands them on
+        rows = ({"rows": layouts[s].packed.view(torch.int32)[..., 3]}
+                if rows_kw and layouts[s] is not None else {})
 
         def fwd():
             return ops.three_interpolation(p1, p2, f2, **kw)
 
         def bwd():
-            return ops.three_interpolation_backward(g, idx, w, n2, **order)
+            return ops.three_interpolation_backward(g, idx, w, n2, **order,
+                                                    **rows)
 
-        ms = kernel_ms(fwd, runs, (INTERP_KERNEL,))
-        ms_b = kernel_ms(bwd, runs, (INTERP_BWD_KERNEL, INTERP_BWD_BIG_KERNEL))
+        ms = kernel_ms(fwd, runs, INTERP_KERNELS)
+        ms_b = kernel_ms(bwd, runs, (INTERP_BWD_KERNEL, *INTERP_BWD_BIG_KERNELS))
         scatter = {"caller's order": kernel_ms(
             lambda: ops.three_interpolation_backward_small(g, idx, w, n2),
             runs, (INTERP_BWD_KERNEL,))}
@@ -396,7 +412,7 @@ def interp_lines(rng, stages, layouts, runs: int) -> None:
         print(f"  interpolation (3) B={b} {n2} -> {n1} C={c}"
               f"{' over the layouts' if kw else ''}: wrapper "
               f"{cuda_ms(fwd, runs):.4f} ms, kernel {ms:.4f}; VJP "
-              f"{'(10) ' if ops.interpolate.backward_is_big(n1, c) else '(9) '}"
+              f"{'(10) ' if vjp_is_big(b, n1, n2, c) else '(9) '}"
               f"{'in the layout order ' if order else ''}wrapper "
               f"{cuda_ms(bwd, runs):.4f} ms, kernel {ms_b:.4f}; kernel 9 "
               + ", ".join(f"in the {k} {v:.4f}" for k, v in scatter.items()))

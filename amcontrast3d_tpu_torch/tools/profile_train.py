@@ -29,8 +29,10 @@ limit:
    confusion matrix fall between them); and,
    inside the loss, the exact kNN kernel (the contrast thresholds and the
    stage-label propagation) and the contrast reductions; the
-   support-owned interpolation VJP inside the backward where the recipe
-   reaches it; for ``mm`` also the CrossMask kernel inside the forward and
+   interpolation VJP of kernel 10 inside the backward where the dispatch
+   takes it (the per-row lists at fp0 and fp1 of both recipes; a parent's
+   support-owned kernel at ScanNet's fp0); for ``mm`` also the CrossMask
+   kernel inside the forward and
    its VJP inside the backward;
 4. device ms per step of every CUDA kernel from ``torch.profiler`` over
    3 steps, their sum, and the card's idle share of the profiled wall
@@ -382,7 +384,7 @@ def main() -> None:
                         ops_refine.refine_cross_backward)))
         stack.enter_context(mock.patch.object(
             ops_interpolate, "three_interpolation_backward_big",
-            phases.span("interpolation VJP, support-owned (in backward)",
+            phases.span("interpolation VJP, kernel 10 (in backward)",
                         ops_interpolate.three_interpolation_backward_big)))
         stack.enter_context(mock.patch.object(
             torch.Tensor, "backward",
@@ -394,7 +396,7 @@ def main() -> None:
     for name in ("forward", "CrossMask kernel (in forward)", "loss",
                  "kNN kernel (in loss)", "contrast reductions fwd (in loss)",
                  "backward", "CrossMask VJP kernel (in backward)",
-                 "interpolation VJP, support-owned (in backward)", "optimizer"):
+                 "interpolation VJP, kernel 10 (in backward)", "optimizer"):
         if name not in ms and name.startswith(("CrossMask", "interpolation")):
             continue
         print(f"  {ms.get(name, 0.0):9.3f} ms  {ms.get(name, 0.0) / wall:6.1%}  {name}")

@@ -22,11 +22,15 @@
    twice, with its pruned bound (the chunks whose box reaches into a ball)
    and the dense one (a scan in index order to each query's 32nd hit); the
    listed interpolation forward at the four decoder stages over both
-   stages' layouts (stage s onto s - 1), indices identical to the twin's,
-   weights and output within 1e-5·(1+max|out|), with its listed bound (the
-   chunks whose bound is not above each fine point's 3rd d², then the
-   weighted sum) beside the dense one; its backward in the fine layout's
-   order within 1e-5·(1+max|df|);
+   stages' layouts (stage s onto s - 1), and the lane-a-point forward at
+   fp0 and fp1 (where the gate sends them), indices identical to the
+   twin's, weights and output within 1e-5·(1+max|out|), each timed at the
+   stages the dispatch gives it with the bound of the work the function
+   needs (a distance test per point of the chunks whose bound is not above
+   each fine point's 3rd d², then the weighted sum) beside the dense one;
+   the scatter backward in the fine layout's order at every stage and the
+   per-row-lists backward at fp0 and fp1 (the same bits twice) within
+   1e-5·(1+max|df|), each timed where the dispatch takes it;
    the three chunk-pruned contrast kernels over the stage's sorted layout:
    the forward's counts and threshold identical and its sums within
    1e-5·(1+max|ref|), both halves of the VJP within 1e-4·(1+max|df|), each
@@ -125,15 +129,18 @@
    totals, the launches, the plain rescoring);
 9. runs the kernels of the ScanNet recipe's train step at its shapes
    (B = 2 clouds of 64000 points on a 0.02 m grid, 16000 coarse points):
-   the listed interpolation at its four decoder stages (indices identical
-   to the twin's, output within 1e-5·(1+max|out|)); the support-owned
-   interpolation VJP at (2, 64000 → 16000, C = 128)
-   against its twin within 1e-5·(1+max|df2|) and against itself (two runs,
-   identical bits), and at a shape that is a multiple of no tile with a
+   the listed interpolation at its four decoder stages and the lane-a-point
+   one at fp0 and fp1 (indices identical to the twin's, output within
+   1e-5·(1+max|out|)), each with the time of the kernel the dispatch
+   takes; the interpolation VJP over per-row lists
+   (kernel 10, the coarse rows in their layout's order) at
+   (2, 64000 → 16000, C = 128) against its twin within 1e-5·(1+max|df2|)
+   and against itself (two runs, identical bits, and the same bits in
+   index order), and at a shape that is a multiple of no tile with a
    support row no query selects (exactly 0), with its time, its bound, the
-   twin's and ``index_add_``'s time and the scatter kernel's on the same
-   input (in the fine layout's order), and both kernels again at the S3DIS recipe's largest shape
-   (4, 24000 → 6000, C = 128); the batched FPS 2 × 64000 → 16000 (one
+   twin's and ``index_add_``'s time and the scatter kernel's (kernel 9) on
+   the same input (in the fine layout's order), and both kernels again at
+   the S3DIS recipe's largest shape (4, 24000 → 6000, C = 128); the batched FPS 2 × 64000 → 16000 (one
    cluster a cloud, ``csrc/fps.cu``), picks identical to the twin, and the
    grid kernel cloud by cloud beside it; the three contrast kernels at
    (2, 64000, 64) (each over the cloud's layout, the forward's counts
@@ -152,10 +159,11 @@
    ``mode=resume`` from ``latest`` for a third; and the S3DIS recipe, AA and
    MM, for two epochs of 3 steps at B = 4 × 24000.  Checks finite losses, the
    confusion-matrix totals, the learning rate of every epoch (the resumed
-   one included), ``scalars.jsonl``, the launches per train step (ScanNet:
-   the support-owned VJP once, the scatter kernel 3 times, the batched
-   FPS 4 times; S3DIS: the scatter kernel 4 times and the support-owned
-   one never) and per validation forward, parameters that moved, identical
+   one included), ``scalars.jsonl``, the launches per train step (both
+   recipes: the lane-a-point forward and the per-row-lists VJP at fp0 and
+   fp1, the listed forward and the scatter at fp2 and fp3; ScanNet's
+   batched FPS 4 times) and per validation forward (the interpolation's
+   split by the gates at the cloud's size), parameters that moved, identical
    logits from the ``latest`` checkpoint read back, and one ScanNet train
    step with the kernels against one with every plain twin from the same
    state (some labels ignored).  Prints per recipe the step time and the
@@ -168,14 +176,23 @@
    picks identical to the twin and to the grid kernel, with the chunk
    visits a pick, the bound (18 float instructions a box test, 10 a point
    of a visited chunk) and the floor of picks x one cluster-wide reduction;
-   the chunk-pruned interpolation at fp0 of the 221184 and 311296 buckets
-   (C = 128) and at (155648 -> 38912, C = 256), coarse points from FPS:
-   output, indices and weights identical to the listed ``interpolate.cu``'s
-   over the two clouds' layouts, output
-   within 1e-5·(1+max|out|) of the twin, the share of chunk visits
-   skipped, and the gradient through its saved triples within
-   1e-5·(1+max|df2|) of the twin's; kNN at k = 256 through both kNN kernels
-   (two passes of 128 slots), identical to the twin;
+   the lane-a-point interpolation (kernels 11-13) at fp0 of the 221184 and
+   311296 buckets (C = 128) and at (155648 -> 38912, C = 256), coarse
+   points from FPS, over both clouds' layouts (one sort) and sorting for
+   itself: output, indices and weights identical to the listed
+   ``interpolate.cu``'s, indices identical to the twin's, output within
+   1e-5·(1+max|out|) of the twin, with its time beside the listed
+   kernel's, the twin's, the bound (the coordinates and f2 read once, the
+   rows written once, a distance test per point of the chunks the data
+   needs, the weighted sum) and the chunk visits, and the gradient through its saved triples (the dispatch's
+   per-row-lists VJP) within 1e-5·(1+max|df2|) of the twin's; kNN at
+   k = 256 through both kNN kernels (two passes of 128 slots), identical
+   to the twin; then the gate table of the two large-shape interpolation
+   kernels (``gate_phase``): every decoder stage of the S3DIS and ScanNet
+   steps, PointNet++'s eval forward, two clouds of 22000 points and room
+   subclouds of 106496 to 311296 points, each kernel beside the one that
+   shares its calls, the new forward's indices and output held against the
+   twin's, and the kernels the dispatch took held against the gates;
 12. drives ``--kind base``: ``BaseSeg`` over PointNet++ from
    ``cfgs/s3dis/pointnet++.yaml`` at B = 2 x 24000, one eval forward timed,
    its launches, and one forward against the plain twins;
@@ -185,8 +202,8 @@
    MM (``cfgs/scannet/AMContrast3D-MM.yaml``) on the 250000-point room;
    the launches per subcloud forward include the chunk-pruned FPS at the
    first stage (both buckets are above 163840 points; each call sorts its
-   cloud with the two layout kernels) and the chunk-pruned interpolation
-   at fp0;
+   cloud with the two layout kernels) and the lane-a-point interpolation
+   at fp0 and fp1 (as at every bucket);
 14. runs the four kernels of the approx configuration and the fused
    aggregation at the S3DIS step's shapes against their twins
    (``approx_kernel_phases``): the threshold selection at the four decoder
@@ -303,6 +320,9 @@ KERNELS = (  # name, source, the TPU kernel it replaces
      "amcontrast3d_tpu/ops/contrast_pallas.py:686 (XLA, not a kernel)"),
 )
 STEP_KERNELS = KERNELS[:10]      # the kernels of the four step paths
+# the step's large-shape interpolation kernels: fp0 and fp1 by the gates
+BIG_INTERP_KERNELS = tuple(k for k in KERNELS if k[0] in (
+    "three_interpolation_big", "three_interpolation_backward_big"))
 APPROX_KERNELS = KERNELS[14:18]  # the approx configuration, the fused tail
 LAYOUT_KERNELS = KERNELS[18:]    # the layouts every forward and step make
 # the whole-scene paths: Synthetic rooms of SCENE_POINTS raw points from the
@@ -319,25 +339,29 @@ LIST_POINTS = 8                  # points a block lists: chunk_list.cuh::kListWa
 # layout kernels around a sort) for the ball queries, the CrossMask and the
 # loss
 SORT_LAUNCHES = {"layout_keys": 1, "layout_pack": 1}
-EVAL_LAUNCHES = {"fps": 4, "ball_query": 8, "three_interpolation": 4,
-                 **SORT_LAUNCHES}
+# the decoder's coarse widths at fp0 ... fp3; by the port's gates
+# (ops/interpolate.py: forward_is_big, backward_is_big) fp0 and fp1 of both
+# recipes' steps go to the lane-a-point forward and the per-row-lists VJP,
+# fp2 and fp3 to the listed forward and the scatter
+FP_CHANNELS = (128, 256, 512, 1024)
+EVAL_LAUNCHES = {"fps": 4, "ball_query": 8, "three_interpolation": 2,
+                 "three_interpolation_big": 2, **SORT_LAUNCHES}
 # a train step also gathers the support VJP's columns at each stage
-TRAIN_LAUNCHES = {**EVAL_LAUNCHES, "three_interpolation_backward": 4,
+TRAIN_LAUNCHES = {**EVAL_LAUNCHES, "three_interpolation_backward": 2,
+                  "three_interpolation_backward_big": 2,
                   "contrast_forward": 4, "contrast_grad_rows": 4,
                   "contrast_grad_support": 4, "knn": 7, "support_layout": 4}
-# the ScanNet recipe: 2 x 64000 -> 16000 -> 4000 -> 1000 -> 250; fp0's
-# backward exceeds the query-buffer gate; the batched FPS takes all four
-# stages, the listed ball query all eight
+# the ScanNet recipe: 2 x 64000 -> 16000 -> 4000 -> 1000 -> 250; the
+# batched FPS takes all four stages, the listed ball query all eight, the
+# interpolation and its VJP split as at B = 4 x 24000
 SCANNET_CFG = os.path.join(REPO, "cfgs", "scannet", "AMContrast3D-AA.yaml")
 SCANNET_B, SCANNET_N, SCANNET_CLASSES = 2, 64000, 20
-SCANNET_LAUNCHES = {
-    **TRAIN_LAUNCHES, "three_interpolation_backward_big": 1,
-    "three_interpolation_backward": 3}
+SCANNET_LAUNCHES = TRAIN_LAUNCHES
 CLI_LIMIT_S = 420     # a train CLI phase that hangs (a worker pool) is cut
 # the rungs from the 221184 bucket up (ScanNet recipe, 0.02 m voxels): a
 # Synthetic room of RUNG_ROOMS[bucket] raw points voxelises to subclouds in
-# that bucket; the chunk-pruned FPS at its first stage from 262144 points,
-# the chunk-pruned interpolation at fp0 (coarse C = 128)
+# that bucket; the chunk-pruned FPS at its first stage, the lane-a-point
+# interpolation at fp0 (coarse C = 128) and fp1
 SCANNET_MM_CFG = os.path.join(REPO, "cfgs", "scannet", "AMContrast3D-MM.yaml")
 RUNG_ROOMS = {221184: 250000, 311296: 400000}
 RUNG_FPS = ((311296, 77824), (HUGE_N, HUGE_PICKS))
@@ -362,8 +386,10 @@ LAUNCHES = {
     "mm eval": {**EVAL_LAUNCHES, "refine_cross": 4},
     "mm train": {**TRAIN_LAUNCHES, "refine_cross": 4,
                  "refine_cross_backward": 4},
-    "base eval": {"fps": 4, "ball_query": 4, "three_interpolation": 4,
-                  **SORT_LAUNCHES},
+    # PointNet++'s decoder: coarse widths 512, 256, 128, 64 at fp3 ... fp0,
+    # so at B = 2 x 24000 only fp0 passes the forward's gate
+    "base eval": {"fps": 4, "ball_query": 4, "three_interpolation": 3,
+                  "three_interpolation_big": 1, **SORT_LAUNCHES},
     "aa train approx": APPROX_LAUNCHES,
     "aa train approx fused": {**APPROX_LAUNCHES, "aggregate_forward": AGG_LAUNCHES,
                               "aggregate_backward": AGG_LAUNCHES},
@@ -459,7 +485,10 @@ def kernel_phases(ops, dev, rng, tag: str) -> dict:
     {name: {err, ms, plain_ms, library_ms, bytes, ops}}: the largest error
     over both clouds, and on the uniform cloud the times, bytes and float
     instructions summed over the stages (per forward for the first three,
-    per train step for the rest)."""
+    per train step for the rest).  The interpolation and its VJP are timed
+    at the stages the dispatch gives each kernel: the lane-a-point forward
+    and the per-row-lists VJP at fp0 and fp1, the listed forward and the
+    scatter at fp2 and fp3."""
     from amcontrast3d_tpu_torch.models.pointnext import to_full_list
     from amcontrast3d_tpu_torch.ops import spatial
     from amcontrast3d_tpu_torch.tools import profile_fps
@@ -468,7 +497,7 @@ def kernel_phases(ops, dev, rng, tag: str) -> dict:
     radii = to_full_list(0.1, [1, 4, 7, 4, 4], [1, 4, 4, 4, 4], 2)
     channels = [128, 256, 512, 1024]           # coarse C of fp0 … fp3
     up_channels = UP_CHANNELS
-    results, timed, note = tally(STEP_KERNELS)
+    results, timed, note = tally(STEP_KERNELS + BIG_INTERP_KERNELS)
 
     def randn(*shape):
         return torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(dev)
@@ -522,33 +551,63 @@ def kernel_phases(ops, dev, rng, tag: str) -> dict:
             fine, coarse = forward_layouts[s - 1], forward_layouts[s]
             n1, n2, c = p1.shape[1], p2.shape[1], channels[s - 1]
             f2 = randn(B, n2, c)
-            err, idx, w, listed, dense = interp_scan(
+            err, big_err, idx, w, needed, listed, dense = interp_scan(
                 ops, spatial, p1, p2, f2, coarse, fine, f"{cloud} stage {s}")
             note("three_interpolation", err)
-            ms = timed("three_interpolation", cloud,
-                       lambda: ops.three_interpolation(p1, p2, f2, coarse, fine),
+            # each forward kernel timed where the dispatch takes it
+            big = ops.forward_is_big(B, n1, n2, c)
+            fwd = "three_interpolation_big" if big else "three_interpolation"
+            if big:
+                note(fwd, big_err)
+                kernel = functools.partial(ops.three_interpolation_big, p1, p2,
+                                           f2, False, None, coarse, fine)
+            else:
+                kernel = functools.partial(ops.three_interpolation_small, p1,
+                                           p2, f2, False, coarse, fine)
+            ms = timed(fwd, cloud, kernel,
                        lambda: ops.three_interpolation_plain(p1, p2, f2),
-                       B * ((n1 + n2) * 12 + (n1 + n2) * c * 4), listed)
+                       B * ((n1 + n2) * 12 + (n1 + n2) * c * 4), needed)
             if ms is not None:
-                r = results["three_interpolation"]
+                r = results[fwd]
                 r["dense_ops"] = r.get("dense_ops", 0.0) + dense
                 print(f"interpolation {cloud} stage {s} (B={B}, {n2} -> {n1}, "
-                      f"C={c}): {ms:.4f} ms, bound dense "
-                      f"{dense / PEAK_OPS * 1e3:.4f} / listed "
-                      f"{listed / PEAK_OPS * 1e3:.4f} ms by operations  [{tag}]")
-            # the backward on the indices and weights the forward kept, in
-            # the order it took the fine points (their layout's)
+                      f"C={c}): {fwd} {ms:.4f} ms, bound dense "
+                      f"{dense / PEAK_OPS * 1e3:.4f} / the data's chunks "
+                      f"{needed / PEAK_OPS * 1e3:.4f} ms by operations (the "
+                      f"listed design's {listed / PEAK_OPS * 1e3:.4f})  [{tag}]")
+            # the backward on the indices and weights the forward kept: the
+            # scatter in the order the forward took the fine points (their
+            # layout's), the per-row lists in the coarse layout's order
             order = fine.packed.view(torch.int32)[..., 3]
+            rows_order = coarse.packed.view(torch.int32)[..., 3]
             g = randn(B, n1, c)
-            got = ops.three_interpolation_backward(g, idx, w, n2, order)
             want = ops.three_interpolation_backward_plain(g, idx, w, n2)
+            got = ops.three_interpolation_backward_small(g, idx, w, n2, order)
             note("three_interpolation_backward", check_close(
                 f"interpolation backward {cloud} stage {s}", got, want, 1e-5))
+            bwd = ("three_interpolation_backward_big"
+                   if ops.backward_is_big(B, n1, n2, c)
+                   else "three_interpolation_backward")
+            if bwd == "three_interpolation_backward_big":
+                got = ops.three_interpolation_backward_big(g, idx, w, n2,
+                                                           rows_order)
+                note(bwd, check_close(f"interpolation backward {cloud} stage "
+                                      f"{s} per-row lists", got, want, 1e-5))
+                check_equal(f"interpolation backward {cloud} stage {s} "
+                            f"per-row lists, two runs", got,
+                            ops.three_interpolation_backward_big(
+                                g, idx, w, n2, rows_order))
+                kernel = functools.partial(
+                    ops.three_interpolation_backward_big, g, idx, w, n2,
+                    rows_order)
+            else:
+                kernel = functools.partial(
+                    ops.three_interpolation_backward_small, g, idx, w, n2,
+                    order)
             rows = (idx.long() + n2 * torch.arange(B, device=dev)[:, None, None]
                     ).reshape(-1)
             contrib = (w[..., None] * g[:, :, None, :]).reshape(-1, c)
-            timed("three_interpolation_backward", cloud,
-                  lambda: ops.three_interpolation_backward(g, idx, w, n2, order),
+            timed(bwd, cloud, kernel,
                   lambda: ops.three_interpolation_backward_plain(g, idx, w, n2),
                   B * (n1 * (c * 4 + 24) + n2 * c * 4), B * n1 * c * 6,
                   lambda: torch.zeros(B * n2, c, device=dev).index_add_(
@@ -675,47 +734,66 @@ def interp_scan(ops, spatial, p1, p2, f2, coarse, fine, where):
     """Kernel 3 (the listed scan of ``csrc/interpolate.cu``) over the coarse
     stage's layout, the fine points in their own layout's order, against
     its twin: indices identical, weights and output within 1e-5·(1+max),
-    the same bits sorting for itself.  Returns (the output's max abs err,
-    the kept indices and weights, the float instructions of the listed
-    scan (:func:`listed_ops`: the chunks whose bound is not above each fine
-    point's 3rd d², then 5 a channel for the weighted sum) and of a dense
-    one (every pair))."""
+    the same bits sorting for itself; where ``forward_is_big`` sends the
+    stage to kernels 11-13 (``csrc/interpolate_big.cu``), that kernel too
+    against the same twin on the same inputs.  Returns (the listed scan's
+    max abs err, the lane-a-point kernel's or None, the kept indices and
+    weights, and the float instructions of the work the data needs (a
+    distance test per point of the chunks whose box bound is not above each
+    fine point's 3rd d², then 5 a channel for the weighted sum), of the
+    listed design (:func:`listed_ops`: box tests as well) and of a dense
+    scan (every pair))."""
     nb, n1, n2, c = p1.shape[0], p1.shape[1], p2.shape[1], f2.shape[-1]
     name = f"interpolation {where} {n2} -> {n1} C={c}"
     out, idx, w = ops.three_interpolation_small(p1, p2, f2, True, coarse, fine)
     want_i, want_w = ops.three_interpolation_weights(p1, p2)
     check_equal(f"{name} indices", idx, want_i)
     check_close(f"{name} weights", w, want_w, 1e-5)
-    err = check_close(name, out, ops.three_interpolation_plain(p1, p2, f2), 1e-5)
+    plain = ops.three_interpolation_plain(p1, p2, f2)
+    err = check_close(name, out, plain, 1e-5)
     check_equal(f"{name}, sorting for itself",
                 ops.three_interpolation_small(p1, p2, f2)[0], out)
+    big_err = None
+    if ops.forward_is_big(nb, n1, n2, c):
+        b_out, b_idx, b_w = ops.three_interpolation_big(p1, p2, f2, True, None,
+                                                        coarse, fine)
+        check_equal(f"{name} lane-a-point indices", b_idx, want_i)
+        check_close(f"{name} lane-a-point weights", b_w, want_w, 1e-5)
+        big_err = check_close(f"{name} lane-a-point", b_out, plain, 1e-5)
     d3 = ops.knn(p2, p1, 3, coarse)[1][..., 2]
     visits, pairs = chunk_visits(spatial, p2, p1, d3, False, coarse)
     work = nb * n1 * c * 5
-    return (err, idx, w, listed_ops(visits, pairs, nb, n1) + work,
+    return (err, big_err, idx, w, visits * CHUNK * PAIR_OPS + work,
+            listed_ops(visits, pairs, nb, n1) + work,
             nb * n1 * n2 * PAIR_OPS + work)
 
 
 def interp_stages(ops, spatial, stages, where, tag, rng) -> None:
-    """Kernel 3 at the four decoder stages of ``stages`` (five clouds) over
-    one sort of them, against its twin (:func:`interp_scan`), each with its
-    time and its listed and dense bounds."""
+    """The forward kernels at the four decoder stages of ``stages`` (five
+    clouds) over one sort of them, against the twin (:func:`interp_scan`:
+    kernel 3 at every stage, kernels 11-13 where ``forward_is_big`` sends
+    the stage), each with the dispatch's time and the bounds of the work
+    the data needs and of a dense scan."""
     dev, nb = stages[0].device, stages[0].shape[0]
     layouts = spatial.sort_stages(stages)
     for s, c in zip(range(1, 5), (128, 256, 512, 1024)):
         p1, p2 = stages[s - 1], stages[s]
         f2 = torch.from_numpy(rng.randn(nb, p2.shape[1], c).astype(np.float32)
                               ).to(dev)
-        err, _, _, listed, dense = interp_scan(
+        err, big_err, _, _, needed, _, dense = interp_scan(
             ops, spatial, p1, p2, f2, layouts[s], layouts[s - 1],
             f"{where} stage {s}")
         ms = cuda_ms(lambda: ops.three_interpolation(p1, p2, f2, layouts[s],
                                                      layouts[s - 1]), 5)
+        big = (f"; the lane-a-point kernel's indices identical to the twin, "
+               f"max abs err {big_err}" if big_err is not None else "")
+        took = "lane-a-point" if big_err is not None else "listed"
         print(f"interpolation {where} stage {s} (B={nb}, {p2.shape[1]} -> "
-              f"{p1.shape[1]}, C={c}): indices identical to the twin, max abs "
-              f"err {err}; {ms:.4f} ms over the layouts, bound dense "
-              f"{dense / PEAK_OPS * 1e3:.4f} / listed "
-              f"{listed / PEAK_OPS * 1e3:.4f} ms  [{tag}]")
+              f"{p1.shape[1]}, C={c}): the listed scan's indices identical to "
+              f"the twin, max abs err {err}{big}; the dispatch ({took}) "
+              f"{ms:.4f} ms over the layouts, bound dense "
+              f"{dense / PEAK_OPS * 1e3:.4f} / the data's chunks "
+              f"{needed / PEAK_OPS * 1e3:.4f} ms  [{tag}]")
 
 
 def layout_kernel_phases(ops, dev, tag: str) -> dict:
@@ -1226,17 +1304,13 @@ def huge_clouds(rng) -> dict:
                           + 0.05 * rng.randn(1, HUGE_N, 3)).astype(np.float32)}
 
 
-def scannet_kernel_phases(ops, dev, rng, tag: str) -> dict:
+def scannet_kernel_phases(ops, dev, rng, tag: str) -> None:
     """The kernels of the ScanNet recipe's train step at its shapes, B = 2
-    clouds of 64000 points that differ; returns the record of the
-    support-owned interpolation VJP (the other kernels' records come from the
-    phases at their own main shapes)."""
+    clouds of 64000 points that differ, against their twins, with times
+    (the kernels' records come from the S3DIS step's phase, the main
+    path's shapes)."""
     from amcontrast3d_tpu_torch.ops import spatial
 
-    results = {"three_interpolation_backward_big": {
-        "err": None, "ms": 0.0, "plain_ms": 0.0, "library_ms": None,
-        "bytes": 0.0, "ops": 0.0}}
-    r10 = results["three_interpolation_backward_big"]
     nb, n1 = SCANNET_B, SCANNET_N
     # two rooms on a 0.02 m grid, the second one smaller and shifted
     pts = np.concatenate([room_cloud(rng, n1) * 0.5,
@@ -1273,59 +1347,61 @@ def scannet_kernel_phases(ops, dev, rng, tag: str) -> dict:
     interp_stages(ops, spatial, stages, f"ScanNet B={nb}", tag, rng)
 
     # the interpolation VJP: ScanNet's fp0, then S3DIS's fp0
-    def vjp_case(p1, p2, c, timed: bool):
+    def vjp_case(p1, p2, c):
         b, m1, m2 = p1.shape[0], p1.shape[1], p2.shape[1]
+        fine, coarse = spatial.sort_stages([p1, p2])
         idx, w = ops.three_interpolation_weights(p1, p2)
         g = torch.from_numpy(rng.randn(b, m1, c).astype(np.float32)).to(dev)
         name = f"interpolation backward ({b}, {m1} -> {m2}, C={c})"
-        got = ops.three_interpolation_backward_big(g, idx, w, m2)
-        again = ops.three_interpolation_backward_big(g, idx, w, m2)
+        # the coarse rows in their layout's order, the fine points in theirs,
+        # as a step hands them on
+        rows = coarse.packed.view(torch.int32)[..., 3]
+        order = fine.packed.view(torch.int32)[..., 3]
+        got = ops.three_interpolation_backward_big(g, idx, w, m2, rows)
+        again = ops.three_interpolation_backward_big(g, idx, w, m2, rows)
         want = ops.three_interpolation_backward_plain(g, idx, w, m2)
-        err = check_close(f"{name} support-owned vs plain", got, want, 1e-5)
-        check_equal(f"{name} support-owned, two runs", got, again)
-        # the scatter kernel in the fine layout's order, as a step takes it
-        order = spatial.sort_support(p1).packed.view(torch.int32)[..., 3]
+        err = check_close(f"{name} per-row lists vs plain", got, want, 1e-5)
+        check_equal(f"{name} per-row lists, two runs", got, again)
+        check_equal(f"{name} per-row lists in index order",
+                    ops.three_interpolation_backward_big(g, idx, w, m2), got)
         check_close(f"{name} scatter vs plain",
                     ops.three_interpolation_backward_small(g, idx, w, m2, order),
                     want, 1e-5)
-        r10["err"] = max(r10["err"] or 0.0, err)
-        rows = (idx.long() + m2 * torch.arange(b, device=dev)[:, None, None]
+        flat = (idx.long() + m2 * torch.arange(b, device=dev)[:, None, None]
                 ).reshape(-1)
         contrib = (w[..., None] * g[:, :, None, :]).reshape(-1, c)
-        big_ms = cuda_ms(lambda: ops.three_interpolation_backward_big(g, idx, w, m2))
+        big_ms = cuda_ms(lambda: ops.three_interpolation_backward_big(
+            g, idx, w, m2, rows))
         small_ms = cuda_ms(
             lambda: ops.three_interpolation_backward_small(g, idx, w, m2, order))
         plain_ms = cuda_ms(
             lambda: ops.three_interpolation_backward_plain(g, idx, w, m2), PLAIN_RUNS)
         lib_ms = cuda_ms(lambda: torch.zeros(b * m2, c, device=dev).index_add_(
-            0, rows, contrib), PLAIN_RUNS)
+            0, flat, contrib), PLAIN_RUNS)
         nbytes = b * (m1 * (c * 4 + 24) + m2 * c * 4)
         nops = b * m1 * c * 6
         bound = max(nbytes / PEAK_BYTES, nops / PEAK_OPS) * 1e3
-        gate = "support-owned" if ops.interpolate.backward_is_big(m1, c) \
+        gate = "per-row lists" if ops.backward_is_big(b, m1, m2, c) \
             else "scatter"
-        print(f"{name}: the support-owned kernel {big_ms:.4f} ms, the scatter "
-              f"kernel {small_ms:.4f} ms in the fine layout's order (the "
-              f"dispatch takes the {gate} one), "
-              f"plain {plain_ms:.4f} ms, index_add_ {lib_ms:.4f} ms, bound "
-              f"{bound:.4f} ms; max abs err {err}, two runs identical  [{tag}]")
-        if timed:
-            r10.update(ms=big_ms, plain_ms=plain_ms, library_ms=lib_ms,
-                       bytes=float(nbytes), ops=float(nops))
+        print(f"{name}: the per-row-lists kernel {big_ms:.4f} ms (coarse rows "
+              f"in their layout's order), the scatter kernel {small_ms:.4f} ms "
+              f"in the fine layout's order (the dispatch takes the {gate} "
+              f"one), plain {plain_ms:.4f} ms, index_add_ {lib_ms:.4f} ms, "
+              f"bound {bound:.4f} ms; max abs err {err}, two runs identical  "
+              f"[{tag}]")
 
-    vjp_case(p, q, 128, timed=True)
+    vjp_case(p, q, 128)
     uni = torch.from_numpy(rng.rand(B, N, 3).astype(np.float32) * 4).to(dev)
     uni_q = ops.gather_points(uni, ops.furthest_point_sample(uni, N // 4)).contiguous()
-    vjp_case(uni, uni_q, 128, timed=False)
+    vjp_case(uni, uni_q, 128)
     # a multiple of no tile; coarse row 7 lies far away, so no query selects it
     odd, odd_q = p[:, :4099].contiguous(), q[:, :1031].clone()
     odd_q[:, 7] += 100.0
     idx, w = ops.three_interpolation_weights(odd, odd_q)
     g = torch.from_numpy(rng.randn(nb, 4099, 200).astype(np.float32)).to(dev)
     got = ops.three_interpolation_backward_big(g, idx, w, 1031)
-    r10["err"] = max(r10["err"], check_close(
-        "interpolation backward (2, 4099 -> 1031, C=200)", got,
-        ops.three_interpolation_backward_plain(g, idx, w, 1031), 1e-5))
+    check_close("interpolation backward (2, 4099 -> 1031, C=200)", got,
+                ops.three_interpolation_backward_plain(g, idx, w, 1031), 1e-5)
     if (idx == 7).any() or got[:, 7].any():
         raise AssertionError("an unselected support row is not zero")
 
@@ -1416,20 +1492,19 @@ def scannet_kernel_phases(ops, dev, rng, tag: str) -> dict:
     print(f"contrast kernels at ({nb}, {n1}, {c}), dense "
           f"bound {nb * n1 * n1 * PAIR_OPS / PEAK_OPS * 1e3:.3f} ms each by "
           f"operations: {'; '.join(line)}  [{tag}]")
-    return finish_kernels(results, "two room-like", tag)
 
 
 def rung_kernel_phases(ops, dev, rng, tag: str) -> dict:
     """The kernels of the rungs from the 221184 bucket up against their
-    twins and against the kernels they take over from; returns the records
-    of the chunk-pruned FPS (the room-like 311296-point cloud) and of the
-    chunk-pruned interpolation (summed over fp0 of the 221184 and 311296
-    buckets, room-like clouds), and holds kNN beyond 128 neighbours."""
+    twins and against the kernels they take over from; returns the record
+    of the chunk-pruned FPS (the room-like 311296-point cloud), prints the
+    lane-a-point interpolation's (fp0 of the 221184 and 311296 buckets, fp1
+    of the 622592 one; its record comes from the step's fp0 and fp1), and
+    holds kNN beyond 128 neighbours."""
     from amcontrast3d_tpu_torch.ops import spatial
 
-    results = {name: {"err": None, "ms": 0.0, "plain_ms": 0.0,
-                      "library_ms": None, "bytes": 0.0, "ops": 0.0}
-               for name in ("fps_pruned", "three_interpolation_big")}
+    results = {"fps_pruned": {"err": None, "ms": 0.0, "plain_ms": 0.0,
+                              "library_ms": None, "bytes": 0.0, "ops": 0.0}}
 
     def note(name, err):
         results[name]["err"] = max(results[name]["err"] or 0.0, err)
@@ -1481,55 +1556,69 @@ def rung_kernel_phases(ops, dev, rng, tag: str) -> dict:
             p2 = ops.gather_points(p1, ops.furthest_point_sample(p1, n2)).contiguous()
             f2 = torch.from_numpy(rng.randn(1, n2, c).astype(np.float32)).to(dev)
             name = f"interpolation_big {cloud} {n1} -> {n2}, C={c}"
-            if not ops.forward_is_big(n2, c):
-                raise AssertionError(f"{name}: the dispatch rule says dense")
-            visits = torch.zeros(1, dtype=torch.int64, device=dev)
-            out, idx, w = ops.three_interpolation_big(p1, p2, f2, True, visits)
+            if not ops.forward_is_big(1, n1, n2, c):
+                raise AssertionError(f"{name}: the dispatch rule says listed")
+            # both clouds' layouts by one sort, as a forward makes them
             fine, coarse = spatial.sort_stages([p1, p2])
+            visits = torch.zeros(1, dtype=torch.int64, device=dev)
+            out, idx, w = ops.three_interpolation_big(p1, p2, f2, True, visits,
+                                                      coarse, fine)
             l_out, l_idx, l_w = ops.three_interpolation_small(p1, p2, f2, True,
                                                               coarse, fine)
             err = check_equal(f"{name} vs interpolate.cu", out, l_out)
             check_equal(f"{name} indices vs interpolate.cu", idx, l_idx)
             check_equal(f"{name} weights vs interpolate.cu", w, l_w)
             check_equal(f"{name} without keep", ops.three_interpolation_big(
-                p1, p2, f2)[0], out)
+                p1, p2, f2, False, None, coarse, fine)[0], out)
+            check_equal(f"{name} sorting for itself",
+                        ops.three_interpolation_big(p1, p2, f2)[0], out)
+            want_i, want_w = ops.three_interpolation_weights(p1, p2)
+            check_equal(f"{name} indices vs the twin", idx, want_i)
+            check_close(f"{name} weights vs the twin", w, want_w, 1e-5)
             want, plain_ms = timed_once(
                 lambda: ops.three_interpolation_plain(p1, p2, f2))
-            note("three_interpolation_big",
-                 max(err, check_close(f"{name} vs plain", out, want, 1e-5)))
-            ms = cuda_ms(lambda: ops.three_interpolation_big(p1, p2, f2))
+            err = max(err, check_close(f"{name} vs plain", out, want, 1e-5))
+            ms = cuda_ms(lambda: ops.three_interpolation_big(
+                p1, p2, f2, False, None, coarse, fine))
             listed_ms = cuda_ms(lambda: ops.three_interpolation_small(
                 p1, p2, f2, False, coarse, fine), 3)
-            pairs = n1 * -(-n2 // CHUNK)
-            nbytes = (n1 + n2) * 12 + n1 * 4 * c * 4
-            nops = pairs * BOX_OPS + visits.item() * CHUNK * PAIR_OPS + 5 * n1 * c
+            # the bound, of the work the function needs: a distance test per
+            # point of the chunks whose bound is not above each fine point's
+            # 3rd d² (what this data needs), 5 float instructions a channel;
+            # the coordinates and f2 read once, the rows written once
+            d3 = ops.knn(p2, p1, 3, coarse)[1][..., 2]
+            needed, pairs = chunk_visits(spatial, p2, p1, d3, False, coarse)
+            nbytes = (n1 + n2) * 12 + (n1 + n2) * c * 4
+            nops = needed * CHUNK * PAIR_OPS + 5 * n1 * c
             bound = max(nbytes / PEAK_BYTES, nops / PEAK_OPS) * 1e3
             print(f"{name}: output, indices and weights identical to "
-                  f"interpolate.cu, max abs err vs plain {err}; {ms:.3f} ms, "
-                  f"interpolate.cu over the layouts {listed_ms:.3f} ms, plain "
-                  f"{plain_ms:.1f} ms, "
-                  f"bound {bound:.3f} ms, chunk visits skipped "
-                  f"{100 * (1 - visits.item() / pairs):.3f} %  [{tag}]")
-            if cloud == "room" and c == 128:
-                r = results["three_interpolation_big"]
-                r["ms"] += ms
-                r["plain_ms"] += plain_ms
-                r["bytes"] += float(nbytes)
-                r["ops"] += float(nops)
+                  f"interpolate.cu's and the twin's indices, max abs err vs "
+                  f"plain {err}; the lane-a-point kernel {ms:.4f} ms over the "
+                  f"layouts, interpolate.cu over the layouts {listed_ms:.4f} "
+                  f"ms, plain {plain_ms:.1f} ms, bound {bound:.4f} ms "
+                  f"({100 * bound / ms:.1f} % of it); chunk visits: a warp "
+                  f"(32 fine points) scanned {visits.item() / -(-n1 // 32):.2f}, "
+                  f"the data needs {needed / n1:.2f} a fine point of "
+                  f"{pairs // n1}  [{tag}]")
             if cloud == "room" and n1 == 221184:
-                # the gradient through the big forward's saved triples
+                # the gradient through the big forward's saved triples and
+                # the dispatch's VJP (the per-row lists at this shape)
                 g = torch.from_numpy(rng.randn(1, n1, c).astype(np.float32)).to(dev)
                 fk = f2.clone().requires_grad_()
                 fp = f2.clone().requires_grad_()
-                before = ops.three_interpolation_big.launches
-                ops.three_interpolation(p1, p2, fk).backward(g)
-                if ops.three_interpolation_big.launches != before + 1:
+                before = (ops.three_interpolation_big.launches,
+                          ops.three_interpolation_backward_big.launches)
+                ops.three_interpolation(p1, p2, fk, coarse, fine).backward(g)
+                if (ops.three_interpolation_big.launches,
+                        ops.three_interpolation_backward_big.launches) != \
+                        (before[0] + 1, before[1] + 1):
                     raise AssertionError(f"{name}: the autograd path missed it")
                 ops.three_interpolation_plain(p1, p2, fp).backward(g)
                 gerr = check_close(f"{name} gradient vs plain", fk.grad,
                                    fp.grad, 1e-5)
-                print(f"{name}: gradient through the saved triples, max abs "
-                      f"err vs plain {gerr}  [{tag}]")
+                print(f"{name}: gradient through the saved triples (the "
+                      f"per-row-lists VJP), max abs err vs plain {gerr}  "
+                      f"[{tag}]")
 
     # kNN beyond one launch's 128 slots: passes
     room = torch.from_numpy(room_cloud(rng, 40000)).to(dev)
@@ -1542,6 +1631,26 @@ def rung_kernel_phases(ops, dev, rng, tag: str) -> dict:
         print(f"knn {q.shape[1]} x {sup.shape[1]} k={KNN_WIDE}: "
               f"indices and d2 identical to the twin (2 passes of 128)  [{tag}]")
     return finish_kernels(results, "room-like and uniform", tag)
+
+
+def gate_phase(ops, dev, tag: str) -> None:
+    """The gate table of the two large-shape interpolation kernels
+    (``tools/profile_big_kernels.py --gates`` reads the gates from the same
+    table with device times): every decoder stage of the S3DIS and ScanNet
+    steps, PointNet++'s eval forward, two clouds of 22000 points and room
+    subclouds of 106496 to 311296 points, each kernel beside the one that
+    shares its calls (wrapper times, 3 runs in the order other, new, new,
+    other), the forward's outputs identical, the new one's indices the
+    twin's and its output within 1e-5·(1+max) of the plain interpolation,
+    the VJP the same bits twice and within 1e-5·(1+max) of the twin, and the
+    kernels the dispatch took through ``three_interpolation`` (forward and
+    backward) held against ``forward_is_big`` and ``backward_is_big``."""
+    from amcontrast3d_tpu_torch.tools import profile_big_kernels
+
+    rng = np.random.RandomState(SEED + 15)   # leaves the other phases' data
+    clouds = [c for c in profile_big_kernels.GATE_CLOUDS
+              if not c[0].startswith("uniform")]
+    profile_big_kernels.gate_table(dev, rng, tag, 3, clouds, device=False)
 
 
 def approx_kernel_phases(ops, dev, rng, tag: str) -> dict:
@@ -1777,6 +1886,18 @@ def check_launches(path: str, counted: dict, runs: int) -> dict:
         raise AssertionError(f"{path}: launches per run {per_run}, expected "
                              f"{LAUNCHES[path]}")
     return launches
+
+
+def interp_split(ops, b: int, n: int) -> dict:
+    """The interpolation's launches in one decoder forward over ``b`` clouds
+    of ``n`` points (stages n, n // 4, ...; stage s onto s - 1 at coarse
+    width FP_CHANNELS[s - 1]), by the port's gate."""
+    sizes = [n // 4 ** s for s in range(len(FP_CHANNELS) + 1)]
+    big = sum(ops.forward_is_big(b, sizes[s], sizes[s + 1], c)
+              for s, c in enumerate(FP_CHANNELS))
+    split = {"three_interpolation": len(FP_CHANNELS) - big,
+             "three_interpolation_big": big}
+    return {k: v for k, v in split.items() if v}
 
 
 def with_threshold(model, threshold: float):
@@ -2103,9 +2224,9 @@ def scene_launches(ops, clouds: list, kind: str) -> dict:
     forward 4 FPS calls (those ``fps_is_pruned`` names through the
     chunk-pruned kernel, each sorting its cloud with the two layout
     kernels), one sort of the stage clouds (two layout kernels), 8 ball
-    queries (two per stage), 4 interpolations (those
-    ``forward_is_big`` names through the chunk-pruned kernel; the coarse
-    widths are 128, 256, 512, 1024), for MM 4 CrossMask calls, and one
+    queries (two per stage), 4 interpolations (those ``forward_is_big``
+    names through the lane-a-point kernel, fp0 and fp1 at every bucket; the
+    coarse widths are 128, 256, 512, 1024), for MM 4 CrossMask calls, and one
     boundary kNN over the subcloud's points."""
     want = {"fps_b1": 0, "fps_pruned": 0, "ball_query": 0,
             "three_interpolation": 0, "three_interpolation_big": 0,
@@ -2122,10 +2243,8 @@ def scene_launches(ops, clouds: list, kind: str) -> dict:
             want["ball_query"] += 8
             for k, v in SORT_LAUNCHES.items():
                 want[k] += v * (1 + pruned)
-            wide = sum(ops.forward_is_big(sizes[s + 1], 128 * 2 ** s)
-                       for s in range(4))
-            want["three_interpolation_big"] += wide
-            want["three_interpolation"] += 4 - wide
+            for k, v in interp_split(ops, 1, nb).items():
+                want[k] += v
             want["knn"] += 1
             if kind == "mm":
                 want["refine_cross"] += 4
@@ -2249,11 +2368,12 @@ def scene_path(ops, kind: str, dev, tag: str, workdir: str, cfg_path: str,
     return launches
 
 
-def val_forward_launches(kind: str) -> dict:
-    """The launches of one validation forward of a whole cloud (B = 1), at
-    any of the validation sizes."""
-    want = {"fps_b1": 4, "ball_query": 8, "three_interpolation": 4,
-            **SORT_LAUNCHES}
+def val_forward_launches(ops, kind: str, n: int) -> dict:
+    """The launches of one validation forward of a whole cloud (B = 1) of
+    ``n`` points (its padded size): the interpolation's split by the
+    gates."""
+    want = {"fps_b1": 4, "ball_query": 8, **SORT_LAUNCHES,
+            **interp_split(ops, 1, n)}
     if kind == "mm":
         want["refine_cross"] = 4
     return {k: v for k, v in want.items() if v}
@@ -2295,8 +2415,8 @@ def run_train_cli(ops, argv: list, kind: str):
     return results, made[0], train, val_counts, val_sizes, total
 
 
-def check_train_cli(path, results, train, val_counts, val_sizes, per_step,
-                    epochs, steps, batch_points, lrs, kind):
+def check_train_cli(ops, path, results, train, val_counts, val_sizes,
+                    per_step, epochs, steps, batch_points, lrs, kind):
     """The checks every train CLI run shares; returns the timing records."""
     timing = results["timing"]
     if [t["epoch"] for t in timing] != list(epochs) or \
@@ -2316,8 +2436,10 @@ def check_train_cli(path, results, train, val_counts, val_sizes, per_step,
     if got != per_step:
         raise AssertionError(f"{path}: launches per train step {got}, "
                              f"expected {per_step}")
-    want_val = {k: v * len(val_sizes)
-                for k, v in val_forward_launches(kind).items()}
+    want_val = {}
+    for n in val_sizes:
+        for k, v in val_forward_launches(ops, kind, n).items():
+            want_val[k] = want_val.get(k, 0) + v
     if {k: v for k, v in val_counts.items() if v} != want_val:
         raise AssertionError(f"{path}: validation launches {val_counts}, "
                              f"expected {want_val}")
@@ -2400,7 +2522,7 @@ def scannet_cli_path(ops, dev, tag: str, workdir: str) -> dict:
             cfg.ignore_index, cfg.model.encoder_args.in_channels) != \
             (SCANNET_B, SCANNET_N, SCANNET_CLASSES, -100, 7):
         raise AssertionError(f"{path}: not the ScanNet recipe")
-    timing = check_train_cli(path, results, train, val, sizes, SCANNET_LAUNCHES,
+    timing = check_train_cli(ops, path, results, train, val, sizes, SCANNET_LAUNCHES,
                              (1, 2), steps, SCANNET_B * SCANNET_N,
                              (1e-3, 1e-4), kind)
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -2454,7 +2576,7 @@ def scannet_cli_path(ops, dev, tag: str, workdir: str) -> dict:
     results3, runner3, train3, val3, sizes3, total3 = run_train_cli(
         ops, argv + ["epochs=3", "mode=resume",
                      f"pretrained_path={ckpts['latest']}"], kind)
-    check_train_cli(f"{path} resumed", results3, train3, val3, sizes3,
+    check_train_cli(ops, f"{path} resumed", results3, train3, val3, sizes3,
                     SCANNET_LAUNCHES, (3,), steps, SCANNET_B * SCANNET_N,
                     (1e-5,), kind)
     if runner3.cfg.run_dir != cfg.run_dir or \
@@ -2488,14 +2610,14 @@ def s3dis_cli_path(ops, kind: str, dev, tag: str, workdir: str) -> dict:
     if len(names) != 8 or "PointCloudRotation" not in names:
         raise AssertionError(f"{path}: train transforms {names}")
     per_step = dict(LAUNCHES[f"{kind} train"])
-    timing = check_train_cli(path, results, train, val, sizes, per_step,
+    timing = check_train_cli(ops, path, results, train, val, sizes, per_step,
                              (1, 2), steps, B * N,
                              (runner.lr_fn(1), runner.lr_fn(2)), kind)
     peak = torch.cuda.max_memory_allocated() / 2**30
     note = f", refine rate {results['refine_rate']} %" if kind == "mm" else ""
     print(f"{path} main path: main_cli mode=train, 2 epochs of {steps} steps at "
           f"B={B}x{N} with the train transforms {names}, launches per train "
-          f"step {per_step} (the support-owned interpolation VJP: "
+          f"step {per_step} (the per-row-lists interpolation VJP: "
           f"{train['three_interpolation_backward_big']}); losses "
           f"{[t['loss'] for t in timing]}, val mIoU {results['val_miou']:.3f}{note}")
     report_train_cli(path, timing, runner, loader_batch(runner, SEED + 6), peak,
@@ -2535,8 +2657,9 @@ def main() -> None:
     rng = np.random.RandomState(SEED)
     kernels = kernel_phases(ops, dev, rng, tag)
     kernels.update(scene_kernel_phases(ops, dev, rng, tag))
-    kernels.update(scannet_kernel_phases(ops, dev, rng, tag))
+    scannet_kernel_phases(ops, dev, rng, tag)
     kernels.update(rung_kernel_phases(ops, dev, rng, tag))
+    gate_phase(ops, dev, tag)
     kernels.update(approx_kernel_phases(ops, dev, rng, tag))
     kernels.update(layout_kernel_phases(ops, dev, tag))
 

@@ -801,13 +801,17 @@ def _triples(rng, dev, b, n1, n2, c):
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,n1,n2,c", [
     (1, 1, 1, 1), (2, 1031, 257, 12), (3, 5000, 70, 200), (1, 300, 900, 128),
-    (2, 4099, 1000, 300), (1, 2000, 50, 11264)])
+    (2, 4099, 1000, 300), (1, 2000, 50, 11264), (2, 64000, 16000, 128),
+    (1, 4099, 1031, 200), (2, 3001, 997, 7), (1, 5, 3, 4)])
 def test_interp_backward_big_matches_plain_and_itself(cuda_device, b, n1, n2, c):
-    """The support-owned backward at sizes that are a multiple of no tile,
-    with C below and above the block width and at its limit: within
-    1e-5·(1+max) of the twin (same order of summation, other rounding of
-    nothing: the bound is the twin's own atomics on the card), bit-identical
-    over two runs, and a support row no query selects is exactly 0."""
+    """The per-row-lists backward at sizes that are a multiple of no tile,
+    with C below and above a warp's float4 width, odd, and large, rows of
+    hundreds of entries (70 and 50 coarse rows: they spill past a bin):
+    within 1e-5·(1+max) of the twin (the same order of summation; the twin
+    scatters with float atomics on the card), bit-identical over two runs
+    and with the coarse rows taken in another order, within 1e-5·(1+max) of
+    the twin summed in the kernel's order on the CPU, and a support row no
+    query selects is exactly 0."""
     rng = np.random.RandomState(n1 + c)
     g, idx, w = _triples(rng, cuda_device, b, n1, n2, c)
     idx[idx == n2 // 2] = 0                      # row n2 // 2 is never selected
@@ -818,6 +822,18 @@ def test_interp_backward_big_matches_plain_and_itself(cuda_device, b, n1, n2, c)
     want = ops.three_interpolation_backward_plain(g, idx, w, n2)
     _close(got, want, 1e-5)
     assert torch.equal(got, again)
+    # the rows in a shuffled order, as a strided view (a layout's index bits)
+    perm = torch.stack([torch.randperm(n2, generator=torch.Generator()
+                                       .manual_seed(i)) for i in range(b)])
+    rows = torch.zeros(b, n2, 4, dtype=torch.int32)
+    rows[..., 3] = perm.to(torch.int32)
+    rows = rows.to(cuda_device)[..., 3]
+    assert torch.equal(ops.three_interpolation_backward_big(g, idx, w, n2, rows),
+                       got)
+    # on the CPU the twin's index_add_ sums each row in (query, slot) order
+    ordered = ops.three_interpolation_backward_plain(g.cpu(), idx.cpu(),
+                                                     w.cpu(), n2)
+    _close(got.cpu(), ordered, 1e-5)
     if n2 > 1:
         assert not got[:, n2 // 2].any()
     _close(ops.three_interpolation_backward_small(g, idx, w, n2), want, 1e-5)
@@ -825,15 +841,18 @@ def test_interp_backward_big_matches_plain_and_itself(cuda_device, b, n1, n2, c)
 
 @pytest.mark.cuda
 def test_interp_backward_dispatch_follows_the_gate(cuda_device):
-    """(N1, C) = (64000, 128) goes to the support-owned kernel, (24000, 128)
-    to the scatter kernel, through the autograd function as well."""
+    """(N1, C) = (64000, 128) goes to the per-row-lists kernel, (16000,
+    128) and (64000, 512) to the scatter kernel (``backward_is_big``),
+    through the autograd function as well."""
     rng = np.random.RandomState(4)
     big, small = (ops.three_interpolation_backward_big,
                   ops.three_interpolation_backward)
-    for n1, is_big in ((64000, True), (24000, False)):
+    for n1, c, is_big in ((64000, 128, True), (16000, 128, False),
+                          (64000, 512, False)):
+        assert ops.backward_is_big(1, n1, n1 // 4, c) == is_big
         p1 = torch.from_numpy(_cloud(rng, 1, n1, False)).to(cuda_device)
         p2 = p1[:, ::4].contiguous()
-        f = torch.from_numpy(rng.randn(1, p2.shape[1], 128).astype(np.float32)
+        f = torch.from_numpy(rng.randn(1, p2.shape[1], c).astype(np.float32)
                              ).to(cuda_device).requires_grad_()
         counts = (big.launches, small.launches)
         out = ops.three_interpolation(p1, p2, f)
@@ -1466,12 +1485,15 @@ def test_handover_fps_refused_launches_raise(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,n1,n2,c", [(1, 1, 1, 1), (2, 1031, 2, 5),
                                        (2, 4099, 1030, 3), (2, 20001, 5003, 200),
-                                       (1, 60000, 15000, 128)])
+                                       (1, 60000, 15000, 128), (3, 257, 1, 6),
+                                       (2, 30000, 7500, 1023)])
 def test_interp_big_matches_the_dense_kernel_and_plain(cuda_device, b, n1, n2, c):
-    """The chunk-pruned interpolation at B = 2 with ragged sizes, n2 < 3
-    among them: output, indices and weights the same bits as the listed
-    kernel's (``csrc/interpolate.cu``, dense before its redesign); output
-    within 1e-5·(1+max|out|) of the twin."""
+    """The lane-a-point interpolation at B = 2 and 3 with clouds that
+    differ and ragged sizes, n2 < 3 and C % 4 != 0 among them, sorting for
+    itself and over both clouds' layouts: output, indices and weights the
+    same bits as the listed kernel's (``csrc/interpolate.cu``), indices
+    identical to the twin's, weights and output within 1e-5·(1+max) of the
+    twin."""
     rng = np.random.RandomState(n1 + n2)
     p1 = torch.from_numpy(_cloud(rng, b, n1, True)).to(cuda_device)
     p2 = torch.from_numpy(_cloud(rng, b, n2, False)).to(cuda_device)
@@ -1485,29 +1507,90 @@ def test_interp_big_matches_the_dense_kernel_and_plain(cuda_device, b, n1, n2, c
     _equal(idx, d_idx)
     _equal(w, d_w)
     _equal(ops.three_interpolation_big(p1, p2, f2)[0], d_out)
+    fine, coarse = spatial.sort_stages([p1, p2])
+    got = ops.three_interpolation_big(p1, p2, f2, True, None, coarse, fine)
+    for x, y in zip(got, (out, idx, w)):
+        _equal(x, y)
+    want_i, want_w = ops.three_interpolation_weights(p1, p2)
+    _equal(idx, want_i)
+    _close(w, want_w, 1e-5)
     _close(out, ops.three_interpolation_plain(p1, p2, f2), 1e-5)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n1,c", [(221184, 128), (311296, 128), (155648, 256)])
+def test_interp_big_at_the_rungs(cuda_device, n1, c):
+    """The lane-a-point interpolation at the rungs (a room-like cloud with
+    repeated points, coarse points from FPS, N2 = N1 / 4), over both
+    clouds' layouts as a forward makes them: output, indices and weights
+    the same bits as the listed kernel's; indices identical to the twin's,
+    output within 1e-5·(1+max|out|) of it; a visit counter that counts."""
+    rng = np.random.RandomState(n1)
+    p1 = torch.from_numpy(_room(rng, n1)).to(cuda_device)
+    n2 = n1 // 4
+    p2 = ops.gather_points(p1, ops.furthest_point_sample(p1, n2)).contiguous()
+    f2 = torch.from_numpy(rng.randn(1, n2, c).astype(np.float32)).to(cuda_device)
+    fine, coarse = spatial.sort_stages([p1, p2])
+    visits = torch.zeros(1, dtype=torch.int64, device=cuda_device)
+    got = ops.three_interpolation_big(p1, p2, f2, True, visits, coarse, fine)
+    want = ops.three_interpolation_small(p1, p2, f2, True, coarse, fine)
+    for x, y in zip(got, want):
+        _equal(x, y)
+    _equal(got[1], ops.three_interpolation_weights(p1, p2)[0])
+    _close(got[0], ops.three_interpolation_plain(p1, p2, f2), 1e-5)
+    assert 2 * -(-n1 // 32) <= visits.item() < -(-n1 // 32) * -(-n2 // 64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n1,n2", [(1, 40000, 10000), (2, 24000, 6000),
+                                     (1, 3000, 2)])
+def test_interp_big_on_a_tie_grid(cuda_device, b, n1, n2):
+    """Fine and coarse points on a 1/128 m grid (d² exact, ties at the 3rd
+    neighbour everywhere, repeated points): the lane-a-point kernel's
+    indices the twin's (ties to the lowest index), its output, indices and
+    weights the listed kernel's bits, over the layouts and sorting for
+    itself."""
+    rng = np.random.RandomState(n1 + b)
+    p1 = torch.from_numpy((rng.randint(0, 40, (b, n1, 3)) / 128).astype(
+        np.float32)).to(cuda_device)
+    p2 = p1[:, rng.permutation(n1)[:n2]].contiguous()
+    f2 = torch.from_numpy(rng.randn(b, n2, 20).astype(np.float32)).to(cuda_device)
+    fine, coarse = spatial.sort_stages([p1, p2])
+    got = ops.three_interpolation_big(p1, p2, f2, True, None, coarse, fine)
+    want = ops.three_interpolation_small(p1, p2, f2, True, coarse, fine)
+    for x, y in zip(got, want):
+        _equal(x, y)
+    for x, y in zip(ops.three_interpolation_big(p1, p2, f2, True), want):
+        _equal(x, y)
+    _equal(got[1], ops.three_interpolation_weights(p1, p2)[0])
+
+
+@pytest.mark.cuda
 def test_interp_big_dispatch_and_gradient(cuda_device):
-    """(N2, C) = (55296, 128) goes to the chunk-pruned kernel, (49152, 128)
-    to the listed one; the gradient through the pruned forward's saved
-    triples within 1e-5·(1+max|df2|) of the twin's."""
+    """(N1, C) = (221184, 128) goes to the lane-a-point kernel and its VJP
+    to the per-row lists, (16000, 128) and (221184, 512) to the listed
+    kernel and the scatter (``forward_is_big``, ``backward_is_big``); the
+    gradient through either forward's saved triples within
+    1e-5·(1+max|df2|) of the twin's."""
     rng = np.random.RandomState(7)
-    for n2, is_big in ((55296, True), (49152, False)):
-        p1 = torch.from_numpy(_room(rng, 4 * n2)).to(cuda_device)
+    counters = (ops.three_interpolation_big, ops.three_interpolation,
+                ops.three_interpolation_backward_big,
+                ops.three_interpolation_backward)
+    for n1, c, is_big in ((221184, 128, True), (16000, 128, False),
+                          (221184, 512, False)):
+        n2 = n1 // 4
+        assert ops.forward_is_big(1, n1, n2, c) == is_big
+        p1 = torch.from_numpy(_room(rng, n1)).to(cuda_device)
         p2 = p1[:, ::4].contiguous()
-        f = torch.from_numpy(rng.randn(1, n2, 128).astype(np.float32)
+        f = torch.from_numpy(rng.randn(1, n2, c).astype(np.float32)
                              ).to(cuda_device).requires_grad_()
-        g = torch.from_numpy(rng.randn(1, 4 * n2, 128).astype(np.float32)
+        g = torch.from_numpy(rng.randn(1, n1, c).astype(np.float32)
                              ).to(cuda_device)
-        counts = (ops.three_interpolation_big.launches,
-                  ops.three_interpolation.launches)
+        counts = [fn.launches for fn in counters]
         out = ops.three_interpolation(p1, p2, f)
         out.backward(g)
-        assert (ops.three_interpolation_big.launches,
-                ops.three_interpolation.launches) == \
-            (counts[0] + is_big, counts[1] + (not is_big))
+        assert [fn.launches - n for fn, n in zip(counters, counts)] == \
+            [is_big, not is_big, is_big, not is_big]
         fp = f.detach().clone().requires_grad_()
         outp = ops.three_interpolation_plain(p1, p2, fp)
         outp.backward(g)

@@ -417,22 +417,25 @@ def test_interpolation_gradient_matches_pallas_vjp():
 def test_interpolation_kernel_branch_carries_the_gradient(monkeypatch):
     """The branch that CUDA tensors take returns an output with a
     ``grad_fn`` whose backward runs the backward wrapper, handing it the
-    order in which the forward took the fine points (their layout's).
-    Emulated on the CPU: the dispatch is told the tensors are not on the
-    CPU, the forward kernel is replaced by the plain forward and the
-    backward kernel by its twin."""
+    order in which the forward took the fine points (their layout's) and
+    the coarse points in their layout's order.  Emulated on the CPU: the
+    dispatch is told the tensors are not on the CPU, the forward kernel is
+    replaced by the plain forward and the backward kernel by its twin."""
     calls = []
 
     def fake_forward(p1, p2, f2, keep, cloud, query_cloud):
         assert keep
         calls.append("forward")
-        # the listed kernel's order: the fine points along their own curve
+        # the kernels' orders: the fine points along their own curve, the
+        # coarse points along theirs
         order = query_cloud.packed.view(torch.int32)[..., 3]
-        return (*port_interp._forward_plain(p1, p2, f2), order)
+        rows = cloud.packed.view(torch.int32)[..., 3]
+        return (*port_interp._forward_plain(p1, p2, f2), order, rows)
 
-    def fake_backward(grad, idx, w, n2, order):
+    def fake_backward(grad, idx, w, n2, order, rows):
         calls.append("backward")
         assert torch.equal(order.long(), query_cloud.perm)
+        assert torch.equal(rows.long(), cloud.perm)
         return port_interp.three_interpolation_backward_plain(grad, idx, w, n2)
 
     monkeypatch.setattr(port_interp, "_on_cpu", lambda *t: False)

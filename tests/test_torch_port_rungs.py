@@ -1,7 +1,7 @@
 """The whole-scene rungs from the 221184 bucket up, against the JAX package
 on the CPU: the chunk-pruned FPS (TPU kernel 5), the large-support 3-NN
-interpolation (TPU kernels 11-13), their dispatch rules, kNN beyond 128
-neighbours, and the PointNet++ cfg.
+interpolation (TPU kernels 11-13), their dispatch rules (the port's own,
+read on the card), kNN beyond 128 neighbours, and the PointNet++ cfg.
 
 The Pallas originals run in interpret mode with their chunk sizes forced
 small, as the JAX package's own tests force them
@@ -275,20 +275,6 @@ def test_big_interp_twin_against_the_pallas_big_path(monkeypatch, b, n1, tq):
 
 # ---- the dispatch rules -----------------------------------------------------
 
-def test_dispatch_rules_equal_the_jax_expressions():
-    """``forward_is_big`` against the JAX package's own expression
-    (``interpolate_pallas.py:567-568``) over a grid around each crossing.
-    (The FPS gate is the port's own: the next test.)"""
-    for n2 in (1, 255, 256, 257, 512, 513, 38911, 38912, 49151, 49152, 49153,
-               49664, 55296, 77824, 155648, 307200):
-        for c in (1, 124, 125, 128, 252, 253, 256, 512, 1024):
-            want = IP._buf_vmem_bytes(IP._shapes_sup(n2)[0], c) \
-                > IP._SUP_VMEM_BUDGET
-            assert ops.forward_is_big(n2, c) == want, (n2, c)
-    assert ops.forward_is_big(55296, 128) and not ops.forward_is_big(49152, 128)
-    assert ops.forward_is_big(38912, 256)
-
-
 def test_port_fps_gate_prunes_every_room_stage_the_jax_rule_prunes():
     """``fps_is_pruned`` is the port's own gate, read off the card (the JAX
     package's, ``fps_pallas.py:529-533`` at its default, is N ≥ 262144): B
@@ -379,24 +365,32 @@ def test_whole_room_cluster_launch_takes_the_dispatch_cluster_size(
     assert [(name, a[2:6]) for name, a in calls] == [("amc3d_fps", (1, n, 16, s))]
 
 
-@pytest.mark.parametrize("n2,c,want", [(55296, 128, "big"),
-                                       (49152, 128, "small"),
-                                       (38912, 256, "big")])
-def test_interpolation_routes_by_the_rule(monkeypatch, n2, c, want):
+@pytest.mark.parametrize("b,n1,n2,c,want", [
+    # every decoder stage of a 221184 subcloud and of the S3DIS step
+    (1, 221184, 55296, 128, "big"), (1, 55296, 13824, 256, "big"),
+    (1, 13824, 3456, 512, "listed"), (1, 3456, 864, 1024, "listed"),
+    (4, 24000, 6000, 128, "big"), (4, 6000, 1500, 256, "big"),
+    (4, 1500, 375, 512, "listed"),
+    # both sides of the gate's 22000 fine points a call and 256 channels
+    (1, 21999, 6000, 128, "listed"), (2, 11000, 2750, 256, "big"),
+    (3, 8000, 2000, 256, "big"), (1, 64000, 16000, 257, "listed")])
+def test_interpolation_routes_by_the_rule(monkeypatch, b, n1, n2, c, want):
+    """The dispatch launches the kernel ``forward_is_big`` names: the
+    lane-a-point kernel of ``csrc/interpolate_big.cu`` at coarse widths to
+    256 from 22000 fine points a call, else the listed scan of
+    ``csrc/interpolate.cu``."""
     calls = []
     monkeypatch.setattr(port_interp, "_check_forward", lambda *a: None)
-    # the listed kernel's launch (``three_interpolation_small`` without the
-    # dispatch) also returns the order it took the fine points in
-    for name, patched, result in (("big", "three_interpolation_big", (None,) * 3),
-                                  ("small", "_listed", (None,) * 4)):
-        monkeypatch.setattr(
-            port_interp, patched,
-            lambda *a, _n=name, _r=result: calls.append(_n) or _r)
+    monkeypatch.setattr(
+        port_interp, "_launch_forward",
+        lambda big, *a: calls.append("big" if big else "listed")
+        or (None,) * 5)
     port_interp.three_interpolation(
-        torch.empty(1, 4 * n2, 3, device="meta"),
-        torch.empty(1, n2, 3, device="meta"),
-        torch.empty(1, n2, c, device="meta"))
+        torch.empty(b, n1, 3, device="meta"),
+        torch.empty(b, n2, 3, device="meta"),
+        torch.empty(b, n2, c, device="meta"))
     assert calls == [want]
+    assert ops.forward_is_big(b, n1, n2, c) == (want == "big")
 
 
 @pytest.mark.parametrize("k,want", [(24, [(24, 24, 0)]),
@@ -492,8 +486,14 @@ def test_off_the_cpu_the_new_wrappers_raise_rather_than_fall_back():
                                     torch.empty(1, 1000, 8, device="meta"))
     with pytest.raises(ValueError):
         ops.knn(meta[:, :50], meta[:, :50], 300)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.three_interpolation_backward_big(
+            torch.empty(1, 3000, 8, device="meta"),
+            torch.empty(1, 3000, 3, dtype=torch.int32, device="meta"),
+            torch.empty(1, 3000, 3, device="meta"), 1000)
     assert ops.furthest_point_sample_pruned.launches == 0
     assert ops.three_interpolation_big.launches == 0
+    assert ops.three_interpolation_backward_big.launches == 0
 
 
 @pytest.mark.parametrize("n,k", [(600, 256), (200, 300)])

@@ -588,21 +588,6 @@ def test_interp_backward_twin_matches_the_chunked_pallas_kernel(monkeypatch):
     assert len(never) and not f.grad.numpy()[0, never].any()
 
 
-@pytest.mark.parametrize("n1,c,big", [
-    (64000, 128, True), (24000, 128, False), (16000, 256, False),
-    (6000, 512, False), (24000, 256, True), (65536, 123, False),
-    (65536, 124, True), (65537, 123, True), (32769, 123, False), (3, 7, False)])
-def test_interp_backward_dispatch_rule(n1, c, big):
-    """The JAX package's gate, ``_interp_bwd``: the padded query buffer
-    beyond 32 MiB goes to the chunked kernel.  ScanNet's fp0 does, every
-    S3DIS stage and ScanNet's other three do not."""
-    import amcontrast3d_tpu.ops.interpolate_pallas as IP
-    assert ops.interpolate.backward_is_big(n1, c) == big
-    tq = min(IP.TQ, -(-n1 // 8) * 8)
-    lanes = -(-(c + 5) // 128) * 128
-    assert big == ((-(-n1 // tq) * tq) * lanes * 4 > IP._QBUF_VMEM_BUDGET)
-
-
 def test_interp_backward_refuses_what_is_neither_cpu_nor_cuda():
     g = torch.empty(1, 8, 4, device="meta")
     idx = torch.empty(1, 8, 3, dtype=torch.int32, device="meta")

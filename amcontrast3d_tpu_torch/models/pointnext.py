@@ -29,7 +29,7 @@ import torch
 from torch import nn
 
 from ..ops import spatial
-from ..ops.aggregate import agg_fused_enabled, agg_fused_fits, grouped_slot_reduce
+from ..ops.aggregate import agg_fused_enabled, grouped_slot_reduce
 from ..ops.fps import furthest_point_sample
 from ..ops.group import (CHANNEL_MAP, create_grouper, gather_points,
                          get_aggregation_features, group_points)
@@ -127,12 +127,14 @@ class GroupStatsBN(ChannelsLastBatchNorm):
     ``max(E[h²] − E[h]², 0)`` of the grouped tensor and moves the running
     statistics as flax does (momentum 0.9, biased variance)."""
 
-    def pool(self, u, qp, idx, act=None):
+    def pool(self, u, qp, idx, act=None, query_cloud=None):
         """u (B, N, C) per-support values, qp (B, M, C) per-query offsets,
-        idx (B, M, K) int32 → (B, M, C)."""
+        idx (B, M, K) int32 → (B, M, C); ``query_cloud``: the layout of the
+        M queries, whose order the kernels take them in."""
         sgn = torch.where(self.weight.detach() >= 0, 1.0, -1.0)
         if self.training:
-            ext, su, sq = grouped_slot_reduce(u, idx, sgn, qp=qp)
+            ext, su, sq = grouped_slot_reduce(u, idx, sgn, qp=qp,
+                                              query_cloud=query_cloud)
             n = idx.numel()
             mean = su.sum((0, 1)) / n
             var = torch.clamp_min(sq.sum((0, 1)) / n - mean * mean, 0.0)
@@ -142,7 +144,8 @@ class GroupStatsBN(ChannelsLastBatchNorm):
                 self.running_var.mul_(1 - m).add_(var, alpha=m)
                 self.num_batches_tracked.add_(1)
         else:
-            ext = grouped_slot_reduce(u, idx, sgn, need_stats=False)[0]
+            ext = grouped_slot_reduce(u, idx, sgn, need_stats=False,
+                                      query_cloud=query_cloud)[0]
             mean, var = self.running_mean, self.running_var
         y = (ext - qp - mean) * (torch.rsqrt(var + self.eps) * self.weight) \
             + self.bias
@@ -153,11 +156,44 @@ def group_stats_bn(channels: int) -> GroupStatsBN:
     return GroupStatsBN(channels, eps=1e-5, momentum=0.1)
 
 
-def _fused(act_name, n: int, c: int, k: int) -> bool:
-    """The JAX package's conditions for the fused tail (the reduction is a
-    max, checked by the caller)."""
-    return (agg_fused_enabled() and act_name in _MONOTONE_ACTS
-            and agg_fused_fits(n, c, k))
+def _fused(act_name) -> bool:
+    """Whether a separable aggregation takes the fused tail (the reduction
+    is a max, checked by the caller): the switch is on and the activation
+    monotone.  The port's rule, read on the card (PERF.md §6,
+    ``tools/profile_aggregation.py --gates``), holds at every shape: the
+    fused tail's kernels took less device time than the gather tail's at
+    every separable aggregation of the S3DIS and ScanNet steps (train:
+    forward and backward; S3DIS eval) and of room subclouds from 106496 to
+    311296 points (eval), ScanNet's 64000-point stage 0 and the subclouds'
+    first stages, which the JAX package's VMEM rule ``agg_fused_fits``
+    keeps on the gather tail, included."""
+    return agg_fused_enabled() and act_name in _MONOTONE_ACTS
+
+
+def _separable_tail(module, fused: bool, idx, f, p, q, act, pool,
+                    dp_pre=None, query_cloud=None):
+    """The tail of a separable aggregation (``module``: a
+    :class:`LocalAggregation` or :class:`SetAbstraction`, its ``w_f``,
+    ``w_dp`` and ``BatchNorm_0``) over the grouping ``idx`` of the queries
+    ``q`` in the support ``p`` (``q is p`` for a block): with ``fused``
+    GroupStatsBN's fused tail, with no grouped tensor,
+    ``u_j − qp_i = W_f·f_j + W_dp·(p_j − q_i)/r`` (``query_cloud``: the
+    layout of ``q``); else the gather tail (``pool`` over K, ``dp_pre``:
+    the stage's shared relative positions)."""
+    dp_scale = _dp_scale(module.grouper)
+    if not fused:
+        return _grouped_tail(idx, module.w_f(f), p, q, module.w_dp,
+                             module.BatchNorm_0, act, dp_scale, pool,
+                             chunkable=not module.training, dp_pre=dp_pre)
+
+    def proj(x):
+        d = module.w_dp(x)
+        return d if dp_scale is None else d * (1.0 / dp_scale)
+
+    sproj = proj(p)
+    qproj = sproj if q is p else proj(q)
+    return module.BatchNorm_0.pool(module.w_f(f) + sproj, qproj, idx, act,
+                                   query_cloud)
 
 
 def _group_idx(grouper, support, query, cloud=None, query_cloud=None):
@@ -214,18 +250,12 @@ class LocalAggregation(nn.Module):
             cached_idx, cached_dp = cached_idx
         idx = cached_idx if cached_idx is not None else \
             _group_idx(self.grouper, p, p, cloud)
-        dp_scale = _dp_scale(self.grouper)
-        if self.max_pool and _fused(self.act_name, p.shape[1],
-                                    self.w_f.out_features, idx.shape[-1]):
-            # no grouped tensor: u_j − qp_i = W_f·f_j + W_dp·(p_j − p_i)/r
-            proj = self.w_dp(p)
-            if dp_scale is not None:
-                proj = proj * (1.0 / dp_scale)
-            return self.BatchNorm_0.pool(self.w_f(f) + proj, proj, idx,
-                                         self.act)
-        return _grouped_tail(
-            idx, self.w_f(f), p, p, self.w_dp, self.BatchNorm_0, self.act,
-            dp_scale, self.pool, chunkable=not self.training, dp_pre=cached_dp)
+        return _separable_tail(self, self.takes_fused(), idx, f, p, p,
+                               self.act, self.pool, cached_dp, cloud)
+
+    def takes_fused(self) -> bool:
+        """Whether this aggregation takes the fused tail."""
+        return self.max_pool and _fused(self.act_name)
 
 
 class SetAbstraction(nn.Module):
@@ -315,20 +345,11 @@ class SetAbstraction(nn.Module):
                         if self.identity_name else fi)
         if self.use_separable:
             gidx = _group_idx(self.grouper, p, new_p, cloud, query_cloud)
-            act = None if self.use_res else self.act
-            dp_scale = _dp_scale(self.grouper)
-            if _fused(None if self.use_res else self.act_name, p.shape[1],
-                      self.w_f.out_features, gidx.shape[-1]):
-                proj, qproj = self.w_dp(p), self.w_dp(new_p)
-                if dp_scale is not None:
-                    proj = proj * (1.0 / dp_scale)
-                    qproj = qproj * (1.0 / dp_scale)
-                f = self.BatchNorm_0.pool(self.w_f(f) + proj, qproj, gidx, act)
-            else:
-                f = _grouped_tail(
-                    gidx, self.w_f(f), p, new_p, self.w_dp, self.BatchNorm_0,
-                    act, dp_scale, lambda t: torch.amax(t, dim=-2),
-                    chunkable=not self.training)
+            f = _separable_tail(
+                self, _fused(None if self.use_res else self.act_name), gidx, f,
+                p, new_p,
+                None if self.use_res else self.act,
+                lambda t: torch.amax(t, dim=-2), query_cloud=query_cloud)
         else:
             dp, fj = self.grouper(new_p, p, f)
             fj = get_aggregation_features(new_p, dp, fi, fj, self.feature_type)
@@ -508,8 +529,10 @@ class PointNextEncoder(nn.Module):
                     idx = ball_query(p, p, r, k, query_cloud)
                 else:
                     idx = knn(p, p, k, query_cloud)[0]
-                # the fused tail never forms dp: the blocks share idx alone
-                shared = idx if agg_fused_enabled() else \
+                # the fused tail never forms dp: blocks that take it share
+                # idx alone
+                block = getattr(self, f"enc{i}_block1").LocalAggregation_0
+                shared = idx if block.takes_fused() else \
                     (idx, group_points(p, idx) - p[:, :, None, :])
             for j in range(1, self.blocks[i]):
                 p, f = getattr(self, f"enc{i}_block{j}")(

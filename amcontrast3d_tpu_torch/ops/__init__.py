@@ -1,4 +1,4 @@
-from .aggregate import (agg_fused_enabled, agg_fused_fits, aggregate_backward,
+from .aggregate import (agg_fused_enabled, aggregate_backward,
                         aggregate_backward_plain, aggregate_forward,
                         aggregate_forward_plain, grouped_slot_reduce,
                         grouped_slot_reduce_plain, set_agg_fused)
@@ -30,7 +30,7 @@ from .refine import (dual_masks_cross, dual_masks_cross_plain, refine_cross,
                      refine_cross_plain)
 
 __all__ = [
-    "agg_fused_enabled", "agg_fused_fits", "aggregate_backward",
+    "agg_fused_enabled", "aggregate_backward",
     "aggregate_backward_plain", "aggregate_forward", "aggregate_forward_plain",
     "grouped_slot_reduce", "grouped_slot_reduce_plain", "set_agg_fused",
     "ambiguity_from_stats", "ambiguity_function",

@@ -126,14 +126,17 @@ _SIGNATURES = {
     # number of classes, stream
     "amc3d_label_vote": (_P, _P, _P, _P, _I, _P, _I, _P, _P, _P, _I, _I, _I,
                          _I, _I, _P),
-    # u (B,N,C), idx (B,M,K) i32, sgn (C), qp (B,M,C) or null, ext, su, sq
-    # (B,M,C) (su, sq null without stats), B, N, M, K, C, need_stats, stream
-    "amc3d_aggregate_forward": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                _I, _I, _P),
-    # u, idx, sgn, qp or null, ext, g_ext, g_sum, g_sq (null without
-    # stats), du (B,N,C) zeroed, B, N, M, K, C, has_stats, stream
-    "amc3d_aggregate_backward": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                 _I, _I, _I, _I, _P),
+    # u (B,N,C), idx (B,M,K) i32, sgn (C), qp (B,M,C) or null, the queries'
+    # order (B,M) i32 or null and its stride within a row, ext, su, sq
+    # (B,M,C) (su, sq null without stats), ties (B,M,C) u8 or null, B, N, M,
+    # K, C, need_stats, stream
+    "amc3d_aggregate_forward": (_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I,
+                                _I, _I, _I, _I, _I, _P),
+    # u, idx, qp or null, ext, ties, g_ext, g_sum, g_sq (null without
+    # stats), order or null and its stride, du (B,N,C), B, N, M, K, C,
+    # has_stats, stream
+    "amc3d_aggregate_backward": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P,
+                                 _I, _I, _I, _I, _I, _I, _P),
 }
 
 

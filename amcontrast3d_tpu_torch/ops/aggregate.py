@@ -12,18 +12,24 @@ channel,
 
 :func:`grouped_slot_reduce` returns them, differentiable in ``u`` and
 ``qp``.  Its backward gives ``du[idx[i, k]] += γ_k`` with
-``γ_k = g_sum + 2·(u_k − qp)·g_sq + eq_k / Σ_k eq_k · g_ext`` (``eq_k``:
-slot k attains the extremum; the even tie split of ``jnp.max`` and
-``torch.amax``) and ``dqp = −(K·g_sum + 2·g_sq·su)``.  The kernels are
-``csrc/aggregate.cu`` (TPU kernels ``_fwd_kernel`` and ``_bwd_kernel``);
-the plain twins gather the (B, M, K, C) tensor.  The JAX entry's support
-and query positions and ``radius`` only feed its chunk pruning, and
-``splits`` its bf16 matmul gather: the port takes neither.
+``γ_k = g_sum + 2·(u_k − qp)·g_sq + eq_k / ties · g_ext`` (``eq_k``: slot
+k attains the extremum; ``ties = max(Σ_k eq_k, 1)``, the even tie split of
+``jnp.max`` and ``torch.amax``, counted by the forward) and
+``dqp = −(K·g_sum + 2·g_sq·su)``.  The kernels are ``csrc/aggregate.cu``
+(TPU kernels ``_fwd_kernel`` and ``_bwd_kernel``): both take the queries
+in runs along the query cloud's Morton curve, the order of its layout
+(``query_cloud``), which changes no value; the plain twins gather the
+(B, M, K, C) tensor.  The JAX entry's support and query positions and
+``radius`` only feed its chunk pruning, and ``splits`` its bf16 matmul
+gather: the port takes neither.
 
 The switch (``set_agg_fused``, default from ``AMC3D_AGG_FUSED``) is
 process-wide, as in the JAX package; ``auto`` means ``off`` here (JAX: on
-a TPU only).  ``agg_fused_fits`` is the JAX package's dispatch rule (its
-VMEM residency bound), kept as the rule here.
+a TPU only).  Where it is on, every separable aggregation with a monotone
+activation takes the fused tail (``models/pointnext.py::_fused``): the
+port's rule, read from the card's table of the fused tail against the
+gather tail (``tools/profile_aggregation.py --gates``, PERF.md §6), in
+place of the JAX package's VMEM rule ``agg_fused_fits``.
 """
 from __future__ import annotations
 
@@ -31,12 +37,14 @@ import os
 
 import torch
 
+from . import spatial
 from ._build import launch
 
 _MODES = ("auto", "on", "off")
 _AGG_FUSED = "off"
-# the JAX kernels' query tile and support chunk, for agg_fused_fits
-_TQ, _CS = 256, 512
+# csrc/aggregate.cu::kMaxSlots: the forward counts a channel's tied slots
+# in a byte
+MAX_SLOTS = 255
 
 
 def set_agg_fused(mode: str) -> None:
@@ -56,29 +64,18 @@ def agg_fused_enabled() -> bool:
 set_agg_fused(os.environ.get("AMC3D_AGG_FUSED", "off"))
 
 
-def agg_fused_fits(n: int, c: int, k: int) -> bool:
-    """The JAX package's gate (``aggregate_pallas.py:99``): the TPU kernel's
-    support buffer, gradient block and slot scratch within 64 MiB of VMEM,
-    for n support points, c channels and k slots."""
-    cp = -(-c // 128) * 128
-    cs = min(_CS, -(-n // 8) * 8)
-    n_pad = -(-n // cs) * cs
-    return n_pad * (2 * cp + 128) * 4 + k * _TQ * cp * 4 <= 64 * 1024 * 1024
-
-
 def _shapes(u, idx):
     B, N, C = u.shape
     return B, N, C, idx.shape[1], idx.shape[2]
 
 
-def _check_cuda(name: str, u, idx, sgn, rows: dict) -> None:
+def _check_cuda(name: str, u, idx, rows: dict, order) -> None:
     """Shapes, dtypes, device and contiguity the kernels take; ``rows`` maps
-    the names of the (B, M, C) float32 operands to their tensors (or None)."""
+    the names of the (B, M, C) operands to (tensor or None, dtype)."""
     B, N, C, M, K = _shapes(u, idx)
     want = {"u": (u, (B, N, C), torch.float32),
-            "idx": (idx, (B, M, K), torch.int32),
-            "sgn": (sgn, (C,), torch.float32)}
-    want.update({k: (v, (B, M, C), torch.float32) for k, v in rows.items()
+            "idx": (idx, (B, M, K), torch.int32)}
+    want.update({k: (v, (B, M, C), dtype) for k, (v, dtype) in rows.items()
                  if v is not None})
     for key, (t, shape, dtype) in want.items():
         if tuple(t.shape) != shape or t.dtype != dtype:
@@ -90,10 +87,26 @@ def _check_cuda(name: str, u, idx, sgn, rows: dict) -> None:
                              f"contiguous={t.is_contiguous()}")
     if K < 1:
         raise ValueError(f"{name}: idx needs at least one slot")
+    spatial.check_order(order, B, M, u.device, f"{name}: order")
+
+
+def _check_slots(name: str, k: int) -> None:
+    if k > MAX_SLOTS:
+        raise ValueError(f"{name}: the tie count is a byte, so at most "
+                         f"{MAX_SLOTS} slots, got {k}")
 
 
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _order_args(order):
+    """The C interface's (pointer, stride within a row) of ``order``."""
+    return (None, 1) if order is None else (order.data_ptr(), order.stride(1))
 
 
 def _slots(u, idx) -> torch.Tensor:
@@ -103,56 +116,77 @@ def _slots(u, idx) -> torch.Tensor:
     return torch.gather(u, 1, rows).view(B, M, K, C)
 
 
-def aggregate_forward_plain(u, idx, sgn, qp=None, need_stats: bool = True):
-    """Plain PyTorch :func:`aggregate_forward`.  The moments add the slots
-    one by one in order, as the kernel does, so that both round alike: a
-    train step through either then runs the same forward, and max-pool
-    near-ties downstream do not flip between them."""
+def aggregate_forward_plain(u, idx, sgn, qp=None, need_stats: bool = True,
+                            order=None, keep_ties: bool = False):
+    """Plain PyTorch :func:`aggregate_forward` (``order`` changes nothing
+    here).  The moments add the slots one by one in order, as the kernel
+    does, so that both round alike: a train step through either then runs
+    the same forward, and max-pool near-ties downstream do not flip between
+    them."""
     g = _slots(u, idx)
     ext = torch.amax(g * sgn, dim=2) * sgn
+    ties = None
+    if keep_ties:
+        _check_slots("aggregate_forward", idx.shape[2])
+        ties = (g * sgn == (ext * sgn)[:, :, None]).sum(2).to(torch.uint8)
     if not need_stats:
-        return ext, None, None
+        return ext, None, None, ties
     su = sq = torch.zeros_like(ext)
     for k in range(g.shape[2]):
         h = g[:, :, k] if qp is None else g[:, :, k] - qp
         su = su + h
         sq = sq + h * h
-    return ext, su, sq
+    return ext, su, sq, ties
 
 
-def aggregate_forward(u, idx, sgn, qp=None, need_stats: bool = True):
+def aggregate_forward(u, idx, sgn, qp=None, need_stats: bool = True,
+                      order=None, keep_ties: bool = False):
     """u (B, N, C) f32, idx (B, M, K) int32 in [0, N), sgn (C,) ±1, qp
-    (B, M, C) or None (zeros) → (ext, su, sq), each (B, M, C) f32; su and
-    sq are None unless ``need_stats``.  No gradient:
+    (B, M, C) or None (zeros) → (ext, su, sq, ties), each (B, M, C): ext,
+    su and sq f32 (su and sq None unless ``need_stats``), ties uint8, the
+    slots that reach the extremum, for :func:`aggregate_backward` (None
+    unless ``keep_ties``; then K ≤ MAX_SLOTS).  ``order`` (B, M) int32:
+    each cloud's queries in the order the kernel's runs take them (a
+    layout's :func:`spatial.index_bits`; a stride within a row allowed), or
+    None (index order); it changes no value.  No gradient:
     :func:`grouped_slot_reduce` is the differentiable entry.  A CUDA
     tensor goes through the forward kernel of ``csrc/aggregate.cu``, a CPU
     tensor through :func:`aggregate_forward_plain`."""
     if all(t.device.type == "cpu" for t in (u, idx, sgn)):
-        return aggregate_forward_plain(u, idx, sgn, qp, need_stats)
+        return aggregate_forward_plain(u, idx, sgn, qp, need_stats, order,
+                                       keep_ties)
     B, N, C, M, K = _shapes(u, idx)
     if need_stats and qp is None:
         qp = u.new_zeros(B, M, C)
-    _check_cuda("aggregate_forward", u, idx, sgn,
-                {"qp": qp if need_stats else None})
+    if keep_ties:
+        _check_slots("aggregate_forward", K)
+    _check_cuda("aggregate_forward", u, idx,
+                {"qp": (qp if need_stats else None, torch.float32)}, order)
+    if sgn.shape != (C,) or sgn.dtype != torch.float32 \
+            or sgn.device != u.device or not sgn.is_contiguous():
+        raise ValueError(f"aggregate_forward: sgn must be a contiguous ({C},) "
+                         f"float32 tensor on {u.device}")
     ext = torch.empty(B, M, C, dtype=torch.float32, device=u.device)
     su = torch.empty_like(ext) if need_stats else None
     sq = torch.empty_like(ext) if need_stats else None
-    ptr = lambda t: None if t is None else t.data_ptr()
+    ties = (torch.empty(B, M, C, dtype=torch.uint8, device=u.device)
+            if keep_ties else None)
     launch("amc3d_aggregate_forward", u.data_ptr(), idx.data_ptr(),
-           sgn.data_ptr(), ptr(qp if need_stats else None), ext.data_ptr(),
-           ptr(su), ptr(sq), B, N, M, K, C, int(need_stats), _stream(u))
+           sgn.data_ptr(), _ptr(qp if need_stats else None), *_order_args(order),
+           ext.data_ptr(), _ptr(su), _ptr(sq), _ptr(ties), B, N, M, K, C,
+           int(need_stats), _stream(u))
     aggregate_forward.launches += 1
-    return ext, su, sq
+    return ext, su, sq, ties
 
 
-def aggregate_backward_plain(u, idx, sgn, qp, ext, g_ext, g_sum=None,
-                             g_sq=None) -> torch.Tensor:
+def aggregate_backward_plain(u, idx, qp, ext, ties, g_ext, g_sum=None,
+                             g_sq=None, order=None) -> torch.Tensor:
     """Plain PyTorch :func:`aggregate_backward`: γ over the gathered slots,
-    scattered by ``index_add_``."""
+    scattered by ``index_add_`` (``order`` changes nothing here)."""
     B, N, C, M, K = _shapes(u, idx)
     g = _slots(u, idx)
-    eq = (g * sgn == (ext * sgn)[:, :, None]).float()
-    gamma = eq * (g_ext / eq.sum(2).clamp_min(1.0))[:, :, None]
+    eq = (g == ext[:, :, None]).float()
+    gamma = eq * (g_ext / ties.float().clamp_min(1.0))[:, :, None]
     if g_sum is not None:
         h = g if qp is None else g - qp[:, :, None]
         gamma = (g_sum[:, :, None] + 2.0 * h * g_sq[:, :, None]) + gamma
@@ -161,86 +195,104 @@ def aggregate_backward_plain(u, idx, sgn, qp, ext, g_ext, g_sum=None,
         0, rows.reshape(-1), gamma.reshape(-1, C)).view(B, N, C)
 
 
-def aggregate_backward(u, idx, sgn, qp, ext, g_ext, g_sum=None,
-                       g_sq=None) -> torch.Tensor:
+def aggregate_backward(u, idx, qp, ext, ties, g_ext, g_sum=None, g_sq=None,
+                       order=None) -> torch.Tensor:
     """du (B, N, C) of :func:`aggregate_forward` for the incoming gradients
-    of ext, su and sq (``g_sum``, ``g_sq`` None: eval mode, no moments).  A
-    CUDA tensor goes through the backward kernel of ``csrc/aggregate.cu``
-    (float atomics: not bit-deterministic), a CPU tensor through
-    :func:`aggregate_backward_plain`."""
-    if all(t.device.type == "cpu" for t in (u, idx, sgn, ext, g_ext)):
-        return aggregate_backward_plain(u, idx, sgn, qp, ext, g_ext, g_sum,
-                                        g_sq)
+    of ext, su and sq (``g_sum``, ``g_sq`` None: eval mode, no moments),
+    given its ext and ties.  A slot attains the extremum where its value
+    equals ext (``sgn`` = ±1 does not enter).  ``order`` as the forward's.
+    A CUDA tensor goes through the backward kernel of ``csrc/aggregate.cu``
+    (each run's rows summed once, then float atomics across runs: not
+    bit-deterministic), a CPU tensor through :func:`aggregate_backward_plain`."""
+    if all(t.device.type == "cpu" for t in (u, idx, ext, ties, g_ext)):
+        return aggregate_backward_plain(u, idx, qp, ext, ties, g_ext, g_sum,
+                                        g_sq, order)
     B, N, C, M, K = _shapes(u, idx)
     stats = g_sum is not None
-    if stats and qp is None:
-        qp = u.new_zeros(B, M, C)
-    _check_cuda("aggregate_backward", u, idx, sgn,
-                {"ext": ext, "g_ext": g_ext, "qp": qp if stats else None,
-                 "g_sum": g_sum, "g_sq": g_sq})
     if stats != (g_sq is not None):
         raise ValueError("aggregate_backward takes g_sum and g_sq together")
-    du = torch.zeros(B, N, C, dtype=torch.float32, device=u.device)
-    ptr = lambda t: None if t is None else t.data_ptr()
+    if stats and qp is None:
+        qp = u.new_zeros(B, M, C)
+    _check_slots("aggregate_backward", K)
+    f32 = torch.float32
+    _check_cuda("aggregate_backward", u, idx,
+                {"ext": (ext, f32), "ties": (ties, torch.uint8),
+                 "g_ext": (g_ext, f32), "qp": (qp if stats else None, f32),
+                 "g_sum": (g_sum, f32), "g_sq": (g_sq, f32)}, order)
+    du = torch.empty(B, N, C, dtype=torch.float32, device=u.device)
     launch("amc3d_aggregate_backward", u.data_ptr(), idx.data_ptr(),
-           sgn.data_ptr(), ptr(qp if stats else None), ext.data_ptr(),
-           g_ext.data_ptr(), ptr(g_sum), ptr(g_sq), du.data_ptr(), B, N, M, K,
-           C, int(stats), _stream(u))
+           _ptr(qp if stats else None), ext.data_ptr(), ties.data_ptr(),
+           g_ext.data_ptr(), _ptr(g_sum), _ptr(g_sq), *_order_args(order),
+           du.data_ptr(), B, N, M, K, C, int(stats), _stream(u))
     aggregate_backward.launches += 1
     return du
 
 
 class _SlotReduce(torch.autograd.Function):
     """Forward and VJP by the kernels, or by the plain twins (``plain``);
-    returns (ext, su, sq) with the moments, else (ext,)."""
+    returns (ext, su, sq) with the moments, else (ext,).  The forward
+    counts the ties only when ``u`` needs its gradient."""
 
     @staticmethod
-    def forward(ctx, u, qp, idx, sgn, need_stats, plain):
+    def forward(ctx, u, qp, idx, sgn, need_stats, plain, order):
         fwd = aggregate_forward_plain if plain else aggregate_forward
-        ext, su, sq = fwd(u, idx, sgn, qp, need_stats)
-        ctx.save_for_backward(u, qp, idx, sgn, ext, su)
+        ext, su, sq, ties = fwd(u, idx, sgn, qp, need_stats, order,
+                                keep_ties=ctx.needs_input_grad[0])
+        ctx.save_for_backward(u, qp, idx, ext, su, ties, order)
         ctx.need_stats, ctx.plain = need_stats, plain
         return (ext, su, sq) if need_stats else (ext,)
 
     @staticmethod
     def backward(ctx, g_ext, g_sum=None, g_sq=None):
-        u, qp, idx, sgn, ext, su = ctx.saved_tensors
-        bwd = aggregate_backward_plain if ctx.plain else aggregate_backward
+        u, qp, idx, ext, su, ties, order = ctx.saved_tensors
         args = (g_ext.contiguous(),)
         dqp = None
         if ctx.need_stats:
             args += (g_sum.contiguous(), g_sq.contiguous())
             # qp enters every slot of the moments: d su/dqp = −K,
             # d sq/dqp = −2·Σ_k h = −2·su
-            dqp = -(idx.shape[-1] * g_sum + 2.0 * g_sq * su)
-        du = bwd(u, idx, sgn, qp, ext, *args)
-        return du, dqp, None, None, None, None
+            dqp = torch.addcmul(g_sum * -idx.shape[-1], g_sq, su, value=-2.0)
+        du = None
+        if ctx.needs_input_grad[0]:
+            bwd = aggregate_backward_plain if ctx.plain else aggregate_backward
+            du = bwd(u, idx, qp, ext, ties, *args, order=order)
+        return du, dqp, None, None, None, None, None
 
 
-def _slot_reduce(u, idx, sgn, qp, need_stats: bool, plain: bool):
+def _slot_reduce(u, idx, sgn, qp, need_stats: bool, plain: bool, query_cloud):
+    B, M = idx.shape[:2]
+    order = None
+    if query_cloud is not None:
+        order = spatial.index_bits(query_cloud)
+        spatial.check_order(order, B, M, u.device, "query_cloud's order")
     if need_stats and qp is None:
         qp = u.new_zeros(u.shape[0], idx.shape[1], u.shape[2])
     out = _SlotReduce.apply(u.contiguous(),
                             qp.contiguous() if need_stats else None,
                             idx.contiguous(), sgn.contiguous(),
-                            bool(need_stats), plain)
+                            bool(need_stats), plain, order)
     return tuple(out) if need_stats else (out[0], None, None)
 
 
-def grouped_slot_reduce(u, idx, sgn, qp=None, need_stats: bool = True):
+def grouped_slot_reduce(u, idx, sgn, qp=None, need_stats: bool = True,
+                        query_cloud=None):
     """u (B, N, C) f32 per-support values, idx (B, M, K) int32 slot indices
     (ball query or kNN output, repeats allowed), sgn (C,) ±1, qp (B, M, C)
     per-query offsets (None: zeros) → (ext, su, sq), each (B, M, C); su and
     sq are None unless ``need_stats`` (eval-mode BatchNorm).
+    ``query_cloud``: the layout of the M queries (a
+    :class:`spatial.SortedCloud` of (B, M) points), whose order the kernels'
+    runs take; without it, index order.  It changes no value.
     Differentiable in ``u`` and ``qp``.  CUDA tensors run the two kernels,
     CPU tensors the plain twins."""
     plain = all(t.device.type == "cpu" for t in (u, idx, sgn))
-    return _slot_reduce(u, idx, sgn, qp, need_stats, plain)
+    return _slot_reduce(u, idx, sgn, qp, need_stats, plain, query_cloud)
 
 
-def grouped_slot_reduce_plain(u, idx, sgn, qp=None, need_stats: bool = True):
+def grouped_slot_reduce_plain(u, idx, sgn, qp=None, need_stats: bool = True,
+                              query_cloud=None):
     """:func:`grouped_slot_reduce` by the plain twins on any device."""
-    return _slot_reduce(u, idx, sgn, qp, need_stats, True)
+    return _slot_reduce(u, idx, sgn, qp, need_stats, True, query_cloud)
 
 
 aggregate_forward.launches = 0

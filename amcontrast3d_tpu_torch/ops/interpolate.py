@@ -41,6 +41,7 @@ from . import spatial
 from ._build import launch
 from .group import group_points
 from .knn import knn, knn_plain
+from .spatial import check_order as _check_order, index_bits as _index_bits
 
 
 def three_nn(unknown: torch.Tensor, known: torch.Tensor, plain: bool = False
@@ -160,12 +161,6 @@ def _fine_order(p1, cloud, query_cloud):
     if query_cloud is not None:
         return _index_bits(query_cloud), None
     return spatial.query_order(p1, cloud)
-
-
-def _index_bits(cloud: spatial.SortedCloud) -> torch.Tensor:
-    """The (B, n) int32 indices of a layout's points in its sorted order (a
-    view, 4 elements apart)."""
-    return cloud.packed.view(torch.int32)[..., 3]
 
 
 def _launch_forward(big: bool, p1, p2, f2, keep, cloud, query_cloud,
@@ -296,19 +291,6 @@ def backward_is_big(b: int, n1: int, n2: int, c: int) -> bool:
     does not enter."""
     return (BIG_BACKWARD_MIN_CHANNELS <= c <= BIG_BACKWARD_CHANNELS
             and b * n1 >= BIG_BACKWARD_POINTS)
-
-
-def _check_order(order, b: int, n: int, device, name: str) -> None:
-    """Raises unless ``order`` is a (b, n) int32 tensor on ``device`` whose
-    rows lie n elements apart (a stride within a row allowed)."""
-    if order is not None and (
-            order.shape != (b, n) or order.dtype != torch.int32
-            or order.device != device or order.stride(1) < 1
-            or (b > 1 and order.stride(0) != n * order.stride(1))):
-        raise ValueError(f"{name} must be a ({b}, {n}) int32 tensor on "
-                         f"{device} with rows {n} elements apart, got "
-                         f"{tuple(order.shape)} {order.dtype} on {order.device} "
-                         f"strides {order.stride()}")
 
 
 def _check_backward(grad, idx, weight):

@@ -319,6 +319,26 @@ def query_order(query: torch.Tensor,
     return order.to(torch.int32), (place // CHUNK).to(torch.int32)
 
 
+def index_bits(cloud: SortedCloud) -> torch.Tensor:
+    """The (B, n) int32 indices of a layout's points in its sorted order (a
+    view, 4 elements apart)."""
+    return cloud.packed.view(torch.int32)[..., 3]
+
+
+def check_order(order, b: int, n: int, device, name: str) -> None:
+    """Raises unless ``order`` (None passes) is a (b, n) int32 tensor on
+    ``device`` whose rows lie n elements apart (a stride within a row
+    allowed), as the kernels that take points in a given order read it."""
+    if order is not None and (
+            order.shape != (b, n) or order.dtype != torch.int32
+            or order.device != device or order.stride(1) < 1
+            or (b > 1 and order.stride(0) != n * order.stride(1))):
+        raise ValueError(f"{name} must be a ({b}, {n}) int32 tensor on "
+                         f"{device} with rows {n} elements apart, got "
+                         f"{tuple(order.shape)} {order.dtype} on {order.device} "
+                         f"strides {order.stride()}")
+
+
 def is_self(support: torch.Tensor, query: torch.Tensor) -> bool:
     """Whether ``query`` is ``support`` itself (the same elements), so the
     kernels take the self form of the ordering."""

@@ -215,15 +215,26 @@
    within each query's threshold, once: the vote's design lists them
    twice, which its line prints apart) beside the dense one,
    and again at the ScanNet step's shapes (2 x 64000 and its stages); the
-   aggregation forward and backward at each of PointNeXt-XL's 19 separable
-   aggregations;
+   fused aggregation's forward (train: moments and tie count; and eval) and
+   backward at each of PointNeXt-XL's 19 separable aggregations, the
+   queries in their stage layout's order, on both clouds and on the ScanNet
+   step's rooms (2 x 64000, 0.04 m grid): ext and the tie count identical
+   to the twin, su, sq and du within 1e-5·(1+max), each cloud's time a
+   step printed beside its bound; then cells of the fused aggregation's
+   gate table (``tools/profile_aggregation.py``: the ScanNet step and the
+   311296-point subcloud, the fused tail against the gather tail at every
+   shape, the dispatch's choice);
 15. after each kind's exact paths (4-6), drives them again in the approx
    configuration (``set_knn_backend('approx')``: the selection and the vote
    instead of the kNN) and, for AA, the train step and the eval forward with
    the fused aggregation on (``set_agg_fused('on')``), each with its
    launches per step, against the plain ops as in 5 and 6, timed with its
-   peak memory, then prints every step of the kind side by side; the
-   switches go back to their defaults after each phase;
+   peak memory, and the approx + fused AA train step at the ScanNet
+   recipe's shapes (``cfgs/scannet/AMContrast3D-AA.yaml``, 2 rooms of 64000
+   points; every separable aggregation fused, stage 1's set abstraction
+   over the 64000-point stage 0 included), then prints
+   every step of the kind side by side; the switches go back to their
+   defaults after each phase;
 16. prints one JSON line of per-kernel results and, last, the device line.
 
 Any failure raises, so the exit code is non-zero; without a CUDA device it
@@ -380,6 +391,9 @@ AGG_LAUNCHES = sum(XL_BLOCKS) + len(XL_BLOCKS)
 APPROX_LAUNCHES = {k: v for k, v in TRAIN_LAUNCHES.items() if k != "knn"}
 APPROX_LAUNCHES.update(contrast_select=4, label_vote=3)
 STEP_TIMES = {}   # path: (median ms, peak GiB), for the side-by-side line
+# seconds of the fused aggregation's phases at ScanNet's shapes and of its
+# gate cells, printed with the run's total
+FUSED_PHASE_S = {}
 LAUNCHES = {
     "aa eval": EVAL_LAUNCHES,
     "aa train": TRAIN_LAUNCHES,
@@ -394,6 +408,12 @@ LAUNCHES = {
     "aa train approx fused": {**APPROX_LAUNCHES, "aggregate_forward": AGG_LAUNCHES,
                               "aggregate_backward": AGG_LAUNCHES},
     "aa eval fused": {**EVAL_LAUNCHES, "aggregate_forward": AGG_LAUNCHES},
+    # every separable aggregation, the set abstraction over the 64000-point
+    # stage 0 too (the port's rule; the JAX package's VMEM rule kept it on
+    # the gather tail)
+    "scannet aa train approx fused": {**APPROX_LAUNCHES,
+                                      "aggregate_forward": AGG_LAUNCHES,
+                                      "aggregate_backward": AGG_LAUNCHES},
     "mm train approx": {**APPROX_LAUNCHES, "refine_cross": 4,
                         "refine_cross_backward": 4},
 }
@@ -1666,16 +1686,14 @@ def approx_kernel_phases(ops, dev, rng, tag: str) -> dict:
     layout and the query stage's), labels identical; both again at the
     ScanNet step's shapes (:func:`scannet_selections`);
     the aggregation forward and backward at each of PointNeXt-XL's 19
-    separable aggregations (a set abstraction and its stage's InvResMLP
-    blocks, ball query r from the cfg, K = 32, mixed ``sgn``): ext
-    identical, su and sq within 1e-5·(1+max), du (float atomics) within
-    1e-5·(1+max|du|).  Times and bounds summed per train step; the
-    backward's library yardstick is ``index_add_`` of its (B·M·K, C) rows."""
-    from amcontrast3d_tpu_torch.models.pointnext import to_full_list
+    separable aggregations on both clouds and on the ScanNet step's rooms
+    (:func:`aggregation_scan`).  Times and bounds summed per train step
+    (the JSON row: the uniform cloud); the backward's library yardstick is
+    ``index_add_`` of its (B·M·K, C) rows."""
     from amcontrast3d_tpu_torch.ops import spatial
+    from amcontrast3d_tpu_torch.tools import profile_big_kernels
     from amcontrast3d_tpu_torch.tools.profile_train import voronoi_labels
 
-    radii = to_full_list(0.1, [1, 4, 7, 4, 4], [1, 4, 4, 4, 4], 2)
     results, timed, note = tally(APPROX_KERNELS)
 
     def randn(*shape):
@@ -1713,45 +1731,105 @@ def approx_kernel_phases(ops, dev, rng, tag: str) -> dict:
                             cloud, f"on the selection {cloud} stage {s} "
                             f"C={feats.shape[-1]}", lambda *_: None, None, None,
                             tag, tinv)
-        for s in range(1, 5):                  # the 19 separable aggregations
-            sup, q, c = stages[s - 1], stages[s], XL_WIDTHS[s - 1]
-            m = q.shape[1]
-            groups = [(sup, ops.ball_query(sup, q, radii[s][0], AGG_K))]
-            groups += [(q, ops.ball_query(q, q, radii[s][1], AGG_K))] * XL_BLOCKS[s - 1]
-            gamma = randn(B * m * AGG_K, c)
-            for j, (support, idx) in enumerate(groups):
-                ns = support.shape[1]
-                u, qp = randn(B, ns, c), randn(B, m, c)
-                sgn = torch.where(randn(c) < 0, -1.0, 1.0)
-                g3 = [randn(B, m, c) for _ in range(3)]
-                name = f"aggregation {cloud} stage {s} #{j} ({m}, {ns}, {AGG_K}, {c})"
-                ext, su, sq = ops.aggregate_forward(u, idx, sgn, qp)
-                want = ops.aggregate_forward_plain(u, idx, sgn, qp)
-                err = check_equal(f"{name} ext", ext, want[0])
-                err = max(err, check_close(f"{name} su", su, want[1], 1e-5),
-                          check_close(f"{name} sq", sq, want[2], 1e-5))
-                note("aggregate_forward", err)
-                du = ops.aggregate_backward(u, idx, sgn, qp, ext, *g3)
-                note("aggregate_backward", check_close(
-                    f"{name} du", du,
-                    ops.aggregate_backward_plain(u, idx, sgn, qp, ext, *g3), 1e-5))
-                io = B * (ns * c * 4 + m * AGG_K * 4 + c * 4)
-                slots = B * m * AGG_K * c
-                timed("aggregate_forward", cloud,
-                      lambda: ops.aggregate_forward(u, idx, sgn, qp),
-                      lambda: ops.aggregate_forward_plain(u, idx, sgn, qp),
-                      io + B * m * c * 16, slots * 6)
-                rows = (idx.long() + ns * torch.arange(B, device=dev)[:, None, None]
-                        ).reshape(-1)
-                timed("aggregate_backward", cloud,
-                      lambda: ops.aggregate_backward(u, idx, sgn, qp, ext, *g3),
-                      lambda: ops.aggregate_backward_plain(u, idx, sgn, qp, ext, *g3),
-                      io + B * m * c * 20 + B * ns * c * 4, slots * 12,
-                      lambda: torch.zeros(B * ns, c, device=dev).index_add_(
-                          0, rows, gamma))
-            del gamma
+        aggregation_scan(ops, spatial, stages, layouts, 0.1, cloud,
+                         f"S3DIS step {cloud}", note, timed, tag)
     scannet_selections(ops, spatial, dev, rng, note, tag)
+    t = time.perf_counter()
+    stages = profile_big_kernels.gate_stages(dev, rng, SCANNET_B, SCANNET_N, 0.02)
+    aggregation_scan(ops, spatial, stages, spatial.sort_stages(stages), 0.05,
+                     "scannet", f"ScanNet step {SCANNET_B}x{SCANNET_N} rooms",
+                     note, timed, tag)
+    FUSED_PHASE_S["ScanNet aggregations"] = time.perf_counter() - t
     return finish_kernels(results, "uniform and clustered (and ScanNet's)", tag)
+
+
+def aggregation_scan(ops, spatial, stages, layouts, radius, cloud, where, note,
+                     timed, tag) -> None:
+    """Both fused-aggregation kernels at PointNeXt-XL's 19 separable
+    aggregations over a step's five stage clouds (per stage s = 1 ... 4 the
+    set abstraction, support s - 1 onto the queries of s, and the stage's
+    InvResMLP blocks on the grouping of s onto itself; ball query at the
+    cfg's radii from ``radius``, K = 32, mixed ``sgn``), the queries in their
+    stage layout's order as the encoder hands it on, against the twins: ext
+    and the tie count identical, su and sq within 1e-5·(1+max) (train
+    forward), ext identical again in eval mode, du (float atomics) within
+    1e-5·(1+max|du|).  Prints each kernel's time a step (wrapper, CUDA
+    events, median of 11) beside its bound; on the uniform cloud ``timed``
+    also keeps the twins' and ``index_add_``'s times for the JSON row."""
+    from amcontrast3d_tpu_torch.models.pointnext import to_full_list
+
+    radii = to_full_list(radius, [1, 4, 7, 4, 4], [1, 4, 4, 4, 4], 2)
+    dev, b = stages[0].device, stages[0].shape[0]
+    gen = torch.Generator(dev).manual_seed(SEED + 16)
+
+    def randn(*shape):
+        return torch.randn(*shape, device=dev, generator=gen)
+
+    spent = {"aggregate_forward": [0.0, 0.0, 0.0],    # ms, bytes, ops
+             "aggregate_backward": [0.0, 0.0, 0.0]}
+    for s in range(1, 5):
+        sup, q, c = stages[s - 1], stages[s], XL_WIDTHS[s - 1]
+        m = q.shape[1]
+        order = spatial.index_bits(layouts[s])
+        groups = [(sup, ops.ball_query(sup, q, radii[s][0], AGG_K, layouts[s - 1],
+                                       layouts[s]))]
+        groups += [(q, ops.ball_query(q, q, radii[s][1], AGG_K, layouts[s]))] \
+            * XL_BLOCKS[s - 1]
+        gamma = randn(b * m * AGG_K, c)
+        for j, (support, idx) in enumerate(groups):
+            ns = support.shape[1]
+            u, qp = randn(b, ns, c), randn(b, m, c)
+            sgn = torch.where(randn(c) < 0, -1.0, 1.0)
+            g3 = [randn(b, m, c) for _ in range(3)]
+            name = f"aggregation {where} stage {s} #{j} ({m}, {ns}, {AGG_K}, {c})"
+            ext, su, sq, ties = ops.aggregate_forward(u, idx, sgn, qp, order=order,
+                                                      keep_ties=True)
+            want = ops.aggregate_forward_plain(u, idx, sgn, qp, keep_ties=True)
+            err = check_equal(f"{name} ext", ext, want[0])
+            check_equal(f"{name} ties", ties, want[3])
+            err = max(err, check_close(f"{name} su", su, want[1], 1e-5),
+                      check_close(f"{name} sq", sq, want[2], 1e-5))
+            check_equal(f"{name} eval ext", ops.aggregate_forward(
+                u, idx, sgn, need_stats=False, order=order)[0], want[0])
+            note("aggregate_forward", err)
+            du = ops.aggregate_backward(u, idx, qp, ext, ties, *g3, order=order)
+            note("aggregate_backward", check_close(
+                f"{name} du", du,
+                ops.aggregate_backward_plain(u, idx, qp, ext, ties, *g3), 1e-5))
+            # inputs read once, outputs written once: u, idx and sgn; the
+            # forward's qp, ext, su, sq (4 B) and ties (1 B) a query and
+            # channel; the VJP's qp, ext, g_ext, g_sum, g_sq and ties, du
+            io = b * (ns * c * 4 + m * AGG_K * 4 + c * 4)
+            slots = b * m * AGG_K * c
+            work = {"aggregate_forward": (io + b * m * c * 17, slots * 6),
+                    "aggregate_backward": (io + b * m * c * 21 + b * ns * c * 4,
+                                           slots * 12)}
+            kernel = {"aggregate_forward": lambda: ops.aggregate_forward(
+                          u, idx, sgn, qp, order=order, keep_ties=True),
+                      "aggregate_backward": lambda: ops.aggregate_backward(
+                          u, idx, qp, ext, ties, *g3, order=order)}
+            plain = {"aggregate_forward": lambda: ops.aggregate_forward_plain(
+                         u, idx, sgn, qp, keep_ties=True),
+                     "aggregate_backward": lambda: ops.aggregate_backward_plain(
+                         u, idx, qp, ext, ties, *g3)}
+            rows = (idx.long() + ns * torch.arange(b, device=dev)[:, None, None]
+                    ).reshape(-1)
+            library = {"aggregate_forward": None,
+                       "aggregate_backward": lambda: torch.zeros(
+                           b * ns, c, device=dev).index_add_(0, rows, gamma)}
+            for k, (nbytes, nops) in work.items():
+                ms = timed(k, cloud, kernel[k], plain[k], nbytes, nops, library[k])
+                spent[k][0] += cuda_ms(kernel[k]) if ms is None else ms
+                spent[k][1] += nbytes
+                spent[k][2] += nops
+        del gamma
+    for k, (ms, nbytes, nops) in spent.items():
+        bound = max(nbytes / PEAK_BYTES, nops / PEAK_OPS) * 1e3
+        print(f"{k} {where}: 19 aggregations, the queries in their layouts' "
+              f"order: {ms:.4f} ms a step (wrapper, median of {TIMING_RUNS}), "
+              f"bound {bound:.4f} ms ({'bytes' if nbytes / PEAK_BYTES >= nops / PEAK_OPS else 'operations'}); "
+              f"ext and ties identical to the twin, su, sq and du within "
+              f"1e-5·(1+max)  [{tag}]")
 
 
 def selection_scan(ops, spatial, support, query, k, layout, query_layout,
@@ -2087,9 +2165,11 @@ def make_step(cfg, model, optimizer, dev, seed, kind: str):
         torch.Generator(dev).manual_seed(seed))
 
 
-def train_path(ops, cfg, model, dev, rng, tag, kind: str, path: str = None) -> dict:
-    """The train main path of ``kind`` (``path`` names its launch table);
-    returns the kernels' launches in it."""
+def train_path(ops, cfg, model, dev, rng, tag, kind: str, path: str = None,
+               batches: list = None) -> dict:
+    """The train main path of ``kind`` (``path`` names its launch table) on
+    ``batches`` (the first untimed; by default N_TRAIN + 1 of
+    :func:`train_batch`); returns the kernels' launches in it."""
     from amcontrast3d_tpu_torch.optim import build_optimizer_from_cfg
 
     path = path or f"{kind} train"
@@ -2097,7 +2177,8 @@ def train_path(ops, cfg, model, dev, rng, tag, kind: str, path: str = None) -> d
         "loss", "loss_seg", "loss_ce", "loss_contrast", "loss_reg")
     optimizer = build_optimizer_from_cfg(cfg.optimizer, model, lr=cfg.lr)
     step = make_step(cfg, model, optimizer, dev, SEED, kind)
-    batches = [train_batch(rng, dev) for _ in range(N_TRAIN + 1)]
+    batches = batches or [train_batch(rng, dev) for _ in range(N_TRAIN + 1)]
+    b, n = batches[0]["y"].shape
     start = {n: p.detach().clone() for n, p in model.named_parameters()}
     counted = reset_counts(ops)
     step_ms, losses, rates = [], [], []
@@ -2117,7 +2198,7 @@ def train_path(ops, cfg, model, dev, rng, tag, kind: str, path: str = None) -> d
             rates.append(out["refine_rate"].item())
             if not 0 <= rates[-1] <= 100:
                 raise AssertionError(f"{path} step {i}: refine rate {rates[-1]}")
-        if int(out["cm"].sum()) != B * N:
+        if int(out["cm"].sum()) != b * n:
             raise AssertionError(f"{path} step {i}: confusion matrix counts "
                                  f"{int(out['cm'].sum())}")
     launches = check_launches(path, counted, len(batches))
@@ -2133,17 +2214,80 @@ def train_path(ops, cfg, model, dev, rng, tag, kind: str, path: str = None) -> d
     peak = torch.cuda.max_memory_allocated() / 2**30
     med = statistics.median(step_ms)
     STEP_TIMES[path] = (med, peak)
-    print(f"{path} main path: {len(batches)} steps at B={B}x{N}, losses "
+    print(f"{path} main path: {len(batches)} steps at B={b}x{n}, losses "
           f"{losses}, {len(start) - len(still)} of {len(start)} parameter "
           f"tensors changed (unchanged, each a bias ahead of a BatchNorm: "
           f"{still}), launches per "
           f"step {LAUNCHES[path]}"
           + (f", refine rate % {rates}" if kind == "mm" else ""))
-    print(f"{path} step B={B}x{N}: per-step ms {step_ms}; median {med:.3f} ms "
-          f"= {B * N / med * 1e3:.1f} train points/s; peak "
+    print(f"{path} step B={b}x{n}: per-step ms {step_ms}; median {med:.3f} ms "
+          f"= {b * n / med * 1e3:.1f} train points/s; peak "
           f"{peak:.3f} GiB  [{tag}]")
     train_vs_plain(cfg, model, optimizer, dev, batches[0], tag, kind, path)
     return launches
+
+
+def scannet_fused_path(ops, dev, rng, tag: str) -> dict:
+    """The approx + fused AA train step at the ScanNet recipe's shapes:
+    ``cfgs/scannet/AMContrast3D-AA.yaml`` at full width (seeded random
+    weights, 7 input channels, 20 classes), B = 2 rooms of 64000 points on
+    a 0.04 m grid (``profile_big_kernels.gate_stages``' step clouds) with
+    Voronoi labels, 1 untimed and 2 timed steps through
+    ``make_train_step`` with the selection, the vote and the fused tail on
+    (every separable aggregation, the set abstraction over the 64000-point
+    stage 0 too, which the JAX package's VMEM rule keeps on the gather
+    tail): finite losses, the launches per step, then one step against the
+    plain ops from one state (loss and gradients within 1e-4).
+    Returns the kernels' launches in it."""
+    from amcontrast3d_tpu_torch.models import build_model_from_cfg, init_weights_
+    from amcontrast3d_tpu_torch.tools.profile_big_kernels import room_cloud
+    from amcontrast3d_tpu_torch.tools.profile_train import voronoi_labels
+    from amcontrast3d_tpu_torch.utils.config import EasyConfig
+
+    t = time.perf_counter()
+    cfg = EasyConfig()
+    cfg.load(SCANNET_CFG, recursive=True)
+    model = build_model_from_cfg(cfg.model)
+    init_weights_(model, torch.Generator().manual_seed(SEED))
+    model = model.to(dev)
+    batches = []
+    for _ in range(3):
+        pos = np.concatenate([room_cloud(rng, SCANNET_N, 0.04) * (0.5 - 0.1 * i)
+                              + 0.3 * i for i in range(SCANNET_B)])
+        batch = {"pos": pos, "x": rng.rand(SCANNET_B, SCANNET_N, 7).astype(np.float32),
+                 "y": voronoi_labels(rng, pos)}
+        batches.append({k: torch.from_numpy(v).to(dev) for k, v in batch.items()})
+    with configuration(knn_backend="approx", agg_fused="on"):
+        launches = train_path(ops, cfg, model, dev, rng, tag, "aa",
+                              "scannet aa train approx fused", batches)
+    del model
+    torch.cuda.empty_cache()
+    FUSED_PHASE_S["ScanNet fused step"] = time.perf_counter() - t
+    return launches
+
+
+def agg_gate_phase(dev, tag: str) -> None:
+    """Cells of the fused aggregation's gate table
+    (``tools/profile_aggregation.py --gates`` reads the rule from the whole
+    table): the ScanNet step (train) and the 311296-point subcloud (eval),
+    where the JAX package's VMEM rule keeps stage 0 (and the subcloud's
+    stage 1) on the gather tail; every separable aggregation shape, the
+    fused tail against the gather tail (device time a call, CUDA events,
+    2 runs a read in the order gather, fused, fused, gather: the kernels'
+    device time, which decides, and the wall time), the two outputs within
+    1e-3·(1+max), and the dispatch's choice."""
+    from amcontrast3d_tpu_torch.tools import profile_aggregation
+
+    t = time.perf_counter()
+    rng = np.random.RandomState(SEED + 16)   # leaves the other phases' data
+    cells = [c for c in profile_aggregation.GATE_CLOUDS
+             if c[0] == "ScanNet step" or c[2] == 311296]
+    rows = profile_aggregation.gate_table(dev, rng, tag, 2, cells)
+    lost = [r for r in rows if not r[8] < r[9]]   # device time
+    FUSED_PHASE_S["gate cells"] = time.perf_counter() - t
+    print(f"aggregation gate cells: {len(rows)} shapes in "
+          f"{FUSED_PHASE_S['gate cells']:.1f} s; the fused tail lost at "
+          f"{[r[:3] for r in lost]}  [{tag}]")
 
 
 def train_vs_plain(cfg, model, optimizer, dev, batch, tag, kind: str,
@@ -2661,6 +2805,7 @@ def main() -> None:
     kernels.update(rung_kernel_phases(ops, dev, rng, tag))
     gate_phase(ops, dev, tag)
     kernels.update(approx_kernel_phases(ops, dev, rng, tag))
+    agg_gate_phase(dev, tag)
     kernels.update(layout_kernel_phases(ops, dev, tag))
 
     by_path = {}
@@ -2683,9 +2828,13 @@ def main() -> None:
             with configuration(agg_fused="on"):
                 by_path["aa eval fused"] = eval_path(ops, cfg, model, dev, rng,
                                                      tag, kind, "aa eval fused")
+        if kind == "aa":
+            by_path["scannet aa train approx fused"] = scannet_fused_path(
+                ops, dev, rng, tag)
         print(f"{kind} steps in this call, median ms (peak GiB): " + ", ".join(
             f"{p} {ms:.3f}" + (f" ({peak:.3f})" if peak is not None else "")
-            for p, (ms, peak) in STEP_TIMES.items() if p.startswith(kind))
+            for p, (ms, peak) in STEP_TIMES.items()
+            if p.startswith((kind, f"scannet {kind}")))
             + f"  [{tag}]")
         del model
         torch.cuda.empty_cache()
@@ -2724,6 +2873,10 @@ def main() -> None:
              **({"dense_bound_ms": kernels[k]["dense_bound_ms"]}
                 if "dense_bound_ms" in kernels[k] else {})}
             for k, src, tpu in KERNELS]
+    print(f"chip_smoke: {time.perf_counter() - t0:.1f} s in all, the build "
+          f"included; the fused aggregation's ScanNet and gate phases "
+          f"{sum(FUSED_PHASE_S.values()):.1f} s ("
+          + ", ".join(f"{k} {v:.1f}" for k, v in FUSED_PHASE_S.items()) + ")")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

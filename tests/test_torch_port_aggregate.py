@@ -28,6 +28,7 @@ from amcontrast3d_tpu.ops import knn as jax_knn
 from amcontrast3d_tpu_torch import ops
 from amcontrast3d_tpu_torch.models import pointnext as ppn
 from amcontrast3d_tpu_torch.ops import aggregate as pagg
+from amcontrast3d_tpu_torch.ops import spatial
 from amcontrast3d_tpu_torch.utils.convert import from_jax_variables
 
 
@@ -58,6 +59,18 @@ def test_grouped_slot_reduce_matches_pallas_kernel(case):
     split evenly on both sides), kNN slots, negative and mixed ``sgn``, a
     per-query offset ``qp``, several support chunks (which the JAX entry
     kd-sorts) and the eval mode without moments."""
+    _check_case(case, with_layout=False)
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_grouped_slot_reduce_with_the_query_layout(case):
+    """Given the queries' layout (``spatial.sort_support``, as the encoder
+    hands ``query_cloud`` on), ``grouped_slot_reduce`` gives the same bits
+    as without it, forward and gradients, and the Pallas kernels' answer."""
+    _check_case(case, with_layout=True)
+
+
+def _check_case(case, with_layout: bool):
     n, m, c, k, radius, sign, with_qp, stats = CASES[case]
     rng = np.random.RandomState(len(case) + n)
     spread = 3.0 if n > 1000 else 1.0
@@ -80,11 +93,22 @@ def test_grouped_slot_reduce_matches_pallas_kernel(case):
     qp = rng.randn(2, m, c).astype(np.float32) if with_qp else None
     gs = [rng.randn(2, m, c).astype(np.float32) for _ in range(3 if stats else 1)]
 
-    ut = _t(u).requires_grad_()
-    qpt = _t(qp).requires_grad_() if with_qp else None
-    got = pagg.grouped_slot_reduce(ut, _t(idx), _t(sgn), qp=qpt,
-                                   need_stats=stats)
-    sum(((o * _t(g)).sum() for o, g in zip(got, gs)), torch.zeros(())).backward()
+    def port(layout):
+        ut = _t(u).requires_grad_()
+        qpt = _t(qp).requires_grad_() if with_qp else None
+        got = pagg.grouped_slot_reduce(ut, _t(idx), _t(sgn), qp=qpt,
+                                       need_stats=stats, query_cloud=layout)
+        sum(((o * _t(g)).sum() for o, g in zip(got, gs)),
+            torch.zeros(())).backward()
+        return got, ut, qpt
+
+    got, ut, qpt = port(spatial.sort_support(_t(q)) if with_layout else None)
+    if with_layout:
+        plain, ut0, qpt0 = port(None)
+        for a, b in zip(got, plain):
+            assert (a is None and b is None) or torch.equal(a, b)
+        assert torch.equal(ut.grad, ut0.grad)
+        assert not with_qp or torch.equal(qpt.grad, qpt0.grad)
 
     def jfn(u_, qp_):
         return jagg.grouped_slot_reduce(
@@ -136,12 +160,89 @@ def test_twin_backward_is_autograd_of_the_gather():
     np.testing.assert_allclose(qt.grad.numpy(), qr.grad.numpy(), rtol=1e-5, atol=1e-5)
 
 
-def test_fits_gate_is_the_jax_rule():
-    for n, c, k in ((24000, 64, 32), (884736, 64, 32), (64000, 64, 32),
-                    (375, 1024, 32), (6000, 256, 32), (1, 1, 1)):
-        assert pagg.agg_fused_fits(n, c, k) == jagg.agg_fused_fits(n, c, k)
-    assert pagg.agg_fused_fits(24000, 64, 32)
-    assert not pagg.agg_fused_fits(884736, 64, 32)
+def test_forward_counts_the_ties_directly():
+    """The tie count the forward keeps for the VJP (a byte a query and
+    channel) is the number of slots whose value equals the extremum,
+    counted here slot by slot on a cloud of few distinct values (ties in
+    most channels), with index repeats from the ball query's padding; eval
+    mode keeps none unless asked, and more than 255 slots are refused."""
+    rng = np.random.RandomState(21)
+    sup, q = _grid(rng, (2, 150, 3)), _grid(rng, (2, 40, 3))
+    idx = ops.ball_query(_t(sup), _t(q), 0.2, 12)
+    u = _t(rng.randint(-2, 3, (2, 150, 5)).astype(np.float32))
+    sgn = _t(np.array([1, -1, 1, -1, 1], np.float32))
+    ext, _, _, ties = pagg.aggregate_forward(u, idx, sgn, keep_ties=True)
+    assert ties.dtype == torch.uint8
+    want = np.zeros(ties.shape, np.int64)
+    un, xn, ix = u.numpy(), ext.numpy(), idx.numpy()
+    for b, i, k, c in np.ndindex(*ix.shape, un.shape[-1]):
+        want[b, i, c] += un[b, ix[b, i, k], c] == xn[b, i, c]
+    np.testing.assert_array_equal(ties.numpy(), want)
+    assert (want > 1).mean() > 0.5
+    assert pagg.aggregate_forward(u, idx, sgn, need_stats=False)[3] is None
+    with pytest.raises(ValueError):
+        pagg.aggregate_forward(u, idx.repeat(1, 1, 22), sgn, keep_ties=True)
+
+
+def test_fused_tail_rule_is_the_cards_over_the_gate_table():
+    """The port's rule (the fused tail wherever the switch is on and the
+    activation monotone: on the card its kernels took less device time
+    than the gather tail's at every shape of the gate table,
+    ``tools/profile_aggregation.GATE_CLOUDS``) against the JAX package's
+    VMEM rule over the table's shapes: JAX keeps the largest supports on
+    the gather tail (ScanNet's 64000-point stage 0, the subclouds' first
+    stages), the port takes the fused tail at all of them; nothing with
+    the switch off or a non-monotone activation."""
+    from amcontrast3d_tpu_torch.tools.profile_aggregation import (GATE_CLOUDS,
+                                                                  K, WIDTHS)
+    supports = {(n // 4 ** (s - 1), c) for _, _, n, _, _, _ in GATE_CLOUDS
+                for s, c in enumerate(WIDTHS, 1)}
+    refused = {sc for sc in supports if not jagg.agg_fused_fits(*sc, K)}
+    assert {(64000, 128), (106496, 128), (311296, 128), (77824, 256)} <= refused
+    assert not ppn._fused("relu")                      # the switch is off
+    try:
+        pagg.set_agg_fused("on")
+        assert all(ppn._fused(a) for a in ppn._MONOTONE_ACTS)
+        assert not ppn._fused("gelu")
+    finally:
+        pagg.set_agg_fused("off")
+
+
+def test_modules_dispatch_by_the_rule(monkeypatch):
+    """With the switch on, a set abstraction over 64000 support points (a
+    support the JAX package's VMEM rule refuses) takes the fused tail (one
+    ``grouped_slot_reduce``) in train and eval mode, and gives the gather
+    tail's output within 2e-4; with the switch off it takes the gather
+    tail."""
+    rng = np.random.RandomState(9)
+    n, m, c, k = 64000, 16000, 8, 8
+    assert not jagg.agg_fused_fits(n, c, k)
+    p = _t(rng.rand(1, n, 3).astype(np.float32))
+    f = _t(rng.randn(1, n, 4).astype(np.float32))
+    q = p[:, :m].contiguous()
+    idx = torch.from_numpy(rng.randint(0, n, (1, m, k)).astype(np.int32))
+    monkeypatch.setattr(ppn, "_group_idx", lambda *a: idx)
+    calls = []
+    real = ppn.grouped_slot_reduce
+    monkeypatch.setattr(ppn, "grouped_slot_reduce",
+                        lambda *a, **kw: calls.append(1) or real(*a, **kw))
+    sa = ppn.SetAbstraction(in_channels=4, out_channels=c, stride=4,
+                            group_args=GROUP, **COMMON)
+    outs = {}
+    for train in (True, False):
+        sa.train(train)
+        for mode in ("on", "off"):
+            pagg.set_agg_fused(mode)
+            try:
+                before = len(calls)
+                with torch.no_grad():
+                    outs[train, mode] = sa(p, f, (None, q))[1]
+                assert len(calls) - before == (mode == "on")
+            finally:
+                pagg.set_agg_fused("off")
+    for train in (True, False):
+        _close(outs[train, "on"], outs[train, "off"], 2e-4,
+               f"fused vs gather tail, train={train}")
 
 
 # ---- the modules -------------------------------------------------------------------
@@ -209,11 +310,19 @@ def test_fused_module_matches_jax_and_the_gather_tail(kind):
     pg = _modules(kind)[1]          # the same weights, for the gather tail
     pg.load_state_dict(from_jax_variables(variables), strict=True)
 
+    pt, ft = _t(p), _t(f)
+
     def port(model, train: bool):
+        """The module with the layouts of its points, as the encoder hands
+        them on: a block's ``cloud``, a set abstraction's support and query
+        layouts beside its sampled queries."""
         model.train(train)
         with torch.no_grad():
-            out = model(_t(p), _t(f))
-        return out if kind == "local" else out[1]
+            if kind == "local":
+                return model(pt, ft, cloud=spatial.sort_support(pt))
+            sampled = model.sample(pt)
+            return model(pt, ft, sampled, cloud=spatial.sort_support(pt),
+                         query_cloud=spatial.sort_support(sampled[1]))[1]
 
     try:
         jagg.set_agg_fused("on")

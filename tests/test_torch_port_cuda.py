@@ -1773,63 +1773,126 @@ def test_selection_and_vote_at_the_stage_shapes(cuda_device, recipe, b, n, kind)
         _equal(got, ops.label_vote_plain(stages[0], lab, p, 4 ** s, 13))
 
 
-def _aggregate_case(rng, dev, n, m, c, r, sign):
-    sup = torch.from_numpy(_cloud(rng, 2, n, True)).to(dev)
+def _aggregate_case(rng, dev, n, m, c, r, sign, k=32, b=2, clustered=True):
+    """(u, idx, sgn, qp, queries): ball-query slots of ``m`` queries taken
+    from ``b`` clouds of ``n`` points (repeat-padded where a ball holds
+    fewer than ``k``)."""
+    sup = torch.from_numpy(_cloud(rng, b, n, clustered)).to(dev)
     q = sup[:, ::max(1, n // m)][:, :m].contiguous()
-    idx = ops.ball_query(sup, q, r, 32)
-    u = torch.from_numpy(rng.randn(2, n, c).astype(np.float32)).to(dev)
+    idx = ops.ball_query(sup, q, r, k)
+    u = torch.from_numpy(rng.randn(b, n, c).astype(np.float32)).to(dev)
     sgn = {"pos": np.ones(c), "neg": -np.ones(c),
            "mixed": np.where(rng.rand(c) < 0.5, -1.0, 1.0)}[sign]
-    qp = torch.from_numpy(rng.randn(2, m, c).astype(np.float32)).to(dev)
-    return u, idx, torch.from_numpy(sgn.astype(np.float32)).to(dev), qp
+    qp = torch.from_numpy(rng.randn(b, m, c).astype(np.float32)).to(dev)
+    return u, idx, torch.from_numpy(sgn.astype(np.float32)).to(dev), qp, q
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("c,sign,r", [(1, "neg", 0.05), (13, "mixed", 0.02),
-                                      (64, "pos", 0.1), (1024, "mixed", 0.05)])
-def test_aggregate_kernels_match_plain(cuda_device, c, sign, r):
-    """The fused aggregation's forward (ext identical, su and sq within
-    1e-5·(1+max)) and backward (float atomics: du within 1e-5·(1+max|du|))
-    against the twins, with the repeat padding of the ball query (a small
-    radius leaves balls short of 32), C = 1, 13 (no multiple of 32), 64
-    and 1024, positive, negative and mixed ``sgn``; and the eval mode."""
-    rng = np.random.RandomState(c)
-    u, idx, sgn, qp = _aggregate_case(rng, cuda_device, 3000, 750, c, r, sign)
-    assert (idx[..., -1] == idx[..., 0]).any()
-    got = ops.aggregate_forward(u, idx, sgn, qp)
-    want = ops.aggregate_forward_plain(u, idx, sgn, qp)
+def _check_aggregation(u, idx, sgn, qp, order, rng):
+    """Both kernels against the twins on one input: ext and the tie count
+    identical, su and sq within 1e-5·(1+max), in train and eval mode; du
+    (float atomics) within 1e-5·(1+max|du|) with and without the moments;
+    one launch a call."""
+    b, m, c = qp.shape
+    before = ops.aggregate_forward.launches
+    got = ops.aggregate_forward(u, idx, sgn, qp, order=order, keep_ties=True)
+    assert ops.aggregate_forward.launches == before + 1
+    want = ops.aggregate_forward_plain(u, idx, sgn, qp, keep_ties=True)
     _equal(got[0], want[0])
     _close(got[1], want[1], 1e-5)
     _close(got[2], want[2], 1e-5)
-    ext_eval, su, sq = ops.aggregate_forward(u, idx, sgn, need_stats=False)
-    assert su is None and sq is None
+    _equal(got[3], want[3])
+    ext_eval, su, sq, ties = ops.aggregate_forward(u, idx, sgn, need_stats=False,
+                                                   order=order)
+    assert su is None and sq is None and ties is None
     _equal(ext_eval, want[0])
-    gs = [torch.from_numpy(rng.randn(2, 750, c).astype(np.float32)).to(cuda_device)
+    gs = [torch.from_numpy(rng.randn(b, m, c).astype(np.float32)).to(u.device)
           for _ in range(3)]
     before = ops.aggregate_backward.launches
-    du = ops.aggregate_backward(u, idx, sgn, qp, got[0], *gs)
+    du = ops.aggregate_backward(u, idx, qp, got[0], got[3], *gs, order=order)
     assert ops.aggregate_backward.launches == before + 1
-    _close(du, ops.aggregate_backward_plain(u, idx, sgn, qp, got[0], *gs), 1e-5)
-    _close(ops.aggregate_backward(u, idx, sgn, None, got[0], gs[0]),
-           ops.aggregate_backward_plain(u, idx, sgn, None, got[0], gs[0]), 1e-5)
+    _close(du, ops.aggregate_backward_plain(u, idx, qp, got[0], got[3], *gs), 1e-5)
+    _close(ops.aggregate_backward(u, idx, None, got[0], got[3], gs[0], order=order),
+           ops.aggregate_backward_plain(u, idx, None, got[0], got[3], gs[0]), 1e-5)
 
 
 @pytest.mark.cuda
-def test_grouped_slot_reduce_autograd_on_the_card(cuda_device):
-    """``grouped_slot_reduce`` through both kernels against the plain
-    entry: outputs and the gradients in u and qp within 1e-5·(1+max)."""
-    rng = np.random.RandomState(5)
-    u, idx, sgn, qp = _aggregate_case(rng, cuda_device, 2000, 500, 96, 0.05, "mixed")
-    gs = [torch.from_numpy(rng.randn(2, 500, 96).astype(np.float32)).to(cuda_device)
+@pytest.mark.parametrize("c,sign,r,k,b,clustered,layout", [
+    (1, "neg", 0.05, 32, 2, True, False), (13, "mixed", 0.02, 24, 2, True, True),
+    (64, "pos", 0.1, 8, 3, False, True), (128, "mixed", 0.1, 32, 2, True, True),
+    (128, "pos", 0.3, 32, 4, False, False), (256, "neg", 0.2, 24, 2, True, True),
+    (1024, "mixed", 0.05, 32, 2, True, True), (1024, "pos", 0.4, 8, 2, False, False)])
+def test_aggregate_kernels_match_plain(cuda_device, c, sign, r, k, b, clustered,
+                                       layout):
+    """The fused aggregation's forward and backward against the twins
+    (:func:`_check_aggregation`), with the repeat padding of the ball query
+    (a small radius leaves balls short of K), dense balls (the clustered
+    cloud) and sparse ones, C = 1, 13 (no multiple of 4), 64 to 1024 (one
+    to eight channel tiles), K = 8, 24 and 32, B = 2 to 4, both signs and
+    mixed ``sgn``, the queries in their layout's order (runs along the
+    curve) and in index order."""
+    rng = np.random.RandomState(c + k)
+    u, idx, sgn, qp, q = _aggregate_case(rng, cuda_device, 3000, 750, c, r, sign,
+                                         k, b, clustered)
+    order = spatial.index_bits(spatial.sort_support(q)) if layout else None
+    _check_aggregation(u, idx, sgn, qp, order, rng)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [13, 128])
+def test_aggregate_kernels_read_zero_outside_the_support(cuda_device, c):
+    """A slot index outside [0, n) reads 0 (it enters the extremum, its
+    ties and the moments as 0) and receives nothing: the twins' answer on
+    ``u`` with a zero row appended, the index sent there."""
+    rng = np.random.RandomState(40 + c)
+    u, idx, sgn, qp, q = _aggregate_case(rng, cuda_device, 2000, 500, c, 0.1,
+                                         "mixed")
+    n = u.shape[1]
+    bad = torch.from_numpy(rng.rand(*idx.shape) < 0.1).to(cuda_device)
+    wild = torch.from_numpy(rng.choice([-1, n, n + 7, 2 ** 31 - 1], idx.shape)
+                            .astype(np.int32)).to(cuda_device)
+    idx = torch.where(bad, wild, idx)
+    padded = torch.cat([u, u.new_zeros(u.shape[0], 1, c)], 1)
+    inside = torch.where((idx >= 0) & (idx < n), idx, n)
+    order = spatial.index_bits(spatial.sort_support(q))
+    got = ops.aggregate_forward(u, idx, sgn, qp, order=order, keep_ties=True)
+    want = ops.aggregate_forward_plain(padded, inside, sgn, qp, keep_ties=True)
+    _equal(got[0], want[0])
+    _close(got[1], want[1], 1e-5)
+    _close(got[2], want[2], 1e-5)
+    _equal(got[3], want[3])
+    gs = [torch.from_numpy(rng.randn(*qp.shape).astype(np.float32)).to(cuda_device)
           for _ in range(3)]
+    du = ops.aggregate_backward(u, idx, qp, got[0], got[3], *gs, order=order)
+    _close(du, ops.aggregate_backward_plain(padded, inside, qp, want[0], want[3],
+                                            *gs)[:, :n], 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("train", [True, False])
+def test_grouped_slot_reduce_autograd_on_the_card(cuda_device, train):
+    """``grouped_slot_reduce`` through both kernels against the plain
+    entry, with the query layout and without: outputs and the gradients
+    in u and qp within 1e-5·(1+max); in eval mode (no moments) the
+    gradient in u alone."""
+    rng = np.random.RandomState(5)
+    u, idx, sgn, qp, q = _aggregate_case(rng, cuda_device, 2000, 500, 96, 0.05,
+                                         "mixed")
+    layout = spatial.sort_support(q)
+    gs = [torch.from_numpy(rng.randn(2, 500, 96).astype(np.float32)).to(cuda_device)
+          for _ in range(3 if train else 1)]
     res = []
-    for fn in (ops.grouped_slot_reduce, ops.grouped_slot_reduce_plain):
+    for fn, cloud in ((ops.grouped_slot_reduce, layout),
+                      (ops.grouped_slot_reduce, None),
+                      (ops.grouped_slot_reduce_plain, None)):
         ut, qt = u.clone().requires_grad_(), qp.clone().requires_grad_()
-        outs = fn(ut, idx, sgn, qp=qt)
+        outs = fn(ut, idx, sgn, qp=qt if train else None, need_stats=train,
+                  query_cloud=cloud)
         sum((o * g).sum() for o, g in zip(outs, gs)).backward()
-        res.append([o.detach() for o in outs] + [ut.grad, qt.grad])
-    for a, b in zip(*res):
-        _close(a, b, 1e-5)
+        res.append([o.detach() for o in outs if o is not None] + [ut.grad]
+                   + ([qt.grad] if train else []))
+    for got in res[:2]:
+        for a, b in zip(got, res[2]):
+            _close(a, b, 1e-5)
 
 
 @pytest.mark.cuda
@@ -1850,7 +1913,7 @@ def test_new_wrappers_raise_on_tensors_they_cannot_take(cuda_device):
         ops.label_vote(wide[..., :3], lab, p, 4, 3)
     with pytest.raises(ValueError):
         ops.label_vote(p, lab, p, 4, ops.contrast.VOTE_MAX_CLASSES + 1)
-    u, idx, sgn, qp = _aggregate_case(rng, cuda_device, 100, 50, 8, 0.5, "pos")
+    u, idx, sgn, qp, q = _aggregate_case(rng, cuda_device, 100, 50, 8, 0.5, "pos")
     with pytest.raises(ValueError):
         ops.aggregate_forward(u, idx.long(), sgn, qp)
     with pytest.raises(ValueError):
@@ -1858,7 +1921,15 @@ def test_new_wrappers_raise_on_tensors_they_cannot_take(cuda_device):
     with pytest.raises(ValueError):
         ops.aggregate_forward(u.transpose(0, 1).contiguous().transpose(0, 1),
                               idx, sgn, qp)
-    ext = ops.aggregate_forward(u, idx, sgn, qp)[0]
+    with pytest.raises(ValueError):                  # another cloud's order
+        ops.aggregate_forward(u, idx, sgn, qp,
+                              order=spatial.index_bits(spatial.sort_support(u[..., :3].contiguous())))
+    with pytest.raises(ValueError):                  # a byte counts the ties
+        ops.aggregate_forward(u, idx.repeat(1, 1, 8)[..., :256].contiguous(),
+                              sgn, qp, keep_ties=True)
+    ext, _, _, ties = ops.aggregate_forward(u, idx, sgn, qp, keep_ties=True)
     strided = ext.transpose(0, 1).contiguous().transpose(0, 1)
     with pytest.raises(ValueError):
-        ops.aggregate_backward(u, idx, sgn, qp, ext, strided)
+        ops.aggregate_backward(u, idx, qp, ext, ties, strided)
+    with pytest.raises(ValueError):
+        ops.aggregate_backward(u, idx, qp, ext, ties.int(), ext)

@@ -47,8 +47,20 @@
 // adds the sum into du with one red.global.add.v4.f32 (vector_red.cuh).
 // Runs still meet in du through float atomics, so du is not
 // bit-deterministic.
+//
+// The bfloat16 forms (the fused tail's u under use_amp, where the JAX entry
+// takes a bf16 u and returns float32): the same kernels instantiated for a
+// bf16 u.  The forward loads 8 bf16 slot values a 16-byte load (four
+// __nv_bfloat162 -> float2), 4 slot rows in flight a lane, and does the
+// max, the tie count and the moments in float32 as above, so ext is the
+// exact float32 of a value of u.  The VJP reads bf16 u for its tie test
+// (4 values an 8-byte load), sums du in a float32 accumulator as above,
+// and a closing pass rounds it once to bf16: JAX's du.astype(u.dtype)
+// after its float32 kernel.
 #include <cstdint>
+#include <type_traits>
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
@@ -62,7 +74,7 @@ constexpr int kThreads = 256;
 constexpr unsigned kWarpMask = 0xffffffffu;
 constexpr int kRunQueries = 32;      // forward: queries a block, at least
 constexpr int kStagedSlots = 8192;   // forward: slot indices a block stages
-constexpr int kBatch = 8;            // forward: slot loads in flight a lane
+constexpr int kBatch = 8;            // forward: slot loads in flight a lane (4 of 8 bf16)
 constexpr int kEntries = kThreads;   // VJP: (row, slot) pairs a block sorts
 constexpr int kMaxRun = 16;          // VJP: queries a block, at most
 constexpr int kTile = 32;            // VJP: vectors of channels a block
@@ -71,21 +83,46 @@ constexpr int kWaves = 2;            // forward: a small call's blocks a multipr
 static_assert((kThreads & (kThreads - 1)) == 0, "a bitonic sort's width");
 static_assert(kMaxSlots * kRunQueries <= kStagedSlots, "a run's slots fit");
 
-// V channels of one row: a float4 (V = 4: C % 4 == 0, rows on 16 bytes) or
-// a float
+using bf16 = __nv_bfloat16;
+
+// V channels of one row in float32: a float4 (V = 4: C % 4 == 0, rows on 16
+// bytes), two (V = 8: the bf16 forward, C % 8 == 0) or a float
 template <int V>
-struct alignas(4 * V) Vals {
+struct alignas(V >= 4 ? 16 : 4 * V) Vals {
   float x[V];
 };
 
 template <int V>
 __device__ __forceinline__ Vals<V> load(const float* p) {
   Vals<V> r;
-  if constexpr (V == 4) {
-    const float4 t = __ldg(reinterpret_cast<const float4*>(p));
-    r.x[0] = t.x, r.x[1] = t.y, r.x[2] = t.z, r.x[3] = t.w;
+  if constexpr (V >= 4) {
+#pragma unroll
+    for (int h = 0; h < V; h += 4) {
+      const float4 t = __ldg(reinterpret_cast<const float4*>(p + h));
+      r.x[h] = t.x, r.x[h + 1] = t.y, r.x[h + 2] = t.z, r.x[h + 3] = t.w;
+    }
   } else {
     r.x[0] = __ldg(p);
+  }
+  return r;
+}
+
+// V bf16 values widened to float32 (exact): one 16-byte load (V = 8), one
+// 8-byte load (V = 4) or one value
+template <int V>
+__device__ __forceinline__ Vals<V> load(const bf16* p) {
+  Vals<V> r;
+  if constexpr (V == 8 || V == 4) {
+    using Word = typename std::conditional<V == 8, uint4, uint2>::type;
+    const Word w = __ldg(reinterpret_cast<const Word*>(p));
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&w);
+#pragma unroll
+    for (int j = 0; j < V / 2; ++j) {
+      const float2 f = __bfloat1622float2(h[j]);
+      r.x[2 * j] = f.x, r.x[2 * j + 1] = f.y;
+    }
+  } else {
+    r.x[0] = __bfloat162float(p[0]);
   }
   return r;
 }
@@ -100,15 +137,19 @@ __device__ __forceinline__ Vals<V> filled(float v) {
 
 template <int V>
 __device__ __forceinline__ void store(float* p, const Vals<V>& r) {
-  if constexpr (V == 4)
-    *reinterpret_cast<float4*>(p) = make_float4(r.x[0], r.x[1], r.x[2], r.x[3]);
-  else
+  if constexpr (V >= 4) {
+#pragma unroll
+    for (int h = 0; h < V; h += 4)
+      *reinterpret_cast<float4*>(p + h) =
+          make_float4(r.x[h], r.x[h + 1], r.x[h + 2], r.x[h + 3]);
+  } else {
     *p = r.x[0];
+  }
 }
 
 // u's row j of this lane's channels, or 0 for an index outside [0, n)
-template <int V>
-__device__ __forceinline__ Vals<V> slot_row(const float* ub, int j, int n,
+template <int V, typename T>
+__device__ __forceinline__ Vals<V> slot_row(const T* ub, int j, int n,
                                             int c) {
   return static_cast<unsigned>(j) < static_cast<unsigned>(n)
              ? load<V>(ub + static_cast<size_t>(j) * c)
@@ -125,10 +166,10 @@ __device__ __forceinline__ int query_at(const int* order, int ostride,
 // channels z * lanes + (lane within its group).  Groups of `lanes` threads
 // (a power of two up to 32) take one query at a time.  Dynamic shared
 // memory: run * (k + 1) ints.  kMoments: qp, su, sq given (else null);
-// kTies: ties given (else null).
-template <int V, bool kMoments, bool kTies>
+// kTies: ties given (else null).  T: u's type (float or bf16).
+template <typename T, int V, bool kMoments, bool kTies>
 __global__ void __launch_bounds__(kThreads)
-aggregate_forward_kernel(const float* __restrict__ u, const int* __restrict__ idx,
+aggregate_forward_kernel(const T* __restrict__ u, const int* __restrict__ idx,
                          const float* __restrict__ sgn,
                          const float* __restrict__ qp,
                          const int* __restrict__ order, int ostride,
@@ -154,7 +195,8 @@ aggregate_forward_kernel(const float* __restrict__ u, const int* __restrict__ id
   const int g = t / lanes;
   const int ch = (blockIdx.z * lanes + t - g * lanes) * V;
   if (ch >= c) return;
-  const float* ub = u + static_cast<size_t>(b) * n * c + ch;
+  constexpr int batch = V == 8 ? kBatch / 2 : kBatch;
+  const T* ub = u + static_cast<size_t>(b) * n * c + ch;
   const Vals<V> s = load<V>(sgn + ch);
   for (int q = g; q < nq; q += groups) {
     const int* row = s_idx + q * k;
@@ -164,13 +206,13 @@ aggregate_forward_kernel(const float* __restrict__ u, const int* __restrict__ id
     int cnt[V];
 #pragma unroll
     for (int l = 0; l < V; ++l) e[l] = -CUDART_INF_F, a[l] = a2[l] = 0.f, cnt[l] = 0;
-    for (int k0 = 0; k0 < k; k0 += kBatch) {
-      Vals<V> gv[kBatch];
+    for (int k0 = 0; k0 < k; k0 += batch) {
+      Vals<V> gv[batch];
 #pragma unroll
-      for (int j = 0; j < kBatch; ++j)
+      for (int j = 0; j < batch; ++j)
         gv[j] = k0 + j < k ? slot_row<V>(ub, row[k0 + j], n, c) : filled<V>(0.f);
 #pragma unroll
-      for (int j = 0; j < kBatch; ++j) {
+      for (int j = 0; j < batch; ++j) {
         if (k0 + j >= k) break;
 #pragma unroll
         for (int l = 0; l < V; ++l) {
@@ -198,11 +240,16 @@ aggregate_forward_kernel(const float* __restrict__ u, const int* __restrict__ id
       store<V>(sq + o, out);
     }
     if (kTies) {
-      if constexpr (V == 4)
+      if constexpr (V == 8) {
+        *reinterpret_cast<uint2*>(ties + o) = make_uint2(
+            cnt[0] | cnt[1] << 8 | cnt[2] << 16 | static_cast<unsigned>(cnt[3]) << 24,
+            cnt[4] | cnt[5] << 8 | cnt[6] << 16 | static_cast<unsigned>(cnt[7]) << 24);
+      } else if constexpr (V == 4) {
         *reinterpret_cast<uchar4*>(ties + o) =
             make_uchar4(cnt[0], cnt[1], cnt[2], cnt[3]);
-      else
+      } else {
         ties[o] = static_cast<unsigned char>(cnt[0]);
+      }
     }
   }
 }
@@ -210,10 +257,11 @@ aggregate_forward_kernel(const float* __restrict__ u, const int* __restrict__ id
 // Block (x, b, z): queries x * run ... of cloud b in the order given (as the
 // forward), channel vectors z * kTile ...; run * k <= kEntries.  Dynamic
 // shared memory: 4 arrays of run * kTile vectors (2 without the moments).
-// qp, g_sum, g_sq null without the moments.
-template <int V>
+// qp, g_sum, g_sq null without the moments.  T: u's type (float or bf16);
+// du float32 either way.
+template <typename T, int V>
 __global__ void __launch_bounds__(kThreads)
-aggregate_backward_kernel(const float* __restrict__ u, const int* __restrict__ idx,
+aggregate_backward_kernel(const T* __restrict__ u, const int* __restrict__ idx,
                           const float* __restrict__ qp,
                           const float* __restrict__ ext,
                           const unsigned char* __restrict__ ties,
@@ -317,7 +365,7 @@ aggregate_backward_kernel(const float* __restrict__ u, const int* __restrict__ i
 
   // each (row, vector of channels): u read once, gamma summed over the
   // row's slots in (query, slot) order, then one reduction into du
-  const float* ub = u + static_cast<size_t>(b) * n * c;
+  const T* ub = u + static_cast<size_t>(b) * n * c;
   float* db = du + static_cast<size_t>(b) * n * c;
   for (int e = t; e < nseg * tile; e += kThreads) {
     const int sg = e / tile, vv = e - sg * tile;
@@ -354,6 +402,28 @@ aggregate_backward_kernel(const float* __restrict__ u, const int* __restrict__ i
   }
 }
 
+// the bf16 VJP's closing pass: du = acc rounded to nearest even, 8 values a
+// thread where count % 8 == 0 and both ends are aligned, else one
+__global__ void __launch_bounds__(kThreads)
+round_to_bf16_kernel(const float* __restrict__ acc, bf16* __restrict__ du,
+                     size_t count, bool vec) {
+  const size_t stride = static_cast<size_t>(gridDim.x) * kThreads;
+  const size_t t = static_cast<size_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (vec) {
+    for (size_t i = t; i < count / 8; i += stride) {
+      const Vals<8> v = load<8>(acc + 8 * i);
+      uint4 w;
+      __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&w);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        h[j] = __floats2bfloat162_rn(v.x[2 * j], v.x[2 * j + 1]);
+      *reinterpret_cast<uint4*>(du + 8 * i) = w;
+    }
+  } else {
+    for (size_t i = t; i < count; i += stride) du[i] = __float2bfloat16_rn(acc[i]);
+  }
+}
+
 // the current device's multiprocessors (read once a device), or 0 when
 // they cannot be read
 int multiprocessors() {
@@ -371,29 +441,22 @@ bool aligned(const void* p, int bytes) {
   return p == nullptr || reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
-}  // namespace
-
-// u (b, n, c) float32, idx (b, m, k) int32, sgn (c) float32 of +-1, qp
-// (b, m, c) float32 or null when need_stats == 0, order (b, m) int32
-// ostride apart (a permutation of each cloud's queries: the order the runs
-// take them in) or null (index order) -> ext (b, m, c) and, when
-// need_stats, su, sq (b, m, c) float32 (else null); ties (b, m, c) uint8,
-// the slots at the extremum, unless null (then k may exceed 255).
-extern "C" int amc3d_aggregate_forward(const void* u, const void* idx,
-                                       const void* sgn, const void* qp,
-                                       const void* order, int ostride,
-                                       void* ext, void* su, void* sq,
-                                       void* ties, int b, int n, int m, int k,
-                                       int c, int need_stats, void* stream) {
+// The forward of either form.  W: the vector width (4 float32 or 8 bf16
+// values of u a load).
+template <typename T, int W>
+int forward(const void* u, const void* idx, const void* sgn, const void* qp,
+            const void* order, int ostride, void* ext, void* su, void* sq,
+            void* ties, int b, int n, int m, int k, int c, int need_stats,
+            void* stream) {
   if (c < 1 || k < 1 || ostride < 1 || (ties && k > kMaxSlots) ||
       (need_stats && (!qp || !su || !sq)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (b < 1 || m < 1) return static_cast<int>(cudaSuccess);
   if (!need_stats) qp = su = sq = nullptr;
-  const bool vec = c % 4 == 0 && aligned(u, 16) && aligned(sgn, 16) &&
+  const bool vec = c % W == 0 && aligned(u, 16) && aligned(sgn, 16) &&
                    aligned(qp, 16) && aligned(ext, 16) && aligned(su, 16) &&
-                   aligned(sq, 16) && aligned(ties, 4);
-  const int vectors = vec ? c / 4 : c;
+                   aligned(sq, 16) && aligned(ties, W);
+  const int vectors = vec ? c / W : c;
   int lanes = 1;
   while (lanes < vectors && lanes < 32) lanes <<= 1;
   const int groups = kThreads / lanes, tiles = (vectors + lanes - 1) / lanes;
@@ -409,22 +472,86 @@ extern "C" int amc3d_aggregate_forward(const void* u, const void* idx,
     run >>= 1;
   const dim3 grid((m + run - 1) / run, b, tiles);
   const size_t smem = static_cast<size_t>(run) * (k + 1) * sizeof(int);
-  using Forward = void (*)(const float*, const int*, const float*, const float*,
+  using Forward = void (*)(const T*, const int*, const float*, const float*,
                            const int*, int, float*, float*, float*,
                            unsigned char*, int, int, int, int, int, int);
   const Forward kernels[2][2][2] = {
-      {{&aggregate_forward_kernel<1, false, false>, &aggregate_forward_kernel<1, false, true>},
-       {&aggregate_forward_kernel<1, true, false>, &aggregate_forward_kernel<1, true, true>}},
-      {{&aggregate_forward_kernel<4, false, false>, &aggregate_forward_kernel<4, false, true>},
-       {&aggregate_forward_kernel<4, true, false>, &aggregate_forward_kernel<4, true, true>}}};
+      {{&aggregate_forward_kernel<T, 1, false, false>, &aggregate_forward_kernel<T, 1, false, true>},
+       {&aggregate_forward_kernel<T, 1, true, false>, &aggregate_forward_kernel<T, 1, true, true>}},
+      {{&aggregate_forward_kernel<T, W, false, false>, &aggregate_forward_kernel<T, W, false, true>},
+       {&aggregate_forward_kernel<T, W, true, false>, &aggregate_forward_kernel<T, W, true, true>}}};
   const Forward kernel = kernels[vec][need_stats != 0][ties != nullptr];
   kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(u), static_cast<const int*>(idx),
+      static_cast<const T*>(u), static_cast<const int*>(idx),
       static_cast<const float*>(sgn), static_cast<const float*>(qp),
       static_cast<const int*>(order), ostride, static_cast<float*>(ext),
       static_cast<float*>(su), static_cast<float*>(sq),
       static_cast<unsigned char*>(ties), n, m, k, c, lanes, run);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The VJP of either form into the float32 sums `acc`, zeroed here.
+template <typename T>
+int backward(const void* u, const void* idx, const void* qp, const void* ext,
+             const void* ties, const void* g_ext, const void* g_sum,
+             const void* g_sq, const void* order, int ostride, void* acc,
+             int b, int n, int m, int k, int c, int has_stats,
+             cudaStream_t st) {
+  if (c < 1 || k < 1 || k > kMaxSlots || ostride < 1 ||
+      (has_stats && (!qp || !g_sum || !g_sq)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (!has_stats) qp = g_sum = g_sq = nullptr;
+  const cudaError_t err = cudaMemsetAsync(
+      acc, 0, static_cast<size_t>(b) * n * c * sizeof(float), st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (b < 1 || m < 1 || n < 1) return static_cast<int>(cudaSuccess);
+  const bool vec = c % 4 == 0 && aligned(u, 4 * sizeof(T)) && aligned(qp, 16) &&
+                   aligned(ext, 16) && aligned(g_ext, 16) && aligned(g_sum, 16) &&
+                   aligned(g_sq, 16) && aligned(acc, 16) && aligned(ties, 4);
+  const int vectors = vec ? c / 4 : c;
+  const int run = kEntries / k < kMaxRun ? kEntries / k : kMaxRun;
+  const dim3 grid((m + run - 1) / run, b, (vectors + kTile - 1) / kTile);
+  const size_t smem = static_cast<size_t>(has_stats ? 4 : 2) * run * kTile *
+                      (vec ? sizeof(float4) : sizeof(float));
+  auto* kernel = vec ? &aggregate_backward_kernel<T, 4> : &aggregate_backward_kernel<T, 1>;
+  kernel<<<grid, kThreads, smem, st>>>(
+      static_cast<const T*>(u), static_cast<const int*>(idx),
+      static_cast<const float*>(qp), static_cast<const float*>(ext),
+      static_cast<const unsigned char*>(ties), static_cast<const float*>(g_ext),
+      static_cast<const float*>(g_sum), static_cast<const float*>(g_sq),
+      static_cast<const int*>(order), ostride, static_cast<float*>(acc), n, m,
+      k, c, run);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// u (b, n, c) float32, idx (b, m, k) int32, sgn (c) float32 of +-1, qp
+// (b, m, c) float32 or null when need_stats == 0, order (b, m) int32
+// ostride apart (a permutation of each cloud's queries: the order the runs
+// take them in) or null (index order) -> ext (b, m, c) and, when
+// need_stats, su, sq (b, m, c) float32 (else null); ties (b, m, c) uint8,
+// the slots at the extremum, unless null (then k may exceed 255).
+extern "C" int amc3d_aggregate_forward(const void* u, const void* idx,
+                                       const void* sgn, const void* qp,
+                                       const void* order, int ostride,
+                                       void* ext, void* su, void* sq,
+                                       void* ties, int b, int n, int m, int k,
+                                       int c, int need_stats, void* stream) {
+  return forward<float, 4>(u, idx, sgn, qp, order, ostride, ext, su, sq, ties,
+                           b, n, m, k, c, need_stats, stream);
+}
+
+// The bf16 form: u (b, n, c) bf16, everything else as above.
+extern "C" int amc3d_aggregate_forward_bf16(const void* u, const void* idx,
+                                            const void* sgn, const void* qp,
+                                            const void* order, int ostride,
+                                            void* ext, void* su, void* sq,
+                                            void* ties, int b, int n, int m,
+                                            int k, int c, int need_stats,
+                                            void* stream) {
+  return forward<bf16, 8>(u, idx, sgn, qp, order, ostride, ext, su, sq, ties,
+                          b, n, m, k, c, need_stats, stream);
 }
 
 // The VJP: u, idx, order as above; qp, g_sum, g_sq (b, m, c) or null when
@@ -438,30 +565,34 @@ extern "C" int amc3d_aggregate_backward(const void* u, const void* idx,
                                         const void* order, int ostride,
                                         void* du, int b, int n, int m, int k,
                                         int c, int has_stats, void* stream) {
-  if (c < 1 || k < 1 || k > kMaxSlots || ostride < 1 ||
-      (has_stats && (!qp || !g_sum || !g_sq)))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (!has_stats) qp = g_sum = g_sq = nullptr;
+  return backward<float>(u, idx, qp, ext, ties, g_ext, g_sum, g_sq, order,
+                         ostride, du, b, n, m, k, c, has_stats,
+                         static_cast<cudaStream_t>(stream));
+}
+
+// The bf16 form: u (b, n, c) bf16; the sums go into acc (b, n, c) float32
+// as du above, then du (b, n, c) bf16 is acc rounded to nearest even.
+extern "C" int amc3d_aggregate_backward_bf16(const void* u, const void* idx,
+                                             const void* qp, const void* ext,
+                                             const void* ties, const void* g_ext,
+                                             const void* g_sum, const void* g_sq,
+                                             const void* order, int ostride,
+                                             void* acc, void* du, int b, int n,
+                                             int m, int k, int c, int has_stats,
+                                             void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = cudaMemsetAsync(
-      du, 0, static_cast<size_t>(b) * n * c * sizeof(float), st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (b < 1 || m < 1 || n < 1) return static_cast<int>(cudaSuccess);
-  const bool vec = c % 4 == 0 && aligned(u, 16) && aligned(qp, 16) &&
-                   aligned(ext, 16) && aligned(g_ext, 16) && aligned(g_sum, 16) &&
-                   aligned(g_sq, 16) && aligned(du, 16) && aligned(ties, 4);
-  const int vectors = vec ? c / 4 : c;
-  const int run = kEntries / k < kMaxRun ? kEntries / k : kMaxRun;
-  const dim3 grid((m + run - 1) / run, b, (vectors + kTile - 1) / kTile);
-  const size_t smem = static_cast<size_t>(has_stats ? 4 : 2) * run * kTile *
-                      (vec ? sizeof(float4) : sizeof(float));
-  auto* kernel = vec ? &aggregate_backward_kernel<4> : &aggregate_backward_kernel<1>;
-  kernel<<<grid, kThreads, smem, st>>>(
-      static_cast<const float*>(u), static_cast<const int*>(idx),
-      static_cast<const float*>(qp), static_cast<const float*>(ext),
-      static_cast<const unsigned char*>(ties), static_cast<const float*>(g_ext),
-      static_cast<const float*>(g_sum), static_cast<const float*>(g_sq),
-      static_cast<const int*>(order), ostride, static_cast<float*>(du), n, m,
-      k, c, run);
+  const int err = backward<bf16>(u, idx, qp, ext, ties, g_ext, g_sum, g_sq,
+                                 order, ostride, acc, b, n, m, k, c, has_stats,
+                                 st);
+  const size_t count = static_cast<size_t>(b) * n * c;
+  if (err != 0 || count == 0) return err;
+  const bool vec = count % 8 == 0 && aligned(acc, 16) && aligned(du, 16);
+  const int sms = multiprocessors();
+  if (sms < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t items = vec ? count / 8 : count;
+  const size_t blocks = (items + kThreads - 1) / kThreads;
+  const int grid = static_cast<int>(blocks < 8u * sms ? blocks : 8u * sms);
+  round_to_bf16_kernel<<<grid, kThreads, 0, st>>>(
+      static_cast<const float*>(acc), static_cast<bf16*>(du), count, vec);
   return static_cast<int>(cudaGetLastError());
 }

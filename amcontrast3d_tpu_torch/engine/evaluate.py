@@ -283,7 +283,10 @@ def test_whole_scenes(runner, data_list, cfg) -> Dict:
             for j in by_nb[nb]:
                 batch = runner.put_batch({"pos": parts[j][3][None],
                                           "x": parts[j][4][None]})
-                part_logits[j] = predict(batch)[0, :parts[j][1]].cpu().numpy()
+                # numpy holds no bfloat16 (use_amp): float32 is its exact
+                # value, as the JAX side's numpy sums and argmaxes read it
+                part_logits[j] = predict(batch)[0, :parts[j][1]].float(
+                ).cpu().numpy()
         t_forward = time.perf_counter()
 
         # phase 3 — scatter-mean voting (order-independent sums)

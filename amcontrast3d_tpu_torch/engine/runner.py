@@ -10,8 +10,13 @@ and ``validate_sphere``, which share bucket padding and
 batches.  The model and the optimizer hold the weights and moments that
 JAX carries in ``TrainState``, so no method takes a state.
 
-Not ported (each raises ``NotImplementedError`` by name): ``use_amp``,
-``layer_decay`` and the optimizers other than AdamW, ``distributed``.
+``use_amp`` builds the model with ``dtype=torch.bfloat16``, as the JAX
+runner builds it with ``jnp.bfloat16`` (float32 parameters, bfloat16
+Linears, float32 BatchNorms; the logits come out in bfloat16 and are
+taken to float32 on the host only where numpy needs them, an exact cast).
+
+Not ported (each raises ``NotImplementedError`` by name): ``layer_decay``
+and the optimizers other than AdamW, ``distributed``.
 
 The runner works on one device: the card unless the caller names the CPU.
 """
@@ -69,15 +74,13 @@ class Runner:
         self.device = resolve_device(device)
         self.rng = set_random_seed(cfg.get("seed") or 0)
 
-        if cfg.get("use_amp", False):
-            raise NotImplementedError("use_amp (bf16) is not ported yet "
-                                      "(ROADMAP.md §1)")
         if cfg.get("distributed", False):
             raise NotImplementedError("distributed (the sharded steps) is not "
                                       "ported yet (ROADMAP.md §1)")
         seed = cfg.get("seed") or 0
+        dtype = torch.bfloat16 if cfg.get("use_amp", False) else torch.float32
         self.model = init_train_weights_(
-            build_model_from_cfg(dict(cfg.model)),
+            build_model_from_cfg(dict(cfg.model), dtype=dtype),
             torch.Generator().manual_seed(seed)).to(self.device)
         crit_cfg = cfg.get(KIND_TO_CRITERION_KEY[kind]) or {"NAME": "CrossEntropy"}
         self.criterion = build_criterion_from_cfg(crit_cfg)
@@ -318,7 +321,8 @@ class Runner:
             batch = {k: np.stack([p[k] for p in padded])
                      for k in ("pos", "x", "y")}
         dev = self.put_batch({"pos": batch["pos"], "x": batch["x"]})
-        return self.predict_fn()(dev)[:, :n].cpu().numpy(), batch
+        # numpy holds no bfloat16: float32 is its exact value
+        return self.predict_fn()(dev)[:, :n].float().cpu().numpy(), batch
 
     def validate(self, val_loader: Iterable):
         """Whole-cloud validation with bucket padding (↔ validate,

@@ -5,7 +5,10 @@
 ``build_criterion_from_cfg``).  Criteria take channels-last logits
 (B, N, ncls).  As there, ``CrossEntropyAce`` and ``CrossEntropyAcePre``
 ignore the configured ``label_smoothing`` (the reference builds a plain
-``CrossEntropyLoss()``, ignore index −100).  The rest of the registry is
+``CrossEntropyLoss()``, ignore index −100).  The CE runs at the logits'
+dtype (bfloat16 under ``use_amp``: its log-softmax, its mean and its
+weight), as the JAX package's does; the contrast and regression terms
+are float32, so a weighted sum of them is float32.  The rest of the registry is
 not ported yet.
 """
 from __future__ import annotations
@@ -14,6 +17,7 @@ from typing import Dict, Optional
 
 import torch
 
+from ..models.layers import rounded
 from ..utils.registry import Registry
 from .contrast import contrast_head
 
@@ -43,6 +47,13 @@ def cross_entropy(logits: torch.Tensor, target: torch.Tensor, weight=None,
                             device=logits.device)[target] * valid
         return (nll * w).sum() / torch.clamp_min(w.sum(), 1e-12)
     return (nll * valid).sum() / torch.clamp_min(valid.sum(), 1.0)
+
+
+def _weighted(w: float, term: torch.Tensor) -> torch.Tensor:
+    """``w · term`` with ``w`` in the term's dtype, as JAX's weakly typed
+    scalar takes it: the CE at bfloat16 under ``use_amp`` (its logits'
+    dtype), the contrast and regression terms in float32."""
+    return term * rounded(w, term.dtype)
 
 
 @LOSS.register_module(name=["CrossEntropy", "CrossEntropyLoss"])
@@ -75,7 +86,8 @@ class CrossEntropyAce:
         ce = self.ce(logits, target)
         contrast, _ = contrast_head(up_stages, target, num_classes,
                                     ignore_index, ambiguity_args, clouds)
-        return ambiguity_args["w1"] * ce + ambiguity_args["w2"] * contrast
+        return (_weighted(ambiguity_args["w1"], ce)
+                + _weighted(ambiguity_args["w2"], contrast))
 
 
 @LOSS.register_module()
@@ -97,9 +109,9 @@ class CrossEntropyAcePre:
         pred = torch.cat([a.reshape(-1) for a in pred_ai_list])
         tgt = torch.cat([a.reshape(-1) for a in target_ai_list])
         reg = (pred - tgt.detach()).abs().mean()
-        ce = ambiguity_args["w1"] * ce
-        contrast = ambiguity_args["w2"] * contrast
-        reg = ambiguity_args["w3"] * reg
+        ce = _weighted(ambiguity_args["w1"], ce)
+        contrast = _weighted(ambiguity_args["w2"], contrast)
+        reg = _weighted(ambiguity_args["w3"], reg)
         return ce + contrast, ce, contrast, reg
 
 

@@ -10,8 +10,15 @@ boundary points ``0 < a ≤ 1`` as a masked mean.
 Ported variants: ``contrast_softnn_margin`` with ``supervisedCL``
 Method1, ``dist_cos`` or ``dist_dot``, margin constant / adaptive /
 learned, ``db`` −m / +m / none, cctype Method1-3.  The others (the
-gather-based forms of ``contrast.py:276-318``) and ``remat`` raise
+gather-based forms of ``contrast.py:276-318``) raise
 ``NotImplementedError``.
+
+``ambiguity_args.remat`` (the JAX head's ``jax.checkpoint`` of each
+stage's ``point_contrast_margin``, saving only what it names
+``contrast_knn``) checkpoints each stage's margin loss
+(``torch.utils.checkpoint``, not reentrant) and keeps the threshold (kNN
+or selection) and the (B, N, 9) reductions: the backward recomputes the
+normalisation and the loss's elementwise terms, and no kernel runs twice.
 
 The stage clouds are sorted once a forward, all in one sort
 (``ops.spatial.sort_stages``), by the model's encoder, which hands the
@@ -38,6 +45,7 @@ import math
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..ops import (ambiguity_from_stats, contrast_reductions,
                    contrast_reductions_selfk, knn, label_vote)
@@ -84,13 +92,40 @@ def point_contrast_margin(p: torch.Tensor, f: torch.Tensor,
     labels_stage (B, N, ncls) soft one-hot or (B, N) class ids → (scalar
     loss, ambiguity a (B, N), no gradient).  ``cloud``: p's sorted layout,
     sorted here when not given and the exact kNN runs (in the approx
-    configuration the contrast kernels sort when it is not given)."""
+    configuration the contrast kernels sort when it is not given).  With
+    ``args["remat"]`` and gradients on, the loss is checkpointed, the
+    threshold and the reductions kept."""
     _check_ported(args, dist_func, contrast_func)
-    nsample = args["nsample"]
     if labels_stage.dim() == 2:
         lab = labels_stage.float()
     else:
         lab = labels_stage.argmax(-1).float()
+    p, kth = p.contiguous(), None
+    if not _selection(args):
+        with torch.no_grad():
+            if cloud is None:
+                cloud = sort_support(p)
+            # the k-th-nearest d² (direct form, as the kernels compute it)
+            # with the JAX package's relative cushion
+            _, d2 = knn(p, p, args["nsample"], cloud)
+            kth = d2[..., -1] * (1.0 + 1e-5)
+
+    def margin(f, keep=None):
+        return _margin(p, f, lab, kth, args, dist_func, cloud, keep)
+
+    if not (args.get("remat", False) and torch.is_grad_enabled()):
+        return margin(f)
+    return checkpoint(margin, f, {}, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
+def _margin(p, f, lab, kth, args: Dict, dist_func: str,
+            cloud: Optional[SortedCloud], keep: Optional[dict]
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The loss of :func:`point_contrast_margin` from the threshold ``kth``
+    (None: the selection's); ``keep``: the dict a checkpoint holds for the
+    reductions across its recompute."""
+    nsample = args["nsample"]
     temperature = args.get("temperature", None)
     tinv = 1.0 / float(temperature) if temperature else 1.0
     cctype = args.get("cctype", "Method2")
@@ -107,20 +142,13 @@ def point_contrast_margin(p: torch.Tensor, f: torch.Tensor,
 
     flags = (tinv, cctype == "Method3", margin_mode == "learned",
              cctype != "Method1")
-    if _selection(args):
-        red = contrast_reductions_selfk(p.contiguous(), fsim.contiguous(),
-                                        lab, nsample, *flags, cloud=cloud)
+    kept = {} if keep is None else {"keep": keep}
+    if kth is None:
+        red = contrast_reductions_selfk(p, fsim.contiguous(), lab, nsample,
+                                        *flags, cloud=cloud, **kept)
     else:
-        p = p.contiguous()
-        with torch.no_grad():
-            if cloud is None:
-                cloud = sort_support(p)
-            # the k-th-nearest d² (direct form, as the kernels compute it)
-            # with the JAX package's relative cushion
-            _, d2 = knn(p, p, nsample, cloud)
-            kth = d2[..., -1] * (1.0 + 1e-5)
         red = contrast_reductions(p, fsim.contiguous(), lab, kth, *flags,
-                                  cloud=cloud)
+                                  cloud=cloud, **kept)
     P, Q, s_pos, s_neg = red[..., 0], red[..., 1], red[..., 2], red[..., 3]
     stats = red.detach()
     a = ambiguity_from_stats(stats[..., 4], stats[..., 5], stats[..., 6],
@@ -174,8 +202,6 @@ def contrast_head(up_stages: Sequence[Tuple[torch.Tensor, torch.Tensor]],
     resolution first; its positions are the label-propagation source.
     ``clouds``: the layouts of the p_s, as the model's forward sorted them
     (sorted here when not given)."""
-    if args.get("remat", False):
-        raise NotImplementedError("ambiguity_args.remat is not ported")
     labels0 = one_hot_labels(target, num_classes, ignore_index)
     vote = _selection(args)
     if vote:

@@ -12,7 +12,10 @@ by leaf.  Every ``forward`` takes ``(p, f, stage, generator)`` and returns
 a (B, N, 1), or ``(a, a_map (B, N, D))`` with ``linear_mapping``.  The
 refinement's settings in ``APM_args`` (``nsample_k``, ``threshold``,
 ``gamma``, ``fusion``, …) are read by the model, not here: ``make_module``
-hands a constructor only the keys it names.
+hands a constructor only the keys it names.  ``dtype`` is the compute
+type of every Linear (the JAX modules' field): the towers' BatchNorms
+return float32, so ``a`` is float32, and the lifted map, the attention and
+the graph ablation's output are in ``dtype``.
 """
 from __future__ import annotations
 
@@ -25,7 +28,7 @@ from torch import nn
 from ..ops.group import group_points
 from ..ops.knn import knn
 from .build import MODELS
-from .layers import Dropout, batch_norm
+from .layers import Dense, Dropout, batch_norm, rounded
 
 
 class _SigmoidTower(nn.Module):
@@ -33,12 +36,12 @@ class _SigmoidTower(nn.Module):
     then a 1-channel Linear → BatchNorm → sigmoid head."""
 
     def __init__(self, in_channels: int, channels: Sequence[int],
-                 dropout: Sequence[float]):
+                 dropout: Sequence[float], dtype=None):
         super().__init__()
         self.n = len(channels)
         cin = in_channels
         for i, ch in enumerate(list(channels) + [1]):
-            self.add_module(f"Dense_{i}", nn.Linear(cin, ch))
+            self.add_module(f"Dense_{i}", Dense(cin, ch, dtype=dtype))
             if i < min(self.n, len(dropout)) and dropout[i]:
                 self.add_module(f"Dropout_{i}", Dropout(dropout[i]))
             self.add_module(f"BatchNorm_{i}", batch_norm(ch))
@@ -62,13 +65,14 @@ class APM_pf_ConCate(nn.Module):
     def __init__(self, feature_dim: Sequence[int] = (64, 128, 256, 512),
                  linear_mapping: bool = True,
                  channel: Sequence[int] = (32, 16, 8, 4, 2),
-                 dropout: Sequence[float] = (0, 0, 0, 0, 0)):
+                 dropout: Sequence[float] = (0, 0, 0, 0, 0), dtype=None):
         super().__init__()
         self.feature_dim, self.linear_mapping = list(feature_dim), linear_mapping
         for s, d in enumerate(self.feature_dim):
-            self.add_module(f"layer_{s}", _SigmoidTower(3 + d, channel, dropout))
+            self.add_module(f"layer_{s}", _SigmoidTower(3 + d, channel, dropout,
+                                                        dtype))
             if linear_mapping:
-                self.add_module(f"map_{s}", nn.Linear(1, d))
+                self.add_module(f"map_{s}", Dense(1, d, dtype=dtype))
 
     def forward(self, p, f, stage: int,
                 generator: Optional[torch.Generator] = None):
@@ -86,9 +90,10 @@ class APM_p(nn.Module):
     """Position-only MLP ablation."""
 
     def __init__(self, channel: Sequence[int] = (32, 16, 8, 4, 2),
-                 dropout: Sequence[float] = (0, 0, 0, 0, 0)):
+                 dropout: Sequence[float] = (0, 0, 0, 0, 0), dtype=None):
         super().__init__()
-        self.add_module("_SigmoidTower_0", _SigmoidTower(3, channel, dropout))
+        self.add_module("_SigmoidTower_0", _SigmoidTower(3, channel, dropout,
+                                                         dtype))
 
     def forward(self, p, f=None, stage: int = 0,
                 generator: Optional[torch.Generator] = None):
@@ -101,12 +106,12 @@ class APM_p_Group(nn.Module):
 
     def __init__(self, k: int = 12,
                  channel: Sequence[int] = (32, 16, 8, 4, 2),
-                 dropout: Sequence[float] = (0, 0, 0, 0, 0)):
+                 dropout: Sequence[float] = (0, 0, 0, 0, 0), dtype=None):
         super().__init__()
         self.k = k
-        self.Dense_0 = nn.Linear(3, channel[0])
+        self.Dense_0 = Dense(3, channel[0], dtype=dtype)
         self.add_module("_SigmoidTower_0", _SigmoidTower(
-            channel[0], channel[1:], dropout[1:]))
+            channel[0], channel[1:], dropout[1:], dtype))
 
     def forward(self, p, f=None, stage: int = 0,
                 generator: Optional[torch.Generator] = None):
@@ -120,16 +125,17 @@ class Attention(nn.Module):
     """QKV cross-attention: x gives Q, y gives K and V; softmax over the
     points of y, scaled by √dim_out."""
 
-    def __init__(self, dim_q: int, dim_kv: int, dim_out: int):
+    def __init__(self, dim_q: int, dim_kv: int, dim_out: int, dtype=None):
         super().__init__()
         self.dim_out = dim_out
-        self.Dense_0 = nn.Linear(dim_q, dim_out)
-        self.Dense_1 = nn.Linear(dim_kv, dim_out)
-        self.Dense_2 = nn.Linear(dim_kv, dim_out)
+        self.Dense_0 = Dense(dim_q, dim_out, dtype=dtype)
+        self.Dense_1 = Dense(dim_kv, dim_out, dtype=dtype)
+        self.Dense_2 = Dense(dim_kv, dim_out, dtype=dtype)
 
     def forward(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         q, k, v = self.Dense_0(x), self.Dense_1(y), self.Dense_2(y)
-        attn = torch.matmul(q, k.transpose(1, 2)) / math.sqrt(float(self.dim_out))
+        attn = torch.matmul(q, k.transpose(1, 2)) / rounded(
+            math.sqrt(float(self.dim_out)), q.dtype)
         return torch.matmul(torch.softmax(attn, -1), v)
 
 
@@ -140,15 +146,16 @@ class APM_pf_CrossAtt(nn.Module):
     def __init__(self, feature_dim: Sequence[int] = (64, 128, 256, 512),
                  channel: Sequence[int] = (32, 16, 8, 4, 2),
                  dropout: Sequence[float] = (0, 0, 0, 0, 0),
-                 linear_mapping: bool = False):
+                 linear_mapping: bool = False, dtype=None):
         super().__init__()
         self.feature_dim, self.linear_mapping = list(feature_dim), linear_mapping
         for s, d in enumerate(self.feature_dim):
-            self.add_module(f"ext_{s}", nn.Linear(3, d))
-            self.add_module(f"att_{s}", Attention(d, d, d))
-            self.add_module(f"layer_{s}", _SigmoidTower(d, channel, dropout))
+            self.add_module(f"ext_{s}", Dense(3, d, dtype=dtype))
+            self.add_module(f"att_{s}", Attention(d, d, d, dtype))
+            self.add_module(f"layer_{s}", _SigmoidTower(d, channel, dropout,
+                                                        dtype))
             if linear_mapping:
-                self.add_module(f"map_{s}", nn.Linear(1, d))
+                self.add_module(f"map_{s}", Dense(1, d, dtype=dtype))
 
     def forward(self, p, f, stage: int,
                 generator: Optional[torch.Generator] = None):
@@ -165,10 +172,10 @@ class APM_p_Graph(nn.Module):
     x_j = |pᵢ − p_{n_j}| over the k − 1 nearest neighbours,
     ``out_i = W·[x₀·(1 + (k−1)/√2) + ½·Σ_j x_j] / k + b``; no sigmoid."""
 
-    def __init__(self, nsample_k: int = 12):
+    def __init__(self, nsample_k: int = 12, dtype=None):
         super().__init__()
         self.nsample_k = nsample_k
-        self.gcnconv = nn.Linear(3, 1)
+        self.gcnconv = Dense(3, 1, dtype=dtype)
 
     def forward(self, p, f=None, stage: int = 0,
                 generator: Optional[torch.Generator] = None):
@@ -185,11 +192,11 @@ class APM_pp_SelfAtt(nn.Module):
 
     def __init__(self, att_dim: int = 16,
                  channel: Sequence[int] = (32, 16, 8, 4, 2),
-                 dropout: Sequence[float] = (0, 0, 0, 0, 0)):
+                 dropout: Sequence[float] = (0, 0, 0, 0, 0), dtype=None):
         super().__init__()
-        self.Attention_0 = Attention(3, 3, att_dim)
+        self.Attention_0 = Attention(3, 3, att_dim, dtype)
         self.add_module("_SigmoidTower_0", _SigmoidTower(att_dim, channel,
-                                                         dropout))
+                                                         dropout, dtype))
 
     def forward(self, p, f=None, stage: int = 0,
                 generator: Optional[torch.Generator] = None):

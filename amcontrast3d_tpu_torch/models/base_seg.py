@@ -14,6 +14,9 @@
   refines its high-ambiguity features with it (at inference too), and the
   stages also carry ``ambiguity``; returns ``(logits, stages, refine
   rate)``.
+
+``dtype`` (the runner's ``use_amp``) goes to the encoder, the decoder, the
+head and the APM, as the JAX models hand it on; the logits come out in it.
 """
 from __future__ import annotations
 
@@ -26,13 +29,13 @@ from .build import MODELS, make_module
 from .pointnext import PointNextDecoder, PointNextEncoder, SegHead
 
 
-def _build_encoder(encoder_args):
+def _build_encoder(encoder_args, dtype):
     ea = dict(encoder_args)
     cls = MODELS.get(ea.pop("NAME", "PointNextEncoder")) or PointNextEncoder
-    return make_module(cls, ea)
+    return make_module(cls, ea, dtype=dtype)
 
 
-def _build_decoder(encoder_args, decoder_args, encoder, **extra):
+def _build_decoder(encoder_args, decoder_args, encoder, dtype, **extra):
     """Merge encoder args into decoder args (base_seg.py:102-106)."""
     merged = dict(encoder_args)
     merged.update(dict(decoder_args or {}))
@@ -43,27 +46,29 @@ def _build_decoder(encoder_args, decoder_args, encoder, **extra):
         else (MODELS.get(name) or PointNextDecoder)
     merged["encoder_channel_list"] = encoder.channel_list
     merged["in_channels_input"] = dict(encoder_args).get("in_channels", 3)
-    return make_module(cls, merged, **extra)
+    return make_module(cls, merged, dtype=dtype, **extra)
 
 
-def _build_head(cls_args, decoder, encoder):
+def _build_head(cls_args, decoder, encoder, dtype):
     ca = dict(cls_args)
     ca.pop("NAME", None)
     if getattr(decoder, "out_channels", None) is not None:
         ca["in_channels"] = decoder.out_channels
     elif getattr(encoder, "out_channels", None) is not None:
         ca["in_channels"] = encoder.out_channels
-    return make_module(SegHead, ca)
+    return make_module(SegHead, ca, dtype=dtype)
 
 
 @MODELS.register_module()
 class BaseSeg(nn.Module):
-    def __init__(self, encoder_args, decoder_args=None, cls_args=None):
+    def __init__(self, encoder_args, decoder_args=None, cls_args=None,
+                 dtype=None):
         super().__init__()
-        self.encoder = _build_encoder(encoder_args)
-        self.decoder = (_build_decoder(encoder_args, decoder_args, self.encoder)
+        self.encoder = _build_encoder(encoder_args, dtype)
+        self.decoder = (_build_decoder(encoder_args, decoder_args, self.encoder,
+                                       dtype)
                         if decoder_args is not None else None)
-        self.head = (_build_head(cls_args, self.decoder, self.encoder)
+        self.head = (_build_head(cls_args, self.decoder, self.encoder, dtype)
                      if cls_args is not None else None)
 
     def forward(self, pos: torch.Tensor, features: torch.Tensor,
@@ -77,12 +82,13 @@ class BaseSeg(nn.Module):
 class BaseSeg_AMContrast3D(nn.Module):
     """Returns ``(logits, stages)``."""
 
-    def __init__(self, encoder_args, decoder_args=None, cls_args=None):
+    def __init__(self, encoder_args, decoder_args=None, cls_args=None,
+                 dtype=None):
         super().__init__()
-        self.encoder = _build_encoder(encoder_args)
+        self.encoder = _build_encoder(encoder_args, dtype)
         self.decoder = _build_decoder(encoder_args, decoder_args or {},
-                                      self.encoder)
-        self.head = _build_head(cls_args, self.decoder, self.encoder)
+                                      self.encoder, dtype)
+        self.head = _build_head(cls_args, self.decoder, self.encoder, dtype)
 
     def forward(self, pos: torch.Tensor, features: torch.Tensor,
                 generator: Optional[torch.Generator] = None):
@@ -107,16 +113,16 @@ class BaseSeg_M_AMContrast3D(nn.Module):
     ``target`` is given, or passed in as ``aef_ambiguity``."""
 
     def __init__(self, encoder_args, decoder_args=None, cls_args=None,
-                 AEF_args: Any = None, APM_args: Any = None):
+                 AEF_args: Any = None, APM_args: Any = None, dtype=None):
         super().__init__()
         apm = dict(APM_args or {})
         self.linear_mapping = bool(apm.get("linear_mapping", False))
         self.aef_args = dict(AEF_args or {})
         self.num_classes = int(dict(cls_args)["num_classes"])
         self.ignore_index = dict(cls_args).get("ignore_index")
-        self.encoder = _build_encoder(encoder_args)
+        self.encoder = _build_encoder(encoder_args, dtype)
         self.decoder = _build_decoder(
-            encoder_args, decoder_args, self.encoder, refine=True,
+            encoder_args, decoder_args, self.encoder, dtype, refine=True,
             refine_mapping=self.linear_mapping,
             refine_attention=bool(apm.get("cross_attention", False)),
             nsample_k=int(apm.get("nsample_k", 12)),
@@ -124,12 +130,12 @@ class BaseSeg_M_AMContrast3D(nn.Module):
             threshold=float(apm.get("threshold", 0.7)),
             threshold_max=float(apm.get("threshold_max", 1.0)),
             gamma=float(apm.get("gamma", 0.5)))
-        self.head = _build_head(cls_args, self.decoder, self.encoder)
+        self.head = _build_head(cls_args, self.decoder, self.encoder, dtype)
         name = apm.get("NAME", "APM_pf_ConCate")
         apm_cls = MODELS.get(name)
         if apm_cls is None:
             raise KeyError(f"APM {name} not registered")
-        self.APM = make_module(apm_cls, apm)
+        self.APM = make_module(apm_cls, apm, dtype=dtype)
 
     def forward(self, pos: torch.Tensor, features: torch.Tensor,
                 generator: Optional[torch.Generator] = None,

@@ -25,9 +25,8 @@ MODELS = Registry("models")
 
 # the fields that every flax module of the JAX package reads and no module
 # of the port takes, with their JAX defaults: BatchNorm's axis across
-# devices (the runner's ``distributed``) and the compute type (its
-# ``use_amp``)
-_JAX_FIELDS = {"bn_axis_name": None, "dtype": "float32"}
+# devices (the runner's ``distributed``)
+_JAX_FIELDS = {"bn_axis_name": None}
 # per port class, the other fields its JAX module reads and the port's
 # constructor lacks, with their JAX defaults (``models/pointnext.py:605``,
 # ``models/pointnetv2.py:82`` of the JAX package).  The JAX modules' other
@@ -35,15 +34,8 @@ _JAX_FIELDS = {"bn_axis_name": None, "dtype": "float32"}
 # the model around them, which the port's reads too (the APMs'
 # ``nsample_k``, ``threshold``, ``fusion`` … from ``APM_args``).
 UNPORTED_KEYS = {
-    "PointNextEncoder": {"remat": False},
     "PointNet2Encoder": {"sampler": "fps"},
 }
-
-
-def _is_default(key: str, value: Any, default: Any) -> bool:
-    if key == "dtype":   # float32 by any name: "float32", torch.float32, …
-        return str(value).rsplit(".", 1)[-1].strip("'>") == default
-    return value == default
 
 
 def filter_kwargs(cls, kwargs: Dict[str, Any]) -> Dict[str, Any]:
@@ -53,8 +45,7 @@ def filter_kwargs(cls, kwargs: Dict[str, Any]) -> Dict[str, Any]:
     params = inspect.signature(cls.__init__).parameters
     unported = {**_JAX_FIELDS, **UNPORTED_KEYS.get(cls.__name__, {})}
     for key, value in kwargs.items():
-        if key not in params and key in unported and \
-                not _is_default(key, value, unported[key]):
+        if key not in params and key in unported and value != unported[key]:
             raise NotImplementedError(
                 f"{cls.__name__}: {key}={value!r} is not ported (the JAX "
                 f"package's default is {unported[key]!r})")

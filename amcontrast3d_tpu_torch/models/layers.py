@@ -7,9 +7,22 @@ there (momentum 0.9 in flax is 0.1 here, eps 1e-5).  Submodules keep the
 flax names (``Dense_0``, ``BatchNorm_0``, ``ConvBlock_{i}``) so that
 :func:`amcontrast3d_tpu_torch.utils.convert.from_jax_variables` maps
 weights mechanically.
+
+The compute type (``dtype``, the JAX modules' field of that name; the
+runner's ``use_amp`` sets it to bfloat16) sits where flax puts it: a
+:class:`Dense` keeps float32 parameters and multiplies bfloat16 casts of
+its input and weight, returning bfloat16, as ``nn.Dense(dtype=bf16)``
+does; the BatchNorms (flax's ``BatchNorm(dtype=float32)``) take any input
+and compute and return float32.  No autocast: it would cast where the JAX
+package does not.
+
+Under the encoder's remat (:func:`recomputing`) a BatchNorm normalises as
+in the forward and leaves its running statistics alone, so they move once
+a step.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Optional
 
 import torch
@@ -59,20 +72,93 @@ def create_act(act_args) -> Optional[Callable]:
     return _ACTS[name]
 
 
+_RECOMPUTE = [0]
+
+
+@contextlib.contextmanager
+def recomputing():
+    """Marks the recompute of a checkpointed region: train-mode BatchNorms
+    inside it move no running statistic (the forward moved them)."""
+    _RECOMPUTE[0] += 1
+    try:
+        yield
+    finally:
+        _RECOMPUTE[0] -= 1
+
+
+def moves_statistics() -> bool:
+    """Whether a train-mode BatchNorm called now moves its running
+    statistics: not in a remat's recompute."""
+    return _RECOMPUTE[0] == 0
+
+
+def rounded(value: float, dtype: torch.dtype) -> float:
+    """``value`` rounded to ``dtype``: a Python scalar meets a tensor in the
+    tensor's dtype in JAX (a weakly typed scalar).  A host number, so no
+    copy to the device."""
+    return torch.tensor(value, dtype=dtype).item()
+
+
+def as_dtype(dtype) -> torch.dtype:
+    """A compute type by any name (``"bfloat16"``, ``torch.bfloat16``,
+    ``jnp.bfloat16``'s string, None = float32)."""
+    if dtype is None:
+        return torch.float32
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    name = str(dtype).rsplit(".", 1)[-1].strip("'>")
+    table = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    if name not in table:
+        raise NotImplementedError(f"compute dtype {dtype!r} is not ported "
+                                  "(float32 or bfloat16)")
+    return table[name]
+
+
+class Dense(nn.Linear):
+    """``nn.Linear`` with flax's ``nn.Dense(dtype=...)``: float32
+    parameters; the input and the weight cast to ``dtype``, their product
+    rounded to ``dtype``, then the bias (cast too) added in ``dtype``.
+    ``exact``: the product of the cast operands accumulated in float32 and
+    rounded once, as ``precision=HIGHEST`` on bfloat16 operands computes
+    it."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 dtype=None, exact: bool = False):
+        super().__init__(in_features, out_features, bias=bias)
+        self.compute_dtype = as_dtype(dtype)
+        self.exact = exact
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        if dt == torch.float32:
+            return F.linear(x, self.weight, self.bias)
+        w = self.weight.to(dt)
+        if self.exact:
+            y = F.linear(x.to(dt).float(), w.float()).to(dt)
+        else:
+            y = F.linear(x.to(dt), w)
+        # flax adds the bias to the rounded product, in ``dtype``
+        return y if self.bias is None else y + self.bias.to(dt)
+
+
 class ChannelsLastBatchNorm(nn.BatchNorm1d):
     """BatchNorm over every axis but the last of a ``(..., C)`` tensor.
 
     Training mode normalises with the batch statistics (torch's two-pass
     variance; flax computes ``E[x²] − E[x]²``) and moves the running
     statistics toward the batch mean and the *biased* batch variance, as
-    flax's ``nn.BatchNorm`` does; torch's own update uses the unbiased one."""
+    flax's ``nn.BatchNorm`` does; torch's own update uses the unbiased one.
+    A bfloat16 input is normalised in float32 and the output is float32
+    (flax's ``BatchNorm(dtype=float32)``)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x2 = x.reshape(-1, x.shape[-1])
+        x2 = x.reshape(-1, x.shape[-1]).float()
         if not self.training:
             return super().forward(x2).view(x.shape)
         y = F.batch_norm(x2, None, None, self.weight, self.bias, True, 0.0,
                          self.eps)
+        if not moves_statistics():
+            return y.view(x.shape)
         with torch.no_grad():
             var, mean = torch.var_mean(x2, dim=0, correction=0)
             m = self.momentum
@@ -103,16 +189,17 @@ class Dropout(nn.Module):
         if generator is None:
             raise ValueError("dropout in training mode needs a generator")
         keep = torch.empty_like(x).bernoulli_(1 - self.rate, generator=generator)
-        return x * keep / (1 - self.rate)
+        return x * keep / rounded(1 - self.rate, x.dtype)
 
 
 class ConvBlock(nn.Module):
     """Linear (+BatchNorm) (+act) in ``conv-norm-act`` order; the bias is
-    dropped when a norm follows (↔ ``create_convblock1d/2d``)."""
+    dropped when a norm follows (↔ ``create_convblock1d/2d``).  The Linear
+    computes in ``dtype``; with a norm the block returns float32."""
 
     def __init__(self, in_channels: int, out_channels: int, norm_args=None,
                  act_args=None, order: str = "conv-norm-act",
-                 bias: bool = True):
+                 bias: bool = True, dtype=None):
         super().__init__()
         if order != "conv-norm-act":
             raise NotImplementedError(f"order {order} not ported")
@@ -120,8 +207,8 @@ class ConvBlock(nn.Module):
         if norm is not None and not norm.startswith(("bn", "syncbn")):
             raise NotImplementedError(f"norm {norm} not ported")
         self.act = create_act(act_args)
-        self.Dense_0 = nn.Linear(in_channels, out_channels,
-                                 bias=bias and norm is None)
+        self.Dense_0 = Dense(in_channels, out_channels,
+                             bias=bias and norm is None, dtype=dtype)
         self.BatchNorm_0 = batch_norm(out_channels) if norm else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -7,7 +7,9 @@ query, runs its MLP stack over the grouped ``dp_fj`` features and max-pools;
 the decoder is a stack of 3-NN FeaturePropagation modules back to the
 input level.  Submodules keep the flax names (``sa{i}``, ``ConvBlock_{j}``,
 ``fp{k}``) so that ``utils/convert.py::from_jax_variables`` maps the JAX
-weights leaf by leaf.  ``PointNet2PartDecoder`` is not ported.
+weights leaf by leaf.  ``PointNet2PartDecoder`` is not ported.  ``dtype``
+is the compute type of every Linear (the JAX modules' field); each block
+has a BatchNorm, which returns float32.
 """
 from __future__ import annotations
 
@@ -32,7 +34,7 @@ class PointNet2SA(nn.Module):
     def __init__(self, in_channels: int, mlp: Sequence[int], stride: int,
                  radius: float, nsample: Optional[int], group_args=None,
                  norm_args=None, act_args=None, conv_args=None,
-                 feature_type: str = "dp_fj"):
+                 feature_type: str = "dp_fj", dtype=None):
         super().__init__()
         ga = dict(group_args or {"NAME": "ballquery"})
         ga["radius"], ga["nsample"] = radius, nsample   # None: one group of all
@@ -43,7 +45,8 @@ class PointNet2SA(nn.Module):
         for j, cout in enumerate(mlp):
             self.add_module(f"ConvBlock_{j}", ConvBlock(
                 cin, cout, norm_args=norm_args or {"norm": "bn"},
-                act_args=act_args or {"act": "relu"}, order=order))
+                act_args=act_args or {"act": "relu"}, order=order,
+                dtype=dtype))
             cin = cout
 
     def forward(self, p, f):
@@ -70,7 +73,7 @@ class PointNet2Encoder(nn.Module):
                  width: Optional[int] = None,
                  strides: Sequence[int] = (4, 4, 4, 4), layers: int = 3,
                  width_scaling: int = 2, radius_scaling: float = 2,
-                 nsample_scaling: float = 1):
+                 nsample_scaling: float = 1, dtype=None):
         super().__init__()
         self.mlps, self.width, self.strides = mlps, width, list(strides)
         self.layers, self.width_scaling = layers, width_scaling
@@ -83,7 +86,7 @@ class PointNet2Encoder(nn.Module):
             self.add_module(f"sa{i}", PointNet2SA(
                 in_ch, stage_mlp, self.strides[i], radii[i][0], nsamples[i][0],
                 group_args=group_args, norm_args=norm_args, act_args=act_args,
-                conv_args=conv_args, feature_type=feature_type))
+                conv_args=conv_args, feature_type=feature_type, dtype=dtype))
             in_ch = stage_mlp[-1]
 
     def _stage_mlps(self) -> List[List[int]]:
@@ -124,7 +127,7 @@ class PointNet2Decoder(nn.Module):
 
     def __init__(self, encoder_channel_list: Sequence[int], fp_mlps=None,
                  decoder_layers: int = 1, in_channels_input: int = 3,
-                 norm_args=None, act_args=None):
+                 norm_args=None, act_args=None, dtype=None):
         super().__init__()
         ecl = list(encoder_channel_list)
         self.n = n = len(ecl)
@@ -140,7 +143,7 @@ class PointNet2Decoder(nn.Module):
             mlp = [skip[i] + in_ch] + [fp_out[i]] * max(decoder_layers, 1)
             self.add_module(f"fp{n + i}", FeaturePropagation(
                 mlp, norm_args=norm_args or {"norm": "bn"},
-                act_args=act_args or {"act": "relu"}))
+                act_args=act_args or {"act": "relu"}, dtype=dtype))
             in_ch = mlp[-1]
 
     def forward(self, p: List[torch.Tensor], f: List[torch.Tensor]):

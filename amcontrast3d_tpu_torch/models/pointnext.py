@@ -11,8 +11,23 @@ separable and generic paths), the fused GroupStatsBN tail of both (on with
 ``ops.aggregate.set_agg_fused('on')``), FeaturePropagation with
 upsampling, InvResMLP, the encoder with its per-stage shared ball query,
 the decoder with the masked refinement, and SegHead.  Not yet: the generic
-grouped-MLP LocalAggregation, the masked ``n_valid`` path, remat, ResBlock
-and random sampling.
+grouped-MLP LocalAggregation, the masked ``n_valid`` path, ResBlock and
+random sampling.
+
+``dtype`` (the runner's ``use_amp``: bfloat16) is the compute type of every
+Linear, as the JAX modules' field: the BatchNorms return float32, so the
+features between blocks stay float32, and what stays bfloat16 is what
+stays so in JAX: ``w_f(f)`` and ``w_dp(p)`` (the latter exact on its
+bfloat16 operands, ``Precision.HIGHEST``), the gather tail's grouped
+tensor, the fused tail's ``u = w_f(f) + w_dp(p)/r`` (its kernels take it
+in bfloat16 and ``qp`` in float32), the stem's output and the logits.
+
+``remat`` (the JAX encoder's ``nn.remat`` of each set abstraction and
+block) checkpoints each of them (``torch.utils.checkpoint``, not
+reentrant): the stage clouds, their layouts and the grouping indices come
+in from outside, so the backward recomputes only the Linears, the gathers,
+the BatchNorms and the pool, never FPS, a ball query or a sort; the
+recompute moves no running statistic (``layers.recomputing``).
 
 The encoder takes its positions first (:meth:`PointNextEncoder.sample`):
 FPS reads positions only, so the whole chain p_0 → … → p_S runs before any
@@ -23,10 +38,12 @@ ball queries, the decoder's CrossMask and, through the models of
 """
 from __future__ import annotations
 
+import contextlib
 from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops import spatial
 from ..ops.aggregate import agg_fused_enabled, grouped_slot_reduce
@@ -36,8 +53,9 @@ from ..ops.group import (CHANNEL_MAP, create_grouper, gather_points,
 from ..ops.interpolate import three_interpolation
 from ..ops.knn import ball_query, knn
 from .apm import Attention
-from .layers import (ChannelsLastBatchNorm, ConvBlock, Dropout, _act_name,
-                     _norm_name, create_act)
+from .layers import (ChannelsLastBatchNorm, ConvBlock, Dense, Dropout,
+                     _act_name, _norm_name, create_act, moves_statistics,
+                     recomputing, rounded)
 from .refine import dual_masks, map_sum
 
 
@@ -94,6 +112,18 @@ def _grouped_tail(idx, hf, sup, q, dp_dense, bn, act, dp_scale, pool,
                       for s in range(0, M, mc)], 1)
 
 
+def _recompute_context():
+    return contextlib.nullcontext(), recomputing()
+
+
+def _remat(fn, f):
+    """``fn(f)`` checkpointed: its activations are recomputed from ``f`` in
+    the backward, with the running statistics left alone (the tensors
+    ``fn`` closes over are kept as they are)."""
+    return checkpoint(fn, f, use_reentrant=False, preserve_rng_state=False,
+                      context_fn=_recompute_context)
+
+
 def _pool(reduction: str):
     reduction = "mean" if reduction.lower() == "avg" else reduction.lower()
     if reduction == "max":
@@ -128,21 +158,25 @@ class GroupStatsBN(ChannelsLastBatchNorm):
     statistics as flax does (momentum 0.9, biased variance)."""
 
     def pool(self, u, qp, idx, act=None, query_cloud=None):
-        """u (B, N, C) per-support values, qp (B, M, C) per-query offsets,
-        idx (B, M, K) int32 → (B, M, C); ``query_cloud``: the layout of the
-        M queries, whose order the kernels take them in."""
+        """u (B, N, C) per-support values (float32 or bfloat16), qp (B, M,
+        C) per-query offsets (taken in float32, as the JAX tail's ``qp32``),
+        idx (B, M, K) int32 → (B, M, C) float32; ``query_cloud``: the
+        layout of the M queries, whose order the kernels take them in.  In
+        a remat's recompute the running statistics stay as they are."""
         sgn = torch.where(self.weight.detach() >= 0, 1.0, -1.0)
+        qp = qp.float()
         if self.training:
             ext, su, sq = grouped_slot_reduce(u, idx, sgn, qp=qp,
                                               query_cloud=query_cloud)
             n = idx.numel()
             mean = su.sum((0, 1)) / n
             var = torch.clamp_min(sq.sum((0, 1)) / n - mean * mean, 0.0)
-            with torch.no_grad():
-                m = self.momentum
-                self.running_mean.mul_(1 - m).add_(mean, alpha=m)
-                self.running_var.mul_(1 - m).add_(var, alpha=m)
-                self.num_batches_tracked.add_(1)
+            if moves_statistics():
+                with torch.no_grad():
+                    m = self.momentum
+                    self.running_mean.mul_(1 - m).add_(mean, alpha=m)
+                    self.running_var.mul_(1 - m).add_(var, alpha=m)
+                    self.num_batches_tracked.add_(1)
         else:
             ext = grouped_slot_reduce(u, idx, sgn, need_stats=False,
                                       query_cloud=query_cloud)[0]
@@ -188,7 +222,7 @@ def _separable_tail(module, fused: bool, idx, f, p, q, act, pool,
 
     def proj(x):
         d = module.w_dp(x)
-        return d if dp_scale is None else d * (1.0 / dp_scale)
+        return d if dp_scale is None else d * rounded(1.0 / dp_scale, d.dtype)
 
     sproj = proj(p)
     qproj = sproj if q is p else proj(q)
@@ -220,7 +254,7 @@ class LocalAggregation(nn.Module):
 
     def __init__(self, channels: Sequence[int], norm_args=None, act_args=None,
                  group_args=None, conv_args=None, feature_type: str = "dp_fj",
-                 reduction: str = "max", last_act: bool = True):
+                 reduction: str = "max", last_act: bool = True, dtype=None):
         super().__init__()
         order = (conv_args or {}).get("order", "conv-norm-act")
         self.grouper = create_grouper(group_args)
@@ -233,8 +267,8 @@ class LocalAggregation(nn.Module):
                 "only the separable single-layer dp_fj aggregation with a "
                 "norm is ported")
         out_ch = channels[1]
-        self.w_f = nn.Linear(channels[0], out_ch, bias=False)
-        self.w_dp = nn.Linear(3, out_ch, bias=False)
+        self.w_f = Dense(channels[0], out_ch, bias=False, dtype=dtype)
+        self.w_dp = Dense(3, out_ch, bias=False, dtype=dtype, exact=True)
         self.BatchNorm_0 = group_stats_bn(out_ch)
         self.act = create_act(act_args) if last_act else None
         self.act_name = _act_name(act_args) if last_act else None
@@ -248,10 +282,13 @@ class LocalAggregation(nn.Module):
         cached_dp = None
         if isinstance(cached_idx, tuple):
             cached_idx, cached_dp = cached_idx
-        idx = cached_idx if cached_idx is not None else \
-            _group_idx(self.grouper, p, p, cloud)
+        idx = cached_idx if cached_idx is not None else self.group(p, cloud)
         return _separable_tail(self, self.takes_fused(), idx, f, p, p,
                                self.act, self.pool, cached_dp, cloud)
+
+    def group(self, p, cloud=None):
+        """The grouping indices of ``p`` onto itself."""
+        return _group_idx(self.grouper, p, p, cloud)
 
     def takes_fused(self) -> bool:
         """Whether this aggregation takes the fused tail."""
@@ -265,7 +302,7 @@ class SetAbstraction(nn.Module):
                  stride: int = 1, group_args=None, norm_args=None,
                  act_args=None, conv_args=None, sampler: str = "fps",
                  feature_type: str = "dp_fj", use_res: bool = False,
-                 is_head: bool = False):
+                 is_head: bool = False, dtype=None):
         super().__init__()
         if sampler.lower() != "fps":
             raise NotImplementedError(f"sampler {sampler} not ported")
@@ -281,7 +318,7 @@ class SetAbstraction(nn.Module):
         def conv(cin, cout, **kw) -> str:
             nonlocal n
             name = f"ConvBlock_{n}"
-            self.add_module(name, ConvBlock(cin, cout, **kw))
+            self.add_module(name, ConvBlock(cin, cout, dtype=dtype, **kw))
             n += 1
             return name
 
@@ -306,8 +343,9 @@ class SetAbstraction(nn.Module):
                               and _norm_name(norm_args) is not None
                               and self.grouper.method in ("ballquery", "knn"))
         if self.use_separable:
-            self.w_f = nn.Linear(in_channels, out_channels, bias=False)
-            self.w_dp = nn.Linear(3, out_channels, bias=False)
+            self.w_f = Dense(in_channels, out_channels, bias=False, dtype=dtype)
+            self.w_dp = Dense(3, out_channels, bias=False, dtype=dtype,
+                              exact=True)
             self.BatchNorm_0 = group_stats_bn(out_channels)
             return
         cin = CHANNEL_MAP[feature_type](in_channels)
@@ -327,16 +365,34 @@ class SetAbstraction(nn.Module):
         idx = furthest_point_sample(p, p.shape[1] // self.stride)
         return idx, gather_points(p, idx)
 
-    def forward(self, p, f, sampled=None, cloud=None, query_cloud=None):
+    def forward(self, p, f, sampled=None, cloud=None, query_cloud=None,
+                remat: bool = False):
         """``sampled``: :meth:`sample`'s (indices, query positions), taken
         here when not given; ``cloud`` and ``query_cloud``: the layouts of
-        ``p`` and of the query positions, where the caller holds them."""
-        mlp = [getattr(self, name) for name in self.mlp_names]
+        ``p`` and of the query positions, where the caller holds them;
+        ``remat``: checkpoint all but the sampling and the grouping."""
         if self.is_head:
-            for block in mlp:
-                f = block(f)
-            return p, f
+            return p, _remat(self._stem, f) if remat else self._stem(f)
         idx, new_p = self.sample(p) if sampled is None else sampled
+        if self.use_separable:
+            gidx = _group_idx(self.grouper, p, new_p, cloud, query_cloud)
+        else:
+            gidx = self.grouper.indices(new_p, p)
+
+        def body(f):
+            return self._aggregate(p, f, idx, new_p, gidx, query_cloud)
+
+        return new_p, _remat(body, f) if remat else body(f)
+
+    def _stem(self, f):
+        for name in self.mlp_names:
+            f = getattr(self, name)(f)
+        return f
+
+    def _aggregate(self, p, f, idx, new_p, gidx, query_cloud):
+        """The features of the queries ``new_p`` (FPS indices ``idx``) over
+        the grouping ``gidx``."""
+        mlp = [getattr(self, name) for name in self.mlp_names]
         fi = None
         if self.use_res or "df" in self.feature_type:
             fi = gather_points(f, idx) if idx is not None else f
@@ -344,34 +400,34 @@ class SetAbstraction(nn.Module):
             identity = (getattr(self, self.identity_name)(fi)
                         if self.identity_name else fi)
         if self.use_separable:
-            gidx = _group_idx(self.grouper, p, new_p, cloud, query_cloud)
             f = _separable_tail(
                 self, _fused(None if self.use_res else self.act_name), gidx, f,
                 p, new_p,
                 None if self.use_res else self.act,
                 lambda t: torch.amax(t, dim=-2), query_cloud=query_cloud)
         else:
-            dp, fj = self.grouper(new_p, p, f)
+            dp, fj = self.grouper(new_p, p, f, gidx)
             fj = get_aggregation_features(new_p, dp, fi, fj, self.feature_type)
             for block in mlp:
                 fj = block(fj)
             f = torch.amax(fj, dim=-2)
         if self.use_res:
             f = self.act(f + identity)
-        return new_p, f
+        return f
 
 
 class FeaturePropagation(nn.Module):
     """3-NN upsampling + MLP; ``mlp`` is [skip + coarse, fp, fp]."""
 
     def __init__(self, mlp: Sequence[int], upsample: bool = True,
-                 norm_args=None, act_args=None):
+                 norm_args=None, act_args=None, dtype=None):
         super().__init__()
         if not upsample:
             raise NotImplementedError("global (non-upsampling) FP not ported")
         for i, (cin, cout) in enumerate(zip(mlp[:-1], mlp[1:])):
             self.add_module(f"ConvBlock_{i}", ConvBlock(
-                cin, cout, norm_args=norm_args, act_args=act_args))
+                cin, cout, norm_args=norm_args, act_args=act_args,
+                dtype=dtype))
 
     def forward(self, pf1, pf2, query_cloud=None, cloud=None):
         """``query_cloud`` and ``cloud``: the layouts of ``p1`` (the fine
@@ -392,7 +448,7 @@ class InvResMLP(nn.Module):
     def __init__(self, in_channels: int, norm_args=None, act_args=None,
                  aggr_args=None, group_args=None, conv_args=None,
                  expansion: int = 1, use_res: bool = True,
-                 num_posconvs: int = 2, less_act: bool = False):
+                 num_posconvs: int = 2, less_act: bool = False, dtype=None):
         super().__init__()
         aggr = dict(aggr_args or {"feature_type": "dp_fj", "reduction": "max"})
         self.use_res = use_res
@@ -402,7 +458,7 @@ class InvResMLP(nn.Module):
             act_args=act_args if num_posconvs > 0 else None,
             group_args=group_args, conv_args=conv_args,
             feature_type=aggr.get("feature_type", "dp_fj"),
-            reduction=aggr.get("reduction", "max"))
+            reduction=aggr.get("reduction", "max"), dtype=dtype)
         mid = int(in_channels * expansion)
         channels = ([] if num_posconvs < 1 else [in_channels]
                     if num_posconvs == 1 else [mid, in_channels])
@@ -413,10 +469,18 @@ class InvResMLP(nn.Module):
             self.add_module(f"ConvBlock_{i}", ConvBlock(
                 cin, ch, norm_args=norm_args,
                 act_args=None if (last and not less_act) else act_args,
-                order=order))
+                order=order, dtype=dtype))
             cin = ch
 
-    def forward(self, p, f, cached_idx=None, cloud=None):
+    def forward(self, p, f, cached_idx=None, cloud=None, remat: bool = False):
+        """``remat``: checkpoint all but the grouping."""
+        if not remat:
+            return p, self._block(p, f, cached_idx, cloud)
+        if cached_idx is None:
+            cached_idx = self.LocalAggregation_0.group(p, cloud)
+        return p, _remat(lambda f: self._block(p, f, cached_idx, cloud), f)
+
+    def _block(self, p, f, cached_idx, cloud):
         identity = f
         f = self.LocalAggregation_0(p, f, cached_idx=cached_idx, cloud=cloud)
         for name, block in self.named_children():
@@ -424,7 +488,7 @@ class InvResMLP(nn.Module):
                 f = block(f)
         if f.shape[-1] == identity.shape[-1] and self.use_res:
             f = f + identity
-        return p, self.act(f)
+        return self.act(f)
 
 
 class PointNextEncoder(nn.Module):
@@ -439,11 +503,12 @@ class PointNextEncoder(nn.Module):
                  sa_use_res: bool = False, norm_args=None, act_args=None,
                  conv_args=None, sampler: str = "fps", expansion: int = 4,
                  use_res: bool = True, radius_scaling: float = 2,
-                 nsample_scaling: float = 1):
+                 nsample_scaling: float = 1, remat: bool = False, dtype=None):
         super().__init__()
         if block != "InvResMLP":
             raise NotImplementedError(f"block {block} not ported")
         self.width, self.blocks, self.strides = width, list(blocks), list(strides)
+        self.remat = bool(remat)
         norm_args = norm_args or {"norm": "bn"}
         act_args = act_args or {"act": "relu"}
         aggr_args = dict(aggr_args or {"feature_type": "dp_fj", "reduction": "max"})
@@ -464,7 +529,8 @@ class PointNextEncoder(nn.Module):
                 group_args=ga, norm_args=norm_args, act_args=act_args,
                 conv_args=conv_args, sampler=sampler, use_res=sa_use_res,
                 is_head=is_head,
-                feature_type=aggr_args.get("feature_type", "dp_fj")))
+                feature_type=aggr_args.get("feature_type", "dp_fj"),
+                dtype=dtype))
             in_ch = channels[i]
             nb = blocks[i]
             # consecutive blocks of a stage share (points, radius, nsample):
@@ -481,7 +547,7 @@ class PointNextEncoder(nn.Module):
                     in_channels=in_ch, aggr_args=aggr_args,
                     norm_args=norm_args, act_args=act_args, group_args=gaj,
                     conv_args=conv_args, expansion=expansion,
-                    use_res=use_res))
+                    use_res=use_res, dtype=dtype))
 
     @property
     def channel_list(self) -> List[int]:
@@ -513,15 +579,18 @@ class PointNextEncoder(nn.Module):
                 ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
         """``stages``: :meth:`sample` of ``p0``, taken here when not given;
         returns the positions (its tensors, which its layouts were made
-        from) and the features of every stage, index 0 the input."""
+        from) and the features of every stage, index 0 the input.  With
+        ``remat`` and gradients on, each set abstraction and block is
+        checkpointed."""
         if stages is None:
             stages = self.sample(p0)
+        remat = self.remat and torch.is_grad_enabled()
         p_list, f_list = [stages.p[0]], [f0]
         p, f = stages.p[0], f0
         for i in range(len(self.blocks)):
             cloud, query_cloud = stages.clouds[i], stages.clouds[i + 1]
             p, f = getattr(self, f"enc{i}_sa")(p, f, stages.sampled[i], cloud,
-                                               query_cloud)
+                                               query_cloud, remat)
             shared = None
             if self.shared[i]:
                 r, k = self.radii[i][1], self.nsamples[i][1]
@@ -536,7 +605,7 @@ class PointNextEncoder(nn.Module):
                     (idx, group_points(p, idx) - p[:, :, None, :])
             for j in range(1, self.blocks[i]):
                 p, f = getattr(self, f"enc{i}_block{j}")(
-                    p, f, cached_idx=shared, cloud=query_cloud)
+                    p, f, cached_idx=shared, cloud=query_cloud, remat=remat)
             p_list.append(p)
             f_list.append(f)
         return p_list, f_list
@@ -570,7 +639,8 @@ class PointNextDecoder(nn.Module):
                  refine: bool = False, refine_mapping: bool = False,
                  refine_attention: bool = False, nsample_k: int = 12,
                  fusion: str = "MIN", threshold: float = 0.7,
-                 threshold_max: float = 1.0, gamma: float = 0.5):
+                 threshold_max: float = 1.0, gamma: float = 0.5,
+                 dtype=None):
         super().__init__()
         ecl = list(encoder_channel_list)
         self.decoder_stages = decoder_stages
@@ -590,11 +660,11 @@ class PointNextDecoder(nn.Module):
         for i in range(-1, -n - 1, -1):
             mlp = [skip_channels[i] + in_ch] + [fp_channels[i]] * decoder_layers
             self.add_module(f"fp{n + i}", FeaturePropagation(
-                mlp, norm_args=norm_args, act_args=act_args))
+                mlp, norm_args=norm_args, act_args=act_args, dtype=dtype))
             in_ch = fp_channels[i]
             if refine and refine_mapping and refine_attention:
                 self.add_module(f"refine_att{n + i}",
-                                Attention(in_ch, in_ch, in_ch))
+                                Attention(in_ch, in_ch, in_ch, dtype=dtype))
 
     @property
     def out_channels(self) -> int:
@@ -641,7 +711,7 @@ class SegHead(nn.Module):
 
     def __init__(self, num_classes: int, in_channels: int, mlps=None,
                  norm_args=None, act_args=None, dropout: float = 0.5,
-                 global_feat: Optional[str] = None):
+                 global_feat: Optional[str] = None, dtype=None):
         super().__init__()
         norm_args = norm_args or {"norm": "bn1d"}
         act_args = act_args or {"act": "relu"}
@@ -656,10 +726,11 @@ class SegHead(nn.Module):
         layers = []
         for cin, cout in zip(mlps[:-2], mlps[1:-1]):
             layers.append(ConvBlock(cin, cout, norm_args=norm_args,
-                                    act_args=act_args))
+                                    act_args=act_args, dtype=dtype))
             if dropout:
                 layers.append(Dropout(dropout))
-        layers.append(ConvBlock(mlps[-2], mlps[-1]))
+        # no norm: the logits come out in ``dtype``
+        layers.append(ConvBlock(mlps[-2], mlps[-1], dtype=dtype))
         n = 0   # flax names only the ConvBlocks: ConvBlock_0, ConvBlock_1, …
         for layer in layers:
             if isinstance(layer, ConvBlock):

@@ -137,6 +137,12 @@ _SIGNATURES = {
     # has_stats, stream
     "amc3d_aggregate_backward": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P,
                                  _I, _I, _I, _I, _I, _I, _P),
+    # the bfloat16 forms: u (B,N,C) bf16, the rest as above; the VJP's
+    # float32 accumulator (B,N,C) ahead of du (B,N,C) bf16
+    "amc3d_aggregate_forward_bf16": (_P, _P, _P, _P, _P, _I, _P, _P, _P, _P,
+                                     _I, _I, _I, _I, _I, _I, _P),
+    "amc3d_aggregate_backward_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                      _P, _P, _I, _I, _I, _I, _I, _I, _P),
 }
 
 

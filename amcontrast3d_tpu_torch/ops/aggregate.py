@@ -23,6 +23,17 @@ in runs along the query cloud's Morton curve, the order of its layout
 ``radius`` only feed its chunk pruning, and ``splits`` its bf16 matmul
 gather: the port takes neither.
 
+``u`` is float32 or bfloat16 (the fused tail's ``u = w_f(f) + w_dp(p)/r``
+under ``use_amp``), ``qp`` and every other operand float32, and ext, su,
+sq float32 either way (ext the exact float32 of a value of ``u``), as the
+JAX entry returns them.  A bfloat16 ``u`` on the card takes the kernels'
+bfloat16 forms (``aggregate_forward_bf16``, ``aggregate_backward_bf16``:
+the slot values loaded as bfloat16, everything after in float32; the VJP
+sums du in float32 and rounds it once to bfloat16, as JAX's
+``du.astype(u.dtype)`` after its float32 kernel); no other dtype is taken
+and nothing is upcast on the way in.  The plain twins gather bfloat16 and
+compute in float32.
+
 The switch (``set_agg_fused``, default from ``AMC3D_AGG_FUSED``) is
 process-wide, as in the JAX package; ``auto`` means ``off`` here (JAX: on
 a TPU only).  Where it is on, every separable aggregation with a monotone
@@ -69,11 +80,11 @@ def _shapes(u, idx):
     return B, N, C, idx.shape[1], idx.shape[2]
 
 
-def _check_cuda(name: str, u, idx, rows: dict, order) -> None:
+def _check_cuda(name: str, u, idx, rows: dict, order, u_dtype) -> None:
     """Shapes, dtypes, device and contiguity the kernels take; ``rows`` maps
     the names of the (B, M, C) operands to (tensor or None, dtype)."""
     B, N, C, M, K = _shapes(u, idx)
-    want = {"u": (u, (B, N, C), torch.float32),
+    want = {"u": (u, (B, N, C), u_dtype),
             "idx": (idx, (B, M, K), torch.int32)}
     want.update({k: (v, (B, M, C), dtype) for k, (v, dtype) in rows.items()
                  if v is not None})
@@ -110,10 +121,12 @@ def _order_args(order):
 
 
 def _slots(u, idx) -> torch.Tensor:
-    """The grouped tensor (B, M, K, C), gathered."""
+    """The grouped tensor (B, M, K, C), gathered at u's dtype and taken to
+    float32 (exact for bfloat16)."""
     B, N, C, M, K = _shapes(u, idx)
     rows = idx.reshape(B, M * K, 1).long().expand(-1, -1, C)
-    return torch.gather(u, 1, rows).view(B, M, K, C)
+    return torch.gather(u, 1, rows).view(B, M, K, C).float()
+
 
 
 def aggregate_forward_plain(u, idx, sgn, qp=None, need_stats: bool = True,
@@ -141,8 +154,9 @@ def aggregate_forward_plain(u, idx, sgn, qp=None, need_stats: bool = True,
 
 def aggregate_forward(u, idx, sgn, qp=None, need_stats: bool = True,
                       order=None, keep_ties: bool = False):
-    """u (B, N, C) f32, idx (B, M, K) int32 in [0, N), sgn (C,) ±1, qp
-    (B, M, C) or None (zeros) → (ext, su, sq, ties), each (B, M, C): ext,
+    """u (B, N, C) f32 or bf16, idx (B, M, K) int32 in [0, N), sgn (C,)
+    ±1, qp (B, M, C) f32 or None (zeros) → (ext, su, sq, ties), each
+    (B, M, C): ext,
     su and sq f32 (su and sq None unless ``need_stats``), ties uint8, the
     slots that reach the extremum, for :func:`aggregate_backward` (None
     unless ``keep_ties``; then K ≤ MAX_SLOTS).  ``order`` (B, M) int32:
@@ -150,39 +164,61 @@ def aggregate_forward(u, idx, sgn, qp=None, need_stats: bool = True,
     layout's :func:`spatial.index_bits`; a stride within a row allowed), or
     None (index order); it changes no value.  No gradient:
     :func:`grouped_slot_reduce` is the differentiable entry.  A CUDA
-    tensor goes through the forward kernel of ``csrc/aggregate.cu``, a CPU
-    tensor through :func:`aggregate_forward_plain`."""
+    tensor goes through the forward kernel of ``csrc/aggregate.cu`` (its
+    bfloat16 form for a bfloat16 ``u``: :func:`aggregate_forward_bf16`), a
+    CPU tensor through :func:`aggregate_forward_plain`."""
     if all(t.device.type == "cpu" for t in (u, idx, sgn)):
         return aggregate_forward_plain(u, idx, sgn, qp, need_stats, order,
                                        keep_ties)
+    if u.dtype == torch.bfloat16:
+        return aggregate_forward_bf16(u, idx, sgn, qp, need_stats, order,
+                                      keep_ties)
+    return _forward_kernel(u, idx, sgn, qp, need_stats, order, keep_ties,
+                           False)
+
+
+def aggregate_forward_bf16(u, idx, sgn, qp=None, need_stats: bool = True,
+                           order=None, keep_ties: bool = False):
+    """The bfloat16 form of :func:`aggregate_forward`'s kernel: ``u`` a
+    bfloat16 CUDA tensor (anything else raises), the outputs as there."""
+    return _forward_kernel(u, idx, sgn, qp, need_stats, order, keep_ties,
+                           True)
+
+
+def _forward_kernel(u, idx, sgn, qp, need_stats, order, keep_ties,
+                    bf16: bool):
+    name = "aggregate_forward_bf16" if bf16 else "aggregate_forward"
     B, N, C, M, K = _shapes(u, idx)
     if need_stats and qp is None:
-        qp = u.new_zeros(B, M, C)
+        qp = torch.zeros(B, M, C, dtype=torch.float32, device=u.device)
     if keep_ties:
-        _check_slots("aggregate_forward", K)
-    _check_cuda("aggregate_forward", u, idx,
-                {"qp": (qp if need_stats else None, torch.float32)}, order)
+        _check_slots(name, K)
+    _check_cuda(name, u, idx,
+                {"qp": (qp if need_stats else None, torch.float32)}, order,
+                torch.bfloat16 if bf16 else torch.float32)
     if sgn.shape != (C,) or sgn.dtype != torch.float32 \
             or sgn.device != u.device or not sgn.is_contiguous():
-        raise ValueError(f"aggregate_forward: sgn must be a contiguous ({C},) "
+        raise ValueError(f"{name}: sgn must be a contiguous ({C},) "
                          f"float32 tensor on {u.device}")
     ext = torch.empty(B, M, C, dtype=torch.float32, device=u.device)
     su = torch.empty_like(ext) if need_stats else None
     sq = torch.empty_like(ext) if need_stats else None
     ties = (torch.empty(B, M, C, dtype=torch.uint8, device=u.device)
             if keep_ties else None)
-    launch("amc3d_aggregate_forward", u.data_ptr(), idx.data_ptr(),
+    launch("amc3d_" + name, u.data_ptr(), idx.data_ptr(),
            sgn.data_ptr(), _ptr(qp if need_stats else None), *_order_args(order),
            ext.data_ptr(), _ptr(su), _ptr(sq), _ptr(ties), B, N, M, K, C,
            int(need_stats), _stream(u))
-    aggregate_forward.launches += 1
+    (aggregate_forward_bf16 if bf16 else aggregate_forward).launches += 1
     return ext, su, sq, ties
 
 
 def aggregate_backward_plain(u, idx, qp, ext, ties, g_ext, g_sum=None,
-                             g_sq=None, order=None) -> torch.Tensor:
-    """Plain PyTorch :func:`aggregate_backward`: γ over the gathered slots,
-    scattered by ``index_add_`` (``order`` changes nothing here)."""
+                             g_sq=None, order=None,
+                             accumulator=None) -> torch.Tensor:
+    """Plain PyTorch :func:`aggregate_backward`: γ over the gathered slots
+    in float32, scattered by ``index_add_`` into float32 and rounded once
+    to u's dtype (``order`` changes nothing here)."""
     B, N, C, M, K = _shapes(u, idx)
     g = _slots(u, idx)
     eq = (g == ext[:, :, None]).float()
@@ -191,47 +227,89 @@ def aggregate_backward_plain(u, idx, qp, ext, ties, g_ext, g_sum=None,
         h = g if qp is None else g - qp[:, :, None]
         gamma = (g_sum[:, :, None] + 2.0 * h * g_sq[:, :, None]) + gamma
     rows = (idx.long() + N * torch.arange(B, device=u.device)[:, None, None])
-    return u.new_zeros(B * N, C).index_add_(
-        0, rows.reshape(-1), gamma.reshape(-1, C)).view(B, N, C)
+    du = (torch.zeros(B * N, C, dtype=torch.float32, device=u.device)
+          if accumulator is None else accumulator.view(B * N, C).zero_())
+    du.index_add_(0, rows.reshape(-1), gamma.reshape(-1, C))
+    return du.view(B, N, C).to(u.dtype)
 
 
 def aggregate_backward(u, idx, qp, ext, ties, g_ext, g_sum=None, g_sq=None,
-                       order=None) -> torch.Tensor:
+                       order=None, accumulator=None) -> torch.Tensor:
     """du (B, N, C) of :func:`aggregate_forward` for the incoming gradients
     of ext, su and sq (``g_sum``, ``g_sq`` None: eval mode, no moments),
-    given its ext and ties.  A slot attains the extremum where its value
-    equals ext (``sgn`` = ±1 does not enter).  ``order`` as the forward's.
-    A CUDA tensor goes through the backward kernel of ``csrc/aggregate.cu``
-    (each run's rows summed once, then float atomics across runs: not
-    bit-deterministic), a CPU tensor through :func:`aggregate_backward_plain`."""
+    given its ext and ties: du in u's dtype (float32 or bfloat16).  A slot
+    attains the extremum where its value equals ext (``sgn`` = ±1 does not
+    enter).  ``order`` as the forward's.  ``accumulator``: for a bfloat16
+    ``u``, a float32 (B, N, C) tensor that receives du's float32 sums before
+    their rounding.  A CUDA tensor goes through the backward kernel of
+    ``csrc/aggregate.cu`` (each run's rows summed once, then float atomics
+    across runs: not bit-deterministic; its bfloat16 form for a bfloat16
+    ``u``: :func:`aggregate_backward_bf16`), a CPU tensor through
+    :func:`aggregate_backward_plain`."""
     if all(t.device.type == "cpu" for t in (u, idx, ext, ties, g_ext)):
         return aggregate_backward_plain(u, idx, qp, ext, ties, g_ext, g_sum,
-                                        g_sq, order)
+                                        g_sq, order, accumulator)
+    if u.dtype == torch.bfloat16:
+        return aggregate_backward_bf16(u, idx, qp, ext, ties, g_ext, g_sum,
+                                       g_sq, order, accumulator)
+    if accumulator is not None:
+        raise ValueError("aggregate_backward: a float32 u's kernel sums in du "
+                         "itself; the accumulator is a bfloat16 u's")
+    return _backward_kernel(u, idx, qp, ext, ties, g_ext, g_sum, g_sq, order,
+                            None)
+
+
+def aggregate_backward_bf16(u, idx, qp, ext, ties, g_ext, g_sum=None,
+                            g_sq=None, order=None,
+                            accumulator=None) -> torch.Tensor:
+    """The bfloat16 form of :func:`aggregate_backward`'s kernel: ``u`` a
+    bfloat16 CUDA tensor (anything else raises); du summed in float32
+    (``accumulator``, or a scratch tensor) and rounded once to bfloat16 in
+    a closing pass."""
+    if accumulator is None:
+        accumulator = torch.empty(u.shape, dtype=torch.float32, device=u.device)
+    elif (accumulator.shape != u.shape or accumulator.dtype != torch.float32
+          or accumulator.device != u.device or not accumulator.is_contiguous()):
+        raise ValueError("aggregate_backward_bf16: the accumulator must be a "
+                         f"contiguous float32 {tuple(u.shape)} tensor on "
+                         f"{u.device}")
+    return _backward_kernel(u, idx, qp, ext, ties, g_ext, g_sum, g_sq, order,
+                            accumulator)
+
+
+def _backward_kernel(u, idx, qp, ext, ties, g_ext, g_sum, g_sq, order, acc):
+    """The float32 form (``acc`` None: du is the sums) or the bfloat16 one
+    (the sums in ``acc``, du their rounding)."""
+    bf16 = acc is not None
+    name = "aggregate_backward_bf16" if bf16 else "aggregate_backward"
     B, N, C, M, K = _shapes(u, idx)
     stats = g_sum is not None
     if stats != (g_sq is not None):
-        raise ValueError("aggregate_backward takes g_sum and g_sq together")
-    if stats and qp is None:
-        qp = u.new_zeros(B, M, C)
-    _check_slots("aggregate_backward", K)
+        raise ValueError(f"{name} takes g_sum and g_sq together")
     f32 = torch.float32
-    _check_cuda("aggregate_backward", u, idx,
+    if stats and qp is None:
+        qp = torch.zeros(B, M, C, dtype=f32, device=u.device)
+    _check_slots(name, K)
+    _check_cuda(name, u, idx,
                 {"ext": (ext, f32), "ties": (ties, torch.uint8),
                  "g_ext": (g_ext, f32), "qp": (qp if stats else None, f32),
-                 "g_sum": (g_sum, f32), "g_sq": (g_sq, f32)}, order)
-    du = torch.empty(B, N, C, dtype=torch.float32, device=u.device)
-    launch("amc3d_aggregate_backward", u.data_ptr(), idx.data_ptr(),
+                 "g_sum": (g_sum, f32), "g_sq": (g_sq, f32)}, order,
+                torch.bfloat16 if bf16 else f32)
+    du = torch.empty(B, N, C, dtype=u.dtype, device=u.device)
+    launch("amc3d_" + name, u.data_ptr(), idx.data_ptr(),
            _ptr(qp if stats else None), ext.data_ptr(), ties.data_ptr(),
            g_ext.data_ptr(), _ptr(g_sum), _ptr(g_sq), *_order_args(order),
-           du.data_ptr(), B, N, M, K, C, int(stats), _stream(u))
-    aggregate_backward.launches += 1
+           *((acc.data_ptr(),) if bf16 else ()), du.data_ptr(), B, N, M, K, C,
+           int(stats), _stream(u))
+    (aggregate_backward_bf16 if bf16 else aggregate_backward).launches += 1
     return du
 
 
 class _SlotReduce(torch.autograd.Function):
     """Forward and VJP by the kernels, or by the plain twins (``plain``);
     returns (ext, su, sq) with the moments, else (ext,).  The forward
-    counts the ties only when ``u`` needs its gradient."""
+    counts the ties only when ``u`` needs its gradient.  du comes back in
+    u's dtype, dqp in float32 (the caller's cast takes it to qp's)."""
 
     @staticmethod
     def forward(ctx, u, qp, idx, sgn, need_stats, plain, order):
@@ -266,9 +344,10 @@ def _slot_reduce(u, idx, sgn, qp, need_stats: bool, plain: bool, query_cloud):
         order = spatial.index_bits(query_cloud)
         spatial.check_order(order, B, M, u.device, "query_cloud's order")
     if need_stats and qp is None:
-        qp = u.new_zeros(u.shape[0], idx.shape[1], u.shape[2])
+        qp = torch.zeros(u.shape[0], idx.shape[1], u.shape[2],
+                         dtype=torch.float32, device=u.device)
     out = _SlotReduce.apply(u.contiguous(),
-                            qp.contiguous() if need_stats else None,
+                            qp.float().contiguous() if need_stats else None,
                             idx.contiguous(), sgn.contiguous(),
                             bool(need_stats), plain, order)
     return tuple(out) if need_stats else (out[0], None, None)
@@ -276,15 +355,17 @@ def _slot_reduce(u, idx, sgn, qp, need_stats: bool, plain: bool, query_cloud):
 
 def grouped_slot_reduce(u, idx, sgn, qp=None, need_stats: bool = True,
                         query_cloud=None):
-    """u (B, N, C) f32 per-support values, idx (B, M, K) int32 slot indices
-    (ball query or kNN output, repeats allowed), sgn (C,) ±1, qp (B, M, C)
-    per-query offsets (None: zeros) → (ext, su, sq), each (B, M, C); su and
+    """u (B, N, C) f32 or bf16 per-support values, idx (B, M, K) int32 slot
+    indices (ball query or kNN output, repeats allowed), sgn (C,) ±1, qp
+    (B, M, C) per-query offsets, taken in f32 (None: zeros) → (ext, su,
+    sq), each (B, M, C) f32; su and
     sq are None unless ``need_stats`` (eval-mode BatchNorm).
     ``query_cloud``: the layout of the M queries (a
     :class:`spatial.SortedCloud` of (B, M) points), whose order the kernels'
     runs take; without it, index order.  It changes no value.
-    Differentiable in ``u`` and ``qp``.  CUDA tensors run the two kernels,
-    CPU tensors the plain twins."""
+    Differentiable in ``u`` and ``qp``, the gradients in their dtypes.
+    CUDA tensors run the two kernels (their bfloat16 forms for a bfloat16
+    ``u``), CPU tensors the plain twins."""
     plain = all(t.device.type == "cpu" for t in (u, idx, sgn))
     return _slot_reduce(u, idx, sgn, qp, need_stats, plain, query_cloud)
 
@@ -297,3 +378,5 @@ def grouped_slot_reduce_plain(u, idx, sgn, qp=None, need_stats: bool = True,
 
 aggregate_forward.launches = 0
 aggregate_backward.launches = 0
+aggregate_forward_bf16.launches = 0
+aggregate_backward_bf16.launches = 0

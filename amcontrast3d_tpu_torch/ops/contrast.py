@@ -367,21 +367,37 @@ class _ContrastReductions(torch.autograd.Function):
     """Forward and VJP by the kernels, or by the plain twins (``plain``).
     The kernels' forward gathers the sorted columns of ``cloud``, the
     layout of ``p`` (sorted here when not given), once, and keeps layout
-    and columns for both halves of the VJP."""
+    and columns for both halves of the VJP.  ``keep``: a dict a
+    checkpointed caller holds (the loss's ``ambiguity_args.remat``); the
+    forward puts its sums (and layout and columns) there, and the
+    recompute takes them back instead of launching again."""
 
     @staticmethod
     def forward(ctx, p, f, lab, kth, tinv, cctype_root, need_s, need_d,
-                plain, cloud):
+                plain, cloud, keep):
         ctx.tinv, ctx.need_s, ctx.plain = tinv, need_s, plain
+        if keep is not None and "out" in keep:
+            if plain:
+                ctx.save_for_backward(p, f, lab, kth)
+            else:
+                ctx.cloud, aux, cmax = keep["layout"]
+                ctx.save_for_backward(f, aux, cmax)
+            return keep["out"].clone()
         if plain:
             ctx.save_for_backward(p, f, lab, kth)
-            return contrast_forward_plain(p, f, lab, kth, tinv, cctype_root,
-                                          need_s, need_d)
-        _check(p, f, lab, kth, cuda=True)
-        ctx.cloud, aux, cmax = _layout(p, lab, kth, cloud)
-        ctx.save_for_backward(f, aux, cmax)
-        return _forward_kernel(ctx.cloud, aux, f, tinv, cctype_root, need_s,
-                               need_d)
+            out = contrast_forward_plain(p, f, lab, kth, tinv, cctype_root,
+                                         need_s, need_d)
+        else:
+            _check(p, f, lab, kth, cuda=True)
+            ctx.cloud, aux, cmax = _layout(p, lab, kth, cloud)
+            ctx.save_for_backward(f, aux, cmax)
+            out = _forward_kernel(ctx.cloud, aux, f, tinv, cctype_root,
+                                  need_s, need_d)
+            if keep is not None:
+                keep["layout"] = (ctx.cloud, aux, cmax)
+        if keep is not None:
+            keep["out"] = out.detach()
+        return out
 
     @staticmethod
     def backward(ctx, gout):
@@ -395,37 +411,39 @@ class _ContrastReductions(torch.autograd.Function):
             df_rows = _rows_kernel(ctx.cloud, aux, f, g4, ctx.tinv, ctx.need_s)
             df_sup = _support_kernel(ctx.cloud, aux, cmax, f, g4, ctx.tinv,
                                      ctx.need_s)
-        return (None, df_rows + df_sup) + (None,) * 8
+        return (None, df_rows + df_sup) + (None,) * 9
 
 
 def contrast_reductions(p, f, lab, kth, tinv: float = 1.0,
                         cctype_root: bool = False, need_s: bool = True,
                         need_d: bool = True,
-                        cloud: Optional[spatial.SortedCloud] = None
-                        ) -> torch.Tensor:
+                        cloud: Optional[spatial.SortedCloud] = None,
+                        keep: Optional[dict] = None) -> torch.Tensor:
     """p (B,N,3), f (B,N,C), lab (B,N) argmax labels, kth (B,N) d²
     threshold, all f32 → (B, N, 9) [P,Q,Spos,Sneg,npos,nneg,dpos,dneg,thr],
     differentiable in ``f``.  CUDA tensors run the three kernels over
     ``cloud``, the layout of ``p`` (sorted in the forward when not given),
-    CPU tensors the plain twins."""
+    CPU tensors the plain twins.  ``keep``: a dict that a checkpointed
+    caller holds across its recompute, which then reuses the forward's
+    sums (no kernel runs twice)."""
     if cloud is not None:
         spatial.check_layout(cloud, p)
     plain = all(t.device.type == "cpu" for t in (p, f, lab, kth))
     return _ContrastReductions.apply(p, f, lab, kth, float(tinv),
                                      bool(cctype_root), bool(need_s),
-                                     bool(need_d), plain, cloud)
+                                     bool(need_d), plain, cloud, keep)
 
 
 def contrast_reductions_plain(p, f, lab, kth, tinv: float = 1.0,
                               cctype_root: bool = False, need_s: bool = True,
                               need_d: bool = True,
-                              cloud: Optional[spatial.SortedCloud] = None
-                              ) -> torch.Tensor:
+                              cloud: Optional[spatial.SortedCloud] = None,
+                              keep: Optional[dict] = None) -> torch.Tensor:
     """:func:`contrast_reductions` by the plain twins on any device (a
     layout, ``cloud``, changes nothing here)."""
     return _ContrastReductions.apply(p, f, lab, kth, float(tinv),
                                      bool(cctype_root), bool(need_s),
-                                     bool(need_d), True, None)
+                                     bool(need_d), True, None, keep)
 
 
 def kth_distinct_plain(support: torch.Tensor, query: torch.Tensor,
@@ -500,31 +518,43 @@ def contrast_select(p: torch.Tensor, k: int,
 def contrast_reductions_selfk(p, f, lab, k: int, tinv: float = 1.0,
                               cctype_root: bool = False, need_s: bool = True,
                               need_d: bool = True,
-                              cloud: Optional[spatial.SortedCloud] = None
-                              ) -> torch.Tensor:
+                              cloud: Optional[spatial.SortedCloud] = None,
+                              keep: Optional[dict] = None) -> torch.Tensor:
     """:func:`contrast_reductions` over each point's own threshold (↔
     ``contrast_pallas.py::contrast_reductions_selfk``): no kNN runs.  The
     forward and the VJP are the same kernels with that threshold, which
     column 8 holds; the selection and the contrast kernels read ``cloud``
-    when given.  ``k`` counts the self point."""
+    when given.  ``k`` counts the self point.  ``keep``: as
+    :func:`contrast_reductions` takes it, the thresholds kept too."""
     with torch.no_grad():
-        thr = contrast_select(p, k, cloud)
+        if keep is not None and "thr" in keep:
+            thr = keep["thr"]
+        else:
+            thr = contrast_select(p, k, cloud)
+            if keep is not None:
+                keep["thr"] = thr
     return contrast_reductions(p, f, lab, thr, tinv, cctype_root, need_s,
-                               need_d, cloud)
+                               need_d, cloud, keep)
 
 
 def contrast_reductions_selfk_plain(p, f, lab, k: int, tinv: float = 1.0,
                                     cctype_root: bool = False,
                                     need_s: bool = True,
                                     need_d: bool = True,
-                                    cloud: Optional[spatial.SortedCloud] = None
+                                    cloud: Optional[spatial.SortedCloud] = None,
+                                    keep: Optional[dict] = None
                                     ) -> torch.Tensor:
     """:func:`contrast_reductions_selfk` by the plain twins on any device (a
     layout, ``cloud``, changes nothing here)."""
     with torch.no_grad():
-        thr = contrast_select_plain(p, k)
+        if keep is not None and "thr" in keep:
+            thr = keep["thr"]
+        else:
+            thr = contrast_select_plain(p, k)
+            if keep is not None:
+                keep["thr"] = thr
     return contrast_reductions_plain(p, f, lab, thr, tinv, cctype_root,
-                                     need_s, need_d)
+                                     need_s, need_d, keep=keep)
 
 
 def label_vote_plain(p_sup: torch.Tensor, lab_sup: torch.Tensor,

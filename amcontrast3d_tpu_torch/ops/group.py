@@ -1,7 +1,9 @@
 """Gather / group ops and the grouper front-end.
 
 ↔ ``amcontrast3d_tpu/ops/group.py``.  In JAX these are XLA gathers; here
-they are ``torch.gather`` with int64 indices.  No kernel.  Layout is
+they are ``torch.gather`` with int64 indices, at the dtype of what they
+gather (bfloat16 too, the gather tail's ``w_f(f)`` under ``use_amp``), on
+the card and on the CPU alike.  No kernel.  Layout is
 channels-last: features (B, N, C), grouped neighbourhoods (B, M, K, C).
 """
 from __future__ import annotations
@@ -45,20 +47,29 @@ class Grouper(NamedTuple):
     relative_xyz: bool = True
     normalize_dp: bool = False
 
+    def indices(self, query_xyz: torch.Tensor, support_xyz: torch.Tensor
+                ) -> Optional[torch.Tensor]:
+        """The (B, M, K) grouping indices (None for 'all')."""
+        if self.method == "all":
+            return None
+        if self.method == "ballquery":
+            return ball_query(support_xyz, query_xyz, self.radius, self.nsample)
+        if self.method == "knn":
+            return knn(support_xyz, query_xyz, self.nsample)[0]
+        raise ValueError(f"unknown grouper {self.method}")
+
     def __call__(self, query_xyz: torch.Tensor, support_xyz: torch.Tensor,
-                 features: Optional[torch.Tensor] = None
+                 features: Optional[torch.Tensor] = None,
+                 idx: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-        """Returns (dp (B, M, K, 3), fj (B, M, K, C) or None)."""
+        """Returns (dp (B, M, K, 3), fj (B, M, K, C) or None); ``idx``:
+        :meth:`indices`, taken here when not given."""
         if self.method == "all":
             # one group holding every point, absolute coordinates
             fj = features[:, None] if features is not None else None
             return support_xyz[:, None], fj
-        if self.method == "ballquery":
-            idx = ball_query(support_xyz, query_xyz, self.radius, self.nsample)
-        elif self.method == "knn":
-            idx, _ = knn(support_xyz, query_xyz, self.nsample)
-        else:
-            raise ValueError(f"unknown grouper {self.method}")
+        if idx is None:
+            idx = self.indices(query_xyz, support_xyz)
         grouped_xyz = group_points(support_xyz, idx)
         if self.relative_xyz:
             grouped_xyz = grouped_xyz - query_xyz[:, :, None, :]

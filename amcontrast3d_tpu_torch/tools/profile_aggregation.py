@@ -3,6 +3,7 @@
 shapes, and the table its dispatch rule is read from.
 
     python3 -m amcontrast3d_tpu_torch.tools.profile_aggregation [--runs R]
+        [--bf16]
     python3 -m amcontrast3d_tpu_torch.tools.profile_aggregation --gates
 
 Without ``--gates``: the kernels' own device time (``torch.profiler``, R
@@ -19,6 +20,9 @@ the package's wrappers take the query order (``order=``), the queries go
 in their stage layout's order (one ``sort_stages`` a step, as the encoder
 makes them); a parent's package runs its own wrappers' arguments, so
 ``profile_ab.sh`` can put the two side by side (``AB_BOTH_PACKAGES``).
+``--bf16``: each step's lines again with a bfloat16 ``u`` (``use_amp``'s
+fused tail), through the kernels' bfloat16 forms (the VJP's closing
+rounding pass counted), beside the float32 form in the same call.
 
 ``--gates``: the fused tail (``GroupStatsBN.pool`` through
 ``grouped_slot_reduce``) against the gather tail (``_grouped_tail``), each
@@ -55,7 +59,8 @@ AB_BOTH_PACKAGES = True
 WIDTHS, BLOCKS, K = (128, 256, 512, 1024), (3, 6, 3, 3), 32
 ENC_BLOCKS, ENC_STRIDES = [1, 4, 7, 4, 4], [1, 4, 4, 4, 4]
 FWD_KERNEL = ("aggregate_forward_kernel",)
-BWD_KERNELS = ("aggregate_backward_kernel", "Memset", "FillFunctor")
+BWD_KERNELS = ("aggregate_backward_kernel", "Memset", "FillFunctor",
+               "round_to_bf16_kernel")
 # (name, B, points a cloud, voxel of a room-like cloud or None, the cfg's
 # radius, train): the clouds the dispatch rule is read on
 GATE_CLOUDS = (("S3DIS step", 4, 24000, None, 0.1, True),
@@ -94,9 +99,11 @@ def groupings(stages, layouts, radius: float):
     return out
 
 
-def kernel_lines(name: str, stages, radius: float, runs: int) -> dict:
-    """The two kernels at a step's 19 aggregations; returns the step's
-    kernel device ms {train forward, VJP, eval forward}."""
+def kernel_lines(name: str, stages, radius: float, runs: int,
+                 dtype=torch.float32) -> dict:
+    """The two kernels at a step's 19 aggregations, ``u`` in ``dtype``;
+    returns the step's kernel device ms {train forward, VJP, eval
+    forward}."""
     new_api = takes(ops.aggregate_forward, "order")
     layouts = spatial.sort_stages(stages)
     b = stages[0].shape[0]
@@ -109,7 +116,7 @@ def kernel_lines(name: str, stages, radius: float, runs: int) -> dict:
     for s, _, q, c, groups in groupings(stages, layouts, radius):
         for kind, support, idx, count in groups:
             m, ns = q.shape[1], support.shape[1]
-            u, qp = randn(b, ns, c), randn(b, m, c)
+            u, qp = randn(b, ns, c).to(dtype), randn(b, m, c)
             sgn = torch.where(randn(c) < 0, -1.0, 1.0)
             g3 = [randn(b, m, c) for _ in range(3)]
             if new_api:
@@ -138,7 +145,8 @@ def kernel_lines(name: str, stages, radius: float, runs: int) -> dict:
             print(f"  {name} stage {s} {kind} (B={b}, M={m}, N={ns}, C={c}, "
                   f"K={K}) x{count}: " + ", ".join(
                       f"{what} {v:.4f}" for what, v in ms.items()) + " ms a call")
-    print(f"{name}: kernel device ms a step (19 aggregations): " + ", ".join(
+    print(f"{name} u {str(dtype).rsplit('.', 1)[-1]}: kernel device ms a "
+          f"step (19 aggregations): " + ", ".join(
         f"{what} {v:.4f}" for what, v in totals.items()))
     return totals
 
@@ -260,6 +268,8 @@ def main() -> None:
     ap.add_argument("--gates", action="store_true",
                     help="the fused tail against the gather tail, per shape")
     ap.add_argument("--runs", type=int, default=11)
+    ap.add_argument("--bf16", action="store_true",
+                    help="each step also with a bfloat16 u")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_aggregation needs a CUDA device")
@@ -272,13 +282,16 @@ def main() -> None:
     if args.gates:
         gate_table(dev, rng, tag, args.runs)
         return
-    for name, pts in (
-            ("S3DIS step uniform", rng.rand(4, 24000, 3).astype(np.float32) * 4),
-            ("S3DIS step clustered", clustered_cloud(rng, 4, 24000))):
-        kernel_lines(name, fps_stages(torch.from_numpy(pts).to(dev), 5), 0.1,
-                     args.runs)
-    kernel_lines("ScanNet step", gate_stages(dev, rng, 2, 64000, 0.02), 0.05,
-                 args.runs)
+    dtypes = (torch.float32, torch.bfloat16) if args.bf16 else (torch.float32,)
+    steps = [(name, fps_stages(torch.from_numpy(pts).to(dev), 5), 0.1)
+             for name, pts in (
+                 ("S3DIS step uniform",
+                  rng.rand(4, 24000, 3).astype(np.float32) * 4),
+                 ("S3DIS step clustered", clustered_cloud(rng, 4, 24000)))]
+    steps.append(("ScanNet step", gate_stages(dev, rng, 2, 64000, 0.02), 0.05))
+    for name, stages, radius in steps:
+        for dtype in dtypes:
+            kernel_lines(name, stages, radius, args.runs, dtype)
 
 
 if __name__ == "__main__":

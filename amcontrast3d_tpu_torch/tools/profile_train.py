@@ -2,14 +2,16 @@
 
     python3 -m amcontrast3d_tpu_torch.tools.profile_train [--kind aa|mm]
         [--cfg cfgs/scannet/AMContrast3D-AA.yaml [--batch B]] [--loader]
-        [--batches K]
+        [--batches K] [--amp] [--remat]
 
 Builds ``BaseSeg_AMContrast3D`` from ``cfgs/s3dis/AMContrast3D-AA.yaml``
 with ``CrossEntropyAce`` or, with ``--kind mm``,
 ``BaseSeg_M_AMContrast3D`` from ``cfgs/s3dis/AMContrast3D-MM.yaml`` with
 ``CrossEntropyAcePre`` (PointNeXt-XL, random weights from a seeded
 generator), the recipe's AdamW, cosine schedule and clip 10, fp32 with TF32
-off, and runs ``make_train_step`` at B=4×24000 (uniform positions in
+off (``--amp``: the bfloat16 compute type of the recipe's ``use_amp``;
+``--remat``: ``encoder_args.remat`` and ``ambiguity_args.remat`` on), and
+runs ``make_train_step`` at B=4×24000 (uniform positions in
 [0, 4]³, labels from a Voronoi partition into 13 regions; with
 ``--batches K`` the steps take K such batches in turn, as training takes a
 new one each step, where the data-dependent work varies).  With ``--cfg``
@@ -37,7 +39,10 @@ limit:
 4. device ms per step of every CUDA kernel from ``torch.profiler`` over
    3 steps, their sum, and the card's idle share of the profiled wall
    time (the profiler's host work inflates it) and of the unprofiled
-   median of block 1;
+   median of block 1; then the same device time by kind (``KINDS``: the
+   hand-written kernels of ``csrc/``, cuBLAS, BatchNorm, gathers and
+   scatters, elementwise, reductions, sorts, copies, the optimizer's
+   foreach kernels, softmax, the rest);
 5. where the card idles, from one more trace of 3 steps (``idle_gaps``):
    every gap between two activities on the card's timeline, each put
    down to the launch of the activity after it.  A launch issued after the
@@ -87,6 +92,41 @@ AB_BOTH_PACKAGES = True
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
 NO_PHASE = "none (clip, metrics)"
+# kernel kinds by name, first match wins: (kind, substrings of the kernel's
+# name); the hand-written kernels are every ``__global__`` of ``csrc/``
+KINDS = (
+    ("hand-written (csrc/)", ("aggregate_", "ball_query_kernel", "bin_rows",
+                              "contrast_", "fps_", "interp_", "knn_kernel",
+                              "label_vote_kernel", "layout_", "refine_cross",
+                              "round_to_bf16", "sum_rows", "support_aux")),
+    ("GEMM (cuBLAS)", ("gemm", "gemv", "cutlass", "xmma", "cublas", "sm90_")),
+    ("BatchNorm", ("batch_norm", "batchnorm", "welford", "bn_")),
+    ("softmax", ("softmax",)),
+    ("gather / scatter / index", ("gather", "scatter", "index", "take_")),
+    ("sort", ("sort", "radix", "cub::")),
+    ("reductions", ("reduce",)),
+    ("optimizer (foreach)", ("multi_tensor",)),
+    ("copies and fills", ("memcpy", "memset", "copy", "fill")),
+    ("elementwise", ("elementwise",)),
+)
+
+
+def kind_of(kernel: str) -> str:
+    name = kernel.lower()
+    for kind, keys in KINDS:
+        if any(k.lower() in name for k in keys):
+            return kind
+    return "other"
+
+
+def kind_table(rows) -> list:
+    """[(device ms per step, launches per step, kind)] of a kernel table's
+    rows, largest first."""
+    kinds = {}
+    for t, count, key in rows:
+        ms, n = kinds.get(kind_of(key), (0.0, 0.0))
+        kinds[kind_of(key)] = (ms + t, n + count)
+    return sorted(((ms, n, k) for k, (ms, n) in kinds.items()), reverse=True)
 
 
 def voronoi_labels(rng, pos: np.ndarray) -> np.ndarray:
@@ -283,6 +323,10 @@ def main() -> None:
                              "(default 1: the same batch every step)")
     parser.add_argument("--loader", action="store_true",
                         help="time the loader and the loop that it feeds")
+    parser.add_argument("--amp", action="store_true",
+                        help="the bfloat16 compute type (use_amp)")
+    parser.add_argument("--remat", action="store_true",
+                        help="encoder_args.remat and ambiguity_args.remat")
     args = parser.parse_args()
     kind = args.kind
     if args.batches > 1 and (args.cfg or args.loader):
@@ -305,7 +349,11 @@ def main() -> None:
     dev = torch.device("cuda", 0)
     cfg = EasyConfig()
     cfg.load(args.cfg or str(CFGS[kind]), recursive=True)
-    model = build_model_from_cfg(cfg.model)
+    if args.remat:
+        cfg.model.encoder_args.remat = True
+        cfg.ambiguity_args.remat = True
+    model = build_model_from_cfg(
+        cfg.model, **({"dtype": torch.bfloat16} if args.amp else {}))
     init_weights_(model, torch.Generator().manual_seed(SEED))
     model = model.to(dev)
     rng = np.random.RandomState(SEED)
@@ -342,7 +390,8 @@ def main() -> None:
 
         def step(_batch):
             return one_batch_step(next(turn))
-    print(f"{kind.upper()} train step at B={nb}x{n}, "
+    print(f"{kind.upper()} train step{' bf16' if args.amp else ''}"
+          f"{' remat' if args.remat else ''} at B={nb}x{n}, "
           f"{sum(p.numel() for p in model.parameters())} parameters, "
           f"{cfg.cfg_path if 'cfg_path' in cfg else args.cfg or CFGS[kind]}")
 
@@ -409,6 +458,9 @@ def main() -> None:
           f"{sum(c for _, c, _ in rows):.0f} launches/step  [{tag}]")
     for t, count, key in rows[:40]:
         print(f"  {t:9.3f} ms  x{count:6.1f}  {key[:120]}")
+    print(f"device time by kind, ms per step over {PROFILED} steps  [{tag}]")
+    for t, count, kind_name in kind_table(rows):
+        print(f"  {t:9.3f} ms  {t / busy:6.1%}  x{count:7.1f}  {kind_name}")
     with mock.patch.object(torch.Tensor, "backward",
                            annotated("backward", torch.Tensor.backward)):
         idle_gaps(step, batch, PROFILED,

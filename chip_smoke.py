@@ -78,7 +78,7 @@
    weights the predicted ambiguity sits near 0.5, below the cfg's
    threshold 0.9, so a wrong CrossMask row would change nothing there: the
    two comparisons with the plain ops run on a copy whose threshold is the
-   median predicted ambiguity of the batch (eval) or 0.5 (train, where the
+   median of the batch's distinct predicted ambiguities (eval) or 0.5 (train, where the
    BatchNorm ahead of the last sigmoid centres it), and assert a refine
    rate strictly between 0 and 100 and a non-zero gradient out of the
    CrossMask VJP;
@@ -235,7 +235,32 @@
    over the 64000-point stage 0 included), then prints
    every step of the kind side by side; the switches go back to their
    defaults after each phase;
-16. prints one JSON line of per-kernel results and, last, the device line.
+16. the bfloat16 recipe (``use_amp``), which the JAX package builds with
+   ``dtype=jnp.bfloat16``: (a) the bfloat16 forms of the fused
+   aggregation's kernels (a bfloat16 ``u``) at the S3DIS step's 19
+   separable aggregations against their twins (ext and the tie count
+   identical, the moments within 1e-5·(1+max), the VJP's float32 sums within
+   1e-5·(1+max|du|), du their rounding and within a bfloat16 ulp of the
+   twin's), each timed beside the float32 form on the same values
+   (``bf16_aggregation_phase``); after each kind's float32 paths, the same
+   model at bfloat16 with the same weights (``bf16_model``): (c) the AA and
+   MM eval forwards (logits bfloat16, within BF16_LOGIT_TOL·(1+max|logit|)
+   of the plain ops), (b, d) the AA train step, exact / gather and approx +
+   fused (the bfloat16 forms 19 + 19 a step), and the MM train step, each
+   against the plain ops from one state (stage positions identical, the
+   loss within BF16_LOSS_TOL·(1+|loss|), each parameter's gradient within
+   BF16_GRAD_TOL relative L2), timed with their peak memory beside the
+   float32 steps of the same call;
+17. (e) the AA train step with ``encoder_args.remat`` and
+   ``ambiguity_args.remat`` at B = 4 and 8 clouds of 24000 points
+   (``remat_phase``): one step from one state with and without (twice):
+   losses, BatchNorm statistics and launches identical, gradients as close
+   to the step without as two steps without are; then 3 timed steps after 1
+   each way with the peak memory;
+18. (f) the S3DIS AA recipe through the train CLI as in 10 with
+   ``use_amp=True`` (two epochs of 3 steps, a bfloat16 model checked);
+19. prints one JSON line of per-kernel results (the bfloat16 forms of
+   kernels 20 and 21 in rows of their own) and, last, the device line.
 
 Any failure raises, so the exit code is non-zero; without a CUDA device it
 stops before printing any result.
@@ -329,13 +354,20 @@ KERNELS = (  # name, source, the TPU kernel it replaces
      "amcontrast3d_tpu/ops/contrast_pallas.py:578 (XLA, not a kernel)"),
     ("support_layout", "amcontrast3d_tpu_torch/csrc/layout.cu",
      "amcontrast3d_tpu/ops/contrast_pallas.py:686 (XLA, not a kernel)"),
+    # the bfloat16 forms of kernels 20 and 21 (use_amp's u): the same TPU
+    # kernels at a bf16 u (grouped_slot_reduce, aggregate_pallas.py:491)
+    ("aggregate_forward_bf16", "amcontrast3d_tpu_torch/csrc/aggregate.cu",
+     "amcontrast3d_tpu/ops/aggregate_pallas.py:172"),
+    ("aggregate_backward_bf16", "amcontrast3d_tpu_torch/csrc/aggregate.cu",
+     "amcontrast3d_tpu/ops/aggregate_pallas.py:222"),
 )
 STEP_KERNELS = KERNELS[:10]      # the kernels of the four step paths
 # the step's large-shape interpolation kernels: fp0 and fp1 by the gates
 BIG_INTERP_KERNELS = tuple(k for k in KERNELS if k[0] in (
     "three_interpolation_big", "three_interpolation_backward_big"))
 APPROX_KERNELS = KERNELS[14:18]  # the approx configuration, the fused tail
-LAYOUT_KERNELS = KERNELS[18:]    # the layouts every forward and step make
+LAYOUT_KERNELS = KERNELS[18:21]  # the layouts every forward and step make
+BF16_KERNELS = KERNELS[21:]      # use_amp's forms of the fused tail
 # the whole-scene paths: Synthetic rooms of SCENE_POINTS raw points from the
 # dataset's seed 0; the first two voxelise (0.04 m) to 91478 and 130575
 # points, which pad to the buckets 106496 and 155648
@@ -416,7 +448,30 @@ LAUNCHES = {
                                       "aggregate_backward": AGG_LAUNCHES},
     "mm train approx": {**APPROX_LAUNCHES, "refine_cross": 4,
                         "refine_cross_backward": 4},
+    # use_amp (a bfloat16 model): the same kernels, the fused tail's u in
+    # bfloat16 through the bfloat16 forms
+    "aa train bf16": TRAIN_LAUNCHES,
+    "aa train bf16 approx fused": {**APPROX_LAUNCHES,
+                                   "aggregate_forward_bf16": AGG_LAUNCHES,
+                                   "aggregate_backward_bf16": AGG_LAUNCHES},
+    "aa eval bf16": EVAL_LAUNCHES,
+    "mm eval bf16": {**EVAL_LAUNCHES, "refine_cross": 4},
+    "mm train bf16": {**TRAIN_LAUNCHES, "refine_cross": 4,
+                      "refine_cross_backward": 4},
 }
+# the bfloat16 paths against their plain twins (the same bfloat16 model):
+# eval logits within BF16_LOGIT_TOL·(1+max|logit|), a step's loss within
+# 1e-2·(1+|loss|) and each parameter's gradient within BF16_GRAD_TOL
+# relative L2: a float32 sum the kernels order otherwise rounds to another
+# bfloat16 value now and then, and that ulp travels on (PERF.md §6)
+BF16_LOGIT_TOL, BF16_LOSS_TOL, BF16_GRAD_TOL = 1e-2, 1e-2, 5e-2
+# but for the fused tail's W_dp: its gradient is the difference of the
+# support's and the queries' terms, W_dp·p_j − W_dp·p_i summed over the
+# slots, each from bfloat16 du and dqp (as in the JAX tail), which cancel:
+# an ulp of du where the kernel's and the twin's float32 sums round apart
+# moves it by 5-30 % (NVIDIA H100 80GB HBM3, 700.00 W)
+BF16_FUSED_WDP_TOL = 0.5
+REMAT_BATCHES = (4, 8)           # the remat phase's clouds of N points
 
 
 def card() -> str:
@@ -1927,6 +1982,8 @@ def wrappers(ops) -> dict:
             "contrast_select": ops.contrast_select, "label_vote": ops.label_vote,
             "aggregate_forward": ops.aggregate_forward,
             "aggregate_backward": ops.aggregate_backward,
+            "aggregate_forward_bf16": ops.aggregate_forward_bf16,
+            "aggregate_backward_bf16": ops.aggregate_backward_bf16,
             "layout_keys": ops.spatial.layout_keys,
             "layout_pack": ops.spatial.layout_pack,
             "support_layout": ops.contrast.support_layout}
@@ -1985,9 +2042,10 @@ def with_threshold(model, threshold: float):
     return m
 
 
-def forward_vs_plain(model, pos, x, kind: str, path: str) -> None:
+def forward_vs_plain(model, pos, x, kind: str, path: str,
+                     tol: float = 1e-4) -> None:
     """One forward with the kernels and one with every kernel's plain twin:
-    stage positions identical, logits within 1e-4·(1+max|logit|); for MM
+    stage positions identical, logits within tol·(1+max|logit|); for MM
     at the cfg's threshold and again at the median predicted ambiguity,
     where CrossMask rows matter."""
     from amcontrast3d_tpu_torch.tools.profile_eval import plain_ops
@@ -1998,11 +2056,15 @@ def forward_vs_plain(model, pos, x, kind: str, path: str) -> None:
             _, stages, rate = model(pos, x)
         if not 0 <= rate.item() <= 100:
             raise AssertionError(f"refine rate {rate.item()}")
-        threshold = torch.cat([a.reshape(-1) for a in stages["ambiguity"]]
-                              ).median().item()
+        # the median of the distinct values: a bfloat16 tower's few distinct
+        # ambiguities can put half the points on the plain median, and every
+        # point at or above it
+        values = torch.cat([a.reshape(-1) for a in stages["ambiguity"]]).unique()
+        threshold = values[len(values) // 2].item()
         models.append(with_threshold(model, threshold))
         notes = [f"at the cfg's threshold {model.decoder.threshold}: ",
-                 f"at the median predicted ambiguity {threshold:.6f}: "]
+                 f"at the median of the {len(values)} distinct predicted "
+                 f"ambiguities {threshold:.6f}: "]
     for m, note in zip(models, notes):
         with torch.inference_mode():
             out_k = m(pos, x)
@@ -2019,16 +2081,19 @@ def forward_vs_plain(model, pos, x, kind: str, path: str) -> None:
             if not torch.equal(pk, pp):
                 raise AssertionError(f"stage {s} positions differ from the plain ops")
         err = (out_k[0] - out_p[0]).abs().max().item()
-        tol = 1e-4 * (1 + out_p[0].abs().max().item())
-        if not err <= tol:
-            raise AssertionError(f"logits vs plain ops: max abs err {err} > {tol}")
+        bound = tol * (1 + out_p[0].abs().max().item())
+        if not err <= bound:
+            raise AssertionError(f"logits vs plain ops: max abs err {err} > {bound}")
         print(f"{path} main path vs plain ops on the card: {note}stage "
-              f"positions identical, logits max abs err {err} (tol {tol})")
+              f"positions identical, logits ({out_k[0].dtype}) max abs err "
+              f"{err} (tol {bound})")
 
 
-def eval_path(ops, cfg, model, dev, rng, tag, kind: str, path: str = None) -> dict:
+def eval_path(ops, cfg, model, dev, rng, tag, kind: str, path: str = None,
+              tol: float = 1e-4) -> dict:
     """The eval main path of ``kind`` (``path`` names its launch table);
-    returns the kernels' launches in it."""
+    returns the kernels' launches in it.  ``tol``: of the logits against
+    the plain ops."""
     from amcontrast3d_tpu_torch.engine import make_eval_step
 
     path = path or f"{kind} eval"
@@ -2057,7 +2122,7 @@ def eval_path(ops, cfg, model, dev, rng, tag, kind: str, path: str = None) -> di
     print(f"{path} main path: {len(batches)} eval steps at B={B}x{N}, launches "
           f"per forward {LAUNCHES[path]}")
 
-    forward_vs_plain(model, batches[0]["pos"], batches[0]["x"], kind, path)
+    forward_vs_plain(model, batches[0]["pos"], batches[0]["x"], kind, path, tol)
     med = statistics.median(forward_ms)
     STEP_TIMES[path] = (med, None)
     print(f"{path} forward B={B}x{N}: per-batch ms {forward_ms}; median "
@@ -2140,12 +2205,12 @@ def zero_gradient_biases(model) -> set:
     return names
 
 
-def train_batch(rng, dev) -> dict:
+def train_batch(rng, dev, b: int = B) -> dict:
     from amcontrast3d_tpu_torch.tools.profile_train import voronoi_labels
 
-    pos = rng.rand(B, N, 3).astype(np.float32) * 4
+    pos = rng.rand(b, N, 3).astype(np.float32) * 4
     batch = {"pos": torch.from_numpy(pos),
-             "x": torch.from_numpy(rng.rand(B, N, IN_CH).astype(np.float32)),
+             "x": torch.from_numpy(rng.rand(b, N, IN_CH).astype(np.float32)),
              "y": torch.from_numpy(voronoi_labels(rng, pos))}
     return {k: v.to(dev) for k, v in batch.items()}
 
@@ -2166,10 +2231,11 @@ def make_step(cfg, model, optimizer, dev, seed, kind: str):
 
 
 def train_path(ops, cfg, model, dev, rng, tag, kind: str, path: str = None,
-               batches: list = None) -> dict:
+               batches: list = None, bf16: bool = False) -> dict:
     """The train main path of ``kind`` (``path`` names its launch table) on
     ``batches`` (the first untimed; by default N_TRAIN + 1 of
-    :func:`train_batch`); returns the kernels' launches in it."""
+    :func:`train_batch`); returns the kernels' launches in it.  ``bf16``:
+    a bfloat16 model, held to the plain ops at the bfloat16 tolerances."""
     from amcontrast3d_tpu_torch.optim import build_optimizer_from_cfg
 
     path = path or f"{kind} train"
@@ -2223,7 +2289,8 @@ def train_path(ops, cfg, model, dev, rng, tag, kind: str, path: str = None,
     print(f"{path} step B={b}x{n}: per-step ms {step_ms}; median {med:.3f} ms "
           f"= {b * n / med * 1e3:.1f} train points/s; peak "
           f"{peak:.3f} GiB  [{tag}]")
-    train_vs_plain(cfg, model, optimizer, dev, batches[0], tag, kind, path)
+    train_vs_plain(cfg, model, optimizer, dev, batches[0], tag, kind, path,
+                   bf16)
     return launches
 
 
@@ -2291,8 +2358,13 @@ def agg_gate_phase(dev, tag: str) -> None:
 
 
 def train_vs_plain(cfg, model, optimizer, dev, batch, tag, kind: str,
-                   path: str = None):
-    """One step from one state with the kernels and one with the twins."""
+                   path: str = None, bf16: bool = False):
+    """One step from one state with the kernels and one with the twins:
+    stage positions identical; in float32 the loss within 1e-4 relative and
+    the gradients within GRAD_TOL relative L2 over all parameters; a
+    bfloat16 model's loss within BF16_LOSS_TOL·(1+|loss|) and each
+    parameter's gradient within BF16_GRAD_TOL relative L2 (but the biases
+    ahead of a BatchNorm, whose exact gradient is 0)."""
     from amcontrast3d_tpu_torch.ops import refine as ops_refine
     from amcontrast3d_tpu_torch.optim import build_optimizer_from_cfg
     from amcontrast3d_tpu_torch.tools.profile_eval import plain_ops
@@ -2344,18 +2416,38 @@ def train_vs_plain(cfg, model, optimizer, dev, batch, tag, kind: str,
         if not torch.equal(a, b):
             raise AssertionError(f"train stage {s} positions differ from plain")
     rel_loss = abs(k["loss"] - p["loss"]) / abs(p["loss"])
-    if not rel_loss <= 1e-4:
+    if not (abs(k["loss"] - p["loss"]) <= BF16_LOSS_TOL * (1 + abs(p["loss"]))
+            if bf16 else rel_loss <= 1e-4):
         raise AssertionError(f"train loss {k['loss']} vs plain {p['loss']}")
+    from amcontrast3d_tpu_torch.ops.aggregate import agg_fused_enabled
+
     num = den = worst = 0.0
-    for a, b in zip(k["grads"], p["grads"]):
+    exempt = zero_gradient_biases(model) if bf16 else set()
+    off, w_dp = {}, {}
+    for name, a, b in zip([n for n, _ in model.named_parameters()],
+                          k["grads"], p["grads"]):
         d = (a - b).double().norm().item()
         n = b.double().norm().item()
         num, den = num + d * d, den + n * n
-        worst = max(worst, d / max(n, 1e-30))
+        tol = BF16_GRAD_TOL
+        if bf16 and agg_fused_enabled() and name.endswith("w_dp.weight"):
+            tol = BF16_FUSED_WDP_TOL
+            w_dp[name] = d / max(n, 1e-30)
+        elif name not in exempt:
+            worst = max(worst, d / max(n, 1e-30))
+        if bf16 and name not in exempt and not d <= tol * n:
+            off[name] = d / max(n, 1e-30)
     rel_grad = (num / den) ** 0.5
-    if not rel_grad <= GRAD_TOL:
+    if off:
+        raise AssertionError(f"train gradients vs plain at bfloat16 beyond "
+                             f"{BF16_GRAD_TOL} relative L2: {off}")
+    if not bf16 and not rel_grad <= GRAD_TOL:
         raise AssertionError(f"train gradients vs plain: relative L2 "
                              f"{rel_grad} > {GRAD_TOL}")
+    if w_dp:
+        note += (f"the fused tail's W_dp gradients relative L2 "
+                 f"{min(w_dp.values()):.3e} to {max(w_dp.values()):.3e} (tol "
+                 f"{BF16_FUSED_WDP_TOL}), ")
     print(f"{path or kind + ' train'} step vs plain ops on the card: {note}stage positions "
           f"identical, loss {k['loss']} vs {p['loss']} (rel {rel_loss:.3e}), "
           f"gradients relative L2 {rel_grad:.3e} over all parameters (worst "
@@ -2736,20 +2828,27 @@ def scannet_cli_path(ops, dev, tag: str, workdir: str) -> dict:
     return {k: total[k] + total3[k] for k in total}
 
 
-def s3dis_cli_path(ops, kind: str, dev, tag: str, workdir: str) -> dict:
+def s3dis_cli_path(ops, kind: str, dev, tag: str, workdir: str,
+                   amp: bool = False) -> dict:
     """The S3DIS recipe through the train CLI for two short epochs (the
     first starts the workers and warms the card up, the second is the one
-    reported) with its full train transform list; returns the kernels'
-    launches in it."""
-    path, steps = f"s3dis {kind} train cli", 3
+    reported) with its full train transform list; ``amp``: with
+    ``use_amp=True`` (a bfloat16 model); returns the kernels' launches in
+    it."""
+    path, steps = f"s3dis {kind} train cli" + (" bf16" if amp else ""), 3
     argv = ["--cfg", CFGS[kind], "dataset.common.NAME=Synthetic",
             "dataset.common.num_rooms=4", "dataset.common.n_points=100000",
             "dataset.train.loop=3", "dataset.val.num_rooms=1",
             "dataset.val.presample=False", f"batch_size={B}", "epochs=2",
-            f"root_dir={workdir}", f"seed={SEED}"]
+            f"root_dir={workdir}", f"seed={SEED}"] + (["use_amp=True"] if amp
+                                                      else [])
     torch.cuda.reset_peak_memory_stats()
     results, runner, train, val, sizes, total = run_train_cli(ops, argv, kind)
     cfg = runner.cfg
+    dtypes = {m.compute_dtype for m in runner.model.modules()
+              if hasattr(m, "compute_dtype")}
+    if dtypes != {torch.bfloat16 if amp else torch.float32}:
+        raise AssertionError(f"{path}: the model computes in {dtypes}")
     names = list(cfg.datatransforms.train)
     if len(names) != 8 or "PointCloudRotation" not in names:
         raise AssertionError(f"{path}: train transforms {names}")
@@ -2767,6 +2866,241 @@ def s3dis_cli_path(ops, kind: str, dev, tag: str, workdir: str) -> dict:
     report_train_cli(path, timing, runner, loader_batch(runner, SEED + 6), peak,
                      cfg.dataloader.num_workers, tag)
     return total
+
+
+def check_bf16_close(name: str, got, want, tol: float) -> float:
+    """bfloat16 ``got`` within one bfloat16 ulp (of the larger of the two)
+    of ``want`` plus tol·(1+max|want|), the tolerance of the float32 sums
+    both are roundings of; returns the largest difference."""
+    g, w = got.float(), want.float()
+    big = torch.maximum(g.abs(), w.abs())
+    ulp = torch.where(big > 0, torch.exp2(torch.floor(torch.log2(big)) - 7),
+                      torch.zeros_like(big))
+    over = ((g - w).abs() - ulp - tol * (1 + w.abs().max())).max().item()
+    if not over <= 0:
+        raise AssertionError(f"{name}: beyond one bfloat16 ulp by {over}")
+    return (g - w).abs().max().item()
+
+
+def bf16_aggregation_phase(ops, dev, rng, tag: str) -> dict:
+    """The bfloat16 forms of kernels 20 and 21 (a bfloat16 ``u``, the fused
+    tail under ``use_amp``) at PointNeXt-XL's 19 separable aggregations of
+    the S3DIS AA step (B=4x24000, uniform, stages from FPS, the queries in
+    their stage layout's order, K = 32, mixed ``sgn``), against their twins
+    on the card: ext and the tie count identical, su and sq within
+    1e-5·(1+max) (train form), ext identical (eval form); the VJP's float32
+    accumulator within 1e-5·(1+max|du|) of the twin's, du exactly its
+    rounding to bfloat16 and within one bfloat16 ulp of the twin's du.
+    Each timed (wrapper, CUDA events) beside the float32 form on the same
+    values in this call; the bound counts ``u`` at 2 bytes a value read and
+    du at 2 bytes written; the VJP's library yardstick is ``index_add_`` of
+    its (B·M·K, C) rows into a bfloat16 tensor."""
+    from amcontrast3d_tpu_torch.models.pointnext import to_full_list
+    from amcontrast3d_tpu_torch.ops import spatial
+
+    results, timed, note = tally(BF16_KERNELS)
+    stages = [torch.from_numpy(clouds(rng)["uniform"]).to(dev)]
+    for _ in range(4):
+        prev = stages[-1]
+        idx = ops.furthest_point_sample(prev, prev.shape[1] // 4)
+        stages.append(ops.gather_points(prev, idx).contiguous())
+    layouts = spatial.sort_stages(stages)
+    radii = to_full_list(0.1, [1, 4, 7, 4, 4], [1, 4, 4, 4, 4], 2)
+    gen = torch.Generator(dev).manual_seed(SEED + 17)
+
+    def randn(*shape):
+        return torch.randn(*shape, device=dev, generator=gen)
+
+    f32 = {"aggregate_forward": 0.0, "aggregate_backward": 0.0}
+    for s in range(1, 5):
+        sup, q, c = stages[s - 1], stages[s], XL_WIDTHS[s - 1]
+        m = q.shape[1]
+        order = spatial.index_bits(layouts[s])
+        groups = [(sup, ops.ball_query(sup, q, radii[s][0], AGG_K, layouts[s - 1],
+                                       layouts[s]))]
+        groups += [(q, ops.ball_query(q, q, radii[s][1], AGG_K, layouts[s]))] \
+            * XL_BLOCKS[s - 1]
+        gamma = randn(B * m * AGG_K, c).bfloat16()
+        for j, (support, idx) in enumerate(groups):
+            ns = support.shape[1]
+            u = randn(B, ns, c).bfloat16()
+            u32 = u.float()
+            qp = randn(B, m, c)
+            sgn = torch.where(randn(c) < 0, -1.0, 1.0)
+            g3 = [randn(B, m, c) for _ in range(3)]
+            name = f"bf16 aggregation stage {s} #{j} ({m}, {ns}, {AGG_K}, {c})"
+            ext, su, sq, ties = ops.aggregate_forward(u, idx, sgn, qp, order=order,
+                                                      keep_ties=True)
+            want = ops.aggregate_forward_plain(u, idx, sgn, qp, keep_ties=True)
+            err = check_equal(f"{name} ext", ext, want[0])
+            check_equal(f"{name} ties", ties, want[3])
+            err = max(err, check_close(f"{name} su", su, want[1], 1e-5),
+                      check_close(f"{name} sq", sq, want[2], 1e-5))
+            check_equal(f"{name} eval ext", ops.aggregate_forward(
+                u, idx, sgn, need_stats=False, order=order)[0], want[0])
+            note("aggregate_forward_bf16", err)
+            acc, acc_want = (torch.empty(u.shape, device=dev) for _ in range(2))
+            du = ops.aggregate_backward(u, idx, qp, ext, ties, *g3, order=order,
+                                        accumulator=acc)
+            du_want = ops.aggregate_backward_plain(u, idx, qp, ext, ties, *g3,
+                                                   accumulator=acc_want)
+            err = check_close(f"{name} du accumulator", acc, acc_want, 1e-5)
+            check_equal(f"{name} du, the accumulator rounded", du, acc.bfloat16())
+            check_bf16_close(f"{name} du", du, du_want, 1e-5)
+            note("aggregate_backward_bf16", err)
+            # u at 2 bytes; the forward's qp, ext, su, sq (4 B) and ties
+            # (1 B) a query and channel; the VJP's qp, ext, g_ext, g_sum,
+            # g_sq and ties, and du at 2 bytes
+            io = B * (ns * c * 2 + m * AGG_K * 4 + c * 4)
+            slots = B * m * AGG_K * c
+            rows = (idx.long() + ns * torch.arange(B, device=dev)[:, None, None]
+                    ).reshape(-1)
+            work = {
+                "aggregate_forward_bf16": (
+                    io + B * m * c * 17, slots * 6,
+                    lambda: ops.aggregate_forward(u, idx, sgn, qp, order=order,
+                                                  keep_ties=True),
+                    lambda: ops.aggregate_forward_plain(u, idx, sgn, qp,
+                                                        keep_ties=True), None),
+                "aggregate_backward_bf16": (
+                    io + B * m * c * 21 + B * ns * c * 2, slots * 12,
+                    lambda: ops.aggregate_backward(u, idx, qp, ext, ties, *g3,
+                                                   order=order),
+                    lambda: ops.aggregate_backward_plain(u, idx, qp, ext, ties,
+                                                         *g3),
+                    lambda: torch.zeros(B * ns, c, dtype=torch.bfloat16,
+                                        device=dev).index_add_(0, rows, gamma))}
+            for k, (nbytes, nops, kernel, plain, library) in work.items():
+                timed(k, "uniform", kernel, plain, nbytes, nops, library)
+            f32["aggregate_forward"] += cuda_ms(lambda: ops.aggregate_forward(
+                u32, idx, sgn, qp, order=order, keep_ties=True))
+            f32["aggregate_backward"] += cuda_ms(lambda: ops.aggregate_backward(
+                u32, idx, qp, ext, ties, *g3, order=order))
+        del gamma
+    for k, ms in f32.items():
+        r = results[k + "_bf16"]
+        print(f"{k}_bf16 S3DIS step uniform: 19 aggregations, the queries in "
+              f"their layouts' order: {r['ms']:.4f} ms a step (wrapper, median "
+              f"of {TIMING_RUNS}); the float32 form on the same values "
+              f"{ms:.4f} ms in this call; ext and ties identical to the twin, "
+              f"su, sq and the VJP's float32 sums within 1e-5·(1+max), du their "
+              f"rounding, within a bfloat16 ulp of the twin's  [{tag}]")
+    return finish_kernels(results, "uniform", tag)
+
+
+def bf16_model(cfg, dev):
+    """``cfg``'s model with ``use_amp``'s compute type, the seeded weights
+    the float32 phases take."""
+    from amcontrast3d_tpu_torch.models import build_model_from_cfg, init_weights_
+
+    model = build_model_from_cfg(cfg.model, dtype=torch.bfloat16)
+    init_weights_(model, torch.Generator().manual_seed(SEED))
+    return model.to(dev)
+
+
+def remat_phase(ops, dev, rng, tag: str) -> dict:
+    """The AA train step with ``encoder_args.remat`` and
+    ``ambiguity_args.remat`` at B = 4 and 8 clouds of 24000 points (the
+    S3DIS recipe at full width, seeded weights): one step from one state
+    without remat, again without, and with: the losses and every BatchNorm
+    statistic after the step identical, the kernels' launches identical
+    (the recompute runs no FPS, ball query, sort, kNN or contrast kernel),
+    and the gradients as close to the step without as two steps without
+    are to each other (the VJP kernels' float atomics; identical where
+    those two are).  Then 3 timed steps after 1 with and without, with
+    the peak device memory.  Returns the launches of the timed remat
+    steps."""
+    from amcontrast3d_tpu_torch.models import build_model_from_cfg, init_weights_
+    from amcontrast3d_tpu_torch.optim import build_optimizer_from_cfg
+    from amcontrast3d_tpu_torch.utils.config import EasyConfig
+
+    total = {}
+    for b in REMAT_BATCHES:
+        batches = [train_batch(rng, dev, b) for _ in range(N_TRAIN + 1)]
+        cfgs, models = {}, {}
+        for remat in (False, True):
+            cfg = EasyConfig()
+            cfg.load(CFGS["aa"], recursive=True)
+            cfg.model.encoder_args.remat = remat
+            cfg.ambiguity_args.remat = remat
+            model = build_model_from_cfg(cfg.model)
+            init_weights_(model, torch.Generator().manual_seed(SEED))
+            cfgs[remat], models[remat] = cfg, model.to(dev)
+        runs = []
+        for remat in (False, False, True):
+            m = copy.deepcopy(models[remat])
+            opt = build_optimizer_from_cfg(cfgs[remat].optimizer, m,
+                                           lr=cfgs[remat].lr)
+            step = make_step(cfgs[remat], m, opt, dev, SEED + 1, "aa")
+            counted = reset_counts(ops)
+            out = step(batches[0])
+            torch.cuda.synchronize()
+            runs.append({"loss": out["loss"].item(),
+                         "grads": [p.grad.detach().clone() for p in m.parameters()],
+                         "buffers": [t.clone() for t in m.buffers()],
+                         "launches": {k: fn.launches for k, fn in counted.items()}})
+            del m, opt, step
+        base, again, rem = runs
+
+        def rel(a, b):
+            num = sum((x - y).double().norm().item() ** 2 for x, y in zip(a, b))
+            den = sum(y.double().norm().item() ** 2 for y in b)
+            return (num / den) ** 0.5
+
+        spread, diff = rel(again["grads"], base["grads"]), rel(rem["grads"], base["grads"])
+        if not (rem["loss"] == base["loss"] == again["loss"]):
+            raise AssertionError(f"remat B={b}: losses {base['loss']}, "
+                                 f"{again['loss']}, remat {rem['loss']}")
+        if not all(torch.equal(x, y) for x, y in zip(rem["buffers"], base["buffers"])):
+            raise AssertionError(f"remat B={b}: BatchNorm statistics differ")
+        if rem["launches"] != base["launches"]:
+            raise AssertionError(f"remat B={b}: launches {rem['launches']} vs "
+                                 f"{base['launches']}")
+        if not (diff <= 2 * spread if spread > 0 else diff == 0):
+            raise AssertionError(f"remat B={b}: gradients relative L2 {diff} "
+                                 f"from the step without, two steps without "
+                                 f"{spread} apart")
+        print(f"aa train remat B={b}x{N} vs without, one step from one state "
+              f"on the card: loss {rem['loss']} identical, BatchNorm statistics "
+              f"identical, launches identical {dict((k, v) for k, v in rem['launches'].items() if v)}, "
+              f"gradients relative L2 {diff:.3e} (two steps without: "
+              f"{spread:.3e})  [{tag}]")
+        for remat in (False, True):
+            model = models[remat]
+            opt = build_optimizer_from_cfg(cfgs[remat].optimizer, model,
+                                           lr=cfgs[remat].lr)
+            step = make_step(cfgs[remat], model, opt, dev, SEED, "aa")
+            counted = reset_counts(ops)
+            ms = []
+            for i, batch in enumerate(batches):
+                if i == 1:
+                    torch.cuda.reset_peak_memory_stats()
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = step(batch)
+                torch.cuda.synchronize()
+                if i:
+                    ms.append((time.perf_counter() - t) * 1e3)
+                if not np.isfinite(out["loss"].item()):
+                    raise AssertionError(f"remat B={b}: loss {out['loss']}")
+            launches = check_launches("aa train", counted, len(batches))
+            if remat:
+                for k, v in launches.items():
+                    total[k] = total.get(k, 0) + v
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            path = f"aa train B={b}x{N}" + (" remat" if remat else "")
+            STEP_TIMES[path] = (statistics.median(ms), peak)
+            print(f"{path}: per-step ms {ms}; median {statistics.median(ms):.3f} "
+                  f"ms = {b * N / statistics.median(ms) * 1e3:.1f} train "
+                  f"points/s; peak {peak:.3f} GiB  [{tag}]")
+            del opt, step
+        del models, batches
+        torch.cuda.empty_cache()
+    print("remat steps in this call, median ms (peak GiB): " + ", ".join(
+        f"{p} {ms:.3f} ({peak:.3f})" for p, (ms, peak) in STEP_TIMES.items()
+        if p.startswith("aa train B=")) + f"  [{tag}]")
+    return total
+
 
 
 def main() -> None:
@@ -2805,6 +3139,7 @@ def main() -> None:
     kernels.update(rung_kernel_phases(ops, dev, rng, tag))
     gate_phase(ops, dev, tag)
     kernels.update(approx_kernel_phases(ops, dev, rng, tag))
+    kernels.update(bf16_aggregation_phase(ops, dev, rng, tag))
     agg_gate_phase(dev, tag)
     kernels.update(layout_kernel_phases(ops, dev, tag))
 
@@ -2831,6 +3166,21 @@ def main() -> None:
         if kind == "aa":
             by_path["scannet aa train approx fused"] = scannet_fused_path(
                 ops, dev, rng, tag)
+        # use_amp: the same paths with a bfloat16 model of the same weights
+        del model
+        torch.cuda.empty_cache()
+        model = bf16_model(cfg, dev)
+        path = f"{kind} eval bf16"
+        by_path[path] = eval_path(ops, cfg, model, dev, rng, tag, kind, path,
+                                  BF16_LOGIT_TOL)
+        path = f"{kind} train bf16"
+        by_path[path] = train_path(ops, cfg, model, dev, rng, tag, kind, path,
+                                   bf16=True)
+        if kind == "aa":
+            with configuration(knn_backend="approx", agg_fused="on"):
+                path = "aa train bf16 approx fused"
+                by_path[path] = train_path(ops, cfg, model, dev, rng, tag, kind,
+                                           path, bf16=True)
         print(f"{kind} steps in this call, median ms (peak GiB): " + ", ".join(
             f"{p} {ms:.3f}" + (f" ({peak:.3f})" if peak is not None else "")
             for p, (ms, peak) in STEP_TIMES.items()
@@ -2838,6 +3188,7 @@ def main() -> None:
             + f"  [{tag}]")
         del model
         torch.cuda.empty_cache()
+    by_path["aa train remat"] = remat_phase(ops, dev, rng, tag)
     by_path["base eval"] = base_path(ops, dev, rng, tag)
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as workdir:
@@ -2860,6 +3211,9 @@ def main() -> None:
             by_path[f"s3dis {kind} train cli"] = s3dis_cli_path(
                 ops, kind, dev, tag, workdir)
             torch.cuda.empty_cache()
+        by_path["s3dis aa train cli bf16"] = s3dis_cli_path(
+            ops, "aa", dev, tag, workdir, amp=True)
+        torch.cuda.empty_cache()
 
     rows = [{"name": k, "route": "cuda", "source": src, "replaces": tpu,
              "launches": sum(counts[k] for counts in by_path.values()),

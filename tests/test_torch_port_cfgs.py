@@ -6,6 +6,7 @@ import copy
 from pathlib import Path
 
 import pytest
+import torch
 
 from amcontrast3d_tpu_torch.models import build_model_from_cfg
 from amcontrast3d_tpu_torch.utils.config import EasyConfig
@@ -32,31 +33,35 @@ def test_every_shipped_cfg_builds_in_the_port(name):
     assert sum(p.numel() for p in model.parameters()) > 0
 
 
-@pytest.mark.parametrize("name", ["s3dis/AMContrast3D-AA.yaml",
-                                  "synthetic/AMContrast3D-MM.yaml",
-                                  "scannet/pointnext-xl.yaml"])
-def test_encoder_remat_raises_by_name(name):
-    """``encoder_args.remat: True`` (the JAX encoder's ``nn.remat``) is not
-    ported: the build raises and names the key; at the JAX default (False)
-    it builds."""
+@pytest.mark.parametrize("name", MODEL_CFGS)
+def test_every_shipped_cfg_builds_with_remat_at_bf16(name):
+    """``encoder_args.remat: True`` (the JAX encoder's ``nn.remat``) and the
+    runner's bfloat16 compute type build every shipped cfg: a PointNeXt
+    encoder takes the switch (PointNet++'s JAX encoder has no such field,
+    and neither has the port's), and every Linear computes in bfloat16 with
+    float32 parameters."""
+    from amcontrast3d_tpu_torch.models.layers import Dense
+
     model = _model_cfg(name)
     model.encoder_args.remat = True
-    with pytest.raises(NotImplementedError, match="remat"):
-        build_model_from_cfg(model)
-    model.encoder_args.remat = False
-    build_model_from_cfg(model)
+    built = build_model_from_cfg(model, dtype=torch.bfloat16)
+    encoder = built.encoder
+    assert getattr(encoder, "remat", True) is True
+    dense = [m for m in built.modules() if isinstance(m, torch.nn.Linear)]
+    assert dense and all(isinstance(m, Dense) and m.compute_dtype == torch.bfloat16
+                         for m in dense)
+    assert all(p.dtype == torch.float32 for p in built.parameters())
 
 
 @pytest.mark.parametrize("section,key,value,default", [
     ("encoder_args", "bn_axis_name", "batch", None),
-    ("encoder_args", "dtype", "bfloat16", "float32"),
     ("cls_args", "bn_axis_name", "data", None),
     ("encoder_args", "sampler", "random", "fps")])
 def test_other_unported_keys_raise_off_their_jax_default(section, key, value,
                                                          default):
-    """The JAX modules' framework fields (BatchNorm across devices, the
-    compute type) and the PointNet++ encoder's sampler: off the JAX default
-    the build raises naming the key, at it the model builds."""
+    """The JAX modules' framework field of BatchNorm across devices and the
+    PointNet++ encoder's sampler: off the JAX default the build raises
+    naming the key, at it the model builds."""
     name = "s3dis/pointnet++.yaml" if key == "sampler" else "s3dis/AMContrast3D-AA.yaml"
     model = _model_cfg(name)
     model[section][key] = value

@@ -1933,3 +1933,123 @@ def test_new_wrappers_raise_on_tensors_they_cannot_take(cuda_device):
         ops.aggregate_backward(u, idx, qp, ext, ties, strided)
     with pytest.raises(ValueError):
         ops.aggregate_backward(u, idx, qp, ext, ties.int(), ext)
+
+
+def _bf16_close(got, want, tol):
+    """bfloat16 ``got`` within one bfloat16 ulp of ``want`` (of the larger
+    of the two), plus the tolerance tol·(1+max|want|) of the float32 sums
+    that both are roundings of."""
+    torch.cuda.synchronize()
+    g, w = got.float(), want.float()
+    big = torch.maximum(g.abs(), w.abs())
+    ulp = torch.where(big > 0, torch.exp2(torch.floor(torch.log2(big)) - 7),
+                      torch.zeros_like(big))
+    bound = ulp + tol * (1 + w.abs().max())
+    assert bool(((g - w).abs() <= bound).all()), ((g - w).abs() - bound).max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,sign,layout", [
+    (1, "neg", False), (13, "mixed", True), (64, "pos", True),
+    (128, "mixed", True), (256, "neg", False), (1024, "mixed", True)])
+def test_aggregate_bf16_kernels_match_plain(cuda_device, c, sign, layout):
+    """The bfloat16 forms of both kernels (a bfloat16 ``u``) against the
+    twins: ext and the tie count identical (ext the float32 of a bfloat16
+    value, also identical to the float32 kernels on ``u.float()``), su and
+    sq within 1e-5·(1+max) in train mode, ext identical in eval mode; the
+    VJP's float32 accumulator within 1e-5·(1+max|du|) of the twin's, du its
+    rounding to bfloat16 exactly and at most one bfloat16 ulp from the
+    twin's du, with and without the moments; one launch of the bfloat16
+    form a call, none of the float32 form.  C = 1 and 13 take the scalar
+    loads, 64 to 1024 the 16-byte (forward) and 8-byte (VJP) ones."""
+    rng = np.random.RandomState(100 + c)
+    u, idx, sgn, qp, q = _aggregate_case(rng, cuda_device, 3000, 750, c, 0.1,
+                                         sign)
+    u = u.bfloat16()
+    order = spatial.index_bits(spatial.sort_support(q)) if layout else None
+    counts = (ops.aggregate_forward.launches, ops.aggregate_forward_bf16.launches,
+              ops.aggregate_backward.launches, ops.aggregate_backward_bf16.launches)
+    got = ops.aggregate_forward(u, idx, sgn, qp, order=order, keep_ties=True)
+    want = ops.aggregate_forward_plain(u, idx, sgn, qp, keep_ties=True)
+    assert got[0].dtype == torch.float32
+    _equal(got[0], want[0])
+    _equal(got[3], want[3])
+    _close(got[1], want[1], 1e-5)
+    _close(got[2], want[2], 1e-5)
+    _equal(ops.aggregate_forward(u, idx, sgn, need_stats=False, order=order)[0],
+           want[0])
+    _equal(ops.aggregate_forward(u.float(), idx, sgn, qp, order=order,
+                                 keep_ties=True)[3], want[3])
+    b, m = qp.shape[:2]
+    gs = [torch.from_numpy(rng.randn(b, m, c).astype(np.float32)).to(cuda_device)
+          for _ in range(3)]
+    for args in ((qp, *gs), (None, gs[0])):
+        acc = torch.empty(u.shape, dtype=torch.float32, device=cuda_device)
+        acc_want = torch.empty_like(acc)
+        du = ops.aggregate_backward(u, idx, args[0], got[0], got[3], *args[1:],
+                                    order=order, accumulator=acc)
+        du_want = ops.aggregate_backward_plain(u, idx, args[0], got[0], got[3],
+                                               *args[1:], accumulator=acc_want)
+        assert du.dtype == torch.bfloat16
+        _close(acc, acc_want, 1e-5)
+        _equal(du, acc.bfloat16())
+        _bf16_close(du, du_want, 1e-5)
+    assert (ops.aggregate_forward.launches, ops.aggregate_forward_bf16.launches,
+            ops.aggregate_backward.launches,
+            ops.aggregate_backward_bf16.launches) == (
+        counts[0] + 1, counts[1] + 2, counts[2], counts[3] + 2)
+
+
+@pytest.mark.cuda
+def test_grouped_slot_reduce_bf16_autograd_on_the_card(cuda_device):
+    """``grouped_slot_reduce`` on a bfloat16 ``u`` through the bfloat16
+    kernels against the plain entry: float32 outputs identical (ext) and
+    within 1e-5·(1+max) (moments); the gradient in ``u`` bfloat16, at most
+    one bfloat16 ulp from the plain entry's; the gradient in ``qp`` in
+    qp's own dtype (float32 and bfloat16), within 1e-5·(1+max)."""
+    rng = np.random.RandomState(7)
+    u, idx, sgn, qp, q = _aggregate_case(rng, cuda_device, 2000, 500, 96, 0.05,
+                                         "mixed")
+    u = u.bfloat16()
+    layout = spatial.sort_support(q)
+    gs = [torch.from_numpy(rng.randn(2, 500, 96).astype(np.float32)).to(cuda_device)
+          for _ in range(3)]
+    for qdtype in (torch.float32, torch.bfloat16):
+        res = []
+        for fn, cloud in ((ops.grouped_slot_reduce, layout),
+                          (ops.grouped_slot_reduce_plain, None)):
+            ut = u.clone().requires_grad_()
+            qt = qp.to(qdtype).clone().requires_grad_()
+            outs = fn(ut, idx, sgn, qp=qt, query_cloud=cloud)
+            sum((o * g).sum() for o, g in zip(outs, gs)).backward()
+            assert ut.grad.dtype == torch.bfloat16 and qt.grad.dtype == qdtype
+            res.append([o.detach() for o in outs] + [ut.grad, qt.grad])
+        _equal(res[0][0], res[1][0])
+        for a, b in zip(res[0][1:3], res[1][1:3]):
+            _close(a, b, 1e-5)
+        _bf16_close(res[0][3], res[1][3], 1e-5)
+        if qdtype == torch.bfloat16:
+            _bf16_close(res[0][4], res[1][4], 1e-5)
+        else:
+            _close(res[0][4], res[1][4], 1e-5)
+
+
+@pytest.mark.cuda
+def test_bf16_forms_raise_on_other_dtypes(cuda_device):
+    """The bfloat16 forms take a bfloat16 ``u`` only, the wrappers float32
+    or bfloat16; a float32 accumulator goes with a bfloat16 ``u`` only.
+    Nothing is upcast or sent to the twin."""
+    rng = np.random.RandomState(8)
+    u, idx, sgn, qp, q = _aggregate_case(rng, cuda_device, 100, 50, 8, 0.5, "pos")
+    with pytest.raises(ValueError):
+        ops.aggregate_forward_bf16(u, idx, sgn, qp)
+    with pytest.raises(ValueError):
+        ops.aggregate_forward(u.half(), idx, sgn, qp)
+    ext, _, _, ties = ops.aggregate_forward(u, idx, sgn, qp, keep_ties=True)
+    with pytest.raises(ValueError):
+        ops.aggregate_backward_bf16(u, idx, qp, ext, ties, ext)
+    with pytest.raises(ValueError):
+        ops.aggregate_backward(u, idx, qp, ext, ties, ext,
+                               accumulator=torch.empty_like(u))
+    with pytest.raises(ValueError):   # qp is float32 in both forms
+        ops.aggregate_forward(u.bfloat16(), idx, sgn, qp.bfloat16())

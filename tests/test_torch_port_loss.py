@@ -225,14 +225,6 @@ def test_unported_contrast_variants_raise(kw):
             kw.get("contrast_func", "contrast_softnn_margin"))
 
 
-def test_remat_is_not_ported():
-    p = _t(np.random.RandomState(6).rand(1, 64, 3).astype(np.float32))
-    with pytest.raises(NotImplementedError):
-        port_loss.contrast_head([(p, torch.randn(1, 64, 8))],
-                                torch.zeros(1, 64, dtype=torch.long), NCLS,
-                                None, {**AMB, "remat": True})
-
-
 def test_cross_entropy_ace_pre_matches_jax():
     """``CrossEntropyAcePre`` over 3 stages (N 1024/256/64): its four terms
     (seg, ce, contrast, reg) to 1e-5 relative, and the gradients of

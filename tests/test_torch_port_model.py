@@ -205,10 +205,7 @@ def test_every_jax_model_field_is_taken_or_raises_by_name():
             if name.startswith("APM_") and key in _READ_AROUND_THE_APM:
                 continue
             assert key in table, (name, key)
-            if key == "dtype":
-                assert default == jnp.float32 and table[key] == "float32"
-            else:
-                assert table[key] == default, (name, key, default)
+            assert table[key] == default, (name, key, default)
 
 
 # ---- single modules --------------------------------------------------------

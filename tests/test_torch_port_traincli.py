@@ -937,8 +937,30 @@ def test_a_non_finite_loss_stops_the_run(tmp_path):
         runner.train()
 
 
+def test_cli_trains_and_tests_at_bf16_on_the_cpu(tmp_path):
+    """``use_amp=True``, ``encoder_args.remat=True`` and
+    ``ambiguity_args.remat=True`` pass through the cfg overrides: the port's
+    ``main_cli`` trains one epoch with a bfloat16 model (every Linear in
+    bfloat16, float32 parameters), writes its checkpoints, and
+    ``mode=test`` scores the rooms from ``best`` at bfloat16."""
+    argv = ["--cfg", _tiny_cfg(tmp_path), "--device", "cpu", "seed=2",
+            "use_amp=True", "model.encoder_args.remat=True",
+            "ambiguity_args.remat=True"]
+    res = pcli.main_cli("aa", argv)
+    assert np.isfinite(res["timing"][0]["loss"]) and res["best_val"] >= 0
+    best = glob.glob(os.path.join(res["run_dir"], "checkpoint", "*best.ckpt"))
+    assert len(best) == 1
+    state = torch.load(best[0], weights_only=False)["state"]["model"]
+    assert all(v.dtype in (torch.float32, torch.int64) for v in state.values())
+    cfg = _load(EasyConfig, os.path.join(res["run_dir"], "cfg.yaml"))
+    assert cfg.use_amp and cfg.model.encoder_args.remat \
+        and cfg.ambiguity_args.remat
+    out = pcli.main_cli("aa", argv + ["mode=test", f"pretrained_path={best[0]}"])
+    assert np.isfinite(out["miou"]) and len(out["ious"]) == 13
+
+
 @pytest.mark.parametrize("opts,match", [
-    (["use_amp=True"], "use_amp"), (["distributed=True"], "distributed"),
+    (["distributed=True"], "distributed"),
     (["optimizer.layer_decay=0.75"], "layer_decay"),
     (["optimizer.NAME=adahessian"], "adahessian")])
 def test_unported_options_raise_by_name(tmp_path, opts, match):

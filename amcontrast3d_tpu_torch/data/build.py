@@ -4,11 +4,14 @@ build.py``, itself ↔ openpoints/dataset/build.py).
 A host-side numpy loader: fixed-shape batches (train clouds are cropped or
 padded to ``voxel_max`` by the dataset, ``data_util.crop_pc``) stacked and
 prefetched on a background thread while the device computes, items
-optionally loaded by a pool of forked worker processes.  One process
-drives one device, so the batch is the global batch and no per-rank sampler
-is needed.  The epoch's shuffle comes from ``seed + epoch`` and the item
-order within a batch is that of the index list, so both packages see equal
-batches from equal seeds.
+optionally loaded by a pool of forked worker processes.  The epoch's
+shuffle comes from ``seed + epoch`` and the item order within a batch is
+that of the index list, so both packages see equal batches from equal
+seeds.  On rank r of N data-parallel ranks the loader draws the same global
+batches and loads only its rows ``[r·B/N, (r+1)·B/N)`` of each
+(``batch_size`` stays global, as the JAX package's ``shard_batch`` splits
+it), with ``num_workers / N`` workers (rounded up), so N ranks together
+fork as many as one process would.
 
 The workers are forked from the thread that starts the iteration (never
 from the prefetch thread) and touch only numpy: a process forked after the
@@ -23,6 +26,7 @@ from typing import Dict, Iterator
 
 import numpy as np
 
+from .. import parallel
 from ..transforms import build_transforms_from_cfg
 from ..utils.registry import Registry
 
@@ -77,9 +81,12 @@ class NumpyLoader:
     def __init__(self, dataset, batch_size: int, shuffle: bool = False,
                  drop_last: bool = False, collate_fn=stack_collate_fn,
                  seed: int = 0, prefetch: bool = True, num_workers: int = 0,
-                 prefetch_depth: int = 2):
+                 prefetch_depth: int = 2, rank: int = 0, world_size: int = 1):
+        # this rank's rows of each global batch; raises naming batch_size
+        self.rows = parallel.rank_rows(batch_size, rank, world_size)
         self.dataset = dataset
         self.batch_size = batch_size
+        self.rank, self.world_size = rank, world_size
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.collate_fn = collate_fn
@@ -143,6 +150,8 @@ class NumpyLoader:
             sel = idx[b * self.batch_size:(b + 1) * self.batch_size]
             if len(sel) == 0:
                 return
+            if self.world_size > 1:
+                sel = sel[self.rows]
             yield sel
 
     def _make_batch(self, sel):
@@ -199,7 +208,8 @@ def build_dataloader_from_cfg(batch_size: int, dataset_cfg,
                               dataloader_cfg=None, datatransforms_cfg=None,
                               split: str = "train", distributed: bool = False,
                               seed: int = 0):
-    """↔ dataset/build.py:44-98 (same call shape as the reference mains)."""
+    """↔ dataset/build.py:44-98 (same call shape as the reference mains);
+    ``distributed``: this data-parallel rank's rows of each global batch."""
     if datatransforms_cfg is not None:
         trans_split = "train" if split == "train" else "val"
         transform = build_transforms_from_cfg(trans_split, datatransforms_cfg)
@@ -212,12 +222,17 @@ def build_dataloader_from_cfg(batch_size: int, dataset_cfg,
     shuffle = split == "train"
     dl_cfg = dict(dataloader_cfg or {})
     num_workers = int(dl_cfg.get("num_workers", 0) or 0)
+    rank, world_size = 0, 1
+    if distributed:
+        rank, world_size = parallel.get_rank(), parallel.get_world_size()
     import os as _os
-    num_workers = min(num_workers, max(_os.cpu_count() - 1, 0))
+    num_workers = min(-(-num_workers // world_size),
+                      max(_os.cpu_count() - 1, 0) // world_size)
     loader = NumpyLoader(dataset, batch_size, shuffle=shuffle,
                          drop_last=split == "train", seed=seed,
                          num_workers=num_workers,
-                         prefetch_depth=int(dl_cfg.get("prefetch_depth", 2)))
+                         prefetch_depth=int(dl_cfg.get("prefetch_depth", 2)),
+                         rank=rank, world_size=world_size)
     logging.info("dataset %s split %s: %d samples, %d batches",
                  dataset.__class__.__name__, split, len(dataset), len(loader))
     return loader

@@ -18,15 +18,27 @@ Every mode but the three eval modes trains (``train``, ``resume`` from a
 ``<run_dir>/profile/trace.json``.  ``mode=test`` is the whole-scene voting
 test, ``mode=val`` / ``val_train`` run ``Runner.validate`` over the split's
 loader.
+
+Data parallelism (↔ the reference's launcher, ``main_AA.py:857-865``): on a
+host with more than one visible card the run is one process a card
+(``torch.multiprocessing.spawn``, NCCL), unless ``distributed=False``;
+``--device cpu world_size=N`` spawns N gloo ranks on the CPU; under
+``torchrun`` each process is the rank its environment names.  The run
+directory and ``cfg.yaml`` are made once, before the ranks start; rank 0
+logs, writes checkpoints, scalars and the results CSV, and its results are
+what ``main_cli`` returns.
 """
 from __future__ import annotations
 
 import argparse
 import logging
 import os
+import pickle
+import tempfile
 
 import torch
 
+from .. import parallel
 from ..utils import (EasyConfig, generate_exp_directory, resume_exp_directory,
                      setup_logger_dist, write_to_csv)
 from .runner import Runner, resolve_device
@@ -73,12 +85,9 @@ def _train_profiled(runner):
     return results
 
 
-def main_cli(kind: str = None, argv=None):
-    args, opts = parse_args(argv)
-    kind = args.kind or kind or "aa"
-    cfg = load_cfg(args, opts)
-    device = resolve_device(args.device)
-
+def _make_run_dir(cfg) -> None:
+    """The run directory (a new one, or a resumed run's own) and the
+    resolved config's snapshot in it (main_AA.py:847-851)."""
     mode = cfg.get("mode", "train")
     if mode == "resume" and cfg.get("pretrained_path"):
         resume_exp_directory(cfg, cfg.pretrained_path)
@@ -86,30 +95,76 @@ def main_cli(kind: str = None, argv=None):
         tags = [cfg.cfg_basename, f"ngpus{torch.cuda.device_count()}",
                 f"seed{cfg.seed}"]
         generate_exp_directory(cfg, exp_name=tags)
-    setup_logger_dist(cfg.run_dir, 0, name=cfg.cfg_basename)
-
-    # snapshot the resolved config into the run dir (main_AA.py:847-851)
     import yaml
     with open(os.path.join(cfg.run_dir, "cfg.yaml"), "w") as f:
         yaml.safe_dump(cfg.dict(), f)
 
+
+def main_cli(kind: str = None, argv=None):
+    args, opts = parse_args(argv)
+    kind = args.kind or kind or "aa"
+    cfg = load_cfg(args, opts)
+    device = resolve_device(args.device)
+
+    env = parallel.from_environment()
+    if env is not None:
+        # torchrun: this process is one rank; rank 0 makes the run directory
+        rank, world_size, local_rank = env
+        device = parallel.rank_device(device.type, local_rank)
+        parallel.init_process_group(rank, world_size, device)
+        try:
+            if rank == 0:
+                _make_run_dir(cfg)
+            return _run(rank, device, kind, args, cfg)
+        finally:
+            parallel.destroy_process_group()
+    _make_run_dir(cfg)
+    world_size = parallel.requested_world_size(cfg, device.type)
+    if world_size == 1:
+        return _run(0, device, kind, args, cfg)
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "results.pkl")
+        parallel.launch(_rank_main, world_size, (kind, args, cfg, out),
+                        device_type=device.type)
+        with open(out, "rb") as f:
+            return pickle.load(f)
+
+
+def _rank_main(rank, device, kind, args, cfg, out):
+    """A spawned rank: runs the mode; rank 0 keeps its results in ``out``."""
+    results = _run(rank, device, kind, args, cfg)
+    if rank == 0:
+        with open(out, "wb") as f:
+            pickle.dump(results, f)
+
+
+def _run(rank, device, kind, args, cfg):
+    """The mode of ``cfg`` on this rank's device; rank 0's results."""
+    lead = rank == 0
+    setup_logger_dist(cfg.run_dir if lead else None, rank,
+                      name=cfg.cfg_basename)
+    mode = cfg.get("mode", "train")
     runner = Runner(cfg, kind=kind, device=device)
     # any non-eval mode trains: 'train', 'resume', and the finetune family
     if mode not in ("val", "val_train", "test"):
-        results = _train_profiled(runner) if args.profile else runner.train()
+        results = (_train_profiled(runner) if args.profile and lead
+                   else runner.train())
         logging.info("Training done: %s",
                      {k: v for k, v in results.items() if k != "timing"})
-        results["run_dir"] = cfg.run_dir
+        results["run_dir"] = cfg.get("run_dir")
         return results
     best_epoch = "-"
     if cfg.get("pretrained_path"):
         epoch = runner.load_pretrained(cfg.pretrained_path)
         best_epoch = epoch if epoch is not None else "-"
     if mode == "test":
-        # whole-scene voting test (↔ test_boundary_inner, main_AA.py:516)
+        # whole-scene voting test (↔ test_boundary_inner, main_AA.py:516);
+        # the ranks score the subclouds together, rank 0 votes
         from .evaluate import generate_data_list, test_whole_scenes
         data_list = generate_data_list(cfg)
         results = test_whole_scenes(runner, data_list, cfg)
+        if not lead:
+            return results
         logging.info("test: mIoU %.2f mACC %.2f OA %.2f",
                      results["miou"], results["macc"], results["oa"])
         if "boundary" in results:
@@ -124,6 +179,9 @@ def main_cli(kind: str = None, argv=None):
         logging.info("save results in %s", cfg.csv_path)
         results["csv_path"], results["run_dir"] = cfg.csv_path, cfg.run_dir
         return results
+    if not lead:
+        # validation is single-device, as in the JAX package
+        return {}
     from ..data import build_dataloader_from_cfg
     split = "train" if mode == "val_train" else "val"
     loader = build_dataloader_from_cfg(

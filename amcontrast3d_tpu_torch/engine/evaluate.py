@@ -29,6 +29,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
+from .. import parallel
 from ..data.data_util import bucket_size, get_features_by_keys, pad_cloud, voxelize
 from ..ops import ambiguity_function, knn
 from ..transforms import build_transforms_from_cfg
@@ -235,7 +236,16 @@ def test_whole_scenes(runner, data_list, cfg) -> Dict:
     and the host-clock seconds of its phases (``prep_s`` host preparation,
     ``forward_s`` device forward with the copies to and from the device,
     ``vote_s`` voting, ``boundary_s`` the boundary/inner and ambiguity
-    neighbour searches and their metrics)."""
+    neighbour searches and their metrics).
+
+    Data-parallel (``runner.distributed``, ``test_sharded`` on by default;
+    ↔ the JAX test's ``n_devices`` subclouds a dispatch): within each
+    bucket of more than one subcloud, rank r of N scores the parts r, r+N,
+    … (a partial chunk padded by repeating its last part), the logits are
+    gathered to rank 0 (``all_gather`` of the (bucket, C) rows, cut to each
+    part's size there), and rank 0 votes in part order, so its votes are
+    those of one device; a bucket of one subcloud is rank 0's alone.  The
+    other ranks return an empty dict."""
     # ↔ main_AA.py:522 set_random_seed(0): pins the subcloud shuffle stream
     # so test-mode predictions are reproducible (and comparable with the
     # reference run on the same rooms)
@@ -243,6 +253,10 @@ def test_whole_scenes(runner, data_list, cfg) -> Dict:
     set_random_seed(0)
     predict = runner.predict_fn()
     device = runner.device
+    sharded = (getattr(runner, "distributed", False)
+               and bool(cfg.get("test_sharded", True)))
+    world = runner.world_size if sharded else 1
+    rank = runner.rank if sharded else 0
     aargs = dict(cfg.get("ambiguity_args", {}) or {})
     miou_b_i = bool(aargs.get("miou_B_I", False))
     action = bool(aargs.get("action", False))
@@ -273,21 +287,38 @@ def test_whole_scenes(runner, data_list, cfg) -> Dict:
         parts = prepare_parts(coord, feat, idx_points, cfg, pipe_transform)
         t_prep = time.perf_counter()
 
-        # phase 2 — score, bucket by bucket, one subcloud per dispatch; the
-        # logits come back to the host per subcloud
+        # phase 2 — score, bucket by bucket, one subcloud per dispatch (a
+        # rank); the logits come back to the host per subcloud
         part_logits = [None] * len(parts)
         by_nb: Dict[int, List[int]] = {}
         for j, p in enumerate(parts):
             by_nb.setdefault(p[2], []).append(j)
+
+        def score(j):
+            batch = runner.put_batch({"pos": parts[j][3][None],
+                                      "x": parts[j][4][None]})
+            # numpy holds no bfloat16 (use_amp): float32 is its exact value,
+            # as the JAX side's numpy sums and argmaxes read it
+            return predict(batch)[0].float()
+
         for nb in sorted(by_nb):
-            for j in by_nb[nb]:
-                batch = runner.put_batch({"pos": parts[j][3][None],
-                                          "x": parts[j][4][None]})
-                # numpy holds no bfloat16 (use_amp): float32 is its exact
-                # value, as the JAX side's numpy sums and argmaxes read it
-                part_logits[j] = predict(batch)[0, :parts[j][1]].float(
-                ).cpu().numpy()
+            idxs = by_nb[nb]
+            if world > 1 and len(idxs) > 1:
+                for c0 in range(0, len(idxs), world):
+                    chunk = idxs[c0:c0 + world]
+                    sel = chunk + [chunk[-1]] * (world - len(chunk))
+                    logits = score(sel[rank])
+                    rows = [torch.empty_like(logits) for _ in range(world)]
+                    parallel.collective("all_gather", rows, logits)
+                    if rank == 0:
+                        for k, j in enumerate(chunk):
+                            part_logits[j] = rows[k][:parts[j][1]].cpu().numpy()
+            elif rank == 0:
+                for j in idxs:
+                    part_logits[j] = score(j)[:parts[j][1]].cpu().numpy()
         t_forward = time.perf_counter()
+        if rank != 0:
+            continue
 
         # phase 3 — scatter-mean voting (order-independent sums)
         sub_logits_cache = None
@@ -385,6 +416,8 @@ def test_whole_scenes(runner, data_list, cfg) -> Dict:
         logging.info("Test cloud [%d/%d] done (%d pts)", cloud_idx + 1,
                      len(data_list), n_total)
 
+    if rank != 0:
+        return {}
     miou, macc, oa, ious, accs = get_mious(all_cm.tp, all_cm.union, all_cm.count)
     # per-class values as plain lists so they survive artifact serialization
     # (json / the convergence tool's snippet filter)

@@ -16,9 +16,20 @@ Linears, float32 BatchNorms; the logits come out in bfloat16 and are
 taken to float32 on the host only where numpy needs them, an exact cast).
 
 Not ported (each raises ``NotImplementedError`` by name): ``layer_decay``
-and the optimizers other than AdamW, ``distributed``.
+and the optimizers other than AdamW.
 
 The runner works on one device: the card unless the caller names the CPU.
+Data parallelism (↔ the JAX runner's ``distributed``, ``runner.py:52-55``):
+a runner built inside a process group of N > 1 ranks
+(:mod:`amcontrast3d_tpu_torch.parallel`; ``engine.cli`` launches them) is
+rank r of N, unless ``distributed: False``: the weights are broadcast from
+rank 0 once and its BatchNorms synced, its train loader yields its rows of
+each global batch (``batch_size`` stays global), the train step is the
+sharded one, and only rank 0 validates (single-device, as in JAX; the
+others wait for its result, which every rank then holds), writes
+checkpoints and scalars.  A cfg that asks for N > 1 ranks (``distributed:
+True``, or ``world_size`` N on the CPU) in a process that is not one of
+them raises.
 """
 from __future__ import annotations
 
@@ -30,6 +41,7 @@ from typing import Dict, Iterable, Optional
 import numpy as np
 import torch
 
+from .. import parallel
 from ..data import build_dataloader_from_cfg
 from ..data.data_util import bucket_size, get_features_by_keys, pad_cloud
 from ..loss import build_criterion_from_cfg
@@ -72,16 +84,34 @@ class Runner:
         self.cfg = cfg
         self.kind = kind
         self.device = resolve_device(device)
-        self.rng = set_random_seed(cfg.get("seed") or 0)
-
-        if cfg.get("distributed", False):
-            raise NotImplementedError("distributed (the sharded steps) is not "
-                                      "ported yet (ROADMAP.md §1)")
+        # a cfg that names N > 1 ranks (distributed=True, the CPU's
+        # world_size, torchrun's) runs only as one of N processes; on the
+        # card the default leaves it to the launcher
+        wanted = parallel.requested_world_size(cfg, self.device.type)
+        named = (cfg.get("distributed", None) is True
+                 or self.device.type == "cpu"
+                 or parallel.from_environment() is not None)
+        self.world_size = parallel.get_world_size()
+        if named and wanted > 1 and self.world_size != wanted:
+            raise RuntimeError(
+                f"distributed: the cfg asks for {wanted} ranks and this "
+                f"process is one of {self.world_size}; launch them with "
+                "engine.cli (or torchrun), or set distributed=False")
+        self.distributed = (self.world_size > 1
+                            and cfg.get("distributed", None) is not False)
+        self.rank = parallel.get_rank() if self.distributed else 0
         seed = cfg.get("seed") or 0
+        # each rank's host streams (augmentation) of its own, as the
+        # reference seeds seed + rank; the weights come from ``seed`` alone
+        self.rng = set_random_seed(seed + self.rank)
+
         dtype = torch.bfloat16 if cfg.get("use_amp", False) else torch.float32
         self.model = init_train_weights_(
             build_model_from_cfg(dict(cfg.model), dtype=dtype),
             torch.Generator().manual_seed(seed)).to(self.device)
+        if self.distributed:
+            parallel.replicate(self.model)
+            parallel.sync_batchnorm_(self.model)
         crit_cfg = cfg.get(KIND_TO_CRITERION_KEY[kind]) or {"NAME": "CrossEntropy"}
         self.criterion = build_criterion_from_cfg(crit_cfg)
 
@@ -149,7 +179,7 @@ class Runner:
                 self.model, self.criterion, self.optimizer, self._schedule,
                 self.kind, self.num_classes, self.ignore_index,
                 self.ambiguity_args, self.cfg.get("grad_norm_clip"),
-                generator)
+                generator, distributed=self.distributed)
         return self._train_step
 
     def _restore(self, mode: str) -> Dict:
@@ -181,16 +211,22 @@ class Runner:
         run when it is read."""
         cfg = self.cfg
         seed = cfg.get("seed") or 0
+        # each rank loads its rows of the global batch; rank 0 alone
+        # validates
         loaders = [build_dataloader_from_cfg(
-            batch, cfg.dataset, cfg.get("dataloader"),
-            cfg.get("datatransforms"), split=split, seed=seed)
-            for batch, split in ((cfg.batch_size, "train"),
-                                 (cfg.get("val_batch_size", 1), "val"))]
+            cfg.batch_size, cfg.dataset, cfg.get("dataloader"),
+            cfg.get("datatransforms"), split="train",
+            distributed=self.distributed, seed=seed)]
+        loaders.append(build_dataloader_from_cfg(
+            cfg.get("val_batch_size", 1), cfg.dataset, cfg.get("dataloader"),
+            cfg.get("datatransforms"), split="val", seed=seed)
+            if self.rank == 0 else None)
         try:
             return self._train(*loaders)
         finally:
             for loader in loaders:
-                loader.close()
+                if loader is not None:
+                    loader.close()
 
     def _train(self, train_loader, val_loader):
         cfg = self.cfg
@@ -212,8 +248,9 @@ class Runner:
             logging.info("Training from scratch")
         step = self.train_step_fn()
 
+        lead = self.rank == 0
         writer = SummaryWriter(
-            cfg.get("run_dir"),
+            cfg.get("run_dir") if lead else None,
             use_wandb=bool((cfg.get("wandb") or {}).get("use_wandb")),
             wandb_cfg=cfg.get("wandb"))
         val_miou = val_macc = val_oa = 0.0
@@ -265,13 +302,12 @@ class Runner:
 
             is_best = False
             if epoch % cfg.get("val_freq", 1) == 0:
-                if cfg.get("val_fn") == "validate_sphere":
-                    validate_fn = self.validate_sphere
-                elif self.ambiguity_args.get("miou_B_I"):
-                    validate_fn = self.validate_boundary_inner
-                else:
-                    validate_fn = self.validate
-                val_miou, val_macc, val_oa, _, _ = validate_fn(val_loader)
+                if lead:
+                    val_miou, val_macc, val_oa = self._validate(val_loader)
+                if self.distributed:
+                    # the other ranks wait here for rank 0's validation
+                    val_miou, val_macc, val_oa = parallel.broadcast_floats(
+                        [val_miou, val_macc, val_oa], device=self.device)
                 if val_miou > best_val:
                     is_best, best_val, best_epoch = True, val_miou, epoch
                 logging.info("Epoch %d val_miou %.2f (best %.2f @E%d)",
@@ -291,7 +327,7 @@ class Runner:
                 writer.add_scalar(k, m.avg, epoch)
             if "refine_rate" in extra_meters:
                 last_refine_rate = extra_meters["refine_rate"].avg
-            if cfg.get("ckpt_dir"):
+            if cfg.get("ckpt_dir") and lead:
                 extra = {"best_val": best_val, "best_epoch": best_epoch,
                          "step": step.state["step"]}
                 if self.plateau is not None:
@@ -307,6 +343,17 @@ class Runner:
             # the last epoch's mean refine rate in percent (MM only)
             results["refine_rate"] = round(float(last_refine_rate), 3)
         return results
+
+    def _validate(self, val_loader):
+        """(mIoU, mACC, OA) by the cfg's validation: the sphere protocol,
+        the boundary/inner split or the plain one."""
+        if self.cfg.get("val_fn") == "validate_sphere":
+            validate_fn = self.validate_sphere
+        elif self.ambiguity_args.get("miou_B_I"):
+            validate_fn = self.validate_boundary_inner
+        else:
+            validate_fn = self.validate
+        return validate_fn(val_loader)[:3]
 
     # ------------------------------------------------------------------
     def _padded_logits(self, batch):

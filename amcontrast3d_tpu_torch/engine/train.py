@@ -13,8 +13,15 @@ carries in ``TrainState``; ``step.state`` holds the step counter (the
 schedule and the dropout seeds follow it, and a resumed run restores it)
 and ``lr_scale``, the plateau scheduler's factor on every group's rate.
 Frozen parameters are those with ``requires_grad`` off when the optimizer
-was built (``optim.freeze_parameters_``).  Not ported yet: adahessian and
-the sharded steps.
+was built (``optim.freeze_parameters_``).  Not ported yet: adahessian.
+
+``distributed`` is the sharded step (↔ ``make_train_step(axis_name='dp')``
+under ``make_sharded_train_step``), one process a rank: the batch holds
+this rank's rows, the model's BatchNorms are synced
+(``parallel.sync_batchnorm_``), the gradients are averaged over the ranks
+in one all_reduce before the clip and AdamW, the loss and the aux metrics
+are averaged and the confusion matrix summed, and the dropout masks are
+drawn from (seed, step, rank) (↔ ``fold_in(rng, axis_index)``).
 """
 from __future__ import annotations
 
@@ -23,6 +30,7 @@ from typing import Callable, Dict, Optional, Union
 import torch
 from torch import nn
 
+from .. import parallel
 from ..optim import clip_by_global_norm_
 from ..utils.metrics import confusion_matrix_update
 
@@ -34,20 +42,25 @@ def make_train_step(model: nn.Module, criterion: Callable,
                     ignore_index: Optional[int] = None,
                     ambiguity_args: Optional[Dict] = None,
                     grad_norm_clip: Optional[float] = None,
-                    generator: Optional[torch.Generator] = None
+                    generator: Optional[torch.Generator] = None,
+                    distributed: bool = False
                     ) -> Callable[[Dict], Dict[str, torch.Tensor]]:
     """Returns ``step(batch) → {"loss", "cm", …}`` for a batch of device
     tensors ``pos`` (B, N, 3), ``x`` (B, N, C_in), ``y`` (B, N).
 
     ``generator`` (on the model's device) draws the dropout masks; step s
     reseeds it with its initial seed + s, so a step's masks depend only
-    on the seed and the step (as JAX folds the step into its key).
-    Nothing is read back to the host."""
+    on the seed and the step (as JAX folds the step into its key); with
+    ``distributed``, on the rank too (rank r adds r·0x9E3779B9 modulo 2³²,
+    far from any step count).  Nothing is read back to the host."""
     if kind not in ("base", "aa", "mm"):
         raise NotImplementedError(f"train step kind {kind} is not ported")
     ambiguity_args = dict(ambiguity_args or {})
     params = [p for g in optimizer.param_groups for p in g["params"]]
     seed = generator.initial_seed() if generator is not None else None
+    if seed is not None and distributed:
+        # the CPU generator keeps 32 bits of a seed
+        seed = (seed + parallel.get_rank() * 0x9E3779B9) % 2 ** 32
     state = {"step": 0, "lr_scale": 1.0}
 
     def step(batch: Dict) -> Dict[str, torch.Tensor]:
@@ -84,6 +97,8 @@ def make_train_step(model: nn.Module, criterion: Callable,
                    "refine_rate": rate.detach()}
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        if distributed:
+            parallel.all_reduce_gradients_(params)
         if grad_norm_clip is not None and grad_norm_clip > 0:
             clip_by_global_norm_(params, grad_norm_clip)
         lr = lr_schedule(s) if callable(lr_schedule) else lr_schedule
@@ -94,8 +109,11 @@ def make_train_step(model: nn.Module, criterion: Callable,
         with torch.no_grad():
             cm = confusion_matrix_update(logits.argmax(-1), target,
                                          num_classes, ignore_index)
+        loss = loss.detach()
+        if distributed:
+            loss, aux, cm = parallel.reduce_metrics(loss, aux, cm)
         state["step"] = s + 1
-        return {"loss": loss.detach(), "cm": cm, **aux}
+        return {"loss": loss, "cm": cm, **aux}
 
     step.state = state
     return step

@@ -7,7 +7,11 @@ tolerance of the reference's ``**kwargs`` constructors).  A key that the
 JAX module reads and the port's constructor lacks is not ignored: set to
 anything but the JAX default it raises ``NotImplementedError`` by name
 (:data:`UNPORTED_KEYS`), so an option that is not ported never trains
-without a word.
+without a word.  ``bn_axis_name``, the JAX modules' BatchNorm axis across
+devices, is taken by the builders here: set to a name, every BatchNorm of
+the module built (:func:`make_module`, :func:`build_model_from_cfg`)
+averages its statistics over the default process group
+(:func:`amcontrast3d_tpu_torch.parallel.sync_batchnorm_`).
 """
 from __future__ import annotations
 
@@ -23,9 +27,10 @@ from ..utils.registry import Registry
 MODELS = Registry("models")
 
 
-# the fields that every flax module of the JAX package reads and no module
-# of the port takes, with their JAX defaults: BatchNorm's axis across
-# devices (the runner's ``distributed``)
+# the fields that every flax module of the JAX package reads and no
+# constructor of the port takes, with their JAX defaults: BatchNorm's axis
+# across devices (the runner's ``distributed``), which the builders below
+# take for the whole module they build
 _JAX_FIELDS = {"bn_axis_name": None}
 # per port class, the other fields its JAX module reads and the port's
 # constructor lacks, with their JAX defaults (``models/pointnext.py:605``,
@@ -43,7 +48,7 @@ def filter_kwargs(cls, kwargs: Dict[str, Any]) -> Dict[str, Any]:
     ``NotImplementedError`` naming a key that the JAX module reads and the
     port's lacks, when it differs from the JAX default."""
     params = inspect.signature(cls.__init__).parameters
-    unported = {**_JAX_FIELDS, **UNPORTED_KEYS.get(cls.__name__, {})}
+    unported = UNPORTED_KEYS.get(cls.__name__, {})
     for key, value in kwargs.items():
         if key not in params and key in unported and value != unported[key]:
             raise NotImplementedError(
@@ -52,15 +57,27 @@ def filter_kwargs(cls, kwargs: Dict[str, Any]) -> Dict[str, Any]:
     return {k: v for k, v in kwargs.items() if k in params and k != "self"}
 
 
+def _sync(module: nn.Module, bn_axis_name) -> nn.Module:
+    if bn_axis_name is not None:
+        from ..parallel import sync_batchnorm_
+        sync_batchnorm_(module)
+    return module
+
+
 def make_module(cls, args, **extra):
     kwargs = dict(args) if args is not None else {}
     kwargs.pop("NAME", None)
     kwargs.update(extra)
-    return cls(**filter_kwargs(cls, kwargs))
+    axis = kwargs.pop("bn_axis_name", None)
+    return _sync(cls(**filter_kwargs(cls, kwargs)), axis)
 
 
 def build_model_from_cfg(cfg, **kwargs):
-    return MODELS.build(cfg, **kwargs)
+    if not isinstance(cfg, str):
+        kwargs = {**dict(cfg), **kwargs}
+        cfg = {"NAME": kwargs.pop("NAME", None)}
+    axis = kwargs.pop("bn_axis_name", None)
+    return _sync(MODELS.build(cfg, **kwargs), axis)
 
 
 @torch.no_grad()

@@ -29,6 +29,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .. import parallel
+
 
 def _norm_name(norm_args) -> Optional[str]:
     if norm_args is None:
@@ -141,6 +143,62 @@ class Dense(nn.Linear):
         return y if self.bias is None else y + self.bias.to(dt)
 
 
+class _SyncedBatchNorm(torch.autograd.Function):
+    """The synced BatchNorm of a (rows, C) tensor with its VJP written out,
+    so that a call is a handful of launches each way.  Each rank's mean and
+    biased variance come from one ``var_mean`` pass and are gathered from
+    every rank in one collective; the global mean is the mean of the ranks'
+    means (each rank weighs alike, as flax's ``pmean``) and the variance
+    the ranks' mean variance plus the spread of their means about it: the
+    global batch's biased variance, with no E[x²] − E[x]² to cancel (at
+    world size 1, the rank's own).  Then the BatchNorm kernels' inference
+    forward; backward, their inference backward (x, weight, bias) and the
+    statistics' cotangents summed over the ranks in one all_reduce and
+    folded into the rows'."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, module):
+        group, eps = module.process_group, module.eps
+        n = torch.distributed.get_world_size(group)
+        var_l, mean_l = torch.var_mean(x, dim=0, correction=0)
+        rows = [torch.empty(2, x.shape[1], device=x.device) for _ in range(n)]
+        parallel.collective("all_gather", rows, torch.stack([mean_l, var_l]),
+                            group=group)
+        means, variances = torch.stack(rows).unbind(1)
+        mean = means.mean(0)
+        spread = means - mean
+        var = variances.mean(0) + spread.square().mean(0)
+        module.move_statistics(mean, var)
+        invstd = torch.rsqrt(var + eps)
+        rank = torch.distributed.get_rank(group)
+        ctx.save_for_backward(x, weight, mean, var, invstd, mean_l,
+                              spread[rank])
+        ctx.group, ctx.n, ctx.eps = group, n, eps
+        return F.batch_norm(x, mean, var, weight, bias, False, 0.0, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight, mean, var, invstd, mean_l, spread = ctx.saved_tensors
+        # the inference form reads the statistics it is handed; the CUDA
+        # kernel wants the saved ones defined too
+        gx, gw, gb = torch.ops.aten.native_batch_norm_backward(
+            g.contiguous(), x, weight, mean, var, mean, invstd, False,
+            ctx.eps, [True, True, True])
+        scale = weight * invstd
+        both = torch.stack([-scale * gb, -0.5 * invstd * scale * gw])
+        parallel.collective("all_reduce", both, group=ctx.group)
+        g_mean, g_var = both.unbind(0)
+        # this rank's mean and variance: 1/n of the global mean's cotangent
+        # and of the variance's, and 2/n (m_r − mean) of the variance's
+        rows = x.shape[0]
+        g_ml = torch.addcmul(g_mean, spread, g_var, value=2.0) / (ctx.n * rows)
+        g_vl = g_var * (2.0 / (ctx.n * rows))
+        # E[x] and the biased variance of the rows: dx = g_ml + g_vl (x − m)
+        return (gx.addcmul_(x, g_vl).add_(torch.addcmul(g_ml, mean_l, g_vl,
+                                                        value=-1.0)),
+                gw, gb, None)
+
+
 class ChannelsLastBatchNorm(nn.BatchNorm1d):
     """BatchNorm over every axis but the last of a ``(..., C)`` tensor.
 
@@ -149,23 +207,44 @@ class ChannelsLastBatchNorm(nn.BatchNorm1d):
     statistics toward the batch mean and the *biased* batch variance, as
     flax's ``nn.BatchNorm`` does; torch's own update uses the unbiased one.
     A bfloat16 input is normalised in float32 and the output is float32
-    (flax's ``BatchNorm(dtype=float32)``)."""
+    (flax's ``BatchNorm(dtype=float32)``).
+
+    ``synced`` (set by :func:`amcontrast3d_tpu_torch.parallel.sync_batchnorm_`,
+    the JAX modules' ``bn_axis_name``): the statistics are those of the
+    global batch over ``process_group`` (None: the default group), flax's
+    under ``axis_name`` (the mean of the ranks' means), the variance the
+    global biased one without flax's E[x²] − E[x]² (:class:`_SyncedBatchNorm`)."""
+
+    synced = False
+    process_group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x2 = x.reshape(-1, x.shape[-1]).float()
         if not self.training:
             return super().forward(x2).view(x.shape)
+        if self.synced:
+            return self._synced_forward(x2).view(x.shape)
         y = F.batch_norm(x2, None, None, self.weight, self.bias, True, 0.0,
                          self.eps)
-        if not moves_statistics():
-            return y.view(x.shape)
-        with torch.no_grad():
-            var, mean = torch.var_mean(x2, dim=0, correction=0)
-            m = self.momentum
-            self.running_mean.mul_(1 - m).add_(mean, alpha=m)
-            self.running_var.mul_(1 - m).add_(var, alpha=m)
-            self.num_batches_tracked.add_(1)
+        if moves_statistics():
+            with torch.no_grad():
+                var, mean = torch.var_mean(x2, dim=0, correction=0)
+            self.move_statistics(mean, var)
         return y.view(x.shape)
+
+    def move_statistics(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        """flax's running update (momentum 0.9, the biased variance); not in
+        a remat's recompute."""
+        if not moves_statistics():
+            return
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(1 - m).add_(mean.detach(), alpha=m)
+            self.running_var.mul_(1 - m).add_(var.detach(), alpha=m)
+            self.num_batches_tracked.add_(1)
+
+    def _synced_forward(self, x2: torch.Tensor) -> torch.Tensor:
+        return _SyncedBatchNorm.apply(x2, self.weight, self.bias, self)
 
 
 def batch_norm(channels: int) -> ChannelsLastBatchNorm:

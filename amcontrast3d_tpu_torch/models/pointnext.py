@@ -52,9 +52,10 @@ from ..ops.group import (CHANNEL_MAP, create_grouper, gather_points,
                          get_aggregation_features, group_points)
 from ..ops.interpolate import three_interpolation
 from ..ops.knn import ball_query, knn
+from ..parallel import all_reduce_mean
 from .apm import Attention
 from .layers import (ChannelsLastBatchNorm, ConvBlock, Dense, Dropout,
-                     _act_name, _norm_name, create_act, moves_statistics,
+                     _act_name, _norm_name, create_act,
                      recomputing, rounded)
 from .refine import dual_masks, map_sum
 
@@ -155,7 +156,9 @@ class GroupStatsBN(ChannelsLastBatchNorm):
     because the affine is monotone per channel in the direction of
     ``sign(scale)``.  Train mode takes flax's one-pass variance
     ``max(E[h²] − E[h]², 0)`` of the grouped tensor and moves the running
-    statistics as flax does (momentum 0.9, biased variance)."""
+    statistics as flax does (momentum 0.9, biased variance); ``synced``,
+    the moments of the global batch (the JAX tail's single ``pmean`` of
+    ``[mean, mean²]``)."""
 
     def pool(self, u, qp, idx, act=None, query_cloud=None):
         """u (B, N, C) per-support values (float32 or bfloat16), qp (B, M,
@@ -169,14 +172,16 @@ class GroupStatsBN(ChannelsLastBatchNorm):
             ext, su, sq = grouped_slot_reduce(u, idx, sgn, qp=qp,
                                               query_cloud=query_cloud)
             n = idx.numel()
-            mean = su.sum((0, 1)) / n
-            var = torch.clamp_min(sq.sum((0, 1)) / n - mean * mean, 0.0)
-            if moves_statistics():
-                with torch.no_grad():
-                    m = self.momentum
-                    self.running_mean.mul_(1 - m).add_(mean, alpha=m)
-                    self.running_var.mul_(1 - m).add_(var, alpha=m)
-                    self.num_batches_tracked.add_(1)
+            mean, mu2 = su.sum((0, 1)) / n, sq.sum((0, 1)) / n
+            if self.synced:
+                # one all_reduce of this rank's [E[h], E[h²]] (↔ the JAX
+                # tail's pmean); its VJP hands every rank's share of the
+                # cotangent to kernel 21's g_sum and g_sq
+                both = all_reduce_mean(torch.cat([mean, mu2]),
+                                       self.process_group)
+                mean, mu2 = both.split(mean.shape[0])
+            var = torch.clamp_min(mu2 - mean * mean, 0.0)
+            self.move_statistics(mean, var)
         else:
             ext = grouped_slot_reduce(u, idx, sgn, need_stats=False,
                                       query_cloud=query_cloud)[0]

@@ -23,12 +23,12 @@ class SummaryWriter:
             os.makedirs(run_dir, exist_ok=True)
             self._fh = open(os.path.join(run_dir, "scalars.jsonl"), "a")
         self._tb = None
-        try:
-            from torch.utils.tensorboard import SummaryWriter as TBWriter
-            if run_dir is not None:
+        if run_dir is not None:
+            try:
+                from torch.utils.tensorboard import SummaryWriter as TBWriter
                 self._tb = TBWriter(log_dir=os.path.join(run_dir, "tb"))
-        except Exception:
-            pass
+            except Exception:
+                pass
         self._wandb = None
         if use_wandb:
             try:

@@ -259,8 +259,43 @@
    each way with the peak memory;
 18. (f) the S3DIS AA recipe through the train CLI as in 10 with
    ``use_amp=True`` (two epochs of 3 steps, a bfloat16 model checked);
-19. prints one JSON line of per-kernel results (the bfloat16 forms of
-   kernels 20 and 21 in rows of their own) and, last, the device line.
+19. data parallelism (``dp_phase``; the ranks are child processes from
+   ``amcontrast3d_tpu_torch.parallel.launch``, and a rank that fails, or
+   ranks that hang past DP_LIMIT_S, fail the run): (a) the AA train step
+   at full width over NCCL at the world size of the card count, each
+   rank's rows the same B/world clouds of 24000 points (B = 4x24000 on one
+   card), (b) two gloo ranks on ``cuda:0`` (and, on a host of two cards or
+   more, two NCCL ranks on two cards): the AA and MM train steps, default
+   tail and approx + fused (kernels 20 and 21 on the synced statistics),
+   and the AA approx + fused step at ``use_amp``'s bfloat16 (the kernels'
+   bfloat16 forms), each rank on the whole batch (the global batch tiled
+   twice); every step with dropout off, from the seeded state, held on
+   rank 0 against one process on one copy whose BatchNorms sync over a
+   group of that rank alone (the same arithmetic: loss, gradients and
+   BatchNorm statistics within DP_TOL relative; bfloat16 gradients within
+   DP_BF16_GRAD_TOL) and, at float32, against the plain one-process step
+   (loss and statistics within DP_TOL, gradients within DP_PLAIN_GRAD_TOL
+   relative L2: the synced BatchNorm normalises by the inference kernel,
+   the plain one by the training kernel, which round apart, and max-pool
+   near-ties move gradients; (a) prints the spread of two plain steps
+   whose features differ by one ulp beside it; at bfloat16 that spread is
+   of the order of the gradients, so the errors are printed with no
+   bound); before the steps, on every launch, the synced BatchNorm of the
+   ranks against the plain one on the global rows (``dp_bn_check``: the
+   independent check that holds at float32 and bfloat16 inputs, within
+   DP_TOL, the bfloat16 input gradient within DP_BN_BF16_TOL); each step
+   with its launches a step on every rank (the one-process step's) and
+   the collectives a step, and the step ms of 3 timed steps for (a)
+   (beside the plain step's in the same process) and for (b)'s
+   DP_TIMED_PATH; (c) the whole-scene test of one S3DIS room (250000 raw
+   points) on the two gloo ranks (each bucket's subclouds shared, the
+   logits gathered to rank 0, which votes): voted labels identical to one
+   process's at every point, with each rank's launches and the wall time
+   beside one process's;
+20. prints one JSON line of per-kernel results (the bfloat16 forms of
+   kernels 20 and 21 in rows of their own; the data-parallel ranks'
+   launches under ``launches_by_path`` as ``dp …``) and, last, the device
+   line.
 
 Any failure raises, so the exit code is non-zero; without a CUDA device it
 stops before printing any result.
@@ -459,6 +494,33 @@ LAUNCHES = {
     "mm train bf16": {**TRAIN_LAUNCHES, "refine_cross": 4,
                       "refine_cross_backward": 4},
 }
+# data parallelism: each rank runs the kernels of the one-process step
+LAUNCHES["mm train approx fused"] = {
+    **LAUNCHES["mm train approx"], "aggregate_forward": AGG_LAUNCHES,
+    "aggregate_backward": AGG_LAUNCHES}
+# (kind, kNN backend, fused tail, use_amp) of (b)'s train steps; the last
+# takes kernels 20 and 21's bfloat16 forms on the synced statistics
+DP_PATHS = (("aa", "auto", "off", False), ("aa", "approx", "on", False),
+            ("mm", "auto", "off", False), ("mm", "approx", "on", False),
+            ("aa", "approx", "on", True))
+DP_TOL = 1e-4        # a rank's step against one process's, relative
+# the data-parallel step's gradients against the plain one-process step's,
+# relative L2: the synced BatchNorm (the inference kernel on the gathered
+# statistics) rounds apart from the plain one (the training kernel), and
+# max-pool near-ties route some gradients elsewhere; two plain steps whose
+# features differ by one ulp are 3.5e-2 apart (NVIDIA H100 80GB HBM3,
+# 700.00 W; PERF.md §6 PR 18)
+DP_PLAIN_GRAD_TOL = 1e-1
+DP_TIMED = 3         # timed steps after the compared one
+# (b)'s path whose steps are timed on the shared card (the others: the
+# compared step alone)
+DP_TIMED_PATH = ("aa", "approx", "on", False)
+# a bfloat16 input's gradient through the synced BatchNorm against the
+# plain one's: both bfloat16 roundings of float32 sums that agree to
+# DP_TOL, so an element may land one ulp apart (2^-8 of the largest, twice)
+DP_BN_BF16_TOL = 2.0 ** -7
+DP_WEIGHTS = {}      # kind: the seeded weights, the same at bfloat16
+DP_LIMIT_S = 420     # the ranks of a data-parallel phase that hang are cut
 # the bfloat16 paths against their plain twins (the same bfloat16 model):
 # eval logits within BF16_LOGIT_TOL·(1+max|logit|), a step's loss within
 # 1e-2·(1+|loss|) and each parameter's gradient within BF16_GRAD_TOL
@@ -471,6 +533,15 @@ BF16_LOGIT_TOL, BF16_LOSS_TOL, BF16_GRAD_TOL = 1e-2, 1e-2, 5e-2
 # an ulp of du where the kernel's and the twin's float32 sums round apart
 # moves it by 5-30 % (NVIDIA H100 80GB HBM3, 700.00 W)
 BF16_FUSED_WDP_TOL = 0.5
+# at bfloat16 (use_amp): the gradients against one copy within
+# BF16_GRAD_TOL (the float-atomic float32 sums of the backward round to
+# bfloat16 apart now and then, and the ulp travels: two plain bf16 steps
+# on one input are 2.2-4.6e-2 apart).  Against the plain step no bound
+# holds at bfloat16: one ulp of the features moves the first bf16 step's
+# gradients by 1.39 relative L2 (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md
+# §6 PR 18), so the errors are printed and the independent check is the
+# BatchNorm's alone (dp_bn_check)
+DP_BF16_GRAD_TOL = BF16_GRAD_TOL
 REMAT_BATCHES = (4, 8)           # the remat phase's clouds of N points
 
 
@@ -2215,7 +2286,8 @@ def train_batch(rng, dev, b: int = B) -> dict:
     return {k: v.to(dev) for k, v in batch.items()}
 
 
-def make_step(cfg, model, optimizer, dev, seed, kind: str):
+def make_step(cfg, model, optimizer, dev, seed, kind: str,
+              distributed: bool = False):
     from amcontrast3d_tpu_torch.engine import make_train_step
     from amcontrast3d_tpu_torch.loss import build_criterion_from_cfg
     from amcontrast3d_tpu_torch.scheduler import (as_step_schedule,
@@ -2227,7 +2299,7 @@ def make_step(cfg, model, optimizer, dev, seed, kind: str):
         model, build_criterion_from_cfg(criterion_args), optimizer,
         as_step_schedule(lr_fn, STEPS_PER_EPOCH), kind, cfg.num_classes,
         cfg.ignore_index, cfg.ambiguity_args, cfg.grad_norm_clip,
-        torch.Generator(dev).manual_seed(seed))
+        torch.Generator(dev).manual_seed(seed), distributed=distributed)
 
 
 def train_path(ops, cfg, model, dev, rng, tag, kind: str, path: str = None,
@@ -2510,7 +2582,7 @@ def scene_path(ops, kind: str, dev, tag: str, workdir: str, cfg_path: str,
             f"dataset.common.num_rooms={rooms}",
             f"dataset.common.n_points={n_points}",
             "ambiguity_args.miou_B_I=True", f"root_dir={workdir}",
-            f"seed={SEED}", *extra]
+            f"seed={SEED}", "distributed=False", *extra]
     cfg = load_cfg(*parse_args(argv))
     # seeded random weights, handed to the CLI as a checkpoint
     runner = Runner(cfg, kind=kind, device=dev)
@@ -2642,7 +2714,7 @@ def run_train_cli(ops, argv: list, kind: str):
     faulthandler.dump_traceback_later(CLI_LIMIT_S, exit=True)
     try:
         with mock.patch.object(cli, "Runner", CountingRunner):
-            results = cli.main_cli(kind, argv)
+            results = cli.main_cli(kind, argv + ["distributed=False"])
     finally:
         faulthandler.cancel_dump_traceback_later()
     torch.cuda.synchronize()
@@ -3103,6 +3175,453 @@ def remat_phase(ops, dev, rng, tag: str) -> dict:
 
 
 
+# ---- data parallelism: ranks spawned as child processes ------------------
+
+def dp_path(kind: str, knn_backend: str, agg_fused: str, amp: bool) -> str:
+    """The launch table's name of a train configuration."""
+    path = f"{kind} train" + (" bf16" if amp else "")
+    if knn_backend == "approx":
+        path += " approx" + (" fused" if agg_fused == "on" else "")
+    return path
+
+
+def train_launches(ops, b: int) -> dict:
+    """The AA train step's launch table for ``b`` clouds of N points: one
+    cloud's FPS is ``fps_b1``, and the interpolation and its VJP split by
+    the port's gates at that batch."""
+    sizes = [N // 4 ** s for s in range(len(FP_CHANNELS) + 1)]
+    big = {gate: sum(gate(b, sizes[s], sizes[s + 1], c)
+                     for s, c in enumerate(FP_CHANNELS))
+           for gate in (ops.forward_is_big, ops.backward_is_big)}
+    want = dict(TRAIN_LAUNCHES, **({"fps_b1": TRAIN_LAUNCHES["fps"]}
+                                   if b == 1 else {}))
+    if b == 1:
+        del want["fps"]
+    fwd, bwd = big[ops.forward_is_big], big[ops.backward_is_big]
+    want.update(three_interpolation=len(FP_CHANNELS) - fwd,
+                three_interpolation_big=fwd,
+                three_interpolation_backward=len(FP_CHANNELS) - bwd,
+                three_interpolation_backward_big=bwd)
+    return {k: v for k, v in want.items() if v}
+
+
+def dp_fresh_model(kind: str, dev, amp: bool = False):
+    """The cfg of ``kind`` and its model at full width (``amp``: at
+    ``use_amp``'s bfloat16) with the seeded random weights every process
+    draws alike; dropout off, as in the JAX package's multi-device checks
+    (a rank draws masks of its own)."""
+    from amcontrast3d_tpu_torch.models import build_model_from_cfg, init_weights_
+    from amcontrast3d_tpu_torch.utils.config import EasyConfig
+
+    cfg = EasyConfig()
+    cfg.load(CFGS[kind], recursive=True)
+    cfg.model.cls_args.dropout = 0
+    model = build_model_from_cfg(cfg.model,
+                                 dtype=torch.bfloat16 if amp else None)
+    if kind not in DP_WEIGHTS:      # drawn once a process, then copied
+        init_weights_(model, torch.Generator().manual_seed(SEED))
+        DP_WEIGHTS[kind] = copy.deepcopy(model.state_dict())
+    model.load_state_dict(DP_WEIGHTS[kind])
+    return cfg, model.to(dev)
+
+
+def dp_steps(ops, kind: str, dev, batch, path: str, mode: str, solo=None,
+             timed: int = DP_TIMED, amp: bool = False) -> dict:
+    """One step from the seeded state (its loss, the gradients AdamW sees
+    and the BatchNorm statistics after it, the kernels' launches and the
+    collectives in it), then ``timed`` steps on the host clock around
+    synchronised steps (the ranks meet at a barrier before each).
+    ``mode``: ``dist`` the data-parallel step; ``solo`` one process whose
+    BatchNorms sync over ``solo``, a group of this rank alone (the same
+    arithmetic on one copy); ``plain`` the one-process step."""
+    from amcontrast3d_tpu_torch import parallel
+    from amcontrast3d_tpu_torch.optim import build_optimizer_from_cfg
+
+    cfg, model = dp_fresh_model(kind, dev, amp)
+    if mode != "plain":
+        parallel.sync_batchnorm_(model, solo if mode == "solo" else None)
+    optimizer = build_optimizer_from_cfg(cfg.optimizer, model, lr=cfg.lr)
+    step = make_step(cfg, model, optimizer, dev, SEED, kind, mode == "dist")
+    names = {id(p): n for n, p in model.named_parameters()}
+    grads = []
+    optimizer.register_step_pre_hook(lambda opt, *_: grads.append(
+        {names[id(p)]: p.grad.detach().clone() for g in opt.param_groups
+         for p in g["params"] if p.grad is not None}) if not grads else None)
+    counted = reset_counts(ops)
+    parallel.reset_counts()
+    out = step(batch)
+    torch.cuda.synchronize()
+    launches = check_launches(path, counted, 1)
+    collectives = dict(parallel.COUNTS)
+    stats = {n: b.detach().clone() for n, b in model.named_buffers()
+             if n.endswith(("running_mean", "running_var"))}
+    first = {"loss": out["loss"].item(), "grads": grads[0], "stats": stats}
+    ms = []
+    for _ in range(timed):
+        torch.cuda.synchronize()
+        if mode == "dist":
+            parallel.barrier()
+        t = time.perf_counter()
+        loss = step(batch)["loss"].item()
+        ms.append((time.perf_counter() - t) * 1e3)
+        if not np.isfinite(loss):
+            raise AssertionError(f"{path}: loss {loss}")
+    del model, optimizer, step
+    torch.cuda.empty_cache()
+    return {"first": first, "launches": launches, "collectives": collectives,
+            "ms": ms}
+
+
+def dp_errors(got: dict, want: dict) -> dict:
+    """A step against another: the loss (relative), the gradients over all
+    parameters (relative L2) and the worst tensor's, every BatchNorm
+    statistic (max abs over 1 + max)."""
+    num = den = 0.0
+    worst, worst_name = 0.0, None
+    for n, g in want["grads"].items():
+        d = (got["grads"][n] - g).double().norm().item()
+        r = g.double().norm().item()
+        num, den = num + d * d, den + r * r
+        if r > 1e-3 and d / r > worst:
+            worst, worst_name = d / r, n
+    if set(got["grads"]) != set(want["grads"]):
+        raise AssertionError("the steps have gradients of other parameters")
+    return {"loss": abs(got["loss"] - want["loss"]) / abs(want["loss"]),
+            "grads": (num / den) ** 0.5, "worst": worst, "worst_name": worst_name,
+            "stats": max((got["stats"][n] - s).abs().max().item()
+                         / (1 + s.abs().max().item())
+                         for n, s in want["stats"].items())}
+
+
+def dp_check(name: str, dist: dict, solo: dict, plain: dict,
+             amp: bool = False) -> str:
+    """The data-parallel step against one process on one copy with the same
+    synced arithmetic (``solo``): loss, gradients and BatchNorm statistics
+    within DP_TOL (at bfloat16, the gradients within DP_BF16_GRAD_TOL);
+    against the plain one-process step: loss and statistics within DP_TOL,
+    the gradients within DP_PLAIN_GRAD_TOL (float32 only; at bfloat16 the
+    errors are printed)."""
+    same, plain_err = dp_errors(dist, solo), dp_errors(dist, plain)
+    bad = [k for k in ("loss", "stats") if not same[k] <= DP_TOL]
+    if not same["grads"] <= (DP_BF16_GRAD_TOL if amp else DP_TOL):
+        bad.append("grads")
+    bounds = {} if amp else {"loss": DP_TOL, "stats": DP_TOL,
+                             "grads": DP_PLAIN_GRAD_TOL}
+    bad += [f"plain {k}" for k, b in bounds.items() if not plain_err[k] <= b]
+    if bad:
+        raise AssertionError(f"{name}: {bad} past their bounds: against one "
+                             f"copy {same}, against the plain step "
+                             f"{plain_err} (bounds {bounds})")
+    return (f"against one process on one copy with the synced arithmetic: "
+            f"loss rel err {same['loss']:.3e}, gradients rel L2 "
+            f"{same['grads']:.3e} (worst tensor {same['worst']:.3e}), "
+            f"BatchNorm statistics {same['stats']:.3e}; against the plain "
+            f"one-process step{' (no bound at bfloat16)' if amp else ''}: "
+            f"loss {plain_err['loss']:.3e}, statistics "
+            f"{plain_err['stats']:.3e}, gradients rel L2 "
+            f"{plain_err['grads']:.3e} (worst tensor {plain_err['worst']:.3e}, "
+            f"{plain_err['worst_name']})")
+
+
+def dp_bn_check(dev, label: str) -> None:
+    """The synced BatchNorm over this launch's ranks against the plain
+    training-mode BatchNorm of one process on the global rows, with no
+    step around it (an independent reference that max-pool near-ties do not
+    blur): each rank holds its rows of a seeded (world·B·N, 64) input, and
+    its output, input gradient and running statistics, and the weight and
+    bias gradients summed over the ranks, are held against the plain
+    module's within DP_TOL (max abs over 1 + max; each rank's rows offset
+    by 2·rank); at a bfloat16 input, the
+    input gradient (bfloat16, both rounded from float32 sums) within
+    DP_BN_BF16_TOL."""
+    import torch.distributed as tdist
+    from amcontrast3d_tpu_torch import parallel
+    from amcontrast3d_tpu_torch.models.layers import batch_norm
+
+    world, rank = parallel.get_world_size(), parallel.get_rank()
+    rows, c = B * N, 64
+    gen = torch.Generator().manual_seed(SEED + 19)
+    x = torch.randn(world * rows, c, generator=gen) * 3.0 + 1.0
+    # each rank's rows about a mean of their own, so the spread of the
+    # ranks' means (the variance's cross-rank term) is not ~0
+    x += 2.0 * torch.arange(world).repeat_interleave(rows)[:, None]
+    g = torch.randn(world * rows, c, generator=gen).to(dev)
+    weight = 1.0 + 0.1 * torch.randn(c, generator=gen)
+    bias = torch.randn(c, generator=gen)
+    mine = slice(rank * rows, (rank + 1) * rows)
+    notes = []
+    for dtype in (torch.float32, torch.bfloat16):
+        got = {}
+        for synced in (True, False):
+            bn = batch_norm(c).to(dev).train()
+            with torch.no_grad():
+                bn.weight.copy_(weight)
+                bn.bias.copy_(bias)
+            if synced:
+                parallel.sync_batchnorm_(bn)
+            xs = x[mine] if synced else x
+            xs = xs.to(dev, dtype).clone().requires_grad_()
+            y = bn(xs)
+            y.backward(g[mine] if synced else g)
+            wb = torch.stack([bn.weight.grad, bn.bias.grad])
+            if synced:
+                tdist.all_reduce(wb)
+            got[synced] = {
+                "out": y.detach().float(), "dx": xs.grad.float(), "wb": wb,
+                "stats": torch.stack([bn.running_mean, bn.running_var])}
+        errs = {}
+        for k, want in got[False].items():
+            if k in ("out", "dx"):
+                want = want[mine]
+            errs[k] = ((got[True][k] - want).abs().max()
+                       / (1 + want.abs().max())).item()
+        bounds = {k: DP_TOL for k in errs}
+        if dtype == torch.bfloat16:
+            bounds["dx"] = DP_BN_BF16_TOL
+        bad = {k: e for k, e in errs.items() if not e <= bounds[k]}
+        if bad:
+            raise AssertionError(f"dp BatchNorm {label} rank {rank} "
+                                 f"{dtype}: {bad} past {bounds}")
+        notes.append(f"{str(dtype).split('.')[-1]} "
+                     + ", ".join(f"{k} {e:.3e}" for k, e in errs.items()))
+    if rank == 0:
+        print(f"dp BatchNorm {label}: the synced BatchNorm of {world} "
+              f"rank(s), each ({rows}, {c}), against the plain one on the "
+              f"global rows (max abs over 1 + max; weight and bias gradients "
+              f"summed over the ranks): " + "; ".join(notes), flush=True)
+
+
+def dp_batch(rows: int, dev, nudge: bool = False) -> dict:
+    """The first ``rows`` clouds of the phase's batch (B x N, Voronoi
+    labels), on ``dev``; ``nudge``: the features one float32 ulp up."""
+    batch = train_batch(np.random.RandomState(SEED + 18), "cpu")
+    batch = {k: v[:rows].to(dev) for k, v in batch.items()}
+    if nudge:
+        batch["x"] = torch.nextafter(batch["x"], torch.full_like(batch["x"], 9.0))
+    return batch
+
+
+def dp_solo_group():
+    """A process group of rank 0 alone (every rank takes part in making
+    it), over gloo: with a NCCL one, rank 0's reference steps hung four
+    ranks on four cards while the others waited in a barrier."""
+    import torch.distributed as dist
+    return dist.new_group([0], backend="gloo")
+
+
+def dp_nccl_rank(rank: int, dev, out_dir: str, tag: str) -> None:
+    """A rank of (a): the AA train step over NCCL at the world size of the
+    card count, each rank's rows the same B/world clouds, held on rank 0
+    against one process on those clouds (the synced arithmetic, and the
+    plain step), beside the spread of two plain steps whose features differ
+    by one ulp; the plain step and the NCCL step timed in one process."""
+    from amcontrast3d_tpu_torch import ops, parallel
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    world = parallel.get_world_size()
+    rows = B // world if B % world == 0 else 1
+    batch = dp_batch(rows, dev)
+    path = f"aa train B={rows}"
+    LAUNCHES[path] = train_launches(ops, rows)
+    solo = dp_solo_group()
+    dp_bn_check(dev, f"nccl x{world}")
+    ref = {}
+    if rank == 0:
+        ref["plain"] = dp_steps(ops, "aa", dev, batch, path, "plain")
+        ref["nudged"] = dp_steps(ops, "aa", dev, dp_batch(rows, dev, True),
+                                 path, "plain", timed=0)
+        ref["solo"] = dp_steps(ops, "aa", dev, batch, path, "solo", solo,
+                               timed=0)
+    print(f"dp nccl rank {rank}: at the barrier", flush=True)
+    parallel.barrier()
+    nccl = dp_steps(ops, "aa", dev, batch, path, "dist")
+    print(f"dp nccl rank {rank}: the distributed steps done", flush=True)
+    if rank == 0:
+        name = f"dp aa train nccl x{world}"
+        note = dp_check(name, nccl["first"], ref["solo"]["first"],
+                        ref["plain"]["first"])
+        spread = dp_errors(ref["nudged"]["first"], ref["plain"]["first"])
+        print(f"{name} main path: {world} NCCL rank(s), each B={rows}x{N} (the "
+              f"global batch {world * rows}x{N}), one step from the seeded "
+              f"state (dropout off): {note}; two plain steps whose features "
+              f"differ by one ulp: gradients rel L2 {spread['grads']:.3e} "
+              f"(worst tensor {spread['worst']:.3e}), loss {spread['loss']:.3e}; "
+              f"launches per step on rank 0 {LAUNCHES[path]}; collectives a "
+              f"step {nccl['collectives']}", flush=True)
+        print(f"{name} step B={rows}x{N} a rank: per-step ms {nccl['ms']}, "
+              f"median {statistics.median(nccl['ms']):.3f}; the plain "
+              f"one-process step in the same process {ref['plain']['ms']}, "
+              f"median {statistics.median(ref['plain']['ms']):.3f}  [{tag}]",
+              flush=True)
+        with open(os.path.join(out_dir, "dp_nccl.json"), "w") as f:
+            json.dump({name: nccl["launches"]}, f)
+
+
+def dp_pair_rank(rank: int, dev, out_dir: str, tag: str, label: str,
+                 scene: dict = None) -> None:
+    """A rank of (b): two ranks (gloo on one card, or NCCL on two) on the
+    AA and MM train steps, default tail and approx + fused, the global
+    batch the phase's B clouds tiled twice, held on rank 0 against one
+    process on one copy; then, with ``scene``, a rank of (c): the
+    whole-scene test of one room, the subclouds shared by the two ranks."""
+    from amcontrast3d_tpu_torch import ops, parallel
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    batch = dp_batch(B, dev)          # this rank's row of the tiled batch
+    solo = dp_solo_group()
+    dp_bn_check(dev, label)
+    launches = {}
+    for kind, knn_backend, agg_fused, amp in DP_PATHS:
+        path = dp_path(kind, knn_backend, agg_fused, amp)
+        name = f"dp {path} {label}"
+        with configuration(knn_backend, agg_fused):
+            if rank == 0:
+                ref = {mode: dp_steps(ops, kind, dev, batch, path, mode, solo,
+                                      timed=0, amp=amp)
+                       for mode in ("solo", "plain")}
+            parallel.barrier()
+            timed = (DP_TIMED if (kind, knn_backend, agg_fused, amp)
+                     == DP_TIMED_PATH else 0)
+            got = dp_steps(ops, kind, dev, batch, path, "dist", timed=timed,
+                           amp=amp)
+        launches[name] = got["launches"]
+        if rank == 0:
+            note = dp_check(name, got["first"], ref["solo"]["first"],
+                            ref["plain"]["first"], amp)
+            print(f"{name} main path: 2 ranks ({label}), each B={B}x{N} (the "
+                  f"global batch {2 * B}x{N}: one batch tiled twice), one step "
+                  f"from the seeded state (dropout off): {note}; launches per "
+                  f"step on each rank {LAUNCHES[path]}; collectives a step "
+                  f"{got['collectives']}", flush=True)
+            if got["ms"]:
+                print(f"{name} step: per-step ms {got['ms']}, median "
+                      f"{statistics.median(got['ms']):.3f}  [{tag}]",
+                      flush=True)
+    if scene is not None:
+        launches[f"dp aa scene {label}"] = dp_scene(ops, dev, scene)
+    with open(os.path.join(out_dir, f"dp_{label}_rank{rank}.json"), "w") as f:
+        json.dump(launches, f)
+
+
+def dp_scene(ops, dev, scene: dict, distributed: bool = True) -> dict:
+    """The whole-scene test of ``scene``'s room from its checkpoint, the
+    voted labels written to ``scene['run_dir']`` (rank 0); returns the
+    kernels' launches on this rank, with the counts set to 0 just before
+    and read just after."""
+    from amcontrast3d_tpu_torch import parallel
+    from amcontrast3d_tpu_torch.engine import Runner, evaluate
+    from amcontrast3d_tpu_torch.engine.cli import load_cfg, parse_args
+
+    cfg = load_cfg(*parse_args(scene["argv"]))
+    cfg.run_dir = scene["run_dir"]
+    runner = Runner(cfg, kind="aa", device=dev)
+    if runner.distributed != distributed:
+        raise AssertionError(f"dp aa scene: distributed {runner.distributed}")
+    runner.load_pretrained(scene["ckpt"])
+    counted = reset_counts(ops)
+    parallel.reset_counts()
+    t = time.perf_counter()
+    results = evaluate.test_whole_scenes(runner, evaluate.generate_data_list(cfg),
+                                         cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = {k: fn.launches for k, fn in counted.items()}
+    if results:
+        results["wall_s"] = wall
+        results["collectives"] = dict(parallel.COUNTS)
+        with open(os.path.join(scene["run_dir"], "results.json"), "w") as f:
+            json.dump({k: results[k] for k in ("miou", "clouds", "wall_s",
+                                                "collectives")}, f)
+    return launches
+
+
+def dp_phase(ops, dev, tag: str, workdir: str) -> dict:
+    """Data parallelism (``amcontrast3d_tpu_torch.parallel``), the ranks
+    spawned as child processes (``parallel.launch``; a rank that fails, or
+    ranks that hang past DP_LIMIT_S, fail the run): (a) the AA train step
+    over NCCL at the card count; (b) two gloo ranks on ``cuda:0`` and, on a
+    host of two cards or more, two NCCL ranks on two cards: the AA and MM
+    train steps, default tail and approx + fused; (c) the whole-scene test
+    of one S3DIS room on the two gloo ranks, its voted labels identical to
+    one process's.  Returns the kernels' launches by path (rank 0's)."""
+    from amcontrast3d_tpu_torch import parallel
+    from amcontrast3d_tpu_torch.engine import Runner
+    from amcontrast3d_tpu_torch.engine.cli import load_cfg, parse_args
+    from amcontrast3d_tpu_torch.models import init_weights_
+    from amcontrast3d_tpu_torch.utils import EasyConfig, save_checkpoint
+
+    t0 = time.perf_counter()
+    out_dir = os.path.join(workdir, "dp")
+    os.makedirs(out_dir)
+    torch.cuda.empty_cache()
+    cards = torch.cuda.device_count()
+    by_path = {}
+    parallel.launch(dp_nccl_rank, cards, (out_dir, tag), device_type="cuda",
+                    backend="nccl", timeout=DP_LIMIT_S)
+    by_path.update(json.load(open(os.path.join(out_dir, "dp_nccl.json"))))
+
+    # (c)'s room: seeded random weights in a checkpoint, one process first
+    argv = ["--kind", "aa", "--cfg", CFGS["aa"], "mode=test",
+            "dataset.common.NAME=Synthetic", "dataset.common.num_rooms=1",
+            f"dataset.common.n_points={SCENE_POINTS}",
+            "ambiguity_args.miou_B_I=True", f"root_dir={workdir}",
+            f"seed={SEED}", "save_pred=True"]
+    holder = Runner(load_cfg(*parse_args(argv)), kind="aa", device=dev)
+    init_weights_(holder.model, torch.Generator().manual_seed(SEED))
+    ck = EasyConfig()
+    ck.update({"run_name": "smoke_dp_scene", "ckpt_dir": workdir})
+    ckpt = save_checkpoint(ck, {"model": holder.model.state_dict()}, 0)
+    del holder
+    scenes = {}
+    for ranks in (1, 2):
+        scenes[ranks] = {"argv": argv, "ckpt": ckpt,
+                         "run_dir": os.path.join(workdir, f"dp_scene_{ranks}")}
+        os.makedirs(scenes[ranks]["run_dir"])
+    by_path["dp aa scene one process"] = dp_scene(ops, dev, scenes[1],
+                                                  distributed=False)
+    torch.cuda.empty_cache()
+
+    pairs = [("gloo", 1, scenes[2])] + ([("nccl", 2, None)] if cards >= 2 else [])
+    for backend, devices, scene in pairs:
+        label = f"{backend} x2 on {devices} card" + ("s" if devices > 1 else "")
+        parallel.launch(dp_pair_rank, 2, (out_dir, tag, label, scene),
+                        device_type="cuda", backend=backend, devices=devices,
+                        timeout=DP_LIMIT_S)
+        for rank in (0, 1):
+            got = json.load(open(os.path.join(
+                out_dir, f"dp_{label}_rank{rank}.json")))
+            for name, counts in got.items():
+                if "scene" in name:
+                    by_path[f"{name} rank {rank}"] = counts
+                elif rank == 0:
+                    by_path[name] = counts
+
+    one, two = (np.loadtxt(os.path.join(scenes[r]["run_dir"], "predictions",
+                                        "cloud_0.txt"), dtype=np.int64)
+                for r in (1, 2))
+    if one.shape != two.shape or not np.array_equal(one, two):
+        raise AssertionError(f"dp aa scene: the two ranks' voted labels differ "
+                             f"from one process's at {int((one != two).sum())} "
+                             f"of {one.size} points")
+    res = {r: json.load(open(os.path.join(scenes[r]["run_dir"], "results.json")))
+           for r in (1, 2)}
+    room = res[1]["clouds"][0]
+    per = {r: {k: v for k, v in
+               by_path[f"dp aa scene gloo x2 on 1 card rank {r}"].items() if v}
+           for r in (0, 1)}
+    print(f"dp aa scene main path: test_whole_scenes of one Synthetic room of "
+          f"{room['points']} raw points ({len(room['subclouds'])} subclouds in "
+          f"buckets {sorted(set(room['buckets']))}) on 2 gloo ranks on cuda:0: "
+          f"voted labels identical to one process's at all {one.size} points, "
+          f"mIoU {res[2]['miou']:.3f} / {res[1]['miou']:.3f}; launches rank 0 "
+          f"{per[0]}, rank 1 {per[1]}; collectives {res[2]['collectives']}; "
+          f"wall {res[2]['wall_s']:.3f} s against one process's "
+          f"{res[1]['wall_s']:.3f} s  [{tag}]")
+    print(f"dp phase: {time.perf_counter() - t0:.1f} s (spawning the ranks "
+          f"included)")
+    return by_path
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -3214,6 +3733,7 @@ def main() -> None:
         by_path["s3dis aa train cli bf16"] = s3dis_cli_path(
             ops, "aa", dev, tag, workdir, amp=True)
         torch.cuda.empty_cache()
+        by_path.update(dp_phase(ops, dev, tag, workdir))
 
     rows = [{"name": k, "route": "cuda", "source": src, "replaces": tpu,
              "launches": sum(counts[k] for counts in by_path.values()),

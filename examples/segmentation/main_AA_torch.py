@@ -9,7 +9,10 @@ Without ``mode`` it trains: loaders, the recipe's train transforms,
 validation every ``val_freq`` epochs, ``latest`` and ``best`` checkpoints in
 the run directory under ``root_dir``; ``mode=resume pretrained_path=<latest>``
 carries on, ``mode=test pretrained_path=<best>`` is the whole-scene test.
-The run is on the card unless ``--device cpu`` is given.
+The run is on the card unless ``--device cpu`` is given; on a host
+with more than one card it is one process a card (NCCL) unless
+``distributed=False``, under ``torchrun`` the rank its environment
+names, and ``--device cpu world_size=N`` runs N gloo ranks on the CPU.
 """
 import os
 import sys

@@ -1,7 +1,8 @@
 """Every shipped model cfg builds in the port, and a model option that the
 JAX package reads and the port does not take raises by name instead of
-being dropped (``models/build.py``).  No JAX: the JAX side of the key table
-is held in ``test_torch_port_model.py``."""
+being dropped (``models/build.py``); ``bn_axis_name``, the JAX modules'
+BatchNorm axis across devices, is taken by the builders.  No JAX: the JAX
+side of the key table is held in ``test_torch_port_model.py``."""
 import copy
 from pathlib import Path
 
@@ -59,13 +60,49 @@ def test_every_shipped_cfg_builds_with_remat_at_bf16(name):
     ("encoder_args", "sampler", "random", "fps")])
 def test_other_unported_keys_raise_off_their_jax_default(section, key, value,
                                                          default):
-    """The JAX modules' framework field of BatchNorm across devices and the
-    PointNet++ encoder's sampler: off the JAX default the build raises
-    naming the key, at it the model builds."""
+    """The PointNet++ encoder's sampler: off the JAX default the build
+    raises naming the key, at it the model builds.  The JAX modules' field
+    of BatchNorm across devices, ``bn_axis_name``, raised so until data
+    parallelism was ported; now it is taken: set to a name in a section,
+    every BatchNorm that section builds syncs over the default process
+    group (``synced``, no group of its own), and at the JAX default (None)
+    every BatchNorm of the model stays local."""
+    from amcontrast3d_tpu_torch.models.layers import ChannelsLastBatchNorm
+
     name = "s3dis/pointnet++.yaml" if key == "sampler" else "s3dis/AMContrast3D-AA.yaml"
     model = _model_cfg(name)
     model[section][key] = value
-    with pytest.raises(NotImplementedError, match=key):
-        build_model_from_cfg(model)
+    if key == "bn_axis_name":
+        built = build_model_from_cfg(model)
+        part = built.encoder if section == "encoder_args" else built.head
+        norms = [m for m in part.modules()
+                 if isinstance(m, ChannelsLastBatchNorm)]
+        assert norms and all(m.synced and m.process_group is None
+                             for m in norms)
+    else:
+        with pytest.raises(NotImplementedError, match=key):
+            build_model_from_cfg(model)
     model[section][key] = default
-    build_model_from_cfg(model)
+    built = build_model_from_cfg(model)
+    assert not any(getattr(m, "synced", False) for m in built.modules())
+
+
+@pytest.mark.parametrize("name", ["s3dis/AMContrast3D-AA.yaml",
+                                  "s3dis/AMContrast3D-MM.yaml",
+                                  "s3dis/pointnet++.yaml"])
+def test_bn_axis_name_syncs_every_batchnorm_of_the_model(name):
+    """``build_model_from_cfg(cfg, bn_axis_name='dp')``, as the JAX runner
+    builds its model when ``distributed``: every BatchNorm of the model (the
+    MM model's APM towers included) syncs, and none is left a
+    ``torch.nn.BatchNorm`` of another kind."""
+    from amcontrast3d_tpu_torch.models.layers import ChannelsLastBatchNorm
+
+    built = build_model_from_cfg(_model_cfg(name), bn_axis_name="dp")
+    norms = [m for m in built.modules()
+             if isinstance(m, torch.nn.modules.batchnorm._BatchNorm)]
+    assert len(norms) > 10
+    assert all(isinstance(m, ChannelsLastBatchNorm) and m.synced
+               for m in norms)
+    if "MM" in name:
+        assert any(n.startswith("APM.") and isinstance(m, ChannelsLastBatchNorm)
+                   for n, m in built.named_modules())

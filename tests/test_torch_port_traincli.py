@@ -959,14 +959,26 @@ def test_cli_trains_and_tests_at_bf16_on_the_cpu(tmp_path):
     assert np.isfinite(out["miou"]) and len(out["ious"]) == 13
 
 
-@pytest.mark.parametrize("opts,match", [
-    (["distributed=True"], "distributed"),
-    (["optimizer.layer_decay=0.75"], "layer_decay"),
-    (["optimizer.NAME=adahessian"], "adahessian")])
-def test_unported_options_raise_by_name(tmp_path, opts, match):
+@pytest.mark.parametrize("opts,error,match", [
+    pytest.param(["distributed=True"], None, "distributed",
+                 id="opts0-distributed"),
+    pytest.param(["optimizer.layer_decay=0.75"], NotImplementedError,
+                 "layer_decay", id="opts1-layer_decay"),
+    pytest.param(["optimizer.NAME=adahessian"], NotImplementedError,
+                 "adahessian", id="opts2-adahessian")])
+def test_unported_options_raise_by_name(tmp_path, opts, error, match):
+    """Options that are not ported raise by name.  ``distributed`` is
+    ported (the data-parallel ranks, ``engine.cli``): it is taken, and on
+    the CPU with no ``world_size`` it asks for one rank, so the runner
+    builds as a single process."""
     cfg = _load(EasyConfig, _tiny_cfg(tmp_path), opts)
     cfg.run_dir = str(tmp_path / "run")
-    with pytest.raises(NotImplementedError, match=match):
+    if error is None:
+        runner = prunner.Runner(cfg, kind="aa", device="cpu")
+        assert cfg[match] is True
+        assert not runner.distributed and runner.world_size == 1
+        return
+    with pytest.raises(error, match=match):
         prunner.Runner(cfg, kind="aa", device="cpu").train()
 
 

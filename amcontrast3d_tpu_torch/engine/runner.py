@@ -15,8 +15,8 @@ runner builds it with ``jnp.bfloat16`` (float32 parameters, bfloat16
 Linears, float32 BatchNorms; the logits come out in bfloat16 and are
 taken to float32 on the host only where numpy needs them, an exact cast).
 
-Not ported (each raises ``NotImplementedError`` by name): ``layer_decay``
-and the optimizers other than AdamW.
+Not ported: the ``adahessian`` optimizer (raises ``NotImplementedError``
+by name).
 
 The runner works on one device: the card unless the caller names the CPU.
 Data parallelism (↔ the JAX runner's ``distributed``, ``runner.py:52-55``):
@@ -156,9 +156,12 @@ class Runner:
             self.lr_fn, cfg.get("steps_per_epoch", 1),
             start_epoch=cfg.get("start_epoch", 1))
         opt_cfg = dict(cfg.get("optimizer", {"NAME": "adamw"}) or {})
-        if opt_cfg.get("layer_decay"):
-            raise NotImplementedError("layer_decay is not ported yet "
-                                      "(ROADMAP.md §1)")
+        if opt_cfg.get("layer_decay") and "num_layers" not in opt_cfg:
+            # ↔ model.get_num_layers() in the reference factory
+            mcfg = dict(cfg.model)
+            opt_cfg["num_layers"] = int(
+                mcfg.get("depth", dict(mcfg.get("encoder_args", {}) or {})
+                         .get("depth", 12)))
         self.plateau = getattr(self.lr_fn, "plateau", None)
         self.frozen = freeze_parameters_(self.model, freeze_pattern(cfg))
         if self.frozen:

@@ -7,13 +7,14 @@
 the metrics ``loss_seg``, ``loss_ce``, ``loss_contrast``, ``loss_reg`` and
 ``refine_rate``).  One call is one step:
 the forward in training mode, the loss, the backward, the global-norm
-clip, the step's learning rate, AdamW, and the confusion matrix of the
-train logits.  The model and the optimizer hold the state that JAX
-carries in ``TrainState``; ``step.state`` holds the step counter (the
+clip, the step's learning rate, the optimizer (AdamW or any of
+``optim``'s chains), and the confusion matrix of the train logits.  The
+model and the optimizer hold the state that JAX carries in
+``TrainState``; ``step.state`` holds the step counter (the
 schedule and the dropout seeds follow it, and a resumed run restores it)
 and ``lr_scale``, the plateau scheduler's factor on every group's rate.
 Frozen parameters are those with ``requires_grad`` off when the optimizer
-was built (``optim.freeze_parameters_``).  Not ported yet: adahessian.
+was built (``optim.freeze_parameters_``).  Not ported: adahessian.
 
 ``distributed`` is the sharded step (↔ ``make_train_step(axis_name='dp')``
 under ``make_sharded_train_step``), one process a rank: the batch holds
@@ -33,6 +34,24 @@ from torch import nn
 from .. import parallel
 from ..optim import clip_by_global_norm_
 from ..utils.metrics import confusion_matrix_update
+
+
+def apply_gradients(optimizer: torch.optim.Optimizer, params,
+                    lr: float, lr_scale: float = 1.0,
+                    grad_norm_clip: Optional[float] = None) -> None:
+    """The update of a step from the gradients in ``.grad`` (↔ JAX's
+    ``build_tx`` chain): the global-norm clip, then the optimizer at the
+    step's rate ``lr`` of the schedule, its update scaled by the plateau
+    factor ``lr_scale``.  Every group's ``lr`` is ``lr · lr_scale`` (what
+    ``torch.optim.AdamW`` reads; the factor commutes with its update) and
+    its ``lr_scale`` the factor, which ``optim.extras.Chain`` applies to
+    the final update, where the JAX chain's ``scale_by_plateau`` sits."""
+    if grad_norm_clip is not None and grad_norm_clip > 0:
+        clip_by_global_norm_(params, grad_norm_clip)
+    for group in optimizer.param_groups:
+        group["lr"] = lr * lr_scale
+        group["lr_scale"] = lr_scale
+    optimizer.step()
 
 
 def make_train_step(model: nn.Module, criterion: Callable,
@@ -99,13 +118,9 @@ def make_train_step(model: nn.Module, criterion: Callable,
         loss.backward()
         if distributed:
             parallel.all_reduce_gradients_(params)
-        if grad_norm_clip is not None and grad_norm_clip > 0:
-            clip_by_global_norm_(params, grad_norm_clip)
-        lr = lr_schedule(s) if callable(lr_schedule) else lr_schedule
-        lr *= state["lr_scale"]
-        for group in optimizer.param_groups:
-            group["lr"] = lr
-        optimizer.step()
+        apply_gradients(optimizer, params,
+                        lr_schedule(s) if callable(lr_schedule) else lr_schedule,
+                        state["lr_scale"], grad_norm_clip)
         with torch.no_grad():
             cm = confusion_matrix_update(logits.argmax(-1), target,
                                          num_classes, ignore_index)

@@ -1,24 +1,30 @@
 """Adaptive-margin contrastive loss (ContrastHead).
 
-↔ ``amcontrast3d_tpu/loss/contrast.py`` in the reduction form of
-``point_contrast_margin_fused``'s exact branch (``contrast.py:174-273``):
-the exact kNN supplies only each point's k-th-nearest d² threshold; the
-neighbourhood sums come from :func:`ops.contrast_reductions`, whose kernels
-never gather (B, N, K, C) neighbour features.  The loss is taken over the
-boundary points ``0 < a ≤ 1`` as a masked mean.
-
-Ported variants: ``contrast_softnn_margin`` with ``supervisedCL``
-Method1, ``dist_cos`` or ``dist_dot``, margin constant / adaptive /
-learned, ``db`` −m / +m / none, cctype Method1-3.  The others (the
-gather-based forms of ``contrast.py:276-318``) raise
-``NotImplementedError``.
+↔ ``amcontrast3d_tpu/loss/contrast.py``, in two forms chosen as the JAX
+package chooses them (``_use_fused``, ``contrast.py:47-58``, without its
+backend switch).  The variants of its fused path (``contrast_softnn_margin``
+with ``supervisedCL`` Method1, ``dist_cos`` or ``dist_dot``, margin
+constant / adaptive / learned, ``db`` −m / +m / none) take the reduction
+form of ``point_contrast_margin_fused``'s exact branch
+(``contrast.py:174-273``): the exact kNN supplies only each point's
+k-th-nearest d² threshold, and the neighbourhood sums come from
+:func:`ops.contrast_reductions`, whose kernels never gather (B, N, K, C)
+neighbour features.  Every other variant (``dist_l2``, ``dist_kl``,
+``contrast_softnn_temperature``, ``contrast_softnn``, ``supervisedCL``
+Method2, the other ``db`` values) takes the gather form of
+``contrast.py:276-318``: the stage's K-slot kNN neighbourhood
+(:func:`loss.aef.stage_neighborhood`), the neighbours' features gathered,
+the variant's similarity and its reduction over the K slots.  Either way
+the loss is taken over the boundary points ``0 < a ≤ 1`` as a masked mean,
+and ``a`` carries no gradient.
 
 ``ambiguity_args.remat`` (the JAX head's ``jax.checkpoint`` of each
 stage's ``point_contrast_margin``, saving only what it names
 ``contrast_knn``) checkpoints each stage's margin loss
 (``torch.utils.checkpoint``, not reentrant) and keeps the threshold (kNN
-or selection) and the (B, N, 9) reductions: the backward recomputes the
-normalisation and the loss's elementwise terms, and no kernel runs twice.
+or selection) and the (B, N, 9) reductions, or the gather form's kNN
+neighbourhood: the backward recomputes the normalisation (or the gather)
+and the loss's elementwise terms, and no kernel runs twice.
 
 The stage clouds are sorted once a forward, all in one sort
 (``ops.spatial.sort_stages``), by the model's encoder, which hands the
@@ -34,7 +40,7 @@ same way.
 
 In the approx configuration (``ops.knn.set_knn_backend('approx')``, unless
 ``ambiguity_args.fused`` is False, as the JAX package's fused branches
-read it) no kNN runs for the loss: each point's threshold is the TPU's own
+read it), for the variants of the reduction form, no kNN runs for the loss: each point's threshold is the TPU's own
 selection (``contrast_reductions_selfk``) and the stage labels come from
 the majority vote (``label_vote``) instead of ``subscene_labels``
 (``contrast.py:212-218, 345-370, 389-422``).
@@ -47,34 +53,131 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ..ops import (ambiguity_from_stats, contrast_reductions,
-                   contrast_reductions_selfk, knn, label_vote)
+import torch.nn.functional as F
+
+from ..ops import (ambiguity_from_stats, ambiguity_function,
+                   contrast_reductions, contrast_reductions_selfk, knn,
+                   label_vote)
+from ..ops.group import group_points
 from ..ops.knn import use_approx
 from ..ops.spatial import SortedCloud, check_layout, sort_stages, sort_support
-from .aef import NSTRIDE, one_hot_labels, stage_ambiguity, subscene_labels
+from .aef import (NSTRIDE, one_hot_labels, stage_ambiguity,
+                  stage_neighborhood, subscene_labels)
 
 _EPS = 1e-12
 
 
-def _check_ported(args: Dict, dist_func: str, contrast_func: str) -> None:
-    ported = (contrast_func == "contrast_softnn_margin"
-              and args.get("supervisedCL", "Method1") == "Method1"
-              and dist_func in ("dist_cos", "dist_dot")
-              and args.get("margin", "adaptive") in
-              ("constant", "adaptive", "learned")
-              and args.get("db", "-m") in ("-m", "+m", "none"))
-    if not ported:
-        raise NotImplementedError(
-            f"contrast variant {contrast_func}/{dist_func} with "
-            f"supervisedCL={args.get('supervisedCL', 'Method1')}, "
-            f"margin={args.get('margin', 'adaptive')}, db={args.get('db', '-m')} "
-            "is not ported")
+def _reduction_form(args: Dict, dist_func: str = "dist_cos",
+                    contrast_func: str = "contrast_softnn_margin") -> bool:
+    """Whether a variant takes the reduction form: the JAX package's
+    ``_use_fused`` variants."""
+    return (contrast_func == "contrast_softnn_margin"
+            and args.get("supervisedCL", "Method1") == "Method1"
+            and dist_func in ("dist_cos", "dist_dot")
+            and args.get("margin", "adaptive") in
+            ("constant", "adaptive", "learned")
+            and args.get("db", "-m") in ("-m", "+m", "none"))
 
 
 def _selection(args: Dict) -> bool:
     """Whether the approx configuration's threshold selection and label
     vote replace the exact kNN (↔ ``_use_fused(...) and _use_approx()``)."""
     return use_approx() and args.get("fused", True)
+
+
+# similarity functions (↔ ``contrast.py:61-95``): f (..., C) against its
+# neighbours (..., K, C) → (..., K)
+
+def dist_dot(features, neighbor_feature):
+    return (features[..., None, :] * neighbor_feature).sum(-1) + _EPS
+
+
+def dist_cos(features, neighbor_feature):
+    f = features[..., None, :]
+    num = (f * neighbor_feature).sum(-1)
+    denom = (torch.linalg.vector_norm(f, dim=-1)
+             * torch.linalg.vector_norm(neighbor_feature, dim=-1))
+    # torch's cosine_similarity clamps the norm product at 1e-8
+    return num / torch.clamp_min(denom, 1e-8)
+
+
+def dist_l2(features, neighbor_feature):
+    d = features[..., None, :] - neighbor_feature
+    return torch.sqrt((d * d).sum(-1) + _EPS)
+
+
+def dist_kl(features, neighbor_feature):
+    """KL(features ‖ neighbours), both log-softmaxed."""
+    logp = F.log_softmax(features, dim=-1)[..., None, :]
+    logq = F.log_softmax(neighbor_feature, dim=-1)
+    return (torch.exp(logp) * (logp - logq)).sum(-1)
+
+
+_DIST_FUNCS = {"dist_dot": dist_dot, "dist_cos": dist_cos,
+               "dist_l2": dist_l2, "dist_kl": dist_kl}
+
+
+# the reductions over the K slots (↔ ``contrast.py:102-175``): dist and
+# posmask (..., K), ambiguity (...,) → the loss of each point (...,)
+
+def contrast_softnn_margin(dist, posmask, ambiguity, args):
+    """The margin-adjusted soft-NN ratio."""
+    pm = posmask.to(dist.dtype)
+    margin_mode = args.get("margin", "adaptive")
+    if margin_mode == "constant":
+        margin = args["nu"]
+    elif margin_mode == "adaptive":
+        margin = args["mu"] * ambiguity[..., None] + args["nu"]
+    elif margin_mode == "learned":
+        u = (dist * (1.0 - pm)).mean(-1)
+        v = (dist * pm).mean(-1)
+        margin = (u[..., None] - 1.0) * ambiguity[..., None] + v[..., None]
+    else:
+        raise ValueError(f"margin {margin_mode}")
+    db = args.get("db", "-m")
+    if db == "-m":
+        dist = (dist - margin) * pm + dist * (1.0 - pm)
+    elif db == "+m":
+        dist = dist * pm + (dist + margin) * (1.0 - pm)
+    temperature = args.get("temperature", None)
+    if temperature is not None:
+        dist = dist / temperature
+    exp = torch.exp(dist)
+    pos = (exp * pm).sum(-1)
+    neg = (exp * (1.0 - pm)).sum(-1)
+    method = args.get("supervisedCL", "Method1")
+    if method == "Method1":
+        loss = pos / exp.sum(-1) + _EPS
+    elif method == "Method2":
+        pos_ij = exp * pm
+        ratio = pos_ij / (pos_ij + neg[..., None]) + _EPS
+        loss = ratio.sum(-1) / (pm.sum(-1) + _EPS)
+    else:
+        raise ValueError(f"supervisedCL {method}")
+    return -torch.log(loss)
+
+
+def contrast_softnn_temperature(dist, posmask, ambiguity, args):
+    """The dynamic-temperature variant, for distances (not similarities)."""
+    pm = posmask.to(dist.dtype)
+    dist = -dist
+    dist = dist - dist.amax(-1, keepdim=True)
+    temperature = args.get("temperature", None)
+    if temperature is not None:
+        dist = dist / (temperature * (1.5 - ambiguity[..., None]))
+    exp = torch.exp(dist)
+    return -torch.log((exp * pm).sum(-1) / exp.sum(-1) + _EPS)
+
+
+def contrast_softnn(dist, posmask, temperature=None):
+    """The plain soft-NN contrast."""
+    pm = posmask.to(dist.dtype)
+    dist = -dist
+    dist = dist - dist.amax(-1, keepdim=True)
+    if temperature is not None:
+        dist = dist / temperature
+    exp = torch.exp(dist)
+    return -torch.log((exp * pm).sum(-1) / exp.sum(-1) + _EPS)
 
 
 def _vote_k(stage_i: int) -> int:
@@ -94,8 +197,11 @@ def point_contrast_margin(p: torch.Tensor, f: torch.Tensor,
     sorted here when not given and the exact kNN runs (in the approx
     configuration the contrast kernels sort when it is not given).  With
     ``args["remat"]`` and gradients on, the loss is checkpointed, the
-    threshold and the reductions kept."""
-    _check_ported(args, dist_func, contrast_func)
+    threshold and the reductions (or the kNN neighbourhood) kept.  The
+    variants outside the reduction form take :func:`_gather_margin`."""
+    if not _reduction_form(args, dist_func, contrast_func):
+        return _gather_margin(p, f, labels_stage, args, dist_func,
+                              contrast_func, cloud)
     if labels_stage.dim() == 2:
         lab = labels_stage.float()
     else:
@@ -117,6 +223,42 @@ def point_contrast_margin(p: torch.Tensor, f: torch.Tensor,
         return margin(f)
     return checkpoint(margin, f, {}, use_reentrant=False,
                       preserve_rng_state=False)
+
+
+def _gather_margin(p, f, labels_stage, args: Dict, dist_func: str,
+                   contrast_func: str, cloud: Optional[SortedCloud]
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The gather form of one stage's loss (↔ ``contrast.py:276-318``):
+    the K-slot kNN neighbourhood without the self slot (kernel 6 on the
+    card), its ambiguity, the neighbours' features, the variant's
+    similarity and reduction, and the masked mean over ``0 < a ≤ 1``."""
+    with torch.no_grad():
+        p = p.contiguous()
+        if cloud is None:
+            cloud = sort_support(p)
+        idx, posmask, dd = stage_neighborhood(p, labels_stage, args["nsample"],
+                                              cloud)
+        a = ambiguity_function(posmask, dd, args.get("cctype", "Method2"),
+                               args.get("ccbeta", 0.04))
+    if contrast_func not in ("contrast_softnn_margin",
+                             "contrast_softnn_temperature", "contrast_softnn"):
+        raise ValueError(contrast_func)
+
+    def loss_of(f):
+        dist = _DIST_FUNCS[dist_func](f, group_points(f, idx))
+        if contrast_func == "contrast_softnn_margin":
+            per_point = contrast_softnn_margin(dist, posmask, a, args)
+        elif contrast_func == "contrast_softnn_temperature":
+            per_point = contrast_softnn_temperature(dist, posmask, a, args)
+        else:
+            per_point = contrast_softnn(dist, posmask, args.get("temperature"))
+        valid = ((a > 0) & (a <= 1)).to(dist.dtype)
+        return (per_point * valid).sum() / torch.clamp_min(valid.sum(), 1.0)
+
+    if args.get("remat", False) and torch.is_grad_enabled():
+        return checkpoint(loss_of, f, use_reentrant=False,
+                          preserve_rng_state=False), a
+    return loss_of(f), a
 
 
 def _margin(p, f, lab, kth, args: Dict, dist_func: str,
@@ -203,7 +345,9 @@ def contrast_head(up_stages: Sequence[Tuple[torch.Tensor, torch.Tensor]],
     ``clouds``: the layouts of the p_s, as the model's forward sorted them
     (sorted here when not given)."""
     labels0 = one_hot_labels(target, num_classes, ignore_index)
-    vote = _selection(args)
+    # ↔ ``_use_fused(args, "dist_cos", "contrast_softnn_margin") and
+    # _use_approx()``: the head's own variant
+    vote = _selection(args) and _reduction_form(args)
     if vote:
         lab0 = labels0.argmax(-1).to(torch.int32)
     stages = int(args.get("stages_num", 4))

@@ -73,8 +73,18 @@ class BaseSeg(nn.Module):
 
     def forward(self, pos: torch.Tensor, features: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        p, f = self.encoder(pos, features)
-        f = self.decoder(p, f)[0] if self.decoder is not None else f[-1]
+        """``generator`` draws the random sampler's indices (PointNeXt's
+        ``sampler: random``) and the dropout masks in training mode."""
+        layouts = {}
+        if isinstance(self.encoder, PointNextEncoder):
+            # the stage layouts the encoder sorted serve the decoder too
+            sampled = self.encoder.sample(pos, generator)
+            p, f = self.encoder(pos, features, sampled)
+            layouts["clouds"] = sampled.clouds
+        else:
+            p, f = self.encoder(pos, features)
+        f = self.decoder(p, f, **layouts)[0] if self.decoder is not None \
+            else f[-1]
         return self.head(f, generator) if self.head is not None else f
 
 
@@ -92,7 +102,7 @@ class BaseSeg_AMContrast3D(nn.Module):
 
     def forward(self, pos: torch.Tensor, features: torch.Tensor,
                 generator: Optional[torch.Generator] = None):
-        sampled = self.encoder.sample(pos)
+        sampled = self.encoder.sample(pos, generator)
         p, f = self.encoder(pos, features, sampled)
         f_out, up_features, _ = self.decoder(p, f, clouds=sampled.clouds)
         logits = self.head(f_out, generator)
@@ -140,7 +150,7 @@ class BaseSeg_M_AMContrast3D(nn.Module):
     def forward(self, pos: torch.Tensor, features: torch.Tensor,
                 generator: Optional[torch.Generator] = None,
                 target: Optional[torch.Tensor] = None, aef_ambiguity=None):
-        sampled = self.encoder.sample(pos)
+        sampled = self.encoder.sample(pos, generator)
         p, f = self.encoder(pos, features, sampled)
         clouds = sampled.clouds
         n = self.decoder.decoder_stages

@@ -33,14 +33,12 @@ MODELS = Registry("models")
 # take for the whole module they build
 _JAX_FIELDS = {"bn_axis_name": None}
 # per port class, the other fields its JAX module reads and the port's
-# constructor lacks, with their JAX defaults (``models/pointnext.py:605``,
-# ``models/pointnetv2.py:82`` of the JAX package).  The JAX modules' other
-# extra fields are read by no JAX module (the APMs' ``feat_concate``), or by
-# the model around them, which the port's reads too (the APMs'
-# ``nsample_k``, ``threshold``, ``fusion`` … from ``APM_args``).
-UNPORTED_KEYS = {
-    "PointNet2Encoder": {"sampler": "fps"},
-}
+# constructor lacks, with their JAX defaults: none is left.  The JAX
+# modules' other extra fields are read by no JAX module (the APMs'
+# ``feat_concate``), or by the model around them, which the port's reads
+# too (the APMs' ``nsample_k``, ``threshold``, ``fusion`` … from
+# ``APM_args``).
+UNPORTED_KEYS: Dict[str, Dict[str, Any]] = {}
 
 
 def filter_kwargs(cls, kwargs: Dict[str, Any]) -> Dict[str, Any]:

@@ -23,7 +23,7 @@ a step.
 from __future__ import annotations
 
 import contextlib
-from typing import Callable, Optional
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -271,28 +271,116 @@ class Dropout(nn.Module):
         return x * keep / rounded(1 - self.rate, x.dtype)
 
 
+class LayerNorm(nn.LayerNorm):
+    """flax's ``nn.LayerNorm(epsilon=1e-6)`` of a ``(..., C)`` tensor: over
+    the channel axis alone.  A bfloat16 input is normalised in float32 and
+    the output is float32 (flax promotes it with its float32 scale)."""
+
+    def __init__(self, channels: int):
+        super().__init__(channels, eps=1e-6)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x.float())
+
+
+class GroupNorm(nn.GroupNorm):
+    """flax's ``nn.GroupNorm(num_groups=min(32, C))`` (epsilon 1e-6) of a
+    ``(B, ..., C)`` tensor: each group of channels is normalised over every
+    axis but the batch's, so over the M and K axes of a grouped (B, M, K,
+    C) tensor too (not per point).  A channel count that the group count
+    does not divide raises, as flax does.  float32 out, as
+    :class:`LayerNorm`."""
+
+    def __init__(self, channels: int):
+        groups = min(32, channels)
+        if channels % groups:
+            raise ValueError(f"Number of groups ({groups}) does not divide "
+                             f"the number of channels ({channels}).")
+        super().__init__(groups, channels, eps=1e-6)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = super().forward(x.float().movedim(-1, 1))
+        # channels-last again, laid out so: the kernels take contiguous
+        # tensors only
+        return y.movedim(1, -1).contiguous()
+
+
+def _norm_layer(norm: str, channels: int) -> Tuple[str, nn.Module]:
+    """The flax name and the module of a norm of ``channels``."""
+    if norm.startswith(("bn", "syncbn")):
+        return "BatchNorm_0", batch_norm(channels)
+    if norm.startswith("ln"):
+        return "LayerNorm_0", LayerNorm(channels)
+    if norm.startswith("gn"):
+        return "GroupNorm_0", GroupNorm(channels)
+    raise ValueError(f"norm {norm} not supported")
+
+
+_ORDERS = ("conv-norm-act", "norm-act-conv", "conv-act-norm")
+
+
 class ConvBlock(nn.Module):
-    """Linear (+BatchNorm) (+act) in ``conv-norm-act`` order; the bias is
-    dropped when a norm follows (↔ ``create_convblock1d/2d``).  The Linear
-    computes in ``dtype``; with a norm the block returns float32."""
+    """Linear (+norm) (+act) in the order ``conv-norm-act``,
+    ``norm-act-conv`` (the norm over the input channels) or
+    ``conv-act-norm``; the bias is dropped when there is a norm (↔
+    ``create_convblock1d/2d``).  The norm is a BatchNorm (``bn*``,
+    ``syncbn*``), a LayerNorm (``ln*``) or a GroupNorm (``gn*``), under its
+    flax name (``BatchNorm_0``, ``LayerNorm_0``, ``GroupNorm_0``).  The
+    Linear computes in ``dtype``; every norm returns float32."""
 
     def __init__(self, in_channels: int, out_channels: int, norm_args=None,
                  act_args=None, order: str = "conv-norm-act",
                  bias: bool = True, dtype=None):
         super().__init__()
-        if order != "conv-norm-act":
-            raise NotImplementedError(f"order {order} not ported")
+        if order not in _ORDERS:
+            raise NotImplementedError(f"order {order} not supported")
         norm = _norm_name(norm_args)
-        if norm is not None and not norm.startswith(("bn", "syncbn")):
-            raise NotImplementedError(f"norm {norm} not ported")
+        self.order = order
         self.act = create_act(act_args)
         self.Dense_0 = Dense(in_channels, out_channels,
                              bias=bias and norm is None, dtype=dtype)
-        self.BatchNorm_0 = batch_norm(out_channels) if norm else None
+        self.norm_name = None
+        if norm is not None:
+            self.norm_name, layer = _norm_layer(
+                norm, in_channels if order == "norm-act-conv" else out_channels)
+            self.add_module(self.norm_name, layer)
+
+    def _norm_act(self, x: torch.Tensor, act_first: bool = False
+                  ) -> torch.Tensor:
+        if act_first and self.act is not None:
+            x = self.act(x)
+        if self.norm_name is not None:
+            x = getattr(self, self.norm_name)(x)
+        if not act_first and self.act is not None:
+            x = self.act(x)
+        return x
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.Dense_0(x)
-        if self.BatchNorm_0 is not None:
-            x = self.BatchNorm_0(x)
-        return self.act(x) if self.act is not None else x
+        if self.order == "norm-act-conv":
+            return self.Dense_0(self._norm_act(x))
+        return self._norm_act(self.Dense_0(x),
+                              act_first=self.order == "conv-act-norm")
 
+
+class MLPBlocks(nn.Module):
+    """A stack of ConvBlocks along a channel list, the last one's
+    activation optional (↔ the JAX package's ``MLPBlocks``; its blocks keep
+    the flax names ``ConvBlock_{i}``)."""
+
+    def __init__(self, in_channels: int, channels: Sequence[int],
+                 norm_args=None, act_args=None, order: str = "conv-norm-act",
+                 last_act: bool = True, dtype=None):
+        super().__init__()
+        cin = in_channels
+        for i, ch in enumerate(channels):
+            is_last = i == len(channels) - 1
+            self.add_module(f"ConvBlock_{i}", ConvBlock(
+                cin, ch, norm_args=norm_args,
+                act_args=None if (is_last and not last_act) else act_args,
+                order=order, dtype=dtype))
+            cin = ch
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for block in self.children():
+            x = block(x)
+        return x

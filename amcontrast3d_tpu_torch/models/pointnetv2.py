@@ -73,7 +73,10 @@ class PointNet2Encoder(nn.Module):
                  width: Optional[int] = None,
                  strides: Sequence[int] = (4, 4, 4, 4), layers: int = 3,
                  width_scaling: int = 2, radius_scaling: float = 2,
-                 nsample_scaling: float = 1, dtype=None):
+                 nsample_scaling: float = 1, sampler: str = "fps",
+                 dtype=None):
+        """``sampler`` is taken and not read: the JAX encoder hands it to
+        stages that sample by FPS whatever it says."""
         super().__init__()
         self.mlps, self.width, self.strides = mlps, width, list(strides)
         self.layers, self.width_scaling = layers, width_scaling

@@ -6,13 +6,13 @@ counts are ``N_i = N_{i-1} // stride``.  Submodules keep the flax names
 (``enc{i}_sa``, ``enc{i}_block{j}``, ``LocalAggregation_0``, ``w_f``,
 ``w_dp``, ``ConvBlock_{n}``, ``BatchNorm_0``, ``fp{k}``).
 
-Ported: the separable ``dp_fj`` LocalAggregation, SetAbstraction (head,
-separable and generic paths), the fused GroupStatsBN tail of both (on with
-``ops.aggregate.set_agg_fused('on')``), FeaturePropagation with
-upsampling, InvResMLP, the encoder with its per-stage shared ball query,
-the decoder with the masked refinement, and SegHead.  Not yet: the generic
-grouped-MLP LocalAggregation, the masked ``n_valid`` path, ResBlock and
-random sampling.
+Ported: LocalAggregation (the separable ``dp_fj`` form and the generic
+grouped MLP), SetAbstraction (head, separable and generic paths; FPS or
+the random sampler), the fused GroupStatsBN tail of the separable forms
+(on with ``ops.aggregate.set_agg_fused('on')``), FeaturePropagation with
+upsampling and the global one, InvResMLP and ResBlock, the encoder with
+its per-stage shared ball query, the decoder with the masked refinement,
+and SegHead.  Not yet: the masked ``n_valid`` path.
 
 ``dtype`` (the runner's ``use_amp``: bfloat16) is the compute type of every
 Linear, as the JAX modules' field: the BatchNorms return float32, so the
@@ -47,7 +47,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops import spatial
 from ..ops.aggregate import agg_fused_enabled, grouped_slot_reduce
-from ..ops.fps import furthest_point_sample
+from ..ops.fps import furthest_point_sample, random_sample
 from ..ops.group import (CHANNEL_MAP, create_grouper, gather_points,
                          get_aggregation_features, group_points)
 from ..ops.interpolate import three_interpolation
@@ -55,7 +55,7 @@ from ..ops.knn import ball_query, knn
 from ..parallel import all_reduce_mean
 from .apm import Attention
 from .layers import (ChannelsLastBatchNorm, ConvBlock, Dense, Dropout,
-                     _act_name, _norm_name, create_act,
+                     MLPBlocks, _act_name, _norm_name, create_act,
                      recomputing, rounded)
 from .refine import dual_masks, map_sum
 
@@ -250,12 +250,17 @@ def _dp_scale(grouper):
 
 
 class LocalAggregation(nn.Module):
-    """Group → per-neighbour conv → pool, in the separable form only.
+    """Group → per-neighbour MLP → pool (max, mean/avg or sum).
 
-    A single-layer ``dp_fj`` conv with a norm is computed as
-    ``W·[dp; fj] = W_dp·dp + gather(W_f·f)``: the feature half runs once
-    per point instead of once per neighbour.  Every other form (the JAX
-    package's generic grouped-MLP branch) is not ported."""
+    Under the JAX package's own condition (``use_separable``: a
+    single-layer ``dp_fj`` conv in ``conv-norm-act`` order with a norm,
+    grouped by a ball query or a kNN) the conv is computed as ``W·[dp; fj] = W_dp·dp +
+    gather(W_f·f)``: the feature half runs once a point instead of once a
+    neighbour, and its norm is a BatchNorm whatever the norm's name, as in
+    the JAX package.  Otherwise (any ``feature_type``, several layers,
+    another order or no norm) the generic branch groups the relative
+    positions and the features, builds the ``feature_type``'s features and
+    runs them through ``MLPBlocks_0``."""
 
     def __init__(self, channels: Sequence[int], norm_args=None, act_args=None,
                  group_args=None, conv_args=None, feature_type: str = "dp_fj",
@@ -264,20 +269,26 @@ class LocalAggregation(nn.Module):
         order = (conv_args or {}).get("order", "conv-norm-act")
         self.grouper = create_grouper(group_args)
         self.pool = _pool(reduction)
-        if not (feature_type == "dp_fj" and len(channels) == 2
-                and order == "conv-norm-act"
-                and _norm_name(norm_args) is not None
-                and self.grouper.method in ("ballquery", "knn")):
-            raise NotImplementedError(
-                "only the separable single-layer dp_fj aggregation with a "
-                "norm is ported")
-        out_ch = channels[1]
+        self.feature_type = feature_type
+        out_channels = list(channels[1:])
+        self.separable = (feature_type == "dp_fj"
+                          and len(out_channels) == 1
+                          and order == "conv-norm-act"
+                          and _norm_name(norm_args) is not None
+                          and self.grouper.method in ("ballquery", "knn"))
+        self.act_name = _act_name(act_args) if last_act else None
+        self.max_pool = reduction.lower() == "max"
+        if not self.separable:
+            self.MLPBlocks_0 = MLPBlocks(
+                CHANNEL_MAP[feature_type](channels[0]), out_channels,
+                norm_args=norm_args, act_args=act_args, order=order,
+                last_act=last_act, dtype=dtype)
+            return
+        out_ch = out_channels[0]
         self.w_f = Dense(channels[0], out_ch, bias=False, dtype=dtype)
         self.w_dp = Dense(3, out_ch, bias=False, dtype=dtype, exact=True)
         self.BatchNorm_0 = group_stats_bn(out_ch)
         self.act = create_act(act_args) if last_act else None
-        self.act_name = _act_name(act_args) if last_act else None
-        self.max_pool = reduction.lower() == "max"
 
     def forward(self, p, f, cached_idx=None, cloud=None):
         """``cached_idx``: the stage's shared grouping, an ``(idx, dp)``
@@ -288,16 +299,23 @@ class LocalAggregation(nn.Module):
         if isinstance(cached_idx, tuple):
             cached_idx, cached_dp = cached_idx
         idx = cached_idx if cached_idx is not None else self.group(p, cloud)
+        if not self.separable:
+            dp, fj = self.grouper(p, p, f, idx)
+            fj = get_aggregation_features(p, dp, f, fj, self.feature_type)
+            return self.pool(self.MLPBlocks_0(fj))
         return _separable_tail(self, self.takes_fused(), idx, f, p, p,
                                self.act, self.pool, cached_dp, cloud)
 
     def group(self, p, cloud=None):
-        """The grouping indices of ``p`` onto itself."""
+        """The grouping indices of ``p`` onto itself (None for a group of
+        every point)."""
+        if self.grouper.method == "all":
+            return None
         return _group_idx(self.grouper, p, p, cloud)
 
     def takes_fused(self) -> bool:
         """Whether this aggregation takes the fused tail."""
-        return self.max_pool and _fused(self.act_name)
+        return self.separable and self.max_pool and _fused(self.act_name)
 
 
 class SetAbstraction(nn.Module):
@@ -309,10 +327,11 @@ class SetAbstraction(nn.Module):
                  feature_type: str = "dp_fj", use_res: bool = False,
                  is_head: bool = False, dtype=None):
         super().__init__()
-        if sampler.lower() != "fps":
-            raise NotImplementedError(f"sampler {sampler} not ported")
+        if sampler.lower() not in ("fps", "random"):
+            raise ValueError(f"sampler {sampler} not supported")
         order = (conv_args or {}).get("order", "conv-norm-act")
         self.is_head, self.stride = is_head, stride
+        self.sampler = sampler.lower()
         self.all_aggr = not is_head and stride == 1
         self.use_res = use_res and not self.all_aggr and not is_head
         self.feature_type = feature_type
@@ -362,12 +381,19 @@ class SetAbstraction(nn.Module):
                 order=order))
             cin = ch
 
-    def sample(self, p):
-        """(FPS indices or None, the query positions) of this set
-        abstraction: they read positions only."""
+    def sample(self, p, generator: Optional[torch.Generator] = None):
+        """(sampled indices or None, the query positions) of this set
+        abstraction: they read positions only.  The random sampler draws
+        from ``generator`` (on ``p``'s device), which it needs."""
         if self.is_head or self.all_aggr:
             return None, p
-        idx = furthest_point_sample(p, p.shape[1] // self.stride)
+        npoint = p.shape[1] // self.stride
+        if self.sampler == "fps":
+            idx = furthest_point_sample(p, npoint)
+        else:
+            if generator is None:
+                raise ValueError("the random sampler needs a generator")
+            idx = random_sample(p, npoint, generator)
         return idx, gather_points(p, idx)
 
     def forward(self, p, f, sampled=None, cloud=None, query_cloud=None,
@@ -422,32 +448,71 @@ class SetAbstraction(nn.Module):
 
 
 class FeaturePropagation(nn.Module):
-    """3-NN upsampling + MLP; ``mlp`` is [skip + coarse, fp, fp]."""
+    """3-NN upsampling + MLP; ``mlp`` is [skip + coarse, fp, fp].  The
+    global form (``upsample=False``) takes ``pf1`` alone: the mean of its
+    features over the points, through ``Dense_0`` and a ReLU, broadcast to
+    every point and concatenated to its features, then the ConvBlocks of
+    ``mlp[2:]``."""
 
     def __init__(self, mlp: Sequence[int], upsample: bool = True,
                  norm_args=None, act_args=None, dtype=None):
         super().__init__()
-        if not upsample:
-            raise NotImplementedError("global (non-upsampling) FP not ported")
-        for i, (cin, cout) in enumerate(zip(mlp[:-1], mlp[1:])):
+        self.upsample = upsample
+        if upsample:
+            cins, couts = mlp[:-1], mlp[1:]
+        else:
+            self.Dense_0 = Dense(mlp[0], mlp[1], dtype=dtype)
+            cins, couts = [mlp[0] + mlp[1]] + list(mlp[2:-1]), mlp[2:]
+        for i, (cin, cout) in enumerate(zip(cins, couts)):
             self.add_module(f"ConvBlock_{i}", ConvBlock(
                 cin, cout, norm_args=norm_args, act_args=act_args,
                 dtype=dtype))
 
-    def forward(self, pf1, pf2, query_cloud=None, cloud=None):
+    def forward(self, pf1, pf2=None, query_cloud=None, cloud=None):
         """``query_cloud`` and ``cloud``: the layouts of ``p1`` (the fine
         stage) and ``p2`` (the coarse one), which the interpolation reads;
         it sorts for itself without them."""
-        (p1, f1), (p2, f2) = pf1, pf2
-        f = three_interpolation(p1, p2, f2, cloud, query_cloud)
-        if f1 is not None:
-            f = torch.cat([f1, f], -1)
-        for block in self.children():
-            f = block(f)
+        if self.upsample:
+            (p1, f1), (p2, f2) = pf1, pf2
+            f = three_interpolation(p1, p2, f2, cloud, query_cloud)
+            if f1 is not None:
+                f = torch.cat([f1, f], -1)
+        else:
+            f = pf1[1]
+            g = torch.relu(self.Dense_0(f.mean(1)))
+            g = g[:, None, :].expand(*f.shape[:2], g.shape[-1])
+            f = torch.cat([f, g.to(f.dtype)], -1)
+        for name, block in self.named_children():
+            if name.startswith("ConvBlock_"):
+                f = block(f)
         return f
 
 
-class InvResMLP(nn.Module):
+class _ResidualBlock(nn.Module):
+    """An encoder block: ``LocalAggregation_0``, then its ``ConvBlock_{i}``
+    (none in ResBlock), the residual where the widths match, the
+    activation."""
+
+    def forward(self, p, f, cached_idx=None, cloud=None, remat: bool = False):
+        """``remat``: checkpoint all but the grouping."""
+        if not remat:
+            return p, self._block(p, f, cached_idx, cloud)
+        if cached_idx is None:
+            cached_idx = self.LocalAggregation_0.group(p, cloud)
+        return p, _remat(lambda f: self._block(p, f, cached_idx, cloud), f)
+
+    def _block(self, p, f, cached_idx, cloud):
+        identity = f
+        f = self.LocalAggregation_0(p, f, cached_idx=cached_idx, cloud=cloud)
+        for name, block in self.named_children():
+            if name.startswith("ConvBlock_"):
+                f = block(f)
+        if f.shape[-1] == identity.shape[-1] and self.use_res:
+            f = f + identity
+        return self.act(f)
+
+
+class InvResMLP(_ResidualBlock):
     """Inverted-residual MLP block."""
 
     def __init__(self, in_channels: int, norm_args=None, act_args=None,
@@ -477,23 +542,29 @@ class InvResMLP(nn.Module):
                 order=order, dtype=dtype))
             cin = ch
 
-    def forward(self, p, f, cached_idx=None, cloud=None, remat: bool = False):
-        """``remat``: checkpoint all but the grouping."""
-        if not remat:
-            return p, self._block(p, f, cached_idx, cloud)
-        if cached_idx is None:
-            cached_idx = self.LocalAggregation_0.group(p, cloud)
-        return p, _remat(lambda f: self._block(p, f, cached_idx, cloud), f)
 
-    def _block(self, p, f, cached_idx, cloud):
-        identity = f
-        f = self.LocalAggregation_0(p, f, cached_idx=cached_idx, cloud=cloud)
-        for name, block in self.named_children():
-            if name.startswith("ConvBlock_"):
-                f = block(f)
-        if f.shape[-1] == identity.shape[-1] and self.use_res:
-            f = f + identity
-        return self.act(f)
+
+class ResBlock(_ResidualBlock):
+    """The plain residual block: a LocalAggregation of channels [C, C,
+    C·expansion, C] with no activation inside (so it always takes the
+    generic branch), the residual, then the activation."""
+
+    def __init__(self, in_channels: int, norm_args=None, act_args=None,
+                 aggr_args=None, group_args=None, conv_args=None,
+                 expansion: int = 1, use_res: bool = True, dtype=None):
+        super().__init__()
+        aggr = dict(aggr_args or {"feature_type": "dp_fj", "reduction": "max"})
+        self.use_res = use_res
+        self.act = create_act(act_args)
+        mid = in_channels * expansion
+        self.LocalAggregation_0 = LocalAggregation(
+            [in_channels, in_channels, mid, in_channels], norm_args=norm_args,
+            act_args=None, group_args=group_args, conv_args=conv_args,
+            feature_type=aggr.get("feature_type", "dp_fj"),
+            reduction=aggr.get("reduction", "max"), dtype=dtype)
+
+
+_BLOCKS = {"InvResMLP": InvResMLP, "ResBlock": ResBlock}
 
 
 class PointNextEncoder(nn.Module):
@@ -510,8 +581,9 @@ class PointNextEncoder(nn.Module):
                  use_res: bool = True, radius_scaling: float = 2,
                  nsample_scaling: float = 1, remat: bool = False, dtype=None):
         super().__init__()
-        if block != "InvResMLP":
-            raise NotImplementedError(f"block {block} not ported")
+        if block not in _BLOCKS:
+            raise ValueError(f"block {block} not supported")
+        block_cls = _BLOCKS[block]
         self.width, self.blocks, self.strides = width, list(blocks), list(strides)
         self.remat = bool(remat)
         norm_args = norm_args or {"norm": "bn"}
@@ -541,14 +613,15 @@ class PointNextEncoder(nn.Module):
             # consecutive blocks of a stage share (points, radius, nsample):
             # one ball query (and one dp gather) serves them all
             self.shared.append(
-                nb > 2 and aggr_args.get("feature_type", "dp_fj") == "dp_fj"
+                nb > 2 and block == "InvResMLP"
+                and aggr_args.get("feature_type", "dp_fj") == "dp_fj"
                 and all(self.radii[i][j] == self.radii[i][1]
                         and self.nsamples[i][j] == self.nsamples[i][1]
                         for j in range(1, nb)))
             for j in range(1, nb):
                 gaj = dict(group_args or {"NAME": "ballquery"})
                 gaj["radius"], gaj["nsample"] = self.radii[i][j], self.nsamples[i][j]
-                self.add_module(f"enc{i}_block{j}", InvResMLP(
+                self.add_module(f"enc{i}_block{j}", block_cls(
                     in_channels=in_ch, aggr_args=aggr_args,
                     norm_args=norm_args, act_args=act_args, group_args=gaj,
                     conv_args=conv_args, expansion=expansion,
@@ -567,28 +640,32 @@ class PointNextEncoder(nn.Module):
     def out_channels(self) -> int:
         return self.channel_list[-1]
 
-    def sample(self, p0) -> "Stages":
+    def sample(self, p0, generator: Optional[torch.Generator] = None
+               ) -> "Stages":
         """The positions of every stage, before any feature: each set
-        abstraction's FPS in turn (one batched launch a stage), then one
+        abstraction's FPS in turn (one batched launch a stage; the random
+        sampler draws from ``generator``), then one
         :func:`ops.spatial.sort_stages` over the distinct stage clouds
         (:func:`ops.spatial.sort_each`)."""
         p = p0.contiguous()
         positions, sampled = [p], []
         for i in range(len(self.blocks)):
-            sampled.append(getattr(self, f"enc{i}_sa").sample(p))
+            sampled.append(getattr(self, f"enc{i}_sa").sample(p, generator))
             p = sampled[-1][1]
             positions.append(p)
         return Stages(positions, sampled, spatial.sort_each(positions))
 
-    def forward(self, p0, f0, stages: Optional["Stages"] = None
+    def forward(self, p0, f0, stages: Optional["Stages"] = None,
+                generator: Optional[torch.Generator] = None
                 ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
-        """``stages``: :meth:`sample` of ``p0``, taken here when not given;
+        """``stages``: :meth:`sample` of ``p0`` (from ``generator``), taken
+        here when not given;
         returns the positions (its tensors, which its layouts were made
         from) and the features of every stage, index 0 the input.  With
         ``remat`` and gradients on, each set abstraction and block is
         checkpointed."""
         if stages is None:
-            stages = self.sample(p0)
+            stages = self.sample(p0, generator)
         remat = self.remat and torch.is_grad_enabled()
         p_list, f_list = [stages.p[0]], [f0]
         p, f = stages.p[0], f0

@@ -283,3 +283,15 @@ def furthest_point_sample(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
 
 
 furthest_point_sample.launches = 0
+
+
+def random_sample(xyz: torch.Tensor, npoint: int,
+                  generator: torch.Generator) -> torch.Tensor:
+    """Uniform random sampling with replacement (↔ the JAX package's
+    ``ops/fps.py::random_sample``): (B, npoint) int32 indices into the N
+    points of ``xyz`` (B, N, 3), drawn from ``generator`` (on ``xyz``'s
+    device).  No kernel: the JAX package draws them with
+    ``jax.random.randint``, no Pallas."""
+    B, N, _ = xyz.shape
+    return torch.randint(0, N, (B, npoint), generator=generator,
+                         device=xyz.device, dtype=torch.int32)

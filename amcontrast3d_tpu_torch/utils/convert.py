@@ -1,9 +1,11 @@
 """Weights from the JAX package's flax variables into a port state_dict.
 
-The port's submodules keep the flax names, so the mapping is per leaf:
-a Dense ``kernel`` (in, out) becomes a Linear ``weight`` (out, in) and a
-BatchNorm's ``scale``/``bias``/``mean``/``var`` become
-``weight``/``bias``/``running_mean``/``running_var``.
+The port's submodules keep the flax names (``MLPBlocks_0``, ``ResBlock``'s
+``LocalAggregation_0``, ``LayerNorm_0``, ``GroupNorm_0`` … too), so the
+mapping is per leaf: a Dense ``kernel`` (in, out) becomes a Linear
+``weight`` (out, in), a norm's ``scale``/``bias`` (BatchNorm, LayerNorm,
+GroupNorm) become ``weight``/``bias`` and a BatchNorm's ``mean``/``var``
+``running_mean``/``running_var``.
 
 :func:`load_jax_train_state` and :func:`checkpoint_from_jax` carry a whole
 trainer across: parameters, batch statistics, the AdamW moments and count,
@@ -62,8 +64,14 @@ def load_jax_train_state(model: torch.nn.Module,
                          nu: Optional[Mapping] = None, count: int = 0) -> None:
     """Parameters and batch statistics into ``model`` (strictly: every
     tensor must be there), and optax's Adam moments ``mu``/``nu`` and step
-    ``count`` into ``optimizer`` (a ``torch.optim.AdamW`` over the model's
-    parameters)."""
+    ``count`` into ``optimizer``, which must be the ``torch.optim.AdamW``
+    of the ``adamw`` recipe over the model's parameters (another
+    optimizer's state has other leaves: it raises, naming it)."""
+    if (optimizer is not None and mu is not None
+            and type(optimizer) is not torch.optim.AdamW):
+        raise NotImplementedError(
+            f"the JAX trainer's Adam moments go into torch.optim.AdamW only, "
+            f"not into {type(optimizer).__name__}")
     model.load_state_dict(from_jax_variables(variables), strict=True)
     if optimizer is None or mu is None:
         return

@@ -292,7 +292,44 @@
    logits gathered to rank 0, which votes): voted labels identical to one
    process's at every point, with each rank's launches and the wall time
    beside one process's;
-20. prints one JSON line of per-kernel results (the bfloat16 forms of
+20. the PointNeXt-XL baseline (``--kind base``, ``BaseSeg`` of
+   ``cfgs/s3dis/pointnext-xl.yaml`` at full width, seeded random weights)
+   at the cfg's batch of 8 x 24000 (``base_xl_phase``): "base xl eval", 1
+   untimed and 3 timed forwards through ``make_eval_step``, and "base xl
+   train", 1 untimed and 3 timed steps through ``make_train_step``
+   (``CrossEntropy`` with label smoothing 0.2, AdamW, the cosine schedule,
+   clip 10, dropout from a seeded generator): finite logits and losses,
+   every parameter but the biases ahead of a BatchNorm moved, the
+   launches of FPS (1), the ball query (2), the interpolation (3, 9) and
+   its large-shape forms (10-13) a forward or step, the step ms median and
+   the peak memory, then one forward and one step against the plain twins;
+   then the MM train step at the ScanNet recipe's 2 x 64000 (one timed
+   step after one untimed, against the plain twins);
+21. "base cli" (``base_cli_phase``): ``examples/segmentation/main_torch.py``
+   on Synthetic rooms (2 epochs of 2 steps at 8 x 24000 with validation,
+   then ``mode=test`` from the trained checkpoint), its launches a step and
+   a validated cloud held to the tables; then the paths the CPU tests
+   alone had run: S3DIS-format rooms through ``main_torch.py`` with
+   ``sched: plateau`` and ``val_fn: validate_sphere`` (one epoch of one
+   step), ``mode=finetune`` from the first run's checkpoint (one epoch),
+   and the AA recipe through the train CLI in the approx configuration
+   with the fused tail (``ops.knn.set_knn_backend('approx')`` and
+   ``ops.aggregate.set_agg_fused('on')``, the switches that
+   ``AMC3D_KNN_BACKEND=approx`` and ``AMC3D_AGG_FUSED=on`` set at import;
+   one epoch of two steps);
+22. "options" (``options_phase``): two train steps (the first counted,
+   the second timed) at PointNeXt-XL width, B = 2 x 24000, for ResBlock + ``dp_fj_df`` + ``norm: ln`` in
+   ``norm-act-conv`` order; ``norm: gn`` in ``conv-act-norm`` order with
+   ``sampler: random`` (``norm-act-conv`` with ``gn`` raises at every
+   PointNeXt width, in both packages: the first grouped conv's norm takes
+   3 + C channels, which 32 groups do not divide); the AA model with each
+   contrast variant of the gather form; and each optimizer of the JAX
+   factory's table (``lookahead_adam`` and ``adamw`` with ``layer_decay``
+   too), each first update held against the same update on the CPU from
+   the same state and gradients.  Each step gives a finite loss; a generic
+   grouped MLP (a LocalAggregation of each model option) equals its CPU
+   result within 1e-4·(1+max);
+23. prints one JSON line of per-kernel results (the bfloat16 forms of
    kernels 20 and 21 in rows of their own; the data-parallel ranks'
    launches under ``launches_by_path`` as ``dp …``) and, last, the device
    line.
@@ -494,6 +531,33 @@ LAUNCHES = {
     "mm train bf16": {**TRAIN_LAUNCHES, "refine_cross": 4,
                       "refine_cross_backward": 4},
 }
+# the PointNeXt-XL baseline (cfgs/s3dis/pointnext-xl.yaml) at its cfg's
+# batch, and the options phase's batch
+BASE_XL_CFG = os.path.join(REPO, "cfgs", "s3dis", "pointnext-xl.yaml")
+BASE_XL_B, OPT_B = 8, 2
+# the gather form's contrast variants (name, dist_func, contrast_func,
+# ambiguity_args over the AA cfg's).  The distance dist_l2 goes through the
+# two reductions that negate it and subtract the row's maximum: as a
+# similarity in the margin's ratio, exp(dist / T) of random full-width
+# features overflows float32 in both packages
+CONTRAST_VARIANTS = (
+    ("dist_kl", "dist_kl", "contrast_softnn_margin", {}),
+    ("softnn_temperature", "dist_l2", "contrast_softnn_temperature", {}),
+    ("softnn", "dist_l2", "contrast_softnn", {}),
+    ("method2", "dist_cos", "contrast_softnn_margin", {"supervisedCL": "Method2"}),
+    ("method2_learned_plus_m", "dist_cos", "contrast_softnn_margin",
+     {"supervisedCL": "Method2", "margin": "learned", "db": "+m"}),
+)
+# every name of the JAX factory's optimizer table but adahessian, with
+# the wrappers
+OPTIMIZERS = tuple({"NAME": n} for n in (
+    "adam", "sgd", "radam", "adabelief", "adafactor", "lamb", "lars", "nadam",
+    "novograd", "rmsprop", "lion", "adamp", "sgdp", "madgrad", "madgradw",
+    "lookahead_adam")) + ({"NAME": "adamw", "layer_decay": 0.75},)
+# an adam-family update divides by |g| + eps: where a coupled decay cancels
+# the gradient to within rounding, the card's and the CPU's last digits
+# move that element by up to lr; at most this share of the elements may
+OPT_OFF_SHARE = 1e-5
 # data parallelism: each rank runs the kernels of the one-process step
 LAUNCHES["mm train approx fused"] = {
     **LAUNCHES["mm train approx"], "aggregate_forward": AGG_LAUNCHES,
@@ -2265,12 +2329,19 @@ def base_path(ops, dev, rng, tag: str) -> dict:
 def zero_gradient_biases(model) -> set:
     """Names of the biases of a ``Dense_i`` whose output goes straight into
     its sibling ``BatchNorm_i`` in train mode (the APM towers): the batch
-    mean cancels them, so their exact gradient is zero."""
+    mean cancels them, so their exact gradient is zero; and of every
+    ConvBlock's Dense (it has a bias only without a norm): the stem's,
+    whose output reaches only Linears ahead of BatchNorms (exactly zero
+    again), and the head's last, whose bfloat16 gradient is a sum over
+    every point."""
+    from amcontrast3d_tpu_torch.models.layers import ConvBlock
+
     names = set()
     for prefix, mod in model.named_modules():
         for child, sub in mod.named_children():
             norm = child.replace("Dense_", "BatchNorm_")
-            if (child.startswith("Dense_") and hasattr(mod, norm)
+            if (child.startswith("Dense_")
+                    and (hasattr(mod, norm) or isinstance(mod, ConvBlock))
                     and isinstance(sub, torch.nn.Linear) and sub.bias is not None):
                 names.add(f"{prefix}.{child}.bias" if prefix else f"{child}.bias")
     return names
@@ -2293,12 +2364,13 @@ def make_step(cfg, model, optimizer, dev, seed, kind: str,
     from amcontrast3d_tpu_torch.scheduler import (as_step_schedule,
                                                   build_scheduler_from_cfg)
     lr_fn, _ = build_scheduler_from_cfg(cfg)
-    criterion_args = (cfg.criterion_args_AcePre if kind == "mm"
-                      else cfg.criterion_args_Ace)
+    criterion_args = {"mm": cfg.criterion_args_AcePre,
+                      "base": cfg.criterion_args}.get(
+                          kind, cfg.criterion_args_Ace)
     return make_train_step(
         model, build_criterion_from_cfg(criterion_args), optimizer,
         as_step_schedule(lr_fn, STEPS_PER_EPOCH), kind, cfg.num_classes,
-        cfg.ignore_index, cfg.ambiguity_args, cfg.grad_norm_clip,
+        cfg.ignore_index, cfg.get("ambiguity_args"), cfg.grad_norm_clip,
         torch.Generator(dev).manual_seed(seed), distributed=distributed)
 
 
@@ -2311,7 +2383,7 @@ def train_path(ops, cfg, model, dev, rng, tag, kind: str, path: str = None,
     from amcontrast3d_tpu_torch.optim import build_optimizer_from_cfg
 
     path = path or f"{kind} train"
-    terms = ("loss",) if kind == "aa" else (
+    terms = ("loss",) if kind != "mm" else (
         "loss", "loss_seg", "loss_ce", "loss_contrast", "loss_reg")
     optimizer = build_optimizer_from_cfg(cfg.optimizer, model, lr=cfg.lr)
     step = make_step(cfg, model, optimizer, dev, SEED, kind)
@@ -2447,8 +2519,8 @@ def train_vs_plain(cfg, model, optimizer, dev, batch, tag, kind: str,
         opt = build_optimizer_from_cfg(cfg.optimizer, m, lr=cfg.lr)
         opt.load_state_dict(optimizer.state_dict())
         stages, vjp_max = {}, []
-        hook = m.register_forward_hook(
-            lambda mod, inp, out: stages.update(p=out[1]["p"]))
+        hook = m.encoder.register_forward_hook(
+            lambda mod, inp, out: stages.update(p=out[0]))
         step = make_step(cfg, m, opt, dev, SEED + 1, kind)
 
         @functools.wraps(ops_refine.refine_cross_backward)
@@ -2687,11 +2759,12 @@ def val_forward_launches(ops, kind: str, n: int) -> dict:
     return {k: v for k, v in want.items() if v}
 
 
-def run_train_cli(ops, argv: list, kind: str):
-    """``main_cli`` in a training mode with the counts set to 0 just before
-    and read just after; returns (results, the runner ``main_cli`` made, the
-    launches of the training steps alone, those of the validations, the
-    padded sizes of the validated clouds, all launches of the run)."""
+def run_train_cli(ops, argv: list, kind: str, main=None):
+    """``main_cli`` (or ``main(kind, argv)``, a script that calls it) in a
+    training mode with the counts set to 0 just before and read just
+    after; returns (results, the runner ``main_cli`` made, the launches of
+    the training steps alone, those of the validations, the padded sizes
+    of the validated clouds, all launches of the run)."""
     from amcontrast3d_tpu_torch.engine import cli, runner as runner_mod
 
     made, val_counts, val_sizes = [], {}, []
@@ -2714,7 +2787,7 @@ def run_train_cli(ops, argv: list, kind: str):
     faulthandler.dump_traceback_later(CLI_LIMIT_S, exit=True)
     try:
         with mock.patch.object(cli, "Runner", CountingRunner):
-            results = cli.main_cli(kind, argv + ["distributed=False"])
+            results = (main or cli.main_cli)(kind, argv + ["distributed=False"])
     finally:
         faulthandler.cancel_dump_traceback_later()
     torch.cuda.synchronize()
@@ -3622,6 +3695,566 @@ def dp_phase(ops, dev, tag: str, workdir: str) -> dict:
     return by_path
 
 
+def expect_launches(path: str, got: dict, want: dict) -> None:
+    if got != want:
+        raise AssertionError(f"{path}: launches {got}, expected {want}")
+
+
+def base_launches(ops, b: int, train: bool) -> dict:
+    """The launch table of a PointNeXt-XL ``BaseSeg`` forward (or train
+    step) over ``b`` clouds of N points: the encoder's FPS, ball queries
+    and one sort of the stage clouds, the decoder's interpolation (and its
+    VJP) split by the port's gates at that batch; no loss kernel."""
+    want = train_launches(ops, b)
+    for k in ("contrast_forward", "contrast_grad_rows", "contrast_grad_support",
+              "knn", "support_layout"):
+        want.pop(k, None)
+    if not train:
+        want.pop("three_interpolation_backward", None)
+        want.pop("three_interpolation_backward_big", None)
+    return want
+
+
+def base_eval_path(ops, cfg, model, dev, rng, tag: str, path: str) -> dict:
+    """The eval main path of a ``BaseSeg`` at B = BASE_XL_B: 1 untimed and
+    N_BATCHES timed forwards through ``make_eval_step`` (finite logits,
+    confusion-matrix totals, the launches a forward), the median ms and the
+    peak memory, then one forward against the plain twins (stage positions
+    identical, logits within 1e-4·(1+max|logit|))."""
+    from amcontrast3d_tpu_torch.engine import make_eval_step
+    from amcontrast3d_tpu_torch.tools.profile_eval import plain_ops
+
+    b = BASE_XL_B
+    model.eval()
+    step = make_eval_step(model, cfg.num_classes)
+    batches = [{"pos": torch.from_numpy(rng.rand(b, N, 3).astype(np.float32) * 4),
+                "x": torch.from_numpy(rng.rand(b, N, IN_CH).astype(np.float32)),
+                "y": torch.from_numpy(rng.randint(0, cfg.num_classes, (b, N)))}
+               for _ in range(N_BATCHES + 1)]
+    batches = [{k: v.to(dev) for k, v in bt.items()} for bt in batches]
+    counted = reset_counts(ops)
+    forward_ms = []
+    for i, batch in enumerate(batches):
+        if i == 1:
+            torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = step(batch)
+        torch.cuda.synchronize()
+        if i:
+            forward_ms.append((time.perf_counter() - t) * 1e3)
+        if out["logits"].shape != (b, N, cfg.num_classes) or \
+                not torch.isfinite(out["logits"]).all():
+            raise AssertionError(f"{path}: bad logits")
+        if int(out["cm"].sum()) != b * N:
+            raise AssertionError(f"{path}: confusion matrix counts")
+    launches = check_launches(path, counted, len(batches))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    stages = []
+    hook = model.encoder.register_forward_hook(
+        lambda mod, inp, out_: stages.append(out_[0]))
+    with torch.inference_mode():
+        logits_k = model(batches[0]["pos"], batches[0]["x"])
+        with plain_ops():
+            logits_p = model(batches[0]["pos"], batches[0]["x"])
+    hook.remove()
+    for s, (pk, pp) in enumerate(zip(*stages)):
+        if not torch.equal(pk, pp):
+            raise AssertionError(f"{path}: stage {s} positions differ from plain")
+    err = (logits_k - logits_p).abs().max().item()
+    tol = 1e-4 * (1 + logits_p.abs().max().item())
+    if not err <= tol:
+        raise AssertionError(f"{path}: logits vs plain ops {err} > {tol}")
+    med = statistics.median(forward_ms)
+    STEP_TIMES[path] = (med, peak)
+    print(f"{path} main path: {len(batches)} eval steps at B={b}x{N}, launches "
+          f"per forward {LAUNCHES[path]}; vs plain ops on the card: stage "
+          f"positions identical, logits max abs err {err} (tol {tol})")
+    print(f"{path} forward B={b}x{N}: per-batch ms {forward_ms}; median "
+          f"{med:.3f} ms = {b * N / med * 1e3:.1f} points/s; peak {peak:.3f} "
+          f"GiB  [{tag}]")
+    return launches
+
+
+def base_xl_phase(ops, dev, tag: str) -> dict:
+    """The PointNeXt-XL baseline of ``cfgs/s3dis/pointnext-xl.yaml`` at full
+    width and the cfg's batch (8 x 24000), eval then train (item 20), and
+    the MM train step at the ScanNet recipe's shapes.  Returns the kernels'
+    launches by path."""
+    from amcontrast3d_tpu_torch.models import build_model_from_cfg, init_weights_
+    from amcontrast3d_tpu_torch.utils.config import EasyConfig
+
+    rng = np.random.RandomState(SEED + 20)   # leaves the other phases' data
+    cfg = EasyConfig()
+    cfg.load(BASE_XL_CFG, recursive=True)
+    if (cfg.model.NAME, cfg.model.encoder_args.width,
+            list(cfg.model.encoder_args.blocks)) != ("BaseSeg", 64,
+                                                     [1, 4, 7, 4, 4]):
+        raise AssertionError("base xl: not the PointNeXt-XL cfg")
+    LAUNCHES["base xl eval"] = base_launches(ops, BASE_XL_B, train=False)
+    LAUNCHES["base xl train"] = base_launches(ops, BASE_XL_B, train=True)
+    LAUNCHES["scannet mm train"] = {**SCANNET_LAUNCHES, "refine_cross": 4,
+                                    "refine_cross_backward": 4}
+    model = build_model_from_cfg(cfg.model)
+    init_weights_(model, torch.Generator().manual_seed(SEED))
+    model = model.to(dev)
+    by_path = {"base xl eval": base_eval_path(ops, cfg, model, dev, rng, tag,
+                                              "base xl eval")}
+    batches = [train_batch(rng, dev, BASE_XL_B) for _ in range(N_TRAIN + 1)]
+    by_path["base xl train"] = train_path(ops, cfg, model, dev, rng, tag,
+                                          "base", "base xl train", batches)
+    del model, batches
+    torch.cuda.empty_cache()
+    by_path["scannet mm train"] = scannet_mm_path(ops, dev, tag)
+    return by_path
+
+
+def scannet_mm_path(ops, dev, tag: str) -> dict:
+    """The MM train step of ``cfgs/scannet/AMContrast3D-MM.yaml`` at full
+    width and the recipe's 2 x 64000 (rooms on a 0.04 m grid, Voronoi
+    labels): one timed step after one untimed through ``make_train_step``,
+    then one against the plain twins."""
+    from amcontrast3d_tpu_torch.models import build_model_from_cfg, init_weights_
+    from amcontrast3d_tpu_torch.tools.profile_big_kernels import room_cloud
+    from amcontrast3d_tpu_torch.tools.profile_train import voronoi_labels
+    from amcontrast3d_tpu_torch.utils.config import EasyConfig
+
+    rng = np.random.RandomState(SEED + 21)
+    cfg = EasyConfig()
+    cfg.load(SCANNET_MM_CFG, recursive=True)
+    model = build_model_from_cfg(cfg.model)
+    init_weights_(model, torch.Generator().manual_seed(SEED))
+    model = model.to(dev)
+    batches = []
+    for _ in range(2):
+        pos = np.concatenate([room_cloud(rng, SCANNET_N, 0.04) * (0.5 - 0.1 * i)
+                              + 0.3 * i for i in range(SCANNET_B)])
+        batch = {"pos": pos,
+                 "x": rng.rand(SCANNET_B, SCANNET_N, 7).astype(np.float32),
+                 "y": voronoi_labels(rng, pos)}
+        batches.append({k: torch.from_numpy(v).to(dev) for k, v in batch.items()})
+    launches = train_path(ops, cfg, model, dev, rng, tag, "mm",
+                          "scannet mm train", batches)
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def write_s3dis_rooms(root: str, rng) -> str:
+    """S3DIS-format rooms (``raw/Area_*.npy``: xyz, rgb, label) of
+    Synthetic-like geometry for the sphere validation: two train rooms and
+    one of Area 5."""
+    raw = os.path.join(root, "raw")
+    os.makedirs(raw)
+    for name in ("Area_1_office_1", "Area_2_hall_1", "Area_5_office_2"):
+        xyz = room_cloud(rng, 60000, 0.04)[0].astype(np.float64)
+        rgb = rng.rand(len(xyz), 3) * 255
+        label = (xyz[:, :1] * 2).astype(np.int64) % NUM_CLASSES
+        np.save(os.path.join(raw, f"{name}.npy"),
+                np.concatenate([xyz, rgb, label], 1).astype(np.float64))
+    return root
+
+
+def run_main_torch(ops, argv: list):
+    """:func:`run_train_cli` of ``examples/segmentation/main_torch.py`` run
+    as a script."""
+    return run_train_cli(ops, argv, "base",
+                         lambda kind, argv_: run_main_torch_plain(argv_))
+
+
+def base_cli_phase(ops, dev, tag: str, workdir: str) -> dict:
+    """``main_torch.py`` (``--kind base``) on the PointNeXt-XL cfg (item
+    21): training with validation and then ``mode=test``; ``sched:
+    plateau`` with ``val_fn: validate_sphere``; ``mode=finetune``; and the
+    AA train CLI in the approx configuration with the fused tail.  Returns
+    the kernels' launches by path."""
+    from amcontrast3d_tpu_torch.engine import cli
+
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(SEED + 22)
+    by_path = {}
+    path, steps = "base cli", 2
+    base = ["--cfg", BASE_XL_CFG, f"root_dir={workdir}", f"seed={SEED}"]
+    argv = base + ["dataset.common.NAME=Synthetic", "dataset.common.num_rooms=2",
+                   "dataset.common.n_points=100000", "dataset.train.loop=8",
+                   "dataset.val.num_rooms=1", "dataset.val.presample=False",
+                   "epochs=2", "dataloader.num_workers=4"]
+    torch.cuda.reset_peak_memory_stats()
+    results, runner, train, val, sizes, total = run_main_torch(ops, argv)
+    cfg = runner.cfg
+    if (runner.kind, cfg.batch_size, type(runner.model).__name__) != \
+            ("base", BASE_XL_B, "BaseSeg"):
+        raise AssertionError(f"{path}: ran {runner.kind} {type(runner.model)}")
+    per_step = base_launches(ops, BASE_XL_B, train=True)
+    timing = check_train_cli(ops, path, results, train, val, sizes, per_step,
+                             (1, 2), steps, BASE_XL_B * N,
+                             (runner.lr_fn(1), runner.lr_fn(2)), "base")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    by_path[path] = total
+    print(f"{path} main path: main_torch.py mode=train on "
+          f"{os.path.relpath(BASE_XL_CFG, REPO)}, 2 epochs of {steps} steps at "
+          f"B={BASE_XL_B}x{N}, launches per train step {per_step}; validation "
+          f"of {len(sizes)} whole clouds padded to {sorted(set(sizes))}; losses "
+          f"{[t['loss'] for t in timing]}, val mIoU {results['val_miou']:.3f}")
+    report_train_cli(path, timing, runner, loader_batch(runner, SEED + 7), peak,
+                     cfg.dataloader.num_workers, tag)
+    latest = os.path.join(cfg.ckpt_dir, f"{cfg.run_name}_ckpt_latest.ckpt")
+    del runner
+    torch.cuda.empty_cache()
+
+    # the whole-scene test from the trained checkpoint
+    counted = reset_counts(ops)
+    out = run_main_torch_plain(base + ["mode=test", "dataset.common.NAME=Synthetic",
+                                       "dataset.common.num_rooms=1",
+                                       "dataset.common.n_points=100000",
+                                       f"pretrained_path={latest}",
+                                       "distributed=False"])
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counted.items() if fn.launches}
+    clouds = out["clouds"]
+    want = scene_launches(ops, clouds, "base")
+    want.pop("knn", None)                     # miou_B_I is off in the cfg
+    expect_launches("base cli test", launches, want)
+    if not all(c["finite"] for c in clouds) or \
+            out["cm"].total != sum(c["points"] for c in clouds):
+        raise AssertionError(f"base cli test: clouds {clouds}")
+    by_path["base cli test"] = launches
+    print(f"base cli test main path: main_torch.py mode=test from the trained "
+          f"checkpoint, {len(clouds)} Synthetic room of "
+          f"{clouds[0]['points']} points, {len(clouds[0]['subclouds'])} "
+          f"subclouds in bucket {clouds[0]['buckets'][0]}, launches {launches}, "
+          f"mIoU {out['miou']:.3f}  [{tag}]")
+
+    # sched: plateau and val_fn: validate_sphere over S3DIS-format rooms
+    root = write_s3dis_rooms(os.path.join(workdir, "s3dis_rooms"), rng)
+    sphere = base + [
+        "dataset.common.NAME=S3DIS", f"dataset.common.data_root={root}",
+        "dataset.train.loop=1", "dataset.val.NAME=S3DISSphere",
+        "dataset.val.in_radius=1.5", f"dataset.val.num_points={N}",
+        "dataset.val.num_steps=2", "val_batch_size=2", "batch_size=2",
+        "sched=plateau", "val_fn=validate_sphere", "epochs=1",
+        "dataloader.num_workers=2"]
+    res, runner, train, val, sizes, total = run_main_torch(ops, sphere)
+    if runner.plateau is None or runner.cfg.val_fn != "validate_sphere" or \
+            not np.isfinite(res["timing"][0]["loss"]) or \
+            not np.isfinite(res["val_miou"]):
+        raise AssertionError(f"base cli plateau sphere: {res}")
+    by_path["base cli plateau sphere"] = total
+    print(f"base cli plateau sphere main path: main_torch.py with sched=plateau "
+          f"(plateau factor {runner.plateau.scale}) and val_fn=validate_sphere "
+          f"over {len(os.listdir(os.path.join(root, 'raw')))} S3DIS-format "
+          f"rooms: {res['timing'][0]['steps']} train steps at B=2, loss "
+          f"{res['timing'][0]['loss']}, sphere val mIoU {res['val_miou']:.3f}, "
+          f"launches {({k: v for k, v in total.items() if v})}  [{tag}]")
+    del runner
+    torch.cuda.empty_cache()
+
+    # mode=finetune from the first run's latest checkpoint
+    res, runner, train, val, sizes, total = run_main_torch(
+        ops, argv[:-2] + ["epochs=1", "dataloader.num_workers=4",
+                          "mode=finetune", f"pretrained_path={latest}"])
+    if len(res["timing"]) != 1 or not np.isfinite(res["timing"][0]["loss"]):
+        raise AssertionError(f"base cli finetune: {res}")
+    by_path["base cli finetune"] = total
+    print(f"base cli finetune main path: main_torch.py mode=finetune from "
+          f"{os.path.basename(latest)}: {res['timing'][0]['steps']} steps, loss "
+          f"{res['timing'][0]['loss']}, val mIoU {res['val_miou']:.3f}  [{tag}]")
+    del runner
+    torch.cuda.empty_cache()
+
+    # the approx configuration with the fused tail through the AA train CLI
+    path = "s3dis aa train cli approx fused"
+    with configuration(knn_backend="approx", agg_fused="on"):
+        res, runner, train, val, sizes, total = run_train_cli(ops, [
+            "--cfg", CFGS["aa"], "dataset.common.NAME=Synthetic",
+            "dataset.common.num_rooms=2", "dataset.common.n_points=100000",
+            "dataset.train.loop=4", "dataset.val.num_rooms=1",
+            "dataset.val.presample=False", f"batch_size={B}", "epochs=1",
+            f"root_dir={workdir}", f"seed={SEED}", "dataloader.num_workers=4"],
+            "aa")
+        # a validated cloud: the forward's kernels and the fused tail at
+        # each of the 19 separable aggregations
+        val_want = {"aggregate_forward": AGG_LAUNCHES * len(sizes)}
+        for n in sizes:
+            for k, v in val_forward_launches(ops, "aa", n).items():
+                val_want[k] = val_want.get(k, 0) + v
+        n_steps = res["timing"][0]["steps"]
+        got = {k: v / n_steps for k, v in train.items() if v}
+        expect_launches(f"{path} a step", got, LAUNCHES["aa train approx fused"])
+        expect_launches(f"{path} validation",
+                        {k: v for k, v in val.items() if v}, val_want)
+        if not np.isfinite(res["timing"][0]["loss"]):
+            raise AssertionError(f"{path}: {res}")
+    by_path[path] = total
+    print(f"{path} main path: main_cli mode=train, 1 epoch of "
+          f"{res['timing'][0]['steps']} steps at B={B}x{N} with the kNN "
+          f"backend approx and the fused tail on, launches per step {got}; "
+          f"validation launches {({k: v for k, v in val.items() if v})}; loss "
+          f"{res['timing'][0]['loss']}, val mIoU {res['val_miou']:.3f}  [{tag}]")
+    del runner
+    torch.cuda.empty_cache()
+    print(f"base cli phase: {time.perf_counter() - t0:.1f} s")
+    return by_path
+
+
+def run_main_torch_plain(argv: list) -> dict:
+    """``main_torch.py`` as a script outside the training counters (its
+    ``mode=test``); returns what its ``main_cli`` returned."""
+    import runpy
+
+    from amcontrast3d_tpu_torch.engine import cli
+    seen = {}
+    cli_main = cli.main_cli
+
+    def recording(kind=None, argv_=None):
+        seen["kind"], seen["result"] = kind, cli_main(kind, argv_)
+        return seen["result"]
+
+    with mock.patch.object(sys, "argv", ["main_torch.py"] + list(argv)), \
+            mock.patch.object(cli, "main_cli", recording):
+        runpy.run_path(os.path.join(REPO, "examples", "segmentation",
+                                    "main_torch.py"), run_name="__main__")
+    if seen.get("kind") != "base":
+        raise AssertionError(f"main_torch.py ran kind {seen.get('kind')}")
+    return seen["result"]
+
+
+def grouped_mlp_check(model, module_name: str, step_fn, note: str) -> str:
+    """The generic grouped MLP of ``module_name`` (a LocalAggregation that
+    takes the generic branch) on its inputs from ``step_fn``'s forward, in
+    eval mode on the card and on a CPU copy: within 1e-4·(1+max)."""
+    module = model.get_submodule(module_name)
+    if module.separable:
+        raise AssertionError(f"{note}: {module_name} takes the separable branch")
+    seen = {}
+
+    def keep(mod, args):
+        seen.setdefault("args", [a.detach() for a in args])
+    hook = module.register_forward_pre_hook(keep)
+    step_fn()
+    hook.remove()
+    was = module.training
+    module.eval()
+    with torch.inference_mode():
+        card = module(*seen["args"]).float().cpu()
+        cpu = copy.deepcopy(module).cpu()
+        plain = cpu(*[a.cpu() for a in seen["args"]]).float()
+    module.train(was)
+    err = (card - plain).abs().max().item()
+    tol = 1e-4 * (1 + plain.abs().max().item())
+    if not err <= tol:
+        raise AssertionError(f"{note}: {module_name} card vs CPU {err} > {tol}")
+    return (f"{module_name} (MLPBlocks of {len(module.MLPBlocks_0._modules)} "
+            f"ConvBlocks, {tuple(seen['args'][1].shape)} in) card vs CPU max "
+            f"abs err {err:.3e} (tol {tol:.3e})")
+
+
+def option_step(ops, cfg, model, dev, rng, kind: str, note: str,
+                optimizer=None, after_first=None):
+    """Two train steps of ``model`` (kind ``kind``) at B = OPT_B x N from
+    its state, each with a finite loss: the first counted (its launches)
+    and followed by ``after_first()``, the second timed.  Returns (the
+    first step's metrics, the second's ms, (the step, its batch), the
+    first step's launches)."""
+    from amcontrast3d_tpu_torch.optim import build_optimizer_from_cfg
+
+    optimizer = optimizer or build_optimizer_from_cfg(cfg.optimizer, model,
+                                                      lr=cfg.lr)
+    step = make_step(cfg, model, optimizer, dev, SEED, kind)
+    batch = train_batch(rng, dev, OPT_B)
+    counted = reset_counts(ops)
+    out = step(batch)
+    launches = {k: fn.launches for k, fn in counted.items() if fn.launches}
+    if after_first is not None:
+        after_first()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    loss = step(batch)["loss"].item()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3
+    if not (np.isfinite(out["loss"].item()) and np.isfinite(loss)):
+        raise AssertionError(f"{note}: losses {out['loss'].item()}, {loss}")
+    return out, ms, (step, batch), launches
+
+
+def update_vs_cpu(path: str, cfg, opt_cfg, optimizer, captured) -> dict:
+    """The update ``optimizer`` made on the card against the same update on
+    the CPU: a CPU model of the state ``captured`` before it, the card's
+    clipped gradients, the group rates of its step.  At most OPT_OFF_SHARE
+    of the elements beyond 1e-6·(1+max|θ|) of their tensor, none beyond
+    2·lr; returns the count beyond and the largest difference."""
+    from amcontrast3d_tpu_torch.models import build_model_from_cfg
+    from amcontrast3d_tpu_torch.optim import build_optimizer_from_cfg
+
+    cpu_model = build_model_from_cfg(cfg.model)
+    cpu_opt = build_optimizer_from_cfg(opt_cfg, cpu_model, lr=cfg.lr)
+    cpu_params = [p for g in cpu_opt.param_groups for p in g["params"]]
+    with torch.no_grad():
+        for p, before, grad in zip(cpu_params, captured["before"],
+                                   captured["grads"]):
+            p.copy_(before)
+            p.grad = grad
+    for g, (lr, scale) in zip(cpu_opt.param_groups, captured["lr"]):
+        g["lr"], g["lr_scale"] = lr, scale
+    cpu_opt.step()
+    off = worst = numel = 0
+    card = [p for g in optimizer.param_groups for p in g["params"]]
+    for a, b in zip(card, cpu_params):
+        d = (a.detach().cpu() - b.detach()).abs()
+        off += int((d > 1e-6 * (1 + b.abs().max())).sum())
+        worst = max(worst, d.max().item())
+        numel += d.numel()
+    lr = captured["lr"][0][0]
+    if off > OPT_OFF_SHARE * numel or not worst <= 2 * lr:
+        raise AssertionError(f"{path}: card vs CPU update: {off} of {numel} "
+                             f"elements beyond 1e-6·(1+max|θ|), the largest "
+                             f"{worst} (lr {lr})")
+    return {"off": off, "worst": worst}
+
+
+def options_phase(ops, dev, tag: str) -> dict:
+    """Item 22: the model options, the contrast variants and the optimizers
+    at PointNeXt-XL width, two train steps each at B = OPT_B x N.  Returns
+    the kernels' launches by path."""
+    from amcontrast3d_tpu_torch.loss import contrast as contrast_mod
+    from amcontrast3d_tpu_torch.models import build_model_from_cfg, init_weights_
+    from amcontrast3d_tpu_torch.optim import build_optimizer_from_cfg
+    from amcontrast3d_tpu_torch.utils.config import EasyConfig
+
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(SEED + 23)
+    # the gather form's contrast: kernel 6's K-slot neighbourhoods at the
+    # four stages and the label propagation's three; no contrast kernel
+    LAUNCHES["options aa"] = {
+        k: v for k, v in train_launches(ops, OPT_B).items()
+        if not k.startswith("contrast_") and k != "support_layout"}
+    by_path = {}
+    base = EasyConfig()
+    base.load(BASE_XL_CFG, recursive=True)
+    models = {
+        "options resblock ln": {
+            "block": "ResBlock", "norm_args": {"norm": "ln"},
+            "aggr_args": {"feature_type": "dp_fj_df", "reduction": "max"},
+            "conv_args": {"order": "norm-act-conv"}},
+        "options gn random": {
+            "norm_args": {"norm": "gn"}, "conv_args": {"order": "conv-act-norm"},
+            "sampler": "random"},
+    }
+    for path, over in models.items():
+        cfg = copy.deepcopy(base)
+        cfg.model.encoder_args.update(over)
+        model = build_model_from_cfg(cfg.model)
+        init_weights_(model, torch.Generator().manual_seed(SEED))
+        model = model.to(dev)
+        out, ms, (step, batch), launches = option_step(ops, cfg, model, dev,
+                                                       rng, "base", path)
+        check = grouped_mlp_check(model, "encoder.enc2_block1.LocalAggregation_0",
+                                  lambda: step(batch), path)
+        # the random sampler takes FPS's place; every other kernel of the
+        # step runs
+        want = set(base_launches(ops, OPT_B, train=True))
+        if over.get("sampler") == "random":
+            want.discard("fps")
+        expect_launches(f"{path} kernels", set(launches), want)
+        by_path[path] = launches
+        print(f"{path} main path: BaseSeg of {os.path.relpath(BASE_XL_CFG, REPO)} "
+              f"with encoder_args {over} at B={OPT_B}x{N}: two steps, the "
+              f"first's loss {out['loss'].item()}, the second {ms:.1f} ms; "
+              f"launches {launches}; "
+              f"{check}  [{tag}]")
+        del model, step, batch
+        torch.cuda.empty_cache()
+
+    # the AA model with each contrast variant of the gather form
+    cfg = EasyConfig()
+    cfg.load(CFGS["aa"], recursive=True)
+    model = build_model_from_cfg(cfg.model)
+    init_weights_(model, torch.Generator().manual_seed(SEED))
+    model = model.to(dev)
+    state = copy.deepcopy(model.state_dict())
+    point_contrast_margin = contrast_mod.point_contrast_margin
+    amb = dict(cfg.ambiguity_args)
+    for name, dist, func, over in CONTRAST_VARIANTS:
+        path = f"options aa {name}"
+        model.load_state_dict(state)
+        variant = functools.partial(point_contrast_margin, dist_func=dist,
+                                    contrast_func=func)
+        cfg.ambiguity_args = {**amb, **over}
+        with mock.patch.object(contrast_mod, "point_contrast_margin", variant):
+            out, ms, _, launches = option_step(ops, cfg, model, dev, rng, "aa",
+                                               path)
+        expect_launches(path, launches, LAUNCHES["options aa"])
+        by_path[path] = launches
+        print(f"{path} main path: the AA model with the contrast {dist} / "
+              f"{func} {over} (the gather form: kernel 6's K-slot "
+              f"neighbourhoods, no contrast kernel) at B={OPT_B}x{N}: two "
+              f"steps, the first's loss {out['loss'].item()}, the second "
+              f"{ms:.1f} ms; launches {launches}  [{tag}]")
+    del model, state
+    torch.cuda.empty_cache()
+
+    # each optimizer: one step on the card, its update against the same
+    # update on the CPU from the same state and gradients
+    cfg = copy.deepcopy(base)
+    model = build_model_from_cfg(cfg.model)
+    init_weights_(model, torch.Generator().manual_seed(SEED))
+    model = model.to(dev)
+    state = copy.deepcopy(model.state_dict())
+    rows = []
+    for opt_cfg in OPTIMIZERS:
+        model.load_state_dict(state)
+        name = opt_cfg["NAME"] + (" layer_decay" if "layer_decay" in opt_cfg
+                                  else "")
+        path = f"options optimizer {name}"
+        full = {**dict(cfg.optimizer), **opt_cfg}
+        optimizer = build_optimizer_from_cfg(full, model, lr=cfg.lr)
+        captured = {}
+        step_fn = optimizer.step
+
+        def recording_step(*a, _step=step_fn, _opt=optimizer, **k):
+            if "before" not in captured:      # the first step's state
+                captured.update(
+                    before=[p.detach().cpu().clone() for g in _opt.param_groups
+                            for p in g["params"]],
+                    grads=[None if p.grad is None else p.grad.cpu()
+                           for g in _opt.param_groups for p in g["params"]],
+                    lr=[(g["lr"], g.get("lr_scale", 1.0))
+                        for g in _opt.param_groups])
+            return _step(*a, **k)
+        optimizer.step = recording_step
+        errors = {}
+        out, ms, _, launches = option_step(
+            ops, cfg, model, dev, rng, "base", path, optimizer,
+            lambda: errors.update(update_vs_cpu(path, cfg, full, optimizer,
+                                                captured)))
+        off, worst = errors["off"], errors["worst"]
+        by_path[path] = launches
+        rows.append((name, type(optimizer).__name__, out["loss"].item(),
+                     round(ms, 1), off, worst))
+        del optimizer, captured
+    print(f"options optimizers main path: two base steps each at "
+          f"B={OPT_B}x{N} (the first held to the CPU, the second timed) over {sum(p.numel() for p in model.parameters())} "
+          f"parameters, the update against the CPU's from the same state and "
+          f"gradients (name, class, loss, step ms, elements beyond "
+          f"1e-6·(1+max|θ|), largest difference): {rows}  [{tag}]")
+    del model, state
+    torch.cuda.empty_cache()
+    print(f"options phase: {time.perf_counter() - t0:.1f} s")
+    return by_path
+
+
+class Laps:
+    """Seconds from one lap call to the next, by phase name."""
+
+    def __init__(self):
+        self.seconds, self.last = [], time.perf_counter()
+
+    def __call__(self, name: str) -> None:
+        now = time.perf_counter()
+        self.seconds.append((name, now - self.last))
+        self.last = now
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -3652,6 +4285,7 @@ def main() -> None:
     print(_build.library_path().with_suffix(".log").read_text().strip())
 
     rng = np.random.RandomState(SEED)
+    lap = Laps()
     kernels = kernel_phases(ops, dev, rng, tag)
     kernels.update(scene_kernel_phases(ops, dev, rng, tag))
     scannet_kernel_phases(ops, dev, rng, tag)
@@ -3661,6 +4295,7 @@ def main() -> None:
     kernels.update(bf16_aggregation_phase(ops, dev, rng, tag))
     agg_gate_phase(dev, tag)
     kernels.update(layout_kernel_phases(ops, dev, tag))
+    lap("the kernel phases")
 
     by_path = {}
     for kind in ("aa", "mm"):
@@ -3707,15 +4342,24 @@ def main() -> None:
             + f"  [{tag}]")
         del model
         torch.cuda.empty_cache()
+        lap(f"the {kind} paths")
     by_path["aa train remat"] = remat_phase(ops, dev, rng, tag)
     by_path["base eval"] = base_path(ops, dev, rng, tag)
     torch.cuda.empty_cache()
+    lap("remat and PointNet++")
+    by_path.update(base_xl_phase(ops, dev, tag))
+    lap("base xl and scannet mm")
+    by_path.update(options_phase(ops, dev, tag))
+    lap("options")
     with tempfile.TemporaryDirectory() as workdir:
+        by_path.update(base_cli_phase(ops, dev, tag, workdir))
+        lap("base cli")
         for kind in ("aa", "mm"):
             by_path[f"{kind} scene"] = scene_path(
                 ops, kind, dev, tag, workdir, CFGS[kind], SCENE_POINTS,
                 SCENE_ROOMS[kind], SCENE_BUCKETS[:SCENE_ROOMS[kind]])
             torch.cuda.empty_cache()
+        lap("the S3DIS scenes")
         # the rungs from 221184 up: the ScanNet recipe, one room a bucket
         for kind, cfg_path, bucket in (("aa", SCANNET_CFG, 221184),
                                        ("aa", SCANNET_CFG, 311296),
@@ -3724,6 +4368,7 @@ def main() -> None:
                 ops, kind, dev, tag, workdir, cfg_path, RUNG_ROOMS[bucket], 1,
                 (bucket,), (f"dataset.common.num_classes={SCANNET_CLASSES}",))
             torch.cuda.empty_cache()
+        lap("the rung scenes")
         by_path["scannet aa train cli"] = scannet_cli_path(ops, dev, tag, workdir)
         torch.cuda.empty_cache()
         for kind in ("aa", "mm"):
@@ -3733,11 +4378,13 @@ def main() -> None:
         by_path["s3dis aa train cli bf16"] = s3dis_cli_path(
             ops, "aa", dev, tag, workdir, amp=True)
         torch.cuda.empty_cache()
+        lap("the train CLIs")
         by_path.update(dp_phase(ops, dev, tag, workdir))
+        lap("data parallelism")
 
     rows = [{"name": k, "route": "cuda", "source": src, "replaces": tpu,
-             "launches": sum(counts[k] for counts in by_path.values()),
-             "launches_by_path": {path: counts[k]
+             "launches": sum(counts.get(k, 0) for counts in by_path.values()),
+             "launches_by_path": {path: counts.get(k, 0)
                                   for path, counts in by_path.items()},
              "max_abs_err": kernels[k]["err"], "ms": kernels[k]["ms"],
              "plain_ms": kernels[k]["plain_ms"],
@@ -3750,7 +4397,8 @@ def main() -> None:
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s in all, the build "
           f"included; the fused aggregation's ScanNet and gate phases "
           f"{sum(FUSED_PHASE_S.values()):.1f} s ("
-          + ", ".join(f"{k} {v:.1f}" for k, v in FUSED_PHASE_S.items()) + ")")
+          + ", ".join(f"{k} {v:.1f}" for k, v in FUSED_PHASE_S.items())
+          + "); by phase " + ", ".join(f"{k} {v:.1f}" for k, v in lap.seconds))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

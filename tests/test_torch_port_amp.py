@@ -350,8 +350,12 @@ def jax_models():
     out = {}
     for kind in ("aa", "mm"):
         jargs = (jnp.asarray(pos), jnp.asarray(x))
-        variables = _random_bn(_jax_model(kind, jnp.float32).init(
-            {"params": jax.random.PRNGKey(1)}, *jargs, training=False), rng)
+        # the initial variables in one jitted program (eager JAX compiles
+        # op by op); the forwards stay eager, where each bfloat16 op rounds
+        # its result as the casts test reads them
+        variables = _random_bn(jax.jit(lambda p, f: _jax_model(
+            kind, jnp.float32).init({"params": jax.random.PRNGKey(1)}, p, f,
+                                    training=False))(*jargs), rng)
         for fused in (False, True):
             try:
                 jagg.set_agg_fused("on" if fused else "off")

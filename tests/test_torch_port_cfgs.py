@@ -60,13 +60,15 @@ def test_every_shipped_cfg_builds_with_remat_at_bf16(name):
     ("encoder_args", "sampler", "random", "fps")])
 def test_other_unported_keys_raise_off_their_jax_default(section, key, value,
                                                          default):
-    """The PointNet++ encoder's sampler: off the JAX default the build
-    raises naming the key, at it the model builds.  The JAX modules' field
-    of BatchNorm across devices, ``bn_axis_name``, raised so until data
-    parallelism was ported; now it is taken: set to a name in a section,
-    every BatchNorm that section builds syncs over the default process
-    group (``synced``, no group of its own), and at the JAX default (None)
-    every BatchNorm of the model stays local."""
+    """The keys the port once refused off their JAX default are taken now.
+    The PointNet++ encoder's ``sampler``: the JAX encoder hands it to
+    stages that sample by FPS whatever it says, and so does the port's,
+    off the default too (the table of unported keys is empty).  The JAX
+    modules' field of BatchNorm across devices, ``bn_axis_name``: set to a
+    name in a section, every BatchNorm that section builds syncs over the
+    default process group (``synced``, no group of its own), and at the JAX
+    default (None) every BatchNorm of the model stays local."""
+    from amcontrast3d_tpu_torch.models import build as port_build
     from amcontrast3d_tpu_torch.models.layers import ChannelsLastBatchNorm
 
     name = "s3dis/pointnet++.yaml" if key == "sampler" else "s3dis/AMContrast3D-AA.yaml"
@@ -80,8 +82,12 @@ def test_other_unported_keys_raise_off_their_jax_default(section, key, value,
         assert norms and all(m.synced and m.process_group is None
                              for m in norms)
     else:
-        with pytest.raises(NotImplementedError, match=key):
-            build_model_from_cfg(model)
+        assert not port_build.UNPORTED_KEYS
+        built = build_model_from_cfg(model)
+        p = torch.rand(1, 256, 3)
+        ps, _ = built.encoder.eval()(p, torch.rand(1, 256, 4))
+        from amcontrast3d_tpu_torch.ops import furthest_point_sample
+        assert torch.equal(ps[1], p[:, furthest_point_sample(p, 64).long()[0]])
     model[section][key] = default
     built = build_model_from_cfg(model)
     assert not any(getattr(m, "synced", False) for m in built.modules())

@@ -1,10 +1,11 @@
 """The port's loss against the JAX package on the CPU: AEF labels, the
 adaptive-margin contrast and ``CrossEntropyAce``.
 
-The port computes the contrast in the reduction form of JAX's fused exact
-branch (threshold neighbourhoods ``d² ≤ kth``); it is held here against
-JAX's gather path (``fused`` off, K = nsample − 1 neighbour slots), which
-is what the JAX package runs on the CPU.  The two agree wherever each
+The port computes the contrast of JAX's fused variants in the reduction
+form of JAX's fused exact branch (threshold neighbourhoods ``d² ≤ kth``);
+it is held here against JAX's gather path (``fused`` off, K = nsample − 1
+neighbour slots), which is what the JAX package runs on the CPU.  The
+other variants take the gather form in both packages.  The two agree wherever each
 point's 24th-nearest d² (self included) is clear of the 25th by more
 than the threshold's 1e-5 cushion, and every stage has N ≥ nsample (with
 k > N the gather path pads slots with index 0).  The clouds below are
@@ -215,14 +216,104 @@ def test_aef_labels_and_neighbourhood_match_jax():
     {"args": {"margin": "other"}},
 ], ids=["softnn", "dist_l2", "method2", "margin"])
 def test_unported_contrast_variants_raise(kw):
+    """The variants outside the reduction form take the gather form (held
+    to JAX's below) and give a finite loss; a margin that neither package
+    knows raises ValueError in both, as JAX's ``contrast_softnn_margin``
+    does."""
     p = _t(np.random.RandomState(5).rand(1, 64, 3).astype(np.float32))
     f = torch.randn(1, 64, 8)
-    labels = torch.zeros(1, 64, dtype=torch.long)
-    with pytest.raises(NotImplementedError):
-        port_loss.point_contrast_margin(
-            p, f, labels, {**AMB, **kw.get("args", {})},
-            kw.get("dist_func", "dist_cos"),
-            kw.get("contrast_func", "contrast_softnn_margin"))
+    labels = torch.nn.functional.one_hot(
+        torch.arange(64) % 3, 3).float()[None]
+    args = {**AMB, **kw.get("args", {})}
+    call = lambda: port_loss.point_contrast_margin(
+        p, f, labels, args, kw.get("dist_func", "dist_cos"),
+        kw.get("contrast_func", "contrast_softnn_margin"))
+    if args["margin"] == "other":
+        with pytest.raises(ValueError, match="margin"):
+            call()
+        with pytest.raises(ValueError, match="margin"):
+            jcontrast.point_contrast_margin(
+                jnp.asarray(p.numpy()), jnp.asarray(f.numpy()),
+                jnp.asarray(labels.numpy()), {**args, "fused": False})
+        return
+    loss, a = call()
+    assert torch.isfinite(loss) and a.shape == (1, 64)
+
+
+@pytest.mark.parametrize("dist,func,over", [
+    ("dist_l2", "contrast_softnn_margin", {}),
+    ("dist_kl", "contrast_softnn_margin", {"margin": "learned"}),
+    ("dist_l2", "contrast_softnn_temperature", {}),
+    ("dist_l2", "contrast_softnn", {}),
+    ("dist_cos", "contrast_softnn_margin", {"supervisedCL": "Method2"}),
+    ("dist_dot", "contrast_softnn_margin",
+     {"supervisedCL": "Method2", "margin": "learned", "db": "+m",
+      "remat": True}),
+], ids=["l2", "kl_learned", "softnn_temperature", "softnn", "method2_cos",
+        "method2_dot_learned_plus_m_remat"])
+def test_gather_form_matches_jax(dist, func, over):
+    """The gather form of every variant outside the reduction form: the
+    loss to 1e-5 relative, the ambiguity to 1e-5 and the gradient in the
+    features to 1e-4·(1+max|g|), against JAX's ``point_contrast_margin``
+    on the same K-slot neighbourhoods (256 points, nsample 24, 3 labels);
+    with ``remat`` the port checkpoints the loss and keeps the kNN."""
+    rng = np.random.RandomState(6)
+    (p,) = _clean_stages(rng, 2, 256, 1)
+    labels = np.eye(3, dtype=np.float32)[_voronoi_labels(rng, p, 3)]
+    f = (rng.randn(2, 256, 8) * (0.25 if dist == "dist_dot" else 1)
+         ).astype(np.float32)
+    args = {**AMB, **over}
+    ft = _t(f).requires_grad_()
+    loss, a = port_loss.point_contrast_margin(_t(p), ft, _t(labels), args,
+                                              dist, func)
+    loss.backward()
+    (jl, ja), jgrad = jax.jit(jax.value_and_grad(
+        lambda ff: jcontrast.point_contrast_margin(
+            jnp.asarray(p), ff, jnp.asarray(labels), args, dist, func),
+        has_aux=True))(jnp.asarray(f))
+    assert 0.05 < ((np.asarray(ja) > 0) & (np.asarray(ja) <= 1)).mean() < 0.95
+    np.testing.assert_allclose(loss.item(), float(jl), rtol=1e-5)
+    np.testing.assert_allclose(a.numpy(), np.asarray(ja), rtol=1e-5, atol=1e-5)
+    _close(ft.grad.numpy(), jgrad, 1e-4)
+
+
+def test_contrast_head_takes_the_gather_form_for_method2(monkeypatch):
+    """``supervisedCL: Method2`` through ``contrast_head`` (2 stages, 256
+    and 64 points) takes the gather form, as JAX's head routes it: the
+    head's loss and gradients are the sum of its stages' gather-form losses
+    over the propagated labels (each held to JAX in
+    :func:`test_gather_form_matches_jax`, the labels in
+    :func:`test_aef_labels_and_neighbourhood_match_jax`; JAX's compiler
+    takes minutes over its own head here), and no contrast kernel's twin
+    runs."""
+    rng = np.random.RandomState(7)
+    stages = _clean_stages(rng, 2, 256, 2)
+    y = _voronoi_labels(rng, stages[0], 4)
+    feats = [rng.randn(2, ps.shape[1], 8).astype(np.float32) for ps in stages]
+    args = {**AMB, "supervisedCL": "Method2", "stages_num": 2}
+    ft = [_t(f).requires_grad_() for f in feats]
+    calls = []
+    with monkeypatch.context() as patch:
+        patch.setattr(port_loss.contrast, "contrast_reductions",
+                      lambda *a, **k: calls.append(a))
+        loss, a_list = port_loss.contrast_head(
+            list(zip(map(_t, stages), ft)), _t(y), 4, None, args)
+    assert not calls
+    loss.backward()
+    labels0 = port_loss.one_hot_labels(_t(y), 4, None)
+    fs = [_t(f).requires_grad_() for f in feats]
+    want = 0.0
+    for i, (ps, f) in enumerate(zip(stages, fs)):
+        labels = labels0 if i == 0 else port_loss.subscene_labels(
+            labels0, _t(stages[0]), _t(ps), i)
+        stage_loss, a = port_loss.contrast.point_contrast_margin(
+            _t(ps), f, labels, args)
+        np.testing.assert_array_equal(a.numpy(), a_list[i].numpy())
+        want = want + stage_loss
+    want.backward()
+    np.testing.assert_allclose(loss.item(), want.item(), rtol=1e-6)
+    for got, w in zip(ft, fs):
+        _close(got.grad.numpy(), w.grad.numpy(), 1e-6)
 
 
 def test_cross_entropy_ace_pre_matches_jax():

@@ -247,11 +247,22 @@ def test_local_aggregation_matches_jax(gather_budget, monkeypatch):
     dict(channels=[16, 16], norm_args=None),
 ], ids=["two_layers", "dp_fj_df", "no_norm"])
 def test_local_aggregation_refuses_unported_forms(kw):
+    """The forms outside the separable branch, which the port refused until
+    the generic grouped MLP was ported, now build that branch
+    (``MLPBlocks_0``, no ``w_f``) and give JAX's eval output to 1e-5
+    (``tests/test_torch_port_options.py`` holds them in training mode with
+    gradients)."""
     kw = {"norm_args": {"norm": "bn"}, **kw}
-    with pytest.raises(NotImplementedError):
-        LocalAggregation(act_args={"act": "relu"},
-                         group_args={"NAME": "ballquery", "radius": 0.4,
-                                     "nsample": 16}, **kw)
+    kw.update(act_args={"act": "relu"},
+              group_args={"NAME": "ballquery", "radius": 0.4, "nsample": 16})
+    rng = np.random.RandomState(4)
+    p, f = _grid_cloud(rng, 2, 200), rng.randn(2, 200, 16).astype(np.float32)
+    channels = kw.pop("channels")
+    variables, want = _jax_module(jpn.LocalAggregation(channels, **kw), p, f)
+    assert "MLPBlocks_0" in variables["params"]
+    port = _load(LocalAggregation(channels, **kw), variables)
+    assert not port.separable and not hasattr(port, "w_f")
+    _close(port(_t(p), _t(f)).detach(), want, 1e-5)
 
 
 @pytest.mark.parametrize("layers,use_res", [(1, False), (2, True)])

@@ -706,14 +706,17 @@ def test_forward_twin_sums_members_in_the_kernels_visit_order():
             s = (f[b, mem] * f[b, i]).sum(-1)
             terms = (torch.exp(s * tinv), s,
                      pairwise_d2(p[b, i][None, None], p[b, mem][None])[0, 0])
-            pos = lab[b, mem] == lab[b, i]
+            pos = (lab[b, mem] == lab[b, i]).numpy()
             for col, v in zip((0, 2, 6), terms):
-                acc = [torch.zeros(()), torch.zeros(())]
-                for t in range(len(mem)):      # chunk order, lane order
-                    side = 0 if pos[t] else 1
-                    acc[side] = acc[side] + v[t]
-                assert torch.equal(want[b, i, col], acc[0]), (k, b, i, col)
-                assert torch.equal(want[b, i, col + 1], acc[1]), (k, b, i, col)
+                v = v.numpy()
+                for side, keep in ((0, pos), (1, ~pos)):
+                    # one float32 add a member in chunk order, lane order
+                    # (numpy's accumulate is sequential in the array's
+                    # dtype; a member of the other side adds an exact 0)
+                    acc = np.add.accumulate(np.concatenate(
+                        [np.zeros(1, np.float32),
+                         np.where(keep, v, np.float32(0))]))[-1]
+                    assert want[b, i, col + side].item() == acc, (k, b, i, col)
 
 
 # ---- the ball query: prune rules and visit schedule ------------------------------

@@ -19,6 +19,8 @@ import glob
 import json
 import multiprocessing
 import os
+import runpy
+import sys
 import time
 
 import jax
@@ -962,17 +964,28 @@ def test_cli_trains_and_tests_at_bf16_on_the_cpu(tmp_path):
 @pytest.mark.parametrize("opts,error,match", [
     pytest.param(["distributed=True"], None, "distributed",
                  id="opts0-distributed"),
-    pytest.param(["optimizer.layer_decay=0.75"], NotImplementedError,
-                 "layer_decay", id="opts1-layer_decay"),
+    pytest.param(["optimizer.layer_decay=0.75"], None, "layer_decay",
+                 id="opts1-layer_decay"),
     pytest.param(["optimizer.NAME=adahessian"], NotImplementedError,
                  "adahessian", id="opts2-adahessian")])
 def test_unported_options_raise_by_name(tmp_path, opts, error, match):
     """Options that are not ported raise by name.  ``distributed`` is
     ported (the data-parallel ranks, ``engine.cli``): it is taken, and on
     the CPU with no ``world_size`` it asks for one rank, so the runner
-    builds as a single process."""
+    builds as a single process.  ``layer_decay`` is ported: the runner
+    builds the JAX factory's chain with ``num_layers`` from the model
+    (12 where it names no depth)."""
     cfg = _load(EasyConfig, _tiny_cfg(tmp_path), opts)
     cfg.run_dir = str(tmp_path / "run")
+    if match == "layer_decay":
+        from amcontrast3d_tpu_torch.optim.extras import Chain
+
+        runner = prunner.Runner(cfg, kind="aa", device="cpu")
+        optimizer = runner.build_state()
+        assert isinstance(optimizer, Chain)
+        assert optimizer.rules and len(optimizer.rules) == len(
+            list(runner.model.parameters()))
+        return
     if error is None:
         runner = prunner.Runner(cfg, kind="aa", device="cpu")
         assert cfg[match] is True
@@ -1020,3 +1033,86 @@ def test_validate_sphere_matches_jax(tmp_path):
     for want, got in zip(metrics[0][:3], metrics[1][:3]):
         assert abs(want - got) <= 0.5
     assert len(metrics[1][3]) == 13
+
+
+# ---------------------------------------------------------------------------
+# examples/segmentation/main_torch.py (--kind base)
+# ---------------------------------------------------------------------------
+
+def _tiny_base_cfg(tmp_path):
+    """``cfgs/s3dis/pointnext-xl.yaml``'s recipe (its model cut to width 8
+    and three stages, no dropout) on two synthetic rooms, for two train
+    steps an epoch, one epoch."""
+    xl = EasyConfig()
+    xl.load(os.path.join(REPO, "cfgs", "s3dis", "pointnext-xl.yaml"),
+            recursive=True)
+    model = json.loads(json.dumps(dict(xl.model)))
+    model["encoder_args"].update(width=8, blocks=[1, 2, 2], strides=[1, 4, 4],
+                                 radius=0.3, nsample=8)
+    model["decoder_args"]["decoder_stages"] = 2
+    model["cls_args"]["dropout"] = 0
+    cfg = {
+        "dataset": {
+            "common": {"NAME": "Synthetic", "num_rooms": 2, "n_points": 3000,
+                       "voxel_size": 0.04},
+            "train": {"split": "train", "voxel_max": 256, "loop": 2},
+            "val": {"split": "val", "voxel_max": 256},
+            "test": {"split": "val", "voxel_max": 256},
+        },
+        "feature_keys": "x,heights", "num_classes": 13, "batch_size": 2,
+        "val_batch_size": 2, "eval_bucket": 256, "epochs": 1, "val_freq": 1,
+        "seed": 0, "sched": "cosine", "lr": 0.01, "min_lr": 1.0e-5,
+        "optimizer": dict(xl.optimizer), "grad_norm_clip": 10,
+        "criterion_args": dict(xl.criterion_args),
+        "root_dir": str(tmp_path / "log"), "log_dir": "synthetic",
+        "datatransforms": {
+            "train": ["PointCloudScaling", "PointCloudXYZAlign",
+                      "ChromaticNormalize"],
+            "val": ["PointCloudXYZAlign", "ChromaticNormalize"],
+            "kwargs": {"gravity_dim": 2, "scale": [0.9, 1.1]}},
+        "model": model, "distributed": False,
+    }
+    path = tmp_path / "tiny.yaml"
+    path.write_text(yaml.safe_dump(json.loads(json.dumps(cfg))))
+    return str(path)
+
+
+def _main_torch(argv, monkeypatch):
+    """``main_torch.py`` run as a script; returns what its ``main_cli``
+    returned."""
+    out = {}
+    main_cli = pcli.main_cli
+
+    def recording(kind=None, argv=None):
+        out["kind"] = kind
+        out["result"] = main_cli(kind, argv)
+        return out["result"]
+
+    monkeypatch.setattr(pcli, "main_cli", recording)
+    monkeypatch.setattr(sys, "argv", ["main_torch.py"] + argv)
+    runpy.run_path(os.path.join(REPO, "examples", "segmentation",
+                                "main_torch.py"), run_name="__main__")
+    assert out["kind"] == "base"
+    return out["result"]
+
+
+def test_main_torch_trains_resumes_and_tests_on_the_cpu(tmp_path, monkeypatch):
+    """``examples/segmentation/main_torch.py`` (``--kind base``): an epoch
+    writes ``latest``, ``mode=resume`` runs the second from it with the
+    optimizer's state, ``mode=test`` scores the rooms from it."""
+    argv = ["--cfg", _tiny_base_cfg(tmp_path), "--device", "cpu"]
+    res = _main_torch(argv, monkeypatch)
+    assert len(res["timing"]) == 1 and np.isfinite(res["timing"][0]["loss"])
+    (latest,) = glob.glob(str(tmp_path / "log" / "**" / "*latest.ckpt"),
+                          recursive=True)
+    blob = torch.load(latest, weights_only=False)
+    assert blob["epoch"] == 1 and blob["step"] == 2
+    assert "exp_avg" in str(blob["state"]["optimizer"]["state"])
+    res2 = _main_torch(argv + ["mode=resume", "epochs=2",
+                               f"pretrained_path={latest}"], monkeypatch)
+    assert res2["run_dir"] == res["run_dir"] and len(res2["timing"]) == 1
+    assert res2["timing"][0]["epoch"] == 2
+    assert torch.load(latest, weights_only=False)["step"] == 4
+    out = _main_torch(argv + ["mode=test", f"pretrained_path={latest}"],
+                      monkeypatch)
+    assert np.isfinite(out["miou"]) and len(out["ious"]) == 13

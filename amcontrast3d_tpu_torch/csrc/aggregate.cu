@@ -57,6 +57,26 @@
 // (4 values an 8-byte load), sums du in a float32 accumulator as above,
 // and a closing pass rounds it once to bf16: JAX's du.astype(u.dtype)
 // after its float32 kernel.
+//
+// Second order (the adahessian step's Hessian-vector product), float32
+// only.  du is linear in (g_ext, g_sum, g_sq) and depends on u only through
+// the 2 g_sq h term (the tie counts are piecewise constant), so its VJP
+// for a cotangent w (b, n, c) of du is, per query i and channel,
+//   dg_ext = sum_k eq_k w[idx_k] / max(ties, 1)
+//   dg_sum = sum_k w[idx_k]
+//   dg_sq  = sum_k 2 w[idx_k] (u[idx_k] - qp)
+//   dqp    = -(2 g_sq) dg_sum
+// and the u term du2[idx_k] += w[idx_k] * 2 g_sq (a scatter), with slots
+// outside [0, n) adding nothing (the twin: ops/aggregate.py::
+// aggregate_backward2_plain).  No TPU kernel of its own: the JAX step
+// differentiates _bwd_kernel's VJP by a jvp.  Bound: u and w read once and
+// the four (b, m, c) rows and du2 written once (bytes), though a query
+// reads K slot rows of both.  Design: the forward's blocks, a run of
+// queries along the query layout's curve and a group of lanes a query,
+// float4 channels where C % 4 == 0; each slot's u and w rows read once a
+// query, the sums folded in slot order, the u term added with one
+// red.global.add.v4.f32 a slot (float atomics: du2 is not
+// bit-deterministic).
 #include <cstdint>
 #include <type_traits>
 
@@ -402,6 +422,84 @@ aggregate_backward_kernel(const T* __restrict__ u, const int* __restrict__ idx,
   }
 }
 
+// Block (x, b, z): queries x * run ... of cloud b in the order given (as the
+// forward), groups of `lanes` threads a query, the lane's vector of channels
+// z * lanes + (lane within its group).  qp, g_sq, dg_sum, dg_sq, dqp and du
+// null without the moments.
+template <int V>
+__global__ void __launch_bounds__(kThreads)
+aggregate_backward2_kernel(const float* __restrict__ u,
+                           const int* __restrict__ idx,
+                           const float* __restrict__ qp,
+                           const float* __restrict__ ext,
+                           const unsigned char* __restrict__ ties,
+                           const float* __restrict__ g_sq,
+                           const float* __restrict__ w,
+                           const int* __restrict__ order, int ostride,
+                           float* __restrict__ dg_ext,
+                           float* __restrict__ dg_sum,
+                           float* __restrict__ dg_sq, float* __restrict__ dqp,
+                           float* __restrict__ du, int n, int m, int k, int c,
+                           int lanes, int run) {
+  const int b = blockIdx.y, t = threadIdx.x;
+  const int groups = kThreads / lanes, g = t / lanes;
+  const int ch = (blockIdx.z * lanes + t - g * lanes) * V;
+  if (ch >= c) return;
+  const bool stats = g_sq != nullptr;
+  const int r0 = blockIdx.x * run;
+  const int nq = min(run, m - r0);
+  const size_t qbase = static_cast<size_t>(b) * m;
+  const size_t cloud = static_cast<size_t>(b) * n * c + ch;
+  for (int q = g; q < nq; q += groups) {
+    const int qi = query_at(order, ostride, qbase, r0 + q);
+    const size_t o = (qbase + qi) * c + ch;
+    const int* row = idx + (qbase + qi) * k;
+    const Vals<V> ex = load<V>(ext + o);
+    Vals<V> off = filled<V>(0.f), q2 = filled<V>(0.f);
+    if (stats) {
+      off = load<V>(qp + o);
+      const Vals<V> gq = load<V>(g_sq + o);
+#pragma unroll
+      for (int l = 0; l < V; ++l) q2.x[l] = __fmul_rn(2.f, gq.x[l]);
+    }
+    Vals<V> ae = filled<V>(0.f), as = filled<V>(0.f), aq = filled<V>(0.f);
+    for (int kk = 0; kk < k; ++kk) {
+      const int j = row[kk];
+      if (static_cast<unsigned>(j) >= static_cast<unsigned>(n)) continue;
+      const size_t at = cloud + static_cast<size_t>(j) * c;
+      const Vals<V> x = load<V>(u + at), wv = load<V>(w + at);
+      Vals<V> add = filled<V>(0.f);
+#pragma unroll
+      for (int l = 0; l < V; ++l) {
+        if (x.x[l] == ex.x[l]) ae.x[l] = __fadd_rn(ae.x[l], wv.x[l]);
+        if (stats) {
+          as.x[l] = __fadd_rn(as.x[l], wv.x[l]);
+          const float h = __fsub_rn(x.x[l], off.x[l]);
+          aq.x[l] = __fadd_rn(aq.x[l], __fmul_rn(__fmul_rn(2.f, wv.x[l]), h));
+          add.x[l] = __fmul_rn(wv.x[l], q2.x[l]);
+        }
+      }
+      if (stats) {
+        if constexpr (V == 4)
+          red_add(du + at, make_float4(add.x[0], add.x[1], add.x[2], add.x[3]));
+        else
+          red_add(du + at, add.x[0]);
+      }
+    }
+#pragma unroll
+    for (int l = 0; l < V; ++l)
+      ae.x[l] = __fdiv_rn(ae.x[l], fmaxf(static_cast<float>(ties[o + l]), 1.f));
+    store<V>(dg_ext + o, ae);
+    if (stats) {
+      store<V>(dg_sum + o, as);
+      store<V>(dg_sq + o, aq);
+#pragma unroll
+      for (int l = 0; l < V; ++l) as.x[l] = -__fmul_rn(q2.x[l], as.x[l]);
+      store<V>(dqp + o, as);
+    }
+  }
+}
+
 // the bf16 VJP's closing pass: du = acc rounded to nearest even, 8 values a
 // thread where count % 8 == 0 and both ends are aligned, else one
 __global__ void __launch_bounds__(kThreads)
@@ -594,5 +692,51 @@ extern "C" int amc3d_aggregate_backward_bf16(const void* u, const void* idx,
   const int grid = static_cast<int>(blocks < 8u * sms ? blocks : 8u * sms);
   round_to_bf16_kernel<<<grid, kThreads, 0, st>>>(
       static_cast<const float*>(acc), static_cast<bf16*>(du), count, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The second order (float32): u, idx, order as the VJP's; qp and g_sq (b, m,
+// c) or null when has_stats == 0; ext, ties from the forward; w (b, n, c)
+// float32, the cotangent of du -> dg_ext (b, m, c) float32 and, with the
+// moments, dg_sum, dg_sq, dqp (b, m, c) float32 and du (b, n, c) float32
+// (zeroed here on the stream, then the slots' terms added in; null without
+// the moments).
+extern "C" int amc3d_aggregate_backward2(const void* u, const void* idx,
+                                         const void* qp, const void* ext,
+                                         const void* ties, const void* g_sq,
+                                         const void* w, const void* order,
+                                         int ostride, void* dg_ext,
+                                         void* dg_sum, void* dg_sq, void* dqp,
+                                         void* du, int b, int n, int m, int k,
+                                         int c, int has_stats, void* stream) {
+  if (c < 1 || k < 1 || ostride < 1 ||
+      (has_stats && (!qp || !g_sq || !dg_sum || !dg_sq || !dqp || !du)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (!has_stats) qp = g_sq = nullptr, dg_sum = dg_sq = dqp = du = nullptr;
+  if (has_stats) {
+    const cudaError_t err = cudaMemsetAsync(
+        du, 0, static_cast<size_t>(b) * n * c * sizeof(float), st);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  if (b < 1 || m < 1 || n < 1) return static_cast<int>(cudaSuccess);
+  const bool vec = c % 4 == 0 && aligned(u, 16) && aligned(w, 16) &&
+                   aligned(qp, 16) && aligned(ext, 16) && aligned(g_sq, 16) &&
+                   aligned(dg_ext, 16) && aligned(dg_sum, 16) &&
+                   aligned(dg_sq, 16) && aligned(dqp, 16) && aligned(du, 16);
+  const int vectors = vec ? c / 4 : c;
+  int lanes = 1;
+  while (lanes < vectors && lanes < 32) lanes <<= 1;
+  const int run = kThreads / lanes;
+  const dim3 grid((m + run - 1) / run, b, (vectors + lanes - 1) / lanes);
+  auto* kernel = vec ? &aggregate_backward2_kernel<4> : &aggregate_backward2_kernel<1>;
+  kernel<<<grid, kThreads, 0, st>>>(
+      static_cast<const float*>(u), static_cast<const int*>(idx),
+      static_cast<const float*>(qp), static_cast<const float*>(ext),
+      static_cast<const unsigned char*>(ties), static_cast<const float*>(g_sq),
+      static_cast<const float*>(w), static_cast<const int*>(order), ostride,
+      static_cast<float*>(dg_ext), static_cast<float*>(dg_sum),
+      static_cast<float*>(dg_sq), static_cast<float*>(dqp),
+      static_cast<float*>(du), n, m, k, c, lanes, run);
   return static_cast<int>(cudaGetLastError());
 }

@@ -43,6 +43,29 @@
 // tests; the dense kernels they replace tested all N^2 pairs.  Staging the
 // listed chunks in shared memory by bulk asynchronous copies measured
 // slower (PERF.md): each warp then waits on every listed chunk in turn.
+//
+// Second order (the adahessian step's Hessian-vector product): two kernels
+// more, a rows and a support half over the same scan.  The VJP above,
+// df = rows + support, is linear in g4 and not in f.  Its VJP for a
+// cotangent v (b, n, c) of df, over the member pairs (i, j), with
+//   a_ij = v_i . f_j + f_i . v_j,   G = pm ? gP_i : gQ_i,
+//   w_ij = G e_ij tinv (+ (pm ? gSpos_i : gSneg_i) when need_s),
+//   c_ij = G e_ij tinv^2 a_ij,
+// is
+//   rows2     gf_i = sum_j (c_ij f_j + w_ij v_j),
+//             gg4_i = sum_j [pm e tinv a, (1-pm) e tinv a, pm a, (1-pm) a]
+//             (the last two zero unless need_s): the forward's JVP along v
+//   support2  gf_j = sum_i (c_ij f_i + w_ij v_i) over the queries i whose
+//             threshold admits j,
+// and the cotangent of f is rows2 + support2 (derived from
+// ops/contrast.py::contrast_forward_plain and the VJP twins; the plain
+// twin is ops/contrast.py::contrast_grad2_plain).  No TPU kernel of its
+// own: the JAX step differentiates _bwd_rows_kernel and _bwd_sup_kernel's
+// VJP by a jvp.  Bound: the same member pairs as the VJP, each with three
+// C-wide dot products and two C-wide axpys (twice the VJP's feature
+// work).  Design: the VJP kernels' scan unchanged; a warp also holds its
+// point's row of v, reads the other point's rows of f and v coalesced, and
+// reduces the three dot products in one run of xor shuffles.
 #include <cuda_runtime.h>
 
 #include <type_traits>
@@ -97,6 +120,48 @@ __device__ __forceinline__ float warp_dot(const float (&a)[CPL],
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(kFull, s, off);
   return s;
+}
+
+// a . b, c . d and e . f of C-wide rows, reduced in one run of shuffles
+template <int CPL>
+__device__ __forceinline__ float3 warp_dot3(const float (&a)[CPL],
+                                            const float (&b)[CPL],
+                                            const float (&c)[CPL],
+                                            const float (&d)[CPL],
+                                            const float (&e)[CPL],
+                                            const float (&f)[CPL]) {
+  float x = 0.f, y = 0.f, z = 0.f;
+#pragma unroll
+  for (int t = 0; t < CPL; ++t) {
+    x = fmaf(a[t], b[t], x);
+    y = fmaf(c[t], d[t], y);
+    z = fmaf(e[t], f[t], z);
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    x += __shfl_xor_sync(kFull, x, off);
+    y += __shfl_xor_sync(kFull, y, off);
+    z += __shfl_xor_sync(kFull, z, off);
+  }
+  return make_float3(x, y, z);
+}
+
+// The second order's terms of pair (i, j) from the similarity s = f_i . f_j,
+// a = v_i . f_j + f_i . v_j and query i's g4_i: w (the VJP's weight), c
+// (its derivative in s times a), and et = e tinv.
+struct Pair2 {
+  float w, c, et;
+};
+
+__device__ __forceinline__ Pair2 pair2(float s, float a, bool pos, float4 g,
+                                       float tinv, int need_s) {
+  const float e = expf(__fmul_rn(s, tinv));
+  const float gw = __fmul_rn(__fmul_rn(pos ? g.x : g.y, e), tinv);
+  Pair2 r;
+  r.w = need_s ? __fadd_rn(gw, pos ? g.z : g.w) : gw;
+  r.c = __fmul_rn(__fmul_rn(gw, tinv), a);
+  r.et = __fmul_rn(e, tinv);
+  return r;
 }
 
 // The weight of pair (i, j) from query i's incoming gradients g4_i.
@@ -363,6 +428,115 @@ contrast_grad_support_kernel(const float4* __restrict__ sorted,
   if (s.active) store_row<CPL>(df + (base + s.io) * c, c, lane, acc);
 }
 
+// rows2: the warp's point is query i; gf_i sums c_ij f_j + w_ij v_j over its
+// members j, and gg4_i the four sums of the forward's JVP along v
+template <int CPL>
+__global__ void __launch_bounds__(kThreads)
+contrast_grad2_rows_kernel(const float4* __restrict__ sorted,
+                           const float2* __restrict__ aux,
+                           const float* __restrict__ boxes,
+                           const float* __restrict__ f,
+                           const float* __restrict__ v,
+                           const float4* __restrict__ g4, int n, int c,
+                           float tinv, int need_s, float* __restrict__ gf,
+                           float4* __restrict__ gg4) {
+  __shared__ int list[kListChunks];
+  __shared__ float spts[kWarps][3];
+  __shared__ float slim[kWarps];
+  __shared__ int counts[kWarps];
+  const int lane = threadIdx.x & 31;
+  float ub[6], limit;
+  const Scan s = block_points(sorted, aux, boxes, n, spts, slim, ub, limit);
+  const size_t base = static_cast<size_t>(blockIdx.y) * n;
+  const float thr = s.la.y, ml = s.la.x;
+  float4 gme = make_float4(0.f, 0.f, 0.f, 0.f);
+  float4 gacc = make_float4(0.f, 0.f, 0.f, 0.f);
+  float fme[CPL], vme[CPL], acc[CPL];
+#pragma unroll
+  for (int t = 0; t < CPL; ++t) acc[t] = fme[t] = vme[t] = 0.f;
+  if (s.active) {
+    gme = g4[base + s.io];
+    load_row<CPL>(f + (base + s.io) * c, c, lane, fme);
+    load_row<CPL>(v + (base + s.io) * c, c, lane, vme);
+  }
+  for_each_member(
+      s, ub, list, counts, [&](int) { return limit; },
+      [&](int) { return thr; }, [&](float d, float2) { return d <= thr; },
+      [&](int jo, float lj, float) {
+        float fo[CPL], vo[CPL];
+        load_row<CPL>(f + (base + jo) * c, c, lane, fo);
+        load_row<CPL>(v + (base + jo) * c, c, lane, vo);
+        const float3 d = warp_dot3<CPL>(fme, fo, vme, fo, fme, vo);
+        const float a = __fadd_rn(d.y, d.z);
+        const bool pos = lj == ml;
+        const Pair2 q = pair2(d.x, a, pos, gme, tinv, need_s);
+        const float ea = __fmul_rn(q.et, a);
+        if (pos) {
+          gacc.x += ea;
+          if (need_s) gacc.z += a;
+        } else {
+          gacc.y += ea;
+          if (need_s) gacc.w += a;
+        }
+#pragma unroll
+        for (int t = 0; t < CPL; ++t)
+          acc[t] = fmaf(q.w, vo[t], fmaf(q.c, fo[t], acc[t]));
+      });
+  if (s.active) {
+    store_row<CPL>(gf + (base + s.io) * c, c, lane, acc);
+    if (lane == 0) gg4[base + s.io] = gacc;
+  }
+}
+
+// support2: the warp's point is support point j; gf_j sums c_ij f_i +
+// w_ij v_i over the queries i whose own threshold admits it
+template <int CPL>
+__global__ void __launch_bounds__(kThreads)
+contrast_grad2_support_kernel(const float4* __restrict__ sorted,
+                              const float2* __restrict__ aux,
+                              const float* __restrict__ boxes,
+                              const float* __restrict__ cmax,
+                              const float* __restrict__ f,
+                              const float* __restrict__ v,
+                              const float4* __restrict__ g4, int n, int c,
+                              float tinv, int need_s,
+                              float* __restrict__ gf) {
+  __shared__ int list[kListChunks];
+  __shared__ float spts[kWarps][3];
+  __shared__ float slim[kWarps];
+  __shared__ int counts[kWarps];
+  const int lane = threadIdx.x & 31;
+  float ub[6], unused;
+  const Scan s = block_points(sorted, aux, boxes, n, spts, slim, ub, unused);
+  const size_t base = static_cast<size_t>(blockIdx.y) * n;
+  const float* cm = cmax + static_cast<size_t>(blockIdx.y) * s.nc;
+  const float ml = s.la.x;
+  float fme[CPL], vme[CPL], acc[CPL];
+#pragma unroll
+  for (int t = 0; t < CPL; ++t) acc[t] = fme[t] = vme[t] = 0.f;
+  if (s.active) {
+    load_row<CPL>(f + (base + s.io) * c, c, lane, fme);
+    load_row<CPL>(v + (base + s.io) * c, c, lane, vme);
+  }
+  auto chunk_limit = [&](int cq) { return cm[cq]; };
+  for_each_member(
+      s, ub, list, counts, chunk_limit, chunk_limit,
+      [&](float d, float2 la) { return d <= la.y; },
+      [&](int io, float li, float) {
+        float fo[CPL], vo[CPL];
+        load_row<CPL>(f + (base + io) * c, c, lane, fo);
+        load_row<CPL>(v + (base + io) * c, c, lane, vo);
+        // the query i is the other point: a = v_i . f_j + f_i . v_j
+        const float3 d = warp_dot3<CPL>(fme, fo, vo, fme, fo, vme);
+        const Pair2 q = pair2(d.x, __fadd_rn(d.y, d.z), li == ml,
+                              g4[base + io], tinv, need_s);
+#pragma unroll
+        for (int t = 0; t < CPL; ++t)
+          acc[t] = fmaf(q.w, vo[t], fmaf(q.c, fo[t], acc[t]));
+      });
+  if (s.active) store_row<CPL>(gf + (base + s.io) * c, c, lane, acc);
+}
+
 // Launches launch(std::integral_constant<int, CPL>()) with CPL the channels
 // a lane holds, the smallest of 1, 2, 4, 8, 16 covering c; the layout's
 // pointers must be aligned for their vector loads.
@@ -440,5 +614,47 @@ extern "C" int amc3d_contrast_grad_support(const void* sorted, const void* aux,
             static_cast<const float*>(boxes), static_cast<const float*>(cmax),
             static_cast<const float*>(f), static_cast<const float4*>(g4), n, c,
             tinv, need_s, static_cast<float*>(df));
+  });
+}
+
+// The second order.  rows2: the layout, f, v (b, n, c) (the cotangent of
+// the VJP's df), g4 -> gf (b, n, c) float32, the query-side part of f's
+// cotangent, and gg4 (b, n, 4) float32, the cotangent of g4.
+extern "C" int amc3d_contrast_grad2_rows(const void* sorted, const void* aux,
+                                         const void* boxes, const void* f,
+                                         const void* v, const void* g4,
+                                         void* gf, void* gg4, int b, int n,
+                                         int c, float tinv, int need_s,
+                                         void* stream) {
+  const dim3 grid((n + kWarps - 1) / kWarps, b);
+  const auto st = static_cast<cudaStream_t>(stream);
+  return by_lanes(c, sorted, aux, [&](auto cpl) {
+    contrast_grad2_rows_kernel<decltype(cpl)::value><<<grid, kThreads, 0, st>>>(
+        static_cast<const float4*>(sorted), static_cast<const float2*>(aux),
+        static_cast<const float*>(boxes), static_cast<const float*>(f),
+        static_cast<const float*>(v), static_cast<const float4*>(g4), n, c,
+        tinv, need_s, static_cast<float*>(gf), static_cast<float4*>(gg4));
+  });
+}
+
+// support2: the layout, cmax, f, v, g4 -> gf (b, n, c) float32, the
+// support-side part of f's cotangent.
+extern "C" int amc3d_contrast_grad2_support(const void* sorted,
+                                            const void* aux, const void* boxes,
+                                            const void* cmax, const void* f,
+                                            const void* v, const void* g4,
+                                            void* gf, int b, int n, int c,
+                                            float tinv, int need_s,
+                                            void* stream) {
+  const dim3 grid((n + kWarps - 1) / kWarps, b);
+  const auto st = static_cast<cudaStream_t>(stream);
+  return by_lanes(c, sorted, aux, [&](auto cpl) {
+    contrast_grad2_support_kernel<decltype(cpl)::value>
+        <<<grid, kThreads, 0, st>>>(
+            static_cast<const float4*>(sorted), static_cast<const float2*>(aux),
+            static_cast<const float*>(boxes), static_cast<const float*>(cmax),
+            static_cast<const float*>(f), static_cast<const float*>(v),
+            static_cast<const float4*>(g4), n, c, tinv, need_s,
+            static_cast<float*>(gf));
   });
 }

@@ -56,6 +56,18 @@
 // the rest): a decoder's coarse stages are few points of many channels.  The blocks still meet in df2 through float atomics,
 // so the summation order varies between runs and df2 agrees with the twin's
 // index_add_ to rounding (tolerance stated in the tests), not bit for bit.
+//
+// Second order (the adahessian step's Hessian-vector product).  The VJP is
+// linear in g, so its own VJP, for a cotangent u (b, n2, c) of df2, is the
+// forward's weighted sum at the saved (idx, w):
+//   gu[i, c] = (u[idx[i,0], c] * w[i,0] + u[idx[i,1], c] * w[i,1])
+//              + u[idx[i,2], c] * w[i,2],
+// rounded as the twin (ops/interpolate.py::three_interpolate).  No TPU
+// kernel of its own: the JAX step differentiates _interp_bwd_kernel's VJP
+// by a jvp.  Bound: u's referenced rows, idx and w read and gu written once
+// (bytes).  Design: a thread a (fine point, vector of channels), the fine
+// points in the caller's order, float4 rows where C % 4 == 0; neighbouring
+// fine points share coarse rows, which L1 and L2 serve.
 #include <cstdint>
 #include <type_traits>
 
@@ -256,6 +268,40 @@ interp_bwd_kernel(const float* __restrict__ g, const int* __restrict__ idx,
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
+constexpr int kGatherThreads = 256;
+
+// V = 4: float4 rows (C % 4 == 0, 16-byte aligned u and out); V = 1: scalar
+template <int V>
+__global__ void __launch_bounds__(kGatherThreads)
+interp_gather_kernel(const float* __restrict__ u, const int* __restrict__ idx,
+                     const float* __restrict__ w, long long rows, int n1,
+                     int n2, int c, float* __restrict__ out) {
+  const int cv = c / V;
+  const long long total = rows * cv;
+  for (long long e = static_cast<long long>(blockIdx.x) * kGatherThreads +
+                     threadIdx.x;
+       e < total; e += static_cast<long long>(gridDim.x) * kGatherThreads) {
+    const long long r = e / cv;
+    const int i = static_cast<int>(e - r * cv);
+    const float* ub = u + static_cast<size_t>(r / n1) * n2 * c + i * V;
+    const int* ir = idx + r * 3;
+    const float* wr = w + r * 3;
+    const float w0 = __ldg(wr), w1 = __ldg(wr + 1), w2 = __ldg(wr + 2);
+    const float* r0 = ub + static_cast<size_t>(__ldg(ir)) * c;
+    const float* r1 = ub + static_cast<size_t>(__ldg(ir + 1)) * c;
+    const float* r2 = ub + static_cast<size_t>(__ldg(ir + 2)) * c;
+    float* o = out + r * c + i * V;
+    if constexpr (V == 4) {
+      const float4 a = load4(r0), b = load4(r1), d = load4(r2);
+      *reinterpret_cast<float4*>(o) = make_float4(
+          blend(a.x, b.x, d.x, w0, w1, w2), blend(a.y, b.y, d.y, w0, w1, w2),
+          blend(a.z, b.z, d.z, w0, w1, w2), blend(a.w, b.w, d.w, w0, w1, w2));
+    } else {
+      *o = blend(__ldg(r0), __ldg(r1), __ldg(r2), w0, w1, w2);
+    }
+  }
+}
+
 }  // namespace
 
 // The coarse cloud's layout: sorted (b, n2) float4, its points along the
@@ -316,5 +362,26 @@ extern "C" int amc3d_three_interpolate_backward(const void* g, const void* idx,
       static_cast<const float*>(g), static_cast<const int*>(idx),
       static_cast<const float*>(w), static_cast<const int*>(order), ostride,
       n1, n2, c, static_cast<float*>(df2));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The second order: u (b, n2, c) float32, idx (b, n1, 3) int32 in [0, n2),
+// w (b, n1, 3) float32 -> out (b, n1, c) float32, the weighted sum of u's
+// rows at each fine point's three (index, weight) pairs.
+extern "C" int amc3d_three_interpolate_gather(const void* u, const void* idx,
+                                              const void* w, void* out, int b,
+                                              int n1, int n2, int c,
+                                              void* stream) {
+  if (n2 < 1 || c < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (b < 1 || n1 < 1) return static_cast<int>(cudaSuccess);
+  const bool vec = c % 4 == 0 && aligned16(u) && aligned16(out);
+  const long long rows = static_cast<long long>(b) * n1;
+  const long long items = rows * (vec ? c / 4 : c);
+  const long long blocks = (items + kGatherThreads - 1) / kGatherThreads;
+  const unsigned grid = static_cast<unsigned>(blocks < 65536 ? blocks : 65536);
+  auto* kernel = vec ? &interp_gather_kernel<4> : &interp_gather_kernel<1>;
+  kernel<<<grid, kGatherThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(u), static_cast<const int*>(idx),
+      static_cast<const float*>(w), rows, n1, n2, c, static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
 }

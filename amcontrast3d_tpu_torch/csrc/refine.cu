@@ -47,6 +47,17 @@
 // scalar form.  The summation order of the atomics varies between runs, so
 // df agrees with the twin's index_add_ to rounding, not bit for bit.  No
 // gradient reaches the positions or the ambiguity.
+//
+// Second order (the adahessian step's Hessian-vector product).  The VJP is
+// linear in g, so its own VJP, for a cotangent u (b, n, c) of df, is a
+// gather by the saved selection: gu[i] = scale * sum_t u[sel[i, t]] over the
+// slots with sel >= 0, summed in slot order and then scaled, as the twin
+// (ops/refine.py::refine_cross_gather_plain).  No TPU kernel of its own:
+// the JAX step differentiates _refine_bwd_kernel's VJP by a jvp.  Bound:
+// the selected rows of u, sel read and gu written once (bytes).  Design: a
+// thread a (point, vector of channels), float4 rows where C % 4 == 0; a
+// point's selection lies within its k nearest, so neighbouring points read
+// rows that L1 and L2 already hold.
 #include "listed_knn.cuh"
 #include "vector_red.cuh"
 
@@ -212,6 +223,44 @@ BwdKernel bwd_kernel(int lanes) {
   }
 }
 
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+constexpr int kGatherThreads = 256;
+
+// V = 4: float4 rows (C % 4 == 0, 16-byte aligned u and out); V = 1: scalar
+template <int V>
+__global__ void __launch_bounds__(kGatherThreads)
+refine_cross_gather_kernel(const float* __restrict__ u,
+                           const int* __restrict__ sel, long long rows, int n,
+                           int c, int slots, float scale,
+                           float* __restrict__ out) {
+  using Vec = typename std::conditional<V == 4, float4, float>::type;
+  const int cv = c / V;
+  const long long total = rows * cv;
+  for (long long e = static_cast<long long>(blockIdx.x) * kGatherThreads +
+                     threadIdx.x;
+       e < total; e += static_cast<long long>(gridDim.x) * kGatherThreads) {
+    const long long r = e / cv;
+    const int i = static_cast<int>(e - r * cv);
+    const float* ub = u + static_cast<size_t>(r / n) * n * c + i * V;
+    const int* sr = sel + r * slots;
+    Vec acc{};
+    for (int t = 0; t < slots; ++t) {
+      const int j = __ldg(sr + t);
+      if (j >= 0)
+        acc = add_rn(acc, load_scaled(ub + static_cast<size_t>(j) * c, 1.f, Vec{}));
+    }
+    float* o = out + r * c + i * V;
+    if constexpr (V == 4) {
+      *reinterpret_cast<float4*>(o) =
+          make_float4(__fmul_rn(acc.x, scale), __fmul_rn(acc.y, scale),
+                      __fmul_rn(acc.z, scale), __fmul_rn(acc.w, scale));
+    } else {
+      *o = __fmul_rn(acc, scale);
+    }
+  }
+}
+
 }  // namespace
 
 // The stage cloud's layout: sorted (b, n) float4, its points along the
@@ -268,5 +317,27 @@ extern "C" int amc3d_refine_cross_backward(const void* g, const void* sel,
   kernel<<<static_cast<unsigned>(blocks), kBwdThreads, 0, st>>>(
       static_cast<const float*>(g), static_cast<const int*>(sel), rows, n, c,
       slots, scale, static_cast<float*>(df));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The second order: u (b, n, c) float32, sel (b, n, slots) int32 (entries
+// < 0 are skipped) -> out (b, n, c) float32, scale * the sum of u's selected
+// rows in slot order; b * n >= 1, c >= 1 and slots >= 1, else
+// cudaErrorInvalidValue.
+extern "C" int amc3d_refine_cross_gather(const void* u, const void* sel,
+                                         void* out, int b, int n, int c,
+                                         int slots, float scale,
+                                         void* stream) {
+  if (b < 1 || n < 1 || c < 1 || slots < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec = c % 4 == 0 && aligned16(u) && aligned16(out);
+  const long long rows = static_cast<long long>(b) * n;
+  const long long items = rows * (vec ? c / 4 : c);
+  const long long blocks = (items + kGatherThreads - 1) / kGatherThreads;
+  const unsigned grid = static_cast<unsigned>(blocks < 65536 ? blocks : 65536);
+  auto* kernel = vec ? &refine_cross_gather_kernel<4> : &refine_cross_gather_kernel<1>;
+  kernel<<<grid, kGatherThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(u), static_cast<const int*>(sel), rows, n, c,
+      slots, scale, static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
 }

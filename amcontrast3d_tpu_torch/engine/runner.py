@@ -15,8 +15,10 @@ runner builds it with ``jnp.bfloat16`` (float32 parameters, bfloat16
 Linears, float32 BatchNorms; the logits come out in bfloat16 and are
 taken to float32 on the host only where numpy needs them, an exact cast).
 
-Not ported: the ``adahessian`` optimizer (raises ``NotImplementedError``
-by name).
+An optimizer whose name ends in ``adahessian`` turns the train step's
+``needs_hessian`` on, as the JAX runner does (``runner.py:124``); its
+combinations with ``distributed``, ``use_amp`` and remat raise
+``NotImplementedError`` by name (``engine.train``).
 
 The runner works on one device: the card unless the caller names the CPU.
 Data parallelism (↔ the JAX runner's ``distributed``, ``runner.py:52-55``):
@@ -47,7 +49,7 @@ from ..data.data_util import bucket_size, get_features_by_keys, pad_cloud
 from ..loss import build_criterion_from_cfg
 from ..models import build_model_from_cfg, init_train_weights_
 from ..optim import (build_optimizer_from_cfg, freeze_parameters_,
-                     freeze_pattern)
+                     freeze_pattern, needs_hessian)
 from ..scheduler import as_step_schedule, build_scheduler_from_cfg
 from ..utils import (AverageMeter, ConfusionMatrix, SummaryWriter,
                      load_checkpoint, resume_checkpoint, save_checkpoint,
@@ -182,7 +184,8 @@ class Runner:
                 self.model, self.criterion, self.optimizer, self._schedule,
                 self.kind, self.num_classes, self.ignore_index,
                 self.ambiguity_args, self.cfg.get("grad_norm_clip"),
-                generator, distributed=self.distributed)
+                generator, distributed=self.distributed,
+                needs_hessian=needs_hessian(self.cfg.get("optimizer")))
         return self._train_step
 
     def _restore(self, mode: str) -> Dict:

@@ -30,6 +30,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .. import parallel
+from ..ops._autograd import last_order
 
 
 def _norm_name(norm_args) -> Optional[str]:
@@ -154,7 +155,8 @@ class _SyncedBatchNorm(torch.autograd.Function):
     world size 1, the rank's own).  Then the BatchNorm kernels' inference
     forward; backward, their inference backward (x, weight, bias) and the
     statistics' cotangents summed over the ranks in one all_reduce and
-    folded into the rows'."""
+    folded into the rows'.  Differentiable once: a second-order pass (the
+    adahessian step) raises, as no rule is ported."""
 
     @staticmethod
     def forward(ctx, x, weight, bias, module):
@@ -177,6 +179,7 @@ class _SyncedBatchNorm(torch.autograd.Function):
         return F.batch_norm(x, mean, var, weight, bias, False, 0.0, eps)
 
     @staticmethod
+    @last_order("the synced BatchNorm (models.layers._SyncedBatchNorm)")
     def backward(ctx, g):
         x, weight, mean, var, invstd, mean_l, spread = ctx.saved_tensors
         # the inference form reads the statistics it is handed; the CUDA

@@ -143,6 +143,27 @@ _SIGNATURES = {
                                      _I, _I, _I, _I, _I, _I, _P),
     "amc3d_aggregate_backward_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                                       _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # the second-order kernels of the adahessian step.  The interpolation
+    # VJP's: u (B,N2,C), idx (B,N1,3) i32, w (B,N1,3), out (B,N1,C), B, N1,
+    # N2, C, stream
+    "amc3d_three_interpolate_gather": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # the CrossMask VJP's: u (B,N,C), sel (B,N,slots) i32, out (B,N,C), B,
+    # N, C, slots, scale, stream
+    "amc3d_refine_cross_gather": (_P, _P, _P, _I, _I, _I, _I, _F, _P),
+    # the contrast VJP's rows half: the layout, f, v (B,N,C), g4, gf
+    # (B,N,C), gg4 (B,N,4), B, N, C, tinv, need_s, stream
+    "amc3d_contrast_grad2_rows": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                  _F, _I, _P),
+    # its support half: the layout, cmax, f, v, g4, gf, B, N, C, tinv,
+    # need_s, stream
+    "amc3d_contrast_grad2_support": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                     _I, _F, _I, _P),
+    # the fused aggregation VJP's: u, idx, qp or null, ext, ties, g_sq or
+    # null, w (B,N,C), order or null and its stride, dg_ext, dg_sum, dg_sq,
+    # dqp (B,M,C) (the last three null without stats), du (B,N,C) or null,
+    # B, N, M, K, C, has_stats, stream
+    "amc3d_aggregate_backward2": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P,
+                                  _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
 }
 
 

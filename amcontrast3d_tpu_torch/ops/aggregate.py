@@ -34,6 +34,17 @@ sums du in float32 and rounds it once to bfloat16, as JAX's
 and nothing is upcast on the way in.  The plain twins gather bfloat16 and
 compute in float32.
 
+The VJP is differentiable once more in float32 (the adahessian step's
+Hessian-vector product): du is linear in (g_ext, g_sum, g_sq) and
+depends on ``u`` and ``qp`` only through ``2·(u_k − qp)·g_sq``, so for a
+cotangent ``w`` of du, per query, ``dg_ext = Σ_k eq_k·w_k / ties``,
+``dg_sum = Σ_k w_k``, ``dg_sq = Σ_k 2·w_k·(u_k − qp)``, ``dqp = −2·g_sq·dg_sum``
+(``w_k = w[idx[i, k]]``), and ``du2[idx[i, k]] += 2·g_sq·w_k``:
+:func:`aggregate_backward2` (the ``amc3d_aggregate_backward2`` kernel of
+``csrc/aggregate.cu``) or :func:`aggregate_backward2_plain`.  A bfloat16
+``u`` on the card raises there (its second order is not ported); a third
+order raises.  The plain twins take float64 too (for ``gradgradcheck``).
+
 The switch (``set_agg_fused``, default from ``AMC3D_AGG_FUSED``) is
 process-wide, as in the JAX package; ``auto`` means ``off`` here (JAX: on
 a TPU only).  Where it is on, every separable aggregation with a monotone
@@ -49,6 +60,7 @@ import os
 import torch
 
 from . import spatial
+from ._autograd import last_order
 from ._build import launch
 
 _MODES = ("auto", "on", "off")
@@ -122,10 +134,11 @@ def _order_args(order):
 
 def _slots(u, idx) -> torch.Tensor:
     """The grouped tensor (B, M, K, C), gathered at u's dtype and taken to
-    float32 (exact for bfloat16)."""
+    float32 (exact for bfloat16; float64 stays)."""
     B, N, C, M, K = _shapes(u, idx)
     rows = idx.reshape(B, M * K, 1).long().expand(-1, -1, C)
-    return torch.gather(u, 1, rows).view(B, M, K, C).float()
+    return torch.gather(u, 1, rows).view(B, M, K, C).to(
+        torch.promote_types(u.dtype, torch.float32))
 
 
 
@@ -227,7 +240,7 @@ def aggregate_backward_plain(u, idx, qp, ext, ties, g_ext, g_sum=None,
         h = g if qp is None else g - qp[:, :, None]
         gamma = (g_sum[:, :, None] + 2.0 * h * g_sq[:, :, None]) + gamma
     rows = (idx.long() + N * torch.arange(B, device=u.device)[:, None, None])
-    du = (torch.zeros(B * N, C, dtype=torch.float32, device=u.device)
+    du = (torch.zeros(B * N, C, dtype=gamma.dtype, device=u.device)
           if accumulator is None else accumulator.view(B * N, C).zero_())
     du.index_add_(0, rows.reshape(-1), gamma.reshape(-1, C))
     return du.view(B, N, C).to(u.dtype)
@@ -305,6 +318,101 @@ def _backward_kernel(u, idx, qp, ext, ties, g_ext, g_sum, g_sq, order, acc):
     return du
 
 
+def aggregate_backward2_plain(w, u, idx, qp, ext, ties, g_sq=None,
+                              order=None):
+    """Plain twin of :func:`aggregate_backward2`: the slots folded in slot
+    order, as the kernel folds them; the u term by ``index_add_``."""
+    B, N, C, M, K = _shapes(u, idx)
+    g = _slots(u, idx)
+    ws = _slots(w, idx)
+    dg_ext = torch.zeros_like(ext)
+    stats = g_sq is not None
+    if stats:
+        q2 = 2.0 * g_sq
+        dg_sum = torch.zeros_like(ext)
+        dg_sq = torch.zeros_like(ext)
+    for k in range(K):
+        x, wk = g[:, :, k], ws[:, :, k]
+        dg_ext = dg_ext + torch.where(x == ext, wk, 0.0)
+        if stats:
+            dg_sum = dg_sum + wk
+            dg_sq = dg_sq + (2.0 * wk) * (x - qp)
+    dg_ext = dg_ext / ties.to(ext.dtype).clamp_min(1.0)
+    if not stats:
+        return dg_ext, None, None, None, None
+    rows = idx.long() + N * torch.arange(B, device=u.device)[:, None, None]
+    du = torch.zeros(B * N, C, dtype=ws.dtype, device=u.device)
+    du.index_add_(0, rows.reshape(-1),
+                  (ws * q2[:, :, None]).reshape(-1, C))
+    return dg_ext, dg_sum, dg_sq, -(q2 * dg_sum), du.view(B, N, C)
+
+
+def aggregate_backward2(w, u, idx, qp, ext, ties, g_sq=None, order=None):
+    """The VJP of :func:`aggregate_backward` (the fused aggregation's second
+    order) for a cotangent ``w`` (B, N, C) of du → (dg_ext, dg_sum, dg_sq,
+    dqp, du2): the cotangents of g_ext, g_sum, g_sq and qp, (B, M, C), and
+    of u, (B, N, C); all but dg_ext None without the moments (``g_sq``
+    None).  ``order`` as the forward's.  A float32 CUDA tensor goes through
+    the ``amc3d_aggregate_backward2`` kernel of ``csrc/aggregate.cu``
+    (float atomics in du2: not bit-deterministic); a bfloat16 ``u`` on the
+    card raises (not ported); a CPU tensor takes the plain twin."""
+    if all(t.device.type == "cpu" for t in (w, u, idx, ext, ties)):
+        return aggregate_backward2_plain(w, u, idx, qp, ext, ties, g_sq, order)
+    if u.dtype != torch.float32:
+        raise NotImplementedError(
+            "aggregate_backward2: the second order of the fused aggregation "
+            f"is ported for a float32 u only, got {u.dtype}")
+    B, N, C, M, K = _shapes(u, idx)
+    stats = g_sq is not None
+    f32 = torch.float32
+    if stats and qp is None:
+        qp = torch.zeros(B, M, C, dtype=f32, device=u.device)
+    _check_cuda("aggregate_backward2", u, idx,
+                {"ext": (ext, f32), "ties": (ties, torch.uint8),
+                 "qp": (qp if stats else None, f32), "g_sq": (g_sq, f32)},
+                order, f32)
+    if (w.shape != u.shape or w.dtype != f32 or w.device != u.device
+            or not w.is_contiguous()):
+        raise ValueError(f"aggregate_backward2: w must be a contiguous "
+                         f"{tuple(u.shape)} float32 tensor on {u.device}")
+    dg_ext = torch.empty(B, M, C, dtype=f32, device=u.device)
+    dg_sum, dg_sq, dqp, du = (None,) * 4
+    if stats:
+        dg_sum, dg_sq, dqp = (torch.empty_like(dg_ext) for _ in range(3))
+        du = torch.empty(B, N, C, dtype=f32, device=u.device)
+    launch("amc3d_aggregate_backward2", u.data_ptr(), idx.data_ptr(),
+           _ptr(qp if stats else None), ext.data_ptr(), ties.data_ptr(),
+           _ptr(g_sq), w.data_ptr(), *_order_args(order), dg_ext.data_ptr(),
+           _ptr(dg_sum), _ptr(dg_sq), _ptr(dqp), _ptr(du), B, N, M, K, C,
+           int(stats), _stream(u))
+    aggregate_backward2.launches += 1
+    return dg_ext, dg_sum, dg_sq, dqp, du
+
+
+class _SlotReduceBackward(torch.autograd.Function):
+    """du of :class:`_SlotReduce` as a function of (u, qp, g_ext, g_sum,
+    g_sq), by the VJP kernel or, with ``plain``, its twin; differentiable
+    once: its VJP is :func:`aggregate_backward2` (or its twin)."""
+
+    @staticmethod
+    def forward(ctx, u, qp, g_ext, g_sum, g_sq, idx, ext, ties, order,
+                plain: bool):
+        ctx.save_for_backward(u, qp, g_sq, idx, ext, ties, order)
+        ctx.plain = plain
+        args = (g_ext,) if g_sum is None else (g_ext, g_sum, g_sq)
+        bwd = aggregate_backward_plain if plain else aggregate_backward
+        return bwd(u, idx, qp, ext, ties, *args, order=order)
+
+    @staticmethod
+    @last_order("the fused aggregation's second order")
+    def backward(ctx, w):
+        u, qp, g_sq, idx, ext, ties, order = ctx.saved_tensors
+        second = aggregate_backward2_plain if ctx.plain else aggregate_backward2
+        dg_ext, dg_sum, dg_sq, dqp, du = second(
+            w.contiguous(), u, idx, qp, ext, ties, g_sq, order)
+        return (du, dqp, dg_ext, dg_sum, dg_sq) + (None,) * 5
+
+
 class _SlotReduce(torch.autograd.Function):
     """Forward and VJP by the kernels, or by the plain twins (``plain``);
     returns (ext, su, sq) with the moments, else (ext,).  The forward
@@ -332,8 +440,9 @@ class _SlotReduce(torch.autograd.Function):
             dqp = torch.addcmul(g_sum * -idx.shape[-1], g_sq, su, value=-2.0)
         du = None
         if ctx.needs_input_grad[0]:
-            bwd = aggregate_backward_plain if ctx.plain else aggregate_backward
-            du = bwd(u, idx, qp, ext, ties, *args, order=order)
+            stats = args[1:] if ctx.need_stats else (None, None)
+            du = _SlotReduceBackward.apply(u, qp, args[0], *stats, idx, ext,
+                                           ties, order, ctx.plain)
         return du, dqp, None, None, None, None, None
 
 
@@ -380,3 +489,4 @@ aggregate_forward.launches = 0
 aggregate_backward.launches = 0
 aggregate_forward_bf16.launches = 0
 aggregate_backward_bf16.launches = 0
+aggregate_backward2.launches = 0

@@ -22,7 +22,19 @@ are a TPU choice).  Differentiable in ``f`` only; with
 
     df_i = Σ_j w_ij f_j   (rows)      df_j += Σ_i w_ij f_i   (support)
 
-Gradients into columns 4-8 are ignored, as in the TPU VJP.  All three
+Gradients into columns 4-8 are ignored, as in the TPU VJP.  The VJP is
+differentiable once more (the adahessian step's Hessian-vector product):
+for a cotangent ``v`` of ``df``, with ``a_ij = v_i·f_j + f_i·v_j`` and
+``c_ij = nb·(pm·gP_i + (1−pm)·gQ_i)·e_ij·tinv²·a_ij``,
+
+    gf_i  = Σ_j (c_ij f_j + w_ij v_j)     gf_j += Σ_i (c_ij f_i + w_ij v_i)
+    gg4_i = Σ_j nb·[pm·e·tinv·a, (1−pm)·e·tinv·a, pm·a, (1−pm)·a]
+
+(the last two zero unless need_s): the cotangents of ``f`` and of ``g4``
+(the forward's JVP along ``v``), by :func:`contrast_grad2_rows` and
+:func:`contrast_grad2_support` (two kernels of ``csrc/contrast.cu`` over
+the VJP's scan) or :func:`contrast_grad2_plain`; a third order raises.
+The plain twins take float64 too (for ``gradgradcheck``).  All three
 kernels read the cloud's Morton-sorted layout (``spatial.SortedCloud``, ↔
 the Morton / kd sort of ``contrast_reductions``,
 ``contrast_pallas.py:644-695``) and its sorted (label, threshold) columns
@@ -61,6 +73,7 @@ import torch
 import torch.nn.functional as F
 
 from . import spatial
+from ._autograd import last_order
 from ._build import launch
 from .knn import pairwise_d2
 
@@ -86,7 +99,7 @@ def _check(p, f, lab, kth, cuda: bool) -> None:
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
     for t in (p, f, lab, kth):
-        if t.dtype != torch.float32:
+        if t.dtype != torch.float32 and (cuda or t.dtype != torch.float64):
             raise TypeError(f"contrast reductions take float32, got {t.dtype}")
         if cuda and (t.device.type != "cuda" or t.device != f.device
                      or not t.is_contiguous()):
@@ -363,6 +376,159 @@ def contrast_grad_support(p, f, lab, kth, g4, tinv: float = 1.0,
     return _support_kernel(*_layout(p, lab, kth, cloud), f, g4, tinv, need_s)
 
 
+def contrast_grad2_plain(p, f, lab, kth, g4, v, tinv: float = 1.0,
+                        need_s: bool = True,
+                        cloud: Optional[spatial.SortedCloud] = None,
+                        rows: bool = True, support: bool = True):
+    """Plain second order: (gf (B, N, C), gg4 (B, N, 4)), the cotangents of
+    ``f`` (the ``rows`` and ``support`` halves, both by default) and of
+    ``g4`` for a cotangent ``v`` (B, N, C) of the VJP's df (a layout,
+    ``cloud``, changes nothing here)."""
+    _check(p, f, lab, kth, cuda=False)
+    B, N, C = f.shape
+    gf = torch.zeros_like(f)
+    gg4 = f.new_zeros(B, N, 4)
+    for s in range(0, N, _TILE):
+        e = min(s + _TILE, N)
+        _, nb, pm, _, ex = _tile_terms(p, f, lab, kth, s, e, tinv)
+        g = g4[:, s:e, None, :]
+        gw = torch.where(pm, g[..., 0], g[..., 1]) * ex * tinv
+        w = gw + torch.where(pm, g[..., 2], g[..., 3]) if need_s else gw
+        a = (torch.matmul(v[:, s:e], f.transpose(1, 2))
+             + torch.matmul(f[:, s:e], v.transpose(1, 2)))
+        w = torch.where(nb, w, 0.0)
+        c = torch.where(nb, gw * tinv * a, 0.0)                    # (B, T, N)
+        if rows:
+            gf[:, s:e] += torch.matmul(c, f) + torch.matmul(w, v)
+        if support:
+            gf += (torch.matmul(c.transpose(1, 2), f[:, s:e])
+                   + torch.matmul(w.transpose(1, 2), v[:, s:e]))
+        pos, neg = nb & pm, nb & ~pm
+        ea = ex * tinv * a
+        gg4[:, s:e, 0] = torch.where(pos, ea, 0.0).sum(-1)
+        gg4[:, s:e, 1] = torch.where(neg, ea, 0.0).sum(-1)
+        if need_s:
+            gg4[:, s:e, 2] = torch.where(pos, a, 0.0).sum(-1)
+            gg4[:, s:e, 3] = torch.where(neg, a, 0.0).sum(-1)
+    return gf, gg4
+
+
+def _check_v(f, v) -> None:
+    if (v.shape != f.shape or v.dtype != torch.float32 or v.device != f.device
+            or not v.is_contiguous()):
+        raise ValueError(f"v must be a contiguous {tuple(f.shape)} float32 "
+                         f"tensor on {f.device}, got {tuple(v.shape)} "
+                         f"{v.dtype} on {v.device}")
+
+
+def _grad2_rows_kernel(layout, f, g4, v, tinv, need_s):
+    _check_g4(f, g4)
+    _check_v(f, v)
+    cloud, aux, _ = layout
+    B, N, C = f.shape
+    gf = torch.empty(B, N, C, dtype=torch.float32, device=f.device)
+    gg4 = torch.empty(B, N, 4, dtype=torch.float32, device=f.device)
+    launch("amc3d_contrast_grad2_rows", cloud.packed.data_ptr(),
+           aux.data_ptr(), cloud.boxes.data_ptr(), f.data_ptr(), v.data_ptr(),
+           g4.data_ptr(), gf.data_ptr(), gg4.data_ptr(), B, N, C, float(tinv),
+           int(need_s), _stream(f))
+    contrast_grad2_rows.launches += 1
+    return gf, gg4
+
+
+def _grad2_support_kernel(layout, f, g4, v, tinv, need_s):
+    _check_g4(f, g4)
+    _check_v(f, v)
+    cloud, aux, cmax = layout
+    B, N, C = f.shape
+    gf = torch.empty(B, N, C, dtype=torch.float32, device=f.device)
+    launch("amc3d_contrast_grad2_support", cloud.packed.data_ptr(),
+           aux.data_ptr(), cloud.boxes.data_ptr(), cmax.data_ptr(),
+           f.data_ptr(), v.data_ptr(), g4.data_ptr(), gf.data_ptr(), B, N, C,
+           float(tinv), int(need_s), _stream(f))
+    contrast_grad2_support.launches += 1
+    return gf
+
+
+def contrast_grad2_rows(p, f, lab, kth, g4, v, tinv: float = 1.0,
+                        need_s: bool = True,
+                        cloud: Optional[spatial.SortedCloud] = None):
+    """Query side of the second order: (gf_rows (B, N, C), gg4 (B, N, 4)),
+    each point i over its members j.  The rows kernel of
+    ``csrc/contrast.cu``'s second order for CUDA tensors, over ``cloud``
+    (the layout of ``p``; sorted here when not given); a CPU tensor takes
+    :func:`contrast_grad2_plain` (whose gf holds both halves)."""
+    if cloud is not None:
+        spatial.check_layout(cloud, p)
+    if all(t.device.type == "cpu" for t in (p, f, lab, kth, g4, v)):
+        return contrast_grad2_plain(p, f, lab, kth, g4, v, tinv, need_s)
+    _check(p, f, lab, kth, cuda=True)
+    return _grad2_rows_kernel(_layout(p, lab, kth, cloud), f, g4, v, tinv,
+                              need_s)
+
+
+def contrast_grad2_support(p, f, lab, kth, g4, v, tinv: float = 1.0,
+                           need_s: bool = True,
+                           cloud: Optional[spatial.SortedCloud] = None
+                           ) -> torch.Tensor:
+    """Support side of the second order: gf_support (B, N, C), each point j
+    over the queries i whose threshold admits it.  The support kernel of
+    ``csrc/contrast.cu``'s second order, over ``cloud`` as
+    :func:`contrast_grad2_rows`; CUDA tensors only (the plain twin,
+    :func:`contrast_grad2_plain`, gives both halves at once)."""
+    if cloud is not None:
+        spatial.check_layout(cloud, p)
+    _check(p, f, lab, kth, cuda=True)
+    return _grad2_support_kernel(_layout(p, lab, kth, cloud), f, g4, v, tinv,
+                                 need_s)
+
+
+contrast_grad2_rows.launches = 0
+contrast_grad2_support.launches = 0
+
+
+class _ContrastVJP(torch.autograd.Function):
+    """The VJP of the reductions as a function of (f, g4), by the rows and
+    support kernels or, with ``plain``, the plain twins; differentiable
+    once: its VJP is the second order (:func:`contrast_grad2_rows` and
+    :func:`contrast_grad2_support`, or :func:`contrast_grad2_plain`).
+    ``saved``: (p, lab, kth) for the twins, the forward's (cloud, aux,
+    cmax) for the kernels."""
+
+    @staticmethod
+    def forward(ctx, f, g4, tinv, need_s, plain, saved):
+        ctx.tinv, ctx.need_s, ctx.plain = tinv, need_s, plain
+        if plain:
+            p, lab, kth = saved
+            ctx.save_for_backward(f, g4, p, lab, kth)
+            df_rows, df_sup = _grad_plain(p, f, lab, kth, g4, tinv, need_s,
+                                          rows=True, support=True)
+        else:
+            ctx.cloud, aux, cmax = saved
+            ctx.save_for_backward(f, g4, aux, cmax)
+            _check_g4(f, g4)
+            df_rows = _rows_kernel(ctx.cloud, aux, f, g4, tinv, need_s)
+            df_sup = _support_kernel(ctx.cloud, aux, cmax, f, g4, tinv, need_s)
+        return df_rows + df_sup
+
+    @staticmethod
+    @last_order("the contrast's second order")
+    def backward(ctx, v):
+        v = v.contiguous()
+        if ctx.plain:
+            f, g4, p, lab, kth = ctx.saved_tensors
+            gf, gg4 = contrast_grad2_plain(p, f, lab, kth, g4, v, ctx.tinv,
+                                           ctx.need_s)
+        else:
+            f, g4, aux, cmax = ctx.saved_tensors
+            layout = (ctx.cloud, aux, cmax)
+            gf, gg4 = _grad2_rows_kernel(layout, f, g4, v, ctx.tinv,
+                                         ctx.need_s)
+            gf = gf + _grad2_support_kernel(layout, f, g4, v, ctx.tinv,
+                                            ctx.need_s)
+        return gf, gg4, None, None, None, None
+
+
 class _ContrastReductions(torch.autograd.Function):
     """Forward and VJP by the kernels, or by the plain twins (``plain``).
     The kernels' forward gathers the sorted columns of ``cloud``, the
@@ -403,15 +569,13 @@ class _ContrastReductions(torch.autograd.Function):
     def backward(ctx, gout):
         g4 = gout[..., :4].contiguous()
         if ctx.plain:
-            df_rows, df_sup = _grad_plain(*ctx.saved_tensors, g4, ctx.tinv,
-                                          ctx.need_s, rows=True, support=True)
+            p, f, lab, kth = ctx.saved_tensors
+            saved = (p, lab, kth)
         else:
             f, aux, cmax = ctx.saved_tensors
-            _check_g4(f, g4)
-            df_rows = _rows_kernel(ctx.cloud, aux, f, g4, ctx.tinv, ctx.need_s)
-            df_sup = _support_kernel(ctx.cloud, aux, cmax, f, g4, ctx.tinv,
-                                     ctx.need_s)
-        return (None, df_rows + df_sup) + (None,) * 9
+            saved = (ctx.cloud, aux, cmax)
+        df = _ContrastVJP.apply(f, g4, ctx.tinv, ctx.need_s, ctx.plain, saved)
+        return (None, df) + (None,) * 9
 
 
 def contrast_reductions(p, f, lab, kth, tinv: float = 1.0,

@@ -29,7 +29,12 @@ averages every neighbour whose d² ties the 3rd (a 4th point may enter);
 the two agree wherever the 3rd-nearest d² is unique.
 
 The result is differentiable in the coarse features only (as the TPU
-kernel's VJP): the backward adds ``w·g`` into the 3 neighbours' rows.
+kernel's VJP): the backward adds ``w·g`` into the 3 neighbours' rows.  The
+backward is differentiable once more (the adahessian step's Hessian-vector
+product): it is linear in ``g``, and its VJP is the weighted sum at the
+saved indices and weights, :func:`three_interpolation_gather` (the
+``amc3d_three_interpolate_gather`` kernel of ``csrc/interpolate.cu``); a
+third order raises.
 """
 from __future__ import annotations
 
@@ -38,6 +43,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import spatial
+from ._autograd import last_order
 from ._build import launch
 from .group import group_points
 from .knn import knn, knn_plain
@@ -385,6 +391,68 @@ def three_interpolation_backward_big(grad: torch.Tensor, idx: torch.Tensor,
     return df2
 
 
+def three_interpolation_gather_plain(u: torch.Tensor, idx: torch.Tensor,
+                                     weight: torch.Tensor) -> torch.Tensor:
+    """Plain twin of :func:`three_interpolation_gather`: u (B, N2, C), idx
+    / weight (B, N1, 3) → (B, N1, C), summed as the forward's
+    ``(u0·w0 + u1·w1) + u2·w2``."""
+    return three_interpolate(u, idx, weight)
+
+
+def three_interpolation_gather(u: torch.Tensor, idx: torch.Tensor,
+                               weight: torch.Tensor) -> torch.Tensor:
+    """The VJP of :func:`three_interpolation_backward` in its incoming
+    gradient (the interpolation's second order): u (B, N2, C) f32, the
+    cotangent of df2, and the forward's idx (B, N1, 3) int32 in [0, N2)
+    and weight (B, N1, 3) f32 → (B, N1, C), each fine point's weighted sum
+    of its three rows of u.  A CUDA tensor goes through the
+    ``amc3d_three_interpolate_gather`` kernel of ``csrc/interpolate.cu``
+    (the twin's rounding); a CPU tensor through the plain twin."""
+    if _on_cpu(u, idx, weight):
+        return three_interpolation_gather_plain(u, idx, weight)
+    B, N2, C = u.shape
+    N1 = idx.shape[1]
+    if (u.dim() != 3 or idx.shape != (B, N1, 3)
+            or weight.shape != (B, N1, 3)):
+        raise ValueError("shapes must be (B,N2,C), (B,N1,3), (B,N1,3); got "
+                         f"{[tuple(t.shape) for t in (u, idx, weight)]}")
+    for t, dtype in zip((u, idx, weight),
+                        (torch.float32, torch.int32, torch.float32)):
+        if (t.dtype != dtype or t.device.type != "cuda"
+                or t.device != u.device or not t.is_contiguous()):
+            raise ValueError("interpolation gather kernel needs contiguous "
+                             f"CUDA tensors, got {t.dtype} on {t.device}")
+    out = torch.empty(B, N1, C, dtype=torch.float32, device=u.device)
+    launch("amc3d_three_interpolate_gather", u.data_ptr(), idx.data_ptr(),
+           weight.data_ptr(), out.data_ptr(), B, N1, N2, C,
+           torch.cuda.current_stream(u.device).cuda_stream)
+    three_interpolation_gather.launches += 1
+    return out
+
+
+class _ThreeInterpolationBackward(torch.autograd.Function):
+    """The VJP of the interpolation as a function of its incoming gradient
+    (a kernel, or the plain twin with ``plain``), differentiable once: its
+    VJP is :func:`three_interpolation_gather` (or its twin) at the saved
+    indices and weights."""
+
+    @staticmethod
+    def forward(ctx, grad, idx, w, n2: int, order, rows, plain: bool):
+        ctx.save_for_backward(idx, w)
+        ctx.plain = plain
+        if plain:
+            return three_interpolation_backward_plain(grad, idx, w, n2)
+        return three_interpolation_backward(grad, idx, w, n2, order, rows)
+
+    @staticmethod
+    @last_order("the interpolation's second order")
+    def backward(ctx, u):
+        idx, w = ctx.saved_tensors
+        gather = (three_interpolation_gather_plain if ctx.plain
+                  else three_interpolation_gather)
+        return (gather(u.contiguous(), idx, w),) + (None,) * 6
+
+
 class _ThreeInterpolation(torch.autograd.Function):
     """Forward by the kernel (or the plain twin), backward by the backward
     kernel (or its plain twin) in the orders the forward took the fine
@@ -406,10 +474,9 @@ class _ThreeInterpolation(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         idx, w, order, rows = ctx.saved_tensors
-        bwd = (three_interpolation_backward_plain if ctx.plain
-               else three_interpolation_backward)
-        return (None, None, bwd(grad.contiguous(), idx, w, ctx.n2, order, rows),
-                None, None, None)
+        df2 = _ThreeInterpolationBackward.apply(grad.contiguous(), idx, w,
+                                                ctx.n2, order, rows, ctx.plain)
+        return None, None, df2, None, None, None
 
 
 def _needs_grad(t: torch.Tensor) -> bool:
@@ -464,3 +531,4 @@ def three_interpolation(unknown_xyz: torch.Tensor, known_xyz: torch.Tensor,
 three_interpolation.launches = 0
 three_interpolation_backward.launches = 0
 three_interpolation_backward_big.launches = 0
+three_interpolation_gather.launches = 0

@@ -14,7 +14,11 @@ The TPU kernel admits a superset at d² ties and averages argmin ties; the
 port is exact and equals it wherever the minimum is unique.  The result is
 differentiable in the features only: the backward scatters ``scale·g`` into
 the selected rows (``sel``: the chosen index (B, N, 1) for MIN, the member
-indices (B, N, k − 1) with −1 where a > 0 for MIN_ALL0).
+indices (B, N, k − 1) with −1 where a > 0 for MIN_ALL0).  The backward
+is differentiable once more (the adahessian step's Hessian-vector
+product): it is linear in ``g``, and its VJP gathers the selected rows,
+:func:`refine_cross_gather` (the ``amc3d_refine_cross_gather`` kernel of
+``csrc/refine.cu``); a third order raises.
 
 The forward kernel's kNN is ``csrc/knn.cu``'s listed scan over the stage
 cloud's Morton-sorted layout (``spatial.SortedCloud``): a caller that holds
@@ -28,6 +32,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import spatial
+from ._autograd import last_order
 from ._build import launch
 from .group import gather_points, group_points
 from .interpolate import _needs_grad, _on_cpu
@@ -174,6 +179,59 @@ def refine_cross_backward(grad: torch.Tensor, sel: torch.Tensor,
     return df
 
 
+def refine_cross_gather_plain(u: torch.Tensor, sel: torch.Tensor,
+                              scale: float) -> torch.Tensor:
+    """Plain twin of :func:`refine_cross_gather`: the selected rows summed
+    slot by slot, in slot order, then scaled."""
+    acc = torch.zeros_like(u)
+    for t in range(sel.shape[-1]):
+        col = sel[..., t]
+        rows = gather_points(u, col.clamp_min(0))
+        acc = acc + torch.where((col >= 0)[..., None], rows, 0.0)
+    return acc * scale
+
+
+def refine_cross_gather(u: torch.Tensor, sel: torch.Tensor,
+                        scale: float) -> torch.Tensor:
+    """The VJP of :func:`refine_cross_backward` in its incoming gradient
+    (the CrossMask's second order): u (B, N, C) f32, the cotangent of df,
+    sel (B, N, S) int32 → (B, N, C), ``scale · Σ_t u[sel[i, t]]`` over the
+    slots with ``sel ≥ 0``.  A CUDA tensor goes through the
+    ``amc3d_refine_cross_gather`` kernel of ``csrc/refine.cu`` (the twin's
+    order and rounding); a CPU tensor through the plain twin."""
+    if _on_cpu(u, sel):
+        return refine_cross_gather_plain(u, sel, scale)
+    _check_backward(u, sel)
+    _check_cuda_tensors(u, sel)
+    B, N, C = u.shape
+    out = torch.empty_like(u)
+    launch("amc3d_refine_cross_gather", u.data_ptr(), sel.data_ptr(),
+           out.data_ptr(), B, N, C, sel.shape[-1], float(scale),
+           torch.cuda.current_stream(u.device).cuda_stream)
+    refine_cross_gather.launches += 1
+    return out
+
+
+class _DualMasksCrossBackward(torch.autograd.Function):
+    """The CrossMask's VJP as a function of its incoming gradient (the
+    kernel, or the plain twin with ``plain``), differentiable once: its VJP
+    is :func:`refine_cross_gather` (or its twin) at the saved selection."""
+
+    @staticmethod
+    def forward(ctx, grad, sel, scale: float, plain: bool):
+        ctx.save_for_backward(sel)
+        ctx.scale, ctx.plain = scale, plain
+        bwd = refine_cross_backward_plain if plain else refine_cross_backward
+        return bwd(grad, sel, scale)
+
+    @staticmethod
+    @last_order("the CrossMask's second order")
+    def backward(ctx, u):
+        sel, = ctx.saved_tensors
+        gather = refine_cross_gather_plain if ctx.plain else refine_cross_gather
+        return gather(u.contiguous(), sel, ctx.scale), None, None, None
+
+
 class _DualMasksCross(torch.autograd.Function):
     """Forward and VJP by the kernels, or by the plain twins (``plain``);
     gradients reach the features only."""
@@ -193,9 +251,9 @@ class _DualMasksCross(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         sel, = ctx.saved_tensors
-        bwd = (refine_cross_backward_plain if ctx.plain
-               else refine_cross_backward)
-        return (None, bwd(grad.contiguous(), sel, ctx.scale)) + (None,) * 5
+        df = _DualMasksCrossBackward.apply(grad.contiguous(), sel, ctx.scale,
+                                           ctx.plain)
+        return (None, df) + (None,) * 5
 
 
 def dual_masks_cross_plain(p: torch.Tensor, f: torch.Tensor, a: torch.Tensor,
@@ -231,3 +289,4 @@ def dual_masks_cross(p: torch.Tensor, f: torch.Tensor, a: torch.Tensor, k: int,
 
 refine_cross.launches = 0
 refine_cross_backward.launches = 0
+refine_cross_gather.launches = 0

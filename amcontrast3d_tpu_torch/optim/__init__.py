@@ -7,9 +7,11 @@ parameter groups), betas (0.9, 0.999), eps 1e-8: optax's ``adamw`` in
 exact arithmetic, as both apply ``lr·(m̂/(√v̂ + eps) + wd·θ)``.  Every other
 name of the JAX factory's table (and ``adamw`` under ``layer_decay`` or a
 ``lookahead_`` prefix) is an :class:`optim.extras.Chain` over optax's rule
-with the factory's arguments (:func:`optax_rule`).  ``adahessian`` is not
-ported: its Hutchinson step takes a second-order pass through every
-custom autograd function of the step.
+with the factory's arguments (:func:`optax_rule`).  ``adahessian``
+(:mod:`optim.adahessian`) is such a chain too; its rule takes the step's
+Hutchinson diagonal (``optimizer.step(hess=...)``), which
+``engine.train.make_train_step(needs_hessian=True)`` computes.
+:func:`needs_hessian` names the optimizers that take it.
 
 Frozen parameters (↔ ``Runner._freeze_labels`` with optax's
 ``multi_transform`` and ``set_to_zero``): :func:`freeze_parameters_` turns
@@ -26,7 +28,16 @@ import torch
 from torch import nn
 
 from . import extras
+from .adahessian import adahessian, hutchinson_diag, rademacher_like
 from .extras import Chain, Rule
+
+
+def needs_hessian(cfg) -> bool:
+    """Whether the optimizer of ``cfg`` takes the Hutchinson diagonal: a
+    name ending in ``adahessian`` (↔ the JAX runner's
+    ``opt_name.endswith("adahessian")``, ``engine/runner.py:124``)."""
+    cfg = dict(cfg) if cfg is not None else {}
+    return str(cfg.get("NAME", "adamw")).lower().endswith("adahessian")
 
 
 def _decay_then(weight_decay: float, rule: Rule) -> Rule:
@@ -136,9 +147,9 @@ def optax_rule(cfg: Dict) -> Callable[[str], Rule]:
                               float(cfg["eps"]) if "eps" in cfg else 1e-6,
                               decoupled_decay=name == "madgradw")
     elif name == "adahessian":
-        raise NotImplementedError(
-            "optimizer adahessian is not ported (its Hutchinson step needs "
-            "a second-order pass through the step's kernels)")
+        # no coupled L2: the JAX factory returns the rule unchained
+        rule = adahessian(b1, b2, eps, weight_decay,
+                          float(cfg.get("hessian_power", 1.0)))
     else:
         raise ValueError(f"optimizer {name} is not supported")
     return lambda n: rule
@@ -149,7 +160,8 @@ def build_optimizer_from_cfg(cfg, model: nn.Module,
     """cfg keys: NAME (default ``adamw``), weight_decay, betas/opt_betas,
     eps, momentum, lr, and each optimizer's own (``nesterov``, ``alpha``,
     ``delta``, ``wd_ratio``, ``dampening``, ``lookahead_alpha``,
-    ``lookahead_k``, ``layer_decay``, ``num_layers``).  The learning rate
+    ``lookahead_k``, ``layer_decay``, ``num_layers``, ``hessian_power``).
+    The learning rate
     of each step is set by the train step from its schedule; ``lr`` (or
     cfg.lr) is only the initial value."""
     cfg = dict(cfg) if cfg is not None else {}

@@ -320,8 +320,8 @@ def lookahead(base: Rule, alpha: float = 0.5, k: int = 6) -> Rule:
     if k < 1:
         raise ValueError(f"invalid lookahead steps {k}")
 
-    def rule(p, g, st, lr):
-        u = base(p, g, st.setdefault("base", {}), lr)
+    def rule(p, g, st, lr, **extra):
+        u = base(p, g, st.setdefault("base", {}), lr, **extra)
         slow = st.setdefault("slow", p.clone())
         count = st.get("la_count", 0) + 1
         st["la_count"] = count
@@ -361,8 +361,8 @@ def layer_decay_scale(name: str, layer_decay: float, num_layers: int
 def scaled(rule: Rule, factor: float) -> Rule:
     """``rule``'s update times a constant (the layer decay of one
     parameter)."""
-    def scaled_rule(p, g, st, lr):
-        return rule(p, g, st, lr) * factor
+    def scaled_rule(p, g, st, lr, **extra):
+        return rule(p, g, st, lr, **extra) * factor
     return scaled_rule
 
 
@@ -378,7 +378,10 @@ class Chain(torch.optim.Optimizer):
     ``lr / lr_scale`` where optax's chain reads it, and the factor scales
     the final update, as the JAX chain's ``scale_by_plateau`` does.  A
     parameter with no gradient is updated with a zero one, as optax
-    updates every leaf."""
+    updates every leaf.  ``step(hess=...)`` hands each rule its
+    parameter's Hutchinson diagonal (one tensor a parameter, in the
+    groups' order), as optax's extra arguments reach adahessian through
+    the chain and, in the port, through lookahead and the layer decay."""
 
     def __init__(self, named_params: Iterable[Tuple[str, torch.Tensor]],
                  rule_for: Callable[[str], Rule], lr: float):
@@ -389,14 +392,16 @@ class Chain(torch.optim.Optimizer):
         self.rules = [rule_for(n) for n, _ in named]
 
     @torch.no_grad()
-    def step(self, closure=None):
+    def step(self, closure=None, hess=None):
         if closure is not None:
             raise ValueError("a closure is not supported")
         rules = iter(self.rules)
+        hess = iter(hess) if hess is not None else None
         for group in self.param_groups:
             scale = group["lr_scale"]
             lr = group["lr"] / scale
             for p, rule in zip(group["params"], rules):
                 g = p.grad if p.grad is not None else torch.zeros_like(p)
-                u = rule(p, g, self.state[p], lr)
+                extra = {} if hess is None else {"hess": next(hess)}
+                u = rule(p, g, self.state[p], lr, **extra)
                 p.add_(u if scale == 1.0 else u * scale)

@@ -30,6 +30,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..ops._autograd import last_order
+
 # collectives issued by the package since the last reset_counts(), by kind
 COUNTS: Dict[str, int] = {"all_reduce": 0, "broadcast": 0, "all_gather": 0,
                           "barrier": 0}
@@ -124,7 +126,8 @@ def barrier() -> None:
 class _AllReduceSum(torch.autograd.Function):
     """Sum over the ranks; the cotangent is summed over the ranks too (the
     transpose of ``psum``), so each rank's input receives every rank's
-    share of the gradient through the shared value."""
+    share of the gradient through the shared value.  Differentiable once:
+    a second-order pass through it raises (no rule is ported)."""
 
     @staticmethod
     def forward(ctx, x, group):
@@ -134,6 +137,7 @@ class _AllReduceSum(torch.autograd.Function):
         return y
 
     @staticmethod
+    @last_order("the differentiable all_reduce (parallel._AllReduceSum)")
     def backward(ctx, g):
         g = g.contiguous().clone()
         collective("all_reduce", g, group=ctx.group)

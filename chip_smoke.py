@@ -329,10 +329,29 @@
    the same state and gradients.  Each step gives a finite loss; a generic
    grouped MLP (a LocalAggregation of each model option) equals its CPU
    result within 1e-4·(1+max);
-23. prints one JSON line of per-kernel results (the bfloat16 forms of
+23. "adahessian" (``adahessian_phase``): the adahessian train step
+   (``make_train_step(needs_hessian=True)``: the Hutchinson diagonal by a
+   second backward) at full width: "aa train adahessian" and "mm train
+   adahessian" (B = 4 x 24000, 1 untimed and 2 timed steps, AdamW's steps
+   on the same model and batches timed beside them, peak memory of each),
+   "aa train adahessian approx fused", "mm train adahessian approx" and
+   "base xl train adahessian" (8 x 24000), each step's launches held to
+   its table (every VJP kernel twice: the second pass goes back through
+   the forward's VJPs; each second-order kernel once a VJP); the AA and MM
+   Hessian diagonals from the kernels against those from the plain twins
+   on the same probes (HESS_TOL); the five second-order kernels
+   (``three_interpolation_gather``, ``refine_cross_gather``,
+   ``contrast_grad2_rows`` / ``_support`` and ``aggregate_backward2``) at
+   the calls the first step made, each against its twin, timed beside the
+   twin, its bound and (the two gathers) a sparse product; then one epoch
+   of the AA train CLI with ``optimizer.NAME=adahessian`` and
+   ``--profile``: its launches a step, and ``<run_dir>/profile/trace.json``
+   written with the second-order kernels among its device kernels;
+24. prints one JSON line of per-kernel results (the bfloat16 forms of
    kernels 20 and 21 in rows of their own; the data-parallel ranks'
    launches under ``launches_by_path`` as ``dp …``) and, last, the device
-   line.
+   line.  ``--only adahessian`` runs the build and that phase alone (for
+   work on it; the smoke run takes no arguments).
 
 Any failure raises, so the exit code is non-zero; without a CUDA device it
 stops before printing any result.
@@ -432,6 +451,18 @@ KERNELS = (  # name, source, the TPU kernel it replaces
      "amcontrast3d_tpu/ops/aggregate_pallas.py:172"),
     ("aggregate_backward_bf16", "amcontrast3d_tpu_torch/csrc/aggregate.cu",
      "amcontrast3d_tpu/ops/aggregate_pallas.py:222"),
+    # the adahessian step's second order: each differentiates a TPU VJP
+    # kernel's function once more (the JAX step takes it by a jvp)
+    ("three_interpolation_gather", "amcontrast3d_tpu_torch/csrc/interpolate.cu",
+     "amcontrast3d_tpu/ops/interpolate_pallas.py:206 (its VJP's second order)"),
+    ("refine_cross_gather", "amcontrast3d_tpu_torch/csrc/refine.cu",
+     "amcontrast3d_tpu/ops/contrast_pallas.py:1091 (its VJP's second order)"),
+    ("contrast_grad2_rows", "amcontrast3d_tpu_torch/csrc/contrast.cu",
+     "amcontrast3d_tpu/ops/contrast_pallas.py:306 (its VJP's second order)"),
+    ("contrast_grad2_support", "amcontrast3d_tpu_torch/csrc/contrast.cu",
+     "amcontrast3d_tpu/ops/contrast_pallas.py:360 (its VJP's second order)"),
+    ("aggregate_backward2", "amcontrast3d_tpu_torch/csrc/aggregate.cu",
+     "amcontrast3d_tpu/ops/aggregate_pallas.py:222 (its VJP's second order)"),
 )
 STEP_KERNELS = KERNELS[:10]      # the kernels of the four step paths
 # the step's large-shape interpolation kernels: fp0 and fp1 by the gates
@@ -439,7 +470,8 @@ BIG_INTERP_KERNELS = tuple(k for k in KERNELS if k[0] in (
     "three_interpolation_big", "three_interpolation_backward_big"))
 APPROX_KERNELS = KERNELS[14:18]  # the approx configuration, the fused tail
 LAYOUT_KERNELS = KERNELS[18:21]  # the layouts every forward and step make
-BF16_KERNELS = KERNELS[21:]      # use_amp's forms of the fused tail
+BF16_KERNELS = KERNELS[21:23]    # use_amp's forms of the fused tail
+HESS_KERNELS = KERNELS[23:]      # the adahessian step's second order
 # the whole-scene paths: Synthetic rooms of SCENE_POINTS raw points from the
 # dataset's seed 0; the first two voxelise (0.04 m) to 91478 and 130575
 # points, which pad to the buckets 106496 and 155648
@@ -607,6 +639,20 @@ BF16_FUSED_WDP_TOL = 0.5
 # BatchNorm's alone (dp_bn_check)
 DP_BF16_GRAD_TOL = BF16_GRAD_TOL
 REMAT_BATCHES = (4, 8)           # the remat phase's clouds of N points
+# the adahessian phase: each step's first-order VJP kernel and the
+# second-order kernel of its function (one launch a VJP of the forward)
+VJP_SECOND_ORDER = (
+    ("three_interpolation_backward", "three_interpolation_gather"),
+    ("three_interpolation_backward_big", "three_interpolation_gather"),
+    ("contrast_grad_rows", "contrast_grad2_rows"),
+    ("contrast_grad_support", "contrast_grad2_support"),
+    ("refine_cross_backward", "refine_cross_gather"),
+    ("aggregate_backward", "aggregate_backward2"))
+HESS_STEPS = 3       # adahessian (and AdamW) steps a path: 1 untimed, 2 timed
+# the Hessian diagonal from the kernels against the twins', relative L2
+# over all parameters (the VJP kernels' float atomics and sums in other
+# orders, amplified once more)
+HESS_TOL = 1e-3
 
 
 def card() -> str:
@@ -2119,6 +2165,11 @@ def wrappers(ops) -> dict:
             "aggregate_backward": ops.aggregate_backward,
             "aggregate_forward_bf16": ops.aggregate_forward_bf16,
             "aggregate_backward_bf16": ops.aggregate_backward_bf16,
+            "three_interpolation_gather": ops.three_interpolation_gather,
+            "refine_cross_gather": ops.refine_cross_gather,
+            "contrast_grad2_rows": ops.contrast_grad2_rows,
+            "contrast_grad2_support": ops.contrast_grad2_support,
+            "aggregate_backward2": ops.aggregate_backward2,
             "layout_keys": ops.spatial.layout_keys,
             "layout_pack": ops.spatial.layout_pack,
             "support_layout": ops.contrast.support_layout}
@@ -2358,7 +2409,7 @@ def train_batch(rng, dev, b: int = B) -> dict:
 
 
 def make_step(cfg, model, optimizer, dev, seed, kind: str,
-              distributed: bool = False):
+              distributed: bool = False, needs_hessian: bool = False):
     from amcontrast3d_tpu_torch.engine import make_train_step
     from amcontrast3d_tpu_torch.loss import build_criterion_from_cfg
     from amcontrast3d_tpu_torch.scheduler import (as_step_schedule,
@@ -2371,7 +2422,8 @@ def make_step(cfg, model, optimizer, dev, seed, kind: str,
         model, build_criterion_from_cfg(criterion_args), optimizer,
         as_step_schedule(lr_fn, STEPS_PER_EPOCH), kind, cfg.num_classes,
         cfg.ignore_index, cfg.get("ambiguity_args"), cfg.grad_norm_clip,
-        torch.Generator(dev).manual_seed(seed), distributed=distributed)
+        torch.Generator(dev).manual_seed(seed), distributed=distributed,
+        needs_hessian=needs_hessian)
 
 
 def train_path(ops, cfg, model, dev, rng, tag, kind: str, path: str = None,
@@ -4243,6 +4295,405 @@ def options_phase(ops, dev, tag: str) -> dict:
     return by_path
 
 
+def hessian_launches(first: dict) -> dict:
+    """The launch table of ``first``'s train step with adahessian: the
+    Hutchinson pass goes back through the forward's VJPs, so every VJP
+    kernel runs twice, and each VJP's second-order kernel once."""
+    want = dict(first)
+    for vjp, second in VJP_SECOND_ORDER:
+        if vjp in first:
+            want[vjp] = 2 * first[vjp]
+            want[second] = want.get(second, 0) + first[vjp]
+    return want
+
+
+@contextlib.contextmanager
+def recording_second_order(calls: dict):
+    """Every second-order launch of the autograd functions, its arguments
+    kept (cloned) under the kernel's name, for the comparisons after the
+    main path's run; the wrappers run as they are.  A wrapper counts its
+    launches on the module's name, the recorder while it is patched in, so
+    the recorder's count goes back to the wrapper after."""
+    from amcontrast3d_tpu_torch.ops import aggregate, contrast, interpolate, refine
+
+    def keep(name, fn):
+        @functools.wraps(fn)
+        def wrapper(*args):
+            calls.setdefault(name, []).append(tuple(
+                a.clone() if torch.is_tensor(a) else a for a in args))
+            return fn(*args)
+        return wrapper
+
+    patched = []
+    try:
+        with ExitStack() as stack:
+            for mod, attr, name in (
+                    (interpolate, "three_interpolation_gather",
+                     "three_interpolation_gather"),
+                    (refine, "refine_cross_gather", "refine_cross_gather"),
+                    (contrast, "_grad2_rows_kernel", "contrast_grad2"),
+                    (aggregate, "aggregate_backward2", "aggregate_backward2")):
+                fn = getattr(mod, attr)
+                patched.append((fn, keep(name, fn)))
+                stack.enter_context(mock.patch.object(mod, attr, patched[-1][1]))
+            yield
+    finally:
+        for fn, wrapper in patched:
+            if hasattr(fn, "launches"):
+                fn.launches = wrapper.launches
+
+
+def sparse_rows(rows: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor,
+                n_rows: int, n_cols: int) -> torch.Tensor:
+    """A CSR matrix from (row, col, value) triples sorted by row."""
+    counts = torch.bincount(rows, minlength=n_rows)
+    crow = torch.zeros(n_rows + 1, dtype=torch.int64, device=rows.device)
+    crow[1:] = torch.cumsum(counts, 0)
+    return torch.sparse_csr_tensor(crow, cols, vals, (n_rows, n_cols))
+
+
+def second_order_kernels(ops, calls: dict, tag: str) -> dict:
+    """The second-order kernels at the calls the main path made, each
+    against its twin on the same inputs (the gathers within 1e-6, the
+    contrast halves within 1e-4 and the aggregation within 1e-5 of
+    1 + max|twin|), timed beside the twin, with its bound and (the two
+    gathers) a sparse product of the same weights as the library call."""
+    from amcontrast3d_tpu_torch.ops import contrast as ops_contrast
+
+    results, timed, note = tally(HESS_KERNELS)
+    for u, idx, w in calls.get("three_interpolation_gather", []):
+        out = ops.three_interpolation_gather(u, idx, w)
+        want = ops.three_interpolation_gather_plain(u, idx, w)
+        note("three_interpolation_gather",
+             check_close("three_interpolation_gather", out, want, 1e-6))
+        b, n2, c = u.shape
+        n1 = idx.shape[1]
+        rows = torch.arange(b * n1, device=u.device).repeat_interleave(3)
+        cols = (idx.long() + n2 * torch.arange(b, device=u.device)[:, None, None]
+                ).reshape(-1)
+        mat = sparse_rows(rows, cols, w.reshape(-1), b * n1, b * n2)
+        flat = u.reshape(b * n2, c)
+        timed("three_interpolation_gather", "uniform",
+              lambda: ops.three_interpolation_gather(u, idx, w),
+              lambda: ops.three_interpolation_gather_plain(u, idx, w),
+              u.numel() * 4 + idx.numel() * 8 + b * n1 * c * 4,
+              5 * b * n1 * c, lambda: torch.sparse.mm(mat, flat))
+    for u, sel, scale in calls.get("refine_cross_gather", []):
+        out = ops.refine_cross_gather(u, sel, scale)
+        want = ops.refine_cross_gather_plain(u, sel, scale)
+        note("refine_cross_gather", check_close("refine_cross_gather", out,
+                                                want, 1e-6))
+        b, n, c = u.shape
+        valid = (sel >= 0).reshape(b * n, -1)
+        rows = torch.arange(b * n, device=u.device)[:, None].expand_as(valid)[valid]
+        cols = (sel.long() + n * torch.arange(b, device=u.device)[:, None, None]
+                ).reshape(b * n, -1)[valid]
+        mat = sparse_rows(rows, cols, torch.full_like(rows, scale,
+                                                      dtype=torch.float32),
+                          b * n, b * n)
+        flat = u.reshape(b * n, c)
+        timed("refine_cross_gather", "uniform",
+              lambda: ops.refine_cross_gather(u, sel, scale),
+              lambda: ops.refine_cross_gather_plain(u, sel, scale),
+              u.numel() * 8 + sel.numel() * 4, (int(valid.sum()) + b * n) * c,
+              lambda: torch.sparse.mm(mat, flat))
+    for layout, f, g4, v, tinv, need_s in calls.get("contrast_grad2", []):
+        cloud, aux, cmax = layout
+        b, n, c = f.shape
+        # the caller's positions, labels and thresholds from the layout
+        perm = cloud.perm
+        p = torch.empty(b, n, 3, device=f.device).scatter_(
+            1, perm[..., None].expand(b, n, 3), cloud.packed[..., :3])
+        lab_kth = torch.empty(b, n, 2, device=f.device).scatter_(
+            1, perm[..., None].expand(b, n, 2), aux)
+        lab, kth = lab_kth[..., 0].contiguous(), lab_kth[..., 1].contiguous()
+        rows_k, gg4_k = ops_contrast._grad2_rows_kernel(layout, f, g4, v, tinv,
+                                                        need_s)
+        sup_k = ops_contrast._grad2_support_kernel(layout, f, g4, v, tinv,
+                                                   need_s)
+        rows_p, gg4_p = ops.contrast_grad2_plain(p, f, lab, kth, g4, v, tinv,
+                                                 need_s, support=False)
+        sup_p, _ = ops.contrast_grad2_plain(p, f, lab, kth, g4, v, tinv,
+                                            need_s, rows=False)
+        note("contrast_grad2_rows", max(
+            check_close("contrast_grad2_rows gf", rows_k, rows_p, 1e-4),
+            check_close("contrast_grad2_rows gg4", gg4_k, gg4_p, 1e-4)))
+        note("contrast_grad2_support",
+             check_close("contrast_grad2_support", sup_k, sup_p, 1e-4))
+        out = ops.contrast_forward(p, f, lab, kth, tinv)
+        pairs = float(out[..., 4:6].sum())
+        # f and v read, the layout and g4 read, the outputs written once;
+        # a member pair: three C-wide dot products and two axpys (FMAs),
+        # about 20 scalar instructions more
+        nbytes = b * n * (2 * c * 4 + 16 + 8 + 16) + b * n * c * 4
+        timed("contrast_grad2_rows", "uniform",
+              lambda: ops_contrast._grad2_rows_kernel(layout, f, g4, v, tinv,
+                                                      need_s),
+              lambda: ops.contrast_grad2_plain(p, f, lab, kth, g4, v, tinv,
+                                               need_s, support=False),
+              nbytes + b * n * 16, pairs * (5 * c + 20))
+        timed("contrast_grad2_support", "uniform",
+              lambda: ops_contrast._grad2_support_kernel(layout, f, g4, v,
+                                                         tinv, need_s),
+              lambda: ops.contrast_grad2_plain(p, f, lab, kth, g4, v, tinv,
+                                               need_s, rows=False),
+              nbytes, pairs * (5 * c + 20))
+    for w, u, idx, qp, ext, ties, g_sq, order in calls.get(
+            "aggregate_backward2", []):
+        got = ops.aggregate_backward2(w, u, idx, qp, ext, ties, g_sq, order)
+        want = ops.aggregate_backward2_plain(w, u, idx, qp, ext, ties, g_sq,
+                                             order)
+        note("aggregate_backward2", max(
+            check_close(f"aggregate_backward2 output {i}", a, e, 1e-5)
+            for i, (a, e) in enumerate(zip(got, want)) if e is not None))
+        b, n, c = u.shape
+        m, k = idx.shape[1:]
+        timed("aggregate_backward2", "uniform",
+              lambda: ops.aggregate_backward2(w, u, idx, qp, ext, ties, g_sq,
+                                              order),
+              lambda: ops.aggregate_backward2_plain(w, u, idx, qp, ext, ties,
+                                                    g_sq, order),
+              (2 * b * n * c + 3 * b * m * c) * 4 + idx.numel() * 4
+              + b * m * c + (4 * b * m * c + b * n * c) * 4,
+              8 * b * m * k * c)
+    return finish_kernels(results, "the S3DIS steps' (uniform)", tag)
+
+
+def hessian_diag(cfg, model, kind: str, batch, probes, plain: bool):
+    """The Hutchinson diagonal of one train-mode forward and loss of a copy
+    of ``model`` along ``probes``, through the kernels or (``plain``) the
+    twins, dropout from a generator seeded alike."""
+    from amcontrast3d_tpu_torch.engine.train import forward_loss
+    from amcontrast3d_tpu_torch.loss import build_criterion_from_cfg
+    from amcontrast3d_tpu_torch.optim import hutchinson_diag
+    from amcontrast3d_tpu_torch.tools.profile_eval import plain_ops
+
+    m = with_threshold(model, 0.5) if kind == "mm" else copy.deepcopy(model)
+    m.train()
+    params = list(m.parameters())
+    criterion = build_criterion_from_cfg(
+        cfg.criterion_args_AcePre if kind == "mm" else cfg.criterion_args_Ace)
+    gen = torch.Generator(batch["x"].device).manual_seed(SEED + 2)
+    with plain_ops() if plain else contextlib.nullcontext():
+        loss = forward_loss(m, criterion, kind, batch, cfg.num_classes,
+                            cfg.ignore_index, cfg.get("ambiguity_args"),
+                            gen)[0]
+        grads = torch.autograd.grad(loss, params, create_graph=True,
+                                    allow_unused=True)
+        hess = hutchinson_diag(grads, params, [probes])
+    torch.cuda.synchronize()
+    return loss.item(), [h.detach() for h in hess]
+
+
+def hessian_vs_plain(cfg, model, kind: str, batch, path: str, tag: str) -> None:
+    """The Hessian diagonal through the kernels against the twins' on the
+    same probes: the loss within 1e-4 relative and the diagonal within
+    HESS_TOL relative L2 over all parameters."""
+    from amcontrast3d_tpu_torch.optim import rademacher_like
+
+    probes = rademacher_like(list(model.parameters()),
+                             torch.Generator(batch["x"].device).manual_seed(SEED))
+    t = time.perf_counter()
+    lk, hk = hessian_diag(cfg, model, kind, batch, probes, plain=False)
+    kms = (time.perf_counter() - t) * 1e3
+    t = time.perf_counter()
+    lp, hp = hessian_diag(cfg, model, kind, batch, probes, plain=True)
+    pms = (time.perf_counter() - t) * 1e3
+    num = den = worst = 0.0
+    for a, b in zip(hk, hp):
+        d, n = (a - b).double().norm().item(), b.double().norm().item()
+        num, den = num + d * d, den + n * n
+        worst = max(worst, d / max(n, 1e-30))
+    rel = (num / den) ** 0.5
+    if not abs(lk - lp) <= 1e-4 * abs(lp):
+        raise AssertionError(f"{path}: loss {lk} vs plain {lp}")
+    if not (den > 0 and rel <= HESS_TOL):
+        raise AssertionError(f"{path}: Hessian diagonal vs plain ops: relative "
+                             f"L2 {rel} > {HESS_TOL}")
+    print(f"{path} Hessian diagonal vs plain ops on the card, the same probes: "
+          f"loss {lk} vs {lp}, diagonal relative L2 {rel:.3e} over all "
+          f"parameters (worst tensor {worst:.3e}, tol {HESS_TOL}); "
+          f"{kms:.1f} ms vs plain {pms:.1f} ms  [{tag}]")
+
+
+def hessian_path(ops, cfg, model, dev, batches, tag: str, kind: str,
+                 path: str, calls: dict = None) -> dict:
+    """The adahessian train step of ``kind`` (``path`` names its launch
+    table) on ``batches`` (the first untimed; its second-order calls kept
+    in ``calls``): finite losses, confusion-matrix totals, the launches a
+    step, the median ms and the peak memory.  Returns the launches."""
+    from amcontrast3d_tpu_torch.optim import build_optimizer_from_cfg
+
+    optimizer = build_optimizer_from_cfg(
+        {**dict(cfg.optimizer), "NAME": "adahessian"}, model, lr=cfg.lr)
+    step = make_step(cfg, model, optimizer, dev, SEED, kind,
+                     needs_hessian=True)
+    b, n = batches[0]["y"].shape
+    counted = reset_counts(ops)
+    step_ms, losses = [], []
+    for i, batch in enumerate(batches):
+        if i == 1:
+            torch.cuda.reset_peak_memory_stats()
+        keep = (recording_second_order(calls) if i == 0 and calls is not None
+                else contextlib.nullcontext())
+        with keep:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = step(batch)
+            torch.cuda.synchronize()
+        if i:
+            step_ms.append((time.perf_counter() - t) * 1e3)
+        losses.append(out["loss"].item())
+        if not np.isfinite(losses[-1]) or int(out["cm"].sum()) != b * n:
+            raise AssertionError(f"{path} step {i}: loss {losses[-1]}, "
+                                 f"confusion matrix {int(out['cm'].sum())}")
+    launches = check_launches(path, counted, len(batches))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    med = statistics.median(step_ms)
+    STEP_TIMES[path] = (med, peak)
+    print(f"{path} main path: {len(batches)} steps at B={b}x{n}, losses "
+          f"{losses}, launches per step {LAUNCHES[path]}; per-step ms "
+          f"{step_ms}, median {med:.3f} ms, peak {peak:.3f} GiB  [{tag}]")
+    return launches
+
+
+def adamw_ms(cfg, model, dev, batches, kind: str) -> tuple:
+    """(median ms, peak GiB) of the cfg's AdamW step on ``batches`` (the
+    first untimed), from a copy of ``model``."""
+    from amcontrast3d_tpu_torch.optim import build_optimizer_from_cfg
+
+    m = copy.deepcopy(model)
+    step = make_step(cfg, m, build_optimizer_from_cfg(cfg.optimizer, m,
+                                                      lr=cfg.lr),
+                     dev, SEED, kind)
+    times = []
+    for i, batch in enumerate(batches):
+        if i == 1:
+            torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        step(batch)["loss"].item()
+        torch.cuda.synchronize()
+        if i:
+            times.append((time.perf_counter() - t) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del m
+    torch.cuda.empty_cache()
+    return statistics.median(times), peak
+
+
+def adahessian_phase(ops, dev, tag: str, workdir: str) -> tuple:
+    """The adahessian step at full width (see the module's item 23).
+    Returns ({path: launches}, the second-order kernels' results)."""
+    from amcontrast3d_tpu_torch.models import build_model_from_cfg, init_weights_
+    from amcontrast3d_tpu_torch.utils.config import EasyConfig
+
+    rng = np.random.RandomState(SEED + 23)   # leaves the other phases' data
+    LAUNCHES["aa train adahessian"] = hessian_launches(TRAIN_LAUNCHES)
+    LAUNCHES["mm train adahessian"] = hessian_launches(LAUNCHES["mm train"])
+    LAUNCHES["aa train adahessian approx fused"] = hessian_launches(
+        LAUNCHES["aa train approx fused"])
+    LAUNCHES["mm train adahessian approx"] = hessian_launches(
+        LAUNCHES["mm train approx"])
+    LAUNCHES["base xl train adahessian"] = hessian_launches(
+        base_launches(ops, BASE_XL_B, train=True))
+    by_path, calls, side = {}, {}, []
+    batches = [train_batch(rng, dev) for _ in range(HESS_STEPS)]
+    for kind in ("aa", "mm"):
+        cfg = EasyConfig()
+        cfg.load(CFGS[kind], recursive=True)
+        model = build_model_from_cfg(cfg.model)
+        init_weights_(model, torch.Generator().manual_seed(SEED))
+        model = model.to(dev)
+        hessian_vs_plain(cfg, model, kind, batches[0],
+                         f"{kind} train adahessian", tag)
+        ms, peak = adamw_ms(cfg, model, dev, batches, kind)
+        path = f"{kind} train adahessian"
+        by_path[path] = hessian_path(ops, cfg, copy.deepcopy(model), dev,
+                                     batches, tag, kind, path, calls)
+        side.append(f"{kind}: adahessian {STEP_TIMES[path][0]:.3f} ms (peak "
+                    f"{STEP_TIMES[path][1]:.3f} GiB) vs AdamW {ms:.3f} ms "
+                    f"(peak {peak:.3f} GiB), "
+                    f"{STEP_TIMES[path][0] / ms:.2f}x")
+        if kind == "aa":
+            with configuration(knn_backend="approx", agg_fused="on"):
+                path = "aa train adahessian approx fused"
+                by_path[path] = hessian_path(ops, cfg, copy.deepcopy(model),
+                                             dev, batches, tag, kind, path,
+                                             calls)
+        else:
+            with configuration(knn_backend="approx"):
+                path = "mm train adahessian approx"
+                by_path[path] = hessian_path(ops, cfg, copy.deepcopy(model),
+                                             dev, batches, tag, kind, path)
+        del model
+        torch.cuda.empty_cache()
+    print(f"adahessian step at B={B}x{N}, median of {HESS_STEPS - 1} steps in "
+          f"this call: " + "; ".join(side) + f"  [{tag}]")
+    kernels = second_order_kernels(ops, calls, tag)
+    calls.clear()
+    torch.cuda.empty_cache()
+    cfg = EasyConfig()
+    cfg.load(BASE_XL_CFG, recursive=True)
+    model = build_model_from_cfg(cfg.model)
+    init_weights_(model, torch.Generator().manual_seed(SEED))
+    model = model.to(dev)
+    base_batches = [train_batch(rng, dev, BASE_XL_B) for _ in range(HESS_STEPS)]
+    ms, peak = adamw_ms(cfg, model, dev, base_batches, "base")
+    path = "base xl train adahessian"
+    by_path[path] = hessian_path(ops, cfg, model, dev, base_batches, tag,
+                                 "base", path)
+    print(f"base xl: adahessian {STEP_TIMES[path][0]:.3f} ms (peak "
+          f"{STEP_TIMES[path][1]:.3f} GiB) vs AdamW {ms:.3f} ms (peak "
+          f"{peak:.3f} GiB) at B={BASE_XL_B}x{N}  [{tag}]")
+    del model, base_batches
+    torch.cuda.empty_cache()
+    by_path["s3dis aa train cli adahessian"] = adahessian_cli_path(
+        ops, dev, tag, workdir)
+    return by_path, kernels
+
+
+def adahessian_cli_path(ops, dev, tag: str, workdir: str) -> dict:
+    """One epoch of the AA train CLI with ``optimizer.NAME=adahessian`` and
+    ``--profile``: finite losses, the adahessian table's launches a train
+    step, and ``<run_dir>/profile/trace.json`` holding device kernels, the
+    second-order ones among them."""
+    path = "s3dis aa train cli adahessian"
+    argv = ["--cfg", CFGS["aa"], "--profile", "optimizer.NAME=adahessian",
+            "dataset.common.NAME=Synthetic", "dataset.common.num_rooms=4",
+            "dataset.common.n_points=100000", "dataset.train.loop=2",
+            "dataset.val.num_rooms=1", "dataset.val.presample=False",
+            f"batch_size={B}", "epochs=1", f"root_dir={workdir}",
+            f"seed={SEED}"]
+    t = time.perf_counter()
+    results, runner, train, _, _, total = run_train_cli(ops, argv, "aa")
+    wall = time.perf_counter() - t
+    timing = results["timing"]
+    steps = sum(e["steps"] for e in timing)
+    if not steps or not all(np.isfinite(e["loss"]) for e in timing):
+        raise AssertionError(f"{path}: {timing}")
+    want = {k: v * steps for k, v in LAUNCHES["aa train adahessian"].items()}
+    got = {k: v for k, v in train.items() if v}
+    expect_launches(path, got, want)
+    trace = os.path.join(runner.cfg.run_dir, "profile", "trace.json")
+    with open(trace) as f:
+        events = json.load(f)
+    events = events.get("traceEvents", events)
+    names = {e.get("name", "") for e in events
+             if isinstance(e, dict) and e.get("cat") == "kernel"}
+    second = sorted(n for n in names if "grad2" in n or "gather_kernel" in n)
+    if not names or not any("contrast_grad2" in n for n in names):
+        raise AssertionError(f"{path}: {trace} holds {len(names)} device "
+                             f"kernel names, the second-order ones: {second}")
+    print(f"{path} main path: main_cli mode=train --profile, 1 epoch of "
+          f"{steps} steps at B={B}x{N}, losses {[e['loss'] for e in timing]}, "
+          f"launches per train step {LAUNCHES['aa train adahessian']}; "
+          f"{trace} ({os.path.getsize(trace) / 2**20:.1f} MiB): {len(names)} "
+          f"device kernel names, the second-order ones {second}; "
+          f"{wall:.1f} s with the loader and the profiler  [{tag}]")
+    return total
+
+
 class Laps:
     """Seconds from one lap call to the next, by phase name."""
 
@@ -4284,8 +4735,16 @@ def main() -> None:
           f"{_build.library_path()}")
     print(_build.library_path().with_suffix(".log").read_text().strip())
 
-    rng = np.random.RandomState(SEED)
     lap = Laps()
+    if sys.argv[1:] == ["--only", "adahessian"]:
+        with tempfile.TemporaryDirectory() as workdir:
+            by_path, kernels = adahessian_phase(ops, dev, tag, workdir)
+        lap("adahessian")
+        print_results(by_path, kernels, HESS_KERNELS, t0, lap)
+        return
+    if sys.argv[1:]:
+        raise SystemExit(f"chip_smoke: unknown arguments {sys.argv[1:]}")
+    rng = np.random.RandomState(SEED)
     kernels = kernel_phases(ops, dev, rng, tag)
     kernels.update(scene_kernel_phases(ops, dev, rng, tag))
     scannet_kernel_phases(ops, dev, rng, tag)
@@ -4379,9 +4838,19 @@ def main() -> None:
             ops, "aa", dev, tag, workdir, amp=True)
         torch.cuda.empty_cache()
         lap("the train CLIs")
+        hess_paths, hess_kernels = adahessian_phase(ops, dev, tag, workdir)
+        by_path.update(hess_paths)
+        kernels.update(hess_kernels)
+        lap("adahessian")
         by_path.update(dp_phase(ops, dev, tag, workdir))
         lap("data parallelism")
+    print_results(by_path, kernels, KERNELS, t0, lap)
 
+
+def print_results(by_path: dict, kernels: dict, rows_of, t0: float,
+                  lap) -> None:
+    """The run's total and phase seconds, the kernels' JSON line (the
+    kernels ``rows_of`` names) and, last, the device line."""
     rows = [{"name": k, "route": "cuda", "source": src, "replaces": tpu,
              "launches": sum(counts.get(k, 0) for counts in by_path.values()),
              "launches_by_path": {path: counts.get(k, 0)
@@ -4393,7 +4862,7 @@ def main() -> None:
              "library_ms": kernels[k]["library_ms"],
              **({"dense_bound_ms": kernels[k]["dense_bound_ms"]}
                 if "dense_bound_ms" in kernels[k] else {})}
-            for k, src, tpu in KERNELS]
+            for k, src, tpu in rows_of]
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s in all, the build "
           f"included; the fused aggregation's ScanNet and gate phases "
           f"{sum(FUSED_PHASE_S.values()):.1f} s ("

@@ -2053,3 +2053,171 @@ def test_bf16_forms_raise_on_other_dtypes(cuda_device):
                                accumulator=torch.empty_like(u))
     with pytest.raises(ValueError):   # qp is float32 in both forms
         ops.aggregate_forward(u.bfloat16(), idx, sgn, qp.bfloat16())
+
+
+# ---- the adahessian step's second-order kernels ------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n1,n2,c", [(4, 24000, 6000, 128), (2, 1500, 375, 512),
+                                       (3, 5, 1, 7), (1, 100, 2, 3)])
+def test_interpolation_gather_matches_its_twin(cuda_device, b, n1, n2, c):
+    """The interpolation VJP's second order (``three_interpolation_gather``)
+    at the forward's own (idx, w), n2 < 3 padded, C off the vector width:
+    the twin's bits (the same three products and two sums), one launch."""
+    rng = np.random.RandomState(21)
+    xyz = torch.from_numpy(_cloud(rng, b, n1, False)).to(cuda_device)
+    q = xyz[:, :n2].contiguous()
+    idx, w = ops.three_interpolation_weights(xyz, q)
+    u = torch.from_numpy(rng.randn(b, n2, c).astype(np.float32)).to(cuda_device)
+    before = ops.three_interpolation_gather.launches
+    got = ops.three_interpolation_gather(u, idx, w)
+    assert ops.three_interpolation_gather.launches == before + 1
+    _close(got, ops.three_interpolation_gather_plain(u, idx, w), 1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fusion,n,c", [("MIN", 6000, 64), ("MIN_ALL0", 6000, 64),
+                                        ("MIN_ALL0", 37, 5)])
+def test_refine_gather_matches_its_twin(cuda_device, fusion, n, c):
+    """The CrossMask VJP's second order (``refine_cross_gather``) at the
+    forward kernel's own selection (MIN_ALL0's −1 slots included)."""
+    rng = np.random.RandomState(22)
+    p = torch.from_numpy(_cloud(rng, 2, n, True)).to(cuda_device)
+    f = torch.from_numpy(rng.randn(2, n, c).astype(np.float32)).to(cuda_device)
+    a = torch.from_numpy(rng.randn(2, n).astype(np.float32)).to(cuda_device)
+    _, sel = ops.refine_cross(p, f, a, 12, fusion, keep=True)
+    scale = 1.0 if fusion == "MIN" else 1 / 11
+    u = torch.from_numpy(rng.randn(2, n, c).astype(np.float32)).to(cuda_device)
+    _close(ops.refine_cross_gather(u, sel, scale),
+           ops.refine_cross_gather_plain(u, sel, scale), 1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,c,need_s", [(6000, 64, True), (1500, 128, False),
+                                        (37, 3, True), (65, 512, True)])
+def test_contrast_second_order_matches_its_twin(cuda_device, n, c, need_s):
+    """Both halves of the contrast VJP's second order (rows with the
+    cotangent of g4, support) against ``contrast_grad2_plain`` over the
+    stage's layout: within 1e-4·(1+max), as the VJP's halves."""
+    rng = np.random.RandomState(23)
+    p = torch.from_numpy(_cloud(rng, 2, n, False)).to(cuda_device)
+    f = torch.from_numpy((rng.randn(2, n, c) / np.sqrt(c)).astype(np.float32)
+                         ).to(cuda_device)
+    lab = torch.from_numpy(rng.randint(0, 3, (2, n)).astype(np.float32)
+                           ).to(cuda_device)
+    _, d2 = ops.knn(p, p, min(24, n))
+    kth = (d2[..., -1] * (1 + 1e-5)).contiguous()
+    g4 = torch.from_numpy(rng.randn(2, n, 4).astype(np.float32)).to(cuda_device)
+    v = torch.from_numpy(rng.randn(2, n, c).astype(np.float32)).to(cuda_device)
+    cloud = spatial.sort_support(p)
+    rows, gg4 = ops.contrast_grad2_rows(p, f, lab, kth, g4, v, 1 / 0.3, need_s,
+                                        cloud=cloud)
+    sup = ops.contrast_grad2_support(p, f, lab, kth, g4, v, 1 / 0.3, need_s,
+                                     cloud=cloud)
+    want_rows, want_gg4 = ops.contrast_grad2_plain(p, f, lab, kth, g4, v,
+                                                   1 / 0.3, need_s,
+                                                   support=False)
+    want_sup, _ = ops.contrast_grad2_plain(p, f, lab, kth, g4, v, 1 / 0.3,
+                                           need_s, rows=False)
+    _close(rows, want_rows, 1e-4)
+    _close(gg4, want_gg4, 1e-4)
+    _close(sup, want_sup, 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,c,k,stats", [(6000, 128, 32, True), (1500, 64, 32, False),
+                                         (37, 5, 3, True)])
+def test_aggregation_second_order_matches_its_twin(cuda_device, m, c, k, stats):
+    """The fused aggregation VJP's second order (``aggregate_backward2``) at
+    a ball query's slots (repeats and ties included) against its twin:
+    the per-query cotangents and du2 within 1e-5·(1+max); a bfloat16 u
+    raises by name."""
+    rng = np.random.RandomState(24)
+    n = 4 * m
+    xyz = torch.from_numpy(_cloud(rng, 2, n, False)).to(cuda_device)
+    q = xyz[:, :m].contiguous()
+    idx = ops.ball_query(xyz, q, 0.3, k)
+    u = torch.from_numpy(np.round(rng.randn(2, n, c) * 4).astype(np.float32) / 4
+                         ).to(cuda_device)
+    sgn = torch.from_numpy(np.where(rng.rand(c) < 0.5, -1.0, 1.0).astype(np.float32)
+                           ).to(cuda_device)
+    qp = torch.from_numpy(rng.randn(2, m, c).astype(np.float32)).to(cuda_device)
+    ext, su, sq, ties = ops.aggregate_forward(u, idx, sgn, qp, stats,
+                                              keep_ties=True)
+    g_sq = (torch.from_numpy(rng.randn(2, m, c).astype(np.float32)).to(cuda_device)
+            if stats else None)
+    w = torch.from_numpy(rng.randn(2, n, c).astype(np.float32)).to(cuda_device)
+    got = ops.aggregate_backward2(w, u, idx, qp if stats else None, ext, ties,
+                                  g_sq)
+    want = ops.aggregate_backward2_plain(w, u, idx, qp if stats else None, ext,
+                                         ties, g_sq)
+    for a, e in zip(got, want):
+        assert (a is None) == (e is None)
+        if e is not None:
+            _close(a, e, 1e-5)
+    with pytest.raises(NotImplementedError, match="float32 u only"):
+        ops.aggregate_backward2(w, u.bfloat16(), idx, qp if stats else None,
+                                ext, ties, g_sq)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["aa", "mm"])
+def test_adahessian_step_of_a_small_model_matches_the_twins(cuda_device, kind):
+    """A small AA or MM model's Hutchinson diagonal through the kernels
+    against the plain twins' on the same probes (relative L2 1e-3 over all
+    parameters), and the second-order kernels each launched."""
+    from amcontrast3d_tpu_torch.engine.train import forward_loss
+    from amcontrast3d_tpu_torch.loss import build_criterion_from_cfg
+    from amcontrast3d_tpu_torch.models import (BaseSeg_AMContrast3D,
+                                               BaseSeg_M_AMContrast3D,
+                                               init_weights_)
+    from amcontrast3d_tpu_torch.optim import hutchinson_diag, rademacher_like
+    from amcontrast3d_tpu_torch.tools.profile_eval import plain_ops
+
+    from pathlib import Path
+
+    from amcontrast3d_tpu_torch.utils.config import EasyConfig
+
+    cfg = EasyConfig()
+    cfg.load(str(Path(__file__).resolve().parent.parent / "cfgs" / "s3dis"
+                 / f"AMContrast3D-{kind.upper()}.yaml"), recursive=True)
+    amb = dict(cfg.ambiguity_args)
+    enc = {**dict(cfg.model.encoder_args), "blocks": [1, 1, 1, 1, 1],
+           "width": 16}
+    cls = dict(NAME="SegHead", num_classes=13, dropout=0)
+    if kind == "aa":
+        model = BaseSeg_AMContrast3D(encoder_args=enc, decoder_args={},
+                                     cls_args=cls)
+        crit = build_criterion_from_cfg(cfg.criterion_args_Ace)
+    else:
+        model = BaseSeg_M_AMContrast3D(
+            encoder_args=enc, decoder_args={}, cls_args=cls, AEF_args=amb,
+            APM_args={**dict(cfg.model.APM_args),
+                      "feature_dim": [16, 32, 64, 128], "channel": [8, 4, 2],
+                      "dropout": [0, 0, 0], "threshold": 0.5})
+        crit = build_criterion_from_cfg(cfg.criterion_args_AcePre)
+    init_weights_(model, torch.Generator().manual_seed(0))
+    model = model.to(cuda_device).train()
+    rng = np.random.RandomState(25)
+    batch = {"pos": torch.from_numpy(_cloud(rng, 2, 4096, False)),
+             "x": torch.from_numpy(rng.rand(2, 4096, 4).astype(np.float32)),
+             "y": torch.from_numpy(rng.randint(0, 13, (2, 4096)))}
+    batch = {k: v.to(cuda_device) for k, v in batch.items()}
+    params = list(model.parameters())
+    probes = rademacher_like(params, torch.Generator(cuda_device).manual_seed(0))
+    counted = (ops.three_interpolation_gather, ops.contrast_grad2_rows,
+               ops.contrast_grad2_support, ops.refine_cross_gather)
+    diags = []
+    for plain in (False, True):
+        before = [fn.launches for fn in counted]
+        with plain_ops() if plain else torch.enable_grad():
+            loss = forward_loss(model, crit, kind, batch, 13, None, amb)[0]
+            grads = torch.autograd.grad(loss, params, create_graph=True,
+                                        allow_unused=True)
+            diags.append(hutchinson_diag(grads, params, [probes]))
+        launched = [fn.launches - b for fn, b in zip(counted, before)]
+        assert launched == ([0, 0, 0, 0] if plain else
+                            [4, 4, 4, 4 if kind == "mm" else 0]), launched
+    num = sum(((a - b).double() ** 2).sum() for a, b in zip(*diags))
+    den = sum((b.double() ** 2).sum() for b in diags[1])
+    assert (num / den).sqrt().item() <= 1e-3

@@ -267,10 +267,12 @@ def test_gather_form_matches_jax(dist, func, over):
     loss, a = port_loss.point_contrast_margin(_t(p), ft, _t(labels), args,
                                               dist, func)
     loss.backward()
+    # positions and labels are arguments: closed into the jit as constants,
+    # XLA folds the kNN over them for minutes
     (jl, ja), jgrad = jax.jit(jax.value_and_grad(
-        lambda ff: jcontrast.point_contrast_margin(
-            jnp.asarray(p), ff, jnp.asarray(labels), args, dist, func),
-        has_aux=True))(jnp.asarray(f))
+        lambda ff, pp, ll: jcontrast.point_contrast_margin(
+            pp, ff, ll, args, dist, func),
+        has_aux=True))(jnp.asarray(f), jnp.asarray(p), jnp.asarray(labels))
     assert 0.05 < ((np.asarray(ja) > 0) & (np.asarray(ja) <= 1)).mean() < 0.95
     np.testing.assert_allclose(loss.item(), float(jl), rtol=1e-5)
     np.testing.assert_allclose(a.numpy(), np.asarray(ja), rtol=1e-5, atol=1e-5)

@@ -204,14 +204,19 @@ def test_aliases_take_their_rule(alias):
 
 def test_layer_decay_takes_1_as_no_decay_and_adahessian_raises():
     """``layer_decay`` is taken only for 0 < layer_decay < 1, as in JAX: at
-    1.0 the adamw stays ``torch.optim.AdamW``.  ``adahessian`` raises by
-    name (not ported); an unknown name raises ValueError, as in JAX."""
+    1.0 the adamw stays ``torch.optim.AdamW``.  ``adahessian`` builds (its
+    rule is held to JAX's in ``test_torch_port_adahessian.py``) and raises
+    on a step without the Hutchinson diagonal, as JAX's update does; an
+    unknown name raises ValueError, as in JAX."""
     model = _port_tree()
     opt = build_optimizer_from_cfg({"NAME": "adamw", "layer_decay": 1.0},
                                    model)
     assert isinstance(opt, torch.optim.AdamW)
-    with pytest.raises(NotImplementedError, match="adahessian"):
-        build_optimizer_from_cfg({"NAME": "adahessian"}, model)
+    opt = build_optimizer_from_cfg({"NAME": "adahessian"}, model)
+    for p in model.parameters():
+        p.grad = torch.ones_like(p)
+    with pytest.raises(ValueError, match="Hutchinson"):
+        opt.step()
     with pytest.raises(ValueError, match="not supported"):
         build_optimizer_from_cfg({"NAME": "sawtooth"}, model)
 

@@ -1,11 +1,16 @@
 """Package-level checks of the PyTorch port: it imports no JAX, and its
-kernel build fails loudly (never silently) without nvcc."""
+kernel build fails loudly (never silently) without nvcc.
+
+Importing this module caps torch's CPU threads in a pytest-xdist worker
+(``tests/torch_threads.py``: every worker imports every test module, so
+the cap holds for the suite's whole run)."""
 import os
 import subprocess
 import sys
 from pathlib import Path
 
 import pytest
+import torch_threads  # noqa: F401  (the cap, on import)
 
 from amcontrast3d_tpu_torch.ops import _build
 

@@ -52,6 +52,10 @@ from amcontrast3d_tpu_torch.utils import dist_utils
 from amcontrast3d_tpu_torch.utils.config import EasyConfig
 from amcontrast3d_tpu_torch.utils.convert import (from_jax_variables,
                                                   load_jax_train_state)
+from torch_threads import default_threads  # noqa: F401
+
+# tolerances read with torch's default thread count (tests/torch_threads.py)
+pytestmark = pytest.mark.usefixtures("default_threads")
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORLD, B, N, NCLS, STEPS, STEPS_PER_EPOCH = 2, 2, 2048, 13, 2, 2

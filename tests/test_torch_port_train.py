@@ -57,6 +57,10 @@ from amcontrast3d_tpu_torch.scheduler import (as_step_schedule,
                                               build_scheduler_from_cfg)
 from amcontrast3d_tpu_torch.utils.config import EasyConfig
 from amcontrast3d_tpu_torch.utils.convert import from_jax_variables
+from torch_threads import default_threads  # noqa: F401
+
+# tolerances read with torch's default thread count (tests/torch_threads.py)
+pytestmark = pytest.mark.usefixtures("default_threads")
 
 B, N, NCLS, STEPS, STEPS_PER_EPOCH = 2, 2048, 13, 3, 2
 CFG = EasyConfig()
@@ -543,9 +547,16 @@ def test_schedule_matches_jax():
         with pytest.raises(ValueError, match="not supported"):
             build({**cfg, "sched": "sawtooth"})
     # every optimizer of the JAX table is ported
-    # (tests/test_torch_port_optim.py) but adahessian, which raises by name
-    with pytest.raises(NotImplementedError, match="adahessian"):
-        build_optimizer_from_cfg({"NAME": "adahessian"}, torch.nn.Linear(2, 2))
+    # (tests/test_torch_port_optim.py), adahessian too
+    # (tests/test_torch_port_adahessian.py): its rule refuses a step without
+    # the Hutchinson diagonal
+    linear = torch.nn.Linear(2, 2)
+    optimizer = build_optimizer_from_cfg({"NAME": "adahessian"}, linear)
+    linear.weight.grad = torch.ones(2, 2)
+    with pytest.raises(ValueError, match="Hutchinson"):
+        optimizer.step()
+    optimizer.step(hess=[torch.ones(2, 2), torch.ones(2)])
+    assert torch.isfinite(linear.weight).all()
 
 
 def test_dropout_masks_follow_the_seed_and_the_step():

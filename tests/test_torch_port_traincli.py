@@ -966,17 +966,37 @@ def test_cli_trains_and_tests_at_bf16_on_the_cpu(tmp_path):
                  id="opts0-distributed"),
     pytest.param(["optimizer.layer_decay=0.75"], None, "layer_decay",
                  id="opts1-layer_decay"),
-    pytest.param(["optimizer.NAME=adahessian"], NotImplementedError,
-                 "adahessian", id="opts2-adahessian")])
+    pytest.param(["optimizer.NAME=adahessian"], None, "adahessian",
+                 id="opts2-adahessian")])
 def test_unported_options_raise_by_name(tmp_path, opts, error, match):
     """Options that are not ported raise by name.  ``distributed`` is
     ported (the data-parallel ranks, ``engine.cli``): it is taken, and on
     the CPU with no ``world_size`` it asks for one rank, so the runner
     builds as a single process.  ``layer_decay`` is ported: the runner
     builds the JAX factory's chain with ``num_layers`` from the model
-    (12 where it names no depth)."""
+    (12 where it names no depth).  ``adahessian`` is ported: the runner's
+    step takes the Hutchinson diagonal (``needs_hessian``, as the JAX
+    runner sets it from the name) and trains; with ``use_amp`` (whose
+    second order is not ported) it raises by name."""
     cfg = _load(EasyConfig, _tiny_cfg(tmp_path), opts)
     cfg.run_dir = str(tmp_path / "run")
+    if match == "adahessian":
+        from unittest import mock
+
+        from amcontrast3d_tpu_torch.engine import train as ptrain
+
+        seen = []
+        make = ptrain.make_train_step
+        with mock.patch.object(prunner, "make_train_step",
+                               lambda *a, **k: seen.append(k) or make(*a, **k)):
+            res = prunner.Runner(cfg, kind="aa", device="cpu").train()
+        assert seen and all(k["needs_hessian"] for k in seen)
+        assert np.isfinite(res["timing"][0]["loss"])
+        amp = _load(EasyConfig, _tiny_cfg(tmp_path), opts + ["use_amp=True"])
+        amp.run_dir = str(tmp_path / "amp")
+        with pytest.raises(NotImplementedError, match="use_amp"):
+            prunner.Runner(amp, kind="aa", device="cpu").train()
+        return
     if match == "layer_decay":
         from amcontrast3d_tpu_torch.optim.extras import Chain
 

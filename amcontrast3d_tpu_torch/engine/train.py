@@ -37,6 +37,8 @@ this rank's rows, the model's BatchNorms are synced
 in one all_reduce before the clip and AdamW, the loss and the aux metrics
 are averaged and the confusion matrix summed, and the dropout masks are
 drawn from (seed, step, rank) (↔ ``fold_in(rng, axis_index)``).
+Every seed of a step comes from ``utils.random.fold_in``, so that the
+streams of two seeds share no run of masks.
 """
 from __future__ import annotations
 
@@ -48,9 +50,10 @@ from torch import nn
 from .. import parallel
 from ..optim import clip_by_global_norm_, hutchinson_diag, rademacher_like
 from ..utils.metrics import confusion_matrix_update
+from ..utils.random import fold_in
 
 
-# the probes' seed is the dropout seed plus this, far from any step count
+# the probes' stream is that of the dropout seed plus this
 PROBE_SEED_OFFSET = 0x2545F491
 
 
@@ -149,13 +152,14 @@ def make_train_step(model: nn.Module, criterion: Callable,
     tensors ``pos`` (B, N, 3), ``x`` (B, N, C_in), ``y`` (B, N).
 
     ``generator`` (on the model's device) draws the dropout masks; step s
-    reseeds it with its initial seed + s, so a step's masks depend only
-    on the seed and the step (as JAX folds the step into its key); with
-    ``distributed``, on the rank too (rank r adds r·0x9E3779B9 modulo 2³²,
-    far from any step count).  ``needs_hessian``: the adahessian step (see
-    the module's note); its probes come from ``generator`` reseeded with
-    its initial seed + step + PROBE_SEED_OFFSET (without a generator, one
-    on the parameters' device seeded with step + PROBE_SEED_OFFSET).
+    reseeds it with ``fold_in(seed, s)`` of its initial seed, so a step's
+    masks depend only on the seed and the step (as JAX folds the step into
+    its key ``PRNGKey(seed)``); with ``distributed``, rank r > 0 first
+    folds r into the seed (rank 0's masks are the one-process step's).
+    ``needs_hessian``: the adahessian step (see the module's note); its
+    probes come from ``generator`` reseeded with ``fold_in(seed +
+    PROBE_SEED_OFFSET, s)`` (without a generator, one on the parameters'
+    device, from a seed of 0).
     Nothing is read back to the host."""
     if kind not in ("base", "aa", "mm"):
         raise NotImplementedError(f"train step kind {kind} is not ported")
@@ -165,9 +169,8 @@ def make_train_step(model: nn.Module, criterion: Callable,
         _check_second_order(model, ambiguity_args, distributed)
     seed = generator.initial_seed() if generator is not None else None
     probe_seed = (seed or 0) + PROBE_SEED_OFFSET
-    if seed is not None and distributed:
-        # the CPU generator keeps 32 bits of a seed
-        seed = (seed + parallel.get_rank() * 0x9E3779B9) % 2 ** 32
+    if seed is not None and distributed and parallel.get_rank():
+        seed = fold_in(seed, parallel.get_rank())
     state = {"step": 0, "lr_scale": 1.0}
 
     def hessian(loss, s: int, probes):
@@ -178,7 +181,7 @@ def make_train_step(model: nn.Module, criterion: Callable,
             gen = generator
             if gen is None:
                 gen = torch.Generator(params[0].device)
-            gen.manual_seed((probe_seed + s) % 2 ** 32)
+            gen.manual_seed(fold_in(probe_seed, s))
             probes = rademacher_like(params, gen)
         else:
             if len(probes) != len(params):
@@ -195,7 +198,7 @@ def make_train_step(model: nn.Module, criterion: Callable,
         s = state["step"]
         model.train()
         if generator is not None:
-            generator.manual_seed(seed + s)
+            generator.manual_seed(fold_in(seed, s))
         target = batch["y"]
         loss, logits, aux = forward_loss(model, criterion, kind, batch,
                                          num_classes, ignore_index,

@@ -347,11 +347,30 @@
    of the AA train CLI with ``optimizer.NAME=adahessian`` and
    ``--profile``: its launches a step, and ``<run_dir>/profile/trace.json``
    written with the second-order kernels among its device kernels;
-24. prints one JSON line of per-kernel results (the bfloat16 forms of
+24. "convergence" (``convergence_phase``): the convergence tool's
+   default AA and MM legs (``amcontrast3d_tpu_torch/tools/
+   convergence_check.py``: ``cfgs/synthetic`` rooms, ``dataset.train.loop=8``,
+   colour drop off, validation every epoch, seed CONV_SEED) through the
+   train CLI, cut from 40 epochs to CONV_EPOCHS: the train loss of the
+   last epoch below the first's, the last validation's OA at or above
+   CONV_OA_BAR[kind] (MM's refine rate printed: the tool's 0.05-90 % band
+   is a 40-epoch bar, and the JAX package's own MM leg reads 0.0 % after
+   8 epochs), and the launches a step and a validated cloud held to the
+   S3DIS CLI phases' tables at these shapes (2 x 8192, width 32: decoder
+   coarse widths CONV_FP_CHANNELS, two whole rooms a validation forward).
+   The bars come from the JAX package's own run of the same legs on the CPU
+   (``python tools/convergence_check.py --kinds aa,mm --epochs 8 --seed S
+   --bar 0 --oa-bar 0``, seeds 42 and 142): each kind's lowest final val
+   OA less the larger of 3 points and 3 x its spread over the seeds,
+   rounded down to 2 decimals (AA 96.1395 and 96.1731, so 93.1395 and
+   93.13; MM 96.2128 and 96.5210, so 93.2128 and 93.21).  The two
+   summaries are ``smoke_8_epochs`` in ``docs/CONVERGENCE_jax_cpu_r1.json``;
+25. prints one JSON line of per-kernel results (the bfloat16 forms of
    kernels 20 and 21 in rows of their own; the data-parallel ranks'
    launches under ``launches_by_path`` as ``dp …``) and, last, the device
-   line.  ``--only adahessian`` runs the build and that phase alone (for
-   work on it; the smoke run takes no arguments).
+   line.  ``--only adahessian`` or ``--only convergence`` runs the build
+   and that phase alone (for work on it; the smoke run takes no
+   arguments).
 
 Any failure raises, so the exit code is non-zero; without a CUDA device it
 stops before printing any result.
@@ -526,6 +545,15 @@ AGG_LAUNCHES = sum(XL_BLOCKS) + len(XL_BLOCKS)
 # at stages 1-3; the fused tail: every separable aggregation
 APPROX_LAUNCHES = {k: v for k, v in TRAIN_LAUNCHES.items() if k != "knn"}
 APPROX_LAUNCHES.update(contrast_select=4, label_vote=3)
+# the convergence phase: the convergence tool's AA and MM legs on the
+# synthetic rooms, cut to CONV_EPOCHS epochs; the bars on the last val OA
+# from the JAX package's CPU runs of the same legs (see the docstring, 24)
+SYNTHETIC_CFGS = {kind: os.path.join(REPO, "cfgs", "synthetic",
+                                     f"AMContrast3D-{kind.upper()}.yaml")
+                  for kind in ("aa", "mm")}
+CONV_EPOCHS, CONV_SEED = 8, 42
+CONV_OA_BAR = {"aa": 93.13, "mm": 93.21}
+CONV_FP_CHANNELS = (64, 128, 256, 512)     # width 32's coarse widths, fp0-fp3
 STEP_TIMES = {}   # path: (median ms, peak GiB), for the side-by-side line
 # seconds of the fused aggregation's phases at ScanNet's shapes and of its
 # gate cells, printed with the run's total
@@ -2209,14 +2237,14 @@ def check_launches(path: str, counted: dict, runs: int) -> dict:
     return launches
 
 
-def interp_split(ops, b: int, n: int) -> dict:
+def interp_split(ops, b: int, n: int, channels=FP_CHANNELS) -> dict:
     """The interpolation's launches in one decoder forward over ``b`` clouds
     of ``n`` points (stages n, n // 4, ...; stage s onto s - 1 at coarse
-    width FP_CHANNELS[s - 1]), by the port's gate."""
-    sizes = [n // 4 ** s for s in range(len(FP_CHANNELS) + 1)]
+    width channels[s - 1]), by the port's gate."""
+    sizes = [n // 4 ** s for s in range(len(channels) + 1)]
     big = sum(ops.forward_is_big(b, sizes[s], sizes[s + 1], c)
-              for s, c in enumerate(FP_CHANNELS))
-    split = {"three_interpolation": len(FP_CHANNELS) - big,
+              for s, c in enumerate(channels))
+    split = {"three_interpolation": len(channels) - big,
              "three_interpolation_big": big}
     return {k: v for k, v in split.items() if v}
 
@@ -2800,12 +2828,13 @@ def scene_path(ops, kind: str, dev, tag: str, workdir: str, cfg_path: str,
     return launches
 
 
-def val_forward_launches(ops, kind: str, n: int) -> dict:
-    """The launches of one validation forward of a whole cloud (B = 1) of
-    ``n`` points (its padded size): the interpolation's split by the
-    gates."""
-    want = {"fps_b1": 4, "ball_query": 8, **SORT_LAUNCHES,
-            **interp_split(ops, 1, n)}
+def val_forward_launches(ops, kind: str, n: int, b: int = 1,
+                         channels=FP_CHANNELS) -> dict:
+    """The launches of one validation forward of ``b`` whole clouds (B = 1
+    by default) of ``n`` points (their padded size): the interpolation's
+    split by the gates."""
+    want = {"fps_b1" if b == 1 else "fps": 4, "ball_query": 8,
+            **SORT_LAUNCHES, **interp_split(ops, b, n, channels)}
     if kind == "mm":
         want["refine_cross"] = 4
     return {k: v for k, v in want.items() if v}
@@ -2849,8 +2878,11 @@ def run_train_cli(ops, argv: list, kind: str, main=None):
 
 
 def check_train_cli(ops, path, results, train, val_counts, val_sizes,
-                    per_step, epochs, steps, batch_points, lrs, kind):
-    """The checks every train CLI run shares; returns the timing records."""
+                    per_step, epochs, steps, batch_points, lrs, kind,
+                    val_b: int = 1, channels=FP_CHANNELS):
+    """The checks every train CLI run shares (``val_b`` clouds a validation
+    forward, decoder coarse widths ``channels``); returns the timing
+    records."""
     timing = results["timing"]
     if [t["epoch"] for t in timing] != list(epochs) or \
             any(t["steps"] != steps for t in timing):
@@ -2871,7 +2903,8 @@ def check_train_cli(ops, path, results, train, val_counts, val_sizes,
                              f"expected {per_step}")
     want_val = {}
     for n in val_sizes:
-        for k, v in val_forward_launches(ops, kind, n).items():
+        for k, v in val_forward_launches(ops, kind, n, val_b,
+                                         channels).items():
             want_val[k] = want_val.get(k, 0) + v
     if {k: v for k, v in val_counts.items() if v} != want_val:
         raise AssertionError(f"{path}: validation launches {val_counts}, "
@@ -3310,22 +3343,23 @@ def dp_path(kind: str, knn_backend: str, agg_fused: str, amp: bool) -> str:
     return path
 
 
-def train_launches(ops, b: int) -> dict:
-    """The AA train step's launch table for ``b`` clouds of N points: one
-    cloud's FPS is ``fps_b1``, and the interpolation and its VJP split by
-    the port's gates at that batch."""
-    sizes = [N // 4 ** s for s in range(len(FP_CHANNELS) + 1)]
+def train_launches(ops, b: int, n: int = N, channels=FP_CHANNELS) -> dict:
+    """The AA train step's launch table for ``b`` clouds of ``n`` points
+    (decoder coarse widths ``channels``): one cloud's FPS is ``fps_b1``, and
+    the interpolation and its VJP split by the port's gates at that
+    batch."""
+    sizes = [n // 4 ** s for s in range(len(channels) + 1)]
     big = {gate: sum(gate(b, sizes[s], sizes[s + 1], c)
-                     for s, c in enumerate(FP_CHANNELS))
+                     for s, c in enumerate(channels))
            for gate in (ops.forward_is_big, ops.backward_is_big)}
     want = dict(TRAIN_LAUNCHES, **({"fps_b1": TRAIN_LAUNCHES["fps"]}
                                    if b == 1 else {}))
     if b == 1:
         del want["fps"]
     fwd, bwd = big[ops.forward_is_big], big[ops.backward_is_big]
-    want.update(three_interpolation=len(FP_CHANNELS) - fwd,
+    want.update(three_interpolation=len(channels) - fwd,
                 three_interpolation_big=fwd,
-                three_interpolation_backward=len(FP_CHANNELS) - bwd,
+                three_interpolation_backward=len(channels) - bwd,
                 three_interpolation_backward_big=bwd)
     return {k: v for k, v in want.items() if v}
 
@@ -4694,6 +4728,61 @@ def adahessian_cli_path(ops, dev, tag: str, workdir: str) -> dict:
     return total
 
 
+def convergence_phase(ops, dev, tag: str, workdir: str) -> dict:
+    """The convergence tool's default AA and MM legs through the train CLI,
+    cut to CONV_EPOCHS epochs (docstring, 24); returns the launches of
+    each run by path."""
+    by_path = {}
+    for kind in ("aa", "mm"):
+        path = f"synthetic {kind} train cli"
+        argv = ["--cfg", SYNTHETIC_CFGS[kind], f"epochs={CONV_EPOCHS}",
+                f"seed={CONV_SEED}", f"root_dir={workdir}/convergence_{kind}",
+                "val_freq=1", "dataset.train.loop=8",
+                "datatransforms.kwargs.color_drop=0.0"]
+        t0 = time.perf_counter()
+        results, runner, train, val, sizes, total = run_train_cli(ops, argv,
+                                                                  kind)
+        wall = time.perf_counter() - t0
+        cfg = runner.cfg
+        b, n = cfg.batch_size, cfg.dataset.train.voxel_max
+        rooms, val_b = cfg.dataset.common.num_rooms, cfg.val_batch_size
+        if rooms % val_b:
+            raise AssertionError(f"{path}: {rooms} val rooms in batches of "
+                                 f"{val_b}")
+        per_step = train_launches(ops, b, n, CONV_FP_CHANNELS)
+        if kind == "mm":
+            per_step.update(refine_cross=4, refine_cross_backward=4)
+        steps = rooms * cfg.dataset.train.loop // b
+        epochs = range(1, CONV_EPOCHS + 1)
+        timing = check_train_cli(ops, path, results, train, val, sizes,
+                                 per_step, epochs, steps, b * n,
+                                 [runner.lr_fn(e) for e in epochs], kind,
+                                 val_b, CONV_FP_CHANNELS)
+        losses = [t["loss"] for t in timing]
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"{path}: the train loss did not fall: "
+                                 f"{losses}")
+        if not results["val_oa"] >= CONV_OA_BAR[kind]:
+            raise AssertionError(f"{path}: val OA {results['val_oa']} after "
+                                 f"{CONV_EPOCHS} epochs, below the bar "
+                                 f"{CONV_OA_BAR[kind]}")
+        rate = results.get("refine_rate")
+        epoch_s = [round(t["train_seconds"], 3) for t in timing]
+        print(f"{path}: main_cli mode=train, {CONV_EPOCHS} epochs of {steps} "
+              f"steps at B={b}x{n} on the synthetic rooms, launches per train "
+              f"step {per_step}; validation of {len(sizes)} forwards of "
+              f"{val_b} whole rooms padded to {sorted(set(sizes))} points; "
+              f"losses {[round(x, 4) for x in losses]}; last val OA "
+              f"{results['val_oa']:.3f} (bar {CONV_OA_BAR[kind]}), val mIoU "
+              f"{results['val_miou']:.3f}, best {results['best_val']:.3f}"
+              + (f", refine rate {rate} %" if kind == "mm" else "")
+              + f"; train s an epoch {epoch_s}; {wall:.1f} s in all  [{tag}]")
+        by_path[path] = total
+        del runner
+        torch.cuda.empty_cache()
+    return by_path
+
+
 class Laps:
     """Seconds from one lap call to the next, by phase name."""
 
@@ -4741,6 +4830,12 @@ def main() -> None:
             by_path, kernels = adahessian_phase(ops, dev, tag, workdir)
         lap("adahessian")
         print_results(by_path, kernels, HESS_KERNELS, t0, lap)
+        return
+    if sys.argv[1:] == ["--only", "convergence"]:
+        with tempfile.TemporaryDirectory() as workdir:
+            by_path = convergence_phase(ops, dev, tag, workdir)
+        lap("convergence")
+        print_results(by_path, {}, (), t0, lap)
         return
     if sys.argv[1:]:
         raise SystemExit(f"chip_smoke: unknown arguments {sys.argv[1:]}")
@@ -4838,6 +4933,8 @@ def main() -> None:
             ops, "aa", dev, tag, workdir, amp=True)
         torch.cuda.empty_cache()
         lap("the train CLIs")
+        by_path.update(convergence_phase(ops, dev, tag, workdir))
+        lap("convergence")
         hess_paths, hess_kernels = adahessian_phase(ops, dev, tag, workdir)
         by_path.update(hess_paths)
         kernels.update(hess_kernels)

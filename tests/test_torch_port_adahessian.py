@@ -14,6 +14,12 @@
   ``jax.jvp`` of ``jax.grad``), the loss and the parameters after the
   update.  The batch and the batch statistics are arguments of JAX's
   ``jit``, not constants.
+* The Hessian-vector product of one stage's contrast loss (through
+  ``_ContrastVJP``'s second order) and of a smooth function of the
+  CrossMask refinement (through ``_DualMasksCrossBackward``'s), each alone,
+  against ``jax.jvp`` of ``jax.grad`` of the JAX function, on a dyadic grid
+  with no tie at any neighbourhood's edge: within 1e-4 relative L2 and 1e-4
+  of the largest entry.
 * ``gradcheck`` / ``gradgradcheck`` in float64 of each second-order rule's
   plain twin on tiny shapes; the fused aggregation tail's diagonal against
   the gather tail's on one model (the same function); a second-order pass
@@ -36,9 +42,11 @@ import torch
 
 from amcontrast3d_tpu.engine import train as jtrain
 from amcontrast3d_tpu.loss import build_criterion_from_cfg as jax_criterion
+from amcontrast3d_tpu.loss import contrast as jcontrast
 from amcontrast3d_tpu.models import BaseSeg_AMContrast3D as JaxAA
 from amcontrast3d_tpu.models import BaseSeg_M_AMContrast3D as JaxMM
 from amcontrast3d_tpu.models import build_model_from_cfg as jax_model
+from amcontrast3d_tpu.models import refine as jrefine
 from amcontrast3d_tpu.optim.adahessian import adahessian as jax_adahessian
 from amcontrast3d_tpu.optim.adahessian import hutchinson_diag as jax_hutchinson
 from amcontrast3d_tpu.optim.adahessian import rademacher_tree
@@ -46,9 +54,11 @@ from amcontrast3d_tpu.optim import build_optimizer_from_cfg as jax_optimizer
 from amcontrast3d_tpu.optim import extras as jextras
 from amcontrast3d_tpu_torch.engine import make_train_step
 from amcontrast3d_tpu_torch.loss import build_criterion_from_cfg
+from amcontrast3d_tpu_torch.loss import point_contrast_margin
 from amcontrast3d_tpu_torch.models import (BaseSeg_AMContrast3D,
                                            BaseSeg_M_AMContrast3D,
                                            build_model_from_cfg)
+from amcontrast3d_tpu_torch.models import refine as port_refine
 from amcontrast3d_tpu_torch.ops import aggregate as pagg
 from amcontrast3d_tpu_torch.ops import contrast as pcontrast
 from amcontrast3d_tpu_torch.ops import interpolate as pinterp
@@ -205,7 +215,14 @@ def test_hessian_diagonal_matches_jax(reference, port_step):
     ``test_torch_port_train.py`` (0.4 % over all, up to 1.7 % a tensor
     there); measured here (N = 2048) base 7.5e-5 of the largest entry at
     worst and 3.9e-5 over all, AA 3.2e-2 (the decoder's fp0 BatchNorm) and
-    4.4e-3, MM 3.8e-2 and 4.8e-3, a leaf's relative L2 at most 3.3e-2.  A
+    4.4e-3, MM 3.8e-2 and 4.8e-3, a leaf's relative L2 at most 3.3e-2.
+    The two hand-written second orders that only AA and MM run are each
+    held alone to JAX's jvp at 1e-4 (measured: the contrast loss at most
+    4.4e-7 relative L2 and 4.9e-7 of the largest entry, the CrossMask
+    3.9e-8 and 5.8e-8;
+    ``test_contrast_hessian_vector_product_matches_jax``,
+    ``test_crossmask_hessian_vector_product_matches_jax``), so the larger
+    gap on those two models comes from the ties, not from a missing term.  A
     bias ahead of a BatchNorm has an exact diagonal of 0 and holds
     rounding noise (up to 1.4e-4 of the model's largest entry an element
     on AA): the relative L2 has a floor of 2e-4 of that entry an
@@ -260,6 +277,103 @@ def test_adahessian_step_matches_jax(reference, port_step):
     diffs = np.concatenate(diffs)
     for bound, share in ((1e-5, 0.97), (1e-4, 0.99), (1e-3, 0.995)):
         assert (diffs <= bound).mean() >= share, (bound, (diffs <= bound).mean())
+
+
+def _tie_free_dyadic_cloud(rng, n, k):
+    """Two clouds of ``n`` points on a 1/64 grid in [0, 4)³ (every d² exact
+    in float32), redrawn where a point's k-th and (k+1)-th nearest d² tie
+    (self included), so that no neighbourhood's edge is tied."""
+    p = (rng.randint(0, 256, (2, n, 3)) / 64).astype(np.float32)
+    for _ in range(100):
+        d2 = np.sort(((p[:, :, None].astype(np.float64) - p[:, None]) ** 2)
+                     .sum(-1), -1)
+        bad = ~(d2[..., k] > d2[..., k - 1])
+        if not bad.any():
+            return p
+        p[bad] = rng.randint(0, 256, (int(bad.sum()), 3)) / 64
+    raise AssertionError("no tie-free cloud")
+
+
+def _hvp_close(got, want):
+    """Within 1e-4 relative L2 and 1e-4 of the largest entry."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    assert got.shape == want.shape
+    assert np.linalg.norm(got - want) <= 1e-4 * np.linalg.norm(want)
+    assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max()
+
+
+def _port_hvp(loss_of, f, v):
+    """Reverse over reverse: the gradient of ⟨∇L(f), v⟩ in f."""
+    ft = _t(f).requires_grad_()
+    (g,) = torch.autograd.grad(loss_of(ft), ft, create_graph=True)
+    (hv,) = torch.autograd.grad(g, ft, grad_outputs=_t(v))
+    return g.detach().numpy(), hv.numpy()
+
+
+@pytest.mark.parametrize("over", [{}, {"margin": "learned"}],
+                         ids=["aa_cfg", "learned"])
+def test_contrast_hessian_vector_product_matches_jax(over):
+    """One stage's contrast loss (``cfgs/s3dis/AMContrast3D-AA.yaml``'s
+    Method2, adaptive margin, nsample 24, T 0.3; and the learned margin,
+    whose s_pos / s_neg sums add the VJP's s terms), N = 512, C = 32,
+    Voronoi labels: the port's H·v (the second order of ``_ContrastVJP``,
+    the plain twin of kernels 15/16's second order) against
+    ``jax.jvp(jax.grad(L), (f,), (v,))`` of JAX's ``point_contrast_margin``
+    (its gather path, what it runs on the CPU), and the gradient beside it.
+    The features are the one input with a derivative: JAX takes the
+    ambiguity under ``stop_gradient`` from the labels."""
+    rng = np.random.RandomState(21)
+    p = _tie_free_dyadic_cloud(rng, 512, AMB["nsample"])
+    centres = rng.rand(2, 4, 3) * 4
+    y = ((p[:, :, None] - centres[:, None]) ** 2).sum(-1).argmin(-1)
+    labels = np.eye(4, dtype=np.float32)[y]
+    f = rng.randn(2, 512, 32).astype(np.float32)
+    v = rng.randn(2, 512, 32).astype(np.float32)
+    args = {**AMB, **over}
+    g, hv = _port_hvp(lambda ft: point_contrast_margin(
+        _t(p), ft, _t(labels), args)[0], f, v)
+
+    def jloss(ff):
+        return jcontrast.point_contrast_margin(
+            jnp.asarray(p), ff, jnp.asarray(labels), {**args, "fused": False})[0]
+    jg, jhv = jax.jvp(jax.grad(jloss), (jnp.asarray(f),), (jnp.asarray(v),))
+    _hvp_close(g, jg)
+    _hvp_close(hv, jhv)
+
+
+@pytest.mark.parametrize("fusion,gamma", [("MIN", 1.0), ("MIN_ALL0", 0.5)])
+def test_crossmask_hessian_vector_product_matches_jax(fusion, gamma):
+    """L = Σ w·r + Σ u·r² + Σ r³ / 10 of the refined features r =
+    ``dual_masks(p, f, a, 12, fusion, 0.5, 1.0, gamma)`` (N = 300, C = 16,
+    an ambiguity with 40 % exact zeros): the port's H·v (the second order
+    of ``_DualMasksCrossBackward``, the plain twin of kernel 19's second
+    order) against JAX's jvp of the gradient of the same L over
+    ``models/refine.py::dual_masks``.  The masks are discrete in a, so f is
+    the one input with a derivative in both packages."""
+    rng = np.random.RandomState(22)
+    p = _tie_free_dyadic_cloud(rng, 300, 12)
+    f, w, v = (rng.randn(2, 300, 16).astype(np.float32) for _ in range(3))
+    u = rng.rand(2, 300, 16).astype(np.float32)
+    a = np.where(rng.rand(2, 300) < 0.4, 0.0, rng.rand(2, 300)).astype(np.float32)
+
+    def smooth(r, lib):
+        return (r * lib.asarray(w)).sum() + (r ** 2 * lib.asarray(u)).sum() + \
+            (r ** 3).sum() / 10
+
+    def port_loss(ft):
+        r, rate = port_refine.dual_masks(_t(p), ft, _t(a), 12, fusion, 0.5,
+                                         1.0, gamma)
+        assert 5 < rate.item() < 95
+        return smooth(r, torch)
+
+    def jloss(ff):
+        r, _ = jrefine.dual_masks(jnp.asarray(p), ff, jnp.asarray(a), 12,
+                                  fusion, 0.5, 1.0, gamma)
+        return smooth(r, jnp)
+    g, hv = _port_hvp(port_loss, f, v)
+    jg, jhv = jax.jvp(jax.grad(jloss), (jnp.asarray(f),), (jnp.asarray(v),))
+    _hvp_close(g, jg)
+    _hvp_close(hv, jhv)
 
 
 GROUP = {"NAME": "ballquery", "radius": 0.15, "nsample": 8, "normalize_dp": True}

@@ -334,6 +334,35 @@ def test_convblock_train_mode_matches_jax(shape):
                                rtol=1e-5, atol=1e-6)
 
 
+def test_seghead_dropout_matches_jax_in_distribution():
+    """The head in training mode over 200 dropout draws each side (flax
+    keys 0-199, port generators seeded 0-199), from the same weights and
+    input: each logit's mean over the draws agrees as two samples of one
+    distribution do (the mean |z| of their difference 0.8 ± 0.1; equal
+    distributions give √(2/π) ≈ 0.80) and its spread over the draws within
+    3 %.  A mask drawn once, another rate or another scale fails."""
+    rng = np.random.RandomState(0)
+    f = rng.randn(2, 300, 32).astype(np.float32)
+    jhead = jpn.SegHead(num_classes=NCLS, in_channels=32,
+                        norm_args={"norm": "bn"})
+    variables = jhead.init({"params": jax.random.PRNGKey(0)}, jnp.asarray(f),
+                           training=False)
+    head = SegHead(NCLS, 32, norm_args={"norm": "bn"})
+    head.load_state_dict(from_jax_variables(variables), strict=True)
+    head.train()
+    draw = jax.jit(lambda key: jhead.apply(
+        variables, jnp.asarray(f), training=True, mutable=["batch_stats"],
+        rngs={"dropout": key})[0])
+    want = np.stack([np.asarray(draw(jax.random.PRNGKey(i)))
+                     for i in range(200)])
+    got = np.stack([head(_t(f), torch.Generator().manual_seed(i)).detach()
+                    .numpy() for i in range(200)])
+    se = np.sqrt((want.var(0) + got.var(0)) / 200)
+    z = np.abs(want.mean(0) - got.mean(0)) / se
+    assert 0.7 <= z.mean() <= 0.9, z.mean()
+    assert abs(got.std(0).mean() / want.std(0).mean() - 1) <= 0.03
+
+
 def test_seghead_dropout_is_reproducible_from_its_generator():
     """Training-mode dropout draws from the generator it is given: the
     same seed gives the same output, another seed another; without a

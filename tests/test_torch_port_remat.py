@@ -5,9 +5,9 @@ Remat checkpoints each set abstraction and block of the encoder and each
 stage's margin loss (``torch.utils.checkpoint``, not reentrant).  A train
 step with either or both switches on gives the loss, every gradient, every
 parameter after AdamW and every BatchNorm statistic of the step without
-them, bit for bit, from one state (small AA and MM models, width 16, three
-stages of 1024 / 256 / 64 points, one cloud, on the gather tail and the fused tail,
-float32 and bfloat16); counters show that the recompute runs no FPS, ball
+them, bit for bit, from one state (small AA and MM models, width 16, two
+clouds of three stages of 512 / 128 / 32 points, on the gather tail and the
+fused tail, float32 and bfloat16); counters show that the recompute runs no FPS, ball
 query, sort, kNN, threshold selection or contrast forward, and that every
 BatchNorm moved its statistics once.
 
@@ -92,13 +92,14 @@ def _stage_clouds(pos):
     return stages, origs
 
 
-def _batch(rng):
-    """Positions on a 1/256 grid in [0, 4)³, redrawn where a stage point's
-    k-th and (k+1)-th neighbour tie (the port's threshold neighbourhoods and
-    JAX's K slots agree only without such ties); Voronoi labels."""
-    pos = (rng.randint(0, 1024, (B, N, 3)) / 256).astype(np.float32)
+def _batch(rng, n=N):
+    """B clouds of ``n`` positions on a 1/256 grid in [0, 4)³, redrawn where
+    a stage point's k-th and (k+1)-th neighbour tie (the port's threshold
+    neighbourhoods and JAX's K slots agree only without such ties); Voronoi
+    labels."""
+    pos = (rng.randint(0, 1024, (B, n, 3)) / 256).astype(np.float32)
     for _ in range(50):
-        bad = np.zeros((B, N), bool)
+        bad = np.zeros((B, n), bool)
         for ps, orig in zip(*_stage_clouds(pos)):
             d2 = np.sort(((ps[:, :, None].astype(np.float64) - ps[:, None]) ** 2)
                          .sum(-1), -1).astype(np.float32)
@@ -113,13 +114,19 @@ def _batch(rng):
         raise AssertionError("no tie-free cloud")
     centres = rng.rand(B, NCLS, 3) * 4
     y = ((pos[:, :, None] - centres[:, None]) ** 2).sum(-1).argmin(-1)
-    return {"pos": pos, "x": rng.rand(B, N, 4).astype(np.float32),
+    return {"pos": pos, "x": rng.rand(B, n, 4).astype(np.float32),
             "y": y.astype(np.int64)}
 
 
 @pytest.fixture(scope="module")
 def batch():
     return _batch(np.random.RandomState(0))
+
+
+@pytest.fixture(scope="module")
+def small_batch():
+    """Two clouds of 512 points, tie-free as ``batch``."""
+    return _batch(np.random.RandomState(1), 512)
 
 
 def _model(kind, dtype, remat: bool):
@@ -177,7 +184,7 @@ def _counted_step(kind, dtype, remat, enc_remat, batch):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("fused", [False, True])
 @pytest.mark.parametrize("kind", ["aa", "mm"])
-def test_remat_step_is_identical(batch, kind, fused, dtype):
+def test_remat_step_is_identical(small_batch, kind, fused, dtype):
     """With ``encoder_args.remat`` and ``ambiguity_args.remat`` (each alone
     and both), a train step from one state gives the same loss, gradients,
     parameters after AdamW and BatchNorm statistics as the step without, bit
@@ -186,12 +193,11 @@ def test_remat_step_is_identical(batch, kind, fused, dtype):
     encoder's aggregations again (``grouped_slot_reduce`` on the fused
     tail: once more a set abstraction or block); every BatchNorm moved its
     running statistics once (``num_batches_tracked`` 1).  The steps take
-    the first cloud of the module's batch (its stages tie-free as the
-    batch's; one cloud halves the eight cases' time)."""
-    one = {k: v[:1] for k, v in batch.items()}
+    two clouds of 512 points (B = 2: the BatchNorm statistics and the
+    contrast's stages span both clouds)."""
     try:
         pagg.set_agg_fused("on" if fused else "off")
-        runs = {flags: _counted_step(kind, dtype, *flags, one)
+        runs = {flags: _counted_step(kind, dtype, *flags, small_batch)
                 for flags in ((False, False), (True, False), (False, True),
                               (True, True))}
     finally:

@@ -559,6 +559,51 @@ def test_schedule_matches_jax():
     assert torch.isfinite(linear.weight).all()
 
 
+class _SeedNet(torch.nn.Module):
+    """Keeps the dropout generator's seed of every forward."""
+
+    def __init__(self):
+        super().__init__()
+        self.lin = torch.nn.Linear(4, NCLS)
+        self.seeds = []
+
+    def forward(self, pos, x, generator=None):
+        self.seeds.append(generator.initial_seed())
+        return self.lin(x)
+
+
+def test_dropout_seeds_of_two_seeds_share_no_step():
+    """Step s reseeds the dropout generator with ``fold_in(seed, s)``
+    (↔ ``jax.random.fold_in(PRNGKey(seed), s)``): a rerun takes the same
+    seeds, and the runs of seeds 43 and 143 (the delta gate's seeds 42 and
+    142, plus one) share none over 200 steps, where ``seed + s`` gave them
+    100 in common, step s + 100 of one being step s of the other."""
+    from amcontrast3d_tpu_torch.utils.random import fold_in
+    rng = np.random.RandomState(3)
+    batch = {"pos": _t(rng.rand(2, 16, 3).astype(np.float32)),
+             "x": _t(rng.rand(2, 16, 4).astype(np.float32)),
+             "y": _t(rng.randint(0, NCLS, (2, 16)))}
+
+    def run(seed, steps=200):
+        model = _SeedNet()
+        step = make_train_step(
+            model, lambda logits, y: torch.nn.functional.cross_entropy(
+                logits.reshape(-1, NCLS), y.reshape(-1)),
+            torch.optim.SGD(model.parameters(), lr=0.01), 0.01, "base", NCLS,
+            generator=torch.Generator().manual_seed(seed))
+        for _ in range(steps):
+            step(batch)
+        return model.seeds
+
+    first = run(43)
+    assert first == [fold_in(43, s) for s in range(200)]
+    assert run(43, 3) == first[:3]
+    assert not set(first) & set(run(143))
+    assert len(set(first)) == 200
+    assert all(0 <= x < 2 ** 63 for x in first)
+    assert len(set(range(43, 243)) & set(range(143, 343))) == 100
+
+
 def test_dropout_masks_follow_the_seed_and_the_step():
     """With dropout on, two runs from one seed take identical steps, and
     a run from another seed does not."""
